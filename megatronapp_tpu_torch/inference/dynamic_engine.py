@@ -1,0 +1,771 @@
+"""Dynamic inference engine: continuous batching over the paged KV pool.
+
+The JAX package's inference/dynamic_engine.py with ``paged=True``:
+requests of different lengths enter a waiting queue; the engine admits
+them into free slots by block availability (inference/paged_cache.py),
+prefills the uncached prompt tail in fixed-size chunks through the ragged
+multi-query step, decodes ONE token per step for every active slot through
+the one-token paged step, preempts the lowest-priority running request
+when the pool runs dry, and retires finished requests — new requests join
+mid-flight without draining the batch. Both steps attend through the
+hand-written paged-attention kernel (ops/cuda/paged_attention.py).
+
+Where the JAX engine jits each step and donates the pools, this engine
+runs eagerly on the card and writes the pools IN PLACE. All per-step
+metadata (page tables, lengths, the rows each step writes) is built on the
+host and copied to the card without waiting on it; the one host
+synchronisation per step is reading the sampled tokens back, as
+``jax.device_get`` is in the JAX engine.
+
+Sampling: greedy rows take the argmax, exactly as the JAX engine does.
+Sampled rows cannot reproduce JAX's ``fold_in`` key chains; each draws
+Gumbel noise from a ``torch.Generator`` seeded from (seed, request id,
+step), so a request's stream is reproducible and independent of what else
+is in the batch.
+
+Not on this slice (each raises at construction): the dense slot cache,
+speculative decoding, LoRA adapters, the host spill tier, the fused
+(megakernel) decode step, tensor-parallel meshes and quantized KV pools.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.inference.engine import (
+    SamplingParams, mask_padded_vocab,
+)
+from megatronapp_tpu_torch.inference.paged_cache import PagedKVCache, cdiv
+from megatronapp_tpu_torch.models.gpt import (
+    gpt_embed, gpt_head, gpt_rope_tables,
+)
+from megatronapp_tpu_torch.ops.paged_attention import paged_write_index
+from megatronapp_tpu_torch.trace.request_trace import get_request_tracer
+from megatronapp_tpu_torch.transformer.block import layer_forward
+from megatronapp_tpu_torch.utils import metrics as telemetry
+from megatronapp_tpu_torch.utils.device import host_to, resolve_device
+
+
+class DeadlineExceeded(RuntimeError):
+    """A request's deadline passed: rejected at admission, or aborted
+    mid-flight by the engine/stepper (its pool blocks are reclaimed on
+    the retire path like any finished request)."""
+
+
+def validate_admission(prompt_tokens, max_new_tokens: int,
+                       max_seq_len: int, pool=None,
+                       deadline_s=None) -> np.ndarray:
+    """Admission validation: deadline, non-empty prompt, sequence bound
+    and pool-capacity bound. Returns the normalized int32 prompt."""
+    if deadline_s is not None and time.monotonic() >= deadline_s:
+        raise DeadlineExceeded(
+            "request deadline already expired at admission")
+    prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+    if len(prompt) == 0:
+        raise ValueError(
+            "empty prompt: prefill samples the first token from the "
+            "last PROMPT position, so at least one token (e.g. BOS/"
+            "eod) is required")
+    if len(prompt) + max_new_tokens > max_seq_len:
+        raise ValueError(
+            f"prompt({len(prompt)}) + max_new({max_new_tokens}) exceeds "
+            f"max_seq_len({max_seq_len})")
+    if pool is not None:
+        need = cdiv(len(prompt) + max_new_tokens, pool.block_size)
+        if need > pool.num_blocks:
+            raise ValueError(
+                f"request needs {need} blocks "
+                f"(prompt {len(prompt)} + max_new {max_new_tokens} at "
+                f"block_size {pool.block_size}) but the pool has "
+                f"only {pool.num_blocks}")
+    return prompt
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.
+
+    priority: lower = more important; the engine preempts the highest
+    (priority, request_id) running request when the block pool is
+    exhausted. deadline_s: absolute time.monotonic() deadline; overdue
+    requests are aborted by step()'s expiry sweep (event key
+    "expired")."""
+    request_id: int
+    prompt: np.ndarray                  # [P] int32
+    max_new_tokens: int
+    sampling: SamplingParams
+    eod_id: Optional[int] = None
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    # Filled by the engine:
+    slot: int = -1
+    generated: list = dataclasses.field(default_factory=list)
+    finished: bool = False
+    # First admission time (time-to-first-token measures from here) and
+    # the time the request last entered the queue (queue-wait telemetry).
+    admit_t: float = 0.0
+    queued_t: float = 0.0
+
+    @property
+    def tokens(self) -> np.ndarray:
+        return np.concatenate([self.prompt,
+                               np.asarray(self.generated, np.int32)])
+
+
+def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
+                page_table, starts, chunk_counts, write_index):
+    """Walk the per-layer modules (the JAX step's ``lax.scan`` over the
+    stacked block) with layer l reading and writing pool slice l."""
+    pk, pv = pages
+    for lid, layer_p in enumerate(params["layers"]):
+        (h, _), _ = layer_forward(
+            layer_p, h, cfg, cos, sin, kv_cache=(pk[lid], pv[lid]), cache_positions=starts,
+            page_table=page_table, chunk_counts=chunk_counts,
+            write_index=write_index)
+    return h
+
+
+def _rope_rows(positions, rope_tables):
+    cos_full, sin_full = rope_tables
+    if cos_full is None:
+        return None, None
+    idx = positions.long()
+    return cos_full[idx], sin_full[idx]
+
+
+def _paged_decode_step(params, tokens, pages, page_table, lengths,
+                       cfg: TransformerConfig, write_index, rope_tables):
+    """One-token decode for every slot against the paged block pool.
+
+    tokens [B, 1]; pages (k [L, NB, bs, Hkv, D], v like k), written in
+    place; page_table [B, MB] int32; lengths [B] int32 append positions.
+    write_index: the rows' ``paged_write_index`` (the JAX step's `active`
+    mask: inactive rows are not in it, so their writes are dropped and
+    their outputs are garbage). rope_tables: ``gpt_rope_tables`` over
+    [0, max_seq_len). Returns (last_logits [B, V] fp32, pages)."""
+    h = gpt_embed(params, tokens, cfg, position_ids=lengths[:, None])
+    cos, sin = _rope_rows(lengths, rope_tables)
+    if cos is not None:
+        cos, sin = cos[:, None], sin[:, None]            # [B, 1, half]
+    h = _run_layers(params, h, cfg, cos, sin, pages, page_table, lengths,
+                    None, write_index)
+    return gpt_head(params, h, cfg)[:, -1], pages
+
+
+def _paged_multiquery_step(params, tokens, pages, page_table, starts,
+                           q_lens, cfg: TransformerConfig, max_seq_len: int,
+                           write_index, rope_tables):
+    """Ragged multi-token step against the paged pool (chunked prefill).
+
+    tokens [B, S]; starts [B] per-row append positions; q_lens [B] valid
+    token counts in [1, S] (rows past a row's count are padding whose
+    outputs are garbage). Row b's token i lands at position starts[b] + i
+    and attends the paged context plus the new tail causally. write_index
+    and rope_tables as for ``_paged_decode_step``. Returns (logits
+    [B, S, V], hidden [B, S, H] pre-head, pages)."""
+    s = tokens.shape[1]
+    positions = starts[:, None] + torch.arange(
+        s, device=tokens.device, dtype=starts.dtype)[None, :]
+    positions = positions.clamp(max=max_seq_len - 1)
+    h = gpt_embed(params, tokens, cfg, position_ids=positions)
+    cos, sin = _rope_rows(positions, rope_tables)
+    h = _run_layers(params, h, cfg, cos, sin, pages, page_table, starts,
+                    q_lens, write_index)
+    return gpt_head(params, h, cfg), h, pages
+
+
+def _row_seed(seed: int, rid: int, step: int) -> int:
+    """A 63-bit generator seed from (seed, request id, step): splitmix64
+    over the triple, so neighbouring triples share no stream."""
+    z = 0
+    for v in (seed, rid, step):
+        z = (z ^ (v & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
+        z &= 0xFFFFFFFFFFFFFFFF
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+        z ^= z >> 31
+    return z >> 1
+
+
+def _warp_logits(logits, temps, top_ks, top_ps):
+    """Per-row temperature → top-k → top-p filtering ([N, V] → [N, V],
+    filtered entries at -1e30), the JAX engine's _warp_logits."""
+    v = logits.shape[-1]
+    x = logits / temps[:, None].clamp(min=1e-6)
+    sorted_desc = x.sort(dim=-1, descending=True).values
+    k_idx = (top_ks - 1).clamp(0, v - 1).long()
+    kth = sorted_desc.gather(-1, k_idx[:, None])
+    x = torch.where((top_ks[:, None] > 0) & (x < kth),
+                    torch.full_like(x, -1e30), x)
+    sorted2 = x.sort(dim=-1, descending=True).values
+    cum = torch.softmax(sorted2, dim=-1).cumsum(dim=-1)
+    cutoff_idx = (cum < top_ps[:, None]).sum(dim=-1).clamp(max=v - 1)
+    cutoff = sorted2.gather(-1, cutoff_idx[:, None])
+    return torch.where((top_ps[:, None] > 0.0) & (x < cutoff),
+                       torch.full_like(x, -1e30), x)
+
+
+def _sample_rows(logits, rows: Dict[str, np.ndarray]) -> torch.Tensor:
+    """logits [B, V] fp32 → tokens [B] int64 on the logits' device.
+    Greedy rows: argmax. Sampled rows: argmax of the warped logits plus
+    Gumbel noise drawn from the row's own generator, seeded from (seed,
+    request id, step) — independent of batch composition."""
+    greedy = logits.argmax(dim=-1)
+    sampled_rows = np.flatnonzero(rows["sampled"])
+    if len(sampled_rows) == 0:
+        return greedy
+    dev = logits.device
+    idx = host_to(sampled_rows, dev)
+    x = _warp_logits(
+        logits[idx],
+        host_to(rows["temps"][sampled_rows], dev),
+        host_to(rows["top_ks"][sampled_rows], dev),
+        host_to(rows["top_ps"][sampled_rows], dev))
+    noise = torch.empty_like(x)
+    for j, i in enumerate(sampled_rows):
+        g = torch.Generator(device=dev)
+        g.manual_seed(_row_seed(int(rows["seeds"][i]), int(rows["rids"][i]),
+                                int(rows["steps"][i])))
+        noise[j].uniform_(generator=g)
+    gumbel = -torch.log(-torch.log(noise.clamp(min=1e-20)))
+    out = greedy.clone()
+    out[idx] = (x + gumbel).argmax(dim=-1)
+    return out
+
+
+class DynamicInferenceEngine:
+    """Continuous-batching engine over the paged KV pool.
+
+    add_request() any time; step() decodes one token for every active
+    request and admits waiting requests into free slots. block_size /
+    num_blocks size the pool (num_blocks defaults to dense capacity —
+    pass less to run oversubscribed with preemption) and
+    enable_prefix_caching turns shared-prefix block reuse on or off.
+
+    device: where params, the pool and every step live. None means the
+    card; a host without one raises — pass device="cpu" to run the plain
+    versions of the kernels on the CPU (the tests do)."""
+
+    def __init__(self, params, cfg: TransformerConfig, tokenizer=None,
+                 max_batch: int = 4, max_seq_len: Optional[int] = None,
+                 paged: bool = True, block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 enable_prefix_caching: bool = True,
+                 prefill_chunk: int = 32, kv_cache_dtype: str = "bf16",
+                 device=None, spec_method: Optional[str] = None,
+                 fused_decode: bool = False, adapter_cache=None,
+                 spill_host_mb: float = 0.0, ctx=None):
+        unported = {
+            "paged=False (the dense slot cache)": not paged,
+            "spec_method (speculative decoding)":
+                spec_method not in (None, "none"),
+            "fused_decode (the megakernel decode step)": fused_decode,
+            "adapter_cache (batched LoRA serving)":
+                adapter_cache is not None,
+            "spill_host_mb (the host-RAM spill tier)": bool(spill_host_mb),
+            "ctx (tensor-parallel serving meshes)": ctx is not None,
+        }
+        asked = [name for name, on in unported.items() if on]
+        if asked:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(asked)} — the port's first "
+                "slice serves the paged engine only (see ROADMAP.md)")
+        self.device = resolve_device(device)
+        self.params = params.to(self.device)
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.max_batch = max_batch
+        self.max_seq_len = max_seq_len or cfg.max_position_embeddings
+        self.prefill_chunk = min(prefill_chunk, self.max_seq_len)
+        # Rolling reload (DynamicBatchingDriver.request_reload): while
+        # True, _admit leaves the waiting queue untouched.
+        self.pause_admission = False
+        self.pool = PagedKVCache(
+            cfg, max_batch, self.max_seq_len, num_blocks=num_blocks,
+            block_size=block_size,
+            enable_prefix_caching=enable_prefix_caching,
+            kv_cache_dtype=kv_cache_dtype, device=self.device)
+        self.rope_tables = gpt_rope_tables(cfg, self.max_seq_len,
+                                           device=self.device)
+        self._rt = get_request_tracer()
+        self._last_round_t: Optional[float] = None
+        self.lengths = np.zeros((max_batch,), np.int32)
+        self.last_tokens = np.zeros((max_batch, 1), np.int32)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.waiting: deque = deque()
+        self.requests: Dict[int, Request] = {}
+        self._aborted: List[Request] = []   # aborted mid-admission
+        self._ids = itertools.count()
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+
+    def _to_dev(self, arr, dtype=None) -> torch.Tensor:
+        return host_to(arr, self.device, dtype)
+
+    # ---- request lifecycle ------------------------------------------------
+    def add_request(self, prompt_tokens, max_new_tokens: int,
+                    sampling: Optional[SamplingParams] = None,
+                    eod_id: Optional[int] = None,
+                    priority: int = 0,
+                    deadline_s: Optional[float] = None,
+                    request_id: Optional[int] = None) -> int:
+        prompt = validate_admission(prompt_tokens, max_new_tokens,
+                                    self.max_seq_len, pool=self.pool,
+                                    deadline_s=deadline_s)
+        now = time.monotonic()
+        if request_id is None:
+            request_id = next(self._ids)
+        elif request_id in self.requests:
+            raise ValueError(f"request id {request_id} already admitted")
+        req = Request(request_id, prompt, max_new_tokens,
+                      sampling or SamplingParams(), eod_id=eod_id,
+                      priority=priority, deadline_s=deadline_s,
+                      admit_t=now, queued_t=now)
+        self.waiting.append(req)
+        self.requests[req.request_id] = req
+        telemetry.inc("serving_requests_admitted")
+        rt = self._rt
+        if rt.enabled:
+            rt.instant("admit", req.request_id,
+                       prompt_tokens=len(prompt), priority=priority)
+            rt.begin("request", req.request_id)
+            rt.begin("queue-wait", req.request_id)
+        return req.request_id
+
+    def pop_request(self, request_id: int) -> Optional[Request]:
+        """Remove and return a finished request (server-side consumers)."""
+        return self.requests.pop(request_id, None)
+
+    def abort_request(self, request_id: int) -> Optional[str]:
+        """Cancel a request. Returns 'waiting' if it was dequeued before
+        running (no finish event will fire), 'running' if it was marked
+        to retire on the next step, or None if unknown/already done."""
+        req = self.requests.get(request_id)
+        if req is None:
+            return None
+        if req in self.waiting:
+            try:
+                self.waiting.remove(req)
+            except ValueError:
+                pass    # raced with admission: treat as running below
+            else:
+                req.finished = True
+                self._rt.finish(request_id, "abort")
+                return "waiting"
+        if not req.finished:
+            req.finished = True
+            self._rt.instant("abort", request_id)
+            return "running"
+        return None
+
+    def expire_overdue(self, now: Optional[float] = None) -> List[int]:
+        """Abort every request whose deadline passed: waiting ones leave
+        the queue immediately; running ones are marked finished, so the
+        same step's retire pass releases their slot and pool blocks.
+        Returns the expired request ids."""
+        if now is None:
+            now = time.monotonic()
+        expired: List[int] = []
+
+        def overdue(r: Request) -> bool:
+            return (r.deadline_s is not None and not r.finished
+                    and now >= r.deadline_s)
+
+        # Snapshot the waiting deque tolerantly: submit() may append
+        # concurrently (deque iteration raises RuntimeError on mutation);
+        # expiry is re-checked every step, so skipping one sweep is
+        # harmless.
+        for _ in range(4):
+            try:
+                overdue_waiting = [r for r in self.waiting if overdue(r)]
+                break
+            except RuntimeError:
+                continue
+        else:
+            overdue_waiting = []
+        for req in overdue_waiting:
+            try:
+                self.waiting.remove(req)
+            except ValueError:
+                continue    # cancelled concurrently: already retiring
+            req.finished = True
+            self._aborted.append(req)    # finish event fires this step
+            expired.append(req.request_id)
+            self._rt.finish(req.request_id, "expire")
+        for req in self.slots:
+            if req is not None and overdue(req):
+                req.finished = True      # retired (blocks released) below
+                expired.append(req.request_id)
+                self._rt.instant("expire", req.request_id)
+        if expired:
+            telemetry.inc("serving_deadline_expired", len(expired))
+        return expired
+
+    def abort_all(self):
+        """Drop ALL queued and running requests (server error recovery),
+        releasing pool blocks so the bookkeeping stays consistent."""
+        self._last_round_t = None
+        for req in list(self.waiting):
+            self.requests.pop(req.request_id, None)
+            self._rt.finish(req.request_id, "abort")
+        self.waiting.clear()
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            try:
+                self.pool.release(slot, np.asarray(req.tokens),
+                                  int(self.lengths[slot]))
+            except Exception:  # noqa: BLE001 — best-effort reclaim
+                pass
+            self._free_slot(slot)
+            self.requests.pop(req.request_id, None)
+            self._rt.finish(req.request_id, "abort")
+
+    def _free_slot(self, slot: int):
+        """Clear every per-slot engine resource; pool blocks are released
+        by the caller (release semantics differ per path)."""
+        self.slots[slot] = None
+        self.lengths[slot] = 0
+
+    @property
+    def has_work(self) -> bool:
+        return (bool(self.waiting)
+                or any(r is not None for r in self.slots))
+
+    def set_params(self, params):
+        """Install new model params (rolling reload) of the same
+        structure; the prefix cache is flushed (its blocks hold KV from
+        the old weights)."""
+        self.params = params.to(self.device)
+        self.pool.flush_prefix_cache()
+
+    def drained_for_reload(self) -> bool:
+        """True when a params swap is safe: no occupied slots."""
+        return all(r is None for r in self.slots)
+
+    # ---- admission and prefill -------------------------------------------
+    def _admit(self) -> List[Request]:
+        admitted = []
+        if self.pause_admission:
+            return admitted
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.waiting:
+                continue
+            # Pop FIRST (re-appended on failure): a peek-then-pop window
+            # would race a concurrent abort_request removing the head.
+            req = self.waiting.popleft()
+            if req.finished:          # aborted while queued (racy path)
+                self._aborted.append(req)
+                continue
+            # Admission by block availability: if the pool cannot host
+            # this prompt now, keep FIFO order and wait for retirements
+            # or preemptions to free blocks.
+            plan = self.pool.admit(slot, req.tokens)
+            if plan is None:
+                self.waiting.appendleft(req)
+                break
+            req.slot = slot
+            self.slots[slot] = req
+            rid = req.request_id
+            first_life = not req.generated   # vs resumed after preempt
+            self._rt.end("queue-wait", rid)
+            telemetry.observe("serving_queue_wait_ms",
+                              (time.monotonic() - req.queued_t) * 1e3)
+            self._rt.begin("prefill", rid, prompt_tokens=len(req.tokens))
+            try:
+                self._prefill_into_slot(req, plan)
+            except Exception:
+                # Return every admitted block (valid_len=0: partially
+                # written rows are stale data the retry overwrites),
+                # clear the slot and requeue at the head.
+                self.pool.release(slot, np.asarray(req.tokens), 0)
+                self._free_slot(slot)
+                req.slot = -1
+                req.queued_t = time.monotonic()
+                self.waiting.appendleft(req)
+                self._rt.end("prefill", rid, error=True)
+                self._rt.begin("queue-wait", rid)
+                raise
+            self._rt.end("prefill", rid)
+            if first_life:
+                telemetry.observe("serving_ttft_ms",
+                                  (time.monotonic() - req.admit_t) * 1e3)
+            self._rt.begin("decode", rid)
+            admitted.append(req)
+        return admitted
+
+    def _prefill_into_slot(self, req: Request, plan):
+        # req.tokens (prompt + any pre-preemption generated tokens): a
+        # resumed request re-prefills its full history and samples the
+        # NEXT token, exactly like a fresh admission.
+        tokens = req.tokens
+        p_len = len(tokens)
+        logits_last = self._paged_prefill_chunked(req, tokens, p_len, plan)
+        self.lengths[req.slot] = p_len
+        # First generated token comes from the last PROMPT position.
+        logits_last = mask_padded_vocab(logits_last, self.cfg)
+        tok = self._sample(logits_last[None], req)
+        self._record_token(req, int(tok[0]))
+
+    @torch.no_grad()
+    def _paged_prefill_chunked(self, req: Request, tokens, p_len: int,
+                               plan) -> torch.Tensor:
+        """Prefill the uncached prompt tail in fixed-size chunks against
+        the page table: each chunk is one multi-query step at shape
+        [1, prefill_chunk]. Returns the last prompt position's logits
+        [V]."""
+        slot = req.slot
+        pool = self.pool
+        c = self.prefill_chunk
+        table_np = pool.page_table[slot][None]                  # [1, MB]
+        table = self._to_dev(table_np)
+        pos, count = plan.cached_tokens, 0
+        logits = None
+        while pos < p_len:
+            count = min(c, p_len - pos)
+            chunk = np.zeros((1, c), np.int32)
+            chunk[0, :count] = tokens[pos:pos + count]
+            starts = np.asarray([pos], np.int32)
+            counts = np.asarray([count], np.int32)
+            index = paged_write_index(
+                torch.from_numpy(table_np), torch.from_numpy(starts),
+                torch.from_numpy(counts), torch.ones(1, dtype=torch.bool),
+                pool.block_size, c)
+            logits, _, _ = _paged_multiquery_step(
+                self.params, self._to_dev(chunk), pool.pages, table,
+                self._to_dev(starts), self._to_dev(counts), self.cfg,
+                self.max_seq_len, tuple(self._to_dev(t) for t in index),
+                self.rope_tables)
+            self.prefill_chunks += 1
+            pos += count
+        # Register the prompt's full blocks so concurrent same-prefix
+        # requests hit them immediately.
+        pool.register_prefix(slot, np.asarray(tokens), p_len)
+        return logits[0, count - 1]
+
+    # ---- sampling ---------------------------------------------------------
+    @staticmethod
+    def _rows_for(reqs: Dict[int, Request], b: int
+                  ) -> Dict[str, np.ndarray]:
+        """Per-row sampling parameters + generator-seed inputs for `b`
+        rows; rows not in `reqs` keep neutral greedy defaults (their
+        outputs are ignored)."""
+        rows = {"seeds": np.zeros(b, np.int64),
+                "rids": np.zeros(b, np.int64),
+                "steps": np.zeros(b, np.int64),
+                "temps": np.ones(b, np.float32),
+                "top_ks": np.zeros(b, np.int32),
+                "top_ps": np.zeros(b, np.float32),
+                "sampled": np.zeros(b, bool)}
+        for i, r in reqs.items():
+            s = r.sampling
+            rows["seeds"][i], rows["rids"][i] = s.seed, r.request_id
+            rows["steps"][i] = len(r.generated)
+            rows["temps"][i], rows["top_ks"][i] = s.temperature, s.top_k
+            rows["top_ps"][i], rows["sampled"][i] = s.top_p, not s.greedy
+        return rows
+
+    def _sample(self, logits, req: Request) -> np.ndarray:
+        """Single-row sampling (prefill) with the same per-row generator
+        seeding as the batched decode sampler."""
+        return _sample_rows(logits, self._rows_for({0: req}, 1)).cpu().numpy()
+
+    def _sample_all(self, logits) -> np.ndarray:
+        """Batched sampling for every slot: the step's one host
+        synchronisation is reading these tokens back."""
+        reqs = {i: r for i, r in enumerate(self.slots)
+                if r is not None and not r.finished}
+        return _sample_rows(logits, self._rows_for(
+            reqs, self.max_batch)).cpu().numpy()
+
+    def _record_token(self, req: Request, tok: int):
+        req.generated.append(tok)
+        self.last_tokens[req.slot, 0] = tok
+        if (tok == req.eod_id or
+                len(req.generated) >= req.max_new_tokens):
+            req.finished = True
+
+    # ---- pool pressure ----------------------------------------------------
+    def _preempt(self, req: Request, out: List[Request]):
+        """Push a running request back to the waiting queue, releasing
+        its blocks (full blocks stay prefix-cached while evictable, so
+        the resume prefill usually re-hits its own KV)."""
+        slot = req.slot
+        self.pool.release(slot, np.asarray(req.tokens),
+                          int(self.lengths[slot]), preempted=True)
+        self._free_slot(slot)
+        req.slot = -1
+        req.queued_t = time.monotonic()
+        self.waiting.appendleft(req)
+        out.append(req)
+        rt = self._rt
+        if rt.enabled:
+            rt.end("decode", req.request_id)
+            rt.instant("preempt", req.request_id)
+            rt.begin("queue-wait", req.request_id)
+
+    def _ensure_decode_capacity(self) -> List[Request]:
+        """Before a decode step, every active slot needs the block that
+        covers its append position. Exhaustion preempts the
+        lowest-priority running request (highest (priority,
+        request_id)); the needy request preempts ITSELF when it is the
+        lowest."""
+        preempted: List[Request] = []
+        runners = sorted(
+            (r for r in self.slots if r is not None and not r.finished),
+            key=lambda r: (r.priority, r.request_id))
+        for req in runners:
+            if req.slot < 0:
+                continue                 # preempted earlier this step
+            while not self.pool.ensure_capacity(
+                    req.slot, int(self.lengths[req.slot])):
+                victim = next(r for r in reversed(runners)
+                              if r.slot >= 0)
+                self._preempt(victim, preempted)
+                if victim is req:
+                    break
+        return preempted
+
+    def _retire(self) -> List[Request]:
+        done = []
+        for slot, req in enumerate(self.slots):
+            if req is not None and req.finished:
+                done.append(req)
+                # The cache holds tokens[:-1] (the final sampled token's
+                # KV was never written): register/release only those.
+                self.pool.release(slot, np.asarray(req.tokens),
+                                  int(self.lengths[slot]))
+                self._free_slot(slot)
+                telemetry.inc("serving_requests_retired")
+                self._rt.finish(req.request_id, "retire",
+                                generated=len(req.generated))
+        return done
+
+    # ---- main loop --------------------------------------------------------
+    def step(self) -> Dict[str, List]:
+        """Admit → decode one token for all active slots → retire.
+
+        Returns {"admitted": [ids], "tokens": [(id, tok)], "finished":
+        [ids], "preempted": [ids], "expired": [ids]} for this step
+        (expired ⊆ finished)."""
+        expired = self.expire_overdue()
+        admitted = self._admit()
+        events = {"admitted": [r.request_id for r in admitted],
+                  "tokens": [(r.request_id, r.generated[-1])
+                             for r in admitted],
+                  "finished": [], "preempted": [], "expired": expired}
+        events["preempted"] = [
+            r.request_id for r in self._ensure_decode_capacity()]
+
+        active = [r for r in self.slots
+                  if r is not None and not r.finished]
+        if active:
+            # Token-interval telemetry: back-to-back decode rounds only.
+            t_round = time.monotonic()
+            if self._last_round_t is not None:
+                iv_ms = (t_round - self._last_round_t) * 1e3
+                telemetry.observe("decode_interval_ms", iv_ms)
+            self._plain_round(active, events)
+            self._last_round_t = time.monotonic()
+        else:
+            self._last_round_t = None
+
+        events["finished"] = [r.request_id for r in self._retire()]
+        events["finished"] += [r.request_id for r in self._aborted]
+        self._aborted = []
+        return events
+
+    @torch.no_grad()
+    def _plain_round(self, active: List[Request], events: Dict):
+        """One-token decode for every active slot."""
+        self._rt.begin("decode-step", None, batch=len(active))
+        try:
+            active_np = np.array(
+                [self.slots[i] is not None and not self.slots[i].finished
+                 for i in range(self.max_batch)])
+            table_np = self.pool.page_table[:self.max_batch]
+            index = paged_write_index(
+                torch.from_numpy(table_np), torch.from_numpy(self.lengths),
+                torch.ones(self.max_batch, dtype=torch.int32),
+                torch.from_numpy(active_np), self.pool.block_size, 1)
+            logits, _ = _paged_decode_step(
+                self.params, self._to_dev(self.last_tokens),
+                self.pool.pages, self._to_dev(table_np),
+                self._to_dev(self.lengths), self.cfg,
+                tuple(self._to_dev(t) for t in index), self.rope_tables)
+            # The decode wrote each active row's kv at lengths[slot].
+            self.lengths += active_np.astype(np.int32)
+            logits = mask_padded_vocab(logits, self.cfg)
+            toks = self._sample_all(logits)
+            self.decode_steps += 1
+            telemetry.inc("serving_tokens_emitted", len(active))
+            for req in active:
+                tok = int(toks[req.slot])
+                self._record_token(req, tok)
+                events["tokens"].append((req.request_id, tok))
+        finally:
+            self._rt.end("decode-step", None)
+
+    def run_to_completion(self,
+                          token_callback: Optional[Callable] = None
+                          ) -> Dict[int, np.ndarray]:
+        """Drive step() until every request finishes; returns
+        {request_id: full token array}."""
+        results: Dict[int, np.ndarray] = {}
+        finished_reqs: Dict[int, Request] = {}
+        while self.has_work:
+            ev = self.step()
+            if token_callback is not None:
+                for rid, tok in ev["tokens"]:
+                    token_callback(rid, tok)
+            for rid in ev["finished"]:
+                finished_reqs[rid] = self.requests[rid]
+        for rid, req in finished_reqs.items():
+            results[rid] = req.tokens
+            self.requests.pop(rid, None)
+        return results
+
+    # ---- observability ----------------------------------------------------
+    def stats_snapshot(self) -> Dict:
+        """JSON-ready serving stats (GET /stats): batch occupancy, pool
+        occupancy, prefix-cache hit rate and kernel launch counts."""
+        from megatronapp_tpu_torch.ops.cuda.paged_attention import launches
+        pool = self.pool
+        st = dict(pool.stats)
+        seen = st["prefix_hit_tokens"] + st["prefill_tokens"]
+        bpb = pool.bytes_per_block
+        resident_blocks = pool.num_blocks - pool.free_blocks()
+        return {
+            "engine": "dynamic",
+            "paged": True,
+            "device": str(self.device),
+            "max_batch": self.max_batch,
+            "active": sum(1 for r in self.slots if r is not None),
+            "waiting": len(self.waiting),
+            "decode_steps": self.decode_steps,
+            "prefill_chunks": self.prefill_chunks,
+            "kernel_launches": dict(launches),
+            "pool": {
+                "num_blocks": pool.num_blocks,
+                "block_size": pool.block_size,
+                "kv_cache_dtype": pool.kv_cache_dtype,
+                "bytes_per_block": bpb,
+                "pool_bytes_total": pool.bytes_total,
+                "resident_bytes": resident_blocks * bpb,
+                "blocks_in_use": pool.blocks_in_use(),
+                "blocks_free": pool.free_blocks(),
+                "blocks_evictable": pool.evictable_blocks(),
+                "prefix_hit_rate": (
+                    round(st["prefix_hit_tokens"] / seen, 4) if seen
+                    else 0.0),
+                **st,
+            },
+        }

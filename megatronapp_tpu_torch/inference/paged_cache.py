@@ -1,0 +1,339 @@
+"""Paged KV-cache block pool: allocator, prefix cache, preemption support
+(the JAX package's inference/paged_cache.py, for unquantized pools).
+
+KV storage is a shared pool [L, num_blocks, block_size, Hkv, D] in the
+compute dtype, on the engine's device; each slot owns an ordered page
+table row [max_blocks_per_seq] int32 kept on the host. Capacity is
+admitted per block.
+
+Prefix caching: full blocks are keyed by a rolling hash of the token
+prefix they complete and refcounted. Blocks whose refcount drops to zero
+stay resident on an LRU list, hittable until the allocator evicts them.
+A request whose prompt fully hits still needs the last position's
+logits, so its final block is copy-on-write: the shared block's rows are
+copied into a private block and only the diverging row is recomputed.
+
+All bookkeeping is host-side (numpy/python); the page data is touched
+only by the engine's in-place scatters and the CoW block copy here.
+Quantized pools, slot export/import, the host spill tier and the fleet
+prefix store come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict, deque
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.utils import chaos
+from megatronapp_tpu_torch.utils import metrics as telemetry
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def prefix_block_keys(tokens, block_size: int, limit: int) -> List[bytes]:
+    """Rolling hash per FULL block of tokens[:limit]: key i commits to
+    the whole prefix through block i, so a table hit is an exact prefix
+    match."""
+    tokens = np.asarray(tokens, np.int32)
+    keys: List[bytes] = []
+    digest = b""
+    for i in range(limit // block_size):
+        digest = hashlib.sha1(
+            digest + np.ascontiguousarray(
+                tokens[i * block_size:(i + 1) * block_size],
+                dtype=np.int32).tobytes()
+        ).digest()
+        keys.append(digest)
+    return keys
+
+
+def validate_kv_cache_dtype(name: str) -> str:
+    if name != "bf16":
+        raise NotImplementedError(
+            f"kv_cache_dtype={name!r}: quantized (int8/fp8) KV pools are not "
+            "ported yet; the serving slice stores unquantized pools in the "
+            "compute dtype ('bf16')")
+    return name
+
+
+@dataclasses.dataclass
+class AdmitPlan:
+    """Result of admitting a token sequence into a slot."""
+    blocks: List[int]        # page-table row, sequence order
+    cached_tokens: int       # leading tokens whose KV is already resident
+    cow: bool                # last block was copy-on-write'd (full hit)
+
+
+class PagedKVCache:
+    """Block pool + page tables + refcounted prefix cache."""
+
+    def __init__(self, cfg: TransformerConfig, max_batch: int,
+                 max_seq_len: int, num_blocks: Optional[int] = None,
+                 block_size: int = 16, enable_prefix_caching: bool = True,
+                 kv_cache_dtype: str = "bf16", device="cpu"):
+        if cfg.multi_latent_attention:
+            raise NotImplementedError(
+                "MLA latent pools are not ported yet (the serving-extension "
+                "slice)")
+        self.kv_cache_dtype = validate_kv_cache_dtype(kv_cache_dtype)
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_seq_len = max_seq_len
+        self.block_size = block_size
+        self.max_blocks_per_seq = cdiv(max_seq_len, block_size)
+        # Default pool = dense capacity (max_batch full sequences).
+        self.num_blocks = (num_blocks if num_blocks is not None
+                           else max_batch * self.max_blocks_per_seq)
+        self.enable_prefix_caching = enable_prefix_caching
+        self.num_slots = max_batch
+
+        shape = (cfg.num_layers, self.num_blocks, block_size,
+                 cfg.num_query_groups, cfg.head_dim)
+        self.pages: Tuple[torch.Tensor, ...] = tuple(
+            torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+            for _ in range(2))
+
+        self.page_table = np.zeros((self.num_slots, self.max_blocks_per_seq),
+                                   np.int32)
+        self._free: deque = deque(range(self.num_blocks))
+        self._refcount = np.zeros((self.num_blocks,), np.int32)
+        self._table: dict = {}            # prefix hash -> block id
+        self._hash_of: dict = {}          # block id -> prefix hash
+        self._lru: OrderedDict = OrderedDict()  # rc==0 hashed blocks
+        self._slot_blocks: List[List[int]] = [
+            [] for _ in range(self.num_slots)]
+        self.stats = {"prefix_hit_tokens": 0, "prefill_tokens": 0,
+                      "cow_copies": 0, "evictions": 0, "preemptions": 0,
+                      "peak_blocks_in_use": 0}
+
+    # ---- sizing ----------------------------------------------------------
+    @property
+    def bytes_total(self) -> int:
+        """Resident pool bytes, read off the pool tensors."""
+        return sum(p.numel() * p.element_size() for p in self.pages)
+
+    @property
+    def bytes_per_block(self) -> int:
+        return self.bytes_total // self.num_blocks
+
+    def blocks_in_use(self) -> int:
+        """Blocks with live references (excludes free + evictable)."""
+        return self.num_blocks - len(self._free) - len(self._lru)
+
+    def available_blocks(self) -> int:
+        return len(self._free) + len(self._lru)
+
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def evictable_blocks(self) -> int:
+        return len(self._lru)
+
+    def refcount(self, block: int) -> int:
+        return int(self._refcount[block])
+
+    def slot_blocks(self, slot: int) -> List[int]:
+        return list(self._slot_blocks[slot])
+
+    # ---- low-level block lifecycle --------------------------------------
+    def _take_free(self) -> Optional[int]:
+        if self._free:
+            return self._free.popleft()
+        if self._lru:
+            # Chaos site fires BEFORE the eviction mutates anything.
+            chaos.fire("paged-evict")
+            blk, _ = self._lru.popitem(last=False)   # least recently used
+            key = self._hash_of.pop(blk, None)
+            if key is not None and self._table.get(key) == blk:
+                del self._table[key]
+            self.stats["evictions"] += 1
+            telemetry.inc("paged_evictions")
+            return blk
+        return None
+
+    def _acquire_cached(self, blk: int):
+        self._refcount[blk] += 1
+        self._lru.pop(blk, None)
+
+    def _release_block(self, blk: int):
+        self._refcount[blk] -= 1
+        assert self._refcount[blk] >= 0, f"block {blk} over-released"
+        if self._refcount[blk] == 0:
+            if blk in self._hash_of:
+                self._lru[blk] = None    # evictable, still hittable
+            else:
+                self._free.append(blk)
+
+    def _copy_block(self, src: int, dst: int):
+        # Chaos site fires before the copy: pages/stats untouched.
+        chaos.fire("paged-cow")
+        for p in self.pages:             # in place, every layer at once
+            p[:, dst].copy_(p[:, src])
+        self.stats["cow_copies"] += 1
+        telemetry.inc("paged_cow_copies")
+
+    def _note_usage(self):
+        self.stats["peak_blocks_in_use"] = max(
+            self.stats["peak_blocks_in_use"], self.blocks_in_use())
+
+    def _block_keys(self, tokens: np.ndarray, limit: int) -> List[bytes]:
+        return prefix_block_keys(tokens, self.block_size, limit)
+
+    # ---- engine-facing API ----------------------------------------------
+    def admit(self, slot: int, tokens: np.ndarray) -> Optional[AdmitPlan]:
+        """Install blocks covering `tokens` into `slot`'s page table,
+        reusing cached prefix blocks. Returns None (state rolled back)
+        when the pool cannot supply the fresh blocks."""
+        assert not self._slot_blocks[slot], f"slot {slot} still holds blocks"
+        p_len = len(tokens)
+        need_total = cdiv(p_len, self.block_size)
+
+        hits: List[int] = []
+        if self.enable_prefix_caching:
+            for key in self._block_keys(tokens, p_len):
+                blk = self._table.get(key)
+                if blk is None:
+                    break
+                hits.append(blk)
+        cached = len(hits) * self.block_size
+        cow = cached >= p_len        # full hit: recompute the last token
+        if cow:
+            cached = p_len - 1
+
+        for blk in hits:
+            self._acquire_cached(blk)
+        fresh_needed = need_total - len(hits) + (1 if cow else 0)
+        fresh: List[int] = []
+
+        def _rollback():
+            for b in fresh:
+                self._refcount[b] = 0
+                self._free.append(b)
+            for b in hits:
+                self._release_block(b)
+
+        # Exception-safe allocation: eviction and CoW are fault sites.
+        try:
+            for _ in range(fresh_needed):
+                blk = self._take_free()
+                if blk is None:
+                    _rollback()
+                    return None
+                self._refcount[blk] = 1
+                fresh.append(blk)
+            if cow:
+                src = hits[-1]
+                dst = fresh[0]
+                self._copy_block(src, dst)
+        except Exception:
+            _rollback()
+            raise
+
+        if cow:
+            self._release_block(src)
+            blocks = hits[:-1] + [dst] + fresh[1:]
+        else:
+            blocks = hits + fresh
+
+        self._slot_blocks[slot] = blocks
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :len(blocks)] = blocks
+        self.stats["prefix_hit_tokens"] += cached
+        self.stats["prefill_tokens"] += p_len - cached
+        telemetry.inc("paged_prefix_hit_tokens", cached)
+        telemetry.inc("paged_prefill_tokens", p_len - cached)
+        self._note_usage()
+        return AdmitPlan(blocks, cached, cow)
+
+    def ensure_capacity(self, slot: int, position: int) -> bool:
+        """Make sure `slot` owns the block covering `position` (decode
+        appends grow one block at a time)."""
+        idx = position // self.block_size
+        owned = self._slot_blocks[slot]
+        if idx < len(owned):
+            return True
+        assert idx == len(owned), (
+            f"slot {slot} skipped a block: position {position} needs block "
+            f"{idx}, owns {len(owned)}")
+        blk = self._take_free()
+        if blk is None:
+            return False
+        self._refcount[blk] = 1
+        owned.append(blk)
+        self.page_table[slot, idx] = blk
+        self._note_usage()
+        return True
+
+    def flush_prefix_cache(self):
+        """Invalidate every cached prefix (params reload: blocks hold KV
+        computed with the OLD weights)."""
+        self._table.clear()
+        self._hash_of.clear()
+        for blk in self._lru:
+            self._free.append(blk)
+        self._lru.clear()
+
+    def audit(self):
+        """Consistency check (tests): every block is exactly one of
+        free / LRU-evictable / slot-referenced, and each block's
+        refcount equals the number of slot page-table references to it."""
+        nb = self.num_blocks
+        refs = np.zeros((nb,), np.int64)
+        for blocks in self._slot_blocks:
+            for blk in blocks:
+                refs[blk] += 1
+        assert np.array_equal(refs, self._refcount), (
+            f"refcount skew: table={self._refcount.tolist()} "
+            f"actual={refs.tolist()}")
+        free = set(self._free)
+        assert len(free) == len(self._free), (
+            "duplicate block on the free list (double-free)")
+        lru = set(self._lru)
+        held = {b for b in range(nb) if refs[b] > 0}
+        assert not (free & lru) and not (free & held) and not (lru & held), (
+            "block in two states: "
+            f"free∩lru={free & lru} free∩held={free & held} "
+            f"lru∩held={lru & held}")
+        assert len(free) + len(lru) + len(held) == nb, (
+            f"leaked blocks: free={len(free)} lru={len(lru)} "
+            f"held={len(held)} != {nb}")
+        for blk in lru:
+            assert blk in self._hash_of, f"unhashed block {blk} on LRU"
+        return True
+
+    def register_prefix(self, slot: int, tokens: np.ndarray, valid_len: int):
+        """Hash this slot's full blocks over tokens[:valid_len] so later
+        same-prefix requests hit them (only rows actually written)."""
+        if not self.enable_prefix_caching:
+            return
+        owned = self._slot_blocks[slot]
+        for i, key in enumerate(self._block_keys(tokens, valid_len)):
+            if i >= len(owned):
+                break
+            blk = owned[i]
+            if blk not in self._hash_of and key not in self._table:
+                self._table[key] = blk
+                self._hash_of[blk] = key
+
+    def release(self, slot: int, tokens: np.ndarray, valid_len: int,
+                preempted: bool = False):
+        """Return a slot's blocks to the pool. Full blocks get registered
+        in the prefix cache first, then every block is de-referenced —
+        rc==0 hashed blocks park on the LRU list, unhashed ones go
+        straight to the free list."""
+        self.register_prefix(slot, tokens, valid_len)
+        for blk in self._slot_blocks[slot]:
+            self._release_block(blk)
+        self._slot_blocks[slot] = []
+        self.page_table[slot, :] = 0
+        if preempted:
+            self.stats["preemptions"] += 1
+            telemetry.inc("paged_preemptions")

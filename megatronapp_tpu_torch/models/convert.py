@@ -1,0 +1,78 @@
+"""Weights carried across from the JAX package.
+
+``params_from_jax`` takes the JAX param pytree as numpy arrays (the
+caller does ``jax.tree.map(np.asarray, params)``; the port itself never
+imports JAX) and returns the port's ``ParamTree``. The stacked ``block``
+leaves [L, ...] are unstacked into ``layers.i``; every other leaf keeps
+its name and its [in, out] layout, so nothing is transposed. A leaf the
+converter does not know raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.utils.params import ParamTree
+
+_TOP = {"final_ln_scale", "final_ln_bias", "output"}
+_EMBEDDING = {"word", "pos"}
+_LAYER = {"ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias"}
+_ATTENTION = {"q_kernel", "kv_kernel", "out_kernel", "q_bias", "kv_bias",
+              "out_bias", "q_ln_scale", "k_ln_scale"}
+_MLP = {"fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias"}
+
+
+def _tensor(a, cfg: TransformerConfig, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes arrays torch can't read
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device).to(cfg.params_dtype)
+
+
+def _leaves(sub: Mapping, allowed: set, where: str) -> Dict[str, object]:
+    for name, val in sub.items():
+        if name not in allowed or isinstance(val, Mapping):
+            raise KeyError(f"params_from_jax: unknown leaf {where}{name}")
+    return dict(sub)
+
+
+def params_from_jax(tree: Mapping, cfg: TransformerConfig,
+                    device="cpu") -> ParamTree:
+    for name, val in tree.items():
+        if name not in _TOP | {"embedding", "block"} or \
+                (name in _TOP and isinstance(val, Mapping)):
+            raise KeyError(f"params_from_jax: unknown leaf {name}")
+    top = {k: _tensor(v, cfg, device) for k, v in tree.items()
+           if k in _TOP}
+    emb = {k: _tensor(v, cfg, device)
+           for k, v in _leaves(tree["embedding"], _EMBEDDING,
+                               "embedding.").items()}
+    block = tree["block"]
+    subs = {"attention": _ATTENTION, "mlp": _MLP}
+    for name, val in block.items():
+        if name not in _LAYER and name not in subs:
+            raise KeyError(f"params_from_jax: unknown leaf block.{name}")
+        if (name in subs) != isinstance(val, Mapping):
+            raise KeyError(f"params_from_jax: unknown leaf block.{name}")
+    for name, allowed in subs.items():
+        _leaves(block[name], allowed, f"block.{name}.")
+    num = np.asarray(block["ln1_scale"]).shape[0]
+    if num != cfg.num_layers:
+        raise ValueError(f"params_from_jax: block has {num} layers, cfg "
+                         f"{cfg.num_layers}")
+
+    def layer(i: int) -> ParamTree:
+        children = {n: ParamTree({k: _tensor(np.asarray(v)[i], cfg, device)
+                                  for k, v in block[n].items()})
+                    for n in subs}
+        return ParamTree({k: _tensor(np.asarray(v)[i], cfg, device)
+                          for k, v in block.items() if k in _LAYER},
+                         **children)
+
+    return ParamTree(top, embedding=ParamTree(emb),
+                     layers=nn.ModuleList(layer(i) for i in range(num)))

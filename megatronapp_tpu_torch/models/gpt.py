@@ -1,0 +1,88 @@
+"""GPT model pieces the serving slice uses (the JAX package's
+models/gpt.py): init, the embedding, the rope tables and the head."""
+
+from __future__ import annotations
+
+import torch
+
+from megatronapp_tpu_torch.config.transformer_config import (
+    NormKind, PositionEmbeddingKind, TransformerConfig,
+)
+from megatronapp_tpu_torch.ops import rotary
+from megatronapp_tpu_torch.ops.normalization import apply_norm
+from megatronapp_tpu_torch.transformer.block import init_block_params
+from megatronapp_tpu_torch.utils.params import ParamTree, normal
+
+
+def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
+                    device) -> ParamTree:
+    """Random weights made directly on `device` from `generator` (the
+    generator must live on the same device). Leaves as in the JAX
+    package: embedding.word [V, H] (+ embedding.pos), layers.i.*,
+    final_ln_scale (+ final_ln_bias), output [H, V] when untied."""
+    if cfg.mtp_num_layers:
+        raise NotImplementedError("MTP heads are not ported yet")
+    std, dt = cfg.init_method_std, cfg.params_dtype
+    h, v = cfg.hidden_size, cfg.vocab_size
+    emb = {"word": normal((v, h), std, dt, generator, device)}
+    if cfg.position_embedding == PositionEmbeddingKind.learned_absolute:
+        emb["pos"] = normal((cfg.max_position_embeddings, h), std, dt,
+                            generator, device)
+    top = {"final_ln_scale": torch.ones(h, dtype=dt, device=device)}
+    if cfg.normalization == NormKind.layernorm:
+        top["final_ln_bias"] = torch.zeros(h, dtype=dt, device=device)
+    if cfg.untie_embeddings_and_output_weights:
+        top["output"] = normal((h, v), std, dt, generator, device)
+    return ParamTree(top, embedding=ParamTree(emb),
+                     layers=init_block_params(cfg, generator, device))
+
+
+def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
+              position_ids: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] at position_ids [B, S] (or [B, 1]) → embeddings
+    [B, S, H] in the compute dtype."""
+    emb = p["embedding"]
+    h = emb["word"][tokens.long()]
+    if "pos" in emb:
+        h = h + emb["pos"][position_ids.long()]
+    return h.to(cfg.compute_dtype)
+
+
+def rope_params(cfg: TransformerConfig, device=None):
+    """(inv_freq, mscale) for the configured rope variant, or (None,
+    1.0)."""
+    if cfg.position_embedding == PositionEmbeddingKind.rope:
+        return rotary.rope_frequencies(cfg.head_dim, cfg.rotary_base,
+                                       cfg.rotary_percent, device), 1.0
+    if cfg.position_embedding == PositionEmbeddingKind.yarn:
+        inv_freq = rotary.yarn_frequencies(
+            cfg.head_dim, cfg.rotary_base,
+            scaling_factor=cfg.rope_scaling_factor,
+            original_max_position=cfg.yarn_original_max_position,
+            beta_fast=cfg.yarn_beta_fast, beta_slow=cfg.yarn_beta_slow,
+            rotary_percent=cfg.rotary_percent, device=device)
+        return inv_freq, rotary.yarn_mscale(cfg.rope_scaling_factor,
+                                            cfg.yarn_mscale_coeff)
+    return None, 1.0
+
+
+def gpt_rope_tables(cfg: TransformerConfig, seq_len: int, device=None):
+    """Rope cos/sin tables over positions [0, seq_len); (None, None)
+    without rope."""
+    inv_freq, m = rope_params(cfg, device)
+    if inv_freq is None:
+        return None, None
+    positions = torch.arange(seq_len, device=device)
+    cos, sin = rotary.rope_cos_sin(positions, inv_freq)
+    if m != 1.0:
+        cos, sin = cos * m, sin * m
+    return cos, sin
+
+
+def gpt_head(p, h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """Final norm + vocab projection. h [..., S, H] → logits fp32."""
+    h = apply_norm(cfg.normalization, h, p["final_ln_scale"],
+                   p.get("final_ln_bias"), cfg.layernorm_epsilon)
+    out_kernel = p["output"] if "output" in p else p["embedding"]["word"].T
+    dt = cfg.compute_dtype
+    return (h.to(dt) @ out_kernel.to(dt)).float()

@@ -1,0 +1,225 @@
+"""Ragged paged attention: the CUDA kernel's wrapper, its plain version,
+its launch counter and its build.
+
+The kernel (csrc/paged_attention.cu) replaces the TPU kernel
+``megatronapp_tpu/ops/pallas/kernel_gen.py:emit_paged_kernel`` for bf16
+pools, in both of its modes: decode (one query row per slot) and ragged
+multi-query (chunked prefill). It is bound by the bytes of K/V it reads;
+the source note says what its design does about that.
+
+``paged_attention`` takes the plain version only for tensors that lie on
+the CPU. For CUDA tensors it launches the kernel or raises: there is no
+fallback. The kernel is compiled with nvcc into ``build/kernels`` at first
+use, into a file named by the hash of its source and flags, and loaded
+with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+NEG_INF = -1e30
+
+# Launches of the kernel, by mode. Incremented only where the wrapper
+# launches it (never by the plain version).
+launches: Dict[str, int] = {"decode": 0, "ragged": 0}
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_attention.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MAX_BLOCK_SIZE = 64
+HEAD_DIMS = (64, 128)
+
+_lock = threading.Lock()
+_fn = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
+            "kernels build from source on the machine with the card")
+    return path
+
+
+def _library_path() -> str:
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(os.path.basename(SOURCE))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def build() -> dict:
+    """Compile the kernel unless an up-to-date library exists. Returns
+    {"path", "log"} with nvcc's output (ptxas register and shared-memory
+    lines; empty when the library was already built); raises with that
+    output when the build fails."""
+    path = _library_path()
+    if os.path.exists(path):
+        return {"path": path, "log": ""}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {SOURCE} (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, path)
+    return {"path": path, "log": proc.stdout}
+
+
+def _kernel():
+    """The bound C launcher (built and loaded on first use)."""
+    global _fn
+    with _lock:
+        if _fn is None:
+            path = build()["path"]
+            fn = ctypes.CDLL(path).paged_attention_launch
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _fn = fn
+        return _fn
+
+
+def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_table: torch.Tensor,
+                          kv_lens: torch.Tensor,
+                          q_lens: Optional[torch.Tensor] = None,
+                          softmax_scale: Optional[float] = None
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: gathers every slot's pages
+    densely, masks (kv length, and the causal tail in ragged mode) and
+    takes the softmax in fp32 — the JAX package's
+    paged_attention_reference / _multiquery_reference. Same signature and
+    shapes as ``paged_attention``."""
+    decode = q_lens is None
+    if decode:
+        q = q[:, None]
+        q_lens = torch.ones_like(kv_lens)
+    b, s_q, hq, d = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    mb = page_table.shape[1]
+    group = hq // hkv
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    table = page_table.long()
+    k = k_pages[table].reshape(b, mb * bs, hkv, d).float()
+    v = v_pages[table].reshape(b, mb * bs, hkv, d).float()
+    k = k.repeat_interleave(group, dim=2)
+    v = v.repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k) * softmax_scale
+    dev = q.device
+    pos = torch.arange(mb * bs, device=dev)
+    kv_lens, q_lens = kv_lens.to(dev).long(), q_lens.to(dev).long()
+    abs_q = (kv_lens - q_lens)[:, None] + torch.arange(s_q, device=dev)
+    mask = ((pos[None, None, :] <= abs_q[:, :, None])
+            & (pos[None, None, :] < kv_lens[:, None, None]))
+    s = s.masked_fill(~mask[:, :, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhk,bkhd->bqhd", p, v).to(q.dtype)
+    return out[:, 0] if decode else out
+
+
+def _check(q, k_pages, v_pages, page_table, kv_lens, q_lens):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(
+            f"paged_attention: tensors on {dev} — the kernel takes CUDA "
+            "tensors and the plain version CPU tensors")
+    named = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+             "page_table": page_table, "kv_lens": kv_lens}
+    if q_lens is not None:
+        named["q_lens"] = q_lens
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"paged_attention: {name} on {t.device}, "
+                             f"q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} is not contiguous")
+    for name in ("q", "k_pages", "v_pages"):
+        t = named[name]
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"paged_attention: {name} is {t.dtype}; the "
+                             "kernel takes bf16 (quantized pools are a "
+                             "later slice)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_attention: {name} is not 16-byte "
+                             "aligned")
+    for name in ("page_table", "kv_lens", "q_lens"):
+        if name in named and named[name].dtype != torch.int32:
+            raise ValueError(f"paged_attention: {name} must be int32, got "
+                             f"{named[name].dtype}")
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("paged_attention: pools must both be "
+                         f"[NB, bs, Hkv, D], got {tuple(k_pages.shape)} "
+                         f"and {tuple(v_pages.shape)}")
+    _, bs, hkv, d = k_pages.shape
+    ragged = q_lens is not None
+    if q.dim() != (4 if ragged else 3) or q.shape[-1] != d:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} does not "
+                         f"fit pools {tuple(k_pages.shape)} in "
+                         f"{'ragged' if ragged else 'decode'} mode")
+    b, hq = q.shape[0], q.shape[-2]
+    if d not in HEAD_DIMS or bs > MAX_BLOCK_SIZE or hq % hkv:
+        raise ValueError(f"paged_attention: head_dim {d} (takes "
+                         f"{HEAD_DIMS}), block_size {bs} (at most "
+                         f"{MAX_BLOCK_SIZE}), Hq {hq} % Hkv {hkv}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(kv_lens.shape) != (b,) \
+            or (ragged and tuple(q_lens.shape) != (b,)):
+        raise ValueError("paged_attention: page_table must be [B, MB] and "
+                         "kv_lens/q_lens [B]")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    kv_lens: torch.Tensor,
+                    q_lens: Optional[torch.Tensor] = None,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Ragged paged attention, the kernel_gen.paged_attention contract.
+
+    q [B, Hq, D] (decode) or [B, S_q, Hq, D] with q_lens [B] (ragged
+    multi-query: row s of slot b sits at absolute position kv_lens[b] -
+    q_lens[b] + s; rows past q_lens[b] are padding whose outputs are
+    finite garbage); pools [NB, bs, Hkv, D]; page_table [B, MB] int32;
+    kv_lens [B] int32 valid kv positions including the new tail. Returns
+    q's shape. CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, page_table,
+                                     kv_lens, q_lens, softmax_scale)
+    _check(q, k_pages, v_pages, page_table, kv_lens, q_lens)
+    fn = _kernel()
+    ragged = q_lens is not None
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    s_q = q.shape[1] if ragged else 1
+    _, bs, hkv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), kv_lens.data_ptr(),
+            q_lens.data_ptr() if ragged else None, out.data_ptr(),
+            b, s_q, hq, hkv, d, bs, page_table.shape[1],
+            float(softmax_scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches["ragged" if ragged else "decode"] += 1
+    return out

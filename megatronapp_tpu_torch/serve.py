@@ -1,0 +1,200 @@
+"""Launch the text-generation server on the port (the JAX package's
+tools/run_text_generation_server.py for the paged dynamic engine).
+
+    python -m megatronapp_tpu_torch.serve --preset llama3-8b \
+        --engine dynamic --paged-kv-cache --max-batch 8 \
+        --max-seq-len 2048 --kv-block-size 16 --prefill-chunk 32 --port 5000
+
+The serving flags keep the names of the JAX package's
+config/arguments.py:add_serving_args. The port serves random weights made
+on the device from --seed with the NullTokenizer: checkpoint loading,
+tokenizer files and every flag outside the paged-KV slice exit with a
+message naming what is not ported yet. The server needs ``aiohttp``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import List, Optional
+
+import torch
+
+# Flags of the JAX server that select machinery this slice does not port.
+UNPORTED_FLAGS = {
+    "--load-dir": "checkpoint loading",
+    "--load-quantized": "int8 checkpoints",
+    "--tokenizer-name-or-path": "tokenizer files",
+    "--megakernel-decode": "the fused decode step",
+    "--megakernel-vmem-budget": "the fused decode step",
+    "--scan-unroll": "the JAX layer scan",
+    "--quantized-weights": "resident int8 weights",
+    "--spec-method": "speculative decoding",
+    "--spec-k": "speculative decoding",
+    "--draft-model": "speculative decoding",
+    "--draft-load-dir": "speculative decoding",
+    "--serve-disagg": "disaggregated serving",
+    "--serve-tp": "tensor-parallel serving",
+    "--disagg-prefill-slots": "disaggregated serving",
+    "--decode-slo-ms": "disaggregated serving",
+    "--serve-fleet": "fleet serving",
+    "--fleet-migrate": "fleet serving",
+    "--fleet-autoscale": "fleet serving",
+    "--fleet-procs": "cross-process fleets",
+    "--replica-rpc-port": "cross-process fleets",
+    "--supervisor": "cross-process fleets",
+    "--fleet-prefix-store-mb": "the fleet prefix store",
+    "--lora-dir": "batched LoRA serving",
+    "--lora-rank": "batched LoRA serving",
+    "--max-resident-adapters": "batched LoRA serving",
+    "--kv-spill-host-mb": "the host-RAM spill tier",
+    "--kv-spill-watermark-blocks": "the host-RAM spill tier",
+}
+
+
+class _Unported(argparse.Action):
+    """Accepts the flag (with or without a value) and exits naming it."""
+
+    def __init__(self, option_strings, dest, what: str = "", **kw):
+        kw.update(nargs="?", help=argparse.SUPPRESS)
+        super().__init__(option_strings, dest, **kw)
+        self.what = what
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string}: {self.what} is not ported to "
+                     "megatronapp_tpu_torch yet (see ROADMAP.md)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from megatronapp_tpu_torch.models.presets import PRESETS
+    ap = argparse.ArgumentParser(
+        prog="python -m megatronapp_tpu_torch.serve",
+        description="continuous-batching text-generation server on the "
+                    "GPU (paged KV cache, hand-written paged-attention "
+                    "kernel)")
+    ap.add_argument("--preset", default="gpt2-125m", choices=sorted(PRESETS))
+    ap.add_argument("--tokenizer-type", default="NullTokenizer")
+    ap.add_argument("--port", type=int, default=5000)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--max-seq-len", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the first CUDA device; "
+                         "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    ap.add_argument("--params-dtype", choices=("bf16", "fp32"),
+                    default="bf16",
+                    help="weight storage dtype (compute is bf16 either "
+                         "way)")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the preset's depth (widths are kept)")
+    g = ap.add_argument_group("serving")
+    g.add_argument("--engine", choices=["static", "dynamic", "mamba"],
+                   default="static",
+                   help="dynamic = continuous batching; static and mamba "
+                        "are not ported yet")
+    g.add_argument("--max-batch", type=int, default=4,
+                   help="concurrent decode slots")
+    g.add_argument("--paged-kv-cache", action="store_true",
+                   help="block-pool paged KV cache + ragged paged "
+                        "attention (required: the dense cache is not "
+                        "ported)")
+    g.add_argument("--kv-block-size", type=int, default=16,
+                   help="tokens per KV block")
+    g.add_argument("--num-kv-blocks", type=int, default=None,
+                   help="pool size (default: dense capacity)")
+    g.add_argument("--no-prefix-caching", action="store_false",
+                   dest="prefix_caching",
+                   help="disable refcounted shared-prefix block reuse")
+    g.add_argument("--kv-cache-dtype", choices=("bf16", "int8", "fp8"),
+                   default="bf16",
+                   help="paged KV-pool storage dtype (only bf16 is "
+                        "ported)")
+    g.add_argument("--prefill-chunk", type=int, default=32,
+                   help="chunked-prefill chunk size")
+    g.add_argument("--serving-metrics", action="store_true",
+                   help="enable the telemetry registry (GET /metrics)")
+    g.add_argument("--request-trace", action="store_true",
+                   help="enable the request-lifecycle tracer (GET /trace)")
+    g.add_argument("--request-trace-capacity", type=int, default=16384,
+                   help="ring-buffer record capacity for --request-trace")
+    for flag, what in UNPORTED_FLAGS.items():
+        g.add_argument(flag, action=_Unported, what=what)
+    return ap
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.engine != "dynamic":
+        ap.error(f"--engine {args.engine} is not ported yet: the port "
+                 "serves --engine dynamic --paged-kv-cache")
+    if not args.paged_kv_cache:
+        ap.error("--engine dynamic without --paged-kv-cache is the dense "
+                 "slot cache, which is not ported yet: pass "
+                 "--paged-kv-cache")
+    if args.kv_cache_dtype != "bf16":
+        ap.error(f"--kv-cache-dtype {args.kv_cache_dtype}: quantized KV "
+                 "pools are not ported yet")
+    if args.tokenizer_type != "NullTokenizer":
+        ap.error(f"--tokenizer-type {args.tokenizer_type}: only the "
+                 "NullTokenizer is ported (the port serves random "
+                 "weights)")
+    return args
+
+
+def build_engine(args: argparse.Namespace):
+    """The engine the server drives, with random weights from args.seed
+    made on the device."""
+    from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import PRESETS
+    from megatronapp_tpu_torch.utils.device import resolve_device
+    device = resolve_device(args.device)
+    cfg = PRESETS[args.preset]()
+    over = {"params_dtype": (torch.bfloat16 if args.params_dtype == "bf16"
+                             else torch.float32)}
+    if args.num_layers is not None:
+        over["num_layers"] = args.num_layers
+    cfg = dataclasses.replace(cfg, **over)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    params = init_gpt_params(cfg, gen, device)
+    return DynamicInferenceEngine(
+        params, cfg, tokenizer=NullTokenizer(cfg.vocab_size),
+        max_batch=args.max_batch, max_seq_len=args.max_seq_len,
+        block_size=args.kv_block_size, num_blocks=args.num_kv_blocks,
+        enable_prefix_caching=args.prefix_caching,
+        prefill_chunk=args.prefill_chunk,
+        kv_cache_dtype=args.kv_cache_dtype, device=device)
+
+
+def main(argv: Optional[List[str]] = None):
+    args = parse_args(argv)
+    try:
+        import aiohttp  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"the server needs aiohttp ({e}); the engine "
+                         "itself runs without it") from e
+    from megatronapp_tpu_torch.inference.server import TextGenerationServer
+    if args.serving_metrics:
+        from megatronapp_tpu_torch.utils import metrics as telemetry
+        telemetry.enable()
+    if args.request_trace:
+        from megatronapp_tpu_torch.trace.request_trace import (
+            get_request_tracer,
+        )
+        get_request_tracer().configure(
+            enabled=True, capacity=args.request_trace_capacity)
+    engine = build_engine(args)
+    print(f"serving {args.preset} ({engine.cfg.num_layers} layers, random "
+          f"weights seed {args.seed}) with continuous batching on "
+          f"{engine.device} at {args.host}:{args.port} (paged, block "
+          f"{args.kv_block_size}, max_batch {args.max_batch})")
+    TextGenerationServer(engine, args.host, args.port).run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,117 @@
+"""Self-attention sublayer (GQA, RoPE, optional QK-layernorm): the paged
+branches of the JAX package's transformer/attention.py.
+
+Param leaf layout (per layer), the JAX [in, out] layout kept so weights
+copy across without transposing (``x @ w``):
+  q_kernel   [H, n_heads*D]
+  kv_kernel  [H, 2*n_kv*D]   (K = the first n_kv heads, V = the next n_kv)
+  q_bias     [n_heads*D]
+  kv_bias    [2*n_kv*D]
+  out_kernel [n_heads*D, H]
+  out_bias   [H]
+  (optional) q_ln_scale, k_ln_scale [D]
+
+Only the serving slice's two paged branches are ported: the multi-token
+ragged append (chunked prefill) and the one-token decode append. The
+dense, flash, static-cache, context-parallel and tensor-parallel
+branches raise until the training slice brings them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.ops import rotary
+from megatronapp_tpu_torch.ops.normalization import rms_norm
+from megatronapp_tpu_torch.ops.paged_attention import (
+    WriteIndex, paged_attention_decode, paged_attention_multiquery,
+    write_rows,
+)
+from megatronapp_tpu_torch.utils.params import ParamTree, normal
+
+
+def init_attention_params(cfg: TransformerConfig, generator: torch.Generator,
+                          device, out_std: float) -> ParamTree:
+    h, d = cfg.hidden_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
+    std, dt = cfg.init_method_std, cfg.params_dtype
+    p = {
+        "q_kernel": normal((h, nq * d), std, dt, generator, device),
+        "kv_kernel": normal((h, 2 * nkv * d), std, dt, generator, device),
+        "out_kernel": normal((nq * d, h), out_std, dt, generator, device),
+    }
+    if cfg.add_qkv_bias:
+        p["q_bias"] = torch.zeros(nq * d, dtype=dt, device=device)
+        p["kv_bias"] = torch.zeros(2 * nkv * d, dtype=dt, device=device)
+    if cfg.add_bias_linear:
+        p["out_bias"] = torch.zeros(h, dtype=dt, device=device)
+    if cfg.qk_layernorm:
+        p["q_ln_scale"] = torch.ones(d, dtype=dt, device=device)
+        p["k_ln_scale"] = torch.ones(d, dtype=dt, device=device)
+    return ParamTree(p)
+
+
+def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
+                      rope_cos: Optional[torch.Tensor] = None,
+                      rope_sin: Optional[torch.Tensor] = None,
+                      attention_mask: Optional[torch.Tensor] = None,
+                      kv_cache=None, cache_index=None, cache_positions=None,
+                      page_table=None, chunk_counts=None,
+                      write_index: Optional[WriteIndex] = None):
+    """x: [B, S, H] → (out [B, S, H], (k_pool, v_pool)).
+
+    kv_cache is the layer's paged pool pair [NB, bs, Hkv, D], written IN
+    PLACE (the JAX step donates it); page_table [B, MB] int32 and
+    cache_positions [B] int32 (row b appends at its own position) live on
+    the pools' device. chunk_counts [B] (or S > 1) selects the ragged
+    multi-query branch: row b's first chunk_counts[b] tokens are real and
+    attend the paged context plus the new tail causally; the rest are
+    padding whose outputs are garbage. write_index: where the rows land
+    in the pool, ``paged_write_index`` of the step (built once for every
+    layer; inactive slots and padding rows are not in it, so their writes
+    are dropped). K/V are written before attention reads them, as in the
+    JAX step."""
+    if kv_cache is None or page_table is None or write_index is None \
+            or attention_mask is not None or cache_index is not None:
+        raise NotImplementedError(
+            "only the paged-KV serving branches of attention_forward are "
+            "ported; the dense, flash, static-cache, context-parallel and "
+            "tensor-parallel branches come with the training slice")
+    b, s, _ = x.shape
+    d = cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
+    dt = cfg.compute_dtype
+    x = x.to(dt)
+    q = x @ p["q_kernel"].to(dt)
+    kv = x @ p["kv_kernel"].to(dt)
+    if "q_bias" in p:
+        q = q + p["q_bias"].to(dt)
+        kv = kv + p["kv_bias"].to(dt)
+    q = q.reshape(b, s, nq, d)
+    k, v = kv.reshape(b, s, 2 * nkv, d).split(nkv, dim=2)
+    if cfg.qk_layernorm:
+        q = rms_norm(q, p["q_ln_scale"], cfg.layernorm_epsilon)
+        k = rms_norm(k, p["k_ln_scale"], cfg.layernorm_epsilon)
+    if rope_cos is not None:
+        q = rotary.apply_rope(q, rope_cos, rope_sin)
+        k = rotary.apply_rope(k, rope_cos, rope_sin)
+
+    ck, cv = kv_cache
+    write_rows(ck, k, write_index)
+    write_rows(cv, v, write_index)
+    q = q.contiguous()
+    if s > 1 or chunk_counts is not None:
+        counts = (chunk_counts if chunk_counts is not None else torch.full(
+            (b,), s, dtype=torch.int32, device=x.device))
+        attn = paged_attention_multiquery(q, ck, cv, page_table,
+                                          cache_positions + counts, counts)
+    else:
+        attn = paged_attention_decode(q[:, 0], ck, cv, page_table,
+                                      cache_positions + 1)[:, None]
+    out = attn.reshape(b, s, nq * d) @ p["out_kernel"].to(dt)
+    if "out_bias" in p:
+        out = out + p["out_bias"].to(dt)
+    return out, (ck, cv)

@@ -1,0 +1,49 @@
+"""MLP sublayer, dense and gated (the JAX package's transformer/mlp.py
+without its tp-overlap, fp8 and LoRA branches).
+
+Param leaf layout:
+  fc1_kernel [H, F] or [H, 2F] (gated: [gate | value])
+  fc1_bias   [F] / [2F]
+  fc2_kernel [F, H]
+  fc2_bias   [H]
+"""
+
+from __future__ import annotations
+
+import torch
+
+from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.ops.activations import apply_activation, is_gated
+from megatronapp_tpu_torch.utils.params import ParamTree, normal
+
+
+def init_mlp_params(cfg: TransformerConfig, generator: torch.Generator,
+                    device, out_std: float) -> ParamTree:
+    h, f = cfg.hidden_size, cfg.ffn_hidden_size
+    std, dt = cfg.init_method_std, cfg.params_dtype
+    fc1_out = 2 * f if is_gated(cfg.activation) else f
+    p = {"fc1_kernel": normal((h, fc1_out), std, dt, generator, device),
+         "fc2_kernel": normal((f, h), out_std, dt, generator, device)}
+    if cfg.add_bias_linear:
+        p["fc1_bias"] = torch.zeros(fc1_out, dtype=dt, device=device)
+        p["fc2_bias"] = torch.zeros(h, dtype=dt, device=device)
+    return ParamTree(p)
+
+
+def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig):
+    """x [..., H] → [..., H]: fc1 → activation (gate = first half of fc1
+    for gated kinds) → fc2."""
+    dt = cfg.compute_dtype
+    x = x.to(dt)
+    y = x @ p["fc1_kernel"].to(dt)
+    if "fc1_bias" in p:
+        y = y + p["fc1_bias"].to(dt)
+    if is_gated(cfg.activation):
+        gate, val = y.chunk(2, dim=-1)
+        y = apply_activation(cfg.activation, val, gate)
+    else:
+        y = apply_activation(cfg.activation, y)
+    out = y @ p["fc2_kernel"].to(dt)
+    if "fc2_bias" in p:
+        out = out + p["fc2_bias"].to(dt)
+    return out

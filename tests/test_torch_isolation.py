@@ -1,0 +1,209 @@
+"""The port stands apart from the JAX package and from the CPU.
+
+- importing every module of megatronapp_tpu_torch (and chip_smoke.py)
+  pulls in neither jax nor megatronapp_tpu;
+- entry points default to the card and raise where there is none;
+- a tensor that is not on the CPU never reaches a kernel's plain version;
+- the weight converter refuses leaves it does not place.
+"""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import megatronapp_tpu_torch
+from megatronapp_tpu_torch.models.convert import params_from_jax
+from megatronapp_tpu_torch.ops.cuda import paged_attention as cuda_pa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(megatronapp_tpu_torch.__file__)
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG_DIR], prefix="megatronapp_tpu_torch."))
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _port_modules()
+    assert "megatronapp_tpu_torch.inference.dynamic_engine" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'megatronapp_tpu' or "
+        "m.startswith('megatronapp_tpu.'))\n"
+        "print('LOADED', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR)
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "megatronapp_tpu"), (
+                    f"{path} imports {n}")
+
+
+def test_engine_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.utils.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama3_8b(num_layers=1, hidden_size=64, num_attention_heads=4,
+                    num_query_groups=2, ffn_hidden_size=128,
+                    vocab_size=128)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynamicInferenceEngine(params, cfg, max_seq_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_entry_point_raises_without_a_card(monkeypatch):
+    from megatronapp_tpu_torch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = serve.parse_args(["--preset", "gpt2-125m", "--engine", "dynamic",
+                             "--paged-kv-cache", "--num-layers", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_engine(args)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--engine", "static"], "not ported"),
+    (["--engine", "dynamic"], "--paged-kv-cache"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--kv-cache-dtype",
+      "int8"], "quantized"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--spec-method", "ngram"],
+     "speculative"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--megakernel-decode"],
+     "fused decode"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--load-dir", "x"],
+     "checkpoint"),
+])
+def test_serve_flags_outside_the_slice_exit(argv, msg, capsys):
+    from megatronapp_tpu_torch import serve
+    with pytest.raises(SystemExit):
+        serve.parse_args(argv)
+    assert msg in capsys.readouterr().err
+
+
+def test_non_cpu_tensors_never_reach_the_plain_version(monkeypatch):
+    """The wrapper takes the plain version only for CPU tensors: any
+    other device goes to the kernel path, which raises for what it cannot
+    launch (here a meta tensor) instead of falling back."""
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(cuda_pa, "paged_attention_plain", no_plain)
+    q = torch.empty(2, 4, 64, device="meta")
+    pools = torch.empty(6, 4, 2, 64, device="meta")
+    table = torch.zeros(2, 3, dtype=torch.int32, device="meta")
+    lens = torch.ones(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_pa.paged_attention(q, pools, pools, table, lens)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_kernel(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(cuda_pa, "paged_attention_plain", no_plain)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 8, 128, generator=g).to(dev, torch.bfloat16)
+    kp = torch.randn(6, 16, 2, 128, generator=g).to(dev, torch.bfloat16)
+    table = torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32,
+                         device=dev)
+    lens = torch.tensor([5, 40], dtype=torch.int32, device=dev)
+    before = cuda_pa.launches["decode"]
+    out = cuda_pa.paged_attention(q, kp, kp, table, lens)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert cuda_pa.launches["decode"] == before + 1
+
+
+def _jax_tree(cfg):
+    """A minimal JAX-layout param tree (numpy leaves) for `cfg`."""
+    h, L = cfg.hidden_size, cfg.num_layers
+    nq, nkv, d, f = (cfg.num_attention_heads, cfg.num_query_groups,
+                     cfg.head_dim, cfg.ffn_hidden_size)
+    z = np.zeros
+    return {
+        "embedding": {"word": z((cfg.vocab_size, h), np.float32)},
+        "final_ln_scale": z((h,), np.float32),
+        "output": z((h, cfg.vocab_size), np.float32),
+        "block": {
+            "ln1_scale": z((L, h), np.float32),
+            "ln2_scale": z((L, h), np.float32),
+            "attention": {"q_kernel": z((L, h, nq * d), np.float32),
+                          "kv_kernel": z((L, h, 2 * nkv * d), np.float32),
+                          "out_kernel": z((L, nq * d, h), np.float32)},
+            "mlp": {"fc1_kernel": z((L, h, 2 * f), np.float32),
+                    "fc2_kernel": z((L, f, h), np.float32)},
+        },
+    }
+
+
+@pytest.mark.parametrize("where", ["top", "embedding", "block",
+                                   "attention", "mlp"])
+def test_convert_raises_on_unknown_leaf(where):
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    cfg = llama3_8b(num_layers=2, hidden_size=64, num_attention_heads=4,
+                    num_query_groups=2, ffn_hidden_size=128,
+                    vocab_size=128)
+    t = _jax_tree(cfg)
+    params_from_jax(t, cfg)                    # the known tree converts
+    extra = np.zeros((2, 4), np.float32)
+    {"top": t, "embedding": t["embedding"], "block": t["block"],
+     "attention": t["block"]["attention"],
+     "mlp": t["block"]["mlp"]}[where]["mystery"] = extra
+    with pytest.raises(KeyError, match="unknown leaf"):
+        params_from_jax(t, cfg)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_a_card_or_the_repo(alone, tmp_path):
+    """No CUDA device: non-zero exit, no result line. A directory holding
+    only chip_smoke.py cannot succeed either."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        cwd = str(tmp_path)
+        script = shutil.copy(script, os.path.join(cwd, "chip_smoke.py"))
+    out = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, timeout=120, cwd=cwd)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
