@@ -6,22 +6,40 @@
 Phases, each printing one JSON line:
 
 1. device:  the card (nvidia-smi name and power limit) and the kernel
-            build from the sources in the checkout (nvcc, sm_90a).
+            builds from the sources in the checkout (one nvcc per source,
+            started together; sm_90a).
 2. kernels: the paged-attention kernel against its plain PyTorch version
             on the card, decode and ragged modes, at llama3-8b attention
             shapes and one gpt2-125m (MHA, D=64) shape.
 3. reference: a tiny llama-shaped model's chunked-prefill logits on the
             card (bf16, kernel) against the same weights on the CPU
             (fp32, plain versions).
-4. serve:   llama3-8b at full width (random bf16 weights from a seed) behind
+4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
+            against their fp32 plain versions on the card: llama3-8b
+            attention at S 4096, gpt2-125m at S 1024 (causal and
+            bidirectional), a ragged S, packed segments and head_fold.
+5. train_reference: one train step (2 microbatches) of a 2-layer
+            llama-shaped model on the card (bf16, kernels) against the
+            CPU (fp32, plain versions) from the same weights.
+6. train:   pretrain_gpt on llama3-8b at full width, --train-layers deep
+            (default 4), S 4096, global batch 2 of micro-batches of 1,
+            5 steps, fp32 master params, bf16 compute, mock data: losses,
+            launch counts, step time, tokens/s, MFU, peak memory, remat
+            "full" against "selective", and two profiled steps' device
+            time by kernel family.
+   train_gpt2: pretrain_gpt on gpt2-125m (full depth, D 64) with
+            --attention-impl pallas --flash-head-fold, S 1024, 3 steps:
+            the flash kernels at D 64 on a train path.
+7. serve:   llama3-8b at full width (random bf16 weights from a seed) behind
             the continuous-batching driver: 8 concurrent greedy requests,
             checked for length, vocabulary, launch counts, a prefix-cache
             hit and a rerun that repeats the streams.
-5. profile: device time by kernel family through the same engine at the
+8. profile: device time by kernel family through the same engine at the
             slice's shapes: the prefill of one 1008-token prompt, then
             decode steps with 8 slots at kv ~1024.
-6. times:   the kernel, its plain version, one PyTorch attention call and
-            the card's bound, at the shapes the engine launches.
+9. times:   each kernel, its plain version, one PyTorch call computing the
+            same function and the card's bound, at the shapes the main
+            paths launch.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed check exits
@@ -45,6 +63,15 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "megatronapp_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "megatronapp_tpu/ops/pallas/kernel_gen.py:875"
+FLASH_SOURCE = "megatronapp_tpu_torch/csrc/flash_attention.cu"
+_FA = "megatronapp_tpu/ops/pallas/flash_attention.py"
+FLASH_REPLACES = {
+    "fwd": f"{_FA}:395 (_flash_forward; D<128: :342 _flash_forward_t)",
+    "bwd_dq": f"{_FA}:1020 (_flash_backward dq; D<128: :1110; "
+              "head_fold: :802)",
+    "bwd_dkv": f"{_FA}:1050 (_flash_backward dk/dv; D<128: :1139; "
+               "head_fold: :824)",
+}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
 L2_BYTES = 50 * 2**20           # H100 L2 cache
@@ -164,12 +191,15 @@ def attention_flops(case, hq, d) -> int:
 
 
 def phase_device(state):
-    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
     t0 = time.perf_counter()
-    built = pa.build()
+    built = kbuild.build_all([kbuild.source("paged_attention.cu"),
+                              kbuild.source("flash_attention.cu")])
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in built["log"].splitlines()
-             if "ptxas info" in ln]
+    ptxas = {os.path.basename(b["source"]): [
+        ln.strip() for ln in b["log"].splitlines()
+        if "ptxas info" in ln and ("registers" in ln or "spill" in ln
+                                   or "Compiling" in ln)] for b in built}
     state["smi"] = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": state["smi"],
           "kind": torch.cuda.get_device_name(0),
@@ -461,36 +491,47 @@ def _family(name: str) -> str:
     return "other"
 
 
-def _device_profile(fn, units: int) -> dict:
+def _device_profile(fn, units: int, families=FAMILIES,
+                    family=None, top_kernels: int = 0) -> dict:
     """fn() under torch.profiler (device activity only): the window's
     wall time, device busy time and idle share, and device time and
     kernel count by kernel family, in all and per unit (chunk or step)."""
     from torch.profiler import ProfilerActivity, profile
+    family = family or _family
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ms = dict.fromkeys(FAMILIES, 0.0)
-    n = dict.fromkeys(FAMILIES, 0)
+    ms = dict.fromkeys(families, 0.0)
+    n = dict.fromkeys(families, 0)
+    by_name = {}
     for e in prof.events():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        fam = _family(e.name)
-        ms[fam] += e.time_range.elapsed_us() / 1e3
+        fam = family(e.name)
+        t = e.time_range.elapsed_us() / 1e3
+        ms[fam] += t
         n[fam] += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + t
     busy = sum(ms.values())
-    return {"units": units, "window_ms": wall_ms,
-            "wall_ms_per_unit": wall_ms / units, "device_busy_ms": busy,
-            "device_idle_share": (1 - busy / wall_ms) if busy else
-            "not measured (the profiler saw no device events)",
-            "device_ms_per_unit_by_family": {k: v / units
-                                             for k, v in ms.items()},
-            "device_ms_by_family": ms, "kernels_by_family": n,
-            "paged_attention_ms_per_launch":
-                ms["paged_attention"] / n["paged_attention"]
-                if n["paged_attention"] else None}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_kernels]
+    out = {"units": units, "window_ms": wall_ms,
+           "wall_ms_per_unit": wall_ms / units, "device_busy_ms": busy,
+           "device_idle_share": (1 - busy / wall_ms) if busy else
+           "not measured (the profiler saw no device events)",
+           "device_ms_per_unit_by_family": {k: v / units
+                                            for k, v in ms.items()},
+           "device_ms_by_family": ms, "kernels_by_family": n}
+    if top:
+        out["top_kernels_ms_per_unit"] = [[name[:90], t / units]
+                                          for name, t in top]
+    if "paged_attention" in families:
+        out["paged_attention_ms_per_launch"] = (
+            ms["paged_attention"] / n["paged_attention"]
+            if n["paged_attention"] else None)
+    return out
 
 
 def phase_profile(state):
@@ -646,7 +687,499 @@ def phase_times(state):
               kv: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                      "bound_ms")}
               for kv, r in sorted(by_kv.items())},
-          "ragged_b8_not_a_main_path_shape": b8})
+          "ragged_b8_not_a_main_path_shape": b8,
+          "flash_train_shapes": _flash_times(state)})
+
+
+# ---------------------------------------------------------------------------
+# training phases
+# ---------------------------------------------------------------------------
+
+# bf16 flash kernels against their plain versions, twice.
+# 1. Against the fp32 plain version on fp32 copies of the inputs: the
+#    output within FLASH_OUT_TOL of each (row, head)'s RMS over D (the
+#    bound argued above for the paged kernel: bf16 rounding of the scaled
+#    q, of P and of the output); the LSE within FLASH_LSE_TOL absolute
+#    (rounding q*scale to bf16 moves a score by ~2^-9 of |q||k| scale,
+#    ~0.004 at D 128); each gradient within FLASH_GRAD_TOL of its (batch,
+#    head) Frobenius norm. The gradients are held normwise because
+#    ds = p (dp - delta) cancels: the rounded q and the bf16 output (which
+#    enters delta) move ds by ~0.5 % of its terms, and a row whose
+#    gradient nearly cancels (dq of the first causal rows, measured on the
+#    card: 0.22 of max(row, head RMS) at one element of row 3, S 4096,
+#    while the 99th percentile is 0.006) has no scale of its own.
+# 2. Against the plain version on the same bf16 inputs fed the kernels'
+#    own LSE and delta, which repeats the kernels' roundings: every
+#    element within FLASH_SAME_TOL of max(its (row, head) RMS, its head's
+#    RMS) — what is left is summation order and the bf16 rounding of the
+#    results (measured: 0.016 for dq at S 4096).
+FLASH_OUT_TOL = 0.06
+FLASH_LSE_TOL = 0.02
+FLASH_GRAD_TOL = 0.02
+FLASH_SAME_TOL = 0.06
+TRAIN_FAMILIES = ("flash_fwd", "flash_bwd", "gemm", "memcpy/memset",
+                  "other")
+
+
+def _train_family(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_fwd"
+    if "flash_bwd" in low:
+        return "flash_bwd"
+    fam = _family(name)
+    return "other" if fam == "paged_attention" else fam
+
+
+def _flash_inputs(gen, dev, b, s, hq, hkv, d, segments=False):
+    """bf16 q, and k/v as the two halves of one [B, S, 2 Hkv, D] tensor
+    (strided views, as the attention layer splits its fused projection),
+    a cotangent g and optional packed segment ids."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    q = rnd(b, s, hq, d)
+    k, v = rnd(b, s, 2 * hkv, d).split(hkv, dim=2)
+    seg = None
+    if segments:
+        seg = torch.sort(torch.randint(0, 4, (b, s), generator=gen),
+                         dim=1).values.to(dev, torch.int32)
+    return q, k, v, rnd(b, s, hq, d), seg
+
+
+def _errs(got, ref, grad: bool):
+    """(max abs error, max error over max(row RMS, head RMS) for grads or
+    over the row RMS for outputs, max per-(batch, head) normwise error)."""
+    err = (got.float() - ref.float()).abs()
+    ref = ref.float()
+    scale = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    if grad:
+        scale = torch.maximum(
+            scale, ref.pow(2).mean(dim=(1, 3), keepdim=True).sqrt())
+    norm = (err.pow(2).sum(dim=(1, 3)) / ref.pow(2).sum(dim=(1, 3))).sqrt()
+    return (float(err.max()), float((err / scale.clamp_min(1e-30)).max()),
+            float(norm.max()))
+
+
+def _flash_case(name, q, k, v, g, seg, causal, head_fold=False):
+    """The three kernels on bf16 inputs against the plain versions (see
+    the tolerances above). head_fold goes through the autograd Function
+    with flash_head_fold set (the model's path); the rest call the
+    wrappers."""
+    from megatronapp_tpu_torch.ops import flash_attention as ofa
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    out, lse = fa.flash_forward(q, k, v, causal, None, seg)
+    if head_fold:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out_f = ofa.flash_attention(*leaves, causal=causal, segment_ids=seg,
+                                    head_fold=True)
+        out_f.backward(g)
+        check(torch.equal(out_f, out), f"train_kernels {name}: the "
+              "autograd path's output differs from the kernel's")
+        grads = [t.grad for t in leaves]
+    else:
+        grads = fa.flash_backward(q, k, v, out, lse, g, causal, None, seg)
+    torch.cuda.synchronize()
+    for t in (out, *grads):
+        check(bool(torch.isfinite(t).all()),
+              f"train_kernels {name}: non-finite output")
+    res = {}
+    f32 = [t.float() for t in (q, k, v, g)]
+    ref_out, ref_lse = fa.flash_forward_plain(*f32[:3], causal, None, seg)
+    ref = fa.flash_backward_plain(
+        *f32, ref_lse, fa.attention_delta(ref_out, f32[3]), causal, None,
+        seg)
+    res["fp32"] = {"out": _errs(out, ref_out, False),
+                   "lse_abs": float((lse - ref_lse).abs().max())}
+    for key, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        res["fp32"][key] = _errs(got, want, True)
+    del ref, ref_out, ref_lse, f32
+    same_out, _ = fa.flash_forward_plain(q, k, v, causal, None, seg)
+    same = fa.flash_backward_plain(q, k, v, g, lse,
+                                   fa.attention_delta(out, g), causal, None,
+                                   seg)
+    res["same_inputs"] = {"out": _errs(out, same_out, False)}
+    for key, got, want in zip(("dq", "dk", "dv"), grads, same):
+        res["same_inputs"][key] = _errs(got, want, True)
+    del same, same_out
+    torch.cuda.empty_cache()
+    r32, rsame = res["fp32"], res["same_inputs"]
+    check(r32["lse_abs"] <= FLASH_LSE_TOL,
+          f"train_kernels {name}: lse error {r32['lse_abs']}")
+    check(r32["out"][1] <= FLASH_OUT_TOL and rsame["out"][1] <= FLASH_OUT_TOL,
+          f"train_kernels {name}: out errors {r32['out']} / "
+          f"{rsame['out']} over the row RMS exceed {FLASH_OUT_TOL}")
+    for key in ("dq", "dk", "dv"):
+        check(r32[key][2] <= FLASH_GRAD_TOL,
+              f"train_kernels {name}: {key} normwise error vs fp32 "
+              f"{r32[key]} exceeds {FLASH_GRAD_TOL}")
+        check(rsame[key][1] <= FLASH_SAME_TOL,
+              f"train_kernels {name}: {key} error vs the same-input plain "
+              f"version {rsame[key]} exceeds {FLASH_SAME_TOL}")
+    return res
+
+
+def phase_train_kernels(state):
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(4321)
+    before = dict(fa.launches)
+    cases = {
+        # name: (b, s, hq, hkv, d, causal, segments, head_fold)
+        "llama3_8b_s4096_causal": (1, 4096, 32, 8, 128, True, False, False),
+        "gpt2_125m_s1024_causal": (2, 1024, 12, 12, 64, True, False, False),
+        "gpt2_125m_s1024_bidirectional": (2, 1024, 12, 12, 64, False, False,
+                                          False),
+        "ragged_s1000_gqa": (2, 1000, 8, 2, 128, True, False, False),
+        "packed_segments_d64": (2, 1024, 12, 4, 64, True, True, False),
+        "packed_segments_d128_bidirectional": (1, 777, 8, 8, 128, False,
+                                               True, False),
+        "head_fold_d64_gqa": (2, 1024, 12, 6, 64, True, False, True),
+    }
+    results = {}
+    for name, (b, s, hq, hkv, d, causal, segments, fold) in cases.items():
+        q, k, v, g, seg = _flash_inputs(gen, dev, b, s, hq, hkv, d,
+                                        segments)
+        results[name] = _flash_case(name, q, k, v, g, seg, causal, fold)
+    fa.launches.update(before)
+    r32 = [r["fp32"] for r in results.values()]
+    state["flash_err"] = {
+        "fwd": max(r["out"][0] for r in r32),
+        "bwd_dq": max(r["dq"][0] for r in r32),
+        "bwd_dkv": max(max(r["dk"][0], r["dv"][0]) for r in r32)}
+    emit({"phase": "train_kernels", "tolerances": {
+        "fp32_out_over_row_rms": FLASH_OUT_TOL, "fp32_lse_abs": FLASH_LSE_TOL,
+        "fp32_grad_normwise_per_head": FLASH_GRAD_TOL,
+        "same_inputs_over_max_row_head_rms": FLASH_SAME_TOL},
+        "errors": "(max abs, max over scale, max normwise per head)",
+        "cases": {n: {"shape": dict(zip(
+            ("b", "s", "hq", "hkv", "d", "causal", "segments",
+             "head_fold"), cases[n])), **r} for n, r in results.items()}})
+
+
+def _train_step_run(cfg, params, batches, dev):
+    """Two optimizer steps of the port's train step from `params` on
+    `dev`; returns the steps' metrics."""
+    from megatronapp_tpu_torch.config.training_config import OptimizerConfig
+    from megatronapp_tpu_torch.training.optimizer import Optimizer
+    from megatronapp_tpu_torch.training.train import gpt_microbatch_loss
+    from megatronapp_tpu_torch.training.train_step import (
+        TrainState, make_train_step, named_trainable, to_device_batch,
+    )
+    opt = Optimizer(OptimizerConfig(lr=1e-3), 10)
+    params.requires_grad_(True)
+    st = TrainState(params, opt.init(named_trainable(params)))
+    step = make_train_step(gpt_microbatch_loss(cfg), opt)
+    return [step(st, to_device_batch(b, dev)) for b in batches]
+
+
+def phase_train_reference(state):
+    """A 2-layer llama-shaped model (head_dim 128, GQA group 2, flash
+    forced at S 256): two train steps on the card (bf16 compute, kernels)
+    against the CPU (fp32, plain versions) from the same fp32 weights."""
+    import copy
+
+    from megatronapp_tpu_torch.data.mock import mock_batches
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.training.train import reshape_global_batch
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05, attention_impl="pallas")
+    cfg_ref = llama3_8b(compute_dtype=torch.float32, **small)
+    cfg_dev = llama3_8b(**small)
+    p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(17),
+                            "cpu")
+    p_dev = copy.deepcopy(p_ref).to("cuda")
+    it = mock_batches(256, 512, 4, seed=3)
+    fields = ("tokens", "labels", "loss_mask")
+    batches = [reshape_global_batch({k: v for k, v in next(it).items()
+                                     if k in fields}, 2) for _ in range(2)]
+    for k in fa.launches:
+        fa.launches[k] = 0
+    dev_m = _train_step_run(cfg_dev, p_dev, batches, torch.device("cuda", 0))
+    launches = dict(fa.launches)
+    ref_m = _train_step_run(cfg_ref, p_ref, batches, torch.device("cpu"))
+    fa.launches.update({k: 0 for k in fa.launches})
+    rel = [{k: abs(d[k] - r[k]) / abs(r[k]) for k in ("loss", "grad_norm")}
+           for d, r in zip(dev_m, ref_m)]
+    emit({"phase": "train_reference", "card": dev_m, "cpu": ref_m,
+          "rel_err": rel, "launches": launches,
+          "tolerances": {"loss": 0.01, "grad_norm": 0.05}})
+    check(launches == {"fwd": 8, "bwd_dq": 8, "bwd_dkv": 8},
+          f"train_reference: expected 2 layers x 2 micro x 2 steps launches "
+          f"of each kernel, got {launches}")
+    # bf16 weights and activations through two layers move the loss by a
+    # fraction of a percent and the gradient norm by a few percent.
+    for r in rel:
+        check(r["loss"] < 0.01 and r["grad_norm"] < 0.05,
+              f"train_reference: card vs CPU relative errors {r}")
+
+
+def phase_train(state, layers: int):
+    """pretrain_gpt on llama3-8b at full width, `layers` deep."""
+    import gc
+
+    from megatronapp_tpu_torch.config.training_config import (
+        OptimizerConfig, TrainingConfig,
+    )
+    from megatronapp_tpu_torch.data.mock import mock_batches
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.training.optimizer import Optimizer
+    from megatronapp_tpu_torch.training.train import (
+        gpt_microbatch_loss, pretrain_gpt, reshape_global_batch,
+    )
+    from megatronapp_tpu_torch.training.train_step import (
+        make_train_step, to_device_batch,
+    )
+    from megatronapp_tpu_torch.utils.flops import flops_per_token
+    dev = torch.device("cuda", 0)
+    cfg = llama3_8b(num_layers=layers)
+    seq, micro, gbs, steps = 4096, 1, 2, 5
+    train_cfg = TrainingConfig(micro_batch_size=micro, global_batch_size=gbs,
+                               seq_length=seq, train_iters=steps,
+                               log_interval=1, seed=1234)
+    opt_cfg = OptimizerConfig()
+    lines = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in fa.launches:
+        fa.launches[k] = 0
+    t0 = time.perf_counter()
+    res = pretrain_gpt(cfg, train_cfg, opt_cfg, device=dev,
+                       log_fn=lines.append)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    num_micro = gbs // micro
+    losses = [m["loss"] for m in res.log]
+    # Random untied head: logits ~ N(0, std^2 H) after the final norm, so
+    # the expected first loss is ln V + std^2 H / 2 (12.58 here).
+    expected0 = math.log(cfg.vocab_size) + (
+        cfg.init_method_std ** 2 * cfg.hidden_size / 2)
+    step_ms = [m["step_time_ms"] for m in res.log[1:]]
+    mean_ms = sum(step_ms) / len(step_ms)
+    tok_s = gbs * seq / (mean_ms / 1e3)
+    fpt = flops_per_token(cfg, seq)
+    # Beyond the main path (these launches are not counted there): two
+    # steps under each remat policy from the trained state, for the peak
+    # memory, the second step's time and the launches of one step ("full"
+    # recomputes each layer's forward), then two profiled steps.
+    import dataclasses
+    opt = Optimizer(opt_cfg, steps + 6)
+    batch = next(mock_batches(seq, cfg.vocab_size, gbs, seed=99))
+    batch = to_device_batch(reshape_global_batch(
+        {k: batch[k] for k in ("tokens", "labels", "loss_mask")},
+        num_micro), dev)
+    remat = {}
+    for policy in ("selective", "full"):
+        step_fn = make_train_step(gpt_microbatch_loss(
+            dataclasses.replace(cfg, remat_policy=policy)), opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(res.state, batch)
+        fa.launches.update({k: 0 for k in fa.launches})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_fn(res.state, batch)
+        torch.cuda.synchronize()
+        remat[policy] = {"step_ms": (time.perf_counter() - t1) * 1e3,
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "launches": dict(fa.launches)}
+    step_fn = make_train_step(gpt_microbatch_loss(cfg), opt)
+    prof = _device_profile(lambda: [step_fn(res.state, batch)
+                                    for _ in range(2)], 2,
+                           TRAIN_FAMILIES, _train_family, top_kernels=15)
+    fa.launches.update({k: 0 for k in fa.launches})
+    state["train_launches"] = launches
+    params_n = sum(p.numel() for p in res.state.params.parameters())
+    del res, batch, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "model": "llama3-8b", "layers": layers,
+          "full_width": True, "params": params_n, "seq_length": seq,
+          "micro_batch_size": micro, "global_batch_size": gbs,
+          "steps": steps, "params_dtype": "fp32", "compute_dtype": "bf16",
+          "losses": losses, "expected_first_loss": expected0,
+          "log": lines, "launches": launches, "wall_s": wall,
+          "step_ms": step_ms, "mean_step_ms_after_first": mean_ms,
+          "tokens_per_s": tok_s, "flops_per_token": fpt,
+          "mfu": tok_s * fpt / BF16_FLOPS_PER_S,
+          "peak_mem_bytes": peak, "remat_one_step": remat,
+          "profiled_steps": prof})
+    check(all(math.isfinite(x) for x in losses),
+          f"train: non-finite loss in {losses}")
+    check(abs(losses[0] - expected0) < 0.5,
+          f"train: first loss {losses[0]} not within 0.5 of {expected0}")
+    want = layers * num_micro * steps
+    check(launches == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+          f"train: expected {want} launches of each flash kernel "
+          f"(layers x micro x steps), got {launches}")
+    one = layers * num_micro
+    check(remat["selective"]["launches"] == dict.fromkeys(launches, one)
+          and remat["full"]["launches"] == {"fwd": 2 * one, "bwd_dq": one,
+                                            "bwd_dkv": one},
+          f"train: remat launches {remat} (full recomputes the forward)")
+
+
+def phase_train_gpt2(state):
+    """pretrain_gpt on gpt2-125m at full width and depth (MHA, D 64, tied
+    embeddings) as a user runs it with --attention-impl pallas
+    --flash-head-fold: S 1024, global batch 8 of micro-batches of 4, 3
+    steps, which runs the flash kernels at D 64 (the TPU kernels' D < 128
+    and head-fold variants) on a train path."""
+    from megatronapp_tpu_torch.config.training_config import (
+        OptimizerConfig, TrainingConfig,
+    )
+    from megatronapp_tpu_torch.models.presets import gpt2_125m
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    from megatronapp_tpu_torch.utils.flops import flops_per_token
+    dev = torch.device("cuda", 0)
+    cfg = gpt2_125m(attention_impl="pallas", flash_head_fold=True)
+    seq, micro, gbs, steps = 1024, 4, 8, 3
+    lines = []
+    for k in fa.launches:
+        fa.launches[k] = 0
+    res = pretrain_gpt(cfg, TrainingConfig(
+        micro_batch_size=micro, global_batch_size=gbs, seq_length=seq,
+        train_iters=steps, log_interval=1, seed=1234), OptimizerConfig(),
+        device=dev, log_fn=lines.append)
+    launches = dict(fa.launches)
+    fa.launches.update({k: 0 for k in fa.launches})
+    losses = [m["loss"] for m in res.log]
+    expected0 = math.log(cfg.vocab_size) + (
+        cfg.init_method_std ** 2 * cfg.hidden_size / 2)
+    step_ms = [m["step_time_ms"] for m in res.log[1:]]
+    tok_s = gbs * seq / (sum(step_ms) / len(step_ms) / 1e3)
+    state["train_gpt2_launches"] = launches
+    del res
+    torch.cuda.empty_cache()
+    emit({"phase": "train_gpt2", "model": "gpt2-125m",
+          "layers": cfg.num_layers, "seq_length": seq,
+          "micro_batch_size": micro, "global_batch_size": gbs,
+          "steps": steps, "attention_impl": "pallas",
+          "flash_head_fold": True, "losses": losses,
+          "expected_first_loss": expected0, "log": lines,
+          "launches": launches, "step_ms": step_ms, "tokens_per_s": tok_s,
+          "mfu": tok_s * flops_per_token(cfg, seq) / BF16_FLOPS_PER_S})
+    check(all(math.isfinite(x) for x in losses),
+          f"train_gpt2: non-finite loss in {losses}")
+    check(abs(losses[0] - expected0) < 0.5,
+          f"train_gpt2: first loss {losses[0]} not within 0.5 of "
+          f"{expected0}")
+    want = cfg.num_layers * (gbs // micro) * steps
+    check(launches == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+          f"train_gpt2: expected {want} launches of each flash kernel, "
+          f"got {launches}")
+
+
+def _attn_bytes_flops(q, k, causal, kernel):
+    """Bytes each input read once and each output written once, and the
+    multiply-add operations this run's (causal) pairs need."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    pairs = b * (s * (s + 1) // 2 if causal else s * s)
+    qb, kvb, rows = b * s * hq * d * 2, b * s * hkv * d * 2, b * hq * s * 4
+    if kernel == "fwd":   # q, k, v → out, lse; QK and PV
+        return 2 * qb + 2 * kvb + rows, 2 * 2 * pairs * hq * d
+    if kernel == "bwd_dq":   # q, k, v, g, lse, delta → dq; s, dp, dq
+        return 3 * qb + 2 * kvb + 2 * rows, 3 * 2 * pairs * hq * d
+    # q, k, v, g, lse, delta → dk, dv; s, dp, dv, dk
+    return 2 * qb + 4 * kvb + 2 * rows, 4 * 2 * pairs * hq * d
+
+
+FLASH_TIMED_SHAPES = {
+    # name: (b, s, hq, hkv, d): the two train paths' attention shapes.
+    "llama3_8b": (1, 4096, 32, 8, 128),
+    "gpt2_125m": (4, 1024, 12, 12, 64),
+}
+
+
+def _flash_time_shape(b, s, hq, hkv, d):
+    """The flash kernels at one causal shape, their plain versions on the
+    same bf16 inputs, and PyTorch's scaled_dot_product_attention as the
+    yardstick (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    q, k, v, g, _ = _flash_inputs(torch.Generator().manual_seed(5), dev,
+                                  b, s, hq, hkv, d)
+    out, lse = fa.flash_forward(q, k, v, True)
+    delta = fa.attention_delta(out, g)
+    bargs = (q, k, v, g, lse, delta, True)
+    calls = {
+        "fwd": (lambda: fa.flash_forward(q, k, v, True),
+                lambda: fa.flash_forward_plain(q, k, v, True)),
+        "bwd_dq": (lambda: fa.flash_bwd_dq(*bargs),
+                   lambda: fa.flash_bwd_dq_plain(*bargs)),
+        "bwd_dkv": (lambda: fa.flash_bwd_dkv(*bargs),
+                    lambda: fa.flash_bwd_dkv_plain(*bargs)),
+    }
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=hq != hkv)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa()
+
+    lib_out = sdpa()
+
+    def sdpa_bwd():
+        torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
+
+    lib_fwd = cuda_time_ms(sdpa_fwd, iters=10)
+    lib_bwd = cuda_time_ms(sdpa_bwd, iters=10)
+    lib_fwd_bwd = cuda_time_ms(sdpa_fwd_bwd, iters=10)
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        # plain, kernel, kernel, plain: compare within one card and call.
+        p1 = cuda_time_ms(plain, iters=3, warmup=1)
+        k1 = cuda_time_ms(kern, iters=10)
+        k2 = cuda_time_ms(kern, iters=10)
+        p2 = cuda_time_ms(plain, iters=3, warmup=1)
+        nbytes, flops = _attn_bytes_flops(q, k, True, name)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        rows[name] = {
+            "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+            "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+            "library_ms": lib_fwd if name == "fwd" else lib_bwd,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+    return {"shape": {"b": b, "s": s, "hq": hq, "hkv": hkv, "d": d,
+                      "causal": True},
+            "library": {"sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                        "sdpa_fwd_bwd_ms": lib_fwd_bwd,
+                        "note": "the backward computes dq, dk and dv in "
+                                "one call; it is the library time of both "
+                                "backward kernels"},
+            **rows}
+
+
+def _flash_times(state):
+    """Each flash kernel at both train paths' shapes; the llama3-8b rows
+    (the main train path) go to the kernel table."""
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    before = dict(fa.launches)
+    out = {name: _flash_time_shape(*shape)
+           for name, shape in FLASH_TIMED_SHAPES.items()}
+    fa.launches.update(before)
+    state["flash_times"] = {k: out["llama3_8b"][k]
+                            for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    return out
 
 
 def kernel_table(state):
@@ -662,6 +1195,16 @@ def kernel_table(state):
             "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms")})
+    for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
+        t = state.get("flash_times", {}).get(kernel, {})
+        out.append({
+            "name": f"flash_{kernel}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[kernel],
+            "launches": state.get("train_launches", {}).get(kernel),
+            "max_abs_err": state.get("flash_err", {}).get(kernel),
+            "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms")})
     return {"kernels": out}
 
 
@@ -670,6 +1213,10 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=32,
                     help="llama3-8b depth for the serve and profile phases "
                          "(widths are never cut)")
+    ap.add_argument("--train-layers", type=int, default=4,
+                    help="llama3-8b depth for the train phase (full width; "
+                         "full depth does not fit one card's 80 GB with "
+                         "fp32 params, grads and Adam state)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -690,6 +1237,10 @@ def main(argv=None) -> int:
         phase_device(state)
         phase_kernels(state)
         phase_reference(state)
+        phase_train_kernels(state)
+        phase_train_reference(state)
+        phase_train(state, args.train_layers)
+        phase_train_gpt2(state)
         phase_serve(state, args.layers)
         phase_profile(state)
         phase_times(state)

@@ -31,7 +31,9 @@ def _tensor(a, cfg: TransformerConfig, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes arrays torch can't read
         a = a.astype(np.float32)
-    return torch.as_tensor(a, device=device).to(cfg.params_dtype)
+    # A copy: the trainer updates leaves in place, and numpy views of
+    # JAX arrays are read-only.
+    return torch.tensor(a, device=device).to(cfg.params_dtype)
 
 
 def _leaves(sub: Mapping, allowed: set, where: str) -> Dict[str, object]:

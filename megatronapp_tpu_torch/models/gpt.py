@@ -1,5 +1,5 @@
-"""GPT model pieces the serving slice uses (the JAX package's
-models/gpt.py): init, the embedding, the rope tables and the head."""
+"""GPT model (the JAX package's models/gpt.py): init, the embedding, the
+rope tables, the head, and the training forward and loss."""
 
 from __future__ import annotations
 
@@ -8,9 +8,14 @@ import torch
 from megatronapp_tpu_torch.config.transformer_config import (
     NormKind, PositionEmbeddingKind, TransformerConfig,
 )
+from typing import Optional
+
 from megatronapp_tpu_torch.ops import rotary
+from megatronapp_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatronapp_tpu_torch.ops.normalization import apply_norm
-from megatronapp_tpu_torch.transformer.block import init_block_params
+from megatronapp_tpu_torch.transformer.block import (
+    block_forward, init_block_params,
+)
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
 
@@ -38,12 +43,15 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
-              position_ids: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] at position_ids [B, S] (or [B, 1]) → embeddings
-    [B, S, H] in the compute dtype."""
+              position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] at position_ids [B, S] (or [B, 1]; default 0..S-1)
+    → embeddings [B, S, H] in the compute dtype."""
     emb = p["embedding"]
     h = emb["word"][tokens.long()]
     if "pos" in emb:
+        if position_ids is None:
+            position_ids = torch.arange(tokens.shape[1],
+                                        device=tokens.device)[None, :]
         h = h + emb["pos"][position_ids.long()]
     return h.to(cfg.compute_dtype)
 
@@ -66,13 +74,16 @@ def rope_params(cfg: TransformerConfig, device=None):
     return None, 1.0
 
 
-def gpt_rope_tables(cfg: TransformerConfig, seq_len: int, device=None):
-    """Rope cos/sin tables over positions [0, seq_len); (None, None)
-    without rope."""
+def gpt_rope_tables(cfg: TransformerConfig, seq_len: int, device=None,
+                    positions: Optional[torch.Tensor] = None):
+    """Rope cos/sin tables over positions [0, seq_len), or over explicit
+    per-token `positions` ([B, S] for packed sequences → [B, S, half]);
+    (None, None) without rope."""
     inv_freq, m = rope_params(cfg, device)
     if inv_freq is None:
         return None, None
-    positions = torch.arange(seq_len, device=device)
+    if positions is None:
+        positions = torch.arange(seq_len, device=device)
     cos, sin = rotary.rope_cos_sin(positions, inv_freq)
     if m != 1.0:
         cos, sin = cos * m, sin * m
@@ -86,3 +97,48 @@ def gpt_head(p, h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     out_kernel = p["output"] if "output" in p else p["embedding"]["word"].T
     dt = cfg.compute_dtype
     return (h.to(dt) @ out_kernel.to(dt)).float()
+
+
+def packed_position_ids(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Positions restart at 0 at each segment boundary (--reset-position-
+    ids). [B, S] → [B, S] int32."""
+    b, s = segment_ids.shape
+    idx = torch.arange(s, device=segment_ids.device)[None, :].expand(b, s)
+    is_start = torch.ones_like(segment_ids, dtype=torch.bool)
+    is_start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    return (idx - seg_start).to(torch.int32)
+
+
+def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
+                attention_mask: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None, ctx=None):
+    """tokens [B, S] → (logits [B, S, V] fp32, moe_aux_loss). segment_ids
+    [B, S]: packed sequences — positions restart per segment (for the
+    learned embedding and the rope tables) and attention stays within a
+    segment. The zigzag context-parallel layout comes with slice 3."""
+    if ctx is not None:
+        raise NotImplementedError(
+            "context-parallel (zigzag) forward is not ported yet (the "
+            "parallel-training slice)")
+    if cfg.mtp_num_layers:
+        raise NotImplementedError("MTP heads are not ported yet")
+    positions = None
+    if segment_ids is not None:
+        positions = packed_position_ids(segment_ids)
+    h = gpt_embed(p, tokens, cfg, position_ids=positions)
+    cos, sin = gpt_rope_tables(cfg, tokens.shape[1], tokens.device,
+                               positions=positions)
+    h, aux = block_forward(p["layers"], h, cfg, cos, sin, attention_mask,
+                           segment_ids=segment_ids)
+    return gpt_head(p, h, cfg), aux
+
+
+def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
+             loss_mask: Optional[torch.Tensor], cfg: TransformerConfig,
+             segment_ids: Optional[torch.Tensor] = None, ctx=None):
+    """Training loss (CE + MoE aux) → (loss, {"lm_loss", "moe_aux_loss"})."""
+    logits, aux = gpt_forward(p, tokens, cfg, segment_ids=segment_ids,
+                              ctx=ctx)
+    loss, _ = cross_entropy_loss(logits, targets, loss_mask)
+    return loss + aux, {"lm_loss": loss, "moe_aux_loss": aux}

@@ -9,23 +9,20 @@ the source note says what its design does about that.
 
 ``paged_attention`` takes the plain version only for tensors that lie on
 the CPU. For CUDA tensors it launches the kernel or raises: there is no
-fallback. The kernel is compiled with nvcc into ``build/kernels`` at first
-use, into a file named by the hash of its source and flags, and loaded
-with ctypes.
+fallback. The kernel builds at first use through ``ops/cuda/build.py``
+(nvcc into ``build/kernels``, named by the hash of source and flags) and
+is loaded with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
 from typing import Dict, Optional
 
 import torch
+
+from megatronapp_tpu_torch.ops.cuda import build as kbuild
 
 NEG_INF = -1e30
 
@@ -33,67 +30,16 @@ NEG_INF = -1e30
 # launches it (never by the plain version).
 launches: Dict[str, int] = {"decode": 0, "ragged": 0}
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_attention.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = kbuild.source("paged_attention.cu")
 MAX_BLOCK_SIZE = 64
 HEAD_DIMS = (64, 128)
-
-_lock = threading.Lock()
-_fn = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
-            "kernels build from source on the machine with the card")
-    return path
-
-
-def _library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(os.path.basename(SOURCE))[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
-
-
-def build() -> dict:
-    """Compile the kernel unless an up-to-date library exists. Returns
-    {"path", "log"} with nvcc's output (ptxas register and shared-memory
-    lines; empty when the library was already built); raises with that
-    output when the build fails."""
-    path = _library_path()
-    if os.path.exists(path):
-        return {"path": path, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {SOURCE} (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, path)
-    return {"path": path, "log": proc.stdout}
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _kernel():
     """The bound C launcher (built and loaded on first use)."""
-    global _fn
-    with _lock:
-        if _fn is None:
-            path = build()["path"]
-            fn = ctypes.CDLL(path).paged_attention_launch
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                           + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _fn = fn
-        return _fn
+    return kbuild.load(SOURCE, "paged_attention_launch", _ARGTYPES)
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,5 +1,6 @@
 """Self-attention sublayer (GQA, RoPE, optional QK-layernorm): the paged
-branches of the JAX package's transformer/attention.py.
+and single-device training branches of the JAX package's
+transformer/attention.py.
 
 Param leaf layout (per layer), the JAX [in, out] layout kept so weights
 copy across without transposing (``x @ w``):
@@ -11,10 +12,11 @@ copy across without transposing (``x @ w``):
   out_bias   [H]
   (optional) q_ln_scale, k_ln_scale [D]
 
-Only the serving slice's two paged branches are ported: the multi-token
-ragged append (chunked prefill) and the one-token decode append. The
-dense, flash, static-cache, context-parallel and tensor-parallel
-branches raise until the training slice brings them.
+Ported branches: the two paged serving branches (the multi-token ragged
+append of chunked prefill and the one-token decode append) and the
+single-device training branch (no cache: dense attention or the flash
+kernels, by the ``attention_impl`` rule). The static-cache,
+context-parallel and tensor-parallel branches raise until their slices.
 """
 
 from __future__ import annotations
@@ -23,8 +25,12 @@ from typing import Optional
 
 import torch
 
-from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.config.transformer_config import (
+    AttnMaskType, TransformerConfig,
+)
 from megatronapp_tpu_torch.ops import rotary
+from megatronapp_tpu_torch.ops.attention import dot_product_attention
+from megatronapp_tpu_torch.ops.flash_attention import flash_attention
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_multiquery,
@@ -54,17 +60,70 @@ def init_attention_params(cfg: TransformerConfig, generator: torch.Generator,
     return ParamTree(p)
 
 
+def attention_impl(cfg: TransformerConfig, b: int, nq: int, s: int,
+                   device_type: str) -> str:
+    """The attention_impl rule of JAX transformer/attention.py:470-489,
+    with the TPU read as the card: "auto" takes the flash kernels
+    ("pallas") on a CUDA device when S >= flash_min_seq or the dense fp32
+    [B, H, S, S] scores and probabilities would pass 1 GiB, else dense
+    attention ("reference"); "pallas" and "reference" force one."""
+    impl = cfg.attention_impl
+    if impl == "auto":
+        dense_bytes = 2 * 4 * b * nq * s * s
+        impl = ("pallas" if device_type == "cuda"
+                and (s >= cfg.flash_min_seq or dense_bytes > 1 << 30)
+                else "reference")
+    if impl not in ("pallas", "reference"):
+        raise ValueError(f"attention_impl {cfg.attention_impl!r}: takes "
+                         "'auto', 'pallas' or 'reference'")
+    return impl
+
+
+def _self_attention(q, k, v, cfg: TransformerConfig, attention_mask,
+                    segment_ids):
+    """The training branch's attention (JAX transformer/attention.py:
+    470-566, single device). Flash (the kernels on the card, their plain
+    versions on the CPU) needs no explicit mask and a causal or
+    bidirectional mask type; segment ids go to the kernel, or densify
+    into the mask on the dense path."""
+    b, s, nq, _ = q.shape
+    impl = attention_impl(cfg, b, nq, s, q.device.type)
+    use_flash = (impl == "pallas" and attention_mask is None
+                 and cfg.attn_mask_type in (AttnMaskType.causal,
+                                            AttnMaskType.bidirectional))
+    if use_flash:
+        return flash_attention(
+            q, k, v, causal=cfg.attn_mask_type == AttnMaskType.causal,
+            block_q=cfg.flash_block_q, block_kv=cfg.flash_block_kv,
+            segment_ids=segment_ids, head_fold=cfg.flash_head_fold)
+    if segment_ids is not None:
+        seg_mask = (segment_ids[:, None, :, None]
+                    == segment_ids[:, None, None, :])
+        attention_mask = (seg_mask if attention_mask is None
+                          else attention_mask & seg_mask)
+    return dot_product_attention(
+        q, k, v, mask_type=cfg.attn_mask_type,
+        attention_mask=attention_mask,
+        softmax_in_fp32=cfg.attention_softmax_in_fp32)
+
+
 def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                       rope_cos: Optional[torch.Tensor] = None,
                       rope_sin: Optional[torch.Tensor] = None,
                       attention_mask: Optional[torch.Tensor] = None,
                       kv_cache=None, cache_index=None, cache_positions=None,
                       page_table=None, chunk_counts=None,
-                      write_index: Optional[WriteIndex] = None):
-    """x: [B, S, H] → (out [B, S, H], (k_pool, v_pool)).
+                      write_index: Optional[WriteIndex] = None,
+                      segment_ids: Optional[torch.Tensor] = None, ctx=None):
+    """x: [B, S, H] → (out [B, S, H], new_cache).
 
-    kv_cache is the layer's paged pool pair [NB, bs, Hkv, D], written IN
-    PLACE (the JAX step donates it); page_table [B, MB] int32 and
+    Training (no kv_cache): new_cache is None. attention_mask [B,1,S,S]
+    (True = keep) and segment_ids [B, S] (packed sequences) restrict
+    attention; the attention_impl rule picks the flash kernels or dense
+    attention (see ``_self_attention``).
+
+    Serving: kv_cache is the layer's paged pool pair [NB, bs, Hkv, D],
+    written IN PLACE (the JAX step donates it); page_table [B, MB] int32 and
     cache_positions [B] int32 (row b appends at its own position) live on
     the pools' device. chunk_counts [B] (or S > 1) selects the ragged
     multi-query branch: row b's first chunk_counts[b] tokens are real and
@@ -74,12 +133,22 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     layer; inactive slots and padding rows are not in it, so their writes
     are dropped). K/V are written before attention reads them, as in the
     JAX step."""
-    if kv_cache is None or page_table is None or write_index is None \
-            or attention_mask is not None or cache_index is not None:
+    if ctx is not None:
         raise NotImplementedError(
-            "only the paged-KV serving branches of attention_forward are "
-            "ported; the dense, flash, static-cache, context-parallel and "
-            "tensor-parallel branches come with the training slice")
+            "context-parallel and tensor-parallel attention are not ported "
+            "yet (the parallel-training slice)")
+    serving = kv_cache is not None
+    if serving and (page_table is None or write_index is None
+                    or attention_mask is not None or cache_index is not None
+                    or segment_ids is not None):
+        raise NotImplementedError(
+            "the static-cache branch of attention_forward is not ported "
+            "yet: the port serves through the paged-KV branches")
+    if not serving and (cache_index is not None or page_table is not None
+                        or cache_positions is not None):
+        raise NotImplementedError(
+            "cache arguments without kv_cache: the static-cache branch is "
+            "not ported yet")
     b, s, _ = x.shape
     d = cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
@@ -98,6 +167,13 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     if rope_cos is not None:
         q = rotary.apply_rope(q, rope_cos, rope_sin)
         k = rotary.apply_rope(k, rope_cos, rope_sin)
+
+    if not serving:
+        attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids)
+        out = attn.reshape(b, s, nq * d) @ p["out_kernel"].to(dt)
+        if "out_bias" in p:
+            out = out + p["out_bias"].to(dt)
+        return out, None
 
     ck, cv = kv_cache
     write_rows(ck, k, write_index)

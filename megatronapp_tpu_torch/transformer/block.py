@@ -4,6 +4,8 @@ The JAX package stacks per-layer params along a leading L axis and walks
 them with ``lax.scan``; here each layer is one ``ParamTree`` in an
 ``nn.ModuleList`` and callers loop over it. Pre-LN residual structure:
 input norm → attention → +residual → pre-MLP norm → MLP → +residual.
+``block_forward`` runs the layers for training, each under the remat
+policy (``_remat_wrap``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from megatronapp_tpu_torch.config.transformer_config import (
     NormKind, TransformerConfig,
@@ -60,9 +63,10 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   kv_cache=None, cache_index=None,
                   cache_positions=None, page_table=None,
                   chunk_counts=None, write_index=None,
-                  fused_decode: bool = False):
+                  fused_decode: bool = False, segment_ids=None, ctx=None):
     """One transformer layer. x: [B,S,H] → ((out, new_cache), aux_losses);
-    the paged arguments are attention_forward's."""
+    the paged, mask and segment arguments are attention_forward's
+    (no kv_cache: the training branch, new_cache None)."""
     if fused_decode:
         raise NotImplementedError(
             "fused (megakernel) decode is not ported yet (the "
@@ -75,10 +79,45 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,
         kv_cache=kv_cache, cache_index=cache_index,
         cache_positions=cache_positions, page_table=page_table,
-        chunk_counts=chunk_counts, write_index=write_index)
+        chunk_counts=chunk_counts, write_index=write_index,
+        segment_ids=segment_ids, ctx=ctx)
     x = residual + attn_out.to(residual.dtype)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
                    cfg.layernorm_epsilon)
     x = residual + mlp_forward(p["mlp"], h, cfg).to(residual.dtype)
     return (x, new_cache), None
+
+
+REMAT_POLICIES = ("full", "selective", "selective_attn", "none")
+
+
+def _remat_wrap(fn, policy: str):
+    """The JAX package's _remat_wrap (block.py:204-221). "full" keeps only
+    each layer's input and recomputes the layer in the backward
+    (torch.utils.checkpoint, non-reentrant). "selective" and
+    "selective_attn" choose which products XLA saves; eager PyTorch
+    saves every activation autograd needs, which computes the same
+    numbers with more memory, so they run like "none"."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}: takes {REMAT_POLICIES}")
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return fn
+
+
+def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
+                  rope_cos=None, rope_sin=None, attention_mask=None,
+                  segment_ids=None):
+    """Run every layer for training. Returns (x, moe_aux_sum); dense
+    layers add no aux loss, so the sum is a zero scalar."""
+
+    def run_layer(layer_p, h):
+        (h2, _), _ = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
+                                   attention_mask, segment_ids=segment_ids)
+        return h2
+
+    run_layer = _remat_wrap(run_layer, cfg.remat_policy)
+    for layer_p in layers:
+        x = run_layer(layer_p, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)

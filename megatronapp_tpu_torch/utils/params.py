@@ -6,6 +6,10 @@ with the pytree's key syntax (``p["q_kernel"]``, ``"q_bias" in p``,
 while the weights live in modules (``state_dict`` names such as
 ``layers.3.attention.q_kernel``). The stacked JAX ``block`` leaves become
 one ``ParamTree`` per layer in an ``nn.ModuleList``.
+
+Leaves are made frozen (``requires_grad=False``), so serving runs no
+autograd; the trainer makes them trainable with ``tree.requires_grad_()``
+at setup (``training/train.py``).
 """
 
 from __future__ import annotations

@@ -33,7 +33,10 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
-    assert "megatronapp_tpu_torch.inference.dynamic_engine" in mods
+    assert {"megatronapp_tpu_torch.inference.dynamic_engine",
+            "megatronapp_tpu_torch.training.train",
+            "megatronapp_tpu_torch.pretrain_gpt",
+            "megatronapp_tpu_torch.ops.cuda.flash_attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -97,6 +100,16 @@ def test_serve_entry_point_raises_without_a_card(monkeypatch):
         serve.build_engine(args)
 
 
+def test_pretrain_gpt_entry_point_raises_without_a_card(monkeypatch):
+    from megatronapp_tpu_torch import pretrain_gpt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--num-layers", "1", "--hidden-size", "64",
+            "--num-attention-heads", "4", "--vocab-size", "128",
+            "--seq-length", "16", "--train-iters", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_gpt.main(argv)
+
+
 @pytest.mark.parametrize("argv,msg", [
     (["--engine", "static"], "not ported"),
     (["--engine", "dynamic"], "--paged-kv-cache"),
@@ -153,6 +166,51 @@ def test_cuda_tensors_launch_the_kernel(monkeypatch):
     torch.cuda.synchronize()
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
     assert cuda_pa.launches["decode"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hq,hkv,s,causal,segments", [
+    (128, 8, 2, 200, True, False), (64, 4, 4, 130, False, True)])
+def test_flash_kernels_match_plain_versions(d, hq, hkv, s, causal,
+                                            segments):
+    """bf16 kernels (one launch each) against the plain versions: on the
+    same bf16 inputs, fed the kernels' own LSE and delta, each element
+    within 0.06 of max(its row's RMS, its head's RMS); against fp32, each
+    gradient within 0.02 of its head's norm (chip_smoke.py argues both)."""
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(6)
+    q, k, v, go = (torch.randn(2, s, h, d, generator=g).to(dev, torch.bfloat16)
+                   for h in (hq, hkv, hkv, hq))
+    seg = (torch.sort(torch.randint(0, 3, (2, s), generator=g), dim=1)
+           .values.to(dev, torch.int32) if segments else None)
+    before = dict(fa.launches)
+    out, lse = fa.flash_forward(q, k, v, causal, None, seg)
+    grads = fa.flash_backward(q, k, v, out, lse, go, causal, None, seg)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    same = fa.flash_backward_plain(q, k, v, go, lse,
+                                   fa.attention_delta(out, go), causal,
+                                   None, seg)
+    f32 = [t.float() for t in (q, k, v, go)]
+    ref_out, ref_lse = fa.flash_forward_plain(*f32[:3], causal, None, seg)
+    ref = fa.flash_backward_plain(*f32, ref_lse,
+                                  fa.attention_delta(ref_out, f32[3]),
+                                  causal, None, seg)
+    row = ref_out.pow(2).mean(-1, keepdim=True).sqrt()
+    assert float(((out.float() - ref_out).abs() / row).max()) < 0.06
+    for got, s_ref, f_ref in zip(grads, same, ref):
+        err = (got.float() - s_ref.float()).abs()
+        s_ref = s_ref.float()
+        scale = torch.maximum(s_ref.pow(2).mean(-1, keepdim=True).sqrt(),
+                              s_ref.pow(2).mean((1, 3), keepdim=True).sqrt())
+        assert float((err / scale).max()) < 0.06
+        norm = ((got.float() - f_ref).pow(2).sum((1, 3))
+                / f_ref.pow(2).sum((1, 3))).sqrt()
+        assert float(norm.max()) < 0.02
 
 
 def _jax_tree(cfg):

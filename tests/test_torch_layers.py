@@ -272,11 +272,17 @@ def test_paged_layer_matches(arch, ragged):
 
 
 def test_unported_branches_raise():
+    """The branches still to port: the static cache, context- and
+    tensor-parallel attention, fused decode and MoE. (The dense training
+    branch is ported: tests/test_torch_training.py.)"""
     _, tc = cfg_pair(**LLAMA_SMALL)
     p = tree(random_layer(tc, 7))
     x = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="paged-KV serving"):
-        t_layer(p, x, tc)                      # dense training path
+    cache = (torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16))
+    with pytest.raises(NotImplementedError, match="static-cache"):
+        t_layer(p, x, tc, kv_cache=cache, cache_index=0)
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        t_layer(p, x, tc, ctx=object())
     with pytest.raises(NotImplementedError, match="megakernel"):
         t_layer(p, x, tc, fused_decode=True)
     moe = dataclasses.replace(tc, num_moe_experts=4)
