@@ -14,6 +14,13 @@ Phases, each printing one JSON line:
 3. reference: a tiny llama-shaped model's chunked-prefill logits on the
             card (bf16, kernel) against the same weights on the CPU
             (fp32, plain versions).
+   fused_kernels: the four fused decode-layer kernels (QKV, out-projection,
+            fc1, fc2) against their plain versions on the card: llama3-8b
+            at 8 and 32 rows, gpt2-125m (LayerNorm, biases, gelu, D 64),
+            and a QK-layernorm case with fp32 weights at 5 and 40 rows.
+   fused_reference: a tiny llama-shaped model's fused chunked-prefill and
+            decode step on the card (bf16, kernels) against the same
+            weights on the CPU (fp32, plain versions).
 4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
@@ -34,9 +41,14 @@ Phases, each printing one JSON line:
             the continuous-batching driver: 8 concurrent greedy requests,
             checked for length, vocabulary, launch counts, a prefix-cache
             hit and a rerun that repeats the streams.
-8. profile: device time by kernel family through the same engine at the
-            slice's shapes: the prefill of one 1008-token prompt, then
-            decode steps with 8 slots at kv ~1024.
+   serve_fused: the same weights and requests through an engine built with
+            fused_decode=True (--megakernel-decode): the same checks, each
+            fused kernel launched once per layer per decode step and
+            prefill chunk, and the fused against the unfused streams and
+            last-position logits.
+8. profile: device time by kernel family through the unfused and the
+            fused engine at the slice's shapes: the prefill of one
+            1008-token prompt, then decode steps with 8 slots at kv ~1024.
 9. times:   each kernel, its plain version, one PyTorch call computing the
             same function and the card's bound, at the shapes the main
             paths launch.
@@ -86,6 +98,31 @@ L2_BYTES = 50 * 2**20           # H100 L2 cache
 # element by ~0.002 RMS (random signs), the last by at most 2^-8 of the
 # element (<= ~3 RMS), so the worst of 128 elements lands near 0.025 RMS.
 REL_TOL = 0.06
+FUSED_SOURCE = "megatronapp_tpu_torch/csrc/fused_decode.cu"
+_KG = "megatronapp_tpu/ops/pallas/kernel_gen.py"
+FUSED_REPLACES = {
+    "qkv": f"{_KG}:1261 (_fused_qkv; kv-head-group grid :1357)",
+    "out_proj": f"{_KG}:1567 (_fused_out_proj; H-column grid :1581)",
+    "mlp_fc1": f"{_KG}:1783 (_fused_mlp_fc1; fc1 half of _fused_mlp :1689)",
+    "mlp_fc2": f"{_KG}:1834 (_fused_mlp_fc2; fc2 half of _fused_mlp :1689)",
+}
+FUSED_KERNELS = tuple(FUSED_REPLACES)
+# bf16 fused kernel vs its plain version on the same bf16 inputs, each
+# output element held to its own scale: |kernel - plain| <= FUSED_TOL *
+# max(|plain element|, RMS of its plain row). Both sum in fp32 in another
+# order (~1e-6 apart), then round to bf16 at the same points: the sum, the
+# bias, the QK-norm or the activation and its gated product, the residual
+# add. Where the two straddle a rounding boundary they round apart by one
+# ulp, at most 2^-7 = 0.0078 of the element; up to five such roundings
+# (fc1: sum, bias, activation, gated product; and the norm statistics,
+# summed in another order, move the normalised input by as much) stack to
+# ~0.04. The element's own magnitude is the scale because a row is not
+# Gaussian everywhere: swiglu's product of two Gaussians has elements of
+# ~10 RMS, where one ulp is 0.06 of the RMS (llama3-8b fc1 at 32 rows on
+# an NVIDIA H100 80GB HBM3, 700.00 W); the row's RMS is the floor for
+# elements near zero, whose error is the absolute rounding of the sums
+# that made them.
+FUSED_TOL = 0.06
 # Timing loops rotate through page tables whose K/V span this many bytes.
 TIMED_POOL_BYTES = 3 * L2_BYTES
 
@@ -109,6 +146,29 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Device time per call of fn(), with the calls queued back to back:
+    they are enqueued behind a sleep kernel (~0.1 s), so the card runs them
+    without waiting for the host between kernels, which paces a plain loop
+    (cuda_time_ms) of calls whose kernels run for a few µs. Fails if the
+    host had not queued every call before the sleep ended."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    check(queued, "device_ms: the host had not queued the calls before the "
+          "card reached them")
+    return start.elapsed_time(end) / calls
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -194,7 +254,8 @@ def phase_device(state):
     from megatronapp_tpu_torch.ops.cuda import build as kbuild
     t0 = time.perf_counter()
     built = kbuild.build_all([kbuild.source("paged_attention.cu"),
-                              kbuild.source("flash_attention.cu")])
+                              kbuild.source("flash_attention.cu"),
+                              kbuild.source("fused_decode.cu")])
     build_s = time.perf_counter() - t0
     ptxas = {os.path.basename(b["source"]): [
         ln.strip() for ln in b["log"].splitlines()
@@ -331,6 +392,226 @@ def phase_reference(state, dev="cuda"):
     check(agree >= 0.9, f"reference: argmax agreement {agree} < 0.9")
 
 
+def _fused_layer(cfg, gen, dev):
+    """One layer's params on the card with every vector leaf (norm scales
+    N(1, 0.1), biases N(0, 0.1)) random, so that none tests as ones or
+    zeros."""
+    from megatronapp_tpu_torch.transformer.block import init_layer_params
+    p = init_layer_params(cfg, gen, dev)
+    for name, t in p.named_parameters():
+        if t.dim() == 1:
+            t.normal_(1.0 if "scale" in name else 0.0, 0.1, generator=gen)
+    return p
+
+
+def _row_errs(got, want):
+    """(max abs error, max error over max(|plain element|, its row's
+    RMS))."""
+    got = got.float().reshape(got.shape[0], -1)
+    want = want.float().reshape(want.shape[0], -1)
+    err = (got - want).abs()
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    scale = torch.maximum(want.abs(), rms).clamp_min(1e-30)
+    return float(err.max()), float((err / scale).max())
+
+
+def _fused_case(name, cfg, p, rows, gen, dev):
+    """Each fused kernel once on bf16 inputs against its plain version on
+    the same inputs (fc2 is fed the kernel's own y), then once more to
+    check that a rerun repeats every bit (the K-split sums in a fixed
+    order)."""
+    from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    x = rnd(rows, cfg.hidden_size)
+    attn = rnd(rows, cfg.num_attention_heads * cfg.head_dim)
+    cos = sin = None
+    if cfg.position_embedding.value == "rope":
+        pos = torch.randint(0, 8192, (rows,), generator=gen, device=dev)
+        cos_t, sin_t = gpt_rope_tables(cfg, 8192, device=dev)
+        cos, sin = cos_t[pos], sin_t[pos]
+    res = {}
+
+    def run(kernel, fn, plain, *args):
+        before = fd.launches[kernel]
+        got = fn(*args)
+        again = fn(*args)
+        torch.cuda.synchronize()
+        check(fd.launches[kernel] == before + 2,
+              f"fused_kernels {name}: {kernel} launched "
+              f"{fd.launches[kernel] - before} times for two calls")
+        got_t = got if isinstance(got, tuple) else (got,)
+        again_t = again if isinstance(again, tuple) else (again,)
+        check(all(torch.equal(a, b) for a, b in zip(got_t, again_t)),
+              f"fused_kernels {name}: {kernel} rerun gave other bits")
+        want = plain(*args)
+        want_t = want if isinstance(want, tuple) else (want,)
+        errs = [_row_errs(a, b) for a, b in zip(got_t, want_t)]
+        for a in got_t:
+            check(bool(torch.isfinite(a).all()),
+                  f"fused_kernels {name}: {kernel} non-finite output")
+        res[kernel] = (max(e[0] for e in errs), max(e[1] for e in errs))
+        check(res[kernel][1] <= FUSED_TOL,
+              f"fused_kernels {name}: {kernel} error {res[kernel][1]} of "
+              f"max(|element|, row RMS) exceeds {FUSED_TOL} (max abs "
+              f"{res[kernel][0]})")
+        return got
+
+    run("qkv", fd.fused_qkv, fd.fused_qkv_plain, x, p, cfg, cos, sin)
+    run("out_proj", fd.fused_out_proj, fd.fused_out_proj_plain, attn, p,
+        cfg, x)
+    y = run("mlp_fc1", fd.fused_mlp_fc1, fd.fused_mlp_fc1_plain, x, p, cfg)
+    run("mlp_fc2", fd.fused_mlp_fc2, fd.fused_mlp_fc2_plain, y, x, p, cfg)
+    return res
+
+
+def phase_fused_kernels(state):
+    from megatronapp_tpu_torch.models.presets import gpt2_125m, llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(2024)
+    before = dict(fd.launches)
+    llama = llama3_8b(num_layers=1, params_dtype=torch.bfloat16)
+    gpt2 = gpt2_125m(num_layers=1, params_dtype=torch.bfloat16)
+    qk = llama3_8b(num_layers=1, hidden_size=1024, num_attention_heads=8,
+                   num_query_groups=2, ffn_hidden_size=2048,
+                   qk_layernorm=True, params_dtype=torch.float32)
+    cases = {}
+    for cname, cfg, rows in (("llama3_8b", llama, (8, 32)),
+                             ("gpt2_125m", gpt2, (8, 32)),
+                             ("qk_layernorm_fp32_weights", qk, (5, 40))):
+        p = _fused_layer(cfg, gen, dev)
+        for r in rows:
+            cases[f"{cname}_rows{r}"] = _fused_case(f"{cname} R={r}", cfg, p,
+                                                    r, gen, dev)
+        del p
+    fd.launches.update(before)       # not main-path launches
+    torch.cuda.empty_cache()
+    state["fused_err"] = {k: max(c[k][0] for c in cases.values())
+                          for k in FUSED_KERNELS}
+    emit({"phase": "fused_kernels", "rel_tol": FUSED_TOL,
+          "errors": "(max abs, max over max(|plain element|, row RMS))",
+          "cases": cases})
+
+
+def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None):
+    """A prompt's chunked prefill (32-token chunks, one slot) through the
+    engine's multi-query step on a pool of its own; returns the logits
+    of every real prompt position [P, V] (and, with decode_token, the
+    logits of one decode step after it [1, V])."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        _paged_decode_step, _paged_multiquery_step,
+    )
+    from megatronapp_tpu_torch.inference.paged_cache import PagedKVCache
+    from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
+    from megatronapp_tpu_torch.ops.paged_attention import paged_write_index
+    chunk, n = 32, len(tokens)
+    msl = 16 * math.ceil((n + 2) / 16)
+    pool = PagedKVCache(cfg, 1, msl, block_size=16, device=dev)
+    pool.admit(0, np.asarray(tokens))
+    table = torch.as_tensor(pool.page_table[:1])
+    rope = gpt_rope_tables(cfg, msl, device=dev)
+    one = torch.ones(1, dtype=torch.bool)
+    out = []
+    for pos in range(0, n, chunk):
+        count = min(chunk, n - pos)
+        toks = torch.zeros(1, chunk, dtype=torch.int64)
+        toks[0, :count] = torch.as_tensor(tokens[pos:pos + count])
+        starts = torch.tensor([pos], dtype=torch.int32)
+        counts = torch.tensor([count], dtype=torch.int32)
+        index = paged_write_index(table, starts, counts, one, 16, chunk)
+        logits, _, _ = _paged_multiquery_step(
+            params, toks.to(dev), pool.pages, table.to(dev), starts.to(dev),
+            counts.to(dev), cfg, msl, tuple(t.to(dev) for t in index), rope,
+            fused=fused)
+        out.append(logits[0, :count].float().cpu())
+    prefill = torch.cat(out)
+    if decode_token is None:
+        return prefill
+    check(pool.ensure_capacity(0, n), "no pool block for the decode step")
+    table = torch.as_tensor(pool.page_table[:1])
+    lengths = torch.tensor([n], dtype=torch.int32)
+    index = paged_write_index(table, lengths, torch.ones(1, dtype=torch.int32),
+                              one, 16, 1)
+    dec, _ = _paged_decode_step(
+        params, torch.tensor([[decode_token]], device=dev), pool.pages,
+        table.to(dev), lengths.to(dev), cfg,
+        tuple(t.to(dev) for t in index), rope, fused=fused)
+    return prefill, dec.float().cpu()
+
+
+def phase_fused_reference(state):
+    """The tiny llama-shaped model of phase_reference (head_dim 128, GQA
+    group 2, widths the fused kernels take): a 40-token prompt's fused
+    chunked prefill (a full chunk of 32 rows and a ragged one of 8) and one
+    fused decode step on the card (bf16, kernels) against the same weights
+    on the CPU (fp32, plain versions)."""
+    import copy
+
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    from megatronapp_tpu_torch.ops.fused_decode import (
+        megakernel_ineligible_reason,
+    )
+    before, before_pa = dict(fd.launches), dict(pa.launches)
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05)
+    cfg_ref = llama3_8b(compute_dtype=torch.float32, **small)
+    cfg_dev = llama3_8b(params_dtype=torch.bfloat16, **small)
+    p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(7), "cpu")
+    p_dev = copy.deepcopy(p_ref).to(device="cuda", dtype=torch.bfloat16)
+    reason = megakernel_ineligible_reason(cfg_dev, batch=1, params=p_dev)
+    check(reason is None, f"fused_reference: ineligible: {reason}")
+    tokens = torch.randint(0, 512, (40,),
+                           generator=torch.Generator().manual_seed(8)).tolist()
+    ref_pre, ref_dec = _chunked_prefill(p_ref, cfg_ref, tokens, "cpu", True,
+                                        decode_token=17)
+    for k in fd.launches:
+        fd.launches[k] = 0
+    got_pre, got_dec = _chunked_prefill(p_dev, cfg_dev, tokens,
+                                        torch.device("cuda", 0), True,
+                                        decode_token=17)
+    launches = dict(fd.launches)
+    fd.launches.update(before)
+    pa.launches.update(before_pa)
+    ref, got = torch.cat([ref_pre, ref_dec]), torch.cat([got_pre, got_dec])
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    emit({"phase": "fused_reference", "max_rel_err": rel,
+          "argmax_agreement": agree, "launches": launches})
+    check(launches == dict.fromkeys(FUSED_KERNELS, 2 * 3),
+          f"fused_reference: expected 2 layers x (2 chunks + 1 decode step) "
+          f"launches of each fused kernel, got {launches}")
+    check(bool(torch.isfinite(got).all()), "fused_reference: non-finite")
+    # As phase_reference: bf16 weights and activations through two layers
+    # move the logits by a few percent of their range at most.
+    check(rel < 0.05, f"fused_reference: relative logit error {rel} >= 0.05")
+    check(agree >= 0.9, f"fused_reference: argmax agreement {agree} < 0.9")
+
+
+def _serve_prompts(cfg):
+    """The serve phases' 8 prompts (17-700 tokens; the last two share a
+    256-token prefix) and the warm-up prompt."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size - 1, 256)
+    lengths = [17, 64, 130, 300, 450, 700]
+    prompts = [rng.integers(0, cfg.vocab_size - 1, n) for n in lengths]
+    prompts += [np.concatenate([shared, rng.integers(0, cfg.vocab_size - 1,
+                                                     n)])
+                for n in (40, 200)]
+    warm = rng.integers(0, 1000, 20).astype(np.int32)
+    return [p.astype(np.int32) for p in prompts], warm
+
+
 def _serve_once(driver, prompts, max_new, sampling):
     """Submit every prompt from its own thread; returns (streams,
     per-request first/last token times, t_submit, t_done)."""
@@ -369,7 +650,7 @@ def _serve_once(driver, prompts, max_new, sampling):
     return streams, times, t0, t1
 
 
-def _engine(params, cfg, dev):
+def _engine(params, cfg, dev, fused=False):
     from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
     from megatronapp_tpu_torch.inference.dynamic_engine import (
         DynamicInferenceEngine,
@@ -377,7 +658,7 @@ def _engine(params, cfg, dev):
     return DynamicInferenceEngine(
         params, cfg, tokenizer=NullTokenizer(cfg.vocab_size), max_batch=8,
         max_seq_len=2048, paged=True, block_size=16, prefill_chunk=32,
-        device=dev)
+        device=dev, fused_decode=fused)
 
 
 def phase_serve(state, layers: int):
@@ -399,19 +680,10 @@ def phase_serve(state, layers: int):
     driver = DynamicBatchingDriver(engine)
     greedy = SamplingParams(greedy=True)
     max_new = 32
-
-    rng = np.random.default_rng(0)
-    shared = rng.integers(0, cfg.vocab_size - 1, 256)
-    lengths = [17, 64, 130, 300, 450, 700]
-    prompts = [rng.integers(0, cfg.vocab_size - 1, n) for n in lengths]
-    prompts += [np.concatenate([shared, rng.integers(0, cfg.vocab_size - 1,
-                                                     n)])
-                for n in (40, 200)]
-    prompts = [p.astype(np.int32) for p in prompts]
+    prompts, warm = _serve_prompts(cfg)
 
     # Warm-up (cuBLAS handles, allocator) outside the counted run.
-    rid, done = driver.submit(rng.integers(0, 1000, 20).astype(np.int32), 4,
-                              greedy)
+    rid, done = driver.submit(warm, 4, greedy)
     check(done.wait(timeout=600), "serve: warm-up did not finish")
     driver.result_tokens(rid)
     hits_before = engine.pool.stats["prefix_hit_tokens"]
@@ -474,15 +746,121 @@ def phase_serve(state, layers: int):
     # The profile phase serves the same weights through an engine of its
     # own; the driver's stepper stays parked on its empty engine.
     state["model"] = (params, cfg, dev)
+    state["serve_streams"] = [s[len(p):] for p, s in zip(prompts, streams)]
 
 
-FAMILIES = ("paged_attention", "gemm", "memcpy/memset", "other")
+def phase_serve_fused(state):
+    """The serve phase's weights and requests through an engine built with
+    fused_decode=True: every decode step and prefill chunk runs each layer
+    as the four fused kernels around the paged-attention kernel."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    params, cfg, dev = state["model"]
+    layers = cfg.num_layers
+    engine = _engine(params, cfg, dev, fused=True)
+    check(engine.megakernel is True,
+          "serve_fused: the engine kept the unfused step (ineligible)")
+    driver = DynamicBatchingDriver(engine)
+    greedy = SamplingParams(greedy=True)
+    max_new = 32
+    prompts, warm = _serve_prompts(cfg)
+    rid, done = driver.submit(warm, 4, greedy)
+    check(done.wait(timeout=600), "serve_fused: warm-up did not finish")
+    driver.result_tokens(rid)
+    hits_before = engine.pool.stats["prefix_hit_tokens"]
+    steps_before, chunks_before = engine.decode_steps, engine.prefill_chunks
+    for counts in (fd.launches, pa.launches):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    streams, times, t_start, t_end = _serve_once(driver, prompts, max_new,
+                                                 greedy)
+    launches, paged = dict(fd.launches), dict(pa.launches)
+    steps = engine.decode_steps - steps_before
+    chunks = engine.prefill_chunks - chunks_before
+    hits = engine.pool.stats["prefix_hit_tokens"] - hits_before
+    state["fused_launches"] = launches
+    for p, s in zip(prompts, streams):
+        check(s is not None and len(s) == len(p) + max_new
+              and np.array_equal(s[:len(p)], p)
+              and bool(((s[len(p):] >= 0)
+                        & (s[len(p):] < cfg.vocab_size)).all()),
+              "serve_fused: a stream of the wrong length or vocabulary")
+    want = layers * (steps + chunks)
+    check(launches == dict.fromkeys(FUSED_KERNELS, want),
+          f"serve_fused: expected {want} launches of each fused kernel "
+          f"({layers} layers x ({steps} decode steps + {chunks} prefill "
+          f"chunks)), got {launches}")
+    check(paged == {"decode": layers * steps, "ragged": layers * chunks},
+          f"serve_fused: paged-attention launches {paged} for {steps} "
+          f"steps and {chunks} chunks")
+    check(hits > 0, "serve_fused: the shared prefix never hit")
+    ttft = [(t[1] - t[0]) * 1e3 for t in times]
+    iv = [(t[-1] - t[1]) * 1e3 / (len(t) - 2) for t in times]
+    wall = t_end - t_start
+    rerun, _, _, _ = _serve_once(driver, prompts, max_new, greedy)
+    same = all(np.array_equal(a, b) for a, b in zip(streams, rerun))
+    check(same, "serve_fused: the rerun gave other streams")
+    # Against the unfused serve phase: report (no gate) how far the greedy
+    # streams agree. Both are bf16 with other summation orders, so a near
+    # tie can flip an argmax, after which a stream goes its own way.
+    unfused = state.get("serve_streams")
+    match = first = None
+    if unfused is not None:
+        new = [s[len(p):] for p, s in zip(prompts, streams)]
+        match = sum(int((a == b).sum()) for a, b in zip(new, unfused))
+        first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                      None) for x, y in zip(new, unfused)]
+    # Last-position logits of the 300-token prompt, fused against unfused,
+    # both on the card in bf16: gated below.
+    prompt = prompts[3].tolist()
+    before = dict(fd.launches), dict(pa.launches)
+    lf = _chunked_prefill(params, cfg, prompt, dev, True)[-1]
+    lu = _chunked_prefill(params, cfg, prompt, dev, False)[-1]
+    fd.launches.update(before[0])
+    pa.launches.update(before[1])
+    rel = float((lf - lu).abs().max() / lu.abs().max())
+    emit({"phase": "serve_fused", "model": "llama3-8b", "layers": layers,
+          "full_depth": layers == 32, "megakernel": engine.megakernel,
+          "requests": len(prompts), "max_new_tokens": max_new,
+          "launches": launches, "paged_attention_launches": paged,
+          "decode_steps": steps, "prefill_chunks": chunks,
+          "launches_per_kernel_per_layer_and_unit": {
+              k: v / (layers * (steps + chunks)) for k, v in launches.items()},
+          "prefix_hit_tokens": int(hits),
+          "ttft_ms": [round(x, 3) for x in ttft],
+          "decode_ms_per_step_by_request": [round(x, 3) for x in iv],
+          "tokens_per_s": max_new * len(prompts) / wall, "wall_s": wall,
+          "rerun_identical": same,
+          "tokens_matching_unfused": match,
+          "tokens_total": max_new * len(prompts),
+          "first_divergence_by_request": first,
+          "last_logits_max_rel_err_vs_unfused": rel,
+          "last_logits_argmax_equal": int(lf.argmax()) == int(lu.argmax()),
+          "stats": {k: v for k, v in engine.stats_snapshot().items()
+                    if k in ("megakernel", "kernel_launches")}})
+    # 32 layers of bf16 roundings taken in other orders: the two hidden
+    # states drift apart by ~2^-9 relative a rounding, as a random walk
+    # over ~10 roundings a layer (sqrt(320) x 2^-9 ~ 0.035 of the state),
+    # and the logits inherit that drift; a misread weight, head or row
+    # would move them by the whole logit range.
+    check(rel < 0.1, f"serve_fused: last-position logits differ from the "
+          f"unfused engine's by {rel} of their range (>= 0.1)")
+
+
+FAMILIES = ("paged_attention", "fused", "gemm", "memcpy/memset", "other")
 
 
 def _family(name: str) -> str:
     name = name.lower()
     if "paged_attention" in name:
         return "paged_attention"
+    if any(f"fused_{k}_kernel" in name for k in FUSED_KERNELS):
+        return "fused"
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass",
                                "matmul")):
         return "gemm"
@@ -534,17 +912,13 @@ def _device_profile(fn, units: int, families=FAMILIES,
     return out
 
 
-def phase_profile(state):
-    """Where a step's device time goes at the slice's shapes, through the
-    serving engine's own step() (called here from the main thread, not
-    from the driver's stepper): the prefill of one 1008-token prompt (32
-    ragged chunks at kv 32..1008; the window also holds that slot's first
-    decode step), then 16 decode steps with 8 slots at kv ~1024."""
+def _profile_engine(params, cfg, dev, fused):
+    """One engine's prefill window and decode window (see phase_profile)."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    params, cfg, dev = state.pop("model")
-    engine = _engine(params, cfg, dev)
+    engine = _engine(params, cfg, dev, fused=fused)
+    check(engine.megakernel is fused, "profile: the engine's step kind")
     rng = np.random.default_rng(1)
     prompt_len, chunk, steps = 1008, 32, 16
     prompts = [rng.integers(0, cfg.vocab_size - 1, prompt_len).astype(
@@ -553,7 +927,8 @@ def phase_profile(state):
 
     engine.add_request(prompts[0], 64, greedy)
     chunks0 = engine.prefill_chunks
-    prefill = _device_profile(engine.step, math.ceil(prompt_len / chunk))
+    prefill = _device_profile(engine.step, math.ceil(prompt_len / chunk),
+                              top_kernels=8)
     check(engine.prefill_chunks - chunks0 == prefill["units"],
           "profile: the prefill window ran another number of chunks")
     for p in prompts[1:]:
@@ -564,18 +939,38 @@ def phase_profile(state):
           "profile: not every slot is decoding")
     steps0 = engine.decode_steps
     decode = _device_profile(lambda: [engine.step() for _ in range(steps)],
-                             steps)
+                             steps, top_kernels=8)
     check(engine.decode_steps - steps0 == steps,
           "profile: the decode window ran another number of steps")
     kv_after = [int(x) for x in engine.lengths]
     engine.abort_all()
     del engine
     torch.cuda.empty_cache()
+    for window in (prefill, decode):
+        window["kernels_per_unit"] = sum(
+            window["kernels_by_family"].values()) / window["units"]
+    return {"prefill_one_prompt": {"prompt_len": prompt_len, "chunk": chunk,
+                                   **prefill},
+            "decode_8_slots": {"kv_lens_after": kv_after, **decode}}
+
+
+def phase_profile(state):
+    """Where a step's device time goes at the slice's shapes, through the
+    serving engine's own step() (called here from the main thread, not
+    from the driver's stepper), for the unfused and the fused engine on
+    the same weights: the prefill of one 1008-token prompt (32 ragged
+    chunks at kv 32..1008; the window also holds that slot's first decode
+    step), then 16 decode steps with 8 slots at kv ~1024."""
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    params, cfg, dev = state["model"]
+    before = dict(fd.launches), dict(pa.launches)
+    out = {"unfused": _profile_engine(params, cfg, dev, False),
+           "fused": _profile_engine(params, cfg, dev, True)}
+    fd.launches.update(before[0])
+    pa.launches.update(before[1])
     emit({"phase": "profile", "model": "llama3-8b",
-          "layers": cfg.num_layers,
-          "prefill_one_prompt": {"prompt_len": prompt_len, "chunk": chunk,
-                                 **prefill},
-          "decode_8_slots": {"kv_lens_after": kv_after, **decode}})
+          "layers": cfg.num_layers, **out})
 
 
 def _sdpa_call(case, hq, hkv, nxt):
@@ -688,7 +1083,123 @@ def phase_times(state):
                                      "bound_ms")}
               for kv, r in sorted(by_kv.items())},
           "ragged_b8_not_a_main_path_shape": b8,
-          "flash_train_shapes": _flash_times(state)})
+          "flash_train_shapes": _flash_times(state),
+          "fused_llama3_8b": _fused_times(state)})
+
+
+def _fused_bytes_flops(cfg, kernel, rows):
+    """Bytes each input read once and each output written once (weights,
+    norm and bias vectors, activations, residual, rope rows), and the
+    multiply-add operations of the product."""
+    h, ffn, d = cfg.hidden_size, cfg.ffn_hidden_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
+    k, n = {"qkv": (h, (nq + 2 * nkv) * d), "out_proj": (nq * d, h),
+            "mlp_fc1": (h, 2 * ffn), "mlp_fc2": (ffn, h)}[kernel]
+    w = k * n * 2 + (h * 2 if kernel in ("qkv", "mlp_fc1") else 0)
+    acts = {"qkv": rows * h + rows * n, "out_proj": rows * (k + 2 * h),
+            "mlp_fc1": rows * (h + ffn), "mlp_fc2": rows * (ffn + 2 * h)}
+    nbytes = w + acts[kernel] * 2
+    if kernel == "qkv":
+        nbytes += 2 * rows * (d // 2) * 4
+    return nbytes, 2 * rows * k * n, (k, n)
+
+
+def _fused_times(state):
+    """Each fused kernel at the decode (8 rows) and prefill-chunk (32
+    rows) shapes of llama3-8b, rotating through the served model's 32
+    layers so that every launch finds its weights cold (each layer's
+    weights of one kernel are 33.6-234.9 MB; L2 is 50 MB). Beside the
+    kernel: its plain version (the unfused layer's own ops for the same
+    function: norm, matmul, bias, QK-norm, rope, activation, residual),
+    the card's bound and, as a yardstick the port never calls, one
+    torch.matmul of the same product (the GEMM alone)."""
+    from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    params, cfg, dev = state["model"]
+    layers = list(params["layers"])
+    before = dict(fd.launches)
+    gen = torch.Generator(dev).manual_seed(77)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(layers)
+        return layers[it["i"]]
+
+    def weight(p, kernel):
+        return {"qkv": None, "out_proj": p["attention"]["out_kernel"],
+                "mlp_fc1": p["mlp"]["fc1_kernel"],
+                "mlp_fc2": p["mlp"]["fc2_kernel"]}[kernel]
+
+    out = {}
+    for rows in (8, 32):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        x = rnd(rows, cfg.hidden_size)
+        attn = rnd(rows, cfg.num_attention_heads * cfg.head_dim)
+        y = rnd(rows, cfg.ffn_hidden_size)
+        pos = torch.randint(0, 2048, (rows,), generator=gen, device=dev)
+        cos_t, sin_t = gpt_rope_tables(cfg, 2048, device=dev)
+        cos, sin = cos_t[pos], sin_t[pos]
+        calls = {
+            "qkv": (lambda: fd.fused_qkv(x, nxt(), cfg, cos, sin),
+                    lambda: fd.fused_qkv_plain(x, nxt(), cfg, cos, sin), x),
+            "out_proj": (lambda: fd.fused_out_proj(attn, nxt(), cfg, x),
+                         lambda: fd.fused_out_proj_plain(attn, nxt(), cfg,
+                                                         x), attn),
+            "mlp_fc1": (lambda: fd.fused_mlp_fc1(x, nxt(), cfg),
+                        lambda: fd.fused_mlp_fc1_plain(x, nxt(), cfg), x),
+            "mlp_fc2": (lambda: fd.fused_mlp_fc2(y, x, nxt(), cfg),
+                        lambda: fd.fused_mlp_fc2_plain(y, x, nxt(), cfg), y),
+        }
+        per = {}
+        for kernel, (kern, plain, a) in calls.items():
+            if kernel == "qkv":   # the product of [Wq | Wkv] as one GEMM
+                ws = [torch.cat([p["attention"]["q_kernel"],
+                                 p["attention"]["kv_kernel"]], dim=1)
+                      for p in layers[:4]]
+            else:
+                ws = None
+
+            def lib(a=a, kernel=kernel, ws=ws):
+                p = nxt()
+                torch.matmul(a, ws[it["i"] % 4] if ws is not None
+                             else weight(p, kernel))
+            # plain, kernel, kernel, plain: compare within one card and
+            # call; device time (see device_ms), and the host-paced loop.
+            p1 = device_ms(plain)
+            k1 = device_ms(kern)
+            k2 = device_ms(kern)
+            p2 = device_ms(plain)
+            lib_ms = device_ms(lib)
+            loop_ms = cuda_time_ms(kern)
+            del ws
+            nbytes, flops, (kk, nn) = _fused_bytes_flops(cfg, kernel, rows)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            per[kernel] = {
+                "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                "unfused_ops_ms": (p1 + p2) / 2,
+                "loop_ms_per_call": loop_ms,
+                "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops,
+                "shape": {"rows": rows, "k": kk, "n": nn},
+                "achieved_bytes_per_s": nbytes / ((k1 + k2) / 2e3)}
+        out[rows] = per
+    fd.launches.update(before)
+    state["fused_times"] = out
+    return {"note": "kernel, plain and library ms are device time per "
+                    "call (device_ms: queued behind a sleep, timed with "
+                    "CUDA events); loop_ms_per_call is CUDA "
+                    "events around 20 back-to-back calls, paced by the "
+                    "host where a kernel is shorter than its launch; "
+                    "unfused_ops_ms is the plain version's time: it runs "
+                    "the unfused layer's ops for the same function; "
+                    "library_ms is one torch.matmul of the product (the "
+                    "GEMM alone; QKV: [Wq | Wkv] concatenated, 4 layers "
+                    "rotated)", "rows": out}
 
 
 # ---------------------------------------------------------------------------
@@ -728,7 +1239,7 @@ def _train_family(name: str) -> str:
     if "flash_bwd" in low:
         return "flash_bwd"
     fam = _family(name)
-    return "other" if fam == "paged_attention" else fam
+    return "other" if fam in ("paged_attention", "fused") else fam
 
 
 def _flash_inputs(gen, dev, b, s, hq, hkv, d, segments=False):
@@ -1195,6 +1706,16 @@ def kernel_table(state):
             "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms")})
+    for kernel in FUSED_KERNELS:
+        t = state.get("fused_times", {}).get(8, {}).get(kernel, {})
+        out.append({
+            "name": f"fused_{kernel}", "route": "cuda",
+            "source": FUSED_SOURCE, "replaces": FUSED_REPLACES[kernel],
+            "launches": state.get("fused_launches", {}).get(kernel),
+            "max_abs_err": state.get("fused_err", {}).get(kernel),
+            "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms")})
     for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
         t = state.get("flash_times", {}).get(kernel, {})
         out.append({
@@ -1237,11 +1758,14 @@ def main(argv=None) -> int:
         phase_device(state)
         phase_kernels(state)
         phase_reference(state)
+        phase_fused_kernels(state)
+        phase_fused_reference(state)
         phase_train_kernels(state)
         phase_train_reference(state)
         phase_train(state, args.train_layers)
         phase_train_gpt2(state)
         phase_serve(state, args.layers)
+        phase_serve_fused(state)
         phase_profile(state)
         phase_times(state)
     except SmokeFailure as e:

@@ -47,10 +47,12 @@ class OptimizerConfig:
             if str(val).lower() not in _FP32:
                 raise ValueError(f"{flag} {val}: only fp32 optimizer state "
                                  "is ported (the ZeRO-1 low-precision "
-                                 "moments come with slice 3)")
+                                 "moments come with the parallel-training "
+                                 "slice)")
         if self.dist_opt_comm != "gspmd":
             raise ValueError(f"--dist-opt-comm {self.dist_opt_comm}: the "
-                             "manual ZeRO-1 update is not ported (slice 3)")
+                             "manual ZeRO-1 update is not ported (the "
+                             "parallel-training slice)")
         if not self.grad_reduce_in_fp32:
             raise ValueError("--no-accumulate-allreduce-grads-in-fp32: "
                              "gradients accumulate in fp32 only")

@@ -9,6 +9,9 @@ the one-token paged step, preempts the lowest-priority running request
 when the pool runs dry, and retires finished requests — new requests join
 mid-flight without draining the batch. Both steps attend through the
 hand-written paged-attention kernel (ops/cuda/paged_attention.py).
+``fused_decode=True`` (``--megakernel-decode``) runs both steps' layers as
+the fused kernels instead (ops/fused_decode.py) when
+``megakernel_ineligible_reason`` allows it, decided once at construction.
 
 Where the JAX engine jits each step and donates the pools, this engine
 runs eagerly on the card and writes the pools IN PLACE. All per-step
@@ -23,15 +26,16 @@ Gumbel noise from a ``torch.Generator`` seeded from (seed, request id,
 step), so a request's stream is reproducible and independent of what else
 is in the batch.
 
-Not on this slice (each raises at construction): the dense slot cache,
-speculative decoding, LoRA adapters, the host spill tier, the fused
-(megakernel) decode step, tensor-parallel meshes and quantized KV pools.
+Not ported yet (each raises at construction): the dense slot cache,
+speculative decoding, LoRA adapters, the host spill tier, tensor-parallel
+meshes and quantized KV pools.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
@@ -47,11 +51,16 @@ from megatronapp_tpu_torch.inference.paged_cache import PagedKVCache, cdiv
 from megatronapp_tpu_torch.models.gpt import (
     gpt_embed, gpt_head, gpt_rope_tables,
 )
+from megatronapp_tpu_torch.ops.fused_decode import (
+    megakernel_ineligible_reason,
+)
 from megatronapp_tpu_torch.ops.paged_attention import paged_write_index
 from megatronapp_tpu_torch.trace.request_trace import get_request_tracer
 from megatronapp_tpu_torch.transformer.block import layer_forward
 from megatronapp_tpu_torch.utils import metrics as telemetry
 from megatronapp_tpu_torch.utils.device import host_to, resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 class DeadlineExceeded(RuntimeError):
@@ -121,15 +130,18 @@ class Request:
 
 
 def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
-                page_table, starts, chunk_counts, write_index):
+                page_table, starts, chunk_counts, write_index,
+                fused: bool = False):
     """Walk the per-layer modules (the JAX step's ``lax.scan`` over the
-    stacked block) with layer l reading and writing pool slice l."""
+    stacked block) with layer l reading and writing pool slice l; `fused`
+    runs each layer as the fused kernels."""
     pk, pv = pages
     for lid, layer_p in enumerate(params["layers"]):
         (h, _), _ = layer_forward(
-            layer_p, h, cfg, cos, sin, kv_cache=(pk[lid], pv[lid]), cache_positions=starts,
-            page_table=page_table, chunk_counts=chunk_counts,
-            write_index=write_index)
+            layer_p, h, cfg, cos, sin, kv_cache=(pk[lid], pv[lid]),
+            cache_positions=starts, page_table=page_table,
+            chunk_counts=chunk_counts, write_index=write_index,
+            fused_decode=fused)
     return h
 
 
@@ -142,7 +154,8 @@ def _rope_rows(positions, rope_tables):
 
 
 def _paged_decode_step(params, tokens, pages, page_table, lengths,
-                       cfg: TransformerConfig, write_index, rope_tables):
+                       cfg: TransformerConfig, write_index, rope_tables,
+                       fused: bool = False):
     """One-token decode for every slot against the paged block pool.
 
     tokens [B, 1]; pages (k [L, NB, bs, Hkv, D], v like k), written in
@@ -150,27 +163,29 @@ def _paged_decode_step(params, tokens, pages, page_table, lengths,
     write_index: the rows' ``paged_write_index`` (the JAX step's `active`
     mask: inactive rows are not in it, so their writes are dropped and
     their outputs are garbage). rope_tables: ``gpt_rope_tables`` over
-    [0, max_seq_len). Returns (last_logits [B, V] fp32, pages)."""
+    [0, max_seq_len). fused: the layers as the fused kernels
+    (fused_layer_decode). Returns (last_logits [B, V] fp32, pages)."""
     h = gpt_embed(params, tokens, cfg, position_ids=lengths[:, None])
     cos, sin = _rope_rows(lengths, rope_tables)
     if cos is not None:
         cos, sin = cos[:, None], sin[:, None]            # [B, 1, half]
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, lengths,
-                    None, write_index)
+                    None, write_index, fused)
     return gpt_head(params, h, cfg)[:, -1], pages
 
 
 def _paged_multiquery_step(params, tokens, pages, page_table, starts,
                            q_lens, cfg: TransformerConfig, max_seq_len: int,
-                           write_index, rope_tables):
+                           write_index, rope_tables, fused: bool = False):
     """Ragged multi-token step against the paged pool (chunked prefill).
 
     tokens [B, S]; starts [B] per-row append positions; q_lens [B] valid
     token counts in [1, S] (rows past a row's count are padding whose
     outputs are garbage). Row b's token i lands at position starts[b] + i
     and attends the paged context plus the new tail causally. write_index
-    and rope_tables as for ``_paged_decode_step``. Returns (logits
-    [B, S, V], hidden [B, S, H] pre-head, pages)."""
+    and rope_tables as for ``_paged_decode_step``; fused: the layers as the
+    fused kernels (fused_layer_multiquery). Returns (logits [B, S, V],
+    hidden [B, S, H] pre-head, pages)."""
     s = tokens.shape[1]
     positions = starts[:, None] + torch.arange(
         s, device=tokens.device, dtype=starts.dtype)[None, :]
@@ -178,7 +193,7 @@ def _paged_multiquery_step(params, tokens, pages, page_table, starts,
     h = gpt_embed(params, tokens, cfg, position_ids=positions)
     cos, sin = _rope_rows(positions, rope_tables)
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, starts,
-                    q_lens, write_index)
+                    q_lens, write_index, fused)
     return gpt_head(params, h, cfg), h, pages
 
 
@@ -252,7 +267,14 @@ class DynamicInferenceEngine:
 
     device: where params, the pool and every step live. None means the
     card; a host without one raises — pass device="cpu" to run the plain
-    versions of the kernels on the CPU (the tests do)."""
+    versions of the kernels on the CPU (the tests do).
+
+    fused_decode: run the decode and chunked-prefill steps' layers as the
+    fused kernels. Eligibility is decided once here, as the JAX engine
+    decides it (rows planned at max(max_batch, prefill_chunk)): when
+    ``megakernel_ineligible_reason`` names a failed predicate, a warning
+    names it and the engine keeps the unfused step. ``megakernel`` says
+    which step runs."""
 
     def __init__(self, params, cfg: TransformerConfig, tokenizer=None,
                  max_batch: int = 4, max_seq_len: Optional[int] = None,
@@ -267,7 +289,6 @@ class DynamicInferenceEngine:
             "paged=False (the dense slot cache)": not paged,
             "spec_method (speculative decoding)":
                 spec_method not in (None, "none"),
-            "fused_decode (the megakernel decode step)": fused_decode,
             "adapter_cache (batched LoRA serving)":
                 adapter_cache is not None,
             "spill_host_mb (the host-RAM spill tier)": bool(spill_host_mb),
@@ -285,6 +306,17 @@ class DynamicInferenceEngine:
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
         self.prefill_chunk = min(prefill_chunk, self.max_seq_len)
+        self.megakernel = False
+        if fused_decode:
+            reason = megakernel_ineligible_reason(
+                cfg, batch=max_batch, params=self.params,
+                mq_rows=max(max_batch, self.prefill_chunk))
+            if reason is None:
+                self.megakernel = True
+            else:
+                logger.warning("megakernel decode requested but ineligible "
+                               "— keeping the unfused decode step: %s",
+                               reason)
         # Rolling reload (DynamicBatchingDriver.request_reload): while
         # True, _admit leaves the waiting queue untouched.
         self.pause_admission = False
@@ -543,7 +575,7 @@ class DynamicInferenceEngine:
                 self.params, self._to_dev(chunk), pool.pages, table,
                 self._to_dev(starts), self._to_dev(counts), self.cfg,
                 self.max_seq_len, tuple(self._to_dev(t) for t in index),
-                self.rope_tables)
+                self.rope_tables, fused=self.megakernel)
             self.prefill_chunks += 1
             pos += count
         # Register the prompt's full blocks so concurrent same-prefix
@@ -700,7 +732,8 @@ class DynamicInferenceEngine:
                 self.params, self._to_dev(self.last_tokens),
                 self.pool.pages, self._to_dev(table_np),
                 self._to_dev(self.lengths), self.cfg,
-                tuple(self._to_dev(t) for t in index), self.rope_tables)
+                tuple(self._to_dev(t) for t in index), self.rope_tables,
+                fused=self.megakernel)
             # The decode wrote each active row's kv at lengths[slot].
             self.lengths += active_np.astype(np.int32)
             logits = mask_padded_vocab(logits, self.cfg)
@@ -736,8 +769,10 @@ class DynamicInferenceEngine:
     # ---- observability ----------------------------------------------------
     def stats_snapshot(self) -> Dict:
         """JSON-ready serving stats (GET /stats): batch occupancy, pool
-        occupancy, prefix-cache hit rate and kernel launch counts."""
-        from megatronapp_tpu_torch.ops.cuda.paged_attention import launches
+        occupancy, prefix-cache hit rate, whether the fused step runs and
+        the kernels' launch counts."""
+        from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+        from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
         pool = self.pool
         st = dict(pool.stats)
         seen = st["prefix_hit_tokens"] + st["prefill_tokens"]
@@ -752,7 +787,9 @@ class DynamicInferenceEngine:
             "waiting": len(self.waiting),
             "decode_steps": self.decode_steps,
             "prefill_chunks": self.prefill_chunks,
-            "kernel_launches": dict(launches),
+            "megakernel": self.megakernel,
+            "kernel_launches": {"paged_attention": dict(pa.launches),
+                                "fused_decode": dict(fd.launches)},
             "pool": {
                 "num_blocks": pool.num_blocks,
                 "block_size": pool.block_size,

@@ -116,7 +116,8 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
     """tokens [B, S] → (logits [B, S, V] fp32, moe_aux_loss). segment_ids
     [B, S]: packed sequences — positions restart per segment (for the
     learned embedding and the rope tables) and attention stays within a
-    segment. The zigzag context-parallel layout comes with slice 3."""
+    segment. The zigzag context-parallel layout comes with the
+    parallel-training slice."""
     if ctx is not None:
         raise NotImplementedError(
             "context-parallel (zigzag) forward is not ported yet (the "

@@ -1,0 +1,151 @@
+"""The fused (megakernel) decode layer: the counterpart of the JAX
+package's ``megatronapp_tpu/ops/pallas/kernel_gen.py`` fused section
+(:940-2241).
+
+One decode (or chunked-prefill) layer runs as four hand-written CUDA
+kernels around the paged-attention kernel: [norm + QKV + rope] → [K/V
+append] → [paged attention] → [out-projection + residual] → [norm + fc1 +
+activation] → [fc2 + residual]. The kernels' wrappers (the dispatchers
+``fused_qkv``, ``fused_out_proj``, ``fused_mlp_fc1``, ``fused_mlp_fc2``:
+the kernel for CUDA tensors, the plain version for CPU ones), their plain
+versions and launch counters are in ``ops/cuda/fused_decode.py``; this
+module adds ``fused_mlp`` (fc1 then fc2), the two layer bodies and the
+eligibility check.
+
+The TPU's one-kernel ``_fused_mlp`` becomes the fc1/fc2 pair here
+(``fused_mlp``): fc2 contracts every ffn column that fc1 writes, which no
+single CUDA kernel can wait for, and the JAX split is exact by design (y
+lives in the compute dtype in both). The TPU VMEM tile planning
+(``_qkv_tiles``, ``_out_tiles``, ``_mlp_tiles``, the VMEM budget) has no
+counterpart: the CUDA kernels plan their own tiles and take any row count.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.ops.cuda.fused_decode import (
+    fused_mlp_fc1, fused_mlp_fc1_plain, fused_mlp_fc2, fused_mlp_fc2_plain,
+    fused_out_proj, fused_qkv, kernel_limits,
+)
+from megatronapp_tpu_torch.ops.paged_attention import (
+    WriteIndex, paged_attention_decode, paged_attention_multiquery,
+    write_rows,
+)
+
+
+def fused_mlp(x, p, cfg: TransformerConfig):
+    """Pre-MLP norm + fc1 + activation + fc2 + biases + residual (the
+    _fused_mlp contract) as the fc1 and fc2 kernels: x [R, H] → [R, H]."""
+    return fused_mlp_fc2(fused_mlp_fc1(x, p, cfg), x, p, cfg)
+
+
+def fused_mlp_plain(x, p, cfg: TransformerConfig):
+    """Plain version of ``fused_mlp``."""
+    return fused_mlp_fc2_plain(fused_mlp_fc1_plain(x, p, cfg), x, p, cfg)
+
+
+def _check_gqa(cfg: TransformerConfig):
+    if cfg.multi_latent_attention:
+        raise NotImplementedError("MLA fused prologue not ported yet (the "
+                                  "MLA serving slice)")
+
+
+def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
+                       kv_cache, cache_positions, page_table,
+                       write_index: WriteIndex):
+    """One decode layer as fused kernels (kernel_gen.fused_layer_decode):
+    [fused norm+QKV+rope] → [K/V append] → [paged attention, decode mode]
+    → [fused out-projection + residual] → [fused norm+MLP + residual].
+
+    Drop-in for ``layer_forward``'s one-token paged branch: x [B, 1, H],
+    rope tables [B, 1, half], the layer's pools written in place at
+    `write_index` (inactive slots are not in it). Returns ((out [B, 1, H],
+    (k_pages, v_pages)), None)."""
+    _check_gqa(cfg)
+    b = x.shape[0]
+    if x.shape[1] != 1:
+        raise ValueError("fused_layer_decode is the s == 1 decode body")
+    nq, d = cfg.num_attention_heads, cfg.head_dim
+    x2 = x[:, 0]
+    cos = rope_cos[:, 0] if rope_cos is not None else None
+    sin = rope_sin[:, 0] if rope_sin is not None else None
+    q, k, v = fused_qkv(x2, p, cfg, cos, sin)
+    ck, cv = kv_cache
+    write_rows(ck, k[:, None], write_index)
+    write_rows(cv, v[:, None], write_index)
+    attn = paged_attention_decode(q, ck, cv, page_table,
+                                  cache_positions + 1)           # [B, nq, D]
+    x2 = fused_out_proj(attn.reshape(b, nq * d), p, cfg, x2)
+    x2 = fused_mlp(x2, p, cfg)
+    return (x2[:, None], (ck, cv)), None
+
+
+def fused_layer_multiquery(p, x, cfg: TransformerConfig, rope_cos,
+                           rope_sin, kv_cache, cache_positions, counts,
+                           page_table, write_index: WriteIndex):
+    """One ragged multi-query layer (chunked prefill) as the same fused
+    kernels on the B·S flattened rows around the ragged paged-attention
+    kernel (kernel_gen.fused_layer_multiquery). x [B, S, H], rope tables
+    [B, S, half], counts [B] real rows per slot (the rest are padding with
+    finite garbage outputs). Every fused op is row-wise or contracts the
+    last dim, so flattening changes no row. Returns ((out [B, S, H],
+    (k_pages, v_pages)), None)."""
+    _check_gqa(cfg)
+    b, s, h = x.shape
+    nq, nkv, d = (cfg.num_attention_heads, cfg.num_query_groups,
+                  cfg.head_dim)
+    xf = x.reshape(b * s, h)
+    cos = rope_cos.reshape(b * s, -1) if rope_cos is not None else None
+    sin = rope_sin.reshape(b * s, -1) if rope_sin is not None else None
+    q, k, v = fused_qkv(xf, p, cfg, cos, sin)
+    ck, cv = kv_cache
+    write_rows(ck, k.reshape(b, s, nkv, d), write_index)
+    write_rows(cv, v.reshape(b, s, nkv, d), write_index)
+    attn = paged_attention_multiquery(q.reshape(b, s, nq, d), ck, cv,
+                                      page_table, cache_positions + counts,
+                                      counts)                 # [B, S, nq, D]
+    x2 = fused_out_proj(attn.reshape(b * s, nq * d), p, cfg, xf)
+    x2 = fused_mlp(x2, p, cfg)
+    return (x2.reshape(b, s, h), (ck, cv)), None
+
+
+def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
+                                 params=None, mq_rows: Optional[int] = None,
+                                 paged: bool = True, tp_paged: bool = False,
+                                 device=None) -> Optional[str]:
+    """Why the fused decode step may NOT run — None when eligible, else
+    the first failed predicate by name (kernel_gen.
+    megakernel_ineligible_reason). The semantic predicates are the JAX
+    package's: paged backend, not MoE, not heterogeneous, no tp mesh, not
+    MLA. The TPU's VMEM size predicates are replaced by the CUDA kernels'
+    own limits (``kernel_limits``: compute, residual and weight dtypes,
+    head_dim, alignment of H, ffn and the projections), which hold where
+    the step runs on the card — `device`, else the device of `params`; on
+    the CPU the plain versions take any shape. batch and mq_rows are the
+    decode and widest multi-query row counts; the kernels take any."""
+    if not paged:
+        return ("dense (non-paged) backend — the fused step is built "
+                "around the paged-attention kernel")
+    if cfg.is_moe:
+        return "MoE layers: expert dispatch is not fused yet"
+    if getattr(cfg, "heterogeneous_layers_config_json", None):
+        return "heterogeneous per-layer configs unroll their own bodies"
+    if tp_paged:
+        return ("tp head-sharded serving mesh: the fused kernels are "
+                "single-device (the tp engine keeps the unfused body)")
+    if cfg.multi_latent_attention:
+        return "MLA fused prologue not ported yet"
+    if max(int(batch), int(mq_rows or 0)) < 1:
+        return f"no rows to run (batch {batch}, mq_rows {mq_rows})"
+    weight_dtype = None
+    if params is not None:
+        q_kernel = params["layers"][0]["attention"]["q_kernel"]
+        weight_dtype = q_kernel.dtype
+        device = device if device is not None else q_kernel.device
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    return kernel_limits(cfg, weight_dtype)

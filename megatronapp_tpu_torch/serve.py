@@ -8,8 +8,9 @@ tools/run_text_generation_server.py for the paged dynamic engine).
 The serving flags keep the names of the JAX package's
 config/arguments.py:add_serving_args. The port serves random weights made
 on the device from --seed with the NullTokenizer: checkpoint loading,
-tokenizer files and every flag outside the paged-KV slice exit with a
-message naming what is not ported yet. The server needs ``aiohttp``.
+tokenizer files and every flag outside the ported slices exit with a
+message naming what is not ported yet. ``--megakernel-decode`` runs the
+fused decode step (ops/fused_decode.py). The server needs ``aiohttp``.
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ UNPORTED_FLAGS = {
     "--load-dir": "checkpoint loading",
     "--load-quantized": "int8 checkpoints",
     "--tokenizer-name-or-path": "tokenizer files",
-    "--megakernel-decode": "the fused decode step",
-    "--megakernel-vmem-budget": "the fused decode step",
-    "--scan-unroll": "the JAX layer scan",
+    "--megakernel-vmem-budget": "the TPU VMEM budget of the Pallas tile "
+                                "planner (the CUDA kernels plan their own "
+                                "tiles)",
+    "--scan-unroll": "the JAX layer scan (the port runs its layers as a "
+                     "Python loop)",
     "--quantized-weights": "resident int8 weights",
     "--spec-method": "speculative decoding",
     "--spec-k": "speculative decoding",
@@ -112,6 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported)")
     g.add_argument("--prefill-chunk", type=int, default=32,
                    help="chunked-prefill chunk size")
+    g.add_argument("--megakernel-decode", action="store_true",
+                   help="fused decode step: each decode and chunked-prefill "
+                        "layer as the fused QKV, out-projection and MLP "
+                        "kernels around paged attention (kept unfused, with "
+                        "a warning, where the config is ineligible)")
     g.add_argument("--serving-metrics", action="store_true",
                    help="enable the telemetry registry (GET /metrics)")
     g.add_argument("--request-trace", action="store_true",
@@ -168,7 +176,8 @@ def build_engine(args: argparse.Namespace):
         block_size=args.kv_block_size, num_blocks=args.num_kv_blocks,
         enable_prefix_caching=args.prefix_caching,
         prefill_chunk=args.prefill_chunk,
-        kv_cache_dtype=args.kv_cache_dtype, device=device)
+        kv_cache_dtype=args.kv_cache_dtype, device=device,
+        fused_decode=args.megakernel_decode)
 
 
 def main(argv: Optional[List[str]] = None):
@@ -192,7 +201,8 @@ def main(argv: Optional[List[str]] = None):
     print(f"serving {args.preset} ({engine.cfg.num_layers} layers, random "
           f"weights seed {args.seed}) with continuous batching on "
           f"{engine.device} at {args.host}:{args.port} (paged, block "
-          f"{args.kv_block_size}, max_batch {args.max_batch})")
+          f"{args.kv_block_size}, max_batch {args.max_batch}, "
+          f"megakernel={engine.megakernel})")
     TextGenerationServer(engine, args.host, args.port).run()
 
 

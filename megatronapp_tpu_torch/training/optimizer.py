@@ -16,7 +16,7 @@ fp32 as jnp does; the updates are in place on fp32 leaves.
 
 At dp = 1 the JAX trainer builds the ZeRO-1 wrapper
 (training/distributed_optimizer.py), whose arithmetic is this same chain
-leaf for leaf; its sharded layout comes with slice 3.
+leaf for leaf; its sharded layout comes with the parallel-training slice.
 """
 
 from __future__ import annotations

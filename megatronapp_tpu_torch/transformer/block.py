@@ -19,6 +19,9 @@ from torch.utils.checkpoint import checkpoint
 from megatronapp_tpu_torch.config.transformer_config import (
     NormKind, TransformerConfig,
 )
+from megatronapp_tpu_torch.ops.fused_decode import (
+    fused_layer_decode, fused_layer_multiquery,
+)
 from megatronapp_tpu_torch.ops.normalization import apply_norm
 from megatronapp_tpu_torch.transformer.attention import (
     attention_forward, init_attention_params,
@@ -66,11 +69,28 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   fused_decode: bool = False, segment_ids=None, ctx=None):
     """One transformer layer. x: [B,S,H] → ((out, new_cache), aux_losses);
     the paged, mask and segment arguments are attention_forward's
-    (no kv_cache: the training branch, new_cache None)."""
+    (no kv_cache: the training branch, new_cache None).
+
+    fused_decode: the paged serving layer as the fused kernels
+    (ops/fused_decode.py), dispatched as JAX transformer/block.py:108-132
+    does — chunk_counts given: the ragged multi-query body; S == 1: the
+    decode body. Callers gate it on megakernel_ineligible_reason."""
     if fused_decode:
-        raise NotImplementedError(
-            "fused (megakernel) decode is not ported yet (the "
-            "serving-extension slice)")
+        if page_table is None or kv_cache is None or cfg.is_moe:
+            raise ValueError(
+                "fused_decode covers the dense-MLP paged decode/multiquery "
+                "bodies only — gate callers on "
+                "ops.fused_decode.megakernel_ineligible_reason")
+        if chunk_counts is not None:
+            return fused_layer_multiquery(
+                p, x, cfg, rope_cos, rope_sin, kv_cache, cache_positions,
+                chunk_counts, page_table, write_index)
+        if x.shape[1] != 1:
+            raise ValueError(
+                "fused_decode without chunk_counts is the s == 1 decode "
+                "body — pass chunk_counts for ragged multi-token steps")
+        return fused_layer_decode(p, x, cfg, rope_cos, rope_sin, kv_cache,
+                                  cache_positions, page_table, write_index)
     _check_dense(cfg)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln1_scale"], p.get("ln1_bias"),

@@ -294,8 +294,8 @@ def test_deadline_and_abort():
 def test_unported_engine_options_raise():
     _, tc, _, tp = _weights("llama", 2)
     for kw in (dict(paged=False), dict(spec_method="ngram"),
-               dict(fused_decode=True), dict(adapter_cache=object()),
-               dict(spill_host_mb=8), dict(ctx=object())):
+               dict(adapter_cache=object()), dict(spill_host_mb=8),
+               dict(ctx=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             tde.DynamicInferenceEngine(tp, tc, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="quantized"):

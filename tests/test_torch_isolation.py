@@ -4,7 +4,9 @@
   pulls in neither jax nor megatronapp_tpu;
 - entry points default to the card and raise where there is none;
 - a tensor that is not on the CPU never reaches a kernel's plain version;
-- the weight converter refuses leaves it does not place.
+- the weight converter refuses leaves it does not place;
+- on a card (tests marked cuda; no jax needed there), the paged, flash
+  and fused kernels launch and match their plain versions.
 """
 
 import ast
@@ -117,8 +119,8 @@ def test_pretrain_gpt_entry_point_raises_without_a_card(monkeypatch):
       "int8"], "quantized"),
     (["--engine", "dynamic", "--paged-kv-cache", "--spec-method", "ngram"],
      "speculative"),
-    (["--engine", "dynamic", "--paged-kv-cache", "--megakernel-decode"],
-     "fused decode"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--megakernel-vmem-budget",
+      "1000"], "VMEM budget"),
     (["--engine", "dynamic", "--paged-kv-cache", "--load-dir", "x"],
      "checkpoint"),
 ])
@@ -127,6 +129,16 @@ def test_serve_flags_outside_the_slice_exit(argv, msg, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+def test_serve_megakernel_decode_parses():
+    """--megakernel-decode is ported: it parses and reaches the engine."""
+    from megatronapp_tpu_torch import serve
+    args = serve.parse_args(["--engine", "dynamic", "--paged-kv-cache",
+                             "--megakernel-decode"])
+    assert args.megakernel_decode is True
+    assert serve.parse_args(["--engine", "dynamic",
+                             "--paged-kv-cache"]).megakernel_decode is False
 
 
 def test_non_cpu_tensors_never_reach_the_plain_version(monkeypatch):
@@ -265,3 +277,44 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(alone, tmp_path):
                          text=True, timeout=120, cwd=cwd)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.cuda
+def test_fused_kernels_match_plain_versions():
+    """Each kernel, launched once on llama3-8b-shaped bf16 tensors (widths
+    cut to 1024), within 0.06 of max(|element|, its row's RMS) of its plain
+    version on the same inputs (chip_smoke.py FUSED_TOL argues the
+    bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as cuda_fd
+    dev = torch.device("cuda", 0)
+    cfg = llama3_8b(num_layers=1, hidden_size=1024, num_attention_heads=8,
+                    num_query_groups=2, ffn_hidden_size=2048,
+                    vocab_size=256, params_dtype=torch.bfloat16)
+    p = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0),
+                        dev)["layers"][0]
+    g = torch.Generator().manual_seed(1)
+    for rows in (8, 32):
+        x = torch.randn(rows, 1024, generator=g).to(dev, torch.bfloat16)
+        cos, sin = (torch.randn(rows, 64, generator=g).to(dev)
+                    for _ in range(2))
+        before = dict(cuda_fd.launches)
+        got = [*cuda_fd.fused_qkv(x, p, cfg, cos, sin),
+               cuda_fd.fused_out_proj(x, p, cfg, x),
+               cuda_fd.fused_mlp_fc1(x, p, cfg)]
+        got.append(cuda_fd.fused_mlp_fc2(got[-1], x, p, cfg))
+        want = [*cuda_fd.fused_qkv_plain(x, p, cfg, cos, sin),
+                cuda_fd.fused_out_proj_plain(x, p, cfg, x),
+                cuda_fd.fused_mlp_fc1_plain(x, p, cfg)]
+        want.append(cuda_fd.fused_mlp_fc2_plain(got[-2], x, p, cfg))
+        torch.cuda.synchronize()
+        assert {k: cuda_fd.launches[k] - before[k] for k in before} == \
+            dict.fromkeys(before, 1)
+        for a, b in zip(got, want):
+            a, b = a.float().reshape(rows, -1), b.float().reshape(rows, -1)
+            rms = b.pow(2).mean(dim=-1, keepdim=True).sqrt()
+            scale = torch.maximum(b.abs(), rms)
+            assert float(((a - b).abs() / scale).max()) <= 0.06

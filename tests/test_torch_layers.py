@@ -273,8 +273,10 @@ def test_paged_layer_matches(arch, ragged):
 
 def test_unported_branches_raise():
     """The branches still to port: the static cache, context- and
-    tensor-parallel attention, fused decode and MoE. (The dense training
-    branch is ported: tests/test_torch_training.py.)"""
+    tensor-parallel attention and MoE; fused decode without the paged
+    pools it is built around. (The dense training branch is ported:
+    tests/test_torch_training.py; fused decode:
+    tests/test_torch_fused_decode.py.)"""
     _, tc = cfg_pair(**LLAMA_SMALL)
     p = tree(random_layer(tc, 7))
     x = torch.zeros(1, 4, 64)
@@ -283,7 +285,7 @@ def test_unported_branches_raise():
         t_layer(p, x, tc, kv_cache=cache, cache_index=0)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         t_layer(p, x, tc, ctx=object())
-    with pytest.raises(NotImplementedError, match="megakernel"):
+    with pytest.raises(ValueError, match="paged decode/multiquery"):
         t_layer(p, x, tc, fused_decode=True)
     moe = dataclasses.replace(tc, num_moe_experts=4)
     with pytest.raises(NotImplementedError, match="MoE"):
