@@ -21,6 +21,16 @@ Phases, each printing one JSON line:
    fused_reference: a tiny llama-shaped model's fused chunked-prefill and
             decode step on the card (bf16, kernels) against the same
             weights on the CPU (fp32, plain versions).
+   kv_quant_kernels: the quantized paged-attention kernel (int8 and fp8
+            pools with fp32 scale pools) against its plain version on the
+            same pools: decode and ragged at llama3-8b attention shapes,
+            block size 64, and gpt2-125m.
+   fused_int8_kernels: the four fused kernels on resident int8 weights
+            against their plain versions: llama3-8b at 8 and 32 rows,
+            gpt2-125m, and fp32 norm scales beside int8 weights.
+   quant_reference: a tiny llama-shaped model with resident int8 weights,
+            int8 and fp8 pools, unfused and fused, on the card (bf16,
+            kernels) against the same weights on the CPU (fp32, plain).
 4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
@@ -46,12 +56,19 @@ Phases, each printing one JSON line:
             fused kernel launched once per layer per decode step and
             prefill chunk, and the fused against the unfused streams and
             last-position logits.
-8. profile: device time by kernel family through the unfused and the
-            fused engine at the slice's shapes: the prefill of one
-            1008-token prompt, then decode steps with 8 slots at kv ~1024.
-9. times:   each kernel, its plain version, one PyTorch call computing the
-            same function and the card's bound, at the shapes the main
-            paths launch.
+   serve_quant: the same weights quantized to resident int8 at startup on
+            the card (serve.py --quantized-weights), the same requests
+            through the fused engine on int8 pools and the unfused engine
+            on fp8 pools: the same checks, each quantized kernel variant
+            launched once per layer per step and chunk, and the fused
+            against the unfused last-position logits.
+8. profile: device time by kernel family through the unfused, the fused
+            and the quantized fused engine at the slice's shapes: the
+            prefill of one 1008-token prompt, then decode steps with 8
+            slots at kv ~1024.
+9. times:   each kernel and variant, its plain version, one PyTorch call
+            computing the same function and the card's bound, at the
+            shapes the main paths launch.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed check exits
@@ -125,6 +142,21 @@ FUSED_KERNELS = tuple(FUSED_REPLACES)
 FUSED_TOL = 0.06
 # Timing loops rotate through page tables whose K/V span this many bytes.
 TIMED_POOL_BYTES = 3 * L2_BYTES
+# Quantized KV pools (kv_cache_dtype) and their page dtypes.
+QUANT_KINDS = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+QUANT_REPLACES = (f"{REPLACES} (int8/fp8 pools: k_scales/v_scales; body "
+                  "emit_paged_kernel :202-335)")
+# Quantized paged kernel vs its plain version on the same int8/fp8 pools
+# and scale pools. Both dequantize each element as float(page) x its (row,
+# head) scale and compute in fp32 throughout: neither rounds q or P to
+# bf16. They differ by the order of the fp32 sums (~1e-6 of an output) and
+# by the kernel's bf16 rounding of its output, at most 2^-8 = 0.0039 of
+# the element, so each output element is held to QUANT_REL_TOL of
+# max(|element|, its (row, head) RMS over D), far inside REL_TOL.
+QUANT_REL_TOL = 5e-3
+# Card (bf16) vs CPU (fp32) logits of phase_quant_reference, as a share of
+# their range, by pool dtype (the reasoning is beside the check).
+QUANT_REF_TOL = {"int8": 0.05, "fp8": 0.1}
 
 
 class SmokeFailure(RuntimeError):
@@ -138,6 +170,12 @@ def emit(obj):
 def check(cond: bool, what: str):
     if not cond:
         raise SmokeFailure(what)
+
+
+def only(counts: dict, want: dict) -> dict:
+    """The launch counts a run should leave: `want`, and 0 for every other
+    key of `counts` (kernel variants the run must not launch)."""
+    return {k: want.get(k, 0) for k in counts}
 
 
 def nvidia_smi_line() -> str:
@@ -220,10 +258,14 @@ def make_case(gen, dev, *, batch, hq, hkv, d, bs, kv_lens, s_q=None,
 
 
 def kv_bytes(case, d, hkv) -> int:
-    """Bytes the function must move: each valid K/V row read once, q read
-    once, the output written once, plus the page table and lengths."""
+    """Bytes the function must move: each valid K/V row read once (with
+    its fp32 scales, for quantized pools), q read once, the output written
+    once, plus the page table and lengths."""
     rows = int(case["kv_lens"].sum())
-    return (2 * rows * hkv * d * 2 + 2 * case["q"].numel() * 2
+    row_bytes = hkv * d * case["k"].element_size()
+    if "k_scales" in case:
+        row_bytes += hkv * 4
+    return (2 * rows * row_bytes + 2 * case["q"].numel() * 2
             + case["table"].numel() * 4 + case["kv_lens"].numel() * 4
             + (case["q_lens"].numel() * 4 if "q_lens" in case else 0))
 
@@ -338,6 +380,98 @@ def phase_kernels(state):
           "max_err_over_row_rms": {k: v[1] for k, v in results.items()}})
 
 
+def quantize_case(case, kind):
+    """The case with its bf16 K/V pools quantized per (row, kv head) to
+    `kind` as the engine writes them (quantize_kv_rows): the pages, their
+    fp32 scale pools, and the pools dequantized to bf16 for the library
+    yardstick."""
+    from megatronapp_tpu_torch.ops.paged_attention import quantize_kv_rows
+    out = dict(case)
+    for name in ("k", "v"):
+        q, s = quantize_kv_rows(case[name], QUANT_KINDS[kind])
+        out[name], out[f"{name}_scales"] = q, s
+        out[f"{name}_deq"] = (q.float() * s[..., None]).to(torch.bfloat16)
+    return out
+
+
+def _compare_quant(case, mode, kind):
+    """The quantized kernel twice (one launch a call, the same bits) and
+    its plain version in fp32 on the same pools; returns (max abs error,
+    max error over max(|element|, (row, head) RMS))."""
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    ql = case.get("q_lens")
+    key = f"{'decode' if ql is None else 'ragged'}_{kind}"
+    pools = (case["k"], case["v"], case["table"], case["kv_lens"])
+    kw = dict(q_lens=ql, k_scales=case["k_scales"],
+              v_scales=case["v_scales"])
+    before = pa.launches[key]
+    out = pa.paged_attention(case["q"], *pools, **kw)
+    again = pa.paged_attention(case["q"], *pools, **kw)
+    torch.cuda.synchronize()
+    check(pa.launches[key] == before + 2,
+          f"kv_quant_kernels {mode}: {key} launched "
+          f"{pa.launches[key] - before} times for two calls")
+    check(torch.equal(out, again), f"kv_quant_kernels {mode}: the rerun "
+          "gave other bits")
+    ref = pa.paged_attention_plain(case["q"].float(), *pools, **kw)
+    got = out.float()
+    check(bool(torch.isfinite(got).all()),
+          f"kv_quant_kernels {mode}: non-finite output")
+    if ql is not None:    # padding rows are finite garbage by contract
+        real = (torch.arange(got.shape[1], device=got.device)[None, :]
+                < ql[:, None].long())
+        got, ref = got[real], ref[real]
+    err = (got - ref).abs()
+    rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    rel = float((err / torch.maximum(ref.abs(), rms)).max())
+    check(rel <= QUANT_REL_TOL,
+          f"kv_quant_kernels {mode}: error {rel} of max(|element|, row "
+          f"RMS) exceeds {QUANT_REL_TOL} (max abs {float(err.max())})")
+    return float(err.max()), rel
+
+
+def phase_kv_quant_kernels(state):
+    """The quantized paged kernel against its plain version, int8 and fp8
+    pools, at the shapes of phase_kernels (decode at B 8 with kv up to
+    1024, the engine's ragged launch at B 1 and S_q 32), block size 64,
+    and gpt2-125m (D 64, MHA)."""
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(4242)
+    before = dict(pa.launches)
+    llama = dict(hq=32, hkv=8, d=128, bs=16)
+    gpt2 = dict(hq=12, hkv=12, d=64, bs=16)
+    q_lens = [1, 15, 16, 17, 32, 32, 7, 3]
+    lens = [1, 15, 16, 17, 300, 1000, 1024, 640]
+    shapes = {
+        "decode_llama": dict(batch=8, kv_lens=lens, **llama),
+        "ragged_llama_b1": dict(batch=1, kv_lens=[1000], s_q=32,
+                                q_lens=[24], **llama),
+        "ragged_llama": dict(batch=8, kv_lens=[max(n, q) for n, q in
+                                               zip(lens, q_lens)],
+                             s_q=32, q_lens=q_lens, **llama),
+        "decode_llama_bs64": dict(batch=2, kv_lens=[100, 1000],
+                                  **dict(llama, bs=64)),
+        "decode_gpt2": dict(batch=4, kv_lens=[1, 33, 500, 1024], **gpt2),
+        "ragged_gpt2": dict(batch=4, kv_lens=[5, 40, 500, 1024], s_q=32,
+                            q_lens=[5, 32, 1, 20], **gpt2),
+    }
+    results = {}
+    for name, kw in shapes.items():
+        case = make_case(gen, dev, **kw)
+        for kind in QUANT_KINDS:
+            results[f"{name}_{kind}"] = _compare_quant(
+                quantize_case(case, kind), name, kind)
+    pa.launches.update(before)     # not main-path launches
+    state["quant_err"] = {
+        f"{mode}_{kind}": max(v[0] for k, v in results.items()
+                              if k.startswith(mode) and k.endswith(kind))
+        for mode in ("decode", "ragged") for kind in QUANT_KINDS}
+    emit({"phase": "kv_quant_kernels", "rel_tol": QUANT_REL_TOL,
+          "errors": "(max abs, max over max(|plain element|, (row, head) "
+                    "RMS))", "cases": results})
+
+
 def phase_reference(state, dev="cuda"):
     """Tiny llama-shaped model (head_dim 128, GQA group 2): the card's
     bf16 chunked-prefill logits against the CPU's fp32 plain path on the
@@ -415,11 +549,12 @@ def _row_errs(got, want):
     return float(err.max()), float((err / scale).max())
 
 
-def _fused_case(name, cfg, p, rows, gen, dev):
+def _fused_case(name, cfg, p, rows, gen, dev, variant=""):
     """Each fused kernel once on bf16 inputs against its plain version on
     the same inputs (fc2 is fed the kernel's own y), then once more to
     check that a rerun repeats every bit (the K-split sums in a fixed
-    order)."""
+    order). variant: the launch counters' suffix of the weights' kind
+    ("_int8" for resident int8 weights)."""
     from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
 
@@ -436,13 +571,14 @@ def _fused_case(name, cfg, p, rows, gen, dev):
     res = {}
 
     def run(kernel, fn, plain, *args):
-        before = fd.launches[kernel]
+        key = kernel + variant
+        before = fd.launches[key]
         got = fn(*args)
         again = fn(*args)
         torch.cuda.synchronize()
-        check(fd.launches[kernel] == before + 2,
-              f"fused_kernels {name}: {kernel} launched "
-              f"{fd.launches[kernel] - before} times for two calls")
+        check(fd.launches[key] == before + 2,
+              f"fused_kernels {name}: {key} launched "
+              f"{fd.launches[key] - before} times for two calls")
         got_t = got if isinstance(got, tuple) else (got,)
         again_t = again if isinstance(again, tuple) else (again,)
         check(all(torch.equal(a, b) for a, b in zip(got_t, again_t)),
@@ -497,11 +633,49 @@ def phase_fused_kernels(state):
           "cases": cases})
 
 
-def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None):
+def phase_fused_int8_kernels(state):
+    """The fused kernels on resident int8 weights (quantize_for_serving of
+    a random layer) against their plain versions, which dequantize through
+    resolve_param to the same bf16 weights, so FUSED_TOL's rule holds
+    unchanged: llama3-8b at 8 and 32 rows, gpt2-125m (LayerNorm, biases,
+    gelu, D 64), and int8 weights beside fp32 norm scales (QK-layernorm)."""
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving,
+    )
+    from megatronapp_tpu_torch.models.presets import gpt2_125m, llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(2025)
+    before = dict(fd.launches)
+    llama = llama3_8b(num_layers=1, params_dtype=torch.bfloat16)
+    gpt2 = gpt2_125m(num_layers=1, params_dtype=torch.bfloat16)
+    qk = llama3_8b(num_layers=1, hidden_size=1024, num_attention_heads=8,
+                   num_query_groups=2, ffn_hidden_size=2048,
+                   qk_layernorm=True, params_dtype=torch.float32)
+    cases = {}
+    for cname, cfg, rows in (("llama3_8b", llama, (8, 32)),
+                             ("gpt2_125m", gpt2, (8, 32)),
+                             ("qk_layernorm_fp32_vectors", qk, (5, 40))):
+        p = quantize_for_serving(_fused_layer(cfg, gen, dev))[0]
+        for r in rows:
+            cases[f"{cname}_rows{r}"] = _fused_case(
+                f"int8 {cname} R={r}", cfg, p, r, gen, dev, "_int8")
+        del p
+    fd.launches.update(before)       # not main-path launches
+    torch.cuda.empty_cache()
+    state["fused_int8_err"] = {k: max(c[k][0] for c in cases.values())
+                               for k in FUSED_KERNELS}
+    emit({"phase": "fused_int8_kernels", "rel_tol": FUSED_TOL,
+          "errors": "(max abs, max over max(|plain element|, row RMS))",
+          "cases": cases})
+
+
+def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
+                     kv_cache_dtype="bf16"):
     """A prompt's chunked prefill (32-token chunks, one slot) through the
-    engine's multi-query step on a pool of its own; returns the logits
-    of every real prompt position [P, V] (and, with decode_token, the
-    logits of one decode step after it [1, V])."""
+    engine's multi-query step on a pool of its own (of `kv_cache_dtype`);
+    returns the logits of every real prompt position [P, V] (and, with
+    decode_token, the logits of one decode step after it [1, V])."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.dynamic_engine import (
@@ -512,7 +686,8 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None):
     from megatronapp_tpu_torch.ops.paged_attention import paged_write_index
     chunk, n = 32, len(tokens)
     msl = 16 * math.ceil((n + 2) / 16)
-    pool = PagedKVCache(cfg, 1, msl, block_size=16, device=dev)
+    pool = PagedKVCache(cfg, 1, msl, block_size=16, device=dev,
+                        kv_cache_dtype=kv_cache_dtype)
     pool.admit(0, np.asarray(tokens))
     table = torch.as_tensor(pool.page_table[:1])
     rope = gpt_rope_tables(cfg, msl, device=dev)
@@ -528,7 +703,7 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None):
         logits, _, _ = _paged_multiquery_step(
             params, toks.to(dev), pool.pages, table.to(dev), starts.to(dev),
             counts.to(dev), cfg, msl, tuple(t.to(dev) for t in index), rope,
-            fused=fused)
+            fused=fused, scales=pool.scales)
         out.append(logits[0, :count].float().cpu())
     prefill = torch.cat(out)
     if decode_token is None:
@@ -541,7 +716,8 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None):
     dec, _ = _paged_decode_step(
         params, torch.tensor([[decode_token]], device=dev), pool.pages,
         table.to(dev), lengths.to(dev), cfg,
-        tuple(t.to(dev) for t in index), rope, fused=fused)
+        tuple(t.to(dev) for t in index), rope, fused=fused,
+        scales=pool.scales)
     return prefill, dec.float().cpu()
 
 
@@ -587,7 +763,7 @@ def phase_fused_reference(state):
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
     emit({"phase": "fused_reference", "max_rel_err": rel,
           "argmax_agreement": agree, "launches": launches})
-    check(launches == dict.fromkeys(FUSED_KERNELS, 2 * 3),
+    check(launches == only(launches, dict.fromkeys(FUSED_KERNELS, 2 * 3)),
           f"fused_reference: expected 2 layers x (2 chunks + 1 decode step) "
           f"launches of each fused kernel, got {launches}")
     check(bool(torch.isfinite(got).all()), "fused_reference: non-finite")
@@ -595,6 +771,99 @@ def phase_fused_reference(state):
     # move the logits by a few percent of their range at most.
     check(rel < 0.05, f"fused_reference: relative logit error {rel} >= 0.05")
     check(agree >= 0.9, f"fused_reference: argmax agreement {agree} < 0.9")
+
+
+def resident_tree_on(tree, dev, dtype):
+    """A copy of a resident-int8 param tree on `dev` with its float leaves
+    in `dtype`, except the resident leaves' fp32 scales (nn.Module.to(dtype)
+    would cast those too)."""
+    import copy
+
+    from megatronapp_tpu_torch.inference.quantization import (
+        is_resident_leaf,
+    )
+    out = copy.deepcopy(tree).to(dev)
+    for m in out.modules():
+        if is_resident_leaf(m):
+            continue
+        for t in m._parameters.values():
+            if t.is_floating_point():
+                t.data = t.data.to(dtype)
+    return out
+
+
+def phase_quant_reference(state):
+    """The tiny llama-shaped model of phase_fused_reference with its five
+    matmul kernels quantized to resident int8 (quantize_for_serving of the
+    fp32 weights): a 40-token prompt's chunked prefill and one decode step
+    on int8 and on fp8 pools, unfused and fused, on the card (bf16 compute,
+    kernels) against the same int8 weights on the CPU (fp32 compute, plain
+    versions)."""
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    dev = torch.device("cuda", 0)
+    before, before_pa = dict(fd.launches), dict(pa.launches)
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05)
+    cfg_ref = llama3_8b(compute_dtype=torch.float32, **small)
+    cfg_dev = llama3_8b(params_dtype=torch.bfloat16, **small)
+    p_ref = quantize_for_serving(init_gpt_params(
+        cfg_ref, torch.Generator().manual_seed(7), "cpu"))[0]
+    p_dev = resident_tree_on(p_ref, dev, torch.bfloat16)
+    tokens = torch.randint(0, 512, (40,),
+                           generator=torch.Generator().manual_seed(8)).tolist()
+    results = {}
+    for kind in QUANT_KINDS:
+        for fused in (False, True):
+            name = f"{kind}_{'fused' if fused else 'unfused'}"
+            ref = torch.cat(_chunked_prefill(
+                p_ref, cfg_ref, tokens, "cpu", fused, decode_token=17,
+                kv_cache_dtype=kind))
+            for counts in (fd.launches, pa.launches):
+                counts.update(dict.fromkeys(counts, 0))
+            got = torch.cat(_chunked_prefill(
+                p_dev, cfg_dev, tokens, dev, fused, decode_token=17,
+                kv_cache_dtype=kind))
+            launches, paged = dict(fd.launches), dict(pa.launches)
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            results[name] = {"max_rel_err": rel, "argmax_agreement": agree}
+            # 2 layers x (2 chunks + 1 decode step).
+            want = dict.fromkeys((f"{k}_int8" for k in FUSED_KERNELS),
+                                 6 if fused else 0)
+            check(launches == only(launches, want),
+                  f"quant_reference {name}: fused launches {launches}")
+            check(paged == only(paged, {f"ragged_{kind}": 4,
+                                        f"decode_{kind}": 2}),
+                  f"quant_reference {name}: paged launches {paged}")
+            check(bool(torch.isfinite(got).all()),
+                  f"quant_reference {name}: non-finite logits")
+            # As phase_reference: bf16 weights (the int8 bytes dequantized
+            # to bf16 here, to fp32 on the CPU) and activations through two
+            # layers move the logits by a few percent of their range. fp8
+            # pools add to that: e4m3 keeps 3 mantissa bits, so a K/V
+            # element that bf16 compute moves by ~2^-9 crosses an fp8
+            # rounding point about once in 32 and then moves by a whole
+            # step (1/16-1/8 of it). Measured by this phase on an NVIDIA
+            # H100 80GB HBM3, 700.00 W: 0.049-0.051 of the range on fp8
+            # pools, 0.024-0.025 on int8 (bf16 pools, phase_reference:
+            # 0.015). A misread page or scale moves them by the whole
+            # range.
+            tol = QUANT_REF_TOL[kind]
+            check(rel < tol, f"quant_reference {name}: relative logit "
+                  f"error {rel} >= {tol}")
+            check(agree >= 0.9, f"quant_reference {name}: argmax agreement "
+                  f"{agree} < 0.9")
+    fd.launches.update(before)
+    pa.launches.update(before_pa)
+    emit({"phase": "quant_reference", "weights": "resident int8",
+          "cases": results})
 
 
 def _serve_prompts(cfg):
@@ -650,7 +919,7 @@ def _serve_once(driver, prompts, max_new, sampling):
     return streams, times, t0, t1
 
 
-def _engine(params, cfg, dev, fused=False):
+def _engine(params, cfg, dev, fused=False, kv_cache_dtype="bf16"):
     from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
     from megatronapp_tpu_torch.inference.dynamic_engine import (
         DynamicInferenceEngine,
@@ -658,7 +927,7 @@ def _engine(params, cfg, dev, fused=False):
     return DynamicInferenceEngine(
         params, cfg, tokenizer=NullTokenizer(cfg.vocab_size), max_batch=8,
         max_seq_len=2048, paged=True, block_size=16, prefill_chunk=32,
-        device=dev, fused_decode=fused)
+        device=dev, fused_decode=fused, kv_cache_dtype=kv_cache_dtype)
 
 
 def phase_serve(state, layers: int):
@@ -791,11 +1060,12 @@ def phase_serve_fused(state):
                         & (s[len(p):] < cfg.vocab_size)).all()),
               "serve_fused: a stream of the wrong length or vocabulary")
     want = layers * (steps + chunks)
-    check(launches == dict.fromkeys(FUSED_KERNELS, want),
+    check(launches == only(launches, dict.fromkeys(FUSED_KERNELS, want)),
           f"serve_fused: expected {want} launches of each fused kernel "
           f"({layers} layers x ({steps} decode steps + {chunks} prefill "
           f"chunks)), got {launches}")
-    check(paged == {"decode": layers * steps, "ragged": layers * chunks},
+    check(paged == only(paged, {"decode": layers * steps,
+                                "ragged": layers * chunks}),
           f"serve_fused: paged-attention launches {paged} for {steps} "
           f"steps and {chunks} chunks")
     check(hits > 0, "serve_fused: the shared prefix never hit")
@@ -823,6 +1093,7 @@ def phase_serve_fused(state):
     lu = _chunked_prefill(params, cfg, prompt, dev, False)[-1]
     fd.launches.update(before[0])
     pa.launches.update(before[1])
+    state["bf16_fused_logits"] = lf
     rel = float((lf - lu).abs().max() / lu.abs().max())
     emit({"phase": "serve_fused", "model": "llama3-8b", "layers": layers,
           "full_depth": layers == 32, "megakernel": engine.megakernel,
@@ -850,6 +1121,143 @@ def phase_serve_fused(state):
     # would move them by the whole logit range.
     check(rel < 0.1, f"serve_fused: last-position logits differ from the "
           f"unfused engine's by {rel} of their range (>= 0.1)")
+
+
+def _serve_quant_run(params, cfg, dev, kind, fused):
+    """The serve phases' requests through one engine on `kind` pools
+    (fused or not) driven as a server drives it; checks the streams and
+    that each layer of each decode step and prefill chunk launched the
+    quantized paged kernel once (and, fused, each int8 fused kernel once)
+    and nothing else."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    name = f"serve_quant {kind} {'fused' if fused else 'unfused'}"
+    layers = cfg.num_layers
+    engine = _engine(params, cfg, dev, fused=fused, kv_cache_dtype=kind)
+    check(engine.megakernel is fused, f"{name}: the engine's step kind")
+    driver = DynamicBatchingDriver(engine)
+    greedy = SamplingParams(greedy=True)
+    max_new = 32
+    prompts, warm = _serve_prompts(cfg)
+    rid, done = driver.submit(warm, 4, greedy)
+    check(done.wait(timeout=600), f"{name}: warm-up did not finish")
+    driver.result_tokens(rid)
+    hits_before = engine.pool.stats["prefix_hit_tokens"]
+    steps_before, chunks_before = engine.decode_steps, engine.prefill_chunks
+    for counts in (fd.launches, pa.launches):
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.synchronize()
+    streams, times, t_start, t_end = _serve_once(driver, prompts, max_new,
+                                                 greedy)
+    launches, paged = dict(fd.launches), dict(pa.launches)
+    steps = engine.decode_steps - steps_before
+    chunks = engine.prefill_chunks - chunks_before
+    hits = engine.pool.stats["prefix_hit_tokens"] - hits_before
+    for p, s in zip(prompts, streams):
+        check(s is not None and len(s) == len(p) + max_new
+              and np.array_equal(s[:len(p)], p)
+              and bool(((s[len(p):] >= 0)
+                        & (s[len(p):] < cfg.vocab_size)).all()),
+              f"{name}: a stream of the wrong length or vocabulary")
+    want = dict.fromkeys((f"{k}_int8" for k in FUSED_KERNELS),
+                         layers * (steps + chunks) if fused else 0)
+    check(launches == only(launches, want),
+          f"{name}: fused launches {launches}, expected {want} "
+          f"({layers} layers x ({steps} decode steps + {chunks} chunks))")
+    check(paged == only(paged, {f"decode_{kind}": layers * steps,
+                                f"ragged_{kind}": layers * chunks}),
+          f"{name}: paged-attention launches {paged} for {steps} steps and "
+          f"{chunks} chunks")
+    check(hits > 0, f"{name}: the shared prefix never hit")
+    wall = t_end - t_start
+    rerun, _, _, _ = _serve_once(driver, prompts, max_new, greedy)
+    same = all(np.array_equal(a, b) for a, b in zip(streams, rerun))
+    check(same, f"{name}: the rerun gave other streams")
+    out = {"kv_cache_dtype": kind, "megakernel": engine.megakernel,
+           "launches": {k: v for k, v in launches.items() if v},
+           "paged_attention_launches": {k: v for k, v in paged.items()
+                                        if v},
+           "decode_steps": steps, "prefill_chunks": chunks,
+           "prefix_hit_tokens": int(hits),
+           "ttft_ms": [round((t[1] - t[0]) * 1e3, 3) for t in times],
+           "decode_ms_per_step_by_request": [
+               round((t[-1] - t[1]) * 1e3 / (len(t) - 2), 3) for t in times],
+           "tokens_per_s": max_new * len(prompts) / wall, "wall_s": wall,
+           "rerun_identical": same,
+           "pool_bytes": engine.pool.bytes_total,
+           "stats_param_bytes": engine.stats_snapshot()["param_bytes"]}
+    return out, launches, paged
+
+
+def phase_serve_quant(state):
+    """The serve phase's seed-0 weights quantized at startup on the card
+    by the code of serve.py --quantized-weights (quantize_for_serving: the
+    five matmul kernels of every layer to resident int8), then the same 8
+    requests through the fused engine on int8 pools and through the
+    unfused engine on fp8 pools."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving, resident_nbytes,
+    )
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    params, cfg, dev = state["model"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams, report = quantize_for_serving(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    state["qmodel"] = (qparams, cfg, dev)
+    runs = {}
+    for kind, fused in (("int8", True), ("fp8", False)):
+        key = f"{kind}_pools_{'fused' if fused else 'unfused'}"
+        runs[key], launches, paged = _serve_quant_run(qparams, cfg, dev,
+                                                      kind, fused)
+        state["quant_launches"] = {**state.get("quant_launches", {}),
+                                   **{k: v for k, v in paged.items() if v}}
+        if fused:
+            state["fused_int8_launches"] = {
+                k[:-len("_int8")]: v for k, v in launches.items()
+                if k.endswith("_int8")}
+    # Last-position logits of the 300-token prompt on the quantized
+    # weights and int8 pools, fused against unfused (gated, the slice-3
+    # rule), and their distance from the bf16 fused engine's (printed).
+    prompt = _serve_prompts(cfg)[0][3].tolist()
+    before = dict(fd.launches), dict(pa.launches)
+    lf = _chunked_prefill(qparams, cfg, prompt, dev, True,
+                          kv_cache_dtype="int8")[-1]
+    lu = _chunked_prefill(qparams, cfg, prompt, dev, False,
+                          kv_cache_dtype="int8")[-1]
+    fd.launches.update(before[0])
+    pa.launches.update(before[1])
+    rel = float((lf - lu).abs().max() / lu.abs().max())
+    bf16 = state.get("bf16_fused_logits")
+    dist = None if bf16 is None else float((lf - bf16).abs().max()
+                                           / bf16.abs().max())
+    emit({"phase": "serve_quant", "model": "llama3-8b",
+          "layers": cfg.num_layers, "full_depth": cfg.num_layers == 32,
+          "quantize_s": quant_s, "quantized_kernels": len(report),
+          "max_weight_abs_err": max(report.values()),
+          "param_bytes_bf16": resident_nbytes(params),
+          "param_bytes_resident_int8": resident_nbytes(qparams),
+          "runs": runs,
+          "last_logits_fused_vs_unfused_int8_max_rel_err": rel,
+          "last_logits_argmax_equal": int(lf.argmax()) == int(lu.argmax()),
+          "last_logits_vs_bf16_fused_max_rel_err": dist,
+          "last_logits_argmax_equal_bf16": (
+              None if bf16 is None
+              else int(lf.argmax()) == int(bf16.argmax())),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    check(bool(np.isfinite(lf.numpy()).all()), "serve_quant: non-finite "
+          "logits")
+    # As serve_fused: 32 layers of bf16 roundings taken in other orders.
+    check(rel < 0.1, f"serve_quant: fused int8 last-position logits differ "
+          f"from the unfused engine's by {rel} of their range (>= 0.1)")
 
 
 FAMILIES = ("paged_attention", "fused", "gemm", "memcpy/memset", "other")
@@ -912,12 +1320,13 @@ def _device_profile(fn, units: int, families=FAMILIES,
     return out
 
 
-def _profile_engine(params, cfg, dev, fused):
+def _profile_engine(params, cfg, dev, fused, kv_cache_dtype="bf16"):
     """One engine's prefill window and decode window (see phase_profile)."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    engine = _engine(params, cfg, dev, fused=fused)
+    engine = _engine(params, cfg, dev, fused=fused,
+                     kv_cache_dtype=kv_cache_dtype)
     check(engine.megakernel is fused, "profile: the engine's step kind")
     rng = np.random.default_rng(1)
     prompt_len, chunk, steps = 1008, 32, 16
@@ -960,13 +1369,18 @@ def phase_profile(state):
     from the driver's stepper), for the unfused and the fused engine on
     the same weights: the prefill of one 1008-token prompt (32 ragged
     chunks at kv 32..1008; the window also holds that slot's first decode
-    step), then 16 decode steps with 8 slots at kv ~1024."""
+    step), then 16 decode steps with 8 slots at kv ~1024. Then the same
+    windows through the fused engine on the resident-int8 weights of
+    serve_quant and int8 pools."""
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     params, cfg, dev = state["model"]
     before = dict(fd.launches), dict(pa.launches)
     out = {"unfused": _profile_engine(params, cfg, dev, False),
            "fused": _profile_engine(params, cfg, dev, True)}
+    if "qmodel" in state:
+        out["fused_int8_weights_int8_pools"] = _profile_engine(
+            state["qmodel"][0], cfg, dev, True, kv_cache_dtype="int8")
     fd.launches.update(before[0])
     pa.launches.update(before[1])
     emit({"phase": "profile", "model": "llama3-8b",
@@ -975,8 +1389,9 @@ def phase_profile(state):
 
 def _sdpa_call(case, hq, hkv, nxt):
     """One PyTorch attention call on K/V gathered in advance for every
-    page table of the case (uniform kv_lens), rotating like the kernel:
-    the yardstick; the port never calls it."""
+    page table of the case (uniform kv_lens; quantized pools dequantized
+    to bf16 in advance), rotating like the kernel: the yardstick; the port
+    never calls it."""
     import torch.nn.functional as F
     q = case["q"]
     b = q.shape[0]
@@ -989,7 +1404,8 @@ def _sdpa_call(case, hq, hkv, nxt):
         return pool[t].reshape(r, b, mb * bs, hkv, d)[:, :, :n] \
             .transpose(2, 3).contiguous()
 
-    k, v = gather(case["k"]), gather(case["v"])
+    k, v = gather(case.get("k_deq", case["k"])), \
+        gather(case.get("v_deq", case["v"]))
     if "q_lens" not in case:
         qq = q[:, :, None, :]                              # [B, Hq, 1, D]
         mask = None
@@ -1018,13 +1434,16 @@ def _time_case(case, hq, hkv, d, bs):
         it["i"] = (it["i"] + 1) % tables.shape[0]
         return it["i"]
 
+    kw = {k: case[k] for k in ("k_scales", "v_scales") if k in case}
+
     def kernel():
         pa.paged_attention(case["q"], case["k"], case["v"], tables[nxt()],
-                           case["kv_lens"], q_lens=ql)
+                           case["kv_lens"], q_lens=ql, **kw)
 
     def plain():
         pa.paged_attention_plain(case["q"], case["k"], case["v"],
-                                 tables[nxt()], case["kv_lens"], q_lens=ql)
+                                 tables[nxt()], case["kv_lens"], q_lens=ql,
+                                 **kw)
 
     lib = _sdpa_call(case, hq, hkv, nxt)
     # plain, kernel, kernel, plain: compare within one card and call.
@@ -1068,34 +1487,58 @@ def phase_times(state):
 
     rows = {"decode": _time_case(case(8, 1024), hq, hkv, d, bs),
             "ragged": _time_case(case(1, 1024, 32), hq, hkv, d, bs)}
+    # Quantized pools hold half the bytes: twice the tables keep their K/V
+    # beyond the L2 cache.
+    quant = {}
+    for kind in QUANT_KINDS:
+        for mode, (batch, s_q) in (("decode", (8, None)),
+                                   ("ragged", (1, 32))):
+            c = make_case(gen, dev, batch=batch, hq=hq, hkv=hkv, d=d, bs=bs,
+                          kv_lens=[1024] * batch, s_q=s_q,
+                          q_lens=None if s_q is None else [s_q] * batch,
+                          pool_bytes=2 * TIMED_POOL_BYTES)
+            quant[f"{mode}_{kind}"] = _time_case(quantize_case(c, kind), hq,
+                                                 hkv, d, bs)
+            del c
+    torch.cuda.empty_cache()
     by_kv = {kv: _time_case(case(1, kv, 32), hq, hkv, d, bs)
              for kv in (32, 256, 512)}
     by_kv[1024] = rows["ragged"]
     b8 = _time_case(case(8, 1024, 32), hq, hkv, d, bs)
     pa.launches.update(before)
     state["times"] = rows
+    state["quant_times"] = quant
     emit({"phase": "times", "nvidia_smi": state.get("smi"),
           "l2": f"cold: each launch reads pages of another table, the "
                 f"tables' K/V spanning >= {TIMED_POOL_BYTES} bytes",
           **rows,
+          "quantized_pools": {
+              "note": "library_ms: scaled_dot_product_attention on K/V "
+                      "gathered and dequantized to bf16 in advance (it "
+                      "reads twice the K/V bytes of the quantized pools)",
+              **quant},
           "ragged_b1_by_kv": {
               kv: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                      "bound_ms")}
               for kv, r in sorted(by_kv.items())},
           "ragged_b8_not_a_main_path_shape": b8,
           "flash_train_shapes": _flash_times(state),
-          "fused_llama3_8b": _fused_times(state)})
+          "fused_llama3_8b": _fused_times(state),
+          "fused_int8_llama3_8b": (_fused_times(state, "qmodel")
+                                   if "qmodel" in state else None)})
 
 
-def _fused_bytes_flops(cfg, kernel, rows):
+def _fused_bytes_flops(cfg, kernel, rows, int8=False):
     """Bytes each input read once and each output written once (weights,
-    norm and bias vectors, activations, residual, rope rows), and the
-    multiply-add operations of the product."""
+    with their fp32 column scales when int8, norm and bias vectors,
+    activations, residual, rope rows), and the multiply-add operations of
+    the product."""
     h, ffn, d = cfg.hidden_size, cfg.ffn_hidden_size, cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
     k, n = {"qkv": (h, (nq + 2 * nkv) * d), "out_proj": (nq * d, h),
             "mlp_fc1": (h, 2 * ffn), "mlp_fc2": (ffn, h)}[kernel]
-    w = k * n * 2 + (h * 2 if kernel in ("qkv", "mlp_fc1") else 0)
+    w = (k * n + n * 4 if int8 else k * n * 2) \
+        + (h * 2 if kernel in ("qkv", "mlp_fc1") else 0)
     acts = {"qkv": rows * h + rows * n, "out_proj": rows * (k + 2 * h),
             "mlp_fc1": rows * (h + ffn), "mlp_fc2": rows * (ffn + 2 * h)}
     nbytes = w + acts[kernel] * 2
@@ -1104,19 +1547,26 @@ def _fused_bytes_flops(cfg, kernel, rows):
     return nbytes, 2 * rows * k * n, (k, n)
 
 
-def _fused_times(state):
+def _fused_times(state, model="model"):
     """Each fused kernel at the decode (8 rows) and prefill-chunk (32
     rows) shapes of llama3-8b, rotating through the served model's 32
     layers so that every launch finds its weights cold (each layer's
-    weights of one kernel are 33.6-234.9 MB; L2 is 50 MB). Beside the
-    kernel: its plain version (the unfused layer's own ops for the same
-    function: norm, matmul, bias, QK-norm, rope, activation, residual),
-    the card's bound and, as a yardstick the port never calls, one
-    torch.matmul of the same product (the GEMM alone)."""
+    weights of one kernel are 33.6-234.9 MB in bf16, half that in int8;
+    L2 is 50 MB). Beside the kernel: its plain version (the unfused
+    layer's own ops for the same function: norm, matmul, bias, QK-norm,
+    rope, activation, residual), the card's bound and, as a yardstick the
+    port never calls, one torch.matmul of the same product (the GEMM
+    alone; for resident int8 weights, on the weights dequantized to bf16
+    in advance, which are twice the int8 bytes). model: "model" (bf16
+    weights) or "qmodel" (serve_quant's resident int8 weights)."""
+    from megatronapp_tpu_torch.inference.quantization import (
+        is_resident_leaf, resolve_param,
+    )
     from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
-    params, cfg, dev = state["model"]
+    params, cfg, dev = state[model]
     layers = list(params["layers"])
+    int8 = is_resident_leaf(layers[0]["attention"]["q_kernel"])
     before = dict(fd.launches)
     gen = torch.Generator(dev).manual_seed(77)
     it = {"i": 0}
@@ -1155,8 +1605,12 @@ def _fused_times(state):
         per = {}
         for kernel, (kern, plain, a) in calls.items():
             if kernel == "qkv":   # the product of [Wq | Wkv] as one GEMM
-                ws = [torch.cat([p["attention"]["q_kernel"],
-                                 p["attention"]["kv_kernel"]], dim=1)
+                ws = [torch.cat([resolve_param(p["attention"][w],
+                                               torch.bfloat16)
+                                 for w in ("q_kernel", "kv_kernel")], dim=1)
+                      for p in layers[:4]]
+            elif int8:
+                ws = [resolve_param(weight(p, kernel), torch.bfloat16)
                       for p in layers[:4]]
             else:
                 ws = None
@@ -1174,7 +1628,8 @@ def _fused_times(state):
             lib_ms = device_ms(lib)
             loop_ms = cuda_time_ms(kern)
             del ws
-            nbytes, flops, (kk, nn) = _fused_bytes_flops(cfg, kernel, rows)
+            nbytes, flops, (kk, nn) = _fused_bytes_flops(cfg, kernel, rows,
+                                                         int8)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS_PER_S * 1e3
             per[kernel] = {
@@ -1189,7 +1644,7 @@ def _fused_times(state):
                 "achieved_bytes_per_s": nbytes / ((k1 + k2) / 2e3)}
         out[rows] = per
     fd.launches.update(before)
-    state["fused_times"] = out
+    state["fused_int8_times" if int8 else "fused_times"] = out
     return {"note": "kernel, plain and library ms are device time per "
                     "call (device_ms: queued behind a sleep, timed with "
                     "CUDA events); loop_ms_per_call is CUDA "
@@ -1198,8 +1653,10 @@ def _fused_times(state):
                     "unfused_ops_ms is the plain version's time: it runs "
                     "the unfused layer's ops for the same function; "
                     "library_ms is one torch.matmul of the product (the "
-                    "GEMM alone; QKV: [Wq | Wkv] concatenated, 4 layers "
-                    "rotated)", "rows": out}
+                    "GEMM alone; QKV, and every int8 kernel: bf16 weights "
+                    "made in advance, QKV's [Wq | Wkv] concatenated, 4 "
+                    "layers rotated)", "weights": "resident int8" if int8
+            else "bf16", "rows": out}
 
 
 # ---------------------------------------------------------------------------
@@ -1706,16 +2163,34 @@ def kernel_table(state):
             "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms")})
-    for kernel in FUSED_KERNELS:
-        t = state.get("fused_times", {}).get(8, {}).get(kernel, {})
-        out.append({
-            "name": f"fused_{kernel}", "route": "cuda",
-            "source": FUSED_SOURCE, "replaces": FUSED_REPLACES[kernel],
-            "launches": state.get("fused_launches", {}).get(kernel),
-            "max_abs_err": state.get("fused_err", {}).get(kernel),
-            "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
-            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": t.get("library_ms")})
+    for kind in QUANT_KINDS:
+        for mode in ("decode", "ragged"):
+            key = f"{mode}_{kind}"
+            t = state.get("quant_times", {}).get(key, {})
+            out.append({
+                "name": f"paged_attention_{key}", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": QUANT_REPLACES,
+                "launches": state.get("quant_launches", {}).get(key),
+                "max_abs_err": state.get("quant_err", {}).get(key),
+                "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+                "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+                "library_ms": t.get("library_ms")})
+    for variant, times, launches, errs in (
+            ("", "fused_times", "fused_launches", "fused_err"),
+            ("_int8", "fused_int8_times", "fused_int8_launches",
+             "fused_int8_err")):
+        for kernel in FUSED_KERNELS:
+            t = state.get(times, {}).get(8, {}).get(kernel, {})
+            out.append({
+                "name": f"fused_{kernel}{variant}", "route": "cuda",
+                "source": FUSED_SOURCE,
+                "replaces": FUSED_REPLACES[kernel] + (
+                    " (resident int8 weights)" if variant else ""),
+                "launches": state.get(launches, {}).get(kernel),
+                "max_abs_err": state.get(errs, {}).get(kernel),
+                "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+                "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+                "library_ms": t.get("library_ms")})
     for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
         t = state.get("flash_times", {}).get(kernel, {})
         out.append({
@@ -1760,12 +2235,16 @@ def main(argv=None) -> int:
         phase_reference(state)
         phase_fused_kernels(state)
         phase_fused_reference(state)
+        phase_kv_quant_kernels(state)
+        phase_fused_int8_kernels(state)
+        phase_quant_reference(state)
         phase_train_kernels(state)
         phase_train_reference(state)
         phase_train(state, args.train_layers)
         phase_train_gpt2(state)
         phase_serve(state, args.layers)
         phase_serve_fused(state)
+        phase_serve_quant(state)
         phase_profile(state)
         phase_times(state)
     except SmokeFailure as e:

@@ -27,9 +27,14 @@
 //             [gate | value] weight, y = bf16(bf16(gate_act(gate)) * value)
 //   fc2:      out = bf16(residual + bf16(y @ W2 (+ bias)))
 // The rounding points are the JAX bodies' and the port's plain versions'
-// (ops/cuda/fused_decode.py). Weights are bf16, or fp32 rounded to bf16 as
-// they load (kernel_gen.py _dequant_weight's plain branch); activations,
-// residual and outputs are bf16; sums are fp32.
+// (ops/cuda/fused_decode.py). Weights are bf16, fp32 rounded to bf16 as they
+// load (kernel_gen.py _dequant_weight's plain branch), or resident int8 with
+// one fp32 scale per output column, dequantized as they load exactly as
+// _dequant_weight (kernel_gen.py:1020-1029) and resolve_param do:
+// bf16(float(q) * scale[col]), then used as a float (the bf16 rounding of the
+// dequantized weight is part of the reference's arithmetic). Norm scales and
+// biases are bf16 or fp32 (the params dtype); activations, residual and
+// outputs are bf16; sums are fp32.
 //
 // Bound. At decode (R = 8) each kernel reads its weight matrix once and does
 // 2 R FLOPs per weight: 16 FLOPs per 2-byte weight, far below the card's
@@ -61,10 +66,19 @@
 // At R = 32 (a prefill chunk) the FMAs outweigh the bytes on CUDA cores (fc1:
 // 7.5 GFLOP a layer, ~1.6x its byte time at the fp32 FMA rate); tensor-core
 // products (mma/wgmma) and TMA are the next step, not this version's.
+// Resident int8 weights halve the bytes (llama3-8b fc1: 117.4 MB a layer and
+// 115 KB of scales) but keep the FMAs and add a multiply and a rounding per
+// weight, so at R = 8 the int8 kernels are bound by the instructions a
+// weight costs rather than by its bytes: chip_smoke.py's times phase on an
+// NVIDIA H100 80GB HBM3 at 700.00 W measured them at 1.05-1.19x the bf16
+// kernels, 3.9-6.7x their halved byte bound. Each thread loads its
+// columns' scales once, before the k loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -97,6 +111,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 32-bit words holding `bytes` bytes (a 2-byte load takes one word).
+constexpr int words_of(int bytes) { return bytes < 4 ? 1 : bytes / 4; }
+
 // The tile of one thread: RB rows x kCpl columns; the kGroups k rows that a
 // block has in flight at once, kUnroll of them per thread.
 template <int RB, typename TW>
@@ -104,7 +121,7 @@ struct Plan {
   static constexpr int kCpl = kSums / RB;               // 8 (RB 8) or 2 (RB 32)
   static constexpr int kLanes = kTile / kCpl;           // threads per k row
   static constexpr int kGroups = kThreads / kLanes;     // k rows in flight
-  static constexpr int kWords = kCpl * (int)sizeof(TW) / 4;
+  static constexpr int kWords = words_of(kCpl * (int)sizeof(TW));
   static constexpr int kUnroll = 32 / kWords;           // 32 words in flight
   static constexpr int kStep = kGroups * kUnroll;       // k rows a step
   static_assert(kChunk % kStep == 0, "a chunk holds whole steps");
@@ -114,11 +131,14 @@ struct Plan {
 // kCpl consecutive weights of one k row, as raw 32-bit words.
 template <typename TW, int CPL>
 struct WeightVec {
-  static constexpr int kWords = CPL * (int)sizeof(TW) / 4;
+  static constexpr int kBytes = CPL * (int)sizeof(TW);
+  static constexpr int kWords = words_of(kBytes);
   uint32_t w[kWords];
 
   __device__ __forceinline__ void load(const TW* p) {
-    if constexpr (kWords == 1) {
+    if constexpr (kBytes == 2) {
+      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+    } else if constexpr (kWords == 1) {
       w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
     } else if constexpr (kWords == 2) {
       const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
@@ -141,9 +161,16 @@ struct WeightVec {
     for (int i = 0; i < kWords; ++i) w[i] = 0u;
   }
 
-  // The weights in the compute dtype (bf16), as floats.
-  __device__ __forceinline__ void unpack(float (&f)[CPL]) const {
-    if constexpr (sizeof(TW) == 2) {
+  // The weights in the compute dtype (bf16), as floats; int8 weights
+  // dequantize with their columns' scales sc: bf16(float(q) * sc).
+  __device__ __forceinline__ void unpack(float (&f)[CPL], const float (&sc)[CPL]) const {
+    if constexpr (std::is_same<TW, int8_t>::value) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int8_t q = (int8_t)((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+        f[i] = round_bf16(__fmul_rn((float)q, sc[i]));
+      }
+    } else if constexpr (sizeof(TW) == 2) {
 #pragma unroll
       for (int i = 0; i < kWords; ++i) {
         f[2 * i] = __uint_as_float(w[i] << 16);
@@ -156,11 +183,11 @@ struct WeightVec {
   }
 };
 
-template <typename TW>
+template <typename TV>
 struct GemmArgs {
   const bf16* x;          // [rows, k] activations
-  const TW* norm_scale;   // [k] (kNormNone: unused)
-  const TW* norm_bias;    // [k] or null (layernorm bias)
+  const TV* norm_scale;   // [k] (kNormNone: unused)
+  const TV* norm_bias;    // [k] or null (layernorm bias)
   int norm;
   float eps;
   int rows, k;
@@ -175,12 +202,14 @@ size_t smem_bytes(int rb) {
 
 // Sums this block's [RB, kTile] tile of bf16(norm(x)) @ W over its k split.
 // Virtual columns 0..63 read weight segment w0, 64..127 segment w1, both
-// with row stride ldw. Returns true in the block that then holds the
+// with row stride ldw; int8 weights take their columns' scales from s0 and
+// s1 (null otherwise). Returns true in the block that then holds the
 // finished fp32 sums in `tile` (every block when ksplit == 1, else the last
 // of the tile's blocks to finish) and false in the others, which exit.
-template <int RB, typename TW>
-__device__ bool accumulate_tile(const GemmArgs<TW>& a, const TW* w0,
-                                const TW* w1, size_t ldw, float* smem) {
+template <int RB, typename TW, typename TV>
+__device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
+                                const TW* w1, const float* s0,
+                                const float* s1, size_t ldw, float* smem) {
   using P = Plan<RB, TW>;
   float* xs = smem;                  // [kChunk][RB] staged activations
   float* red = smem;                 // [kGroups][RB][kTile], after the k loop
@@ -239,6 +268,14 @@ __device__ bool accumulate_tile(const GemmArgs<TW>& a, const TW* w0,
   const int kg = tid / P::kLanes;
   const int vc = (tid % P::kLanes) * P::kCpl;
   const TW* wp = vc < kHalfTile ? w0 + vc : w1 + (vc - kHalfTile);
+  float sc[P::kCpl];
+#pragma unroll
+  for (int c = 0; c < P::kCpl; ++c) sc[c] = 1.f;
+  if constexpr (std::is_same<TW, int8_t>::value) {
+    const float* sp = vc < kHalfTile ? s0 + vc : s1 + (vc - kHalfTile);
+#pragma unroll
+    for (int c = 0; c < P::kCpl; ++c) sc[c] = sp[c];
+  }
 
   for (int c0 = k_begin; c0 < k_end; c0 += kChunk) {
     const int kc = min(kChunk, k_end - c0);
@@ -284,7 +321,7 @@ __device__ bool accumulate_tile(const GemmArgs<TW>& a, const TW* w0,
         // Rows past kc hold zeros in xs and zero weights: they add +0.
         const int kk = kb + kg + u * P::kGroups;
         float wf[P::kCpl];
-        wv[u].unpack(wf);
+        wv[u].unpack(wf, sc);
         const float4* xp = reinterpret_cast<const float4*>(xs + kk * RB);
 #pragma unroll
         for (int r4 = 0; r4 < RB / 4; ++r4) {
@@ -347,19 +384,26 @@ __device__ bool accumulate_tile(const GemmArgs<TW>& a, const TW* w0,
 // rope run in the block on the finished sums; the tile's K split (6 blocks a
 // tile at R 8 on llama3-8b) fills the card.
 // ---------------------------------------------------------------------------
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_qkv_kernel(GemmArgs<TW> a, const TW* wq, const TW* wkv,
-                 const TW* q_bias, const TW* kv_bias, const TW* q_ln,
-                 const TW* k_ln, const float* cos, const float* sin,
+fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
+                 const float* q_scale, const float* kv_scale,
+                 const TV* q_bias, const TV* kv_bias, const TV* q_ln,
+                 const TV* k_ln, const float* cos, const float* sin,
                  bf16* q_out, bf16* k_out, bf16* v_out, int nq_cols,
                  int nkv_cols, int head_dim, int rope_half) {
   extern __shared__ __align__(16) float smem[];
   const int col0 = blockIdx.x * kTile;
   const bool is_q = col0 < nq_cols;
   const TW* base = is_q ? wq + col0 : wkv + (col0 - nq_cols);
+  // The scales of the tile's columns: q's, or [K | V]'s by the same column.
+  const float* sbase = q_scale == nullptr ? nullptr
+      : is_q ? q_scale + col0 : kv_scale + (col0 - nq_cols);
   const size_t ldw = is_q ? nq_cols : 2 * nkv_cols;
-  if (!accumulate_tile<RB, TW>(a, base, base + kHalfTile, ldw, smem)) return;
+  if (!accumulate_tile<RB, TW, TV>(a, base, base + kHalfTile, sbase,
+                                   sbase == nullptr ? nullptr : sbase + kHalfTile,
+                                   ldw, smem))
+    return;
 
   float* tile = smem + kRegion;
   const int row0 = blockIdx.z * RB;
@@ -368,7 +412,7 @@ fused_qkv_kernel(GemmArgs<TW> a, const TW* wq, const TW* wkv,
   const int region = is_q ? 0 : (col0 - nq_cols < nkv_cols ? 1 : 2);
   const int bias0 = is_q ? col0 : col0 - nq_cols;
   const int out0 = region == 2 ? col0 - nq_cols - nkv_cols : bias0;
-  const TW* bias = is_q ? q_bias : kv_bias;
+  const TV* bias = is_q ? q_bias : kv_bias;
 
   for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
     float v = round_bf16(tile[i]);
@@ -379,7 +423,7 @@ fused_qkv_kernel(GemmArgs<TW> a, const TW* wq, const TW* wkv,
   __syncthreads();
 
   if (region < 2 && q_ln != nullptr) {   // QK-RMSnorm, one warp a (row, head)
-    const TW* scale = region == 0 ? q_ln : k_ln;
+    const TV* scale = region == 0 ? q_ln : k_ln;
     const int heads = kTile / head_dim;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     for (int t = warp; t < rows * heads; t += kWarps) {
@@ -417,9 +461,9 @@ fused_qkv_kernel(GemmArgs<TW> a, const TW* wq, const TW* wkv,
 
 // out = bf16(residual + bf16(bf16(sums) + bf16(bias))), the out-projection's
 // and fc2's epilogue (kernel_gen.py :1556-1558, :1829-1832).
-template <int RB, typename TW>
-__device__ void residual_epilogue(const GemmArgs<TW>& a, const float* tile,
-                                  const TW* bias, const bf16* residual,
+template <int RB, typename TV>
+__device__ void residual_epilogue(const GemmArgs<TV>& a, const float* tile,
+                                  const TV* bias, const bf16* residual,
                                   bf16* out, int n_cols) {
   const int col0 = blockIdx.x * kTile;
   const int row0 = blockIdx.z * RB;
@@ -440,14 +484,19 @@ __device__ void residual_epilogue(const GemmArgs<TW>& a, const float* tile,
 // each tile split along the nq*D contraction (8 blocks a tile at R 8 on
 // llama3-8b: 32 tiles alone would leave 100 of 132 SMs idle).
 // ---------------------------------------------------------------------------
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_out_proj_kernel(GemmArgs<TW> a, const TW* w, const TW* bias,
-                      const bf16* residual, bf16* out, int n_cols) {
+fused_out_proj_kernel(GemmArgs<TV> a, const TW* w, const float* w_scale,
+                      const TV* bias, const bf16* residual, bf16* out,
+                      int n_cols) {
   extern __shared__ __align__(16) float smem[];
   const TW* base = w + blockIdx.x * kTile;
-  if (!accumulate_tile<RB, TW>(a, base, base + kHalfTile, n_cols, smem)) return;
-  residual_epilogue<RB, TW>(a, smem + kRegion, bias, residual, out, n_cols);
+  const float* sbase = w_scale == nullptr ? nullptr : w_scale + blockIdx.x * kTile;
+  if (!accumulate_tile<RB, TW, TV>(a, base, base + kHalfTile, sbase,
+                                   sbase == nullptr ? nullptr : sbase + kHalfTile,
+                                   n_cols, smem))
+    return;
+  residual_epilogue<RB, TV>(a, smem + kRegion, bias, residual, out, n_cols);
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -465,18 +514,22 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // as the TPU kernel passes the weight twice (:1742-1746); plain kinds own
 // 128 columns. 224 tiles at llama3-8b already fill the card at R 8.
 // ---------------------------------------------------------------------------
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_mlp_fc1_kernel(GemmArgs<TW> a, const TW* w1, const TW* b1, bf16* y,
-                     int ffn, int act) {
+fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
+                     const TV* b1, bf16* y, int ffn, int act) {
   extern __shared__ __align__(16) float smem[];
   const bool gated = act == kSwiglu || act == kGeglu;
   const int width = gated ? kHalfTile : kTile;
   const int j0 = blockIdx.x * width;
   const TW* seg0 = w1 + j0;
   const TW* seg1 = gated ? w1 + ffn + j0 : seg0 + kHalfTile;
+  // The scales of the two segments' columns, indexed as the weights are.
+  const float* sc0 = w1_scale == nullptr ? nullptr : w1_scale + j0;
+  const float* sc1 = w1_scale == nullptr ? nullptr
+      : gated ? w1_scale + ffn + j0 : sc0 + kHalfTile;
   const size_t ldw = gated ? 2 * (size_t)ffn : (size_t)ffn;
-  if (!accumulate_tile<RB, TW>(a, seg0, seg1, ldw, smem)) return;
+  if (!accumulate_tile<RB, TW, TV>(a, seg0, seg1, sc0, sc1, ldw, smem)) return;
 
   const float* tile = smem + kRegion;
   const int row0 = blockIdx.z * RB;
@@ -515,14 +568,19 @@ fused_mlp_fc1_kernel(GemmArgs<TW> a, const TW* w1, const TW* b1, bf16* y,
 // a llama3-8b layer). y [R, ffn] @ W2 over 128-column tiles of H, each tile
 // split along the ffn contraction (9 blocks a tile at R 8 on llama3-8b).
 // ---------------------------------------------------------------------------
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_mlp_fc2_kernel(GemmArgs<TW> a, const TW* w2, const TW* b2,
-                     const bf16* residual, bf16* out, int n_cols) {
+fused_mlp_fc2_kernel(GemmArgs<TV> a, const TW* w2, const float* w2_scale,
+                     const TV* b2, const bf16* residual, bf16* out,
+                     int n_cols) {
   extern __shared__ __align__(16) float smem[];
   const TW* base = w2 + blockIdx.x * kTile;
-  if (!accumulate_tile<RB, TW>(a, base, base + kHalfTile, n_cols, smem)) return;
-  residual_epilogue<RB, TW>(a, smem + kRegion, b2, residual, out, n_cols);
+  const float* sbase = w2_scale == nullptr ? nullptr : w2_scale + blockIdx.x * kTile;
+  if (!accumulate_tile<RB, TW, TV>(a, base, base + kHalfTile, sbase,
+                                   sbase == nullptr ? nullptr : sbase + kHalfTile,
+                                   n_cols, smem))
+    return;
+  residual_epilogue<RB, TV>(a, smem + kRegion, b2, residual, out, n_cols);
 }
 
 // ---------------------------------------------------------------------------
@@ -535,6 +593,7 @@ struct Launch {
   int norm;
   float eps;
   const void *w, *wkv, *bias, *kv_bias;     // weights and biases
+  const void *w_scale, *kv_scale;           // int8 weights' column scales
   const void *q_ln, *k_ln, *cos, *sin;      // QKV only
   const void* residual;                     // out-projection and fc2
   void *out, *k_out, *v_out;                // outputs
@@ -546,12 +605,12 @@ struct Launch {
   void* stream;
 };
 
-template <typename TW>
-GemmArgs<TW> gemm_args(const Launch& l) {
-  GemmArgs<TW> a;
+template <typename TV>
+GemmArgs<TV> gemm_args(const Launch& l) {
+  GemmArgs<TV> a;
   a.x = static_cast<const bf16*>(l.x);
-  a.norm_scale = static_cast<const TW*>(l.norm_scale);
-  a.norm_bias = static_cast<const TW*>(l.norm_bias);
+  a.norm_scale = static_cast<const TV*>(l.norm_scale);
+  a.norm_bias = static_cast<const TV*>(l.norm_bias);
   a.norm = l.norm;
   a.eps = l.eps;
   a.rows = l.rows;
@@ -574,45 +633,50 @@ int launch(Kernel kernel, int tiles, const Launch& l, Args... args) {
   return (int)cudaGetLastError();
 }
 
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 int launch_qkv(const Launch& l) {
   const int nq_cols = l.n - 2 * l.nkv_cols;
   return launch<RB>(
-      fused_qkv_kernel<RB, TW>, l.n / kTile, l, gemm_args<TW>(l),
+      fused_qkv_kernel<RB, TW, TV>, l.n / kTile, l, gemm_args<TV>(l),
       static_cast<const TW*>(l.w), static_cast<const TW*>(l.wkv),
-      static_cast<const TW*>(l.bias), static_cast<const TW*>(l.kv_bias),
-      static_cast<const TW*>(l.q_ln), static_cast<const TW*>(l.k_ln),
+      static_cast<const float*>(l.w_scale),
+      static_cast<const float*>(l.kv_scale),
+      static_cast<const TV*>(l.bias), static_cast<const TV*>(l.kv_bias),
+      static_cast<const TV*>(l.q_ln), static_cast<const TV*>(l.k_ln),
       static_cast<const float*>(l.cos), static_cast<const float*>(l.sin),
       static_cast<bf16*>(l.out), static_cast<bf16*>(l.k_out),
       static_cast<bf16*>(l.v_out), nq_cols, l.nkv_cols, l.head_dim,
       l.rope_half);
 }
 
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 int launch_out_proj(const Launch& l) {
-  return launch<RB>(fused_out_proj_kernel<RB, TW>, l.n / kTile, l,
-                    gemm_args<TW>(l), static_cast<const TW*>(l.w),
-                    static_cast<const TW*>(l.bias),
+  return launch<RB>(fused_out_proj_kernel<RB, TW, TV>, l.n / kTile, l,
+                    gemm_args<TV>(l), static_cast<const TW*>(l.w),
+                    static_cast<const float*>(l.w_scale),
+                    static_cast<const TV*>(l.bias),
                     static_cast<const bf16*>(l.residual),
                     static_cast<bf16*>(l.out), l.n);
 }
 
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 int launch_fc2(const Launch& l) {
-  return launch<RB>(fused_mlp_fc2_kernel<RB, TW>, l.n / kTile, l,
-                    gemm_args<TW>(l), static_cast<const TW*>(l.w),
-                    static_cast<const TW*>(l.bias),
+  return launch<RB>(fused_mlp_fc2_kernel<RB, TW, TV>, l.n / kTile, l,
+                    gemm_args<TV>(l), static_cast<const TW*>(l.w),
+                    static_cast<const float*>(l.w_scale),
+                    static_cast<const TV*>(l.bias),
                     static_cast<const bf16*>(l.residual),
                     static_cast<bf16*>(l.out), l.n);
 }
 
-template <int RB, typename TW>
+template <int RB, typename TW, typename TV>
 int launch_fc1(const Launch& l) {
   const bool gated = l.act == kSwiglu || l.act == kGeglu;
-  return launch<RB>(fused_mlp_fc1_kernel<RB, TW>,
-                    l.n / (gated ? kHalfTile : kTile), l, gemm_args<TW>(l),
+  return launch<RB>(fused_mlp_fc1_kernel<RB, TW, TV>,
+                    l.n / (gated ? kHalfTile : kTile), l, gemm_args<TV>(l),
                     static_cast<const TW*>(l.w),
-                    static_cast<const TW*>(l.bias), static_cast<bf16*>(l.out),
+                    static_cast<const float*>(l.w_scale),
+                    static_cast<const TV*>(l.bias), static_cast<bf16*>(l.out),
                     l.n, l.act);
 }
 
@@ -621,28 +685,66 @@ bool bad_split(const Launch& l) {
          (l.ksplit > 1 && (l.ws == nullptr || l.counters == nullptr));
 }
 
+// Weight kinds: bf16 weights with bf16 norm scales and biases, fp32 with
+// fp32, and resident int8 weights (with their fp32 column scales) beside
+// bf16 or fp32 vectors.
+enum WeightKind { kWeightBf16 = 0, kWeightF32 = 1, kWeightInt8 = 2 };
+
+bool bad_kind(int weight_kind, int vector_f32, const void* w_scale) {
+  if (weight_kind == kWeightInt8) return w_scale == nullptr;
+  return weight_kind != (vector_f32 ? kWeightF32 : kWeightBf16) || w_scale != nullptr;
+}
+
+// One launcher template at the row block for the rows, over the four
+// (weight, vector) type pairs.
+template <template <int, typename, typename> class L>
+int dispatch(const Launch& l, int weight_kind, int vector_f32) {
+  const bool small = l.rows <= 8;
+  if (weight_kind == kWeightBf16)
+    return small ? L<8, bf16, bf16>::run(l) : L<32, bf16, bf16>::run(l);
+  if (weight_kind == kWeightF32)
+    return small ? L<8, float, float>::run(l) : L<32, float, float>::run(l);
+  if (vector_f32)
+    return small ? L<8, int8_t, float>::run(l) : L<32, int8_t, float>::run(l);
+  return small ? L<8, int8_t, bf16>::run(l) : L<32, int8_t, bf16>::run(l);
+}
+
+template <int RB, typename TW, typename TV>
+struct QkvL { static int run(const Launch& l) { return launch_qkv<RB, TW, TV>(l); } };
+template <int RB, typename TW, typename TV>
+struct OutProjL { static int run(const Launch& l) { return launch_out_proj<RB, TW, TV>(l); } };
+template <int RB, typename TW, typename TV>
+struct Fc1L { static int run(const Launch& l) { return launch_fc1<RB, TW, TV>(l); } };
+template <int RB, typename TW, typename TV>
+struct Fc2L { static int run(const Launch& l) { return launch_fc2<RB, TW, TV>(l); } };
+
 }  // namespace
 
 // Each launcher returns a cudaError_t code (0 = launched). Row blocks hold 8
 // rows when rows <= 8, else 32 (more rows: one grid.z chunk per 32). Every
 // pointer is a device pointer (biases, norm parameters and rope tables may be
-// null); weights and norm parameters are bf16 (weight_f32 == 0) or fp32;
-// activations and outputs bf16; cos/sin fp32 [rows, rope_half]. ws holds
-// tiles * row chunks * ksplit * RB * 128 floats and counters tiles * row
-// chunks zeroed ints when ksplit > 1 (the kernels leave them zero).
+// null). weight_kind: 0 bf16 weights, 1 fp32, 2 resident int8 with fp32
+// per-output-column scales (w_scale [n], kv_scale [2 nkv_cols]; null for the
+// other kinds); vector_f32: the norm parameters and biases are fp32 (else
+// bf16; kinds 0 and 1 take vectors of their own dtype). Activations and
+// outputs bf16; cos/sin fp32 [rows, rope_half]. ws holds tiles * row chunks
+// * ksplit * RB * 128 floats and counters tiles * row chunks zeroed ints
+// when ksplit > 1 (the kernels leave them zero).
 
 // x [rows, hidden]; wq [hidden, nq_cols]; wkv [hidden, 2 nkv_cols] ([K | V]);
 // q [rows, nq_cols], k and v [rows, nkv_cols].
 extern "C" int fused_qkv_launch(
     const void* x, const void* ln_scale, const void* ln_bias, int norm,
-    float eps, const void* wq, const void* wkv, const void* q_bias,
-    const void* kv_bias, const void* q_ln, const void* k_ln, const void* cos,
-    const void* sin, void* q, void* k, void* v, void* ws, void* counters,
-    int rows, int hidden, int nq_cols, int nkv_cols, int head_dim,
-    int rope_half, int weight_f32, int ksplit, void* stream) {
+    float eps, const void* wq, const void* wkv, const void* q_scale,
+    const void* kv_scale, const void* q_bias, const void* kv_bias,
+    const void* q_ln, const void* k_ln, const void* cos, const void* sin,
+    void* q, void* k, void* v, void* ws, void* counters, int rows, int hidden,
+    int nq_cols, int nkv_cols, int head_dim, int rope_half, int weight_kind,
+    int vector_f32, int ksplit, void* stream) {
   Launch l = {};
   l.x = x; l.norm_scale = ln_scale; l.norm_bias = ln_bias; l.norm = norm;
   l.eps = eps; l.w = wq; l.wkv = wkv; l.bias = q_bias; l.kv_bias = kv_bias;
+  l.w_scale = q_scale; l.kv_scale = kv_scale;
   l.q_ln = q_ln; l.k_ln = k_ln; l.cos = cos; l.sin = sin;
   l.out = q; l.k_out = k; l.v_out = v; l.ws = ws; l.counters = counters;
   l.rows = rows; l.k = hidden; l.n = nq_cols + 2 * nkv_cols;
@@ -651,50 +753,48 @@ extern "C" int fused_qkv_launch(
   if (bad_split(l) || norm < kNormRms || norm > kNormLayer ||
       (head_dim != 64 && head_dim != 128) || nq_cols % kTile != 0 ||
       nkv_cols % kTile != 0 || rope_half < 0 || 2 * rope_half > head_dim ||
-      (cos != nullptr && rope_half == 0) || (q_ln == nullptr) != (k_ln == nullptr))
+      (cos != nullptr && rope_half == 0) || (q_ln == nullptr) != (k_ln == nullptr) ||
+      bad_kind(weight_kind, vector_f32, q_scale) ||
+      (q_scale == nullptr) != (kv_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (weight_f32) return rows <= 8 ? launch_qkv<8, float>(l) : launch_qkv<32, float>(l);
-  return rows <= 8 ? launch_qkv<8, bf16>(l) : launch_qkv<32, bf16>(l);
+  return dispatch<QkvL>(l, weight_kind, vector_f32);
 }
 
 // fc2 == 0: the out-projection (x = attn_flat [rows, k], w = W_o [k, n]);
 // fc2 == 1: the MLP's second half (x = y [rows, k = ffn], w = W2 [k, n]).
 // residual and out [rows, n].
 extern "C" int fused_residual_gemm_launch(
-    int fc2, const void* x, const void* w, const void* bias,
-    const void* residual, void* out, void* ws, void* counters, int rows, int k,
-    int n, int weight_f32, int ksplit, void* stream) {
+    int fc2, const void* x, const void* w, const void* w_scale,
+    const void* bias, const void* residual, void* out, void* ws,
+    void* counters, int rows, int k, int n, int weight_kind, int vector_f32,
+    int ksplit, void* stream) {
   Launch l = {};
-  l.x = x; l.w = w; l.bias = bias; l.residual = residual; l.out = out;
-  l.ws = ws; l.counters = counters; l.rows = rows; l.k = k; l.n = n;
-  l.ksplit = ksplit; l.stream = stream; l.norm = kNormNone;
-  if (bad_split(l) || n % kTile != 0 || n < kTile)
+  l.x = x; l.w = w; l.w_scale = w_scale; l.bias = bias; l.residual = residual;
+  l.out = out; l.ws = ws; l.counters = counters; l.rows = rows; l.k = k;
+  l.n = n; l.ksplit = ksplit; l.stream = stream; l.norm = kNormNone;
+  if (bad_split(l) || n % kTile != 0 || n < kTile ||
+      bad_kind(weight_kind, vector_f32, w_scale))
     return (int)cudaErrorInvalidValue;
-  if (fc2) {
-    if (weight_f32) return rows <= 8 ? launch_fc2<8, float>(l) : launch_fc2<32, float>(l);
-    return rows <= 8 ? launch_fc2<8, bf16>(l) : launch_fc2<32, bf16>(l);
-  }
-  if (weight_f32) return rows <= 8 ? launch_out_proj<8, float>(l)
-                            : launch_out_proj<32, float>(l);
-  return rows <= 8 ? launch_out_proj<8, bf16>(l) : launch_out_proj<32, bf16>(l);
+  if (fc2) return dispatch<Fc2L>(l, weight_kind, vector_f32);
+  return dispatch<OutProjL>(l, weight_kind, vector_f32);
 }
 
 // x [rows, hidden]; w1 [hidden, ffn] or, gated, [hidden, 2 ffn] ([gate |
-// value]); y [rows, ffn].
+// value]), w1_scale its column scales; y [rows, ffn].
 extern "C" int fused_mlp_fc1_launch(
     const void* x, const void* ln_scale, const void* ln_bias, int norm,
-    float eps, const void* w1, const void* b1, void* y, void* ws,
-    void* counters, int rows, int hidden, int ffn, int act, int weight_f32,
-    int ksplit, void* stream) {
+    float eps, const void* w1, const void* w1_scale, const void* b1, void* y,
+    void* ws, void* counters, int rows, int hidden, int ffn, int act,
+    int weight_kind, int vector_f32, int ksplit, void* stream) {
   Launch l = {};
   l.x = x; l.norm_scale = ln_scale; l.norm_bias = ln_bias; l.norm = norm;
-  l.eps = eps; l.w = w1; l.bias = b1; l.out = y; l.ws = ws;
-  l.counters = counters; l.rows = rows; l.k = hidden; l.n = ffn;
+  l.eps = eps; l.w = w1; l.w_scale = w1_scale; l.bias = b1; l.out = y;
+  l.ws = ws; l.counters = counters; l.rows = rows; l.k = hidden; l.n = ffn;
   l.act = act; l.ksplit = ksplit; l.stream = stream;
   const bool gated = act == kSwiglu || act == kGeglu;
   if (bad_split(l) || norm < kNormRms || norm > kNormLayer || act < kSwiglu ||
-      act > kSquaredRelu || ffn < kTile || ffn % (gated ? kHalfTile : kTile) != 0)
+      act > kSquaredRelu || ffn < kTile || ffn % (gated ? kHalfTile : kTile) != 0 ||
+      bad_kind(weight_kind, vector_f32, w1_scale))
     return (int)cudaErrorInvalidValue;
-  if (weight_f32) return rows <= 8 ? launch_fc1<8, float>(l) : launch_fc1<32, float>(l);
-  return rows <= 8 ? launch_fc1<8, bf16>(l) : launch_fc1<32, bf16>(l);
+  return dispatch<Fc1L>(l, weight_kind, vector_f32);
 }

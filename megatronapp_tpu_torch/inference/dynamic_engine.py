@@ -12,6 +12,11 @@ hand-written paged-attention kernel (ops/cuda/paged_attention.py).
 ``fused_decode=True`` (``--megakernel-decode``) runs both steps' layers as
 the fused kernels instead (ops/fused_decode.py) when
 ``megakernel_ineligible_reason`` allows it, decided once at construction.
+``kv_cache_dtype`` int8 or fp8 stores the pool quantized with per-(row,
+kv-head) scale pools (the quantized paged kernel dequantizes as it reads);
+params whose matmul kernels are resident int8 leaves
+(inference/quantization.py) run as they are, both steps dequantizing at
+matmul entry or inside the fused kernels.
 
 Where the JAX engine jits each step and donates the pools, this engine
 runs eagerly on the card and writes the pools IN PLACE. All per-step
@@ -27,8 +32,8 @@ step), so a request's stream is reproducible and independent of what else
 is in the batch.
 
 Not ported yet (each raises at construction): the dense slot cache,
-speculative decoding, LoRA adapters, the host spill tier, tensor-parallel
-meshes and quantized KV pools.
+speculative decoding, LoRA adapters, the host spill tier and
+tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -47,7 +52,10 @@ from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.inference.engine import (
     SamplingParams, mask_padded_vocab,
 )
-from megatronapp_tpu_torch.inference.paged_cache import PagedKVCache, cdiv
+from megatronapp_tpu_torch.inference.paged_cache import (
+    PagedKVCache, cdiv, validate_kv_cache_dtype,
+)
+from megatronapp_tpu_torch.inference.quantization import resident_nbytes
 from megatronapp_tpu_torch.models.gpt import (
     gpt_embed, gpt_head, gpt_rope_tables,
 )
@@ -131,17 +139,20 @@ class Request:
 
 def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
                 page_table, starts, chunk_counts, write_index,
-                fused: bool = False):
+                fused: bool = False, scales=None):
     """Walk the per-layer modules (the JAX step's ``lax.scan`` over the
-    stacked block) with layer l reading and writing pool slice l; `fused`
-    runs each layer as the fused kernels."""
+    stacked block) with layer l reading and writing pool slice l (and
+    scale-pool slice l of a quantized pool, as the JAX scan carries them);
+    `fused` runs each layer as the fused kernels."""
     pk, pv = pages
     for lid, layer_p in enumerate(params["layers"]):
         (h, _), _ = layer_forward(
             layer_p, h, cfg, cos, sin, kv_cache=(pk[lid], pv[lid]),
             cache_positions=starts, page_table=page_table,
             chunk_counts=chunk_counts, write_index=write_index,
-            fused_decode=fused)
+            fused_decode=fused,
+            kv_scales=None if scales is None else (scales[0][lid],
+                                                   scales[1][lid]))
     return h
 
 
@@ -155,7 +166,7 @@ def _rope_rows(positions, rope_tables):
 
 def _paged_decode_step(params, tokens, pages, page_table, lengths,
                        cfg: TransformerConfig, write_index, rope_tables,
-                       fused: bool = False):
+                       fused: bool = False, scales=None):
     """One-token decode for every slot against the paged block pool.
 
     tokens [B, 1]; pages (k [L, NB, bs, Hkv, D], v like k), written in
@@ -164,27 +175,30 @@ def _paged_decode_step(params, tokens, pages, page_table, lengths,
     mask: inactive rows are not in it, so their writes are dropped and
     their outputs are garbage). rope_tables: ``gpt_rope_tables`` over
     [0, max_seq_len). fused: the layers as the fused kernels
-    (fused_layer_decode). Returns (last_logits [B, V] fp32, pages)."""
+    (fused_layer_decode). scales: the (k, v) scale pools [L, NB, bs, Hkv]
+    of an int8/fp8 pool, written in place with it. Returns (last_logits
+    [B, V] fp32, pages)."""
     h = gpt_embed(params, tokens, cfg, position_ids=lengths[:, None])
     cos, sin = _rope_rows(lengths, rope_tables)
     if cos is not None:
         cos, sin = cos[:, None], sin[:, None]            # [B, 1, half]
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, lengths,
-                    None, write_index, fused)
+                    None, write_index, fused, scales)
     return gpt_head(params, h, cfg)[:, -1], pages
 
 
 def _paged_multiquery_step(params, tokens, pages, page_table, starts,
                            q_lens, cfg: TransformerConfig, max_seq_len: int,
-                           write_index, rope_tables, fused: bool = False):
+                           write_index, rope_tables, fused: bool = False,
+                           scales=None):
     """Ragged multi-token step against the paged pool (chunked prefill).
 
     tokens [B, S]; starts [B] per-row append positions; q_lens [B] valid
     token counts in [1, S] (rows past a row's count are padding whose
     outputs are garbage). Row b's token i lands at position starts[b] + i
     and attends the paged context plus the new tail causally. write_index
-    and rope_tables as for ``_paged_decode_step``; fused: the layers as the
-    fused kernels (fused_layer_multiquery). Returns (logits [B, S, V],
+    rope_tables and scales as for ``_paged_decode_step``; fused: the layers
+    as the fused kernels (fused_layer_multiquery). Returns (logits [B, S, V],
     hidden [B, S, H] pre-head, pages)."""
     s = tokens.shape[1]
     positions = starts[:, None] + torch.arange(
@@ -193,7 +207,7 @@ def _paged_multiquery_step(params, tokens, pages, page_table, starts,
     h = gpt_embed(params, tokens, cfg, position_ids=positions)
     cos, sin = _rope_rows(positions, rope_tables)
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, starts,
-                    q_lens, write_index, fused)
+                    q_lens, write_index, fused, scales)
     return gpt_head(params, h, cfg), h, pages
 
 
@@ -269,6 +283,9 @@ class DynamicInferenceEngine:
     card; a host without one raises — pass device="cpu" to run the plain
     versions of the kernels on the CPU (the tests do).
 
+    kv_cache_dtype: the pool's storage ("bf16": the compute dtype; "int8"
+    or "fp8": quantized pages with fp32 scale pools).
+
     fused_decode: run the decode and chunked-prefill steps' layers as the
     fused kernels. Eligibility is decided once here, as the JAX engine
     decides it (rows planned at max(max_batch, prefill_chunk)): when
@@ -297,8 +314,9 @@ class DynamicInferenceEngine:
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(asked)} — the port's first "
-                "slice serves the paged engine only (see ROADMAP.md)")
+                f"not ported yet: {', '.join(asked)} — the port serves the "
+                "paged engine only (see ROADMAP.md)")
+        validate_kv_cache_dtype(kv_cache_dtype, paged=paged)
         self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.cfg = cfg
@@ -575,7 +593,8 @@ class DynamicInferenceEngine:
                 self.params, self._to_dev(chunk), pool.pages, table,
                 self._to_dev(starts), self._to_dev(counts), self.cfg,
                 self.max_seq_len, tuple(self._to_dev(t) for t in index),
-                self.rope_tables, fused=self.megakernel)
+                self.rope_tables, fused=self.megakernel,
+                scales=pool.scales)
             self.prefill_chunks += 1
             pos += count
         # Register the prompt's full blocks so concurrent same-prefix
@@ -733,7 +752,7 @@ class DynamicInferenceEngine:
                 self.pool.pages, self._to_dev(table_np),
                 self._to_dev(self.lengths), self.cfg,
                 tuple(self._to_dev(t) for t in index), self.rope_tables,
-                fused=self.megakernel)
+                fused=self.megakernel, scales=self.pool.scales)
             # The decode wrote each active row's kv at lengths[slot].
             self.lengths += active_np.astype(np.int32)
             logits = mask_padded_vocab(logits, self.cfg)
@@ -769,8 +788,9 @@ class DynamicInferenceEngine:
     # ---- observability ----------------------------------------------------
     def stats_snapshot(self) -> Dict:
         """JSON-ready serving stats (GET /stats): batch occupancy, pool
-        occupancy, prefix-cache hit rate, whether the fused step runs and
-        the kernels' launch counts."""
+        occupancy and storage dtype, prefix-cache hit rate, the params'
+        device bytes, whether the fused step runs and the kernels' launch
+        counts."""
         from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
         from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
         pool = self.pool
@@ -788,6 +808,7 @@ class DynamicInferenceEngine:
             "decode_steps": self.decode_steps,
             "prefill_chunks": self.prefill_chunks,
             "megakernel": self.megakernel,
+            "param_bytes": resident_nbytes(self.params),
             "kernel_launches": {"paged_attention": dict(pa.launches),
                                 "fused_decode": dict(fd.launches)},
             "pool": {

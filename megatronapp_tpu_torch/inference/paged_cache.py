@@ -1,8 +1,10 @@
 """Paged KV-cache block pool: allocator, prefix cache, preemption support
-(the JAX package's inference/paged_cache.py, for unquantized pools).
+(the JAX package's inference/paged_cache.py).
 
-KV storage is a shared pool [L, num_blocks, block_size, Hkv, D] in the
-compute dtype, on the engine's device; each slot owns an ordered page
+KV storage is a shared pool [L, num_blocks, block_size, Hkv, D] on the
+engine's device, in the compute dtype or quantized (``kv_cache_dtype``
+int8 or fp8 e4m3) with per-(row, kv-head) fp32 scale pools [L, num_blocks,
+block_size, Hkv] beside it (``scales``); each slot owns an ordered page
 table row [max_blocks_per_seq] int32 kept on the host. Capacity is
 admitted per block.
 
@@ -14,9 +16,9 @@ logits, so its final block is copy-on-write: the shared block's rows are
 copied into a private block and only the diverging row is recomputed.
 
 All bookkeeping is host-side (numpy/python); the page data is touched
-only by the engine's in-place scatters and the CoW block copy here.
-Quantized pools, slot export/import, the host spill tier and the fleet
-prefix store come with later slices.
+only by the engine's in-place scatters and the CoW block copy here. Slot
+export/import, the host spill tier and the fleet prefix store come with
+later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ import numpy as np
 import torch
 
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.ops.cuda.paged_attention import (
+    QUANT_DTYPES, storage_view,
+)
 from megatronapp_tpu_torch.utils import chaos
 from megatronapp_tpu_torch.utils import metrics as telemetry
 
@@ -55,13 +60,60 @@ def prefix_block_keys(tokens, block_size: int, limit: int) -> List[bytes]:
     return keys
 
 
-def validate_kv_cache_dtype(name: str) -> str:
-    if name != "bf16":
-        raise NotImplementedError(
-            f"kv_cache_dtype={name!r}: quantized (int8/fp8) KV pools are not "
-            "ported yet; the serving slice stores unquantized pools in the "
-            "compute dtype ('bf16')")
-    return name
+@dataclasses.dataclass(frozen=True)
+class KvDtypeSpec:
+    """One KV-cache storage dtype: the pool, the engine and the server's
+    --kv-cache-dtype choices and help all derive from KV_CACHE_DTYPES.
+    Quantized entries take their page dtype and range bound from the
+    kernel's registry (ops/cuda/paged_attention.QUANT_DTYPES)."""
+    name: str
+    page_dtype: Optional[torch.dtype]   # None: the compute dtype
+    quantized: bool                     # per-(row, kv-head) fp32 scale pools
+    qmax: Optional[float]               # symmetric quantization range bound
+    help: str                           # one-line CLI help fragment
+
+
+def _quantized_spec(name: str, help_text: str) -> KvDtypeSpec:
+    dtype, qmax = QUANT_DTYPES[name]
+    return KvDtypeSpec(name, dtype, True, qmax, help_text)
+
+
+KV_CACHE_DTYPES = {
+    "bf16": KvDtypeSpec("bf16", None, False, None,
+                        "compute-dtype pages (the baseline)"),
+    "int8": _quantized_spec(
+        "int8",
+        "int8 pages + per-(row, kv-head) fp32 scales, rounded "
+        "symmetric [-127, 127], dequantized in the kernel as each page "
+        "is read"),
+    "fp8": _quantized_spec(
+        "fp8",
+        "fp8 (e4m3) pages + per-(row, kv-head) fp32 scales — same "
+        "bytes as int8 but saturating float rounding (no integer "
+        "rounding step), dequantized in the kernel as each page is read"),
+}
+
+
+def kv_cache_dtype_help() -> str:
+    """CLI help text for --kv-cache-dtype, derived from the registry."""
+    return "; ".join(f"{n}: {s.help}" for n, s in KV_CACHE_DTYPES.items())
+
+
+def validate_kv_cache_dtype(name: str, *, paged: bool = True) -> KvDtypeSpec:
+    """kv_cache_dtype validation shared by the pool, the engine and the
+    server (the JAX package's messages; ValueError)."""
+    spec = KV_CACHE_DTYPES.get(name)
+    if spec is None:
+        raise ValueError(
+            f"kv_cache_dtype must be one of "
+            f"{sorted(KV_CACHE_DTYPES)}, got {name!r}")
+    if spec.quantized and not paged:
+        raise ValueError(
+            f"kv_cache_dtype={spec.name} requires the paged backend "
+            "(the per-block quantization scales live alongside the "
+            "block pool; the dense slot cache has no block structure) "
+            "— pass paged=True / --paged-kv-cache")
+    return spec
 
 
 @dataclasses.dataclass
@@ -83,7 +135,9 @@ class PagedKVCache:
             raise NotImplementedError(
                 "MLA latent pools are not ported yet (the serving-extension "
                 "slice)")
-        self.kv_cache_dtype = validate_kv_cache_dtype(kv_cache_dtype)
+        spec = validate_kv_cache_dtype(kv_cache_dtype)
+        self.kv_cache_dtype = kv_cache_dtype
+        self.quantized = spec.quantized
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
@@ -97,9 +151,16 @@ class PagedKVCache:
 
         shape = (cfg.num_layers, self.num_blocks, block_size,
                  cfg.num_query_groups, cfg.head_dim)
+        dt = spec.page_dtype if spec.quantized else cfg.compute_dtype
         self.pages: Tuple[torch.Tensor, ...] = tuple(
-            torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
-            for _ in range(2))
+            torch.zeros(shape, dtype=dt, device=device) for _ in range(2))
+        # scales: per-(row, kv-head) fp32 quantization scales of quantized
+        # pools (None for compute-dtype pools), written and copied with
+        # the rows they scale (the same leading [L, NB, bs] dims).
+        self.scales: Optional[Tuple[torch.Tensor, ...]] = None
+        if spec.quantized:
+            self.scales = tuple(torch.ones(shape[:-1], dtype=torch.float32,
+                                           device=device) for _ in range(2))
 
         self.page_table = np.zeros((self.num_slots, self.max_blocks_per_seq),
                                    np.int32)
@@ -115,10 +176,14 @@ class PagedKVCache:
                       "peak_blocks_in_use": 0}
 
     # ---- sizing ----------------------------------------------------------
+    def _arrays(self) -> Tuple[torch.Tensor, ...]:
+        return self.pages + (self.scales or ())
+
     @property
     def bytes_total(self) -> int:
-        """Resident pool bytes, read off the pool tensors."""
-        return sum(p.numel() * p.element_size() for p in self.pages)
+        """Resident pool bytes, read off the pool tensors: the pages in
+        their storage dtype plus the fp32 scale pools of quantized ones."""
+        return sum(p.numel() * p.element_size() for p in self._arrays())
 
     @property
     def bytes_per_block(self) -> int:
@@ -175,7 +240,11 @@ class PagedKVCache:
     def _copy_block(self, src: int, dst: int):
         # Chaos site fires before the copy: pages/stats untouched.
         chaos.fire("paged-cow")
-        for p in self.pages:             # in place, every layer at once
+        # In place, every layer at once; rows quantize on their own, so
+        # scale rows are copied verbatim beside their pages. fp8 pages
+        # copy as bytes.
+        for p in self._arrays():
+            p = storage_view(p)
             p[:, dst].copy_(p[:, src])
         self.stats["cow_copies"] += 1
         telemetry.inc("paged_cow_copies")

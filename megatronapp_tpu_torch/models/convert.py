@@ -6,6 +6,12 @@ imports JAX) and returns the port's ``ParamTree``. The stacked ``block``
 leaves [L, ...] are unstacked into ``layers.i``; every other leaf keeps
 its name and its [in, out] layout, so nothing is transposed. A leaf the
 converter does not know raises.
+
+Resident int8 leaves of a quantized JAX tree (its
+inference/quantization.residentize_params: ``{"qint8": int8 [L, K, N],
+"qscale": fp32 [L, 1, N]}`` under one of the RESIDENT_KERNELS) become the
+port's resident leaves, one per layer, with their dtypes kept: int8 and
+fp32, never cast to params_dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +23,9 @@ import torch
 from torch import nn
 
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.inference.quantization import (
+    RESIDENT_KERNELS, is_resident_leaf,
+)
 from megatronapp_tpu_torch.utils.params import ParamTree
 
 _TOP = {"final_ln_scale", "final_ln_bias", "output"}
@@ -38,9 +47,23 @@ def _tensor(a, cfg: TransformerConfig, device) -> torch.Tensor:
 
 def _leaves(sub: Mapping, allowed: set, where: str) -> Dict[str, object]:
     for name, val in sub.items():
-        if name not in allowed or isinstance(val, Mapping):
+        if name not in allowed or (isinstance(val, Mapping) and not (
+                name in RESIDENT_KERNELS and is_resident_leaf(dict(val)))):
             raise KeyError(f"params_from_jax: unknown leaf {where}{name}")
     return dict(sub)
+
+
+def _layer_leaf(v, i: int, cfg: TransformerConfig, device):
+    """Layer i of a stacked leaf: a tensor in params_dtype, or a resident
+    leaf whose int8 and fp32 slices keep their dtypes."""
+    if isinstance(v, Mapping):
+        return ParamTree({"qint8": torch.tensor(
+                              np.asarray(v["qint8"])[i], dtype=torch.int8,
+                              device=device),
+                          "qscale": torch.tensor(
+                              np.asarray(v["qscale"])[i],
+                              dtype=torch.float32, device=device)})
+    return _tensor(np.asarray(v)[i], cfg, device)
 
 
 def params_from_jax(tree: Mapping, cfg: TransformerConfig,
@@ -69,9 +92,15 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
                          f"{cfg.num_layers}")
 
     def layer(i: int) -> ParamTree:
-        children = {n: ParamTree({k: _tensor(np.asarray(v)[i], cfg, device)
-                                  for k, v in block[n].items()})
-                    for n in subs}
+        children = {}
+        for n in subs:
+            leaves = {k: _layer_leaf(v, i, cfg, device)
+                      for k, v in block[n].items()}
+            children[n] = ParamTree(
+                {k: v for k, v in leaves.items()
+                 if not isinstance(v, nn.Module)},
+                **{k: v for k, v in leaves.items()
+                   if isinstance(v, nn.Module)})
         return ParamTree({k: _tensor(np.asarray(v)[i], cfg, device)
                           for k, v in block.items() if k in _LAYER},
                          **children)

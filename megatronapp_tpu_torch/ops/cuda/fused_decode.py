@@ -20,14 +20,17 @@ B·S flattened ragged rows).
 
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises: there is no fallback.
-The kernels take bf16 activations and residual, bf16 compute, and bf16
-weights or fp32 weights rounded to bf16 as they load; ``kernel_limits``
-names what else they refuse (the engine checks it once, through
+The kernels take bf16 activations and residual, bf16 compute, and a
+weight kind per launch: bf16 weights, fp32 weights rounded to bf16 as they
+load, or resident int8 leaves (inference/quantization.py: int8 [K, N] and
+fp32 scales [1, N]) dequantized as they load, bf16(float(q) × scale), as
+_dequant_weight and resolve_param do; ``kernel_limits`` names what else
+they refuse (the engine checks it once, through
 ``ops.fused_decode.megakernel_ineligible_reason``). The plain versions
 follow the JAX bodies' rounding points op for op in any dtype: norm then
-cast to the compute dtype, ``xn @ w`` and + bias in the compute dtype,
-QK-RMSnorm, rope in fp32 cast back, the activation on the compute dtype,
-``r + out.to(r.dtype)``.
+cast to the compute dtype, ``xn @ resolve_param(w, cdt)`` and + bias in
+the compute dtype, QK-RMSnorm, rope in fp32 cast back, the activation on
+the compute dtype, ``r + out.to(r.dtype)``.
 
 K-split launches (ksplit > 1) add their partial tiles through a workspace
 the wrapper allocates and a per-device counter buffer the kernels leave at
@@ -37,27 +40,35 @@ zero; kernels sharing it run on one stream, as the engine's do.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from megatronapp_tpu_torch.config.transformer_config import (
     ActivationKind, NormKind, TransformerConfig,
 )
+from megatronapp_tpu_torch.inference.quantization import (
+    RESIDENT_KERNELS, is_resident_leaf, resolve_param,
+)
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.activations import apply_activation, is_gated
 from megatronapp_tpu_torch.ops.cuda import build as kbuild
 from megatronapp_tpu_torch.ops.normalization import apply_norm, rms_norm
 
-# Launches of each kernel. Incremented only where the wrappers launch
-# them (never by the plain versions).
-launches: Dict[str, int] = {"qkv": 0, "out_proj": 0, "mlp_fc1": 0,
-                            "mlp_fc2": 0}
+KERNELS = ("qkv", "out_proj", "mlp_fc1", "mlp_fc2")
+# Launches of each kernel, by kernel and, for resident int8 weights, weight
+# kind ("qkv_int8", ...). Incremented only where the wrappers launch them
+# (never by the plain versions).
+launches: Dict[str, int] = {f"{k}{sfx}": 0 for sfx in ("", "_int8")
+                            for k in KERNELS}
 
 SOURCE = kbuild.source("fused_decode.cu")
 TILE = 128                     # output columns a block
 HEAD_DIMS = (64, 128)
-WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
+# The weight kinds the kernels take (torch.int8: a resident leaf) and the
+# code each launcher reads; norm scales and biases are bf16 or fp32.
+WEIGHT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+VECTOR_DTYPES = (torch.bfloat16, torch.float32)
 MIN_SPLIT_K = 256              # contraction rows a K-split block owns at least
 MAX_SPLIT_K = 16
 _NORM = {NormKind.rmsnorm: 1, NormKind.layernorm: 2}
@@ -66,9 +77,9 @@ _ACT = {ActivationKind.swiglu: 0, ActivationKind.geglu: 1,
         ActivationKind.squared_relu: 4}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "fused_qkv_launch": [_P, _P, _P, _I, _F] + [_P] * 13 + [_I] * 8 + [_P],
-    "fused_residual_gemm_launch": [_I] + [_P] * 7 + [_I] * 5 + [_P],
-    "fused_mlp_fc1_launch": [_P, _P, _P, _I, _F] + [_P] * 5 + [_I] * 6
+    "fused_qkv_launch": [_P, _P, _P, _I, _F] + [_P] * 15 + [_I] * 9 + [_P],
+    "fused_residual_gemm_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
+    "fused_mlp_fc1_launch": [_P, _P, _P, _I, _F] + [_P] * 6 + [_I] * 7
                             + [_P],
 }
 _counters: Dict[torch.device, torch.Tensor] = {}
@@ -92,8 +103,8 @@ def fused_qkv_plain(x, p, cfg: TransformerConfig, cos=None, sin=None):
     nq, nkv, d = cfg.num_attention_heads, cfg.num_query_groups, cfg.head_dim
     xn = apply_norm(cfg.normalization, x, p["ln1_scale"], p.get("ln1_bias"),
                     eps).to(cdt)
-    q = xn @ a["q_kernel"].to(cdt)
-    kv = xn @ a["kv_kernel"].to(cdt)
+    q = xn @ resolve_param(a["q_kernel"], cdt)
+    kv = xn @ resolve_param(a["kv_kernel"], cdt)
     if "q_bias" in a:
         q = q + a["q_bias"].to(cdt)
         kv = kv + a["kv_bias"].to(cdt)
@@ -112,7 +123,7 @@ def fused_out_proj_plain(attn_flat, p, cfg: TransformerConfig, residual):
     """Plain version of ``fused_out_proj``: attn_flat [R, nq·D] (compute
     dtype) → residual + (attn_flat @ W_o + bias) in the residual dtype."""
     a, cdt = p["attention"], cfg.compute_dtype
-    out = attn_flat @ a["out_kernel"].to(cdt)
+    out = attn_flat @ resolve_param(a["out_kernel"], cdt)
     if "out_bias" in a:
         out = out + a["out_bias"].to(cdt)
     return residual + out.to(residual.dtype)
@@ -124,7 +135,7 @@ def fused_mlp_fc1_plain(x, p, cfg: TransformerConfig):
     m, cdt = p["mlp"], cfg.compute_dtype
     xn = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
                     cfg.layernorm_epsilon).to(cdt)
-    y = xn @ m["fc1_kernel"].to(cdt)
+    y = xn @ resolve_param(m["fc1_kernel"], cdt)
     if "fc1_bias" in m:
         y = y + m["fc1_bias"].to(cdt)
     if is_gated(cfg.activation):
@@ -137,7 +148,7 @@ def fused_mlp_fc2_plain(y, x, p, cfg: TransformerConfig):
     """Plain version of ``fused_mlp_fc2``: y [R, ffn] @ W2 + bias + the
     residual x [R, H] → [R, H] in the residual dtype."""
     m, cdt = p["mlp"], cfg.compute_dtype
-    out = y @ m["fc2_kernel"].to(cdt)
+    out = y @ resolve_param(m["fc2_kernel"], cdt)
     if "fc2_bias" in m:
         out = out + m["fc2_bias"].to(cdt)
     return x + out.to(x.dtype)
@@ -148,20 +159,15 @@ def fused_mlp_fc2_plain(y, x, p, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 
-def kernel_limits(cfg: TransformerConfig,
-                  weight_dtype: Optional[torch.dtype] = None
-                  ) -> Optional[str]:
-    """What of `cfg` the CUDA kernels do not take, by name (None: they take
-    it). weight_dtype defaults to cfg.params_dtype."""
-    weight_dtype = weight_dtype or cfg.params_dtype
+def weight_kind(leaf) -> torch.dtype:
+    """The kind of a weight leaf as the kernels read it: torch.int8 for a
+    resident leaf, else its dtype."""
+    return torch.int8 if is_resident_leaf(leaf) else leaf.dtype
+
+
+def _cfg_limits(cfg: TransformerConfig) -> Optional[str]:
+    """The compute dtype, head_dim and alignment limits of the kernels."""
     h, ffn, d = cfg.hidden_size, cfg.ffn_hidden_size, cfg.head_dim
-    if cfg.compute_dtype != torch.bfloat16:
-        return (f"compute dtype {cfg.compute_dtype}: the fused CUDA kernels "
-                "compute in bf16, and the residual stream is in the compute "
-                "dtype")
-    if weight_dtype not in WEIGHT_DTYPES:
-        return (f"weight dtype {weight_dtype}: the fused CUDA kernels take "
-                "bf16 or fp32 weights")
     if d not in HEAD_DIMS:
         return f"head_dim {d}: the fused CUDA kernels take {HEAD_DIMS}"
     cols = {"hidden_size": h, "ffn_hidden_size": ffn,
@@ -174,17 +180,63 @@ def kernel_limits(cfg: TransformerConfig,
     return None
 
 
+def kernel_limits(cfg: TransformerConfig, layer=None) -> Optional[str]:
+    """What of `cfg` the CUDA kernels do not take, by name (None: they take
+    it). `layer`: one layer's params, whose weight kinds are checked (by
+    default every weight is in cfg.params_dtype)."""
+    if cfg.compute_dtype != torch.bfloat16:
+        return (f"compute dtype {cfg.compute_dtype}: the fused CUDA kernels "
+                "compute in bf16, and the residual stream is in the compute "
+                "dtype")
+    vec = cfg.params_dtype
+    kinds = dict.fromkeys(RESIDENT_KERNELS, vec)
+    if layer is not None:
+        vec = layer["ln1_scale"].dtype
+        kinds = {k: weight_kind(layer["mlp" if k.startswith("fc")
+                                      else "attention"][k])
+                 for k in RESIDENT_KERNELS}
+    if vec not in VECTOR_DTYPES:
+        return (f"weight dtype {vec}: the fused CUDA kernels take bf16 or "
+                "fp32 weights (or resident int8 beside bf16 or fp32 norm "
+                "scales and biases)")
+    for name, kind in kinds.items():
+        if kind != torch.int8 and kind != vec:
+            return (f"weight dtype {kind} of {name}: the fused CUDA kernels "
+                    f"take the params dtype {vec} or resident int8")
+    if kinds["q_kernel"] != kinds["kv_kernel"]:
+        return (f"mixed QKV weights: q_kernel {kinds['q_kernel']}, "
+                f"kv_kernel {kinds['kv_kernel']} (the fused QKV kernel "
+                "reads both as one weight kind: both resident int8 or "
+                "neither)")
+    return _cfg_limits(cfg)
+
+
+def _tensors(name: str, leaf):
+    """(name, tensor) pairs of a weight or vector leaf (a resident leaf
+    holds two)."""
+    if is_resident_leaf(leaf):
+        return [(f"{name}.qint8", leaf["qint8"]),
+                (f"{name}.qscale", leaf["qscale"])]
+    return [] if leaf is None else [(name, leaf)]
+
+
 def _check(name: str, cfg: TransformerConfig, acts: Dict[str, torch.Tensor],
-           weights: Dict[str, Optional[torch.Tensor]]):
+           mats: Dict[str, object], vecs: Dict[str, Optional[torch.Tensor]]
+           ) -> Tuple[int, int]:
     """Raise unless the kernel can take these tensors: one CUDA device,
-    contiguous, bf16 activations, one weight dtype of WEIGHT_DTYPES, 16-byte
-    aligned matrices and the kernel limits of `cfg`."""
+    contiguous, bf16 activations, one weight kind for the matrices
+    (`mats`: bf16, fp32 or resident int8 with fp32 [1, N] scales), bf16
+    or fp32 vectors (norm scales, biases) of the matrices' dtype unless
+    they are int8, 16-byte aligned matrices and the kernel limits of
+    `cfg`. Returns the launcher's (weight kind, vector_f32)."""
     dev = acts["x"].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev} — the kernel takes CUDA "
                          "tensors and the plain version CPU tensors")
-    given = {k: t for k, t in {**acts, **weights}.items() if t is not None}
-    for k, t in given.items():
+    given = [(k, t) for k, t in acts.items() if t is not None]
+    for k, leaf in {**mats, **vecs}.items():
+        given += _tensors(k, leaf)
+    for k, t in given:
         if t.device != dev:
             raise ValueError(f"{name}: {k} on {t.device}, x on {dev}")
         if not t.is_contiguous():
@@ -194,16 +246,49 @@ def _check(name: str, cfg: TransformerConfig, acts: Dict[str, torch.Tensor],
                 and k not in ("cos", "sin"):
             raise ValueError(f"{name}: {k} is {t.dtype}; the kernel takes "
                              "bf16 activations")
-    wdt = {t.dtype for k, t in weights.items() if t is not None}
-    if len(wdt) != 1 or not wdt <= set(WEIGHT_DTYPES):
-        raise ValueError(f"{name}: weights in {sorted(map(str, wdt))}; the "
-                         "kernel takes one of bf16 or fp32 for all of them")
-    reason = kernel_limits(cfg, wdt.pop())
+    kinds = {weight_kind(w) for w in mats.values()}
+    vdt = {t.dtype for t in vecs.values() if t is not None}
+    if len(kinds) != 1 or not kinds <= set(WEIGHT_KINDS) or len(vdt) > 1 \
+            or not vdt <= set(VECTOR_DTYPES):
+        raise ValueError(f"{name}: weights {sorted(map(str, kinds))} and "
+                         f"vectors {sorted(map(str, vdt))}; the kernel takes "
+                         "one weight kind (bf16, fp32 or resident int8) and "
+                         "bf16 or fp32 vectors")
+    kind = kinds.pop()
+    vec = vdt.pop() if vdt else (kind if kind != torch.int8
+                                 else torch.bfloat16)
+    if kind != torch.int8 and vec != kind:
+        raise ValueError(f"{name}: {kind} weights with {vec} vectors; the "
+                         "kernel takes vectors of the weights' dtype")
+    for k, w in mats.items():
+        if is_resident_leaf(w):
+            q, sc = w["qint8"], w["qscale"]
+            if q.dtype != torch.int8 or sc.dtype != torch.float32 \
+                    or tuple(sc.shape) != (1, q.shape[-1]):
+                raise ValueError(f"{name}: resident {k} must be int8 [K, N] "
+                                 f"with fp32 scales [1, N], got {q.dtype} "
+                                 f"{tuple(q.shape)} and {sc.dtype} "
+                                 f"{tuple(sc.shape)}")
+    if cfg.compute_dtype != torch.bfloat16:
+        raise ValueError(f"{name}: {kernel_limits(cfg)}")
+    reason = _cfg_limits(cfg)
     if reason:
         raise ValueError(f"{name}: {reason}")
-    for k, t in given.items():
+    for k, t in given:
         if t.dim() == 2 and t.data_ptr() % 16:
             raise ValueError(f"{name}: {k} is not 16-byte aligned")
+    return WEIGHT_KINDS[kind], int(vec == torch.float32)
+
+
+def _w(leaf):
+    """(weight pointer, scale pointer) of a weight leaf."""
+    if is_resident_leaf(leaf):
+        return leaf["qint8"].data_ptr(), leaf["qscale"].data_ptr()
+    return leaf.data_ptr(), None
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple((leaf["qint8"] if is_resident_leaf(leaf) else leaf).shape)
 
 
 def _plan(rows: int, k: int, tiles: int, device: torch.device):
@@ -238,12 +323,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(symbol: str, name: str, device: torch.device, *args):
+def _launch(symbol: str, name: str, kind: int, device: torch.device, *args):
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _kernel(symbol)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
+    launches[name + ("_int8" if kind == WEIGHT_KINDS[torch.int8] else "")] \
+        += 1
 
 
 # ---------------------------------------------------------------------------
@@ -260,12 +346,13 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None):
     if x.device.type == "cpu":
         return fused_qkv_plain(x, p, cfg, cos, sin)
     a = p["attention"]
-    weights = {"ln1_scale": p["ln1_scale"], "ln1_bias": p.get("ln1_bias"),
-               "q_kernel": a["q_kernel"], "kv_kernel": a["kv_kernel"],
-               "q_bias": a.get("q_bias"), "kv_bias": a.get("kv_bias"),
-               "q_ln_scale": a.get("q_ln_scale") if cfg.qk_layernorm else None,
-               "k_ln_scale": a.get("k_ln_scale") if cfg.qk_layernorm else None}
-    _check("fused_qkv", cfg, {"x": x, "cos": cos, "sin": sin}, weights)
+    mats = {"q_kernel": a["q_kernel"], "kv_kernel": a["kv_kernel"]}
+    vecs = {"ln1_scale": p["ln1_scale"], "ln1_bias": p.get("ln1_bias"),
+            "q_bias": a.get("q_bias"), "kv_bias": a.get("kv_bias"),
+            "q_ln_scale": a.get("q_ln_scale") if cfg.qk_layernorm else None,
+            "k_ln_scale": a.get("k_ln_scale") if cfg.qk_layernorm else None}
+    kind, vec_f32 = _check("fused_qkv", cfg, {"x": x, "cos": cos, "sin": sin},
+                           mats, vecs)
     rows, h = x.shape
     nq, nkv, d = cfg.num_attention_heads, cfg.num_query_groups, cfg.head_dim
     half = 0
@@ -277,8 +364,8 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None):
             raise ValueError("fused_qkv: cos/sin must be fp32 [R, half] with "
                              f"2 * half <= D {d}, got {tuple(cos.shape)}")
     shapes = {"x": (tuple(x.shape), (rows, h)),
-              "q_kernel": (tuple(a["q_kernel"].shape), (h, nq * d)),
-              "kv_kernel": (tuple(a["kv_kernel"].shape), (h, 2 * nkv * d))}
+              "q_kernel": (_shape(a["q_kernel"]), (h, nq * d)),
+              "kv_kernel": (_shape(a["kv_kernel"]), (h, 2 * nkv * d))}
     for k, (got, want) in shapes.items():
         if got != want:
             raise ValueError(f"fused_qkv: {k} is {got}, expected {want}")
@@ -287,33 +374,34 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None):
     v = torch.empty_like(k)
     tiles = (nq + 2 * nkv) * d // TILE
     ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device)
-    w = weights
-    _launch("fused_qkv_launch", "qkv", x.device,
-            _ptr(x), _ptr(w["ln1_scale"]), _ptr(w["ln1_bias"]),
+    (wq, sq), (wkv, skv), f = _w(a["q_kernel"]), _w(a["kv_kernel"]), vecs
+    _launch("fused_qkv_launch", "qkv", kind, x.device,
+            _ptr(x), _ptr(f["ln1_scale"]), _ptr(f["ln1_bias"]),
             _NORM[cfg.normalization], float(cfg.layernorm_epsilon),
-            _ptr(w["q_kernel"]), _ptr(w["kv_kernel"]), _ptr(w["q_bias"]),
-            _ptr(w["kv_bias"]), _ptr(w["q_ln_scale"]), _ptr(w["k_ln_scale"]),
-            _ptr(cos), _ptr(sin), _ptr(q), _ptr(k), _ptr(v), _ptr(ws), ctr,
-            rows, h, nq * d, nkv * d, d, half,
-            int(w["q_kernel"].dtype == torch.float32), ksplit)
+            wq, wkv, sq, skv, _ptr(f["q_bias"]), _ptr(f["kv_bias"]),
+            _ptr(f["q_ln_scale"]), _ptr(f["k_ln_scale"]), _ptr(cos),
+            _ptr(sin), _ptr(q), _ptr(k), _ptr(v), _ptr(ws), ctr,
+            rows, h, nq * d, nkv * d, d, half, kind, vec_f32, ksplit)
     return q, k, v
 
 
 def _residual_gemm(name: str, fc2: bool, x, w, bias, residual,
                    cfg: TransformerConfig):
-    _check(f"fused_{name}", cfg, {"x": x, "residual": residual},
-           {"kernel": w, "bias": bias})
+    kind, vec_f32 = _check(f"fused_{name}", cfg,
+                           {"x": x, "residual": residual}, {"kernel": w},
+                           {"bias": bias})
     rows, k = x.shape
-    n = w.shape[1]
-    if tuple(w.shape) != (k, n) or tuple(residual.shape) != (rows, n):
+    n = _shape(w)[1]
+    if _shape(w) != (k, n) or tuple(residual.shape) != (rows, n):
         raise ValueError(f"fused_{name}: x {tuple(x.shape)}, weight "
-                         f"{tuple(w.shape)} and residual "
+                         f"{_shape(w)} and residual "
                          f"{tuple(residual.shape)} do not fit")
     out = torch.empty_like(residual)
     ksplit, ws, ctr = _split_buffers(rows, k, n // TILE, x.device)
-    _launch("fused_residual_gemm_launch", name, x.device, int(fc2), _ptr(x),
-            _ptr(w), _ptr(bias), _ptr(residual), _ptr(out), _ptr(ws), ctr,
-            rows, k, n, int(w.dtype == torch.float32), ksplit)
+    wp, sp = _w(w)
+    _launch("fused_residual_gemm_launch", name, kind, x.device, int(fc2),
+            _ptr(x), wp, sp, _ptr(bias), _ptr(residual), _ptr(out), _ptr(ws),
+            ctr, rows, k, n, kind, vec_f32, ksplit)
     return out
 
 
@@ -336,25 +424,26 @@ def fused_mlp_fc1(x, p, cfg: TransformerConfig):
     if x.device.type == "cpu":
         return fused_mlp_fc1_plain(x, p, cfg)
     m = p["mlp"]
-    weights = {"ln2_scale": p["ln2_scale"], "ln2_bias": p.get("ln2_bias"),
-               "fc1_kernel": m["fc1_kernel"], "fc1_bias": m.get("fc1_bias")}
-    _check("fused_mlp_fc1", cfg, {"x": x}, weights)
+    vecs = {"ln2_scale": p["ln2_scale"], "ln2_bias": p.get("ln2_bias"),
+            "fc1_bias": m.get("fc1_bias")}
+    kind, vec_f32 = _check("fused_mlp_fc1", cfg, {"x": x},
+                           {"fc1_kernel": m["fc1_kernel"]}, vecs)
     rows, h = x.shape
     ffn = cfg.ffn_hidden_size
     gated = is_gated(cfg.activation)
     want = (h, (2 if gated else 1) * ffn)
-    if tuple(m["fc1_kernel"].shape) != want:
+    if _shape(m["fc1_kernel"]) != want:
         raise ValueError(f"fused_mlp_fc1: fc1_kernel is "
-                         f"{tuple(m['fc1_kernel'].shape)}, expected {want}")
+                         f"{_shape(m['fc1_kernel'])}, expected {want}")
     y = torch.empty(rows, ffn, dtype=torch.bfloat16, device=x.device)
     tiles = ffn // (TILE // 2 if gated else TILE)
     ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device)
-    _launch("fused_mlp_fc1_launch", "mlp_fc1", x.device,
-            _ptr(x), _ptr(weights["ln2_scale"]), _ptr(weights["ln2_bias"]),
+    wp, sp = _w(m["fc1_kernel"])
+    _launch("fused_mlp_fc1_launch", "mlp_fc1", kind, x.device,
+            _ptr(x), _ptr(vecs["ln2_scale"]), _ptr(vecs["ln2_bias"]),
             _NORM[cfg.normalization], float(cfg.layernorm_epsilon),
-            _ptr(m["fc1_kernel"]), _ptr(weights["fc1_bias"]), _ptr(y),
-            _ptr(ws), ctr, rows, h, ffn, _ACT[cfg.activation],
-            int(m["fc1_kernel"].dtype == torch.float32), ksplit)
+            wp, sp, _ptr(vecs["fc1_bias"]), _ptr(y), _ptr(ws), ctr, rows, h,
+            ffn, _ACT[cfg.activation], kind, vec_f32, ksplit)
     return y
 
 

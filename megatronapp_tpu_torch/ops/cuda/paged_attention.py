@@ -2,10 +2,12 @@
 its launch counter and its build.
 
 The kernel (csrc/paged_attention.cu) replaces the TPU kernel
-``megatronapp_tpu/ops/pallas/kernel_gen.py:emit_paged_kernel`` for bf16
-pools, in both of its modes: decode (one query row per slot) and ragged
-multi-query (chunked prefill). It is bound by the bytes of K/V it reads;
-the source note says what its design does about that.
+``megatronapp_tpu/ops/pallas/kernel_gen.py:emit_paged_kernel`` in both of
+its modes, decode (one query row per slot) and ragged multi-query
+(chunked prefill), for bf16 pools and for quantized pools: int8 or fp8
+(e4m3) pages with per-(row, kv-head) fp32 scale pools, dequantized as each
+page is read. It is bound by the bytes of K/V it reads; the source note
+says what its design does about that.
 
 ``paged_attention`` takes the plain version only for tensors that lie on
 the CPU. For CUDA tensors it launches the kernel or raises: there is no
@@ -26,14 +28,24 @@ from megatronapp_tpu_torch.ops.cuda import build as kbuild
 
 NEG_INF = -1e30
 
-# Launches of the kernel, by mode. Incremented only where the wrapper
-# launches it (never by the plain version).
-launches: Dict[str, int] = {"decode": 0, "ragged": 0}
+# The quantized page dtypes (the JAX package's kernel_gen.QUANT_DTYPES):
+# name → (page dtype, symmetric range bound qmax). Code of the kernel's
+# page kind: 0 bf16, 1 int8, 2 fp8.
+QUANT_DTYPES = {"int8": (torch.int8, 127.0),
+                "fp8": (torch.float8_e4m3fn, 448.0)}
+_PAGE_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+# Launches of the kernel, by mode and, for quantized pools, page dtype.
+# Incremented only where the wrapper launches it (never by the plain
+# version).
+launches: Dict[str, int] = {f"{mode}{sfx}": 0
+                            for sfx in ("", "_int8", "_fp8")
+                            for mode in ("decode", "ragged")}
 
 SOURCE = kbuild.source("paged_attention.cu")
 MAX_BLOCK_SIZE = 64
 HEAD_DIMS = (64, 128)
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -42,17 +54,34 @@ def _kernel():
     return kbuild.load(SOURCE, "paged_attention_launch", _ARGTYPES)
 
 
+def storage_view(t: torch.Tensor) -> torch.Tensor:
+    """fp8 tensors as uint8 views of the same bytes (indexing and copies of
+    fp8 are not implemented on every device and torch version); other
+    tensors as they are."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _gather_pages(pages: torch.Tensor, table: torch.Tensor,
+                  scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """pages[table] as fp32, dequantized as float(page) × its (row, head)
+    scale when `scales` is given."""
+    rows = storage_view(pages)[table].view(pages.dtype).float()
+    return rows if scales is None else rows * scales[table][..., None]
+
+
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, page_table: torch.Tensor,
                           kv_lens: torch.Tensor,
                           q_lens: Optional[torch.Tensor] = None,
-                          softmax_scale: Optional[float] = None
+                          softmax_scale: Optional[float] = None,
+                          k_scales: Optional[torch.Tensor] = None,
+                          v_scales: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gathers every slot's pages
-    densely, masks (kv length, and the causal tail in ragged mode) and
-    takes the softmax in fp32 — the JAX package's
-    paged_attention_reference / _multiquery_reference. Same signature and
-    shapes as ``paged_attention``."""
+    densely (dequantized when scale pools are given), masks (kv length,
+    and the causal tail in ragged mode) and takes the softmax in fp32 —
+    the JAX package's paged_attention_reference / _multiquery_reference.
+    Same signature and shapes as ``paged_attention``."""
     decode = q_lens is None
     if decode:
         q = q[:, None]
@@ -64,8 +93,8 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
     table = page_table.long()
-    k = k_pages[table].reshape(b, mb * bs, hkv, d).float()
-    v = v_pages[table].reshape(b, mb * bs, hkv, d).float()
+    k = _gather_pages(k_pages, table, k_scales).reshape(b, mb * bs, hkv, d)
+    v = _gather_pages(v_pages, table, v_scales).reshape(b, mb * bs, hkv, d)
     k = k.repeat_interleave(group, dim=2)
     v = v.repeat_interleave(group, dim=2)
     s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k) * softmax_scale
@@ -81,7 +110,8 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out[:, 0] if decode else out
 
 
-def _check(q, k_pages, v_pages, page_table, kv_lens, q_lens):
+def _check(q, k_pages, v_pages, page_table, kv_lens, q_lens, k_scales,
+           v_scales):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(
@@ -91,21 +121,38 @@ def _check(q, k_pages, v_pages, page_table, kv_lens, q_lens):
              "page_table": page_table, "kv_lens": kv_lens}
     if q_lens is not None:
         named["q_lens"] = q_lens
+    quantized = k_scales is not None
+    if quantized:
+        named.update(k_scales=k_scales, v_scales=v_scales)
     for name, t in named.items():
         if t.device != dev:
             raise ValueError(f"paged_attention: {name} on {t.device}, "
                              f"q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} is not contiguous")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"paged_attention: q is {q.dtype}; the kernel "
+                         "takes bf16 queries")
+    kind = _PAGE_KIND.get(k_pages.dtype)
+    if kind is None or v_pages.dtype != k_pages.dtype \
+            or quantized != (kind > 0) or (v_scales is None) == quantized:
+        raise ValueError(
+            f"paged_attention: pools {k_pages.dtype}/{v_pages.dtype} with"
+            f"{'' if quantized else 'out'} scale pools; the kernel takes "
+            "bf16 pools without scales, or int8 / fp8 (e4m3) pools with "
+            "both fp32 scale pools")
     for name in ("q", "k_pages", "v_pages"):
-        t = named[name]
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"paged_attention: {name} is {t.dtype}; the "
-                             "kernel takes bf16 (quantized pools are a "
-                             "later slice)")
-        if t.data_ptr() % 16:
+        if named[name].data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} is not 16-byte "
                              "aligned")
+    if quantized:
+        want = tuple(k_pages.shape[:3])
+        for name in ("k_scales", "v_scales"):
+            t = named[name]
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"paged_attention: {name} must be fp32 "
+                                 f"{want}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
     for name in ("page_table", "kv_lens", "q_lens"):
         if name in named and named[name].dtype != torch.int32:
             raise ValueError(f"paged_attention: {name} must be int32, got "
@@ -136,20 +183,27 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     kv_lens: torch.Tensor,
                     q_lens: Optional[torch.Tensor] = None,
-                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+                    softmax_scale: Optional[float] = None,
+                    k_scales: Optional[torch.Tensor] = None,
+                    v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ragged paged attention, the kernel_gen.paged_attention contract.
 
     q [B, Hq, D] (decode) or [B, S_q, Hq, D] with q_lens [B] (ragged
     multi-query: row s of slot b sits at absolute position kv_lens[b] -
     q_lens[b] + s; rows past q_lens[b] are padding whose outputs are
     finite garbage); pools [NB, bs, Hkv, D]; page_table [B, MB] int32;
-    kv_lens [B] int32 valid kv positions including the new tail. Returns
-    q's shape. CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kv_lens [B] int32 valid kv positions including the new tail;
+    k_scales/v_scales [NB, bs, Hkv] fp32 mark int8 or fp8 pools (each
+    element dequantizes as float(page) × its (row, head) scale, and the
+    body then runs in fp32 throughout, as the TPU kernel's quantized body
+    does). Returns q's shape. CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     kv_lens, q_lens, softmax_scale)
-    _check(q, k_pages, v_pages, page_table, kv_lens, q_lens)
+                                     kv_lens, q_lens, softmax_scale,
+                                     k_scales, v_scales)
+    _check(q, k_pages, v_pages, page_table, kv_lens, q_lens, k_scales,
+           v_scales)
     fn = _kernel()
     ragged = q_lens is not None
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
@@ -159,13 +213,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    kind = _PAGE_KIND[k_pages.dtype]
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if kind else None,
+            v_scales.data_ptr() if kind else None,
             page_table.data_ptr(), kv_lens.data_ptr(),
             q_lens.data_ptr() if ragged else None, out.data_ptr(),
-            b, s_q, hq, hkv, d, bs, page_table.shape[1],
+            b, s_q, hq, hkv, d, bs, page_table.shape[1], kind,
             float(softmax_scale), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches["ragged" if ragged else "decode"] += 1
+    sfx = ("", "_int8", "_fp8")[kind]
+    launches[f"{'ragged' if ragged else 'decode'}{sfx}"] += 1
     return out

@@ -33,7 +33,7 @@ from megatronapp_tpu_torch.ops.cuda.fused_decode import (
 )
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_multiquery,
-    write_rows,
+    scale_kwargs, write_kv,
 )
 
 
@@ -56,15 +56,17 @@ def _check_gqa(cfg: TransformerConfig):
 
 def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
                        kv_cache, cache_positions, page_table,
-                       write_index: WriteIndex):
+                       write_index: WriteIndex, kv_scales=None):
     """One decode layer as fused kernels (kernel_gen.fused_layer_decode):
     [fused norm+QKV+rope] → [K/V append] → [paged attention, decode mode]
     → [fused out-projection + residual] → [fused norm+MLP + residual].
 
     Drop-in for ``layer_forward``'s one-token paged branch: x [B, 1, H],
     rope tables [B, 1, half], the layer's pools written in place at
-    `write_index` (inactive slots are not in it). Returns ((out [B, 1, H],
-    (k_pages, v_pages)), None)."""
+    `write_index` (inactive slots are not in it). kv_scales: the layer's
+    scale pools of an int8/fp8 pool: the new rows are quantized and written
+    with their scales, and the paged kernel dequantizes (kernel_gen.py:
+    1990-2003). Returns ((out [B, 1, H], the layer's pools), None)."""
     _check_gqa(cfg)
     b = x.shape[0]
     if x.shape[1] != 1:
@@ -75,25 +77,25 @@ def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
     sin = rope_sin[:, 0] if rope_sin is not None else None
     q, k, v = fused_qkv(x2, p, cfg, cos, sin)
     ck, cv = kv_cache
-    write_rows(ck, k[:, None], write_index)
-    write_rows(cv, v[:, None], write_index)
-    attn = paged_attention_decode(q, ck, cv, page_table,
-                                  cache_positions + 1)           # [B, nq, D]
+    write_kv(kv_cache, kv_scales, k[:, None], v[:, None], write_index)
+    attn = paged_attention_decode(q, ck, cv, page_table, cache_positions + 1,
+                                  **scale_kwargs(kv_scales))       # [B, nq, D]
     x2 = fused_out_proj(attn.reshape(b, nq * d), p, cfg, x2)
     x2 = fused_mlp(x2, p, cfg)
-    return (x2[:, None], (ck, cv)), None
+    return (x2[:, None], (ck, cv) + tuple(kv_scales or ())), None
 
 
 def fused_layer_multiquery(p, x, cfg: TransformerConfig, rope_cos,
                            rope_sin, kv_cache, cache_positions, counts,
-                           page_table, write_index: WriteIndex):
+                           page_table, write_index: WriteIndex,
+                           kv_scales=None):
     """One ragged multi-query layer (chunked prefill) as the same fused
     kernels on the B·S flattened rows around the ragged paged-attention
     kernel (kernel_gen.fused_layer_multiquery). x [B, S, H], rope tables
     [B, S, half], counts [B] real rows per slot (the rest are padding with
-    finite garbage outputs). Every fused op is row-wise or contracts the
-    last dim, so flattening changes no row. Returns ((out [B, S, H],
-    (k_pages, v_pages)), None)."""
+    finite garbage outputs), kv_scales as for ``fused_layer_decode``.
+    Every fused op is row-wise or contracts the last dim, so flattening
+    changes no row. Returns ((out [B, S, H], the layer's pools), None)."""
     _check_gqa(cfg)
     b, s, h = x.shape
     nq, nkv, d = (cfg.num_attention_heads, cfg.num_query_groups,
@@ -103,14 +105,14 @@ def fused_layer_multiquery(p, x, cfg: TransformerConfig, rope_cos,
     sin = rope_sin.reshape(b * s, -1) if rope_sin is not None else None
     q, k, v = fused_qkv(xf, p, cfg, cos, sin)
     ck, cv = kv_cache
-    write_rows(ck, k.reshape(b, s, nkv, d), write_index)
-    write_rows(cv, v.reshape(b, s, nkv, d), write_index)
+    write_kv(kv_cache, kv_scales, k.reshape(b, s, nkv, d),
+             v.reshape(b, s, nkv, d), write_index)
     attn = paged_attention_multiquery(q.reshape(b, s, nq, d), ck, cv,
                                       page_table, cache_positions + counts,
-                                      counts)                 # [B, S, nq, D]
+                                      counts, **scale_kwargs(kv_scales))
     x2 = fused_out_proj(attn.reshape(b * s, nq * d), p, cfg, xf)
     x2 = fused_mlp(x2, p, cfg)
-    return (x2.reshape(b, s, h), (ck, cv)), None
+    return (x2.reshape(b, s, h), (ck, cv) + tuple(kv_scales or ())), None
 
 
 def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
@@ -122,7 +124,8 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
     megakernel_ineligible_reason). The semantic predicates are the JAX
     package's: paged backend, not MoE, not heterogeneous, no tp mesh, not
     MLA. The TPU's VMEM size predicates are replaced by the CUDA kernels'
-    own limits (``kernel_limits``: compute, residual and weight dtypes,
+    own limits (``kernel_limits``: compute, residual and weight dtypes —
+    bf16, fp32 or resident int8, q_kernel and kv_kernel of one kind —,
     head_dim, alignment of H, ffn and the projections), which hold where
     the step runs on the card — `device`, else the device of `params`; on
     the CPU the plain versions take any shape. batch and mq_rows are the
@@ -141,11 +144,11 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
         return "MLA fused prologue not ported yet"
     if max(int(batch), int(mq_rows or 0)) < 1:
         return f"no rows to run (batch {batch}, mq_rows {mq_rows})"
-    weight_dtype = None
+    layer = None
     if params is not None:
-        q_kernel = params["layers"][0]["attention"]["q_kernel"]
-        weight_dtype = q_kernel.dtype
-        device = device if device is not None else q_kernel.device
+        layer = params["layers"][0]
+        if device is None:
+            device = layer["ln1_scale"].device
     if device is None or torch.device(device).type != "cuda":
         return None
-    return kernel_limits(cfg, weight_dtype)
+    return kernel_limits(cfg, layer)

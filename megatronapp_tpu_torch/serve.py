@@ -10,7 +10,10 @@ config/arguments.py:add_serving_args. The port serves random weights made
 on the device from --seed with the NullTokenizer: checkpoint loading,
 tokenizer files and every flag outside the ported slices exit with a
 message naming what is not ported yet. ``--megakernel-decode`` runs the
-fused decode step (ops/fused_decode.py). The server needs ``aiohttp``.
+fused decode step (ops/fused_decode.py); ``--kv-cache-dtype int8|fp8``
+stores the KV pool quantized and ``--quantized-weights`` quantizes the
+five matmul kernels of every layer to resident int8 at startup, on the
+device (inference/quantization.py). The server needs ``aiohttp``.
 """
 
 from __future__ import annotations
@@ -24,14 +27,15 @@ import torch
 # Flags of the JAX server that select machinery this slice does not port.
 UNPORTED_FLAGS = {
     "--load-dir": "checkpoint loading",
-    "--load-quantized": "int8 checkpoints",
+    "--load-quantized": "int8 checkpoints (no int8 artifact of "
+                        "tools/checkpoint/quantize.py is in the repository; "
+                        "--quantized-weights quantizes at startup)",
     "--tokenizer-name-or-path": "tokenizer files",
     "--megakernel-vmem-budget": "the TPU VMEM budget of the Pallas tile "
                                 "planner (the CUDA kernels plan their own "
                                 "tiles)",
     "--scan-unroll": "the JAX layer scan (the port runs its layers as a "
                      "Python loop)",
-    "--quantized-weights": "resident int8 weights",
     "--spec-method": "speculative decoding",
     "--spec-k": "speculative decoding",
     "--draft-model": "speculative decoding",
@@ -69,6 +73,9 @@ class _Unported(argparse.Action):
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from megatronapp_tpu_torch.inference.paged_cache import (
+        KV_CACHE_DTYPES, kv_cache_dtype_help,
+    )
     from megatronapp_tpu_torch.models.presets import PRESETS
     ap = argparse.ArgumentParser(
         prog="python -m megatronapp_tpu_torch.serve",
@@ -109,10 +116,16 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-prefix-caching", action="store_false",
                    dest="prefix_caching",
                    help="disable refcounted shared-prefix block reuse")
-    g.add_argument("--kv-cache-dtype", choices=("bf16", "int8", "fp8"),
+    g.add_argument("--kv-cache-dtype", choices=sorted(KV_CACHE_DTYPES),
                    default="bf16",
-                   help="paged KV-pool storage dtype (only bf16 is "
-                        "ported)")
+                   help="paged KV-pool storage dtype — "
+                        + kv_cache_dtype_help())
+    g.add_argument("--quantized-weights", action="store_true",
+                   help="post-training quantization at startup: the five "
+                        "matmul kernels of every layer (q, kv, out, fc1, "
+                        "fc2) kept int8 on the device with per-column fp32 "
+                        "scales, dequantized at matmul entry or inside the "
+                        "fused kernels")
     g.add_argument("--prefill-chunk", type=int, default=32,
                    help="chunked-prefill chunk size")
     g.add_argument("--megakernel-decode", action="store_true",
@@ -141,9 +154,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ap.error("--engine dynamic without --paged-kv-cache is the dense "
                  "slot cache, which is not ported yet: pass "
                  "--paged-kv-cache")
-    if args.kv_cache_dtype != "bf16":
-        ap.error(f"--kv-cache-dtype {args.kv_cache_dtype}: quantized KV "
-                 "pools are not ported yet")
     if args.tokenizer_type != "NullTokenizer":
         ap.error(f"--tokenizer-type {args.tokenizer_type}: only the "
                  "NullTokenizer is ported (the port serves random "
@@ -153,7 +163,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def build_engine(args: argparse.Namespace):
     """The engine the server drives, with random weights from args.seed
-    made on the device."""
+    made on the device (quantized there with --quantized-weights, as the
+    JAX server's startup PTQ does: tools/run_text_generation_server.py:
+    123-135)."""
     from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
     from megatronapp_tpu_torch.inference.dynamic_engine import (
         DynamicInferenceEngine,
@@ -170,6 +182,14 @@ def build_engine(args: argparse.Namespace):
     cfg = dataclasses.replace(cfg, **over)
     gen = torch.Generator(device).manual_seed(args.seed)
     params = init_gpt_params(cfg, gen, device)
+    if args.quantized_weights:
+        from megatronapp_tpu_torch.inference.quantization import (
+            quantize_for_serving,
+        )
+        params, report = quantize_for_serving(params)
+        worst = max(report.values()) if report else 0.0
+        print(f"PTQ-quantized {len(report)} kernels at startup (max |w err| "
+              f"{worst:.4g}); int8 kept resident")
     return DynamicInferenceEngine(
         params, cfg, tokenizer=NullTokenizer(cfg.vocab_size),
         max_batch=args.max_batch, max_seq_len=args.max_seq_len,
@@ -197,11 +217,15 @@ def main(argv: Optional[List[str]] = None):
         )
         get_request_tracer().configure(
             enabled=True, capacity=args.request_trace_capacity)
+    from megatronapp_tpu_torch.inference.quantization import resident_nbytes
     engine = build_engine(args)
     print(f"serving {args.preset} ({engine.cfg.num_layers} layers, random "
           f"weights seed {args.seed}) with continuous batching on "
           f"{engine.device} at {args.host}:{args.port} (paged, block "
           f"{args.kv_block_size}, max_batch {args.max_batch}, "
+          f"kv={args.kv_cache_dtype}, params "
+          f"{resident_nbytes(engine.params) / 2**20:.1f} MiB on device"
+          f"{' (resident int8)' if args.quantized_weights else ''}, "
           f"megakernel={engine.megakernel})")
     TextGenerationServer(engine, args.host, args.port).run()
 

@@ -11,6 +11,8 @@ copy across without transposing (``x @ w``):
   out_kernel [n_heads*D, H]
   out_bias   [H]
   (optional) q_ln_scale, k_ln_scale [D]
+The three kernels may be resident int8 leaves (inference/quantization.py):
+``resolve_param`` dequantizes them at matmul entry, as the JAX layer does.
 
 Ported branches: the two paged serving branches (the multi-token ragged
 append of chunked prefill and the one-token decode append) and the
@@ -28,13 +30,14 @@ import torch
 from megatronapp_tpu_torch.config.transformer_config import (
     AttnMaskType, TransformerConfig,
 )
+from megatronapp_tpu_torch.inference.quantization import resolve_param
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.attention import dot_product_attention
 from megatronapp_tpu_torch.ops.flash_attention import flash_attention
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_multiquery,
-    write_rows,
+    scale_kwargs, write_kv,
 )
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
@@ -114,7 +117,8 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                       kv_cache=None, cache_index=None, cache_positions=None,
                       page_table=None, chunk_counts=None,
                       write_index: Optional[WriteIndex] = None,
-                      segment_ids: Optional[torch.Tensor] = None, ctx=None):
+                      segment_ids: Optional[torch.Tensor] = None, ctx=None,
+                      kv_scales=None):
     """x: [B, S, H] → (out [B, S, H], new_cache).
 
     Training (no kv_cache): new_cache is None. attention_mask [B,1,S,S]
@@ -132,7 +136,11 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     in the pool, ``paged_write_index`` of the step (built once for every
     layer; inactive slots and padding rows are not in it, so their writes
     are dropped). K/V are written before attention reads them, as in the
-    JAX step."""
+    JAX step. kv_scales: the layer's fp32 scale pools (k_scales, v_scales)
+    [NB, bs, Hkv] marking int8/fp8 pools: the new rows are quantized per
+    (row, head) and written with their scales through the same index, and
+    the kernel dequantizes as it reads; new_cache then holds the four
+    pools."""
     if ctx is not None:
         raise NotImplementedError(
             "context-parallel and tensor-parallel attention are not ported "
@@ -154,8 +162,8 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
     dt = cfg.compute_dtype
     x = x.to(dt)
-    q = x @ p["q_kernel"].to(dt)
-    kv = x @ p["kv_kernel"].to(dt)
+    q = x @ resolve_param(p["q_kernel"], dt)
+    kv = x @ resolve_param(p["kv_kernel"], dt)
     if "q_bias" in p:
         q = q + p["q_bias"].to(dt)
         kv = kv + p["kv_bias"].to(dt)
@@ -170,24 +178,25 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
 
     if not serving:
         attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids)
-        out = attn.reshape(b, s, nq * d) @ p["out_kernel"].to(dt)
+        out = attn.reshape(b, s, nq * d) @ resolve_param(p["out_kernel"], dt)
         if "out_bias" in p:
             out = out + p["out_bias"].to(dt)
         return out, None
 
     ck, cv = kv_cache
-    write_rows(ck, k, write_index)
-    write_rows(cv, v, write_index)
+    write_kv(kv_cache, kv_scales, k, v, write_index)
+    sc = scale_kwargs(kv_scales)
     q = q.contiguous()
     if s > 1 or chunk_counts is not None:
         counts = (chunk_counts if chunk_counts is not None else torch.full(
             (b,), s, dtype=torch.int32, device=x.device))
         attn = paged_attention_multiquery(q, ck, cv, page_table,
-                                          cache_positions + counts, counts)
+                                          cache_positions + counts, counts,
+                                          **sc)
     else:
         attn = paged_attention_decode(q[:, 0], ck, cv, page_table,
-                                      cache_positions + 1)[:, None]
-    out = attn.reshape(b, s, nq * d) @ p["out_kernel"].to(dt)
+                                      cache_positions + 1, **sc)[:, None]
+    out = attn.reshape(b, s, nq * d) @ resolve_param(p["out_kernel"], dt)
     if "out_bias" in p:
         out = out + p["out_bias"].to(dt)
-    return out, (ck, cv)
+    return out, (ck, cv) + tuple(kv_scales or ())

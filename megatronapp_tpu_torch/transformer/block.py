@@ -66,10 +66,13 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   kv_cache=None, cache_index=None,
                   cache_positions=None, page_table=None,
                   chunk_counts=None, write_index=None,
-                  fused_decode: bool = False, segment_ids=None, ctx=None):
+                  fused_decode: bool = False, segment_ids=None, ctx=None,
+                  kv_scales=None):
     """One transformer layer. x: [B,S,H] → ((out, new_cache), aux_losses);
     the paged, mask and segment arguments are attention_forward's
-    (no kv_cache: the training branch, new_cache None).
+    (no kv_cache: the training branch, new_cache None). kv_scales: the
+    layer's fp32 scale pools, marking a quantized (int8/fp8) paged pool
+    (JAX block.py:74-170).
 
     fused_decode: the paged serving layer as the fused kernels
     (ops/fused_decode.py), dispatched as JAX transformer/block.py:108-132
@@ -84,13 +87,14 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         if chunk_counts is not None:
             return fused_layer_multiquery(
                 p, x, cfg, rope_cos, rope_sin, kv_cache, cache_positions,
-                chunk_counts, page_table, write_index)
+                chunk_counts, page_table, write_index, kv_scales)
         if x.shape[1] != 1:
             raise ValueError(
                 "fused_decode without chunk_counts is the s == 1 decode "
                 "body — pass chunk_counts for ragged multi-token steps")
         return fused_layer_decode(p, x, cfg, rope_cos, rope_sin, kv_cache,
-                                  cache_positions, page_table, write_index)
+                                  cache_positions, page_table, write_index,
+                                  kv_scales)
     _check_dense(cfg)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln1_scale"], p.get("ln1_bias"),
@@ -100,7 +104,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         kv_cache=kv_cache, cache_index=cache_index,
         cache_positions=cache_positions, page_table=page_table,
         chunk_counts=chunk_counts, write_index=write_index,
-        segment_ids=segment_ids, ctx=ctx)
+        segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales)
     x = residual + attn_out.to(residual.dtype)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),

@@ -6,6 +6,8 @@ Param leaf layout:
   fc1_bias   [F] / [2F]
   fc2_kernel [F, H]
   fc2_bias   [H]
+The two kernels may be resident int8 leaves (inference/quantization.py):
+``resolve_param`` dequantizes them at matmul entry, as the JAX MLP does.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.inference.quantization import resolve_param
 from megatronapp_tpu_torch.ops.activations import apply_activation, is_gated
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
@@ -35,7 +38,7 @@ def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig):
     for gated kinds) → fc2."""
     dt = cfg.compute_dtype
     x = x.to(dt)
-    y = x @ p["fc1_kernel"].to(dt)
+    y = x @ resolve_param(p["fc1_kernel"], dt)
     if "fc1_bias" in p:
         y = y + p["fc1_bias"].to(dt)
     if is_gated(cfg.activation):
@@ -43,7 +46,7 @@ def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig):
         y = apply_activation(cfg.activation, val, gate)
     else:
         y = apply_activation(cfg.activation, y)
-    out = y @ p["fc2_kernel"].to(dt)
+    out = y @ resolve_param(p["fc2_kernel"], dt)
     if "fc2_bias" in p:
         out = out + p["fc2_bias"].to(dt)
     return out

@@ -10,6 +10,12 @@ one ``ParamTree`` per layer in an ``nn.ModuleList``.
 Leaves are made frozen (``requires_grad=False``), so serving runs no
 autograd; the trainer makes them trainable with ``tree.requires_grad_()``
 at setup (``training/train.py``).
+
+A resident int8 weight (inference/quantization.py) is a child
+``ParamTree`` ``{"qint8": int8 [K, N], "qscale": fp32 [1, N]}`` under the
+kernel's name: frozen like any leaf, moved by ``.to(device)`` with the
+rest of the tree. (``.to(dtype)`` would cast its fp32 scales too: cast a
+tree before quantizing it.)
 """
 
 from __future__ import annotations

@@ -298,9 +298,16 @@ def test_unported_engine_options_raise():
                dict(ctx=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             tde.DynamicInferenceEngine(tp, tc, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    # Quantized pools are ported: an int8 engine builds and says so.
+    eng = tde.DynamicInferenceEngine(tp, tc, device="cpu",
+                                     kv_cache_dtype="int8", **ENGINE)
+    pool = eng.stats_snapshot()["pool"]
+    assert pool["kv_cache_dtype"] == "int8"
+    assert eng.pool.pages[0].dtype == torch.int8
+    assert pool["pool_bytes_total"] == eng.pool.bytes_total
+    with pytest.raises(ValueError, match="kv_cache_dtype must be one of"):
         tde.DynamicInferenceEngine(tp, tc, device="cpu",
-                                   kv_cache_dtype="int8")
+                                   kv_cache_dtype="int4")
 
 
 def test_stats_snapshot():

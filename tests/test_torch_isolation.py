@@ -6,7 +6,9 @@
 - a tensor that is not on the CPU never reaches a kernel's plain version;
 - the weight converter refuses leaves it does not place;
 - on a card (tests marked cuda; no jax needed there), the paged, flash
-  and fused kernels launch and match their plain versions.
+  and fused kernels launch and match their plain versions, the quantized
+  paged kernel (int8 and fp8 pools) and the resident-int8 fused kernels
+  included.
 """
 
 import ast
@@ -115,8 +117,8 @@ def test_pretrain_gpt_entry_point_raises_without_a_card(monkeypatch):
 @pytest.mark.parametrize("argv,msg", [
     (["--engine", "static"], "not ported"),
     (["--engine", "dynamic"], "--paged-kv-cache"),
-    (["--engine", "dynamic", "--paged-kv-cache", "--kv-cache-dtype",
-      "int8"], "quantized"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--lora-dir", "x"],
+     "LoRA"),
     (["--engine", "dynamic", "--paged-kv-cache", "--spec-method", "ngram"],
      "speculative"),
     (["--engine", "dynamic", "--paged-kv-cache", "--megakernel-vmem-budget",
@@ -139,6 +141,21 @@ def test_serve_megakernel_decode_parses():
     assert args.megakernel_decode is True
     assert serve.parse_args(["--engine", "dynamic",
                              "--paged-kv-cache"]).megakernel_decode is False
+
+
+def test_serve_quantized_flags_parse():
+    """--kv-cache-dtype int8|fp8 and --quantized-weights are ported: they
+    parse and reach the engine; --load-quantized still exits, naming why."""
+    from megatronapp_tpu_torch import serve
+    args = serve.parse_args(["--engine", "dynamic", "--paged-kv-cache",
+                             "--kv-cache-dtype", "fp8",
+                             "--quantized-weights"])
+    assert args.kv_cache_dtype == "fp8" and args.quantized_weights is True
+    args = serve.parse_args(["--engine", "dynamic", "--paged-kv-cache"])
+    assert args.kv_cache_dtype == "bf16" and args.quantized_weights is False
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--engine", "dynamic", "--paged-kv-cache",
+                          "--load-quantized", "x"])
 
 
 def test_non_cpu_tensors_never_reach_the_plain_version(monkeypatch):
@@ -311,8 +328,93 @@ def test_fused_kernels_match_plain_versions():
                 cuda_fd.fused_mlp_fc1_plain(x, p, cfg)]
         want.append(cuda_fd.fused_mlp_fc2_plain(got[-2], x, p, cfg))
         torch.cuda.synchronize()
-        assert {k: cuda_fd.launches[k] - before[k] for k in before} == \
-            dict.fromkeys(before, 1)
+        assert {k: cuda_fd.launches[k] - before[k] for k in before} == {
+            k: int(not k.endswith("_int8")) for k in before}
+        for a, b in zip(got, want):
+            a, b = a.float().reshape(rows, -1), b.float().reshape(rows, -1)
+            rms = b.pow(2).mean(dim=-1, keepdim=True).sqrt()
+            scale = torch.maximum(b.abs(), rms)
+            assert float(((a - b).abs() / scale).max()) <= 0.06
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_quantized_paged_kernel_matches_plain_version(kind):
+    """The quantized paged kernel (one launch a call, counted by mode and
+    pool dtype) against its plain version on the same quantized pools:
+    both dequantize float(page) × scale and compute in fp32, so each
+    output element is held to 5e-3 of max(|element|, its (row, head)
+    RMS): the kernel's bf16 output rounding (chip_smoke.py QUANT_REL_TOL
+    argues the bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from megatronapp_tpu_torch.ops.paged_attention import quantize_kv_rows
+    dt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[kind]
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(3)
+    pools = [quantize_kv_rows(torch.randn(12, 16, 2, 128, generator=g).to(
+        dev), dt) for _ in range(2)]
+    (kq, ks), (vq, vs) = pools
+    table = torch.arange(12, dtype=torch.int32, device=dev).reshape(2, 6)
+    lens = torch.tensor([7, 90], dtype=torch.int32, device=dev)
+    for q, q_lens in ((torch.randn(2, 8, 128, generator=g), None),
+                      (torch.randn(2, 5, 8, 128, generator=g),
+                       torch.tensor([5, 3], dtype=torch.int32, device=dev))):
+        q = q.to(dev, torch.bfloat16)
+        mode = "decode" if q_lens is None else "ragged"
+        before = cuda_pa.launches[f"{mode}_{kind}"]
+        out = cuda_pa.paged_attention(q, kq, vq, table, lens, q_lens=q_lens,
+                                      k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        assert cuda_pa.launches[f"{mode}_{kind}"] == before + 1
+        ref = cuda_pa.paged_attention_plain(q.float(), kq, vq, table, lens,
+                                            q_lens=q_lens, k_scales=ks,
+                                            v_scales=vs)
+        got = out.float()
+        if q_lens is not None:
+            real = torch.arange(5, device=dev)[None, :] < q_lens[:, None]
+            got, ref = got[real], ref[real]
+        rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        scale = torch.maximum(ref.abs(), rms)
+        assert float(((got - ref).abs() / scale).max()) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_resident_int8_fused_kernels_match_plain_versions():
+    """The fused kernels on resident int8 weights (launches counted as
+    "<kernel>_int8"), llama3-8b-shaped with widths cut to 1024, within 0.06
+    of max(|element|, row RMS) of their plain versions (FUSED_TOL)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as cuda_fd
+    dev = torch.device("cuda", 0)
+    cfg = llama3_8b(num_layers=1, hidden_size=1024, num_attention_heads=8,
+                    num_query_groups=2, ffn_hidden_size=2048,
+                    vocab_size=256, params_dtype=torch.bfloat16)
+    params = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    p = quantize_for_serving(params)[0]["layers"][0]
+    g = torch.Generator().manual_seed(1)
+    for rows in (8, 32):
+        x = torch.randn(rows, 1024, generator=g).to(dev, torch.bfloat16)
+        cos, sin = (torch.randn(rows, 64, generator=g).to(dev)
+                    for _ in range(2))
+        before = dict(cuda_fd.launches)
+        got = [*cuda_fd.fused_qkv(x, p, cfg, cos, sin),
+               cuda_fd.fused_out_proj(x, p, cfg, x),
+               cuda_fd.fused_mlp_fc1(x, p, cfg)]
+        got.append(cuda_fd.fused_mlp_fc2(got[-1], x, p, cfg))
+        want = [*cuda_fd.fused_qkv_plain(x, p, cfg, cos, sin),
+                cuda_fd.fused_out_proj_plain(x, p, cfg, x),
+                cuda_fd.fused_mlp_fc1_plain(x, p, cfg)]
+        want.append(cuda_fd.fused_mlp_fc2_plain(got[-2], x, p, cfg))
+        torch.cuda.synchronize()
+        assert {k: cuda_fd.launches[k] - before[k] for k in before} == {
+            k: int(k.endswith("_int8")) for k in before}
         for a, b in zip(got, want):
             a, b = a.float().reshape(rows, -1), b.float().reshape(rows, -1)
             rms = b.pow(2).mean(dim=-1, keepdim=True).sqrt()
