@@ -31,6 +31,13 @@ Phases, each printing one JSON line:
    quant_reference: a tiny llama-shaped model with resident int8 weights,
             int8 and fp8 pools, unfused and fused, on the card (bf16,
             kernels) against the same weights on the CPU (fp32, plain).
+   lora_kernels: the segmented LoRA kernel against its plain version at
+            the five llama3-8b targets, ranks 8 and 16, 8 decode rows on
+            mixed adapters and a 32-row chunk of one (NULL rows exactly 0,
+            each row alone the same bits), then the four fused kernels
+            with their LoRA epilogue (bf16 and int8 weights, 8 and 32 rows).
+   lora_reference: the tiny llama-shaped model with 3 adapters, unfused
+            and fused, on the card against the CPU.
 4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
@@ -62,13 +69,23 @@ Phases, each printing one JSON line:
             on fp8 pools: the same checks, each quantized kernel variant
             launched once per layer per step and chunk, and the fused
             against the unfused last-position logits.
+   serve_lora: the same weights with an adapter cache (4 slots, rank 8)
+            over 5 seeded adapters, the 8 requests on [a0, a1, a2, a3, a4,
+            None, a0, None], through the unfused, the fused and the
+            int8-weight fused engine: launches (5 segmented launches, or
+            one epilogue launch of each fused kernel, a layer per step and
+            chunk), evictions and pinned waits, clean books, zero-B
+            adapters giving the no-adapter streams, adapters changing
+            streams, fused against unfused logits, reruns.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
-            slots at kv ~1024.
+            slots at kv ~1024; then the LoRA engines.
 9. times:   each kernel and variant, its plain version, one PyTorch call
-            computing the same function and the card's bound, at the
-            shapes the main paths launch.
+            computing the same function (for the segmented LoRA delta,
+            which no one call computes, two torch.bmm on factors gathered
+            in advance) and the card's bound, at the shapes the main paths
+            launch.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed check exits
@@ -157,6 +174,34 @@ QUANT_REL_TOL = 5e-3
 # Card (bf16) vs CPU (fp32) logits of phase_quant_reference, as a share of
 # their range, by pool dtype (the reasoning is beside the check).
 QUANT_REF_TOL = {"int8": 0.05, "fp8": 0.1}
+FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores
+LORA_SOURCE = "megatronapp_tpu_torch/csrc/lora.cu"
+LORA_REPLACES = f"{_KG}:2379 (lora_segmented_delta, def :2328)"
+LORA_EPILOGUE_REPLACES = {
+    k: f"{v} with its lora= epilogue ({_KG}:1130 _lora_epilogue)"
+    for k, v in FUSED_REPLACES.items()}
+# The segmented kernel vs its plain version on the same inputs: both take
+# the bf16 x to fp32 and compute (x @ A) @ B in fp32; only the order of the
+# sums differs (the kernel adds k in 256 / (8 rank) interleaved parts, the
+# plain einsum in its own blocking). Each order's rounding moves a sum by
+# about sqrt(din) x 2^-24 of its terms' scale (~7e-6 at din 14336; measured
+# on a CPU emulation of the kernel at din <= 1000: 3e-6), so each element is
+# held to LORA_TOL of max(|element|, row RMS): ten times that, and 600 times
+# inside FUSED_TOL.
+LORA_TOL = 1e-4
+LORA_RANK = 8
+LORA_RANKS = (8, 16)
+# A decode batch of 8: NULL rows (1, 6), two rows sharing an adapter (0 and
+# 7 on slot 1, 2 and 5 on slot 2) and 4 distinct adapters.
+LORA_DECODE_IDS = [1, 0, 2, 3, 4, 2, 0, 1]
+LORA_ADAPTERS = [f"tenant-{i}" for i in range(5)]
+LORA_ROUTE = LORA_ADAPTERS + [None, LORA_ADAPTERS[0], None]
+# B ~ N(0, scale^2) (LoraAdapter.random's default 0.05 for lora_reference,
+# where it moves the logits by ~0.65 of their range, far past its 0.05
+# gate; 0.2 for serve_lora, so that adapters move greedy streams of the
+# random llama3-8b).
+LORA_REF_SCALE = 0.05
+LORA_SERVE_SCALE = 0.2
 
 
 class SmokeFailure(RuntimeError):
@@ -188,25 +233,53 @@ def nvidia_smi_line() -> str:
 
 def device_ms(fn, calls: int = 20, warmup: int = 3) -> float:
     """Device time per call of fn(), with the calls queued back to back:
-    they are enqueued behind a sleep kernel (~0.1 s), so the card runs them
-    without waiting for the host between kernels, which paces a plain loop
-    (cuda_time_ms) of calls whose kernels run for a few µs. Fails if the
-    host had not queued every call before the sleep ended."""
+    they are enqueued behind a sleep kernel (~0.1 s at first), so the card
+    runs them without waiting for the host between kernels, which paces a
+    plain loop (cuda_time_ms) of calls whose kernels run for a few µs. If
+    the host had not queued every call before the sleep ended, the window
+    is repeated behind a sleep four times longer (twice); then it fails."""
     for _ in range(warmup):
         fn()
+    for cycles in (200_000_000, 800_000_000, 3_200_000_000):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / calls
+    # Say why: one call's host time, and the first op that waits on the
+    # card (PyTorch's sync debug mode raises there).
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(calls):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
         fn()
-    end.record()
-    queued = not start.query()
-    torch.cuda.synchronize()
-    check(queued, "device_ms: the host had not queued the calls before the "
-          "card reached them")
-    return start.elapsed_time(end) / calls
+        waits = "no PyTorch op waited on the card"
+    except RuntimeError as e:
+        waits = f"an op waited on the card: {str(e)[:300]}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    raise SmokeFailure(f"device_ms: the host had not queued the calls of "
+                       f"{getattr(fn, '__qualname__', fn)} before the card "
+                       f"reached them, behind a sleep of {cycles} cycles "
+                       f"(one call: {host_ms:.3f} ms of host time; {waits}; "
+                       f"{torch.cuda.memory_reserved()} bytes reserved, "
+                       f"{torch.cuda.memory_allocated()} allocated)")
+
+
+# Calls of a plain version in one device_ms window: a plain version
+# launches tens of kernels (the LoRA deltas' gathers and einsums, int8
+# dequantization), and more than ~1000 queued launches make the host wait
+# for the card.
+PLAIN_CALLS = 5
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -297,7 +370,8 @@ def phase_device(state):
     t0 = time.perf_counter()
     built = kbuild.build_all([kbuild.source("paged_attention.cu"),
                               kbuild.source("flash_attention.cu"),
-                              kbuild.source("fused_decode.cu")])
+                              kbuild.source("fused_decode.cu"),
+                              kbuild.source("lora.cu")])
     build_s = time.perf_counter() - t0
     ptxas = {os.path.basename(b["source"]): [
         ln.strip() for ln in b["log"].splitlines()
@@ -549,12 +623,14 @@ def _row_errs(got, want):
     return float(err.max()), float((err / scale).max())
 
 
-def _fused_case(name, cfg, p, rows, gen, dev, variant=""):
+def _fused_case(name, cfg, p, rows, gen, dev, variant="", lora=None):
     """Each fused kernel once on bf16 inputs against its plain version on
     the same inputs (fc2 is fed the kernel's own y), then once more to
     check that a rerun repeats every bit (the K-split sums in a fixed
     order). variant: the launch counters' suffix of the weights' kind
-    ("_int8" for resident int8 weights)."""
+    ("_int8" for resident int8 weights). lora: the adapter deltas of the
+    rows (ops/lora.py), run as the kernels' LoRA epilogue and counted in
+    fd.lora_launches."""
     from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
 
@@ -569,21 +645,22 @@ def _fused_case(name, cfg, p, rows, gen, dev, variant=""):
         cos_t, sin_t = gpt_rope_tables(cfg, 8192, device=dev)
         cos, sin = cos_t[pos], sin_t[pos]
     res = {}
+    counts = fd.launches if lora is None else fd.lora_launches
 
     def run(kernel, fn, plain, *args):
         key = kernel + variant
-        before = fd.launches[key]
-        got = fn(*args)
-        again = fn(*args)
+        before = counts[key]
+        got = fn(*args, lora=lora)
+        again = fn(*args, lora=lora)
         torch.cuda.synchronize()
-        check(fd.launches[key] == before + 2,
+        check(counts[key] == before + 2,
               f"fused_kernels {name}: {key} launched "
-              f"{fd.launches[key] - before} times for two calls")
+              f"{counts[key] - before} times for two calls")
         got_t = got if isinstance(got, tuple) else (got,)
         again_t = again if isinstance(again, tuple) else (again,)
         check(all(torch.equal(a, b) for a, b in zip(got_t, again_t)),
               f"fused_kernels {name}: {kernel} rerun gave other bits")
-        want = plain(*args)
+        want = plain(*args, lora=lora)
         want_t = want if isinstance(want, tuple) else (want,)
         errs = [_row_errs(a, b) for a, b in zip(got_t, want_t)]
         for a in got_t:
@@ -671,11 +748,12 @@ def phase_fused_int8_kernels(state):
 
 
 def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
-                     kv_cache_dtype="bf16"):
+                     kv_cache_dtype="bf16", lora=None):
     """A prompt's chunked prefill (32-token chunks, one slot) through the
     engine's multi-query step on a pool of its own (of `kv_cache_dtype`);
     returns the logits of every real prompt position [P, V] (and, with
-    decode_token, the logits of one decode step after it [1, V])."""
+    decode_token, the logits of one decode step after it [1, V]). lora:
+    (AdapterCache, bank slot) of the slot's adapter."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.dynamic_engine import (
@@ -693,6 +771,13 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
     rope = gpt_rope_tables(cfg, msl, device=dev)
     one = torch.ones(1, dtype=torch.bool)
     out = []
+
+    def lora_of(repeat):
+        if lora is None:
+            return None
+        from megatronapp_tpu_torch.ops.lora import LoraRows
+        return {"row_adapter": LoraRows([lora[1]], dev, repeat),
+                "banks": lora[0].banks}
     for pos in range(0, n, chunk):
         count = min(chunk, n - pos)
         toks = torch.zeros(1, chunk, dtype=torch.int64)
@@ -703,7 +788,7 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
         logits, _, _ = _paged_multiquery_step(
             params, toks.to(dev), pool.pages, table.to(dev), starts.to(dev),
             counts.to(dev), cfg, msl, tuple(t.to(dev) for t in index), rope,
-            fused=fused, scales=pool.scales)
+            fused=fused, scales=pool.scales, lora=lora_of(chunk))
         out.append(logits[0, :count].float().cpu())
     prefill = torch.cat(out)
     if decode_token is None:
@@ -717,7 +802,7 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
         params, torch.tensor([[decode_token]], device=dev), pool.pages,
         table.to(dev), lengths.to(dev), cfg,
         tuple(t.to(dev) for t in index), rope, fused=fused,
-        scales=pool.scales)
+        scales=pool.scales, lora=lora_of(1))
     return prefill, dec.float().cpu()
 
 
@@ -881,9 +966,10 @@ def _serve_prompts(cfg):
     return [p.astype(np.int32) for p in prompts], warm
 
 
-def _serve_once(driver, prompts, max_new, sampling):
-    """Submit every prompt from its own thread; returns (streams,
-    per-request first/last token times, t_submit, t_done)."""
+def _serve_once(driver, prompts, max_new, sampling, adapters=None):
+    """Submit every prompt from its own thread (prompt i with adapter
+    adapters[i], if given); returns (streams, per-request first/last token
+    times, t_submit, t_done)."""
     n = len(prompts)
     times = [[] for _ in range(n)]
     rids = [None] * n
@@ -898,7 +984,8 @@ def _serve_once(driver, prompts, max_new, sampling):
             rid, done = driver.submit(
                 prompts[i], max_new, sampling,
                 token_cb=lambda _r, _t, i=i: times[i].append(
-                    time.perf_counter()))
+                    time.perf_counter()),
+                adapter_id=None if adapters is None else adapters[i])
             times[i].insert(0, t_sub)
             rids[i], done_events[i] = rid, done
         except Exception as e:  # noqa: BLE001 — reported below
@@ -919,7 +1006,8 @@ def _serve_once(driver, prompts, max_new, sampling):
     return streams, times, t0, t1
 
 
-def _engine(params, cfg, dev, fused=False, kv_cache_dtype="bf16"):
+def _engine(params, cfg, dev, fused=False, kv_cache_dtype="bf16",
+            adapter_cache=None):
     from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
     from megatronapp_tpu_torch.inference.dynamic_engine import (
         DynamicInferenceEngine,
@@ -927,7 +1015,8 @@ def _engine(params, cfg, dev, fused=False, kv_cache_dtype="bf16"):
     return DynamicInferenceEngine(
         params, cfg, tokenizer=NullTokenizer(cfg.vocab_size), max_batch=8,
         max_seq_len=2048, paged=True, block_size=16, prefill_chunk=32,
-        device=dev, fused_decode=fused, kv_cache_dtype=kv_cache_dtype)
+        device=dev, fused_decode=fused, kv_cache_dtype=kv_cache_dtype,
+        adapter_cache=adapter_cache)
 
 
 def phase_serve(state, layers: int):
@@ -1094,6 +1183,8 @@ def phase_serve_fused(state):
     fd.launches.update(before[0])
     pa.launches.update(before[1])
     state["bf16_fused_logits"] = lf
+    state["serve_fused_streams"] = [s[len(p):] for p, s in
+                                    zip(prompts, streams)]
     rel = float((lf - lu).abs().max() / lu.abs().max())
     emit({"phase": "serve_fused", "model": "llama3-8b", "layers": layers,
           "full_depth": layers == 32, "megakernel": engine.megakernel,
@@ -1260,13 +1351,531 @@ def phase_serve_quant(state):
           f"from the unfused engine's by {rel} of their range (>= 0.1)")
 
 
-FAMILIES = ("paged_attention", "fused", "gemm", "memcpy/memset", "other")
+# ---------------------------------------------------------------------------
+# batched LoRA (slice 5)
+# ---------------------------------------------------------------------------
+
+
+def _lora_banks(gen, dev, din, dout, rank, slots=5):
+    """One layer's random fp32 banks [slots, din, rank] / [slots, rank,
+    dout] with the NULL slot 0 zero, drawn as LoraAdapter.random draws
+    (A ~ N(0, 1/din), B ~ N(0, 0.2^2))."""
+    a = torch.randn(slots, din, rank, generator=gen, device=dev) / math.sqrt(
+        din)
+    b = torch.randn(slots, rank, dout, generator=gen, device=dev) * 0.2
+    a[0] = 0
+    b[0] = 0
+    return a.contiguous(), b.contiguous()
+
+
+def phase_lora_kernels(state):
+    """The segmented LoRA kernel (row 15) against lora_delta_plain on the
+    card at the five llama3-8b targets, ranks 8 and 16: a decode batch of 8
+    rows with mixed ids (NULL rows, two rows sharing an adapter, 4 distinct
+    adapters) and a 32-row chunk of one adapter. Then the four fused
+    kernels with their LoRA epilogue (bf16 and resident int8 weights, 8
+    and 32 rows) against their plain versions under FUSED_TOL."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.lora import lora_target_dims
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving,
+    )
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops import lora as tlo
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(2026)
+    before = dict(cl.launches), dict(fd.lora_launches)
+    cfg = llama3_8b(num_layers=1, params_dtype=torch.bfloat16)
+    dims = lora_target_dims(cfg)
+    cases = {}
+    for rank in LORA_RANKS:
+        for target, (din, dout) in dims.items():
+            a, b = _lora_banks(gen, dev, din, dout, rank)
+            for label, ids in (("rows8_mixed", LORA_DECODE_IDS),
+                               ("rows32_one_adapter", [3] * 32)):
+                name = f"{target}_rank{rank}_{label}"
+                x = torch.randn(len(ids), din, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                segs = tlo.LoraRows(np.asarray(ids), dev)
+                n0 = cl.launches["lora_delta"]
+                got = tlo.lora_delta(x, a, b, segs)
+                again = tlo.lora_delta(x, a, b, segs)
+                torch.cuda.synchronize()
+                check(cl.launches["lora_delta"] == n0 + 2,
+                      f"lora_kernels {name}: {cl.launches['lora_delta'] - n0}"
+                      " launches for two calls")
+                check(torch.equal(got, again),
+                      f"lora_kernels {name}: the rerun gave other bits")
+                check(bool(torch.isfinite(got).all()),
+                      f"lora_kernels {name}: non-finite delta")
+                null = torch.tensor(ids, device=dev) == 0
+                check(bool((got[null] == 0).all()),
+                      f"lora_kernels {name}: a NULL row is not exactly 0")
+                for r in sorted({0, len(ids) - 1, *range(min(8, len(ids)))}):
+                    alone = tlo.lora_delta(x[r:r + 1].contiguous(), a, b,
+                                           np.asarray(ids[r:r + 1]))
+                    check(torch.equal(alone[0], got[r]),
+                          f"lora_kernels {name}: row {r} alone differs from "
+                          "the same row in the batch")
+                err = _row_errs(got, tlo.lora_delta_plain(x, a, b, segs))
+                cases[name] = err
+                check(err[1] <= LORA_TOL,
+                      f"lora_kernels {name}: error {err[1]} of max(|element|,"
+                      f" row RMS) exceeds {LORA_TOL} (max abs {err[0]})")
+            del a, b
+    cl.launches.update(before[0])
+    # The fused kernels with their LoRA epilogue, rank 8.
+    p = _fused_layer(cfg, gen, dev)
+    epi = {}
+    for wname, pp, variant in (("bf16", p, ""),
+                               ("int8", quantize_for_serving(p)[0], "_int8")):
+        banks = {t: _lora_banks(gen, dev, din, dout, 8)
+                 for t, (din, dout) in dims.items()}
+        for rows, ids in ((8, LORA_DECODE_IDS), (32, [3] * 32)):
+            lora = {"row_adapter": tlo.LoraRows(np.asarray(ids), dev),
+                    "banks": banks}
+            epi[f"{wname}_rows{rows}"] = _fused_case(
+                f"lora {wname} R={rows}", cfg, pp, rows, gen, dev, variant,
+                lora=lora)
+        del banks
+    del p
+    fd.lora_launches.update(before[1])
+    torch.cuda.empty_cache()
+    state["lora_err"] = max(e[0] for e in cases.values())
+    state["lora_epilogue_err"] = {
+        f"{k}{sfx}": max(c[k][0] for n, c in epi.items() if n.startswith(w))
+        for k in FUSED_KERNELS for w, sfx in (("bf16", ""), ("int8", "_int8"))}
+    emit({"phase": "lora_kernels", "rel_tol": LORA_TOL,
+          "epilogue_rel_tol": FUSED_TOL, "ranks": list(LORA_RANKS),
+          "decode_ids": LORA_DECODE_IDS,
+          "errors": "(max abs, max over max(|plain element|, row RMS))",
+          "segmented": cases, "epilogues_rank8": epi})
+
+
+def _lora_reference_cache(cfg, dev, rank=8):
+    from megatronapp_tpu_torch.inference.lora import (
+        AdapterCache, AdapterRegistry, LoraAdapter,
+    )
+    reg = AdapterRegistry()
+    for i in range(3):
+        reg.register(LoraAdapter.random(f"r{i}", cfg, rank=rank, seed=60 + i,
+                                        scale=LORA_REF_SCALE))
+    cache = AdapterCache(cfg, reg, max_resident=3, rank=rank, device=dev)
+    return cache, [cache.acquire(f"r{i}") for i in range(3)] + [0]
+
+
+def phase_lora_reference(state):
+    """The tiny llama-shaped model of phase_fused_reference with 3
+    adapters and the NULL one: a 40-token prompt's chunked prefill and one
+    decode step per adapter, unfused and fused, on the card (bf16, the
+    segmented kernel or the fused kernels' epilogue) against the same
+    weights and adapters on the CPU (fp32, plain versions)."""
+    import copy
+
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    before = dict(fd.lora_launches), dict(cl.launches), dict(pa.launches)
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05)
+    cfg_ref = llama3_8b(compute_dtype=torch.float32, **small)
+    cfg_dev = llama3_8b(params_dtype=torch.bfloat16, **small)
+    p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(7), "cpu")
+    p_dev = copy.deepcopy(p_ref).to(device="cuda", dtype=torch.bfloat16)
+    dev = torch.device("cuda", 0)
+    ref_cache, slots = _lora_reference_cache(cfg_ref, "cpu")
+    dev_cache, dev_slots = _lora_reference_cache(cfg_dev, dev)
+    check(slots == dev_slots, "lora_reference: slot books differ")
+    tokens = torch.randint(0, 512, (40,),
+                           generator=torch.Generator().manual_seed(8)).tolist()
+    results = {}
+    for fused in (False, True):
+        step = "fused" if fused else "unfused"
+        for counts in (fd.lora_launches, cl.launches):
+            counts.update(dict.fromkeys(counts, 0))
+        refs = {}
+        for slot in slots:
+            ref = torch.cat(_chunked_prefill(p_ref, cfg_ref, tokens, "cpu",
+                                             fused, decode_token=17,
+                                             lora=(ref_cache, slot)))
+            got = torch.cat(_chunked_prefill(p_dev, cfg_dev, tokens, dev,
+                                             fused, decode_token=17,
+                                             lora=(dev_cache, slot)))
+            refs[slot] = ref
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            results[f"{step}_slot{slot}"] = {"max_rel_err": rel,
+                                             "argmax_agreement": agree}
+            check(bool(torch.isfinite(got).all()),
+                  f"lora_reference {step} slot {slot}: non-finite logits")
+            # As phase_reference: bf16 weights and activations through two
+            # layers move the logits by a few percent of their range. The
+            # argmax agreement is reported, not gated: an adapter makes the
+            # logits larger, and their near-ties flip under bf16 (0.93 at
+            # worst in a CPU bf16-vs-fp32 run of the plain versions).
+            check(rel < 0.05, f"lora_reference {step} slot {slot}: relative "
+                  f"logit error {rel} >= 0.05")
+        # Each adapter moves the CPU logits by more than the gate above, so
+        # a delta the card dropped or misread would fail it.
+        effect = min(float((refs[s] - refs[0]).abs().max()
+                           / refs[0].abs().max()) for s in slots[:3])
+        results[f"{step}_min_adapter_effect"] = effect
+        check(effect > 0.05, f"lora_reference {step}: the adapters move the "
+              f"logits by only {effect} of their range")
+        units = 2 * 3 * len(slots)       # layers x (2 chunks + 1 step) x runs
+        if fused:
+            want = {**dict.fromkeys(fd.lora_launches, 0),
+                    **dict.fromkeys(FUSED_KERNELS, units)}
+            check(dict(fd.lora_launches) == want and
+                  cl.launches["lora_delta"] == 0,
+                  f"lora_reference fused: launches {dict(fd.lora_launches)},"
+                  f" segmented {dict(cl.launches)}")
+        else:
+            check(cl.launches["lora_delta"] == 5 * units and
+                  not any(fd.lora_launches.values()),
+                  f"lora_reference unfused: segmented launches "
+                  f"{dict(cl.launches)}, expected {5 * units}")
+    fd.lora_launches.update(before[0])
+    cl.launches.update(before[1])
+    pa.launches.update(before[2])
+    emit({"phase": "lora_reference", "adapters": 3, "rank": 8,
+          "adapter_scale": LORA_REF_SCALE, "cases": results})
+
+
+def _lora_cache(state, zero_b=False, max_resident=4):
+    """A fresh AdapterCache (rank 8) over serve_lora's five seeded adapters
+    (or their zero-B twins) on the model's device."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.lora import (
+        AdapterCache, AdapterRegistry,
+    )
+    _, cfg, dev = state["model"]
+    reg = state["lora_registry"]
+    if zero_b:
+        zreg = AdapterRegistry()
+        for aid in reg.ids():
+            ad = reg.get(aid)
+            zreg.register(type(ad)(aid, ad.rank, ad.a, {
+                t: np.zeros_like(v) for t, v in ad.b.items()}))
+        reg = zreg
+    return AdapterCache(cfg, reg, max_resident=max_resident, rank=LORA_RANK,
+                        device=dev)
+
+
+def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
+    """The serve phases' 8 requests on LORA_ROUTE's adapters through one
+    engine with `cache`, driven as a server drives it, twice; checks the
+    streams, the launches of every step and chunk, the cache's books."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    name = (f"serve_lora {'fused' if fused else 'unfused'}"
+            f"{' int8 weights' if variant else ''}")
+    layers = cfg.num_layers
+    engine = _engine(params, cfg, dev, fused=fused, adapter_cache=cache)
+    check(engine.megakernel is fused, f"{name}: the engine's step kind")
+    driver = DynamicBatchingDriver(engine)
+    greedy = SamplingParams(greedy=True)
+    max_new = 32
+    prompts, warm = _serve_prompts(cfg)
+    rid, done = driver.submit(warm, 4, greedy, adapter_id=LORA_ADAPTERS[0])
+    check(done.wait(timeout=600), f"{name}: warm-up did not finish")
+    driver.result_tokens(rid)
+    steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+    for counts in (fd.launches, fd.lora_launches, pa.launches, cl.launches):
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.synchronize()
+    streams, times, t_start, t_end = _serve_once(
+        driver, prompts, max_new, greedy, adapters=LORA_ROUTE)
+    launches = {"fused": dict(fd.launches), "fused_lora":
+                dict(fd.lora_launches), "paged": dict(pa.launches),
+                "lora_delta": dict(cl.launches)}
+    steps = engine.decode_steps - steps0
+    chunks = engine.prefill_chunks - chunks0
+    for p, s in zip(prompts, streams):
+        check(s is not None and len(s) == len(p) + max_new
+              and np.array_equal(s[:len(p)], p)
+              and bool(((s[len(p):] >= 0)
+                        & (s[len(p):] < cfg.vocab_size)).all()),
+              f"{name}: a stream of the wrong length or vocabulary")
+    units = layers * (steps + chunks)
+    want_fused = dict.fromkeys((k + variant for k in FUSED_KERNELS),
+                               units if fused else 0)
+    check(launches["fused_lora"] == only(launches["fused_lora"], want_fused)
+          and not any(launches["fused"].values()),
+          f"{name}: fused launches {launches['fused_lora']} (without the "
+          f"epilogue {launches['fused']}), expected {want_fused} ({layers} "
+          f"layers x ({steps} steps + {chunks} chunks))")
+    check(launches["lora_delta"]["lora_delta"] == (0 if fused else 5 * units),
+          f"{name}: {launches['lora_delta']} segmented launches, expected "
+          f"{0 if fused else 5 * units} (5 targets x {units})")
+    check(launches["paged"] == only(launches["paged"], {
+        "decode": layers * steps, "ragged": layers * chunks}),
+          f"{name}: paged launches {launches['paged']}")
+    st = engine.stats_snapshot()["lora"]
+    check(st["evictions"] >= 1 and st["pinned_waits"] >= 1,
+          f"{name}: no eviction or no pinned wait: {st}")
+    cache.audit()
+    check(st["pinned"] == 0, f"{name}: {st['pinned']} slots still pinned")
+    wall = t_end - t_start
+    rerun, _, _, _ = _serve_once(driver, prompts, max_new, greedy,
+                                 adapters=LORA_ROUTE)
+    same = all(np.array_equal(a, b) for a, b in zip(streams, rerun))
+    check(same, f"{name}: the rerun gave other streams")
+    cache.audit()
+    out = {"megakernel": engine.megakernel, "decode_steps": steps,
+           "prefill_chunks": chunks,
+           "launches": {k: {n: c for n, c in v.items() if c}
+                        for k, v in launches.items()},
+           "ttft_ms": [round((t[1] - t[0]) * 1e3, 3) for t in times],
+           "decode_ms_per_step_by_request": [
+               round((t[-1] - t[1]) * 1e3 / (len(t) - 2), 3) for t in times],
+           "tokens_per_s": max_new * len(prompts) / wall, "wall_s": wall,
+           "rerun_identical": same, "cache": engine.stats_snapshot()["lora"]}
+    new = [s[len(p):] for p, s in zip(prompts, streams)]
+    return new, out, launches
+
+
+def _serve_streams(params, cfg, dev, fused, cache=None):
+    """The serve phases' 8 greedy streams (new tokens) through one engine,
+    every request on LORA_ROUTE's adapter when a cache is given."""
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    driver = DynamicBatchingDriver(_engine(params, cfg, dev, fused=fused,
+                                           adapter_cache=cache))
+    prompts, _ = _serve_prompts(cfg)
+    streams, _, _, _ = _serve_once(driver, prompts, 32,
+                                   SamplingParams(greedy=True),
+                                   adapters=None if cache is None
+                                   else LORA_ROUTE)
+    return [s[len(p):] for p, s in zip(prompts, streams)]
+
+
+def phase_serve_lora(state):
+    """llama3-8b at the served depth (serve's seed-0 bf16 weights) with an
+    AdapterCache of 4 resident slots, rank 8, over 5 seeded adapters; the
+    serve phases' 8 requests on [a0, a1, a2, a3, a4, None, a0, None]
+    through the unfused engine, the fused engine and the fused engine on
+    serve_quant's resident-int8 weights. Five distinct adapters in a batch
+    of 8 on 4 slots: admission waits on pinned slots and evicts."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.lora import (
+        AdapterRegistry, LoraAdapter,
+    )
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    params, cfg, dev = state["model"]
+    t0 = time.perf_counter()
+    reg = AdapterRegistry()
+    for i, aid in enumerate(LORA_ADAPTERS):
+        reg.register(LoraAdapter.random(aid, cfg, rank=LORA_RANK,
+                                        seed=100 + i,
+                                        scale=LORA_SERVE_SCALE))
+    state["lora_registry"] = reg
+    make_s = time.perf_counter() - t0
+    before = (dict(fd.launches), dict(fd.lora_launches), dict(pa.launches),
+              dict(cl.launches))
+    runs, streams = {}, {}
+    engines = [("unfused", params, False, ""), ("fused", params, True, "")]
+    if "qmodel" in state:
+        engines.append(("fused_int8_weights", state["qmodel"][0], True,
+                        "_int8"))
+    for key, pp, fused, variant in engines:
+        cache = _lora_cache(state)
+        streams[key], runs[key], launches = _serve_lora_run(
+            pp, cfg, dev, fused, cache, variant)
+        if key == "unfused":
+            state["lora_delta_launches"] = launches["lora_delta"][
+                "lora_delta"]
+        else:
+            state.setdefault("lora_epilogue_launches", {}).update(
+                {k: v for k, v in launches["fused_lora"].items() if v})
+        if key == "fused":
+            state["lora_cache"] = cache        # the times phase's banks
+        else:
+            del cache
+        torch.cuda.empty_cache()
+    # Zero-B adapters: the streams of the no-adapter engine of each kind.
+    base = {"unfused": state.get("serve_streams"),
+            "fused": state.get("serve_fused_streams")}
+    if "qmodel" in state:
+        base["fused_int8_weights"] = _serve_streams(state["qmodel"][0], cfg,
+                                                    dev, True)
+    zero_b = {}
+    for key, pp, fused, _ in engines:
+        if base.get(key) is None:
+            continue
+        z = _serve_streams(pp, cfg, dev, fused, _lora_cache(state, True))
+        zero_b[key] = all(np.array_equal(a, b) for a, b in zip(z, base[key]))
+        check(zero_b[key], f"serve_lora {key}: zero-B adapters changed the "
+              "greedy streams of the no-adapter engine")
+        torch.cuda.empty_cache()
+    # At least one real adapter changes its request's greedy stream.
+    changed = None
+    if base["unfused"] is not None:
+        changed = [i for i, a in enumerate(LORA_ROUTE) if a is not None
+                   and not np.array_equal(streams["unfused"][i],
+                                          base["unfused"][i])]
+        check(bool(changed), "serve_lora: no adapter changed its request's "
+              "greedy stream")
+    # Fused against unfused last-position logits, the same adapter.
+    prompt = _serve_prompts(cfg)[0][3].tolist()
+    cache = state["lora_cache"]
+    slot = cache.acquire(LORA_ADAPTERS[1])
+    bl = tuple(dict(c) for c in (fd.launches, fd.lora_launches, pa.launches,
+                                 cl.launches))
+    lf = _chunked_prefill(params, cfg, prompt, dev, True,
+                          lora=(cache, slot))[-1]
+    lu = _chunked_prefill(params, cfg, prompt, dev, False,
+                          lora=(cache, slot))[-1]
+    for c, b in zip((fd.launches, fd.lora_launches, pa.launches,
+                     cl.launches), bl):
+        c.update(b)
+    cache.release(slot)
+    cache.audit()
+    rel = float((lf - lu).abs().max() / lu.abs().max())
+    for c, b in zip((fd.launches, fd.lora_launches, pa.launches,
+                     cl.launches), before):
+        c.update(b)
+    emit({"phase": "serve_lora", "model": "llama3-8b",
+          "layers": cfg.num_layers, "full_depth": cfg.num_layers == 32,
+          "rank": LORA_RANK, "max_resident": 4,
+          "adapters": LORA_ADAPTERS, "route": LORA_ROUTE,
+          "adapter_scale": LORA_SERVE_SCALE, "make_adapters_s": make_s,
+          "adapter_bytes": cache.adapter_nbytes,
+          "bank_bytes": cache.bank_bytes(), "runs": runs,
+          "zero_b_streams_equal_no_adapter_engine": zero_b,
+          "requests_changed_by_their_adapter": changed,
+          "last_logits_fused_vs_unfused_max_rel_err": rel,
+          "last_logits_argmax_equal": int(lf.argmax()) == int(lu.argmax()),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    check(bool(np.isfinite(lf.numpy()).all()), "serve_lora: non-finite "
+          "logits")
+    # As serve_fused: 32 layers of bf16 roundings taken in other orders.
+    check(rel < 0.1, f"serve_lora: fused last-position logits differ from "
+          f"the unfused engine's by {rel} of their range (>= 0.1)")
+
+
+def _lora_bytes(rows, ids, din, dout, rank):
+    """Bytes the segmented delta must move: x (bf16) read once, one A and
+    one B per distinct adapter (fp32; none for the NULL slot), the delta
+    (fp32) written once, the row ids and segments."""
+    distinct = len({i for i in ids if i != 0})
+    return (rows * din * 2 + distinct * (din + dout) * rank * 4
+            + rows * dout * 4 + (3 * rows + 2 * distinct + 1) * 4)
+
+
+def _lora_times(state):
+    """The segmented kernel at the five llama3-8b targets, 8 decode rows
+    (LORA_DECODE_IDS) and a 32-row chunk of one adapter, rank 8, rotating
+    through serve_lora's 32 layers of banks (their factors span the bank
+    bytes, beyond L2). Beside it: the plain version, the bound, and as a
+    yardstick the port never calls two torch.bmm on factors gathered per
+    row in advance (the gather untimed)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.lora import lora_target_dims
+    from megatronapp_tpu_torch.ops import lora as tlo
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
+    cache = state["lora_cache"]
+    _, cfg, dev = state["model"]
+    before = dict(cl.launches)
+    gen = torch.Generator(dev).manual_seed(78)
+    layers = cache.num_layers
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % layers
+        return it["i"]
+
+    for aid in LORA_ADAPTERS[:4]:
+        cache.acquire(aid)          # slots 1..4 hold adapters (pinned)
+    out = {}
+    for label, ids in (("rows8_mixed", LORA_DECODE_IDS),
+                       ("rows32_one_adapter", [3] * 32)):
+        rows = len(ids)
+        segs = tlo.LoraRows(np.asarray(ids), dev)
+        idx = torch.tensor(ids, device=dev, dtype=torch.long)
+        per = {}
+        for target, (din, dout) in lora_target_dims(cfg).items():
+            a_all, b_all = cache.banks[target]
+            x = torch.randn(rows, din, generator=gen, device=dev).to(
+                torch.bfloat16)
+            x32 = x.float()[:, None, :]
+            gathered = [(a_all[i][idx], b_all[i][idx])
+                        for i in range(min(4, layers))]
+
+            def kern(target=target, x=x):
+                i = nxt()
+                a_all, b_all = cache.banks[target]
+                tlo.lora_delta(x, a_all[i], b_all[i], segs)
+
+            def plain(target=target, x=x):
+                i = nxt()
+                a_all, b_all = cache.banks[target]
+                tlo.lora_delta_plain(x, a_all[i], b_all[i], segs)
+
+            def lib(x32=x32, gathered=gathered):
+                a, b = gathered[nxt() % len(gathered)]
+                torch.bmm(torch.bmm(x32, a), b)
+            p1 = device_ms(plain, calls=PLAIN_CALLS)
+            k1 = device_ms(kern)
+            k2 = device_ms(kern)
+            p2 = device_ms(plain, calls=PLAIN_CALLS)
+            lib_ms = device_ms(lib)
+            nbytes = _lora_bytes(rows, ids, din, dout, LORA_RANK)
+            flops = 2 * sum(i != 0 for i in ids) * LORA_RANK * (din + dout)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP32_FLOPS_PER_S * 1e3
+            per[target] = {
+                "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops,
+                "shape": {"rows": rows, "din": din, "dout": dout,
+                          "rank": LORA_RANK,
+                          "adapters": len({i for i in ids if i})}}
+            del gathered
+        per["layer_sum"] = {k: sum(v[k] for v in per.values())
+                            for k in ("kernel_ms", "plain_ms", "library_ms",
+                                      "bound_ms")}
+        out[label] = per
+    for aid in LORA_ADAPTERS[:4]:
+        cache.release(cache.slot_of(aid))
+    cl.launches.update(before)
+    state["lora_times"] = out
+    return {"note": "device ms per call (device_ms), 32 layers of banks "
+                    "rotated; library_ms: two torch.bmm on per-row factors "
+                    "gathered in advance (the gather untimed; no single "
+                    "PyTorch call computes the segmented delta); "
+                    "layer_sum: the five targets of one layer",
+            **out}
+
+
+FAMILIES = ("paged_attention", "fused", "lora", "gemm", "memcpy/memset",
+            "other")
 
 
 def _family(name: str) -> str:
     name = name.lower()
     if "paged_attention" in name:
         return "paged_attention"
+    if "lora_delta_kernel" in name:
+        return "lora"
     if any(f"fused_{k}_kernel" in name for k in FUSED_KERNELS):
         return "fused"
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass",
@@ -1320,13 +1929,20 @@ def _device_profile(fn, units: int, families=FAMILIES,
     return out
 
 
-def _profile_engine(params, cfg, dev, fused, kv_cache_dtype="bf16"):
-    """One engine's prefill window and decode window (see phase_profile)."""
+def _profile_engine(params, cfg, dev, fused, kv_cache_dtype="bf16",
+                    adapter_cache=None):
+    """One engine's prefill window and decode window (see phase_profile);
+    with an adapter cache, the 8 requests wear the cache's first four
+    adapters in turn."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
     engine = _engine(params, cfg, dev, fused=fused,
-                     kv_cache_dtype=kv_cache_dtype)
+                     kv_cache_dtype=kv_cache_dtype,
+                     adapter_cache=adapter_cache)
+    route = [None] * 8
+    if adapter_cache is not None:
+        route = [LORA_ADAPTERS[i % 4] for i in range(8)]
     check(engine.megakernel is fused, "profile: the engine's step kind")
     rng = np.random.default_rng(1)
     prompt_len, chunk, steps = 1008, 32, 16
@@ -1334,14 +1950,14 @@ def _profile_engine(params, cfg, dev, fused, kv_cache_dtype="bf16"):
         np.int32) for _ in range(8)]
     greedy = SamplingParams(greedy=True)
 
-    engine.add_request(prompts[0], 64, greedy)
+    engine.add_request(prompts[0], 64, greedy, adapter_id=route[0])
     chunks0 = engine.prefill_chunks
     prefill = _device_profile(engine.step, math.ceil(prompt_len / chunk),
                               top_kernels=8)
     check(engine.prefill_chunks - chunks0 == prefill["units"],
           "profile: the prefill window ran another number of chunks")
-    for p in prompts[1:]:
-        engine.add_request(p, 64, greedy)
+    for p, a in zip(prompts[1:], route[1:]):
+        engine.add_request(p, 64, greedy, adapter_id=a)
     for _ in range(3):              # prefill the other seven, then warm up
         engine.step()
     check(all(r is not None and not r.finished for r in engine.slots),
@@ -1371,7 +1987,8 @@ def phase_profile(state):
     chunks at kv 32..1008; the window also holds that slot's first decode
     step), then 16 decode steps with 8 slots at kv ~1024. Then the same
     windows through the fused engine on the resident-int8 weights of
-    serve_quant and int8 pools."""
+    serve_quant and int8 pools, and through the unfused and fused LoRA
+    engines of serve_lora (the 8 requests on four adapters)."""
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     params, cfg, dev = state["model"]
@@ -1381,6 +1998,15 @@ def phase_profile(state):
     if "qmodel" in state:
         out["fused_int8_weights_int8_pools"] = _profile_engine(
             state["qmodel"][0], cfg, dev, True, kv_cache_dtype="int8")
+    if "lora_registry" in state:
+        from megatronapp_tpu_torch.ops.cuda import lora as cl
+        before_l = dict(fd.lora_launches), dict(cl.launches)
+        for name, fused in (("lora_unfused", False), ("lora_fused", True)):
+            out[name] = _profile_engine(params, cfg, dev, fused,
+                                        adapter_cache=_lora_cache(state))
+            torch.cuda.empty_cache()
+        fd.lora_launches.update(before_l[0])
+        cl.launches.update(before_l[1])
     fd.launches.update(before[0])
     pa.launches.update(before[1])
     emit({"phase": "profile", "model": "llama3-8b",
@@ -1478,6 +2104,9 @@ def phase_times(state):
     gen = torch.Generator().manual_seed(99)
     before = dict(pa.launches)
     hq, hkv, d, bs = 32, 8, 128, 16
+    # Earlier phases' cached blocks go back to the card, so that the timing
+    # windows' allocations never free a cache (a free waits on the card).
+    torch.cuda.empty_cache()
 
     def case(batch, kv, s_q=None):
         return make_case(gen, dev, batch=batch, hq=hq, hkv=hkv, d=d, bs=bs,
@@ -1525,14 +2154,21 @@ def phase_times(state):
           "flash_train_shapes": _flash_times(state),
           "fused_llama3_8b": _fused_times(state),
           "fused_int8_llama3_8b": (_fused_times(state, "qmodel")
-                                   if "qmodel" in state else None)})
+                                   if "qmodel" in state else None),
+          **({"lora_segmented_llama3_8b": _lora_times(state),
+              "fused_lora_llama3_8b": _fused_times(state, lora=True),
+              "fused_int8_lora_llama3_8b": (
+                  _fused_times(state, "qmodel", lora=True)
+                  if "qmodel" in state else None)}
+             if "lora_cache" in state else {})})
 
 
-def _fused_bytes_flops(cfg, kernel, rows, int8=False):
+def _fused_bytes_flops(cfg, kernel, rows, int8=False, lora_ids=None):
     """Bytes each input read once and each output written once (weights,
     with their fp32 column scales when int8, norm and bias vectors,
-    activations, residual, rope rows), and the multiply-add operations of
-    the product."""
+    activations, residual, rope rows; with lora_ids, one fp32 A and B per
+    distinct adapter and the row ids), and the multiply-add operations of
+    the product (and of the deltas' two products)."""
     h, ffn, d = cfg.hidden_size, cfg.ffn_hidden_size, cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
     k, n = {"qkv": (h, (nq + 2 * nkv) * d), "out_proj": (nq * d, h),
@@ -1544,10 +2180,18 @@ def _fused_bytes_flops(cfg, kernel, rows, int8=False):
     nbytes = w + acts[kernel] * 2
     if kernel == "qkv":
         nbytes += 2 * rows * (d // 2) * 4
-    return nbytes, 2 * rows * k * n, (k, n)
+    flops = 2 * rows * k * n
+    if lora_ids is not None:
+        adapters = len({i for i in lora_ids if i})
+        targets = 2 if kernel == "qkv" else 1      # qkv: q's A and kv's A
+        nbytes += (adapters * (targets * k + n) * LORA_RANK * 4
+                   + rows * 4)
+        flops += 2 * sum(i != 0 for i in lora_ids) * LORA_RANK * (
+            targets * k + n)
+    return nbytes, flops, (k, n)
 
 
-def _fused_times(state, model="model"):
+def _fused_times(state, model="model", lora=False):
     """Each fused kernel at the decode (8 rows) and prefill-chunk (32
     rows) shapes of llama3-8b, rotating through the served model's 32
     layers so that every launch finds its weights cold (each layer's
@@ -1558,16 +2202,28 @@ def _fused_times(state, model="model"):
     port never calls, one torch.matmul of the same product (the GEMM
     alone; for resident int8 weights, on the weights dequantized to bf16
     in advance, which are twice the int8 bytes). model: "model" (bf16
-    weights) or "qmodel" (serve_quant's resident int8 weights)."""
+    weights) or "qmodel" (serve_quant's resident int8 weights). lora: the
+    kernels with their LoRA epilogue, each layer's banks from serve_lora's
+    cache (rank 8; the 8 rows on LORA_DECODE_IDS, the 32 on one adapter),
+    against the plain versions with the same deltas."""
     from megatronapp_tpu_torch.inference.quantization import (
         is_resident_leaf, resolve_param,
     )
     from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    import numpy as np
+
+    from megatronapp_tpu_torch.ops.lora import LoraRows
     params, cfg, dev = state[model]
     layers = list(params["layers"])
     int8 = is_resident_leaf(layers[0]["attention"]["q_kernel"])
-    before = dict(fd.launches)
+    before = dict(fd.launches), dict(fd.lora_launches)
+    cache = state["lora_cache"] if lora else None
+    if lora:
+        for aid in LORA_ADAPTERS[:4]:
+            cache.acquire(aid)      # slots 1..4 hold adapters (pinned)
+        layer_banks = [{t: (a[i], b[i]) for t, (a, b) in cache.banks.items()}
+                       for i in range(len(layers))]
     gen = torch.Generator(dev).manual_seed(77)
     it = {"i": 0}
 
@@ -1582,6 +2238,13 @@ def _fused_times(state, model="model"):
 
     out = {}
     for rows in (8, 32):
+        ids = (LORA_DECODE_IDS if rows == 8 else [3] * rows) if lora else None
+        segs = LoraRows(np.asarray(ids), dev) if lora else None
+
+        def lo():
+            return None if not lora else {"row_adapter": segs,
+                                          "banks": layer_banks[it["i"]]}
+
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=dev).to(
                 torch.bfloat16)
@@ -1592,15 +2255,18 @@ def _fused_times(state, model="model"):
         cos_t, sin_t = gpt_rope_tables(cfg, 2048, device=dev)
         cos, sin = cos_t[pos], sin_t[pos]
         calls = {
-            "qkv": (lambda: fd.fused_qkv(x, nxt(), cfg, cos, sin),
-                    lambda: fd.fused_qkv_plain(x, nxt(), cfg, cos, sin), x),
-            "out_proj": (lambda: fd.fused_out_proj(attn, nxt(), cfg, x),
+            "qkv": (lambda: fd.fused_qkv(x, nxt(), cfg, cos, sin, lo()),
+                    lambda: fd.fused_qkv_plain(x, nxt(), cfg, cos, sin,
+                                               lo()), x),
+            "out_proj": (lambda: fd.fused_out_proj(attn, nxt(), cfg, x, lo()),
                          lambda: fd.fused_out_proj_plain(attn, nxt(), cfg,
-                                                         x), attn),
-            "mlp_fc1": (lambda: fd.fused_mlp_fc1(x, nxt(), cfg),
-                        lambda: fd.fused_mlp_fc1_plain(x, nxt(), cfg), x),
-            "mlp_fc2": (lambda: fd.fused_mlp_fc2(y, x, nxt(), cfg),
-                        lambda: fd.fused_mlp_fc2_plain(y, x, nxt(), cfg), y),
+                                                         x, lo()), attn),
+            "mlp_fc1": (lambda: fd.fused_mlp_fc1(x, nxt(), cfg, lo()),
+                        lambda: fd.fused_mlp_fc1_plain(x, nxt(), cfg, lo()),
+                        x),
+            "mlp_fc2": (lambda: fd.fused_mlp_fc2(y, x, nxt(), cfg, lo()),
+                        lambda: fd.fused_mlp_fc2_plain(y, x, nxt(), cfg,
+                                                       lo()), y),
         }
         per = {}
         for kernel, (kern, plain, a) in calls.items():
@@ -1621,15 +2287,15 @@ def _fused_times(state, model="model"):
                              else weight(p, kernel))
             # plain, kernel, kernel, plain: compare within one card and
             # call; device time (see device_ms), and the host-paced loop.
-            p1 = device_ms(plain)
+            p1 = device_ms(plain, calls=PLAIN_CALLS)
             k1 = device_ms(kern)
             k2 = device_ms(kern)
-            p2 = device_ms(plain)
+            p2 = device_ms(plain, calls=PLAIN_CALLS)
             lib_ms = device_ms(lib)
             loop_ms = cuda_time_ms(kern)
             del ws
             nbytes, flops, (kk, nn) = _fused_bytes_flops(cfg, kernel, rows,
-                                                         int8)
+                                                         int8, ids)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / BF16_FLOPS_PER_S * 1e3
             per[kernel] = {
@@ -1643,8 +2309,14 @@ def _fused_times(state, model="model"):
                 "shape": {"rows": rows, "k": kk, "n": nn},
                 "achieved_bytes_per_s": nbytes / ((k1 + k2) / 2e3)}
         out[rows] = per
-    fd.launches.update(before)
-    state["fused_int8_times" if int8 else "fused_times"] = out
+    fd.launches.update(before[0])
+    fd.lora_launches.update(before[1])
+    if lora:
+        for aid in LORA_ADAPTERS[:4]:
+            cache.release(cache.slot_of(aid))
+        cache.audit()
+    state[("fused_int8" if int8 else "fused") + ("_lora" if lora else "")
+          + "_times"] = out
     return {"note": "kernel, plain and library ms are device time per "
                     "call (device_ms: queued behind a sleep, timed with "
                     "CUDA events); loop_ms_per_call is CUDA "
@@ -1656,7 +2328,7 @@ def _fused_times(state, model="model"):
                     "GEMM alone; QKV, and every int8 kernel: bf16 weights "
                     "made in advance, QKV's [Wq | Wkv] concatenated, 4 "
                     "layers rotated)", "weights": "resident int8" if int8
-            else "bf16", "rows": out}
+            else "bf16", "lora_epilogue": lora, "rows": out}
 
 
 # ---------------------------------------------------------------------------
@@ -2191,6 +2863,32 @@ def kernel_table(state):
                 "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
                 "library_ms": t.get("library_ms")})
+    lt = state.get("lora_times", {}).get("rows8_mixed", {}).get(
+        "layer_sum", {})
+    out.append({
+        "name": "lora_delta (the five targets of one layer, 8 rows)",
+        "route": "cuda", "source": LORA_SOURCE, "replaces": LORA_REPLACES,
+        "launches": state.get("lora_delta_launches"),
+        "max_abs_err": state.get("lora_err"),
+        "ms": lt.get("kernel_ms"), "plain_ms": lt.get("plain_ms"),
+        "bound_ms": lt.get("bound_ms"), "bound_by": "bytes",
+        "library_ms": lt.get("library_ms")})
+    for variant, times in (("", "fused_lora_times"),
+                           ("_int8", "fused_int8_lora_times")):
+        for kernel in FUSED_KERNELS:
+            t = state.get(times, {}).get(8, {}).get(kernel, {})
+            out.append({
+                "name": f"fused_{kernel}{variant}_lora", "route": "cuda",
+                "source": FUSED_SOURCE,
+                "replaces": LORA_EPILOGUE_REPLACES[kernel] + (
+                    " (resident int8 weights)" if variant else ""),
+                "launches": state.get("lora_epilogue_launches", {}).get(
+                    kernel + variant),
+                "max_abs_err": state.get("lora_epilogue_err", {}).get(
+                    kernel + variant),
+                "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+                "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+                "library_ms": t.get("library_ms")})
     for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
         t = state.get("flash_times", {}).get(kernel, {})
         out.append({
@@ -2238,6 +2936,8 @@ def main(argv=None) -> int:
         phase_kv_quant_kernels(state)
         phase_fused_int8_kernels(state)
         phase_quant_reference(state)
+        phase_lora_kernels(state)
+        phase_lora_reference(state)
         phase_train_kernels(state)
         phase_train_reference(state)
         phase_train(state, args.train_layers)
@@ -2245,6 +2945,7 @@ def main(argv=None) -> int:
         phase_serve(state, args.layers)
         phase_serve_fused(state)
         phase_serve_quant(state)
+        phase_serve_lora(state)
         phase_profile(state)
         phase_times(state)
     except SmokeFailure as e:

@@ -73,6 +73,29 @@
 // NVIDIA H100 80GB HBM3 at 700.00 W measured them at 1.05-1.19x the bf16
 // kernels, 3.9-6.7x their halved byte bound. Each thread loads its
 // columns' scales once, before the k loop.
+//
+// LoRA epilogue (template flag LORA; the off path compiles as before).
+// Replaces the epilogue of the same TPU kernels with lora= (kernel_gen.py
+// _lora_epilogue :1130 in the bodies at :1242-1245, :1552-1554,
+// :1672-1683): each row r adds delta = bf16((x_r @ A[s_r]) @ B[s_r]) to its
+// base sum after the sum's bf16 rounding and before the bias, from the same
+// input the base product reads (the normed xn of QKV and fc1, attn_flat of
+// the out-projection, the activated y of fc2), with A [slots, K, rank] and
+// B [slots, rank, N] one layer's fp32 banks (inference/lora.py) indexed by
+// each row's slot id s_r (0: the NULL adapter, a delta of exactly +0.0, no
+// bank read). JAX gathers per-row factors outside its kernels
+// (_lora_gathered :1928); at a 32-row prefill chunk the gathered fc1 B
+// factors alone are 32 x 8 x 28672 x 4 B = 29 MB a layer, so these kernels
+// read the banks in place through the slot ids instead. Each block forms
+// the partial t = x_r @ A over its K split from the activations it stages
+// for the base product (the (row, j) sums split over the threads by k,
+// added in a fixed order); K-split blocks pass their partial t beside their
+// partial tile and the finishing block adds them in split order, so a rerun
+// repeats every bit. The finishing block then reads its 128 columns of
+// B[s_r] for each row. The extra bytes are the A rows of the block's k
+// range per distinct adapter (L2-resident after the first block), staged
+// into shared memory once per chunk and adapter with coalesced loads, and
+// 128 x rank floats of B per row: small beside the weights at rank 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -196,8 +219,97 @@ struct GemmArgs {
   int ksplit;
 };
 
-size_t smem_bytes(int rb) {
-  return (size_t)(kRegion + rb * kTile + 2 * rb + 4) * sizeof(float);
+constexpr int kMaxRank = 32;                // LoRA rank limit
+constexpr int kLoraRows = 8;                // rows whose t sums a thread keeps
+constexpr int kLoraStage = 4096;            // floats of one adapter's A staged
+
+// The LoRA epilogue's operands for one target (a == nullptr: no epilogue).
+struct LoraArgs {
+  const float* a;     // A bank [slots, k, rank]
+  const float* b;     // B bank [slots, rank, ldb]
+  const int* ids;     // [rows] bank slot of each row (0: the NULL adapter)
+  int rank, ldb;
+  int b0, b1;         // B columns of virtual columns 0 and kHalfTile
+  float* ws;          // [tiles * row chunks, ksplit, RB * rank] partial t
+};
+
+// The LoRA region of shared memory, past the base kernels' region.
+template <int RB>
+struct LoraSmem {
+  float* abuf;        // [k's][rank] rows of one adapter's A (16-byte aligned)
+  float* part;        // [RB * rank][k parts] partial sums (<= 8 kThreads)
+  float* t;           // [RB][rank] t = x @ A of the block's rows
+  int* slot;          // [RB] the rows' bank slots
+  int* dslot;         // [RB] their distinct adapters (not NULL), then
+  int* nd;            // their count
+  __device__ explicit LoraSmem(float* smem)
+      : abuf(smem + kRegion + RB * kTile + 2 * RB + 4),
+        part(abuf + kLoraStage),
+        t(part + kLoraRows * kThreads),
+        slot(reinterpret_cast<int*>(t + RB * kMaxRank)),
+        dslot(slot + RB),
+        nd(dslot + RB) {}
+};
+
+size_t smem_bytes(int rb, bool lora) {
+  return (size_t)(kRegion + rb * kTile + 2 * rb + 4 +
+                  (lora ? kLoraStage + kLoraRows * kThreads + rb * kMaxRank +
+                              2 * rb + 1
+                        : 0)) *
+         sizeof(float);
+}
+
+// Copies n floats of global memory into shared memory with 8 loads in
+// flight a thread (16-byte loads when vec: both 16-byte aligned).
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int n, bool vec) {
+  constexpr int kBatch = 8;
+  int done = 0;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const int n4 = n / 4;
+    for (int i0 = threadIdx.x; i0 < n4; i0 += kThreads * kBatch) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (i0 + u * kThreads < n4) v[u] = __ldg(s4 + i0 + u * kThreads);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (i0 + u * kThreads < n4) d4[i0 + u * kThreads] = v[u];
+    }
+    done = n4 * 4;
+  }
+  for (int i0 = done + threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kThreads < n) v[u] = __ldg(src + i0 + u * kThreads);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kThreads < n) dst[i0 + u * kThreads] = v[u];
+  }
+}
+
+// delta[r][vc] = t_r @ B[slot_r][:, column of virtual column vc], fp32 in
+// rank order; exactly 0 for the NULL adapter.
+template <int RB>
+__device__ __forceinline__ float lora_delta_at(const LoraArgs& la,
+                                               const LoraSmem<RB>& ls, int r,
+                                               int vc) {
+  const int slot = ls.slot[r];
+  if (slot == 0) return 0.f;
+  const int col = vc < kHalfTile ? la.b0 + vc : la.b1 + (vc - kHalfTile);
+  const float* bp = la.b + (size_t)slot * la.rank * la.ldb + col;
+  const float* t = ls.t + r * la.rank;
+  float d = 0.f;
+  for (int j = 0; j < la.rank; ++j) d = fmaf(t[j], bp[(size_t)j * la.ldb], d);
+  return d;
+}
+
+// v (a rounded base sum) + bf16(delta), rounded: q + d.astype(cdt).
+__device__ __forceinline__ float add_delta(float v, float d) {
+  return round_bf16(__fadd_rn(v, round_bf16(d)));
 }
 
 // Sums this block's [RB, kTile] tile of bf16(norm(x)) @ W over its k split.
@@ -206,10 +318,14 @@ size_t smem_bytes(int rb) {
 // s1 (null otherwise). Returns true in the block that then holds the
 // finished fp32 sums in `tile` (every block when ksplit == 1, else the last
 // of the tile's blocks to finish) and false in the others, which exit.
-template <int RB, typename TW, typename TV>
+// LORA: the block also sums t = x @ A[slot] of its rows over its k split
+// (the same staged x), and the finishing block holds the whole t of each
+// row in LoraSmem's t, its rows' slots in LoraSmem's slot.
+template <int RB, typename TW, typename TV, bool LORA>
 __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
                                 const TW* w1, const float* s0,
-                                const float* s1, size_t ldw, float* smem) {
+                                const float* s1, size_t ldw, float* smem,
+                                const LoraArgs& la) {
   using P = Plan<RB, TW>;
   float* xs = smem;                  // [kChunk][RB] staged activations
   float* red = smem;                 // [kGroups][RB][kTile], after the k loop
@@ -277,6 +393,30 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
     for (int c = 0; c < P::kCpl; ++c) sc[c] = sp[c];
   }
 
+  // LoRA: thread (row group lg of 8 rows, j, k part lq) owns the partial
+  // sums part[(row * rank + j) * parts + lq] of t for the group's 8 rows,
+  // kept in shared memory (no register of them lives across the weight
+  // loop) and summed over its k's lq, lq + parts, ... of each chunk. Each
+  // distinct adapter's A rows of the chunk are staged once in shared memory
+  // (coalesced, 8 loads in flight a thread) and used for every row on it.
+  const LoraSmem<RB> ls(smem);
+  constexpr int kGroupsL = RB / kLoraRows;
+  if constexpr (LORA) {
+    if (tid < RB) ls.slot[tid] = tid < rows ? la.ids[row0 + tid] : 0;
+    for (int i = tid; i < kLoraRows * kThreads; i += kThreads) ls.part[i] = 0.f;
+    __syncthreads();
+    if (tid == 0) {
+      int nd = 0;
+      for (int r = 0; r < RB; ++r) {
+        const int slot = ls.slot[r];
+        bool seen = slot == 0;
+        for (int d = 0; d < nd; ++d) seen = seen || ls.dslot[d] == slot;
+        if (!seen) ls.dslot[nd++] = slot;
+      }
+      *ls.nd = nd;
+    }
+  }
+
   for (int c0 = k_begin; c0 < k_end; c0 += kChunk) {
     const int kc = min(kChunk, k_end - c0);
     __syncthreads();   // statistics written; the previous chunk consumed
@@ -336,6 +476,44 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
         }
       }
     }
+
+    if constexpr (LORA) {   // partial t over this chunk, from the staged x
+      const int rank = la.rank;
+      const int lparts = max(1, kThreads / (rank * kGroupsL));
+      const int lj = tid % rank, lq = (tid / rank) % lparts;
+      const int lg = tid / (rank * lparts);
+      // k's a staging pass: a multiple of lparts that fits abuf.
+      const int sub = max(lparts, kLoraStage / rank / lparts * lparts);
+      const bool vec = rank % 4 == 0;          // A's rows 16-byte aligned
+      const int nd = *ls.nd;
+      for (int d = 0; d < nd; ++d) {
+        const int slot = ls.dslot[d];
+        for (int k_lo = 0; k_lo < kc; k_lo += sub) {
+          const int kn = min(sub, kc - k_lo);
+          __syncthreads();                     // abuf's last pass is consumed
+          stage_floats(ls.abuf, la.a + ((size_t)slot * a.k + c0 + k_lo) * rank,
+                       kn * rank, vec);
+          __syncthreads();
+          if (lg < kGroupsL) {
+            const int* slots = ls.slot + lg * kLoraRows;
+            float* pp = ls.part + (lg * kLoraRows * rank + lj) * lparts + lq;
+            const int row_stride = rank * lparts;
+            float acc[kLoraRows];
+#pragma unroll
+            for (int r8 = 0; r8 < kLoraRows; ++r8) acc[r8] = pp[r8 * row_stride];
+            for (int kk = lq; kk < kn; kk += lparts) {
+              const float av = ls.abuf[kk * rank + lj];
+              const float* xk = xs + (k_lo + kk) * RB + lg * kLoraRows;
+#pragma unroll
+              for (int r8 = 0; r8 < kLoraRows; ++r8)   // slots: uniform
+                if (slots[r8] == slot) acc[r8] = fmaf(xk[r8], av, acc[r8]);
+            }
+#pragma unroll
+            for (int r8 = 0; r8 < kLoraRows; ++r8) pp[r8 * row_stride] = acc[r8];
+          }
+        }
+      }
+    }
   }
 
   // The kGroups partial sums of each output, added in group order.
@@ -352,8 +530,22 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
     tile[i] = s;
   }
 
+  const int unit = blockIdx.z * gridDim.x + blockIdx.x;
+  const int npairs = LORA ? RB * la.rank : 0;   // t's (row, j) entries
+  float* lpart = nullptr;   // this unit's partial t, [ksplit][RB * rank]
+  if constexpr (LORA) {     // the block's t: its k parts added in order
+    const int lparts = max(1, kThreads / (la.rank * kGroupsL));
+    __syncthreads();
+    if (a.ksplit > 1) lpart = la.ws + (size_t)unit * a.ksplit * npairs;
+    for (int p = tid; p < npairs; p += kThreads) {
+      float s = ls.part[p * lparts];
+      for (int q = 1; q < lparts; ++q) s += ls.part[p * lparts + q];
+      ls.t[p] = s;
+      if (lpart != nullptr) lpart[(size_t)blockIdx.y * npairs + p] = s;
+    }
+  }
+
   if (a.ksplit > 1) {
-    const int unit = blockIdx.z * gridDim.x + blockIdx.x;
     float* part = a.ws + (size_t)unit * a.ksplit * RB * kTile;
     for (int i = tid; i < RB * kTile; i += kThreads)
       part[(size_t)blockIdx.y * RB * kTile + i] = tile[i];
@@ -368,6 +560,14 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
       for (int sp = 1; sp < a.ksplit; ++sp)
         s += __ldcg(part + (size_t)sp * RB * kTile + i);
       tile[i] = s;
+    }
+    if constexpr (LORA) {
+      for (int p = tid; p < npairs; p += kThreads) {
+        float s = __ldcg(lpart + p);
+        for (int sp = 1; sp < a.ksplit; ++sp)
+          s += __ldcg(lpart + (size_t)sp * npairs + p);
+        ls.t[p] = s;
+      }
     }
     if (tid == 0) a.counters[unit] = 0;
   }
@@ -384,14 +584,15 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
 // rope run in the block on the finished sums; the tile's K split (6 blocks a
 // tile at R 8 on llama3-8b) fills the card.
 // ---------------------------------------------------------------------------
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
                  const float* q_scale, const float* kv_scale,
                  const TV* q_bias, const TV* kv_bias, const TV* q_ln,
                  const TV* k_ln, const float* cos, const float* sin,
                  bf16* q_out, bf16* k_out, bf16* v_out, int nq_cols,
-                 int nkv_cols, int head_dim, int rope_half) {
+                 int nkv_cols, int head_dim, int rope_half, LoraArgs lq,
+                 LoraArgs lkv) {
   extern __shared__ __align__(16) float smem[];
   const int col0 = blockIdx.x * kTile;
   const bool is_q = col0 < nq_cols;
@@ -400,12 +601,17 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
   const float* sbase = q_scale == nullptr ? nullptr
       : is_q ? q_scale + col0 : kv_scale + (col0 - nq_cols);
   const size_t ldw = is_q ? nq_cols : 2 * nkv_cols;
-  if (!accumulate_tile<RB, TW, TV>(a, base, base + kHalfTile, sbase,
-                                   sbase == nullptr ? nullptr : sbase + kHalfTile,
-                                   ldw, smem))
+  // The tile's adapter: q's factors, or [K | V]'s by the same column.
+  LoraArgs la = is_q ? lq : lkv;
+  la.b0 = is_q ? col0 : col0 - nq_cols;
+  la.b1 = la.b0 + kHalfTile;
+  if (!accumulate_tile<RB, TW, TV, LORA>(
+          a, base, base + kHalfTile, sbase,
+          sbase == nullptr ? nullptr : sbase + kHalfTile, ldw, smem, la))
     return;
 
   float* tile = smem + kRegion;
+  const LoraSmem<RB> ls(smem);
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
   // 0: q, 1: k, 2: v; bias0 indexes q_bias or the packed kv_bias.
@@ -416,6 +622,7 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
 
   for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
     float v = round_bf16(tile[i]);
+    if constexpr (LORA) v = add_delta(v, lora_delta_at<RB>(la, ls, i / kTile, i % kTile));
     if (bias != nullptr)
       v = round_bf16(__fadd_rn(v, round_bf16(load_f(bias, bias0 + i % kTile))));
     tile[i] = v;
@@ -461,16 +668,19 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
 
 // out = bf16(residual + bf16(bf16(sums) + bf16(bias))), the out-projection's
 // and fc2's epilogue (kernel_gen.py :1556-1558, :1829-1832).
-template <int RB, typename TV>
-__device__ void residual_epilogue(const GemmArgs<TV>& a, const float* tile,
+template <int RB, typename TV, bool LORA>
+__device__ void residual_epilogue(const GemmArgs<TV>& a, float* smem,
                                   const TV* bias, const bf16* residual,
-                                  bf16* out, int n_cols) {
+                                  bf16* out, int n_cols, const LoraArgs& la) {
+  const float* tile = smem + kRegion;
+  const LoraSmem<RB> ls(smem);
   const int col0 = blockIdx.x * kTile;
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
   for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
     const int r = i / kTile, c = i % kTile;
     float v = round_bf16(tile[i]);
+    if constexpr (LORA) v = add_delta(v, lora_delta_at<RB>(la, ls, r, c));
     if (bias != nullptr) v = round_bf16(__fadd_rn(v, round_bf16(load_f(bias, col0 + c))));
     const size_t o = (size_t)(row0 + r) * n_cols + col0 + c;
     out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(residual[o]), v));
@@ -484,19 +694,21 @@ __device__ void residual_epilogue(const GemmArgs<TV>& a, const float* tile,
 // each tile split along the nq*D contraction (8 blocks a tile at R 8 on
 // llama3-8b: 32 tiles alone would leave 100 of 132 SMs idle).
 // ---------------------------------------------------------------------------
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_out_proj_kernel(GemmArgs<TV> a, const TW* w, const float* w_scale,
                       const TV* bias, const bf16* residual, bf16* out,
-                      int n_cols) {
+                      int n_cols, LoraArgs la) {
   extern __shared__ __align__(16) float smem[];
   const TW* base = w + blockIdx.x * kTile;
   const float* sbase = w_scale == nullptr ? nullptr : w_scale + blockIdx.x * kTile;
-  if (!accumulate_tile<RB, TW, TV>(a, base, base + kHalfTile, sbase,
-                                   sbase == nullptr ? nullptr : sbase + kHalfTile,
-                                   n_cols, smem))
+  la.b0 = blockIdx.x * kTile;
+  la.b1 = la.b0 + kHalfTile;
+  if (!accumulate_tile<RB, TW, TV, LORA>(
+          a, base, base + kHalfTile, sbase,
+          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem, la))
     return;
-  residual_epilogue<RB, TV>(a, smem + kRegion, bias, residual, out, n_cols);
+  residual_epilogue<RB, TV, LORA>(a, smem, bias, residual, out, n_cols, la);
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -514,24 +726,30 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // as the TPU kernel passes the weight twice (:1742-1746); plain kinds own
 // 128 columns. 224 tiles at llama3-8b already fill the card at R 8.
 // ---------------------------------------------------------------------------
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
-                     const TV* b1, bf16* y, int ffn, int act) {
+                     const TV* b1, bf16* y, int ffn, int act, LoraArgs la) {
   extern __shared__ __align__(16) float smem[];
   const bool gated = act == kSwiglu || act == kGeglu;
   const int width = gated ? kHalfTile : kTile;
   const int j0 = blockIdx.x * width;
   const TW* seg0 = w1 + j0;
   const TW* seg1 = gated ? w1 + ffn + j0 : seg0 + kHalfTile;
-  // The scales of the two segments' columns, indexed as the weights are.
+  // The scales of the two segments' columns, indexed as the weights are,
+  // and the B factor's columns likewise (gated: [gate | value]).
   const float* sc0 = w1_scale == nullptr ? nullptr : w1_scale + j0;
   const float* sc1 = w1_scale == nullptr ? nullptr
       : gated ? w1_scale + ffn + j0 : sc0 + kHalfTile;
   const size_t ldw = gated ? 2 * (size_t)ffn : (size_t)ffn;
-  if (!accumulate_tile<RB, TW, TV>(a, seg0, seg1, sc0, sc1, ldw, smem)) return;
+  la.b0 = j0;
+  la.b1 = gated ? ffn + j0 : j0 + kHalfTile;
+  if (!accumulate_tile<RB, TW, TV, LORA>(a, seg0, seg1, sc0, sc1, ldw, smem,
+                                         la))
+    return;
 
   const float* tile = smem + kRegion;
+  const LoraSmem<RB> ls(smem);
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
   for (int i = threadIdx.x; i < rows * width; i += kThreads) {
@@ -540,6 +758,10 @@ fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
     if (gated) {
       float g = round_bf16(tile[r * kTile + c]);
       float v = round_bf16(tile[r * kTile + kHalfTile + c]);
+      if constexpr (LORA) {
+        g = add_delta(g, lora_delta_at<RB>(la, ls, r, c));
+        v = add_delta(v, lora_delta_at<RB>(la, ls, r, kHalfTile + c));
+      }
       if (b1 != nullptr) {
         g = round_bf16(__fadd_rn(g, round_bf16(load_f(b1, j))));
         v = round_bf16(__fadd_rn(v, round_bf16(load_f(b1, (size_t)ffn + j))));
@@ -550,6 +772,7 @@ fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
       out = __fmul_rn(round_bf16(ga), v);
     } else {
       float v = round_bf16(tile[r * kTile + c]);
+      if constexpr (LORA) v = add_delta(v, lora_delta_at<RB>(la, ls, r, c));
       if (b1 != nullptr) v = round_bf16(__fadd_rn(v, round_bf16(load_f(b1, j))));
       if (act == kGelu) {
         out = gelu_tanh(v);
@@ -568,19 +791,21 @@ fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
 // a llama3-8b layer). y [R, ffn] @ W2 over 128-column tiles of H, each tile
 // split along the ffn contraction (9 blocks a tile at R 8 on llama3-8b).
 // ---------------------------------------------------------------------------
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mlp_fc2_kernel(GemmArgs<TV> a, const TW* w2, const float* w2_scale,
                      const TV* b2, const bf16* residual, bf16* out,
-                     int n_cols) {
+                     int n_cols, LoraArgs la) {
   extern __shared__ __align__(16) float smem[];
   const TW* base = w2 + blockIdx.x * kTile;
   const float* sbase = w2_scale == nullptr ? nullptr : w2_scale + blockIdx.x * kTile;
-  if (!accumulate_tile<RB, TW, TV>(a, base, base + kHalfTile, sbase,
-                                   sbase == nullptr ? nullptr : sbase + kHalfTile,
-                                   n_cols, smem))
+  la.b0 = blockIdx.x * kTile;
+  la.b1 = la.b0 + kHalfTile;
+  if (!accumulate_tile<RB, TW, TV, LORA>(
+          a, base, base + kHalfTile, sbase,
+          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem, la))
     return;
-  residual_epilogue<RB, TV>(a, smem + kRegion, b2, residual, out, n_cols);
+  residual_epilogue<RB, TV, LORA>(a, smem, b2, residual, out, n_cols, la);
 }
 
 // ---------------------------------------------------------------------------
@@ -602,6 +827,12 @@ struct Launch {
   int rows, k, n;                           // n: output columns
   int nkv_cols, head_dim, rope_half, act;
   int ksplit;
+  // LoRA epilogue (lora_ids == null: none): A/B banks of the target (QKV:
+  // q's; lora_a2/lora_b2 the kv target's), the rows' slots, the rank and
+  // the K-split workspace of partial t.
+  const void *lora_a, *lora_b, *lora_a2, *lora_b2, *lora_ids;
+  int lora_rank;
+  void* lora_ws;
   void* stream;
 };
 
@@ -621,9 +852,21 @@ GemmArgs<TV> gemm_args(const Launch& l) {
   return a;
 }
 
-template <int RB, typename Kernel, typename... Args>
+// One target's LoraArgs (B's row stride ldb); the kernels set b0 and b1.
+LoraArgs lora_args(const Launch& l, const void* a, const void* b, int ldb) {
+  LoraArgs la = {};
+  la.a = static_cast<const float*>(a);
+  la.b = static_cast<const float*>(b);
+  la.ids = static_cast<const int*>(l.lora_ids);
+  la.rank = l.lora_rank;
+  la.ldb = ldb;
+  la.ws = static_cast<float*>(l.lora_ws);
+  return la;
+}
+
+template <int RB, bool LORA, typename Kernel, typename... Args>
 int launch(Kernel kernel, int tiles, const Launch& l, Args... args) {
-  const size_t smem = smem_bytes(RB);
+  const size_t smem = smem_bytes(RB, LORA);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -633,11 +876,11 @@ int launch(Kernel kernel, int tiles, const Launch& l, Args... args) {
   return (int)cudaGetLastError();
 }
 
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 int launch_qkv(const Launch& l) {
   const int nq_cols = l.n - 2 * l.nkv_cols;
-  return launch<RB>(
-      fused_qkv_kernel<RB, TW, TV>, l.n / kTile, l, gemm_args<TV>(l),
+  return launch<RB, LORA>(
+      fused_qkv_kernel<RB, TW, TV, LORA>, l.n / kTile, l, gemm_args<TV>(l),
       static_cast<const TW*>(l.w), static_cast<const TW*>(l.wkv),
       static_cast<const float*>(l.w_scale),
       static_cast<const float*>(l.kv_scale),
@@ -646,43 +889,54 @@ int launch_qkv(const Launch& l) {
       static_cast<const float*>(l.cos), static_cast<const float*>(l.sin),
       static_cast<bf16*>(l.out), static_cast<bf16*>(l.k_out),
       static_cast<bf16*>(l.v_out), nq_cols, l.nkv_cols, l.head_dim,
-      l.rope_half);
+      l.rope_half, lora_args(l, l.lora_a, l.lora_b, nq_cols),
+      lora_args(l, l.lora_a2, l.lora_b2, 2 * l.nkv_cols));
 }
 
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 int launch_out_proj(const Launch& l) {
-  return launch<RB>(fused_out_proj_kernel<RB, TW, TV>, l.n / kTile, l,
-                    gemm_args<TV>(l), static_cast<const TW*>(l.w),
-                    static_cast<const float*>(l.w_scale),
-                    static_cast<const TV*>(l.bias),
-                    static_cast<const bf16*>(l.residual),
-                    static_cast<bf16*>(l.out), l.n);
+  return launch<RB, LORA>(
+      fused_out_proj_kernel<RB, TW, TV, LORA>, l.n / kTile, l,
+      gemm_args<TV>(l), static_cast<const TW*>(l.w),
+      static_cast<const float*>(l.w_scale), static_cast<const TV*>(l.bias),
+      static_cast<const bf16*>(l.residual), static_cast<bf16*>(l.out), l.n,
+      lora_args(l, l.lora_a, l.lora_b, l.n));
 }
 
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 int launch_fc2(const Launch& l) {
-  return launch<RB>(fused_mlp_fc2_kernel<RB, TW, TV>, l.n / kTile, l,
-                    gemm_args<TV>(l), static_cast<const TW*>(l.w),
-                    static_cast<const float*>(l.w_scale),
-                    static_cast<const TV*>(l.bias),
-                    static_cast<const bf16*>(l.residual),
-                    static_cast<bf16*>(l.out), l.n);
+  return launch<RB, LORA>(
+      fused_mlp_fc2_kernel<RB, TW, TV, LORA>, l.n / kTile, l,
+      gemm_args<TV>(l), static_cast<const TW*>(l.w),
+      static_cast<const float*>(l.w_scale), static_cast<const TV*>(l.bias),
+      static_cast<const bf16*>(l.residual), static_cast<bf16*>(l.out), l.n,
+      lora_args(l, l.lora_a, l.lora_b, l.n));
 }
 
-template <int RB, typename TW, typename TV>
+template <int RB, typename TW, typename TV, bool LORA>
 int launch_fc1(const Launch& l) {
   const bool gated = l.act == kSwiglu || l.act == kGeglu;
-  return launch<RB>(fused_mlp_fc1_kernel<RB, TW, TV>,
-                    l.n / (gated ? kHalfTile : kTile), l, gemm_args<TV>(l),
-                    static_cast<const TW*>(l.w),
-                    static_cast<const float*>(l.w_scale),
-                    static_cast<const TV*>(l.bias), static_cast<bf16*>(l.out),
-                    l.n, l.act);
+  return launch<RB, LORA>(
+      fused_mlp_fc1_kernel<RB, TW, TV, LORA>,
+      l.n / (gated ? kHalfTile : kTile), l, gemm_args<TV>(l),
+      static_cast<const TW*>(l.w), static_cast<const float*>(l.w_scale),
+      static_cast<const TV*>(l.bias), static_cast<bf16*>(l.out), l.n, l.act,
+      lora_args(l, l.lora_a, l.lora_b, (gated ? 2 : 1) * l.n));
 }
 
 bool bad_split(const Launch& l) {
   return l.rows < 1 || l.k < 8 || l.k % 8 != 0 || l.ksplit < 1 ||
          (l.ksplit > 1 && (l.ws == nullptr || l.counters == nullptr));
+}
+
+// A LoRA epilogue needs its factors (both pairs for QKV), a rank of 1..32
+// and, K-split, the partial-t workspace.
+bool bad_lora(const Launch& l, bool two_targets) {
+  if (l.lora_ids == nullptr) return false;
+  return l.lora_rank < 1 || l.lora_rank > kMaxRank || l.lora_a == nullptr ||
+         l.lora_b == nullptr ||
+         (two_targets && (l.lora_a2 == nullptr || l.lora_b2 == nullptr)) ||
+         (l.ksplit > 1 && l.lora_ws == nullptr);
 }
 
 // Weight kinds: bf16 weights with bf16 norm scales and biases, fp32 with
@@ -696,27 +950,33 @@ bool bad_kind(int weight_kind, int vector_f32, const void* w_scale) {
 }
 
 // One launcher template at the row block for the rows, over the four
-// (weight, vector) type pairs.
-template <template <int, typename, typename> class L>
-int dispatch(const Launch& l, int weight_kind, int vector_f32) {
+// (weight, vector) type pairs, with or without the LoRA epilogue.
+template <template <int, typename, typename, bool> class L, bool LORA>
+int dispatch_kind(const Launch& l, int weight_kind, int vector_f32) {
   const bool small = l.rows <= 8;
   if (weight_kind == kWeightBf16)
-    return small ? L<8, bf16, bf16>::run(l) : L<32, bf16, bf16>::run(l);
+    return small ? L<8, bf16, bf16, LORA>::run(l) : L<32, bf16, bf16, LORA>::run(l);
   if (weight_kind == kWeightF32)
-    return small ? L<8, float, float>::run(l) : L<32, float, float>::run(l);
+    return small ? L<8, float, float, LORA>::run(l) : L<32, float, float, LORA>::run(l);
   if (vector_f32)
-    return small ? L<8, int8_t, float>::run(l) : L<32, int8_t, float>::run(l);
-  return small ? L<8, int8_t, bf16>::run(l) : L<32, int8_t, bf16>::run(l);
+    return small ? L<8, int8_t, float, LORA>::run(l) : L<32, int8_t, float, LORA>::run(l);
+  return small ? L<8, int8_t, bf16, LORA>::run(l) : L<32, int8_t, bf16, LORA>::run(l);
 }
 
-template <int RB, typename TW, typename TV>
-struct QkvL { static int run(const Launch& l) { return launch_qkv<RB, TW, TV>(l); } };
-template <int RB, typename TW, typename TV>
-struct OutProjL { static int run(const Launch& l) { return launch_out_proj<RB, TW, TV>(l); } };
-template <int RB, typename TW, typename TV>
-struct Fc1L { static int run(const Launch& l) { return launch_fc1<RB, TW, TV>(l); } };
-template <int RB, typename TW, typename TV>
-struct Fc2L { static int run(const Launch& l) { return launch_fc2<RB, TW, TV>(l); } };
+template <template <int, typename, typename, bool> class L>
+int dispatch(const Launch& l, int weight_kind, int vector_f32) {
+  if (l.lora_ids != nullptr) return dispatch_kind<L, true>(l, weight_kind, vector_f32);
+  return dispatch_kind<L, false>(l, weight_kind, vector_f32);
+}
+
+template <int RB, typename TW, typename TV, bool LORA>
+struct QkvL { static int run(const Launch& l) { return launch_qkv<RB, TW, TV, LORA>(l); } };
+template <int RB, typename TW, typename TV, bool LORA>
+struct OutProjL { static int run(const Launch& l) { return launch_out_proj<RB, TW, TV, LORA>(l); } };
+template <int RB, typename TW, typename TV, bool LORA>
+struct Fc1L { static int run(const Launch& l) { return launch_fc1<RB, TW, TV, LORA>(l); } };
+template <int RB, typename TW, typename TV, bool LORA>
+struct Fc2L { static int run(const Launch& l) { return launch_fc2<RB, TW, TV, LORA>(l); } };
 
 }  // namespace
 
@@ -730,6 +990,11 @@ struct Fc2L { static int run(const Launch& l) { return launch_fc2<RB, TW, TV>(l)
 // outputs bf16; cos/sin fp32 [rows, rope_half]. ws holds tiles * row chunks
 // * ksplit * RB * 128 floats and counters tiles * row chunks zeroed ints
 // when ksplit > 1 (the kernels leave them zero).
+// LoRA epilogue: lora_ids [rows] int32 bank slots (null: no epilogue), the
+// fp32 banks lora_a [slots, k, lora_rank] and lora_b [slots, lora_rank, n]
+// of one layer (QKV: q's pair, then the kv pair over the packed [K | V]
+// columns), 1 <= lora_rank <= 32; lora_ws holds tiles * row chunks * ksplit
+// * RB * lora_rank floats when ksplit > 1.
 
 // x [rows, hidden]; wq [hidden, nq_cols]; wkv [hidden, 2 nkv_cols] ([K | V]);
 // q [rows, nq_cols], k and v [rows, nkv_cols].
@@ -740,7 +1005,9 @@ extern "C" int fused_qkv_launch(
     const void* q_ln, const void* k_ln, const void* cos, const void* sin,
     void* q, void* k, void* v, void* ws, void* counters, int rows, int hidden,
     int nq_cols, int nkv_cols, int head_dim, int rope_half, int weight_kind,
-    int vector_f32, int ksplit, void* stream) {
+    int vector_f32, int ksplit, const void* lora_aq, const void* lora_bq,
+    const void* lora_akv, const void* lora_bkv, const void* lora_ids,
+    int lora_rank, void* lora_ws, void* stream) {
   Launch l = {};
   l.x = x; l.norm_scale = ln_scale; l.norm_bias = ln_bias; l.norm = norm;
   l.eps = eps; l.w = wq; l.wkv = wkv; l.bias = q_bias; l.kv_bias = kv_bias;
@@ -750,12 +1017,15 @@ extern "C" int fused_qkv_launch(
   l.rows = rows; l.k = hidden; l.n = nq_cols + 2 * nkv_cols;
   l.nkv_cols = nkv_cols; l.head_dim = head_dim; l.rope_half = rope_half;
   l.ksplit = ksplit; l.stream = stream;
+  l.lora_a = lora_aq; l.lora_b = lora_bq; l.lora_a2 = lora_akv;
+  l.lora_b2 = lora_bkv; l.lora_ids = lora_ids; l.lora_rank = lora_rank;
+  l.lora_ws = lora_ws;
   if (bad_split(l) || norm < kNormRms || norm > kNormLayer ||
       (head_dim != 64 && head_dim != 128) || nq_cols % kTile != 0 ||
       nkv_cols % kTile != 0 || rope_half < 0 || 2 * rope_half > head_dim ||
       (cos != nullptr && rope_half == 0) || (q_ln == nullptr) != (k_ln == nullptr) ||
       bad_kind(weight_kind, vector_f32, q_scale) ||
-      (q_scale == nullptr) != (kv_scale == nullptr))
+      (q_scale == nullptr) != (kv_scale == nullptr) || bad_lora(l, true))
     return (int)cudaErrorInvalidValue;
   return dispatch<QkvL>(l, weight_kind, vector_f32);
 }
@@ -767,34 +1037,42 @@ extern "C" int fused_residual_gemm_launch(
     int fc2, const void* x, const void* w, const void* w_scale,
     const void* bias, const void* residual, void* out, void* ws,
     void* counters, int rows, int k, int n, int weight_kind, int vector_f32,
-    int ksplit, void* stream) {
+    int ksplit, const void* lora_a, const void* lora_b, const void* lora_ids,
+    int lora_rank, void* lora_ws, void* stream) {
   Launch l = {};
   l.x = x; l.w = w; l.w_scale = w_scale; l.bias = bias; l.residual = residual;
   l.out = out; l.ws = ws; l.counters = counters; l.rows = rows; l.k = k;
   l.n = n; l.ksplit = ksplit; l.stream = stream; l.norm = kNormNone;
+  l.lora_a = lora_a; l.lora_b = lora_b; l.lora_ids = lora_ids;
+  l.lora_rank = lora_rank; l.lora_ws = lora_ws;
   if (bad_split(l) || n % kTile != 0 || n < kTile ||
-      bad_kind(weight_kind, vector_f32, w_scale))
+      bad_kind(weight_kind, vector_f32, w_scale) || bad_lora(l, false))
     return (int)cudaErrorInvalidValue;
   if (fc2) return dispatch<Fc2L>(l, weight_kind, vector_f32);
   return dispatch<OutProjL>(l, weight_kind, vector_f32);
 }
 
 // x [rows, hidden]; w1 [hidden, ffn] or, gated, [hidden, 2 ffn] ([gate |
-// value]), w1_scale its column scales; y [rows, ffn].
+// value]), w1_scale its column scales; y [rows, ffn]. The LoRA B factor is
+// [slots, rank, ffn] or, gated, [slots, rank, 2 ffn] like w1.
 extern "C" int fused_mlp_fc1_launch(
     const void* x, const void* ln_scale, const void* ln_bias, int norm,
     float eps, const void* w1, const void* w1_scale, const void* b1, void* y,
     void* ws, void* counters, int rows, int hidden, int ffn, int act,
-    int weight_kind, int vector_f32, int ksplit, void* stream) {
+    int weight_kind, int vector_f32, int ksplit, const void* lora_a,
+    const void* lora_b, const void* lora_ids, int lora_rank, void* lora_ws,
+    void* stream) {
   Launch l = {};
   l.x = x; l.norm_scale = ln_scale; l.norm_bias = ln_bias; l.norm = norm;
   l.eps = eps; l.w = w1; l.w_scale = w1_scale; l.bias = b1; l.out = y;
   l.ws = ws; l.counters = counters; l.rows = rows; l.k = hidden; l.n = ffn;
   l.act = act; l.ksplit = ksplit; l.stream = stream;
+  l.lora_a = lora_a; l.lora_b = lora_b; l.lora_ids = lora_ids;
+  l.lora_rank = lora_rank; l.lora_ws = lora_ws;
   const bool gated = act == kSwiglu || act == kGeglu;
   if (bad_split(l) || norm < kNormRms || norm > kNormLayer || act < kSwiglu ||
       act > kSquaredRelu || ffn < kTile || ffn % (gated ? kHalfTile : kTile) != 0 ||
-      bad_kind(weight_kind, vector_f32, w1_scale))
+      bad_kind(weight_kind, vector_f32, w1_scale) || bad_lora(l, false))
     return (int)cudaErrorInvalidValue;
   return dispatch<Fc1L>(l, weight_kind, vector_f32);
 }

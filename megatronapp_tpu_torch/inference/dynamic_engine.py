@@ -16,7 +16,13 @@ the fused kernels instead (ops/fused_decode.py) when
 kv-head) scale pools (the quantized paged kernel dequantizes as it reads);
 params whose matmul kernels are resident int8 leaves
 (inference/quantization.py) run as they are, both steps dequantizing at
-matmul entry or inside the fused kernels.
+matmul entry or inside the fused kernels. ``adapter_cache`` (an
+inference/lora.py AdapterCache) serves batched multi-tenant LoRA: each
+running slot pins its request's adapter in the cache's device banks
+(``row_adapter``: the slot's bank slot, 0 = the NULL adapter), and every
+step adds each row's low-rank delta to the five projections — the
+segmented LoRA kernel in the unfused layers, the fused kernels' LoRA
+epilogue in the fused step (ops/lora.py).
 
 Where the JAX engine jits each step and donates the pools, this engine
 runs eagerly on the card and writes the pools IN PLACE. All per-step
@@ -32,8 +38,8 @@ step), so a request's stream is reproducible and independent of what else
 is in the batch.
 
 Not ported yet (each raises at construction): the dense slot cache,
-speculative decoding, LoRA adapters, the host spill tier and
-tensor-parallel meshes.
+speculative decoding, the host spill tier and tensor-parallel meshes;
+per-tenant accounting (``tenant=``) raises at submit.
 """
 
 from __future__ import annotations
@@ -52,6 +58,9 @@ from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.inference.engine import (
     SamplingParams, mask_padded_vocab,
 )
+from megatronapp_tpu_torch.inference.lora import (
+    TENANT_UNPORTED, AdapterSlotsPinned, lora_target_dims,
+)
 from megatronapp_tpu_torch.inference.paged_cache import (
     PagedKVCache, cdiv, validate_kv_cache_dtype,
 )
@@ -61,6 +70,9 @@ from megatronapp_tpu_torch.models.gpt import (
 )
 from megatronapp_tpu_torch.ops.fused_decode import (
     megakernel_ineligible_reason,
+)
+from megatronapp_tpu_torch.ops.lora import (
+    LoraRows, lora_kernel_ineligible_reason,
 )
 from megatronapp_tpu_torch.ops.paged_attention import paged_write_index
 from megatronapp_tpu_torch.trace.request_trace import get_request_tracer
@@ -114,7 +126,8 @@ class Request:
     (priority, request_id) running request when the block pool is
     exhausted. deadline_s: absolute time.monotonic() deadline; overdue
     requests are aborted by step()'s expiry sweep (event key
-    "expired")."""
+    "expired"). adapter_id: the LoRA adapter the request is served with
+    (None: the base model)."""
     request_id: int
     prompt: np.ndarray                  # [P] int32
     max_new_tokens: int
@@ -122,6 +135,7 @@ class Request:
     eod_id: Optional[int] = None
     priority: int = 0
     deadline_s: Optional[float] = None
+    adapter_id: Optional[str] = None
     # Filled by the engine:
     slot: int = -1
     generated: list = dataclasses.field(default_factory=list)
@@ -139,20 +153,29 @@ class Request:
 
 def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
                 page_table, starts, chunk_counts, write_index,
-                fused: bool = False, scales=None):
+                fused: bool = False, scales=None, lora=None):
     """Walk the per-layer modules (the JAX step's ``lax.scan`` over the
     stacked block) with layer l reading and writing pool slice l (and
     scale-pool slice l of a quantized pool, as the JAX scan carries them);
-    `fused` runs each layer as the fused kernels."""
+    `fused` runs each layer as the fused kernels. lora: {"row_adapter":
+    LoraRows of the step's rows, "banks": {target: (A [L, slots, din,
+    rank], B [L, slots, rank, dout])}}; layer l gets bank slices l, as the
+    JAX scan carries the banks in its xs."""
     pk, pv = pages
     for lid, layer_p in enumerate(params["layers"]):
+        ll = None
+        if lora is not None:
+            ll = {"row_adapter": lora["row_adapter"],
+                  "banks": {t: (a[lid], b[lid])
+                            for t, (a, b) in lora["banks"].items()}}
         (h, _), _ = layer_forward(
             layer_p, h, cfg, cos, sin, kv_cache=(pk[lid], pv[lid]),
             cache_positions=starts, page_table=page_table,
             chunk_counts=chunk_counts, write_index=write_index,
             fused_decode=fused,
             kv_scales=None if scales is None else (scales[0][lid],
-                                                   scales[1][lid]))
+                                                   scales[1][lid]),
+            lora=ll)
     return h
 
 
@@ -166,7 +189,7 @@ def _rope_rows(positions, rope_tables):
 
 def _paged_decode_step(params, tokens, pages, page_table, lengths,
                        cfg: TransformerConfig, write_index, rope_tables,
-                       fused: bool = False, scales=None):
+                       fused: bool = False, scales=None, lora=None):
     """One-token decode for every slot against the paged block pool.
 
     tokens [B, 1]; pages (k [L, NB, bs, Hkv, D], v like k), written in
@@ -176,21 +199,22 @@ def _paged_decode_step(params, tokens, pages, page_table, lengths,
     their outputs are garbage). rope_tables: ``gpt_rope_tables`` over
     [0, max_seq_len). fused: the layers as the fused kernels
     (fused_layer_decode). scales: the (k, v) scale pools [L, NB, bs, Hkv]
-    of an int8/fp8 pool, written in place with it. Returns (last_logits
+    of an int8/fp8 pool, written in place with it. lora: the batched
+    adapter deltas over the B rows (``_run_layers``). Returns (last_logits
     [B, V] fp32, pages)."""
     h = gpt_embed(params, tokens, cfg, position_ids=lengths[:, None])
     cos, sin = _rope_rows(lengths, rope_tables)
     if cos is not None:
         cos, sin = cos[:, None], sin[:, None]            # [B, 1, half]
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, lengths,
-                    None, write_index, fused, scales)
+                    None, write_index, fused, scales, lora)
     return gpt_head(params, h, cfg)[:, -1], pages
 
 
 def _paged_multiquery_step(params, tokens, pages, page_table, starts,
                            q_lens, cfg: TransformerConfig, max_seq_len: int,
                            write_index, rope_tables, fused: bool = False,
-                           scales=None):
+                           scales=None, lora=None):
     """Ragged multi-token step against the paged pool (chunked prefill).
 
     tokens [B, S]; starts [B] per-row append positions; q_lens [B] valid
@@ -198,8 +222,9 @@ def _paged_multiquery_step(params, tokens, pages, page_table, starts,
     outputs are garbage). Row b's token i lands at position starts[b] + i
     and attends the paged context plus the new tail causally. write_index
     rope_tables and scales as for ``_paged_decode_step``; fused: the layers
-    as the fused kernels (fused_layer_multiquery). Returns (logits [B, S, V],
-    hidden [B, S, H] pre-head, pages)."""
+    as the fused kernels (fused_layer_multiquery); lora over the B·S
+    flattened rows. Returns (logits [B, S, V], hidden [B, S, H] pre-head,
+    pages)."""
     s = tokens.shape[1]
     positions = starts[:, None] + torch.arange(
         s, device=tokens.device, dtype=starts.dtype)[None, :]
@@ -207,7 +232,7 @@ def _paged_multiquery_step(params, tokens, pages, page_table, starts,
     h = gpt_embed(params, tokens, cfg, position_ids=positions)
     cos, sin = _rope_rows(positions, rope_tables)
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, starts,
-                    q_lens, write_index, fused, scales)
+                    q_lens, write_index, fused, scales, lora)
     return gpt_head(params, h, cfg), h, pages
 
 
@@ -291,7 +316,12 @@ class DynamicInferenceEngine:
     decides it (rows planned at max(max_batch, prefill_chunk)): when
     ``megakernel_ineligible_reason`` names a failed predicate, a warning
     names it and the engine keeps the unfused step. ``megakernel`` says
-    which step runs."""
+    which step runs.
+
+    adapter_cache: an inference/lora.py AdapterCache on the engine's
+    device (batched multi-tenant LoRA). On the card the LoRA kernels'
+    limits (``lora_kernel_ineligible_reason``) are checked here and raise:
+    there is no other path for an adapter's delta there."""
 
     def __init__(self, params, cfg: TransformerConfig, tokenizer=None,
                  max_batch: int = 4, max_seq_len: Optional[int] = None,
@@ -306,8 +336,6 @@ class DynamicInferenceEngine:
             "paged=False (the dense slot cache)": not paged,
             "spec_method (speculative decoding)":
                 spec_method not in (None, "none"),
-            "adapter_cache (batched LoRA serving)":
-                adapter_cache is not None,
             "spill_host_mb (the host-RAM spill tier)": bool(spill_host_mb),
             "ctx (tensor-parallel serving meshes)": ctx is not None,
         }
@@ -324,11 +352,21 @@ class DynamicInferenceEngine:
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
         self.prefill_chunk = min(prefill_chunk, self.max_seq_len)
+        # Batched multi-tenant LoRA: row_adapter maps each slot to its
+        # adapter's bank slot (0 = the NULL adapter); acquire at admission
+        # and release with the slot keep an in-use adapter resident.
+        self.adapters = adapter_cache
+        self.row_adapter = np.zeros((max_batch,), np.int32)
+        self.lora_pinned_waits = 0     # admissions that waited on pins
+        if adapter_cache is not None:
+            self._check_adapter_cache(adapter_cache)
         self.megakernel = False
         if fused_decode:
             reason = megakernel_ineligible_reason(
                 cfg, batch=max_batch, params=self.params,
-                mq_rows=max(max_batch, self.prefill_chunk))
+                mq_rows=max(max_batch, self.prefill_chunk),
+                lora_rank=(adapter_cache.rank if adapter_cache is not None
+                           else None))
             if reason is None:
                 self.megakernel = True
             else:
@@ -360,16 +398,66 @@ class DynamicInferenceEngine:
     def _to_dev(self, arr, dtype=None) -> torch.Tensor:
         return host_to(arr, self.device, dtype)
 
+    def _check_adapter_cache(self, cache):
+        """The cache's banks live on the engine's device, and on the card
+        the LoRA kernels take every target's shape, rank and bank dtype."""
+        if cache.device != self.device:
+            raise ValueError(f"adapter_cache banks on {cache.device}, the "
+                             f"engine on {self.device}: build the cache "
+                             "with the engine's device")
+        if cache.num_layers != self.cfg.num_layers:
+            raise ValueError(f"adapter_cache has {cache.num_layers} layers, "
+                             f"the model {self.cfg.num_layers}")
+        if self.device.type != "cuda":
+            return
+        rows = max(self.max_batch, self.prefill_chunk)
+        for target, (din, dout) in lora_target_dims(self.cfg).items():
+            reason = lora_kernel_ineligible_reason(
+                din, dout, cache.rank, rows, cache.dtype,
+                self.cfg.compute_dtype)
+            if reason is not None:
+                raise ValueError(f"batched LoRA on {self.device} ({target}):"
+                                 f" {reason}")
+
+    def _lora_args(self, rows: Optional[np.ndarray] = None,
+                   repeat: int = 1):
+        """The steps' `lora` operand: None without an adapter cache, else
+        the rows' bank slots (every slot's by default; `rows` for a
+        single-slot chunk, each id repeated over the chunk's `repeat`
+        token rows) and the cache's banks."""
+        if self.adapters is None:
+            return None
+        if rows is None:
+            rows = self.row_adapter
+        return {"row_adapter": LoraRows(rows, self.device, repeat),
+                "banks": self.adapters.banks}
+
     # ---- request lifecycle ------------------------------------------------
     def add_request(self, prompt_tokens, max_new_tokens: int,
                     sampling: Optional[SamplingParams] = None,
                     eod_id: Optional[int] = None,
                     priority: int = 0,
                     deadline_s: Optional[float] = None,
-                    request_id: Optional[int] = None) -> int:
+                    request_id: Optional[int] = None,
+                    adapter_id: Optional[str] = None,
+                    tenant: Optional[str] = None) -> int:
+        if tenant is not None:
+            raise NotImplementedError(TENANT_UNPORTED)
         prompt = validate_admission(prompt_tokens, max_new_tokens,
                                     self.max_seq_len, pool=self.pool,
                                     deadline_s=deadline_s)
+        # Unknown adapters are a permanent submit-time error (the registry
+        # names what it knows); all-slots-pinned pressure waits at
+        # admission instead.
+        if adapter_id is not None:
+            if self.adapters is None:
+                raise ValueError(
+                    "adapter_id requires an engine adapter cache — "
+                    "construct with adapter_cache= / --lora-dir")
+            if adapter_id not in self.adapters.registry:
+                raise KeyError(
+                    f"unknown adapter {adapter_id!r}; known: "
+                    f"{sorted(self.adapters.registry.ids())}")
         now = time.monotonic()
         if request_id is None:
             request_id = next(self._ids)
@@ -378,7 +466,7 @@ class DynamicInferenceEngine:
         req = Request(request_id, prompt, max_new_tokens,
                       sampling or SamplingParams(), eod_id=eod_id,
                       priority=priority, deadline_s=deadline_s,
-                      admit_t=now, queued_t=now)
+                      adapter_id=adapter_id, admit_t=now, queued_t=now)
         self.waiting.append(req)
         self.requests[req.request_id] = req
         telemetry.inc("serving_requests_admitted")
@@ -480,10 +568,15 @@ class DynamicInferenceEngine:
             self._rt.finish(req.request_id, "abort")
 
     def _free_slot(self, slot: int):
-        """Clear every per-slot engine resource; pool blocks are released
-        by the caller (release semantics differ per path)."""
+        """Clear every per-slot engine resource (and unpin the slot's
+        adapter: rc == 0 residents park in the cache's LRU, still
+        hittable); pool blocks are released by the caller (release
+        semantics differ per path)."""
         self.slots[slot] = None
         self.lengths[slot] = 0
+        if self.adapters is not None:
+            self.adapters.release(int(self.row_adapter[slot]))
+            self.row_adapter[slot] = 0
 
     @property
     def has_work(self) -> bool:
@@ -522,6 +615,25 @@ class DynamicInferenceEngine:
             if plan is None:
                 self.waiting.appendleft(req)
                 break
+            if self.adapters is not None:
+                try:
+                    aslot = self.adapters.acquire(req.adapter_id)
+                except AdapterSlotsPinned:
+                    # Every bank slot is pinned by running requests: wait,
+                    # in FIFO order, for a retirement to unpin one.
+                    self.lora_pinned_waits += 1
+                    self.pool.release(slot, np.asarray(req.tokens), 0)
+                    self.waiting.appendleft(req)
+                    break
+                except Exception:
+                    # A load fault (the "lora-load" drill): the cache
+                    # changed nothing; release the admitted blocks, requeue
+                    # at the head and re-raise for the stepper's watchdog.
+                    self.pool.release(slot, np.asarray(req.tokens), 0)
+                    req.queued_t = time.monotonic()
+                    self.waiting.appendleft(req)
+                    raise
+                self.row_adapter[slot] = aslot
             req.slot = slot
             self.slots[slot] = req
             rid = req.request_id
@@ -577,6 +689,7 @@ class DynamicInferenceEngine:
         c = self.prefill_chunk
         table_np = pool.page_table[slot][None]                  # [1, MB]
         table = self._to_dev(table_np)
+        lora = self._lora_args(self.row_adapter[slot:slot + 1], repeat=c)
         pos, count = plan.cached_tokens, 0
         logits = None
         while pos < p_len:
@@ -594,7 +707,7 @@ class DynamicInferenceEngine:
                 self._to_dev(starts), self._to_dev(counts), self.cfg,
                 self.max_seq_len, tuple(self._to_dev(t) for t in index),
                 self.rope_tables, fused=self.megakernel,
-                scales=pool.scales)
+                scales=pool.scales, lora=lora)
             self.prefill_chunks += 1
             pos += count
         # Register the prompt's full blocks so concurrent same-prefix
@@ -752,7 +865,8 @@ class DynamicInferenceEngine:
                 self.pool.pages, self._to_dev(table_np),
                 self._to_dev(self.lengths), self.cfg,
                 tuple(self._to_dev(t) for t in index), self.rope_tables,
-                fused=self.megakernel, scales=self.pool.scales)
+                fused=self.megakernel, scales=self.pool.scales,
+                lora=self._lora_args())
             # The decode wrote each active row's kv at lengths[slot].
             self.lengths += active_np.astype(np.int32)
             logits = mask_padded_vocab(logits, self.cfg)
@@ -789,9 +903,10 @@ class DynamicInferenceEngine:
     def stats_snapshot(self) -> Dict:
         """JSON-ready serving stats (GET /stats): batch occupancy, pool
         occupancy and storage dtype, prefix-cache hit rate, the params'
-        device bytes, whether the fused step runs and the kernels' launch
-        counts."""
+        device bytes, whether the fused step runs, the kernels' launch
+        counts and, with an adapter cache, its books ("lora")."""
         from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+        from megatronapp_tpu_torch.ops.cuda import lora as cl
         from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
         pool = self.pool
         st = dict(pool.stats)
@@ -810,7 +925,9 @@ class DynamicInferenceEngine:
             "megakernel": self.megakernel,
             "param_bytes": resident_nbytes(self.params),
             "kernel_launches": {"paged_attention": dict(pa.launches),
-                                "fused_decode": dict(fd.launches)},
+                                "fused_decode": dict(fd.launches),
+                                "fused_decode_lora": dict(fd.lora_launches),
+                                "lora_delta": dict(cl.launches)},
             "pool": {
                 "num_blocks": pool.num_blocks,
                 "block_size": pool.block_size,
@@ -826,4 +943,7 @@ class DynamicInferenceEngine:
                     else 0.0),
                 **st,
             },
+            **({"lora": {**self.adapters.stats_snapshot(),
+                         "pinned_waits": self.lora_pinned_waits}}
+               if self.adapters is not None else {}),
         }

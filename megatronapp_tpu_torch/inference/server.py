@@ -89,9 +89,15 @@ class DynamicBatchingDriver:
 
     def submit(self, prompt_ids, max_new_tokens, sampling, eod_id=None,
                token_cb=None, priority: int = 0,
-               timeout_s: Optional[float] = None):
+               timeout_s: Optional[float] = None,
+               adapter_id: Optional[str] = None,
+               tenant: Optional[str] = None):
         """timeout_s: per-request deadline in seconds from now; already
-        expired work (timeout_s <= 0) is rejected with DeadlineExceeded."""
+        expired work (timeout_s <= 0) is rejected with DeadlineExceeded.
+        adapter_id: the request's LoRA adapter in the engine's cache
+        (unknown ids are rejected at submit). tenant: per-tenant accounting,
+        not ported yet (the engine raises naming it). Both are forwarded
+        only when set."""
         deadline = None
         if timeout_s is not None:
             if timeout_s <= 0:
@@ -101,11 +107,16 @@ class DynamicBatchingDriver:
                     "request deadline expired at admission "
                     f"(timeout_s={timeout_s})")
             deadline = time.monotonic() + timeout_s
+        extra = {}
+        if adapter_id is not None:
+            extra["adapter_id"] = adapter_id
+        if tenant is not None:
+            extra["tenant"] = tenant
         with self._cv:
             rid = self.engine.add_request(prompt_ids, max_new_tokens,
                                           sampling, eod_id=eod_id,
                                           priority=priority,
-                                          deadline_s=deadline)
+                                          deadline_s=deadline, **extra)
             done = threading.Event()
             self._subs[rid] = {"cb": token_cb, "done": done}
             self._ensure_thread()
@@ -260,10 +271,13 @@ class TextGenerationServer:
     # ------------------------------------------------------------------
     def _submit_and_wait(self, prompts, n, sampling,
                          cancel: Optional[threading.Event] = None,
-                         token_cb=None, timeout_s: Optional[float] = None):
+                         token_cb=None, timeout_s: Optional[float] = None,
+                         adapter_id: Optional[str] = None,
+                         tenant: Optional[str] = None):
         """Submit every prompt into the shared batch, wait for
         completion, detokenize. token_cb(rid, tok) streams tokens of the
-        FIRST prompt (WS contract)."""
+        FIRST prompt (WS contract); adapter_id / tenant as for
+        DynamicBatchingDriver.submit."""
         import numpy as np
         tok = self.engine.tokenizer
         if tok is None:
@@ -275,7 +289,7 @@ class TextGenerationServer:
             rid, done = self._driver.submit(
                 ids, n, sampling, eod_id=eod,
                 token_cb=token_cb if i == 0 else None,
-                timeout_s=timeout_s)
+                timeout_s=timeout_s, adapter_id=adapter_id, tenant=tenant)
             subs.append((ids, rid, done))
         texts = []
         first_err = None
@@ -312,10 +326,13 @@ class TextGenerationServer:
             n = int(req.get("tokens_to_generate", 64))
             sampling = _sampling_from_request(req)
             timeout_s = _timeout_of(req)
+            adapter_id, tenant = req.get("adapter_id"), req.get("tenant")
             loop = asyncio.get_running_loop()
             texts = await loop.run_in_executor(
                 None, lambda: self._submit_and_wait(prompts, n, sampling,
-                                                    timeout_s=timeout_s))
+                                                    timeout_s=timeout_s,
+                                                    adapter_id=adapter_id,
+                                                    tenant=tenant))
             return web.json_response({
                 "text": [p + t for p, t in zip(prompts, texts)],
                 "segments": texts,
@@ -375,7 +392,9 @@ class TextGenerationServer:
             def run_generation():
                 return self._submit_and_wait(
                     prompts[:1], n, sampling, cancel=cancel,
-                    token_cb=driver_cb, timeout_s=_timeout_of(req))
+                    token_cb=driver_cb, timeout_s=_timeout_of(req),
+                    adapter_id=req.get("adapter_id"),
+                    tenant=req.get("tenant"))
 
             fut = loop.run_in_executor(None, run_generation)
             # Sentinel-terminated drain: every per-token payload is
@@ -478,6 +497,14 @@ class TextGenerationServer:
         telemetry.set_gauge("paged_blocks_free", eng.pool.free_blocks())
         telemetry.set_gauge("paged_blocks_evictable",
                             eng.pool.evictable_blocks())
+        if eng.adapters is not None:
+            # LoRA adapter cache occupancy (its hit/miss/eviction counters
+            # accumulate where the cache counts them).
+            lstats = eng.adapters.stats_snapshot()
+            telemetry.set_gauge("lora_adapters_resident", lstats["resident"])
+            telemetry.set_gauge("lora_adapters_pinned", lstats["pinned"])
+            telemetry.set_gauge("lora_resident_bytes",
+                                lstats["resident_bytes"])
         st = self._driver.stats()
         telemetry.set_gauge("serving_stepper_alive", int(st["alive"]))
         telemetry.set_gauge("serving_stepper_restarts",

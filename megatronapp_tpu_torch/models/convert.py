@@ -7,6 +7,11 @@ leaves [L, ...] are unstacked into ``layers.i``; every other leaf keeps
 its name and its [in, out] layout, so nothing is transposed. A leaf the
 converter does not know raises.
 
+``adapter_from_jax`` carries a JAX package LoRA adapter
+(megatronapp_tpu/inference/lora.py LoraAdapter) across as the port's
+LoraAdapter: the same id and rank, its A and B stacks copied as fp32 numpy
+(the ``.npz`` files of ``LoraAdapter.save`` are the other bridge).
+
 Resident int8 leaves of a quantized JAX tree (its
 inference/quantization.residentize_params: ``{"qint8": int8 [L, K, N],
 "qscale": fp32 [L, 1, N]}`` under one of the RESIDENT_KERNELS) become the
@@ -107,3 +112,14 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
 
     return ParamTree(top, embedding=ParamTree(emb),
                      layers=nn.ModuleList(layer(i) for i in range(num)))
+
+
+def adapter_from_jax(jax_adapter):
+    """The port's LoraAdapter with a JAX LoraAdapter's id, rank and
+    factors (``a`` / ``b`` per target, copied as fp32 numpy)."""
+    from megatronapp_tpu_torch.inference.lora import (
+        LORA_TARGETS, LoraAdapter,
+    )
+    a = {t: np.array(jax_adapter.a[t], np.float32) for t in LORA_TARGETS}
+    b = {t: np.array(jax_adapter.b[t], np.float32) for t in LORA_TARGETS}
+    return LoraAdapter(jax_adapter.adapter_id, int(jax_adapter.rank), a, b)

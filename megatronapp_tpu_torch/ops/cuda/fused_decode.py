@@ -35,6 +35,16 @@ the compute dtype, ``r + out.to(r.dtype)``.
 K-split launches (ksplit > 1) add their partial tiles through a workspace
 the wrapper allocates and a per-device counter buffer the kernels leave at
 zero; kernels sharing it run on one stream, as the engine's do.
+
+``lora=``: one layer's batched adapter deltas (ops/lora.py: {"row_adapter":
+LoraRows, "banks": {target: (A [slots, din, rank], B [slots, rank,
+dout])}}). The plain versions add the delta as JAX's ``_lora_epilogue``
+does (kernel_gen.py:1130; the bodies at :1242-1245, :1552-1554,
+:1672-1683): fp32 (x @ A) @ B of each row's adapter, cast to the compute
+dtype, added after the matmul's rounding and before the bias. The kernels
+run it as their LoRA epilogue (a template flag of the same kernels),
+reading the fp32 banks in place through the rows' slot ids; those launches
+count in ``lora_launches``, by the same keys.
 """
 
 from __future__ import annotations
@@ -53,14 +63,18 @@ from megatronapp_tpu_torch.inference.quantization import (
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.activations import apply_activation, is_gated
 from megatronapp_tpu_torch.ops.cuda import build as kbuild
+from megatronapp_tpu_torch.ops.cuda.lora import MAX_RANK as LORA_MAX_RANK
+from megatronapp_tpu_torch.ops.lora import lora_delta_plain
 from megatronapp_tpu_torch.ops.normalization import apply_norm, rms_norm
 
 KERNELS = ("qkv", "out_proj", "mlp_fc1", "mlp_fc2")
 # Launches of each kernel, by kernel and, for resident int8 weights, weight
 # kind ("qkv_int8", ...). Incremented only where the wrappers launch them
-# (never by the plain versions).
+# (never by the plain versions); launches with the LoRA epilogue count in
+# lora_launches instead, by the same keys.
 launches: Dict[str, int] = {f"{k}{sfx}": 0 for sfx in ("", "_int8")
                             for k in KERNELS}
+lora_launches: Dict[str, int] = dict.fromkeys(launches, 0)
 
 SOURCE = kbuild.source("fused_decode.cu")
 TILE = 128                     # output columns a block
@@ -77,10 +91,12 @@ _ACT = {ActivationKind.swiglu: 0, ActivationKind.geglu: 1,
         ActivationKind.squared_relu: 4}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "fused_qkv_launch": [_P, _P, _P, _I, _F] + [_P] * 15 + [_I] * 9 + [_P],
-    "fused_residual_gemm_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
+    "fused_qkv_launch": [_P, _P, _P, _I, _F] + [_P] * 15 + [_I] * 9
+                        + [_P] * 5 + [_I, _P, _P],
+    "fused_residual_gemm_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P] * 3
+                                  + [_I, _P, _P],
     "fused_mlp_fc1_launch": [_P, _P, _P, _I, _F] + [_P] * 6 + [_I] * 7
-                            + [_P],
+                            + [_P] * 3 + [_I, _P, _P],
 }
 _counters: Dict[torch.device, torch.Tensor] = {}
 
@@ -95,7 +111,16 @@ def _kernel(symbol: str):
 # ---------------------------------------------------------------------------
 
 
-def fused_qkv_plain(x, p, cfg: TransformerConfig, cos=None, sin=None):
+def _lora_epilogue(xv, lora, target: str, dtype: torch.dtype):
+    """The in-kernel delta of kernel_gen._lora_epilogue: each row's fp32
+    (x @ A) @ B through its adapter's bank slot, cast to `dtype`."""
+    a_bank, b_bank = lora["banks"][target]
+    return lora_delta_plain(xv, a_bank, b_bank,
+                            lora["row_adapter"]).to(dtype)
+
+
+def fused_qkv_plain(x, p, cfg: TransformerConfig, cos=None, sin=None,
+                    lora=None):
     """Plain version of ``fused_qkv`` (the _fused_qkv body): x [R, H] →
     (q [R, nq, D], k [R, nkv, D], v [R, nkv, D]) in the compute dtype."""
     a, cdt, eps = p["attention"], cfg.compute_dtype, cfg.layernorm_epsilon
@@ -105,6 +130,9 @@ def fused_qkv_plain(x, p, cfg: TransformerConfig, cos=None, sin=None):
                     eps).to(cdt)
     q = xn @ resolve_param(a["q_kernel"], cdt)
     kv = xn @ resolve_param(a["kv_kernel"], cdt)
+    if lora is not None:
+        q = q + _lora_epilogue(xn, lora, "q_kernel", cdt)
+        kv = kv + _lora_epilogue(xn, lora, "kv_kernel", cdt)
     if "q_bias" in a:
         q = q + a["q_bias"].to(cdt)
         kv = kv + a["kv_bias"].to(cdt)
@@ -119,23 +147,28 @@ def fused_qkv_plain(x, p, cfg: TransformerConfig, cos=None, sin=None):
     return q, k.contiguous(), v.contiguous()
 
 
-def fused_out_proj_plain(attn_flat, p, cfg: TransformerConfig, residual):
+def fused_out_proj_plain(attn_flat, p, cfg: TransformerConfig, residual,
+                         lora=None):
     """Plain version of ``fused_out_proj``: attn_flat [R, nq·D] (compute
     dtype) → residual + (attn_flat @ W_o + bias) in the residual dtype."""
     a, cdt = p["attention"], cfg.compute_dtype
     out = attn_flat @ resolve_param(a["out_kernel"], cdt)
+    if lora is not None:
+        out = out + _lora_epilogue(attn_flat, lora, "out_kernel", cdt)
     if "out_bias" in a:
         out = out + a["out_bias"].to(cdt)
     return residual + out.to(residual.dtype)
 
 
-def fused_mlp_fc1_plain(x, p, cfg: TransformerConfig):
+def fused_mlp_fc1_plain(x, p, cfg: TransformerConfig, lora=None):
     """Plain version of ``fused_mlp_fc1``: x [R, H] → y [R, ffn] in the
     compute dtype (gated kinds: act(gate) * value of the packed fc1)."""
     m, cdt = p["mlp"], cfg.compute_dtype
     xn = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
                     cfg.layernorm_epsilon).to(cdt)
     y = xn @ resolve_param(m["fc1_kernel"], cdt)
+    if lora is not None:
+        y = y + _lora_epilogue(xn, lora, "fc1_kernel", cdt)
     if "fc1_bias" in m:
         y = y + m["fc1_bias"].to(cdt)
     if is_gated(cfg.activation):
@@ -144,11 +177,14 @@ def fused_mlp_fc1_plain(x, p, cfg: TransformerConfig):
     return apply_activation(cfg.activation, y)
 
 
-def fused_mlp_fc2_plain(y, x, p, cfg: TransformerConfig):
+def fused_mlp_fc2_plain(y, x, p, cfg: TransformerConfig, lora=None):
     """Plain version of ``fused_mlp_fc2``: y [R, ffn] @ W2 + bias + the
-    residual x [R, H] → [R, H] in the residual dtype."""
+    residual x [R, H] → [R, H] in the residual dtype; fc2's delta is from
+    the activated y."""
     m, cdt = p["mlp"], cfg.compute_dtype
     out = y @ resolve_param(m["fc2_kernel"], cdt)
+    if lora is not None:
+        out = out + _lora_epilogue(y, lora, "fc2_kernel", cdt)
     if "fc2_bias" in m:
         out = out + m["fc2_bias"].to(cdt)
     return x + out.to(x.dtype)
@@ -303,33 +339,77 @@ def _plan(rows: int, k: int, tiles: int, device: torch.device):
     return rb, chunks, ksplit
 
 
-def _split_buffers(rows: int, k: int, tiles: int, device: torch.device):
-    """(ksplit, workspace tensor, counters pointer) for one launch; the
-    caller keeps the workspace alive until the launch is enqueued."""
+def _split_buffers(rows: int, k: int, tiles: int, device: torch.device,
+                   lora_rank: int = 0):
+    """(ksplit, workspace tensor, counters pointer, LoRA partial-t
+    workspace) for one launch; the caller keeps the workspaces alive until
+    the launch is enqueued."""
     rb, chunks, ksplit = _plan(rows, k, tiles, device)
     if ksplit == 1:
-        return 1, None, None
+        return 1, None, None, None
     units = tiles * chunks
     ws = torch.empty(units * ksplit * rb * TILE, dtype=torch.float32,
                      device=device)
+    lws = None
+    if lora_rank:
+        lws = torch.empty(units * ksplit * rb * lora_rank,
+                          dtype=torch.float32, device=device)
     ctr = _counters.get(device)
     if ctr is None or ctr.numel() < units:
         ctr = torch.zeros(max(units, 1024), dtype=torch.int32, device=device)
         _counters[device] = ctr
-    return ksplit, ws, ctr.data_ptr()
+    return ksplit, ws, ctr.data_ptr(), lws
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(symbol: str, name: str, kind: int, device: torch.device, *args):
+def _lora_args(name: str, lora, shapes: Dict[str, Tuple[int, int]],
+               rows: int, device: torch.device):
+    """The LoRA epilogue's launch arguments: (A, B pointers of each target
+    in `shapes` order, the rows' slot ids pointer, rank), all None and 0
+    without `lora`. Raises unless the banks are fp32, contiguous, on the
+    activations' device, A [slots, K, rank] and B [slots, rank, N] for the
+    target's (K, N), 1 <= rank <= LORA_MAX_RANK, with one slot id a row."""
+    if lora is None:
+        return [None] * (2 * len(shapes) + 1) + [0]
+    segs = lora["row_adapter"]
+    if segs.rows != rows or segs.ids.device != device:
+        raise ValueError(f"{name}: {segs.rows} row adapter ids on "
+                         f"{segs.ids.device} for {rows} rows on {device}")
+    ptrs, ranks = [], set()
+    for target, (k, n) in shapes.items():
+        a, b = lora["banks"][target]
+        slots, rank = a.shape[0], a.shape[-1]
+        ranks.add(rank)
+        if tuple(a.shape) != (slots, k, rank) \
+                or tuple(b.shape) != (slots, rank, n):
+            raise ValueError(f"{name}: {target} banks {tuple(a.shape)} / "
+                             f"{tuple(b.shape)}, expected [slots, {k}, rank] "
+                             f"/ [slots, rank, {n}]")
+        for t in (a, b):
+            if t.dtype != torch.float32 or t.device != device \
+                    or not t.is_contiguous():
+                raise ValueError(f"{name}: {target} banks must be "
+                                 f"contiguous fp32 on {device}, got "
+                                 f"{t.dtype} on {t.device}")
+        ptrs += [a.data_ptr(), b.data_ptr()]
+    rank = ranks.pop()
+    if ranks or not 1 <= rank <= LORA_MAX_RANK:
+        raise ValueError(f"{name}: LoRA rank {rank}: the epilogue takes one "
+                         f"rank of 1..{LORA_MAX_RANK}")
+    return ptrs + [segs.ids.data_ptr(), rank]
+
+
+def _launch(symbol: str, name: str, kind: int, device: torch.device, *args,
+            lora: bool = False):
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _kernel(symbol)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name + ("_int8" if kind == WEIGHT_KINDS[torch.int8] else "")] \
-        += 1
+    counts = lora_launches if lora else launches
+    counts[name + ("_int8" if kind == WEIGHT_KINDS[torch.int8] else "")] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -337,14 +417,15 @@ def _launch(symbol: str, name: str, kind: int, device: torch.device, *args):
 # ---------------------------------------------------------------------------
 
 
-def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None):
+def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None, lora=None):
     """Norm + QKV projection + biases + QK-norm + rope, the _fused_qkv
     contract: x [R, H] (residual dtype), per-row rope tables cos/sin
     [R, half] fp32 (None without rope) → (q [R, nq, D], k, v [R, nkv, D])
-    in the compute dtype. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
+    in the compute dtype; lora: the q and kv deltas (module docstring).
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
     if x.device.type == "cpu":
-        return fused_qkv_plain(x, p, cfg, cos, sin)
+        return fused_qkv_plain(x, p, cfg, cos, sin, lora)
     a = p["attention"]
     mats = {"q_kernel": a["q_kernel"], "kv_kernel": a["kv_kernel"]}
     vecs = {"ln1_scale": p["ln1_scale"], "ln1_bias": p.get("ln1_bias"),
@@ -369,11 +450,14 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None):
     for k, (got, want) in shapes.items():
         if got != want:
             raise ValueError(f"fused_qkv: {k} is {got}, expected {want}")
+    *lora_ptrs, rank = _lora_args(
+        "fused_qkv", lora, {"q_kernel": (h, nq * d),
+                            "kv_kernel": (h, 2 * nkv * d)}, rows, x.device)
     q = torch.empty(rows, nq, d, dtype=torch.bfloat16, device=x.device)
     k = torch.empty(rows, nkv, d, dtype=torch.bfloat16, device=x.device)
     v = torch.empty_like(k)
     tiles = (nq + 2 * nkv) * d // TILE
-    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device)
+    ksplit, ws, ctr, lws = _split_buffers(rows, h, tiles, x.device, rank)
     (wq, sq), (wkv, skv), f = _w(a["q_kernel"]), _w(a["kv_kernel"]), vecs
     _launch("fused_qkv_launch", "qkv", kind, x.device,
             _ptr(x), _ptr(f["ln1_scale"]), _ptr(f["ln1_bias"]),
@@ -381,12 +465,13 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None):
             wq, wkv, sq, skv, _ptr(f["q_bias"]), _ptr(f["kv_bias"]),
             _ptr(f["q_ln_scale"]), _ptr(f["k_ln_scale"]), _ptr(cos),
             _ptr(sin), _ptr(q), _ptr(k), _ptr(v), _ptr(ws), ctr,
-            rows, h, nq * d, nkv * d, d, half, kind, vec_f32, ksplit)
+            rows, h, nq * d, nkv * d, d, half, kind, vec_f32, ksplit,
+            *lora_ptrs, rank, _ptr(lws), lora=lora is not None)
     return q, k, v
 
 
 def _residual_gemm(name: str, fc2: bool, x, w, bias, residual,
-                   cfg: TransformerConfig):
+                   cfg: TransformerConfig, lora=None, target: str = ""):
     kind, vec_f32 = _check(f"fused_{name}", cfg,
                            {"x": x, "residual": residual}, {"kernel": w},
                            {"bias": bias})
@@ -396,33 +481,40 @@ def _residual_gemm(name: str, fc2: bool, x, w, bias, residual,
         raise ValueError(f"fused_{name}: x {tuple(x.shape)}, weight "
                          f"{_shape(w)} and residual "
                          f"{tuple(residual.shape)} do not fit")
+    *lora_ptrs, rank = _lora_args(f"fused_{name}", lora, {target: (k, n)},
+                                  rows, x.device)
     out = torch.empty_like(residual)
-    ksplit, ws, ctr = _split_buffers(rows, k, n // TILE, x.device)
+    ksplit, ws, ctr, lws = _split_buffers(rows, k, n // TILE, x.device, rank)
     wp, sp = _w(w)
     _launch("fused_residual_gemm_launch", name, kind, x.device, int(fc2),
             _ptr(x), wp, sp, _ptr(bias), _ptr(residual), _ptr(out), _ptr(ws),
-            ctr, rows, k, n, kind, vec_f32, ksplit)
+            ctr, rows, k, n, kind, vec_f32, ksplit, *lora_ptrs, rank,
+            _ptr(lws), lora=lora is not None)
     return out
 
 
-def fused_out_proj(attn_flat, p, cfg: TransformerConfig, residual):
+def fused_out_proj(attn_flat, p, cfg: TransformerConfig, residual,
+                   lora=None):
     """Out-projection + bias + residual, the _fused_out_proj contract:
     attn_flat [R, nq·D] (compute dtype), residual [R, H] → [R, H] in the
-    residual dtype. CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise."""
+    residual dtype; lora: the out delta from attn_flat. CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
     if attn_flat.device.type == "cpu":
-        return fused_out_proj_plain(attn_flat, p, cfg, residual)
+        return fused_out_proj_plain(attn_flat, p, cfg, residual, lora)
     a = p["attention"]
     return _residual_gemm("out_proj", False, attn_flat, a["out_kernel"],
-                          a.get("out_bias"), residual, cfg)
+                          a.get("out_bias"), residual, cfg, lora,
+                          "out_kernel")
 
 
-def fused_mlp_fc1(x, p, cfg: TransformerConfig):
+def fused_mlp_fc1(x, p, cfg: TransformerConfig, lora=None):
     """Pre-MLP norm + fc1 + bias + activation, the _fused_mlp_fc1
-    contract: x [R, H] → y [R, ffn] in the compute dtype. CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise."""
+    contract: x [R, H] → y [R, ffn] in the compute dtype; lora: the fc1
+    delta from the normed x, over the packed [gate | value] columns of a
+    gated fc1. CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
     if x.device.type == "cpu":
-        return fused_mlp_fc1_plain(x, p, cfg)
+        return fused_mlp_fc1_plain(x, p, cfg, lora)
     m = p["mlp"]
     vecs = {"ln2_scale": p["ln2_scale"], "ln2_bias": p.get("ln2_bias"),
             "fc1_bias": m.get("fc1_bias")}
@@ -435,25 +527,28 @@ def fused_mlp_fc1(x, p, cfg: TransformerConfig):
     if _shape(m["fc1_kernel"]) != want:
         raise ValueError(f"fused_mlp_fc1: fc1_kernel is "
                          f"{_shape(m['fc1_kernel'])}, expected {want}")
+    *lora_ptrs, rank = _lora_args("fused_mlp_fc1", lora,
+                                  {"fc1_kernel": want}, rows, x.device)
     y = torch.empty(rows, ffn, dtype=torch.bfloat16, device=x.device)
     tiles = ffn // (TILE // 2 if gated else TILE)
-    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device)
+    ksplit, ws, ctr, lws = _split_buffers(rows, h, tiles, x.device, rank)
     wp, sp = _w(m["fc1_kernel"])
     _launch("fused_mlp_fc1_launch", "mlp_fc1", kind, x.device,
             _ptr(x), _ptr(vecs["ln2_scale"]), _ptr(vecs["ln2_bias"]),
             _NORM[cfg.normalization], float(cfg.layernorm_epsilon),
             wp, sp, _ptr(vecs["fc1_bias"]), _ptr(y), _ptr(ws), ctr, rows, h,
-            ffn, _ACT[cfg.activation], kind, vec_f32, ksplit)
+            ffn, _ACT[cfg.activation], kind, vec_f32, ksplit, *lora_ptrs,
+            rank, _ptr(lws), lora=lora is not None)
     return y
 
 
-def fused_mlp_fc2(y, x, p, cfg: TransformerConfig):
+def fused_mlp_fc2(y, x, p, cfg: TransformerConfig, lora=None):
     """fc2 + bias + residual, the _fused_mlp_fc2 contract: y [R, ffn]
     (compute dtype), x [R, H] the pre-norm residual → [R, H] in the
-    residual dtype. CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise."""
+    residual dtype; lora: the fc2 delta from the activated y. CPU tensors
+    run the plain version; CUDA tensors launch the kernel or raise."""
     if y.device.type == "cpu":
-        return fused_mlp_fc2_plain(y, x, p, cfg)
+        return fused_mlp_fc2_plain(y, x, p, cfg, lora)
     m = p["mlp"]
     return _residual_gemm("mlp_fc2", True, y, m["fc2_kernel"],
-                          m.get("fc2_bias"), x, cfg)
+                          m.get("fc2_bias"), x, cfg, lora, "fc2_kernel")

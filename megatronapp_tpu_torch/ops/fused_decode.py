@@ -18,6 +18,12 @@ single CUDA kernel can wait for, and the JAX split is exact by design (y
 lives in the compute dtype in both). The TPU VMEM tile planning
 (``_qkv_tiles``, ``_out_tiles``, ``_mlp_tiles``, the VMEM budget) has no
 counterpart: the CUDA kernels plan their own tiles and take any row count.
+
+``lora=`` (batched multi-tenant LoRA, kernel_gen.py:1950-2092): one layer's
+adapter deltas, {"row_adapter": LoraRows of the step's rows, "banks":
+{target: (A, B) of this layer}} (ops/lora.py). The four kernels run with
+their LoRA epilogue, reading the banks through each row's slot id; JAX's
+per-row gather of the factors (``_lora_gathered``) has no counterpart.
 """
 
 from __future__ import annotations
@@ -27,25 +33,29 @@ from typing import Optional
 import torch
 
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
+from megatronapp_tpu_torch.inference.lora import lora_target_dims
 from megatronapp_tpu_torch.ops.cuda.fused_decode import (
     fused_mlp_fc1, fused_mlp_fc1_plain, fused_mlp_fc2, fused_mlp_fc2_plain,
     fused_out_proj, fused_qkv, kernel_limits,
 )
+from megatronapp_tpu_torch.ops.lora import lora_kernel_ineligible_reason
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_multiquery,
     scale_kwargs, write_kv,
 )
 
 
-def fused_mlp(x, p, cfg: TransformerConfig):
+def fused_mlp(x, p, cfg: TransformerConfig, lora=None):
     """Pre-MLP norm + fc1 + activation + fc2 + biases + residual (the
-    _fused_mlp contract) as the fc1 and fc2 kernels: x [R, H] → [R, H]."""
-    return fused_mlp_fc2(fused_mlp_fc1(x, p, cfg), x, p, cfg)
+    _fused_mlp contract, with its fc1 and fc2 LoRA deltas) as the fc1 and
+    fc2 kernels: x [R, H] → [R, H]."""
+    return fused_mlp_fc2(fused_mlp_fc1(x, p, cfg, lora), x, p, cfg, lora)
 
 
-def fused_mlp_plain(x, p, cfg: TransformerConfig):
+def fused_mlp_plain(x, p, cfg: TransformerConfig, lora=None):
     """Plain version of ``fused_mlp``."""
-    return fused_mlp_fc2_plain(fused_mlp_fc1_plain(x, p, cfg), x, p, cfg)
+    return fused_mlp_fc2_plain(fused_mlp_fc1_plain(x, p, cfg, lora), x, p,
+                               cfg, lora)
 
 
 def _check_gqa(cfg: TransformerConfig):
@@ -56,7 +66,7 @@ def _check_gqa(cfg: TransformerConfig):
 
 def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
                        kv_cache, cache_positions, page_table,
-                       write_index: WriteIndex, kv_scales=None):
+                       write_index: WriteIndex, kv_scales=None, lora=None):
     """One decode layer as fused kernels (kernel_gen.fused_layer_decode):
     [fused norm+QKV+rope] → [K/V append] → [paged attention, decode mode]
     → [fused out-projection + residual] → [fused norm+MLP + residual].
@@ -66,7 +76,8 @@ def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
     `write_index` (inactive slots are not in it). kv_scales: the layer's
     scale pools of an int8/fp8 pool: the new rows are quantized and written
     with their scales, and the paged kernel dequantizes (kernel_gen.py:
-    1990-2003). Returns ((out [B, 1, H], the layer's pools), None)."""
+    1990-2003). lora: the layer's adapter deltas over the B rows (module
+    docstring). Returns ((out [B, 1, H], the layer's pools), None)."""
     _check_gqa(cfg)
     b = x.shape[0]
     if x.shape[1] != 1:
@@ -75,25 +86,26 @@ def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
     x2 = x[:, 0]
     cos = rope_cos[:, 0] if rope_cos is not None else None
     sin = rope_sin[:, 0] if rope_sin is not None else None
-    q, k, v = fused_qkv(x2, p, cfg, cos, sin)
+    q, k, v = fused_qkv(x2, p, cfg, cos, sin, lora)
     ck, cv = kv_cache
     write_kv(kv_cache, kv_scales, k[:, None], v[:, None], write_index)
     attn = paged_attention_decode(q, ck, cv, page_table, cache_positions + 1,
                                   **scale_kwargs(kv_scales))       # [B, nq, D]
-    x2 = fused_out_proj(attn.reshape(b, nq * d), p, cfg, x2)
-    x2 = fused_mlp(x2, p, cfg)
+    x2 = fused_out_proj(attn.reshape(b, nq * d), p, cfg, x2, lora)
+    x2 = fused_mlp(x2, p, cfg, lora)
     return (x2[:, None], (ck, cv) + tuple(kv_scales or ())), None
 
 
 def fused_layer_multiquery(p, x, cfg: TransformerConfig, rope_cos,
                            rope_sin, kv_cache, cache_positions, counts,
                            page_table, write_index: WriteIndex,
-                           kv_scales=None):
+                           kv_scales=None, lora=None):
     """One ragged multi-query layer (chunked prefill) as the same fused
     kernels on the B·S flattened rows around the ragged paged-attention
     kernel (kernel_gen.fused_layer_multiquery). x [B, S, H], rope tables
     [B, S, half], counts [B] real rows per slot (the rest are padding with
-    finite garbage outputs), kv_scales as for ``fused_layer_decode``.
+    finite garbage outputs), kv_scales as for ``fused_layer_decode``, lora
+    over the B·S flattened rows (each slot's adapter on its S rows).
     Every fused op is row-wise or contracts the last dim, so flattening
     changes no row. Returns ((out [B, S, H], the layer's pools), None)."""
     _check_gqa(cfg)
@@ -103,22 +115,24 @@ def fused_layer_multiquery(p, x, cfg: TransformerConfig, rope_cos,
     xf = x.reshape(b * s, h)
     cos = rope_cos.reshape(b * s, -1) if rope_cos is not None else None
     sin = rope_sin.reshape(b * s, -1) if rope_sin is not None else None
-    q, k, v = fused_qkv(xf, p, cfg, cos, sin)
+    q, k, v = fused_qkv(xf, p, cfg, cos, sin, lora)
     ck, cv = kv_cache
     write_kv(kv_cache, kv_scales, k.reshape(b, s, nkv, d),
              v.reshape(b, s, nkv, d), write_index)
     attn = paged_attention_multiquery(q.reshape(b, s, nq, d), ck, cv,
                                       page_table, cache_positions + counts,
                                       counts, **scale_kwargs(kv_scales))
-    x2 = fused_out_proj(attn.reshape(b * s, nq * d), p, cfg, xf)
-    x2 = fused_mlp(x2, p, cfg)
+    x2 = fused_out_proj(attn.reshape(b * s, nq * d), p, cfg, xf, lora)
+    x2 = fused_mlp(x2, p, cfg, lora)
     return (x2.reshape(b, s, h), (ck, cv) + tuple(kv_scales or ())), None
 
 
 def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
                                  params=None, mq_rows: Optional[int] = None,
                                  paged: bool = True, tp_paged: bool = False,
-                                 device=None) -> Optional[str]:
+                                 device=None,
+                                 lora_rank: Optional[int] = None
+                                 ) -> Optional[str]:
     """Why the fused decode step may NOT run — None when eligible, else
     the first failed predicate by name (kernel_gen.
     megakernel_ineligible_reason). The semantic predicates are the JAX
@@ -129,7 +143,12 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
     head_dim, alignment of H, ffn and the projections), which hold where
     the step runs on the card — `device`, else the device of `params`; on
     the CPU the plain versions take any shape. batch and mq_rows are the
-    decode and widest multi-query row counts; the kernels take any."""
+    decode and widest multi-query row counts; the kernels take any.
+    lora_rank: the adapter rank when an AdapterCache is attached. JAX's
+    semantic predicate holds (MLA has no q/kv kernels to adapt); its
+    re-plans of the no-grid VMEM bodies are replaced by the LoRA
+    epilogues' own limits on the card (rank, fp32 banks:
+    ``lora_kernel_ineligible_reason``)."""
     if not paged:
         return ("dense (non-paged) backend — the fused step is built "
                 "around the paged-attention kernel")
@@ -140,9 +159,14 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
     if tp_paged:
         return ("tp head-sharded serving mesh: the fused kernels are "
                 "single-device (the tp engine keeps the unfused body)")
+    if lora_rank and cfg.multi_latent_attention:
+        return ("LoRA serving targets the GQA projection kernels — "
+                "the MLA megakernel has no q_kernel/kv_kernel to "
+                "compose an adapter epilogue onto")
     if cfg.multi_latent_attention:
         return "MLA fused prologue not ported yet"
-    if max(int(batch), int(mq_rows or 0)) < 1:
+    rows = max(int(batch), int(mq_rows or 0))
+    if rows < 1:
         return f"no rows to run (batch {batch}, mq_rows {mq_rows})"
     layer = None
     if params is not None:
@@ -151,4 +175,11 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
             device = layer["ln1_scale"].device
     if device is None or torch.device(device).type != "cuda":
         return None
-    return kernel_limits(cfg, layer)
+    reason = kernel_limits(cfg, layer)
+    if reason is None and lora_rank:
+        for target, (din, dout) in lora_target_dims(cfg).items():
+            why = lora_kernel_ineligible_reason(din, dout, int(lora_rank),
+                                                rows)
+            if why is not None:
+                return f"LoRA epilogue ({target}): {why}"
+    return reason

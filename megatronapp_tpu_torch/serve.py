@@ -13,7 +13,11 @@ message naming what is not ported yet. ``--megakernel-decode`` runs the
 fused decode step (ops/fused_decode.py); ``--kv-cache-dtype int8|fp8``
 stores the KV pool quantized and ``--quantized-weights`` quantizes the
 five matmul kernels of every layer to resident int8 at startup, on the
-device (inference/quantization.py). The server needs ``aiohttp``.
+device (inference/quantization.py). ``--lora-dir DIR`` serves batched
+multi-tenant LoRA adapters (``<adapter_id>.npz`` files written by
+``inference/lora.py:LoraAdapter.save``) from a device cache of
+``--max-resident-adapters`` slots of rank ``--lora-rank``; a request names
+its adapter with ``"adapter_id"``. The server needs ``aiohttp``.
 """
 
 from __future__ import annotations
@@ -51,9 +55,6 @@ UNPORTED_FLAGS = {
     "--replica-rpc-port": "cross-process fleets",
     "--supervisor": "cross-process fleets",
     "--fleet-prefix-store-mb": "the fleet prefix store",
-    "--lora-dir": "batched LoRA serving",
-    "--lora-rank": "batched LoRA serving",
-    "--max-resident-adapters": "batched LoRA serving",
     "--kv-spill-host-mb": "the host-RAM spill tier",
     "--kv-spill-watermark-blocks": "the host-RAM spill tier",
 }
@@ -133,6 +134,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "layer as the fused QKV, out-projection and MLP "
                         "kernels around paged attention (kept unfused, with "
                         "a warning, where the config is ineligible)")
+    g.add_argument("--lora-dir", default=None,
+                   help="serve batched multi-tenant LoRA adapters: a "
+                        "directory of <adapter_id>.npz files "
+                        "(LoraAdapter.save); requests pick one with "
+                        "\"adapter_id\"")
+    g.add_argument("--lora-rank", type=int, default=8,
+                   help="rank of the adapters (the device banks are sized "
+                        "A[L, slots, din, R] / B[L, slots, R, dout])")
+    g.add_argument("--max-resident-adapters", type=int, default=8,
+                   help="adapter slots resident on the device at once "
+                        "(LRU-evicted when unpinned)")
     g.add_argument("--serving-metrics", action="store_true",
                    help="enable the telemetry registry (GET /metrics)")
     g.add_argument("--request-trace", action="store_true",
@@ -144,9 +156,47 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def validate_lora_args(args, multi_latent_attention: bool = False):
+    """The LoRA flags' parse-time checks, with the JAX package's messages
+    (megatronapp_tpu/config/arguments.py:404-432); raises SystemExit."""
+    if getattr(args, "lora_dir", None):
+        if getattr(args, "engine", "static") != "dynamic":
+            raise SystemExit(
+                "--lora-dir requires --engine dynamic (the adapter "
+                "banks join the dynamic engine's decode scan; the "
+                "static engine has no per-row adapter plumbing)")
+        if not getattr(args, "paged_kv_cache", False):
+            raise SystemExit(
+                "--lora-dir requires --paged-kv-cache (the segmented "
+                "LoRA delta rides the paged decode/multi-query steps)")
+        if multi_latent_attention:
+            raise SystemExit(
+                "--lora-dir is incompatible with "
+                "--multi-latent-attention: MLA factors attention "
+                "through latent kernels with no q_kernel/kv_kernel "
+                "leaves to adapt — serve MLA models without LoRA")
+    rank = getattr(args, "lora_rank", 8)
+    if rank < 1:
+        raise SystemExit(
+            f"--lora-rank must be >= 1 (got {rank}); the HBM banks "
+            "are sized A[L, slots, din, R] / B[L, slots, R, dout]")
+    max_res = getattr(args, "max_resident_adapters", 8)
+    if max_res < 1:
+        raise SystemExit(
+            f"--max-resident-adapters must be >= 1 (got {max_res}); "
+            "slot 0 is the reserved NULL adapter, so at least one "
+            "managed slot is needed to serve any adapter at all")
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    from megatronapp_tpu_torch.models.presets import PRESETS
     ap = build_parser()
     args = ap.parse_args(argv)
+    try:
+        validate_lora_args(
+            args, PRESETS[args.preset]().multi_latent_attention)
+    except SystemExit as e:
+        ap.error(str(e))
     if args.engine != "dynamic":
         ap.error(f"--engine {args.engine} is not ported yet: the port "
                  "serves --engine dynamic --paged-kv-cache")
@@ -197,7 +247,27 @@ def build_engine(args: argparse.Namespace):
         enable_prefix_caching=args.prefix_caching,
         prefill_chunk=args.prefill_chunk,
         kv_cache_dtype=args.kv_cache_dtype, device=device,
-        fused_decode=args.megakernel_decode)
+        fused_decode=args.megakernel_decode,
+        adapter_cache=build_adapter_cache(args, cfg, device))
+
+
+def build_adapter_cache(args: argparse.Namespace, cfg, device):
+    """The device LoRA cache of --lora-dir (None without it), as the JAX
+    server builds it (tools/run_text_generation_server.py:168-187)."""
+    if not args.lora_dir:
+        return None
+    from megatronapp_tpu_torch.inference.lora import (
+        AdapterCache, AdapterRegistry,
+    )
+    registry = AdapterRegistry(args.lora_dir)
+    cache = AdapterCache(cfg, registry,
+                         max_resident=args.max_resident_adapters,
+                         rank=args.lora_rank, device=device)
+    print(f"LoRA serving from {args.lora_dir}: {len(registry.ids())} "
+          f"adapters on disk, rank {args.lora_rank}, "
+          f"{args.max_resident_adapters} resident "
+          f"({cache.adapter_nbytes / 2**20:.2f} MiB each)")
+    return cache
 
 
 def main(argv: Optional[List[str]] = None):
@@ -226,7 +296,8 @@ def main(argv: Optional[List[str]] = None):
           f"kv={args.kv_cache_dtype}, params "
           f"{resident_nbytes(engine.params) / 2**20:.1f} MiB on device"
           f"{' (resident int8)' if args.quantized_weights else ''}, "
-          f"megakernel={engine.megakernel})")
+          f"megakernel={engine.megakernel}, "
+          f"lora={'on' if engine.adapters is not None else 'off'})")
     TextGenerationServer(engine, args.host, args.port).run()
 
 

@@ -34,6 +34,7 @@ from megatronapp_tpu_torch.inference.quantization import resolve_param
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.attention import dot_product_attention
 from megatronapp_tpu_torch.ops.flash_attention import flash_attention
+from megatronapp_tpu_torch.ops.lora import apply_lora_delta
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_multiquery,
@@ -118,7 +119,7 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                       page_table=None, chunk_counts=None,
                       write_index: Optional[WriteIndex] = None,
                       segment_ids: Optional[torch.Tensor] = None, ctx=None,
-                      kv_scales=None):
+                      kv_scales=None, lora=None):
     """x: [B, S, H] → (out [B, S, H], new_cache).
 
     Training (no kv_cache): new_cache is None. attention_mask [B,1,S,S]
@@ -140,7 +141,9 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     [NB, bs, Hkv] marking int8/fp8 pools: the new rows are quantized per
     (row, head) and written with their scales through the same index, and
     the kernel dequantizes as it reads; new_cache then holds the four
-    pools."""
+    pools. lora: one layer's batched adapter deltas (ops/lora.py) — the q,
+    kv and out deltas add between each matmul and its bias, as JAX
+    attention.py:278-281 and :581-585 place them."""
     if ctx is not None:
         raise NotImplementedError(
             "context-parallel and tensor-parallel attention are not ported "
@@ -164,6 +167,9 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     x = x.to(dt)
     q = x @ resolve_param(p["q_kernel"], dt)
     kv = x @ resolve_param(p["kv_kernel"], dt)
+    if lora is not None:
+        q = apply_lora_delta(q, x, lora, "q_kernel")
+        kv = apply_lora_delta(kv, x, lora, "kv_kernel")
     if "q_bias" in p:
         q = q + p["q_bias"].to(dt)
         kv = kv + p["kv_bias"].to(dt)
@@ -177,6 +183,9 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         k = rotary.apply_rope(k, rope_cos, rope_sin)
 
     if not serving:
+        if lora is not None:
+            raise ValueError("lora deltas ride the paged serving branches "
+                             "only")
         attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids)
         out = attn.reshape(b, s, nq * d) @ resolve_param(p["out_kernel"], dt)
         if "out_bias" in p:
@@ -196,7 +205,9 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     else:
         attn = paged_attention_decode(q[:, 0], ck, cv, page_table,
                                       cache_positions + 1, **sc)[:, None]
-    out = attn.reshape(b, s, nq * d) @ resolve_param(p["out_kernel"], dt)
+    attn = attn.reshape(b, s, nq * d)
+    out = attn @ resolve_param(p["out_kernel"], dt)
+    out = apply_lora_delta(out, attn, lora, "out_kernel")
     if "out_bias" in p:
         out = out + p["out_bias"].to(dt)
     return out, (ck, cv) + tuple(kv_scales or ())

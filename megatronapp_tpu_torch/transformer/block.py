@@ -67,7 +67,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   cache_positions=None, page_table=None,
                   chunk_counts=None, write_index=None,
                   fused_decode: bool = False, segment_ids=None, ctx=None,
-                  kv_scales=None):
+                  kv_scales=None, lora=None):
     """One transformer layer. x: [B,S,H] → ((out, new_cache), aux_losses);
     the paged, mask and segment arguments are attention_forward's
     (no kv_cache: the training branch, new_cache None). kv_scales: the
@@ -77,7 +77,11 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     fused_decode: the paged serving layer as the fused kernels
     (ops/fused_decode.py), dispatched as JAX transformer/block.py:108-132
     does — chunk_counts given: the ragged multi-query body; S == 1: the
-    decode body. Callers gate it on megakernel_ineligible_reason."""
+    decode body. Callers gate it on megakernel_ineligible_reason.
+
+    lora: one layer's batched adapter deltas (ops/lora.py: {"row_adapter":
+    LoraRows of the step's rows, "banks": {target: (A, B) of this layer}})
+    on the paged serving branches, unfused or fused (JAX block.py:75-194)."""
     if fused_decode:
         if page_table is None or kv_cache is None or cfg.is_moe:
             raise ValueError(
@@ -87,14 +91,14 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         if chunk_counts is not None:
             return fused_layer_multiquery(
                 p, x, cfg, rope_cos, rope_sin, kv_cache, cache_positions,
-                chunk_counts, page_table, write_index, kv_scales)
+                chunk_counts, page_table, write_index, kv_scales, lora=lora)
         if x.shape[1] != 1:
             raise ValueError(
                 "fused_decode without chunk_counts is the s == 1 decode "
                 "body — pass chunk_counts for ragged multi-token steps")
         return fused_layer_decode(p, x, cfg, rope_cos, rope_sin, kv_cache,
                                   cache_positions, page_table, write_index,
-                                  kv_scales)
+                                  kv_scales, lora=lora)
     _check_dense(cfg)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln1_scale"], p.get("ln1_bias"),
@@ -104,12 +108,13 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         kv_cache=kv_cache, cache_index=cache_index,
         cache_positions=cache_positions, page_table=page_table,
         chunk_counts=chunk_counts, write_index=write_index,
-        segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales)
+        segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales, lora=lora)
     x = residual + attn_out.to(residual.dtype)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
                    cfg.layernorm_epsilon)
-    x = residual + mlp_forward(p["mlp"], h, cfg).to(residual.dtype)
+    x = residual + mlp_forward(p["mlp"], h, cfg, lora=lora).to(
+        residual.dtype)
     return (x, new_cache), None
 
 

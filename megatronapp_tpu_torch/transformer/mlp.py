@@ -1,5 +1,5 @@
 """MLP sublayer, dense and gated (the JAX package's transformer/mlp.py
-without its tp-overlap, fp8 and LoRA branches).
+without its tp-overlap and fp8 branches).
 
 Param leaf layout:
   fc1_kernel [H, F] or [H, 2F] (gated: [gate | value])
@@ -17,6 +17,7 @@ import torch
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.inference.quantization import resolve_param
 from megatronapp_tpu_torch.ops.activations import apply_activation, is_gated
+from megatronapp_tpu_torch.ops.lora import apply_lora_delta
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
 
@@ -33,12 +34,16 @@ def init_mlp_params(cfg: TransformerConfig, generator: torch.Generator,
     return ParamTree(p)
 
 
-def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig):
+def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig, lora=None):
     """x [..., H] → [..., H]: fc1 → activation (gate = first half of fc1
-    for gated kinds) → fc2."""
+    for gated kinds) → fc2. lora: one layer's batched adapter deltas
+    (ops/lora.py): fc1's from the normed input and fc2's from the
+    activated y, each between its matmul and its bias (JAX mlp.py:
+    109-136)."""
     dt = cfg.compute_dtype
     x = x.to(dt)
     y = x @ resolve_param(p["fc1_kernel"], dt)
+    y = apply_lora_delta(y, x, lora, "fc1_kernel")
     if "fc1_bias" in p:
         y = y + p["fc1_bias"].to(dt)
     if is_gated(cfg.activation):
@@ -47,6 +52,7 @@ def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig):
     else:
         y = apply_activation(cfg.activation, y)
     out = y @ resolve_param(p["fc2_kernel"], dt)
+    out = apply_lora_delta(out, y, lora, "fc2_kernel")
     if "fc2_bias" in p:
         out = out + p["fc2_bias"].to(dt)
     return out

@@ -27,6 +27,13 @@ Sites:
 - ``paged-cow``     the copy-on-write block copy of a fully cached prompt
                     fails (_copy_block) — exercises the admit rollback
                     with cached-prefix refs already acquired.
+- ``lora-load``     a LoRA adapter fetch dies between reading the adapter's
+                    weights from the registry and committing them into the
+                    device banks (inference/lora.AdapterCache.acquire) —
+                    exercises the cache's rollback (no slot taken, no
+                    resident evicted, books unchanged, audit() clean) and
+                    the engine's admission rollback (pool blocks released,
+                    request requeued at the head, the retry succeeds).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import dataclasses
 import threading
 from typing import Dict, Optional
 
-SITES = ("stepper-step", "paged-evict", "paged-cow")
+SITES = ("stepper-step", "paged-evict", "paged-cow", "lora-load")
 
 
 class ChaosFault(RuntimeError):

@@ -294,10 +294,20 @@ def test_deadline_and_abort():
 def test_unported_engine_options_raise():
     _, tc, _, tp = _weights("llama", 2)
     for kw in (dict(paged=False), dict(spec_method="ngram"),
-               dict(adapter_cache=object()), dict(spill_host_mb=8),
-               dict(ctx=object())):
+               dict(spill_host_mb=8), dict(ctx=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             tde.DynamicInferenceEngine(tp, tc, device="cpu", **kw)
+    # Batched LoRA is ported (tests/test_torch_lora_engine.py); per-tenant
+    # accounting is not, and raises at submit.
+    from megatronapp_tpu_torch.inference.lora import (
+        AdapterCache, AdapterRegistry,
+    )
+    cache = AdapterCache(tc, AdapterRegistry(), rank=2, device="cpu")
+    eng = tde.DynamicInferenceEngine(tp, tc, device="cpu",
+                                     adapter_cache=cache, **ENGINE)
+    assert eng.adapters is cache
+    with pytest.raises(NotImplementedError, match="not ported"):
+        eng.add_request(np.arange(5), 2, tenant="acme")
     # Quantized pools are ported: an int8 engine builds and says so.
     eng = tde.DynamicInferenceEngine(tp, tc, device="cpu",
                                      kv_cache_dtype="int8", **ENGINE)

@@ -7,8 +7,8 @@
 - the weight converter refuses leaves it does not place;
 - on a card (tests marked cuda; no jax needed there), the paged, flash
   and fused kernels launch and match their plain versions, the quantized
-  paged kernel (int8 and fp8 pools) and the resident-int8 fused kernels
-  included.
+  paged kernel (int8 and fp8 pools), the resident-int8 fused kernels, the
+  segmented LoRA kernel and the fused kernels' LoRA epilogues included.
 """
 
 import ast
@@ -117,8 +117,7 @@ def test_pretrain_gpt_entry_point_raises_without_a_card(monkeypatch):
 @pytest.mark.parametrize("argv,msg", [
     (["--engine", "static"], "not ported"),
     (["--engine", "dynamic"], "--paged-kv-cache"),
-    (["--engine", "dynamic", "--paged-kv-cache", "--lora-dir", "x"],
-     "LoRA"),
+    (["--engine", "dynamic", "--lora-dir", "x"], "LoRA"),
     (["--engine", "dynamic", "--paged-kv-cache", "--spec-method", "ngram"],
      "speculative"),
     (["--engine", "dynamic", "--paged-kv-cache", "--megakernel-vmem-budget",
@@ -420,3 +419,107 @@ def test_resident_int8_fused_kernels_match_plain_versions():
             rms = b.pow(2).mean(dim=-1, keepdim=True).sqrt()
             scale = torch.maximum(b.abs(), rms)
             assert float(((a - b).abs() / scale).max()) <= 0.06
+
+
+@pytest.mark.cuda
+def test_lora_kernel_matches_plain_version():
+    """The segmented LoRA kernel (csrc/lora.cu; one launch a call) against
+    lora_delta_plain on the same inputs, both fp32 after the bf16 x: each
+    element within 1e-4 of max(|element|, its row's RMS) (chip_smoke.py
+    LORA_TOL argues the bound); NULL rows exactly 0; each row the same
+    bits alone as in the mixed batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from megatronapp_tpu_torch.ops import lora as tlo
+    from megatronapp_tpu_torch.ops.cuda import lora as cuda_lora
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(5)
+    for din, dout, rank, ids in ((1024, 2048, 8, [1, 0, 2, 3, 4, 2, 0, 1]),
+                                 (2048, 640, 16, [3] * 32)):
+        a = (torch.randn(5, din, rank, generator=g) / din ** 0.5).to(dev)
+        b = (torch.randn(5, rank, dout, generator=g) * 0.2).to(dev)
+        a[0], b[0] = 0, 0
+        x = torch.randn(len(ids), din, generator=g).to(dev, torch.bfloat16)
+        before = cuda_lora.launches["lora_delta"]
+        got = tlo.lora_delta(x, a, b, np.asarray(ids))
+        torch.cuda.synchronize()
+        assert cuda_lora.launches["lora_delta"] == before + 1
+        want = tlo.lora_delta_plain(x, a, b,
+                                    torch.tensor(ids, device=dev))
+        rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        scale = torch.maximum(want.abs(), rms).clamp_min(1e-30)
+        assert float(((got - want).abs() / scale).max()) <= 1e-4
+        null = torch.tensor(ids, device=dev) == 0
+        assert bool((got[null] == 0).all())
+        for r in (0, len(ids) - 1):
+            alone = tlo.lora_delta(x[r:r + 1].contiguous(), a, b,
+                                   np.asarray(ids[r:r + 1]))
+            assert torch.equal(alone[0], got[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_lora_epilogue_kernels_match_plain_versions(weights):
+    """The four fused kernels with their LoRA epilogue (counted in
+    lora_launches), llama3-8b-shaped with widths cut to 1024, within 0.06
+    of max(|element|, row RMS) of their plain versions with the same
+    deltas (FUSED_TOL); a batch of NULL rows gives the bits of the kernels
+    without the epilogue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from megatronapp_tpu_torch.inference.lora import lora_target_dims
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as cuda_fd
+    from megatronapp_tpu_torch.ops.lora import LoraRows
+    dev = torch.device("cuda", 0)
+    cfg = llama3_8b(num_layers=1, hidden_size=1024, num_attention_heads=8,
+                    num_query_groups=2, ffn_hidden_size=2048,
+                    vocab_size=256, params_dtype=torch.bfloat16)
+    params = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    if weights == "int8":
+        params = quantize_for_serving(params)[0]
+    p = params["layers"][0]
+    g = torch.Generator().manual_seed(2)
+    banks = {}
+    for t, (din, dout) in lora_target_dims(cfg).items():
+        a = (torch.randn(5, din, 8, generator=g) / din ** 0.5).to(dev)
+        b = (torch.randn(5, 8, dout, generator=g) * 0.2).to(dev)
+        a[0], b[0] = 0, 0
+        banks[t] = (a, b)
+    sfx = "_int8" if weights == "int8" else ""
+    for rows, ids in ((8, [1, 0, 2, 3, 4, 2, 0, 1]), (32, [3] * 32)):
+        lora = {"row_adapter": LoraRows(np.asarray(ids), dev),
+                "banks": banks}
+        null = {"row_adapter": LoraRows(np.zeros(rows, np.int32), dev),
+                "banks": banks}
+        x = torch.randn(rows, 1024, generator=g).to(dev, torch.bfloat16)
+        cos, sin = (torch.randn(rows, 64, generator=g).to(dev)
+                    for _ in range(2))
+        before = dict(cuda_fd.lora_launches)
+        got = [*cuda_fd.fused_qkv(x, p, cfg, cos, sin, lora),
+               cuda_fd.fused_out_proj(x, p, cfg, x, lora),
+               cuda_fd.fused_mlp_fc1(x, p, cfg, lora)]
+        got.append(cuda_fd.fused_mlp_fc2(got[-1], x, p, cfg, lora))
+        want = [*cuda_fd.fused_qkv_plain(x, p, cfg, cos, sin, lora),
+                cuda_fd.fused_out_proj_plain(x, p, cfg, x, lora),
+                cuda_fd.fused_mlp_fc1_plain(x, p, cfg, lora)]
+        want.append(cuda_fd.fused_mlp_fc2_plain(got[-2], x, p, cfg, lora))
+        torch.cuda.synchronize()
+        assert {k: cuda_fd.lora_launches[k] - before[k] for k in before} \
+            == {k: int(k.endswith("_int8") == bool(sfx)) for k in before}
+        for a, b in zip(got, want):
+            a, b = a.float().reshape(rows, -1), b.float().reshape(rows, -1)
+            rms = b.pow(2).mean(dim=-1, keepdim=True).sqrt()
+            scale = torch.maximum(b.abs(), rms)
+            assert float(((a - b).abs() / scale).max()) <= 0.06
+        y = cuda_fd.fused_mlp_fc1(x, p, cfg)
+        assert torch.equal(cuda_fd.fused_mlp_fc1(x, p, cfg, null), y)
+        assert torch.equal(cuda_fd.fused_mlp_fc2(y, x, p, cfg, null),
+                           cuda_fd.fused_mlp_fc2(y, x, p, cfg))
+        assert all(torch.equal(u, v) for u, v in zip(
+            cuda_fd.fused_qkv(x, p, cfg, cos, sin, null),
+            cuda_fd.fused_qkv(x, p, cfg, cos, sin)))
