@@ -38,6 +38,15 @@ Phases, each printing one JSON line:
             with their LoRA epilogue (bf16 and int8 weights, 8 and 32 rows).
    lora_reference: the tiny llama-shaped model with 3 adapters, unfused
             and fused, on the card against the CPU.
+   mla_kernels: the MLA latent paged-attention kernel against its plain
+            version at MLA's widths (klat 512, dpe 64, nq 32, dv 128):
+            decode at B 8 with kv up to 1024 and ragged chunks, on bf16,
+            int8 and fp8 pools; the fused MLA prologue (two launches) on a
+            full-width llama3-8b MLA layer at 8 and 32 rows, q_proj and
+            q_lora_rank 1536.
+   mla_reference: a tiny MLA llama-shaped model's chunked prefill and
+            decode step on the card (bf16, kernels), unfused and fused, on
+            a bf16 and an int8 pool, against the CPU (fp32, plain).
 4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
@@ -76,15 +85,27 @@ Phases, each printing one JSON line:
             one epilogue launch of each fused kernel, a layer per step and
             chunk), evictions and pinned waits, clean books, zero-B
             adapters giving the no-adapter streams, adapters changing
-            streams, fused against unfused logits, reruns.
+            streams, fused against unfused logits, reruns, and the prefix
+            hits under adapter-salted keys beside serve's unsalted ones.
+   serve_mla: llama3_8b(multi_latent_attention=True) at full width and
+            depth (32 layers, seeded bf16 weights): the 8 requests through
+            the unfused engine on a bf16 latent pool, the fused engine on
+            bf16 and int8 pools and the unfused engine on an fp8 pool:
+            lengths, vocabulary, the latent kernel once a layer a step and
+            chunk, the prologue's two kernels in every fused step, a prefix
+            hit, reruns, fused against unfused logits; pool and param bytes,
+            TTFT and decode interval.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
-            slots at kv ~1024; then the LoRA engines.
+            slots at kv ~1024; then the LoRA engines and the MLA engines
+            (unfused and fused).
 9. times:   each kernel and variant, its plain version, one PyTorch call
             computing the same function (for the segmented LoRA delta,
             which no one call computes, two torch.bmm on factors gathered
-            in advance) and the card's bound, at the shapes the main paths
+            in advance; for the latent kernel SDPA on rows gathered in
+            advance and the w_v einsum; for the MLA prologue the GEMM
+            alone) and the card's bound, at the shapes the main paths
             launch.
 
 Then the kernel table as one JSON line, the card's name and power limit,
@@ -202,6 +223,24 @@ LORA_ROUTE = LORA_ADAPTERS + [None, LORA_ADAPTERS[0], None]
 # random llama3-8b).
 LORA_REF_SCALE = 0.05
 LORA_SERVE_SCALE = 0.2
+# Multi-latent attention (slice 6): the latent paged-attention kernel (row
+# 7) and the fused MLA prologue (row 11, two launches).
+MLA_LATENT_SOURCE = "megatronapp_tpu_torch/csrc/paged_latent.cu"
+MLA_LATENT_REPLACES = (f"{_KG}:557 (paged_attention_latent, def :456; body "
+                       "emit_latent_kernel :338)")
+MLA_PROLOGUE_SOURCE = "megatronapp_tpu_torch/csrc/fused_mla.cu"
+MLA_PROLOGUE_REPLACES = f"{_KG}:1495 (_fused_mla_qkv, def :1393)"
+MLA_LAYERS = 32        # serve_mla's depth: never cut
+MLA_SCALE = 1.0 / (128 + 64) ** 0.5
+# The latent kernel vs its plain version on the same inputs: both take the
+# same q (scaled in fp32 and, on bf16 pools, rounded to bf16) and the same
+# fp32 pool values (bf16 widened, or float(page) x row scale), take the
+# softmax and sum P x latent in fp32 in other orders (~1e-6 of an output),
+# expand through the same bf16 w_v in fp32 and round the output to bf16
+# (at most 2^-8 of the element). Each output element is held to MLA_TOL of
+# max(|element|, its (row, head) RMS): between QUANT_REL_TOL's single
+# rounding and the 2^-7 of a double one.
+MLA_TOL = 0.01
 
 
 class SmokeFailure(RuntimeError):
@@ -371,7 +410,9 @@ def phase_device(state):
     built = kbuild.build_all([kbuild.source("paged_attention.cu"),
                               kbuild.source("flash_attention.cu"),
                               kbuild.source("fused_decode.cu"),
-                              kbuild.source("lora.cu")])
+                              kbuild.source("lora.cu"),
+                              kbuild.source("paged_latent.cu"),
+                              kbuild.source("fused_mla.cu")])
     build_s = time.perf_counter() - t0
     ptxas = {os.path.basename(b["source"]): [
         ln.strip() for ln in b["log"].splitlines()
@@ -1057,6 +1098,8 @@ def phase_serve(state, layers: int):
     prefill_chunks = engine.prefill_chunks - chunks_before
     state["launches"] = launches
     hits = engine.pool.stats["prefix_hit_tokens"] - hits_before
+    state["serve_pool_bytes"] = engine.pool.bytes_total
+    state["serve_prefix_hit_tokens"] = int(hits)
 
     for p, s in zip(prompts, streams):
         check(s is not None and len(s) == len(p) + max_new,
@@ -1592,6 +1635,7 @@ def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
     rid, done = driver.submit(warm, 4, greedy, adapter_id=LORA_ADAPTERS[0])
     check(done.wait(timeout=600), f"{name}: warm-up did not finish")
     driver.result_tokens(rid)
+    hits0 = engine.pool.stats["prefix_hit_tokens"]
     steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
     for counts in (fd.launches, fd.lora_launches, pa.launches, cl.launches):
         counts.update(dict.fromkeys(counts, 0))
@@ -1603,6 +1647,7 @@ def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
                 "lora_delta": dict(cl.launches)}
     steps = engine.decode_steps - steps0
     chunks = engine.prefill_chunks - chunks0
+    hits = engine.pool.stats["prefix_hit_tokens"] - hits0
     for p, s in zip(prompts, streams):
         check(s is not None and len(s) == len(p) + max_new
               and np.array_equal(s[:len(p)], p)
@@ -1635,7 +1680,7 @@ def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
     check(same, f"{name}: the rerun gave other streams")
     cache.audit()
     out = {"megakernel": engine.megakernel, "decode_steps": steps,
-           "prefill_chunks": chunks,
+           "prefill_chunks": chunks, "prefix_hit_tokens_salted": int(hits),
            "launches": {k: {n: c for n, c in v.items() if c}
                         for k, v in launches.items()},
            "ttft_ms": [round((t[1] - t[0]) * 1e3, 3) for t in times],
@@ -1759,6 +1804,14 @@ def phase_serve_lora(state):
           "bank_bytes": cache.bank_bytes(), "runs": runs,
           "zero_b_streams_equal_no_adapter_engine": zero_b,
           "requests_changed_by_their_adapter": changed,
+          # The prefix keys carry the adapter id: the route's two requests
+          # that share a 256-token prefix (a0 and None) no longer share its
+          # blocks. The serve phase's hits are those of the same prompts
+          # under unsalted keys, the keys every request had before.
+          "prefix_hit_tokens_salted_by_engine": {
+              k: r["prefix_hit_tokens_salted"] for k, r in runs.items()},
+          "prefix_hit_tokens_unsalted_same_prompts_serve_phase":
+              state.get("serve_prefix_hit_tokens"),
           "last_logits_fused_vs_unfused_max_rel_err": rel,
           "last_logits_argmax_equal": int(lf.argmax()) == int(lu.argmax()),
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
@@ -1866,17 +1919,624 @@ def _lora_times(state):
             **out}
 
 
-FAMILIES = ("paged_attention", "fused", "lora", "gemm", "memcpy/memset",
-            "other")
+# ---------------------------------------------------------------------------
+# multi-latent attention (slice 6)
+# ---------------------------------------------------------------------------
+
+
+def mla_cfg(**over):
+    """llama3-8b with multi-latent attention at the config's defaults
+    (kv_lora_rank 512, qk_head_dim 128, qk_pos_emb_head_dim 64, v_head_dim
+    128, q_lora_rank None), bf16 params."""
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    kw = dict(multi_latent_attention=True, params_dtype=torch.bfloat16)
+    kw.update(over)
+    return llama3_8b(**kw)
+
+
+def make_latent_case(gen, dev, *, batch, kv_lens, s_q=None, q_lens=None,
+                     kind="bf16", nq=32, klat=512, dpe=64, dv=128, bs=16,
+                     pool_bytes=0):
+    """Random q_lat / q_pe, one latent and one roped-key pool (quantized
+    by quantize_kv_rows for int8/fp8), w_v as the strided view of a kv_up
+    [klat, nq (128 + dv)] that the layers pass, and R disjoint shuffled
+    page tables [R, B, MB] (R > 1 when pool_bytes asks for tables whose
+    rows exceed the L2 cache, as make_case)."""
+    from megatronapp_tpu_torch.ops.paged_attention import quantize_kv_rows
+    mb = max(math.ceil(n / bs) for n in kv_lens)
+    per_table = batch * mb
+    block_bytes = bs * (klat + dpe) * (2 if kind == "bf16" else 1)
+    r = max(1, math.ceil(pool_bytes / (per_table * block_bytes)))
+    nb = r * per_table + 3
+    perm = torch.randperm(nb, generator=gen, device="cpu")[:r * per_table]
+    tables = perm.reshape(r, batch, mb).to(torch.int32).to(dev)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cpu").to(dev)
+
+    lat, pe = rnd(nb, bs, klat), rnd(nb, bs, dpe)
+    case = {"tables": tables, "table": tables[0],
+            "kv_lens": torch.tensor(kv_lens, dtype=torch.int32, device=dev)}
+    if kind == "bf16":
+        case["lat"], case["pe"] = lat.to(torch.bfloat16), pe.to(torch.bfloat16)
+    else:
+        case["lat"], case["lat_scales"] = quantize_kv_rows(lat,
+                                                           QUANT_KINDS[kind])
+        case["pe"], case["pe_scales"] = quantize_kv_rows(pe, QUANT_KINDS[kind])
+    del lat, pe
+    qs = (batch, nq) if s_q is None else (batch, s_q, nq)
+    case["q_lat"] = rnd(*qs, klat).to(torch.bfloat16)
+    case["q_pe"] = rnd(*qs, dpe).to(torch.bfloat16)
+    kv_up = (rnd(klat, nq * (128 + dv)) / klat ** 0.5).to(torch.bfloat16)
+    case["w_v"] = kv_up.reshape(klat, nq, 128 + dv)[..., 128:]
+    if q_lens is not None:
+        case["q_lens"] = torch.tensor(q_lens, dtype=torch.int32, device=dev)
+    return case
+
+
+def _latent_kw(case):
+    return {"q_lens": case.get("q_lens"), "softmax_scale": MLA_SCALE,
+            "lat_scales": case.get("lat_scales"),
+            "pe_scales": case.get("pe_scales")}
+
+
+def _compare_latent(case, name, kind):
+    """The latent kernel twice (one launch a call, the same bits) against
+    its plain version on the same inputs; returns (max abs error, max
+    error over max(|element|, (row, head) RMS))."""
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    ql = case.get("q_lens")
+    key = ("decode" if ql is None else "ragged") + (
+        "" if kind == "bf16" else f"_{kind}")
+    args = (case["q_lat"], case["q_pe"], case["lat"], case["pe"],
+            case["table"], case["kv_lens"], case["w_v"])
+    before = pl.launches[key]
+    out = pl.paged_attention_latent(*args, **_latent_kw(case))
+    again = pl.paged_attention_latent(*args, **_latent_kw(case))
+    torch.cuda.synchronize()
+    check(pl.launches[key] == before + 2,
+          f"mla_kernels {name}: {key} launched {pl.launches[key] - before} "
+          "times for two calls")
+    check(torch.equal(out, again), f"mla_kernels {name}: the rerun gave "
+          "other bits")
+    got = out.float()
+    check(bool(torch.isfinite(got).all()),
+          f"mla_kernels {name}: non-finite output")
+    ref = pl.paged_attention_latent_plain(*args, **_latent_kw(case)).float()
+    if ql is not None:    # padding rows are finite garbage by contract
+        real = (torch.arange(got.shape[1], device=got.device)[None, :]
+                < ql[:, None].long())
+        got, ref = got[real], ref[real]
+    err = (got - ref).abs()
+    rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    rel = float((err / torch.maximum(ref.abs(), rms)).max())
+    check(rel <= MLA_TOL, f"mla_kernels {name}: error {rel} of max(|element|"
+          f", row RMS) exceeds {MLA_TOL} (max abs {float(err.max())})")
+    return float(err.max()), rel
+
+
+def _mla_layer(cfg, gen, dev):
+    """One MLA layer's params on the card, every vector leaf random."""
+    from megatronapp_tpu_torch.transformer.block import init_layer_params
+    p = init_layer_params(cfg, gen, dev)
+    for name, t in p.named_parameters():
+        if t.dim() == 1:
+            t.normal_(1.0, 0.1, generator=gen)
+    return p
+
+
+def _compare_prologue(p, cfg, rows, gen, dev, name):
+    """The fused MLA prologue twice (two launches a call, the same bits)
+    against its plain version on the same inputs; returns (max abs error,
+    max error over max(|element|, row RMS)) over its four outputs."""
+    from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    x = torch.randn(rows, cfg.hidden_size, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.randint(0, 2048, (rows,), generator=gen, device=dev)
+    cos_t, sin_t = gpt_rope_tables(cfg, 2048, device=dev)
+    cos, sin = cos_t[pos].contiguous(), sin_t[pos].contiguous()
+    before = dict(fm.launches)
+    got = fm.fused_mla_qkv(x, p, cfg, cos, sin)
+    again = fm.fused_mla_qkv(x, p, cfg, cos, sin)
+    torch.cuda.synchronize()
+    check({k: fm.launches[k] - before[k] for k in before}
+          == {"mla_down": 2, "mla_up": 2},
+          f"mla_kernels {name}: launches {fm.launches} (before {before})")
+    want = fm.fused_mla_qkv_plain(x, p, cfg, cos, sin)
+    worst_abs = worst = 0.0
+    for out, a2, ref, what in zip(got, again, want,
+                                  ("q_lat", "q_pe", "latent", "k_pe")):
+        check(torch.equal(out, a2), f"mla_kernels {name}: {what}'s rerun "
+              "gave other bits")
+        g, r = out.float().reshape(rows, -1), ref.float().reshape(rows, -1)
+        check(bool(torch.isfinite(g).all()), f"mla_kernels {name}: "
+              f"non-finite {what}")
+        err = (g - r).abs()
+        rms = r.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        rel = float((err / torch.maximum(r.abs(), rms)).max())
+        check(rel <= FUSED_TOL, f"mla_kernels {name}: {what} error {rel} of "
+              f"max(|element|, row RMS) exceeds {FUSED_TOL}")
+        worst_abs, worst = max(worst_abs, float(err.max())), max(worst, rel)
+    return worst_abs, worst
+
+
+def phase_mla_kernels(state):
+    """Row 7 (the latent kernel) against its plain version on the same
+    pools at MLA's full widths (klat 512, dpe 64, nq 32, dv 128, block 16):
+    decode at B 8 with kv up to 1024 and the engine's ragged launch (B 1,
+    S_q 32), on bf16, int8 and fp8 pools; then row 11 (the fused MLA
+    prologue) on one full-width llama3-8b MLA layer at 8 and 32 rows, with
+    q_proj and with q_lora_rank 1536 (DeepSeek-V2's)."""
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(606)
+    before = dict(pl.launches), dict(fm.launches)
+    lens = [1, 15, 16, 17, 300, 1000, 1024, 640]
+    shapes = {"decode_b8": dict(batch=8, kv_lens=lens),
+              "ragged_b1": dict(batch=1, kv_lens=[1000], s_q=32,
+                                q_lens=[24]),
+              "ragged_b1_full": dict(batch=1, kv_lens=[1024], s_q=32,
+                                     q_lens=[32]),
+              "ragged_b3_tail": dict(batch=3, kv_lens=[5, 40, 700], s_q=32,
+                                     q_lens=[5, 32, 1])}
+    latent = {}
+    for name, kw in shapes.items():
+        for kind in ("bf16", "int8", "fp8"):
+            latent[f"{name}_{kind}"] = _compare_latent(
+                make_latent_case(gen, dev, kind=kind, **kw), name, kind)
+    torch.cuda.empty_cache()
+    pgen = torch.Generator(dev).manual_seed(607)
+    prologue = {}
+    for q, over in (("q_proj", {}), ("q_lora_1536", dict(q_lora_rank=1536))):
+        cfg = mla_cfg(num_layers=1, **over)
+        p = _mla_layer(cfg, pgen, dev)
+        for rows in (8, 32):
+            prologue[f"{q}_rows{rows}"] = _compare_prologue(
+                p, cfg, rows, pgen, dev, f"{q} {rows} rows")
+        del p
+    torch.cuda.empty_cache()
+    pl.launches.update(before[0])        # not main-path launches
+    fm.launches.update(before[1])
+    state["mla_latent_err"] = {
+        f"{mode}{'' if kind == 'bf16' else '_' + kind}": max(
+            v[0] for k, v in latent.items()
+            if k.startswith(mode) and k.endswith(kind))
+        for mode in ("decode", "ragged") for kind in ("bf16", "int8", "fp8")}
+    state["mla_prologue_err"] = max(v[0] for v in prologue.values())
+    emit({"phase": "mla_kernels", "latent_tol": MLA_TOL,
+          "prologue_tol": FUSED_TOL,
+          "errors": "(max abs, max over max(|plain element|, row RMS))",
+          "latent": latent, "prologue": prologue})
+
+
+def phase_mla_reference(state):
+    """A tiny MLA llama-shaped model (hidden 512, 4 heads, klat 128, dqk
+    64, dpe 64, dv 64: widths the kernels take): a 40-token prompt's
+    chunked prefill (a chunk of 32 rows and one of 8) and one decode step
+    on the card (bf16, kernels), unfused and fused, on a bf16 and an int8
+    pool, against the same weights on the CPU (fp32, plain versions)."""
+    import copy
+
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    counters = (pl.launches, fm.launches, fd.launches)
+    before = [dict(c) for c in counters]
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=4, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05, kv_lora_rank=128, qk_head_dim=64,
+                 qk_pos_emb_head_dim=64, v_head_dim=64)
+    cfg_ref = mla_cfg(compute_dtype=torch.float32,
+                      params_dtype=torch.float32, **small)
+    cfg_dev = mla_cfg(**small)
+    p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(7), "cpu")
+    for t in p_ref.parameters():        # norm scales N(1, 0.1), not ones
+        if t.dim() == 1:
+            t.copy_(1 + 0.1 * torch.randn(
+                t.shape, generator=torch.Generator().manual_seed(t.numel())))
+    p_dev = copy.deepcopy(p_ref).to(device="cuda", dtype=torch.bfloat16)
+    tokens = torch.randint(0, 512, (40,),
+                           generator=torch.Generator().manual_seed(8)).tolist()
+    dev = torch.device("cuda", 0)
+    out, runs = {}, {}
+    for kind in ("bf16", "int8"):
+        ref_pre, ref_dec = _chunked_prefill(p_ref, cfg_ref, tokens, "cpu",
+                                            False, decode_token=17,
+                                            kv_cache_dtype=kind)
+        ref = torch.cat([ref_pre, ref_dec])
+        for fused in (False, True):
+            for c in counters:
+                c.update(dict.fromkeys(c, 0))
+            pre, dec = _chunked_prefill(p_dev, cfg_dev, tokens, dev, fused,
+                                        decode_token=17, kv_cache_dtype=kind)
+            got = torch.cat([pre, dec])
+            name = f"{kind}_{'fused' if fused else 'unfused'}"
+            sfx = "" if kind == "bf16" else f"_{kind}"
+            want_pl = only(pl.launches, {f"ragged{sfx}": 2 * 2,
+                                         f"decode{sfx}": 2})
+            want_fm = dict.fromkeys(fm.launches, 2 * 3 if fused else 0)
+            want_fd = only(fd.launches, dict.fromkeys(
+                ("out_proj", "mlp_fc1", "mlp_fc2"), 2 * 3 if fused else 0))
+            check(dict(pl.launches) == want_pl
+                  and dict(fm.launches) == want_fm
+                  and dict(fd.launches) == want_fd,
+                  f"mla_reference {name}: launches {pl.launches} "
+                  f"{fm.launches} {fd.launches}, expected {want_pl} "
+                  f"{want_fm} {want_fd}")
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            out[name] = got
+            runs[name] = {"max_rel_err": rel, "argmax_agreement": agree}
+            check(bool(torch.isfinite(got).all()),
+                  f"mla_reference {name}: non-finite logits")
+            # As phase_reference: bf16 weights and activations through two
+            # layers; int8 rows add their quantization on both sides.
+            check(rel < 0.05, f"mla_reference {name}: relative logit error "
+                  f"{rel} >= 0.05")
+    for c, b in zip(counters, before):
+        c.update(b)
+    fused_vs_unfused = {kind: float(
+        (out[f"{kind}_fused"] - out[f"{kind}_unfused"]).abs().max()
+        / out[f"{kind}_unfused"].abs().max()) for kind in ("bf16", "int8")}
+    emit({"phase": "mla_reference", "runs": runs,
+          "fused_vs_unfused_max_rel": fused_vs_unfused})
+
+
+def _serve_mla_run(params, cfg, dev, kind, fused):
+    """The serve phases' 8 requests through one MLA engine on `kind` latent
+    pools, fused or not, driven as a server drives it, twice; checks the
+    streams and that every layer of every decode step and prefill chunk
+    launched the latent kernel once (and, fused, the prologue's two
+    kernels and the out-projection and MLP kernels once each) and nothing
+    else."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    name = f"serve_mla {kind} {'fused' if fused else 'unfused'}"
+    layers = cfg.num_layers
+    engine = _engine(params, cfg, dev, fused=fused, kv_cache_dtype=kind)
+    check(engine.megakernel is fused, f"{name}: the engine's step kind")
+    driver = DynamicBatchingDriver(engine)
+    greedy = SamplingParams(greedy=True)
+    max_new = 32
+    prompts, warm = _serve_prompts(cfg)
+    rid, done = driver.submit(warm, 4, greedy)
+    check(done.wait(timeout=600), f"{name}: warm-up did not finish")
+    driver.result_tokens(rid)
+    hits0 = engine.pool.stats["prefix_hit_tokens"]
+    steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+    counters = (pl.launches, fm.launches, fd.launches, pa.launches)
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+    torch.cuda.synchronize()
+    streams, times, t_start, t_end = _serve_once(driver, prompts, max_new,
+                                                 greedy)
+    latent, prologue, fused_k, paged = (dict(c) for c in counters)
+    steps = engine.decode_steps - steps0
+    chunks = engine.prefill_chunks - chunks0
+    hits = engine.pool.stats["prefix_hit_tokens"] - hits0
+    for p, s in zip(prompts, streams):
+        check(s is not None and len(s) == len(p) + max_new
+              and np.array_equal(s[:len(p)], p)
+              and bool(((s[len(p):] >= 0)
+                        & (s[len(p):] < cfg.vocab_size)).all()),
+              f"{name}: a stream of the wrong length or vocabulary")
+    sfx = "" if kind == "bf16" else f"_{kind}"
+    units = layers * (steps + chunks)
+    check(latent == only(latent, {f"decode{sfx}": layers * steps,
+                                  f"ragged{sfx}": layers * chunks}),
+          f"{name}: latent-kernel launches {latent} for {steps} steps and "
+          f"{chunks} chunks of {layers} layers")
+    check(prologue == dict.fromkeys(prologue, units if fused else 0),
+          f"{name}: prologue launches {prologue}, expected "
+          f"{units if fused else 0} of each")
+    check(fused_k == only(fused_k, dict.fromkeys(
+        ("out_proj", "mlp_fc1", "mlp_fc2"), units if fused else 0)),
+          f"{name}: fused out-projection/MLP launches {fused_k}")
+    check(not any(paged.values()), f"{name}: GQA paged launches {paged}")
+    check(hits > 0, f"{name}: the shared prefix never hit")
+    wall = t_end - t_start
+    rerun, _, _, _ = _serve_once(driver, prompts, max_new, greedy)
+    same = all(np.array_equal(a, b) for a, b in zip(streams, rerun))
+    check(same, f"{name}: the rerun gave other streams")
+    out = {"kv_cache_dtype": kind, "megakernel": engine.megakernel,
+           "latent_launches": {k: v for k, v in latent.items() if v},
+           "prologue_launches": {k: v for k, v in prologue.items() if v},
+           "fused_launches": {k: v for k, v in fused_k.items() if v},
+           "decode_steps": steps, "prefill_chunks": chunks,
+           "prefix_hit_tokens": int(hits),
+           "ttft_ms": [round((t[1] - t[0]) * 1e3, 3) for t in times],
+           "decode_ms_per_step_by_request": [
+               round((t[-1] - t[1]) * 1e3 / (len(t) - 2), 3) for t in times],
+           "tokens_per_s": max_new * len(prompts) / wall, "wall_s": wall,
+           "rerun_identical": same,
+           "pool_bytes": engine.pool.bytes_total,
+           "stats_param_bytes": engine.stats_snapshot()["param_bytes"]}
+    return out, latent, prologue
+
+
+def phase_serve_mla(state):
+    """llama3_8b(multi_latent_attention=True) at full width and full depth
+    (32 layers; DeepSeek-V2's latent widths on llama3-8b's body), seeded
+    bf16 weights, behind the continuous-batching driver: the serve phases'
+    8 greedy requests through the unfused engine on a bf16 latent pool,
+    the fused engine on bf16 and int8 pools, and the unfused engine on an
+    fp8 pool."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.quantization import resident_nbytes
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    dev = torch.device("cuda", 0)
+    cfg = mla_cfg(num_layers=MLA_LAYERS)
+    counters = (pl.launches, fm.launches, fd.launches, pa.launches)
+    before = [dict(c) for c in counters]
+    t0 = time.perf_counter()
+    params = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state["mla_model"] = (params, cfg, dev)
+    runs = {}
+    for kind, fused in (("bf16", False), ("bf16", True), ("int8", True),
+                        ("fp8", False)):
+        key = f"{kind}_pools_{'fused' if fused else 'unfused'}"
+        runs[key], latent, prologue = _serve_mla_run(params, cfg, dev, kind,
+                                                     fused)
+        state.setdefault("mla_launches", {}).update(
+            {k: v for k, v in latent.items() if v})
+        if fused and kind == "bf16":
+            state["mla_prologue_launches"] = sum(prologue.values())
+        torch.cuda.empty_cache()
+    # Last-position logits of the 300-token prompt, fused against unfused,
+    # both on the card in bf16 (the serve_fused rule).
+    prompt = _serve_prompts(cfg)[0][3].tolist()
+    lf = _chunked_prefill(params, cfg, prompt, dev, True)[-1]
+    lu = _chunked_prefill(params, cfg, prompt, dev, False)[-1]
+    for c, b in zip(counters, before):
+        c.update(b)
+    rel = float((lf - lu).abs().max() / lu.abs().max())
+    emit({"phase": "serve_mla", "model": "llama3-8b (multi_latent_attention:"
+          " kv_lora_rank 512, qk_head_dim 128, qk_pos_emb_head_dim 64, "
+          "v_head_dim 128)", "layers": cfg.num_layers,
+          "full_depth": cfg.num_layers == 32, "init_s": init_s,
+          "param_bytes": resident_nbytes(params),
+          "pool_bytes_bf16": runs["bf16_pools_unfused"]["pool_bytes"],
+          "pool_bytes_dense_serve_phase": state.get("serve_pool_bytes"),
+          "runs": runs,
+          "last_logits_fused_vs_unfused_max_rel_err": rel,
+          "last_logits_argmax_equal": int(lf.argmax()) == int(lu.argmax()),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    check(bool(np.isfinite(lf.numpy()).all()), "serve_mla: non-finite "
+          "logits")
+    # As serve_fused: 32 layers of bf16 roundings taken in other orders.
+    check(rel < 0.1, f"serve_mla: fused last-position logits differ from "
+          f"the unfused engine's by {rel} of their range (>= 0.1)")
+
+
+def _latent_bytes_flops(case):
+    """Bytes the latent function must move (each valid latent and roped-key
+    row read once with its fp32 row scales when quantized, w_v, q read
+    once, the output written once, the page table and lengths) and its
+    operations in latent space (scores over klat + dpe, P x latent over
+    klat, causal pairs as this run's data needs them, and one expansion
+    through w_v a row)."""
+    klat, dpe = case["lat"].shape[-1], case["pe"].shape[-1]
+    nq, dv = case["w_v"].shape[1], case["w_v"].shape[2]
+    kv = case["kv_lens"].tolist()
+    rows_q = case["q_lat"].numel() // klat
+    if "q_lens" not in case:
+        pairs = sum(kv)
+    else:
+        s_q = case["q_lat"].shape[1]
+        pairs = 0
+        for n, ql in zip(kv, case["q_lens"].tolist()):
+            pairs += sum(n - ql + s + 1 for s in range(ql)) + (s_q - ql) * n
+    elem = case["lat"].element_size()
+    row = (klat + dpe) * elem + (8 if "lat_scales" in case else 0)
+    nbytes = (sum(kv) * row + klat * nq * dv * 2 + rows_q * (klat + dpe) * 2
+              + rows_q * dv * 2 + case["table"].numel() * 4 + len(kv) * 8)
+    flops = 2 * pairs * nq * (2 * klat + dpe) + 2 * rows_q * klat * dv
+    return nbytes, flops
+
+
+def _sdpa_latent_call(case, nxt):
+    """The yardstick the port never calls: SDPA of [q_lat | q_pe] against
+    [latent | k_pe] gathered (and dequantized to bf16) in advance for every
+    page table, the latent as values, then the w_v einsum."""
+    import torch.nn.functional as F
+    t = case["tables"].long()
+    r, b, mb = t.shape
+    bs = case["lat"].shape[1]
+    n = int(case["kv_lens"].max())
+
+    def gather(pool, scales):
+        rows = pool[t].float()
+        if scales is not None:
+            rows = rows * scales[t][..., None]
+        return rows.to(torch.bfloat16).reshape(r, b, mb * bs, -1)[:, :, :n]
+
+    lat = gather(case["lat"], case.get("lat_scales"))
+    k = torch.cat([lat, gather(case["pe"], case.get("pe_scales"))],
+                  dim=-1)[:, :, None]                    # [R, B, 1, n, 576]
+    v = lat[:, :, None].contiguous()                     # [R, B, 1, n, 512]
+    q = torch.cat([case["q_lat"], case["q_pe"]], dim=-1)
+    if "q_lens" not in case:
+        qq, mask = q[:, :, None], None                   # [B, nq, 1, 576]
+    else:
+        qq = q.transpose(1, 2)                           # [B, nq, S, 576]
+        s_q = q.shape[1]
+        pos = torch.arange(n, device=q.device)
+        start = (case["kv_lens"] - case["q_lens"]).long()
+        abs_q = start[:, None] + torch.arange(s_q, device=q.device)
+        mask = (pos[None, None, :] <= abs_q[:, :, None])[:, None]
+    w_v = case["w_v"]
+
+    def call():
+        i = nxt()
+        o = F.scaled_dot_product_attention(qq, k[i], v[i], attn_mask=mask,
+                                           scale=MLA_SCALE, enable_gqa=True)
+        torch.einsum("bhsk,khd->bshd", o, w_v)
+    return call
+
+
+def _time_latent(case):
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    tables = case["tables"]
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % tables.shape[0]
+        return it["i"]
+
+    def args():
+        return (case["q_lat"], case["q_pe"], case["lat"], case["pe"],
+                tables[nxt()], case["kv_lens"], case["w_v"])
+
+    def kernel():
+        pl.paged_attention_latent(*args(), **_latent_kw(case))
+
+    def plain():
+        pl.paged_attention_latent_plain(*args(), **_latent_kw(case))
+
+    lib = _sdpa_latent_call(case, nxt)
+    p1 = cuda_time_ms(plain, iters=10)
+    k1 = cuda_time_ms(kernel)
+    k2 = cuda_time_ms(kernel)
+    p2 = cuda_time_ms(plain, iters=10)
+    lib_ms = cuda_time_ms(lib)
+    nbytes, flops = _latent_bytes_flops(case)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    ql = case.get("q_lens")
+    return {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+            "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "shape": {"batch": case["q_lat"].shape[0],
+                      "kv_len": int(case["kv_lens"][0]),
+                      "s_q": 1 if ql is None else case["q_lat"].shape[1],
+                      "nq": 32, "klat": 512, "dpe": 64, "dv": 128,
+                      "block_size": 16},
+            "page_tables_rotated": tables.shape[0]}
+
+
+def _mla_latent_times(state):
+    """Row 7 at the shapes serve_mla launches it: decode with B 8 at kv
+    1024 and the ragged chunk B 1, S_q 32 at kv 1024, on bf16, int8 and
+    fp8 pools, page tables rotated beyond the L2 cache."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(707)
+    out = {}
+    for kind in ("bf16", "int8", "fp8"):
+        for mode, (batch, s_q) in (("decode", (8, None)),
+                                   ("ragged", (1, 32))):
+            case = make_latent_case(
+                gen, dev, batch=batch, kv_lens=[1024] * batch, s_q=s_q,
+                q_lens=None if s_q is None else [s_q] * batch, kind=kind,
+                pool_bytes=TIMED_POOL_BYTES)
+            out[mode + ("" if kind == "bf16" else f"_{kind}")] = \
+                _time_latent(case)
+            del case
+            torch.cuda.empty_cache()
+    state["mla_latent_times"] = out
+    return {"note": "library_ms: scaled_dot_product_attention of [q_lat | "
+                    "q_pe] against [latent | k_pe] gathered (dequantized) "
+                    "to bf16 in advance, latent as values, then the w_v "
+                    "einsum; bounds in latent space", **out}
+
+
+def _mla_prologue_times(state):
+    """Row 11 at 8 (decode) and 32 (chunk) rows, rotating through
+    serve_mla's 32 layers so that every launch finds its ~59 MB of weights
+    cold; beside it the plain version, the bound and, as the yardstick the
+    port never calls, the GEMM alone (x @ [q_proj | kv_down], the
+    weights concatenated in advance for 4 layers)."""
+    from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    params, cfg, dev = state["mla_model"]
+    layers = list(params["layers"])
+    before = dict(fm.launches)
+    gen = torch.Generator(dev).manual_seed(808)
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(layers)
+        return layers[it["i"]]
+
+    h, nq = cfg.hidden_size, cfg.num_attention_heads
+    dqk, dpe, dv, klat = (cfg.qk_head_dim, cfg.qk_pos_emb_head_dim,
+                          cfg.v_head_dim, cfg.kv_lora_rank)
+    cat = [torch.cat([p["attention"]["q_proj"], p["attention"]["kv_down"]],
+                     dim=1) for p in layers[:4]]
+    out = {}
+    for rows in (8, 32):
+        x = torch.randn(rows, h, generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.randint(0, 2048, (rows,), generator=gen, device=dev)
+        cos_t, sin_t = gpt_rope_tables(cfg, 2048, device=dev)
+        cos, sin = cos_t[pos].contiguous(), sin_t[pos].contiguous()
+
+        def kern():
+            fm.fused_mla_qkv(x, nxt(), cfg, cos, sin)
+
+        def plain():
+            fm.fused_mla_qkv_plain(x, nxt(), cfg, cos, sin)
+
+        def lib():
+            nxt()
+            torch.matmul(x, cat[it["i"] % 4])
+        p1 = device_ms(plain, calls=PLAIN_CALLS)
+        k1 = device_ms(kern)
+        k2 = device_ms(kern)
+        p2 = device_ms(plain, calls=PLAIN_CALLS)
+        lib_ms = device_ms(lib)
+        weights = h * (nq * (dqk + dpe) + klat + dpe) + klat * nq * dqk
+        nbytes = (2 * (weights + 2 * h + klat) + rows * h * 2
+                  + rows * (nq * (klat + dpe) + klat + dpe) * 2
+                  + 2 * rows * (dpe // 2) * 4)
+        flops = 2 * rows * (h * (nq * (dqk + dpe) + klat + dpe)
+                            + nq * dqk * klat)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        out[rows] = {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                     "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                     "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "flops": flops,
+                     "achieved_bytes_per_s": nbytes / ((k1 + k2) / 2e3)}
+    del cat
+    fm.launches.update(before)
+    state["mla_prologue_times"] = out
+    return {"note": "device_ms of the two launches together (mla_down + "
+                    "mla_up); library_ms: one torch.matmul of x by [q_proj "
+                    "| kv_down] (the GEMM alone)", "rows": out}
+
+
+FAMILIES = ("paged_attention", "paged_latent", "fused", "lora", "gemm",
+            "memcpy/memset", "other")
 
 
 def _family(name: str) -> str:
     name = name.lower()
     if "paged_attention" in name:
         return "paged_attention"
+    if "paged_latent" in name:
+        return "paged_latent"
     if "lora_delta_kernel" in name:
         return "lora"
-    if any(f"fused_{k}_kernel" in name for k in FUSED_KERNELS):
+    if any(f"fused_{k}_kernel" in name for k in FUSED_KERNELS) \
+            or "mla_down_kernel" in name or "mla_up_kernel" in name:
         return "fused"
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass",
                                "matmul")):
@@ -1922,10 +2582,9 @@ def _device_profile(fn, units: int, families=FAMILIES,
     if top:
         out["top_kernels_ms_per_unit"] = [[name[:90], t / units]
                                           for name, t in top]
-    if "paged_attention" in families:
-        out["paged_attention_ms_per_launch"] = (
-            ms["paged_attention"] / n["paged_attention"]
-            if n["paged_attention"] else None)
+    for fam in ("paged_attention", "paged_latent"):
+        if fam in families:
+            out[f"{fam}_ms_per_launch"] = ms[fam] / n[fam] if n[fam] else None
     return out
 
 
@@ -1988,7 +2647,8 @@ def phase_profile(state):
     step), then 16 decode steps with 8 slots at kv ~1024. Then the same
     windows through the fused engine on the resident-int8 weights of
     serve_quant and int8 pools, and through the unfused and fused LoRA
-    engines of serve_lora (the 8 requests on four adapters)."""
+    engines of serve_lora (the 8 requests on four adapters), and through
+    the unfused and fused MLA engines of serve_mla (32 layers)."""
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     params, cfg, dev = state["model"]
@@ -2007,6 +2667,16 @@ def phase_profile(state):
             torch.cuda.empty_cache()
         fd.lora_launches.update(before_l[0])
         cl.launches.update(before_l[1])
+    if "mla_model" in state:
+        from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+        from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+        before_m = dict(fm.launches), dict(pl.launches)
+        m_params, m_cfg, _ = state["mla_model"]
+        for name, fused in (("mla_unfused", False), ("mla_fused", True)):
+            out[name] = _profile_engine(m_params, m_cfg, dev, fused)
+            torch.cuda.empty_cache()
+        fm.launches.update(before_m[0])
+        pl.launches.update(before_m[1])
     fd.launches.update(before[0])
     pa.launches.update(before[1])
     emit({"phase": "profile", "model": "llama3-8b",
@@ -2160,7 +2830,10 @@ def phase_times(state):
               "fused_int8_lora_llama3_8b": (
                   _fused_times(state, "qmodel", lora=True)
                   if "qmodel" in state else None)}
-             if "lora_cache" in state else {})})
+             if "lora_cache" in state else {}),
+          **({"mla_latent_llama3_8b": _mla_latent_times(state),
+              "mla_prologue_llama3_8b": _mla_prologue_times(state)}
+             if "mla_model" in state else {})})
 
 
 def _fused_bytes_flops(cfg, kernel, rows, int8=False, lora_ids=None):
@@ -2889,6 +3562,31 @@ def kernel_table(state):
                 "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
                 "library_ms": t.get("library_ms")})
+    for kind in ("", "_int8", "_fp8"):
+        for mode in ("decode", "ragged"):
+            key = mode + kind
+            t = state.get("mla_latent_times", {}).get(key, {})
+            out.append({
+                "name": f"paged_attention_latent_{key}", "route": "cuda",
+                "source": MLA_LATENT_SOURCE,
+                "replaces": MLA_LATENT_REPLACES + (
+                    f" ({kind[1:]} pools: lat_scales/pe_scales)"
+                    if kind else ""),
+                "launches": state.get("mla_launches", {}).get(key),
+                "max_abs_err": state.get("mla_latent_err", {}).get(key),
+                "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+                "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+                "library_ms": t.get("library_ms")})
+    t = state.get("mla_prologue_times", {}).get(8, {})
+    out.append({
+        "name": "fused_mla_qkv (launches: mla_down + mla_up, 8 rows)",
+        "route": "cuda", "source": MLA_PROLOGUE_SOURCE,
+        "replaces": MLA_PROLOGUE_REPLACES,
+        "launches": state.get("mla_prologue_launches"),
+        "max_abs_err": state.get("mla_prologue_err"),
+        "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+        "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+        "library_ms": t.get("library_ms")})
     for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
         t = state.get("flash_times", {}).get(kernel, {})
         out.append({
@@ -2938,6 +3636,8 @@ def main(argv=None) -> int:
         phase_quant_reference(state)
         phase_lora_kernels(state)
         phase_lora_reference(state)
+        phase_mla_kernels(state)
+        phase_mla_reference(state)
         phase_train_kernels(state)
         phase_train_reference(state)
         phase_train(state, args.train_layers)
@@ -2946,6 +3646,7 @@ def main(argv=None) -> int:
         phase_serve_fused(state)
         phase_serve_quant(state)
         phase_serve_lora(state)
+        phase_serve_mla(state)
         phase_profile(state)
         phase_times(state)
     except SmokeFailure as e:

@@ -85,7 +85,8 @@ class TransformerConfig:
     attention_softmax_in_fp32: bool = True
     apply_query_key_layer_scaling: bool = False
 
-    # MoE / MTP / MLA: later slices (the serving slice raises on them).
+    # MoE / MTP: later slices (the serving slice raises on them). MLA
+    # (multi_latent_attention) serves on the paged engine.
     num_moe_experts: Optional[int] = None
     moe_router_topk: int = 2
     moe_ffn_hidden_size: Optional[int] = None
@@ -158,14 +159,30 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.kv_channels
 
+    def attention_parameters(self) -> int:
+        """Parameters of one layer's attention projections: GQA's q, kv
+        and out kernels, or MLA's q path (q_proj, or q_down, its norm and
+        q_up), kv_down, the latent norm, kv_up and the out kernel."""
+        h, nq = self.hidden_size, self.num_attention_heads
+        if not self.multi_latent_attention:
+            d = self.head_dim
+            return h * nq * d + 2 * h * self.num_query_groups * d \
+                + nq * d * h
+        dqk, dpe = self.qk_head_dim, self.qk_pos_emb_head_dim
+        klat, dv = self.kv_lora_rank, self.v_head_dim
+        q_out = nq * (dqk + dpe)
+        q = (h * self.q_lora_rank + self.q_lora_rank
+             + self.q_lora_rank * q_out) if self.q_lora_rank else h * q_out
+        return (q + h * (klat + dpe) + klat + klat * nq * (dqk + dv)
+                + nq * dv * h)
+
     def num_parameters(self) -> int:
-        """Approximate parameter count (embedding + blocks + final norm)."""
+        """Approximate parameter count (embedding + blocks + final norm).
+        Unlike the JAX package's, it counts MLA's projections as they
+        are (``attention_parameters``)."""
         h = self.hidden_size
         v = self.vocab_size
-        n_kv = self.num_query_groups
-        d = self.head_dim
-        per_layer = (h * (self.num_attention_heads * d) + 2 * h * (n_kv * d)
-                     + (self.num_attention_heads * d) * h + 2 * h)
+        per_layer = self.attention_parameters() + 2 * h
         if self.activation in (ActivationKind.swiglu, ActivationKind.geglu):
             per_layer += 3 * h * self.ffn_hidden_size
         else:

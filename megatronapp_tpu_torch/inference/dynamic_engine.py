@@ -22,7 +22,11 @@ running slot pins its request's adapter in the cache's device banks
 (``row_adapter``: the slot's bank slot, 0 = the NULL adapter), and every
 step adds each row's low-rank delta to the five projections — the
 segmented LoRA kernel in the unfused layers, the fused kernels' LoRA
-epilogue in the fused step (ops/lora.py).
+epilogue in the fused step (ops/lora.py). An MLA config
+(``multi_latent_attention``) serves from latent pools (one latent and one
+roped-key row a token a layer, quantized per row for int8/fp8) through the
+latent paged-attention kernel, unfused or with the fused MLA prologue; it
+takes no adapter cache, as JAX's engine does not.
 
 Where the JAX engine jits each step and donates the pools, this engine
 runs eagerly on the card and writes the pools IN PLACE. All per-step
@@ -611,7 +615,9 @@ class DynamicInferenceEngine:
             # Admission by block availability: if the pool cannot host
             # this prompt now, keep FIFO order and wait for retirements
             # or preemptions to free blocks.
-            plan = self.pool.admit(slot, req.tokens)
+            # Prefix keys are salted with the adapter: another adapter's
+            # blocks hold KV computed under its q/kv deltas.
+            plan = self.pool.admit(slot, req.tokens, salt=req.adapter_id)
             if plan is None:
                 self.waiting.appendleft(req)
                 break
@@ -906,8 +912,10 @@ class DynamicInferenceEngine:
         device bytes, whether the fused step runs, the kernels' launch
         counts and, with an adapter cache, its books ("lora")."""
         from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+        from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
         from megatronapp_tpu_torch.ops.cuda import lora as cl
         from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+        from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
         pool = self.pool
         st = dict(pool.stats)
         seen = st["prefix_hit_tokens"] + st["prefill_tokens"]
@@ -925,7 +933,9 @@ class DynamicInferenceEngine:
             "megakernel": self.megakernel,
             "param_bytes": resident_nbytes(self.params),
             "kernel_launches": {"paged_attention": dict(pa.launches),
+                                "paged_latent": dict(pl.launches),
                                 "fused_decode": dict(fd.launches),
+                                "fused_mla": dict(fm.launches),
                                 "fused_decode_lora": dict(fd.lora_launches),
                                 "lora_delta": dict(cl.launches)},
             "pool": {

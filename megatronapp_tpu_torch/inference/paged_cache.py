@@ -6,11 +6,17 @@ engine's device, in the compute dtype or quantized (``kv_cache_dtype``
 int8 or fp8 e4m3) with per-(row, kv-head) fp32 scale pools [L, num_blocks,
 block_size, Hkv] beside it (``scales``); each slot owns an ordered page
 table row [max_blocks_per_seq] int32 kept on the host. Capacity is
-admitted per block.
+admitted per block. An MLA config (``multi_latent_attention``) keeps its
+compressed cache instead: a latent pool [L, NB, bs, kv_lora_rank] and a
+roped-key pool [L, NB, bs, qk_pos_emb_head_dim], with no head axis, so a
+quantized one carries one fp32 scale per row ([L, NB, bs] each; JAX
+paged_cache.py:195-204).
 
 Prefix caching: full blocks are keyed by a rolling hash of the token
-prefix they complete and refcounted. Blocks whose refcount drops to zero
-stay resident on an LRU list, hittable until the allocator evicts them.
+prefix they complete, salted with the LoRA adapter the KV was computed
+under (the NULL adapter's keys are unsalted), and refcounted. Blocks
+whose refcount drops to zero stay resident on an LRU list, hittable
+until the allocator evicts them.
 A request whose prompt fully hits still needs the last position's
 logits, so its final block is copy-on-write: the shared block's rows are
 copied into a private block and only the diverging row is recomputed.
@@ -43,13 +49,19 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def prefix_block_keys(tokens, block_size: int, limit: int) -> List[bytes]:
+def prefix_block_keys(tokens, block_size: int, limit: int,
+                      salt: Optional[str] = None) -> List[bytes]:
     """Rolling hash per FULL block of tokens[:limit]: key i commits to
     the whole prefix through block i, so a table hit is an exact prefix
-    match."""
+    match. salt: the LoRA adapter id the blocks' KV is computed under
+    (its q/kv deltas shape every row), which starts the chain, so that
+    requests on other adapters never share blocks; None (the NULL
+    adapter, the base model) keeps the unsalted chain of the JAX
+    package."""
     tokens = np.asarray(tokens, np.int32)
     keys: List[bytes] = []
-    digest = b""
+    digest = (b"" if salt is None
+              else hashlib.sha1(b"lora-adapter\0" + salt.encode()).digest())
     for i in range(limit // block_size):
         digest = hashlib.sha1(
             digest + np.ascontiguousarray(
@@ -99,9 +111,13 @@ def kv_cache_dtype_help() -> str:
     return "; ".join(f"{n}: {s.help}" for n, s in KV_CACHE_DTYPES.items())
 
 
-def validate_kv_cache_dtype(name: str, *, paged: bool = True) -> KvDtypeSpec:
+def validate_kv_cache_dtype(name: str, *, paged: bool = True,
+                            mla: bool = False) -> KvDtypeSpec:
     """kv_cache_dtype validation shared by the pool, the engine and the
-    server (the JAX package's messages; ValueError)."""
+    server (the JAX package's messages; ValueError). mla is accepted, as
+    JAX's is, so call sites say what they validate for: every storage
+    dtype serves MLA latent pools too (one scale a row)."""
+    del mla
     spec = KV_CACHE_DTYPES.get(name)
     if spec is None:
         raise ValueError(
@@ -131,11 +147,8 @@ class PagedKVCache:
                  max_seq_len: int, num_blocks: Optional[int] = None,
                  block_size: int = 16, enable_prefix_caching: bool = True,
                  kv_cache_dtype: str = "bf16", device="cpu"):
-        if cfg.multi_latent_attention:
-            raise NotImplementedError(
-                "MLA latent pools are not ported yet (the serving-extension "
-                "slice)")
-        spec = validate_kv_cache_dtype(kv_cache_dtype)
+        spec = validate_kv_cache_dtype(kv_cache_dtype,
+                                       mla=cfg.multi_latent_attention)
         self.kv_cache_dtype = kv_cache_dtype
         self.quantized = spec.quantized
         self.cfg = cfg
@@ -149,18 +162,25 @@ class PagedKVCache:
         self.enable_prefix_caching = enable_prefix_caching
         self.num_slots = max_batch
 
-        shape = (cfg.num_layers, self.num_blocks, block_size,
-                 cfg.num_query_groups, cfg.head_dim)
+        lead = (cfg.num_layers, self.num_blocks, block_size)
+        if cfg.multi_latent_attention:
+            # (latent, roped key) rows, no kv-head axis.
+            shapes = [lead + (cfg.kv_lora_rank,),
+                      lead + (cfg.qk_pos_emb_head_dim,)]
+        else:
+            shapes = [lead + (cfg.num_query_groups, cfg.head_dim)] * 2
         dt = spec.page_dtype if spec.quantized else cfg.compute_dtype
         self.pages: Tuple[torch.Tensor, ...] = tuple(
-            torch.zeros(shape, dtype=dt, device=device) for _ in range(2))
-        # scales: per-(row, kv-head) fp32 quantization scales of quantized
-        # pools (None for compute-dtype pools), written and copied with
-        # the rows they scale (the same leading [L, NB, bs] dims).
+            torch.zeros(shape, dtype=dt, device=device) for shape in shapes)
+        # scales: fp32 quantization scales of quantized pools, one per
+        # (row, kv-head), or one per row of an MLA pool (None for
+        # compute-dtype pools), written and copied with the rows they
+        # scale (the same leading [L, NB, bs] dims).
         self.scales: Optional[Tuple[torch.Tensor, ...]] = None
         if spec.quantized:
             self.scales = tuple(torch.ones(shape[:-1], dtype=torch.float32,
-                                           device=device) for _ in range(2))
+                                           device=device)
+                                for shape in shapes)
 
         self.page_table = np.zeros((self.num_slots, self.max_blocks_per_seq),
                                    np.int32)
@@ -171,6 +191,8 @@ class PagedKVCache:
         self._lru: OrderedDict = OrderedDict()  # rc==0 hashed blocks
         self._slot_blocks: List[List[int]] = [
             [] for _ in range(self.num_slots)]
+        # Each slot's prefix-key salt (its request's adapter id).
+        self._slot_salt: List[Optional[str]] = [None] * self.num_slots
         self.stats = {"prefix_hit_tokens": 0, "prefill_tokens": 0,
                       "cow_copies": 0, "evictions": 0, "preemptions": 0,
                       "peak_blocks_in_use": 0}
@@ -253,21 +275,25 @@ class PagedKVCache:
         self.stats["peak_blocks_in_use"] = max(
             self.stats["peak_blocks_in_use"], self.blocks_in_use())
 
-    def _block_keys(self, tokens: np.ndarray, limit: int) -> List[bytes]:
-        return prefix_block_keys(tokens, self.block_size, limit)
+    def _block_keys(self, tokens: np.ndarray, limit: int,
+                    salt: Optional[str]) -> List[bytes]:
+        return prefix_block_keys(tokens, self.block_size, limit, salt)
 
     # ---- engine-facing API ----------------------------------------------
-    def admit(self, slot: int, tokens: np.ndarray) -> Optional[AdmitPlan]:
+    def admit(self, slot: int, tokens: np.ndarray,
+              salt: Optional[str] = None) -> Optional[AdmitPlan]:
         """Install blocks covering `tokens` into `slot`'s page table,
         reusing cached prefix blocks. Returns None (state rolled back)
-        when the pool cannot supply the fresh blocks."""
+        when the pool cannot supply the fresh blocks. salt: the adapter id
+        the slot's KV is computed under (``prefix_block_keys``); the slot
+        keeps it for its own registrations until it is released."""
         assert not self._slot_blocks[slot], f"slot {slot} still holds blocks"
         p_len = len(tokens)
         need_total = cdiv(p_len, self.block_size)
 
         hits: List[int] = []
         if self.enable_prefix_caching:
-            for key in self._block_keys(tokens, p_len):
+            for key in self._block_keys(tokens, p_len, salt):
                 blk = self._table.get(key)
                 if blk is None:
                     break
@@ -313,6 +339,7 @@ class PagedKVCache:
             blocks = hits + fresh
 
         self._slot_blocks[slot] = blocks
+        self._slot_salt[slot] = salt
         self.page_table[slot, :] = 0
         self.page_table[slot, :len(blocks)] = blocks
         self.stats["prefix_hit_tokens"] += cached
@@ -384,7 +411,8 @@ class PagedKVCache:
         if not self.enable_prefix_caching:
             return
         owned = self._slot_blocks[slot]
-        for i, key in enumerate(self._block_keys(tokens, valid_len)):
+        for i, key in enumerate(self._block_keys(tokens, valid_len,
+                                                 self._slot_salt[slot])):
             if i >= len(owned):
                 break
             blk = owned[i]
@@ -402,6 +430,7 @@ class PagedKVCache:
         for blk in self._slot_blocks[slot]:
             self._release_block(blk)
         self._slot_blocks[slot] = []
+        self._slot_salt[slot] = None
         self.page_table[slot, :] = 0
         if preempted:
             self.stats["preemptions"] += 1

@@ -38,6 +38,11 @@ _EMBEDDING = {"word", "pos"}
 _LAYER = {"ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias"}
 _ATTENTION = {"q_kernel", "kv_kernel", "out_kernel", "q_bias", "kv_bias",
               "out_bias", "q_ln_scale", "k_ln_scale"}
+# An MLA layer's attention leaves (JAX transformer/mla.py:32): q_proj, or
+# q_down / q_ln_scale / q_up, then the kv path; out_kernel alone may be
+# resident int8.
+_MLA = {"q_proj", "q_down", "q_ln_scale", "q_up", "kv_down", "kv_ln_scale",
+        "kv_up", "out_kernel"}
 _MLP = {"fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias"}
 
 
@@ -83,7 +88,8 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
            for k, v in _leaves(tree["embedding"], _EMBEDDING,
                                "embedding.").items()}
     block = tree["block"]
-    subs = {"attention": _ATTENTION, "mlp": _MLP}
+    subs = {"attention": _MLA if cfg.multi_latent_attention else _ATTENTION,
+            "mlp": _MLP}
     for name, val in block.items():
         if name not in _LAYER and name not in subs:
             raise KeyError(f"params_from_jax: unknown leaf block.{name}")

@@ -58,13 +58,16 @@ def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
 
 def rope_params(cfg: TransformerConfig, device=None):
     """(inv_freq, mscale) for the configured rope variant, or (None,
-    1.0)."""
+    1.0). MLA ropes only its decoupled qk_pos_emb_head_dim heads (JAX
+    models/gpt.py:116)."""
+    rope_dim = (cfg.qk_pos_emb_head_dim if cfg.multi_latent_attention
+                else cfg.head_dim)
     if cfg.position_embedding == PositionEmbeddingKind.rope:
-        return rotary.rope_frequencies(cfg.head_dim, cfg.rotary_base,
+        return rotary.rope_frequencies(rope_dim, cfg.rotary_base,
                                        cfg.rotary_percent, device), 1.0
     if cfg.position_embedding == PositionEmbeddingKind.yarn:
         inv_freq = rotary.yarn_frequencies(
-            cfg.head_dim, cfg.rotary_base,
+            rope_dim, cfg.rotary_base,
             scaling_factor=cfg.rope_scaling_factor,
             original_max_position=cfg.yarn_original_max_position,
             beta_fast=cfg.yarn_beta_fast, beta_slow=cfg.yarn_beta_slow,

@@ -202,13 +202,18 @@ def weight_kind(leaf) -> torch.dtype:
 
 
 def _cfg_limits(cfg: TransformerConfig) -> Optional[str]:
-    """The compute dtype, head_dim and alignment limits of the kernels."""
+    """The compute dtype, head_dim and alignment limits of the kernels (an
+    MLA layer runs only the out-projection and MLP kernels here)."""
     h, ffn, d = cfg.hidden_size, cfg.ffn_hidden_size, cfg.head_dim
-    if d not in HEAD_DIMS:
+    cols = {"hidden_size": h, "ffn_hidden_size": ffn}
+    if cfg.multi_latent_attention:
+        cols["num_attention_heads * v_head_dim"] = (cfg.num_attention_heads
+                                                    * cfg.v_head_dim)
+    elif d not in HEAD_DIMS:
         return f"head_dim {d}: the fused CUDA kernels take {HEAD_DIMS}"
-    cols = {"hidden_size": h, "ffn_hidden_size": ffn,
-            "num_attention_heads * head_dim": cfg.num_attention_heads * d,
-            "num_query_groups * head_dim": cfg.num_query_groups * d}
+    else:
+        cols["num_attention_heads * head_dim"] = cfg.num_attention_heads * d
+        cols["num_query_groups * head_dim"] = cfg.num_query_groups * d
     for name, n in cols.items():
         if n % TILE:
             return (f"alignment: {name} = {n} is not a multiple of the "
@@ -225,12 +230,16 @@ def kernel_limits(cfg: TransformerConfig, layer=None) -> Optional[str]:
                 "compute in bf16, and the residual stream is in the compute "
                 "dtype")
     vec = cfg.params_dtype
-    kinds = dict.fromkeys(RESIDENT_KERNELS, vec)
+    # An MLA layer's q/kv path runs the fused MLA prologue (its own limits,
+    # ops/cuda/fused_mla.py); its out_kernel and MLP run these kernels.
+    names = [k for k in RESIDENT_KERNELS if not (
+        cfg.multi_latent_attention and k in ("q_kernel", "kv_kernel"))]
+    kinds = dict.fromkeys(names, vec)
     if layer is not None:
         vec = layer["ln1_scale"].dtype
         kinds = {k: weight_kind(layer["mlp" if k.startswith("fc")
                                       else "attention"][k])
-                 for k in RESIDENT_KERNELS}
+                 for k in names}
     if vec not in VECTOR_DTYPES:
         return (f"weight dtype {vec}: the fused CUDA kernels take bf16 or "
                 "fp32 weights (or resident int8 beside bf16 or fp32 norm "
@@ -239,7 +248,7 @@ def kernel_limits(cfg: TransformerConfig, layer=None) -> Optional[str]:
         if kind != torch.int8 and kind != vec:
             return (f"weight dtype {kind} of {name}: the fused CUDA kernels "
                     f"take the params dtype {vec} or resident int8")
-    if kinds["q_kernel"] != kinds["kv_kernel"]:
+    if "q_kernel" in kinds and kinds["q_kernel"] != kinds["kv_kernel"]:
         return (f"mixed QKV weights: q_kernel {kinds['q_kernel']}, "
                 f"kv_kernel {kinds['kv_kernel']} (the fused QKV kernel "
                 "reads both as one weight kind: both resident int8 or "

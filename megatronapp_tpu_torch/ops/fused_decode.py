@@ -19,6 +19,12 @@ lives in the compute dtype in both). The TPU VMEM tile planning
 (``_qkv_tiles``, ``_out_tiles``, ``_mlp_tiles``, the VMEM budget) has no
 counterpart: the CUDA kernels plan their own tiles and take any row count.
 
+An MLA layer (``cfg.multi_latent_attention``, kernel_gen.py:1844
+``_fused_mla_layer``) runs [fused MLA prologue: norm + q path + rope +
+absorption + latent and k_pe rows] (ops/cuda/fused_mla.py, two launches)
+→ [latent and k_pe append, quantized per row for int8/fp8 pools] →
+[latent paged attention] → the same out-projection and MLP kernels.
+
 ``lora=`` (batched multi-tenant LoRA, kernel_gen.py:1950-2092): one layer's
 adapter deltas, {"row_adapter": LoraRows of the step's rows, "banks":
 {target: (A, B) of this layer}} (ops/lora.py). The four kernels run with
@@ -38,10 +44,15 @@ from megatronapp_tpu_torch.ops.cuda.fused_decode import (
     fused_mlp_fc1, fused_mlp_fc1_plain, fused_mlp_fc2, fused_mlp_fc2_plain,
     fused_out_proj, fused_qkv, kernel_limits,
 )
+from megatronapp_tpu_torch.ops.cuda import fused_mla as cuda_mla
+from megatronapp_tpu_torch.ops.cuda import paged_latent as cuda_latent
 from megatronapp_tpu_torch.ops.lora import lora_kernel_ineligible_reason
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_multiquery,
     scale_kwargs, write_kv,
+)
+from megatronapp_tpu_torch.transformer.mla import (
+    kv_up_heads, latent_attention,
 )
 
 
@@ -58,10 +69,40 @@ def fused_mlp_plain(x, p, cfg: TransformerConfig, lora=None):
                                cfg, lora)
 
 
-def _check_gqa(cfg: TransformerConfig):
-    if cfg.multi_latent_attention:
-        raise NotImplementedError("MLA fused prologue not ported yet (the "
-                                  "MLA serving slice)")
+def _fused_mla_layer(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
+                     kv_cache, cache_positions, counts, page_table,
+                     write_index: WriteIndex, kv_scales=None):
+    """One MLA layer as fused kernels (kernel_gen._fused_mla_layer), the
+    s == 1 decode body (counts None) or the ragged chunk (counts [B]), on
+    the B·S flattened rows: [fused MLA prologue] → [latent and k_pe append
+    at `write_index`, quantized per row when kv_scales marks int8/fp8
+    pools] → [latent paged attention] → [fused out-projection + residual]
+    → [fused norm+MLP + residual]. Returns ((out [B, S, H], the layer's
+    pools), None)."""
+    b, s, h = x.shape
+    nq, dpe = cfg.num_attention_heads, cfg.qk_pos_emb_head_dim
+    klat, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    xf = x.reshape(b * s, h)
+    cos = rope_cos.reshape(b * s, -1) if rope_cos is not None else None
+    sin = rope_sin.reshape(b * s, -1) if rope_sin is not None else None
+    q_lat, q_pe, lat, pe = cuda_mla.fused_mla_qkv(xf, p, cfg, cos, sin)
+    write_kv(kv_cache, kv_scales, lat.reshape(b, s, klat),
+             pe.reshape(b, s, dpe), write_index)
+    attn = latent_attention(
+        q_lat.reshape(b, s, nq, klat), q_pe.reshape(b, s, nq, dpe), kv_cache,
+        kv_scales, page_table, cache_positions, counts,
+        kv_up_heads(p["attention"], cfg)[1], cfg)
+    x2 = fused_out_proj(attn.reshape(b * s, nq * dv), p, cfg, xf)
+    x2 = fused_mlp(x2, p, cfg)
+    return (x2.reshape(b, s, h), tuple(kv_cache) + tuple(kv_scales or ())), \
+        None
+
+
+def _no_mla_lora(lora):
+    if lora is not None:
+        raise ValueError("LoRA targets the GQA projections — "
+                         "megakernel_ineligible_reason(lora_rank=) gates "
+                         "MLA off")
 
 
 def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
@@ -77,11 +118,16 @@ def fused_layer_decode(p, x, cfg: TransformerConfig, rope_cos, rope_sin,
     scale pools of an int8/fp8 pool: the new rows are quantized and written
     with their scales, and the paged kernel dequantizes (kernel_gen.py:
     1990-2003). lora: the layer's adapter deltas over the B rows (module
-    docstring). Returns ((out [B, 1, H], the layer's pools), None)."""
-    _check_gqa(cfg)
+    docstring). An MLA layer runs ``_fused_mla_layer``. Returns ((out [B,
+    1, H], the layer's pools), None)."""
     b = x.shape[0]
     if x.shape[1] != 1:
         raise ValueError("fused_layer_decode is the s == 1 decode body")
+    if cfg.multi_latent_attention:
+        _no_mla_lora(lora)
+        return _fused_mla_layer(p, x, cfg, rope_cos, rope_sin, kv_cache,
+                                cache_positions, None, page_table,
+                                write_index, kv_scales)
     nq, d = cfg.num_attention_heads, cfg.head_dim
     x2 = x[:, 0]
     cos = rope_cos[:, 0] if rope_cos is not None else None
@@ -107,8 +153,13 @@ def fused_layer_multiquery(p, x, cfg: TransformerConfig, rope_cos,
     finite garbage outputs), kv_scales as for ``fused_layer_decode``, lora
     over the B·S flattened rows (each slot's adapter on its S rows).
     Every fused op is row-wise or contracts the last dim, so flattening
-    changes no row. Returns ((out [B, S, H], the layer's pools), None)."""
-    _check_gqa(cfg)
+    changes no row. An MLA layer runs ``_fused_mla_layer``. Returns ((out
+    [B, S, H], the layer's pools), None)."""
+    if cfg.multi_latent_attention:
+        _no_mla_lora(lora)
+        return _fused_mla_layer(p, x, cfg, rope_cos, rope_sin, kv_cache,
+                                cache_positions, counts, page_table,
+                                write_index, kv_scales)
     b, s, h = x.shape
     nq, nkv, d = (cfg.num_attention_heads, cfg.num_query_groups,
                   cfg.head_dim)
@@ -136,14 +187,16 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
     """Why the fused decode step may NOT run — None when eligible, else
     the first failed predicate by name (kernel_gen.
     megakernel_ineligible_reason). The semantic predicates are the JAX
-    package's: paged backend, not MoE, not heterogeneous, no tp mesh, not
-    MLA. The TPU's VMEM size predicates are replaced by the CUDA kernels'
-    own limits (``kernel_limits``: compute, residual and weight dtypes —
-    bf16, fp32 or resident int8, q_kernel and kv_kernel of one kind —,
-    head_dim, alignment of H, ffn and the projections), which hold where
-    the step runs on the card — `device`, else the device of `params`; on
-    the CPU the plain versions take any shape. batch and mq_rows are the
-    decode and widest multi-query row counts; the kernels take any.
+    package's: paged backend, not MoE, not heterogeneous, no tp mesh, no
+    LoRA on MLA. The TPU's VMEM size predicates are replaced by the CUDA
+    kernels' own limits (``kernel_limits``: compute, residual and weight
+    dtypes — bf16, fp32 or resident int8, q_kernel and kv_kernel of one
+    kind —, head_dim, alignment of H, ffn and the projections; for MLA the
+    prologue's and the latent kernel's widths, bf16 q/kv weights and at
+    most 32 rows), which hold where the step runs on the card — `device`,
+    else the device of `params`; on the CPU the plain versions take any
+    shape. batch and mq_rows are the decode and widest multi-query row
+    counts; the GQA kernels take any.
     lora_rank: the adapter rank when an AdapterCache is attached. JAX's
     semantic predicate holds (MLA has no q/kv kernels to adapt); its
     re-plans of the no-grid VMEM bodies are replaced by the LoRA
@@ -163,8 +216,6 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
         return ("LoRA serving targets the GQA projection kernels — "
                 "the MLA megakernel has no q_kernel/kv_kernel to "
                 "compose an adapter epilogue onto")
-    if cfg.multi_latent_attention:
-        return "MLA fused prologue not ported yet"
     rows = max(int(batch), int(mq_rows or 0))
     if rows < 1:
         return f"no rows to run (batch {batch}, mq_rows {mq_rows})"
@@ -176,6 +227,9 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
     if device is None or torch.device(device).type != "cuda":
         return None
     reason = kernel_limits(cfg, layer)
+    if reason is None and cfg.multi_latent_attention:
+        reason = (cuda_mla.kernel_limits(cfg, rows, layer)
+                  or cuda_latent.kernel_limits(cfg))
     if reason is None and lora_rank:
         for target, (din, dout) in lora_target_dims(cfg).items():
             why = lora_kernel_ineligible_reason(din, dout, int(lora_rank),

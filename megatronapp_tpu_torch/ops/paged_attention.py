@@ -5,10 +5,15 @@ storage registry of ops/pallas/kernel_gen.py:88-122: int8 and fp8 pools).
 The decode cache lives in a shared block pool [num_blocks, block_size,
 Hkv, D]; each slot owns an ordered page table of block ids, and attention
 reads K/V through the table (ops/cuda/paged_attention.py holds the
-kernel). Pools are in the compute dtype, or quantized (int8 or fp8 e4m3)
-with per-(row, kv-head) fp32 scale pools [num_blocks, block_size, Hkv]
-beside them: ``quantize_kv_rows`` quantizes new rows as they are written
-and the kernel dequantizes each page as it reads it. The write helpers
+kernel). An MLA layer's pool pair is (latent [NB, bs, klat], roped key
+[NB, bs, dpe]) with per-row scale pools [NB, bs], attended in latent
+space by ``paged_attention_latent`` (ops/cuda/paged_latent.py); the write
+helpers below take those rows as they are, since they quantize and
+scatter over the trailing dim. Pools are in the compute dtype, or
+quantized (int8 or fp8 e4m3) with per-(row, kv-head) fp32 scale pools
+[num_blocks, block_size, Hkv] beside them: ``quantize_kv_rows`` quantizes
+new rows as they are written and the kernel dequantizes each page as it
+reads it. The write helpers
 scatter new K/V rows (and scales) to (block, offset) pairs IN PLACE — the
 JAX engine donates the pools to its step jit instead. Inactive slots and
 padding rows are DROPPED, never clamped: torch has no ``mode="drop"``, so
@@ -25,6 +30,11 @@ import torch
 
 from megatronapp_tpu_torch.ops.cuda.paged_attention import (
     QUANT_DTYPES, paged_attention, paged_attention_plain, storage_view,
+)
+# The latent dispatcher and dequantizer, re-exported beside the GQA ones.
+from megatronapp_tpu_torch.ops.cuda.paged_latent import (  # noqa: F401
+    dequantize_latent_pages, paged_attention_latent,
+    paged_attention_latent_plain,
 )
 
 
@@ -107,6 +117,18 @@ def paged_attention_multiquery_reference(q, k_pages, v_pages, page_table,
     return paged_attention_plain(q, k_pages, v_pages, page_table, kv_lens,
                                  q_lens=q_lens, softmax_scale=softmax_scale,
                                  k_scales=k_scales, v_scales=v_scales)
+
+
+def paged_attention_latent_reference(q_lat, q_pe, lat_pages, pe_pages,
+                                     page_table, kv_lens, w_v, q_lens=None,
+                                     softmax_scale: Optional[float] = None,
+                                     lat_scales=None, pe_scales=None):
+    """Dense-gather oracle of the MLA latent kernel, decode and ragged
+    modes (JAX ops/pallas/paged_attention.py:251; the kernel's plain
+    version)."""
+    return paged_attention_latent_plain(
+        q_lat, q_pe, lat_pages, pe_pages, page_table, kv_lens, w_v, q_lens,
+        softmax_scale, lat_scales, pe_scales)
 
 
 WriteIndex = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]

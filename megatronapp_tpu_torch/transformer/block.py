@@ -26,21 +26,22 @@ from megatronapp_tpu_torch.ops.normalization import apply_norm
 from megatronapp_tpu_torch.transformer.attention import (
     attention_forward, init_attention_params,
 )
+from megatronapp_tpu_torch.transformer.mla import init_mla_params, mla_forward
 from megatronapp_tpu_torch.transformer.mlp import init_mlp_params, mlp_forward
 from megatronapp_tpu_torch.utils.params import ParamTree
 
 
 def _check_dense(cfg: TransformerConfig):
-    if cfg.is_moe or cfg.multi_latent_attention:
+    if cfg.is_moe:
         raise NotImplementedError(
-            "MoE and MLA layers are not ported yet (the serving-extension "
-            "and parallel-training slices)")
+            "MoE layers are not ported yet (the parallel-training slice)")
 
 
 def init_layer_params(cfg: TransformerConfig, generator: torch.Generator,
                       device) -> ParamTree:
-    """One layer's params. Residual-out projections use the scaled init
-    std / sqrt(2 * num_layers)."""
+    """One layer's params (the MLA leaves for a multi_latent_attention
+    config, JAX block.py:41-45). Residual-out projections use the scaled
+    init std / sqrt(2 * num_layers)."""
     _check_dense(cfg)
     out_std = cfg.init_method_std / math.sqrt(2.0 * cfg.num_layers)
     h, dt = cfg.hidden_size, cfg.params_dtype
@@ -49,9 +50,10 @@ def init_layer_params(cfg: TransformerConfig, generator: torch.Generator,
     if cfg.normalization == NormKind.layernorm:
         leaves["ln1_bias"] = torch.zeros(h, dtype=dt, device=device)
         leaves["ln2_bias"] = torch.zeros(h, dtype=dt, device=device)
+    init_attn = (init_mla_params if cfg.multi_latent_attention
+                 else init_attention_params)
     return ParamTree(
-        leaves,
-        attention=init_attention_params(cfg, generator, device, out_std),
+        leaves, attention=init_attn(cfg, generator, device, out_std),
         mlp=init_mlp_params(cfg, generator, device, out_std))
 
 
@@ -81,7 +83,12 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
 
     lora: one layer's batched adapter deltas (ops/lora.py: {"row_adapter":
     LoraRows of the step's rows, "banks": {target: (A, B) of this layer}})
-    on the paged serving branches, unfused or fused (JAX block.py:75-194)."""
+    on the paged serving branches, unfused or fused (JAX block.py:75-194).
+
+    An MLA layer (cfg.multi_latent_attention) runs transformer/mla.py's
+    mla_forward on the normed input (JAX block.py:136-160): kv_cache is
+    its (latent, roped key) pool pair and kv_scales their per-row scale
+    pools. It takes no lora."""
     if fused_decode:
         if page_table is None or kv_cache is None or cfg.is_moe:
             raise ValueError(
@@ -103,12 +110,36 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln1_scale"], p.get("ln1_bias"),
                    cfg.layernorm_epsilon)
-    attn_out, new_cache = attention_forward(
-        p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,
-        kv_cache=kv_cache, cache_index=cache_index,
-        cache_positions=cache_positions, page_table=page_table,
-        chunk_counts=chunk_counts, write_index=write_index,
-        segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales, lora=lora)
+    if cfg.multi_latent_attention:
+        if lora is not None:
+            raise ValueError(
+                "lora serving targets the GQA projection kernels — MLA "
+                "has no q_kernel/kv_kernel (lora.AdapterCache rejects "
+                "MLA configs at construction)")
+        if ctx is not None or cache_index is not None:
+            raise NotImplementedError(
+                "context-parallel MLA and MLA's dense slot cache are not "
+                "ported yet")
+        if segment_ids is not None:
+            # Packed segments densify into the keep-mask (JAX block.py:
+            # 143-149).
+            seg_mask = (segment_ids[:, None, :, None]
+                        == segment_ids[:, None, None, :])
+            attention_mask = (seg_mask if attention_mask is None
+                              else attention_mask & seg_mask)
+        attn_out, new_cache = mla_forward(
+            p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,
+            kv_cache=kv_cache, cache_positions=cache_positions,
+            page_table=page_table, chunk_counts=chunk_counts,
+            write_index=write_index, kv_scales=kv_scales)
+    else:
+        attn_out, new_cache = attention_forward(
+            p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,
+            kv_cache=kv_cache, cache_index=cache_index,
+            cache_positions=cache_positions, page_table=page_table,
+            chunk_counts=chunk_counts, write_index=write_index,
+            segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales,
+            lora=lora)
     x = residual + attn_out.to(residual.dtype)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),

@@ -456,7 +456,8 @@ def test_eligible_configs(name):
 
 @pytest.mark.parametrize("change,kw,match", [
     (dict(num_moe_experts=4), {}, "MoE"),
-    (dict(multi_latent_attention=True), {}, "MLA fused prologue not ported"),
+    (dict(multi_latent_attention=True), dict(lora_rank=8),
+     "MLA megakernel has no q_kernel/kv_kernel"),
     ({}, dict(tp_paged=True), "tp head-sharded"),
     ({}, dict(paged=False), "non-paged"),
 ])

@@ -8,7 +8,9 @@
 - on a card (tests marked cuda; no jax needed there), the paged, flash
   and fused kernels launch and match their plain versions, the quantized
   paged kernel (int8 and fp8 pools), the resident-int8 fused kernels, the
-  segmented LoRA kernel and the fused kernels' LoRA epilogues included.
+  segmented LoRA kernel, the fused kernels' LoRA epilogues, the MLA
+  latent kernel (bf16, int8 and fp8 pools) and the fused MLA prologue
+  included.
 """
 
 import ast
@@ -93,6 +95,26 @@ def test_engine_defaults_to_the_card_and_raises_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mla_engine_defaults_to_the_card_and_raises_without_one(
+        monkeypatch):
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama3_8b(num_layers=1, hidden_size=64, num_attention_heads=4,
+                    num_query_groups=4, ffn_hidden_size=128,
+                    vocab_size=128, multi_latent_attention=True,
+                    kv_lora_rank=32, qk_head_dim=16, qk_pos_emb_head_dim=8,
+                    v_head_dim=16)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynamicInferenceEngine(params, cfg, max_seq_len=32)
+    eng = DynamicInferenceEngine(params, cfg, max_seq_len=32, device="cpu")
+    assert [tuple(p.shape[-1:]) for p in eng.pool.pages] == [(32,), (8,)]
 
 
 def test_serve_entry_point_raises_without_a_card(monkeypatch):
@@ -523,3 +545,112 @@ def test_lora_epilogue_kernels_match_plain_versions(weights):
         assert all(torch.equal(u, v) for u, v in zip(
             cuda_fd.fused_qkv(x, p, cfg, cos, sin, null),
             cuda_fd.fused_qkv(x, p, cfg, cos, sin)))
+
+
+def _latent_case(dev, kind, ragged, g, b=3, nq=8, klat=512, dpe=64, dv=128,
+                 bs=16, mb=8):
+    """Inputs of the latent kernel at MLA's widths: pools (quantized by
+    quantize_kv_rows for int8/fp8), and w_v as the strided view of a
+    kv_up [klat, nq * (dqk + dv)] that the layers pass."""
+    from megatronapp_tpu_torch.ops.paged_attention import quantize_kv_rows
+    nb = b * mb + 1
+    pools = [torch.randn(nb, bs, d, generator=g).to(dev) for d in (klat, dpe)]
+    scales = [None, None]
+    if kind == "bf16":
+        pools = [p.to(torch.bfloat16) for p in pools]
+    else:
+        dt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[kind]
+        pools, scales = zip(*(quantize_kv_rows(p, dt) for p in pools))
+    kv_up = torch.randn(klat, nq * (128 + dv), generator=g).to(
+        dev, torch.bfloat16) / klat ** 0.5
+    w_v = kv_up.reshape(klat, nq, 128 + dv)[..., 128:]
+    table = (1 + torch.randperm(nb - 1, generator=g)[:b * mb]).reshape(
+        b, mb).to(dev, torch.int32)
+    lens = torch.tensor([1, 37, bs * mb], dtype=torch.int32, device=dev)
+    s_q = 7 if ragged else None
+    shape = (b, s_q, nq) if ragged else (b, nq)
+    q_lat = torch.randn(*shape, klat, generator=g).to(dev, torch.bfloat16)
+    q_pe = torch.randn(*shape, dpe, generator=g).to(dev, torch.bfloat16)
+    q_lens = (torch.tensor([1, 7, 5], dtype=torch.int32, device=dev)
+              if ragged else None)
+    return (q_lat, q_pe, *pools, table, lens, w_v), q_lens, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_latent_kernel_matches_plain_version(kind):
+    """The MLA latent kernel (csrc/paged_latent.cu; one launch a call,
+    counted by mode and pool dtype), decode and ragged, against its plain
+    version on the same inputs: both take the same rounded q and fp32 pool
+    values and sum in fp32 in other orders, then round the output to bf16,
+    so each element is held to 0.01 of max(|element|, its (row, head) RMS)
+    (chip_smoke.py MLA_TOL argues the bound); a rerun repeats every bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as cuda_pl
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(7)
+    sfx = "" if kind == "bf16" else f"_{kind}"
+    for ragged in (False, True):
+        args, q_lens, (ls, ps) = _latent_case(dev, kind, ragged, g)
+        key = ("ragged" if ragged else "decode") + sfx
+        before = cuda_pl.launches[key]
+        kw = dict(q_lens=q_lens, softmax_scale=1 / 192 ** 0.5,
+                  lat_scales=ls, pe_scales=ps)
+        out = cuda_pl.paged_attention_latent(*args, **kw)
+        again = cuda_pl.paged_attention_latent(*args, **kw)
+        torch.cuda.synchronize()
+        assert cuda_pl.launches[key] == before + 2
+        assert torch.equal(out, again)
+        ref = cuda_pl.paged_attention_latent_plain(*args, **kw).float()
+        got = out.float()
+        if ragged:
+            real = torch.arange(7, device=dev)[None, :] < q_lens[:, None]
+            got, ref = got[real], ref[real]
+        rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        scale = torch.maximum(ref.abs(), rms)
+        assert bool(torch.isfinite(got).all())
+        assert float(((got - ref).abs() / scale).max()) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_lora_rank", [None, 384])
+def test_fused_mla_prologue_matches_plain_version(q_lora_rank):
+    """The fused MLA prologue (csrc/fused_mla.cu, two launches a call) on
+    MLA-shaped bf16 tensors (widths cut to hidden 1024, 8 heads), 8 and 32
+    rows, with rope and YaRN's m², within 0.06 of max(|element|, row RMS)
+    of its plain version (FUSED_TOL); a rerun repeats every bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as cuda_mla
+    dev = torch.device("cuda", 0)
+    cfg = llama3_8b(num_layers=1, hidden_size=1024, num_attention_heads=8,
+                    num_query_groups=8, ffn_hidden_size=2048,
+                    vocab_size=256, params_dtype=torch.bfloat16,
+                    multi_latent_attention=True, q_lora_rank=q_lora_rank,
+                    position_embedding="yarn", rope_scaling_factor=4.0)
+    p = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0),
+                        dev)["layers"][0]
+    g = torch.Generator().manual_seed(1)
+    for t in p.parameters():
+        if t.dim() == 1:
+            t.copy_(1 + 0.1 * torch.randn(t.shape, generator=g))
+    for rows in (8, 32):
+        x = torch.randn(rows, 1024, generator=g).to(dev, torch.bfloat16)
+        cos, sin = (torch.randn(rows, 32, generator=g).to(dev)
+                    for _ in range(2))
+        before = dict(cuda_mla.launches)
+        got = cuda_mla.fused_mla_qkv(x, p, cfg, cos, sin)
+        again = cuda_mla.fused_mla_qkv(x, p, cfg, cos, sin)
+        want = cuda_mla.fused_mla_qkv_plain(x, p, cfg, cos, sin)
+        torch.cuda.synchronize()
+        assert {k: cuda_mla.launches[k] - before[k] for k in before} == {
+            "mla_down": 2, "mla_up": 2}
+        for a, a2, b in zip(got, again, want):
+            assert torch.equal(a, a2)
+            a, b = a.float().reshape(rows, -1), b.float().reshape(rows, -1)
+            rms = b.pow(2).mean(dim=-1, keepdim=True).sqrt()
+            scale = torch.maximum(b.abs(), rms)
+            assert float(((a - b).abs() / scale).max()) <= 0.06

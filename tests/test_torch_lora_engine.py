@@ -7,11 +7,15 @@ both sides for the quantized base) and the same adapters (JAX's
 stream, carried across by ``convert.adapter_from_jax``) serve the same five
 prompts greedily, four of them on four distinct adapters, through JAX's
 ``DynamicInferenceEngine`` and the port's with an ``AdapterCache`` each:
-unfused and fused, bf16 and resident-int8 base. Streams must be
-token-exact, and the pool's and the cache's books equal. The undersized
-pool preempts, so adapters are released and re-acquired on the way. JAX's
-steps run to completion before its engine goes on (``_run_jax`` in
-tests/test_torch_engine.py says why).
+unfused and fused, bf16 and resident-int8 base. Two of the prompts (on
+adapter t1 and on none) share a 12-token prefix: the port salts its
+prefix keys with the adapter, so neither reuses the other's KV, and the
+JAX oracle runs with prefix caching off, which serves each request as if
+alone (JAX's keys hold tokens only and would share that KV). Streams must
+be token-exact, and the pool's and the cache's books equal. The
+undersized pool preempts, so adapters are released and re-acquired on the
+way. JAX's steps run to completion before its engine goes on
+(``_run_jax`` in tests/test_torch_engine.py says why).
 
 Then the port's own invariants: zero-B adapters leave streams bitwise
 unchanged; a mixed batch of four adapters decodes in one step, token-exact
@@ -47,8 +51,9 @@ ENGINE = dict(max_batch=4, max_seq_len=64, block_size=4, num_blocks=16,
 RANK = 4
 IDS = ["t0", "t1", "t2", "t3"]
 ROUTE = ["t0", "t1", "t2", None, "t3"]     # the five prompts' adapters
-POOL_STATS = ("preemptions", "prefix_hit_tokens", "prefill_tokens",
-              "evictions")
+# The pool's books held against the JAX oracle. Evictions are not among
+# them: the oracle's pool caches no prefix, so it never parks a block.
+POOL_STATS = ("preemptions", "prefix_hit_tokens", "prefill_tokens")
 CACHE_STATS = ("hits", "misses", "evictions", "resident", "pinned")
 
 
@@ -75,14 +80,21 @@ def _port_cache(tc, max_resident=4, zero_b=False):
                            device="cpu")
 
 
-def _run_jax(jc, jp, fused):
+def _run_jax(jc, jp, fused, prefix_caching=False, prompts=None,
+             route=None):
+    """JAX's LoRA engine; prefix caching is off by default, which serves
+    each request as if alone (the oracle of the port's salted keys)."""
+    prompts = _prompts() if prompts is None else prompts
+    route = ROUTE if route is None else route
     eng = jde.DynamicInferenceEngine(jp, jc, paged=True, fused_decode=fused,
-                                     adapter_cache=_jax_cache(jc), **ENGINE)
+                                     adapter_cache=_jax_cache(jc),
+                                     enable_prefix_caching=prefix_caching,
+                                     **ENGINE)
     assert eng.megakernel is fused
     eng._decode = _synchronous(eng._decode)
     eng._mq_step = _synchronous(eng._mq_step)
     ids = [eng.add_request(p, MAX_NEW, JSampling(greedy=True), adapter_id=a)
-           for p, a in zip(_prompts(), ROUTE)]
+           for p, a in zip(prompts, route)]
     res = eng.run_to_completion()
     eng.adapters.audit()
     return ([res[r].tolist() for r in ids], dict(eng.pool.stats),
@@ -168,9 +180,7 @@ def test_adapters_change_the_streams():
     """At least one adapter moves its request's greedy stream off the base
     model's (the parity tests above would pass vacuously otherwise), and
     the request without one keeps the base stream. The prefix cache is off
-    here: its block keys hold tokens only (as JAX's do), so request 3
-    would otherwise reuse the KV of request 1's shared prefix, computed
-    under adapter t1 (ROADMAP Queue 3)."""
+    here, so that both runs prefill every token."""
     _, tc, _, tp = _params("llama", "plain")
     base = _run_port(_port_engine(tc, tp, cache=None,
                                   enable_prefix_caching=False),
@@ -178,6 +188,72 @@ def test_adapters_change_the_streams():
     adapted = _run_port(_port_engine(tc, tp, enable_prefix_caching=False))
     assert adapted[3] == base[3]                    # the no-adapter request
     assert any(a != b for a, b in zip(adapted, base))
+
+
+def _shared_prefix_prompts(seed=3):
+    """Three prompts whose first two blocks (8 tokens at block size 4)
+    are the same, with tails of their own."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, 127, 8)
+    return [np.concatenate([shared, rng.integers(0, 127, n)]).astype(
+        np.int32) for n in (3, 5, 6)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_shared_prefix(order, prefix_caching=False):
+    """(prompts, route, JAX streams, JAX pool books) of the shared-prefix
+    requests in `order`."""
+    jc, _, jp, _ = _params("llama", "plain")
+    prompts = _shared_prefix_prompts()
+    route = ["t0", "t1", "t0"]
+    if order == "t1-first":
+        prompts = [prompts[1], prompts[0], prompts[2]]
+        route = ["t1", "t0", "t0"]
+    streams, pool, _ = _run_jax(jc, jp, False, prefix_caching, prompts,
+                                route)
+    return prompts, route, streams, pool
+
+
+@pytest.mark.parametrize("order", ["t0-first", "t1-first"])
+def test_salted_prefix_keys_serve_each_adapter_alone(order):
+    """Requests on adapters t0 and t1 share a 2-block prompt prefix; in
+    either submission order each greedy stream equals JAX's with prefix
+    caching off (each request served as if alone), so neither read KV
+    computed under the other's deltas. A third request on t0 over the
+    same prefix still hits t0's two blocks."""
+    _, tc, _, tp = _params("llama", "plain")
+    prompts, route, want, j_pool = _jax_shared_prefix(order)
+    eng = _port_engine(tc, tp, num_blocks=40)
+    assert _run_port(eng, prompts, route) == want
+    assert j_pool["prefix_hit_tokens"] == 0
+    assert eng.pool.stats["prefix_hit_tokens"] == 8
+    assert eng.pool.stats["cow_copies"] == 0
+
+
+def test_unsalted_keys_move_the_other_adapters_stream():
+    """The test above is not vacuous: JAX's unsalted keys hand t1's
+    request t0's two prefix blocks, and its stream moves off the one it
+    has served alone."""
+    alone = _jax_shared_prefix("t0-first")[2]
+    _, _, shared, pool = _jax_shared_prefix("t0-first", True)
+    assert pool["prefix_hit_tokens"] == 16
+    assert shared[1] != alone[1]
+
+
+def test_null_adapter_prefix_keys_are_unchanged():
+    """Without an adapter the keys are JAX's, byte for byte; an adapter id
+    salts every key of the chain, and two adapters never share one."""
+    from megatronapp_tpu.inference import paged_cache as jpc
+    from megatronapp_tpu_torch.inference import paged_cache as tpc
+    toks = _shared_prefix_prompts()[2]
+    base = tpc.prefix_block_keys(toks, 4, len(toks))
+    assert base == jpc.prefix_block_keys(toks, 4, len(toks))
+    assert base == tpc.prefix_block_keys(toks, 4, len(toks), None)
+    t0 = tpc.prefix_block_keys(toks, 4, len(toks), "t0")
+    t1 = tpc.prefix_block_keys(toks, 4, len(toks), "t1")
+    assert len(t0) == len(base) == 3
+    assert not set(t0) & set(base) and not set(t0) & set(t1)
+    assert t0 == tpc.prefix_block_keys(toks, 4, len(toks), "t0")
 
 
 @pytest.mark.parametrize("step", ["unfused", "fused"])
