@@ -47,6 +47,13 @@ Phases, each printing one JSON line:
    mla_reference: a tiny MLA llama-shaped model's chunked prefill and
             decode step on the card (bf16, kernels), unfused and fused, on
             a bf16 and an int8 pool, against the CPU (fp32, plain).
+   tp_kernels: the two latent tensor-parallel kernels (rows 8 and 9:
+            block scores and weighted sum) against their plain versions on
+            one rank's 256 latent columns (and row 8 on the pe pool) at
+            the mla_kernels shapes with max_seq_len 2048 tables, bf16, int8
+            and fp8 pools; then the two column shards composed (scores
+            summed, mask, fp32 softmax, weighted sums summed) against the
+            single-device latent kernel on the same full pools.
 4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
@@ -95,6 +102,19 @@ Phases, each printing one JSON line:
             chunk, the prologue's two kernels in every fused step, a prefix
             hit, reruns, fused against unfused logits; pool and param bytes,
             TTFT and decode interval.
+   serve_tp: tensor-parallel serving (serve.py --serve-tp 2) on the one
+            card: two spawned ranks share cuda:0 over a gloo group, after
+            the parent freed its serving tensors. Each seeds the weights of
+            serve / serve_mla (checked by an all-reduced checksum against
+            the parent's) and serves the 8 requests, rank 0 through the
+            driver and rank 1 in lockstep: the MLA llama3-8b at 32 layers on
+            bf16, int8 and fp8 latent pools (rows 8 x2 and 9 x1 a layer a
+            step and chunk, row 7 never; two all-reduces a layer), and the
+            dense llama3-8b at --layers on a bf16 pool (row 1 on 4 of 8 kv
+            heads a rank; one all-gather a layer). Rank streams equal,
+            streams and last-position logits against the single-card
+            engines, per-rank pool bytes, TTFT and interval (two ranks
+            time-sharing one card: not tensor-parallel speed).
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
@@ -107,6 +127,11 @@ Phases, each printing one JSON line:
             advance and the w_v einsum; for the MLA prologue the GEMM
             alone) and the card's bound, at the shapes the main paths
             launch.
+   tp_times: rows 8 and 9 on one rank's latent columns at serve_tp's
+            shapes (decode B 8 and a 32-token chunk, kv 1024, bf16, int8
+            and fp8 pools): kernel, plain, library (torch.bmm on gathered
+            pages; for row 9 with the w_v einsum) and bound; the whole
+            two-shard body against the single-device latent kernel.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed check exits
@@ -241,6 +266,20 @@ MLA_SCALE = 1.0 / (128 + 64) ** 0.5
 # max(|element|, its (row, head) RMS): between QUANT_REL_TOL's single
 # rounding and the 2^-7 of a double one.
 MLA_TOL = 0.01
+LATENT_TP_SOURCE = "megatronapp_tpu_torch/csrc/latent_tp.cu"
+LATENT_TP_REPLACES = {
+    "scores": f"{_KG}:617 (_latent_block_scores, def :564)",
+    "wsum": f"{_KG}:697 (_latent_block_wsum, def :624)"}
+# Rows 8 and 9 against their plain versions: the same fp32 products (exact
+# bf16 x bf16, or fp32 x dequantized fp32) summed in other orders over 64
+# to 2048 terms; each held to this share of the tensor's max |element|.
+TP_PHASE_TOL = 1e-4
+# serve_tp: last-position logits against the single-card engine, over the
+# logits' range: 32 layers of bf16 roundings, the tp body's fp32 scores
+# and probabilities against row 7's online softmax (the serve_mla rule).
+TP_LOGIT_TOL = 0.05
+TP_TIMEOUT_S = 600          # each collective of the serve_tp group
+TP_PHASE_TIMEOUT_S = 900    # serve_tp's wait for a rank's report
 
 
 class SmokeFailure(RuntimeError):
@@ -412,7 +451,8 @@ def phase_device(state):
                               kbuild.source("fused_decode.cu"),
                               kbuild.source("lora.cu"),
                               kbuild.source("paged_latent.cu"),
-                              kbuild.source("fused_mla.cu")])
+                              kbuild.source("fused_mla.cu"),
+                              kbuild.source("latent_tp.cu")])
     build_s = time.perf_counter() - t0
     ptxas = {os.path.basename(b["source"]): [
         ln.strip() for ln in b["log"].splitlines()
@@ -789,12 +829,13 @@ def phase_fused_int8_kernels(state):
 
 
 def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
-                     kv_cache_dtype="bf16", lora=None):
+                     kv_cache_dtype="bf16", lora=None, ctx=None):
     """A prompt's chunked prefill (32-token chunks, one slot) through the
     engine's multi-query step on a pool of its own (of `kv_cache_dtype`);
     returns the logits of every real prompt position [P, V] (and, with
     decode_token, the logits of one decode step after it [1, V]). lora:
-    (AdapterCache, bank slot) of the slot's adapter."""
+    (AdapterCache, bank slot) of the slot's adapter. ctx: a tp rank (its
+    share of the pool; every rank runs the same chunks)."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.dynamic_engine import (
@@ -806,7 +847,8 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
     chunk, n = 32, len(tokens)
     msl = 16 * math.ceil((n + 2) / 16)
     pool = PagedKVCache(cfg, 1, msl, block_size=16, device=dev,
-                        kv_cache_dtype=kv_cache_dtype)
+                        kv_cache_dtype=kv_cache_dtype,
+                        tp=1 if ctx is None else ctx.tp)
     pool.admit(0, np.asarray(tokens))
     table = torch.as_tensor(pool.page_table[:1])
     rope = gpt_rope_tables(cfg, msl, device=dev)
@@ -829,7 +871,7 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
         logits, _, _ = _paged_multiquery_step(
             params, toks.to(dev), pool.pages, table.to(dev), starts.to(dev),
             counts.to(dev), cfg, msl, tuple(t.to(dev) for t in index), rope,
-            fused=fused, scales=pool.scales, lora=lora_of(chunk))
+            fused=fused, scales=pool.scales, lora=lora_of(chunk), ctx=ctx)
         out.append(logits[0, :count].float().cpu())
     prefill = torch.cat(out)
     if decode_token is None:
@@ -843,7 +885,7 @@ def _chunked_prefill(params, cfg, tokens, dev, fused, decode_token=None,
         params, torch.tensor([[decode_token]], device=dev), pool.pages,
         table.to(dev), lengths.to(dev), cfg,
         tuple(t.to(dev) for t in index), rope, fused=fused,
-        scales=pool.scales, lora=lora_of(1))
+        scales=pool.scales, lora=lora_of(1), ctx=ctx)
     return prefill, dec.float().cpu()
 
 
@@ -1048,7 +1090,7 @@ def _serve_once(driver, prompts, max_new, sampling, adapters=None):
 
 
 def _engine(params, cfg, dev, fused=False, kv_cache_dtype="bf16",
-            adapter_cache=None):
+            adapter_cache=None, ctx=None):
     from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
     from megatronapp_tpu_torch.inference.dynamic_engine import (
         DynamicInferenceEngine,
@@ -1057,14 +1099,25 @@ def _engine(params, cfg, dev, fused=False, kv_cache_dtype="bf16",
         params, cfg, tokenizer=NullTokenizer(cfg.vocab_size), max_batch=8,
         max_seq_len=2048, paged=True, block_size=16, prefill_chunk=32,
         device=dev, fused_decode=fused, kv_cache_dtype=kv_cache_dtype,
-        adapter_cache=adapter_cache)
+        adapter_cache=adapter_cache, ctx=ctx)
+
+
+# Every serve phase's driver: their parked stepper threads keep the
+# engines (params and pools) alive until serve_tp closes them.
+_DRIVERS = []
+
+
+def _driver(engine):
+    """A DynamicBatchingDriver over `engine`, recorded in _DRIVERS."""
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    _DRIVERS.append(DynamicBatchingDriver(engine))
+    return _DRIVERS[-1]
 
 
 def phase_serve(state, layers: int):
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
     from megatronapp_tpu_torch.models.gpt import init_gpt_params
     from megatronapp_tpu_torch.models.presets import llama3_8b
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
@@ -1076,7 +1129,7 @@ def phase_serve(state, layers: int):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     engine = _engine(params, cfg, dev)
-    driver = DynamicBatchingDriver(engine)
+    driver = _driver(engine)
     greedy = SamplingParams(greedy=True)
     max_new = 32
     prompts, warm = _serve_prompts(cfg)
@@ -1148,6 +1201,13 @@ def phase_serve(state, layers: int):
     # own; the driver's stepper stays parked on its empty engine.
     state["model"] = (params, cfg, dev)
     state["serve_streams"] = [s[len(p):] for p, s in zip(prompts, streams)]
+    # serve_tp's references: the weights' checksum and the 300-token
+    # prompt's last-position logits on this single-card engine's step.
+    state["serve_checksum"] = _param_checksum(params)
+    before = dict(pa.launches)
+    state["serve_last_logits"] = _chunked_prefill(
+        params, cfg, prompts[3].tolist(), dev, False)[-1]
+    pa.launches.update(before)
 
 
 def phase_serve_fused(state):
@@ -1157,7 +1217,6 @@ def phase_serve_fused(state):
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     params, cfg, dev = state["model"]
@@ -1165,7 +1224,7 @@ def phase_serve_fused(state):
     engine = _engine(params, cfg, dev, fused=True)
     check(engine.megakernel is True,
           "serve_fused: the engine kept the unfused step (ineligible)")
-    driver = DynamicBatchingDriver(engine)
+    driver = _driver(engine)
     greedy = SamplingParams(greedy=True)
     max_new = 32
     prompts, warm = _serve_prompts(cfg)
@@ -1266,14 +1325,13 @@ def _serve_quant_run(params, cfg, dev, kind, fused):
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     name = f"serve_quant {kind} {'fused' if fused else 'unfused'}"
     layers = cfg.num_layers
     engine = _engine(params, cfg, dev, fused=fused, kv_cache_dtype=kind)
     check(engine.megakernel is fused, f"{name}: the engine's step kind")
-    driver = DynamicBatchingDriver(engine)
+    driver = _driver(engine)
     greedy = SamplingParams(greedy=True)
     max_new = 32
     prompts, warm = _serve_prompts(cfg)
@@ -1619,7 +1677,6 @@ def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import lora as cl
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
@@ -1628,7 +1685,7 @@ def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
     layers = cfg.num_layers
     engine = _engine(params, cfg, dev, fused=fused, adapter_cache=cache)
     check(engine.megakernel is fused, f"{name}: the engine's step kind")
-    driver = DynamicBatchingDriver(engine)
+    driver = _driver(engine)
     greedy = SamplingParams(greedy=True)
     max_new = 32
     prompts, warm = _serve_prompts(cfg)
@@ -1696,8 +1753,7 @@ def _serve_streams(params, cfg, dev, fused, cache=None):
     """The serve phases' 8 greedy streams (new tokens) through one engine,
     every request on LORA_ROUTE's adapter when a cache is given."""
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
-    driver = DynamicBatchingDriver(_engine(params, cfg, dev, fused=fused,
+    driver = _driver(_engine(params, cfg, dev, fused=fused,
                                            adapter_cache=cache))
     prompts, _ = _serve_prompts(cfg)
     streams, _, _, _ = _serve_once(driver, prompts, 32,
@@ -1936,14 +1992,15 @@ def mla_cfg(**over):
 
 def make_latent_case(gen, dev, *, batch, kv_lens, s_q=None, q_lens=None,
                      kind="bf16", nq=32, klat=512, dpe=64, dv=128, bs=16,
-                     pool_bytes=0):
+                     pool_bytes=0, mb=None):
     """Random q_lat / q_pe, one latent and one roped-key pool (quantized
     by quantize_kv_rows for int8/fp8), w_v as the strided view of a kv_up
     [klat, nq (128 + dv)] that the layers pass, and R disjoint shuffled
     page tables [R, B, MB] (R > 1 when pool_bytes asks for tables whose
-    rows exceed the L2 cache, as make_case)."""
+    rows exceed the L2 cache, as make_case; MB: the longest kv_len's
+    blocks, or `mb`)."""
     from megatronapp_tpu_torch.ops.paged_attention import quantize_kv_rows
-    mb = max(math.ceil(n / bs) for n in kv_lens)
+    mb = mb or max(math.ceil(n / bs) for n in kv_lens)
     per_table = batch * mb
     block_bytes = bs * (klat + dpe) * (2 if kind == "bf16" else 1)
     r = max(1, math.ceil(pool_bytes / (per_table * block_bytes)))
@@ -2195,7 +2252,6 @@ def _serve_mla_run(params, cfg, dev, kind, fused):
     import numpy as np
 
     from megatronapp_tpu_torch.inference.engine import SamplingParams
-    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
@@ -2204,7 +2260,7 @@ def _serve_mla_run(params, cfg, dev, kind, fused):
     layers = cfg.num_layers
     engine = _engine(params, cfg, dev, fused=fused, kv_cache_dtype=kind)
     check(engine.megakernel is fused, f"{name}: the engine's step kind")
-    driver = DynamicBatchingDriver(engine)
+    driver = _driver(engine)
     greedy = SamplingParams(greedy=True)
     max_new = 32
     prompts, warm = _serve_prompts(cfg)
@@ -2260,7 +2316,8 @@ def _serve_mla_run(params, cfg, dev, kind, fused):
            "rerun_identical": same,
            "pool_bytes": engine.pool.bytes_total,
            "stats_param_bytes": engine.stats_snapshot()["param_bytes"]}
-    return out, latent, prologue
+    return out, latent, prologue, [s[len(p):] for p, s in zip(prompts,
+                                                               streams)]
 
 
 def phase_serve_mla(state):
@@ -2291,8 +2348,17 @@ def phase_serve_mla(state):
     for kind, fused in (("bf16", False), ("bf16", True), ("int8", True),
                         ("fp8", False)):
         key = f"{kind}_pools_{'fused' if fused else 'unfused'}"
-        runs[key], latent, prologue = _serve_mla_run(params, cfg, dev, kind,
-                                                     fused)
+        runs[key], latent, prologue, streams = _serve_mla_run(
+            params, cfg, dev, kind, fused)
+        if (kind, fused) == ("bf16", True):
+            # How fragile greedy streams of these random weights are: the
+            # fused against the unfused engine on one card.
+            fused_equal = sum(np.array_equal(a, b) for a, b in zip(
+                streams, state["mla_streams"]["bf16"]))
+        else:
+            state.setdefault("mla_streams", {})[kind] = streams
+            state.setdefault("mla_pool_bytes", {})[kind] = \
+                runs[key]["pool_bytes"]
         state.setdefault("mla_launches", {}).update(
             {k: v for k, v in latent.items() if v})
         if fused and kind == "bf16":
@@ -2303,6 +2369,13 @@ def phase_serve_mla(state):
     prompt = _serve_prompts(cfg)[0][3].tolist()
     lf = _chunked_prefill(params, cfg, prompt, dev, True)[-1]
     lu = _chunked_prefill(params, cfg, prompt, dev, False)[-1]
+    # serve_tp's references: the unfused single-card logits on each pool
+    # dtype, and the weights' checksum.
+    state["mla_last_logits"] = {"bf16": lu, **{
+        kind: _chunked_prefill(params, cfg, prompt, dev, False,
+                               kv_cache_dtype=kind)[-1]
+        for kind in ("int8", "fp8")}}
+    state["mla_checksum"] = _param_checksum(params)
     for c, b in zip(counters, before):
         c.update(b)
     rel = float((lf - lu).abs().max() / lu.abs().max())
@@ -2315,6 +2388,7 @@ def phase_serve_mla(state):
           "pool_bytes_dense_serve_phase": state.get("serve_pool_bytes"),
           "runs": runs,
           "last_logits_fused_vs_unfused_max_rel_err": rel,
+          "bf16_streams_fused_equal_unfused": f"{fused_equal} of 8",
           "last_logits_argmax_equal": int(lf.argmax()) == int(lu.argmax()),
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     check(bool(np.isfinite(lf.numpy()).all()), "serve_mla: non-finite "
@@ -2521,6 +2595,627 @@ def _mla_prologue_times(state):
     return {"note": "device_ms of the two launches together (mla_down + "
                     "mla_up); library_ms: one torch.matmul of x by [q_proj "
                     "| kv_down] (the GEMM alone)", "rows": out}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (rows 8 and 9)
+# ---------------------------------------------------------------------------
+
+
+def _rel_to_row(got, ref):
+    """max |got - ref| over max(|ref element|, its row's RMS), and the max
+    absolute error."""
+    err = (got - ref).abs()
+    rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    return float(err.max()), float((err / torch.maximum(ref.abs(),
+                                                        rms)).max())
+
+
+def _tp_shard_inputs(case, rank=0, tp=2):
+    """Rank `rank`'s latent columns of a make_latent_case: the scaled fp32
+    query rows [B, rows, klat/tp] and the roped ones [B, rows, dpe], its
+    column view of the latent pool and its w_v rows (views, no copies)."""
+    klat = case["lat"].shape[-1]
+    cols = slice(rank * klat // tp, (rank + 1) * klat // tp)
+    b = case["q_lat"].shape[0]
+    q = (case["q_lat"][..., cols].float() * MLA_SCALE).reshape(
+        b, -1, cols.stop - cols.start).contiguous()
+    qp = (case["q_pe"].float() * MLA_SCALE).reshape(b, q.shape[1],
+                                                    -1).contiguous()
+    return q, qp, case["lat"][..., cols], case["w_v"][cols]
+
+
+def _tp_probs(case, q, shard):
+    """Masked fp32 probabilities over the table (the tp body's softmax of
+    one shard's scores: the inputs of row 9)."""
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    s = lt.latent_block_scores_plain(q, shard, case["table"], case["kv_lens"],
+                                     case.get("lat_scales"))
+    t = s.shape[-1]
+    pos = torch.arange(t, device=s.device)
+    valid = pos[None, None, :] < case["kv_lens"].long()[:, None, None]
+    s = s.masked_fill(~valid, -1e30)
+    return torch.softmax(s, dim=-1).masked_fill(~valid, 0.0).contiguous()
+
+
+def _compare_tp_case(case, name, kind):
+    """Rows 8 and 9 (twice each: one launch a call, the same bits) against
+    their plain versions on rank 0's latent columns and on the pe pool;
+    then both shards composed (paged_attention_latent_shards) against row
+    7's single-device kernel on the same full pools. Returns {what: (max
+    abs error, max relative error)}."""
+    from megatronapp_tpu_torch.ops import paged_attention as tpa
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    sfx = "" if kind == "bf16" else f"_{kind}"
+    q, qp, shard, w_v = _tp_shard_inputs(case)
+    table, lens = case["table"], case["kv_lens"]
+    ls, ps = case.get("lat_scales"), case.get("pe_scales")
+    out = {}
+    for what, qq, pages, sc in (("scores", q, shard, ls),
+                                ("scores_pe", qp, case["pe"], ps)):
+        before = lt.launches["scores" + sfx]
+        got = lt.latent_block_scores(qq, pages, table, lens, sc)
+        again = lt.latent_block_scores(qq, pages, table, lens, sc)
+        torch.cuda.synchronize()
+        check(lt.launches["scores" + sfx] == before + 2,
+              f"tp_kernels {name}: scores{sfx} launched "
+              f"{lt.launches['scores' + sfx] - before} times for two calls")
+        check(torch.equal(got, again), f"tp_kernels {name}: {what}'s rerun "
+              "gave other bits")
+        ref = lt.latent_block_scores_plain(qq, pages, table, lens, sc)
+        past = (torch.arange(got.shape[-1], device=got.device) // 16 * 16
+                )[None, :] >= lens.long()[:, None]
+        check(not bool(got.masked_select(past[:, None, :]).any()),
+              f"tp_kernels {name}: {what} past kv_len is not 0")
+        out[what] = (float((got - ref).abs().max()),
+                     float((got - ref).abs().max() / ref.abs().max()))
+        check(out[what][1] <= TP_PHASE_TOL, f"tp_kernels {name}: {what} "
+              f"error {out[what][1]} of max |element| exceeds "
+              f"{TP_PHASE_TOL}")
+    p = _tp_probs(case, q, shard)
+    before = lt.launches["wsum" + sfx]
+    got = lt.latent_block_wsum(p, shard, table, lens, w_v, ls)
+    again = lt.latent_block_wsum(p, shard, table, lens, w_v, ls)
+    torch.cuda.synchronize()
+    check(lt.launches["wsum" + sfx] == before + 2,
+          f"tp_kernels {name}: wsum{sfx} launched "
+          f"{lt.launches['wsum' + sfx] - before} times for two calls")
+    check(torch.equal(got, again), f"tp_kernels {name}: wsum's rerun gave "
+          "other bits")
+    ref = lt.latent_block_wsum_plain(p, shard, table, lens, w_v, ls)
+    out["wsum"] = (float((got - ref).abs().max()),
+                   float((got - ref).abs().max() / ref.abs().max()))
+    check(out["wsum"][1] <= TP_PHASE_TOL, f"tp_kernels {name}: wsum error "
+          f"{out['wsum'][1]} of max |element| exceeds {TP_PHASE_TOL}")
+    # The composition: both column shards in turn, partials summed.
+    tp_out = tpa.paged_attention_latent_shards(
+        case["q_lat"], case["q_pe"], case["lat"], case["pe"], table, lens,
+        case["w_v"], 2, **_latent_kw(case)).float()
+    row7 = pl.paged_attention_latent(
+        case["q_lat"], case["q_pe"], case["lat"], case["pe"], table, lens,
+        case["w_v"], **_latent_kw(case)).float()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(tp_out).all()), f"tp_kernels {name}: "
+          "non-finite composition")
+    ql = case.get("q_lens")
+    if ql is not None:
+        real = (torch.arange(tp_out.shape[1], device=tp_out.device)[None, :]
+                < ql[:, None].long())
+        tp_out, row7 = tp_out[real], row7[real]
+    out["composition_vs_row7"] = _rel_to_row(tp_out, row7)
+    check(out["composition_vs_row7"][1] <= MLA_TOL,
+          f"tp_kernels {name}: the two-shard composition differs from row "
+          f"7 by {out['composition_vs_row7'][1]} of max(|element|, row "
+          f"RMS) (> {MLA_TOL})")
+    return out
+
+
+def phase_tp_kernels(state):
+    """Rows 8 and 9 against their plain versions at MLA's full widths
+    (klat 512 cut into two 256-column shards, dpe 64, nq 32, dv 128, block
+    16, MB·bs 2048): decode at B 8 with kv up to 1024 and the ragged
+    chunks of phase mla_kernels, on bf16, int8 and fp8 pools; row 8 also
+    on the pe pool (d 64); then the two shards composed (row 8 on each
+    shard summed, plus row 8 on the pe pool, mask, fp32 softmax, row 9 on
+    each shard summed) against row 7's single-device kernel on the same
+    full pools (gate: row 7's, MLA_TOL)."""
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(707)
+    before = dict(lt.launches), dict(pl.launches)
+    lens = [1, 15, 16, 17, 300, 1000, 1024, 640]
+    shapes = {"decode_b8": dict(batch=8, kv_lens=lens),
+              "ragged_b1": dict(batch=1, kv_lens=[1000], s_q=32,
+                                q_lens=[24]),
+              "ragged_b1_full": dict(batch=1, kv_lens=[1024], s_q=32,
+                                     q_lens=[32]),
+              "ragged_b3_tail": dict(batch=3, kv_lens=[5, 40, 700], s_q=32,
+                                     q_lens=[5, 32, 1])}
+    res = {}
+    for name, kw in shapes.items():
+        for kind in ("bf16", "int8", "fp8"):
+            # A max_seq_len 2048 table (MB 128) as the engine's: blocks
+            # past every kv_len stay in it.
+            case = make_latent_case(gen, dev, kind=kind, mb=128, **kw)
+            res[f"{name}_{kind}"] = _compare_tp_case(case, name, kind)
+            del case
+    torch.cuda.empty_cache()
+    lt.launches.update(before[0])        # not main-path launches
+    pl.launches.update(before[1])
+    err = {}
+    for kernel, whats in (("scores", ("scores", "scores_pe")),
+                          ("wsum", ("wsum",))):
+        for mode in ("decode", "ragged"):
+            for kind in ("bf16", "int8", "fp8"):
+                key = f"{kernel}_{mode}{'' if kind == 'bf16' else '_' + kind}"
+                err[key] = max(v[w][0] for k, v in res.items()
+                               if k.startswith(mode) and k.endswith(kind)
+                               for w in whats)
+    state["tp_err"] = err
+    emit({"phase": "tp_kernels", "phase_tol": TP_PHASE_TOL,
+          "composition_tol": MLA_TOL,
+          "errors": "(max abs, max abs over max |plain element|; "
+                    "composition: over max(|row 7 element|, row RMS))",
+          "cases": res})
+
+
+def _param_checksum(params) -> float:
+    """A float64 sum over every leaf of the params (on their device)."""
+    return float(sum(t.sum(dtype=torch.float64) for t in params.parameters()))
+
+
+def _tp_rank(rank, init_method, plan, out_q):
+    """One rank of serve_tp (a spawned process on cuda:0): reports its
+    results, or its traceback."""
+    try:
+        rep = _tp_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _tp_rank_run(rank, init_method, plan):
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ctx = build_mesh(ParallelConfig(tensor_parallel=2), rank=rank,
+                     init_method=init_method, device=dev,
+                     timeout_s=TP_TIMEOUT_S)
+    counters = (lt.launches, pl.launches, pa.launches, collectives.calls)
+    out = {"device": str(ctx.device), "backend": ctx.backend}
+    greedy = SamplingParams(greedy=True)
+    for case in plan:
+        cfg = (mla_cfg(num_layers=case["layers"]) if case["model"] == "mla"
+               else llama3_8b(num_layers=case["layers"],
+                              params_dtype=torch.bfloat16))
+        t0 = time.perf_counter()
+        params = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mine = _param_checksum(params)
+        total = torch.tensor([mine], dtype=torch.float64, device=dev)
+        dist.all_reduce(total)
+        engine = _engine(params, cfg, dev, kv_cache_dtype=case["kind"],
+                         ctx=ctx)
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+        rep = {"init_s": init_s, "checksum": mine,
+               "checksum_sum": float(total), "tp_paged": engine.tp_paged,
+               "megakernel": engine.megakernel,
+               "pool_bytes": engine.pool.bytes_total}
+        prompts, warm = _serve_prompts(cfg)
+        t_start = time.perf_counter()
+        if ctx.is_lead:
+            driver = DynamicBatchingDriver(engine)
+            rid, done = driver.submit(warm, 4, greedy)
+            check(done.wait(timeout=900), "serve_tp: warm-up did not finish")
+            warm_stream = driver.result_tokens(rid)
+            streams, times, t0, t1 = _serve_once(driver, prompts, 32, greedy)
+            driver.close()
+            del driver
+            engine.release_followers()
+            rep.update(
+                streams=[s.tolist() for s in streams],
+                all_streams=sorted([s.tolist() for s in streams]
+                                   + [warm_stream.tolist()]),
+                ttft_ms=[round((t[1] - t[0]) * 1e3, 3) for t in times],
+                decode_ms_per_step_by_request=[
+                    round((t[-1] - t[1]) * 1e3 / (len(t) - 2), 3)
+                    for t in times],
+                tokens_per_s=32 * len(prompts) / (t1 - t0),
+                wall_s=t1 - t0)
+        else:
+            rep["all_streams"] = sorted(v.tolist()
+                                        for v in engine.follow().values())
+        rep["serve_s"] = time.perf_counter() - t_start
+        rep.update(launches={k: v for k, v in lt.launches.items() if v},
+                   row7_launches={k: v for k, v in pl.launches.items() if v},
+                   row1_launches={k: v for k, v in pa.launches.items() if v},
+                   collectives=dict(collectives.calls),
+                   decode_steps=engine.decode_steps,
+                   prefill_chunks=engine.prefill_chunks,
+                   stats_tp=engine.stats_snapshot()["tp"])
+        # Last-position logits of the 300-token prompt through the tp
+        # step on both ranks (in lockstep: the same chunks).
+        logits = _chunked_prefill(params, cfg, prompts[3].tolist(), dev,
+                                  False, kv_cache_dtype=case["kind"],
+                                  ctx=ctx)[-1]
+        rep["last_logits"] = logits.numpy().astype(np.float32)
+        rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        out[case["name"]] = rep
+        # The engine and its params go before the next case's.
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["bytes_left"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    ctx.close()
+    return out
+
+
+def _range_rel(got, want) -> float:
+    """max |got - want| over the range of want."""
+    return float((got - want).abs().max() / (want.max() - want.min()))
+
+
+def phase_serve_tp(state, layers: int):
+    """Tensor-parallel serving on the one card: two ranks, spawned
+    processes sharing cuda:0 over a gloo group, after the parent has freed
+    its serving tensors. Each rank seeds the full-width weights of serve
+    and serve_mla (the same seed on the same card) and checks them by an
+    all-reduced checksum against the parent's, then the lead drives the
+    serve phases' 8 requests through the driver while the follower steps
+    in lockstep: llama3_8b(multi_latent_attention=True) at all 32 layers
+    on bf16, int8 and fp8 latent pools (rows 8 and 9), and the dense
+    llama3-8b at --layers on a bf16 pool (row 1 on 4 of the 8 kv heads a
+    rank). Two ranks time-share one card and gloo stages every collective
+    through host memory: the times measure that, not tensor-parallel
+    speed."""
+    import gc
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    for key in ("model", "qmodel", "mla_model", "lora_cache",
+                "lora_registry"):
+        state.pop(key, None)
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    check(parent_bytes < 4 << 30, f"serve_tp: the parent still holds "
+          f"{parent_bytes} bytes on the card before spawning the ranks")
+    plan = [dict(name=f"mla_{kind}", model="mla", kind=kind,
+                 layers=MLA_LAYERS) for kind in ("bf16", "int8", "fp8")]
+    plan.append(dict(name="dense_bf16", model="dense", kind="bf16",
+                     layers=layers))
+    store = os.path.join(tempfile.mkdtemp(prefix="serve_tp_"), "store")
+    mp = multiprocessing.get_context("spawn")
+    q = mp.Queue()
+    procs = [mp.Process(target=_tp_rank, args=(r, f"file://{store}", plan, q))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    reps = {}
+    try:
+        for _ in procs:
+            rank, rep = q.get(timeout=TP_PHASE_TIMEOUT_S)
+            reps[rank] = rep
+    except Exception as e:  # noqa: BLE001 — a rank died or hung
+        raise SmokeFailure(f"serve_tp: a rank did not report ({e!r}); "
+                           f"reports from {sorted(reps)}") from e
+    finally:
+        for pr in procs:
+            pr.join(timeout=120)
+            if pr.is_alive():
+                pr.kill()
+                pr.join(timeout=30)
+    wall_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.dirname(store), ignore_errors=True)
+    for rank, rep in reps.items():
+        check("error" not in rep, f"serve_tp: rank {rank} failed: "
+              f"{rep.get('error')}")
+    r0, r1 = reps[0], reps[1]
+    out = {}
+    tp_launches = {}
+    for case in plan:
+        name, kind = case["name"], case["kind"]
+        a, b = r0[name], r1[name]
+        mla = case["model"] == "mla"
+        cfg_layers = case["layers"]
+        checksum = state["mla_checksum" if mla else "serve_checksum"]
+        for rank, rep in ((0, a), (1, b)):
+            check(rep["checksum"] == checksum
+                  and rep["checksum_sum"] == 2 * checksum,
+                  f"serve_tp {name}: rank {rank}'s weights (checksum "
+                  f"{rep['checksum']}, all-reduced {rep['checksum_sum']}) "
+                  f"are not the parent's ({checksum})")
+            check(rep["tp_paged"] and not rep["megakernel"],
+                  f"serve_tp {name}: rank {rank} tp_paged "
+                  f"{rep['tp_paged']}, megakernel {rep['megakernel']}")
+        check(a["all_streams"] == b["all_streams"],
+              f"serve_tp {name}: rank 1's streams differ from rank 0's")
+        vocab = mla_cfg().vocab_size
+        prompts = _serve_prompts(mla_cfg())[0]
+        gen = [np.asarray(s[len(p):]) for p, s in zip(prompts, a["streams"])]
+        for p, s in zip(prompts, a["streams"]):
+            check(len(s) == len(p) + 32 and s[:len(p)] == p.tolist()
+                  and all(0 <= t < vocab for t in s[len(p):]),
+                  f"serve_tp {name}: a stream of the wrong length or "
+                  "vocabulary")
+        units = a["decode_steps"] + a["prefill_chunks"]
+        sfx = "" if kind == "bf16" else f"_{kind}"
+        for rank, rep in ((0, a), (1, b)):
+            units_r = rep["decode_steps"] + rep["prefill_chunks"]
+            check(units_r == units, f"serve_tp {name}: rank {rank} ran "
+                  f"{units_r} steps and chunks, rank 0 {units}")
+            if mla:
+                want = {f"scores{sfx}": 2 * cfg_layers * units,
+                        f"wsum{sfx}": cfg_layers * units}
+                check(rep["launches"] == want and not rep["row7_launches"]
+                      and not rep["row1_launches"],
+                      f"serve_tp {name}: rank {rank} launched rows 8/9 "
+                      f"{rep['launches']}, row 7 {rep['row7_launches']}, "
+                      f"row 1 {rep['row1_launches']}; expected {want} for "
+                      f"{units} steps and chunks of {cfg_layers} layers")
+                check(rep["collectives"]["all_reduce"] == 2 * cfg_layers
+                      * units and rep["collectives"]["all_gather"] == 0,
+                      f"serve_tp {name}: rank {rank} collectives "
+                      f"{rep['collectives']}")
+            else:
+                want = {"decode": cfg_layers * rep["decode_steps"],
+                        "ragged": cfg_layers * rep["prefill_chunks"]}
+                check(rep["row1_launches"] == want and not rep["launches"]
+                      and not rep["row7_launches"],
+                      f"serve_tp {name}: rank {rank} launched row 1 "
+                      f"{rep['row1_launches']} (expected {want}), rows "
+                      f"8/9 {rep['launches']}, row 7 {rep['row7_launches']}")
+                check(rep["collectives"]["all_gather"] == cfg_layers * units
+                      and rep["collectives"]["all_reduce"] == 0,
+                      f"serve_tp {name}: rank {rank} collectives "
+                      f"{rep['collectives']}")
+        if mla:
+            for k, v in a["launches"].items():
+                tp_launches[k] = tp_launches.get(k, 0) + v
+            # The rank's pool: half the latent columns, the roped-key and
+            # scale pools whole.
+            whole = state["mla_pool_bytes"][kind]
+            mcfg = mla_cfg(num_layers=MLA_LAYERS)
+            lat = (MLA_LAYERS * 8 * 2048 * mcfg.kv_lora_rank
+                   * (2 if kind == "bf16" else 1))
+            check(a["pool_bytes"] == whole - lat // 2,
+                  f"serve_tp {name}: rank pool {a['pool_bytes']} bytes, "
+                  f"expected {whole - lat // 2} of the whole {whole}")
+            ref_logits = state["mla_last_logits"][kind]
+            single = state["mla_streams"][kind]
+        else:
+            whole = state["serve_pool_bytes"]
+            check(2 * a["pool_bytes"] == whole,
+                  f"serve_tp {name}: rank pool {a['pool_bytes']} bytes, "
+                  f"the whole {whole}")
+            ref_logits = state["serve_last_logits"]
+            single = state["serve_streams"]
+        agree = sum(np.array_equal(x, y) for x, y in zip(gen, single))
+        # Where each stream first leaves the single-card one (None: never).
+        first_diff = [None if np.array_equal(x, y) else
+                      int(np.argmax(np.asarray(x) != np.asarray(y)))
+                      for x, y in zip(gen, single)]
+        rel = _range_rel(torch.from_numpy(a["last_logits"]), ref_logits)
+        rel_ranks = float(np.abs(a["last_logits"] - b["last_logits"]).max())
+        check(rel_ranks == 0.0, f"serve_tp {name}: the ranks' logits differ "
+              f"by {rel_ranks}")
+        check(bool(np.isfinite(a["last_logits"]).all()),
+              f"serve_tp {name}: non-finite logits")
+        check(rel <= TP_LOGIT_TOL, f"serve_tp {name}: last-position logits "
+              f"differ from the single-card engine's by {rel} of their "
+              f"range (> {TP_LOGIT_TOL})")
+        out[name] = {
+            "layers": cfg_layers, "kv_cache_dtype": kind,
+            "init_s_by_rank": [a["init_s"], b["init_s"]],
+            "rank_streams_equal": True,
+            "streams_equal_single_card": f"{agree} of {len(gen)}",
+            "first_differing_token_by_stream": first_diff,
+            "last_logits_argmax_equal": int(np.argmax(a["last_logits"]))
+            == int(ref_logits.argmax()),
+            "last_logits_vs_single_card_range_rel": rel,
+            "decode_steps": a["decode_steps"],
+            "prefill_chunks": a["prefill_chunks"],
+            "launches_rank0": a["launches"] or a["row1_launches"],
+            "launches_per_layer_per_unit": {
+                k: v / (cfg_layers * units)
+                for k, v in (a["launches"] or a["row1_launches"]).items()},
+            "collectives_rank0": a["collectives"],
+            "collectives_per_layer_per_unit": {
+                k: a["collectives"][k] / (cfg_layers * units)
+                for k in ("all_reduce", "all_gather")},
+            "pool_bytes_per_rank": a["pool_bytes"],
+            "pool_bytes_single_card": whole,
+            "ttft_ms": a["ttft_ms"],
+            "decode_ms_per_step_by_request": a[
+                "decode_ms_per_step_by_request"],
+            "tokens_per_s": a["tokens_per_s"], "wall_s": a["wall_s"],
+            "serve_s_by_rank": [a["serve_s"], b["serve_s"]],
+            "peak_mem_bytes_by_rank": [a["peak_mem_bytes"],
+                                       b["peak_mem_bytes"]],
+            "bytes_left_after_case_by_rank": [a["bytes_left"],
+                                              b["bytes_left"]],
+            "stats_tp": a["stats_tp"]}
+        if not mla:
+            check(agree == len(gen) or rel <= TP_LOGIT_TOL,
+                  f"serve_tp {name}: streams differ from serve's")
+    state["tp_launches"] = tp_launches
+    emit({"phase": "serve_tp", "tp": 2, "backend": r0["backend"],
+          "ranks_devices": [r0["device"], r1["device"]],
+          "note": "two ranks time-share one card and gloo stages each "
+                  "collective through host memory: TTFT and interval are "
+                  "not tensor-parallel speed",
+          "parent_bytes_at_spawn": parent_bytes, "wall_s": wall_s,
+          "logit_tol": TP_LOGIT_TOL, "runs": out})
+
+
+def _tp_bytes_flops(case, kernel, rows, d, valid):
+    """Bytes the phase must move (each input read once: the query rows or
+    the probabilities over the valid tokens, the valid page rows with
+    their fp32 row scales when quantized, w_v, the table and lengths; the
+    output written once) and its operations, for this run's valid tokens
+    (every row of each block below kv_len)."""
+    b = case["q_lat"].shape[0]
+    elem = case["lat"].element_size()
+    row = d * elem + (4 if "lat_scales" in case else 0)
+    table = case["table"].numel() * 4 + b * 4
+    mbbs = case["table"].shape[1] * 16
+    if kernel == "scores":
+        nbytes = b * rows * d * 4 + valid * row + table + b * rows * mbbs * 4
+        flops = 2 * rows * valid * d
+    else:
+        nq, dv = case["w_v"].shape[1], case["w_v"].shape[2]
+        nbytes = (rows * valid * 4 + valid * row + d * nq * dv * 2 + table
+                  + b * rows * dv * 4)
+        flops = 2 * rows * valid * d + 2 * b * rows * d * dv
+    return nbytes, flops
+
+
+def _tp_time_case(case):
+    """Rows 8 and 9 on rank 0's columns (page tables rotated beyond the
+    L2 cache), their plain versions and library yardsticks (row 8: one
+    torch.bmm on pages gathered in advance; row 9: torch.bmm of the
+    probabilities on the gathered latent, then the w_v einsum), their
+    bounds, row 8 on the pe pool, and the whole two-shard tp body against
+    row 7 at the same shapes."""
+    from megatronapp_tpu_torch.ops import paged_attention as tpa
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    tables = case["tables"]
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % tables.shape[0]
+        return it["i"]
+    q, qp, shard, w_v = _tp_shard_inputs(case)
+    b, rows, d = q.shape
+    lens, ls = case["kv_lens"], case.get("lat_scales")
+    p = _tp_probs(case, q, shard)
+    valid = sum(16 * math.ceil(n / 16) for n in lens.tolist())
+    # Library inputs: every table's shard rows gathered (dequantized) to
+    # bf16 in advance, [R, B, T, d].
+    t = tables.long()
+    g = shard[t].float() if ls is None else \
+        shard[t].float() * ls[t][..., None]
+    g = g.to(torch.bfloat16).reshape(t.shape[0], b, -1, d)
+    gt = g.transpose(-1, -2).contiguous()
+    qb, pb = q.to(torch.bfloat16), p.to(torch.bfloat16)
+    nq = w_v.shape[1]
+    calls = {
+        "scores": (lambda: lt.latent_block_scores(q, shard, tables[nxt()],
+                                                  lens, ls),
+                   lambda: lt.latent_block_scores_plain(
+                       q, shard, tables[nxt()], lens, ls),
+                   lambda: torch.bmm(qb, gt[nxt()])),
+        "wsum": (lambda: lt.latent_block_wsum(p, shard, tables[nxt()], lens,
+                                              w_v, ls),
+                 lambda: lt.latent_block_wsum_plain(p, shard, tables[nxt()],
+                                                    lens, w_v, ls),
+                 lambda: torch.einsum(
+                     "bsnk,knd->bsnd",
+                     torch.bmm(pb, g[nxt()]).reshape(b, -1, nq, d), w_v))}
+    out = {}
+    for kernel, (kern, plain, lib) in calls.items():
+        p1 = cuda_time_ms(plain, iters=5)
+        k1, k2 = cuda_time_ms(kern), cuda_time_ms(kern)
+        p2 = cuda_time_ms(plain, iters=5)
+        nbytes, flops = _tp_bytes_flops(case, kernel, rows, d, valid)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        out[kernel] = {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                       "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                       "library_ms": cuda_time_ms(lib),
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations"),
+                       "bytes": nbytes, "flops": flops}
+    out["scores"]["pe_launch_ms"] = cuda_time_ms(
+        lambda: lt.latent_block_scores(qp, case["pe"], tables[nxt()], lens,
+                                       case.get("pe_scales")))
+
+    def body():
+        tpa.paged_attention_latent_shards(
+            case["q_lat"], case["q_pe"], case["lat"], case["pe"],
+            tables[nxt()], lens, case["w_v"], 2, **_latent_kw(case))
+
+    def row7():
+        pl.paged_attention_latent(
+            case["q_lat"], case["q_pe"], case["lat"], case["pe"],
+            tables[nxt()], lens, case["w_v"], **_latent_kw(case))
+    r1, b1, b2, r2 = (cuda_time_ms(row7), cuda_time_ms(body),
+                      cuda_time_ms(body), cuda_time_ms(row7))
+    out["two_shard_body_ms"] = (b1 + b2) / 2
+    out["row7_ms"] = (r1 + r2) / 2
+    ql = case.get("q_lens")
+    out["shape"] = {"batch": b, "kv_len": int(lens[0]),
+                    "s_q": 1 if ql is None else case["q_lat"].shape[1],
+                    "rows": rows, "latent_columns": d, "dpe": 64,
+                    "nq": nq, "dv": w_v.shape[2], "block_size": 16,
+                    "table_tokens": case["table"].shape[1] * 16}
+    return out
+
+
+def phase_tp_times(state):
+    """Rows 8 and 9 at the shapes serve_tp launches them (one rank's 256
+    latent columns): decode with B 8 at kv 1024 and the chunk B 1, S_q 32
+    at kv 1024, on bf16, int8 and fp8 pools, max_seq_len 2048 tables."""
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(708)
+    before = dict(lt.launches), dict(pl.launches)
+    torch.cuda.empty_cache()
+    out = {}
+    for kind in ("bf16", "int8", "fp8"):
+        for mode, (batch, s_q) in (("decode", (8, None)),
+                                   ("ragged", (1, 32))):
+            case = make_latent_case(
+                gen, dev, batch=batch, kv_lens=[1024] * batch, s_q=s_q,
+                q_lens=None if s_q is None else [s_q] * batch, kind=kind,
+                pool_bytes=TIMED_POOL_BYTES)
+            out[mode + ("" if kind == "bf16" else f"_{kind}")] = \
+                _tp_time_case(case)
+            del case
+            torch.cuda.empty_cache()
+    lt.launches.update(before[0])
+    pl.launches.update(before[1])
+    state["tp_times"] = out
+    emit({"phase": "tp_times", "nvidia_smi": state.get("smi"),
+          "note": "one rank's 256 latent columns; library_ms: row 8 one "
+                  "torch.bmm (bf16) on the shard's pages gathered "
+                  "(dequantized) in advance, row 9 torch.bmm of the bf16 "
+                  "probabilities on them plus the w_v einsum; "
+                  "two_shard_body_ms: both shards' rows 8 and 9 in turn "
+                  "with the pe scores, mask and softmax (no collective), "
+                  "row7_ms: the single-device latent kernel on the same "
+                  "inputs", **out})
 
 
 FAMILIES = ("paged_attention", "paged_latent", "fused", "lora", "gemm",
@@ -3577,6 +4272,25 @@ def kernel_table(state):
                 "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
                 "library_ms": t.get("library_ms")})
+    for kernel in ("scores", "wsum"):
+        for kind in ("", "_int8", "_fp8"):
+            for mode in ("decode", "ragged"):
+                t = state.get("tp_times", {}).get(mode + kind, {}).get(
+                    kernel, {})
+                out.append({
+                    "name": f"latent_block_{kernel}_{mode}{kind}",
+                    "route": "cuda", "source": LATENT_TP_SOURCE,
+                    "replaces": LATENT_TP_REPLACES[kernel] + (
+                        f" ({kind[1:]} pools: per-row scales)"
+                        if kind else ""),
+                    "launches": state.get("tp_launches", {}).get(
+                        kernel + kind),
+                    "max_abs_err": state.get("tp_err", {}).get(
+                        f"{kernel}_{mode}{kind}"),
+                    "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+                    "bound_ms": t.get("bound_ms"),
+                    "bound_by": t.get("bound_by"),
+                    "library_ms": t.get("library_ms")})
     t = state.get("mla_prologue_times", {}).get(8, {})
     out.append({
         "name": "fused_mla_qkv (launches: mla_down + mla_up, 8 rows)",
@@ -3638,6 +4352,7 @@ def main(argv=None) -> int:
         phase_lora_reference(state)
         phase_mla_kernels(state)
         phase_mla_reference(state)
+        phase_tp_kernels(state)
         phase_train_kernels(state)
         phase_train_reference(state)
         phase_train(state, args.train_layers)
@@ -3649,6 +4364,8 @@ def main(argv=None) -> int:
         phase_serve_mla(state)
         phase_profile(state)
         phase_times(state)
+        phase_tp_times(state)
+        phase_serve_tp(state, args.layers)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -41,9 +41,21 @@ Gumbel noise from a ``torch.Generator`` seeded from (seed, request id,
 step), so a request's stream is reproducible and independent of what else
 is in the batch.
 
+``ctx`` (a parallel/mesh.py MeshContext) serves tensor-parallel, one
+process a rank, as the JAX engine serves on a tp mesh: params whole on
+every rank, the pools sharded (GQA on kv heads, MLA on latent columns),
+the steps head-sharded or latent-column-sharded with their collectives
+inside the layers, logits the same on every rank. Rank 0 alone makes the
+host decisions of a step: before each step it broadcasts the step's
+submissions, cancellations and deadline expirations, and every rank
+applies them in the same order before stepping, so admission, prefix
+hits, copy-on-write copies and preemption stay identical across ranks
+and no clock is read off rank 0. Followers run ``follow()``; the lead
+ends it with ``release_followers()``.
+
 Not ported yet (each raises at construction): the dense slot cache,
-speculative decoding, the host spill tier and tensor-parallel meshes;
-per-tenant accounting (``tenant=``) raises at submit.
+speculative decoding, the host spill tier, and LoRA or a rolling reload
+under tp; per-tenant accounting (``tenant=``) raises at submit.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
@@ -78,7 +91,10 @@ from megatronapp_tpu_torch.ops.fused_decode import (
 from megatronapp_tpu_torch.ops.lora import (
     LoraRows, lora_kernel_ineligible_reason,
 )
-from megatronapp_tpu_torch.ops.paged_attention import paged_write_index
+from megatronapp_tpu_torch.ops.paged_attention import (
+    paged_write_index, tp_paged_ineligible_reason,
+)
+from megatronapp_tpu_torch.parallel import collectives
 from megatronapp_tpu_torch.trace.request_trace import get_request_tracer
 from megatronapp_tpu_torch.transformer.block import layer_forward
 from megatronapp_tpu_torch.utils import metrics as telemetry
@@ -155,16 +171,21 @@ class Request:
                                np.asarray(self.generated, np.int32)])
 
 
+TP_UNPORTED = ("LoRA serving under tensor parallelism is not ported yet "
+               "(ROADMAP.md Queue 1): serve adapters on one card")
+
+
 def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
                 page_table, starts, chunk_counts, write_index,
-                fused: bool = False, scales=None, lora=None):
+                fused: bool = False, scales=None, lora=None, ctx=None):
     """Walk the per-layer modules (the JAX step's ``lax.scan`` over the
     stacked block) with layer l reading and writing pool slice l (and
     scale-pool slice l of a quantized pool, as the JAX scan carries them);
     `fused` runs each layer as the fused kernels. lora: {"row_adapter":
     LoraRows of the step's rows, "banks": {target: (A [L, slots, din,
     rank], B [L, slots, rank, dout])}}; layer l gets bank slices l, as the
-    JAX scan carries the banks in its xs."""
+    JAX scan carries the banks in its xs. ctx: the tp rank of a tp-paged
+    engine (each layer's attention shards over it)."""
     pk, pv = pages
     for lid, layer_p in enumerate(params["layers"]):
         ll = None
@@ -179,7 +200,7 @@ def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
             fused_decode=fused,
             kv_scales=None if scales is None else (scales[0][lid],
                                                    scales[1][lid]),
-            lora=ll)
+            lora=ll, ctx=ctx)
     return h
 
 
@@ -193,7 +214,8 @@ def _rope_rows(positions, rope_tables):
 
 def _paged_decode_step(params, tokens, pages, page_table, lengths,
                        cfg: TransformerConfig, write_index, rope_tables,
-                       fused: bool = False, scales=None, lora=None):
+                       fused: bool = False, scales=None, lora=None,
+                       ctx=None):
     """One-token decode for every slot against the paged block pool.
 
     tokens [B, 1]; pages (k [L, NB, bs, Hkv, D], v like k), written in
@@ -204,21 +226,21 @@ def _paged_decode_step(params, tokens, pages, page_table, lengths,
     [0, max_seq_len). fused: the layers as the fused kernels
     (fused_layer_decode). scales: the (k, v) scale pools [L, NB, bs, Hkv]
     of an int8/fp8 pool, written in place with it. lora: the batched
-    adapter deltas over the B rows (``_run_layers``). Returns (last_logits
-    [B, V] fp32, pages)."""
+    adapter deltas over the B rows (``_run_layers``). ctx: the tp rank of
+    a tp-paged engine. Returns (last_logits [B, V] fp32, pages)."""
     h = gpt_embed(params, tokens, cfg, position_ids=lengths[:, None])
     cos, sin = _rope_rows(lengths, rope_tables)
     if cos is not None:
         cos, sin = cos[:, None], sin[:, None]            # [B, 1, half]
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, lengths,
-                    None, write_index, fused, scales, lora)
+                    None, write_index, fused, scales, lora, ctx)
     return gpt_head(params, h, cfg)[:, -1], pages
 
 
 def _paged_multiquery_step(params, tokens, pages, page_table, starts,
                            q_lens, cfg: TransformerConfig, max_seq_len: int,
                            write_index, rope_tables, fused: bool = False,
-                           scales=None, lora=None):
+                           scales=None, lora=None, ctx=None):
     """Ragged multi-token step against the paged pool (chunked prefill).
 
     tokens [B, S]; starts [B] per-row append positions; q_lens [B] valid
@@ -236,7 +258,7 @@ def _paged_multiquery_step(params, tokens, pages, page_table, starts,
     h = gpt_embed(params, tokens, cfg, position_ids=positions)
     cos, sin = _rope_rows(positions, rope_tables)
     h = _run_layers(params, h, cfg, cos, sin, pages, page_table, starts,
-                    q_lens, write_index, fused, scales, lora)
+                    q_lens, write_index, fused, scales, lora, ctx)
     return gpt_head(params, h, cfg), h, pages
 
 
@@ -325,7 +347,15 @@ class DynamicInferenceEngine:
     adapter_cache: an inference/lora.py AdapterCache on the engine's
     device (batched multi-tenant LoRA). On the card the LoRA kernels'
     limits (``lora_kernel_ineligible_reason``) are checked here and raise:
-    there is no other path for an adapter's delta there."""
+    there is no other path for an adapter's delta there.
+
+    ctx: a tensor-parallel MeshContext (parallel/mesh.py): this engine is
+    one rank of a tp group. When ``tp_paged_ineligible_reason`` allows it
+    (``tp_paged``), the pools hold the rank's shard and the steps run
+    sharded; otherwise a warning names the failed predicate and every rank
+    runs the whole step on whole pools. Either way rank 0 (the lead) takes
+    the requests and the followers ``follow()`` it. The fused step is
+    refused under tp_paged with JAX's predicate."""
 
     def __init__(self, params, cfg: TransformerConfig, tokenizer=None,
                  max_batch: int = 4, max_seq_len: Optional[int] = None,
@@ -341,7 +371,6 @@ class DynamicInferenceEngine:
             "spec_method (speculative decoding)":
                 spec_method not in (None, "none"),
             "spill_host_mb (the host-RAM spill tier)": bool(spill_host_mb),
-            "ctx (tensor-parallel serving meshes)": ctx is not None,
         }
         asked = [name for name, on in unported.items() if on]
         if asked:
@@ -349,7 +378,36 @@ class DynamicInferenceEngine:
                 f"not ported yet: {', '.join(asked)} — the port serves the "
                 "paged engine only (see ROADMAP.md)")
         validate_kv_cache_dtype(kv_cache_dtype, paged=paged)
-        self.device = resolve_device(device)
+        if ctx is not None and adapter_cache is not None:
+            raise NotImplementedError(TP_UNPORTED)
+        self.device = resolve_device(
+            ctx.device if device is None and ctx is not None else device)
+        if ctx is not None and ctx.device != self.device:
+            raise ValueError(f"engine on {self.device}, its tp rank on "
+                             f"{ctx.device}")
+        # Tensor-parallel serving (JAX dynamic_engine.py:461-517): params
+        # whole on every rank; the pools and the steps shard when the
+        # config is tp-eligible, and a warning names the failed predicate
+        # when it is not.
+        self.ctx = ctx
+        self.tp_paged = False
+        if ctx is not None:
+            reason = tp_paged_ineligible_reason(cfg, ctx)
+            self.tp_paged = reason is None
+            if not self.tp_paged and ctx.tp > 1:
+                logger.warning("paged kernels stay single-device on a tp=%d "
+                               "mesh: %s", ctx.tp, reason)
+        self._step_ctx = ctx if self.tp_paged else None
+        # A server driving a tp lead steps it at least this often when
+        # idle (DynamicBatchingDriver), well inside the group's timeout.
+        self.keepalive_s = (ctx.timeout_s / 4 if ctx is not None
+                            and ctx.tp > 1 and ctx.is_lead else None)
+        # Rank 0 decides: requests, cancellations and expirations wait in
+        # _pending until the next step broadcasts them (_sync_ranks).
+        self._tp_sync = ctx is not None and ctx.tp > 1
+        self._pending: List[tuple] = []
+        self._pending_ids: set = set()
+        self._cmd_lock = threading.Lock()
         self.params = params.to(self.device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -369,6 +427,7 @@ class DynamicInferenceEngine:
             reason = megakernel_ineligible_reason(
                 cfg, batch=max_batch, params=self.params,
                 mq_rows=max(max_batch, self.prefill_chunk),
+                tp_paged=self.tp_paged,
                 lora_rank=(adapter_cache.rank if adapter_cache is not None
                            else None))
             if reason is None:
@@ -384,7 +443,8 @@ class DynamicInferenceEngine:
             cfg, max_batch, self.max_seq_len, num_blocks=num_blocks,
             block_size=block_size,
             enable_prefix_caching=enable_prefix_caching,
-            kv_cache_dtype=kv_cache_dtype, device=self.device)
+            kv_cache_dtype=kv_cache_dtype, device=self.device,
+            tp=ctx.tp if self.tp_paged else 1)
         self.rope_tables = gpt_rope_tables(cfg, self.max_seq_len,
                                            device=self.device)
         self._rt = get_request_tracer()
@@ -462,25 +522,49 @@ class DynamicInferenceEngine:
                 raise KeyError(
                     f"unknown adapter {adapter_id!r}; known: "
                     f"{sorted(self.adapters.registry.ids())}")
-        now = time.monotonic()
+        if self._tp_sync:
+            if not self.ctx.is_lead:
+                raise RuntimeError("a tp follower takes its requests from "
+                                   "rank 0's broadcast (follow())")
+            with self._cmd_lock:
+                if request_id is None:
+                    request_id = next(self._ids)
+                elif (request_id in self.requests
+                      or request_id in self._pending_ids):
+                    raise ValueError(f"request id {request_id} already "
+                                     "admitted")
+                self._pending_ids.add(request_id)
+                self._pending.append(("add", dict(
+                    request_id=request_id, prompt=prompt,
+                    max_new_tokens=max_new_tokens,
+                    sampling=sampling or SamplingParams(), eod_id=eod_id,
+                    priority=priority, deadline_s=deadline_s,
+                    adapter_id=adapter_id)))
+            return request_id
         if request_id is None:
             request_id = next(self._ids)
         elif request_id in self.requests:
             raise ValueError(f"request id {request_id} already admitted")
-        req = Request(request_id, prompt, max_new_tokens,
-                      sampling or SamplingParams(), eod_id=eod_id,
-                      priority=priority, deadline_s=deadline_s,
-                      adapter_id=adapter_id, admit_t=now, queued_t=now)
+        self._enqueue(Request(request_id, prompt, max_new_tokens,
+                              sampling or SamplingParams(), eod_id=eod_id,
+                              priority=priority, deadline_s=deadline_s,
+                              adapter_id=adapter_id))
+        return request_id
+
+    def _enqueue(self, req: Request):
+        """A validated request joins the waiting queue (at submit, or on
+        every rank when a tp step applies it)."""
+        now = time.monotonic()
+        req.admit_t = req.queued_t = now
         self.waiting.append(req)
         self.requests[req.request_id] = req
         telemetry.inc("serving_requests_admitted")
         rt = self._rt
         if rt.enabled:
             rt.instant("admit", req.request_id,
-                       prompt_tokens=len(prompt), priority=priority)
+                       prompt_tokens=len(req.prompt), priority=req.priority)
             rt.begin("request", req.request_id)
             rt.begin("queue-wait", req.request_id)
-        return req.request_id
 
     def pop_request(self, request_id: int) -> Optional[Request]:
         """Remove and return a finished request (server-side consumers)."""
@@ -489,7 +573,19 @@ class DynamicInferenceEngine:
     def abort_request(self, request_id: int) -> Optional[str]:
         """Cancel a request. Returns 'waiting' if it was dequeued before
         running (no finish event will fire), 'running' if it was marked
-        to retire on the next step, or None if unknown/already done."""
+        to retire on the next step, or None if unknown/already done. Under
+        tp the lead queues the cancellation for the next step's broadcast
+        and answers 'running' (the step's finish event completes it)."""
+        if self._tp_sync:
+            with self._cmd_lock:
+                known = (request_id in self._pending_ids
+                         or request_id in self.requests)
+                if known:
+                    self._pending.append(("abort", request_id))
+            return "running" if known else None
+        return self._abort(request_id)
+
+    def _abort(self, request_id: int) -> Optional[str]:
         req = self.requests.get(request_id)
         if req is None:
             return None
@@ -513,9 +609,12 @@ class DynamicInferenceEngine:
         the queue immediately; running ones are marked finished, so the
         same step's retire pass releases their slot and pool blocks.
         Returns the expired request ids."""
+        return self._expire(self._overdue(now))
+
+    def _overdue(self, now: Optional[float] = None) -> List[Request]:
+        """The requests whose deadline passed, waiting ones first."""
         if now is None:
             now = time.monotonic()
-        expired: List[int] = []
 
         def overdue(r: Request) -> bool:
             return (r.deadline_s is not None and not r.finished
@@ -533,17 +632,24 @@ class DynamicInferenceEngine:
                 continue
         else:
             overdue_waiting = []
-        for req in overdue_waiting:
-            try:
-                self.waiting.remove(req)
-            except ValueError:
-                continue    # cancelled concurrently: already retiring
-            req.finished = True
-            self._aborted.append(req)    # finish event fires this step
-            expired.append(req.request_id)
-            self._rt.finish(req.request_id, "expire")
-        for req in self.slots:
-            if req is not None and overdue(req):
+        return overdue_waiting + [r for r in self.slots
+                                  if r is not None and overdue(r)]
+
+    def _expire(self, reqs: List[Request]) -> List[int]:
+        """Abort `reqs` as expired (waiting ones leave the queue, running
+        ones retire this step); returns their ids."""
+        expired: List[int] = []
+        for req in reqs:
+            if req.slot < 0:
+                try:
+                    self.waiting.remove(req)
+                except ValueError:
+                    continue    # cancelled concurrently: already retiring
+                req.finished = True
+                self._aborted.append(req)    # finish event fires this step
+                expired.append(req.request_id)
+                self._rt.finish(req.request_id, "expire")
+            else:
                 req.finished = True      # retired (blocks released) below
                 expired.append(req.request_id)
                 self._rt.instant("expire", req.request_id)
@@ -553,7 +659,17 @@ class DynamicInferenceEngine:
 
     def abort_all(self):
         """Drop ALL queued and running requests (server error recovery),
-        releasing pool blocks so the bookkeeping stays consistent."""
+        releasing pool blocks so the bookkeeping stays consistent. Under
+        tp the lead queues it for the next step's broadcast (every rank
+        drops the same work), and its queued commands go with it."""
+        if self._tp_sync and self.ctx.is_lead:
+            with self._cmd_lock:
+                self._pending = [("abort_all", None)]
+                self._pending_ids.clear()
+            return
+        self._abort_all()
+
+    def _abort_all(self):
         self._last_round_t = None
         for req in list(self.waiting):
             self.requests.pop(req.request_id, None)
@@ -584,13 +700,18 @@ class DynamicInferenceEngine:
 
     @property
     def has_work(self) -> bool:
-        return (bool(self.waiting)
+        return (bool(self.waiting) or bool(self._pending)
                 or any(r is not None for r in self.slots))
 
     def set_params(self, params):
         """Install new model params (rolling reload) of the same
         structure; the prefix cache is flushed (its blocks hold KV from
         the old weights)."""
+        if self._tp_sync:
+            raise NotImplementedError(
+                "a rolling reload under tensor parallelism is not ported "
+                "yet (ROADMAP.md Queue 1): every rank would swap its params "
+                "between the same two steps")
         self.params = params.to(self.device)
         self.pool.flush_prefix_cache()
 
@@ -713,7 +834,7 @@ class DynamicInferenceEngine:
                 self._to_dev(starts), self._to_dev(counts), self.cfg,
                 self.max_seq_len, tuple(self._to_dev(t) for t in index),
                 self.rope_tables, fused=self.megakernel,
-                scales=pool.scales, lora=lora)
+                scales=pool.scales, lora=lora, ctx=self._step_ctx)
             self.prefill_chunks += 1
             pos += count
         # Register the prompt's full blocks so concurrent same-prefix
@@ -819,14 +940,78 @@ class DynamicInferenceEngine:
                                 generated=len(req.generated))
         return done
 
+    # ---- tensor-parallel lockstep -----------------------------------------
+    def _apply(self, cmds):
+        """Apply the lead's queued commands, in order (every rank)."""
+        for op, arg in cmds:
+            if op == "add":
+                self._enqueue(Request(**arg))
+            elif op == "abort":
+                req = self.requests.get(arg)
+                if self._abort(arg) == "waiting":
+                    self._aborted.append(req)    # its finish event fires
+            else:
+                self._abort_all()
+
+    def _sync_ranks(self) -> Optional[List[int]]:
+        """The step's host decisions, made on the lead and broadcast: its
+        queued submissions, cancellations and aborts, the deadline
+        expirations of its clock and its admission pause. Every rank
+        applies them in the same order. Returns the expired ids, or None
+        on a follower told to stop."""
+        ctx = self.ctx
+        if ctx.is_lead:
+            with self._cmd_lock:
+                cmds, self._pending = self._pending, []
+                self._pending_ids.clear()
+            self._apply(cmds)
+            msg = {"cmds": cmds, "pause": self.pause_admission,
+                   "expired": [r.request_id for r in self._overdue()]}
+            collectives.broadcast_object(msg, ctx)
+        else:
+            msg = collectives.broadcast_object(None, ctx)
+            if msg is None:
+                return None
+            self._apply(msg["cmds"])
+            self.pause_admission = msg["pause"]
+        return self._expire([self.requests[rid] for rid in msg["expired"]])
+
+    def release_followers(self):
+        """Lead: end the followers' ``follow()`` loops (after the last
+        step)."""
+        if self._tp_sync and self.ctx.is_lead:
+            collectives.broadcast_object(None, self.ctx)
+
+    def follow(self) -> Dict[int, np.ndarray]:
+        """Follower rank: step in lockstep with the lead until it releases
+        the followers. Returns {request_id: full token array} of every
+        request finished meanwhile (the lead's streams, on this rank)."""
+        if not self._tp_sync or self.ctx.is_lead:
+            raise RuntimeError("follow() runs on a tp follower rank")
+        results: Dict[int, np.ndarray] = {}
+        while True:
+            ev = self.step()
+            if ev is None:
+                return results
+            for rid in ev["finished"]:
+                req = self.requests.pop(rid, None)
+                if req is not None:
+                    results[rid] = req.tokens
+
     # ---- main loop --------------------------------------------------------
-    def step(self) -> Dict[str, List]:
+    def step(self) -> Optional[Dict[str, List]]:
         """Admit → decode one token for all active slots → retire.
 
         Returns {"admitted": [ids], "tokens": [(id, tok)], "finished":
         [ids], "preempted": [ids], "expired": [ids]} for this step
-        (expired ⊆ finished)."""
-        expired = self.expire_overdue()
+        (expired ⊆ finished); a tp follower returns None when the lead
+        released it."""
+        if self._tp_sync:
+            expired = self._sync_ranks()
+            if expired is None:
+                return None
+        else:
+            expired = self.expire_overdue()
         admitted = self._admit()
         events = {"admitted": [r.request_id for r in admitted],
                   "tokens": [(r.request_id, r.generated[-1])
@@ -872,7 +1057,7 @@ class DynamicInferenceEngine:
                 self._to_dev(self.lengths), self.cfg,
                 tuple(self._to_dev(t) for t in index), self.rope_tables,
                 fused=self.megakernel, scales=self.pool.scales,
-                lora=self._lora_args())
+                lora=self._lora_args(), ctx=self._step_ctx)
             # The decode wrote each active row's kv at lengths[slot].
             self.lengths += active_np.astype(np.int32)
             logits = mask_padded_vocab(logits, self.cfg)
@@ -910,9 +1095,12 @@ class DynamicInferenceEngine:
         """JSON-ready serving stats (GET /stats): batch occupancy, pool
         occupancy and storage dtype, prefix-cache hit rate, the params'
         device bytes, whether the fused step runs, the kernels' launch
-        counts and, with an adapter cache, its books ("lora")."""
+        counts and, with an adapter cache, its books ("lora"); under tp
+        the rank, the group and the collectives' counts ("tp"), and the
+        rank's own pool bytes."""
         from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
         from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+        from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
         from megatronapp_tpu_torch.ops.cuda import lora as cl
         from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
         from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
@@ -937,7 +1125,13 @@ class DynamicInferenceEngine:
                                 "fused_decode": dict(fd.launches),
                                 "fused_mla": dict(fm.launches),
                                 "fused_decode_lora": dict(fd.lora_launches),
-                                "lora_delta": dict(cl.launches)},
+                                "lora_delta": dict(cl.launches),
+                                "latent_tp": dict(lt.launches)},
+            "tp": None if self.ctx is None else {
+                "tp": self.ctx.tp, "rank": self.ctx.rank,
+                "backend": self.ctx.backend,
+                "device": str(self.ctx.device), "tp_paged": self.tp_paged,
+                "collectives": dict(collectives.calls)},
             "pool": {
                 "num_blocks": pool.num_blocks,
                 "block_size": pool.block_size,

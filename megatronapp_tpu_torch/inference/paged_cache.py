@@ -146,9 +146,10 @@ class PagedKVCache:
     def __init__(self, cfg: TransformerConfig, max_batch: int,
                  max_seq_len: int, num_blocks: Optional[int] = None,
                  block_size: int = 16, enable_prefix_caching: bool = True,
-                 kv_cache_dtype: str = "bf16", device="cpu"):
+                 kv_cache_dtype: str = "bf16", device="cpu", tp: int = 1):
         spec = validate_kv_cache_dtype(kv_cache_dtype,
                                        mla=cfg.multi_latent_attention)
+        self.tp = tp
         self.kv_cache_dtype = kv_cache_dtype
         self.quantized = spec.quantized
         self.cfg = cfg
@@ -163,12 +164,17 @@ class PagedKVCache:
         self.num_slots = max_batch
 
         lead = (cfg.num_layers, self.num_blocks, block_size)
+        # tp > 1: this rank's share of a tensor-parallel pool (JAX
+        # dynamic_engine.py:489-517) — the GQA pools and their scale pools
+        # hold Hkv/tp kv heads; an MLA latent pool holds kv_lora_rank/tp
+        # columns while the roped-key pool and the per-row scale pools
+        # (one scale for the WHOLE latent row) stay whole.
         if cfg.multi_latent_attention:
             # (latent, roped key) rows, no kv-head axis.
-            shapes = [lead + (cfg.kv_lora_rank,),
+            shapes = [lead + (cfg.kv_lora_rank // tp,),
                       lead + (cfg.qk_pos_emb_head_dim,)]
         else:
-            shapes = [lead + (cfg.num_query_groups, cfg.head_dim)] * 2
+            shapes = [lead + (cfg.num_query_groups // tp, cfg.head_dim)] * 2
         dt = spec.page_dtype if spec.quantized else cfg.compute_dtype
         self.pages: Tuple[torch.Tensor, ...] = tuple(
             torch.zeros(shape, dtype=dt, device=device) for shape in shapes)
@@ -204,7 +210,8 @@ class PagedKVCache:
     @property
     def bytes_total(self) -> int:
         """Resident pool bytes, read off the pool tensors: the pages in
-        their storage dtype plus the fp32 scale pools of quantized ones."""
+        their storage dtype plus the fp32 scale pools of quantized ones
+        (this rank's own under tp)."""
         return sum(p.numel() * p.element_size() for p in self._arrays())
 
     @property

@@ -77,6 +77,7 @@ class DynamicBatchingDriver:
         self.crash_backoff_cap = crash_backoff_cap
         self._reload = None   # (params, [done events]) or None
         self.reloads = 0
+        self._closed = False
 
     def _ensure_thread(self):
         if self._thread is None or not self._thread.is_alive():
@@ -122,6 +123,16 @@ class DynamicBatchingDriver:
             self._ensure_thread()
             self._cv.notify_all()
         return rid, done
+
+    def close(self):
+        """Stop the stepper thread once its current step is done (the
+        engine is then the caller's again: a tp lead releases its
+        followers after this)."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=600)
 
     def request_reload(self, params) -> threading.Event:
         """Schedule a rolling params swap; the returned event fires once
@@ -174,14 +185,24 @@ class DynamicBatchingDriver:
         return None if req is None else req.tokens
 
     def _loop(self):
+        # A tp lead steps an idle engine every keepalive_s, so that its
+        # followers' wait for the next step never outlasts the group's
+        # collective timeout.
+        keepalive = getattr(self.engine, "keepalive_s", None)
         while True:
             with self._cv:
-                while not (self.engine.has_work or
+                idle = False
+                while not (self.engine.has_work or self._closed or
                            self._reload is not None):
-                    self._cv.wait()
-                self._maybe_reload_locked()
-                if not self.engine.has_work:
-                    continue
+                    if not self._cv.wait(timeout=keepalive):
+                        idle = True
+                        break
+                if self._closed:
+                    return
+                if not idle:
+                    self._maybe_reload_locked()
+                    if not self.engine.has_work:
+                        continue
             try:
                 chaos.fire("stepper-step")
                 ev = self.engine.step()
@@ -450,6 +471,10 @@ class TextGenerationServer:
         return ws
 
     # ------------------------------------------------------------------
+    def close(self):
+        """Stop the driver's stepper thread (at shutdown)."""
+        self._driver.close()
+
     def stats_snapshot(self) -> dict:
         """Serving stats for GET /stats."""
         out = self.engine.stats_snapshot()

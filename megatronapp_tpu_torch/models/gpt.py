@@ -123,8 +123,10 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
     parallel-training slice."""
     if ctx is not None:
         raise NotImplementedError(
-            "context-parallel (zigzag) forward is not ported yet (the "
-            "parallel-training slice)")
+            "context-parallel (zigzag) and tensor-parallel training "
+            "forwards are not ported yet (the parallel-training slice, "
+            "ROADMAP.md Queue 1): a serving ctx rides the engine's paged "
+            "steps (inference/dynamic_engine.py), not gpt_forward")
     if cfg.mtp_num_layers:
         raise NotImplementedError("MTP heads are not ported yet")
     positions = None

@@ -210,8 +210,9 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
     if getattr(cfg, "heterogeneous_layers_config_json", None):
         return "heterogeneous per-layer configs unroll their own bodies"
     if tp_paged:
-        return ("tp head-sharded serving mesh: the fused kernels are "
-                "single-device (the tp engine keeps the unfused body)")
+        return ("tp head-sharded serving mesh: fused prologue/epilogue "
+                "kernels are single-device (the tp engine keeps the "
+                "unfused body)")
     if lora_rank and cfg.multi_latent_attention:
         return ("LoRA serving targets the GQA projection kernels — "
                 "the MLA megakernel has no q_kernel/kv_kernel to "

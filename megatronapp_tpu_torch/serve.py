@@ -17,13 +17,21 @@ device (inference/quantization.py). ``--lora-dir DIR`` serves batched
 multi-tenant LoRA adapters (``<adapter_id>.npz`` files written by
 ``inference/lora.py:LoraAdapter.save``) from a device cache of
 ``--max-resident-adapters`` slots of rank ``--lora-rank``; a request names
-its adapter with ``"adapter_id"``. The server needs ``aiohttp``.
+its adapter with ``"adapter_id"``. ``--serve-tp N`` serves
+tensor-parallel over N ranks, one process each, joined by a gloo group
+(parallel/mesh.py): this process is rank 0 and runs the driver and the
+server, and it spawns ranks 1..N-1 as followers that step in lockstep with
+it (inference/dynamic_engine.py). Rank r computes on cuda:(r mod the card
+count), so on a machine with one card every rank shares it. The server
+needs ``aiohttp``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import multiprocessing
+import socket
 from typing import List, Optional
 
 import torch
@@ -45,7 +53,6 @@ UNPORTED_FLAGS = {
     "--draft-model": "speculative decoding",
     "--draft-load-dir": "speculative decoding",
     "--serve-disagg": "disaggregated serving",
-    "--serve-tp": "tensor-parallel serving",
     "--disagg-prefill-slots": "disaggregated serving",
     "--decode-slo-ms": "disaggregated serving",
     "--serve-fleet": "fleet serving",
@@ -129,6 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "fused kernels")
     g.add_argument("--prefill-chunk", type=int, default=32,
                    help="chunked-prefill chunk size")
+    g.add_argument("--serve-tp", type=int, default=1,
+                   help="tensor-parallel degree: the paged-attention "
+                        "kernels run head-sharded (MLA: latent-column-"
+                        "sharded) over this many ranks with per-rank KV "
+                        "pools, one process a rank over a gloo group")
     g.add_argument("--megakernel-decode", action="store_true",
                    help="fused decode step: each decode and chunked-prefill "
                         "layer as the fused QKV, out-projection and MLP "
@@ -204,6 +216,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ap.error("--engine dynamic without --paged-kv-cache is the dense "
                  "slot cache, which is not ported yet: pass "
                  "--paged-kv-cache")
+    if args.serve_tp < 1:
+        ap.error(f"--serve-tp must be >= 1 (got {args.serve_tp})")
+    if args.serve_tp > 1 and args.lora_dir:
+        ap.error("--lora-dir with --serve-tp > 1: LoRA serving under "
+                 "tensor parallelism is not ported yet (ROADMAP.md Queue 1)")
     if args.tokenizer_type != "NullTokenizer":
         ap.error(f"--tokenizer-type {args.tokenizer_type}: only the "
                  "NullTokenizer is ported (the port serves random "
@@ -211,11 +228,62 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def build_engine(args: argparse.Namespace):
+def rank_device(args: argparse.Namespace, rank: int):
+    """The device of tp rank `rank`: --device when given, else cuda:(rank
+    mod the card count) — every rank shares the one card of a one-card
+    machine."""
+    from megatronapp_tpu_torch.utils.device import resolve_device
+    if args.device is not None or args.serve_tp == 1:
+        return resolve_device(args.device)
+    resolve_device(None)
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def free_init_method() -> str:
+    """A tcp://localhost:<port> rendezvous on a port free right now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"tcp://localhost:{s.getsockname()[1]}"
+
+
+def join_tp(args: argparse.Namespace, rank: int, init_method: str):
+    """Rank `rank`'s MeshContext of the --serve-tp group (None at tp 1)."""
+    if args.serve_tp == 1:
+        return None
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    return build_mesh(ParallelConfig(tensor_parallel=args.serve_tp),
+                      rank=rank, init_method=init_method,
+                      device=rank_device(args, rank))
+
+
+def follower_main(args: argparse.Namespace, rank: int, init_method: str):
+    """A --serve-tp follower rank: the same seeded weights, stepping with
+    rank 0 until it releases the followers."""
+    ctx = join_tp(args, rank, init_method)
+    try:
+        build_engine(args, ctx).follow()
+    finally:
+        ctx.close()
+
+
+def spawn_followers(args: argparse.Namespace, init_method: str):
+    """Start ranks 1..serve_tp-1 (spawned processes running
+    ``follower_main``); returns them."""
+    mp = multiprocessing.get_context("spawn")
+    procs = [mp.Process(target=follower_main, args=(args, r, init_method),
+                        name=f"serve-tp-rank{r}", daemon=True)
+             for r in range(1, args.serve_tp)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def build_engine(args: argparse.Namespace, ctx=None):
     """The engine the server drives, with random weights from args.seed
     made on the device (quantized there with --quantized-weights, as the
     JAX server's startup PTQ does: tools/run_text_generation_server.py:
-    123-135)."""
+    123-135). ctx: this rank's MeshContext under --serve-tp."""
     from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
     from megatronapp_tpu_torch.inference.dynamic_engine import (
         DynamicInferenceEngine,
@@ -223,7 +291,7 @@ def build_engine(args: argparse.Namespace):
     from megatronapp_tpu_torch.models.gpt import init_gpt_params
     from megatronapp_tpu_torch.models.presets import PRESETS
     from megatronapp_tpu_torch.utils.device import resolve_device
-    device = resolve_device(args.device)
+    device = ctx.device if ctx is not None else resolve_device(args.device)
     cfg = PRESETS[args.preset]()
     over = {"params_dtype": (torch.bfloat16 if args.params_dtype == "bf16"
                              else torch.float32)}
@@ -248,7 +316,7 @@ def build_engine(args: argparse.Namespace):
         prefill_chunk=args.prefill_chunk,
         kv_cache_dtype=args.kv_cache_dtype, device=device,
         fused_decode=args.megakernel_decode,
-        adapter_cache=build_adapter_cache(args, cfg, device))
+        adapter_cache=build_adapter_cache(args, cfg, device), ctx=ctx)
 
 
 def build_adapter_cache(args: argparse.Namespace, cfg, device):
@@ -288,17 +356,35 @@ def main(argv: Optional[List[str]] = None):
         get_request_tracer().configure(
             enabled=True, capacity=args.request_trace_capacity)
     from megatronapp_tpu_torch.inference.quantization import resident_nbytes
-    engine = build_engine(args)
+    init_method = free_init_method() if args.serve_tp > 1 else ""
+    followers = (spawn_followers(args, init_method) if args.serve_tp > 1
+                 else [])
+    ctx = join_tp(args, 0, init_method)
+    engine = build_engine(args, ctx)
+    tp = "" if ctx is None else (
+        f", backend={ctx.backend}, ranks on "
+        f"{[str(rank_device(args, r)) for r in range(args.serve_tp)]}, "
+        f"tp_paged={engine.tp_paged}, pool "
+        f"{engine.pool.bytes_total / 2**20:.1f} MiB a rank")
     print(f"serving {args.preset} ({engine.cfg.num_layers} layers, random "
           f"weights seed {args.seed}) with continuous batching on "
           f"{engine.device} at {args.host}:{args.port} (paged, block "
           f"{args.kv_block_size}, max_batch {args.max_batch}, "
-          f"kv={args.kv_cache_dtype}, params "
+          f"kv={args.kv_cache_dtype}, tp={args.serve_tp}{tp}, params "
           f"{resident_nbytes(engine.params) / 2**20:.1f} MiB on device"
           f"{' (resident int8)' if args.quantized_weights else ''}, "
           f"megakernel={engine.megakernel}, "
           f"lora={'on' if engine.adapters is not None else 'off'})")
-    TextGenerationServer(engine, args.host, args.port).run()
+    server = TextGenerationServer(engine, args.host, args.port)
+    try:
+        server.run()
+    finally:
+        server.close()
+        engine.release_followers()
+        for p in followers:
+            p.join(timeout=60)
+        if ctx is not None:
+            ctx.close()
 
 
 if __name__ == "__main__":

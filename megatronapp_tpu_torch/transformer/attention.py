@@ -15,10 +15,12 @@ The three kernels may be resident int8 leaves (inference/quantization.py):
 ``resolve_param`` dequantizes them at matmul entry, as the JAX layer does.
 
 Ported branches: the two paged serving branches (the multi-token ragged
-append of chunked prefill and the one-token decode append) and the
+append of chunked prefill and the one-token decode append), single-device
+or head-sharded over a tensor-parallel group (``ctx``), and the
 single-device training branch (no cache: dense attention or the flash
-kernels, by the ``attention_impl`` rule). The static-cache,
-context-parallel and tensor-parallel branches raise until their slices.
+kernels, by the ``attention_impl`` rule). The static-cache and the
+context-parallel and tensor-parallel training branches raise until their
+slices.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from megatronapp_tpu_torch.ops.flash_attention import flash_attention
 from megatronapp_tpu_torch.ops.lora import apply_lora_delta
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.ops.paged_attention import (
-    WriteIndex, paged_attention_decode, paged_attention_multiquery,
-    scale_kwargs, write_kv,
+    WriteIndex, paged_attention_decode, paged_attention_decode_tp,
+    paged_attention_multiquery, paged_attention_multiquery_tp, scale_kwargs,
+    write_kv,
 )
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
@@ -143,12 +146,19 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     the kernel dequantizes as it reads; new_cache then holds the four
     pools. lora: one layer's batched adapter deltas (ops/lora.py) — the q,
     kv and out deltas add between each matmul and its bias, as JAX
-    attention.py:278-281 and :581-585 place them."""
-    if ctx is not None:
-        raise NotImplementedError(
-            "context-parallel and tensor-parallel attention are not ported "
-            "yet (the parallel-training slice)")
+    attention.py:278-281 and :581-585 place them. ctx: a tensor-parallel
+    MeshContext (parallel/mesh.py) whose rank holds kv heads
+    ctx.shard(Hkv) in its pools: the projections run whole on every rank
+    (replicated params), the rank writes and attends its own heads, and
+    the heads are gathered before the replicated out-projection (JAX
+    attention.py:66-77, :363-367, :403-407)."""
     serving = kv_cache is not None
+    if ctx is not None and not serving:
+        raise NotImplementedError(
+            "context-parallel and tensor-parallel training attention are "
+            "not ported yet (the parallel-training slice, ROADMAP.md Queue "
+            "1): ctx is taken only by the paged serving branches, where it "
+            "shards the kv heads over the tp ranks")
     if serving and (page_table is None or write_index is None
                     or attention_mask is not None or cache_index is not None
                     or segment_ids is not None):
@@ -193,15 +203,30 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         return out, None
 
     ck, cv = kv_cache
+    if ctx is not None:
+        # Tensor-parallel serving (JAX kernel_gen._tp_place): this rank's
+        # pools hold its contiguous kv heads; q keeps the matched query
+        # heads, and the heads are gathered after the kernel.
+        q, k, v = (q[:, :, ctx.shard(nq)], k[:, :, ctx.shard(nkv)],
+                   v[:, :, ctx.shard(nkv)])
     write_kv(kv_cache, kv_scales, k, v, write_index)
     sc = scale_kwargs(kv_scales)
     q = q.contiguous()
     if s > 1 or chunk_counts is not None:
         counts = (chunk_counts if chunk_counts is not None else torch.full(
             (b,), s, dtype=torch.int32, device=x.device))
-        attn = paged_attention_multiquery(q, ck, cv, page_table,
-                                          cache_positions + counts, counts,
-                                          **sc)
+        if ctx is not None:
+            attn = paged_attention_multiquery_tp(
+                q, ck, cv, page_table, cache_positions + counts, counts, ctx,
+                **sc)
+        else:
+            attn = paged_attention_multiquery(q, ck, cv, page_table,
+                                              cache_positions + counts,
+                                              counts, **sc)
+    elif ctx is not None:
+        attn = paged_attention_decode_tp(q[:, 0], ck, cv, page_table,
+                                         cache_positions + 1, ctx,
+                                         **sc)[:, None]
     else:
         attn = paged_attention_decode(q[:, 0], ck, cv, page_table,
                                       cache_positions + 1, **sc)[:, None]

@@ -88,8 +88,16 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     An MLA layer (cfg.multi_latent_attention) runs transformer/mla.py's
     mla_forward on the normed input (JAX block.py:136-160): kv_cache is
     its (latent, roped key) pool pair and kv_scales their per-row scale
-    pools. It takes no lora."""
+    pools. It takes no lora.
+
+    ctx: a tensor-parallel MeshContext on the paged serving branches
+    (attention_forward's head shards, mla_forward's latent columns);
+    training with a ctx raises until the parallel-training slice."""
     if fused_decode:
+        if ctx is not None:
+            raise ValueError(
+                "fused_decode under a tp ctx: the fused kernels are "
+                "single-device (the tp engine keeps the unfused body)")
         if page_table is None or kv_cache is None or cfg.is_moe:
             raise ValueError(
                 "fused_decode covers the dense-MLP paged decode/multiquery "
@@ -116,10 +124,11 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                 "lora serving targets the GQA projection kernels — MLA "
                 "has no q_kernel/kv_kernel (lora.AdapterCache rejects "
                 "MLA configs at construction)")
-        if ctx is not None or cache_index is not None:
+        if (ctx is not None and kv_cache is None) or cache_index is not None:
             raise NotImplementedError(
-                "context-parallel MLA and MLA's dense slot cache are not "
-                "ported yet")
+                "context-parallel and tensor-parallel MLA training and MLA's "
+                "dense slot cache are not ported yet (ROADMAP.md Queue 1): "
+                "ctx is taken only by the paged serving branch")
         if segment_ids is not None:
             # Packed segments densify into the keep-mask (JAX block.py:
             # 143-149).
@@ -131,7 +140,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,
             kv_cache=kv_cache, cache_positions=cache_positions,
             page_table=page_table, chunk_counts=chunk_counts,
-            write_index=write_index, kv_scales=kv_scales)
+            write_index=write_index, kv_scales=kv_scales, ctx=ctx)
     else:
         attn_out, new_cache = attention_forward(
             p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,

@@ -25,9 +25,13 @@ latent is unscaled), and the latent kernel (ops/cuda/paged_latent.py)
 reads the pools through the page table and expands its output through
 kv_up's v columns, so the history is never gathered or re-expanded.
 
+Tensor-parallel serving (``ctx``) shards the latent pool on its columns
+and attends through the two-phase tp body (ops/paged_attention.py
+``paged_attention_latent_tp``).
+
 Not ported: the dense slot cache (``cache_positions`` without a page
-table), tensor-parallel and context-parallel MLA, and MegaScope's
-reconstituted k/v captures.
+table), context-parallel MLA, and MegaScope's reconstituted k/v
+captures.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.attention import dot_product_attention
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.ops.paged_attention import (
-    WriteIndex, paged_attention_latent, write_kv,
+    WriteIndex, paged_attention_latent, paged_attention_latent_tp, write_kv,
 )
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
@@ -98,15 +102,29 @@ def kv_up_heads(p, cfg: TransformerConfig):
 
 
 def latent_attention(q_lat, q_pe, kv_cache, kv_scales, page_table,
-                     cache_positions, counts, w_v, cfg: TransformerConfig):
+                     cache_positions, counts, w_v, cfg: TransformerConfig,
+                     ctx=None):
     """Attention of the absorbed queries q_lat [B, S, nq, klat] and roped
     q_pe [B, S, nq, dpe] over a layer's latent pools through the latent
     kernel: ragged with q_lens = counts [B], or decode (counts None, S ==
-    1). Returns [B, S, nq, dv]."""
+    1). ctx: a tensor-parallel rank — q_lat, the latent pool and w_v hold
+    its latent columns, and the two-phase tp body
+    (``paged_attention_latent_tp``) replaces the latent kernel. Returns
+    [B, S, nq, dv]."""
     c_lat, c_pe = kv_cache
     sc = ({} if kv_scales is None
           else dict(zip(("lat_scales", "pe_scales"), kv_scales)))
     scale = mla_softmax_scale(cfg)
+    if ctx is not None:
+        if counts is not None:
+            return paged_attention_latent_tp(
+                q_lat, q_pe, c_lat, c_pe, page_table,
+                cache_positions + counts, w_v, ctx, q_lens=counts,
+                softmax_scale=scale, **sc)
+        return paged_attention_latent_tp(
+            q_lat[:, 0], q_pe[:, 0], c_lat, c_pe, page_table,
+            cache_positions + 1, w_v, ctx, softmax_scale=scale,
+            **sc)[:, None]
     if counts is not None:
         return paged_attention_latent(
             q_lat.contiguous(), q_pe.contiguous(), c_lat, c_pe, page_table,
@@ -124,7 +142,7 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                 attention_mask: Optional[torch.Tensor] = None,
                 kv_cache=None, cache_positions=None, page_table=None,
                 chunk_counts=None, write_index: Optional[WriteIndex] = None,
-                kv_scales=None):
+                kv_scales=None, ctx=None):
     """x [B, S, H] (the normed residual) → (out [B, S, H], new_cache).
 
     No kv_cache: the dense branch (JAX mla.py:328-406): k_nope/v expand
@@ -140,7 +158,13 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     with garbage outputs. kv_scales: the per-row fp32 scale pools
     (latent, key) [NB, bs] of an int8/fp8 pool: new rows are quantized per
     row and written with their scales, and new_cache then holds the four
-    pools."""
+    pools. ctx: a tensor-parallel rank (JAX mla.py:266-291 with
+    kernel_gen._tp_place_latent): its latent pool holds the columns
+    ctx.shard(kv_lora_rank) — the rank absorbs q_nope into those columns
+    only, writes those columns of each new row (quantized over the whole
+    row first), passes its rows of w_v (a strided view of kv_up, no copy)
+    and attends through the two-phase tp body; the output is the same on
+    every rank, so the out-projection runs replicated."""
     b, s, _ = x.shape
     nq = cfg.num_attention_heads
     dqk, dpe, dv = cfg.qk_head_dim, cfg.qk_pos_emb_head_dim, cfg.v_head_dim
@@ -189,7 +213,8 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         raise NotImplementedError(
             "MLA's dense slot cache is not ported: pass the paged pools "
             "with a page table and a write index")
-    write_kv(kv_cache, kv_scales, latent, k_pe, write_index)
+    cols = None if ctx is None else ctx.shard(klat)
+    write_kv(kv_cache, kv_scales, latent, k_pe, write_index, k_cols=cols)
     # The absorbed query: q_nope × m (the dense path's q factor) × m (its
     # k factor, which the unscaled cached latent cannot carry), through
     # kv_up's k_nope columns (JAX mla.py:244-263).
@@ -198,12 +223,14 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     if m != 1.0:
         rows = rows * m
     wk, w_v = kv_up_heads(p, cfg)
-    q_abs = torch.einsum("bnd,knd->bnk", rows, wk).reshape(b, s, nq, klat)
+    if cols is not None:
+        wk, w_v = wk[cols], w_v[cols]
+    q_abs = torch.einsum("bnd,knd->bnk", rows, wk).reshape(b, s, nq, -1)
     counts = chunk_counts
     if counts is None and s > 1:
         counts = torch.full((b,), s, dtype=torch.int32, device=x.device)
     attn = latent_attention(q_abs, q_pe, kv_cache, kv_scales, page_table,
-                            cache_positions, counts, w_v, cfg)
+                            cache_positions, counts, w_v, cfg, ctx)
     out = attn.reshape(b, s, nq * dv) @ resolve_param(p["out_kernel"], dt)
     return out, tuple(kv_cache) + tuple(kv_scales or ())
 

@@ -294,15 +294,23 @@ def test_deadline_and_abort():
 def test_unported_engine_options_raise():
     _, tc, _, tp = _weights("llama", 2)
     for kw in (dict(paged=False), dict(spec_method="ngram"),
-               dict(spill_host_mb=8), dict(ctx=object())):
+               dict(spill_host_mb=8)):
         with pytest.raises(NotImplementedError, match="not ported"):
             tde.DynamicInferenceEngine(tp, tc, device="cpu", **kw)
     # Batched LoRA is ported (tests/test_torch_lora_engine.py); per-tenant
-    # accounting is not, and raises at submit.
+    # accounting is not, and raises at submit. Tensor-parallel serving is
+    # ported (tests/test_torch_tp_engine.py); LoRA under it is not.
     from megatronapp_tpu_torch.inference.lora import (
         AdapterCache, AdapterRegistry,
     )
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import MeshContext
     cache = AdapterCache(tc, AdapterRegistry(), rank=2, device="cpu")
+    ctx = MeshContext(group=None, parallel=ParallelConfig(tensor_parallel=2),
+                      rank=0, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tde.DynamicInferenceEngine(tp, tc, device="cpu", ctx=ctx,
+                                   adapter_cache=cache, **ENGINE)
     eng = tde.DynamicInferenceEngine(tp, tc, device="cpu",
                                      adapter_cache=cache, **ENGINE)
     assert eng.adapters is cache

@@ -9,8 +9,11 @@
   and fused kernels launch and match their plain versions, the quantized
   paged kernel (int8 and fp8 pools), the resident-int8 fused kernels, the
   segmented LoRA kernel, the fused kernels' LoRA epilogues, the MLA
-  latent kernel (bf16, int8 and fp8 pools) and the fused MLA prologue
-  included.
+  latent kernel (bf16, int8 and fp8 pools), the fused MLA prologue and
+  the two latent tensor-parallel kernels (block scores and weighted sum)
+  included;
+- the tensor-parallel group (build_mesh) and the tp engine default to the
+  card and raise without one.
 """
 
 import ast
@@ -40,6 +43,10 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert {"megatronapp_tpu_torch.inference.dynamic_engine",
+            "megatronapp_tpu_torch.parallel.mesh",
+            "megatronapp_tpu_torch.parallel.collectives",
+            "megatronapp_tpu_torch.config.parallel_config",
+            "megatronapp_tpu_torch.ops.cuda.latent_tp",
             "megatronapp_tpu_torch.training.train",
             "megatronapp_tpu_torch.pretrain_gpt",
             "megatronapp_tpu_torch.ops.cuda.flash_attention"} <= set(mods)
@@ -654,3 +661,106 @@ def test_fused_mla_prologue_matches_plain_version(q_lora_rank):
             rms = b.pow(2).mean(dim=-1, keepdim=True).sqrt()
             scale = torch.maximum(b.abs(), rms)
             assert float(((a - b).abs() / scale).max()) <= 0.06
+
+
+def test_tp_group_and_engine_default_to_the_card(monkeypatch):
+    """build_mesh with no device resolves the card before joining the
+    group, and the tp engine and serve.py's --serve-tp ranks take the
+    card too: without one each raises (no group is joined)."""
+    from megatronapp_tpu_torch import serve
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.parallel.mesh import MeshContext, build_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mesh(ParallelConfig(tensor_parallel=2), rank=0,
+                   init_method="file:///nonexistent/never-joined")
+    cfg = llama3_8b(num_layers=1, hidden_size=64, num_attention_heads=4,
+                    num_query_groups=2, ffn_hidden_size=128,
+                    vocab_size=128)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ctx = MeshContext(group=None, parallel=ParallelConfig(tensor_parallel=2),
+                      rank=0, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynamicInferenceEngine(params, cfg, max_seq_len=32, ctx=ctx,
+                               device="cuda")
+    args = serve.parse_args(["--engine", "dynamic", "--paged-kv-cache",
+                             "--serve-tp", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.rank_device(args, 1)
+
+
+def test_serve_tp_parses_and_refuses_lora(capsys):
+    from megatronapp_tpu_torch import serve
+    args = serve.parse_args(["--engine", "dynamic", "--paged-kv-cache",
+                             "--serve-tp", "2", "--megakernel-decode"])
+    assert args.serve_tp == 2 and args.megakernel_decode
+    assert "--serve-tp" not in serve.UNPORTED_FLAGS
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--engine", "dynamic", "--paged-kv-cache",
+                          "--serve-tp", "2", "--lora-dir", "x"])
+    assert "LoRA serving under tensor parallelism" in capsys.readouterr().err
+    assert serve.free_init_method().startswith("tcp://localhost:")
+
+
+def _latent_tp_inputs(kind):
+    from megatronapp_tpu_torch.ops.paged_attention import quantize_kv_rows
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(3)
+    b, bs, mb, nb = 3, 16, 8, 30
+    table = torch.randperm(nb, generator=gen)[:b * mb].reshape(b, mb).to(
+        torch.int32).to(dev)
+    lens = torch.tensor([5, 40, 128], dtype=torch.int32, device=dev)
+    whole = torch.randn(nb, bs, 512, generator=gen).to(dev)
+    if kind == "bf16":
+        pages, scales = whole.to(torch.bfloat16), None
+    else:
+        dt = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+        pages, scales = quantize_kv_rows(whole, dt)
+    return dev, gen, table, lens, pages[..., 256:], scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_latent_block_scores_kernel_matches_plain_version(kind):
+    """Row 8 on a column shard (a strided view) of a whole pool: the
+    kernel launches and matches its plain version (products exact on both
+    sides; fp32 sums in other orders)."""
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev, gen, table, lens, pages, scales = _latent_tp_inputs(kind)
+    q = torch.randn(3, 64, 256, generator=gen).to(dev)
+    before = lt.launches[f"scores{'' if kind == 'bf16' else '_' + kind}"]
+    got = lt.latent_block_scores(q, pages, table, lens, scales)
+    torch.cuda.synchronize()
+    assert lt.launches[f"scores{'' if kind == 'bf16' else '_' + kind}"] \
+        == before + 1
+    want = lt.latent_block_scores_plain(q, pages, table, lens, scales)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_latent_block_wsum_kernel_matches_plain_version(kind):
+    """Row 9 on the same shard through a strided w_v view: the kernel
+    launches and matches its plain version."""
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev, gen, table, lens, pages, scales = _latent_tp_inputs(kind)
+    p = torch.softmax(torch.randn(3, 64, 8 * 16, generator=gen), -1).to(dev)
+    kv_up = (torch.randn(512, 32 * 256, generator=gen) / 16).to(
+        torch.bfloat16).to(dev)
+    w_v = kv_up.reshape(512, 32, 256)[256:, :, 128:]
+    before = lt.launches[f"wsum{'' if kind == 'bf16' else '_' + kind}"]
+    got = lt.latent_block_wsum(p, pages, table, lens, w_v, scales)
+    torch.cuda.synchronize()
+    assert lt.launches[f"wsum{'' if kind == 'bf16' else '_' + kind}"] \
+        == before + 1
+    want = lt.latent_block_wsum_plain(p, pages, table, lens, w_v, scales)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
