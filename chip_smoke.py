@@ -57,7 +57,8 @@ Phases, each printing one JSON line:
 4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
-            bidirectional), a ragged S, packed segments and head_fold.
+            bidirectional), a ragged S, packed segments and head_fold;
+            each backward rerun on the same inputs repeats every bit.
 5. train_reference: one train step (2 microbatches) of a 2-layer
             llama-shaped model on the card (bf16, kernels) against the
             CPU (fp32, plain versions) from the same weights.
@@ -454,10 +455,12 @@ def phase_device(state):
                               kbuild.source("fused_mla.cu"),
                               kbuild.source("latent_tp.cu")])
     build_s = time.perf_counter() - t0
+    # Registers and barriers ("Used ..."), stack and spills ("... bytes
+    # spill stores"; ptxas prints them on a line of their own) per kernel.
     ptxas = {os.path.basename(b["source"]): [
         ln.strip() for ln in b["log"].splitlines()
-        if "ptxas info" in ln and ("registers" in ln or "spill" in ln
-                                   or "Compiling" in ln)] for b in built}
+        if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        for b in built}
     state["smi"] = nvidia_smi_line()
     emit({"phase": "device", "nvidia_smi": state["smi"],
           "kind": torch.cuda.get_device_name(0),
@@ -3770,23 +3773,33 @@ def _errs(got, ref, grad: bool):
 
 def _flash_case(name, q, k, v, g, seg, causal, head_fold=False):
     """The three kernels on bf16 inputs against the plain versions (see
-    the tolerances above). head_fold goes through the autograd Function
-    with flash_head_fold set (the model's path); the rest call the
-    wrappers."""
+    the tolerances above), and the backward run twice on the same inputs:
+    each dq, dk and dv element has one writer and a fixed order of sums,
+    so the rerun must repeat every bit. head_fold goes through the
+    autograd Function with flash_head_fold set (the model's path); the
+    rest call the wrappers."""
     from megatronapp_tpu_torch.ops import flash_attention as ofa
     from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
     out, lse = fa.flash_forward(q, k, v, causal, None, seg)
-    if head_fold:
+
+    def backward():
+        if not head_fold:
+            return fa.flash_backward(q, k, v, out, lse, g, causal, None, seg)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out_f = ofa.flash_attention(*leaves, causal=causal, segment_ids=seg,
                                     head_fold=True)
         out_f.backward(g)
         check(torch.equal(out_f, out), f"train_kernels {name}: the "
               "autograd path's output differs from the kernel's")
-        grads = [t.grad for t in leaves]
-    else:
-        grads = fa.flash_backward(q, k, v, out, lse, g, causal, None, seg)
+        return [t.grad for t in leaves]
+
+    grads = backward()
+    rerun = backward()
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, rerun)),
+          f"train_kernels {name}: a rerun of the backward on the same "
+          "inputs changed dq, dk or dv")
+    del rerun
     for t in (out, *grads):
         check(bool(torch.isfinite(t).all()),
               f"train_kernels {name}: non-finite output")
@@ -3796,6 +3809,7 @@ def _flash_case(name, q, k, v, g, seg, causal, head_fold=False):
     ref = fa.flash_backward_plain(
         *f32, ref_lse, fa.attention_delta(ref_out, f32[3]), causal, None,
         seg)
+    res["rerun_bit_identical"] = True
     res["fp32"] = {"out": _errs(out, ref_out, False),
                    "lse_abs": float((lse - ref_lse).abs().max())}
     for key, got, want in zip(("dq", "dk", "dv"), grads, ref):

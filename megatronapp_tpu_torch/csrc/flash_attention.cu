@@ -17,47 +17,76 @@
 // delta are [B, Hq, Sq] fp32. Optional segment ids [B, S] int32 (self
 // attention, Sq == Skv) restrict attention to equal ids.
 //
-// Design. The TPU kernels carry their accumulators in VMEM across a
+// Design, shared. The TPU kernels carry their accumulators in VMEM across a
 // sequential grid axis. Here a thread block owns its output tile and loops
 // itself: flash_fwd and flash_bwd_dq take one (b, q head, 64-row q tile) and
 // walk the kv tiles up to the causal limit (tiles wholly above the diagonal
 // are skipped, as _dispatch_tiles does); flash_bwd_dkv takes one (b, KV
-// head, 64-row kv tile) and walks every q head of its GQA group and every q
-// tile at or below the diagonal. Summing the group inside the block replaces
+// head, kv tile) and walks every q head of its GQA group and every q tile
+// at or below the diagonal. Summing the group inside the block replaces
 // the [B, Hq, S, D] temporaries and the reduction outside the TPU kernel
 // (flash_attention.py:1074-1078): each dk/dv row has one writer, so there are
-// no atomics and the result does not depend on scheduling. Tiles live in
-// shared memory as fp32 (rows padded to D + 1 floats, so the 16 threads of a
-// row group read 16 different banks); each of the 256 threads computes a
-// 4 x 4 block of the 64 x 64 score tile and owns 4 rows x D/16 columns of
-// the accumulators, so the softmax statistics of its rows stay in registers
-// and row reductions are 16-lane shuffles.
+// no atomics, and a rerun repeats every bit.
+//
+// Bound. At the training shapes (S 4096, D 128) attention does 4 S^2 Hq D
+// (forward, halved by the causal mask) and 2.5x that (backward) operations
+// against O(S Hq D) bytes, far above the card's ridge point: these kernels
+// are bound by operations, so what matters is that the products run on the
+// tensor cores and that the loads hide behind them.
+//
+// The forward (first design): tiles live in shared memory as fp32
+// (rows padded to D + 1 floats, so the 16 threads of a row group read 16
+// different banks), loaded synchronously; each of the 256 threads computes a
+// 4 x 4 block of the 64 x 64 score tile with fp32 FMAs on the CUDA cores and
+// owns 4 rows x D/16 columns of the accumulators, so the softmax statistics
+// of its rows stay in registers and row reductions are 16-lane shuffles.
+//
+// The backward pair (FlashAttention-2's shape, tensor_core.cuh): every
+// product is mma.sync m16n8k16 on bf16 operands with fp32 accumulators, fed
+// by ldmatrix from bf16 tiles in shared memory (rows padded to D + 8, so
+// ldmatrix is conflict-free). Each warp owns 16 output rows. Tiles arrive by
+// 16-byte cp.async into a ring of two stages (rows past Sq or Skv are
+// zero-filled by the copy's source size): the next tile's copies are issued
+// before this tile's products. Scores and dp stay in registers, and p and ds,
+// rounded to bf16, are reused directly as the A fragments of the next
+// product (a C tile pair is an A fragment), so neither touches shared memory.
+// - flash_bwd_dq: 4 warps, a 64-row q tile; q (scaled, rounded) and do stay
+//   resident, the ring holds k, v and the kv segment ids. dq += bf16(ds) . k;
+//   the scale is applied once in the epilogue. Blocks of the longest causal
+//   rows launch first, so they do not make up the last wave.
+// - flash_bwd_dkv: a kv tile of 128 rows at D 128 (8 warps; k, v resident;
+//   158 KB of shared memory, one block an SM) and of 64 rows at D 64 (4
+//   warps; 66 KB), each measured the faster; the ring holds q, do, lse,
+//   delta and the q segment ids over the flattened (head, q tile) walk. It
+//   computes the transposed scores S^T = k . bf16(q scale)^T and dP^T =
+//   v . do^T, so P^T and dS^T come out as A fragments: dv += bf16(p)^T . do,
+//   dk += bf16(ds)^T . q, times the scale in the epilogue. A warp skips the
+//   q tiles wholly above its rows.
+// Pairs are tested one by one only on diagonal, ragged-edge and segment
+// tiles; the rest are whole.
 //
 // Numerics kept from the TPU kernels: q is scaled in fp32 and rounded to
 // bf16 before QK; scores are fp32; the -1e30 sentinel, m_safe =
 // max(m_new, -5e29), corr = 0 while m_prev <= -5e29; P is rounded to bf16
 // before PV; acc, m and l are fp32; out = acc / max(l, 1e-20); lse =
 // max(m, -5e29) + log(max(l, 1e-20)) where l > 0, else -1e30, so fully
-// masked and padding rows give finite zeros. Backward: p = exp(s - lse),
-// dp = do . v, ds = p (dp - delta); dq += bf16(ds) . k, times the scale; dv
-// += p^T . do and dk += ds^T . (q scale) with p, ds, do and the scaled q in
-// fp32 (_bwd_dkv_kernel). Rows past Sq and Skv are zero and masked.
-//
-// Bound. At the training shapes (S 4096, D 128) attention does 4 S^2 Hq D
-// (forward, halved by the causal mask) and 2.5x that (backward) operations
-// against O(S Hq D) bytes, far above the card's ridge point: these kernels
-// are bound by operations. This first version is simple and right, not
-// fast: its products run as fp32 FMA on the CUDA cores (about 1/15 of the
-// bf16 tensor-core rate), fed from shared memory with synchronous loads. The
-// next steps are mma/wgmma for the products, cp.async or TMA double
-// buffering, and bf16 tiles in shared memory.
+// masked and padding rows give finite zeros. Backward: p = exp(s - lse) on
+// valid pairs only, dp = do . v, ds = p (dp - delta); dq = bf16(ds) . k
+// times the scale. One deliberate departure: the TPU's _bwd_dkv_kernel forms
+// dv and dk from fp32 p and ds (flash_attention.py:965-971); tensor cores take
+// bf16, so p and ds are rounded to bf16 before dv and dk (fp32 accumulation),
+// as every GPU flash backward does, and the plain version rounds the same
+// way. q and do enter dk and dv unrounded (they are bf16 inputs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
+// The forward's fp32 tiles (first design).
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;            // q rows per tile
 constexpr int kBK = 64;            // kv rows per tile
@@ -139,7 +168,7 @@ __device__ __forceinline__ bool is_valid(const Params& p, int r, int c, const in
 }
 
 // s[i][jj] = sum_d a[(tr*4+i), d] * b[(tc + 16*jj), d] over [64][D+1] tiles.
-template <int D, bool kRoundA>
+template <int D>
 __device__ __forceinline__ void tile_dot(float (&s)[kRPT][kCPT], const float* a, const float* b,
                                          int tr, int tc) {
   constexpr int LD = D + 1;
@@ -151,10 +180,7 @@ __device__ __forceinline__ void tile_dot(float (&s)[kRPT][kCPT], const float* a,
   for (int d = 0; d < D; ++d) {
     float x[kRPT], y[kCPT];
 #pragma unroll
-    for (int i = 0; i < kRPT; ++i) {
-      x[i] = a[(tr * kRPT + i) * LD + d];
-      if (kRoundA) x[i] = bf16_round(x[i]);
-    }
+    for (int i = 0; i < kRPT; ++i) x[i] = a[(tr * kRPT + i) * LD + d];
 #pragma unroll
     for (int j = 0; j < kCPT; ++j) y[j] = b[(tc + j * kTC) * LD + d];
 #pragma unroll
@@ -214,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     __syncthreads();
 
     float s[kRPT][kCPT];
-    tile_dot<D, false>(s, q_s, k_s, tr, tc);
+    tile_dot<D>(s, q_s, k_s, tr, tc);
     __syncthreads();               // K is read; its space takes P
 
     float corr[kRPT];
@@ -286,229 +312,354 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd_dq: grid (q tiles, Hq, B)
+// The backward pair: bf16 tiles, cp.async double buffering, mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDqThreads = 128;            // 4 warps x 16 q rows of a 64-row q tile
+
+// kv rows of a dk/dv block, one warp per 16: 128 at D 128 and 64 at D 64,
+// each the faster of the two on the card at its train shape.
+template <int D>
+__host__ __device__ constexpr int dkv_rows() { return D == 128 ? 128 : 64; }
+
+// Rows [row0, row0 + ROWS) of one head into dst [ROWS][D + 8] bf16 by
+// 16-byte cp.async; rows >= limit are filled with zeros by the copy.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void async_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long row_stride, int row0, int limit) {
+  constexpr int kChunks = D / 8, LD = D + 8;
+  static_assert(ROWS * kChunks % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = row0 + r < limit;
+    tc::cp_async_16(dst + r * LD + c, src + (long long)(in ? row0 + r : 0) * row_stride + c, in);
+  }
+}
+
+// 64 four-byte values [i0, i0 + 64) of a row (lse, delta or segment ids)
+// into dst; zeros past n.
+template <int NT>
+__device__ __forceinline__ void async_vec64(void* dst, const void* src, int i0, int n) {
+  for (int i = threadIdx.x; i < 64; i += NT) {
+    const bool in = i0 + i < n;
+    tc::cp_async_4(static_cast<uint32_t*>(dst) + i,
+                   static_cast<const uint32_t*>(src) + (in ? i0 + i : 0), in);
+  }
+}
+
+// dst = bf16(src * scale) in fp32 over a [64][D + 8] tile (dst may be src).
+template <int D, int NT>
+__device__ __forceinline__ void scale_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           float scale) {
+  constexpr int kChunks = D / 8, LD = D + 8;
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int off = (i / kChunks) * LD + (i % kChunks) * 8;
+    uint4 raw = *reinterpret_cast<const uint4*>(src + off);
+    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      w[j] = tc::pack_bf16(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(dst + off) = raw;
+  }
+}
+
+// C[16 x 64] = A[rows ar0.., D] . B[64, D]^T for one warp, both operands
+// [*][D + 8] bf16 tiles in shared memory (c[j]: columns 8j..8j+7).
+template <int D>
+__device__ __forceinline__ void dot_16x64(float (&c)[8][4], const __nv_bfloat16* a, int ar0,
+                                          const __nv_bfloat16* b, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t af[4];
+    tc::ldmatrix_x4(af, a + tc::a_off(lane, ar0, kk, LD));
+#pragma unroll
+    for (int n0 = 0; n0 < 64; n0 += 16) {
+      uint32_t bf[4];
+      tc::ldmatrix_x4(bf, b + tc::b_off(lane, n0, kk, LD));
+      tc::mma_bf16(c[n0 / 8], af, bf[0], bf[1]);
+      tc::mma_bf16(c[n0 / 8 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[16 x D] += X[16 x 64] . B[64, D] for one warp: X as four A fragments
+// in registers (tc::pack_a), B a [64][D + 8] tile read transposed.
+template <int D>
+__device__ __forceinline__ void acc_16xD(float (&acc)[D / 8][4], const uint32_t (&x)[4][4],
+                                         const __nv_bfloat16* b, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int n0 = 0; n0 < D; n0 += 16) {
+      uint32_t bf[4];
+      tc::ldmatrix_x4_trans(bf, b + tc::bt_off(lane, kc * 16, n0, LD));
+      tc::mma_bf16(acc[n0 / 8], x[kc], bf[0], bf[1]);
+      tc::mma_bf16(acc[n0 / 8 + 1], x[kc], bf[2], bf[3]);
+    }
+}
+
+// A warp's 16 accumulator rows, times mul and rounded to bf16, through its
+// own 16 rows of a staging tile (row stride D + 8) to global rows
+// [grow0, grow0 + 16) of stride gstride in 16-byte stores; rows >= limit
+// are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
+                                           __nv_bfloat16* stage, __nv_bfloat16* dst,
+                                           long long gstride, int grow0, int limit,
+                                           int lane) {
+  constexpr int LD = D + 8, kChunks = D / 8;
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + 8 * j + 2 * t) =
+        tc::pack_bf16(acc[j][0] * mul, acc[j][1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + 8 * j + 2 * t) =
+        tc::pack_bf16(acc[j][2] * mul, acc[j][3] * mul);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (grow0 + r < limit)
+      *reinterpret_cast<uint4*>(dst + (long long)(grow0 + r) * gstride + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq: grid (Hq, q tiles, B), 4 warps of 16 q rows
 // ---------------------------------------------------------------------------
 
 template <int D>
-size_t dq_smem() {
-  return (size_t)4 * 64 * (D + 1) * sizeof(float) + 4 * 64 * sizeof(int);
+size_t dq_smem() {   // q, do, and a ring of two (k, v, kv segment ids)
+  return (size_t)6 * 64 * (D + 8) * sizeof(__nv_bfloat16) + 2 * 64 * sizeof(int);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
-  constexpr int LD = D + 1;
-  constexpr int kDPT = D / kTC;
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(kDqThreads, 2) flash_bwd_dq_kernel(const Params p) {
+  constexpr int LD = D + 8, T = 64 * LD, NT = kDqThreads;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int iq = (p.sq + 63) / 64 - 1 - blockIdx.y;   // the longest causal rows first
   const int hk = h / (p.hq / p.hkv);
-  const int q0 = iq * kBQ;
-  const int tid = threadIdx.x, tr = tid / kTC, tc = tid % kTC;
+  const int q0 = iq * 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                 // bf16-rounded scaled q
-  float* do_s = q_s + 64 * LD;
-  float* k_s = do_s + 64 * LD;
-  float* v_s = k_s + 64 * LD;        // dS [64][kLP] after dP
-  int* qseg_s = reinterpret_cast<int*>(v_s + 64 * LD);
-  int* kseg_s = qseg_s + 64;
-  float* lse_s = reinterpret_cast<float*>(kseg_s + 64);
-  float* delta_s = lse_s + 64;
-  float* ds_s = v_s;
+  extern __shared__ uint4 dq_smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(dq_smem_raw);
+  __nv_bfloat16* do_s = q_s + T;
+  __nv_bfloat16* k_s = do_s + T;     // [2][64][LD]
+  __nv_bfloat16* v_s = k_s + 2 * T;  // [2][64][LD]
+  int* kseg_s = reinterpret_cast<int*>(v_s + 2 * T);   // [2][64]
 
-  load_tile<D>(q_s, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq, p.scale, true);
-  load_tile<D>(do_s, p.dout + b * p.dsb + h * p.dsh, p.dss, q0, p.sq, 1.f, false);
-  if (p.seg != nullptr) load_segs(qseg_s, p.seg, b, p.sq, q0);
-  for (int i = tid; i < 64; i += kThreads) {
-    const bool in = q0 + i < p.sq;
-    const long long row = ((long long)b * p.hq + h) * p.sq + q0 + i;
-    lse_s[i] = in ? p.lse_in[row] : 0.f;
-    delta_s[i] = in ? p.delta[row] : 0.f;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (long long)b * p.skv;
+  const __nv_bfloat16* kg = p.k + b * p.ksb + hk * p.ksh;
+  const __nv_bfloat16* vg = p.v + b * p.vsb + hk * p.vsh;
+  auto load_kv = [&](int jt, int st) {
+    async_rows<64, D, NT>(k_s + st * T, kg, p.kss, jt * 64, p.skv);
+    async_rows<64, D, NT>(v_s + st * T, vg, p.vss, jt * 64, p.skv);
+    if (seg != nullptr) async_vec64<NT>(kseg_s + st * 64, seg, jt * 64, p.skv);
+  };
+  async_rows<64, D, NT>(q_s, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq);
+  async_rows<64, D, NT>(do_s, p.dout + b * p.dsb + h * p.dsh, p.dss, q0, p.sq);
+  load_kv(0, 0);
+  tc::cp_async_commit();
+
+  // This lane's rows g and g + 8 of the warp's 16: lse (times log2 e),
+  // delta and segment id.
+  const int qw0 = q0 + warp * 16;
+  float lse2[2], dlt[2];
+  int qseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw0 + g + 8 * i;
+    const bool in = r < p.sq;
+    const long long row = ((long long)b * p.hq + h) * p.sq + r;
+    lse2[i] = in ? p.lse_in[row] * kLog2e : 0.f;
+    dlt[i] = in ? p.delta[row] : 0.f;
+    qseg[i] = seg != nullptr && in ? seg[r] : -1;
   }
+  int nk = (p.skv + 63) / 64;
+  if (p.causal) nk = min(nk, (q0 + 63) / 64 + 1);   // tiles with k0 <= the last q row
 
-  float acc[kRPT][kDPT];
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  // q scaled in fp32 and rounded to bf16 (flash_attention.py:198, :206).
+  scale_rows<D, NT>(q_s, q_s, p.scale);
+
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < kRPT; ++i)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < kDPT; ++j) acc[i][j] = 0.f;
-  int nk = (p.skv + kBK - 1) / kBK;
-  if (p.causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int jt = 0; jt < nk; ++jt) {
-    const int k0 = jt * kBK;
-    __syncthreads();
-    load_tile<D>(k_s, p.k + b * p.ksb + hk * p.ksh, p.kss, k0, p.skv, 1.f, false);
-    load_tile<D>(v_s, p.v + b * p.vsb + hk * p.vsh, p.vss, k0, p.skv, 1.f, false);
-    if (p.seg != nullptr) load_segs(kseg_s, p.seg, b, p.skv, k0);
-    __syncthreads();
-
-    float s[kRPT][kCPT], dp[kRPT][kCPT];
-    tile_dot<D, false>(s, q_s, k_s, tr, tc);
-    tile_dot<D, false>(dp, do_s, v_s, tr, tc);
-    __syncthreads();               // V is read; its space takes dS
-
+    const int st = jt & 1, k0 = jt * 64;
+    tc::cp_async_wait<0>();
+    __syncthreads();   // tile jt has landed; every warp is done with tile jt - 1
+    if (jt + 1 < nk) {
+      load_kv(jt + 1, st ^ 1);   // in flight during this tile's products
+      tc::cp_async_commit();
+    }
+    const __nv_bfloat16* kt = k_s + st * T;
+    float s[8][4], ds[8][4];
+    dot_16x64<D>(s, q_s, warp * 16, kt, lane);           // bf16(q scale) . k
+    dot_16x64<D>(ds, do_s, warp * 16, v_s + st * T, lane);   // dp = do . v
+    // Diagonal, ragged and segment tiles test each pair; the rest are whole.
+    const bool mask = seg != nullptr || k0 + 64 > p.skv || (p.causal && qw0 < k0 + 63);
 #pragma unroll
-    for (int i = 0; i < kRPT; ++i) {
-      const int rl = tr * kRPT + i;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kCPT; ++j) {
-        const int cl = tc + j * kTC;
-        float ds = 0.f;
-        if (is_valid(p, q0 + rl, k0 + cl, qseg_s, kseg_s, rl, cl)) {
-          const float pr = expf(s[i][j] - lse_s[rl]);
-          ds = pr * (dp[i][j] - delta_s[rl]);
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, cl = 8 * j + 2 * t + (e & 1);
+        float pr = tc::exp2_approx(fmaf(s[j][e], kLog2e, -lse2[i]));
+        if (mask) {
+          const int r = qw0 + g + 8 * i, c = k0 + cl;
+          bool ok = r < p.sq && c < p.skv && (!p.causal || r >= c);
+          if (seg != nullptr) ok = ok && qseg[i] == kseg_s[st * 64 + cl];
+          if (!ok) pr = 0.f;
         }
-        ds_s[rl * kLP + cl] = bf16_round(ds);   // ds.astype(k.dtype), :904
+        ds[j][e] = pr * (ds[j][e] - dlt[i]);
       }
-    }
-    __syncthreads();
-
-    float part[kRPT][kDPT];
+    uint32_t da[4][4];   // ds.astype(k.dtype) (:904), as A fragments
 #pragma unroll
-    for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kDPT; ++j) part[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float x[kRPT], y[kDPT];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i) x[i] = ds_s[(tr * kRPT + i) * kLP + c];
-#pragma unroll
-      for (int j = 0; j < kDPT; ++j) y[j] = k_s[c * LD + tc + j * kTC];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-        for (int j = 0; j < kDPT; ++j) part[i][j] = fmaf(x[i], y[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kDPT; ++j) acc[i][j] += part[i][j] * p.scale;
+    for (int kc = 0; kc < 4; ++kc) tc::pack_a(da[kc], ds[2 * kc], ds[2 * kc + 1]);
+    acc_16xD<D>(acc, da, kt, lane);                      // dq += bf16(ds) . k
   }
 
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i) {
-    const int r = q0 + tr * kRPT + i;
-    if (r >= p.sq) continue;
-    __nv_bfloat16* o = p.dq + (((long long)b * p.sq + r) * p.hq + h) * D;
-#pragma unroll
-    for (int j = 0; j < kDPT; ++j) o[tc + j * kTC] = __float2bfloat16(acc[i][j]);
-  }
+  // Each warp stages its own 16 rows of q_s, which only it reads.
+  store_rows<D>(acc, p.scale, q_s + warp * 16 * LD,
+                p.dq + ((long long)b * p.sq * p.hq + h) * D, (long long)p.hq * D, qw0, p.sq,
+                lane);
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd_dkv: grid (kv tiles, Hkv, B); the GQA group is summed in-block
+// flash_bwd_dkv: grid (Hkv, kv tiles, B), a warp per 16 kv rows; the GQA
+// group is summed in-block
 // ---------------------------------------------------------------------------
 
 template <int D>
-size_t dkv_smem() {
-  return (size_t)4 * 64 * (D + 1) * sizeof(float) + (size_t)2 * 64 * kLP * sizeof(float) +
-         4 * 64 * sizeof(int);
+size_t dkv_smem() {   // k, v; a ring of two (q, do, lse, delta, q segment ids); bf16(q scale)
+  return (size_t)(2 * dkv_rows<D>() + 5 * 64) * (D + 8) * sizeof(__nv_bfloat16) +
+         (size_t)3 * 2 * 64 * sizeof(float);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p) {
-  constexpr int LD = D + 1;
-  constexpr int kDPT = D / kTC;
-  const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(2 * dkv_rows<D>(), 1) flash_bwd_dkv_kernel(const Params p) {
+  constexpr int LD = D + 8, T = 64 * LD, ROWS = dkv_rows<D>(), NT = 2 * ROWS;
+  const int hk = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * ROWS;   // y = 0 first: the longest causal walk
   const int group = p.hq / p.hkv;
-  const int k0 = ik * kBK;
-  const int tid = threadIdx.x, tr = tid / kTC, tc = tid % kTC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + 64 * LD;
-  float* q_s = v_s + 64 * LD;        // scaled q, fp32 (rounded to bf16 for s)
-  float* do_s = q_s + 64 * LD;
-  float* p_s = do_s + 64 * LD;       // [64 q][kLP]
-  float* ds_s = p_s + 64 * kLP;      // [64 q][kLP]
-  int* qseg_s = reinterpret_cast<int*>(ds_s + 64 * kLP);
-  int* kseg_s = qseg_s + 64;
-  float* lse_s = reinterpret_cast<float*>(kseg_s + 64);
-  float* delta_s = lse_s + 64;
+  extern __shared__ uint4 dkv_smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(dkv_smem_raw);   // [ROWS][LD]
+  __nv_bfloat16* v_s = k_s + ROWS * LD;                                  // [ROWS][LD]
+  __nv_bfloat16* q_s = v_s + ROWS * LD;                                  // [2][64][LD]
+  __nv_bfloat16* do_s = q_s + 2 * T;                                     // [2][64][LD]
+  __nv_bfloat16* qs_s = do_s + 2 * T;                                    // [64][LD]
+  float* lse_s = reinterpret_cast<float*>(qs_s + T);                     // [2][64]
+  float* dlt_s = lse_s + 2 * 64;                                         // [2][64]
+  int* qseg_s = reinterpret_cast<int*>(dlt_s + 2 * 64);                  // [2][64]
 
-  load_tile<D>(k_s, p.k + b * p.ksb + hk * p.ksh, p.kss, k0, p.skv, 1.f, false);
-  load_tile<D>(v_s, p.v + b * p.vsb + hk * p.vsh, p.vss, k0, p.skv, 1.f, false);
-  if (p.seg != nullptr) load_segs(kseg_s, p.seg, b, p.skv, k0);
+  const int nq = (p.sq + 63) / 64;
+  const int iq0 = p.causal ? min(k0 / 64, nq) : 0;   // q tiles with a row >= k0
+  const int per_head = nq - iq0, steps = group * per_head;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (long long)b * p.skv;
 
-  float dk[kRPT][kDPT], dv[kRPT][kDPT];   // kv rows tr*4+i, columns tc+16j
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-    for (int j = 0; j < kDPT; ++j) dk[i][j] = dv[i][j] = 0.f;
-  const int nq = (p.sq + kBQ - 1) / kBQ;
-  const int iq0 = p.causal ? k0 / kBQ : 0;   // q tiles with a row >= k0
+  // Step i of the walk: q head hk * group + i / per_head, q tile iq0 + i % per_head.
+  auto load_q = [&](int i, int st) {
+    const int h = hk * group + i / per_head, q0 = (iq0 + i % per_head) * 64;
+    async_rows<64, D, NT>(q_s + st * T, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq);
+    async_rows<64, D, NT>(do_s + st * T, p.dout + b * p.dsb + h * p.dsh, p.dss, q0, p.sq);
+    const long long row = ((long long)b * p.hq + h) * p.sq;
+    async_vec64<NT>(lse_s + st * 64, p.lse_in + row, q0, p.sq);
+    async_vec64<NT>(dlt_s + st * 64, p.delta + row, q0, p.sq);
+    if (seg != nullptr) async_vec64<NT>(qseg_s + st * 64, seg, q0, p.sq);
+  };
+  async_rows<ROWS, D, NT>(k_s, p.k + b * p.ksb + hk * p.ksh, p.kss, k0, p.skv);
+  async_rows<ROWS, D, NT>(v_s, p.v + b * p.vsb + hk * p.vsh, p.vss, k0, p.skv);
+  if (steps > 0) load_q(0, 0);
+  tc::cp_async_commit();
 
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    for (int iq = iq0; iq < nq; ++iq) {
-      const int q0 = iq * kBQ;
-      __syncthreads();
-      load_tile<D>(q_s, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq, p.scale, false);
-      load_tile<D>(do_s, p.dout + b * p.dsb + h * p.dsh, p.dss, q0, p.sq, 1.f, false);
-      if (p.seg != nullptr) load_segs(qseg_s, p.seg, b, p.sq, q0);
-      for (int i = tid; i < 64; i += kThreads) {
-        const bool in = q0 + i < p.sq;
-        const long long row = ((long long)b * p.hq + h) * p.sq + q0 + i;
-        lse_s[i] = in ? p.lse_in[row] : 0.f;
-        delta_s[i] = in ? p.delta[row] : 0.f;
-      }
-      __syncthreads();
+  const int kw0 = k0 + warp * 16;   // this warp's kv rows
+  int kseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = kw0 + g + 8 * i;
+    kseg[i] = seg != nullptr && r < p.skv ? seg[r] : -1;
+  }
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
-      float s[kRPT][kCPT], dp[kRPT][kCPT];
-      tile_dot<D, true>(s, q_s, k_s, tr, tc);    // q.astype(k.dtype) . k
-      tile_dot<D, false>(dp, do_s, v_s, tr, tc);
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i) {
-        const int rl = tr * kRPT + i;
-#pragma unroll
-        for (int j = 0; j < kCPT; ++j) {
-          const int cl = tc + j * kTC;
-          float pr = 0.f, ds = 0.f;
-          if (is_valid(p, q0 + rl, k0 + cl, qseg_s, kseg_s, rl, cl)) {
-            pr = expf(s[i][j] - lse_s[rl]);
-            ds = pr * (dp[i][j] - delta_s[rl]);
-          }
-          p_s[rl * kLP + cl] = pr;
-          ds_s[rl * kLP + cl] = ds;
-        }
-      }
-      __syncthreads();
-
-      // dv += p^T . do ; dk += ds^T . (q scale), all fp32 (:965-971).
-#pragma unroll 2
-      for (int r = 0; r < kBQ; ++r) {
-        float pa[kRPT], da[kRPT], x[kDPT], y[kDPT];
-#pragma unroll
-        for (int i = 0; i < kRPT; ++i) {
-          pa[i] = p_s[r * kLP + tr * kRPT + i];
-          da[i] = ds_s[r * kLP + tr * kRPT + i];
-        }
-#pragma unroll
-        for (int j = 0; j < kDPT; ++j) {
-          x[j] = do_s[r * LD + tc + j * kTC];
-          y[j] = q_s[r * LD + tc + j * kTC];
-        }
-#pragma unroll
-        for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-          for (int j = 0; j < kDPT; ++j) {
-            dv[i][j] = fmaf(pa[i], x[j], dv[i][j]);
-            dk[i][j] = fmaf(da[i], y[j], dk[i][j]);
-          }
-      }
+  for (int i = 0; i < steps; ++i) {
+    const int st = i & 1, q0 = (iq0 + i % per_head) * 64;
+    tc::cp_async_wait<0>();
+    __syncthreads();   // step i has landed; every warp is done with step i - 1
+    if (i + 1 < steps) {
+      load_q(i + 1, st ^ 1);   // in flight during this step's products
+      tc::cp_async_commit();
     }
+    // S^T needs bf16(q scale) (as the forward's scores); dK takes q itself.
+    scale_rows<D, NT>(qs_s, q_s + st * T, p.scale);
+    __syncthreads();
+    if (kw0 >= p.skv || (p.causal && kw0 > q0 + 63)) continue;   // no valid pair
+    const __nv_bfloat16* dot = do_s + st * T;
+    float s[8][4], dp[8][4];   // transposed: rows kv, columns q
+    dot_16x64<D>(s, k_s, warp * 16, qs_s, lane);
+    dot_16x64<D>(dp, v_s, warp * 16, dot, lane);
+    const bool mask = seg != nullptr || q0 + 64 > p.sq || kw0 + 16 > p.skv ||
+                      (p.causal && q0 < kw0 + 15);
+    const float* lse = lse_s + st * 64;
+    const float* dlt = dlt_s + st * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, cl = 8 * j + 2 * t + (e & 1);
+        float pr = tc::exp2_approx(fmaf(s[j][e], kLog2e, -lse[cl] * kLog2e));
+        if (mask) {
+          const int kr = kw0 + g + 8 * r, c = q0 + cl;
+          bool ok = c < p.sq && kr < p.skv && (!p.causal || c >= kr);
+          if (seg != nullptr) ok = ok && kseg[r] == qseg_s[st * 64 + cl];
+          if (!ok) pr = 0.f;
+        }
+        s[j][e] = pr;
+        dp[j][e] = pr * (dp[j][e] - dlt[cl]);
+      }
+    // P^T and dS^T rounded to bf16 as A fragments: dv += p^T . do and
+    // dk += ds^T . q (times the scale at the end).
+    uint32_t xa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) tc::pack_a(xa[kc], s[2 * kc], s[2 * kc + 1]);
+    acc_16xD<D>(dv, xa, dot, lane);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) tc::pack_a(xa[kc], dp[2 * kc], dp[2 * kc + 1]);
+    acc_16xD<D>(dk, xa, q_s + st * T, lane);
   }
 
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i) {
-    const int c = k0 + tr * kRPT + i;
-    if (c >= p.skv) continue;
-    const long long base = (((long long)b * p.skv + c) * p.hkv + hk) * D;
-#pragma unroll
-    for (int j = 0; j < kDPT; ++j) {
-      p.dk[base + tc + j * kTC] = __float2bfloat16(dk[i][j]);
-      p.dv[base + tc + j * kTC] = __float2bfloat16(dv[i][j]);
-    }
-  }
+  // Each warp stages its own 16 rows of k_s and v_s, which only it reads.
+  const long long obase = ((long long)b * p.skv * p.hkv + hk) * D;
+  store_rows<D>(dk, p.scale, k_s + warp * 16 * LD, p.dk + obase, (long long)p.hkv * D, kw0,
+                p.skv, lane);
+  store_rows<D>(dv, 1.f, v_s + warp * 16 * LD, p.dv + obase, (long long)p.hkv * D, kw0,
+                p.skv, lane);
 }
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -518,23 +669,28 @@ int launch(int which, const Params& p, int batch, cudaStream_t stream) {
   void (*kernel)(Params);
   size_t smem;
   dim3 grid;
+  int threads;
   if (which == kFwd) {
     kernel = flash_fwd_kernel<D>;
     smem = fwd_smem<D>();
     grid = dim3((p.sq + kBQ - 1) / kBQ, p.hq, batch);
+    threads = kThreads;
   } else if (which == kDq) {
     kernel = flash_bwd_dq_kernel<D>;
     smem = dq_smem<D>();
-    grid = dim3((p.sq + kBQ - 1) / kBQ, p.hq, batch);
+    grid = dim3(p.hq, (p.sq + 63) / 64, batch);
+    threads = kDqThreads;
   } else {
     kernel = flash_bwd_dkv_kernel<D>;
     smem = dkv_smem<D>();
-    grid = dim3((p.skv + kBK - 1) / kBK, p.hkv, batch);
+    grid = dim3(p.hkv, (p.skv + dkv_rows<D>() - 1) / dkv_rows<D>(), batch);
+    threads = 2 * dkv_rows<D>();
   }
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

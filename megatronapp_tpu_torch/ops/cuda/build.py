@@ -1,8 +1,9 @@
 """The nvcc build shared by every kernel source of the port.
 
 Each source under ``csrc/`` compiles with nvcc (sm_90a, plain C interface)
-into ``build/kernels/<stem>-<hash>.so``, where the hash covers the source
-and the flags: an edited source builds anew, an unchanged one is reused.
+into ``build/kernels/<stem>-<hash>.so``, where the hash covers the source,
+every header under ``csrc/`` (a source may include any of them) and the
+flags: an edited source or header builds anew, an unchanged one is reused.
 The library is written under a temporary name and renamed into place, so
 a reader never loads a half-written file. nvcc's output (the ptxas
 register, shared-memory and spill lines) is kept and returned.
@@ -47,9 +48,18 @@ def _nvcc() -> str:
     return path
 
 
+HEADER_SUFFIXES = (".cuh", ".h")
+
+
 def library_path(src: str) -> str:
+    digest = hashlib.sha1()
     with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest.update(f.read())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith(HEADER_SUFFIXES):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                digest.update(name.encode() + b"\0" + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
 

@@ -10,15 +10,20 @@ The kernels (csrc/flash_attention.cu) replace the TPU kernels of
 - ``flash_bwd_dkv`` ← their dk/dv kernels, with the GQA group summed
   inside the block.
 
-At the training shapes they are bound by operations; the source note
-says what the design does about that.
+At the training shapes they are bound by operations. The forward runs
+its products as fp32 FMAs on the CUDA cores (its first design); the
+backward pair runs every product on the tensor cores (``mma.sync`` on
+bf16 tiles that ``cp.async`` loads ahead of use) and so rounds p and ds
+to bf16 before dv and dk, where the TPU kernel keeps them fp32. The
+source note (csrc/flash_attention.cu) gives the designs.
 
 ``flash_forward`` and ``flash_backward`` take the plain versions only for
 tensors that lie on the CPU. For CUDA tensors they launch the kernels or
 raise: there is no fallback. The plain versions compute the same
 functions densely, from the LSE (the FlashAttention-2 recipe), with the
-kernels' roundings to the input dtype, so that bf16 inputs give what the
-kernels give up to summation order.
+kernels' roundings to the input dtype (q times the scale, P before PV,
+p and ds before dv and dk), so that bf16 inputs give what the kernels
+give up to summation order.
 
 Layouts: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] (any batch, sequence and
 head strides; the head dim contiguous), lse and delta [B, Hq, Sq] fp32,
@@ -128,13 +133,15 @@ def flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal: bool = True,
                         softmax_scale: Optional[float] = None,
                         segment_ids=None):
     """Plain version of flash_bwd_dkv → (dk, dv) [B, Skv, Hkv, D]:
-    ds^T · (q scale) and p^T · g in fp32, summed over the GQA group."""
+    ds^T · (q scale) and p^T · g summed over the GQA group, with p and ds
+    rounded to the input dtype first, as the kernel rounds its tensor-core
+    operands (a no-op for fp32 inputs; the TPU kernel keeps them fp32)."""
     b, _, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     p, ds, qs, _ = _plain_ds(q, k, v, g, lse, delta, causal, softmax_scale,
                              segment_ids)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, g.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(k.dtype).float(), qs)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), g.float())
     dk = dk.reshape(b, skv, hkv, hq // hkv, d).sum(dim=3)
     dv = dv.reshape(b, skv, hkv, hq // hkv, d).sum(dim=3)
     return dk.to(k.dtype), dv.to(v.dtype)

@@ -130,6 +130,43 @@ def test_bf16_plain_rounds_like_the_kernel():
     assert float((lse_b - lse_f).abs().max()) < 0.05
 
 
+def test_bf16_plain_backward_rounds_like_the_kernel():
+    """The plain dk/dv rounds p and ds to the input dtype before dv and dk,
+    as the kernel rounds its tensor-core operands: on bf16 inputs dk and dv
+    are the fp32 products of the bf16-rounded p and ds, and differ from the
+    computation on fp32 copies of the inputs by bf16 rounding only; on fp32
+    inputs the rounding is a no-op, so dk and dv are bit-identical to the
+    fp32 products of p and ds (the TPU kernel's, flash_attention.py:965)."""
+    b, s, hq, hkv, d = 1, 48, 4, 2, 64
+    q, k, v, g, _ = _inputs(7, b, s, hq, hkv, d)
+
+    def group_sum(x, y):   # [B, Hq, Sq, Skv] . [B, Sq, Hq, D] → [B, Skv, Hkv, D]
+        out = torch.einsum("bhqk,bqhd->bkhd", x, y)
+        return out.reshape(b, s, hkv, hq // hkv, d).sum(dim=3)
+
+    grads = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tq, tk, tv, tg = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
+        if dtype == torch.float32:   # the bf16 inputs' values, in fp32
+            tq, tk, tv, tg = (x.bfloat16().float() for x in (tq, tk, tv, tg))
+        out, lse = cuda_fa.flash_forward_plain(tq, tk, tv, causal=True)
+        args = (tq, tk, tv, tg, lse, cuda_fa.attention_delta(out, tg), True)
+        dk, dv = cuda_fa.flash_bwd_dkv_plain(*args)
+        p, ds, qs, _ = cuda_fa._plain_ds(*args, None, None)
+        assert dk.dtype == dv.dtype == dtype
+        if dtype == torch.bfloat16:
+            assert torch.equal(dk, group_sum(ds.bfloat16().float(),
+                                             qs).bfloat16())
+            assert torch.equal(dv, group_sum(p.bfloat16().float(),
+                                             tg.float()).bfloat16())
+        else:
+            assert torch.equal(dk, group_sum(ds, qs))
+            assert torch.equal(dv, group_sum(p, tg))
+        grads[dtype] = (dk, dv)
+    for got, want in zip(grads[torch.bfloat16], grads[torch.float32]):
+        assert float((got.float() - want).norm() / want.norm()) < 0.02
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_dense_attention_matches_jax(masked):
     rng = np.random.default_rng(5)

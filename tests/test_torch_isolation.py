@@ -227,13 +227,16 @@ def test_cuda_tensors_launch_the_kernel(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,hq,hkv,s,causal,segments", [
-    (128, 8, 2, 200, True, False), (64, 4, 4, 130, False, True)])
+    (128, 8, 2, 200, True, False), (64, 4, 4, 130, False, True),
+    (128, 8, 2, 1000, True, False)])
 def test_flash_kernels_match_plain_versions(d, hq, hkv, s, causal,
                                             segments):
     """bf16 kernels (one launch each) against the plain versions: on the
     same bf16 inputs, fed the kernels' own LSE and delta, each element
     within 0.06 of max(its row's RMS, its head's RMS); against fp32, each
-    gradient within 0.02 of its head's norm (chip_smoke.py argues both)."""
+    gradient within 0.02 of its head's norm (chip_smoke.py argues both).
+    A second backward on the same inputs repeats every bit (one writer per
+    element, a fixed order of sums)."""
     from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -249,6 +252,9 @@ def test_flash_kernels_match_plain_versions(d, hq, hkv, s, causal,
     torch.cuda.synchronize()
     assert {n: fa.launches[n] - before[n] for n in before} == {
         "fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    rerun = fa.flash_backward(q, k, v, out, lse, go, causal, None, seg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, rerun))
     same = fa.flash_backward_plain(q, k, v, go, lse,
                                    fa.attention_delta(out, go), causal,
                                    None, seg)
