@@ -8,9 +8,12 @@ Phases, each printing one JSON line:
 1. device:  the card (nvidia-smi name and power limit) and the kernel
             builds from the sources in the checkout (one nvcc per source,
             started together; sm_90a).
-2. kernels: the paged-attention kernel against its plain PyTorch version
-            on the card, decode and ragged modes, at llama3-8b attention
-            shapes and one gpt2-125m (MHA, D=64) shape.
+2. kernels: the bf16-pool paged-attention kernel (split KV) against its
+            plain PyTorch version on the card, decode and ragged modes, at
+            llama3-8b attention shapes (block sizes 16, 64 and 8; short
+            slots in a 2048-position table, so more splits than pages; a
+            B 1 chunk at kv 2047 across several splits) and one gpt2-125m
+            (MHA, D=64) shape; each rerun repeats every bit.
 3. reference: a tiny llama-shaped model's chunked-prefill logits on the
             card (bf16, kernel) against the same weights on the CPU
             (fp32, plain versions).
@@ -58,7 +61,8 @@ Phases, each printing one JSON line:
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
             bidirectional), a ragged S, packed segments and head_fold;
-            each backward rerun on the same inputs repeats every bit.
+            each forward and backward rerun on the same inputs repeats
+            every bit.
 5. train_reference: one train step (2 microbatches) of a 2-layer
             llama-shaped model on the card (bf16, kernels) against the
             CPU (fp32, plain versions) from the same weights.
@@ -70,7 +74,8 @@ Phases, each printing one JSON line:
             time by kernel family.
    train_gpt2: pretrain_gpt on gpt2-125m (full depth, D 64) with
             --attention-impl pallas --flash-head-fold, S 1024, 3 steps:
-            the flash kernels at D 64 on a train path.
+            the flash kernels at D 64 on a train path; two profiled
+            steps' device time by kernel family.
 7. serve:   llama3-8b at full width (random bf16 weights from a seed) behind
             the continuous-batching driver: 8 concurrent greedy requests,
             checked for length, vocabulary, launch counts, a prefix-cache
@@ -120,14 +125,15 @@ Phases, each printing one JSON line:
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
             slots at kv ~1024; then the LoRA engines and the MLA engines
-            (unfused and fused).
+            (unfused and fused). The paged families' device time is also
+            given per wrapper call, with the kernels a call launches.
 9. times:   each kernel and variant, its plain version, one PyTorch call
             computing the same function (for the segmented LoRA delta,
             which no one call computes, two torch.bmm on factors gathered
             in advance; for the latent kernel SDPA on rows gathered in
             advance and the w_v einsum; for the MLA prologue the GEMM
             alone) and the card's bound, at the shapes the main paths
-            launch.
+            launch (the bf16 paged rows with their kv split count).
    tp_times: rows 8 and 9 on one rank's latent columns at serve_tp's
             shapes (decode B 8 and a 32-token chunk, kv 1024, bf16, int8
             and fp8 pools): kernel, plain, library (torch.bmm on gathered
@@ -382,13 +388,15 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def make_case(gen, dev, *, batch, hq, hkv, d, bs, kv_lens, s_q=None,
-              q_lens=None, pool_bytes=0):
+              q_lens=None, pool_bytes=0, capacity=0):
     """Random bf16 q, one K/V pool and R disjoint shuffled page tables
     [R, B, MB] into it ("table" is the first). R is 1 unless pool_bytes
     asks for more: timing loops then rotate through tables whose K/V
     together exceed the L2 cache, so each launch finds its pages cold, as
-    a step does moving from layer to layer."""
-    mb = max(math.ceil(n / bs) for n in kv_lens)
+    a step does moving from layer to layer. MB covers the longest kv_len,
+    or `capacity` positions when that is more (an engine's table covers
+    max_seq_len)."""
+    mb = max(math.ceil(n / bs) for n in list(kv_lens) + [capacity])
     per_table = batch * mb
     block_bytes = 2 * bs * hkv * d * 2                  # K and V, bf16
     r = max(1, math.ceil(pool_bytes / (per_table * block_bytes)))
@@ -470,13 +478,19 @@ def phase_device(state):
 
 
 def _compare(case, mode):
-    """Kernel vs fp32 plain version; returns (max abs error, max error
-    over the (row, head)'s output RMS)."""
+    """Kernel vs fp32 plain version, and a rerun on the same inputs bit
+    for bit; returns (max abs error, max error over the (row, head)'s
+    output RMS, the launch's kv split count)."""
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     ql = case.get("q_lens")
-    out = pa.paged_attention(case["q"], case["k"], case["v"],
-                             case["table"], case["kv_lens"], q_lens=ql)
+
+    def kernel():
+        return pa.paged_attention(case["q"], case["k"], case["v"],
+                                  case["table"], case["kv_lens"], q_lens=ql)
+    out, again = kernel(), kernel()
     torch.cuda.synchronize()
+    check(torch.equal(out, again),
+          f"{mode}: a rerun on the same inputs changed the output")
     ref = pa.paged_attention_plain(
         case["q"].float(), case["k"].float(), case["v"].float(),
         case["table"], case["kv_lens"], q_lens=ql)
@@ -497,7 +511,8 @@ def _compare(case, mode):
     check(max_rel <= REL_TOL,
           f"{mode}: error {max_rel} of a (row, head)'s output RMS exceeds "
           f"{REL_TOL} (max abs err {max_err})")
-    return max_err, max_rel
+    return max_err, max_rel, pa.launch_split_count(case["q"], case["k"],
+                                                   case["table"])
 
 
 def phase_kernels(state):
@@ -528,14 +543,37 @@ def phase_kernels(state):
         gen, dev, batch=4, hq=12, hkv=12, d=64, bs=16,
         kv_lens=[5, 40, 500, 1024], s_q=32, q_lens=[5, 32, 1, 20]),
         "ragged gpt2-125m")
+    # Block sizes 64 and 8 (one kv tile is one page, or eight).
+    results["decode_llama_bs64"] = _compare(make_case(
+        gen, dev, batch=8, hq=32, hkv=8, d=128, bs=64, kv_lens=lens),
+        "decode llama3-8b bs 64")
+    results["ragged_llama_bs8"] = _compare(make_case(
+        gen, dev, batch=8, hq=32, hkv=8, d=128, bs=8, kv_lens=rag_kv,
+        s_q=32, q_lens=q_lens), "ragged llama3-8b bs 8")
+    # An engine-wide table (max_seq_len 2048): more splits than the short
+    # slots have pages, and whole splits past their kv_len.
+    results["decode_llama_capacity2048"] = _compare(make_case(
+        gen, dev, batch=8, hq=32, hkv=8, d=128, bs=16,
+        kv_lens=[1, 3, 16, 17, 33, 64, 65, 100], capacity=2048),
+        "decode llama3-8b, short slots in a table of 2048")
+    results["ragged_llama_b1_capacity2048"] = _compare(make_case(
+        gen, dev, batch=1, hq=32, hkv=8, d=128, bs=16, kv_lens=[40],
+        s_q=32, q_lens=[32], capacity=2048), "ragged llama3-8b B=1, kv 40 "
+        "of 2048")
+    # The longest chunk rows cross several splits.
+    results["ragged_llama_b1_kv2047"] = _compare(make_case(
+        gen, dev, batch=1, hq=32, hkv=8, d=128, bs=16, kv_lens=[2047],
+        s_q=32, q_lens=[32]), "ragged llama3-8b B=1 kv 2047")
     # These comparison launches are not main-path launches.
     pa.launches.update(before)
     state["max_abs_err"] = {
         mode: max(v[0] for k, v in results.items() if k.startswith(mode))
         for mode in ("decode", "ragged")}
     emit({"phase": "kernels", "rel_tol": REL_TOL,
+          "rerun_bit_identical": True,
           "max_abs_err": {k: v[0] for k, v in results.items()},
-          "max_err_over_row_rms": {k: v[1] for k, v in results.items()}})
+          "max_err_over_row_rms": {k: v[1] for k, v in results.items()},
+          "kv_splits": {k: v[2] for k, v in results.items()}})
 
 
 def quantize_case(case, kind):
@@ -3245,18 +3283,25 @@ def _family(name: str) -> str:
 
 
 def _device_profile(fn, units: int, families=FAMILIES,
-                    family=None, top_kernels: int = 0) -> dict:
+                    family=None, top_kernels: int = 0,
+                    calls=None) -> dict:
     """fn() under torch.profiler (device activity only): the window's
     wall time, device busy time and idle share, and device time and
-    kernel count by kernel family, in all and per unit (chunk or step)."""
+    kernel count by kernel family, in all and per unit (chunk or step).
+    calls {family: a function giving its wrapper's launch count}: the
+    family's device time per wrapper call and kernels per call (a call
+    may launch more than one kernel)."""
     from torch.profiler import ProfilerActivity, profile
     family = family or _family
+    calls = calls or {}
     torch.cuda.synchronize()
+    calls0 = {fam: f() for fam, f in calls.items()}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    n_calls = {fam: f() - calls0[fam] for fam, f in calls.items()}
     ms = dict.fromkeys(families, 0.0)
     n = dict.fromkeys(families, 0)
     by_name = {}
@@ -3280,9 +3325,10 @@ def _device_profile(fn, units: int, families=FAMILIES,
     if top:
         out["top_kernels_ms_per_unit"] = [[name[:90], t / units]
                                           for name, t in top]
-    for fam in ("paged_attention", "paged_latent"):
-        if fam in families:
-            out[f"{fam}_ms_per_launch"] = ms[fam] / n[fam] if n[fam] else None
+    for fam, c in n_calls.items():
+        out[f"{fam}_calls"] = c
+        out[f"{fam}_ms_per_launch"] = ms[fam] / c if c else None
+        out[f"{fam}_kernels_per_call"] = n[fam] / c if c else None
     return out
 
 
@@ -3307,10 +3353,14 @@ def _profile_engine(params, cfg, dev, fused, kv_cache_dtype="bf16",
         np.int32) for _ in range(8)]
     greedy = SamplingParams(greedy=True)
 
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    calls = {"paged_attention": lambda: sum(pa.launches.values()),
+             "paged_latent": lambda: sum(pl.launches.values())}
     engine.add_request(prompts[0], 64, greedy, adapter_id=route[0])
     chunks0 = engine.prefill_chunks
     prefill = _device_profile(engine.step, math.ceil(prompt_len / chunk),
-                              top_kernels=8)
+                              top_kernels=8, calls=calls)
     check(engine.prefill_chunks - chunks0 == prefill["units"],
           "profile: the prefill window ran another number of chunks")
     for p, a in zip(prompts[1:], route[1:]):
@@ -3321,7 +3371,7 @@ def _profile_engine(params, cfg, dev, fused, kv_cache_dtype="bf16",
           "profile: not every slot is decoding")
     steps0 = engine.decode_steps
     decode = _device_profile(lambda: [engine.step() for _ in range(steps)],
-                             steps, top_kernels=8)
+                             steps, top_kernels=8, calls=calls)
     check(engine.decode_steps - steps0 == steps,
           "profile: the decode window ran another number of steps")
     kv_after = [int(x) for x in engine.lengths]
@@ -3440,12 +3490,14 @@ def _time_case(case, hq, hkv, d, bs):
                                  **kw)
 
     lib = _sdpa_call(case, hq, hkv, nxt)
-    # plain, kernel, kernel, plain: compare within one card and call.
+    # plain, kernel, kernel, plain: compare within one card and call. The
+    # kernel and the library call run for less than a call's host time, so
+    # their calls are queued behind a sleep (device_ms).
     p1 = cuda_time_ms(plain, iters=10)
-    k1 = cuda_time_ms(kernel)
-    k2 = cuda_time_ms(kernel)
+    k1 = device_ms(kernel)
+    k2 = device_ms(kernel)
     p2 = cuda_time_ms(plain, iters=10)
-    lib_ms = cuda_time_ms(lib)
+    lib_ms = device_ms(lib)
     nbytes = kv_bytes(case, d, hkv)
     flops = attention_flops(case, hq, d)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3459,6 +3511,8 @@ def _time_case(case, hq, hkv, d, bs):
                       "kv_len": int(case["kv_lens"][0]), "hq": hq,
                       "hkv": hkv, "d": d, "block_size": bs,
                       "s_q": 1 if ql is None else case["q"].shape[1]},
+            "kv_splits": (None if kw else pa.launch_split_count(
+                case["q"], case["k"], case["table"])),
             "page_tables_rotated": tables.shape[0]}
 
 
@@ -3773,14 +3827,20 @@ def _errs(got, ref, grad: bool):
 
 def _flash_case(name, q, k, v, g, seg, causal, head_fold=False):
     """The three kernels on bf16 inputs against the plain versions (see
-    the tolerances above), and the backward run twice on the same inputs:
-    each dq, dk and dv element has one writer and a fixed order of sums,
-    so the rerun must repeat every bit. head_fold goes through the
-    autograd Function with flash_head_fold set (the model's path); the
-    rest call the wrappers."""
+    the tolerances above), and the forward and the backward each run twice
+    on the same inputs: each out, lse, dq, dk and dv element has one
+    writer and a fixed order of sums, so the rerun must repeat every bit.
+    head_fold goes through the autograd Function with flash_head_fold set
+    (the model's path); the rest call the wrappers."""
     from megatronapp_tpu_torch.ops import flash_attention as ofa
     from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
     out, lse = fa.flash_forward(q, k, v, causal, None, seg)
+    out2, lse2 = fa.flash_forward(q, k, v, causal, None, seg)
+    torch.cuda.synchronize()
+    check(torch.equal(out, out2) and torch.equal(lse, lse2),
+          f"train_kernels {name}: a rerun of the forward on the same inputs "
+          "changed out or lse")
+    del out2, lse2
 
     def backward():
         if not head_fold:
@@ -4051,13 +4111,22 @@ def phase_train_gpt2(state):
     embeddings) as a user runs it with --attention-impl pallas
     --flash-head-fold: S 1024, global batch 8 of micro-batches of 4, 3
     steps, which runs the flash kernels at D 64 (the TPU kernels' D < 128
-    and head-fold variants) on a train path."""
+    and head-fold variants) on a train path; then two profiled steps'
+    device time by kernel family (host-clock steps of this small model
+    spread wider than a kernel's gain)."""
     from megatronapp_tpu_torch.config.training_config import (
         OptimizerConfig, TrainingConfig,
     )
+    from megatronapp_tpu_torch.data.mock import mock_batches
     from megatronapp_tpu_torch.models.presets import gpt2_125m
     from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
-    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    from megatronapp_tpu_torch.training.optimizer import Optimizer
+    from megatronapp_tpu_torch.training.train import (
+        gpt_microbatch_loss, pretrain_gpt, reshape_global_batch,
+    )
+    from megatronapp_tpu_torch.training.train_step import (
+        make_train_step, to_device_batch,
+    )
     from megatronapp_tpu_torch.utils.flops import flops_per_token
     dev = torch.device("cuda", 0)
     cfg = gpt2_125m(attention_impl="pallas", flash_head_fold=True)
@@ -4070,6 +4139,17 @@ def phase_train_gpt2(state):
         train_iters=steps, log_interval=1, seed=1234), OptimizerConfig(),
         device=dev, log_fn=lines.append)
     launches = dict(fa.launches)
+    # Beyond the main path (not counted there): two profiled steps.
+    batch = next(mock_batches(seq, cfg.vocab_size, gbs, seed=99))
+    batch = to_device_batch(reshape_global_batch(
+        {k: batch[k] for k in ("tokens", "labels", "loss_mask")},
+        gbs // micro), dev)
+    step_fn = make_train_step(gpt_microbatch_loss(cfg),
+                              Optimizer(OptimizerConfig(), steps + 6))
+    step_fn(res.state, batch)
+    prof = _device_profile(lambda: [step_fn(res.state, batch)
+                                    for _ in range(2)], 2,
+                           TRAIN_FAMILIES, _train_family, top_kernels=10)
     fa.launches.update({k: 0 for k in fa.launches})
     losses = [m["loss"] for m in res.log]
     expected0 = math.log(cfg.vocab_size) + (
@@ -4077,7 +4157,7 @@ def phase_train_gpt2(state):
     step_ms = [m["step_time_ms"] for m in res.log[1:]]
     tok_s = gbs * seq / (sum(step_ms) / len(step_ms) / 1e3)
     state["train_gpt2_launches"] = launches
-    del res
+    del res, batch, step_fn
     torch.cuda.empty_cache()
     emit({"phase": "train_gpt2", "model": "gpt2-125m",
           "layers": cfg.num_layers, "seq_length": seq,
@@ -4086,7 +4166,8 @@ def phase_train_gpt2(state):
           "flash_head_fold": True, "losses": losses,
           "expected_first_loss": expected0, "log": lines,
           "launches": launches, "step_ms": step_ms, "tokens_per_s": tok_s,
-          "mfu": tok_s * flops_per_token(cfg, seq) / BF16_FLOPS_PER_S})
+          "mfu": tok_s * flops_per_token(cfg, seq) / BF16_FLOPS_PER_S,
+          "profiled_steps": prof})
     check(all(math.isfinite(x) for x in losses),
           f"train_gpt2: non-finite loss in {losses}")
     check(abs(losses[0] - expected0) < 0.5,
@@ -4161,15 +4242,17 @@ def _flash_time_shape(b, s, hq, hkv, d):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
 
-    lib_fwd = cuda_time_ms(sdpa_fwd, iters=10)
-    lib_bwd = cuda_time_ms(sdpa_bwd, iters=10)
-    lib_fwd_bwd = cuda_time_ms(sdpa_fwd_bwd, iters=10)
+    # Kernels and library calls queued behind a sleep (device_ms): at the
+    # D 64 shape a call runs for less than its host time.
+    lib_fwd = device_ms(sdpa_fwd, calls=10)
+    lib_bwd = device_ms(sdpa_bwd, calls=10)
+    lib_fwd_bwd = device_ms(sdpa_fwd_bwd, calls=10)
     rows = {}
     for name, (kern, plain) in calls.items():
         # plain, kernel, kernel, plain: compare within one card and call.
         p1 = cuda_time_ms(plain, iters=3, warmup=1)
-        k1 = cuda_time_ms(kern, iters=10)
-        k2 = cuda_time_ms(kern, iters=10)
+        k1 = device_ms(kern, calls=10)
+        k2 = device_ms(kern, calls=10)
         p2 = cuda_time_ms(plain, iters=3, warmup=1)
         nbytes, flops = _attn_bytes_flops(q, k, True, name)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3

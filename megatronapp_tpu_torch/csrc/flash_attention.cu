@@ -19,12 +19,12 @@
 //
 // Design, shared. The TPU kernels carry their accumulators in VMEM across a
 // sequential grid axis. Here a thread block owns its output tile and loops
-// itself: flash_fwd and flash_bwd_dq take one (b, q head, 64-row q tile) and
-// walk the kv tiles up to the causal limit (tiles wholly above the diagonal
-// are skipped, as _dispatch_tiles does); flash_bwd_dkv takes one (b, KV
-// head, kv tile) and walks every q head of its GQA group and every q tile
-// at or below the diagonal. Summing the group inside the block replaces
-// the [B, Hq, S, D] temporaries and the reduction outside the TPU kernel
+// itself: flash_fwd and flash_bwd_dq take one (b, q head, q tile) and walk
+// the kv tiles up to the causal limit (tiles wholly above the diagonal are
+// skipped, as _dispatch_tiles does); flash_bwd_dkv takes one (b, KV head,
+// kv tile) and walks every q head of its GQA group and every q tile at or
+// below the diagonal. Summing the group inside the block replaces the
+// [B, Hq, S, D] temporaries and the reduction outside the TPU kernel
 // (flash_attention.py:1074-1078): each dk/dv row has one writer, so there are
 // no atomics, and a rerun repeats every bit.
 //
@@ -34,26 +34,31 @@
 // are bound by operations, so what matters is that the products run on the
 // tensor cores and that the loads hide behind them.
 //
-// The forward (first design): tiles live in shared memory as fp32
-// (rows padded to D + 1 floats, so the 16 threads of a row group read 16
-// different banks), loaded synchronously; each of the 256 threads computes a
-// 4 x 4 block of the 64 x 64 score tile with fp32 FMAs on the CUDA cores and
-// owns 4 rows x D/16 columns of the accumulators, so the softmax statistics
-// of its rows stay in registers and row reductions are 16-lane shuffles.
-//
-// The backward pair (FlashAttention-2's shape, tensor_core.cuh): every
+// All three kernels have FlashAttention-2's shape (tensor_core.cuh): every
 // product is mma.sync m16n8k16 on bf16 operands with fp32 accumulators, fed
 // by ldmatrix from bf16 tiles in shared memory (rows padded to D + 8, so
 // ldmatrix is conflict-free). Each warp owns 16 output rows. Tiles arrive by
 // 16-byte cp.async into a ring of two stages (rows past Sq or Skv are
 // zero-filled by the copy's source size): the next tile's copies are issued
-// before this tile's products. Scores and dp stay in registers, and p and ds,
+// before this tile's products. Scores stay in registers, and p (and ds),
 // rounded to bf16, are reused directly as the A fragments of the next
-// product (a C tile pair is an A fragment), so neither touches shared memory.
+// product (a C tile pair is an A fragment), so neither touches shared
+// memory. Blocks of the longest causal rows launch first, so they do not
+// make up the last wave.
+// - flash_fwd: FwdTiles<D> q rows a block (a warp per 16) and kv rows a
+//   ring stage, chosen on the card (PERF.md). The q tile is scaled and
+//   rounded once, then each warp holds its 16 rows as A fragments in
+//   registers for the whole walk; the ring holds k, v and the kv segment
+//   ids. The online softmax runs on the C tiles: a row's values sit in the
+//   four lanes of a quad, so its max is two xor shuffles, and the running
+//   sum l is kept per lane and summed over the quad once, at the end. The
+//   exponentials run as exp2 with log2(e) folded in (as the backward's);
+//   m and the LSE stay in natural-log units, which is what the backward's
+//   p = exp(s - lse) reads. A warp skips a kv tile that lies wholly above
+//   its rows, so a row's result does not depend on the q tile.
 // - flash_bwd_dq: 4 warps, a 64-row q tile; q (scaled, rounded) and do stay
 //   resident, the ring holds k, v and the kv segment ids. dq += bf16(ds) . k;
-//   the scale is applied once in the epilogue. Blocks of the longest causal
-//   rows launch first, so they do not make up the last wave.
+//   the scale is applied once in the epilogue.
 // - flash_bwd_dkv: a kv tile of 128 rows at D 128 (8 warps; k, v resident;
 //   158 KB of shared memory, one block an SM) and of 64 rows at D 64 (4
 //   warps; 66 KB), each measured the faster; the ring holds q, do, lse,
@@ -86,15 +91,8 @@
 
 namespace {
 
-// The forward's fp32 tiles (first design).
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;            // q rows per tile
-constexpr int kBK = 64;            // kv rows per tile
-constexpr int kTC = 16;            // threads per row group
-constexpr int kRPT = 4;            // rows per thread (64 rows / 16 groups)
-constexpr int kCPT = kBK / kTC;    // score columns per thread
-constexpr int kLP = kBK + 1;       // padded score row
-constexpr float kNegInf = -1e30f;
+using tc::kLog2e;
+using tc::kNegInf;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -114,209 +112,14 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float row_max(float v) {  // over the 16-lane row group
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows [row0, row0 + 64) of one head into dst [64][D + 1] fp32, each value
-// times `scale` (and rounded to bf16 when `round`); rows >= limit are zero.
+// The forward's tiles at head dim D: q rows a block (one warp per 16) and
+// kv rows a ring stage. Of 64 or 128 each, the fastest on the card at its
+// train shape (tools/flash_probe.py fwd-tiles): 128 and 128 at D 128 (8
+// warps, 171 KB of shared memory, one block an SM), 64 and 64 at D 64.
 template <int D>
-__device__ void load_tile(float* dst, const __nv_bfloat16* src, long long row_stride,
-                          int row0, int limit, float scale, bool round) {
-  constexpr int LD = D + 1;
-  constexpr int kChunks = D / 8;   // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    float* d = dst + r * LD + c;
-    if (row0 + r < limit) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float x = __bfloat162float(e[j]) * scale;
-        d[j] = round ? bf16_round(x) : x;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d[j] = 0.f;
-    }
-  }
-}
-
-__device__ void load_segs(int* dst, const int* seg, int b, int s_len, int row0) {
-  for (int i = threadIdx.x; i < 64; i += kThreads)
-    dst[i] = row0 + i < s_len ? seg[(long long)b * s_len + row0 + i] : -1;
-}
-
-__device__ __forceinline__ bool is_valid(const Params& p, int r, int c, const int* qseg_s,
-                                         const int* kseg_s, int rl, int cl) {
-  bool ok = r < p.sq && c < p.skv && (!p.causal || r >= c);
-  if (p.seg != nullptr) ok = ok && qseg_s[rl] == kseg_s[cl];
-  return ok;
-}
-
-// s[i][jj] = sum_d a[(tr*4+i), d] * b[(tc + 16*jj), d] over [64][D+1] tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[kRPT][kCPT], const float* a, const float* b,
-                                         int tr, int tc) {
-  constexpr int LD = D + 1;
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-    for (int j = 0; j < kCPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float x[kRPT], y[kCPT];
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i) x[i] = a[(tr * kRPT + i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < kCPT; ++j) y[j] = b[(tc + j * kTC) * LD + d];
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kCPT; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// flash_fwd: grid (q tiles, Hq, B)
-// ---------------------------------------------------------------------------
-
-template <int D>
-size_t fwd_smem() {
-  return (size_t)3 * 64 * (D + 1) * sizeof(float) + 2 * 64 * sizeof(int);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  constexpr int LD = D + 1;
-  constexpr int kDPT = D / kTC;
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int q0 = iq * kBQ;
-  const int tid = threadIdx.x, tr = tid / kTC, tc = tid % kTC;
-
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                 // [64][LD]
-  float* k_s = q_s + 64 * LD;        // [64][LD]; P [64][kLP] after the scores
-  float* v_s = k_s + 64 * LD;        // [64][LD]
-  int* qseg_s = reinterpret_cast<int*>(v_s + 64 * LD);
-  int* kseg_s = qseg_s + 64;
-  float* p_s = k_s;
-
-  // q scaled in fp32, then rounded to bf16 (flash_attention.py:198, :206).
-  load_tile<D>(q_s, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq, p.scale, true);
-  if (p.seg != nullptr) load_segs(qseg_s, p.seg, b, p.sq, q0);
-
-  float m[kRPT], l[kRPT], acc[kRPT][kDPT];
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDPT; ++j) acc[i][j] = 0.f;
-  }
-  int nk = (p.skv + kBK - 1) / kBK;
-  if (p.causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);   // tiles with k0 <= last q row
-
-  for (int jt = 0; jt < nk; ++jt) {
-    const int k0 = jt * kBK;
-    __syncthreads();               // the previous tile's P and V are consumed
-    load_tile<D>(k_s, p.k + b * p.ksb + hk * p.ksh, p.kss, k0, p.skv, 1.f, false);
-    load_tile<D>(v_s, p.v + b * p.vsb + hk * p.vsh, p.vss, k0, p.skv, 1.f, false);
-    if (p.seg != nullptr) load_segs(kseg_s, p.seg, b, p.skv, k0);
-    __syncthreads();
-
-    float s[kRPT][kCPT];
-    tile_dot<D>(s, q_s, k_s, tr, tc);
-    __syncthreads();               // K is read; its space takes P
-
-    float corr[kRPT];
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i) {
-      const int rl = tr * kRPT + i;
-      bool valid[kCPT];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCPT; ++j) {
-        const int cl = tc + j * kTC;
-        valid[j] = is_valid(p, q0 + rl, k0 + cl, qseg_s, kseg_s, rl, cl);
-        if (!valid[j]) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = fmaxf(m_new, kNegInf / 2);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCPT; ++j) {
-        const float pr = valid[j] ? expf(s[i][j] - m_safe) : 0.f;
-        sum += pr;
-        // P is rounded to the V dtype before PV (flash_attention.py:224).
-        p_s[rl * kLP + tc + j * kTC] = bf16_round(pr);
-      }
-      sum = row_sum(sum);
-      corr[i] = m[i] <= kNegInf / 2 ? 0.f : expf(fminf(m[i] - m_new, 0.f));
-      l[i] = l[i] * corr[i] + sum;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-    float pv[kRPT][kDPT];
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kDPT; ++j) pv[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float x[kRPT], y[kDPT];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i) x[i] = p_s[(tr * kRPT + i) * kLP + c];
-#pragma unroll
-      for (int j = 0; j < kDPT; ++j) y[j] = v_s[c * LD + tc + j * kTC];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-        for (int j = 0; j < kDPT; ++j) pv[i][j] = fmaf(x[i], y[j], pv[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i)
-#pragma unroll
-      for (int j = 0; j < kDPT; ++j) acc[i][j] = acc[i][j] * corr[i] + pv[i][j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i) {
-    const int r = q0 + tr * kRPT + i;
-    if (r >= p.sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-20f);
-    __nv_bfloat16* o = p.out + (((long long)b * p.sq + r) * p.hq + h) * D;
-#pragma unroll
-    for (int j = 0; j < kDPT; ++j) o[tc + j * kTC] = __float2bfloat16(acc[i][j] * inv);
-    if (tc == 0)
-      p.lse[((long long)b * p.hq + h) * p.sq + r] =
-          l[i] > 0.f ? fmaxf(m[i], kNegInf / 2) + logf(fmaxf(l[i], 1e-20f)) : kNegInf;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The backward pair: bf16 tiles, cp.async double buffering, mma.sync
-// ---------------------------------------------------------------------------
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kDqThreads = 128;            // 4 warps x 16 q rows of a 64-row q tile
+struct FwdTiles {
+  static constexpr int kQ = D == 128 ? 128 : 64, kKV = kQ;
+};
 
 // kv rows of a dk/dv block, one warp per 16: 128 at D 128 and 64 at D 64,
 // each the faster of the two on the card at its train shape.
@@ -339,34 +142,14 @@ __device__ __forceinline__ void async_rows(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-// 64 four-byte values [i0, i0 + 64) of a row (lse, delta or segment ids)
+// N four-byte values [i0, i0 + N) of a row (lse, delta or segment ids)
 // into dst; zeros past n.
-template <int NT>
-__device__ __forceinline__ void async_vec64(void* dst, const void* src, int i0, int n) {
-  for (int i = threadIdx.x; i < 64; i += NT) {
+template <int N, int NT>
+__device__ __forceinline__ void async_vec(void* dst, const void* src, int i0, int n) {
+  for (int i = threadIdx.x; i < N; i += NT) {
     const bool in = i0 + i < n;
     tc::cp_async_4(static_cast<uint32_t*>(dst) + i,
                    static_cast<const uint32_t*>(src) + (in ? i0 + i : 0), in);
-  }
-}
-
-// dst = bf16(src * scale) in fp32 over a [64][D + 8] tile (dst may be src).
-template <int D, int NT>
-__device__ __forceinline__ void scale_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           float scale) {
-  constexpr int kChunks = D / 8, LD = D + 8;
-#pragma unroll
-  for (int it = 0; it < 64 * kChunks / NT; ++it) {
-    const int i = threadIdx.x + it * NT;
-    const int off = (i / kChunks) * LD + (i % kChunks) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(src + off);
-    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-      w[j] = tc::pack_bf16(f.x * scale, f.y * scale);
-    }
-    *reinterpret_cast<uint4*>(dst + off) = raw;
   }
 }
 
@@ -392,23 +175,6 @@ __device__ __forceinline__ void dot_16x64(float (&c)[8][4], const __nv_bfloat16*
       tc::mma_bf16(c[n0 / 8 + 1], af, bf[2], bf[3]);
     }
   }
-}
-
-// acc[16 x D] += X[16 x 64] . B[64, D] for one warp: X as four A fragments
-// in registers (tc::pack_a), B a [64][D + 8] tile read transposed.
-template <int D>
-__device__ __forceinline__ void acc_16xD(float (&acc)[D / 8][4], const uint32_t (&x)[4][4],
-                                         const __nv_bfloat16* b, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int n0 = 0; n0 < D; n0 += 16) {
-      uint32_t bf[4];
-      tc::ldmatrix_x4_trans(bf, b + tc::bt_off(lane, kc * 16, n0, LD));
-      tc::mma_bf16(acc[n0 / 8], x[kc], bf[0], bf[1]);
-      tc::mma_bf16(acc[n0 / 8 + 1], x[kc], bf[2], bf[3]);
-    }
 }
 
 // A warp's 16 accumulator rows, times mul and rounded to bf16, through its
@@ -441,8 +207,132 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float m
 }
 
 // ---------------------------------------------------------------------------
+// flash_fwd: grid (Hq, q tiles, B), a warp per 16 q rows
+// ---------------------------------------------------------------------------
+
+template <int D>
+size_t fwd_smem() {   // q, and a ring of two (k, v, kv segment ids)
+  constexpr int BQ = FwdTiles<D>::kQ, BK = FwdTiles<D>::kKV;
+  return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16) + 2 * BK * sizeof(int);
+}
+
+template <int D>
+__global__ void __launch_bounds__(2 * FwdTiles<D>::kQ) flash_fwd_kernel(const Params p) {
+  constexpr int BQ = FwdTiles<D>::kQ, BK = FwdTiles<D>::kKV, NT = 2 * BQ;
+  constexpr int LD = D + 8, TK = BK * LD;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int iq = (p.sq + BQ - 1) / BQ - 1 - blockIdx.y;   // the longest causal rows first
+  const int hk = h / (p.hq / p.hkv);
+  const int q0 = iq * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  extern __shared__ uint4 fwd_smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(fwd_smem_raw);   // [BQ][LD]
+  __nv_bfloat16* k_s = q_s + BQ * LD;                                   // [2][BK][LD]
+  __nv_bfloat16* v_s = k_s + 2 * TK;                                    // [2][BK][LD]
+  int* kseg_s = reinterpret_cast<int*>(v_s + 2 * TK);                   // [2][BK]
+
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (long long)b * p.skv;
+  const __nv_bfloat16* kg = p.k + b * p.ksb + hk * p.ksh;
+  const __nv_bfloat16* vg = p.v + b * p.vsb + hk * p.vsh;
+  auto load_kv = [&](int jt, int st) {
+    async_rows<BK, D, NT>(k_s + st * TK, kg, p.kss, jt * BK, p.skv);
+    async_rows<BK, D, NT>(v_s + st * TK, vg, p.vss, jt * BK, p.skv);
+    if (seg != nullptr) async_vec<BK, NT>(kseg_s + st * BK, seg, jt * BK, p.skv);
+  };
+  async_rows<BQ, D, NT>(q_s, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq);
+  load_kv(0, 0);
+  tc::cp_async_commit();
+
+  const int qw0 = q0 + warp * 16;   // this warp's rows; the lane's are g and g + 8
+  int qseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw0 + g + 8 * i;
+    qseg[i] = seg != nullptr && r < p.sq ? seg[r] : -1;
+  }
+  int nk = (p.skv + BK - 1) / BK;
+  if (p.causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);   // tiles with k0 <= the last q row
+
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  // q scaled in fp32 and rounded to bf16 (flash_attention.py:198, :206),
+  // then held in registers as A fragments for the whole kv walk.
+  tc::scale_rows<BQ, D, NT>(q_s, q_s, p.scale);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  tc::load_a<D>(qf, q_s, warp * 16, lane);
+
+  float acc[D / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int jt = 0; jt < nk; ++jt) {
+    const int st = jt & 1, k0 = jt * BK;
+    tc::cp_async_wait<0>();
+    __syncthreads();   // tile jt has landed; every warp is done with tile jt - 1
+    if (jt + 1 < nk) {
+      load_kv(jt + 1, st ^ 1);   // in flight during this tile's products
+      tc::cp_async_commit();
+    }
+    // No row of this warp is valid, or the tile lies wholly above them:
+    // the tile would leave m, l and acc as they are.
+    if (qw0 >= p.sq || (p.causal && qw0 + 15 < k0)) continue;
+    float s[BK / 8][4];
+    tc::dot_16xN<D, BK>(s, qf, k_s + st * TK, lane);   // bf16(q scale) . k
+    // Diagonal, ragged and segment tiles test each pair; the rest are whole.
+    const bool mask = seg != nullptr || k0 + BK > p.skv || (p.causal && qw0 < k0 + BK - 1);
+    if (mask) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, cl = 8 * j + 2 * t + (e & 1);
+          const int r = qw0 + g + 8 * i, c = k0 + cl;
+          bool ok = c < p.skv && (!p.causal || r >= c);
+          if (seg != nullptr) ok = ok && qseg[i] == kseg_s[st * BK + cl];
+          if (!ok) s[j][e] = kNegInf;
+        }
+    }
+    // P rounded to V's dtype (:224); acc += bf16(p) . v.
+    tc::online_softmax_pv<D, BK>(s, mask, m, l, acc, v_s + st * TK, lane);
+  }
+
+  float lmax[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = tc::quad_sum(l[i]);
+    lmax[i] = fmaxf(l[i], 1e-20f);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] /= lmax[0];
+    acc[j][1] /= lmax[0];
+    acc[j][2] /= lmax[1];
+    acc[j][3] /= lmax[1];
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = qw0 + g + 8 * i;
+      if (r < p.sq)
+        p.lse[((long long)b * p.hq + h) * p.sq + r] =
+            l[i] > 0.f ? fmaxf(m[i], kNegInf / 2) + logf(lmax[i]) : kNegInf;
+    }
+  }
+  // Each warp stages its own 16 rows of q_s, which only it read.
+  store_rows<D>(acc, 1.f, q_s + warp * 16 * LD,
+                p.out + ((long long)b * p.sq * p.hq + h) * D, (long long)p.hq * D, qw0, p.sq,
+                lane);
+}
+
+// ---------------------------------------------------------------------------
 // flash_bwd_dq: grid (Hq, q tiles, B), 4 warps of 16 q rows
 // ---------------------------------------------------------------------------
+
+constexpr int kDqThreads = 128;   // 4 warps x 16 q rows of a 64-row q tile
 
 template <int D>
 size_t dq_smem() {   // q, do, and a ring of two (k, v, kv segment ids)
@@ -471,7 +361,7 @@ __global__ void __launch_bounds__(kDqThreads, 2) flash_bwd_dq_kernel(const Param
   auto load_kv = [&](int jt, int st) {
     async_rows<64, D, NT>(k_s + st * T, kg, p.kss, jt * 64, p.skv);
     async_rows<64, D, NT>(v_s + st * T, vg, p.vss, jt * 64, p.skv);
-    if (seg != nullptr) async_vec64<NT>(kseg_s + st * 64, seg, jt * 64, p.skv);
+    if (seg != nullptr) async_vec<64, NT>(kseg_s + st * 64, seg, jt * 64, p.skv);
   };
   async_rows<64, D, NT>(q_s, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq);
   async_rows<64, D, NT>(do_s, p.dout + b * p.dsb + h * p.dsh, p.dss, q0, p.sq);
@@ -498,7 +388,7 @@ __global__ void __launch_bounds__(kDqThreads, 2) flash_bwd_dq_kernel(const Param
   tc::cp_async_wait<0>();
   __syncthreads();
   // q scaled in fp32 and rounded to bf16 (flash_attention.py:198, :206).
-  scale_rows<D, NT>(q_s, q_s, p.scale);
+  tc::scale_rows<64, D, NT>(q_s, q_s, p.scale);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -537,7 +427,7 @@ __global__ void __launch_bounds__(kDqThreads, 2) flash_bwd_dq_kernel(const Param
     uint32_t da[4][4];   // ds.astype(k.dtype) (:904), as A fragments
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) tc::pack_a(da[kc], ds[2 * kc], ds[2 * kc + 1]);
-    acc_16xD<D>(acc, da, kt, lane);                      // dq += bf16(ds) . k
+    tc::acc_16xD<D>(acc, da, kt, lane);                      // dq += bf16(ds) . k
   }
 
   // Each warp stages its own 16 rows of q_s, which only it reads.
@@ -586,9 +476,9 @@ __global__ void __launch_bounds__(2 * dkv_rows<D>(), 1) flash_bwd_dkv_kernel(con
     async_rows<64, D, NT>(q_s + st * T, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.sq);
     async_rows<64, D, NT>(do_s + st * T, p.dout + b * p.dsb + h * p.dsh, p.dss, q0, p.sq);
     const long long row = ((long long)b * p.hq + h) * p.sq;
-    async_vec64<NT>(lse_s + st * 64, p.lse_in + row, q0, p.sq);
-    async_vec64<NT>(dlt_s + st * 64, p.delta + row, q0, p.sq);
-    if (seg != nullptr) async_vec64<NT>(qseg_s + st * 64, seg, q0, p.sq);
+    async_vec<64, NT>(lse_s + st * 64, p.lse_in + row, q0, p.sq);
+    async_vec<64, NT>(dlt_s + st * 64, p.delta + row, q0, p.sq);
+    if (seg != nullptr) async_vec<64, NT>(qseg_s + st * 64, seg, q0, p.sq);
   };
   async_rows<ROWS, D, NT>(k_s, p.k + b * p.ksb + hk * p.ksh, p.kss, k0, p.skv);
   async_rows<ROWS, D, NT>(v_s, p.v + b * p.vsb + hk * p.vsh, p.vss, k0, p.skv);
@@ -617,7 +507,7 @@ __global__ void __launch_bounds__(2 * dkv_rows<D>(), 1) flash_bwd_dkv_kernel(con
       tc::cp_async_commit();
     }
     // S^T needs bf16(q scale) (as the forward's scores); dK takes q itself.
-    scale_rows<D, NT>(qs_s, q_s + st * T, p.scale);
+    tc::scale_rows<64, D, NT>(qs_s, q_s + st * T, p.scale);
     __syncthreads();
     if (kw0 >= p.skv || (p.causal && kw0 > q0 + 63)) continue;   // no valid pair
     const __nv_bfloat16* dot = do_s + st * T;
@@ -648,10 +538,10 @@ __global__ void __launch_bounds__(2 * dkv_rows<D>(), 1) flash_bwd_dkv_kernel(con
     uint32_t xa[4][4];
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) tc::pack_a(xa[kc], s[2 * kc], s[2 * kc + 1]);
-    acc_16xD<D>(dv, xa, dot, lane);
+    tc::acc_16xD<D>(dv, xa, dot, lane);
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) tc::pack_a(xa[kc], dp[2 * kc], dp[2 * kc + 1]);
-    acc_16xD<D>(dk, xa, q_s + st * T, lane);
+    tc::acc_16xD<D>(dk, xa, q_s + st * T, lane);
   }
 
   // Each warp stages its own 16 rows of k_s and v_s, which only it reads.
@@ -673,8 +563,8 @@ int launch(int which, const Params& p, int batch, cudaStream_t stream) {
   if (which == kFwd) {
     kernel = flash_fwd_kernel<D>;
     smem = fwd_smem<D>();
-    grid = dim3((p.sq + kBQ - 1) / kBQ, p.hq, batch);
-    threads = kThreads;
+    grid = dim3(p.hq, (p.sq + FwdTiles<D>::kQ - 1) / FwdTiles<D>::kQ, batch);
+    threads = 2 * FwdTiles<D>::kQ;
   } else if (which == kDq) {
     kernel = flash_bwd_dq_kernel<D>;
     smem = dq_smem<D>();

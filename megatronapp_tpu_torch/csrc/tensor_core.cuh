@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks for sm_80+ (used on
 // sm_90a): cp.async copies into shared memory with zero fill, ldmatrix
-// fragment loads, the bf16 m16n8k16 mma with fp32 accumulators, and bf16
-// packing.
+// fragment loads, the bf16 m16n8k16 mma with fp32 accumulators, bf16
+// packing, and the warp-level products and the online-softmax step that
+// the flash and paged-attention kernels build from them.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 g + t, g in [0, 8),
 // t in [0, 4)); each register holds two bf16, the lower column in the low
@@ -116,6 +117,142 @@ __device__ __forceinline__ int b_off(int lane, int n0, int c0, int ld) {
 }
 __device__ __forceinline__ int bt_off(int lane, int r0, int n0, int ld) {
   return (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
+}
+
+// The largest / the sum of the four lanes of a quad (lanes 4g..4g+3: the
+// lanes that hold one row of a C tile).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// dst = bf16(src * scale) in fp32 over a [ROWS][D + 8] bf16 tile, by NT
+// threads (dst may be src).
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void scale_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           float scale) {
+  constexpr int kChunks = D / 8, LD = D + 8;
+  static_assert(ROWS * kChunks % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int off = (i / kChunks) * LD + (i % kChunks) * 8;
+    uint4 raw = *reinterpret_cast<const uint4*>(src + off);
+    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      w[j] = pack_bf16(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(dst + off) = raw;
+  }
+}
+
+// One warp's 16 rows [r0, r0 + 16) of a [*][D + 8] tile as the D / 16 A
+// fragments of a product over D, kept in registers.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const __nv_bfloat16* tile,
+                                       int r0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(a[kk], tile + a_off(lane, r0, kk * 16, D + 8));
+}
+
+// C[16 x N] = A[16 x D] . B[N, D]^T for one warp: A as fragments in
+// registers (load_a), B a [N][D + 8] tile (c[j]: columns 8j..8j+7).
+template <int D, int N>
+__device__ __forceinline__ void dot_16xN(float (&c)[N / 8][4], const uint32_t (&a)[D / 16][4],
+                                         const __nv_bfloat16* b, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int n0 = 0; n0 < N; n0 += 16) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + b_off(lane, n0, kk * 16, LD));
+      mma_bf16(c[n0 / 8], a[kk], bf[0], bf[1]);
+      mma_bf16(c[n0 / 8 + 1], a[kk], bf[2], bf[3]);
+    }
+}
+
+// acc[16 x D] += X[16 x 16 KC] . B[16 KC, D] for one warp: X as KC A
+// fragments in registers (pack_a), B a [16 KC][D + 8] tile read transposed.
+template <int D, int KC>
+__device__ __forceinline__ void acc_16xD(float (&acc)[D / 8][4], const uint32_t (&x)[KC][4],
+                                         const __nv_bfloat16* b, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int n0 = 0; n0 < D; n0 += 16) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, b + bt_off(lane, kc * 16, n0, LD));
+      mma_bf16(acc[n0 / 8], x[kc], bf[0], bf[1]);
+      mma_bf16(acc[n0 / 8 + 1], x[kc], bf[2], bf[3]);
+    }
+}
+
+constexpr float kNegInf = -1e30f;   // the masked score (the TPU kernels' sentinel)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One kv tile of the online softmax for a warp's 16 rows, on the C tiles
+// of s = scores [16 x N] (entries masked out at kNegInf when `masked`):
+// m, l are the running max and sum of this lane's rows g and g + 8 (l is
+// this lane's share: sum it over the quad at the end), acc [16 x D] the
+// running P . V. The TPU kernels' numerics: m_safe = max(m_new, -5e29),
+// corr = 0 while m_prev <= -5e29, P = exp(s - m_safe) (0 where masked)
+// summed in fp32 and rounded to bf16 for P . V; the exponentials run as
+// exp2 with log2(e) folded in, m stays in natural units. v is the
+// [N][D + 8] V tile.
+template <int D, int N>
+__device__ __forceinline__ void online_softmax_pv(float (&s)[N / 8][4], bool masked,
+                                                  float (&m)[2], float (&l)[2],
+                                                  float (&acc)[D / 8][4],
+                                                  const __nv_bfloat16* v, int lane) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  float corr[2], ms2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_max(mx[i]));
+    ms2[i] = fmaxf(m_new, kNegInf / 2) * kLog2e;   // m_safe, in log2 units
+    corr[i] = m[i] <= kNegInf / 2 ? 0.f : exp2_approx(fminf(m[i] - m_new, 0.f) * kLog2e);
+    m[i] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float pr = exp2_approx(fmaf(s[j][e], kLog2e, -ms2[i]));
+      if (masked && s[j][e] <= kNegInf / 2) pr = 0.f;
+      sum[i] += pr;
+      s[j][e] = pr;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] *= corr[0];
+    acc[j][1] *= corr[0];
+    acc[j][2] *= corr[1];
+    acc[j][3] *= corr[1];
+  }
+  uint32_t pa[N / 16][4];   // bf16(P) as A fragments
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) pack_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
+  acc_16xD<D>(acc, pa, v, lane);
 }
 
 }  // namespace tc

@@ -10,12 +10,13 @@ The kernels (csrc/flash_attention.cu) replace the TPU kernels of
 - ``flash_bwd_dkv`` ← their dk/dv kernels, with the GQA group summed
   inside the block.
 
-At the training shapes they are bound by operations. The forward runs
-its products as fp32 FMAs on the CUDA cores (its first design); the
-backward pair runs every product on the tensor cores (``mma.sync`` on
-bf16 tiles that ``cp.async`` loads ahead of use) and so rounds p and ds
-to bf16 before dv and dk, where the TPU kernel keeps them fp32. The
-source note (csrc/flash_attention.cu) gives the designs.
+At the training shapes they are bound by operations. All three run every
+product on the tensor cores (``mma.sync`` on bf16 tiles that ``cp.async``
+loads ahead of use, the probabilities reused in registers): the forward
+rounds q times the scale and P to bf16 as the TPU kernel does, and the
+backward pair also rounds p and ds to bf16 before dv and dk, where the
+TPU kernel keeps them fp32. The source note (csrc/flash_attention.cu)
+gives the designs.
 
 ``flash_forward`` and ``flash_backward`` take the plain versions only for
 tensors that lie on the CPU. For CUDA tensors they launch the kernels or

@@ -1,19 +1,27 @@
-"""Ragged paged attention: the CUDA kernel's wrapper, its plain version,
-its launch counter and its build.
+"""Ragged paged attention: the CUDA kernels' wrapper, their plain version,
+the launch counter and the build.
 
-The kernel (csrc/paged_attention.cu) replaces the TPU kernel
+The kernels (csrc/paged_attention.cu) replace the TPU kernel
 ``megatronapp_tpu/ops/pallas/kernel_gen.py:emit_paged_kernel`` in both of
 its modes, decode (one query row per slot) and ragged multi-query
-(chunked prefill), for bf16 pools and for quantized pools: int8 or fp8
-(e4m3) pages with per-(row, kv-head) fp32 scale pools, dequantized as each
-page is read. It is bound by the bytes of K/V it reads; the source note
-says what its design does about that.
+(chunked prefill). They are bound by the bytes of K/V they read. Two
+designs, by pool type (the source note gives them):
+
+- bf16 pools: split KV on the tensor cores. The slot's kv tiles are dealt
+  to ``kv_split_plan`` splits so that a decode step or a one-request chunk
+  fills the card; each block runs its products on ``mma.sync`` and,
+  with more than one split, writes fp32 partials (acc, m, l) to a
+  workspace that this wrapper allocates, which a second launch merges in
+  split order (``merge_split_partials`` is that merge in plain PyTorch,
+  for the tests).
+- int8 or fp8 (e4m3) pools with per-(row, kv-head) fp32 scale pools: the
+  first design, fp32 throughout, dequantizing each page as it is read.
 
 ``paged_attention`` takes the plain version only for tensors that lie on
-the CPU. For CUDA tensors it launches the kernel or raises: there is no
-fallback. The kernel builds at first use through ``ops/cuda/build.py``
+the CPU. For CUDA tensors it launches the kernels or raises: there is no
+fallback. The kernels build at first use through ``ops/cuda/build.py``
 (nvcc into ``build/kernels``, named by the hash of source and flags) and
-is loaded with ctypes.
+are loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -35,9 +43,9 @@ QUANT_DTYPES = {"int8": (torch.int8, 127.0),
                 "fp8": (torch.float8_e4m3fn, 448.0)}
 _PAGE_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
-# Launches of the kernel, by mode and, for quantized pools, page dtype.
-# Incremented only where the wrapper launches it (never by the plain
-# version).
+# Calls that launch the kernels, by mode and, for quantized pools, page
+# dtype (one a call, whether it launches one kernel or two). Incremented
+# only where the wrapper launches them (never by the plain version).
 launches: Dict[str, int] = {f"{mode}{sfx}": 0
                             for sfx in ("", "_int8", "_fp8")
                             for mode in ("decode", "ragged")}
@@ -46,7 +54,110 @@ SOURCE = kbuild.source("paged_attention.cu")
 MAX_BLOCK_SIZE = 64
 HEAD_DIMS = (64, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p])
+# The bf16-pool kernel's tiles (csrc/paged_attention.cu kTcRows, kTcKv):
+# query rows (s, g) of one kv head a block, and kv rows a ring stage; kv
+# tile i goes to split i mod splits.
+ROW_TILE = 64
+KV_TILE = 64
+# Blocks the split plan aims for: two an SM (87 KB of shared memory each at
+# D 128), the best of 1-16 splits at decode B 8 in flash_probe.py
+# paged-splits (PERF.md).
+SPLIT_TARGET_BLOCKS = 256
+
+
+def kv_split_plan(batch: int, hkv: int, rows: int, capacity: int) -> int:
+    """Splits of the kv range for the bf16-pool kernel, from the launch's
+    shapes alone: batch, kv heads, the rows of one kv head (S_q × group)
+    and the page table's capacity mb × bs positions; never kv_lens, which
+    lie on the device. Enough blocks to reach SPLIT_TARGET_BLOCKS, but
+    each split gets at least ceil(rows a block / 32) kv tiles of the
+    capacity, so that its fp32 partials (rows × (D + 2) × 4 bytes, written
+    once and read back once) come to at most about half the K/V bytes its
+    tiles read (64 × D × 4 a tile)."""
+    tiles = -(-capacity // KV_TILE)
+    row_tiles = -(-rows // ROW_TILE)
+    want = -(-SPLIT_TARGET_BLOCKS // (batch * hkv * row_tiles))
+    min_tiles = -(-min(rows, ROW_TILE) // 32)
+    return max(1, min(want, tiles // min_tiles))
+
+
+def launch_split_count(q: torch.Tensor, k_pages: torch.Tensor,
+                       page_table: torch.Tensor) -> int:
+    """The split count of a bf16-pool launch: kv_split_plan on the shapes
+    of q ([B, Hq, D] decode or [B, S_q, Hq, D] ragged), the pools and the
+    page table; it reads no tensor's values."""
+    s_q = q.shape[1] if q.dim() == 4 else 1
+    _, bs, hkv, _ = k_pages.shape
+    return kv_split_plan(q.shape[0], hkv, s_q * (q.shape[-2] // hkv),
+                         page_table.shape[1] * bs)
+
+
+def merge_split_partials(acc: torch.Tensor, m: torch.Tensor,
+                         l: torch.Tensor) -> torch.Tensor:
+    """The combine kernel's merge in plain PyTorch: acc [..., S, D] and m,
+    l [..., S] fp32 partials of S splits (unnormalised acc; m the split's
+    running max, -1e30 and l = 0 where the split saw no position) → out
+    [..., D] fp32. In split order: m = max m_i, l = Σ l_i e^{m_i - m},
+    acc = Σ acc_i e^{m_i - m}, out = acc / max(l, 1e-20); splits with
+    l_i = 0 are skipped (their acc is never read)."""
+    live = l > 0
+    m_all = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
+    l_all = torch.zeros_like(m_all)
+    out = torch.zeros_like(acc[..., 0, :])
+    for i in range(m.shape[-1]):
+        w = torch.where(live[..., i], torch.exp(m[..., i] - m_all),
+                        torch.zeros_like(m_all))
+        l_all = l_all + l[..., i] * w
+        out = out + torch.where(live[..., i, None], acc[..., i, :],
+                                torch.zeros_like(out)) * w[..., None]
+    return out / l_all.clamp(min=1e-20)[..., None]
+
+
+def split_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, page_table: torch.Tensor,
+                         kv_lens: torch.Tensor,
+                         q_lens: Optional[torch.Tensor], splits: int,
+                         softmax_scale: Optional[float] = None):
+    """Each split's (acc [B, S_q, Hq, S, D], m, l [B, S_q, Hq, S]) of the
+    bf16-pool kernel, with its conventions, in plain PyTorch: kv tile i
+    (KV_TILE positions) in split i mod S; per split, m the max of the
+    row's valid scores (-1e30 where none), l = Σ exp(s - max(m, -5e29))
+    over them, acc the same weights, rounded to V's dtype, times V. q is
+    [B, Hq, D] in decode mode (q_lens None; the S_q axis is then 1)."""
+    if q_lens is None:
+        q, q_lens = q[:, None], torch.ones_like(kv_lens)
+    b, s_q, hq, d = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    mb = page_table.shape[1]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    table = page_table.long()
+    k = _gather_pages(k_pages, table, None).reshape(b, mb * bs, hkv, d)
+    v = _gather_pages(v_pages, table, None).reshape(b, mb * bs, hkv, d)
+    k = k.repeat_interleave(group, dim=2)
+    v = v.repeat_interleave(group, dim=2)
+    qs = (q.float() * scale).to(q.dtype).float()
+    s = torch.einsum("bqhd,bkhd->bqhk", qs, k)
+    pos = torch.arange(mb * bs)
+    kv_lens, q_lens = kv_lens.long(), q_lens.long()
+    abs_q = (kv_lens - q_lens)[:, None] + torch.arange(s_q)
+    valid = ((pos[None, None, :] <= abs_q[:, :, None])
+             & (pos[None, None, :] < kv_lens[:, None, None]))[:, :, None, :]
+    accs, ms, ls = [], [], []
+    for i in range(splits):
+        ok = valid & ((pos // KV_TILE) % splits == i)
+        sc = s.masked_fill(~ok, NEG_INF)
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m.clamp(min=NEG_INF / 2)[..., None]) \
+            .masked_fill(~ok, 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bqhk,bkhd->bqhd",
+                                 p.to(v_pages.dtype).float(), v))
+    return (torch.stack(accs, dim=3), torch.stack(ms, dim=-1),
+            torch.stack(ls, dim=-1))
 
 
 def _kernel():
@@ -214,13 +325,20 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         softmax_scale = 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kind = _PAGE_KIND[k_pages.dtype]
+    mb = page_table.shape[1]
+    splits, ws = 1, None
+    if kind == 0:
+        splits = launch_split_count(q, k_pages, page_table)
+        if splits > 1:
+            ws = torch.empty(b * s_q * hq * splits * (d + 2),
+                             dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr() if kind else None,
             v_scales.data_ptr() if kind else None,
             page_table.data_ptr(), kv_lens.data_ptr(),
             q_lens.data_ptr() if ragged else None, out.data_ptr(),
-            b, s_q, hq, hkv, d, bs, page_table.shape[1], kind,
-            float(softmax_scale), stream)
+            b, s_q, hq, hkv, d, bs, mb, kind, float(softmax_scale),
+            None if ws is None else ws.data_ptr(), splits, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")

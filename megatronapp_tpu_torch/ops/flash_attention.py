@@ -49,8 +49,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sequences). block_q / block_kv are the TPU kernel's tile sizes and
     head_fold its 128-lane layout for D <= 64; both are accepted for
     signature parity and select nothing here: the CUDA kernels use their
-    own tiles (64 q rows; 128 kv rows for dk/dv) and compute the same
-    function for every layout."""
+    own tiles (the forward 128 q × 128 kv rows at D 128 and 64 × 64 at
+    D 64; dq 64 q rows; dk/dv 128 kv rows at D 128, 64 at D 64) and
+    compute the same function for every layout."""
     del block_q, block_kv, head_fold
     if segment_ids is not None:
         segment_ids = segment_ids.to(device=q.device,

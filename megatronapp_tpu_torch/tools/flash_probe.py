@@ -1,19 +1,34 @@
-"""Two measurements of the flash-attention backward pair on one CUDA card
-that the smoke run (chip_smoke.py) does not make. From the repository
-root:
+"""Measurements of the attention kernels on one CUDA card that the smoke
+run (chip_smoke.py) does not make. From the repository root:
 
+    python3 -m megatronapp_tpu_torch.tools.flash_probe fwd-tiles
+        flash_fwd built with each of its tile choices (64 or 128 q rows a
+        block, 64 or 128 kv rows a ring stage; copies of the source under
+        build/, FwdTiles fixed to each), timed in turns at
+        FLASH_TIMED_SHAPES; the choices that keep the kv tile compared bit
+        for bit (out and lse).
     python3 -m megatronapp_tpu_torch.tools.flash_probe dkv-rows
         flash_bwd_dkv built with 64 and with 128 kv rows a block (copies
         of the source under build/, dkv_rows<D>() fixed to each), timed in
         turns (64, 128, 128, 64) at FLASH_TIMED_SHAPES; the two results
         compared bit for bit.
+    python3 -m megatronapp_tpu_torch.tools.flash_probe paged-splits
+        the bf16-pool paged-attention kernel with its kv split count fixed
+        to each of a few values, timed in turns at the times phase's
+        decode (B 8) and ragged (B 1, S_q 32) shapes at kv 1024, and with
+        the engine's 2048-position tables, L2-cold; each count's output
+        against the first count's.
     python3 -m megatronapp_tpu_torch.tools.flash_probe ab --parent DIR
-        chip_smoke.py's train and train_gpt2 phases of the checkout in DIR
-        (e.g. the parent commit, unpacked with git archive) and of this
-        one in turns (parent, change, change, parent), one process a run.
+        chip_smoke.py's train, train_gpt2 and profile phases (the profile
+        on llama3-8b at 32 layers, unfused and fused engines) of the
+        checkout in DIR (e.g. the parent commit, unpacked with git archive)
+        and of this one in turns (parent, change, change, parent), one
+        process a run.
 
-Each prints JSON lines. Nothing runs on import, and nothing falls back to
-the CPU: without a card the commands fail.
+Kernel times are device time per call with the calls queued behind a
+sleep (chip_smoke.device_ms): at the D 64 shape a call is shorter than
+its host time. Each command prints JSON lines. Nothing runs on import,
+and nothing falls back to the CPU: without a card the commands fail.
 """
 
 from __future__ import annotations
@@ -40,6 +55,126 @@ def _ptxas(log: str):
             if "registers" in ln or "spill" in ln or "Compiling" in ln]
 
 
+def _build_variants(name: str, rule: str, variants: dict) -> dict:
+    """Copies of csrc/<name> (and every header) under build/flash_probe/,
+    `rule` replaced by each variant's text, built by nvcc in parallel;
+    returns {variant: ctypes.CDLL} and prints each build's ptxas lines."""
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    with open(kbuild.source(name)) as f:
+        text = f.read()
+    if rule not in text:
+        raise RuntimeError(f"`{rule}` not found in {name}")
+    procs = {}
+    for key, repl in variants.items():
+        out = os.path.join(REPO, "build", "flash_probe", str(key))
+        os.makedirs(out, exist_ok=True)
+        for hdr in os.listdir(kbuild.CSRC):
+            if hdr.endswith(kbuild.HEADER_SUFFIXES):
+                with open(os.path.join(kbuild.CSRC, hdr)) as f, \
+                        open(os.path.join(out, hdr), "w") as g:
+                    g.write(f.read())
+        src = os.path.join(out, name)
+        with open(src, "w") as f:
+            f.write(text.replace(rule, repl))
+        lib = os.path.join(out, name.replace(".cu", ".so"))
+        procs[key] = (lib, subprocess.Popen(
+            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        print(json.dumps({"variant": str(key), "ptxas": _ptxas(log)}),
+              flush=True)
+        libs[key] = ctypes.CDLL(lib)
+    return libs
+
+
+def fwd_tiles():
+    import torch
+
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    choices = [(64, 64), (128, 64), (64, 128), (128, 128)]
+    libs = _build_variants(
+        "flash_attention.cu",
+        "static constexpr int kQ = D == 128 ? 128 : 64, kKV = kQ;",
+        {c: f"static constexpr int kQ = {c[0]}, kKV = {c[1]};"
+         for c in choices})
+    dev = torch.device("cuda", 0)
+    for name, (b, s, hq, hkv, d) in cs.FLASH_TIMED_SHAPES.items():
+        q, k, v, _, _ = cs._flash_inputs(torch.Generator().manual_seed(5),
+                                         dev, b, s, hq, hkv, d)
+        outs, times = {}, {c: [] for c in choices}
+        for c in choices + choices[::-1]:
+            kbuild._libs[fa.SOURCE] = libs[c]
+            outs[c] = fa.flash_forward(q, k, v, True)
+            times[c].append(cs.device_ms(
+                lambda: fa.flash_forward(q, k, v, True), calls=10))
+        torch.cuda.synchronize()
+        same = {f"kv{kv}": all(torch.equal(x, y) for x, y in zip(
+            outs[(64, kv)], outs[(128, kv)])) for kv in (64, 128)}
+        print(json.dumps({
+            "shape": name, "ms": {f"q{c[0]}_kv{c[1]}": t
+                                  for c, t in times.items()},
+            "bit_identical_same_kv_tile": same}), flush=True)
+    kbuild._libs.pop(fa.SOURCE, None)
+
+
+def paged_splits():
+    import torch
+
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(99)
+    plan = pa.launch_split_count
+    # name: (batch, s_q, kv, table capacity, split counts); the engine's
+    # tables cover max_seq_len 2048 positions.
+    shapes = {"decode_b8_kv1024": (8, None, 1024, 0, [1, 2, 4, 8, 16]),
+              "ragged_b1_sq32_kv1024": (1, 32, 1024, 0, [1, 4, 8, 16]),
+              "decode_b8_kv1024_table2048": (8, None, 1024, 2048,
+                                             [2, 4, 8, 16]),
+              "ragged_b1_sq32_kv1008_table2048": (1, 32, 1008, 2048,
+                                                  [4, 8, 16, 32])}
+    try:
+        for name, (batch, s_q, kv, cap, counts) in shapes.items():
+            case = cs.make_case(gen, dev, batch=batch, hq=32, hkv=8, d=128,
+                                bs=16, kv_lens=[kv] * batch, s_q=s_q,
+                                q_lens=None if s_q is None else [s_q] * batch,
+                                pool_bytes=cs.TIMED_POOL_BYTES, capacity=cap)
+            tables, it = case["tables"], {"i": 0}
+
+            def call():
+                it["i"] = (it["i"] + 1) % tables.shape[0]
+                return pa.paged_attention(case["q"], case["k"], case["v"],
+                                          tables[it["i"]], case["kv_lens"],
+                                          q_lens=case.get("q_lens"))
+            outs, times = {}, {n: [] for n in counts}
+            for n in counts + counts[::-1]:
+                pa.launch_split_count = lambda *a, n=n: n
+                it["i"] = -1
+                outs[n] = call()
+                times[n].append(cs.device_ms(call))
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "shape": name, "planned_splits": plan(
+                    case["q"], case["k"], case["table"]),
+                "ms": {str(n): t for n, t in times.items()},
+                "max_abs_diff_vs_first": {
+                    str(n): float((outs[n].float() - outs[counts[0]].float())
+                                  .abs().max()) for n in counts}}),
+                flush=True)
+            del case, outs
+            torch.cuda.empty_cache()
+    finally:
+        pa.launch_split_count = plan
+
+
 def dkv_rows():
     import torch
 
@@ -47,33 +182,9 @@ def dkv_rows():
     from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
     cs = _smoke()
     print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
-    with open(fa.SOURCE) as f:
-        text = f.read()
-    rule = "return D == 128 ? 128 : 64;"
-    if rule not in text:
-        raise RuntimeError(f"dkv-rows: `{rule}` not found in {fa.SOURCE}")
-    libs, procs = {}, {}
-    for rows in (64, 128):
-        out = os.path.join(REPO, "build", "flash_probe", f"rows{rows}")
-        os.makedirs(out, exist_ok=True)
-        for name in os.listdir(kbuild.CSRC):
-            if name.endswith(kbuild.HEADER_SUFFIXES):
-                with open(os.path.join(kbuild.CSRC, name)) as f, \
-                        open(os.path.join(out, name), "w") as g:
-                    g.write(f.read())
-        src = os.path.join(out, "flash_attention.cu")
-        with open(src, "w") as f:
-            f.write(text.replace(rule, f"return {rows};"))
-        procs[rows] = (os.path.join(out, "flash_attention.so"), subprocess.Popen(
-            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o",
-             os.path.join(out, "flash_attention.so"), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for rows, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"dkv-rows: nvcc failed at {rows} rows:\n{log}")
-        print(json.dumps({"rows": rows, "ptxas": _ptxas(log)}), flush=True)
-        libs[rows] = ctypes.CDLL(lib)
+    libs = _build_variants("flash_attention.cu",
+                           "return D == 128 ? 128 : 64;",
+                           {rows: f"return {rows};" for rows in (64, 128)})
     dev = torch.device("cuda", 0)
     for name, (b, s, hq, hkv, d) in cs.FLASH_TIMED_SHAPES.items():
         q, k, v, g, _ = cs._flash_inputs(torch.Generator().manual_seed(5),
@@ -85,8 +196,8 @@ def dkv_rows():
         for rows in (64, 128, 128, 64):
             kbuild._libs[fa.SOURCE] = libs[rows]
             grads[rows] = fa.flash_bwd_dkv(*args)
-            times[rows].append(cs.cuda_time_ms(
-                lambda: fa.flash_bwd_dkv(*args), iters=20))
+            times[rows].append(cs.device_ms(
+                lambda: fa.flash_bwd_dkv(*args), calls=10))
         torch.cuda.synchronize()
         print(json.dumps({
             "shape": name, "rows64_ms": times[64], "rows128_ms": times[128],
@@ -98,10 +209,23 @@ def dkv_rows():
 def ab(parent: str):
     code = ("import sys; sys.path.insert(0, '.'); import torch, chip_smoke "
             "as c; torch.backends.cuda.matmul.allow_tf32 = False; "
-            "torch.backends.cudnn.allow_tf32 = False; s = {}; "
-            "c.phase_train(s, 4); c.phase_train_gpt2(s)")
+            "torch.backends.cudnn.allow_tf32 = False; s = {}\n"
+            "from megatronapp_tpu_torch.ops.cuda import build as kb\n"
+            "kb.build_all([kb.source(n) for n in ('flash_attention.cu', "
+            "'paged_attention.cu', 'fused_decode.cu')])\n"
+            "c.phase_train(s, 4); c.phase_train_gpt2(s)\n"
+            "from megatronapp_tpu_torch.models.gpt import init_gpt_params\n"
+            "from megatronapp_tpu_torch.models.presets import llama3_8b\n"
+            "dev = torch.device('cuda', 0)\n"
+            "cfg = llama3_8b(num_layers=32, params_dtype=torch.bfloat16)\n"
+            "s['model'] = (init_gpt_params(cfg, torch.Generator(dev)"
+            ".manual_seed(0), dev), cfg, dev)\n"
+            "c.phase_profile(s)")
     keys = ("step_ms", "mean_step_ms_after_first", "tokens_per_s", "mfu",
             "peak_mem_bytes", "launches")
+    window_keys = ("device_ms_per_unit_by_family", "device_busy_ms",
+                   "wall_ms_per_unit", "device_idle_share",
+                   "paged_attention_ms_per_launch")
     trees = {"parent": os.path.abspath(parent), "change": REPO}
     for which in ("parent", "change", "change", "parent"):
         proc = subprocess.run([sys.executable, "-c", code], cwd=trees[which],
@@ -113,6 +237,15 @@ def ab(parent: str):
             if not line.startswith("{"):
                 continue
             rec = json.loads(line)
+            if rec.get("phase") == "profile":
+                for eng in ("unfused", "fused"):
+                    for win, w in rec[eng].items():
+                        print(json.dumps({
+                            "tree": which, "phase": "profile",
+                            "engine": eng, "window": win,
+                            **{k: w.get(k) for k in window_keys}}),
+                            flush=True)
+                continue
             row = {"tree": which, "phase": rec.get("phase"),
                    **{k: rec.get(k) for k in keys}}
             prof = rec.get("profiled_steps")
@@ -125,7 +258,9 @@ def ab(parent: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("fwd-tiles")
     sub.add_parser("dkv-rows")
+    sub.add_parser("paged-splits")
     p_ab = sub.add_parser("ab")
     p_ab.add_argument("--parent", required=True,
                       help="a checkout whose chip_smoke.py runs first")
@@ -134,10 +269,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device", file=sys.stderr)
         return 2
-    if args.cmd == "dkv-rows":
-        dkv_rows()
-    else:
-        ab(args.parent)
+    {"fwd-tiles": fwd_tiles, "dkv-rows": dkv_rows,
+     "paged-splits": paged_splits,
+     "ab": lambda: ab(args.parent)}[args.cmd]()
     return 0
 
 

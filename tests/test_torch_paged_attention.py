@@ -15,6 +15,7 @@ from megatronapp_tpu_torch.ops import paged_attention as tpa
 from megatronapp_tpu_torch.ops.cuda import paged_attention as cuda_pa
 
 ATOL = 1e-5
+NEG_INF_T = cuda_pa.NEG_INF
 
 
 def _case(seed, b, hq, hkv, d, bs, mb, lens, s_q=None):
@@ -116,6 +117,120 @@ def test_plain_version_counts_no_launch():
     c = _case(1, 2, 4, 2, 16, 4, 3, [5, 11])
     _port(c)
     assert cuda_pa.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16-pool kernel's split KV: its partials and their merge, in plain
+# PyTorch (the kernel runs only on the card), against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+def _split_merged(c, splits, q_lens=None):
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    acc, m, l = cuda_pa.split_partials_plain(
+        t["q"], t["k"], t["v"], t["table"], t["lens"],
+        None if q_lens is None else torch.from_numpy(q_lens), splits)
+    out = cuda_pa.merge_split_partials(acc, m, l)
+    return (out[:, 0] if q_lens is None else out).numpy(), l.numpy()
+
+
+# name: (bs, mb, kv lens, splits); capacities of 448-1024 positions: 7-16
+# kv tiles of 64 rows, dealt to the splits in turn.
+SPLIT_DECODE_CASES = {
+    "one_split": (16, 28, [1, 200, 448], 1),
+    "two_splits": (16, 28, [64, 65, 448], 2),
+    "seven_splits_bs64": (64, 7, [1, 130, 448], 7),
+    "splits_past_kv_len": (16, 64, [70, 5, 129], 7),
+    "kv_len_under_one_tile": (64, 8, [5, 63, 1], 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_DECODE_CASES))
+def test_split_merge_decode_matches_jax_kernel(name):
+    """Decode rows: the kernel's split partials merged in split order equal
+    the Pallas kernel, whatever the split count, with splits wholly past a
+    slot's kv_len (zero weight, l = 0) and kv_len under one kv tile."""
+    bs, mb, lens, splits = SPLIT_DECODE_CASES[name]
+    c = _case(splits * 10 + bs, 3, 4, 2, 16, bs, mb, lens)
+    got, l = _split_merged(c, splits)
+    for b, n in enumerate(lens):   # splits past kv_len carry no weight
+        assert (l[b, 0, :, -(-n // cuda_pa.KV_TILE):] == 0).all()
+    np.testing.assert_allclose(got, _jax(c, kernel_gen.paged_attention),
+                               atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("bs,splits", [(16, 2), (16, 7), (64, 7)])
+def test_split_merge_ragged_matches_jax_kernel(bs, splits):
+    """Ragged chunks: padding rows (finite, attending all kv_len
+    positions) and rows whose causal limit ends before the later splits
+    (l = 0 there) merge to the Pallas kernel's rows."""
+    mb = 448 // bs
+    s_q = 6
+    lens = [448, 100, 7]
+    q_lens = np.asarray([6, 3, 4], np.int32)
+    c = _case(bs + splits, 3, 4, 2, 16, bs, mb, lens, s_q=s_q)
+    got, l = _split_merged(c, splits, q_lens)
+    assert np.isfinite(got).all()
+    # Slot 1's row 0 sees positions [0, 98), kv tiles 0 and 1: the later
+    # splits give it no weight, while slot 1's last row has weight in
+    # every split that holds one of its tiles 0-1.
+    assert (l[1, 0, :, 2:] == 0).all()
+    assert (l[1, 2, :, :2] > 0).all()
+    np.testing.assert_allclose(
+        got, _jax(c, lambda q, k, v, t, n, ql: kernel_gen.paged_attention(
+            q, k, v, t, n, q_lens=ql), q_lens),
+        atol=ATOL, rtol=ATOL)
+
+
+def test_merge_skips_splits_without_weight():
+    """A split with l = 0 is never read (its acc may hold anything) and a
+    row with no weight in any split gives zeros, not NaN."""
+    acc = torch.randn(2, 3, 8)
+    m = torch.tensor([[0.5, NEG_INF_T, 1.5], [NEG_INF_T] * 3])
+    l = torch.tensor([[2.0, 0.0, 3.0], [0.0] * 3])
+    acc[:, 1] = float("nan")
+    acc[1] = float("inf")
+    out = cuda_pa.merge_split_partials(acc, m, l)
+    w = torch.exp(torch.tensor([0.5, 1.5]) - 1.5)
+    want = (acc[0, 0] * w[0] + acc[0, 2] * w[1]) / (2.0 * w[0] + 3.0 * w[1])
+    torch.testing.assert_close(out[0], want)
+    assert torch.equal(out[1], torch.zeros(8))
+
+
+SPLIT_PLAN_SHAPES = {
+    # name: (q shape, pool shape, page table shape) -> splits
+    "llama3_8b_decode_b8_kv1024": ((8, 32, 128), (600, 16, 8, 128),
+                                   (8, 64), 4),
+    "llama3_8b_ragged_b1_kv1024": ((1, 32, 32, 128), (600, 16, 8, 128),
+                                   (1, 64), 8),
+    "llama3_8b_engine_decode": ((8, 32, 128), (1024, 16, 8, 128),
+                                (8, 128), 4),
+    "llama3_8b_engine_chunk": ((1, 32, 32, 128), (1024, 16, 8, 128),
+                               (1, 128), 16),
+    "gpt2_decode_b4": ((4, 12, 64), (300, 16, 12, 64), (4, 64), 6),
+    "one_page": ((8, 32, 128), (64, 16, 8, 128), (8, 1), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_PLAN_SHAPES))
+def test_split_count_reads_only_shapes(name):
+    """The host's split count comes from the launch's shapes: given meta
+    tensors (shapes without values) it gives the same count as the plan on
+    plain integers, and never more splits than kv tiles, nor more than
+    half as many when a block holds over 32 rows."""
+    q_shape, pool_shape, table_shape, want = SPLIT_PLAN_SHAPES[name]
+    meta = {"device": "meta"}
+    q = torch.empty(q_shape, dtype=torch.bfloat16, **meta)
+    pages = torch.empty(pool_shape, dtype=torch.bfloat16, **meta)
+    table = torch.empty(table_shape, dtype=torch.int32, **meta)
+    splits = cuda_pa.launch_split_count(q, pages, table)
+    assert splits == want
+    capacity = table_shape[1] * pool_shape[1]
+    group = q_shape[-2] // pool_shape[2]
+    rows = (q_shape[1] if len(q_shape) == 4 else 1) * group
+    assert splits == cuda_pa.kv_split_plan(q_shape[0], pool_shape[2], rows,
+                                           capacity)
+    tiles = -(-capacity // cuda_pa.KV_TILE)
+    assert 1 <= splits <= (tiles if rows <= 32 else max(1, tiles // 2))
 
 
 # ---------------------------------------------------------------------------
