@@ -25,9 +25,13 @@ Phases, each printing one JSON line:
             decode step on the card (bf16, kernels) against the same
             weights on the CPU (fp32, plain versions).
    kv_quant_kernels: the quantized paged-attention kernel (int8 and fp8
-            pools with fp32 scale pools) against its plain version on the
-            same pools: decode and ragged at llama3-8b attention shapes,
-            block size 64, and gpt2-125m.
+            pools with fp32 scale pools; split KV on the tensor cores)
+            against its plain version on the same pools: decode and
+            ragged at llama3-8b attention shapes, block size 64, short
+            slots in a 2048-position table, a chunk at kv 2047, and
+            gpt2-125m; within 5e-3, its bf16 output within one ulp of
+            bf16(plain) on all but 1 % of the elements (an fp32-grade
+            body), reruns bit for bit, each launch's split count.
    fused_int8_kernels: the four fused kernels on resident int8 weights
             against their plain versions: llama3-8b at 8 and 32 rows,
             gpt2-125m, and fp32 norm scales beside int8 weights.
@@ -133,7 +137,7 @@ Phases, each printing one JSON line:
             in advance; for the latent kernel SDPA on rows gathered in
             advance and the w_v einsum; for the MLA prologue the GEMM
             alone) and the card's bound, at the shapes the main paths
-            launch (the bf16 paged rows with their kv split count).
+            launch (the paged rows with their kv split count).
    tp_times: rows 8 and 9 on one rank's latent columns at serve_tp's
             shapes (decode B 8 and a 32-token chunk, kv 1024, bf16, int8
             and fp8 pools): kernel, plain, library (torch.bmm on gathered
@@ -217,13 +221,31 @@ QUANT_KINDS = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 QUANT_REPLACES = (f"{REPLACES} (int8/fp8 pools: k_scales/v_scales; body "
                   "emit_paged_kernel :202-335)")
 # Quantized paged kernel vs its plain version on the same int8/fp8 pools
-# and scale pools. Both dequantize each element as float(page) x its (row,
-# head) scale and compute in fp32 throughout: neither rounds q or P to
-# bf16. They differ by the order of the fp32 sums (~1e-6 of an output) and
-# by the kernel's bf16 rounding of its output, at most 2^-8 = 0.0039 of
-# the element, so each output element is held to QUANT_REL_TOL of
-# max(|element|, its (row, head) RMS over D), far inside REL_TOL.
+# and scale pools. Neither rounds q or P to bf16 (the TPU kernel's fp32
+# body): the plain version dequantizes float(page) x scale and computes in
+# fp32; the kernel takes exact bf16 products of q and the codes summed in
+# fp32, scales the scores in fp32 and carries P x s_v into P . V as three
+# bf16 terms (24 significant bits). They differ by the order of the fp32
+# operations (~1e-6 of an output) and by the kernel's bf16 rounding of its
+# output, at most 2^-8 = 0.0039 of the element, so each output element is
+# held to QUANT_REL_TOL of max(|element|, its (row, head) RMS over D), far
+# inside REL_TOL.
 QUANT_REL_TOL = 5e-3
+# The tighter check of the same comparison: the kernel's bf16 output
+# against bf16(the fp32 plain output), element by element. A body that is
+# fp32-grade (~1e-7 of the (row, head) RMS from the plain value) rounds to
+# another bf16 value only where the fp32 value lies that close to a
+# rounding boundary: well under 1 % of the elements, and then by one ulp.
+# A body that rounded q or P to bf16 moves each output by ~2^-9 of the RMS
+# and flips a large share, by many ulps. An ulp is taken at max(|plain
+# element|, 2^-8 of its (row, head) RMS): an element far below its row's
+# scale is a sum that cancelled, and fp32's ~1e-7 of the row's scale is
+# many ulps of it (up to 36 on the parent's fp32 design and this one
+# alike, at elements ~1e-6 of the RMS; flash_probe.py quant-flips), while
+# 2^-9 of the RMS is still ~100 ulps at the floor. So at most
+# QUANT_FLIP_SHARE of the real elements may differ, none by more than one
+# such ulp.
+QUANT_FLIP_SHARE = 0.01
 # Card (bf16) vs CPU (fp32) logits of phase_quant_reference, as a share of
 # their range, by pool dtype (the reasoning is beside the check).
 QUANT_REF_TOL = {"int8": 0.05, "fp8": 0.1}
@@ -590,10 +612,54 @@ def quantize_case(case, kind):
     return out
 
 
+def bf16_ulps(out, ref, floor):
+    """|out - bf16(ref)| for a bf16 out, in bf16 ulps of max(|ref|, floor)
+    (element by element; an ulp of x is 2^(floor(log2 x) - 7))."""
+    scale = torch.maximum(ref.abs(), floor).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return (out.float() - ref.to(torch.bfloat16).float()).abs() / ulp
+
+
+def quant_errors(out, case):
+    """The quantized kernel's bf16 output on `case` against the plain
+    version in fp32 on the same pools, over the real rows (padding rows
+    are finite garbage by contract): max abs error, max error over
+    max(|element|, (row, head) RMS), the share of elements whose bf16
+    differs from bf16(plain), the largest such difference in ulps of
+    max(|plain element|, 2^-8 (row, head) RMS), and that element's
+    (kernel, plain, (row, head) RMS)."""
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    ql = case.get("q_lens")
+    ref = pa.paged_attention_plain(
+        case["q"].float(), case["k"], case["v"], case["table"],
+        case["kv_lens"], q_lens=ql, k_scales=case["k_scales"],
+        v_scales=case["v_scales"])
+    if ql is not None:
+        real = (torch.arange(out.shape[1], device=out.device)[None, :]
+                < ql[:, None].long())
+        out, ref = out[real], ref[real]
+    got = out.float()
+    err = (got - ref).abs()
+    rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    ulps = bf16_ulps(out, ref, rms / 256)
+    i = int(ulps.argmax())
+    return {"max_abs": float(err.max()),
+            "rel": float((err / torch.maximum(ref.abs(), rms)).max()),
+            "flip_share": float((out.float()
+                                 != ref.to(torch.bfloat16).float())
+                                .float().mean()),
+            "max_ulps": float(ulps.max()),
+            "worst_ulp_element": [float(got.flatten()[i]),
+                                  float(ref.flatten()[i]),
+                                  float(rms.expand_as(ref).flatten()[i])]}
+
+
 def _compare_quant(case, mode, kind):
     """The quantized kernel twice (one launch a call, the same bits) and
     its plain version in fp32 on the same pools; returns (max abs error,
-    max error over max(|element|, (row, head) RMS))."""
+    max error over max(|element|, (row, head) RMS), the share of real
+    elements whose bf16 differs from bf16(plain), the largest such
+    difference in ulps, the launch's kv split count)."""
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     ql = case.get("q_lens")
     key = f"{'decode' if ql is None else 'ragged'}_{kind}"
@@ -609,37 +675,29 @@ def _compare_quant(case, mode, kind):
           f"{pa.launches[key] - before} times for two calls")
     check(torch.equal(out, again), f"kv_quant_kernels {mode}: the rerun "
           "gave other bits")
-    ref = pa.paged_attention_plain(case["q"].float(), *pools, **kw)
-    got = out.float()
-    check(bool(torch.isfinite(got).all()),
+    check(bool(torch.isfinite(out).all()),
           f"kv_quant_kernels {mode}: non-finite output")
-    if ql is not None:    # padding rows are finite garbage by contract
-        real = (torch.arange(got.shape[1], device=got.device)[None, :]
-                < ql[:, None].long())
-        got, ref = got[real], ref[real]
-    err = (got - ref).abs()
-    rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
-    rel = float((err / torch.maximum(ref.abs(), rms)).max())
-    check(rel <= QUANT_REL_TOL,
-          f"kv_quant_kernels {mode}: error {rel} of max(|element|, row "
-          f"RMS) exceeds {QUANT_REL_TOL} (max abs {float(err.max())})")
-    return float(err.max()), rel
+    e = quant_errors(out, case)
+    check(e["rel"] <= QUANT_REL_TOL,
+          f"kv_quant_kernels {mode}: error {e['rel']} of max(|element|, row "
+          f"RMS) exceeds {QUANT_REL_TOL} (max abs {e['max_abs']})")
+    check(e["flip_share"] <= QUANT_FLIP_SHARE and e["max_ulps"] <= 1,
+          f"kv_quant_kernels {mode} {kind}: {e['flip_share']} of the "
+          f"elements differ from bf16(plain) (at most {QUANT_FLIP_SHARE}), "
+          f"by up to {e['max_ulps']} ulps (at most 1; that element's "
+          f"kernel, plain, row RMS: {e['worst_ulp_element']}): the body is "
+          "not fp32-grade")
+    return (e["max_abs"], e["rel"], e["flip_share"], e["max_ulps"],
+            pa.launch_split_count(case["q"], case["k"], case["table"]))
 
 
-def phase_kv_quant_kernels(state):
-    """The quantized paged kernel against its plain version, int8 and fp8
-    pools, at the shapes of phase_kernels (decode at B 8 with kv up to
-    1024, the engine's ragged launch at B 1 and S_q 32), block size 64,
-    and gpt2-125m (D 64, MHA)."""
-    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(4242)
-    before = dict(pa.launches)
+def quant_cases() -> dict:
+    """phase_kv_quant_kernels' shapes: name → make_case keywords."""
     llama = dict(hq=32, hkv=8, d=128, bs=16)
     gpt2 = dict(hq=12, hkv=12, d=64, bs=16)
     q_lens = [1, 15, 16, 17, 32, 32, 7, 3]
     lens = [1, 15, 16, 17, 300, 1000, 1024, 640]
-    shapes = {
+    return {
         "decode_llama": dict(batch=8, kv_lens=lens, **llama),
         "ragged_llama_b1": dict(batch=1, kv_lens=[1000], s_q=32,
                                 q_lens=[24], **llama),
@@ -651,9 +709,29 @@ def phase_kv_quant_kernels(state):
         "decode_gpt2": dict(batch=4, kv_lens=[1, 33, 500, 1024], **gpt2),
         "ragged_gpt2": dict(batch=4, kv_lens=[5, 40, 500, 1024], s_q=32,
                             q_lens=[5, 32, 1, 20], **gpt2),
+        # The engine's 2048-position tables: short slots with whole splits
+        # past their kv_len, and a chunk whose rows cross every split.
+        "decode_llama_capacity2048": dict(
+            batch=8, kv_lens=[1, 3, 16, 17, 33, 64, 65, 100], capacity=2048,
+            **llama),
+        "ragged_llama_b1_kv2047": dict(batch=1, kv_lens=[2047], s_q=32,
+                                       q_lens=[32], **llama),
     }
+
+
+def phase_kv_quant_kernels(state):
+    """The quantized paged kernel against its plain version, int8 and fp8
+    pools, at the shapes of phase_kernels (decode at B 8 with kv up to
+    1024, the engine's ragged launch at B 1 and S_q 32, short slots in a
+    2048-position table, a chunk at kv 2047), block size 64, and
+    gpt2-125m (D 64, MHA): within QUANT_REL_TOL, within the one-ulp /
+    QUANT_FLIP_SHARE check, and the same bits on a rerun."""
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(4242)
+    before = dict(pa.launches)
     results = {}
-    for name, kw in shapes.items():
+    for name, kw in quant_cases().items():
         case = make_case(gen, dev, **kw)
         for kind in QUANT_KINDS:
             results[f"{name}_{kind}"] = _compare_quant(
@@ -664,8 +742,11 @@ def phase_kv_quant_kernels(state):
                               if k.startswith(mode) and k.endswith(kind))
         for mode in ("decode", "ragged") for kind in QUANT_KINDS}
     emit({"phase": "kv_quant_kernels", "rel_tol": QUANT_REL_TOL,
+          "flip_share_limit": QUANT_FLIP_SHARE, "rerun_bit_identical": True,
           "errors": "(max abs, max over max(|plain element|, (row, head) "
-                    "RMS))", "cases": results})
+                    "RMS), share of real elements whose bf16 differs from "
+                    "bf16(plain), largest difference in ulps, kv splits)",
+          "cases": results})
 
 
 def phase_reference(state, dev="cuda"):
@@ -3511,8 +3592,8 @@ def _time_case(case, hq, hkv, d, bs):
                       "kv_len": int(case["kv_lens"][0]), "hq": hq,
                       "hkv": hkv, "d": d, "block_size": bs,
                       "s_q": 1 if ql is None else case["q"].shape[1]},
-            "kv_splits": (None if kw else pa.launch_split_count(
-                case["q"], case["k"], case["table"])),
+            "kv_splits": pa.launch_split_count(case["q"], case["k"],
+                                               case["table"]),
             "page_tables_rotated": tables.shape[0]}
 
 

@@ -16,32 +16,51 @@
 //
 // Design. At 8 rows the prologue reads ~59 MB of weights a layer (q_proj
 // 25.2 M, kv_down 2.4 M and kv_up's k_nope half 2.1 M bf16 values): bound
-// by those bytes (~17.7 us at 3.35 TB/s). No block of one CUDA kernel can
-// wait for another, and three things couple columns across blocks: the rms
-// over all klat latent columns, the rope pairs inside each head's dpe q_pe
-// columns, and the absorption, which needs a head's whole dqk q_nope values.
-// So the work splits in two launches:
+// by those bytes (~17.7 us at 3.35 TB/s); at 32 rows its 1.9 GFLOP of
+// products would take ~30 us as fp32 FMAs on the CUDA cores, so they run
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators, tensor_core.cuh). The JAX body takes bf16 operands into
+// every product and accumulates in fp32 (kernel_gen.py:1468-1493), so the
+// tensor cores keep its rounding points exactly; only the order of the
+// sums differs. No block of one CUDA kernel can wait for another, and
+// three things couple columns across blocks: the rms over all klat latent
+// columns, the rope pairs inside each head's dpe q_pe columns, and the
+// absorption, which needs a head's whole dqk q_nope values. So the work
+// splits in two launches:
 // - mla_down: one block a 64-column tile of [q_proj | kv_down] (or
-//   [q_down | kv_down] on the q_lora path): 96 + 9 tiles at llama3-8b
-//   widths. Each block recomputes its rows' norm statistics, stages
-//   bf16(norm(x)) in chunks of 256 k's (every load of a chunk in flight at
-//   once), streams its weight slab once (a chunk's 32 loads a thread in
-//   flight while the chunk before is summed) and sums in fp32; the 8
-//   warps' partial sums add in a fixed order (reruns repeat every bit). A
-//   q_pe tile and the k_pe tile (dpe == 64: one tile) rope in the block;
+//   [q_down | kv_down] on the q_lora path): 32 x 3 + 9 = 105 blocks at
+//   llama3-8b widths; a q_pe tile and the k_pe tile are whole 64-column
+//   tiles, since the rope pairs columns c and c + dpe / 2. Each block
+//   starts its first stages' copies, computes its rows' norm statistics
+//   while they land, then walks k in stages of kKc = 128: a cp.async
+//   ring of kStages stages holds the weight slab's rows (k-major, read with
+//   ldmatrix .trans), the raw rows of x and the norm's scale and bias
+//   over the stage's k's, so that kStages - 1 stages (48 KB of weights)
+//   are in flight; each landed stage of x becomes bf16(norm(x)) in a tile
+//   of 16-row A fragments (8 rows fill one tile, 32 rows two). Warp w
+//   takes the k16 steps w % 4, w % 4 + 4, ... of each stage and half the
+//   tile's columns; the four k groups' fp32 sums add in a fixed order at
+//   the end (reruns repeat every bit). Every block normalises all of x,
+//   so fewer, wider tiles cost less than more blocks: 32-column tiles
+//   (177 blocks) and 64-k stages ran slower (flash_probe.py
+//   prologue-variants, PERF.md). q_pe and k_pe rope in their tiles;
 //   q_nope tiles, the pre-norm latent (and q_down's output) go to a bf16
 //   workspace.
-// - mla_up: one block a head: on the q_lora path it first forms the head's
-//   dqk + dpe columns of q = rms(q0) @ q_up the same way (ropes its q_pe
-//   tile); then it absorbs the head's q_nope through kv_up's k_nope block,
-//   staged 128 latent columns at a time with 16-byte loads. R more blocks
-//   normalise one latent row each.
-// Products run on CUDA cores in fp32 (no mma/wgmma, no TMA): at 32 rows the
-// q_proj product's FMAs (0.8 G a layer) outweigh its bytes.
+// - mla_up: on the q_proj path one block a (head, 64 latent columns):
+//   256 blocks absorb bf16(q_nope * m2) [rows, dqk] through the head's
+//   kv_up k_nope rows [64, dqk] (both gathered whole with cp.async) on
+//   mma.sync. On the q_lora path one block a head first forms the head's
+//   dqk + dpe columns of q = rms(q0) @ q_up with mla_down's tile product
+//   (roping its q_pe tile), then absorbs its q_nope through all klat
+//   latent columns, 64 at a time (a third launch would let more blocks
+//   share the q_up product; the q_lora path is not the main path). R more
+//   blocks normalise one latent row each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -49,15 +68,19 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;                 // output columns a GEMM tile
-constexpr int kChunk = 256;               // k's staged at once
-constexpr int kKw = kChunk / kWarps;      // k's of a chunk a warp sums
-constexpr int kAbs = 128;                 // latent columns an absorption pass
+// Columns of a q_nope / latent tile and of a rope tile (q_pe, k_pe: whole,
+// for the rope's pairs). Equal; kept apart so that flash_probe.py
+// prologue-variants can build narrower q_nope / latent tiles.
+constexpr int kNarrow = 64;
+constexpr int kWide = 64;
+constexpr int kKc = 128;                  // k's a ring stage
+constexpr int kStages = 4;                // ring stages (kStages - 1 in flight)
+constexpr int kWld = kWide + 8;           // ring row stride (bf16): 16-byte pad
+constexpr int kAld = kKc + 8;             // A tile row stride
+constexpr int kAbs = 64;                  // latent columns an absorption pass
 enum Norm { kNormRms = 1, kNormLayer = 2 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+using tc::round_bf16;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -77,7 +100,7 @@ __device__ void row_stats(const bf16* x, int ld, int k, int rows, int norm,
     float mean = 0.f;
     if (norm == kNormLayer) {
       float s = 0.f;
-#pragma unroll 4
+#pragma unroll 8
       for (int c = lane * 8; c < k; c += 32 * 8) {
         const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + c));
         const bf16* v = reinterpret_cast<const bf16*>(&raw);
@@ -87,7 +110,7 @@ __device__ void row_stats(const bf16* x, int ld, int k, int rows, int norm,
       mean = warp_sum(s) / (float)k;
     }
     float ss = 0.f;
-#pragma unroll 4
+#pragma unroll 8
     for (int c = lane * 8; c < k; c += 32 * 8) {
       const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + c));
       const bf16* v = reinterpret_cast<const bf16*>(&raw);
@@ -105,109 +128,188 @@ __device__ void row_stats(const bf16* x, int ld, int k, int rows, int norm,
   }
 }
 
-// bf16(norm(v)) of one element: ((v - mean) * rstd) * scale (+ bias).
-__device__ __forceinline__ float normed(float v, float mean, float rstd,
-                                        const bf16* scale, const bf16* bias,
-                                        int c) {
-  float y = __fmul_rn(__fmul_rn(__fsub_rn(v, mean), rstd),
-                      __bfloat162float(scale[c]));
-  if (bias != nullptr) y = __fadd_rn(y, __bfloat162float(bias[c]));
-  return round_bf16(y);
+// bf16(norm(v)) of one element: ((v - mean) * rstd) * scale.
+__device__ __forceinline__ float normed(float v, float mean, float rstd, float scale) {
+  return round_bf16(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), rstd), scale));
 }
 
-// Stages a_s[kk][r] = bf16(norm(x[r][kc + kk])) for kk < kChunk, r < ROWS
-// (zero past `rows` and past k): every load of the chunk in flight before
-// the first store.
+// The A operand of a tile product: rows [0, rows) of a bf16 [rows, k]
+// matrix (row stride ld), normalised with per-row statistics and a scale
+// (and bias) vector over k.
+struct NormSrc {
+  const bf16* x;
+  int ld, k, rows;
+  const float* mean_s;
+  const float* rstd_s;
+  const bf16* scale;
+  const bf16* bias;
+};
+
+// Shared memory of tile_gemm: the weight ring, the x ring, the ring of
+// the norm's scale and bias vectors, the A tile.
 template <int ROWS>
-__device__ void stage_normed(float* a_s, const bf16* x, int ld, int k,
-                             int rows, int kc, const float* mean_s,
-                             const float* rstd_s, const bf16* scale,
-                             const bf16* bias) {
-  for (int i = threadIdx.x; i < kChunk * ROWS; i += kThreads) {
-    const int kk = i / ROWS, r = i % ROWS, c = kc + kk;
-    float v = 0.f;
-    if (r < rows && c < k)
-      v = normed(__bfloat162float(x[(size_t)r * ld + c]), mean_s[r],
-                 rstd_s[r], scale, bias, c);
-    a_s[i] = v;
-  }
+__host__ __device__ constexpr size_t gemm_smem() {
+  return ((size_t)kStages * kKc * kWld + (size_t)kStages * (ROWS + 2) * kKc +
+          (size_t)16 * ((ROWS + 15) / 16) * kAld) * sizeof(bf16);
 }
 
-// out_s[r][c] = sum_k A[r][k] W[k][c] over a 64-column slab of W (w: its
-// first column, row stride ldw, k rows), A staged chunk by chunk into a_s
-// by stage(kc). Thread (warp, lane) sums columns 2 lane, 2 lane + 1 over the
-// k's warp, warp + 8, ... of each chunk; the warps' partials add in order.
-// a_s and red share `region`.
-template <int ROWS, typename Stage>
-__device__ void tile_gemm(const bf16* __restrict__ w, long long ldw, int k,
-                          Stage stage, float* region, float* out_s) {
+// out_s[r][c] (fp32 [ROWS][W]) = sum_k bf16(norm(A))[r][k] w[k][c] over a
+// W-column slab of a k-major weight (w: its first column, row stride ldw;
+// A.k rows), on mma.sync. The k's go through the ring kKc at a time; warp
+// (kg, nh) = (w % 4, w / 4) sums the k16 steps kg, kg + 4, ... of each
+// stage over the slab's columns [nh W / 2, (nh + 1) W / 2); the four kg
+// partials add in order. prep() runs once the first stages are in flight
+// (it writes A's statistics). smem: gemm_smem<ROWS>() bytes, whose first
+// 4 x 16 MT x W floats hold the partials at the end; out_s must lie past
+// them.
+template <int ROWS, int W, typename Prep>
+__device__ void tile_gemm(const bf16* __restrict__ w, long long ldw, const NormSrc& A,
+                          bf16* smem, float* out_s, Prep prep) {
+  constexpr int MT = (ROWS + 15) / 16;   // 16-row A tiles
+  constexpr int WN = W / 2, NB = WN / 8;  // a warp's columns, its n8 blocks
+  constexpr int WP = W / 8;              // 16-byte pieces of a weight row
+  static_assert(NB % 2 == 0, "ldmatrix .x4 gives two n8 blocks");
+  bf16* w_ring = smem;                                  // [kStages][kKc][kWld]
+  bf16* x_ring = w_ring + kStages * kKc * kWld;         // [kStages][ROWS][kKc]
+  bf16* v_ring = x_ring + kStages * ROWS * kKc;         // [kStages][scale, bias][kKc]
+  bf16* a_s = v_ring + kStages * 2 * kKc;               // [16 MT][kAld]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float acc[ROWS][2];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r][0] = acc[r][1] = 0.f;
-  const bf16* wp = w + 2 * lane;
-  for (int kc = 0; kc < k; kc += kChunk) {
-    __syncthreads();
-    stage(kc, region);
-    __syncthreads();
-    uint32_t wv[kKw];
-#pragma unroll
-    for (int i = 0; i < kKw; ++i) {
-      const int kr = kc + warp + i * kWarps;
-      wv[i] = kr < k ? __ldg(reinterpret_cast<const unsigned int*>(
-                           wp + (long long)kr * ldw))
-                     : 0u;
+  const int kg = warp & 3, nh = warp >> 2;
+  const int chunks = (A.k + kKc - 1) / kKc;
+
+  auto load = [&](int c) {
+    const int st = c % kStages, k0 = c * kKc;
+    for (int i = tid; i < kKc * WP; i += kThreads) {
+      const int r = i / WP, c8 = (i % WP) * 8, k = k0 + r;
+      const bool live = k < A.k;
+      tc::cp_async_16(w_ring + (st * kKc + r) * kWld + c8,
+                      w + (live ? (long long)k * ldw + c8 : 0), live);
     }
+    for (int i = tid; i < ROWS * (kKc / 8); i += kThreads) {
+      const int r = i / (kKc / 8), c8 = (i % (kKc / 8)) * 8, k = k0 + c8;
+      const bool live = r < A.rows && k < A.k;   // A.k is a multiple of 8
+      tc::cp_async_16(x_ring + (st * ROWS + r) * kKc + c8,
+                      A.x + (live ? (size_t)r * A.ld + k : 0), live);
+    }
+    // The norm's scale (and bias) over the stage's k's: read here, ahead,
+    // and not from device memory in the normalisation below, whose loads
+    // would wait on the L2 behind the weights' stream every stage.
+    if (tid < 2 * (kKc / 8)) {
+      const int v = tid / (kKc / 8), c8 = (tid % (kKc / 8)) * 8, k = k0 + c8;
+      const bf16* src = v == 0 ? A.scale : A.bias;
+      const bool live = src != nullptr && k < A.k;
+      tc::cp_async_16(v_ring + (st * 2 + v) * kKc + c8, live ? src + k : A.scale, live);
+    }
+  };
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < chunks) load(c);
+    tc::cp_async_commit();   // empty groups keep the count uniform
+  }
+  prep();   // A's norm statistics, while the first stages load
+
+  float acc[MT][NB][4];
 #pragma unroll
-    for (int i = 0; i < kKw; ++i) {
-      const float w0 = __uint_as_float(wv[i] << 16);
-      const float w1 = __uint_as_float(wv[i] & 0xffff0000u);
-      const float* ar = region + (warp + i * kWarps) * ROWS;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int r = 0; r < ROWS; r += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(ar + r);
-        acc[r][0] = fmaf(a.x, w0, acc[r][0]);
-        acc[r][1] = fmaf(a.x, w1, acc[r][1]);
-        acc[r + 1][0] = fmaf(a.y, w0, acc[r + 1][0]);
-        acc[r + 1][1] = fmaf(a.y, w1, acc[r + 1][1]);
-        acc[r + 2][0] = fmaf(a.z, w0, acc[r + 2][0]);
-        acc[r + 2][1] = fmaf(a.z, w1, acc[r + 2][1]);
-        acc[r + 3][0] = fmaf(a.w, w0, acc[r + 3][0]);
-        acc[r + 3][1] = fmaf(a.w, w1, acc[r + 3][1]);
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c % kStages, k0 = c * kKc;
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage c has landed; every warp is done with stage c - 1
+    if (c + kStages - 1 < chunks) load(c + kStages - 1);
+    tc::cp_async_commit();
+    // bf16(norm(x)) of this stage into the A tile (rows past `rows` zero):
+    // ((x - mean) * rstd) * scale (+ bias) in fp32, rounded once, two at a
+    // time (A.k is a multiple of 8: a 16-byte piece is live or not).
+    const bf16* vs = v_ring + st * 2 * kKc;
+    for (int i = tid; i < 16 * MT * (kKc / 8); i += kThreads) {
+      const int r = i / (kKc / 8), c8 = (i % (kKc / 8)) * 8;
+      uint4 out = make_uint4(0u, 0u, 0u, 0u);
+      if (r < A.rows && k0 + c8 < A.k) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(x_ring + (st * ROWS + r) * kKc + c8);
+        const uint4 scr = *reinterpret_cast<const uint4*>(vs + c8);
+        const uint4 bir = *reinterpret_cast<const uint4*>(vs + kKc + c8);
+        const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const __nv_bfloat162* sv = reinterpret_cast<const __nv_bfloat162*>(&scr);
+        const __nv_bfloat162* bv = reinterpret_cast<const __nv_bfloat162*>(&bir);
+        uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+        const float mean = A.mean_s[r], rstd = A.rstd_s[r];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(xv[e]), sc = __bfloat1622float2(sv[e]);
+          float y0 = __fmul_rn(__fmul_rn(__fsub_rn(f.x, mean), rstd), sc.x);
+          float y1 = __fmul_rn(__fmul_rn(__fsub_rn(f.y, mean), rstd), sc.y);
+          if (A.bias != nullptr) {
+            const float2 bi = __bfloat1622float2(bv[e]);
+            y0 = __fadd_rn(y0, bi.x);
+            y1 = __fadd_rn(y1, bi.y);
+          }
+          o[e] = tc::pack_bf16(y0, y1);
+        }
+      }
+      *reinterpret_cast<uint4*>(a_s + r * kAld + c8) = out;
+    }
+    __syncthreads();
+    const bf16* ws = w_ring + st * kKc * kWld;
+#pragma unroll
+    for (int kk = 16 * kg; kk < kKc; kk += 64) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) tc::ldmatrix_x4(af[mt], a_s + tc::a_off(lane, 16 * mt, kk, kAld));
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t bf[4];
+        tc::ldmatrix_x4_trans(bf, ws + tc::bt_off(lane, kk, nh * WN + 8 * j, kWld));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          tc::mma_bf16(acc[mt][j], af[mt], bf[0], bf[1]);
+          tc::mma_bf16(acc[mt][j + 1], af[mt], bf[2], bf[3]);
+        }
       }
     }
   }
+  tc::cp_async_wait<0>();
   __syncthreads();
-  float* red = region;   // [kWarps][ROWS][kTile]
+  // The four k groups' partials, then their sum in order.
+  float* red = reinterpret_cast<float*>(smem);   // [4][16 MT][W] (inside the ring)
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-    *reinterpret_cast<float2*>(red + (warp * ROWS + r) * kTile + 2 * lane) =
-        make_float2(acc[r][0], acc[r][1]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int col = nh * WN + 8 * j + 2 * t;
+      float* r0 = red + (kg * 16 * MT + 16 * mt + g) * W + col;
+      *reinterpret_cast<float2*>(r0) = make_float2(acc[mt][j][0], acc[mt][j][1]);
+      *reinterpret_cast<float2*>(r0 + 8 * W) = make_float2(acc[mt][j][2], acc[mt][j][3]);
+    }
   __syncthreads();
-  for (int i = tid; i < ROWS * kTile; i += kThreads) {
+  for (int i = tid; i < ROWS * W; i += kThreads) {
     float s = 0.f;
 #pragma unroll
-    for (int wg = 0; wg < kWarps; ++wg) s += red[wg * ROWS * kTile + i];
+    for (int q = 0; q < 4; ++q) s += red[q * 16 * MT * W + i];
     out_s[i] = s;
   }
   __syncthreads();
 }
 
-// Writes a finished 64-column tile (fp32 sums out_s [ROWS][64]) rounded to
+// Writes a finished W-column tile (fp32 sums out_s [ROWS][W]) rounded to
 // bf16, roped first when `rope` (columns c < half pair with c + half;
 // columns past 2 half pass through): dst[r * ld + c].
-template <int ROWS>
+template <int W>
 __device__ void write_tile(const float* out_s, int rows, bool rope,
                            const float* cos, const float* sin, int half,
                            bf16* dst, long long ld) {
-  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
-    const int r = i / kTile, c = i % kTile;
-    float v = round_bf16(out_s[r * kTile + c]);
+  for (int i = threadIdx.x; i < rows * W; i += kThreads) {
+    const int r = i / W, c = i % W;
+    float v = round_bf16(out_s[r * W + c]);
     if (rope && c < 2 * half) {
       const int j = c < half ? c : c - half;
       const float cs = cos[(size_t)r * half + j], sn = sin[(size_t)r * half + j];
-      const float x1 = round_bf16(out_s[r * kTile + j]);
-      const float x2 = round_bf16(out_s[r * kTile + j + half]);
+      const float x1 = round_bf16(out_s[r * W + j]);
+      const float x2 = round_bf16(out_s[r * W + j + half]);
       v = c < half ? __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn))
                    : __fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn));
     }
@@ -238,66 +340,127 @@ struct MlaArgs {
   float eps, m2;
 };
 
+// mla_down's tiles: on the q_proj path dqk / 32 narrow tiles then one wide
+// q_pe tile a head; on the q_lora path qlr / 32 narrow tiles; then klat /
+// 32 narrow latent tiles and the wide k_pe tile.
+__host__ __device__ inline int q_tiles(const MlaArgs& a) {
+  return a.q_down != nullptr ? a.qlr / kNarrow : a.nq * (a.dqk / kNarrow + 1);
+}
+__host__ __device__ inline int down_tiles(const MlaArgs& a) {
+  return q_tiles(a) + a.klat / kNarrow + 1;
+}
+
 template <int ROWS>
-__global__ void __launch_bounds__(kThreads) mla_down_kernel(MlaArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* region = smem;                                  // max(a_s, red)
-  float* out_s = region + kWarps * ROWS * kTile;         // [ROWS][kTile]
-  float* mean_s = out_s + ROWS * kTile;
+__global__ void __launch_bounds__(kThreads, 2) mla_down_kernel(MlaArgs a) {
+  static_assert(gemm_smem<ROWS>() >= (size_t)(4 * 16 + 16) * ((ROWS + 15) / 16) * kWide * 4,
+                "the partials and out_s fit in tile_gemm's region");
+  extern __shared__ __align__(16) uint4 smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  float* out_s = reinterpret_cast<float*>(ring) + 4 * 16 * ((ROWS + 15) / 16) * kWide;
+  float* mean_s = reinterpret_cast<float*>(reinterpret_cast<char*>(ring) + gemm_smem<ROWS>());
   float* rstd_s = mean_s + ROWS;
-  row_stats(a.x, a.hidden, a.hidden, a.rows, a.norm, a.eps, mean_s, rstd_s);
+  const NormSrc A = {a.x, a.hidden, a.hidden, a.rows, mean_s, rstd_s, a.ln_scale, a.ln_bias};
+  auto stats = [&] { row_stats(a.x, a.hidden, a.hidden, a.rows, a.norm, a.eps, mean_s, rstd_s); };
 
-  const bool lora = a.q_down != nullptr;
-  const int dq = a.dqk + a.dpe;
-  const int nq_cols = lora ? a.qlr : a.nq * dq;
-  const int col0 = blockIdx.x * kTile;      // in [q columns | kv_down columns]
-  const bool q_tile = col0 < nq_cols;
-  const bf16* w = q_tile ? (lora ? a.q_down : a.q_proj) + col0
-                         : a.kv_down + (col0 - nq_cols);
-  const long long ldw = q_tile ? nq_cols : a.klat + a.dpe;
-  auto stage = [&](int kc, float* a_s) {
-    stage_normed<ROWS>(a_s, a.x, a.hidden, a.hidden, a.rows, kc, mean_s,
-                       rstd_s, a.ln_scale, a.ln_bias);
-  };
-  tile_gemm<ROWS>(w, ldw, a.hidden, stage, region, out_s);
-
-  const bool rope = a.cos != nullptr;
-  if (q_tile && lora) {
-    write_tile<ROWS>(out_s, a.rows, false, nullptr, nullptr, 0,
-                     a.ws_q + col0, a.qlr);
-  } else if (q_tile) {
-    const int h = col0 / dq, j = col0 % dq;
-    if (j < a.dqk)
-      write_tile<ROWS>(out_s, a.rows, false, nullptr, nullptr, 0,
-                       a.ws_q + (size_t)h * a.dqk + j, (long long)a.nq * a.dqk);
-    else
-      write_tile<ROWS>(out_s, a.rows, rope, a.cos, a.sin, a.half,
-                       a.q_pe + (size_t)h * a.dpe, (long long)a.nq * a.dpe);
+  const bool lora = a.q_down != nullptr, rope = a.cos != nullptr;
+  const int dq = a.dqk + a.dpe, per_head = a.dqk / kNarrow + 1;
+  const int tile = blockIdx.x, nqt = q_tiles(a);
+  if (tile < nqt && lora) {
+    const int col0 = tile * kNarrow;
+    tile_gemm<ROWS, kNarrow>(a.q_down + col0, a.qlr, A, ring, out_s, stats);
+    write_tile<kNarrow>(out_s, a.rows, false, nullptr, nullptr, 0, a.ws_q + col0, a.qlr);
+  } else if (tile < nqt) {
+    const int h = tile / per_head, j = tile % per_head;
+    const bf16* w = a.q_proj + (size_t)h * dq + j * kNarrow;
+    if (j < per_head - 1) {
+      tile_gemm<ROWS, kNarrow>(w, (long long)a.nq * dq, A, ring, out_s, stats);
+      write_tile<kNarrow>(out_s, a.rows, false, nullptr, nullptr, 0,
+                          a.ws_q + (size_t)h * a.dqk + j * kNarrow, (long long)a.nq * a.dqk);
+    } else {
+      tile_gemm<ROWS, kWide>(w, (long long)a.nq * dq, A, ring, out_s, stats);
+      write_tile<kWide>(out_s, a.rows, rope, a.cos, a.sin, a.half,
+                        a.q_pe + (size_t)h * a.dpe, (long long)a.nq * a.dpe);
+    }
   } else {
-    const int c = col0 - nq_cols;
-    if (c < a.klat)
-      write_tile<ROWS>(out_s, a.rows, false, nullptr, nullptr, 0,
-                       a.ws_lat + c, a.klat);
-    else
-      write_tile<ROWS>(out_s, a.rows, rope, a.cos, a.sin, a.half, a.k_pe,
-                       a.dpe);
+    const int c = (tile - nqt) * kNarrow;
+    const long long ldw = a.klat + a.dpe;
+    if (c < a.klat) {
+      tile_gemm<ROWS, kNarrow>(a.kv_down + c, ldw, A, ring, out_s, stats);
+      write_tile<kNarrow>(out_s, a.rows, false, nullptr, nullptr, 0, a.ws_lat + c, a.klat);
+    } else {
+      tile_gemm<ROWS, kWide>(a.kv_down + a.klat, ldw, A, ring, out_s, stats);
+      write_tile<kWide>(out_s, a.rows, rope, a.cos, a.sin, a.half, a.k_pe, a.dpe);
+    }
   }
+}
+
+// q_lat[r, h, k0 + c] = bf16(sum_d qa[r][d] kv_up[k0 + c, h (dqk + dv) + d])
+// for c < kAbs: the head's kv_up k_nope rows gathered into b_s [kAbs][dqk
+// + 8] with cp.async, then warp w (< 4 MT) takes 16-row tile w / 4 and
+// latent columns 16 (w % 4) .. + 16 on mma.sync over dqk.
+template <int MT>
+__device__ void absorb(const MlaArgs& a, int h, int k0, const bf16* qa_s, bf16* b_s) {
+  const int ld = a.dqk + 8, pieces = a.dqk / 8;
+  const size_t ldkv = (size_t)a.nq * (a.dqk + a.dv);
+  __syncthreads();   // b_s is free
+  for (int i = threadIdx.x; i < kAbs * pieces; i += kThreads) {
+    const int r = i / pieces, d0 = (i % pieces) * 8;
+    const bool live = k0 + r < a.klat;
+    tc::cp_async_16(b_s + r * ld + d0,
+                    a.kv_up + (live ? (size_t)(k0 + r) * ldkv + (size_t)h * (a.dqk + a.dv) + d0 : 0),
+                    live);
+  }
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int mt = warp >> 2, n0 = 16 * (warp & 3);
+  if (mt >= MT) return;
+  float c[2][4] = {};
+  for (int kk = 0; kk < a.dqk; kk += 16) {
+    uint32_t af[4], bf[4];
+    tc::ldmatrix_x4(af, qa_s + tc::a_off(lane, 16 * mt, kk, ld));
+    tc::ldmatrix_x4(bf, b_s + tc::b_off(lane, n0, kk, ld));
+    tc::mma_bf16(c[0], af, bf[0], bf[1]);
+    tc::mma_bf16(c[1], af, bf[2], bf[3]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * mt + g + 8 * i, k = k0 + n0 + 8 * j + 2 * t;
+      if (r < a.rows && k < a.klat)
+        *reinterpret_cast<uint32_t*>(a.q_lat + ((size_t)r * a.nq + h) * a.klat + k) =
+            tc::pack_bf16(c[j][2 * i], c[j][2 * i + 1]);
+    }
+}
+
+// mla_up's shared memory: the head's absorbed q (bf16 [16 MT][dqk + 8]),
+// then on the q_lora path tile_gemm's region (b_s inside it), else b_s.
+template <int ROWS>
+__host__ __device__ size_t up_smem(int dqk, bool lora) {
+  const size_t qa = (size_t)16 * ((ROWS + 15) / 16) * (dqk + 8) * sizeof(bf16);
+  const size_t b = (size_t)kAbs * (dqk + 8) * sizeof(bf16);
+  const size_t gemm = gemm_smem<ROWS>() + (size_t)ROWS * kWide * sizeof(float);
+  return qa + (lora ? (gemm > b ? gemm : b) : b) + 2 * ROWS * sizeof(float);
 }
 
 template <int ROWS>
 __global__ void __launch_bounds__(kThreads) mla_up_kernel(MlaArgs a) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr int MT = (ROWS + 15) / 16;
+  extern __shared__ __align__(16) uint4 smem_raw[];
   const int tid = threadIdx.x;
-  float* region = smem;                                  // max(a_s, red)
-  float* out_s = region + kWarps * ROWS * kTile;         // [ROWS][kTile]
-  float* mean_s = out_s + ROWS * kTile;
-  float* rstd_s = mean_s + ROWS;
-  float* qn_s = rstd_s + ROWS;                           // [dqk][ROWS]
-  float* wk_s = qn_s + a.dqk * ROWS;                     // [kAbs][dqk + 1]
+  const bool lora = a.q_down != nullptr;
+  const int absorbers = lora ? a.nq : a.nq * (a.klat / kAbs);
+  bf16* qa_s = reinterpret_cast<bf16*>(smem_raw);           // [16 MT][dqk + 8]
+  const int ldq = a.dqk + 8;
+  bf16* region = qa_s + 16 * MT * ldq;                      // tile_gemm's, or b_s
+  float* stats = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem_raw) + up_smem<ROWS>(a.dqk, lora)) - 2 * ROWS;
 
-  if ((int)blockIdx.x >= a.nq) {
+  if ((int)blockIdx.x >= absorbers) {
     // One latent row: bf16(x * rstd * kv_ln_scale) over klat columns.
-    const int r = blockIdx.x - a.nq;
+    const int r = blockIdx.x - absorbers;
     const bf16* xr = a.ws_lat + (size_t)r * a.klat;
     float ss = 0.f;
     for (int c = tid; c < a.klat; c += kThreads) {
@@ -305,125 +468,72 @@ __global__ void __launch_bounds__(kThreads) mla_up_kernel(MlaArgs a) {
       ss = __fadd_rn(ss, __fmul_rn(v, v));
     }
     ss = warp_sum(ss);
-    if (tid % 32 == 0) region[tid / 32] = ss;
+    if (tid % 32 == 0) stats[tid / 32] = ss;
     __syncthreads();
     float tot = 0.f;
-    for (int wg = 0; wg < kWarps; ++wg) tot += region[wg];
+    for (int wg = 0; wg < kWarps; ++wg) tot += stats[wg];
     const float rstd = 1.f / sqrtf(tot / (float)a.klat + a.eps);
     for (int c = tid; c < a.klat; c += kThreads)
       a.latent[(size_t)r * a.klat + c] = __float2bfloat16(
-          normed(__bfloat162float(xr[c]), 0.f, rstd, a.kv_ln_scale, nullptr, c));
+          normed(__bfloat162float(xr[c]), 0.f, rstd, __bfloat162float(a.kv_ln_scale[c])));
     return;
   }
 
-  const int h = blockIdx.x;
   const int dq = a.dqk + a.dpe;
-  if (a.q_down != nullptr) {
-    // This head's q = bf16(rms(q0) @ q_up[:, head columns]), 64 columns at a
-    // time; the q_pe tile ropes and goes out, q_nope stays in qn_s.
-    row_stats(a.ws_q, a.qlr, a.qlr, a.rows, kNormRms, a.eps, mean_s, rstd_s);
-    auto stage = [&](int kc, float* a_s) {
-      stage_normed<ROWS>(a_s, a.ws_q, a.qlr, a.qlr, a.rows, kc, mean_s,
-                         rstd_s, a.q_ln_scale, nullptr);
-    };
-    for (int j = 0; j < dq; j += kTile) {
-      tile_gemm<ROWS>(a.q_up + (size_t)h * dq + j, (long long)a.nq * dq,
-                      a.qlr, stage, region, out_s);
-      if (j < a.dqk) {
-        for (int i = tid; i < ROWS * kTile; i += kThreads) {
-          const int r = i % ROWS, c = i / ROWS;
-          qn_s[(j + c) * ROWS + r] = r < a.rows ? round_bf16(out_s[r * kTile + c]) : 0.f;
-        }
-      } else {
-        write_tile<ROWS>(out_s, a.rows, a.cos != nullptr, a.cos, a.sin, a.half,
-                         a.q_pe + (size_t)h * a.dpe, (long long)a.nq * a.dpe);
+  const int h = lora ? blockIdx.x : blockIdx.x / (a.klat / kAbs);
+  if (lora) {
+    // This head's q = bf16(rms(q0) @ q_up[:, head columns]): narrow tiles of
+    // q_nope into qa_s, the wide q_pe tile roped and written out.
+    float* mean_s = stats;
+    float* rstd_s = stats + ROWS;
+    float* out_s = reinterpret_cast<float*>(reinterpret_cast<char*>(region) + gemm_smem<ROWS>());
+    const NormSrc A = {a.ws_q, a.qlr, a.qlr, a.rows, mean_s, rstd_s, a.q_ln_scale, nullptr};
+    auto stats = [&] { row_stats(a.ws_q, a.qlr, a.qlr, a.rows, kNormRms, a.eps, mean_s, rstd_s); };
+    auto none = [] {};
+    const bf16* w = a.q_up + (size_t)h * dq;
+    const long long ldw = (long long)a.nq * dq;
+    for (int j = 0; j < a.dqk; j += kNarrow) {
+      if (j == 0)
+        tile_gemm<ROWS, kNarrow>(w + j, ldw, A, region, out_s, stats);
+      else
+        tile_gemm<ROWS, kNarrow>(w + j, ldw, A, region, out_s, none);
+      for (int i = tid; i < 16 * MT * kNarrow; i += kThreads) {
+        const int r = i / kNarrow, c = i % kNarrow;
+        qa_s[r * ldq + j + c] = __float2bfloat16(r < a.rows ? out_s[r * kNarrow + c] : 0.f);
       }
-      __syncthreads();
     }
+    tile_gemm<ROWS, kWide>(w + a.dqk, ldw, A, region, out_s, none);
+    write_tile<kWide>(out_s, a.rows, a.cos != nullptr, a.cos, a.sin, a.half,
+                      a.q_pe + (size_t)h * a.dpe, (long long)a.nq * a.dpe);
   } else {
-    // This head's q_nope rows, 16-byte loads along d.
-    for (int i = tid; i < a.rows * (a.dqk / 8); i += kThreads) {
-      const int r = i / (a.dqk / 8), d0 = (i % (a.dqk / 8)) * 8;
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-          a.ws_q + ((size_t)r * a.nq + h) * a.dqk + d0));
-      const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qn_s[(d0 + e) * ROWS + r] = __bfloat162float(v[e]);
+    // This head's q_nope rows (zeros past rows).
+    const int pieces = a.dqk / 8;
+    for (int i = tid; i < 16 * MT * pieces; i += kThreads) {
+      const int r = i / pieces, d0 = (i % pieces) * 8;
+      const bool live = r < a.rows;
+      tc::cp_async_16(qa_s + r * ldq + d0,
+                      a.ws_q + (live ? ((size_t)r * a.nq + h) * a.dqk + d0 : 0), live);
     }
-    for (int i = tid; i < a.dqk * ROWS; i += kThreads)
-      if (i % ROWS >= a.rows) qn_s[i] = 0.f;
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
   }
   __syncthreads();
-  if (a.m2 != 1.f)
-    for (int i = tid; i < a.dqk * ROWS; i += kThreads)
-      qn_s[i] = round_bf16(__fmul_rn(qn_s[i], a.m2));
-
-  // q_lat[r, h, k] = sum_d q_abs[r, d] kv_up[k, h (dqk + dv) + d], 128 latent
-  // columns a pass: thread (k, half of the rows).
-  constexpr int kHalfRows = ROWS / 2;
-  const int ldw = a.dqk + 1;
-  const size_t ldkv = (size_t)a.nq * (a.dqk + a.dv);
-  const int kk = tid % kAbs, rh = tid / kAbs;
-  const int pieces = a.dqk / 8;                 // 16-byte pieces of a row
-  for (int kc = 0; kc < a.klat; kc += kAbs) {
-    __syncthreads();
-    // kv_up's k_nope block of this head, 128 latent rows: 16-byte loads,
-    // eight in flight a thread before their stores.
-    for (int i0 = tid; i0 < kAbs * pieces; i0 += 8 * kThreads) {
-      uint4 raw[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * kThreads, r = i / pieces, d0 = (i % pieces) * 8;
-        raw[u] = i < kAbs * pieces && kc + r < a.klat
-            ? __ldg(reinterpret_cast<const uint4*>(
-                  a.kv_up + (size_t)(kc + r) * ldkv + (size_t)h * (a.dqk + a.dv) + d0))
-            : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * kThreads, r = i / pieces, d0 = (i % pieces) * 8;
-        if (i < kAbs * pieces) {
-          const bf16* v = reinterpret_cast<const bf16*>(&raw[u]);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) wk_s[r * ldw + d0 + e] = __bfloat162float(v[e]);
-        }
-      }
+  if (a.m2 != 1.f) {   // the absorbed query: bf16(q_nope * m2)
+    for (int i = tid; i < 16 * MT * a.dqk; i += kThreads) {
+      bf16* e = qa_s + (i / a.dqk) * ldq + i % a.dqk;
+      *e = __float2bfloat16(__fmul_rn(__bfloat162float(*e), a.m2));
     }
-    __syncthreads();
-    float acc[kHalfRows];
-#pragma unroll
-    for (int i = 0; i < kHalfRows; ++i) acc[i] = 0.f;
-    const float* wr = wk_s + kk * ldw;
-    for (int d = 0; d < a.dqk; ++d) {
-      const float wv = wr[d];
-      const float* qr = qn_s + d * ROWS + rh * kHalfRows;
-#pragma unroll
-      for (int i = 0; i < kHalfRows; i += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(qr + i);
-        acc[i] = fmaf(q.x, wv, acc[i]);
-        acc[i + 1] = fmaf(q.y, wv, acc[i + 1]);
-        acc[i + 2] = fmaf(q.z, wv, acc[i + 2]);
-        acc[i + 3] = fmaf(q.w, wv, acc[i + 3]);
-      }
-    }
-    const int k = kc + kk;
-#pragma unroll
-    for (int i = 0; i < kHalfRows; ++i) {
-      const int r = rh * kHalfRows + i;
-      if (r < a.rows && k < a.klat)
-        a.q_lat[((size_t)r * a.nq + h) * a.klat + k] = __float2bfloat16(acc[i]);
-    }
+  }
+  if (lora) {
+    for (int k0 = 0; k0 < a.klat; k0 += kAbs) absorb<MT>(a, h, k0, qa_s, region);
+  } else {
+    absorb<MT>(a, h, (blockIdx.x % (a.klat / kAbs)) * kAbs, qa_s, region);
   }
 }
 
 template <int ROWS>
 size_t down_smem() {
-  return (size_t)(kWarps * ROWS * kTile + ROWS * kTile + 2 * ROWS) * sizeof(float);
-}
-
-template <int ROWS>
-size_t up_smem(int dqk) {
-  return down_smem<ROWS>() + (size_t)(dqk * ROWS + kAbs * (dqk + 1)) * sizeof(float);
+  return gemm_smem<ROWS>() + 2 * ROWS * sizeof(float);
 }
 
 template <int ROWS>
@@ -434,14 +544,15 @@ int launch_rows(int stage, const MlaArgs& a, cudaStream_t st) {
     err = cudaFuncSetAttribute(mla_down_kernel<ROWS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int cols = (a.q_down != nullptr ? a.qlr : a.nq * (a.dqk + a.dpe)) + a.klat + a.dpe;
-    mla_down_kernel<ROWS><<<cols / kTile, kThreads, smem, st>>>(a);
+    mla_down_kernel<ROWS><<<down_tiles(a), kThreads, smem, st>>>(a);
   } else {
-    const size_t smem = up_smem<ROWS>(a.dqk);
+    const bool lora = a.q_down != nullptr;
+    const size_t smem = up_smem<ROWS>(a.dqk, lora);
     err = cudaFuncSetAttribute(mla_up_kernel<ROWS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    mla_up_kernel<ROWS><<<a.nq + a.rows, kThreads, smem, st>>>(a);
+    const int absorbers = lora ? a.nq : a.nq * (a.klat / kAbs);
+    mla_up_kernel<ROWS><<<absorbers + a.rows, kThreads, smem, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -463,12 +574,12 @@ extern "C" int fused_mla_launch(
     int norm, float eps, float m2, void* stream) {
   const bool lora = q_down != nullptr;
   if (rows < 1 || rows > 32 || hidden < 8 || hidden % 8 || nq < 1 ||
-      dqk < kTile || dqk % kTile || dqk > 256 || dpe != kTile ||
-      klat < kTile || klat % kTile || dv < 8 || dv % 8 || half < 0 ||
+      dqk < kWide || dqk % kWide || dqk > 256 || dpe != kWide ||
+      klat < kWide || klat % kWide || dv < 8 || dv % 8 || half < 0 ||
       2 * half > dpe ||
       (half > 0 && (cos == nullptr || sin == nullptr)) ||
       (norm != kNormRms && norm != kNormLayer) ||
-      (lora ? (qlr < kTile || qlr % kTile || q_up == nullptr || q_ln_scale == nullptr)
+      (lora ? (qlr < kWide || qlr % kWide || q_up == nullptr || q_ln_scale == nullptr)
             : q_proj == nullptr) ||
       stage < 0 || stage > 1)
     return (int)cudaErrorInvalidValue;

@@ -15,10 +15,11 @@
 // element and 4 bytes a row of scales for quantized pools); the arithmetic
 // is two [rows, D] x [D, kv] products, far below the card's ridge point.
 // The TPU kernel walks the pages as a sequential grid axis and carries
-// acc/m/l in VMEM; here the designs differ by pool type.
+// acc/m/l in VMEM; here each block walks its share of the kv tiles in a
+// loop, and a second launch merges the shares.
 //
-// bf16 pools: split KV on the tensor cores (paged_attention_mma_kernel and
-// paged_attention_combine_kernel). A block owns (slot b, kv head hk, a tile
+// Split KV on the tensor cores (paged_attention_mma_kernel and
+// paged_attention_combine_kernel), for every pool type. A block owns (slot b, kv head hk, a tile
 // of up to 64 rows, one kv split): 4 warps, each owning 16 rows as one
 // mma.sync m16n8k16 tile (a decode tile has `group` real rows; decode is
 // bound by bytes, so the idle rows of the tile cost nothing that matters).
@@ -44,16 +45,25 @@
 // max(l, 1e-20), skipping splits with l_i = 0. Every element has one writer
 // and a fixed order of sums, so a rerun repeats every bit.
 //
-// Quantized pools keep the first design (paged_attention_kernel): one block
-// owns (slot, kv head, 32 rows) and walks the slot's pages itself, one page
-// at a time: it reads page_table[b, j], stops at ceil(kv_len / bs), and
-// stages the page's K and V rows dequantized to fp32 in shared memory
-// (float(page) * scale[row, head], _dequant_block, kernel_gen.py:77-80);
-// scores, the softmax statistics and P live in shared memory, the fp32
-// accumulator in registers, one column per thread. Its body is fp32
-// throughout: the TPU kernel casts q and P to the dequantized block's dtype
-// (kernel_gen.py:272, :313), which is fp32 there, so q and P are not
-// rounded, and tensor cores (bf16 operands) would move that rounding.
+// Quantized pools (int8 or fp8 e4m3 pages, fp32 scales per (row, kv
+// head)) run the same kernel and the same split plan, with two changes.
+// Staging: each kv tile's one-byte codes are gathered through the page
+// table with 16-byte cp.async into a ring of their own (D / 16 copies a
+// row), its scales with 4-byte copies beside them, zero-filled past
+// kv_len; once landed, the codes are widened into one bf16 K tile and one
+// bf16 V tile, which the ldmatrix loads read. The widening is exact:
+// every int8 value and every finite e4m3 value is a bf16 value. Numerics:
+// the TPU kernel dequantizes each page to fp32 (_dequant_block,
+// kernel_gen.py:77-80) and casts q and P to that dtype (:272, :313), so
+// it rounds neither; the tensor cores take bf16 operands, so the kernel
+// keeps the scales out of them. q, already bf16, is used as it is, and
+// S = (softmax scale x s_k[pos]) x (q . codes): the mma's products of two
+// bf16 values are exact and summed in fp32, and the scales multiply the
+// C tile's columns in fp32 (the TPU kernel's (q scale) . (code s_k) up to
+// the order of fp32 operations). The unrounded fp32 x = P s_v[pos] enters
+// P . V as three bf16 terms (t1 = bf16(x), t2 = bf16(x - t1), t3 =
+// bf16(x - t1 - t2): 24 significant bits, tc::acc_16xD_split), each one
+// mma against the same exact V codes; l sums the unrounded P.
 //
 // Numerics kept from the TPU kernel. bf16 pools: q is scaled in fp32 and
 // rounded to bf16 before QK; scores are fp32; P is rounded to bf16 before
@@ -64,9 +74,12 @@
 // garbage and rows that see no position give zeros, never NaN.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -78,18 +91,17 @@ using tc::kNegInf;
 typedef __nv_bfloat16 bf16;
 typedef __nv_fp8_e4m3 fp8;
 
-// ---------------------------------------------------------------------------
-// bf16 pools: split KV on the tensor cores
-// ---------------------------------------------------------------------------
-
 constexpr int kTcThreads = 128;   // 4 warps x 16 rows
 constexpr int kTcRows = 64;       // query rows (s, g) a block
 constexpr int kTcKv = 64;         // kv rows a ring stage; splits are whole stages
+constexpr int kTerms = 3;         // bf16 terms of P s_v on quantized pools
 
 struct TcParams {
   const bf16* q;          // [B, s_q, hq, D]
-  const bf16* k;          // [NB, bs, hkv, D]
-  const bf16* v;
+  const void* k;          // [NB, bs, hkv, D] bf16, int8 or fp8
+  const void* v;
+  const float* k_scales;  // [NB, bs, hkv] (quantized pools)
+  const float* v_scales;
   const int* page_table;  // [B, mb]
   const int* kv_lens;     // [B]
   const int* q_lens;      // [B] or nullptr (decode)
@@ -100,15 +112,46 @@ struct TcParams {
   float scale;
 };
 
-template <int D>
-size_t tc_smem() {   // the q tile and a ring of two (k, v) tiles
-  return (size_t)(kTcRows + 4 * kTcKv) * (D + 8) * sizeof(bf16);
+// The q tile; for bf16 pools a ring of two (k, v) tiles; for quantized
+// pools one widened (k, v) pair, a ring of two (k, v) code tiles and their
+// scales.
+template <int D, typename TP>
+size_t tc_smem() {
+  constexpr size_t tile = (size_t)kTcKv * (D + 8) * sizeof(bf16);
+  if (std::is_same<TP, bf16>::value) return (size_t)kTcRows * (D + 8) * sizeof(bf16) + 4 * tile;
+  return (size_t)kTcRows * (D + 8) * sizeof(bf16) + 2 * tile + 4 * (size_t)kTcKv * D +
+         4 * kTcKv * sizeof(float);
 }
 
-// grid (B, hkv, row tiles x splits), kTcThreads threads.
-template <int D>
+// 16 one-byte codes widened to 16 bf16 values (exactly).
+__device__ __forceinline__ void widen16(const uint4& raw, int8_t, uint4& lo, uint4& hi) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t* w = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* x = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = tc::pack_bf16((float)c[2 * i], (float)c[2 * i + 1]);
+    x[i] = tc::pack_bf16((float)c[8 + 2 * i], (float)c[8 + 2 * i + 1]);
+  }
+}
+__device__ __forceinline__ void widen16(const uint4& raw, fp8, uint4& lo, uint4& hi) {
+  const __nv_fp8x2_storage_t* c = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+  uint32_t* w = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* x = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(c[i], __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    (i < 4 ? w[i] : x[i - 4]) = tc::pack_bf16(f.x, f.y);
+  }
+}
+
+// grid (B, hkv, row tiles x splits), kTcThreads threads; TP the page type.
+template <int D, typename TP>
 __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const TcParams p) {
+  constexpr bool kQuant = !std::is_same<TP, bf16>::value;
   constexpr int LD = D + 8, TK = kTcKv * LD, CH = D / 8;
+  constexpr int CC = D / 16, TC = kTcKv * D;   // quantized: 16-byte copies a code row; a code tile
   const int b = blockIdx.x, hk = blockIdx.y;
   const int tile = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
   const int group = p.hq / p.hkv, R = p.s_q * group;
@@ -139,8 +182,12 @@ __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const T
 
   extern __shared__ uint4 tc_smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(tc_smem_raw);   // [kTcRows][LD]
-  bf16* k_s = q_s + kTcRows * LD;                     // [2][kTcKv][LD]
-  bf16* v_s = k_s + 2 * TK;                           // [2][kTcKv][LD]
+  bf16* k_s = q_s + kTcRows * LD;                     // bf16: [2][kTcKv][LD]; else [kTcKv][LD]
+  bf16* v_s = k_s + (kQuant ? 1 : 2) * TK;
+  uint8_t* kc_s = reinterpret_cast<uint8_t*>(v_s + (kQuant ? 1 : 2) * TK);   // [2][kTcKv][D]
+  uint8_t* vc_s = kc_s + 2 * TC;
+  float* ks_s = reinterpret_cast<float*>(vc_s + 2 * TC);   // [2][kTcKv]
+  float* vs_s = ks_s + 2 * kTcKv;
 
   // The tile's q rows (zeros past R), gathered by (s, h).
   const bf16* qb = p.q + (long long)b * p.s_q * p.hq * D;
@@ -151,15 +198,39 @@ __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const T
     tc::cp_async_16(q_s + r * LD + c, qb + off, in);
   }
   const int* table = p.page_table + (long long)b * p.mb;
+  // The (row, kv head) index of kv position pos in the pools.
+  auto pool_row = [&](int pos) {
+    return ((long long)table[pos / p.bs] * p.bs + pos % p.bs) * p.hkv + hk;
+  };
   auto load_kv = [&](int jt, int st) {
     const int pos0 = (split + jt * p.splits) * kTcKv;
-    for (int i = threadIdx.x; i < kTcKv * CH; i += kTcThreads) {
-      const int r = i / CH, c = (i % CH) * 8, pos = pos0 + r;
-      const bool live = pos < kv_end;   // rows past kv_len are zero-filled
-      const long long off =
-          live ? (((long long)table[pos / p.bs] * p.bs + pos % p.bs) * p.hkv + hk) * D + c : 0;
-      tc::cp_async_16(k_s + st * TK + r * LD + c, p.k + off, live);
-      tc::cp_async_16(v_s + st * TK + r * LD + c, p.v + off, live);
+    if constexpr (!kQuant) {
+      const bf16* k = static_cast<const bf16*>(p.k);
+      const bf16* v = static_cast<const bf16*>(p.v);
+      for (int i = threadIdx.x; i < kTcKv * CH; i += kTcThreads) {
+        const int r = i / CH, c = (i % CH) * 8, pos = pos0 + r;
+        const bool live = pos < kv_end;   // rows past kv_len are zero-filled
+        const long long off = live ? pool_row(pos) * D + c : 0;
+        tc::cp_async_16(k_s + st * TK + r * LD + c, k + off, live);
+        tc::cp_async_16(v_s + st * TK + r * LD + c, v + off, live);
+      }
+    } else {
+      const uint8_t* k = static_cast<const uint8_t*>(p.k);
+      const uint8_t* v = static_cast<const uint8_t*>(p.v);
+      for (int i = threadIdx.x; i < kTcKv * CC; i += kTcThreads) {
+        const int r = i / CC, c = (i % CC) * 16, pos = pos0 + r;
+        const bool live = pos < kv_end;
+        const long long off = live ? pool_row(pos) * D + c : 0;
+        tc::cp_async_16(kc_s + st * TC + r * D + c, k + off, live);
+        tc::cp_async_16(vc_s + st * TC + r * D + c, v + off, live);
+      }
+      for (int r = threadIdx.x; r < kTcKv; r += kTcThreads) {
+        const int pos = pos0 + r;
+        const bool live = pos < kv_end;
+        const long long row = live ? pool_row(pos) : 0;
+        tc::cp_async_4(ks_s + st * kTcKv + r, p.k_scales + row, live);
+        tc::cp_async_4(vs_s + st * kTcKv + r, p.v_scales + row, live);
+      }
     }
   };
   load_kv(0, 0);
@@ -176,10 +247,12 @@ __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const T
 
   tc::cp_async_wait<0>();
   __syncthreads();
-  // q scaled in fp32 and rounded to bf16 (kernel_gen.py:252, :272), then
-  // held in registers as A fragments.
-  tc::scale_rows<kTcRows, D, kTcThreads>(q_s, q_s, p.scale);
-  __syncthreads();
+  if constexpr (!kQuant) {
+    // q scaled in fp32 and rounded to bf16 (kernel_gen.py:252, :272).
+    tc::scale_rows<kTcRows, D, kTcThreads>(q_s, q_s, p.scale);
+    __syncthreads();
+  }
+  // q held in registers as A fragments (quantized pools: q as it came).
   uint32_t qf[D / 16][4];
   tc::load_a<D>(qf, q_s, rw0, lane);
 
@@ -197,10 +270,36 @@ __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const T
       load_kv(jt + 1, st ^ 1);   // in flight during this tile's products
       tc::cp_async_commit();
     }
+    const bf16* kt = k_s + st * TK;
+    const bf16* vt = v_s + st * TK;
+    if constexpr (kQuant) {
+      // Widen this tile's codes into the bf16 pair (exact).
+      for (int i = threadIdx.x; i < kTcKv * CC; i += kTcThreads) {
+        const int r = i / CC, c = (i % CC) * 16;
+        uint4 lo, hi;
+        widen16(*reinterpret_cast<const uint4*>(kc_s + st * TC + r * D + c), TP(), lo, hi);
+        *reinterpret_cast<uint4*>(k_s + r * LD + c) = lo;
+        *reinterpret_cast<uint4*>(k_s + r * LD + c + 8) = hi;
+        widen16(*reinterpret_cast<const uint4*>(vc_s + st * TC + r * D + c), TP(), lo, hi);
+        *reinterpret_cast<uint4*>(v_s + r * LD + c) = lo;
+        *reinterpret_cast<uint4*>(v_s + r * LD + c + 8) = hi;
+      }
+      __syncthreads();
+      kt = k_s;
+      vt = v_s;
+    }
     // No real row, or a tile past every row's limit: m, l, acc unchanged.
     if (!active || pos0 > lim_hi) continue;
     float s[kTcKv / 8][4];
-    tc::dot_16xN<D, kTcKv>(s, qf, k_s + st * TK, lane);   // bf16(q scale) . k
+    tc::dot_16xN<D, kTcKv>(s, qf, kt, lane);   // bf16(q scale) . k, or q . codes
+    if constexpr (kQuant) {
+      // The column scales in fp32: softmax scale x s_k[pos].
+#pragma unroll
+      for (int j = 0; j < kTcKv / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] *= p.scale * ks_s[st * kTcKv + 8 * j + 2 * t + (e & 1)];
+    }
     // Tiles at kv_len or at a row's causal limit test each pair.
     const bool mask = pos0 + kTcKv > kv_end || pos0 + kTcKv - 1 > lim_lo;
     if (mask) {
@@ -212,9 +311,19 @@ __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const T
           if (pos >= kv_end || pos > lim[e >> 1]) s[j][e] = kNegInf;
         }
     }
-    // Online softmax (kernel_gen.py:298-305), P rounded to bf16 (:313);
-    // acc += bf16(p) . v.
-    tc::online_softmax_pv<D, kTcKv>(s, mask, m, l, acc, v_s + st * TK, lane);
+    // Online softmax (kernel_gen.py:298-305).
+    if constexpr (!kQuant) {
+      // P rounded to bf16 (:313); acc += bf16(p) . v.
+      tc::online_softmax_pv<D, kTcKv>(s, mask, m, l, acc, vt, lane);
+    } else {
+      // acc += (P s_v) . codes, P s_v unrounded in kTerms bf16 terms.
+      tc::online_softmax<D, kTcKv>(s, mask, m, l, acc);
+#pragma unroll
+      for (int j = 0; j < kTcKv / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= vs_s[st * kTcKv + 8 * j + 2 * t + (e & 1)];
+      tc::acc_16xD_split<D, kTcKv, kTerms>(acc, s, vt, lane);
+    }
   }
   if (!active) return;
 
@@ -297,10 +406,10 @@ __global__ void __launch_bounds__(128) paged_attention_combine_kernel(const TcPa
     *reinterpret_cast<uint32_t*>(o + c) = tc::pack_bf16(a[c] / lmax, a[c + 1] / lmax);
 }
 
-template <int D>
+template <int D, typename TP>
 int launch_mma(const TcParams& p, int batch, cudaStream_t stream) {
-  const size_t smem = tc_smem<D>();
-  auto kernel = paged_attention_mma_kernel<D>;
+  const size_t smem = tc_smem<D, TP>();
+  auto kernel = paged_attention_mma_kernel<D, TP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -315,259 +424,11 @@ int launch_mma(const TcParams& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Quantized pools: the first design, fp32 throughout
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;   // 4 warps
-constexpr int kRows = 32;       // query rows (s, g) per block
-constexpr int kPad = 4;         // staged fp32 rows of D + 4 (16-byte rows)
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float dequant(int8_t v, float s) { return (float)v * s; }
-__device__ __forceinline__ float dequant(fp8 v, float s) { return (float)v * s; }
-
 template <int D>
-size_t smem_bytes(int bs) {
-  return (size_t)(kRows + 2 * bs) * (D + kPad) * sizeof(float) +
-         (size_t)(kRows * bs + 3 * kRows) * sizeof(float);
-}
-
-template <int D, typename TP>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const bf16* __restrict__ q,
-                       const TP* __restrict__ k_pages,
-                       const TP* __restrict__ v_pages,
-                       const float* __restrict__ k_scales,
-                       const float* __restrict__ v_scales,
-                       const int* __restrict__ page_table,
-                       const int* __restrict__ kv_lens,
-                       const int* __restrict__ q_lens,   // nullptr: decode
-                       bf16* __restrict__ out,
-                       int s_q, int hq, int hkv, int bs, int mb, float scale) {
-  static_assert(kThreads % D == 0 && kRows % (kThreads / D) == 0, "tile");
-  constexpr int LD = D + kPad;
-  constexpr int kVec = 16 / (int)sizeof(TP);     // elements a 16-byte load
-  constexpr int kChunks = D / kVec;              // 16-byte chunks per row
-  constexpr int kRowGroups = kThreads / D;       // threads per column
-  constexpr int kAccRows = kRows / kRowGroups;   // acc rows per thread
-
-  const int b = blockIdx.x;
-  const int hk = blockIdx.y;
-  const int group = hq / hkv;
-  const int r0 = blockIdx.z * kRows;
-  const int rows = min(kRows, s_q * group - r0);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);        // [kRows][LD]
-  float* k_s = q_s + kRows * LD;                          // [bs][LD]
-  float* v_s = k_s + bs * LD;                             // [bs][LD]
-  float* p_s = v_s + bs * LD;                             // [kRows][bs]
-  float* m_s = p_s + kRows * bs;                          // [kRows]
-  float* l_s = m_s + kRows;                               // [kRows]
-  float* c_s = l_s + kRows;                               // [kRows]
-
-  const int kv_len = kv_lens[b];
-  const int q_len = q_lens != nullptr ? q_lens[b] : 1;
-  const int q_start = kv_len - q_len;   // absolute position of local query 0
-
-  // q tile: scaled in fp32 (kernel_gen.py:252), not rounded (:272).
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    float val = 0.f;
-    if (r < rows) {
-      const int s = (r0 + r) / group, h = hk * group + (r0 + r) % group;
-      val = __bfloat162float(q[(((size_t)b * s_q + s) * hq + h) * D + d]) * scale;
-    }
-    q_s[r * LD + d] = val;
-  }
-  for (int r = tid; r < kRows; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  float acc[kAccRows];
-#pragma unroll
-  for (int i = 0; i < kAccRows; ++i) acc[i] = 0.f;
-  const int dcol = tid % D;
-  const int rgrp = tid / D;   // this thread's rows: rgrp + i * kRowGroups
-
-  const int num_pages = min((kv_len + bs - 1) / bs, mb);
-  __syncthreads();
-
-  for (int j = 0; j < num_pages; ++j) {
-    const int blk = page_table[(size_t)b * mb + j];
-    for (int i = tid; i < bs * kChunks; i += kThreads) {
-      const int c = i / kChunks, chunk = i % kChunks;
-      const size_t row = ((size_t)blk * bs + c) * hkv + hk;
-      const size_t off = row * D + chunk * kVec;
-      const bool live = j * bs + c < kv_len;
-      const uint4 kk = *reinterpret_cast<const uint4*>(k_pages + off);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (live) vv = *reinterpret_cast<const uint4*>(v_pages + off);
-      // Dequantize as staged: float(page) * scale[row, head]; V rows past
-      // kv_len are zeroed.
-      const float ks = k_scales[row];
-      const float vs = live ? v_scales[row] : 0.f;
-      const TP* ke = reinterpret_cast<const TP*>(&kk);
-      const TP* ve = reinterpret_cast<const TP*>(&vv);
-      float* kd = k_s + c * LD + chunk * kVec;
-      float* vd = v_s + c * LD + chunk * kVec;
-#pragma unroll
-      for (int e = 0; e < kVec; e += 4) {
-        *reinterpret_cast<float4*>(kd + e) = make_float4(
-            dequant(ke[e], ks), dequant(ke[e + 1], ks),
-            dequant(ke[e + 2], ks), dequant(ke[e + 3], ks));
-        *reinterpret_cast<float4*>(vd + e) = make_float4(
-            dequant(ve[e], vs), dequant(ve[e + 1], vs),
-            dequant(ve[e + 2], vs), dequant(ve[e + 3], vs));
-      }
-    }
-    __syncthreads();
-
-    // Scores of the tile's real rows, with the ragged causal mask
-    // (decode is q_len 1, s 0).
-    for (int i = tid; i < rows * bs; i += kThreads) {
-      const int r = i / bs, c = i % bs;
-      float sc = kNegInf;
-      const int pos = j * bs + c;
-      if (pos < kv_len && pos <= q_start + (r0 + r) / group) {
-        float dot = 0.f;
-        const float4* qp = reinterpret_cast<const float4*>(q_s + r * LD);
-        const float4* kp = reinterpret_cast<const float4*>(k_s + c * LD);
-#pragma unroll 8
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 a = qp[d4], k4 = kp[d4];
-          dot = fmaf(a.x, k4.x, dot);
-          dot = fmaf(a.y, k4.y, dot);
-          dot = fmaf(a.z, k4.z, dot);
-          dot = fmaf(a.w, k4.w, dot);
-        }
-        sc = dot;
-      }
-      p_s[r * bs + c] = sc;
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per real row (kernel_gen.py:298-305).
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      float mx = kNegInf;
-      for (int c = lane; c < bs; c += 32) mx = fmaxf(mx, p_s[r * bs + c]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = fmaxf(m_new, kNegInf / 2);
-      float sum = 0.f;
-      for (int c = lane; c < bs; c += 32) {
-        const float sc = p_s[r * bs + c];
-        const float p = sc > kNegInf / 2 ? expf(sc - m_safe) : 0.f;
-        sum += p;
-        // P is cast to the V block's dtype before PV (kernel_gen.py:313):
-        // fp32 here, so it is not rounded.
-        p_s[r * bs + c] = p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = m_prev <= kNegInf / 2 ? 0.f : expf(fminf(m_prev - m_new, 0.f));
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P @ V, one output column per thread; rows past
-    // the tile's real rows (a decode tile holds `group` of them) are
-    // skipped, uniformly across the block.
-#pragma unroll
-    for (int i = 0; i < kAccRows; ++i) {
-      const int r = rgrp + i * kRowGroups;
-      if (r >= rows) break;
-      float pv = 0.f;
-      for (int c = 0; c < bs; ++c) pv = fmaf(p_s[r * bs + c], v_s[c * LD + dcol], pv);
-      acc[i] = acc[i] * c_s[r] + pv;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kAccRows; ++i) {
-    const int r = rgrp + i * kRowGroups;
-    if (r < rows) {
-      const int s = (r0 + r) / group, h = hk * group + (r0 + r) % group;
-      const float l = fmaxf(l_s[r], 1e-20f);
-      out[(((size_t)b * s_q + s) * hq + h) * D + dcol] = __float2bfloat16(acc[i] / l);
-    }
-  }
-}
-
-template <int D, typename TP>
-int launch_quant(const void* q, const void* k_pages, const void* v_pages,
-                 const void* k_scales, const void* v_scales,
-                 const void* page_table, const void* kv_lens, const void* q_lens,
-                 void* out, int batch, int s_q, int hq, int hkv, int bs, int mb,
-                 float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(bs);
-  auto kernel = paged_attention_kernel<D, TP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch, hkv, (s_q * (hq / hkv) + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const TP*>(k_pages),
-      static_cast<const TP*>(v_pages), static_cast<const float*>(k_scales),
-      static_cast<const float*>(v_scales),
-      static_cast<const int*>(page_table), static_cast<const int*>(kv_lens),
-      static_cast<const int*>(q_lens), static_cast<bf16*>(out),
-      s_q, hq, hkv, bs, mb, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_kind(int page_kind, const void* q, const void* k_pages,
-                const void* v_pages, const void* k_scales,
-                const void* v_scales, const void* page_table,
-                const void* kv_lens, const void* q_lens, void* out, int batch,
-                int s_q, int hq, int hkv, int bs, int mb, float scale,
-                void* workspace, int kv_splits, cudaStream_t st) {
-  if (page_kind == 0) {
-    TcParams p = {};
-    p.q = static_cast<const bf16*>(q);
-    p.k = static_cast<const bf16*>(k_pages);
-    p.v = static_cast<const bf16*>(v_pages);
-    p.page_table = static_cast<const int*>(page_table);
-    p.kv_lens = static_cast<const int*>(kv_lens);
-    p.q_lens = static_cast<const int*>(q_lens);
-    p.out = static_cast<bf16*>(out);
-    const long long ws_rows = (long long)batch * hkv * s_q * (hq / hkv) * kv_splits;
-    p.ws_acc = static_cast<float*>(workspace);
-    p.ws_ml = reinterpret_cast<float2*>(p.ws_acc + ws_rows * D);
-    p.s_q = s_q; p.hq = hq; p.hkv = hkv; p.bs = bs; p.mb = mb;
-    p.splits = kv_splits;
-    p.scale = scale;
-    return launch_mma<D>(p, batch, st);
-  }
-  if (page_kind == 1)
-    return launch_quant<D, int8_t>(q, k_pages, v_pages, k_scales, v_scales, page_table,
-                                   kv_lens, q_lens, out, batch, s_q, hq, hkv, bs, mb,
-                                   scale, st);
-  return launch_quant<D, fp8>(q, k_pages, v_pages, k_scales, v_scales, page_table,
-                              kv_lens, q_lens, out, batch, s_q, hq, hkv, bs, mb, scale,
-                              st);
+int launch_kind(int page_kind, const TcParams& p, int batch, cudaStream_t st) {
+  if (page_kind == 0) return launch_mma<D, bf16>(p, batch, st);
+  if (page_kind == 1) return launch_mma<D, int8_t>(p, batch, st);
+  return launch_mma<D, fp8>(p, batch, st);
 }
 
 }  // namespace
@@ -576,10 +437,10 @@ int launch_kind(int page_kind, const void* q, const void* k_pages,
 // pools [NB, bs, hkv, D] of page_kind 0 (bf16), 1 (int8) or 2 (fp8 e4m3),
 // k_scales / v_scales [NB, bs, hkv] fp32 for page kinds 1 and 2 (else
 // unused), page_table [batch, mb] int32, kv_lens / q_lens [batch] int32, out
-// like q. bf16 pools only: kv_splits >= 1 splits of the kv range and, when
-// it is above 1, the fp32 workspace of batch * hkv * s_q * (hq / hkv) *
-// kv_splits * (D + 2) floats (partial acc, then (m, l) pairs); quantized
-// pools take neither. Returns a cudaError_t code (0 = launched).
+// like q; kv_splits >= 1 splits of the kv range and, when it is above 1,
+// the fp32 workspace of batch * hkv * s_q * (hq / hkv) * kv_splits * (D +
+// 2) floats (partial acc, then (m, l) pairs). Returns a cudaError_t code
+// (0 = launched).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* page_table,
@@ -589,18 +450,26 @@ extern "C" int paged_attention_launch(
   if (batch < 1 || s_q < 1 || hkv < 1 || hq % hkv != 0 || block_size < 1 ||
       block_size > kMaxBlockSize || max_blocks < 1 || page_kind < 0 ||
       page_kind > 2 || (page_kind > 0 && (k_scales == nullptr || v_scales == nullptr)) ||
-      (page_kind == 0 && (kv_splits < 1 || (kv_splits > 1 && workspace == nullptr))))
+      kv_splits < 1 || (kv_splits > 1 && workspace == nullptr) ||
+      (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
+  TcParams p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = k_pages;
+  p.v = v_pages;
+  p.k_scales = static_cast<const float*>(k_scales);
+  p.v_scales = static_cast<const float*>(v_scales);
+  p.page_table = static_cast<const int*>(page_table);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.q_lens = static_cast<const int*>(q_lens);
+  p.out = static_cast<bf16*>(out);
+  const long long ws_rows = (long long)batch * hkv * s_q * (hq / hkv) * kv_splits;
+  p.ws_acc = static_cast<float*>(workspace);
+  p.ws_ml = reinterpret_cast<float2*>(p.ws_acc + ws_rows * head_dim);
+  p.s_q = s_q; p.hq = hq; p.hkv = hkv; p.bs = block_size; p.mb = max_blocks;
+  p.splits = kv_splits;
+  p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128)
-    return launch_kind<128>(page_kind, q, k_pages, v_pages, k_scales, v_scales,
-                            page_table, kv_lens, q_lens, out, batch, s_q, hq,
-                            hkv, block_size, max_blocks, scale, workspace,
-                            kv_splits, st);
-  if (head_dim == 64)
-    return launch_kind<64>(page_kind, q, k_pages, v_pages, k_scales, v_scales,
-                           page_table, kv_lens, q_lens, out, batch, s_q, hq,
-                           hkv, block_size, max_blocks, scale, workspace,
-                           kv_splits, st);
-  return (int)cudaErrorInvalidValue;
+  return head_dim == 128 ? launch_kind<128>(page_kind, p, batch, st)
+                         : launch_kind<64>(page_kind, p, batch, st);
 }

@@ -206,16 +206,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // of s = scores [16 x N] (entries masked out at kNegInf when `masked`):
 // m, l are the running max and sum of this lane's rows g and g + 8 (l is
 // this lane's share: sum it over the quad at the end), acc [16 x D] the
-// running P . V. The TPU kernels' numerics: m_safe = max(m_new, -5e29),
-// corr = 0 while m_prev <= -5e29, P = exp(s - m_safe) (0 where masked)
-// summed in fp32 and rounded to bf16 for P . V; the exponentials run as
-// exp2 with log2(e) folded in, m stays in natural units. v is the
-// [N][D + 8] V tile.
+// running P . V, rescaled here by the step's correction; s becomes P. The
+// TPU kernels' numerics: m_safe = max(m_new, -5e29), corr = 0 while
+// m_prev <= -5e29, P = exp(s - m_safe) (0 where masked) summed into l
+// unrounded; the exponentials run as exp2 with log2(e) folded in, m stays
+// in natural units.
 template <int D, int N>
-__device__ __forceinline__ void online_softmax_pv(float (&s)[N / 8][4], bool masked,
-                                                  float (&m)[2], float (&l)[2],
-                                                  float (&acc)[D / 8][4],
-                                                  const __nv_bfloat16* v, int lane) {
+__device__ __forceinline__ void online_softmax(float (&s)[N / 8][4], bool masked,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&acc)[D / 8][4]) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
@@ -249,10 +248,71 @@ __device__ __forceinline__ void online_softmax_pv(float (&s)[N / 8][4], bool mas
     acc[j][2] *= corr[1];
     acc[j][3] *= corr[1];
   }
+}
+
+// online_softmax, then acc += bf16(P) . V: P rounded to bf16 as the A
+// fragments of the product (the bf16 kernels' rounding point). v is the
+// [N][D + 8] V tile.
+template <int D, int N>
+__device__ __forceinline__ void online_softmax_pv(float (&s)[N / 8][4], bool masked,
+                                                  float (&m)[2], float (&l)[2],
+                                                  float (&acc)[D / 8][4],
+                                                  const __nv_bfloat16* v, int lane) {
+  online_softmax<D, N>(s, masked, m, l, acc);
   uint32_t pa[N / 16][4];   // bf16(P) as A fragments
 #pragma unroll
   for (int kc = 0; kc < N / 16; ++kc) pack_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
   acc_16xD<D>(acc, pa, v, lane);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// acc[16 x D] += X[16 x N] . B[N, D] for one warp with X unrounded: X is
+// fp32 C tiles (x[j]: columns 8j..8j+7), carried into the product as
+// TERMS bf16 terms, t1 = bf16(x), t2 = bf16(x - t1), t3 = bf16(x - t1 -
+// t2): each difference is exact in fp32, and each term adds 8 significant
+// bits, so three terms hold all 24 of fp32 (two: ~2^-16 of x). Each term
+// runs one mma against the same B fragments (a [N][D + 8] tile read
+// transposed), smallest term first; the products of bf16 terms and bf16
+// B values are exact and summed in fp32.
+template <int D, int N, int TERMS>
+__device__ __forceinline__ void acc_16xD_split(float (&acc)[D / 8][4], const float (&x)[N / 8][4],
+                                               const __nv_bfloat16* b, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+    float r0[4], r1[4];
+    uint32_t a[TERMS][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      r0[e] = x[2 * kc][e];
+      r1[e] = x[2 * kc + 1][e];
+    }
+#pragma unroll
+    for (int t = 0; t < TERMS; ++t) {
+      float h0[4], h1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h0[e] = round_bf16(r0[e]);
+        h1[e] = round_bf16(r1[e]);
+        r0[e] -= h0[e];
+        r1[e] -= h1[e];
+      }
+      pack_a(a[t], h0, h1);
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < D; n0 += 16) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, b + bt_off(lane, kc * 16, n0, LD));
+#pragma unroll
+      for (int t = TERMS - 1; t >= 0; --t) {
+        mma_bf16(acc[n0 / 8], a[t], bf[0], bf[1]);
+        mma_bf16(acc[n0 / 8 + 1], a[t], bf[2], bf[3]);
+      }
+    }
+  }
 }
 
 }  // namespace tc

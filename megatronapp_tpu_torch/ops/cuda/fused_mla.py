@@ -10,8 +10,12 @@ row and the roped shared k_pe row. One CUDA kernel cannot hold the TPU
 kernel's no-grid body at llama3-8b widths (~59 MB of weights at 8 rows),
 so it runs as two launches of csrc/fused_mla.cu, ``mla_down`` (the
 column-tiled products, q_pe and k_pe roped in their tiles) and ``mla_up``
-(the q_lora path's q_up, the absorption a head a block, the latent norm a
-row a block); the source note says how the work splits and what bounds it.
+(the absorption a (head, 64 latent columns) a block, or on the q_lora path
+the head's q_up product and absorption a block; the latent norm a row a
+block). Every product runs on the tensor cores (``mma.sync``, bf16
+operands as the JAX body rounds them, fp32 sums), its weights streamed
+through a ``cp.async`` ring; the source note says how the work splits and
+what bounds it.
 
 The plain version stops at the JAX body's rounding points
 (kernel_gen.py:1468-1493): the norm cast to the compute dtype, each product
@@ -19,7 +23,8 @@ in the compute dtype, q_nope × m² before the einsum. The wrapper takes it
 only for tensors on the CPU; for CUDA tensors it launches the kernels or
 raises. The kernels take bf16 activations, weights and norm vectors, at
 most ``MAX_ROWS`` rows, qk_head_dim and the latent width in multiples of 64
-and a 64-wide qk_pos_emb_head_dim (``kernel_limits``).
+and a 64-wide qk_pos_emb_head_dim (``kernel_limits``), each tensor on a
+16-byte boundary (the copies move 16 bytes).
 """
 
 from __future__ import annotations
@@ -163,10 +168,11 @@ def fused_mla_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None):
     for name, shape in want.items():
         t = tensors[name]
         if t is None or tuple(t.shape) != shape or t.device != dev \
-                or t.dtype != torch.bfloat16 or not t.is_contiguous():
+                or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(
-                f"fused_mla_qkv: {name} must be a contiguous bf16 {shape} "
-                f"tensor on {dev}, got "
+                f"fused_mla_qkv: {name} must be a contiguous, 16-byte "
+                f"aligned bf16 {shape} tensor on {dev}, got "
                 f"{None if t is None else (t.dtype, tuple(t.shape))}")
     half = 0
     if cos is not None:

@@ -4,18 +4,20 @@ the launch counter and the build.
 The kernels (csrc/paged_attention.cu) replace the TPU kernel
 ``megatronapp_tpu/ops/pallas/kernel_gen.py:emit_paged_kernel`` in both of
 its modes, decode (one query row per slot) and ragged multi-query
-(chunked prefill). They are bound by the bytes of K/V they read. Two
-designs, by pool type (the source note gives them):
-
-- bf16 pools: split KV on the tensor cores. The slot's kv tiles are dealt
-  to ``kv_split_plan`` splits so that a decode step or a one-request chunk
-  fills the card; each block runs its products on ``mma.sync`` and,
-  with more than one split, writes fp32 partials (acc, m, l) to a
-  workspace that this wrapper allocates, which a second launch merges in
-  split order (``merge_split_partials`` is that merge in plain PyTorch,
-  for the tests).
-- int8 or fp8 (e4m3) pools with per-(row, kv-head) fp32 scale pools: the
-  first design, fp32 throughout, dequantizing each page as it is read.
+(chunked prefill). They are bound by the bytes of K/V they read. One
+design for every pool type (the source note gives it): split KV on the
+tensor cores. The slot's kv tiles are dealt to ``kv_split_plan`` splits so
+that a decode step or a one-request chunk fills the card; each block runs
+its products on ``mma.sync`` and, with more than one split, writes fp32
+partials (acc, m, l) to a workspace that this wrapper allocates, which a
+second launch merges in split order (``merge_split_partials`` is that
+merge in plain PyTorch, for the tests). On int8 or fp8 (e4m3) pools with
+per-(row, kv-head) fp32 scale pools the block widens the codes to bf16
+(exactly), takes q · codes and scales the scores' columns in fp32, and
+carries the unrounded P × s_v into P · V as bf16 terms
+(``split_bf16_terms``; ``split_partials_plain`` with scales mirrors that
+arithmetic), so that, as in the TPU kernel's fp32 body, neither q nor P
+is rounded.
 
 ``paged_attention`` takes the plain version only for tensors that lie on
 the CPU. For CUDA tensors it launches the kernels or raises: there is no
@@ -65,17 +67,24 @@ KV_TILE = 64
 # D 128), the best of 1-16 splits at decode B 8 in flash_probe.py
 # paged-splits (PERF.md).
 SPLIT_TARGET_BLOCKS = 256
+# bf16 terms of P × s_v on quantized pools (csrc/paged_attention.cu
+# kTerms): three carry fp32's 24 significant bits.
+QUANT_TERMS = 3
 
 
 def kv_split_plan(batch: int, hkv: int, rows: int, capacity: int) -> int:
-    """Splits of the kv range for the bf16-pool kernel, from the launch's
-    shapes alone: batch, kv heads, the rows of one kv head (S_q × group)
-    and the page table's capacity mb × bs positions; never kv_lens, which
-    lie on the device. Enough blocks to reach SPLIT_TARGET_BLOCKS, but
-    each split gets at least ceil(rows a block / 32) kv tiles of the
-    capacity, so that its fp32 partials (rows × (D + 2) × 4 bytes, written
-    once and read back once) come to at most about half the K/V bytes its
-    tiles read (64 × D × 4 a tile)."""
+    """Splits of the kv range, from the launch's shapes alone: batch, kv
+    heads, the rows of one kv head (S_q × group) and the page table's
+    capacity mb × bs positions; never kv_lens, which lie on the device.
+    Enough blocks to reach SPLIT_TARGET_BLOCKS, but each split gets at
+    least ceil(rows a block / 32) kv tiles of the capacity, so that its
+    fp32 partials (rows × (D + 2) × 4 bytes, written once and read back
+    once) come to at most about half the K/V bytes its tiles read (64 × D
+    × 4 a tile of bf16 pools). One-byte pools read half those bytes, but
+    the same plan: at a ragged B 1 chunk twice the tiles a split (4
+    splits) ran 33 % slower than this plan's 8, and on the engine's
+    2048-position tables this plan's 16 within 5 % of the best, 8
+    (flash_probe.py paged-splits, PERF.md)."""
     tiles = -(-capacity // KV_TILE)
     row_tiles = -(-rows // ROW_TILE)
     want = -(-SPLIT_TARGET_BLOCKS // (batch * hkv * row_tiles))
@@ -85,9 +94,9 @@ def kv_split_plan(batch: int, hkv: int, rows: int, capacity: int) -> int:
 
 def launch_split_count(q: torch.Tensor, k_pages: torch.Tensor,
                        page_table: torch.Tensor) -> int:
-    """The split count of a bf16-pool launch: kv_split_plan on the shapes
-    of q ([B, Hq, D] decode or [B, S_q, Hq, D] ragged), the pools and the
-    page table; it reads no tensor's values."""
+    """The split count of a launch: kv_split_plan on the shapes of q ([B,
+    Hq, D] decode or [B, S_q, Hq, D] ragged), the pools and the page
+    table; it reads no tensor's values."""
     s_q = q.shape[1] if q.dim() == 4 else 1
     _, bs, hkv, _ = k_pages.shape
     return kv_split_plan(q.shape[0], hkv, s_q * (q.shape[-2] // hkv),
@@ -115,17 +124,36 @@ def merge_split_partials(acc: torch.Tensor, m: torch.Tensor,
     return out / l_all.clamp(min=1e-20)[..., None]
 
 
+def split_bf16_terms(x: torch.Tensor, terms: int) -> list:
+    """x (fp32) as `terms` bf16 values (returned in fp32) whose sum is x:
+    t1 = bf16(x), t2 = bf16(x - t1), ...; each difference is exact in fp32
+    and each term adds 8 significant bits, so three terms give back every
+    normal fp32 value exactly and two agree to about 2^-16 of x. The
+    quantized kernel's A fragments of P × s_v (tc::acc_16xD_split)."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out.append(t)
+        rest = rest - t
+    return out
+
+
 def split_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
                          kv_lens: torch.Tensor,
                          q_lens: Optional[torch.Tensor], splits: int,
-                         softmax_scale: Optional[float] = None):
+                         softmax_scale: Optional[float] = None,
+                         k_scales: Optional[torch.Tensor] = None,
+                         v_scales: Optional[torch.Tensor] = None):
     """Each split's (acc [B, S_q, Hq, S, D], m, l [B, S_q, Hq, S]) of the
-    bf16-pool kernel, with its conventions, in plain PyTorch: kv tile i
-    (KV_TILE positions) in split i mod S; per split, m the max of the
-    row's valid scores (-1e30 where none), l = Σ exp(s - max(m, -5e29))
-    over them, acc the same weights, rounded to V's dtype, times V. q is
-    [B, Hq, D] in decode mode (q_lens None; the S_q axis is then 1)."""
+    kernel, with its conventions, in plain PyTorch: kv tile i (KV_TILE
+    positions) in split i mod S; per split, m the max of the row's valid
+    scores (-1e30 where none), l = Σ exp(s - max(m, -5e29)) over them. On
+    bf16 pools the scores take q scaled and rounded to q's dtype, and acc
+    the weights rounded to V's dtype times V. With scale pools (int8 / fp8
+    pages) the kernel's arithmetic: scores (q · codes) × (scale × s_k), q
+    as given; acc = Σ (P × s_v in QUANT_TERMS bf16 terms) × codes. q is [B,
+    Hq, D] in decode mode (q_lens None; the S_q axis is then 1)."""
     if q_lens is None:
         q, q_lens = q[:, None], torch.ones_like(kv_lens)
     b, s_q, hq, d = q.shape
@@ -138,8 +166,17 @@ def split_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
     v = _gather_pages(v_pages, table, None).reshape(b, mb * bs, hkv, d)
     k = k.repeat_interleave(group, dim=2)
     v = v.repeat_interleave(group, dim=2)
-    qs = (q.float() * scale).to(q.dtype).float()
-    s = torch.einsum("bqhd,bkhd->bqhk", qs, k)
+    quant = k_scales is not None
+    if quant:
+        def col(scales):   # [B, 1, Hq, MB × bs]: a position's (row, head)
+            return scales[table].reshape(b, mb * bs, hkv) \
+                .repeat_interleave(group, dim=2).transpose(1, 2)[:, None]
+        s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k) \
+            * (scale * col(k_scales))
+        vs = col(v_scales)
+    else:
+        qs = (q.float() * scale).to(q.dtype).float()
+        s = torch.einsum("bqhd,bkhd->bqhk", qs, k)
     pos = torch.arange(mb * bs)
     kv_lens, q_lens = kv_lens.long(), q_lens.long()
     abs_q = (kv_lens - q_lens)[:, None] + torch.arange(s_q)
@@ -154,8 +191,11 @@ def split_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
             .masked_fill(~ok, 0.0)
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bqhk,bkhd->bqhd",
-                                 p.to(v_pages.dtype).float(), v))
+        if quant:
+            w = sum(split_bf16_terms(p * vs, QUANT_TERMS)[::-1])
+        else:
+            w = p.to(v_pages.dtype).float()
+        accs.append(torch.einsum("bqhk,bkhd->bqhd", w, v))
     return (torch.stack(accs, dim=3), torch.stack(ms, dim=-1),
             torch.stack(ls, dim=-1))
 
@@ -306,8 +346,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     kv_lens [B] int32 valid kv positions including the new tail;
     k_scales/v_scales [NB, bs, Hkv] fp32 mark int8 or fp8 pools (each
     element dequantizes as float(page) × its (row, head) scale, and the
-    body then runs in fp32 throughout, as the TPU kernel's quantized body
-    does). Returns q's shape. CPU tensors run the plain version; CUDA
+    body rounds neither q nor P, as the TPU kernel's quantized body does
+    not). Returns q's shape. CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
@@ -326,12 +366,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kind = _PAGE_KIND[k_pages.dtype]
     mb = page_table.shape[1]
-    splits, ws = 1, None
-    if kind == 0:
-        splits = launch_split_count(q, k_pages, page_table)
-        if splits > 1:
-            ws = torch.empty(b * s_q * hq * splits * (d + 2),
-                             dtype=torch.float32, device=q.device)
+    splits, ws = launch_split_count(q, k_pages, page_table), None
+    if splits > 1:
+        ws = torch.empty(b * s_q * hq * splits * (d + 2),
+                         dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr() if kind else None,
             v_scales.data_ptr() if kind else None,

@@ -13,17 +13,30 @@ run (chip_smoke.py) does not make. From the repository root:
         turns (64, 128, 128, 64) at FLASH_TIMED_SHAPES; the two results
         compared bit for bit.
     python3 -m megatronapp_tpu_torch.tools.flash_probe paged-splits
-        the bf16-pool paged-attention kernel with its kv split count fixed
-        to each of a few values, timed in turns at the times phase's
-        decode (B 8) and ragged (B 1, S_q 32) shapes at kv 1024, and with
-        the engine's 2048-position tables, L2-cold; each count's output
-        against the first count's.
+        the paged-attention kernel on bf16, int8 and fp8 pools with its kv
+        split count fixed to each of a few values, timed in turns at the
+        times phase's decode (B 8) and ragged (B 1, S_q 32) shapes at kv
+        1024, and with the engine's 2048-position tables, L2-cold; each
+        count's output against the first count's.
+    python3 -m megatronapp_tpu_torch.tools.flash_probe quant-flips --parent DIR
+        the quantized paged kernel of the checkout in DIR (built from its
+        own csrc/) and of this one on chip_smoke.py's kv_quant_kernels
+        cases: each one's errors against the fp32 plain version, the share
+        of elements whose bf16 differs from bf16(plain) and by how many
+        ulps (chip_smoke.quant_errors).
+    python3 -m megatronapp_tpu_torch.tools.flash_probe prologue-variants
+        the fused MLA prologue built with other ring depths, stage sizes
+        and tile widths (copies of the source under build/), each timed in
+        turns at 8 and 32 rows over 4 full-width MLA layers (L2-cold), with
+        mla_down's and mla_up's device time apart (torch.profiler).
     python3 -m megatronapp_tpu_torch.tools.flash_probe ab --parent DIR
         chip_smoke.py's train, train_gpt2 and profile phases (the profile
-        on llama3-8b at 32 layers, unfused and fused engines) of the
-        checkout in DIR (e.g. the parent commit, unpacked with git archive)
-        and of this one in turns (parent, change, change, parent), one
-        process a run.
+        on llama3-8b at 32 layers: unfused, fused and fused on resident
+        int8 weights and int8 pools; then the MLA engines, unfused and
+        fused) of the checkout in DIR (e.g. the parent commit, unpacked
+        with git archive) and of this one in turns (parent, change,
+        change, parent), one process a run; --skip-train leaves out the
+        two train phases.
 
 Kernel times are device time per call with the calls queued behind a
 sleep (chip_smoke.device_ms): at the D 64 shape a call is shorter than
@@ -64,9 +77,20 @@ def _build_variants(name: str, rule: str, variants: dict) -> dict:
         text = f.read()
     if rule not in text:
         raise RuntimeError(f"`{rule}` not found in {name}")
+    return _build_sources(name, {key: text.replace(rule, repl)
+                                 for key, repl in variants.items()})
+
+
+def _build_sources(name: str, texts: dict) -> dict:
+    """Each {variant: source text} of csrc/<name> written under
+    build/flash_probe/<variant>/ beside copies of every header and built
+    by nvcc in parallel; returns {variant: ctypes.CDLL} and prints each
+    build's ptxas lines."""
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
     procs = {}
-    for key, repl in variants.items():
-        out = os.path.join(REPO, "build", "flash_probe", str(key))
+    for key, text in texts.items():
+        out = os.path.join(REPO, "build", "flash_probe",
+                           str(key).replace(" ", ""))
         os.makedirs(out, exist_ok=True)
         for hdr in os.listdir(kbuild.CSRC):
             if hdr.endswith(kbuild.HEADER_SUFFIXES):
@@ -75,7 +99,7 @@ def _build_variants(name: str, rule: str, variants: dict) -> dict:
                     g.write(f.read())
         src = os.path.join(out, name)
         with open(src, "w") as f:
-            f.write(text.replace(rule, repl))
+            f.write(text)
         lib = os.path.join(out, name.replace(".cu", ".so"))
         procs[key] = (lib, subprocess.Popen(
             [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", lib, src],
@@ -143,36 +167,177 @@ def paged_splits():
                                                   [4, 8, 16, 32])}
     try:
         for name, (batch, s_q, kv, cap, counts) in shapes.items():
-            case = cs.make_case(gen, dev, batch=batch, hq=32, hkv=8, d=128,
-                                bs=16, kv_lens=[kv] * batch, s_q=s_q,
-                                q_lens=None if s_q is None else [s_q] * batch,
-                                pool_bytes=cs.TIMED_POOL_BYTES, capacity=cap)
-            tables, it = case["tables"], {"i": 0}
+            for kind in ("bf16", *cs.QUANT_KINDS):
+                # One-byte pools: twice the tables keep K/V beyond the L2.
+                case = cs.make_case(
+                    gen, dev, batch=batch, hq=32, hkv=8, d=128, bs=16,
+                    kv_lens=[kv] * batch, s_q=s_q,
+                    q_lens=None if s_q is None else [s_q] * batch,
+                    pool_bytes=cs.TIMED_POOL_BYTES * (1 if kind == "bf16"
+                                                      else 2),
+                    capacity=cap)
+                if kind != "bf16":
+                    case = cs.quantize_case(case, kind)
+                kw = {k: case[k] for k in ("k_scales", "v_scales")
+                      if k in case}
+                tables, it = case["tables"], {"i": 0}
 
-            def call():
-                it["i"] = (it["i"] + 1) % tables.shape[0]
-                return pa.paged_attention(case["q"], case["k"], case["v"],
-                                          tables[it["i"]], case["kv_lens"],
-                                          q_lens=case.get("q_lens"))
-            outs, times = {}, {n: [] for n in counts}
-            for n in counts + counts[::-1]:
-                pa.launch_split_count = lambda *a, n=n: n
-                it["i"] = -1
-                outs[n] = call()
-                times[n].append(cs.device_ms(call))
-            torch.cuda.synchronize()
-            print(json.dumps({
-                "shape": name, "planned_splits": plan(
-                    case["q"], case["k"], case["table"]),
-                "ms": {str(n): t for n, t in times.items()},
-                "max_abs_diff_vs_first": {
-                    str(n): float((outs[n].float() - outs[counts[0]].float())
-                                  .abs().max()) for n in counts}}),
-                flush=True)
-            del case, outs
-            torch.cuda.empty_cache()
+                def call():
+                    it["i"] = (it["i"] + 1) % tables.shape[0]
+                    return pa.paged_attention(
+                        case["q"], case["k"], case["v"], tables[it["i"]],
+                        case["kv_lens"], q_lens=case.get("q_lens"), **kw)
+                outs, times = {}, {n: [] for n in counts}
+                for n in counts + counts[::-1]:
+                    pa.launch_split_count = lambda *a, n=n: n
+                    it["i"] = -1
+                    outs[n] = call()
+                    times[n].append(cs.device_ms(call))
+                pa.launch_split_count = plan
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    "shape": name, "pool": kind, "planned_splits": plan(
+                        case["q"], case["k"], case["table"]),
+                    "ms": {str(n): t for n, t in times.items()},
+                    "max_abs_diff_vs_first": {
+                        str(n): float((outs[n].float()
+                                       - outs[counts[0]].float())
+                                      .abs().max()) for n in counts}}),
+                    flush=True)
+                del case, outs
+                torch.cuda.empty_cache()
     finally:
         pa.launch_split_count = plan
+
+
+def _build_tree(tree: str, name: str) -> ctypes.CDLL:
+    """csrc/<name> of the checkout `tree` (with its own headers) built by
+    nvcc under build/flash_probe/tree/; its ptxas lines printed."""
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    out = os.path.join(REPO, "build", "flash_probe", "tree")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, name.replace(".cu", ".so"))
+    proc = subprocess.run(
+        [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", lib,
+         os.path.join(os.path.abspath(tree), "megatronapp_tpu_torch", "csrc",
+                      name)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {tree}/{name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    print(json.dumps({"tree": tree, "ptxas": _ptxas(proc.stdout
+                                                    + proc.stderr)}),
+          flush=True)
+    return ctypes.CDLL(lib)
+
+
+def quant_flips(parent: str):
+    import torch
+
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    pa._kernel()
+    libs = {"parent": _build_tree(parent, "paged_attention.cu"),
+            "change": kbuild._libs[pa.SOURCE]}
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(4242)
+    try:
+        for name, kw in cs.quant_cases().items():
+            case = cs.make_case(gen, dev, **kw)
+            for kind in cs.QUANT_KINDS:
+                qc = cs.quantize_case(case, kind)
+                for tree, lib in libs.items():
+                    kbuild._libs[pa.SOURCE] = lib
+                    out = pa.paged_attention(
+                        qc["q"], qc["k"], qc["v"], qc["table"],
+                        qc["kv_lens"], q_lens=qc.get("q_lens"),
+                        k_scales=qc["k_scales"], v_scales=qc["v_scales"])
+                    print(json.dumps({"case": name, "pool": kind,
+                                      "tree": tree,
+                                      **cs.quant_errors(out, qc)}),
+                          flush=True)
+    finally:
+        kbuild._libs[pa.SOURCE] = libs["change"]
+
+
+# fused_mla.cu's tiling constants that prologue-variants sets.
+_PROLOGUE_KNOBS = ("kNarrow", "kKc", "kStages")
+
+
+def prologue_variants():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from megatronapp_tpu_torch.models.gpt import (
+        gpt_rope_tables, init_gpt_params,
+    )
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    # (kNarrow, kKc, kStages); the first is the source's own.
+    choices = [(64, 128, 4), (64, 128, 3), (64, 128, 6), (64, 64, 8),
+               (32, 128, 4)]
+    with open(kbuild.source("fused_mla.cu")) as f:
+        text = f.read()
+    lines = {k: next(ln for ln in text.splitlines()
+                     if ln.startswith(f"constexpr int {k} = "))
+             for k in _PROLOGUE_KNOBS}
+    variants = {}
+    for c in choices:
+        block = text
+        for k, v in zip(_PROLOGUE_KNOBS, c):
+            block = block.replace(lines[k], f"constexpr int {k} = {v};")
+        variants[c] = block
+    libs = _build_sources("fused_mla.cu", variants)
+    dev = torch.device("cuda", 0)
+    cfg = cs.mla_cfg(num_layers=4)
+    layers = list(init_gpt_params(cfg, torch.Generator(dev).manual_seed(0),
+                                  dev)["layers"])
+    gen = torch.Generator(dev).manual_seed(808)
+    cos_t, sin_t = gpt_rope_tables(cfg, 2048, device=dev)
+    for rows in (8, 32):
+        x = torch.randn(rows, cfg.hidden_size, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        pos = torch.randint(0, 2048, (rows,), generator=gen, device=dev)
+        cos, sin = cos_t[pos].contiguous(), sin_t[pos].contiguous()
+        it = {"i": 0}
+
+        def call():
+            it["i"] = (it["i"] + 1) % len(layers)
+            return fm.fused_mla_qkv(x, layers[it["i"]], cfg, cos, sin)
+        times, split, outs = {c: [] for c in choices}, {}, {}
+        for c in choices + choices[::-1]:
+            kbuild._libs[fm.SOURCE] = libs[c]
+            it["i"] = -1
+            outs[c] = call()
+            times[c].append(cs.device_ms(call))
+            if c not in split:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(8):
+                        call()
+                    torch.cuda.synchronize()
+                split[c] = {}
+                for e in prof.events():
+                    if e.device_type != torch.autograd.DeviceType.CUDA:
+                        continue
+                    k = "mla_down" if "mla_down" in e.name else (
+                        "mla_up" if "mla_up" in e.name else "other")
+                    split[c][k] = split[c].get(k, 0.0) \
+                        + e.time_range.elapsed_us() / 1e3 / 8
+        torch.cuda.synchronize()
+        first = outs[choices[0]]
+        print(json.dumps({
+            "rows": rows,
+            "variants": {"narrow{}_kc{}_stages{}".format(*c): {
+                "ms": times[c], "ms_by_kernel": split[c],
+                "max_abs_diff_vs_first": max(
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in zip(outs[c], first))} for c in choices}}),
+            flush=True)
+    kbuild._libs.pop(fm.SOURCE, None)
 
 
 def dkv_rows():
@@ -206,26 +371,36 @@ def dkv_rows():
     kbuild._libs.pop(fa.SOURCE, None)
 
 
-def ab(parent: str):
+def ab(parent: str, skip_train: bool = False):
     code = ("import sys; sys.path.insert(0, '.'); import torch, chip_smoke "
             "as c; torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; s = {}\n"
             "from megatronapp_tpu_torch.ops.cuda import build as kb\n"
             "kb.build_all([kb.source(n) for n in ('flash_attention.cu', "
-            "'paged_attention.cu', 'fused_decode.cu')])\n"
-            "c.phase_train(s, 4); c.phase_train_gpt2(s)\n"
-            "from megatronapp_tpu_torch.models.gpt import init_gpt_params\n"
+            "'paged_attention.cu', 'fused_decode.cu', 'paged_latent.cu', "
+            "'fused_mla.cu')])\n"
+            + ("" if skip_train else
+               "c.phase_train(s, 4); c.phase_train_gpt2(s)\n")
+            + "from megatronapp_tpu_torch.models.gpt import init_gpt_params\n"
             "from megatronapp_tpu_torch.models.presets import llama3_8b\n"
+            "from megatronapp_tpu_torch.inference.quantization import "
+            "quantize_for_serving\n"
             "dev = torch.device('cuda', 0)\n"
             "cfg = llama3_8b(num_layers=32, params_dtype=torch.bfloat16)\n"
-            "s['model'] = (init_gpt_params(cfg, torch.Generator(dev)"
-            ".manual_seed(0), dev), cfg, dev)\n"
+            "p = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), "
+            "dev)\n"
+            "s['model'] = (p, cfg, dev)\n"
+            "s['qmodel'] = (quantize_for_serving(p)[0], cfg, dev)\n"
+            "m = c.mla_cfg(num_layers=c.MLA_LAYERS)\n"
+            "s['mla_model'] = (init_gpt_params(m, torch.Generator(dev)"
+            ".manual_seed(0), dev), m, dev)\n"
             "c.phase_profile(s)")
     keys = ("step_ms", "mean_step_ms_after_first", "tokens_per_s", "mfu",
             "peak_mem_bytes", "launches")
     window_keys = ("device_ms_per_unit_by_family", "device_busy_ms",
                    "wall_ms_per_unit", "device_idle_share",
-                   "paged_attention_ms_per_launch")
+                   "paged_attention_ms_per_launch",
+                   "paged_latent_ms_per_launch", "kernels_per_unit")
     trees = {"parent": os.path.abspath(parent), "change": REPO}
     for which in ("parent", "change", "change", "parent"):
         proc = subprocess.run([sys.executable, "-c", code], cwd=trees[which],
@@ -238,8 +413,10 @@ def ab(parent: str):
                 continue
             rec = json.loads(line)
             if rec.get("phase") == "profile":
-                for eng in ("unfused", "fused"):
-                    for win, w in rec[eng].items():
+                for eng, windows in rec.items():
+                    if not isinstance(windows, dict):
+                        continue
+                    for win, w in windows.items():
                         print(json.dumps({
                             "tree": which, "phase": "profile",
                             "engine": eng, "window": win,
@@ -261,17 +438,24 @@ def main(argv=None) -> int:
     sub.add_parser("fwd-tiles")
     sub.add_parser("dkv-rows")
     sub.add_parser("paged-splits")
+    sub.add_parser("prologue-variants")
+    p_flips = sub.add_parser("quant-flips")
+    p_flips.add_argument("--parent", required=True,
+                         help="a checkout whose quantized kernel runs first")
     p_ab = sub.add_parser("ab")
     p_ab.add_argument("--parent", required=True,
                       help="a checkout whose chip_smoke.py runs first")
+    p_ab.add_argument("--skip-train", action="store_true",
+                      help="profile phase only")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device", file=sys.stderr)
         return 2
     {"fwd-tiles": fwd_tiles, "dkv-rows": dkv_rows,
-     "paged-splits": paged_splits,
-     "ab": lambda: ab(args.parent)}[args.cmd]()
+     "paged-splits": paged_splits, "prologue-variants": prologue_variants,
+     "quant-flips": lambda: quant_flips(args.parent),
+     "ab": lambda: ab(args.parent, args.skip_train)}[args.cmd]()
     return 0
 
 

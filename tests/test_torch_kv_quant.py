@@ -17,6 +17,8 @@ package.
   engine: tests/test_torch_quant_engine.py.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -281,3 +283,101 @@ def test_cow_copies_scales_with_the_pages(kind):
         assert np.array_equal(_bytes(p[:, dst]), _bytes(p[:, blk]))
         assert torch.equal(sc[:, dst], sc[:, blk])
     pool.audit()
+
+
+# ---------------------------------------------------------------------------
+# the quantized kernel's arithmetic on the tensor cores, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def test_every_int8_code_is_a_bf16_value():
+    """The kernel widens int8 codes to bf16 for the mma: all 256 exactly."""
+    codes = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    widened = codes.float().to(torch.bfloat16).float()
+    assert torch.equal(widened, codes.float())
+    assert widened.unique().numel() == 256
+
+
+def test_every_finite_e4m3_code_is_a_bf16_value():
+    """Every finite e4m3 bit pattern (254 of 256: 0x7f and 0xff are NaN)
+    widens to bf16 exactly, subnormals (0x01-0x07) included."""
+    codes = torch.arange(256, dtype=torch.int16).to(torch.uint8)
+    vals = codes.view(torch.float8_e4m3fn).float()
+    finite = torch.isfinite(vals)
+    assert int(finite.sum()) == 254
+    assert torch.equal(vals[finite].to(torch.bfloat16).float(), vals[finite])
+    assert float(vals[finite].abs().max()) == 448.0
+    assert float(vals[1]) == 2.0 ** -9
+
+
+def _split_err(x, terms):
+    got = sum(t.double() for t in cuda_pa.split_bf16_terms(x, terms))
+    return (got - x.double()).abs(), x.double().abs()
+
+
+@pytest.mark.parametrize("values", ["random", "large", "subnormal"])
+def test_split_bf16_terms_accuracy(values):
+    """Three bf16 terms give back every normal fp32 value exactly; two
+    agree to 2^-16 of it. fp32 subnormals lie below bf16's own subnormal
+    step 2^-133, so there the terms agree to that step."""
+    rng = np.random.default_rng(11)
+    base = rng.normal(size=4096) * np.exp(rng.uniform(-20, 20, 4096))
+    x = {"random": base,
+         "large": np.sign(base) * rng.uniform(1e30, 3.3e38, 4096),
+         "subnormal": np.sign(base) * rng.uniform(1e-45, 1.1e-38, 4096),
+         }[values]
+    x = torch.from_numpy(x.astype(np.float32))
+    for t in cuda_pa.split_bf16_terms(x, 3):
+        assert torch.equal(t, t.to(torch.bfloat16).float())
+    err3, mag = _split_err(x, 3)
+    err2, _ = _split_err(x, 2)
+    if values == "subnormal":
+        assert bool((err3 <= 2.0 ** -134).all())
+        assert bool((err2 <= 2.0 ** -134).all())
+    else:
+        assert bool((err3 == 0).all())
+        assert bool((err2 <= mag * 2.0 ** -16).all())
+        assert float((err2 / mag).max()) > 2.0 ** -20   # two terms do lose
+
+
+# kind x mode x splits: the quantized kernel's split partials (scores from
+# raw bf16 q and the codes, x scale s_k; P s_v in three bf16 terms)
+# merged in split order, against the Pallas kernel in interpret mode.
+# Capacity 640 positions: 10 kv tiles of 64, dealt to the splits in turn.
+_QSPLIT = dict(hq=4, hkv=2, d=16, bs=16, mb=40)
+_QSPLIT_TOL = 1e-5    # of the (row, head)'s output RMS
+
+
+@functools.lru_cache(maxsize=None)
+def _qsplit_case(kind, mode):
+    """The case with q rounded to bf16 values (the kernel takes bf16 q), and
+    the Pallas kernel's output on it."""
+    g = _QSPLIT
+    ragged = mode == "ragged"
+    lens = [640, 100, 7] if ragged else [1, 300, 640]
+    q_lens = np.asarray([6, 3, 4], np.int32) if ragged else None
+    c = _case(len(kind) * 7 + len(mode), kind, 3, g["hq"], g["hkv"], g["d"],
+              g["bs"], g["mb"], lens, s_q=6 if ragged else None)
+    c["q"] = torch.from_numpy(c["q"]).to(torch.bfloat16).float().numpy()
+    return c, q_lens, _jax(c, q_lens)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("mode", ["decode", "ragged"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_quantized_split_mirror_matches_jax_kernel(kind, mode, splits):
+    c, q_lens, want = _qsplit_case(kind, mode)
+    kq, vq, ks, vs = c["port"]
+    acc, m, l = cuda_pa.split_partials_plain(
+        torch.from_numpy(c["q"]), kq, vq, torch.from_numpy(c["table"]),
+        torch.from_numpy(c["lens"]),
+        None if q_lens is None else torch.from_numpy(q_lens), splits,
+        k_scales=ks, v_scales=vs)
+    got = cuda_pa.merge_split_partials(acc, m, l)
+    got = (got[:, 0] if q_lens is None else got).numpy()
+    assert np.isfinite(got).all()
+    if q_lens is not None:      # padding rows are finite garbage
+        real = np.arange(got.shape[1])[None, :] < q_lens[:, None]
+        got, want = got[real], want[real]
+    rms = np.sqrt((want.astype(np.float64) ** 2).mean(-1, keepdims=True))
+    assert float((np.abs(got - want) / rms).max()) <= _QSPLIT_TOL

@@ -233,6 +233,19 @@ def test_split_count_reads_only_shapes(name):
     assert 1 <= splits <= (tiles if rows <= 32 else max(1, tiles // 2))
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("name", sorted(SPLIT_PLAN_SHAPES))
+def test_quantized_split_count_reads_only_shapes(name, dtype):
+    """On int8 / fp8 pools the split count comes from the same shapes
+    (meta tensors: no values), and it is the bf16 pools' count."""
+    q_shape, pool_shape, table_shape, want = SPLIT_PLAN_SHAPES[name]
+    meta = {"device": "meta"}
+    q = torch.empty(q_shape, dtype=torch.bfloat16, **meta)
+    pages = torch.empty(pool_shape, dtype=dtype, **meta)
+    table = torch.empty(table_shape, dtype=torch.int32, **meta)
+    assert cuda_pa.launch_split_count(q, pages, table) == want
+
+
 # ---------------------------------------------------------------------------
 # page writes: rows outside a slot's valid run are dropped, never clamped
 # ---------------------------------------------------------------------------
