@@ -38,11 +38,14 @@ Phases, each printing one JSON line:
    quant_reference: a tiny llama-shaped model with resident int8 weights,
             int8 and fp8 pools, unfused and fused, on the card (bf16,
             kernels) against the same weights on the CPU (fp32, plain).
-   lora_kernels: the segmented LoRA kernel against its plain version at
-            the five llama3-8b targets, ranks 8 and 16, 8 decode rows on
+   lora_kernels: the LoRA shrink (t = x @ A) and expand (t @ B) kernels
+            against their plain versions, alone and as the segmented delta,
+            at the five llama3-8b targets, ranks 8 and 16, 8 decode rows on
             mixed adapters and a 32-row chunk of one (NULL rows exactly 0,
-            each row alone the same bits), then the four fused kernels
-            with their LoRA epilogue (bf16 and int8 weights, 8 and 32 rows).
+            each row alone the same bits, q and kv in one shrink), then the
+            four fused kernels with their LoRA epilogue, each behind its
+            shrink (bf16 and int8 weights, 8 and 32 rows; a row the same
+            bits in another batch).
    lora_reference: the tiny llama-shaped model with 3 adapters, unfused
             and fused, on the card against the CPU.
    mla_kernels: the MLA latent paged-attention kernel against its plain
@@ -98,9 +101,10 @@ Phases, each printing one JSON line:
    serve_lora: the same weights with an adapter cache (4 slots, rank 8)
             over 5 seeded adapters, the 8 requests on [a0, a1, a2, a3, a4,
             None, a0, None], through the unfused, the fused and the
-            int8-weight fused engine: launches (5 segmented launches, or
-            one epilogue launch of each fused kernel, a layer per step and
-            chunk), evictions and pinned waits, clean books, zero-B
+            int8-weight fused engine: launches (a layer per step and chunk:
+            unfused, 4 shrinks (q and kv share one) and 5 expands; fused,
+            4 shrinks and one epilogue launch of each fused kernel),
+            evictions and pinned waits, clean books, zero-B
             adapters giving the no-adapter streams, adapters changing
             streams, fused against unfused logits, reruns, and the prefix
             hits under adapter-salted keys beside serve's unsalted ones.
@@ -132,9 +136,9 @@ Phases, each printing one JSON line:
             (unfused and fused). The paged families' device time is also
             given per wrapper call, with the kernels a call launches.
 9. times:   each kernel and variant, its plain version, one PyTorch call
-            computing the same function (for the segmented LoRA delta,
-            which no one call computes, two torch.bmm on factors gathered
-            in advance; for the latent kernel SDPA on rows gathered in
+            computing the same function (for the LoRA shrink and expand,
+            torch.bmm on factors gathered in advance, two for the delta,
+            which no one call computes; for the latent kernel SDPA on rows gathered in
             advance and the w_v einsum; for the MLA prologue the GEMM
             alone) and the card's bound, at the shapes the main paths
             launch (the paged rows with their kv split count).
@@ -255,14 +259,17 @@ LORA_REPLACES = f"{_KG}:2379 (lora_segmented_delta, def :2328)"
 LORA_EPILOGUE_REPLACES = {
     k: f"{v} with its lora= epilogue ({_KG}:1130 _lora_epilogue)"
     for k, v in FUSED_REPLACES.items()}
-# The segmented kernel vs its plain version on the same inputs: both take
-# the bf16 x to fp32 and compute (x @ A) @ B in fp32; only the order of the
-# sums differs (the kernel adds k in 256 / (8 rank) interleaved parts, the
-# plain einsum in its own blocking). Each order's rounding moves a sum by
-# about sqrt(din) x 2^-24 of its terms' scale (~7e-6 at din 14336; measured
-# on a CPU emulation of the kernel at din <= 1000: 3e-6), so each element is
-# held to LORA_TOL of max(|element|, row RMS): ten times that, and 600 times
-# inside FUSED_TOL.
+# The shrink and expand kernels vs their plain versions on the same
+# inputs: both take the bf16 x to fp32 and compute (x @ A) @ B in fp32;
+# only the order of the sums differs (the shrink adds k in splits of
+# 2048 / rank k's or more, each in 256 / rank interleaved parts, the plain
+# einsum in its own blocking). Each order's rounding moves a sum by about
+# sqrt(din) x
+# 2^-24 of its terms' scale (~7e-6 at din 14336; the CPU mirror of the
+# shrink's order, ops/cuda/lora.py lora_shrink_split_plain, is within 1e-5
+# of JAX's at din <= 400), so each element of t and of the delta is held to
+# LORA_TOL of max(|element|, row RMS): ten times that, and 600 times inside
+# FUSED_TOL.
 LORA_TOL = 1e-4
 LORA_RANK = 8
 LORA_RANKS = (8, 16)
@@ -833,9 +840,12 @@ def _fused_case(name, cfg, p, rows, gen, dev, variant="", lora=None):
     order). variant: the launch counters' suffix of the weights' kind
     ("_int8" for resident int8 weights). lora: the adapter deltas of the
     rows (ops/lora.py), run as the kernels' LoRA epilogue and counted in
-    fd.lora_launches."""
+    fd.lora_launches, each launch behind one shrink launch; then each
+    kernel's output of a few rows is checked to be the same bits in
+    another batch (_lora_rows_elsewhere)."""
     from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(
@@ -847,18 +857,23 @@ def _fused_case(name, cfg, p, rows, gen, dev, variant="", lora=None):
         pos = torch.randint(0, 8192, (rows,), generator=gen, device=dev)
         cos_t, sin_t = gpt_rope_tables(cfg, 8192, device=dev)
         cos, sin = cos_t[pos], sin_t[pos]
-    res = {}
+    res, outs = {}, {}
     counts = fd.launches if lora is None else fd.lora_launches
 
     def run(kernel, fn, plain, *args):
         key = kernel + variant
-        before = counts[key]
+        before, shrinks = counts[key], cl.launches["lora_shrink"]
         got = fn(*args, lora=lora)
         again = fn(*args, lora=lora)
         torch.cuda.synchronize()
         check(counts[key] == before + 2,
               f"fused_kernels {name}: {key} launched "
               f"{counts[key] - before} times for two calls")
+        check(cl.launches["lora_shrink"] - shrinks == (0 if lora is None
+                                                      else 2),
+              f"fused_kernels {name}: {key}: "
+              f"{cl.launches['lora_shrink'] - shrinks} shrink launches for "
+              "two calls")
         got_t = got if isinstance(got, tuple) else (got,)
         again_t = again if isinstance(again, tuple) else (again,)
         check(all(torch.equal(a, b) for a, b in zip(got_t, again_t)),
@@ -874,6 +889,7 @@ def _fused_case(name, cfg, p, rows, gen, dev, variant="", lora=None):
               f"fused_kernels {name}: {kernel} error {res[kernel][1]} of "
               f"max(|element|, row RMS) exceeds {FUSED_TOL} (max abs "
               f"{res[kernel][0]})")
+        outs[kernel] = got
         return got
 
     run("qkv", fd.fused_qkv, fd.fused_qkv_plain, x, p, cfg, cos, sin)
@@ -881,7 +897,58 @@ def _fused_case(name, cfg, p, rows, gen, dev, variant="", lora=None):
         cfg, x)
     y = run("mlp_fc1", fd.fused_mlp_fc1, fd.fused_mlp_fc1_plain, x, p, cfg)
     run("mlp_fc2", fd.fused_mlp_fc2, fd.fused_mlp_fc2_plain, y, x, p, cfg)
+    if lora is not None:
+        _lora_rows_elsewhere(name, cfg, p, lora, (x, attn, y, cos, sin), outs,
+                             gen, dev)
     return res
+
+
+def _lora_rows_elsewhere(name, cfg, p, lora, inputs, outs, gen, dev):
+    """Each fused kernel with its LoRA epilogue gives a row the same bits
+    in another batch: alone when the batch has at most 8 rows (a 1-row
+    launch takes the same 8-row blocks and K split), else at its place in
+    a batch of as many rows whose other rows are other inputs on other
+    adapters (a row's sums, its t and its delta never read another row)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.lora import LoraRows
+    x, attn, y, cos, sin = inputs
+    rows = x.shape[0]
+    ids = lora["row_adapter"].ids.tolist()
+    for r in sorted({0, 1, rows - 1}):
+        if rows <= 8:
+            sel = [r]
+            pos, new_ids = 0, [ids[r]]
+
+            def other(t):
+                return None if t is None else t[sel].contiguous()
+        else:
+            pos = r
+            new_ids = [LORA_DECODE_IDS[i % 8] for i in range(1, rows + 1)]
+            new_ids[r] = ids[r]
+
+            def other(t):
+                if t is None:
+                    return None
+                o = torch.randn(t.shape, generator=gen, device=dev).to(
+                    t.dtype)
+                o[r] = t[r]
+                return o
+        lo = {"row_adapter": LoraRows(np.asarray(new_ids), dev),
+              "banks": lora["banks"]}
+        ox, oattn, oy, ocos, osin = (other(t) for t in inputs)
+        got = {"qkv": fd.fused_qkv(ox, p, cfg, ocos, osin, lo),
+               "out_proj": fd.fused_out_proj(oattn, p, cfg, ox, lo),
+               "mlp_fc1": fd.fused_mlp_fc1(ox, p, cfg, lo),
+               "mlp_fc2": fd.fused_mlp_fc2(oy, ox, p, cfg, lo)}
+        for kernel, g in got.items():
+            g_t = g if isinstance(g, tuple) else (g,)
+            w_t = outs[kernel] if isinstance(outs[kernel], tuple) \
+                else (outs[kernel],)
+            check(all(torch.equal(a[pos], b[r]) for a, b in zip(g_t, w_t)),
+                  f"fused_kernels {name}: {kernel}: row {r} in another "
+                  "batch differs from the same row in the batch")
 
 
 def phase_fused_kernels(state):
@@ -1592,12 +1659,18 @@ def _lora_banks(gen, dev, din, dout, rank, slots=5):
 
 
 def phase_lora_kernels(state):
-    """The segmented LoRA kernel (row 15) against lora_delta_plain on the
-    card at the five llama3-8b targets, ranks 8 and 16: a decode batch of 8
-    rows with mixed ids (NULL rows, two rows sharing an adapter, 4 distinct
-    adapters) and a 32-row chunk of one adapter. Then the four fused
-    kernels with their LoRA epilogue (bf16 and resident int8 weights, 8
-    and 32 rows) against their plain versions under FUSED_TOL."""
+    """The shrink and expand kernels (row 15) against their plain versions
+    on the card at the five llama3-8b targets, ranks 8 and 16: a decode
+    batch of 8 rows with mixed ids (NULL rows, two rows sharing an
+    adapter, 4 distinct adapters) and a 32-row chunk of one adapter. The
+    shrink's t against lora_shrink_plain, the expand of that t against
+    lora_expand_plain and the delta (lora_delta: the shrink, then the
+    expand) against lora_delta_plain, each under LORA_TOL; one launch of
+    each kernel a call, reruns and each row alone the same bits, NULL rows
+    exactly 0; q and kv in one shrink launch the bits of their own. Then
+    the four fused kernels with their LoRA epilogue (bf16 and resident
+    int8 weights, 8 and 32 rows) against their plain versions under
+    FUSED_TOL, a row the same bits alone or among other tenants' rows."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.lora import lora_target_dims
@@ -1615,27 +1688,34 @@ def phase_lora_kernels(state):
     dims = lora_target_dims(cfg)
     cases = {}
     for rank in LORA_RANKS:
-        for target, (din, dout) in dims.items():
-            a, b = _lora_banks(gen, dev, din, dout, rank)
-            for label, ids in (("rows8_mixed", LORA_DECODE_IDS),
-                               ("rows32_one_adapter", [3] * 32)):
+        banks = {t: _lora_banks(gen, dev, din, dout, rank)
+                 for t, (din, dout) in dims.items()}
+        for label, ids in (("rows8_mixed", LORA_DECODE_IDS),
+                           ("rows32_one_adapter", [3] * 32)):
+            segs = tlo.LoraRows(np.asarray(ids), dev)
+            null = torch.tensor(ids, device=dev) == 0
+            for target, (din, dout) in dims.items():
+                a, b = banks[target]
                 name = f"{target}_rank{rank}_{label}"
                 x = torch.randn(len(ids), din, generator=gen,
                                 device=dev).to(torch.bfloat16)
-                segs = tlo.LoraRows(np.asarray(ids), dev)
-                n0 = cl.launches["lora_delta"]
+                n0 = dict(cl.launches)
+                t = cl.lora_shrink(x, (a,), segs)[0]
+                expanded = cl.lora_expand(t, b, segs)
                 got = tlo.lora_delta(x, a, b, segs)
                 again = tlo.lora_delta(x, a, b, segs)
                 torch.cuda.synchronize()
-                check(cl.launches["lora_delta"] == n0 + 2,
-                      f"lora_kernels {name}: {cl.launches['lora_delta'] - n0}"
-                      " launches for two calls")
-                check(torch.equal(got, again),
+                n = {k: cl.launches[k] - n0[k] for k in n0}
+                check(n == {"lora_shrink": 3, "lora_expand": 3},
+                      f"lora_kernels {name}: launches {n} for three shrinks "
+                      "and three expands")
+                check(torch.equal(got, again) and torch.equal(got, expanded),
                       f"lora_kernels {name}: the rerun gave other bits")
-                check(bool(torch.isfinite(got).all()),
-                      f"lora_kernels {name}: non-finite delta")
-                null = torch.tensor(ids, device=dev) == 0
-                check(bool((got[null] == 0).all()),
+                check(bool(torch.isfinite(got).all())
+                      and bool(torch.isfinite(t).all()),
+                      f"lora_kernels {name}: non-finite t or delta")
+                check(bool((got[null] == 0).all())
+                      and bool((t[null] == 0).all()),
                       f"lora_kernels {name}: a NULL row is not exactly 0")
                 for r in sorted({0, len(ids) - 1, *range(min(8, len(ids)))}):
                     alone = tlo.lora_delta(x[r:r + 1].contiguous(), a, b,
@@ -1643,13 +1723,29 @@ def phase_lora_kernels(state):
                     check(torch.equal(alone[0], got[r]),
                           f"lora_kernels {name}: row {r} alone differs from "
                           "the same row in the batch")
-                err = _row_errs(got, tlo.lora_delta_plain(x, a, b, segs))
-                cases[name] = err
-                check(err[1] <= LORA_TOL,
-                      f"lora_kernels {name}: error {err[1]} of max(|element|,"
-                      f" row RMS) exceeds {LORA_TOL} (max abs {err[0]})")
-            del a, b
-    cl.launches.update(before[0])
+                errs = {"shrink": _row_errs(t, tlo.lora_shrink_plain(
+                            x, a, segs)),
+                        "expand": _row_errs(expanded, tlo.lora_expand_plain(
+                            t, b, segs)),
+                        "delta": _row_errs(got, tlo.lora_delta_plain(
+                            x, a, b, segs))}
+                cases[name] = errs
+                for part, err in errs.items():
+                    check(err[1] <= LORA_TOL,
+                          f"lora_kernels {name}: {part} error {err[1]} of "
+                          f"max(|element|, row RMS) exceeds {LORA_TOL} (max "
+                          f"abs {err[0]})")
+            # q and kv share their input: one shrink launch for both gives
+            # each the bits of its own launch.
+            x = torch.randn(len(ids), cfg.hidden_size, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            aq, akv = banks["q_kernel"][0], banks["kv_kernel"][0]
+            both = cl.lora_shrink(x, (aq, akv), segs)
+            check(torch.equal(both[0], cl.lora_shrink(x, (aq,), segs)[0])
+                  and torch.equal(both[1], cl.lora_shrink(x, (akv,), segs)[0]),
+                  f"lora_kernels rank {rank} {label}: the shared q/kv shrink "
+                  "differs from the shrinks of one target")
+        del banks
     # The fused kernels with their LoRA epilogue, rank 8.
     p = _fused_layer(cfg, gen, dev)
     epi = {}
@@ -1665,9 +1761,11 @@ def phase_lora_kernels(state):
                 lora=lora)
         del banks
     del p
+    cl.launches.update(before[0])
     fd.lora_launches.update(before[1])
     torch.cuda.empty_cache()
-    state["lora_err"] = max(e[0] for e in cases.values())
+    state["lora_err"] = {part: max(e[part][0] for e in cases.values())
+                         for part in ("shrink", "expand", "delta")}
     state["lora_epilogue_err"] = {
         f"{k}{sfx}": max(c[k][0] for n, c in epi.items() if n.startswith(w))
         for k in FUSED_KERNELS for w, sfx in (("bf16", ""), ("int8", "_int8"))}
@@ -1676,6 +1774,14 @@ def phase_lora_kernels(state):
           "decode_ids": LORA_DECODE_IDS,
           "errors": "(max abs, max over max(|plain element|, row RMS))",
           "segmented": cases, "epilogues_rank8": epi})
+
+
+def lora_launches_per_layer(fused: bool, units: int) -> dict:
+    """The shrink and expand launches of `units` layer runs (a layer in a
+    step or a chunk): unfused, one shrink for q and kv, one each for out,
+    fc1 and fc2, and five expands (9 a layer); fused, the four shrinks
+    before the four fused kernels, whose epilogues expand."""
+    return {"lora_shrink": 4 * units, "lora_expand": 0 if fused else 5 * units}
 
 
 def _lora_reference_cache(cfg, dev, rank=8):
@@ -1694,8 +1800,9 @@ def phase_lora_reference(state):
     """The tiny llama-shaped model of phase_fused_reference with 3
     adapters and the NULL one: a 40-token prompt's chunked prefill and one
     decode step per adapter, unfused and fused, on the card (bf16, the
-    segmented kernel or the fused kernels' epilogue) against the same
-    weights and adapters on the CPU (fp32, plain versions)."""
+    shrink and expand kernels, or the shrink and the fused kernels'
+    epilogue) against the same weights and adapters on the CPU (fp32,
+    plain versions)."""
     import copy
 
     from megatronapp_tpu_torch.models.gpt import init_gpt_params
@@ -1752,18 +1859,19 @@ def phase_lora_reference(state):
         check(effect > 0.05, f"lora_reference {step}: the adapters move the "
               f"logits by only {effect} of their range")
         units = 2 * 3 * len(slots)       # layers x (2 chunks + 1 step) x runs
+        want_l = lora_launches_per_layer(fused, units)
         if fused:
             want = {**dict.fromkeys(fd.lora_launches, 0),
                     **dict.fromkeys(FUSED_KERNELS, units)}
             check(dict(fd.lora_launches) == want and
-                  cl.launches["lora_delta"] == 0,
+                  dict(cl.launches) == want_l,
                   f"lora_reference fused: launches {dict(fd.lora_launches)},"
-                  f" segmented {dict(cl.launches)}")
+                  f" shrink/expand {dict(cl.launches)}, expected {want_l}")
         else:
-            check(cl.launches["lora_delta"] == 5 * units and
+            check(dict(cl.launches) == want_l and
                   not any(fd.lora_launches.values()),
-                  f"lora_reference unfused: segmented launches "
-                  f"{dict(cl.launches)}, expected {5 * units}")
+                  f"lora_reference unfused: shrink/expand launches "
+                  f"{dict(cl.launches)}, expected {want_l}")
     fd.lora_launches.update(before[0])
     cl.launches.update(before[1])
     pa.launches.update(before[2])
@@ -1823,7 +1931,7 @@ def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
         driver, prompts, max_new, greedy, adapters=LORA_ROUTE)
     launches = {"fused": dict(fd.launches), "fused_lora":
                 dict(fd.lora_launches), "paged": dict(pa.launches),
-                "lora_delta": dict(cl.launches)}
+                "lora": dict(cl.launches)}
     steps = engine.decode_steps - steps0
     chunks = engine.prefill_chunks - chunks0
     hits = engine.pool.stats["prefix_hit_tokens"] - hits0
@@ -1841,9 +1949,10 @@ def _serve_lora_run(params, cfg, dev, fused, cache, variant=""):
           f"{name}: fused launches {launches['fused_lora']} (without the "
           f"epilogue {launches['fused']}), expected {want_fused} ({layers} "
           f"layers x ({steps} steps + {chunks} chunks))")
-    check(launches["lora_delta"]["lora_delta"] == (0 if fused else 5 * units),
-          f"{name}: {launches['lora_delta']} segmented launches, expected "
-          f"{0 if fused else 5 * units} (5 targets x {units})")
+    want_l = lora_launches_per_layer(fused, units)
+    check(launches["lora"] == want_l,
+          f"{name}: shrink/expand launches {launches['lora']}, expected "
+          f"{want_l} ({units} layer runs)")
     check(launches["paged"] == only(launches["paged"], {
         "decode": layers * steps, "ragged": layers * chunks}),
           f"{name}: paged launches {launches['paged']}")
@@ -1920,10 +2029,10 @@ def phase_serve_lora(state):
         cache = _lora_cache(state)
         streams[key], runs[key], launches = _serve_lora_run(
             pp, cfg, dev, fused, cache, variant)
-        if key == "unfused":
-            state["lora_delta_launches"] = launches["lora_delta"][
-                "lora_delta"]
-        else:
+        for k, v in launches["lora"].items():      # every engine's
+            state.setdefault("lora_launches", {}).setdefault(k, 0)
+            state["lora_launches"][k] += v
+        if key != "unfused":
             state.setdefault("lora_epilogue_launches", {}).update(
                 {k: v for k, v in launches["fused_lora"].items() if v})
         if key == "fused":
@@ -2009,13 +2118,44 @@ def _lora_bytes(rows, ids, din, dout, rank):
             + rows * dout * 4 + (3 * rows + 2 * distinct + 1) * 4)
 
 
+def _lora_bound(kind, ids, din, dout, rank, targets=1):
+    """(bound ms, bound_by, bytes, flops) of one launch: "shrink" reads x
+    (bf16) and `targets` A banks' rows of each distinct adapter and writes
+    t; "expand" reads t and B of each distinct adapter and writes the
+    delta; "delta" is the two (_lora_bytes). Each also reads the row ids
+    and segments; the flops are the FMAs' of the non-NULL rows."""
+    rows, live = len(ids), sum(i != 0 for i in ids)
+    distinct = len({i for i in ids if i != 0})
+    meta = (3 * rows + 2 * distinct + 1) * 4
+    if kind == "shrink":
+        nbytes = (rows * din * 2 + targets * (distinct * din * rank * 4
+                                              + rows * rank * 4) + meta)
+        flops = 2 * live * targets * din * rank
+    elif kind == "expand":
+        nbytes = (rows * rank * 4 + distinct * rank * dout * 4
+                  + rows * dout * 4 + meta)
+        flops = 2 * live * rank * dout
+    else:
+        nbytes = _lora_bytes(rows, ids, din, dout, rank)
+        flops = 2 * live * rank * (din + dout)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
 def _lora_times(state):
-    """The segmented kernel at the five llama3-8b targets, 8 decode rows
-    (LORA_DECODE_IDS) and a 32-row chunk of one adapter, rank 8, rotating
-    through serve_lora's 32 layers of banks (their factors span the bank
-    bytes, beyond L2). Beside it: the plain version, the bound, and as a
-    yardstick the port never calls two torch.bmm on factors gathered per
-    row in advance (the gather untimed)."""
+    """The shrink and expand kernels at the five llama3-8b targets, 8
+    decode rows (LORA_DECODE_IDS) and a 32-row chunk of one adapter, rank
+    8, rotating through serve_lora's 32 layers of banks (their factors
+    span the bank bytes, beyond L2). Per target: the shrink, the expand
+    (of a fixed t) and the delta (the two, as lora_delta launches them),
+    each beside its plain version, its bound and, as a yardstick the port
+    never calls, torch.bmm on factors gathered per row in advance (the
+    gather untimed; the delta: two bmm). Then q and kv in one shrink, as
+    the unfused layer launches them; layer_sum: the layer as the unfused
+    engine runs it (the shared q/kv shrink, the out, fc1 and fc2 shrinks,
+    the five expands)."""
     import numpy as np
 
     from megatronapp_tpu_torch.inference.lora import lora_target_dims
@@ -2032,68 +2172,137 @@ def _lora_times(state):
         it["i"] = (it["i"] + 1) % layers
         return it["i"]
 
+    def timed(kern, plain, lib):
+        # plain, kernel, kernel, plain: compare within one card and call.
+        p1 = device_ms(plain, calls=PLAIN_CALLS)
+        k1 = device_ms(kern)
+        k2 = device_ms(kern)
+        p2 = device_ms(plain, calls=PLAIN_CALLS)
+        return {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                "library_ms": device_ms(lib)}
+
+    def bounded(row, kind, ids, din, dout, targets=1):
+        b, by, nbytes, flops = _lora_bound(kind, ids, din, dout, LORA_RANK,
+                                           targets)
+        return {**row, "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                "flops": flops}
+
     for aid in LORA_ADAPTERS[:4]:
         cache.acquire(aid)          # slots 1..4 hold adapters (pinned)
     out = {}
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     for label, ids in (("rows8_mixed", LORA_DECODE_IDS),
                        ("rows32_one_adapter", [3] * 32)):
         rows = len(ids)
         segs = tlo.LoraRows(np.asarray(ids), dev)
         idx = torch.tensor(ids, device=dev, dtype=torch.long)
+        t_fixed = torch.randn(rows, LORA_RANK, generator=gen, device=dev)
         per = {}
+        xs = {}
         for target, (din, dout) in lora_target_dims(cfg).items():
-            a_all, b_all = cache.banks[target]
             x = torch.randn(rows, din, generator=gen, device=dev).to(
                 torch.bfloat16)
+            xs[target] = x
             x32 = x.float()[:, None, :]
-            gathered = [(a_all[i][idx], b_all[i][idx])
+            gathered = [(cache.banks[target][0][i][idx],
+                         cache.banks[target][1][i][idx])
                         for i in range(min(4, layers))]
 
-            def kern(target=target, x=x):
-                i = nxt()
+            def bank(target=target):
                 a_all, b_all = cache.banks[target]
-                tlo.lora_delta(x, a_all[i], b_all[i], segs)
-
-            def plain(target=target, x=x):
                 i = nxt()
-                a_all, b_all = cache.banks[target]
-                tlo.lora_delta_plain(x, a_all[i], b_all[i], segs)
+                return a_all[i], b_all[i]
 
-            def lib(x32=x32, gathered=gathered):
+            def shrink(x=x, bank=bank):
+                cl.lora_shrink(x, (bank()[0],), segs)
+
+            def shrink_plain(x=x, bank=bank):
+                tlo.lora_shrink_plain(x, bank()[0], segs)
+
+            def shrink_lib(x32=x32, gathered=gathered):
+                torch.bmm(x32, gathered[nxt() % len(gathered)][0])
+
+            def expand(bank=bank):
+                cl.lora_expand(t_fixed, bank()[1], segs)
+
+            def expand_plain(bank=bank):
+                tlo.lora_expand_plain(t_fixed, bank()[1], segs)
+
+            def expand_lib(gathered=gathered):
+                torch.bmm(t_fixed[:, None, :],
+                          gathered[nxt() % len(gathered)][1])
+
+            def delta(x=x, bank=bank):
+                tlo.lora_delta(x, *bank(), segs)
+
+            def delta_plain(x=x, bank=bank):
+                tlo.lora_delta_plain(x, *bank(), segs)
+
+            def delta_lib(x32=x32, gathered=gathered):
                 a, b = gathered[nxt() % len(gathered)]
                 torch.bmm(torch.bmm(x32, a), b)
-            p1 = device_ms(plain, calls=PLAIN_CALLS)
-            k1 = device_ms(kern)
-            k2 = device_ms(kern)
-            p2 = device_ms(plain, calls=PLAIN_CALLS)
-            lib_ms = device_ms(lib)
-            nbytes = _lora_bytes(rows, ids, din, dout, LORA_RANK)
-            flops = 2 * sum(i != 0 for i in ids) * LORA_RANK * (din + dout)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOPS_PER_S * 1e3
             per[target] = {
-                "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-                "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
-                "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "flops": flops,
+                "shrink": bounded(timed(shrink, shrink_plain, shrink_lib),
+                                  "shrink", ids, din, dout),
+                "expand": bounded(timed(expand, expand_plain, expand_lib),
+                                  "expand", ids, din, dout),
+                **bounded(timed(delta, delta_plain, delta_lib), "delta",
+                          ids, din, dout),
                 "shape": {"rows": rows, "din": din, "dout": dout,
                           "rank": LORA_RANK,
                           "adapters": len({i for i in ids if i})}}
             del gathered
-        per["layer_sum"] = {k: sum(v[k] for v in per.values())
-                            for k in ("kernel_ms", "plain_ms", "library_ms",
-                                      "bound_ms")}
+        # q and kv in one shrink launch, as the unfused layer runs them.
+        x = xs["q_kernel"]
+        x32 = x.float()[:, None, :]
+        gq = [(cache.banks["q_kernel"][0][i][idx],
+               cache.banks["kv_kernel"][0][i][idx])
+              for i in range(min(4, layers))]
+
+        def qkv_shrink(x=x):
+            i = nxt()
+            cl.lora_shrink(x, (cache.banks["q_kernel"][0][i],
+                               cache.banks["kv_kernel"][0][i]), segs)
+
+        def qkv_plain(x=x):
+            i = nxt()
+            for tg in ("q_kernel", "kv_kernel"):
+                tlo.lora_shrink_plain(x, cache.banks[tg][0][i], segs)
+
+        def qkv_lib(x32=x32, gq=gq):
+            aq, akv = gq[nxt() % len(gq)]
+            torch.bmm(x32, torch.cat([aq, akv], dim=-1))
+        din = cfg.hidden_size
+        per["qkv_shared_shrink"] = bounded(
+            timed(qkv_shrink, qkv_plain, qkv_lib), "shrink", ids, din, 0,
+            targets=2)
+        del gq
+        targets = list(lora_target_dims(cfg))
+        shrinks = [per["qkv_shared_shrink"]] + [
+            per[t]["shrink"] for t in targets if t not in ("q_kernel",
+                                                           "kv_kernel")]
+        expands = [per[t]["expand"] for t in targets]
+        per["layer_sum"] = {
+            "shrink": {k: sum(v[k] for v in shrinks) for k in keys},
+            "expand": {k: sum(v[k] for v in expands) for k in keys},
+            "delta_unfused_layer": {
+                k: sum(v[k] for v in shrinks + expands) for k in keys},
+            "delta_one_call_a_target": {
+                k: sum(per[t][k] for t in targets) for k in keys}}
         out[label] = per
     for aid in LORA_ADAPTERS[:4]:
         cache.release(cache.slot_of(aid))
     cl.launches.update(before)
     state["lora_times"] = out
     return {"note": "device ms per call (device_ms), 32 layers of banks "
-                    "rotated; library_ms: two torch.bmm on per-row factors "
-                    "gathered in advance (the gather untimed; no single "
-                    "PyTorch call computes the segmented delta); "
-                    "layer_sum: the five targets of one layer",
+                    "rotated; library_ms: torch.bmm on per-row factors "
+                    "gathered in advance (the gather untimed; the delta: "
+                    "two bmm; no single PyTorch call computes the segmented "
+                    "delta); layer_sum: one layer's launches as the unfused "
+                    "engine runs them (shrink: q/kv shared, out, fc1, fc2; "
+                    "expand: the five), delta_one_call_a_target: the five "
+                    "targets' lora_delta calls",
             **out}
 
 
@@ -3350,7 +3559,7 @@ def _family(name: str) -> str:
         return "paged_attention"
     if "paged_latent" in name:
         return "paged_latent"
-    if "lora_delta_kernel" in name:
+    if "lora_shrink_kernel" in name or "lora_expand_kernel" in name:
         return "lora"
     if any(f"fused_{k}_kernel" in name for k in FUSED_KERNELS) \
             or "mla_down_kernel" in name or "mla_up_kernel" in name:
@@ -3799,6 +4008,11 @@ def _fused_times(state, model="model", lora=False):
             p2 = device_ms(plain, calls=PLAIN_CALLS)
             lib_ms = device_ms(lib)
             loop_ms = cuda_time_ms(kern)
+            shrink = {}
+            if lora:   # the shrink launch alone, as the wrapper makes it
+                shrink["shrink_ms"] = device_ms(
+                    lambda kernel=kernel, a=a: fd.lora_shrink_for(
+                        kernel, a, nxt(), cfg, lo()))
             del ws
             nbytes, flops, (kk, nn) = _fused_bytes_flops(cfg, kernel, rows,
                                                          int8, ids)
@@ -3813,7 +4027,8 @@ def _fused_times(state, model="model", lora=False):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops,
                 "shape": {"rows": rows, "k": kk, "n": nn},
-                "achieved_bytes_per_s": nbytes / ((k1 + k2) / 2e3)}
+                "achieved_bytes_per_s": nbytes / ((k1 + k2) / 2e3),
+                **shrink}
         out[rows] = per
     fd.launches.update(before[0])
     fd.lora_launches.update(before[1])
@@ -3833,7 +4048,9 @@ def _fused_times(state, model="model", lora=False):
                     "library_ms is one torch.matmul of the product (the "
                     "GEMM alone; QKV, and every int8 kernel: bf16 weights "
                     "made in advance, QKV's [Wq | Wkv] concatenated, 4 "
-                    "layers rotated)", "weights": "resident int8" if int8
+                    "layers rotated); with lora, kernel_ms holds the "
+                    "shrink launch before each fused kernel, and shrink_ms "
+                    "is that launch alone", "weights": "resident int8" if int8
             else "bf16", "lora_epilogue": lora, "rows": out}
 
 
@@ -4411,14 +4628,19 @@ def kernel_table(state):
                 "library_ms": t.get("library_ms")})
     lt = state.get("lora_times", {}).get("rows8_mixed", {}).get(
         "layer_sum", {})
-    out.append({
-        "name": "lora_delta (the five targets of one layer, 8 rows)",
-        "route": "cuda", "source": LORA_SOURCE, "replaces": LORA_REPLACES,
-        "launches": state.get("lora_delta_launches"),
-        "max_abs_err": state.get("lora_err"),
-        "ms": lt.get("kernel_ms"), "plain_ms": lt.get("plain_ms"),
-        "bound_ms": lt.get("bound_ms"), "bound_by": "bytes",
-        "library_ms": lt.get("library_ms")})
+    for kind, other, what in (
+            ("shrink", "expand", "t = x @ A: one layer's four launches"),
+            ("expand", "shrink", "t @ B: one layer's five launches")):
+        t = lt.get(kind, {})
+        out.append({
+            "name": f"lora_{kind} ({what}, 8 rows)", "route": "cuda",
+            "source": LORA_SOURCE,
+            "replaces": f"{LORA_REPLACES}, with lora_{other}",
+            "launches": state.get("lora_launches", {}).get(f"lora_{kind}"),
+            "max_abs_err": state.get("lora_err", {}).get(kind),
+            "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": "bytes",
+            "library_ms": t.get("library_ms")})
     for variant, times in (("", "fused_lora_times"),
                            ("_int8", "fused_int8_lora_times")):
         for kernel in FUSED_KERNELS:

@@ -77,31 +77,35 @@
 // LoRA epilogue (template flag LORA; the off path compiles as before).
 // Replaces the epilogue of the same TPU kernels with lora= (kernel_gen.py
 // _lora_epilogue :1130 in the bodies at :1242-1245, :1552-1554,
-// :1672-1683): each row r adds delta = bf16((x_r @ A[s_r]) @ B[s_r]) to its
-// base sum after the sum's bf16 rounding and before the bias, from the same
-// input the base product reads (the normed xn of QKV and fc1, attn_flat of
-// the out-projection, the activated y of fc2), with A [slots, K, rank] and
-// B [slots, rank, N] one layer's fp32 banks (inference/lora.py) indexed by
-// each row's slot id s_r (0: the NULL adapter, a delta of exactly +0.0, no
-// bank read). JAX gathers per-row factors outside its kernels
-// (_lora_gathered :1928); at a 32-row prefill chunk the gathered fc1 B
-// factors alone are 32 x 8 x 28672 x 4 B = 29 MB a layer, so these kernels
-// read the banks in place through the slot ids instead. Each block forms
-// the partial t = x_r @ A over its K split from the activations it stages
-// for the base product (the (row, j) sums split over the threads by k,
-// added in a fixed order); K-split blocks pass their partial t beside their
-// partial tile and the finishing block adds them in split order, so a rerun
-// repeats every bit. The finishing block then reads its 128 columns of
-// B[s_r] for each row. The extra bytes are the A rows of the block's k
-// range per distinct adapter (L2-resident after the first block), staged
-// into shared memory once per chunk and adapter with coalesced loads, and
-// 128 x rank floats of B per row: small beside the weights at rank 8.
+// :1672-1683): each row r adds delta = bf16(t_r @ B[s_r]) to its base sum
+// after the sum's bf16 rounding and before the bias, where t_r = x_r @
+// A[s_r] is formed from the same input the base product reads (the normed
+// xn of QKV and fc1, attn_flat of the out-projection, the activated y of
+// fc2), with A [slots, K, rank] and B [slots, rank, N] one layer's fp32
+// banks (inference/lora.py) indexed by each row's slot id s_r (0: the NULL
+// adapter, a delta of exactly +0.0, no bank read). JAX gathers per-row
+// factors outside its kernels (_lora_gathered :1928); at a 32-row prefill
+// chunk the gathered fc1 B factors alone are 32 x 8 x 28672 x 4 B = 29 MB
+// a layer, so these kernels read the banks in place through the slot ids.
+// t is not formed here: the shrink kernel (lora.cu lora_shrink_kernel)
+// forms it once a layer, spread over the card, launched by the wrapper on
+// the same stream just before this kernel (its bf16(norm(x)) is this
+// kernel's, row_norm.cuh). Only the block that finishes a tile reads it:
+// its rows' t [RB, rank] and, for each distinct adapter among its rows,
+// the tile's 128 columns of B[s], copied into shared memory with 16-byte
+// cp.async (the front region, free once the tile is summed), then
+// delta = t_r . B[s_r][:, column] in rank order. The extra bytes are
+// 128 x rank floats of B per distinct adapter and a tile, beside the
+// weights' 32-128 KB of a tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "row_norm.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -115,24 +119,13 @@ constexpr int kChunk = 256;                 // k's of activations staged at once
 constexpr int kSums = 64;                   // fp32 sums a thread keeps
 constexpr int kRegion = kThreads * kSums;   // floats: staged x, then the sums
 
-enum Norm { kNormNone = 0, kNormRms = 1, kNormLayer = 2 };
+using rn::kNormLayer;
+using rn::kNormNone;
+using rn::kNormRms;
+using rn::load_f;
+using rn::round_bf16;
+using rn::warp_sum;
 enum Act { kSwiglu = 0, kGeglu = 1, kGelu = 2, kRelu = 3, kSquaredRelu = 4 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float load_f(const bf16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // 32-bit words holding `bytes` bytes (a 2-byte load takes one word).
 constexpr int words_of(int bytes) { return bytes < 4 ? 1 : bytes / 4; }
@@ -220,91 +213,88 @@ struct GemmArgs {
 };
 
 constexpr int kMaxRank = 32;                // LoRA rank limit
-constexpr int kLoraRows = 8;                // rows whose t sums a thread keeps
-constexpr int kLoraStage = 4096;            // floats of one adapter's A staged
 
-// The LoRA epilogue's operands for one target (a == nullptr: no epilogue).
+// The LoRA epilogue's operands for one target (ids == nullptr: none).
 struct LoraArgs {
-  const float* a;     // A bank [slots, k, rank]
+  const float* t;     // [rows, rank] t = x @ A[slot] of each row (lora_shrink)
   const float* b;     // B bank [slots, rank, ldb]
   const int* ids;     // [rows] bank slot of each row (0: the NULL adapter)
   int rank, ldb;
   int b0, b1;         // B columns of virtual columns 0 and kHalfTile
-  float* ws;          // [tiles * row chunks, ksplit, RB * rank] partial t
 };
 
-// The LoRA region of shared memory, past the base kernels' region.
-template <int RB>
-struct LoraSmem {
-  float* abuf;        // [k's][rank] rows of one adapter's A (16-byte aligned)
-  float* part;        // [RB * rank][k parts] partial sums (<= 8 kThreads)
-  float* t;           // [RB][rank] t = x @ A of the block's rows
-  int* slot;          // [RB] the rows' bank slots
-  int* dslot;         // [RB] their distinct adapters (not NULL), then
-  int* nd;            // their count
-  __device__ explicit LoraSmem(float* smem)
-      : abuf(smem + kRegion + RB * kTile + 2 * RB + 4),
-        part(abuf + kLoraStage),
-        t(part + kLoraRows * kThreads),
-        slot(reinterpret_cast<int*>(t + RB * kMaxRank)),
-        dslot(slot + RB),
-        nd(dslot + RB) {}
-};
-
-size_t smem_bytes(int rb, bool lora) {
-  return (size_t)(kRegion + rb * kTile + 2 * rb + 4 +
-                  (lora ? kLoraStage + kLoraRows * kThreads + rb * kMaxRank +
-                              2 * rb + 1
-                        : 0)) *
-         sizeof(float);
+size_t smem_bytes(int rb) {
+  return (size_t)(kRegion + rb * kTile + 2 * rb + 4) * sizeof(float);
 }
 
-// Copies n floats of global memory into shared memory with 8 loads in
-// flight a thread (16-byte loads when vec: both 16-byte aligned).
-__device__ __forceinline__ void stage_floats(float* dst, const float* src,
-                                             int n, bool vec) {
-  constexpr int kBatch = 8;
-  int done = 0;
-  if (vec) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    const int n4 = n / 4;
-    for (int i0 = threadIdx.x; i0 < n4; i0 += kThreads * kBatch) {
-      float4 v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (i0 + u * kThreads < n4) v[u] = __ldg(s4 + i0 + u * kThreads);
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (i0 + u * kThreads < n4) d4[i0 + u * kThreads] = v[u];
+// The finishing block's LoRA deltas dl [RB][kTile] (row r, virtual column
+// vc: t_r . B[s_r][:, column of vc], fp32 in rank order; exactly 0 for the
+// NULL adapter and for rows past `rows`), built in the front region of
+// shared memory, which is free once the tile is summed: the rows' t, the
+// distinct adapters among the rows in first-occurrence order (one warp,
+// lane r on row r: __match_any_sync groups the rows of one slot, the
+// group's lowest lane leads it), then the tile's 128 columns of B for as
+// many distinct adapters at once as the region holds (16-byte cp.async;
+// one pass at rank 8), each row's deltas from its adapter's copy. The
+// kernel is launched with programmatic stream serialization after the
+// shrink, which lets it start while the shrink runs: only here, in the
+// finishing block, does it wait for the shrink's t (tc::pdl_wait). Before
+// that wait a block writes only the split workspace and counters, which
+// the wrappers allocate before they launch the shrink (tensor_core.cuh's
+// rule); the outputs are written after it. Returns dl.
+template <int RB>
+__device__ const float* lora_tile_delta(const LoraArgs& la, float* smem,
+                                        int row0, int rows) {
+  static_assert(RB <= 32, "one lane a row");
+  constexpr int kC4 = kTile / 4;                  // 16-byte pieces of a B row
+  float* dl = smem;                               // [RB][kTile]
+  float* ts = dl + RB * kTile;                    // [RB][rank]
+  int* pos_s = reinterpret_cast<int*>(ts + RB * kMaxRank);   // [RB] index in dslot, -1: NULL
+  int* dslot = pos_s + RB;                        // [RB] distinct adapters
+  int* nd_s = dslot + RB;                         // 2 RB ints: bs 16-byte aligned
+  float* bs = reinterpret_cast<float*>(nd_s + 2 * RB);  // [cap][rank][kTile]
+  const int tid = threadIdx.x;
+  const int rank = la.rank;
+  const int cap = (kRegion - (int)(bs - smem)) / (rank * kTile);
+  tc::pdl_wait();   // t comes from the shrink launched just before
+  if (tid < 32) {
+    const int slot = tid < rows ? la.ids[row0 + tid] : 0;
+    const unsigned same = __match_any_sync(0xffffffffu, slot);
+    const int leader = __ffs(same) - 1;
+    const unsigned leaders = __ballot_sync(0xffffffffu, slot != 0 && leader == tid);
+    if (slot != 0 && leader == tid) dslot[__popc(leaders & ((1u << tid) - 1))] = slot;
+    if (tid < RB) pos_s[tid] = slot == 0 ? -1 : __popc(leaders & ((1u << leader) - 1));
+    if (tid == 0) *nd_s = __popc(leaders);
+  }
+  for (int i = tid; i < RB * rank; i += kThreads)
+    ts[i] = i / rank < rows ? la.t[(size_t)row0 * rank + i] : 0.f;
+  for (int i = tid; i < RB * kTile; i += kThreads) dl[i] = 0.f;
+  __syncthreads();
+  const int nd = *nd_s;
+  for (int d0 = 0; d0 < nd; d0 += cap) {
+    const int dn = min(cap, nd - d0);
+    for (int i = tid; i < dn * rank * kC4; i += kThreads) {
+      const int vc = (i % kC4) * 4, j = (i / kC4) % rank, e = i / (kC4 * rank);
+      const int col = vc < kHalfTile ? la.b0 + vc : la.b1 + (vc - kHalfTile);
+      tc::cp_async_16(bs + (e * rank + j) * kTile + vc,
+                      la.b + ((size_t)dslot[d0 + e] * rank + j) * la.ldb + col, true);
     }
-    done = n4 * 4;
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    for (int i = tid; i < rows * kTile; i += kThreads) {
+      const int r = i / kTile, e = pos_s[r] - d0;
+      if (e < 0 || e >= dn) continue;   // NULL rows and other passes' adapters
+      const float* b = bs + e * rank * kTile + i % kTile;
+      const float* t = ts + r * rank;
+      float d = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < rank; ++j) d = fmaf(t[j], b[j * kTile], d);
+      dl[i] = d;
+    }
+    __syncthreads();
   }
-  for (int i0 = done + threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
-    float v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (i0 + u * kThreads < n) v[u] = __ldg(src + i0 + u * kThreads);
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (i0 + u * kThreads < n) dst[i0 + u * kThreads] = v[u];
-  }
-}
-
-// delta[r][vc] = t_r @ B[slot_r][:, column of virtual column vc], fp32 in
-// rank order; exactly 0 for the NULL adapter.
-template <int RB>
-__device__ __forceinline__ float lora_delta_at(const LoraArgs& la,
-                                               const LoraSmem<RB>& ls, int r,
-                                               int vc) {
-  const int slot = ls.slot[r];
-  if (slot == 0) return 0.f;
-  const int col = vc < kHalfTile ? la.b0 + vc : la.b1 + (vc - kHalfTile);
-  const float* bp = la.b + (size_t)slot * la.rank * la.ldb + col;
-  const float* t = ls.t + r * la.rank;
-  float d = 0.f;
-  for (int j = 0; j < la.rank; ++j) d = fmaf(t[j], bp[(size_t)j * la.ldb], d);
-  return d;
+  return dl;
 }
 
 // v (a rounded base sum) + bf16(delta), rounded: q + d.astype(cdt).
@@ -318,14 +308,10 @@ __device__ __forceinline__ float add_delta(float v, float d) {
 // s1 (null otherwise). Returns true in the block that then holds the
 // finished fp32 sums in `tile` (every block when ksplit == 1, else the last
 // of the tile's blocks to finish) and false in the others, which exit.
-// LORA: the block also sums t = x @ A[slot] of its rows over its k split
-// (the same staged x), and the finishing block holds the whole t of each
-// row in LoraSmem's t, its rows' slots in LoraSmem's slot.
-template <int RB, typename TW, typename TV, bool LORA>
+template <int RB, typename TW, typename TV>
 __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
                                 const TW* w1, const float* s0,
-                                const float* s1, size_t ldw, float* smem,
-                                const LoraArgs& la) {
+                                const float* s1, size_t ldw, float* smem) {
   using P = Plan<RB, TW>;
   float* xs = smem;                  // [kChunk][RB] staged activations
   float* red = smem;                 // [kGroups][RB][kTile], after the k loop
@@ -346,32 +332,12 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
   // 1 / sqrt(mean((x - mean)^2) + eps), as ops/normalization.py.
   if (a.norm != kNormNone) {
     for (int r = warp; r < rows; r += kWarps) {
-      const bf16* xr = a.x + (size_t)(row0 + r) * a.k;
-      float mean = 0.f;
-      if (a.norm == kNormLayer) {
-        float s = 0.f;
-        for (int c = lane * 8; c < a.k; c += 32 * 8) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(xr + c);
-          const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s += __bfloat162float(v[e]);
-        }
-        mean = warp_sum(s) / (float)a.k;
-      }
-      float ss = 0.f;
-      for (int c = lane * 8; c < a.k; c += 32 * 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(xr + c);
-        const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float d = __fsub_rn(__bfloat162float(v[e]), mean);
-          ss = __fadd_rn(ss, __fmul_rn(d, d));
-        }
-      }
-      ss = warp_sum(ss);
+      float mean, ss;
+      rn::row_moments(a.x + (size_t)(row0 + r) * a.k, a.k, a.norm, lane, mean,
+                      ss);
       if (lane == 0) {
         mean_s[r] = mean;
-        rstd_s[r] = 1.f / sqrtf(ss / (float)a.k + a.eps);
+        rstd_s[r] = rn::row_rstd(ss, a.k, a.eps);
       }
     }
   }
@@ -393,30 +359,6 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
     for (int c = 0; c < P::kCpl; ++c) sc[c] = sp[c];
   }
 
-  // LoRA: thread (row group lg of 8 rows, j, k part lq) owns the partial
-  // sums part[(row * rank + j) * parts + lq] of t for the group's 8 rows,
-  // kept in shared memory (no register of them lives across the weight
-  // loop) and summed over its k's lq, lq + parts, ... of each chunk. Each
-  // distinct adapter's A rows of the chunk are staged once in shared memory
-  // (coalesced, 8 loads in flight a thread) and used for every row on it.
-  const LoraSmem<RB> ls(smem);
-  constexpr int kGroupsL = RB / kLoraRows;
-  if constexpr (LORA) {
-    if (tid < RB) ls.slot[tid] = tid < rows ? la.ids[row0 + tid] : 0;
-    for (int i = tid; i < kLoraRows * kThreads; i += kThreads) ls.part[i] = 0.f;
-    __syncthreads();
-    if (tid == 0) {
-      int nd = 0;
-      for (int r = 0; r < RB; ++r) {
-        const int slot = ls.slot[r];
-        bool seen = slot == 0;
-        for (int d = 0; d < nd; ++d) seen = seen || ls.dslot[d] == slot;
-        if (!seen) ls.dslot[nd++] = slot;
-      }
-      *ls.nd = nd;
-    }
-  }
-
   for (int c0 = k_begin; c0 < k_end; c0 += kChunk) {
     const int kc = min(kChunk, k_end - c0);
     __syncthreads();   // statistics written; the previous chunk consumed
@@ -432,13 +374,9 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           v[e] = __bfloat162float(xv[e]);
-          if (a.norm != kNormNone) {
-            const int kk = c0 + k8 + e;
-            float t = __fmul_rn(__fsub_rn(v[e], mean_s[r]), rstd_s[r]);
-            t = __fmul_rn(t, load_f(a.norm_scale, kk));
-            if (a.norm_bias != nullptr) t = __fadd_rn(t, load_f(a.norm_bias, kk));
-            v[e] = round_bf16(t);
-          }
+          if (a.norm != kNormNone)
+            v[e] = rn::norm_round(v[e], mean_s[r], rstd_s[r], a.norm_scale,
+                                  a.norm_bias, c0 + k8 + e);
         }
       }
 #pragma unroll
@@ -476,44 +414,6 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
         }
       }
     }
-
-    if constexpr (LORA) {   // partial t over this chunk, from the staged x
-      const int rank = la.rank;
-      const int lparts = max(1, kThreads / (rank * kGroupsL));
-      const int lj = tid % rank, lq = (tid / rank) % lparts;
-      const int lg = tid / (rank * lparts);
-      // k's a staging pass: a multiple of lparts that fits abuf.
-      const int sub = max(lparts, kLoraStage / rank / lparts * lparts);
-      const bool vec = rank % 4 == 0;          // A's rows 16-byte aligned
-      const int nd = *ls.nd;
-      for (int d = 0; d < nd; ++d) {
-        const int slot = ls.dslot[d];
-        for (int k_lo = 0; k_lo < kc; k_lo += sub) {
-          const int kn = min(sub, kc - k_lo);
-          __syncthreads();                     // abuf's last pass is consumed
-          stage_floats(ls.abuf, la.a + ((size_t)slot * a.k + c0 + k_lo) * rank,
-                       kn * rank, vec);
-          __syncthreads();
-          if (lg < kGroupsL) {
-            const int* slots = ls.slot + lg * kLoraRows;
-            float* pp = ls.part + (lg * kLoraRows * rank + lj) * lparts + lq;
-            const int row_stride = rank * lparts;
-            float acc[kLoraRows];
-#pragma unroll
-            for (int r8 = 0; r8 < kLoraRows; ++r8) acc[r8] = pp[r8 * row_stride];
-            for (int kk = lq; kk < kn; kk += lparts) {
-              const float av = ls.abuf[kk * rank + lj];
-              const float* xk = xs + (k_lo + kk) * RB + lg * kLoraRows;
-#pragma unroll
-              for (int r8 = 0; r8 < kLoraRows; ++r8)   // slots: uniform
-                if (slots[r8] == slot) acc[r8] = fmaf(xk[r8], av, acc[r8]);
-            }
-#pragma unroll
-            for (int r8 = 0; r8 < kLoraRows; ++r8) pp[r8 * row_stride] = acc[r8];
-          }
-        }
-      }
-    }
   }
 
   // The kGroups partial sums of each output, added in group order.
@@ -531,20 +431,6 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
   }
 
   const int unit = blockIdx.z * gridDim.x + blockIdx.x;
-  const int npairs = LORA ? RB * la.rank : 0;   // t's (row, j) entries
-  float* lpart = nullptr;   // this unit's partial t, [ksplit][RB * rank]
-  if constexpr (LORA) {     // the block's t: its k parts added in order
-    const int lparts = max(1, kThreads / (la.rank * kGroupsL));
-    __syncthreads();
-    if (a.ksplit > 1) lpart = la.ws + (size_t)unit * a.ksplit * npairs;
-    for (int p = tid; p < npairs; p += kThreads) {
-      float s = ls.part[p * lparts];
-      for (int q = 1; q < lparts; ++q) s += ls.part[p * lparts + q];
-      ls.t[p] = s;
-      if (lpart != nullptr) lpart[(size_t)blockIdx.y * npairs + p] = s;
-    }
-  }
-
   if (a.ksplit > 1) {
     float* part = a.ws + (size_t)unit * a.ksplit * RB * kTile;
     for (int i = tid; i < RB * kTile; i += kThreads)
@@ -560,14 +446,6 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
       for (int sp = 1; sp < a.ksplit; ++sp)
         s += __ldcg(part + (size_t)sp * RB * kTile + i);
       tile[i] = s;
-    }
-    if constexpr (LORA) {
-      for (int p = tid; p < npairs; p += kThreads) {
-        float s = __ldcg(lpart + p);
-        for (int sp = 1; sp < a.ksplit; ++sp)
-          s += __ldcg(lpart + (size_t)sp * npairs + p);
-        ls.t[p] = s;
-      }
     }
     if (tid == 0) a.counters[unit] = 0;
   }
@@ -602,18 +480,21 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
       : is_q ? q_scale + col0 : kv_scale + (col0 - nq_cols);
   const size_t ldw = is_q ? nq_cols : 2 * nkv_cols;
   // The tile's adapter: q's factors, or [K | V]'s by the same column.
-  LoraArgs la = is_q ? lq : lkv;
-  la.b0 = is_q ? col0 : col0 - nq_cols;
-  la.b1 = la.b0 + kHalfTile;
-  if (!accumulate_tile<RB, TW, TV, LORA>(
+  if (!accumulate_tile<RB, TW, TV>(
           a, base, base + kHalfTile, sbase,
-          sbase == nullptr ? nullptr : sbase + kHalfTile, ldw, smem, la))
+          sbase == nullptr ? nullptr : sbase + kHalfTile, ldw, smem))
     return;
 
   float* tile = smem + kRegion;
-  const LoraSmem<RB> ls(smem);
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
+  const float* dl = nullptr;   // LORA: the rows' deltas [RB][kTile]
+  if constexpr (LORA) {
+    LoraArgs la = is_q ? lq : lkv;
+    la.b0 = is_q ? col0 : col0 - nq_cols;
+    la.b1 = la.b0 + kHalfTile;
+    dl = lora_tile_delta<RB>(la, smem, row0, rows);
+  }
   // 0: q, 1: k, 2: v; bias0 indexes q_bias or the packed kv_bias.
   const int region = is_q ? 0 : (col0 - nq_cols < nkv_cols ? 1 : 2);
   const int bias0 = is_q ? col0 : col0 - nq_cols;
@@ -622,7 +503,7 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
 
   for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
     float v = round_bf16(tile[i]);
-    if constexpr (LORA) v = add_delta(v, lora_delta_at<RB>(la, ls, i / kTile, i % kTile));
+    if constexpr (LORA) v = add_delta(v, dl[i]);
     if (bias != nullptr)
       v = round_bf16(__fadd_rn(v, round_bf16(load_f(bias, bias0 + i % kTile))));
     tile[i] = v;
@@ -673,14 +554,15 @@ __device__ void residual_epilogue(const GemmArgs<TV>& a, float* smem,
                                   const TV* bias, const bf16* residual,
                                   bf16* out, int n_cols, const LoraArgs& la) {
   const float* tile = smem + kRegion;
-  const LoraSmem<RB> ls(smem);
   const int col0 = blockIdx.x * kTile;
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
+  const float* dl = nullptr;   // LORA: the rows' deltas [RB][kTile]
+  if constexpr (LORA) dl = lora_tile_delta<RB>(la, smem, row0, rows);
   for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
     const int r = i / kTile, c = i % kTile;
     float v = round_bf16(tile[i]);
-    if constexpr (LORA) v = add_delta(v, lora_delta_at<RB>(la, ls, r, c));
+    if constexpr (LORA) v = add_delta(v, dl[i]);
     if (bias != nullptr) v = round_bf16(__fadd_rn(v, round_bf16(load_f(bias, col0 + c))));
     const size_t o = (size_t)(row0 + r) * n_cols + col0 + c;
     out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(residual[o]), v));
@@ -704,9 +586,9 @@ fused_out_proj_kernel(GemmArgs<TV> a, const TW* w, const float* w_scale,
   const float* sbase = w_scale == nullptr ? nullptr : w_scale + blockIdx.x * kTile;
   la.b0 = blockIdx.x * kTile;
   la.b1 = la.b0 + kHalfTile;
-  if (!accumulate_tile<RB, TW, TV, LORA>(
+  if (!accumulate_tile<RB, TW, TV>(
           a, base, base + kHalfTile, sbase,
-          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem, la))
+          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem))
     return;
   residual_epilogue<RB, TV, LORA>(a, smem, bias, residual, out, n_cols, la);
 }
@@ -744,14 +626,14 @@ fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
   const size_t ldw = gated ? 2 * (size_t)ffn : (size_t)ffn;
   la.b0 = j0;
   la.b1 = gated ? ffn + j0 : j0 + kHalfTile;
-  if (!accumulate_tile<RB, TW, TV, LORA>(a, seg0, seg1, sc0, sc1, ldw, smem,
-                                         la))
+  if (!accumulate_tile<RB, TW, TV>(a, seg0, seg1, sc0, sc1, ldw, smem))
     return;
 
   const float* tile = smem + kRegion;
-  const LoraSmem<RB> ls(smem);
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
+  const float* dl = nullptr;   // LORA: the rows' deltas [RB][kTile]
+  if constexpr (LORA) dl = lora_tile_delta<RB>(la, smem, row0, rows);
   for (int i = threadIdx.x; i < rows * width; i += kThreads) {
     const int r = i / width, c = i % width, j = j0 + c;
     float out;
@@ -759,8 +641,8 @@ fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
       float g = round_bf16(tile[r * kTile + c]);
       float v = round_bf16(tile[r * kTile + kHalfTile + c]);
       if constexpr (LORA) {
-        g = add_delta(g, lora_delta_at<RB>(la, ls, r, c));
-        v = add_delta(v, lora_delta_at<RB>(la, ls, r, kHalfTile + c));
+        g = add_delta(g, dl[r * kTile + c]);
+        v = add_delta(v, dl[r * kTile + kHalfTile + c]);
       }
       if (b1 != nullptr) {
         g = round_bf16(__fadd_rn(g, round_bf16(load_f(b1, j))));
@@ -772,7 +654,7 @@ fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
       out = __fmul_rn(round_bf16(ga), v);
     } else {
       float v = round_bf16(tile[r * kTile + c]);
-      if constexpr (LORA) v = add_delta(v, lora_delta_at<RB>(la, ls, r, c));
+      if constexpr (LORA) v = add_delta(v, dl[r * kTile + c]);
       if (b1 != nullptr) v = round_bf16(__fadd_rn(v, round_bf16(load_f(b1, j))));
       if (act == kGelu) {
         out = gelu_tanh(v);
@@ -801,9 +683,9 @@ fused_mlp_fc2_kernel(GemmArgs<TV> a, const TW* w2, const float* w2_scale,
   const float* sbase = w2_scale == nullptr ? nullptr : w2_scale + blockIdx.x * kTile;
   la.b0 = blockIdx.x * kTile;
   la.b1 = la.b0 + kHalfTile;
-  if (!accumulate_tile<RB, TW, TV, LORA>(
+  if (!accumulate_tile<RB, TW, TV>(
           a, base, base + kHalfTile, sbase,
-          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem, la))
+          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem))
     return;
   residual_epilogue<RB, TV, LORA>(a, smem, b2, residual, out, n_cols, la);
 }
@@ -827,12 +709,11 @@ struct Launch {
   int rows, k, n;                           // n: output columns
   int nkv_cols, head_dim, rope_half, act;
   int ksplit;
-  // LoRA epilogue (lora_ids == null: none): A/B banks of the target (QKV:
-  // q's; lora_a2/lora_b2 the kv target's), the rows' slots, the rank and
-  // the K-split workspace of partial t.
-  const void *lora_a, *lora_b, *lora_a2, *lora_b2, *lora_ids;
+  // LoRA epilogue (lora_ids == null: none): the target's t (lora_shrink)
+  // and B bank (QKV: q's; lora_t2/lora_b2 the kv target's), the rows'
+  // slots and the rank.
+  const void *lora_t, *lora_b, *lora_t2, *lora_b2, *lora_ids;
   int lora_rank;
-  void* lora_ws;
   void* stream;
 };
 
@@ -853,26 +734,30 @@ GemmArgs<TV> gemm_args(const Launch& l) {
 }
 
 // One target's LoraArgs (B's row stride ldb); the kernels set b0 and b1.
-LoraArgs lora_args(const Launch& l, const void* a, const void* b, int ldb) {
+LoraArgs lora_args(const Launch& l, const void* t, const void* b, int ldb) {
   LoraArgs la = {};
-  la.a = static_cast<const float*>(a);
+  la.t = static_cast<const float*>(t);
   la.b = static_cast<const float*>(b);
   la.ids = static_cast<const int*>(l.lora_ids);
   la.rank = l.lora_rank;
   la.ldb = ldb;
-  la.ws = static_cast<float*>(l.lora_ws);
   return la;
 }
 
 template <int RB, bool LORA, typename Kernel, typename... Args>
 int launch(Kernel kernel, int tiles, const Launch& l, Args... args) {
-  const size_t smem = smem_bytes(RB, LORA);
+  const size_t smem = smem_bytes(RB);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tiles, l.ksplit, (l.rows + RB - 1) / RB);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(l.stream)>>>(
-      args...);
+  const cudaStream_t stream = static_cast<cudaStream_t>(l.stream);
+  if constexpr (LORA) {   // may start while the shrink before it runs
+    err = tc::launch_pdl(kernel, grid, dim3(kThreads), smem, stream, args...);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<grid, kThreads, smem, stream>>>(args...);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -889,8 +774,8 @@ int launch_qkv(const Launch& l) {
       static_cast<const float*>(l.cos), static_cast<const float*>(l.sin),
       static_cast<bf16*>(l.out), static_cast<bf16*>(l.k_out),
       static_cast<bf16*>(l.v_out), nq_cols, l.nkv_cols, l.head_dim,
-      l.rope_half, lora_args(l, l.lora_a, l.lora_b, nq_cols),
-      lora_args(l, l.lora_a2, l.lora_b2, 2 * l.nkv_cols));
+      l.rope_half, lora_args(l, l.lora_t, l.lora_b, nq_cols),
+      lora_args(l, l.lora_t2, l.lora_b2, 2 * l.nkv_cols));
 }
 
 template <int RB, typename TW, typename TV, bool LORA>
@@ -900,7 +785,7 @@ int launch_out_proj(const Launch& l) {
       gemm_args<TV>(l), static_cast<const TW*>(l.w),
       static_cast<const float*>(l.w_scale), static_cast<const TV*>(l.bias),
       static_cast<const bf16*>(l.residual), static_cast<bf16*>(l.out), l.n,
-      lora_args(l, l.lora_a, l.lora_b, l.n));
+      lora_args(l, l.lora_t, l.lora_b, l.n));
 }
 
 template <int RB, typename TW, typename TV, bool LORA>
@@ -910,7 +795,7 @@ int launch_fc2(const Launch& l) {
       gemm_args<TV>(l), static_cast<const TW*>(l.w),
       static_cast<const float*>(l.w_scale), static_cast<const TV*>(l.bias),
       static_cast<const bf16*>(l.residual), static_cast<bf16*>(l.out), l.n,
-      lora_args(l, l.lora_a, l.lora_b, l.n));
+      lora_args(l, l.lora_t, l.lora_b, l.n));
 }
 
 template <int RB, typename TW, typename TV, bool LORA>
@@ -921,7 +806,7 @@ int launch_fc1(const Launch& l) {
       l.n / (gated ? kHalfTile : kTile), l, gemm_args<TV>(l),
       static_cast<const TW*>(l.w), static_cast<const float*>(l.w_scale),
       static_cast<const TV*>(l.bias), static_cast<bf16*>(l.out), l.n, l.act,
-      lora_args(l, l.lora_a, l.lora_b, (gated ? 2 : 1) * l.n));
+      lora_args(l, l.lora_t, l.lora_b, (gated ? 2 : 1) * l.n));
 }
 
 bool bad_split(const Launch& l) {
@@ -929,14 +814,13 @@ bool bad_split(const Launch& l) {
          (l.ksplit > 1 && (l.ws == nullptr || l.counters == nullptr));
 }
 
-// A LoRA epilogue needs its factors (both pairs for QKV), a rank of 1..32
-// and, K-split, the partial-t workspace.
+// A LoRA epilogue needs its t and B (both pairs for QKV) and a rank of
+// 1..32.
 bool bad_lora(const Launch& l, bool two_targets) {
   if (l.lora_ids == nullptr) return false;
-  return l.lora_rank < 1 || l.lora_rank > kMaxRank || l.lora_a == nullptr ||
+  return l.lora_rank < 1 || l.lora_rank > kMaxRank || l.lora_t == nullptr ||
          l.lora_b == nullptr ||
-         (two_targets && (l.lora_a2 == nullptr || l.lora_b2 == nullptr)) ||
-         (l.ksplit > 1 && l.lora_ws == nullptr);
+         (two_targets && (l.lora_t2 == nullptr || l.lora_b2 == nullptr));
 }
 
 // Weight kinds: bf16 weights with bf16 norm scales and biases, fp32 with
@@ -991,10 +875,10 @@ struct Fc2L { static int run(const Launch& l) { return launch_fc2<RB, TW, TV, LO
 // * ksplit * RB * 128 floats and counters tiles * row chunks zeroed ints
 // when ksplit > 1 (the kernels leave them zero).
 // LoRA epilogue: lora_ids [rows] int32 bank slots (null: no epilogue), the
-// fp32 banks lora_a [slots, k, lora_rank] and lora_b [slots, lora_rank, n]
-// of one layer (QKV: q's pair, then the kv pair over the packed [K | V]
-// columns), 1 <= lora_rank <= 32; lora_ws holds tiles * row chunks * ksplit
-// * RB * lora_rank floats when ksplit > 1.
+// fp32 t [rows, lora_rank] of the launch's input (lora_shrink, on the same
+// stream before it) and B bank [slots, lora_rank, n] of one layer (QKV: q's
+// pair, then the kv pair over the packed [K | V] columns), 16-byte aligned,
+// 1 <= lora_rank <= 32.
 
 // x [rows, hidden]; wq [hidden, nq_cols]; wkv [hidden, 2 nkv_cols] ([K | V]);
 // q [rows, nq_cols], k and v [rows, nkv_cols].
@@ -1005,9 +889,9 @@ extern "C" int fused_qkv_launch(
     const void* q_ln, const void* k_ln, const void* cos, const void* sin,
     void* q, void* k, void* v, void* ws, void* counters, int rows, int hidden,
     int nq_cols, int nkv_cols, int head_dim, int rope_half, int weight_kind,
-    int vector_f32, int ksplit, const void* lora_aq, const void* lora_bq,
-    const void* lora_akv, const void* lora_bkv, const void* lora_ids,
-    int lora_rank, void* lora_ws, void* stream) {
+    int vector_f32, int ksplit, const void* lora_tq, const void* lora_bq,
+    const void* lora_tkv, const void* lora_bkv, const void* lora_ids,
+    int lora_rank, void* stream) {
   Launch l = {};
   l.x = x; l.norm_scale = ln_scale; l.norm_bias = ln_bias; l.norm = norm;
   l.eps = eps; l.w = wq; l.wkv = wkv; l.bias = q_bias; l.kv_bias = kv_bias;
@@ -1017,9 +901,8 @@ extern "C" int fused_qkv_launch(
   l.rows = rows; l.k = hidden; l.n = nq_cols + 2 * nkv_cols;
   l.nkv_cols = nkv_cols; l.head_dim = head_dim; l.rope_half = rope_half;
   l.ksplit = ksplit; l.stream = stream;
-  l.lora_a = lora_aq; l.lora_b = lora_bq; l.lora_a2 = lora_akv;
+  l.lora_t = lora_tq; l.lora_b = lora_bq; l.lora_t2 = lora_tkv;
   l.lora_b2 = lora_bkv; l.lora_ids = lora_ids; l.lora_rank = lora_rank;
-  l.lora_ws = lora_ws;
   if (bad_split(l) || norm < kNormRms || norm > kNormLayer ||
       (head_dim != 64 && head_dim != 128) || nq_cols % kTile != 0 ||
       nkv_cols % kTile != 0 || rope_half < 0 || 2 * rope_half > head_dim ||
@@ -1037,14 +920,14 @@ extern "C" int fused_residual_gemm_launch(
     int fc2, const void* x, const void* w, const void* w_scale,
     const void* bias, const void* residual, void* out, void* ws,
     void* counters, int rows, int k, int n, int weight_kind, int vector_f32,
-    int ksplit, const void* lora_a, const void* lora_b, const void* lora_ids,
-    int lora_rank, void* lora_ws, void* stream) {
+    int ksplit, const void* lora_t, const void* lora_b, const void* lora_ids,
+    int lora_rank, void* stream) {
   Launch l = {};
   l.x = x; l.w = w; l.w_scale = w_scale; l.bias = bias; l.residual = residual;
   l.out = out; l.ws = ws; l.counters = counters; l.rows = rows; l.k = k;
   l.n = n; l.ksplit = ksplit; l.stream = stream; l.norm = kNormNone;
-  l.lora_a = lora_a; l.lora_b = lora_b; l.lora_ids = lora_ids;
-  l.lora_rank = lora_rank; l.lora_ws = lora_ws;
+  l.lora_t = lora_t; l.lora_b = lora_b; l.lora_ids = lora_ids;
+  l.lora_rank = lora_rank;
   if (bad_split(l) || n % kTile != 0 || n < kTile ||
       bad_kind(weight_kind, vector_f32, w_scale) || bad_lora(l, false))
     return (int)cudaErrorInvalidValue;
@@ -1059,16 +942,15 @@ extern "C" int fused_mlp_fc1_launch(
     const void* x, const void* ln_scale, const void* ln_bias, int norm,
     float eps, const void* w1, const void* w1_scale, const void* b1, void* y,
     void* ws, void* counters, int rows, int hidden, int ffn, int act,
-    int weight_kind, int vector_f32, int ksplit, const void* lora_a,
-    const void* lora_b, const void* lora_ids, int lora_rank, void* lora_ws,
-    void* stream) {
+    int weight_kind, int vector_f32, int ksplit, const void* lora_t,
+    const void* lora_b, const void* lora_ids, int lora_rank, void* stream) {
   Launch l = {};
   l.x = x; l.norm_scale = ln_scale; l.norm_bias = ln_bias; l.norm = norm;
   l.eps = eps; l.w = w1; l.w_scale = w1_scale; l.bias = b1; l.out = y;
   l.ws = ws; l.counters = counters; l.rows = rows; l.k = hidden; l.n = ffn;
   l.act = act; l.ksplit = ksplit; l.stream = stream;
-  l.lora_a = lora_a; l.lora_b = lora_b; l.lora_ids = lora_ids;
-  l.lora_rank = lora_rank; l.lora_ws = lora_ws;
+  l.lora_t = lora_t; l.lora_b = lora_b; l.lora_ids = lora_ids;
+  l.lora_rank = lora_rank;
   const bool gated = act == kSwiglu || act == kGeglu;
   if (bad_split(l) || norm < kNormRms || norm > kNormLayer || act < kSwiglu ||
       act > kSquaredRelu || ffn < kTile || ffn % (gated ? kHalfTile : kTile) != 0 ||

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks for sm_80+ (used on
-// sm_90a): cp.async copies into shared memory with zero fill, ldmatrix
+// sm_90a): programmatic dependent launch (sm_90), cp.async copies into
+// shared memory with zero fill, ldmatrix
 // fragment loads, the bf16 m16n8k16 mma with fp32 accumulators, bf16
 // packing, and the warp-level products and the online-softmax step that
 // the flash and paged-attention kernels build from them.
@@ -22,6 +23,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tc {
@@ -42,6 +44,43 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool pre
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
+}
+
+// Programmatic dependent launch (sm_90): a kernel launched with the
+// programmatic stream serialization attribute may start while the kernel
+// before it on the stream runs, once that one's blocks have all called
+// pdl_trigger (or exited); pdl_wait then blocks until the kernel before has
+// completed and its writes are visible. Without the attribute both are
+// no-ops. The rule for such a dependent: before pdl_wait it writes no global
+// memory but buffers allocated before the kernel before it was launched.
+// PyTorch's caching allocator assumes the kernels of a stream run one after
+// another, so a buffer allocated later may be memory that kernel still uses
+// (a workspace its wrapper freed on return).
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Launches kernel<<<grid, block, smem, stream>>>(args...) with programmatic
+// stream serialization allowed (pdl_wait / pdl_trigger above); returns the
+// launch's error code.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                              cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1125,7 +1125,7 @@ class DynamicInferenceEngine:
                                 "fused_decode": dict(fd.launches),
                                 "fused_mla": dict(fm.launches),
                                 "fused_decode_lora": dict(fd.lora_launches),
-                                "lora_delta": dict(cl.launches),
+                                "lora": dict(cl.launches),
                                 "latent_tp": dict(lt.launches)},
             "tp": None if self.ctx is None else {
                 "tp": self.ctx.tp, "rank": self.ctx.rank,

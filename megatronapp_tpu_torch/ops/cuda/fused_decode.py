@@ -41,9 +41,13 @@ LoraRows, "banks": {target: (A [slots, din, rank], B [slots, rank,
 dout])}}). The plain versions add the delta as JAX's ``_lora_epilogue``
 does (kernel_gen.py:1130; the bodies at :1242-1245, :1552-1554,
 :1672-1683): fp32 (x @ A) @ B of each row's adapter, cast to the compute
-dtype, added after the matmul's rounding and before the bias. The kernels
-run it as their LoRA epilogue (a template flag of the same kernels),
-reading the fp32 banks in place through the rows' slot ids; those launches
+dtype, added after the matmul's rounding and before the bias. On the card
+each wrapper first launches the shrink kernel (ops/cuda/lora.py
+``lora_shrink``, counted there) on the kernel's input, ``lora_shrink_for``:
+t = bf16(norm(x)) @ A for QKV (q and kv in one launch) and fc1,
+attn_flat @ A and y @ A for the out-projection and fc2; the fused kernel's
+LoRA epilogue (a template flag of the same kernels) then expands t through
+the fp32 B bank read in place by the rows' slot ids. The fused launches
 count in ``lora_launches``, by the same keys.
 """
 
@@ -55,7 +59,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from megatronapp_tpu_torch.config.transformer_config import (
-    ActivationKind, NormKind, TransformerConfig,
+    ActivationKind, TransformerConfig,
 )
 from megatronapp_tpu_torch.inference.quantization import (
     RESIDENT_KERNELS, is_resident_leaf, resolve_param,
@@ -63,7 +67,7 @@ from megatronapp_tpu_torch.inference.quantization import (
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.activations import apply_activation, is_gated
 from megatronapp_tpu_torch.ops.cuda import build as kbuild
-from megatronapp_tpu_torch.ops.cuda.lora import MAX_RANK as LORA_MAX_RANK
+from megatronapp_tpu_torch.ops.cuda import lora as cuda_lora
 from megatronapp_tpu_torch.ops.lora import lora_delta_plain
 from megatronapp_tpu_torch.ops.normalization import apply_norm, rms_norm
 
@@ -85,19 +89,25 @@ WEIGHT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 VECTOR_DTYPES = (torch.bfloat16, torch.float32)
 MIN_SPLIT_K = 256              # contraction rows a K-split block owns at least
 MAX_SPLIT_K = 16
-_NORM = {NormKind.rmsnorm: 1, NormKind.layernorm: 2}
+_NORM = cuda_lora.NORM_CODES
 _ACT = {ActivationKind.swiglu: 0, ActivationKind.geglu: 1,
         ActivationKind.gelu: 2, ActivationKind.relu: 3,
         ActivationKind.squared_relu: 4}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "fused_qkv_launch": [_P, _P, _P, _I, _F] + [_P] * 15 + [_I] * 9
-                        + [_P] * 5 + [_I, _P, _P],
+                        + [_P] * 5 + [_I, _P],
     "fused_residual_gemm_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P] * 3
-                                  + [_I, _P, _P],
+                                  + [_I, _P],
     "fused_mlp_fc1_launch": [_P, _P, _P, _I, _F] + [_P] * 6 + [_I] * 7
-                            + [_P] * 3 + [_I, _P, _P],
+                            + [_P] * 3 + [_I, _P],
 }
+# The LoRA targets of each kernel's epilogue and the norm of its input
+# (the layer's ln1 / ln2 params; None: the input as given).
+LORA_TARGETS = {"qkv": (("q_kernel", "kv_kernel"), "ln1"),
+                "out_proj": (("out_kernel",), None),
+                "mlp_fc1": (("fc1_kernel",), "ln2"),
+                "mlp_fc2": (("fc2_kernel",), None)}
 _counters: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -348,46 +358,68 @@ def _plan(rows: int, k: int, tiles: int, device: torch.device):
     return rb, chunks, ksplit
 
 
-def _split_buffers(rows: int, k: int, tiles: int, device: torch.device,
-                   lora_rank: int = 0):
-    """(ksplit, workspace tensor, counters pointer, LoRA partial-t
-    workspace) for one launch; the caller keeps the workspaces alive until
-    the launch is enqueued."""
+def _split_buffers(rows: int, k: int, tiles: int, device: torch.device):
+    """(ksplit, workspace tensor, counters pointer) for one launch; the
+    caller keeps the workspace alive until the launch is enqueued."""
     rb, chunks, ksplit = _plan(rows, k, tiles, device)
     if ksplit == 1:
-        return 1, None, None, None
+        return 1, None, None
     units = tiles * chunks
     ws = torch.empty(units * ksplit * rb * TILE, dtype=torch.float32,
                      device=device)
-    lws = None
-    if lora_rank:
-        lws = torch.empty(units * ksplit * rb * lora_rank,
-                          dtype=torch.float32, device=device)
     ctr = _counters.get(device)
     if ctr is None or ctr.numel() < units:
         ctr = torch.zeros(max(units, 1024), dtype=torch.int32, device=device)
         _counters[device] = ctr
-    return ksplit, ws, ctr.data_ptr(), lws
+    return ksplit, ws, ctr.data_ptr()
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _lora_args(name: str, lora, shapes: Dict[str, Tuple[int, int]],
-               rows: int, device: torch.device):
-    """The LoRA epilogue's launch arguments: (A, B pointers of each target
-    in `shapes` order, the rows' slot ids pointer, rank), all None and 0
-    without `lora`. Raises unless the banks are fp32, contiguous, on the
-    activations' device, A [slots, K, rank] and B [slots, rank, N] for the
-    target's (K, N), 1 <= rank <= LORA_MAX_RANK, with one slot id a row."""
+def lora_norm(kernel: str, p, cfg: TransformerConfig):
+    """The norm of `kernel`'s input as ``lora_shrink`` takes it: (NormKind,
+    scale, bias or None, eps) of the layer's ln1 (QKV) or ln2 (fc1), None
+    for the out-projection and fc2."""
+    ln = LORA_TARGETS[kernel][1]
+    if ln is None:
+        return None
+    return (cfg.normalization, p[f"{ln}_scale"], p.get(f"{ln}_bias"),
+            cfg.layernorm_epsilon)
+
+
+def lora_shrink_for(kernel: str, x, p, cfg: TransformerConfig, lora):
+    """The shrink launch that `kernel`'s wrapper makes before the kernel:
+    t [targets, R, rank] of its input x (QKV and fc1: bf16(norm(x)))
+    through each of its targets' A bank."""
+    targets = LORA_TARGETS[kernel][0]
+    return cuda_lora.lora_shrink(x, [lora["banks"][t][0] for t in targets],
+                                 lora["row_adapter"],
+                                 lora_norm(kernel, p, cfg))
+
+
+def _lora_args(kernel: str, lora, shapes: Dict[str, Tuple[int, int]],
+               x, p, cfg: TransformerConfig):
+    """The LoRA epilogue's launch arguments: (t and B pointers of each
+    target in `shapes` order, the rows' slot ids pointer, rank), all None
+    and 0 without `lora`, and t (kept alive by the caller until the launch
+    is enqueued), from the shrink launched here. The fused kernel, a
+    programmatic dependent of the shrink, writes its split workspace
+    before it waits for the shrink, so the caller allocates that workspace
+    and its outputs before this call (csrc/tensor_core.cuh's rule). Raises
+    unless the banks
+    are fp32, contiguous and 16-byte aligned, on the activations' device,
+    A [slots, K, rank] and B [slots, rank, N] for the target's (K, N),
+    1 <= rank <= MAX_RANK, with one slot id a row."""
     if lora is None:
-        return [None] * (2 * len(shapes) + 1) + [0]
+        return [None] * (2 * len(shapes) + 1) + [0], None
+    name, rows, device = f"fused_{kernel}", x.shape[0], x.device
     segs = lora["row_adapter"]
     if segs.rows != rows or segs.ids.device != device:
         raise ValueError(f"{name}: {segs.rows} row adapter ids on "
                          f"{segs.ids.device} for {rows} rows on {device}")
-    ptrs, ranks = [], set()
+    bs, ranks = [], set()
     for target, (k, n) in shapes.items():
         a, b = lora["banks"][target]
         slots, rank = a.shape[0], a.shape[-1]
@@ -399,16 +431,18 @@ def _lora_args(name: str, lora, shapes: Dict[str, Tuple[int, int]],
                              f"/ [slots, rank, {n}]")
         for t in (a, b):
             if t.dtype != torch.float32 or t.device != device \
-                    or not t.is_contiguous():
+                    or not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{name}: {target} banks must be "
-                                 f"contiguous fp32 on {device}, got "
-                                 f"{t.dtype} on {t.device}")
-        ptrs += [a.data_ptr(), b.data_ptr()]
+                                 f"contiguous 16-byte aligned fp32 on "
+                                 f"{device}, got {t.dtype} on {t.device}")
+        bs.append(b.data_ptr())
     rank = ranks.pop()
-    if ranks or not 1 <= rank <= LORA_MAX_RANK:
+    if ranks or not 1 <= rank <= cuda_lora.MAX_RANK:
         raise ValueError(f"{name}: LoRA rank {rank}: the epilogue takes one "
-                         f"rank of 1..{LORA_MAX_RANK}")
-    return ptrs + [segs.ids.data_ptr(), rank]
+                         f"rank of 1..{cuda_lora.MAX_RANK}")
+    t = lora_shrink_for(kernel, x, p, cfg, lora)
+    ptrs = [v for i, b in enumerate(bs) for v in (t[i].data_ptr(), b)]
+    return ptrs + [segs.ids.data_ptr(), rank], t
 
 
 def _launch(symbol: str, name: str, kind: int, device: torch.device, *args,
@@ -459,14 +493,14 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None, lora=None):
     for k, (got, want) in shapes.items():
         if got != want:
             raise ValueError(f"fused_qkv: {k} is {got}, expected {want}")
-    *lora_ptrs, rank = _lora_args(
-        "fused_qkv", lora, {"q_kernel": (h, nq * d),
-                            "kv_kernel": (h, 2 * nkv * d)}, rows, x.device)
     q = torch.empty(rows, nq, d, dtype=torch.bfloat16, device=x.device)
     k = torch.empty(rows, nkv, d, dtype=torch.bfloat16, device=x.device)
     v = torch.empty_like(k)
     tiles = (nq + 2 * nkv) * d // TILE
-    ksplit, ws, ctr, lws = _split_buffers(rows, h, tiles, x.device, rank)
+    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device)
+    (*lora_ptrs, rank), _t = _lora_args(
+        "qkv", lora, {"q_kernel": (h, nq * d),
+                      "kv_kernel": (h, 2 * nkv * d)}, x, p, cfg)
     (wq, sq), (wkv, skv), f = _w(a["q_kernel"]), _w(a["kv_kernel"]), vecs
     _launch("fused_qkv_launch", "qkv", kind, x.device,
             _ptr(x), _ptr(f["ln1_scale"]), _ptr(f["ln1_bias"]),
@@ -475,11 +509,11 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None, lora=None):
             _ptr(f["q_ln_scale"]), _ptr(f["k_ln_scale"]), _ptr(cos),
             _ptr(sin), _ptr(q), _ptr(k), _ptr(v), _ptr(ws), ctr,
             rows, h, nq * d, nkv * d, d, half, kind, vec_f32, ksplit,
-            *lora_ptrs, rank, _ptr(lws), lora=lora is not None)
+            *lora_ptrs, rank, lora=lora is not None)
     return q, k, v
 
 
-def _residual_gemm(name: str, fc2: bool, x, w, bias, residual,
+def _residual_gemm(name: str, fc2: bool, x, w, bias, residual, p,
                    cfg: TransformerConfig, lora=None, target: str = ""):
     kind, vec_f32 = _check(f"fused_{name}", cfg,
                            {"x": x, "residual": residual}, {"kernel": w},
@@ -490,15 +524,15 @@ def _residual_gemm(name: str, fc2: bool, x, w, bias, residual,
         raise ValueError(f"fused_{name}: x {tuple(x.shape)}, weight "
                          f"{_shape(w)} and residual "
                          f"{tuple(residual.shape)} do not fit")
-    *lora_ptrs, rank = _lora_args(f"fused_{name}", lora, {target: (k, n)},
-                                  rows, x.device)
     out = torch.empty_like(residual)
-    ksplit, ws, ctr, lws = _split_buffers(rows, k, n // TILE, x.device, rank)
+    ksplit, ws, ctr = _split_buffers(rows, k, n // TILE, x.device)
+    (*lora_ptrs, rank), _t = _lora_args(name, lora, {target: (k, n)}, x, p,
+                                        cfg)
     wp, sp = _w(w)
     _launch("fused_residual_gemm_launch", name, kind, x.device, int(fc2),
             _ptr(x), wp, sp, _ptr(bias), _ptr(residual), _ptr(out), _ptr(ws),
             ctr, rows, k, n, kind, vec_f32, ksplit, *lora_ptrs, rank,
-            _ptr(lws), lora=lora is not None)
+            lora=lora is not None)
     return out
 
 
@@ -512,7 +546,7 @@ def fused_out_proj(attn_flat, p, cfg: TransformerConfig, residual,
         return fused_out_proj_plain(attn_flat, p, cfg, residual, lora)
     a = p["attention"]
     return _residual_gemm("out_proj", False, attn_flat, a["out_kernel"],
-                          a.get("out_bias"), residual, cfg, lora,
+                          a.get("out_bias"), residual, p, cfg, lora,
                           "out_kernel")
 
 
@@ -536,18 +570,18 @@ def fused_mlp_fc1(x, p, cfg: TransformerConfig, lora=None):
     if _shape(m["fc1_kernel"]) != want:
         raise ValueError(f"fused_mlp_fc1: fc1_kernel is "
                          f"{_shape(m['fc1_kernel'])}, expected {want}")
-    *lora_ptrs, rank = _lora_args("fused_mlp_fc1", lora,
-                                  {"fc1_kernel": want}, rows, x.device)
     y = torch.empty(rows, ffn, dtype=torch.bfloat16, device=x.device)
     tiles = ffn // (TILE // 2 if gated else TILE)
-    ksplit, ws, ctr, lws = _split_buffers(rows, h, tiles, x.device, rank)
+    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device)
+    (*lora_ptrs, rank), _t = _lora_args("mlp_fc1", lora,
+                                        {"fc1_kernel": want}, x, p, cfg)
     wp, sp = _w(m["fc1_kernel"])
     _launch("fused_mlp_fc1_launch", "mlp_fc1", kind, x.device,
             _ptr(x), _ptr(vecs["ln2_scale"]), _ptr(vecs["ln2_bias"]),
             _NORM[cfg.normalization], float(cfg.layernorm_epsilon),
             wp, sp, _ptr(vecs["fc1_bias"]), _ptr(y), _ptr(ws), ctr, rows, h,
             ffn, _ACT[cfg.activation], kind, vec_f32, ksplit, *lora_ptrs,
-            rank, _ptr(lws), lora=lora is not None)
+            rank, lora=lora is not None)
     return y
 
 
@@ -560,4 +594,4 @@ def fused_mlp_fc2(y, x, p, cfg: TransformerConfig, lora=None):
         return fused_mlp_fc2_plain(y, x, p, cfg, lora)
     m = p["mlp"]
     return _residual_gemm("mlp_fc2", True, y, m["fc2_kernel"],
-                          m.get("fc2_bias"), x, cfg, lora, "fc2_kernel")
+                          m.get("fc2_bias"), x, p, cfg, lora, "fc2_kernel")

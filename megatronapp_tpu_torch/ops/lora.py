@@ -13,17 +13,19 @@ token-exact against serving each tenant alone.
   device with one non-blocking copy, so launching the kernel never waits
   on the card;
 - ``lora_delta_plain``: the fp32 two-step product on gathered factors
-  (``lora_delta_reference``);
-- ``lora_delta``: the dispatcher: the hand-written segmented kernel
-  (ops/cuda/lora.py, csrc/lora.cu) for CUDA tensors, the plain version
-  for CPU ones, no other fallback;
-- ``apply_lora_delta``: the call site of the unfused layers, ``y +
-  d.to(y.dtype)`` (a zero-B adapter adds an exact +0.0).
+  (``lora_delta_reference``), ``lora_expand_plain(lora_shrink_plain(...))``;
+- ``lora_deltas`` / ``lora_delta``: the dispatchers: the hand-written
+  shrink and expand kernels (ops/cuda/lora.py, csrc/lora.cu) for CUDA
+  tensors, one shrink for targets that share their input, the plain
+  version for CPU ones, no other fallback;
+- ``apply_lora_delta`` / ``apply_lora_deltas``: the call sites of the
+  unfused layers, ``y + d.to(y.dtype)`` (a zero-B adapter adds an exact
+  +0.0).
 
-The fused kernels carry the same delta as an epilogue
-(ops/cuda/fused_decode.py) and read the same ``lora`` dict: {"row_adapter":
-LoraRows, "banks": {target: (A [slots, din, rank], B [slots, rank,
-dout])}} with one layer's bank slices.
+The fused kernels carry the same delta as an epilogue that expands the
+shrink's t (ops/cuda/fused_decode.py) and read the same ``lora`` dict:
+{"row_adapter": LoraRows, "banks": {target: (A [slots, din, rank], B
+[slots, rank, dout])}} with one layer's bank slices.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ class LoraRows:
     ``order`` [R] (rows grouped by segment, in order within one),
     ``seg_off`` [nseg + 1] and ``seg_slot`` [nseg], views of one int32
     buffer copied with ``host_to`` (non-blocking on the card); ``nseg``
-    the segment count."""
+    the segment count, ``max_seg_rows`` the rows of the largest one."""
 
     def __init__(self, row_adapter, device, repeat: int = 1):
         ids = np.repeat(np.asarray(row_adapter, np.int32).reshape(-1),
@@ -76,6 +78,7 @@ class LoraRows:
         seg_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
         r = len(ids)
         self.rows, self.nseg = r, nseg
+        self.max_seg_rows = int(counts.max()) if nseg else 0
         buf = host_to(np.concatenate([ids, order, seg_off,
                                       seg_adapter[:nseg]]).astype(np.int32),
                       torch.device(device))
@@ -98,47 +101,79 @@ def as_lora_rows(rows, device) -> LoraRows:
     return LoraRows(rows, device)
 
 
+def _ids(row_adapter):
+    ids = row_adapter.ids if isinstance(row_adapter, LoraRows) \
+        else row_adapter
+    return ids.long()
+
+
+def lora_shrink_plain(x, a_bank, row_adapter):
+    """Plain version of the shrink: t [R, rank] fp32 = x @ A[slot] of each
+    row on gathered factors. x [R, din], a_bank [slots, din, rank],
+    row_adapter [R] slot ids (a tensor on x's device, or a LoraRows)."""
+    a = a_bank[_ids(row_adapter)].float()            # [R, din, rank]
+    return torch.einsum("bi,bir->br", x.float(), a)
+
+
+def lora_expand_plain(t, b_bank, row_adapter):
+    """Plain version of the expand: t [R, rank] fp32 @ B[slot] of each row
+    on gathered factors → [R, dout] fp32."""
+    b = b_bank[_ids(row_adapter)].float()            # [R, rank, dout]
+    return torch.einsum("br,bro->bo", t, b)
+
+
 def lora_delta_plain(x, a_bank, b_bank, row_adapter):
     """Plain version (kernel_gen.lora_delta_reference): per-row gathered
     factors, the two-step product in fp32. x [R, din], a_bank [slots,
     din, rank], b_bank [slots, rank, dout], row_adapter [R] slot ids (a
     tensor on x's device, or a LoraRows) → [R, dout] fp32."""
-    ids = row_adapter.ids if isinstance(row_adapter, LoraRows) \
-        else row_adapter
-    ids = ids.long()
-    a = a_bank[ids].float()                           # [R, din, rank]
-    b = b_bank[ids].float()                           # [R, rank, dout]
-    t = torch.einsum("bi,bir->br", x.float(), a)
-    return torch.einsum("br,bro->bo", t, b)
+    return lora_expand_plain(lora_shrink_plain(x, a_bank, row_adapter),
+                             b_bank, row_adapter)
+
+
+def lora_deltas(x, bank_pairs, rows):
+    """The batched-LoRA deltas [R, dout] fp32 of x [R, din] against each
+    (A, B) bank pair of targets that share x: for CUDA tensors one shrink
+    kernel for all of them (at most two) and one expand a target (which
+    raise where they cannot launch), for CPU tensors the plain version a
+    target. rows: a LoraRows, or host slot ids."""
+    rows = as_lora_rows(rows, x.device)
+    if x.device.type == "cpu":
+        return [lora_delta_plain(x, a, b, rows) for a, b in bank_pairs]
+    return cuda_lora.lora_segmented_deltas(x, bank_pairs, rows)
 
 
 def lora_delta(x, a_bank, b_bank, rows):
-    """The batched-LoRA delta [R, dout] fp32 of x [R, din]: the segmented
-    kernel for CUDA tensors (which raises where it cannot launch), the
-    plain version for CPU tensors. rows: a LoraRows, or host slot ids."""
-    rows = as_lora_rows(rows, x.device)
-    if x.device.type == "cpu":
-        return lora_delta_plain(x, a_bank, b_bank, rows)
-    return cuda_lora.lora_segmented_delta(x, a_bank, b_bank, rows)
+    """The batched-LoRA delta [R, dout] fp32 of x [R, din] (``lora_deltas``
+    of one target). rows: a LoraRows, or host slot ids."""
+    return lora_deltas(x, [(a_bank, b_bank)], rows)[0]
 
 
-def _lora_rows_delta(x, bank_pair, rows: LoraRows):
-    """Delta for x [R, din] or [B, S, din] against one target's bank pair;
-    `rows` covers the flattened rows (a [B, S] chunk's LoraRows is built
-    with repeat=S). Returns an x-shaped fp32 delta."""
-    a_bank, b_bank = bank_pair
+def apply_lora_deltas(ys, x, lora: Optional[dict], targets):
+    """Each y of ys + its target's adapter delta, all computed from x
+    [R, din] or [B, S, din] (rows over the flattened rows: a [B, S]
+    chunk's LoraRows is built with repeat=S), in y's dtype; targets that
+    `lora` does not carry leave their y unchanged. On the card the targets
+    share one shrink launch."""
+    if lora is None:
+        return tuple(ys)
+    have = [i for i, t in enumerate(targets) if t in lora["banks"]]
+    rows = lora["row_adapter"]
     flat = x.reshape(-1, x.shape[-1])
-    if flat.shape[0] != rows.rows:
+    if have and flat.shape[0] != rows.rows:
         raise ValueError(f"lora: {flat.shape[0]} rows of x, {rows.rows} "
                          "row adapter ids")
-    d = lora_delta(flat.contiguous(), a_bank, b_bank, rows)
-    return d.reshape(*x.shape[:-1], d.shape[-1])
+    ds = lora_deltas(flat.contiguous(),
+                     [lora["banks"][targets[i]] for i in have], rows) \
+        if have else []
+    out = list(ys)
+    for i, d in zip(have, ds):
+        out[i] = out[i] + d.reshape(*x.shape[:-1], d.shape[-1]).to(
+            out[i].dtype)
+    return tuple(out)
 
 
 def apply_lora_delta(y, x, lora: Optional[dict], target: str):
     """y + target's adapter delta (computed from x) in y's dtype, when
     `lora` carries that target; y unchanged otherwise."""
-    if lora is None or target not in lora["banks"]:
-        return y
-    d = _lora_rows_delta(x, lora["banks"][target], lora["row_adapter"])
-    return y + d.to(y.dtype)
+    return apply_lora_deltas((y,), x, lora, (target,))[0]

@@ -29,11 +29,18 @@ run (chip_smoke.py) does not make. From the repository root:
         and tile widths (copies of the source under build/), each timed in
         turns at 8 and 32 rows over 4 full-width MLA layers (L2-cold), with
         mla_down's and mla_up's device time apart (torch.profiler).
+    python3 -m megatronapp_tpu_torch.tools.flash_probe lora-splits
+        the LoRA shrink kernel with its k's a split (kper) fixed to each of
+        a few values, timed in turns at the llama3-8b LoRA targets' din
+        (4096 and fc2's 14336), rank 8, 8 rows on chip_smoke.py's mixed
+        adapters and a 32-row chunk of one, rotating through 32 layers of
+        banks (L2-cold); each count's t against the default's.
     python3 -m megatronapp_tpu_torch.tools.flash_probe ab --parent DIR
         chip_smoke.py's train, train_gpt2 and profile phases (the profile
         on llama3-8b at 32 layers: unfused, fused and fused on resident
-        int8 weights and int8 pools; then the MLA engines, unfused and
-        fused) of the checkout in DIR (e.g. the parent commit, unpacked
+        int8 weights and int8 pools; then the LoRA engines of serve_lora's
+        five adapters, unfused and fused; then the MLA engines, unfused
+        and fused) of the checkout in DIR (e.g. the parent commit, unpacked
         with git archive) and of this one in turns (parent, change,
         change, parent), one process a run; --skip-train leaves out the
         two train phases.
@@ -377,19 +384,26 @@ def ab(parent: str, skip_train: bool = False):
             "torch.backends.cudnn.allow_tf32 = False; s = {}\n"
             "from megatronapp_tpu_torch.ops.cuda import build as kb\n"
             "kb.build_all([kb.source(n) for n in ('flash_attention.cu', "
-            "'paged_attention.cu', 'fused_decode.cu', 'paged_latent.cu', "
-            "'fused_mla.cu')])\n"
+            "'paged_attention.cu', 'fused_decode.cu', 'lora.cu', "
+            "'paged_latent.cu', 'fused_mla.cu')])\n"
             + ("" if skip_train else
                "c.phase_train(s, 4); c.phase_train_gpt2(s)\n")
             + "from megatronapp_tpu_torch.models.gpt import init_gpt_params\n"
             "from megatronapp_tpu_torch.models.presets import llama3_8b\n"
             "from megatronapp_tpu_torch.inference.quantization import "
             "quantize_for_serving\n"
+            "from megatronapp_tpu_torch.inference.lora import "
+            "AdapterRegistry, LoraAdapter\n"
             "dev = torch.device('cuda', 0)\n"
             "cfg = llama3_8b(num_layers=32, params_dtype=torch.bfloat16)\n"
             "p = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), "
             "dev)\n"
             "s['model'] = (p, cfg, dev)\n"
+            "reg = AdapterRegistry()\n"
+            "for i, aid in enumerate(c.LORA_ADAPTERS):\n"
+            "    reg.register(LoraAdapter.random(aid, cfg, rank=c.LORA_RANK, "
+            "seed=100 + i, scale=c.LORA_SERVE_SCALE))\n"
+            "s['lora_registry'] = reg\n"
             "s['qmodel'] = (quantize_for_serving(p)[0], cfg, dev)\n"
             "m = c.mla_cfg(num_layers=c.MLA_LAYERS)\n"
             "s['mla_model'] = (init_gpt_params(m, torch.Generator(dev)"
@@ -432,6 +446,53 @@ def ab(parent: str, skip_train: bool = False):
             print(json.dumps(row), flush=True)
 
 
+def lora_splits():
+    import numpy as np
+    import torch
+
+    from megatronapp_tpu_torch.ops import lora as tlo
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(909)
+    rank, layers = cs.LORA_RANK, 32
+    for din in (4096, 14336):
+        kpers = [cl.shrink_k_per_split(rank, din)]
+        kpers += [k for k in (64, 128, 256, 512, 1024, 2048) if k != kpers[0]]
+        a_all = torch.randn(layers, 5, din, rank, generator=gen,
+                            device=dev) / din ** 0.5
+        a_all[:, 0] = 0
+        for label, ids in (("rows8_mixed", cs.LORA_DECODE_IDS),
+                           ("rows32_one_adapter", [3] * 32)):
+            segs = tlo.LoraRows(np.asarray(ids), dev)
+            x = torch.randn(len(ids), din, generator=gen, device=dev).to(
+                torch.bfloat16)
+            it = {"i": 0}
+            times, outs = {k: [] for k in kpers}, {}
+            for kper in kpers + kpers[::-1]:
+                def call(kper=kper):
+                    it["i"] = (it["i"] + 1) % layers
+                    return cl.lora_shrink(x, (a_all[it["i"]],), segs,
+                                          kper=kper)
+                it["i"] = -1
+                outs[kper] = call()
+                times[kper].append(cs.device_ms(call))
+            torch.cuda.synchronize()
+            first = outs[kpers[0]]
+            print(json.dumps({
+                "din": din, "rows": label, "rank": rank,
+                "ms": {str(k): t for k, t in times.items()},
+                "splits": {str(k): -(-din // k) for k in kpers},
+                "max_rel_diff_vs_default": {
+                    str(k): float(((outs[k] - first).abs()
+                                   / first.abs().clamp_min(1e-6)).max())
+                    for k in kpers}}), flush=True)
+            del outs
+        del a_all
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -439,6 +500,7 @@ def main(argv=None) -> int:
     sub.add_parser("dkv-rows")
     sub.add_parser("paged-splits")
     sub.add_parser("prologue-variants")
+    sub.add_parser("lora-splits")
     p_flips = sub.add_parser("quant-flips")
     p_flips.add_argument("--parent", required=True,
                          help="a checkout whose quantized kernel runs first")
@@ -455,6 +517,7 @@ def main(argv=None) -> int:
     {"fwd-tiles": fwd_tiles, "dkv-rows": dkv_rows,
      "paged-splits": paged_splits, "prologue-variants": prologue_variants,
      "quant-flips": lambda: quant_flips(args.parent),
+     "lora-splits": lora_splits,
      "ab": lambda: ab(args.parent, args.skip_train)}[args.cmd]()
     return 0
 

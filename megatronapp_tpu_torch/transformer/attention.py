@@ -36,7 +36,7 @@ from megatronapp_tpu_torch.inference.quantization import resolve_param
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.attention import dot_product_attention
 from megatronapp_tpu_torch.ops.flash_attention import flash_attention
-from megatronapp_tpu_torch.ops.lora import apply_lora_delta
+from megatronapp_tpu_torch.ops.lora import apply_lora_delta, apply_lora_deltas
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_decode_tp,
@@ -177,9 +177,7 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     x = x.to(dt)
     q = x @ resolve_param(p["q_kernel"], dt)
     kv = x @ resolve_param(p["kv_kernel"], dt)
-    if lora is not None:
-        q = apply_lora_delta(q, x, lora, "q_kernel")
-        kv = apply_lora_delta(kv, x, lora, "kv_kernel")
+    q, kv = apply_lora_deltas((q, kv), x, lora, ("q_kernel", "kv_kernel"))
     if "q_bias" in p:
         q = q + p["q_bias"].to(dt)
         kv = kv + p["kv_bias"].to(dt)

@@ -458,11 +458,11 @@ def test_resident_int8_fused_kernels_match_plain_versions():
 
 @pytest.mark.cuda
 def test_lora_kernel_matches_plain_version():
-    """The segmented LoRA kernel (csrc/lora.cu; one launch a call) against
-    lora_delta_plain on the same inputs, both fp32 after the bf16 x: each
-    element within 1e-4 of max(|element|, its row's RMS) (chip_smoke.py
-    LORA_TOL argues the bound); NULL rows exactly 0; each row the same
-    bits alone as in the mixed batch."""
+    """The segmented LoRA delta (csrc/lora.cu; one shrink and one expand
+    launch a call) against lora_delta_plain on the same inputs, both fp32
+    after the bf16 x: each element within 1e-4 of max(|element|, its row's
+    RMS) (chip_smoke.py LORA_TOL argues the bound); NULL rows exactly 0;
+    each row the same bits alone as in the mixed batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from megatronapp_tpu_torch.ops import lora as tlo
@@ -475,10 +475,11 @@ def test_lora_kernel_matches_plain_version():
         b = (torch.randn(5, rank, dout, generator=g) * 0.2).to(dev)
         a[0], b[0] = 0, 0
         x = torch.randn(len(ids), din, generator=g).to(dev, torch.bfloat16)
-        before = cuda_lora.launches["lora_delta"]
+        before = dict(cuda_lora.launches)
         got = tlo.lora_delta(x, a, b, np.asarray(ids))
         torch.cuda.synchronize()
-        assert cuda_lora.launches["lora_delta"] == before + 1
+        assert {k: v - before[k] for k, v in cuda_lora.launches.items()} \
+            == {"lora_shrink": 1, "lora_expand": 1}
         want = tlo.lora_delta_plain(x, a, b,
                                     torch.tensor(ids, device=dev))
         rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
