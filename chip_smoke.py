@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
    fused_kernels: the four fused decode-layer kernels (QKV, out-projection,
             fc1, fc2) against their plain versions on the card: llama3-8b
             at 8 and 32 rows, gpt2-125m (LayerNorm, biases, gelu, D 64),
-            and a QK-layernorm case with fp32 weights at 5 and 40 rows.
+            and a QK-layernorm case with fp32 weights at 5 and 40 rows;
+            reruns bit for bit, and QKV's and the out-projection's rows the
+            same bits in another batch.
    fused_reference: a tiny llama-shaped model's fused chunked-prefill and
             decode step on the card (bf16, kernels) against the same
             weights on the CPU (fp32, plain versions).
@@ -34,7 +36,8 @@ Phases, each printing one JSON line:
             body), reruns bit for bit, each launch's split count.
    fused_int8_kernels: the four fused kernels on resident int8 weights
             against their plain versions: llama3-8b at 8 and 32 rows,
-            gpt2-125m, and fp32 norm scales beside int8 weights.
+            gpt2-125m, and fp32 norm scales beside int8 weights (the same
+            rerun and other-batch checks).
    quant_reference: a tiny llama-shaped model with resident int8 weights,
             int8 and fp8 pools, unfused and fused, on the card (bf16,
             kernels) against the same weights on the CPU (fp32, plain).
@@ -840,9 +843,9 @@ def _fused_case(name, cfg, p, rows, gen, dev, variant="", lora=None):
     order). variant: the launch counters' suffix of the weights' kind
     ("_int8" for resident int8 weights). lora: the adapter deltas of the
     rows (ops/lora.py), run as the kernels' LoRA epilogue and counted in
-    fd.lora_launches, each launch behind one shrink launch; then each
-    kernel's output of a few rows is checked to be the same bits in
-    another batch (_lora_rows_elsewhere)."""
+    fd.lora_launches, each launch behind one shrink launch. Then a few rows
+    of each output are checked to be the same bits in another batch
+    (_rows_elsewhere)."""
     from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import lora as cl
@@ -897,36 +900,39 @@ def _fused_case(name, cfg, p, rows, gen, dev, variant="", lora=None):
         cfg, x)
     y = run("mlp_fc1", fd.fused_mlp_fc1, fd.fused_mlp_fc1_plain, x, p, cfg)
     run("mlp_fc2", fd.fused_mlp_fc2, fd.fused_mlp_fc2_plain, y, x, p, cfg)
-    if lora is not None:
-        _lora_rows_elsewhere(name, cfg, p, lora, (x, attn, y, cos, sin), outs,
-                             gen, dev)
+    _rows_elsewhere(name, cfg, p, lora, (x, attn, y, cos, sin), outs, gen,
+                    dev)
     return res
 
 
-def _lora_rows_elsewhere(name, cfg, p, lora, inputs, outs, gen, dev):
-    """Each fused kernel with its LoRA epilogue gives a row the same bits
-    in another batch: alone when the batch has at most 8 rows (a 1-row
-    launch takes the same 8-row blocks and K split), else at its place in
-    a batch of as many rows whose other rows are other inputs on other
-    adapters (a row's sums, its t and its delta never read another row)."""
+def _rows_elsewhere(name, cfg, p, lora, inputs, outs, gen, dev):
+    """A fused kernel gives a row the same bits in another batch: alone
+    when the batch has at most 8 rows (a 1-row launch takes the same 8-row
+    blocks and K split), else at its place in a batch of as many rows whose
+    other rows are other inputs (a row's sums never read another row, and
+    the K split reads the row count only through the row block). Without
+    lora: QKV and the out-projection (the tensor-core tile core); with
+    lora: the four kernels with their LoRA epilogue, the other rows on
+    other adapters (a row's t and delta never read another row either)."""
     import numpy as np
 
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.lora import LoraRows
     x, attn, y, cos, sin = inputs
     rows = x.shape[0]
-    ids = lora["row_adapter"].ids.tolist()
+    ids = None if lora is None else lora["row_adapter"].ids.tolist()
     for r in sorted({0, 1, rows - 1}):
         if rows <= 8:
             sel = [r]
-            pos, new_ids = 0, [ids[r]]
+            pos, new_ids = 0, None if lora is None else [ids[r]]
 
             def other(t):
                 return None if t is None else t[sel].contiguous()
         else:
-            pos = r
-            new_ids = [LORA_DECODE_IDS[i % 8] for i in range(1, rows + 1)]
-            new_ids[r] = ids[r]
+            pos, new_ids = r, None
+            if lora is not None:
+                new_ids = [LORA_DECODE_IDS[i % 8] for i in range(1, rows + 1)]
+                new_ids[r] = ids[r]
 
             def other(t):
                 if t is None:
@@ -935,13 +941,15 @@ def _lora_rows_elsewhere(name, cfg, p, lora, inputs, outs, gen, dev):
                     t.dtype)
                 o[r] = t[r]
                 return o
-        lo = {"row_adapter": LoraRows(np.asarray(new_ids), dev),
-              "banks": lora["banks"]}
+        lo = None if lora is None else {
+            "row_adapter": LoraRows(np.asarray(new_ids), dev),
+            "banks": lora["banks"]}
         ox, oattn, oy, ocos, osin = (other(t) for t in inputs)
         got = {"qkv": fd.fused_qkv(ox, p, cfg, ocos, osin, lo),
-               "out_proj": fd.fused_out_proj(oattn, p, cfg, ox, lo),
-               "mlp_fc1": fd.fused_mlp_fc1(ox, p, cfg, lo),
-               "mlp_fc2": fd.fused_mlp_fc2(oy, ox, p, cfg, lo)}
+               "out_proj": fd.fused_out_proj(oattn, p, cfg, ox, lo)}
+        if lora is not None:
+            got["mlp_fc1"] = fd.fused_mlp_fc1(ox, p, cfg, lo)
+            got["mlp_fc2"] = fd.fused_mlp_fc2(oy, ox, p, cfg, lo)
         for kernel, g in got.items():
             g_t = g if isinstance(g, tuple) else (g,)
             w_t = outs[kernel] if isinstance(outs[kernel], tuple) \

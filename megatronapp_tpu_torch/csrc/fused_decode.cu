@@ -40,34 +40,61 @@
 // 2 R FLOPs per weight: 16 FLOPs per 2-byte weight, far below the card's
 // ~295 FLOPs per byte, so every one is bound by the bytes of its weights
 // (llama3-8b: 50.3 MB QKV, 33.6 MB out-projection, 234.9 MB fc1, 117.4 MB
-// fc2 a layer). Design, for that bound:
-// - A block owns a tile of 128 output columns (QKV: one or two whole heads,
-//   so QK-norm and rope stay in the block; gated fc1: 64 gate and the 64
-//   matching value columns) and streams that weight slab from device memory
-//   exactly once, with 16-byte loads at R <= 8 (8 bf16 columns a thread) and
-//   4-byte loads at R <= 32 (2 columns a thread, so that the R x columns
-//   fp32 sums of a thread stay at 64 registers); each thread keeps 32 words
-//   of weights in flight before it uses them.
+// fc2 a layer); at R = 32 too, once the products run on the tensor cores.
+// Every kernel's block owns a tile of 128 output columns (QKV: one or two
+// whole heads, so QK-norm and rope stay in the block; gated fc1: 64 gate
+// and the 64 matching value columns), read as two 64-column weight
+// segments. Too few tiles for 132 SMs (out-projection and fc2: 32 tiles;
+// QKV: 48) are split along K across blocks: grid.y = ksplit blocks per
+// tile, each writing its fp32 partial tile to a workspace. The last block
+// of a tile to finish (an atomic count on a per-tile counter, not on any
+// sum) adds the partials in split order 0..ksplit-1, runs the epilogue and
+// resets the counter. Inside a block every sum runs in a
+// fixed order too, so a rerun repeats every bit and a row's bits never
+// depend on the other rows: no atomics in the sums.
+//
+// QKV and out-projection: the tensor-core tile core (mma_tile).
+// - Products: mma.sync m16n8k16 on bf16 operands with fp32 accumulators
+//   (tensor_core.cuh). The operands are the bf16 values the fp32 bodies
+//   multiply (bf16(norm(x)) or attn_flat; bf16 weights, int8 and fp32 ones
+//   made bf16 as _dequant_weight does), so only the order of the fp32 sums
+//   differs. Warp w owns columns 16w..16w+15 of the tile over all of the
+//   split's k's, so each output is summed in k order by one warp with no
+//   cross-warp reduction. The weight columns are the mma's M side and the
+//   rows its N side (8 rows fill an n8 block, 32 rows four).
+// - Weights: a ring of kStages stages of kStageK k-major weight rows
+//   (16-byte cp.async, rows padded by 16 bytes), kStages - 1 stages in
+//   flight while one is multiplied. bf16 stages are read in place with
+//   ldmatrix .trans; int8 and fp32 stages first become a bf16 tile (int8:
+//   bf16(float(q) * scale[col]) two values at a time, the thread's 16
+//   column scales held in registers; fp32: rounded to bf16).
+// - Activations ride in the same ring, raw bf16 [row][k]. QKV normalises a
+//   landed stage in place through row_norm.cuh's arithmetic (the bits the
+//   LoRA shrink reads), with the norm's scale and bias staged in the ring
+//   beside it. At 32-row blocks the rows' norm statistics are computed
+//   once a launch by its first blocks and shared through the workspace
+//   (shared_row_stats); at 8 rows each block computes its own, which is
+//   quicker than the wait for the writers.
+// - Each split owns a whole number of ring stages: the split plan is this
+//   core's own (ops/cuda/fused_decode.py tile_split_plan).
+//
+// fc1 and fc2: the fp32 core on the CUDA cores (accumulate_tile).
+// - A block streams its weight slab with 16-byte loads at R <= 8 (8 bf16
+//   columns a thread) and 4-byte loads at R <= 32 (2 columns a thread, so
+//   that the R x columns fp32 sums of a thread stay at 64 registers); each
+//   thread keeps 32 words of weights in flight before it uses them.
 // - The R x K activations never fit a block's 227 KB (x at R = 32 is 256 KB,
-//   y 917 KB), so they are staged through shared memory in chunks of 256 k's,
-//   normalised (QKV, fc1) as they are staged, as fp32 [k][row] so that a
-//   thread reads four rows with one 16-byte load.
-// - Too few tiles for 132 SMs (out-projection and fc2: 32 tiles of 128
-//   columns; QKV: 48) are split along K across blocks: grid.y = ksplit
-//   blocks per tile, each writing its fp32 partial tile to a workspace. The
-//   last block of a tile to finish (an atomic count on a per-tile counter,
-//   not on any sum) adds the partials in split order 0..ksplit-1, runs the
-//   epilogue and resets the counter. Inside a block the k rows in flight are
-//   summed through shared memory in a fixed order too, so a rerun repeats
-//   every bit: no atomics in the sums.
+//   y 917 KB), so they are staged through shared memory in chunks of 256
+//   k's, normalised (fc1) as they are staged, as fp32 [k][row] so that a
+//   thread reads four rows with one 16-byte load; the k rows in flight are
+//   summed through shared memory in a fixed order.
 // - Every block of a normalised kernel recomputes its rows' norm statistics
 //   from the whole x row (L2-resident), as the TPU tiled kernel recomputes
 //   its norm per grid step.
 // At R = 32 (a prefill chunk) the FMAs outweigh the bytes on CUDA cores (fc1:
-// 7.5 GFLOP a layer, ~1.6x its byte time at the fp32 FMA rate); tensor-core
-// products (mma/wgmma) and TMA are the next step, not this version's.
-// Resident int8 weights halve the bytes (llama3-8b fc1: 117.4 MB a layer and
-// 115 KB of scales) but keep the FMAs and add a multiply and a rounding per
+// 7.5 GFLOP a layer, ~1.6x its byte time at the fp32 FMA rate). Resident
+// int8 weights halve the bytes (llama3-8b fc1: 117.4 MB a layer and 115 KB
+// of scales) but keep the FMAs and add a multiply and a rounding per
 // weight, so at R = 8 the int8 kernels are bound by the instructions a
 // weight costs rather than by its bytes: chip_smoke.py's times phase on an
 // NVIDIA H100 80GB HBM3 at 700.00 W measured them at 1.05-1.19x the bf16
@@ -117,7 +144,7 @@ constexpr int kTile = 128;                  // virtual output columns a block
 constexpr int kHalfTile = kTile / 2;        // one weight segment
 constexpr int kChunk = 256;                 // k's of activations staged at once
 constexpr int kSums = 64;                   // fp32 sums a thread keeps
-constexpr int kRegion = kThreads * kSums;   // floats: staged x, then the sums
+constexpr int kRegion = kThreads * kSums;   // floats: the front region (LoRA epilogue)
 
 using rn::kNormLayer;
 using rn::kNormNone;
@@ -454,13 +481,394 @@ __device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
 }
 
 // ---------------------------------------------------------------------------
+// The tensor-core tile core of the QKV and out-projection kernels.
+// ---------------------------------------------------------------------------
+
+constexpr int kStageK = 128;      // k's a ring stage
+constexpr int kStages = 2;        // ring stages (kStages - 1 in flight)
+constexpr int kSharedStatsRb = 32;  // row blocks from which QKV shares its norm statistics
+constexpr int kXld = kStageK + 8;  // x ring row stride (bf16): a 16-byte pad
+constexpr int kWld = kTile + 8;    // bf16 weight tile row stride
+static_assert(kStageK % 32 == 0, "a stage holds whole pairs of k16 steps");
+
+// Shared memory of mma_tile (bytes): the ring (weights as stored, x, the
+// norm's scale and bias), the bf16 tile of a converted weight stage; after
+// the loop the same front region is the LoRA epilogue's (at least kRegion
+// floats), then the finished tile and the rows' statistics.
+template <int RB, typename TW, typename TV>
+struct Ring {
+  static constexpr int kWRow = kTile * (int)sizeof(TW) + 16;       // a weight row
+  static constexpr int kW = kStages * kStageK * kWRow;
+  static constexpr int kX = kStages * RB * kXld * 2;
+  static constexpr int kV = kStages * 2 * kStageK * (int)sizeof(TV);
+  static constexpr int kT = std::is_same<TW, bf16>::value ? 0 : kStageK * kWld * 2;
+  static constexpr int kUsed = kW + kX + kV + kT;
+  static constexpr int kFront = kUsed > kRegion * 4 ? kUsed : kRegion * 4;
+  static constexpr size_t kSmem = kFront + (size_t)(RB * kTile + 2 * RB + 4) * sizeof(float);
+};
+
+// The norm statistics of a row of x, as every normalising kernel here
+// forms them: one warp, row_norm.cuh's sums (8 pieces a lane loaded at
+// once: the same bits); mean (layernorm) and 1 / sqrt(mean((x - mean)^2)
+// + eps).
+template <typename TV>
+__device__ __forceinline__ void row_stats(const GemmArgs<TV>& a, int row, int lane,
+                                          float& mean, float& rstd) {
+  float ss;
+  rn::row_moments<8>(a.x + (size_t)row * a.k, a.k, a.norm, lane, mean, ss);
+  rstd = rn::row_rstd(ss, a.k, a.eps);
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+constexpr long long kStatsWait = 1ll << 16;   // cycles a block waits for shared statistics
+
+// Shared statistics, once a launch (row blocks of kSharedStatsRb rows or
+// more, with a K split, which brings the workspace and counters): the blocks of split 0 whose tile index x is
+// below the chunk's row count compute rows x, x + tiles, ... (a warp a
+// row) into the workspace past the partial tiles and count them on the
+// chunk's ready counter (counters past the tiles'). These writers are the
+// launch's first blocks, so they run ahead of the blocks that wait.
+template <int RB, typename TV>
+__device__ __forceinline__ bool stats_writer(const GemmArgs<TV>& a, int rows) {
+  return RB >= kSharedStatsRb && a.ksplit > 1 && blockIdx.y == 0 && (int)blockIdx.x < rows;
+}
+
+template <int RB, typename TV>
+__device__ float* stats_slots(const GemmArgs<TV>& a) {
+  return a.ws + (size_t)gridDim.x * gridDim.z * a.ksplit * RB * kTile +
+         (size_t)blockIdx.z * 2 * RB;
+}
+
+template <int RB, typename TV>
+__device__ void write_row_stats(const GemmArgs<TV>& a, int row0, int rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* st = stats_slots<RB>(a);
+  int* ready = a.counters + gridDim.x * gridDim.z + blockIdx.z;
+  for (int r = blockIdx.x + warp * gridDim.x; r < rows; r += kWarps * gridDim.x) {
+    float mean, rstd;
+    row_stats(a, row0 + r, lane, mean, rstd);
+    if (lane == 0) {
+      st[r] = mean;
+      st[RB + r] = rstd;
+      __threadfence();
+      atomicAdd(ready, 1);
+    }
+  }
+}
+
+// The rows' statistics into mean_s / rstd_s. Below kSharedStatsRb rows or
+// without a K split each block computes them. With one, a block takes the shared ones once the chunk's
+// ready count reaches its rows, waiting at most kStatsWait cycles; past
+// that (writers not yet running) it computes them itself: the same bits,
+// so nothing waits on a block that cannot run. The chunk's last block to
+// take them resets both of the chunk's counters.
+template <int RB, typename TV>
+__device__ void shared_row_stats(const GemmArgs<TV>& a, int row0, int rows,
+                                 float* mean_s, float* rstd_s, int* flag_s) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  auto own = [&] {
+    for (int r = warp; r < rows; r += kWarps) {
+      float mean, rstd;
+      row_stats(a, row0 + r, lane, mean, rstd);
+      if (lane == 0) {
+        mean_s[r] = mean;
+        rstd_s[r] = rstd;
+      }
+    }
+  };
+  if (RB < kSharedStatsRb || a.ksplit == 1) {
+    own();
+    __syncthreads();
+    return;
+  }
+  int* ready = a.counters + gridDim.x * gridDim.z + blockIdx.z;
+  int* readers = ready + gridDim.z;
+  if (tid == 0) {
+    const long long t0 = clock64();
+    int n = load_acquire(ready);
+    while (n < rows && clock64() - t0 < kStatsWait) {
+      __nanosleep(64);
+      n = load_acquire(ready);
+    }
+    *flag_s = n >= rows;
+  }
+  __syncthreads();
+  if (*flag_s) {
+    const float* st = stats_slots<RB>(a);
+    if (tid < rows) {
+      mean_s[tid] = __ldcg(st + tid);
+      rstd_s[tid] = __ldcg(st + RB + tid);
+    }
+  } else {
+    own();
+  }
+  __syncthreads();
+  if (tid == 0 && atomicAdd(readers, 1) == (int)(gridDim.x * gridDim.y) - 1) {
+    atomicExch(ready, 0);
+    atomicExch(readers, 0);
+  }
+}
+
+// mma_tile's K-split finish, once the block's partial sums [RB][kTile]
+// are whole in `tile`: with ksplit > 1 the block writes its partial to the
+// workspace, and the last of the tile's blocks to finish (an atomic count
+// on the tile's counter) adds the partials in split order 0..ksplit-1
+// into `tile` and resets the counter. A thread owns whole float4s and
+// issues the loads of several splits before it adds them in order.
+// Returns true in the block that then holds the finished sums (every block
+// when ksplit == 1) and false in the others, which exit.
+template <int RB, typename TV>
+__device__ bool finish_tile(const GemmArgs<TV>& a, float* tile, int* flag_s) {
+  constexpr int kPart = RB * kTile / 4;        // float4s of a partial tile
+  constexpr int kV = kPart / kThreads;         // a thread's: 1 (RB 8) or 4 (RB 32)
+  constexpr int kBatch = 8 / kV;               // splits whose loads fly together
+  static_assert(kPart % kThreads == 0, "whole float4s a thread");
+  const int tid = threadIdx.x;
+  const int unit = blockIdx.z * gridDim.x + blockIdx.x;
+  if (a.ksplit > 1) {
+    float4* part = reinterpret_cast<float4*>(a.ws + (size_t)unit * a.ksplit * RB * kTile);
+    float4* t4 = reinterpret_cast<float4*>(tile);
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      part[(size_t)blockIdx.y * kPart + j * kThreads + tid] = t4[j * kThreads + tid];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *flag_s = atomicAdd(a.counters + unit, 1) == a.ksplit - 1;
+    __syncthreads();
+    if (!*flag_s) return false;
+    __threadfence();
+    float4 s[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) s[j] = __ldcg(part + j * kThreads + tid);
+    for (int sp0 = 1; sp0 < a.ksplit; sp0 += kBatch) {
+      float4 v[kBatch][kV];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+        for (int j = 0; j < kV; ++j)
+          if (sp0 + b < a.ksplit) v[b][j] = __ldcg(part + (size_t)(sp0 + b) * kPart + j * kThreads + tid);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (sp0 + b < a.ksplit) {
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            s[j].x += v[b][j].x;
+            s[j].y += v[b][j].y;
+            s[j].z += v[b][j].z;
+            s[j].w += v[b][j].w;
+          }
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kV; ++j) t4[j * kThreads + tid] = s[j];
+    if (tid == 0) a.counters[unit] = 0;
+  }
+  __syncthreads();
+  return true;
+}
+
+// Sums this block's [RB, kTile] tile of A @ W over its k split on the
+// tensor cores, A = bf16(norm(x)) (NORM: QKV) or x itself (the
+// out-projection):
+// virtual columns 0..63 read weight segment w0, 64..127 segment w1, both
+// with row stride ldw; int8 weights take their columns' scales from s0
+// and s1 (null otherwise). The split owns whole ring stages: ceil(stages /
+// ksplit) of the k's ceil(k / kStageK) stages. Returns finish_tile's
+// verdict, the finished fp32 sums in the tile past Ring::kFront.
+template <int RB, typename TW, typename TV, bool NORM>
+__device__ bool mma_tile(const GemmArgs<TV>& a, const TW* w0, const TW* w1,
+                         const float* s0, const float* s1, size_t ldw, char* smem) {
+  using R = Ring<RB, TW, TV>;
+  constexpr bool kConvert = !std::is_same<TW, bf16>::value;
+  constexpr int kSegPieces = kHalfTile * (int)sizeof(TW) / 16;   // 16 bytes a piece
+  constexpr int kRowPieces = 2 * kSegPieces;                      // of a weight row
+  constexpr int kPer = 16 / (int)sizeof(TW);                      // weights a piece
+  constexpr int kVPer = 16 / (int)sizeof(TV);                     // vector values a piece
+  constexpr int kAcc = RB / 8;                                    // n8 blocks of rows
+  static_assert(RB % 8 == 0, "whole n8 blocks of rows");
+  char* w_ring = smem;                                            // [kStages][kStageK][kWRow]
+  bf16* x_ring = reinterpret_cast<bf16*>(smem + R::kW);           // [kStages][RB][kXld]
+  TV* v_ring = reinterpret_cast<TV*>(smem + R::kW + R::kX);       // [kStages][scale, bias][kStageK]
+  bf16* w_conv = reinterpret_cast<bf16*>(smem + R::kW + R::kX + R::kV);   // [kStageK][kWld]
+  float* tile = reinterpret_cast<float*>(smem + R::kFront);       // [RB][kTile]
+  float* mean_s = tile + RB * kTile;
+  float* rstd_s = mean_s + RB;
+  int* flag_s = reinterpret_cast<int*>(rstd_s + RB);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.z * RB;
+  const int rows = min(RB, a.rows - row0);
+  const int per = ((a.k + kStageK - 1) / kStageK + a.ksplit - 1) / a.ksplit;
+  const int k_begin = min(a.k, (int)blockIdx.y * per * kStageK);
+  const int k_end = min(a.k, k_begin + per * kStageK);
+  const int nst = (k_end - k_begin + kStageK - 1) / kStageK;
+  constexpr bool norm = NORM;
+
+  // Stage c's copies: its weight rows (both segments), x's rows and the
+  // norm's vectors over its k's; rows past k_end and x rows past `rows`
+  // are zero-filled.
+  auto load = [&](int c) {
+    const int st = c % kStages, k0 = k_begin + c * kStageK;
+    char* wd = w_ring + st * kStageK * R::kWRow;
+    for (int i = tid; i < kStageK * kRowPieces; i += kThreads) {
+      const int r = i / kRowPieces, q = i % kRowPieces, k = k0 + r;
+      const bool live = k < k_end;
+      const TW* src = (q < kSegPieces ? w0 : w1) + (q % kSegPieces) * kPer;
+      tc::cp_async_16(wd + r * R::kWRow + q * 16, live ? src + (size_t)k * ldw : w0, live);
+    }
+    bf16* xd = x_ring + st * RB * kXld;
+    for (int i = tid; i < RB * (kStageK / 8); i += kThreads) {
+      const int r = i / (kStageK / 8), c8 = (i % (kStageK / 8)) * 8, k = k0 + c8;
+      const bool live = r < rows && k < k_end;
+      tc::cp_async_16(xd + r * kXld + c8,
+                      live ? a.x + (size_t)(row0 + r) * a.k + k : a.x, live);
+    }
+    if (norm) {
+      for (int i = tid; i < 2 * (kStageK / kVPer); i += kThreads) {
+        const int v = i / (kStageK / kVPer), c = (i % (kStageK / kVPer)) * kVPer;
+        const TV* src = v == 0 ? a.norm_scale : a.norm_bias;
+        const bool live = src != nullptr && k0 + c < k_end;
+        tc::cp_async_16(v_ring + (st * 2 + v) * kStageK + c, live ? src + k0 + c : a.norm_scale,
+                        live);
+      }
+    }
+  };
+  // The rows' norm statistics (shared_row_stats): the blocks that compute
+  // them for the launch read x before they ask for their first stages;
+  // the others take them while their first stages land.
+  if (norm && stats_writer<RB>(a, rows)) write_row_stats<RB>(a, row0, rows);
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < nst) load(c);
+    tc::cp_async_commit();   // empty groups keep the count uniform
+  }
+  if (norm) shared_row_stats<RB>(a, row0, rows, mean_s, rstd_s, flag_s);
+
+  // int8: the 16 column scales of this thread's piece of a weight row.
+  const int piece = tid % kRowPieces;
+  float sc[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) sc[e] = 1.f;
+  if constexpr (std::is_same<TW, int8_t>::value) {
+    const int vc = piece * kPer;
+    const float* sp = vc < kHalfTile ? s0 + vc : s1 + (vc - kHalfTile);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) sc[e] = sp[e];
+  }
+
+  float acc[kAcc][4];
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int col = 16 * warp;   // this warp's columns of the tile
+
+  for (int c = 0; c < nst; ++c) {
+    const int st = c % kStages, k0 = k_begin + c * kStageK;
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage c has landed; every warp is done with stage c - 1
+    if (c + kStages - 1 < nst) load(c + kStages - 1);
+    tc::cp_async_commit();
+    bf16* xs = x_ring + st * RB * kXld;
+    if (norm) {
+      // bf16(norm(x)) in place, two values at a time (pieces past k_end and
+      // rows past `rows` stay zero).
+      const TV* vs = v_ring + st * 2 * kStageK;
+      const bool has_bias = a.norm_bias != nullptr;
+      for (int i = tid; i < rows * (kStageK / 8); i += kThreads) {
+        const int r = i / (kStageK / 8), c8 = (i % (kStageK / 8)) * 8;
+        if (k0 + c8 >= k_end) continue;
+        uint4* px = reinterpret_cast<uint4*>(xs + r * kXld + c8);
+        uint4 raw = *px;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+        const float mean = mean_s[r], rstd = rstd_s[r];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+          const int k = c8 + 2 * e;
+          const float y0 = rn::norm_value(f.x, mean, rstd, rn::load_f(vs, k), has_bias,
+                                          has_bias ? rn::load_f(vs + kStageK, k) : 0.f);
+          const float y1 = rn::norm_value(f.y, mean, rstd, rn::load_f(vs, k + 1), has_bias,
+                                          has_bias ? rn::load_f(vs + kStageK, k + 1) : 0.f);
+          w[e] = tc::pack_bf16(y0, y1);
+        }
+        *px = raw;
+      }
+    }
+    const char* wst = w_ring + st * kStageK * R::kWRow;
+    const bf16* ws = reinterpret_cast<const bf16*>(wst);
+    if constexpr (kConvert) {
+      // The landed stage as a bf16 tile, two weights at a time.
+      for (int r = tid / kRowPieces; r < kStageK; r += kThreads / kRowPieces) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(wst + r * R::kWRow + piece * 16);
+        uint32_t o[kPer / 2];
+        if constexpr (std::is_same<TW, int8_t>::value) {
+          const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+          for (int e = 0; e < kPer / 2; ++e)
+            o[e] = tc::pack_bf16(__fmul_rn((float)q[2 * e], sc[2 * e]),
+                                 __fmul_rn((float)q[2 * e + 1], sc[2 * e + 1]));
+        } else {
+          const float* f = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+          for (int e = 0; e < kPer / 2; ++e) o[e] = tc::pack_bf16(f[2 * e], f[2 * e + 1]);
+        }
+        uint32_t* dst = reinterpret_cast<uint32_t*>(w_conv + r * kWld + piece * kPer);
+#pragma unroll
+        for (int e = 0; e < kPer / 2; e += 2)
+          *reinterpret_cast<uint2*>(dst + e) = make_uint2(o[e], o[e + 1]);
+      }
+      ws = w_conv;
+    }
+    if (norm || kConvert) __syncthreads();   // the stage's operands are whole
+
+#pragma unroll
+    for (int kk = 0; kk < kStageK; kk += 32) {
+      // B: x^T, k16 steps kk and kk + 16 of each 8-row block.
+      uint32_t bx[RB / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < RB / 8; ++nb)
+        tc::ldmatrix_x4(bx[nb], xs + (8 * nb + (lane & 7)) * kXld + kk + (lane >> 3) * 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // A: the warp's 16 columns x k16 of W (k-major), transposed.
+        uint32_t r[4];
+        tc::ldmatrix_x4_trans(r, ws + tc::bt_off(lane, kk + 16 * h, col, kWld));
+        const uint32_t af[4] = {r[0], r[2], r[1], r[3]};
+#pragma unroll
+        for (int nb = 0; nb < RB / 8; ++nb)
+          tc::mma_bf16(acc[nb], af, bx[nb][2 * h], bx[nb][2 * h + 1]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();   // only empty groups are left
+
+  // The warp's sums into the tile (fragment layouts: tensor_core.cuh).
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) {   // acc[j]: columns col + g (+ 8), rows 8j + 2t (+ 1)
+    float* o = tile + (8 * j + 2 * t) * kTile + col + g;
+    o[0] = acc[j][0];
+    o[kTile] = acc[j][1];
+    o[8] = acc[j][2];
+    o[kTile + 8] = acc[j][3];
+  }
+  __syncthreads();
+  return finish_tile<RB>(a, tile, flag_s);
+}
+
+// ---------------------------------------------------------------------------
 // fused_qkv_kernel: replaces kernel_gen.py _fused_qkv (:1143), both its
 // no-grid (:1261) and kv-head-group (:1357) emissions. Bound by the bytes of
 // Wq and the packed [K | V] weight (50.3 MB a llama3-8b layer). A block owns
 // 128 columns of [Wq | Wkv], the weights as they are stored (kv_kernel keeps
 // its [K | V] packing): one head at D 128, two at D 64, so that QK-norm and
-// rope run in the block on the finished sums; the tile's K split (6 blocks a
-// tile at R 8 on llama3-8b) fills the card.
+// rope run in the block on the finished sums; the tile's K split
+// (tile_split_plan) fills the card. Sums on mma_tile.
 // ---------------------------------------------------------------------------
 template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -479,17 +887,16 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
   const float* sbase = q_scale == nullptr ? nullptr
       : is_q ? q_scale + col0 : kv_scale + (col0 - nq_cols);
   const size_t ldw = is_q ? nq_cols : 2 * nkv_cols;
-  // The tile's adapter: q's factors, or [K | V]'s by the same column.
-  if (!accumulate_tile<RB, TW, TV>(
-          a, base, base + kHalfTile, sbase,
-          sbase == nullptr ? nullptr : sbase + kHalfTile, ldw, smem))
+  if (!mma_tile<RB, TW, TV, true>(a, base, base + kHalfTile, sbase,
+                                  sbase == nullptr ? nullptr : sbase + kHalfTile, ldw,
+                                  reinterpret_cast<char*>(smem)))
     return;
 
-  float* tile = smem + kRegion;
+  float* tile = smem + Ring<RB, TW, TV>::kFront / sizeof(float);
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
   const float* dl = nullptr;   // LORA: the rows' deltas [RB][kTile]
-  if constexpr (LORA) {
+  if constexpr (LORA) {   // the tile's adapter: q's factors, or [K | V]'s by the same column
     LoraArgs la = is_q ? lq : lkv;
     la.b0 = is_q ? col0 : col0 - nq_cols;
     la.b1 = la.b0 + kHalfTile;
@@ -501,12 +908,27 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
   const int out0 = region == 2 ? col0 - nq_cols - nkv_cols : bias0;
   const TV* bias = is_q ? q_bias : kv_bias;
 
-  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
-    float v = round_bf16(tile[i]);
-    if constexpr (LORA) v = add_delta(v, dl[i]);
-    if (bias != nullptr)
-      v = round_bf16(__fadd_rn(v, round_bf16(load_f(bias, bias0 + i % kTile))));
-    tile[i] = v;
+  // Thread t owns columns c..c+3 (c = 4 (t % kG)) of rows t / kG + kRowsPer j;
+  // its global loads (bias, rope tables) are issued before they are used.
+  constexpr int kG = kTile / 4, kRowsPer = kThreads / kG, kN = RB / kRowsPer;
+  const int c = 4 * (threadIdx.x % kG), r0 = threadIdx.x / kG;
+  float bv[4] = {0.f, 0.f, 0.f, 0.f};
+  if (bias != nullptr)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bv[e] = round_bf16(load_f(bias, bias0 + c + e));
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int r = r0 + kRowsPer * j;
+    float4* tp = reinterpret_cast<float4*>(tile + r * kTile + c);
+    float4 t4 = *tp;
+    float* v = reinterpret_cast<float*>(&t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = round_bf16(v[e]);
+      if constexpr (LORA) v[e] = add_delta(v[e], dl[r * kTile + c + e]);
+      if (bias != nullptr) v[e] = round_bf16(__fadd_rn(v[e], bv[e]));
+    }
+    *tp = t4;
   }
   __syncthreads();
 
@@ -514,14 +936,25 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
     const TV* scale = region == 0 ? q_ln : k_ln;
     const int heads = kTile / head_dim;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float sc[kTile / 32];   // the lane's scale values, d = lane + 32 m
+#pragma unroll
+    for (int m = 0; m < kTile / 32; ++m)
+      sc[m] = lane + 32 * m < head_dim ? load_f(scale, lane + 32 * m) : 0.f;
     for (int t = warp; t < rows * heads; t += kWarps) {
       float* h = tile + (t / heads) * kTile + (t % heads) * head_dim;
       float ss = 0.f;
-      for (int d = lane; d < head_dim; d += 32) ss = __fadd_rn(ss, __fmul_rn(h[d], h[d]));
+#pragma unroll
+      for (int m = 0; m < kTile / 32; ++m) {
+        const int d = lane + 32 * m;
+        if (d < head_dim) ss = __fadd_rn(ss, __fmul_rn(h[d], h[d]));
+      }
       ss = warp_sum(ss);
       const float rstd = 1.f / sqrtf(ss / (float)head_dim + a.eps);
-      for (int d = lane; d < head_dim; d += 32)
-        h[d] = round_bf16(__fmul_rn(__fmul_rn(h[d], rstd), load_f(scale, d)));
+#pragma unroll
+      for (int m = 0; m < kTile / 32; ++m) {
+        const int d = lane + 32 * m;
+        if (d < head_dim) h[d] = round_bf16(__fmul_rn(__fmul_rn(h[d], rstd), sc[m]));
+      }
     }
     __syncthreads();
   }
@@ -529,43 +962,84 @@ fused_qkv_kernel(GemmArgs<TV> a, const TW* wq, const TW* wkv,
   bf16* out = region == 0 ? q_out : region == 1 ? k_out : v_out;
   const int ocols = region == 0 ? nq_cols : nkv_cols;
   const bool rope = region < 2 && cos != nullptr;
-  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
-    const int r = i / kTile, c = i % kTile, d = c % head_dim;
-    float v = tile[i];
-    if (rope && d < 2 * rope_half) {
-      const size_t t0 = (size_t)(row0 + r) * rope_half;
-      if (d < rope_half) {
-        v = __fsub_rn(__fmul_rn(v, cos[t0 + d]),
-                      __fmul_rn(tile[i + rope_half], sin[t0 + d]));
-      } else {
-        const int j = d - rope_half;
-        v = __fadd_rn(__fmul_rn(v, cos[t0 + j]),
-                      __fmul_rn(tile[i - rope_half], sin[t0 + j]));
-      }
+  const int d0 = c % head_dim;   // the group's 4 columns lie in one head
+  float cs[kN][4], sn[kN][4];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const size_t t0 = (size_t)(row0 + min(r0 + kRowsPer * j, rows - 1)) * rope_half;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + e;
+      const bool live = rope && d < 2 * rope_half;
+      const size_t ti = t0 + (d < rope_half ? d : d - rope_half);
+      cs[j][e] = live ? cos[ti] : 0.f;
+      sn[j][e] = live ? sin[ti] : 0.f;
     }
-    out[(size_t)(row0 + r) * ocols + out0 + c] = __float2bfloat16(v);
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int r = r0 + kRowsPer * j;
+    const float* t = tile + r * kTile + c;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + e;
+      v[e] = t[e];
+      if (rope && d < 2 * rope_half)
+        v[e] = d < rope_half
+            ? __fsub_rn(__fmul_rn(t[e], cs[j][e]), __fmul_rn(t[e + rope_half], sn[j][e]))
+            : __fadd_rn(__fmul_rn(t[e], cs[j][e]), __fmul_rn(t[e - rope_half], sn[j][e]));
+    }
+    if (r < rows)
+      *reinterpret_cast<uint2*>(out + (size_t)(row0 + r) * ocols + out0 + c) =
+          make_uint2(tc::pack_bf16(v[0], v[1]), tc::pack_bf16(v[2], v[3]));
   }
 }
 
 // out = bf16(residual + bf16(bf16(sums) + bf16(bias))), the out-projection's
-// and fc2's epilogue (kernel_gen.py :1556-1558, :1829-1832).
+// and fc2's epilogue (kernel_gen.py :1556-1558, :1829-1832). tile: the
+// finished sums [RB][kTile]; smem: the front region. Thread t owns columns
+// c..c+3 (c = 4 (t % kG)) of rows t / kG + kRowsPer j, and loads its bias
+// and residual values before it computes (the stores may alias the loads
+// as far as the compiler knows, so a loop of both would wait on each).
 template <int RB, typename TV, bool LORA>
 __device__ void residual_epilogue(const GemmArgs<TV>& a, float* smem,
-                                  const TV* bias, const bf16* residual,
-                                  bf16* out, int n_cols, const LoraArgs& la) {
-  const float* tile = smem + kRegion;
+                                  const float* tile, const TV* bias,
+                                  const bf16* residual, bf16* out, int n_cols,
+                                  const LoraArgs& la) {
+  constexpr int kG = kTile / 4, kRowsPer = kThreads / kG, kN = RB / kRowsPer;
   const int col0 = blockIdx.x * kTile;
   const int row0 = blockIdx.z * RB;
   const int rows = min(RB, a.rows - row0);
   const float* dl = nullptr;   // LORA: the rows' deltas [RB][kTile]
   if constexpr (LORA) dl = lora_tile_delta<RB>(la, smem, row0, rows);
-  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) {
-    const int r = i / kTile, c = i % kTile;
-    float v = round_bf16(tile[i]);
-    if constexpr (LORA) v = add_delta(v, dl[i]);
-    if (bias != nullptr) v = round_bf16(__fadd_rn(v, round_bf16(load_f(bias, col0 + c))));
-    const size_t o = (size_t)(row0 + r) * n_cols + col0 + c;
-    out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(residual[o]), v));
+  const int c = 4 * (threadIdx.x % kG), r0 = threadIdx.x / kG;
+  float bv[4] = {0.f, 0.f, 0.f, 0.f};
+  if (bias != nullptr)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bv[e] = round_bf16(load_f(bias, col0 + c + e));
+  uint2 res[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    res[j] = *reinterpret_cast<const uint2*>(
+        residual + (size_t)(row0 + min(r0 + kRowsPer * j, rows - 1)) * n_cols + col0 + c);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int r = r0 + kRowsPer * j;
+    if (r >= rows) break;
+    const float4 t4 = *reinterpret_cast<const float4*>(tile + r * kTile + c);
+    const float t[4] = {t4.x, t4.y, t4.z, t4.w};
+    const bf16* rv = reinterpret_cast<const bf16*>(&res[j]);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = round_bf16(t[e]);
+      if constexpr (LORA) v[e] = add_delta(v[e], dl[r * kTile + c + e]);
+      if (bias != nullptr) v[e] = round_bf16(__fadd_rn(v[e], bv[e]));
+      v[e] = __fadd_rn(__bfloat162float(rv[e]), v[e]);
+    }
+    *reinterpret_cast<uint2*>(out + (size_t)(row0 + r) * n_cols + col0 + c) =
+        make_uint2(tc::pack_bf16(v[0], v[1]), tc::pack_bf16(v[2], v[3]));
   }
 }
 
@@ -573,8 +1047,8 @@ __device__ void residual_epilogue(const GemmArgs<TV>& a, float* smem,
 // fused_out_proj_kernel: replaces kernel_gen.py _fused_out_proj (:1505),
 // both emissions (:1567, :1581). Bound by the bytes of W_o (33.6 MB a
 // llama3-8b layer). attn_flat [R, nq*D] @ W_o over 128-column tiles of H,
-// each tile split along the nq*D contraction (8 blocks a tile at R 8 on
-// llama3-8b: 32 tiles alone would leave 100 of 132 SMs idle).
+// each tile split along the nq*D contraction (tile_split_plan: 32 tiles
+// alone would leave 100 of 132 SMs idle). Sums on mma_tile.
 // ---------------------------------------------------------------------------
 template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -586,11 +1060,12 @@ fused_out_proj_kernel(GemmArgs<TV> a, const TW* w, const float* w_scale,
   const float* sbase = w_scale == nullptr ? nullptr : w_scale + blockIdx.x * kTile;
   la.b0 = blockIdx.x * kTile;
   la.b1 = la.b0 + kHalfTile;
-  if (!accumulate_tile<RB, TW, TV>(
-          a, base, base + kHalfTile, sbase,
-          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem))
+  if (!mma_tile<RB, TW, TV, false>(a, base, base + kHalfTile, sbase,
+                                   sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols,
+                                   reinterpret_cast<char*>(smem)))
     return;
-  residual_epilogue<RB, TV, LORA>(a, smem, bias, residual, out, n_cols, la);
+  residual_epilogue<RB, TV, LORA>(a, smem, smem + Ring<RB, TW, TV>::kFront / sizeof(float),
+                                  bias, residual, out, n_cols, la);
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -687,7 +1162,7 @@ fused_mlp_fc2_kernel(GemmArgs<TV> a, const TW* w2, const float* w2_scale,
           a, base, base + kHalfTile, sbase,
           sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem))
     return;
-  residual_epilogue<RB, TV, LORA>(a, smem, b2, residual, out, n_cols, la);
+  residual_epilogue<RB, TV, LORA>(a, smem, smem + kRegion, b2, residual, out, n_cols, la);
 }
 
 // ---------------------------------------------------------------------------
@@ -745,8 +1220,7 @@ LoraArgs lora_args(const Launch& l, const void* t, const void* b, int ldb) {
 }
 
 template <int RB, bool LORA, typename Kernel, typename... Args>
-int launch(Kernel kernel, int tiles, const Launch& l, Args... args) {
-  const size_t smem = smem_bytes(RB);
+int launch(Kernel kernel, int tiles, size_t smem, const Launch& l, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -765,7 +1239,8 @@ template <int RB, typename TW, typename TV, bool LORA>
 int launch_qkv(const Launch& l) {
   const int nq_cols = l.n - 2 * l.nkv_cols;
   return launch<RB, LORA>(
-      fused_qkv_kernel<RB, TW, TV, LORA>, l.n / kTile, l, gemm_args<TV>(l),
+      fused_qkv_kernel<RB, TW, TV, LORA>, l.n / kTile, Ring<RB, TW, TV>::kSmem, l,
+      gemm_args<TV>(l),
       static_cast<const TW*>(l.w), static_cast<const TW*>(l.wkv),
       static_cast<const float*>(l.w_scale),
       static_cast<const float*>(l.kv_scale),
@@ -781,8 +1256,8 @@ int launch_qkv(const Launch& l) {
 template <int RB, typename TW, typename TV, bool LORA>
 int launch_out_proj(const Launch& l) {
   return launch<RB, LORA>(
-      fused_out_proj_kernel<RB, TW, TV, LORA>, l.n / kTile, l,
-      gemm_args<TV>(l), static_cast<const TW*>(l.w),
+      fused_out_proj_kernel<RB, TW, TV, LORA>, l.n / kTile, Ring<RB, TW, TV>::kSmem,
+      l, gemm_args<TV>(l), static_cast<const TW*>(l.w),
       static_cast<const float*>(l.w_scale), static_cast<const TV*>(l.bias),
       static_cast<const bf16*>(l.residual), static_cast<bf16*>(l.out), l.n,
       lora_args(l, l.lora_t, l.lora_b, l.n));
@@ -791,7 +1266,7 @@ int launch_out_proj(const Launch& l) {
 template <int RB, typename TW, typename TV, bool LORA>
 int launch_fc2(const Launch& l) {
   return launch<RB, LORA>(
-      fused_mlp_fc2_kernel<RB, TW, TV, LORA>, l.n / kTile, l,
+      fused_mlp_fc2_kernel<RB, TW, TV, LORA>, l.n / kTile, smem_bytes(RB), l,
       gemm_args<TV>(l), static_cast<const TW*>(l.w),
       static_cast<const float*>(l.w_scale), static_cast<const TV*>(l.bias),
       static_cast<const bf16*>(l.residual), static_cast<bf16*>(l.out), l.n,
@@ -803,7 +1278,7 @@ int launch_fc1(const Launch& l) {
   const bool gated = l.act == kSwiglu || l.act == kGeglu;
   return launch<RB, LORA>(
       fused_mlp_fc1_kernel<RB, TW, TV, LORA>,
-      l.n / (gated ? kHalfTile : kTile), l, gemm_args<TV>(l),
+      l.n / (gated ? kHalfTile : kTile), smem_bytes(RB), l, gemm_args<TV>(l),
       static_cast<const TW*>(l.w), static_cast<const float*>(l.w_scale),
       static_cast<const TV*>(l.bias), static_cast<bf16*>(l.out), l.n, l.act,
       lora_args(l, l.lora_t, l.lora_b, (gated ? 2 : 1) * l.n));

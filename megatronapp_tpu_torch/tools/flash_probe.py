@@ -29,6 +29,17 @@ run (chip_smoke.py) does not make. From the repository root:
         and tile widths (copies of the source under build/), each timed in
         turns at 8 and 32 rows over 4 full-width MLA layers (L2-cold), with
         mla_down's and mla_up's device time apart (torch.profiler).
+    python3 -m megatronapp_tpu_torch.tools.flash_probe fused-variants
+        the fused QKV and out-projection kernels (fused_decode.cu's
+        tensor-core tile core) built with other ring stage sizes and
+        depths, the norm statistics shared once a launch at both row
+        blocks or at none, and ablations that stub one piece
+        each (the norm statistics, the split sums, the normalisation, the
+        mma; their outputs are not the function's), copies of the source under
+        build/; then the K-split plan at other blocks an SM. Each timed in
+        turns at llama3-8b's shapes, 8 and 32 rows, bf16 and resident int8
+        weights, over 8 layers (L2-cold); each output against the
+        source's own.
     python3 -m megatronapp_tpu_torch.tools.flash_probe lora-splits
         the LoRA shrink kernel with its k's a split (kper) fixed to each of
         a few values, timed in turns at the llama3-8b LoRA targets' din
@@ -43,7 +54,9 @@ run (chip_smoke.py) does not make. From the repository root:
         and fused) of the checkout in DIR (e.g. the parent commit, unpacked
         with git archive) and of this one in turns (parent, change,
         change, parent), one process a run; --skip-train leaves out the
-        two train phases.
+        two train phases, --bf16-only the int8, LoRA and MLA engines
+        (llama3-8b unfused and fused on bf16 weights only), --rounds N
+        runs that order N times.
 
 Kernel times are device time per call with the calls queued behind a
 sleep (chip_smoke.device_ms): at the D 64 shape a call is shorter than
@@ -347,6 +360,139 @@ def prologue_variants():
     kbuild._libs.pop(fm.SOURCE, None)
 
 
+# fused_decode.cu's tile-core knobs that fused-variants sets (the ring's
+# stage k and stage count; the row block from which QKV shares its norm
+# statistics: 8 shares at both row blocks, 64 at none), and the ablations
+# it builds: each replaces one piece of mma_tile's text (the norm
+# statistics, the split sums, the in-place normalisation, the mma) by a
+# stand-in that costs nothing, so its time apart shows; their outputs are
+# not the function's.
+_FUSED_KNOBS = ("kStageK", "kStages", "kSharedStatsRb")
+_FUSED_ABLATIONS = {
+    "nostats": [("rn::row_moments<8>(a.x + (size_t)row * a.k, a.k, a.norm, "
+                 "lane, mean, ss);", "mean = 0.f; ss = (float)a.k;")],
+    "nosums": [("for (int sp0 = 1; sp0 < a.ksplit; sp0 += kBatch) {",
+                "for (int sp0 = a.ksplit; sp0 < a.ksplit; sp0 += kBatch) {")],
+    "nonorm": [("    if (norm) {\n      // bf16(norm(x)) in place",
+                "    if (false) {\n      // bf16(norm(x)) in place")],
+    "nomma": [("tc::mma_bf16(acc[nb], af, bx[nb][2 * h], bx[nb][2 * h + 1]);",
+               "acc[nb][0] += __uint_as_float(af[0] ^ bx[nb][2 * h]);")],
+}
+
+
+def fused_variants():
+    import re
+
+    import torch
+
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving,
+    )
+    from megatronapp_tpu_torch.models.gpt import (
+        gpt_rope_tables, init_gpt_params,
+    )
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    with open(kbuild.source("fused_decode.cu")) as f:
+        text = f.read()
+    lines = {k: re.search(rf"^constexpr (?:int|bool) {k} = (\w+);.*$", text,
+                          re.M) for k in _FUSED_KNOBS}
+    if not all(lines.values()) or not all(
+            old in text for pairs in _FUSED_ABLATIONS.values()
+            for old, _ in pairs):
+        raise RuntimeError("fused-variants: the knobs are not in the source")
+    own = tuple(lines[k].group(1) for k in _FUSED_KNOBS) + ("full",)
+    # (kStageK, kStages, kSharedStatsRb, ablation); the first is the
+    # source's.
+    choices = [own]
+    for c in [own[:2] + (rb, "full") for rb in ("8", "64")] + [
+            ("64", "4", own[2], "full"), ("64", "3", own[2], "full"),
+            ("128", "3", own[2], "full")] + [
+            own[:3] + (a,) for a in _FUSED_ABLATIONS]:
+        if c not in choices:
+            choices.append(c)
+    variants = {}
+    for c in choices:
+        block = text
+        for k, v in zip(_FUSED_KNOBS, c):
+            block = block.replace(lines[k].group(0), lines[k].group(0).replace(
+                f"{k} = {lines[k].group(1)};", f"{k} = {v};"))
+        for old, repl in _FUSED_ABLATIONS.get(c[3], ()):
+            block = block.replace(old, repl)
+        variants["_".join(c)] = block
+    libs = _build_sources("fused_decode.cu", variants)
+    dev = torch.device("cuda", 0)
+    cfg = llama3_8b(num_layers=8, params_dtype=torch.bfloat16)
+    params = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    kinds = {"bf16": list(params["layers"]),
+             "int8": list(quantize_for_serving(params)[0]["layers"])}
+    gen = torch.Generator(dev).manual_seed(808)
+    cos_t, sin_t = gpt_rope_tables(cfg, 2048, device=dev)
+    own_stage, own_waves = fd.STAGE_K, fd.SPLIT_WAVES
+    plans = [("variant", "_".join(c), int(c[0]), own_waves) for c in choices]
+    plans += [("split_waves", str(w), own_stage, w) for w in (1, 3, 4)
+              if w != own_waves]
+    try:
+        for rows in (8, 32):
+            x = torch.randn(rows, cfg.hidden_size, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            attn = torch.randn(rows, cfg.hidden_size, generator=gen,
+                               device=dev).to(torch.bfloat16)
+            pos = torch.randint(0, 2048, (rows,), generator=gen, device=dev)
+            cos, sin = cos_t[pos].contiguous(), sin_t[pos].contiguous()
+            for kind, layers in kinds.items():
+                it = {"i": 0}
+
+                def nxt():
+                    it["i"] = (it["i"] + 1) % len(layers)
+                    return layers[it["i"]]
+                calls = {"qkv": lambda: fd.fused_qkv(x, nxt(), cfg, cos, sin),
+                         "out_proj": lambda: fd.fused_out_proj(
+                             attn, nxt(), cfg, x)}
+                times = {(p[0], p[1], k): [] for p in plans for k in calls}
+                outs = {}
+                for what, key, stage_k, waves in plans + plans[::-1]:
+                    kbuild._libs[fd.SOURCE] = libs[
+                        key if what == "variant" else "_".join(own)]
+                    fd.STAGE_K, fd.SPLIT_WAVES = stage_k, waves
+                    for k, fn in calls.items():
+                        it["i"] = -1
+                        outs[(what, key, k)] = fn()
+                        times[(what, key, k)].append(cs.device_ms(fn))
+                torch.cuda.synchronize()
+                sms = torch.cuda.get_device_properties(dev) \
+                    .multi_processor_count
+                for k in calls:
+                    first = outs[("variant", "_".join(own), k)]
+                    first = first if isinstance(first, tuple) else (first,)
+                    rec = {}
+                    for what, key, stage_k, waves in plans:
+                        o = outs[(what, key, k)]
+                        o = o if isinstance(o, tuple) else (o,)
+                        fd.STAGE_K, fd.SPLIT_WAVES = stage_k, waves
+                        kk = cfg.hidden_size
+                        tiles = (cfg.hidden_size if k == "out_proj" else
+                                 (cfg.num_attention_heads + 2
+                                  * cfg.num_query_groups) * cfg.head_dim
+                                 ) // fd.TILE
+                        rec[f"{what}:{key}"] = {
+                            "ms": times[(what, key, k)],
+                            "ksplit": fd.tile_split_plan(rows, kk, tiles,
+                                                         sms)[2],
+                            "max_abs_diff_vs_own": max(
+                                float((a.float() - b.float()).abs().max())
+                                for a, b in zip(o, first))}
+                    print(json.dumps({"rows": rows, "weights": kind,
+                                      "kernel": k, "own": "_".join(own),
+                                      "runs": rec}), flush=True)
+    finally:
+        fd.STAGE_K, fd.SPLIT_WAVES = own_stage, own_waves
+        kbuild._libs.pop(fd.SOURCE, None)
+
+
 def dkv_rows():
     import torch
 
@@ -378,7 +524,8 @@ def dkv_rows():
     kbuild._libs.pop(fa.SOURCE, None)
 
 
-def ab(parent: str, skip_train: bool = False):
+def ab(parent: str, skip_train: bool = False, bf16_only: bool = False,
+       rounds: int = 1):
     code = ("import sys; sys.path.insert(0, '.'); import torch, chip_smoke "
             "as c; torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; s = {}\n"
@@ -399,16 +546,18 @@ def ab(parent: str, skip_train: bool = False):
             "p = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), "
             "dev)\n"
             "s['model'] = (p, cfg, dev)\n"
-            "reg = AdapterRegistry()\n"
-            "for i, aid in enumerate(c.LORA_ADAPTERS):\n"
-            "    reg.register(LoraAdapter.random(aid, cfg, rank=c.LORA_RANK, "
-            "seed=100 + i, scale=c.LORA_SERVE_SCALE))\n"
-            "s['lora_registry'] = reg\n"
-            "s['qmodel'] = (quantize_for_serving(p)[0], cfg, dev)\n"
-            "m = c.mla_cfg(num_layers=c.MLA_LAYERS)\n"
-            "s['mla_model'] = (init_gpt_params(m, torch.Generator(dev)"
-            ".manual_seed(0), dev), m, dev)\n"
-            "c.phase_profile(s)")
+            + ("" if bf16_only else
+               "reg = AdapterRegistry()\n"
+               "for i, aid in enumerate(c.LORA_ADAPTERS):\n"
+               "    reg.register(LoraAdapter.random(aid, cfg, "
+               "rank=c.LORA_RANK, seed=100 + i, "
+               "scale=c.LORA_SERVE_SCALE))\n"
+               "s['lora_registry'] = reg\n"
+               "s['qmodel'] = (quantize_for_serving(p)[0], cfg, dev)\n"
+               "m = c.mla_cfg(num_layers=c.MLA_LAYERS)\n"
+               "s['mla_model'] = (init_gpt_params(m, torch.Generator(dev)"
+               ".manual_seed(0), dev), m, dev)\n")
+            + "c.phase_profile(s)")
     keys = ("step_ms", "mean_step_ms_after_first", "tokens_per_s", "mfu",
             "peak_mem_bytes", "launches")
     window_keys = ("device_ms_per_unit_by_family", "device_busy_ms",
@@ -416,7 +565,7 @@ def ab(parent: str, skip_train: bool = False):
                    "paged_attention_ms_per_launch",
                    "paged_latent_ms_per_launch", "kernels_per_unit")
     trees = {"parent": os.path.abspath(parent), "change": REPO}
-    for which in ("parent", "change", "change", "parent"):
+    for which in ("parent", "change", "change", "parent") * rounds:
         proc = subprocess.run([sys.executable, "-c", code], cwd=trees[which],
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -500,6 +649,7 @@ def main(argv=None) -> int:
     sub.add_parser("dkv-rows")
     sub.add_parser("paged-splits")
     sub.add_parser("prologue-variants")
+    sub.add_parser("fused-variants")
     sub.add_parser("lora-splits")
     p_flips = sub.add_parser("quant-flips")
     p_flips.add_argument("--parent", required=True,
@@ -509,6 +659,10 @@ def main(argv=None) -> int:
                       help="a checkout whose chip_smoke.py runs first")
     p_ab.add_argument("--skip-train", action="store_true",
                       help="profile phase only")
+    p_ab.add_argument("--bf16-only", action="store_true",
+                      help="profile the bf16 unfused and fused engines only")
+    p_ab.add_argument("--rounds", type=int, default=1,
+                      help="times to run parent, change, change, parent")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -516,9 +670,11 @@ def main(argv=None) -> int:
         return 2
     {"fwd-tiles": fwd_tiles, "dkv-rows": dkv_rows,
      "paged-splits": paged_splits, "prologue-variants": prologue_variants,
+     "fused-variants": fused_variants,
      "quant-flips": lambda: quant_flips(args.parent),
      "lora-splits": lora_splits,
-     "ab": lambda: ab(args.parent, args.skip_train)}[args.cmd]()
+     "ab": lambda: ab(args.parent, args.skip_train, args.bf16_only,
+                      args.rounds)}[args.cmd]()
     return 0
 
 
