@@ -21,8 +21,8 @@ Phases, each printing one JSON line:
             fc1, fc2) against their plain versions on the card: llama3-8b
             at 8 and 32 rows, gpt2-125m (LayerNorm, biases, gelu, D 64),
             and a QK-layernorm case with fp32 weights at 5 and 40 rows;
-            reruns bit for bit, and QKV's and the out-projection's rows the
-            same bits in another batch.
+            reruns bit for bit, and every kernel's rows the same bits in
+            another batch.
    fused_reference: a tiny llama-shaped model's fused chunked-prefill and
             decode step on the card (bf16, kernels) against the same
             weights on the CPU (fp32, plain versions).
@@ -207,19 +207,21 @@ FUSED_REPLACES = {
 FUSED_KERNELS = tuple(FUSED_REPLACES)
 # bf16 fused kernel vs its plain version on the same bf16 inputs, each
 # output element held to its own scale: |kernel - plain| <= FUSED_TOL *
-# max(|plain element|, RMS of its plain row). Both sum in fp32 in another
-# order (~1e-6 apart), then round to bf16 at the same points: the sum, the
-# bias, the QK-norm or the activation and its gated product, the residual
-# add. Where the two straddle a rounding boundary they round apart by one
-# ulp, at most 2^-7 = 0.0078 of the element; up to five such roundings
-# (fc1: sum, bias, activation, gated product; and the norm statistics,
-# summed in another order, move the normalised input by as much) stack to
-# ~0.04. The element's own magnitude is the scale because a row is not
-# Gaussian everywhere: swiglu's product of two Gaussians has elements of
-# ~10 RMS, where one ulp is 0.06 of the RMS (llama3-8b fc1 at 32 rows on
-# an NVIDIA H100 80GB HBM3, 700.00 W); the row's RMS is the floor for
-# elements near zero, whose error is the absolute rounding of the sums
-# that made them.
+# max(|plain element|, RMS of its plain row). Both multiply the same bf16
+# operands and sum in fp32 in another order (the kernels on the tensor
+# cores, in k order a warp and split order across blocks; ~1e-6 apart),
+# then round to bf16 at the same points: the sum, the bias, the QK-norm or
+# the activation and its gated product, the residual add. Where the two
+# straddle a rounding boundary they round apart by one ulp, at most 2^-7 =
+# 0.0078 of the element; up to five such roundings (fc1: sum, bias,
+# activation, gated product; and the norm statistics, summed in another
+# order, move the normalised input by as much) stack to ~0.04. The
+# element's own magnitude is the scale because a row is not Gaussian
+# everywhere: swiglu's product of two Gaussians has elements of ~10 RMS,
+# where one ulp is 0.06 of the RMS (llama3-8b fc1 at 32 rows: a property
+# of the function's values, whatever sums them); the row's RMS is the
+# floor for elements near zero, whose error is the absolute rounding of
+# the sums that made them.
 FUSED_TOL = 0.06
 # Timing loops rotate through page tables whose K/V span this many bytes.
 TIMED_POOL_BYTES = 3 * L2_BYTES
@@ -910,9 +912,8 @@ def _rows_elsewhere(name, cfg, p, lora, inputs, outs, gen, dev):
     when the batch has at most 8 rows (a 1-row launch takes the same 8-row
     blocks and K split), else at its place in a batch of as many rows whose
     other rows are other inputs (a row's sums never read another row, and
-    the K split reads the row count only through the row block). Without
-    lora: QKV and the out-projection (the tensor-core tile core); with
-    lora: the four kernels with their LoRA epilogue, the other rows on
+    the K split reads the row count only through the row block): the
+    four kernels, with lora through their LoRA epilogue, the other rows on
     other adapters (a row's t and delta never read another row either)."""
     import numpy as np
 
@@ -946,10 +947,9 @@ def _rows_elsewhere(name, cfg, p, lora, inputs, outs, gen, dev):
             "banks": lora["banks"]}
         ox, oattn, oy, ocos, osin = (other(t) for t in inputs)
         got = {"qkv": fd.fused_qkv(ox, p, cfg, ocos, osin, lo),
-               "out_proj": fd.fused_out_proj(oattn, p, cfg, ox, lo)}
-        if lora is not None:
-            got["mlp_fc1"] = fd.fused_mlp_fc1(ox, p, cfg, lo)
-            got["mlp_fc2"] = fd.fused_mlp_fc2(oy, ox, p, cfg, lo)
+               "out_proj": fd.fused_out_proj(oattn, p, cfg, ox, lo),
+               "mlp_fc1": fd.fused_mlp_fc1(ox, p, cfg, lo),
+               "mlp_fc2": fd.fused_mlp_fc2(oy, ox, p, cfg, lo)}
         for kernel, g in got.items():
             g_t = g if isinstance(g, tuple) else (g,)
             w_t = outs[kernel] if isinstance(outs[kernel], tuple) \

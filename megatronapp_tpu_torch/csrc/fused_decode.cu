@@ -40,67 +40,53 @@
 // 2 R FLOPs per weight: 16 FLOPs per 2-byte weight, far below the card's
 // ~295 FLOPs per byte, so every one is bound by the bytes of its weights
 // (llama3-8b: 50.3 MB QKV, 33.6 MB out-projection, 234.9 MB fc1, 117.4 MB
-// fc2 a layer); at R = 32 too, once the products run on the tensor cores.
-// Every kernel's block owns a tile of 128 output columns (QKV: one or two
-// whole heads, so QK-norm and rope stay in the block; gated fc1: 64 gate
-// and the 64 matching value columns), read as two 64-column weight
-// segments. Too few tiles for 132 SMs (out-projection and fc2: 32 tiles;
-// QKV: 48) are split along K across blocks: grid.y = ksplit blocks per
-// tile, each writing its fp32 partial tile to a workspace. The last block
-// of a tile to finish (an atomic count on a per-tile counter, not on any
-// sum) adds the partials in split order 0..ksplit-1, runs the epilogue and
-// resets the counter. Inside a block every sum runs in a
-// fixed order too, so a rerun repeats every bit and a row's bits never
-// depend on the other rows: no atomics in the sums.
+// fc2 a layer; resident int8 halves them); at R = 32 too (64 FLOPs per
+// weight), since the products run on the tensor cores. Every kernel's
+// block owns a tile of 128 output columns (QKV: one or two whole heads, so
+// QK-norm and rope stay in the block; gated fc1: 64 gate and the 64
+// matching value columns), read as two 64-column weight segments. Tiles
+// too few for the card (out-projection and fc2: 32; QKV: 48) are split
+// along K across blocks: grid.y = ksplit blocks per tile, each writing
+// its fp32 partial tile to a workspace. The last block of a tile to
+// finish (an atomic count on a per-tile counter, not on any sum) adds the
+// partials in split order 0..ksplit-1, runs the epilogue and resets the
+// counter. Inside a block every sum runs in a fixed order too, so a rerun
+// repeats every bit and a row's bits never depend on the other rows: no
+// atomics in the sums.
 //
-// QKV and out-projection: the tensor-core tile core (mma_tile).
+// One core sums every kernel's tile: the tensor-core tile core (mma_tile).
 // - Products: mma.sync m16n8k16 on bf16 operands with fp32 accumulators
 //   (tensor_core.cuh). The operands are the bf16 values the fp32 bodies
-//   multiply (bf16(norm(x)) or attn_flat; bf16 weights, int8 and fp32 ones
-//   made bf16 as _dequant_weight does), so only the order of the fp32 sums
-//   differs. Warp w owns columns 16w..16w+15 of the tile over all of the
-//   split's k's, so each output is summed in k order by one warp with no
-//   cross-warp reduction. The weight columns are the mma's M side and the
-//   rows its N side (8 rows fill an n8 block, 32 rows four).
+//   multiply (bf16(norm(x)), attn_flat or y; bf16 weights, int8 and fp32
+//   ones made bf16 as _dequant_weight does), so only the order of the fp32
+//   sums differs. Warp w owns columns 16w..16w+15 of the tile over all of
+//   the split's k's, so each output is summed in k order by one warp with
+//   no cross-warp reduction (gated fc1: warps 0-3 sum gate columns, 4-7
+//   value columns). The weight columns are the mma's M side and the rows
+//   its N side (8 rows fill an n8 block, 32 rows four).
 // - Weights: a ring of kStages stages of kStageK k-major weight rows
 //   (16-byte cp.async, rows padded by 16 bytes), kStages - 1 stages in
 //   flight while one is multiplied. bf16 stages are read in place with
 //   ldmatrix .trans; int8 and fp32 stages first become a bf16 tile (int8:
-//   bf16(float(q) * scale[col]) two values at a time, the thread's 16
-//   column scales held in registers; fp32: rounded to bf16).
-// - Activations ride in the same ring, raw bf16 [row][k]. QKV normalises a
-//   landed stage in place through row_norm.cuh's arithmetic (the bits the
-//   LoRA shrink reads), with the norm's scale and bias staged in the ring
-//   beside it. At 32-row blocks the rows' norm statistics are computed
-//   once a launch by its first blocks and shared through the workspace
-//   (shared_row_stats); at 8 rows each block computes its own, which is
-//   quicker than the wait for the writers.
-// - Each split owns a whole number of ring stages: the split plan is this
-//   core's own (ops/cuda/fused_decode.py tile_split_plan).
-//
-// fc1 and fc2: the fp32 core on the CUDA cores (accumulate_tile).
-// - A block streams its weight slab with 16-byte loads at R <= 8 (8 bf16
-//   columns a thread) and 4-byte loads at R <= 32 (2 columns a thread, so
-//   that the R x columns fp32 sums of a thread stay at 64 registers); each
-//   thread keeps 32 words of weights in flight before it uses them.
-// - The R x K activations never fit a block's 227 KB (x at R = 32 is 256 KB,
-//   y 917 KB), so they are staged through shared memory in chunks of 256
-//   k's, normalised (fc1) as they are staged, as fp32 [k][row] so that a
-//   thread reads four rows with one 16-byte load; the k rows in flight are
-//   summed through shared memory in a fixed order.
-// - Every block of a normalised kernel recomputes its rows' norm statistics
-//   from the whole x row (L2-resident), as the TPU tiled kernel recomputes
-//   its norm per grid step.
-// At R = 32 (a prefill chunk) the FMAs outweigh the bytes on CUDA cores (fc1:
-// 7.5 GFLOP a layer, ~1.6x its byte time at the fp32 FMA rate). Resident
-// int8 weights halve the bytes (llama3-8b fc1: 117.4 MB a layer and 115 KB
-// of scales) but keep the FMAs and add a multiply and a rounding per
-// weight, so at R = 8 the int8 kernels are bound by the instructions a
-// weight costs rather than by its bytes: chip_smoke.py's times phase on an
-// NVIDIA H100 80GB HBM3 at 700.00 W measured them at 1.05-1.19x the bf16
-// kernels, 3.9-6.7x their halved byte bound. Each thread loads its
-// columns' scales once, before the k loop.
-//
+//   bf16(float(q) * scale[col]) two values at a time, float(q) formed
+//   exactly from q's bits at full rate, the thread's 16 column scales held
+//   in registers; fp32: rounded to bf16). At 32-row blocks the int8
+//   normalising kernels (QKV, fc1) spill a few words at the 128-register
+//   limit; scales moved to shared memory to free registers ran slower.
+// - Activations ride in the same ring, raw bf16 [row][k]. QKV and fc1
+//   normalise a landed stage in place through row_norm.cuh's arithmetic
+//   (the bits the LoRA shrink reads), with the norm's scale and bias
+//   staged in the ring beside it. At 32-row blocks the rows' norm
+//   statistics are computed once a launch by its first blocks and shared
+//   through the workspace (shared_row_stats); at 8-row blocks each block
+//   computes its own from the whole x row (L2-resident).
+// - Each split owns a whole number of ring stages: one split plan for
+//   every kernel (ops/cuda/fused_decode.py tile_split_plan), as many
+//   splits as fill two blocks an SM in one wave.
+// The y [R, ffn] that fc1 writes and fc2 reads is never staged whole
+// (917 KB at R = 32): fc2 streams it through the ring beside W2, 128 k's
+// a stage, like any other input.
+
 // LoRA epilogue (template flag LORA; the off path compiles as before).
 // Replaces the epilogue of the same TPU kernels with lora= (kernel_gen.py
 // _lora_epilogue :1130 in the bodies at :1242-1245, :1552-1554,
@@ -142,9 +128,7 @@ constexpr int kThreads = 256;               // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;                  // virtual output columns a block
 constexpr int kHalfTile = kTile / 2;        // one weight segment
-constexpr int kChunk = 256;                 // k's of activations staged at once
-constexpr int kSums = 64;                   // fp32 sums a thread keeps
-constexpr int kRegion = kThreads * kSums;   // floats: the front region (LoRA epilogue)
+constexpr int kRegion = 16384;              // floats: the front region (LoRA epilogue)
 
 using rn::kNormLayer;
 using rn::kNormNone;
@@ -154,78 +138,6 @@ using rn::round_bf16;
 using rn::warp_sum;
 enum Act { kSwiglu = 0, kGeglu = 1, kGelu = 2, kRelu = 3, kSquaredRelu = 4 };
 
-// 32-bit words holding `bytes` bytes (a 2-byte load takes one word).
-constexpr int words_of(int bytes) { return bytes < 4 ? 1 : bytes / 4; }
-
-// The tile of one thread: RB rows x kCpl columns; the kGroups k rows that a
-// block has in flight at once, kUnroll of them per thread.
-template <int RB, typename TW>
-struct Plan {
-  static constexpr int kCpl = kSums / RB;               // 8 (RB 8) or 2 (RB 32)
-  static constexpr int kLanes = kTile / kCpl;           // threads per k row
-  static constexpr int kGroups = kThreads / kLanes;     // k rows in flight
-  static constexpr int kWords = words_of(kCpl * (int)sizeof(TW));
-  static constexpr int kUnroll = 32 / kWords;           // 32 words in flight
-  static constexpr int kStep = kGroups * kUnroll;       // k rows a step
-  static_assert(kChunk % kStep == 0, "a chunk holds whole steps");
-  static_assert(kHalfTile % kCpl == 0, "a thread's columns lie in one segment");
-};
-
-// kCpl consecutive weights of one k row, as raw 32-bit words.
-template <typename TW, int CPL>
-struct WeightVec {
-  static constexpr int kBytes = CPL * (int)sizeof(TW);
-  static constexpr int kWords = words_of(kBytes);
-  uint32_t w[kWords];
-
-  __device__ __forceinline__ void load(const TW* p) {
-    if constexpr (kBytes == 2) {
-      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
-    } else if constexpr (kWords == 1) {
-      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-    } else if constexpr (kWords == 2) {
-      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-      w[0] = t.x;
-      w[1] = t.y;
-    } else {
-#pragma unroll
-      for (int i = 0; i < kWords / 4; ++i) {
-        const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + i);
-        w[4 * i] = t.x;
-        w[4 * i + 1] = t.y;
-        w[4 * i + 2] = t.z;
-        w[4 * i + 3] = t.w;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) w[i] = 0u;
-  }
-
-  // The weights in the compute dtype (bf16), as floats; int8 weights
-  // dequantize with their columns' scales sc: bf16(float(q) * sc).
-  __device__ __forceinline__ void unpack(float (&f)[CPL], const float (&sc)[CPL]) const {
-    if constexpr (std::is_same<TW, int8_t>::value) {
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int8_t q = (int8_t)((w[i / 4] >> (8 * (i % 4))) & 0xffu);
-        f[i] = round_bf16(__fmul_rn((float)q, sc[i]));
-      }
-    } else if constexpr (sizeof(TW) == 2) {
-#pragma unroll
-      for (int i = 0; i < kWords; ++i) {
-        f[2 * i] = __uint_as_float(w[i] << 16);
-        f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) f[i] = round_bf16(__uint_as_float(w[i]));
-    }
-  }
-};
-
 template <typename TV>
 struct GemmArgs {
   const bf16* x;          // [rows, k] activations
@@ -234,8 +146,10 @@ struct GemmArgs {
   int norm;
   float eps;
   int rows, k;
-  float* ws;              // [tiles * row chunks, ksplit, RB, kTile] partials
-  int* counters;          // [tiles * row chunks], zero between launches
+  float* ws;              // [tiles * row chunks, ksplit, RB, kTile] partials,
+                          // then [row chunks][2 RB] shared norm statistics
+  int* counters;          // [tiles * row chunks], then 2 a row chunk; zero
+                          // between launches
   int ksplit;
 };
 
@@ -249,10 +163,6 @@ struct LoraArgs {
   int rank, ldb;
   int b0, b1;         // B columns of virtual columns 0 and kHalfTile
 };
-
-size_t smem_bytes(int rb) {
-  return (size_t)(kRegion + rb * kTile + 2 * rb + 4) * sizeof(float);
-}
 
 // The finishing block's LoRA deltas dl [RB][kTile] (row r, virtual column
 // vc: t_r . B[s_r][:, column of vc], fp32 in rank order; exactly 0 for the
@@ -329,164 +239,13 @@ __device__ __forceinline__ float add_delta(float v, float d) {
   return round_bf16(__fadd_rn(v, round_bf16(d)));
 }
 
-// Sums this block's [RB, kTile] tile of bf16(norm(x)) @ W over its k split.
-// Virtual columns 0..63 read weight segment w0, 64..127 segment w1, both
-// with row stride ldw; int8 weights take their columns' scales from s0 and
-// s1 (null otherwise). Returns true in the block that then holds the
-// finished fp32 sums in `tile` (every block when ksplit == 1, else the last
-// of the tile's blocks to finish) and false in the others, which exit.
-template <int RB, typename TW, typename TV>
-__device__ bool accumulate_tile(const GemmArgs<TV>& a, const TW* w0,
-                                const TW* w1, const float* s0,
-                                const float* s1, size_t ldw, float* smem) {
-  using P = Plan<RB, TW>;
-  float* xs = smem;                  // [kChunk][RB] staged activations
-  float* red = smem;                 // [kGroups][RB][kTile], after the k loop
-  float* tile = smem + kRegion;      // [RB][kTile]
-  float* mean_s = tile + RB * kTile;
-  float* rstd_s = mean_s + RB;
-  int* flag_s = reinterpret_cast<int*>(rstd_s + RB);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.z * RB;
-  const int rows = min(RB, a.rows - row0);
-  const int kper = ((a.k + a.ksplit - 1) / a.ksplit + 7) / 8 * 8;
-  const int k_begin = min(a.k, (int)blockIdx.y * kper);
-  const int k_end = min(a.k, k_begin + kper);
-
-  // Norm statistics over the whole row: mean (layernorm) and
-  // 1 / sqrt(mean((x - mean)^2) + eps), as ops/normalization.py.
-  if (a.norm != kNormNone) {
-    for (int r = warp; r < rows; r += kWarps) {
-      float mean, ss;
-      rn::row_moments(a.x + (size_t)(row0 + r) * a.k, a.k, a.norm, lane, mean,
-                      ss);
-      if (lane == 0) {
-        mean_s[r] = mean;
-        rstd_s[r] = rn::row_rstd(ss, a.k, a.eps);
-      }
-    }
-  }
-
-  float acc[RB][P::kCpl];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < P::kCpl; ++c) acc[r][c] = 0.f;
-  const int kg = tid / P::kLanes;
-  const int vc = (tid % P::kLanes) * P::kCpl;
-  const TW* wp = vc < kHalfTile ? w0 + vc : w1 + (vc - kHalfTile);
-  float sc[P::kCpl];
-#pragma unroll
-  for (int c = 0; c < P::kCpl; ++c) sc[c] = 1.f;
-  if constexpr (std::is_same<TW, int8_t>::value) {
-    const float* sp = vc < kHalfTile ? s0 + vc : s1 + (vc - kHalfTile);
-#pragma unroll
-    for (int c = 0; c < P::kCpl; ++c) sc[c] = sp[c];
-  }
-
-  for (int c0 = k_begin; c0 < k_end; c0 += kChunk) {
-    const int kc = min(kChunk, k_end - c0);
-    __syncthreads();   // statistics written; the previous chunk consumed
-    for (int i = tid; i < RB * (kChunk / 8); i += kThreads) {
-      const int r = i % RB, k8 = (i / RB) * 8;
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      if (r < rows && k8 < kc) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            a.x + (size_t)(row0 + r) * a.k + c0 + k8);
-        const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[e] = __bfloat162float(xv[e]);
-          if (a.norm != kNormNone)
-            v[e] = rn::norm_round(v[e], mean_s[r], rstd_s[r], a.norm_scale,
-                                  a.norm_bias, c0 + k8 + e);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) xs[(k8 + e) * RB + r] = v[e];
-    }
-    __syncthreads();
-
-    for (int kb = 0; kb < kc; kb += P::kStep) {
-      WeightVec<TW, P::kCpl> wv[P::kUnroll];
-#pragma unroll
-      for (int u = 0; u < P::kUnroll; ++u) {
-        const int kk = kb + kg + u * P::kGroups;
-        if (kk < kc)
-          wv[u].load(wp + (size_t)(c0 + kk) * ldw);
-        else
-          wv[u].zero();
-      }
-#pragma unroll
-      for (int u = 0; u < P::kUnroll; ++u) {
-        // Rows past kc hold zeros in xs and zero weights: they add +0.
-        const int kk = kb + kg + u * P::kGroups;
-        float wf[P::kCpl];
-        wv[u].unpack(wf, sc);
-        const float4* xp = reinterpret_cast<const float4*>(xs + kk * RB);
-#pragma unroll
-        for (int r4 = 0; r4 < RB / 4; ++r4) {
-          const float4 xv = xp[r4];
-#pragma unroll
-          for (int c = 0; c < P::kCpl; ++c) {
-            acc[4 * r4][c] = fmaf(xv.x, wf[c], acc[4 * r4][c]);
-            acc[4 * r4 + 1][c] = fmaf(xv.y, wf[c], acc[4 * r4 + 1][c]);
-            acc[4 * r4 + 2][c] = fmaf(xv.z, wf[c], acc[4 * r4 + 2][c]);
-            acc[4 * r4 + 3][c] = fmaf(xv.w, wf[c], acc[4 * r4 + 3][c]);
-          }
-        }
-      }
-    }
-  }
-
-  // The kGroups partial sums of each output, added in group order.
-  __syncthreads();   // xs is dead; red takes its place
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < P::kCpl; ++c)
-      red[(kg * RB + r) * kTile + vc + c] = acc[r][c];
-  __syncthreads();
-  for (int i = tid; i < RB * kTile; i += kThreads) {
-    float s = red[i];
-    for (int g = 1; g < P::kGroups; ++g) s += red[g * RB * kTile + i];
-    tile[i] = s;
-  }
-
-  const int unit = blockIdx.z * gridDim.x + blockIdx.x;
-  if (a.ksplit > 1) {
-    float* part = a.ws + (size_t)unit * a.ksplit * RB * kTile;
-    for (int i = tid; i < RB * kTile; i += kThreads)
-      part[(size_t)blockIdx.y * RB * kTile + i] = tile[i];
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) *flag_s = atomicAdd(a.counters + unit, 1) == a.ksplit - 1;
-    __syncthreads();
-    if (!*flag_s) return false;
-    __threadfence();
-    for (int i = tid; i < RB * kTile; i += kThreads) {
-      float s = __ldcg(part + i);
-      for (int sp = 1; sp < a.ksplit; ++sp)
-        s += __ldcg(part + (size_t)sp * RB * kTile + i);
-      tile[i] = s;
-    }
-    if (tid == 0) a.counters[unit] = 0;
-  }
-  __syncthreads();
-  return true;
-}
-
 // ---------------------------------------------------------------------------
-// The tensor-core tile core of the QKV and out-projection kernels.
+// The tensor-core tile core of every kernel here.
 // ---------------------------------------------------------------------------
 
 constexpr int kStageK = 128;      // k's a ring stage
 constexpr int kStages = 2;        // ring stages (kStages - 1 in flight)
-constexpr int kSharedStatsRb = 32;  // row blocks from which QKV shares its norm statistics
+constexpr int kSharedStatsRb = 32;  // row blocks from which QKV and fc1 share their norm statistics
 constexpr int kXld = kStageK + 8;  // x ring row stride (bf16): a 16-byte pad
 constexpr int kWld = kTile + 8;    // bf16 weight tile row stride
 static_assert(kStageK % 32 == 0, "a stage holds whole pairs of k16 steps");
@@ -528,20 +287,22 @@ __device__ __forceinline__ int load_acquire(const int* p) {
 constexpr long long kStatsWait = 1ll << 16;   // cycles a block waits for shared statistics
 
 // Shared statistics, once a launch (row blocks of kSharedStatsRb rows or
-// more, with a K split, which brings the workspace and counters): the blocks of split 0 whose tile index x is
-// below the chunk's row count compute rows x, x + tiles, ... (a warp a
-// row) into the workspace past the partial tiles and count them on the
-// chunk's ready counter (counters past the tiles'). These writers are the
-// launch's first blocks, so they run ahead of the blocks that wait.
+// more, given the workspace and counters: a K split brings them, and the
+// wrappers pass them to a normalising kernel without one too): the
+// blocks of split 0 whose tile index x is below the chunk's row count
+// compute rows x, x + tiles, ... (a warp a row) into the workspace past
+// the partial tiles (if any) and count them on the chunk's ready counter
+// (counters past the tiles'). These writers are the launch's first
+// blocks, so they run ahead of the blocks that wait.
 template <int RB, typename TV>
 __device__ __forceinline__ bool stats_writer(const GemmArgs<TV>& a, int rows) {
-  return RB >= kSharedStatsRb && a.ksplit > 1 && blockIdx.y == 0 && (int)blockIdx.x < rows;
+  return RB >= kSharedStatsRb && a.ws != nullptr && blockIdx.y == 0 && (int)blockIdx.x < rows;
 }
 
 template <int RB, typename TV>
 __device__ float* stats_slots(const GemmArgs<TV>& a) {
-  return a.ws + (size_t)gridDim.x * gridDim.z * a.ksplit * RB * kTile +
-         (size_t)blockIdx.z * 2 * RB;
+  const size_t parts = a.ksplit > 1 ? (size_t)gridDim.x * gridDim.z * a.ksplit * RB * kTile : 0;
+  return a.ws + parts + (size_t)blockIdx.z * 2 * RB;
 }
 
 template <int RB, typename TV>
@@ -562,11 +323,12 @@ __device__ void write_row_stats(const GemmArgs<TV>& a, int row0, int rows) {
 }
 
 // The rows' statistics into mean_s / rstd_s. Below kSharedStatsRb rows or
-// without a K split each block computes them. With one, a block takes the shared ones once the chunk's
-// ready count reaches its rows, waiting at most kStatsWait cycles; past
-// that (writers not yet running) it computes them itself: the same bits,
-// so nothing waits on a block that cannot run. The chunk's last block to
-// take them resets both of the chunk's counters.
+// without a workspace each block computes them. With one, a block takes
+// the shared ones once the chunk's ready count reaches its rows, waiting
+// at most kStatsWait cycles; past that (writers not yet running) it
+// computes them itself: the same bits, so nothing waits on a block that
+// cannot run. The chunk's last block to take them resets both of the
+// chunk's counters.
 template <int RB, typename TV>
 __device__ void shared_row_stats(const GemmArgs<TV>& a, int row0, int rows,
                                  float* mean_s, float* rstd_s, int* flag_s) {
@@ -581,7 +343,7 @@ __device__ void shared_row_stats(const GemmArgs<TV>& a, int row0, int rows,
       }
     }
   };
-  if (RB < kSharedStatsRb || a.ksplit == 1) {
+  if (RB < kSharedStatsRb || a.ws == nullptr) {
     own();
     __syncthreads();
     return;
@@ -673,8 +435,8 @@ __device__ bool finish_tile(const GemmArgs<TV>& a, float* tile, int* flag_s) {
 }
 
 // Sums this block's [RB, kTile] tile of A @ W over its k split on the
-// tensor cores, A = bf16(norm(x)) (NORM: QKV) or x itself (the
-// out-projection):
+// tensor cores, A = bf16(norm(x)) (NORM: QKV and fc1) or x itself (the
+// out-projection and fc2):
 // virtual columns 0..63 read weight segment w0, 64..127 segment w1, both
 // with row stride ldw; int8 weights take their columns' scales from s0
 // and s1 (null otherwise). The split owns whole ring stages: ceil(stages /
@@ -807,11 +569,21 @@ __device__ bool mma_tile(const GemmArgs<TV>& a, const TW* w0, const TW* w1,
         const uint4 raw = *reinterpret_cast<const uint4*>(wst + r * R::kWRow + piece * 16);
         uint32_t o[kPer / 2];
         if constexpr (std::is_same<TW, int8_t>::value) {
-          const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+          // float(q) exactly, without the quarter-rate int-to-float
+          // conversion: with u = q + 128 (the sign bit flipped), the
+          // float whose bits are 0x4B000000 | u is 2^23 + u, and
+          // subtracting 2^23 + 128 leaves q.
+          const uint32_t* wq = reinterpret_cast<const uint32_t*>(&raw);
 #pragma unroll
-          for (int e = 0; e < kPer / 2; ++e)
-            o[e] = tc::pack_bf16(__fmul_rn((float)q[2 * e], sc[2 * e]),
-                                 __fmul_rn((float)q[2 * e + 1], sc[2 * e + 1]));
+          for (int e = 0; e < kPer / 2; ++e) {
+            const uint32_t u = wq[e / 2] ^ 0x80808080u;
+            const int b = 2 * (e % 2);
+            const float q0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b)),
+                                       8388736.f);
+            const float q1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441 + b)),
+                                       8388736.f);
+            o[e] = tc::pack_bf16(__fmul_rn(q0, sc[2 * e]), __fmul_rn(q1, sc[2 * e + 1]));
+          }
         } else {
           const float* f = reinterpret_cast<const float*>(&raw);
 #pragma unroll
@@ -1081,16 +853,78 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // 64 output columns j and reads the gate column j and the value column
 // ffn + j of the packed [gate | value] weight as its two 64-column segments,
 // as the TPU kernel passes the weight twice (:1742-1746); plain kinds own
-// 128 columns. 224 tiles at llama3-8b already fill the card at R 8.
+// 128 columns. 224 tiles at llama3-8b fill the card's two blocks an SM
+// without a K split. Sums on mma_tile, x normalised with ln2.
 // ---------------------------------------------------------------------------
+
+// y = act(bf16(sums) (+ bf16(delta)) (+ bias)) of the finished tile, the
+// fc1 half of kernel_gen.py :1668-1680 (_fused_mlp_fc1 :1766-1781): gated
+// kinds pair tile column c (gate) with kHalfTile + c (value), y =
+// bf16(bf16(gate_act(gate)) * value); plain kinds apply the activation to
+// the 128 columns. Thread t owns output columns c..c+3 (c = 4 (t %
+// groups)) of rows t / groups + step j, and loads its bias values before
+// the loop.
+template <int RB, typename TV, bool LORA>
+__device__ void fc1_epilogue(const GemmArgs<TV>& a, float* smem, const float* tile,
+                             const TV* b1, bf16* y, int ffn, int act, int j0,
+                             const LoraArgs& la) {
+  const bool gated = act == kSwiglu || act == kGeglu;
+  const int groups = (gated ? kHalfTile : kTile) / 4;   // 16 or 32
+  const int step = kThreads / groups;
+  const int row0 = blockIdx.z * RB;
+  const int rows = min(RB, a.rows - row0);
+  const float* dl = nullptr;   // LORA: the rows' deltas [RB][kTile]
+  if constexpr (LORA) dl = lora_tile_delta<RB>(la, smem, row0, rows);
+  const int c = 4 * (threadIdx.x % groups);
+  float bg[4] = {0.f, 0.f, 0.f, 0.f}, bv[4] = {0.f, 0.f, 0.f, 0.f};
+  if (b1 != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bg[e] = round_bf16(load_f(b1, (size_t)j0 + c + e));
+      if (gated) bv[e] = round_bf16(load_f(b1, (size_t)ffn + j0 + c + e));
+    }
+  }
+  for (int r = threadIdx.x / groups; r < rows; r += step) {
+    const float4 g4 = *reinterpret_cast<const float4*>(tile + r * kTile + c);
+    const float g0[4] = {g4.x, g4.y, g4.z, g4.w};
+    float v0[4] = {0.f, 0.f, 0.f, 0.f};
+    if (gated) {
+      const float4 v4 = *reinterpret_cast<const float4*>(tile + r * kTile + kHalfTile + c);
+      v0[0] = v4.x; v0[1] = v4.y; v0[2] = v4.z; v0[3] = v4.w;
+    }
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float g = round_bf16(g0[e]);
+      if constexpr (LORA) g = add_delta(g, dl[r * kTile + c + e]);
+      if (b1 != nullptr) g = round_bf16(__fadd_rn(g, bg[e]));
+      if (gated) {
+        float v = round_bf16(v0[e]);
+        if constexpr (LORA) v = add_delta(v, dl[r * kTile + kHalfTile + c + e]);
+        if (b1 != nullptr) v = round_bf16(__fadd_rn(v, bv[e]));
+        const float ga = act == kSwiglu
+            ? __fdiv_rn(g, __fadd_rn(1.f, expf(-g)))     // silu
+            : gelu_tanh(g);
+        o[e] = __fmul_rn(round_bf16(ga), v);
+      } else if (act == kGelu) {
+        o[e] = gelu_tanh(g);
+      } else {
+        const float rl = fmaxf(g, 0.f);
+        o[e] = act == kRelu ? rl : __fmul_rn(rl, rl);
+      }
+    }
+    *reinterpret_cast<uint2*>(y + (size_t)(row0 + r) * ffn + j0 + c) =
+        make_uint2(tc::pack_bf16(o[0], o[1]), tc::pack_bf16(o[2], o[3]));
+  }
+}
+
 template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
                      const TV* b1, bf16* y, int ffn, int act, LoraArgs la) {
   extern __shared__ __align__(16) float smem[];
   const bool gated = act == kSwiglu || act == kGeglu;
-  const int width = gated ? kHalfTile : kTile;
-  const int j0 = blockIdx.x * width;
+  const int j0 = blockIdx.x * (gated ? kHalfTile : kTile);
   const TW* seg0 = w1 + j0;
   const TW* seg1 = gated ? w1 + ffn + j0 : seg0 + kHalfTile;
   // The scales of the two segments' columns, indexed as the weights are,
@@ -1101,52 +935,20 @@ fused_mlp_fc1_kernel(GemmArgs<TV> a, const TW* w1, const float* w1_scale,
   const size_t ldw = gated ? 2 * (size_t)ffn : (size_t)ffn;
   la.b0 = j0;
   la.b1 = gated ? ffn + j0 : j0 + kHalfTile;
-  if (!accumulate_tile<RB, TW, TV>(a, seg0, seg1, sc0, sc1, ldw, smem))
+  if (!mma_tile<RB, TW, TV, true>(a, seg0, seg1, sc0, sc1, ldw,
+                                  reinterpret_cast<char*>(smem)))
     return;
-
-  const float* tile = smem + kRegion;
-  const int row0 = blockIdx.z * RB;
-  const int rows = min(RB, a.rows - row0);
-  const float* dl = nullptr;   // LORA: the rows' deltas [RB][kTile]
-  if constexpr (LORA) dl = lora_tile_delta<RB>(la, smem, row0, rows);
-  for (int i = threadIdx.x; i < rows * width; i += kThreads) {
-    const int r = i / width, c = i % width, j = j0 + c;
-    float out;
-    if (gated) {
-      float g = round_bf16(tile[r * kTile + c]);
-      float v = round_bf16(tile[r * kTile + kHalfTile + c]);
-      if constexpr (LORA) {
-        g = add_delta(g, dl[r * kTile + c]);
-        v = add_delta(v, dl[r * kTile + kHalfTile + c]);
-      }
-      if (b1 != nullptr) {
-        g = round_bf16(__fadd_rn(g, round_bf16(load_f(b1, j))));
-        v = round_bf16(__fadd_rn(v, round_bf16(load_f(b1, (size_t)ffn + j))));
-      }
-      const float ga = act == kSwiglu
-          ? __fdiv_rn(g, __fadd_rn(1.f, expf(-g)))     // silu
-          : gelu_tanh(g);
-      out = __fmul_rn(round_bf16(ga), v);
-    } else {
-      float v = round_bf16(tile[r * kTile + c]);
-      if constexpr (LORA) v = add_delta(v, dl[r * kTile + c]);
-      if (b1 != nullptr) v = round_bf16(__fadd_rn(v, round_bf16(load_f(b1, j))));
-      if (act == kGelu) {
-        out = gelu_tanh(v);
-      } else {
-        const float rl = fmaxf(v, 0.f);
-        out = act == kRelu ? rl : __fmul_rn(rl, rl);
-      }
-    }
-    y[(size_t)(row0 + r) * ffn + j] = __float2bfloat16(out);
-  }
+  fc1_epilogue<RB, TV, LORA>(a, smem, smem + Ring<RB, TW, TV>::kFront / sizeof(float),
+                             b1, y, ffn, act, j0, la);
 }
 
 // ---------------------------------------------------------------------------
 // fused_mlp_fc2_kernel: replaces kernel_gen.py _fused_mlp_fc2 (:1793, call
 // :1834) and the fc2 half of _fused_mlp. Bound by the bytes of W2 (117.4 MB
 // a llama3-8b layer). y [R, ffn] @ W2 over 128-column tiles of H, each tile
-// split along the ffn contraction (9 blocks a tile at R 8 on llama3-8b).
+// split along the ffn contraction (tile_split_plan: 8 splits of 14 ring
+// stages at llama3-8b). The out-projection's kernel with another K: sums
+// on mma_tile, residual_epilogue.
 // ---------------------------------------------------------------------------
 template <int RB, typename TW, typename TV, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -1158,11 +960,12 @@ fused_mlp_fc2_kernel(GemmArgs<TV> a, const TW* w2, const float* w2_scale,
   const float* sbase = w2_scale == nullptr ? nullptr : w2_scale + blockIdx.x * kTile;
   la.b0 = blockIdx.x * kTile;
   la.b1 = la.b0 + kHalfTile;
-  if (!accumulate_tile<RB, TW, TV>(
-          a, base, base + kHalfTile, sbase,
-          sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols, smem))
+  if (!mma_tile<RB, TW, TV, false>(a, base, base + kHalfTile, sbase,
+                                   sbase == nullptr ? nullptr : sbase + kHalfTile, n_cols,
+                                   reinterpret_cast<char*>(smem)))
     return;
-  residual_epilogue<RB, TV, LORA>(a, smem, smem + kRegion, b2, residual, out, n_cols, la);
+  residual_epilogue<RB, TV, LORA>(a, smem, smem + Ring<RB, TW, TV>::kFront / sizeof(float),
+                                  b2, residual, out, n_cols, la);
 }
 
 // ---------------------------------------------------------------------------
@@ -1266,7 +1069,7 @@ int launch_out_proj(const Launch& l) {
 template <int RB, typename TW, typename TV, bool LORA>
 int launch_fc2(const Launch& l) {
   return launch<RB, LORA>(
-      fused_mlp_fc2_kernel<RB, TW, TV, LORA>, l.n / kTile, smem_bytes(RB), l,
+      fused_mlp_fc2_kernel<RB, TW, TV, LORA>, l.n / kTile, Ring<RB, TW, TV>::kSmem, l,
       gemm_args<TV>(l), static_cast<const TW*>(l.w),
       static_cast<const float*>(l.w_scale), static_cast<const TV*>(l.bias),
       static_cast<const bf16*>(l.residual), static_cast<bf16*>(l.out), l.n,
@@ -1278,7 +1081,7 @@ int launch_fc1(const Launch& l) {
   const bool gated = l.act == kSwiglu || l.act == kGeglu;
   return launch<RB, LORA>(
       fused_mlp_fc1_kernel<RB, TW, TV, LORA>,
-      l.n / (gated ? kHalfTile : kTile), smem_bytes(RB), l, gemm_args<TV>(l),
+      l.n / (gated ? kHalfTile : kTile), Ring<RB, TW, TV>::kSmem, l, gemm_args<TV>(l),
       static_cast<const TW*>(l.w), static_cast<const float*>(l.w_scale),
       static_cast<const TV*>(l.bias), static_cast<bf16*>(l.out), l.n, l.act,
       lora_args(l, l.lora_t, l.lora_b, (gated ? 2 : 1) * l.n));
@@ -1286,7 +1089,7 @@ int launch_fc1(const Launch& l) {
 
 bool bad_split(const Launch& l) {
   return l.rows < 1 || l.k < 8 || l.k % 8 != 0 || l.ksplit < 1 ||
-         (l.ksplit > 1 && (l.ws == nullptr || l.counters == nullptr));
+         ((l.ksplit > 1 || l.ws != nullptr) && (l.ws == nullptr || l.counters == nullptr));
 }
 
 // A LoRA epilogue needs its t and B (both pairs for QKV) and a rank of
@@ -1346,9 +1149,12 @@ struct Fc2L { static int run(const Launch& l) { return launch_fc2<RB, TW, TV, LO
 // per-output-column scales (w_scale [n], kv_scale [2 nkv_cols]; null for the
 // other kinds); vector_f32: the norm parameters and biases are fp32 (else
 // bf16; kinds 0 and 1 take vectors of their own dtype). Activations and
-// outputs bf16; cos/sin fp32 [rows, rope_half]. ws holds tiles * row chunks
-// * ksplit * RB * 128 floats and counters tiles * row chunks zeroed ints
-// when ksplit > 1 (the kernels leave them zero).
+// outputs bf16; cos/sin fp32 [rows, rope_half]. When ksplit > 1, ws holds
+// tiles * row chunks * ksplit * RB * 128 floats, then row chunks * 2 * RB
+// (the normalising kernels' shared statistics), and counters tiles * row
+// chunks + 2 * row chunks zeroed ints (the kernels leave them zero); a
+// normalising kernel (QKV, fc1) at 32-row blocks takes the statistics and
+// counters without a K split too (ws: row chunks * 2 * RB floats).
 // LoRA epilogue: lora_ids [rows] int32 bank slots (null: no epilogue), the
 // fp32 t [rows, lora_rank] of the launch's input (lora_shrink, on the same
 // stream before it) and B bank [slots, lora_rank, n] of one layer (QKV: q's

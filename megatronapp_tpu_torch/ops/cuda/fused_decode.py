@@ -34,12 +34,12 @@ the compute dtype, ``r + out.to(r.dtype)``.
 
 K-split launches (ksplit > 1) add their partial tiles through a workspace
 the wrapper allocates and a per-device counter buffer the kernels leave at
-zero; kernels sharing it run on one stream, as the engine's do. QKV and
-the out-projection (the tensor-core tile core) split K in whole ring
-stages (``tile_split_plan``), fc1 and fc2 as before (``fc_split_plan``);
-both plans read the row count only through the row block and the row
-chunks, so a row's bits are the same alone as in any batch of up to 32
-rows (one row chunk); a batch of more chunks may split K otherwise.
+zero; kernels sharing it run on one stream, as the engine's do. All four
+kernels sum on one tensor-core tile core and split K in whole ring stages
+by one plan (``tile_split_plan``), which reads the row count only through
+the row block and the row chunks, so a row's bits are the same alone as
+in any batch of up to 32 rows (one row chunk); a batch of more chunks may
+split K otherwise.
 
 ``lora=``: one layer's batched adapter deltas (ops/lora.py: {"row_adapter":
 LoraRows, "banks": {target: (A [slots, din, rank], B [slots, rank,
@@ -92,14 +92,17 @@ HEAD_DIMS = (64, 128)
 # code each launcher reads; norm scales and biases are bf16 or fp32.
 WEIGHT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 VECTOR_DTYPES = (torch.bfloat16, torch.float32)
-# K-split plans. fc1/fc2 (accumulate_tile): about two blocks an SM, each
-# owning at least MIN_SPLIT_K contraction rows, at most MAX_SPLIT_K splits.
-MIN_SPLIT_K = 256
-MAX_SPLIT_K = 16
-# QKV and out-projection (mma_tile): whole ring stages of STAGE_K k's a
-# split (csrc kStageK), as many splits as fit SPLIT_WAVES blocks an SM.
+# The K-split plan of every kernel (mma_tile): whole ring stages of
+# STAGE_K k's a split (csrc kStageK), as many splits as fit SPLIT_WAVES
+# blocks an SM.
 STAGE_K = 128
 SPLIT_WAVES = 2
+# Row blocks from which the normalising kernels (QKV, fc1) compute their
+# rows' norm statistics once a launch and share them through the
+# workspace (csrc kSharedStatsRb), with or without a K split (fc1 has
+# none at llama3-8b: the wrapper then allocates the statistics and
+# counters alone).
+SHARED_STATS_RB = 32
 _NORM = cuda_lora.NORM_CODES
 _ACT = {ActivationKind.swiglu: 0, ActivationKind.geglu: 1,
         ActivationKind.gelu: 2, ActivationKind.relu: 3,
@@ -363,33 +366,22 @@ def _row_blocks(rows: int) -> Tuple[int, int]:
     return rb, -(-rows // rb)
 
 
-def fc_split_plan(rows: int, k: int, tiles: int, sms: int
-                  ) -> Tuple[int, int, int]:
-    """(row block, row chunks, ksplit) of fc1 and fc2: K-split blocks
-    enough that the grid holds about two blocks per SM, each owning at
-    least MIN_SPLIT_K contraction rows."""
-    rb, chunks = _row_blocks(rows)
-    ksplit = max(1, min(-(-2 * sms // (tiles * chunks)), k // MIN_SPLIT_K,
-                        MAX_SPLIT_K))
-    return rb, chunks, ksplit
-
-
 def split_k(k: int, ksplit: int) -> int:
-    """The k's a split of the QKV and out-projection kernels owns (the
-    last split the rest): whole ring stages, as mma_tile divides them."""
+    """The k's a split of a fused kernel owns (the last split the rest):
+    whole ring stages, as mma_tile divides them."""
     stages = -(-k // STAGE_K)
     return -(-stages // ksplit) * STAGE_K
 
 
 def tile_split_plan(rows: int, k: int, tiles: int, sms: int
                     ) -> Tuple[int, int, int]:
-    """(row block, row chunks, ksplit) of the QKV and out-projection
-    kernels: as many splits as fit SPLIT_WAVES blocks an SM in one wave
-    (the blocks the card holds at once: a second wave would run alone, at
-    a fraction of the card's bandwidth), each split a whole number of ring
-    stages and none empty. It reads the row count only through the row
-    block and chunks, so a row's sums are the same alone as in any batch
-    of up to 32 rows (one row chunk)."""
+    """(row block, row chunks, ksplit) of every fused kernel: as many
+    splits as fit SPLIT_WAVES blocks an SM in one wave (the blocks the
+    card holds at once: a second wave would run alone, at a fraction of
+    the card's bandwidth), each split a whole number of ring stages and
+    none empty. It reads the row count only through the row block and
+    chunks, so a row's sums are the same alone as in any batch of up to
+    32 rows (one row chunk)."""
     rb, chunks = _row_blocks(rows)
     stages = -(-k // STAGE_K)
     want = min(stages, max(1, SPLIT_WAVES * sms // (tiles * chunks)))
@@ -398,19 +390,23 @@ def tile_split_plan(rows: int, k: int, tiles: int, sms: int
 
 
 def _split_buffers(rows: int, k: int, tiles: int, device: torch.device,
-                   plan=fc_split_plan):
+                   norm: bool = False):
     """(ksplit, workspace tensor, counters pointer) for one launch; the
     caller keeps the workspace alive until the launch is enqueued. The
-    workspace holds the partial tiles, then each row chunk's shared norm
-    statistics (2 rb floats; QKV); the counters, one a tile and chunk, then
-    two a chunk (the statistics' ready and reader counts)."""
+    workspace holds the partial tiles (ksplit > 1), then each row chunk's
+    shared norm statistics (2 rb floats; `norm`: QKV and fc1, which get
+    them at SHARED_STATS_RB-row blocks without a K split too); the
+    counters, one a tile and chunk, then two a chunk (the statistics'
+    ready and reader counts)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rb, chunks, ksplit = plan(rows, k, tiles, sms)
-    if ksplit == 1:
+    rb, chunks, ksplit = tile_split_plan(rows, k, tiles, sms)
+    stats = norm and rb >= SHARED_STATS_RB
+    if ksplit == 1 and not stats:
         return 1, None, None
     units = tiles * chunks
-    ws = torch.empty(units * ksplit * rb * TILE + chunks * 2 * rb,
-                     dtype=torch.float32, device=device)
+    parts = units * ksplit * rb * TILE if ksplit > 1 else 0
+    ws = torch.empty(parts + chunks * 2 * rb, dtype=torch.float32,
+                     device=device)
     ctr = _counters.get(device)
     if ctr is None or ctr.numel() < units + 2 * chunks:
         ctr = torch.zeros(max(units + 2 * chunks, 1024), dtype=torch.int32,
@@ -545,8 +541,7 @@ def fused_qkv(x, p, cfg: TransformerConfig, cos=None, sin=None, lora=None):
     k = torch.empty(rows, nkv, d, dtype=torch.bfloat16, device=x.device)
     v = torch.empty_like(k)
     tiles = (nq + 2 * nkv) * d // TILE
-    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device,
-                                     tile_split_plan)
+    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device, norm=True)
     (*lora_ptrs, rank), _t = _lora_args(
         "qkv", lora, {"q_kernel": (h, nq * d),
                       "kv_kernel": (h, 2 * nkv * d)}, x, p, cfg)
@@ -574,9 +569,7 @@ def _residual_gemm(name: str, fc2: bool, x, w, bias, residual, p,
                          f"{_shape(w)} and residual "
                          f"{tuple(residual.shape)} do not fit")
     out = torch.empty_like(residual)
-    ksplit, ws, ctr = _split_buffers(rows, k, n // TILE, x.device,
-                                     fc_split_plan if fc2
-                                     else tile_split_plan)
+    ksplit, ws, ctr = _split_buffers(rows, k, n // TILE, x.device)
     (*lora_ptrs, rank), _t = _lora_args(name, lora, {target: (k, n)}, x, p,
                                         cfg)
     wp, sp = _w(w)
@@ -614,6 +607,9 @@ def fused_mlp_fc1(x, p, cfg: TransformerConfig, lora=None):
             "fc1_bias": m.get("fc1_bias")}
     kind, vec_f32 = _check("fused_mlp_fc1", cfg, {"x": x},
                            {"fc1_kernel": m["fc1_kernel"]}, vecs)
+    for name in ("ln2_scale", "ln2_bias"):   # staged by 16-byte copies
+        if vecs[name] is not None and vecs[name].data_ptr() % 16:
+            raise ValueError(f"fused_mlp_fc1: {name} is not 16-byte aligned")
     rows, h = x.shape
     ffn = cfg.ffn_hidden_size
     gated = is_gated(cfg.activation)
@@ -623,7 +619,7 @@ def fused_mlp_fc1(x, p, cfg: TransformerConfig, lora=None):
                          f"{_shape(m['fc1_kernel'])}, expected {want}")
     y = torch.empty(rows, ffn, dtype=torch.bfloat16, device=x.device)
     tiles = ffn // (TILE // 2 if gated else TILE)
-    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device)
+    ksplit, ws, ctr = _split_buffers(rows, h, tiles, x.device, norm=True)
     (*lora_ptrs, rank), _t = _lora_args("mlp_fc1", lora,
                                         {"fc1_kernel": want}, x, p, cfg)
     wp, sp = _w(m["fc1_kernel"])

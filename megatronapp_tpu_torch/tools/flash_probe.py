@@ -30,22 +30,29 @@ run (chip_smoke.py) does not make. From the repository root:
         turns at 8 and 32 rows over 4 full-width MLA layers (L2-cold), with
         mla_down's and mla_up's device time apart (torch.profiler).
     python3 -m megatronapp_tpu_torch.tools.flash_probe fused-variants
-        the fused QKV and out-projection kernels (fused_decode.cu's
-        tensor-core tile core) built with other ring stage sizes and
-        depths, the norm statistics shared once a launch at both row
-        blocks or at none, and ablations that stub one piece
-        each (the norm statistics, the split sums, the normalisation, the
-        mma; their outputs are not the function's), copies of the source under
+        the four fused kernels (QKV, out-projection, fc1, fc2: one
+        tensor-core tile core in fused_decode.cu) built with other ring
+        stage sizes and depths (deeper rings and longer stages for fc1's
+        and fc2's long K too), the norm statistics shared once a launch at
+        both row blocks or at none, and ablations that stub one piece each
+        (the norm statistics, the split sums, the normalisation, the mma;
+        their outputs are not the function's), copies of the source under
         build/; then the K-split plan at other blocks an SM. Each timed in
         turns at llama3-8b's shapes, 8 and 32 rows, bf16 and resident int8
-        weights, over 8 layers (L2-cold); each output against the
-        source's own.
+        weights, over 8 layers (L2-cold), with each kernel's (K, tiles)
+        and ksplit; each output against the source's own.
     python3 -m megatronapp_tpu_torch.tools.flash_probe lora-splits
         the LoRA shrink kernel with its k's a split (kper) fixed to each of
         a few values, timed in turns at the llama3-8b LoRA targets' din
         (4096 and fc2's 14336), rank 8, 8 rows on chip_smoke.py's mixed
         adapters and a 32-row chunk of one, rotating through 32 layers of
         banks (L2-cold); each count's t against the default's.
+    python3 -m megatronapp_tpu_torch.tools.flash_probe fused-ab --parent DIR
+        the four fused kernels of the checkout in DIR and of this one,
+        each tree's own wrappers, split plan and kernels (chip_smoke.py's
+        _fused_times: 8 and 32 rows, bf16 and resident int8 weights, over
+        8 llama3-8b layers, L2-cold) in turns (parent, change, change,
+        parent), one process a run; --rounds N runs that order N times.
     python3 -m megatronapp_tpu_torch.tools.flash_probe ab --parent DIR
         chip_smoke.py's train, train_gpt2 and profile phases (the profile
         on llama3-8b at 32 layers: unfused, fused and fused on resident
@@ -361,13 +368,18 @@ def prologue_variants():
 
 
 # fused_decode.cu's tile-core knobs that fused-variants sets (the ring's
-# stage k and stage count; the row block from which QKV shares its norm
-# statistics: 8 shares at both row blocks, 64 at none), and the ablations
-# it builds: each replaces one piece of mma_tile's text (the norm
-# statistics, the split sums, the in-place normalisation, the mma) by a
-# stand-in that costs nothing, so its time apart shows; their outputs are
-# not the function's.
+# stage k and stage count; the row block from which QKV and fc1 share
+# their norm statistics, with or without a K split: 8 shares at both row
+# blocks, 64 at none, each block then computing its own), the
+# ring shapes it tries beside the source's (64-k stages deeper; for the
+# long-K fc1 and fc2, 128-k stages 3 and 4 deep and 256-k stages), and
+# the ablations it builds: each replaces one piece of mma_tile's text (the
+# norm statistics, the split sums, the in-place normalisation, the mma) by
+# a stand-in that costs nothing, so its time apart shows; their outputs
+# are not the function's.
 _FUSED_KNOBS = ("kStageK", "kStages", "kSharedStatsRb")
+_FUSED_RINGS = (("64", "4"), ("64", "3"), ("128", "3"), ("128", "4"),
+                ("256", "2"))
 _FUSED_ABLATIONS = {
     "nostats": [("rn::row_moments<8>(a.x + (size_t)row * a.k, a.k, a.norm, "
                  "lane, mean, ss);", "mean = 0.f; ss = (float)a.k;")],
@@ -378,6 +390,20 @@ _FUSED_ABLATIONS = {
     "nomma": [("tc::mma_bf16(acc[nb], af, bx[nb][2 * h], bx[nb][2 * h + 1]);",
                "acc[nb][0] += __uint_as_float(af[0] ^ bx[nb][2 * h]);")],
 }
+
+
+def fused_shape(cfg, kernel):
+    """(K, tiles) of a fused kernel: its contraction and the 128-column
+    tiles of its grid (gated fc1: 64 gate and 64 value columns a tile)."""
+    from megatronapp_tpu_torch.ops.activations import is_gated
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    h, d, ffn = cfg.hidden_size, cfg.head_dim, cfg.ffn_hidden_size
+    nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
+    return {"qkv": (h, (nq + 2 * nkv) * d // fd.TILE),
+            "out_proj": (nq * d, h // fd.TILE),
+            "mlp_fc1": (h, ffn // (fd.TILE // 2 if is_gated(cfg.activation)
+                                   else fd.TILE)),
+            "mlp_fc2": (ffn, h // fd.TILE)}[kernel]
 
 
 def fused_variants():
@@ -409,8 +435,7 @@ def fused_variants():
     # source's.
     choices = [own]
     for c in [own[:2] + (rb, "full") for rb in ("8", "64")] + [
-            ("64", "4", own[2], "full"), ("64", "3", own[2], "full"),
-            ("128", "3", own[2], "full")] + [
+            (k, n, own[2], "full") for k, n in _FUSED_RINGS] + [
             own[:3] + (a,) for a in _FUSED_ABLATIONS]:
         if c not in choices:
             choices.append(c)
@@ -441,6 +466,8 @@ def fused_variants():
                             device=dev).to(torch.bfloat16)
             attn = torch.randn(rows, cfg.hidden_size, generator=gen,
                                device=dev).to(torch.bfloat16)
+            y = torch.randn(rows, cfg.ffn_hidden_size, generator=gen,
+                            device=dev).to(torch.bfloat16)
             pos = torch.randint(0, 2048, (rows,), generator=gen, device=dev)
             cos, sin = cos_t[pos].contiguous(), sin_t[pos].contiguous()
             for kind, layers in kinds.items():
@@ -451,7 +478,10 @@ def fused_variants():
                     return layers[it["i"]]
                 calls = {"qkv": lambda: fd.fused_qkv(x, nxt(), cfg, cos, sin),
                          "out_proj": lambda: fd.fused_out_proj(
-                             attn, nxt(), cfg, x)}
+                             attn, nxt(), cfg, x),
+                         "mlp_fc1": lambda: fd.fused_mlp_fc1(x, nxt(), cfg),
+                         "mlp_fc2": lambda: fd.fused_mlp_fc2(
+                             y, x, nxt(), cfg)}
                 times = {(p[0], p[1], k): [] for p in plans for k in calls}
                 outs = {}
                 for what, key, stage_k, waves in plans + plans[::-1]:
@@ -473,13 +503,10 @@ def fused_variants():
                         o = outs[(what, key, k)]
                         o = o if isinstance(o, tuple) else (o,)
                         fd.STAGE_K, fd.SPLIT_WAVES = stage_k, waves
-                        kk = cfg.hidden_size
-                        tiles = (cfg.hidden_size if k == "out_proj" else
-                                 (cfg.num_attention_heads + 2
-                                  * cfg.num_query_groups) * cfg.head_dim
-                                 ) // fd.TILE
+                        kk, tiles = fused_shape(cfg, k)
                         rec[f"{what}:{key}"] = {
                             "ms": times[(what, key, k)],
+                            "k_tiles": [kk, tiles],
                             "ksplit": fd.tile_split_plan(rows, kk, tiles,
                                                          sms)[2],
                             "max_abs_diff_vs_own": max(
@@ -524,6 +551,50 @@ def dkv_rows():
     kbuild._libs.pop(fa.SOURCE, None)
 
 
+def _turns(parent: str, code: str, rounds: int = 1):
+    """`code` run by a fresh interpreter in the checkout `parent` and in
+    this one in turns (parent, change, change, parent; `rounds` times),
+    one process a run; yields (tree, record) for each JSON line printed."""
+    trees = {"parent": os.path.abspath(parent), "change": REPO}
+    for which in ("parent", "change", "change", "parent") * rounds:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=trees[which],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {which} run failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                yield which, json.loads(line)
+
+
+def fused_ab(parent: str, rounds: int = 1):
+    code = ("import json, sys; sys.path.insert(0, '.'); import torch, "
+            "chip_smoke as c\n"
+            "from megatronapp_tpu_torch.inference.quantization import "
+            "quantize_for_serving\n"
+            "from megatronapp_tpu_torch.models.gpt import init_gpt_params\n"
+            "from megatronapp_tpu_torch.models.presets import llama3_8b\n"
+            "dev = torch.device('cuda', 0)\n"
+            "cfg = llama3_8b(num_layers=8, params_dtype=torch.bfloat16)\n"
+            "p = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), "
+            "dev)\n"
+            "s = {'model': (p, cfg, dev)}\n"
+            "print(json.dumps({'bf16': c._fused_times(s)}))\n"
+            "s['model'] = (quantize_for_serving(p)[0], cfg, dev)\n"
+            "print(json.dumps({'int8': c._fused_times(s)}))\n")
+    print(json.dumps({"nvidia_smi": _smoke().nvidia_smi_line()}), flush=True)
+    for which, rec in _turns(parent, code, rounds):
+        for weights, r in rec.items():
+            for rows, per in r["rows"].items():
+                for kernel, v in per.items():
+                    print(json.dumps({
+                        "tree": which, "weights": weights, "rows": int(rows),
+                        "kernel": kernel, "kernel_ms": v["kernel_ms"],
+                        "kernel_ms_runs": v["kernel_ms_runs"],
+                        "library_ms": v["library_ms"],
+                        "bound_ms": v["bound_ms"]}), flush=True)
+
+
 def ab(parent: str, skip_train: bool = False, bf16_only: bool = False,
        rounds: int = 1):
     code = ("import sys; sys.path.insert(0, '.'); import torch, chip_smoke "
@@ -564,35 +635,25 @@ def ab(parent: str, skip_train: bool = False, bf16_only: bool = False,
                    "wall_ms_per_unit", "device_idle_share",
                    "paged_attention_ms_per_launch",
                    "paged_latent_ms_per_launch", "kernels_per_unit")
-    trees = {"parent": os.path.abspath(parent), "change": REPO}
-    for which in ("parent", "change", "change", "parent") * rounds:
-        proc = subprocess.run([sys.executable, "-c", code], cwd=trees[which],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"ab: the {which} run failed:\n"
-                               f"{proc.stderr[-3000:]}")
-        for line in proc.stdout.splitlines():
-            if not line.startswith("{"):
-                continue
-            rec = json.loads(line)
-            if rec.get("phase") == "profile":
-                for eng, windows in rec.items():
-                    if not isinstance(windows, dict):
-                        continue
-                    for win, w in windows.items():
-                        print(json.dumps({
-                            "tree": which, "phase": "profile",
-                            "engine": eng, "window": win,
-                            **{k: w.get(k) for k in window_keys}}),
-                            flush=True)
-                continue
-            row = {"tree": which, "phase": rec.get("phase"),
-                   **{k: rec.get(k) for k in keys}}
-            prof = rec.get("profiled_steps")
-            if prof:
-                row["device_ms_per_step"] = prof["device_ms_per_unit_by_family"]
-                row["device_idle_share"] = prof["device_idle_share"]
-            print(json.dumps(row), flush=True)
+    for which, rec in _turns(parent, code, rounds):
+        if rec.get("phase") == "profile":
+            for eng, windows in rec.items():
+                if not isinstance(windows, dict):
+                    continue
+                for win, w in windows.items():
+                    print(json.dumps({
+                        "tree": which, "phase": "profile",
+                        "engine": eng, "window": win,
+                        **{k: w.get(k) for k in window_keys}}),
+                        flush=True)
+            continue
+        row = {"tree": which, "phase": rec.get("phase"),
+               **{k: rec.get(k) for k in keys}}
+        prof = rec.get("profiled_steps")
+        if prof:
+            row["device_ms_per_step"] = prof["device_ms_per_unit_by_family"]
+            row["device_idle_share"] = prof["device_idle_share"]
+        print(json.dumps(row), flush=True)
 
 
 def lora_splits():
@@ -654,6 +715,11 @@ def main(argv=None) -> int:
     p_flips = sub.add_parser("quant-flips")
     p_flips.add_argument("--parent", required=True,
                          help="a checkout whose quantized kernel runs first")
+    p_fab = sub.add_parser("fused-ab")
+    p_fab.add_argument("--parent", required=True,
+                       help="a checkout whose fused kernels run first")
+    p_fab.add_argument("--rounds", type=int, default=1,
+                       help="times to run parent, change, change, parent")
     p_ab = sub.add_parser("ab")
     p_ab.add_argument("--parent", required=True,
                       help="a checkout whose chip_smoke.py runs first")
@@ -672,6 +738,7 @@ def main(argv=None) -> int:
      "paged-splits": paged_splits, "prologue-variants": prologue_variants,
      "fused-variants": fused_variants,
      "quant-flips": lambda: quant_flips(args.parent),
+     "fused-ab": lambda: fused_ab(args.parent, args.rounds),
      "lora-splits": lora_splits,
      "ab": lambda: ab(args.parent, args.skip_train, args.bf16_only,
                       args.rounds)}[args.cmd]()
