@@ -64,9 +64,12 @@ Phases, each printing one JSON line:
             block scores and weighted sum) against their plain versions on
             one rank's 256 latent columns (and row 8 on the pe pool) at
             the mla_kernels shapes with max_seq_len 2048 tables, bf16, int8
-            and fp8 pools; then the two column shards composed (scores
-            summed, mask, fp32 softmax, weighted sums summed) against the
-            single-device latent kernel on the same full pools.
+            and fp8 pools, and at the weighted sum's split plan's edges
+            (lengths one token into a split and on a split's edge, slots at
+            kv 1 beside full ones, rows that are not whole row tiles); then
+            the two column shards composed (scores summed, mask, fp32
+            softmax, weighted sums summed) against the single-device latent
+            kernel on the same full pools.
 4. train_kernels: the three flash-attention kernels (forward, dq, dk/dv)
             against their fp32 plain versions on the card: llama3-8b
             attention at S 4096, gpt2-125m at S 1024 (causal and
@@ -147,9 +150,11 @@ Phases, each printing one JSON line:
             launch (the paged rows with their kv split count).
    tp_times: rows 8 and 9 on one rank's latent columns at serve_tp's
             shapes (decode B 8 and a 32-token chunk, kv 1024, bf16, int8
-            and fp8 pools): kernel, plain, library (torch.bmm on gathered
-            pages; for row 9 with the w_v einsum) and bound; the whole
-            two-shard body against the single-device latent kernel.
+            and fp8 pools), and row 8's launch on the pe pool: kernel and
+            library (torch.bmm on gathered pages; for row 9 with the w_v
+            einsum) in turns, plain, bound, the weighted sum's split plan
+            and the kernels a call launches; the whole two-shard body
+            against the single-device latent kernel.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed check exits
@@ -3059,19 +3064,38 @@ def phase_tp_kernels(state):
     shard summed, plus row 8 on the pe pool, mask, fp32 softmax, row 9 on
     each shard summed) against row 7's single-device kernel on the same
     full pools (gate: row 7's, MLA_TOL)."""
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
     from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
     from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(707)
     before = dict(lt.launches), dict(pl.launches)
     lens = [1, 15, 16, 17, 300, 1000, 1024, 640]
+    # The weighted sum's split length at decode and at a chunk on these
+    # 2048-position tables: lengths one token into a split, on a split's
+    # edge, and kv 1 beside full slots (most splits empty).
+    sms = kbuild.sm_count(dev)
+    st_d = lt.wsum_split_plan(8, 32, 2048, 256, sms).split_tokens
+    st_c = lt.wsum_split_plan(1, 32 * 32, 2048, 256, sms).split_tokens
     shapes = {"decode_b8": dict(batch=8, kv_lens=lens),
               "ragged_b1": dict(batch=1, kv_lens=[1000], s_q=32,
                                 q_lens=[24]),
               "ragged_b1_full": dict(batch=1, kv_lens=[1024], s_q=32,
                                      q_lens=[32]),
               "ragged_b3_tail": dict(batch=3, kv_lens=[5, 40, 700], s_q=32,
-                                     q_lens=[5, 32, 1])}
+                                     q_lens=[5, 32, 1]),
+              "decode_b8_split_edges": dict(
+                  batch=8, kv_lens=[st_d + 1, st_d, 2 * st_d, 2 * st_d - 1,
+                                    3 * st_d + 1, 4 * st_d, 2048, 16]),
+              "decode_b8_kv1_beside_full": dict(
+                  batch=8, kv_lens=[1, 1024, 1, 1, 1024, 1, 2048, 1]),
+              "ragged_b1_split_edge": dict(batch=1, kv_lens=[st_c + 1],
+                                           s_q=32, q_lens=[32]),
+              "ragged_b2_on_split_edge": dict(batch=2,
+                                              kv_lens=[2 * st_c, st_c],
+                                              s_q=32, q_lens=[32, 7]),
+              "ragged_b2_rows96": dict(batch=2, kv_lens=[40, 700], s_q=3,
+                                       q_lens=[3, 2])}
     res = {}
     for name, kw in shapes.items():
         for kind in ("bf16", "int8", "fp8"):
@@ -3095,6 +3119,7 @@ def phase_tp_kernels(state):
     state["tp_err"] = err
     emit({"phase": "tp_kernels", "phase_tol": TP_PHASE_TOL,
           "composition_tol": MLA_TOL,
+          "split_tokens": {"decode_table2048": st_d, "chunk_table2048": st_c},
           "errors": "(max abs, max abs over max |plain element|; "
                     "composition: over max(|row 7 element|, row RMS))",
           "cases": res})
@@ -3438,13 +3463,16 @@ def _tp_bytes_flops(case, kernel, rows, d, valid):
 
 
 def _tp_time_case(case):
-    """Rows 8 and 9 on rank 0's columns (page tables rotated beyond the
-    L2 cache), their plain versions and library yardsticks (row 8: one
-    torch.bmm on pages gathered in advance; row 9: torch.bmm of the
-    probabilities on the gathered latent, then the w_v einsum), their
-    bounds, row 8 on the pe pool, and the whole two-shard tp body against
-    row 7 at the same shapes."""
+    """Rows 8 and 9 on rank 0's columns and row 8 on the pe pool (page
+    tables rotated beyond the L2 cache): each kernel and its library
+    yardstick timed in turns (kernel, library, library, kernel; both
+    queued behind a sleep, device_ms), the plain versions, the bounds, the
+    weighted sum's split plan and the kernels a call launches; then the
+    whole two-shard tp body against row 7 at the same shapes. Library
+    calls: row 8 one torch.bmm on pages gathered (dequantized) in advance,
+    row 9 torch.bmm of the probabilities on them and the w_v einsum."""
     from megatronapp_tpu_torch.ops import paged_attention as tpa
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
     from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
     from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
     tables = case["tables"]
@@ -3455,49 +3483,65 @@ def _tp_time_case(case):
         return it["i"]
     q, qp, shard, w_v = _tp_shard_inputs(case)
     b, rows, d = q.shape
-    lens, ls = case["kv_lens"], case.get("lat_scales")
+    lens, ls, ps = case["kv_lens"], case.get("lat_scales"), \
+        case.get("pe_scales")
     p = _tp_probs(case, q, shard)
     valid = sum(16 * math.ceil(n / 16) for n in lens.tolist())
-    # Library inputs: every table's shard rows gathered (dequantized) to
-    # bf16 in advance, [R, B, T, d].
     t = tables.long()
-    g = shard[t].float() if ls is None else \
-        shard[t].float() * ls[t][..., None]
-    g = g.to(torch.bfloat16).reshape(t.shape[0], b, -1, d)
+
+    def gathered(pool, scales):
+        """Every table's pool rows gathered (dequantized) to bf16 in
+        advance, [R, B, T, width]."""
+        g = pool[t].float() if scales is None else \
+            pool[t].float() * scales[t][..., None]
+        return g.to(torch.bfloat16).reshape(t.shape[0], b, -1,
+                                            pool.shape[-1])
+    g = gathered(shard, ls)
     gt = g.transpose(-1, -2).contiguous()
-    qb, pb = q.to(torch.bfloat16), p.to(torch.bfloat16)
+    gpt = gathered(case["pe"], ps).transpose(-1, -2).contiguous()
+    qb, qpb, pb = (q.to(torch.bfloat16), qp.to(torch.bfloat16),
+                   p.to(torch.bfloat16))
     nq = w_v.shape[1]
     calls = {
         "scores": (lambda: lt.latent_block_scores(q, shard, tables[nxt()],
                                                   lens, ls),
                    lambda: lt.latent_block_scores_plain(
                        q, shard, tables[nxt()], lens, ls),
-                   lambda: torch.bmm(qb, gt[nxt()])),
+                   lambda: torch.bmm(qb, gt[nxt()]), d),
+        "scores_pe": (lambda: lt.latent_block_scores(
+                          qp, case["pe"], tables[nxt()], lens, ps),
+                      lambda: lt.latent_block_scores_plain(
+                          qp, case["pe"], tables[nxt()], lens, ps),
+                      lambda: torch.bmm(qpb, gpt[nxt()]), qp.shape[-1]),
         "wsum": (lambda: lt.latent_block_wsum(p, shard, tables[nxt()], lens,
                                               w_v, ls),
                  lambda: lt.latent_block_wsum_plain(p, shard, tables[nxt()],
                                                     lens, w_v, ls),
                  lambda: torch.einsum(
                      "bsnk,knd->bsnd",
-                     torch.bmm(pb, g[nxt()]).reshape(b, -1, nq, d), w_v))}
+                     torch.bmm(pb, g[nxt()]).reshape(b, -1, nq, d), w_v), d)}
     out = {}
-    for kernel, (kern, plain, lib) in calls.items():
-        p1 = cuda_time_ms(plain, iters=5)
-        k1, k2 = cuda_time_ms(kern), cuda_time_ms(kern)
-        p2 = cuda_time_ms(plain, iters=5)
-        nbytes, flops = _tp_bytes_flops(case, kernel, rows, d, valid)
+    for kernel, (kern, plain, lib, width) in calls.items():
+        p1 = device_ms(plain, calls=PLAIN_CALLS)
+        k1, l1 = device_ms(kern), device_ms(lib)
+        l2, k2 = device_ms(lib), device_ms(kern)
+        p2 = device_ms(plain, calls=PLAIN_CALLS)
+        nbytes, flops = _tp_bytes_flops(case, kernel.split("_")[0], rows,
+                                        width, valid)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         out[kernel] = {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                       "library_ms": (l1 + l2) / 2,
+                       "library_ms_runs": [l1, l2],
                        "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
-                       "library_ms": cuda_time_ms(lib),
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": ("bytes" if t_bytes >= t_ops
                                     else "operations"),
-                       "bytes": nbytes, "flops": flops}
-    out["scores"]["pe_launch_ms"] = cuda_time_ms(
-        lambda: lt.latent_block_scores(qp, case["pe"], tables[nxt()], lens,
-                                       case.get("pe_scales")))
+                       "bytes": nbytes, "flops": flops,
+                       "kernels_per_call": 2 if kernel == "wsum" else 1}
+    plan = lt.wsum_split_plan(b, rows, tables.shape[-1] * 16, d,
+                              kbuild.sm_count(q.device))
+    out["wsum"]["split_plan"] = plan._asdict()
 
     def body():
         tpa.paged_attention_latent_shards(
@@ -3508,6 +3552,8 @@ def _tp_time_case(case):
         pl.paged_attention_latent(
             case["q_lat"], case["q_pe"], case["lat"], case["pe"],
             tables[nxt()], lens, case["w_v"], **_latent_kw(case))
+    # The body reads kv_lens on the host once a call, so it is timed
+    # host-paced (cuda_time_ms), its kernels behind that read.
     r1, b1, b2, r2 = (cuda_time_ms(row7), cuda_time_ms(body),
                       cuda_time_ms(body), cuda_time_ms(row7))
     out["two_shard_body_ms"] = (b1 + b2) / 2
@@ -3547,8 +3593,10 @@ def phase_tp_times(state):
     pl.launches.update(before[1])
     state["tp_times"] = out
     emit({"phase": "tp_times", "nvidia_smi": state.get("smi"),
-          "note": "one rank's 256 latent columns; library_ms: row 8 one "
-                  "torch.bmm (bf16) on the shard's pages gathered "
+          "note": "one rank's 256 latent columns (scores_pe: row 8 on "
+                  "the pe pool, d 64); kernel and library timed in turns, "
+                  "queued behind a sleep; library_ms: row 8 one "
+                  "torch.bmm (bf16) on the pages gathered "
                   "(dequantized) in advance, row 9 torch.bmm of the bf16 "
                   "probabilities on them plus the w_v einsum; "
                   "two_shard_body_ms: both shards' rows 8 and 9 in turn "

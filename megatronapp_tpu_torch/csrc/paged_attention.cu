@@ -123,29 +123,6 @@ size_t tc_smem() {
          4 * kTcKv * sizeof(float);
 }
 
-// 16 one-byte codes widened to 16 bf16 values (exactly).
-__device__ __forceinline__ void widen16(const uint4& raw, int8_t, uint4& lo, uint4& hi) {
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-  uint32_t* w = reinterpret_cast<uint32_t*>(&lo);
-  uint32_t* x = reinterpret_cast<uint32_t*>(&hi);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[i] = tc::pack_bf16((float)c[2 * i], (float)c[2 * i + 1]);
-    x[i] = tc::pack_bf16((float)c[8 + 2 * i], (float)c[8 + 2 * i + 1]);
-  }
-}
-__device__ __forceinline__ void widen16(const uint4& raw, fp8, uint4& lo, uint4& hi) {
-  const __nv_fp8x2_storage_t* c = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
-  uint32_t* w = reinterpret_cast<uint32_t*>(&lo);
-  uint32_t* x = reinterpret_cast<uint32_t*>(&hi);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(c[i], __NV_E4M3);
-    const float2 f = __half22float2(__half2(h));
-    (i < 4 ? w[i] : x[i - 4]) = tc::pack_bf16(f.x, f.y);
-  }
-}
-
 // grid (B, hkv, row tiles x splits), kTcThreads threads; TP the page type.
 template <int D, typename TP>
 __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const TcParams p) {
@@ -277,10 +254,10 @@ __global__ void __launch_bounds__(kTcThreads) paged_attention_mma_kernel(const T
       for (int i = threadIdx.x; i < kTcKv * CC; i += kTcThreads) {
         const int r = i / CC, c = (i % CC) * 16;
         uint4 lo, hi;
-        widen16(*reinterpret_cast<const uint4*>(kc_s + st * TC + r * D + c), TP(), lo, hi);
+        tc::widen16(*reinterpret_cast<const uint4*>(kc_s + st * TC + r * D + c), TP(), lo, hi);
         *reinterpret_cast<uint4*>(k_s + r * LD + c) = lo;
         *reinterpret_cast<uint4*>(k_s + r * LD + c + 8) = hi;
-        widen16(*reinterpret_cast<const uint4*>(vc_s + st * TC + r * D + c), TP(), lo, hi);
+        tc::widen16(*reinterpret_cast<const uint4*>(vc_s + st * TC + r * D + c), TP(), lo, hi);
         *reinterpret_cast<uint4*>(v_s + r * LD + c) = lo;
         *reinterpret_cast<uint4*>(v_s + r * LD + c + 8) = hi;
       }

@@ -2,8 +2,9 @@
 // sm_90a): programmatic dependent launch (sm_90), cp.async copies into
 // shared memory with zero fill, ldmatrix
 // fragment loads, the bf16 m16n8k16 mma with fp32 accumulators, bf16
-// packing, and the warp-level products and the online-softmax step that
-// the flash and paged-attention kernels build from them.
+// packing, fp32 values as bf16 terms, one-byte codes widened to bf16, and
+// the warp-level products and the online-softmax step that the flash and
+// paged-attention kernels build from them.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 g + t, g in [0, 8),
 // t in [0, 4)); each register holds two bf16, the lower column in the low
@@ -23,6 +24,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -308,39 +311,48 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// An fp32 A fragment x (a0..a3's values in order: row g cols 2t, 2t + 1;
+// row g + 8; row g cols 8 + 2t, 9 + 2t; row g + 8) as TERMS bf16 terms,
+// t1 = bf16(x), t2 = bf16(x - t1), t3 = bf16(x - t1 - t2): each
+// difference is exact in fp32, and each term adds 8 significant bits, so
+// three terms hold all 24 of fp32 (two: ~2^-16 of x). A product of a term
+// and a bf16 B value is exact in the mma's fp32 sum.
+template <int TERMS>
+__device__ __forceinline__ void split_a(uint32_t (&a)[TERMS][4], const float (&x)[8]) {
+  float r[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) r[e] = x[e];
+#pragma unroll
+  for (int t = 0; t < TERMS; ++t) {
+    float h[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      h[e] = round_bf16(r[e]);
+      r[e] -= h[e];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[t][j] = pack_bf16(h[2 * j], h[2 * j + 1]);
+  }
+}
+
 // acc[16 x D] += X[16 x N] . B[N, D] for one warp with X unrounded: X is
 // fp32 C tiles (x[j]: columns 8j..8j+7), carried into the product as
-// TERMS bf16 terms, t1 = bf16(x), t2 = bf16(x - t1), t3 = bf16(x - t1 -
-// t2): each difference is exact in fp32, and each term adds 8 significant
-// bits, so three terms hold all 24 of fp32 (two: ~2^-16 of x). Each term
-// runs one mma against the same B fragments (a [N][D + 8] tile read
-// transposed), smallest term first; the products of bf16 terms and bf16
-// B values are exact and summed in fp32.
+// TERMS bf16 terms (split_a). Each term runs one mma against the same B
+// fragments (a [N][D + 8] tile read transposed), smallest term first.
 template <int D, int N, int TERMS>
 __device__ __forceinline__ void acc_16xD_split(float (&acc)[D / 8][4], const float (&x)[N / 8][4],
                                                const __nv_bfloat16* b, int lane) {
   constexpr int LD = D + 8;
 #pragma unroll
   for (int kc = 0; kc < N / 16; ++kc) {
-    float r0[4], r1[4];
-    uint32_t a[TERMS][4];
+    float v[8];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      r0[e] = x[2 * kc][e];
-      r1[e] = x[2 * kc + 1][e];
+      v[e] = x[2 * kc][e];
+      v[4 + e] = x[2 * kc + 1][e];
     }
-#pragma unroll
-    for (int t = 0; t < TERMS; ++t) {
-      float h0[4], h1[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        h0[e] = round_bf16(r0[e]);
-        h1[e] = round_bf16(r1[e]);
-        r0[e] -= h0[e];
-        r1[e] -= h1[e];
-      }
-      pack_a(a[t], h0, h1);
-    }
+    uint32_t a[TERMS][4];
+    split_a<TERMS>(a, v);
 #pragma unroll
     for (int n0 = 0; n0 < D; n0 += 16) {
       uint32_t bf[4];
@@ -351,6 +363,30 @@ __device__ __forceinline__ void acc_16xD_split(float (&acc)[D / 8][4], const flo
         mma_bf16(acc[n0 / 8 + 1], a[t], bf[2], bf[3]);
       }
     }
+  }
+}
+
+// 16 one-byte codes (int8 or fp8 e4m3) widened to 16 bf16 values, exactly:
+// every int8 value and every finite e4m3 value is a bf16 value.
+__device__ __forceinline__ void widen16(const uint4& raw, int8_t, uint4& lo, uint4& hi) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t* w = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* x = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = pack_bf16((float)c[2 * i], (float)c[2 * i + 1]);
+    x[i] = pack_bf16((float)c[8 + 2 * i], (float)c[8 + 2 * i + 1]);
+  }
+}
+__device__ __forceinline__ void widen16(const uint4& raw, __nv_fp8_e4m3, uint4& lo, uint4& hi) {
+  const __nv_fp8x2_storage_t* c = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+  uint32_t* w = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* x = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(c[i], __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    (i < 4 ? w[i] : x[i - 4]) = pack_bf16(f.x, f.y);
   }
 }
 

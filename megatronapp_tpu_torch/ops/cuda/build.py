@@ -10,6 +10,7 @@ register, shared-memory and spill lines) is kept and returned.
 
 ``build_all`` starts one nvcc per source at once, so the sources build in
 parallel; ``load`` builds (if needed) and binds one C symbol with ctypes.
+``sm_count`` and ``split_workspace`` serve the wrappers' split plans.
 Nothing here runs when a module is imported.
 """
 
@@ -21,7 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -32,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_sms: Dict[object, int] = {}
+_workspaces: Dict[Tuple[str, object], object] = {}
 
 
 def source(name: str) -> str:
@@ -110,3 +113,30 @@ def load(src: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         return fn
+
+
+def sm_count(device) -> int:
+    """The CUDA device's SM count (cached): the unit of the split plans'
+    one wave."""
+    n = _sms.get(device)
+    if n is None:
+        import torch
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sms[device] = n
+    return n
+
+
+def split_workspace(owner: str, device, floats: int):
+    """`owner`'s fp32 split workspace on the CUDA device (at least
+    `floats`), kept beyond the launch: the kernel that reads it may be a
+    programmatic dependent that starts while the writer still runs, so a
+    buffer freed when the wrapper returned could be handed to that
+    kernel's own outputs. One buffer serves every launch of `owner` on
+    the stream; each owner keeps its own."""
+    ws = _workspaces.get((owner, device))
+    if ws is None or ws.numel() < floats:
+        import torch
+        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                         device=device)
+        _workspaces[(owner, device)] = ws
+    return ws

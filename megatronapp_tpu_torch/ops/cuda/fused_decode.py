@@ -398,8 +398,8 @@ def _split_buffers(rows: int, k: int, tiles: int, device: torch.device,
     them at SHARED_STATS_RB-row blocks without a K split too); the
     counters, one a tile and chunk, then two a chunk (the statistics'
     ready and reader counts)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rb, chunks, ksplit = tile_split_plan(rows, k, tiles, sms)
+    rb, chunks, ksplit = tile_split_plan(rows, k, tiles,
+                                         kbuild.sm_count(device))
     stats = norm and rb >= SHARED_STATS_RB
     if ksplit == 1 and not stats:
         return 1, None, None

@@ -1,15 +1,21 @@
 """The two phases of tensor-parallel MLA attention: the CUDA kernels'
-wrappers, their plain versions, their launch counters and their build.
+wrappers, their plain versions, their launch counters, the weighted sum's
+split plan and their build.
 
 The kernels (csrc/latent_tp.cu) replace the TPU kernels
 ``megatronapp_tpu/ops/pallas/kernel_gen.py:_latent_block_scores`` (all
 block scores of a latent-column shard, no softmax) and
 ``_latent_block_wsum`` (the probability-weighted value sum of a shard,
 fp32 partials), for bf16 pools and for int8 / fp8 (e4m3) pools with one
-fp32 scale per row. Where the TPU body re-expands every tile's latent
-through ``w_v`` before weighing it, the weighted-sum kernel (and its plain
+fp32 scale per row. Both run their products on the tensor cores from
+tiles staged by cp.async. Where the TPU body re-expands every tile's latent
+through ``w_v`` before weighing it, the weighted sum (and its plain
 version) sums P·latent in latent space and expands once: the same function
-up to the order of the fp32 sums.
+up to the order of the fp32 sums. The weighted sum is two launches: the
+slot's tokens split over blocks by ``wsum_split_plan`` (from shapes alone),
+each writing an fp32 partial to a workspace, then one block a (head, value
+tile, 16 rows) that adds a row's splits in split order and expands through
+``w_v``; a call counts once.
 
 ``latent_block_scores`` and ``latent_block_wsum`` take the plain versions
 only for tensors that lie on the CPU. For CUDA tensors they launch the
@@ -22,7 +28,7 @@ kv_up's v columns. The kernels build at first use through
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -38,10 +44,45 @@ launches: Dict[str, int] = {f"{k}{sfx}": 0 for k in ("scores", "wsum")
                             for sfx in _SFX}
 
 SOURCE = kbuild.source("latent_tp.cu")
-MAX_WIDTH = 768          # csrc/latent_tp.cu kMaxWidth
+# csrc/latent_tp.cu's constants: kMaxWidth; kWsumTK, the tokens of a ring
+# stage of the split kernel; kWsumCols, the latent columns of a split
+# block; LATENT_WSUM_ROW_TILES, its row tiles.
+MAX_WIDTH = 768
+WSUM_STAGE = 32
+WSUM_COLS = 256
+WSUM_ROW_TILES = (32, 64)
+# The plan's most splits of a slot's tokens: the expansion adds a row's
+# live splits one after another, and at decode 16 splits of 64 tokens beat
+# 8 and 4 (flash_probe.py latent-splits; PERF.md).
+MAX_SPLITS = 16
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SCORES_ARGTYPES = [_P] * 6 + [_I] * 5 + [_L] * 2 + [_I, _P]
-_WSUM_ARGTYPES = [_P] * 7 + [_I] * 7 + [_L] * 4 + [_I, _P]
+_WSUM_ARGTYPES = [_P] * 8 + [_I] * 7 + [_L] * 4 + [_I] * 4 + [_P]
+
+
+class WsumPlan(NamedTuple):
+    row_tile: int        # rows a split block
+    split_tokens: int    # tokens a split (a multiple of WSUM_STAGE)
+    splits: int          # splits covering the table's tokens
+
+
+def wsum_split_plan(batch: int, rows: int, tokens: int, dl: int,
+                    sms: int) -> WsumPlan:
+    """The weighted sum's split plan from the launch's shapes alone (never
+    kv_lens, which lie on the device): the slot's rows in one tile of 32 at
+    decode (at most 32 rows) or tiles of 64, and the table's tokens
+    (MB·bs) split into whole 32-token stages so that the blocks (splits ×
+    B × row tiles × 256-column blocks) come to about one wave of `sms`, each
+    split at least one stage and at most MAX_SPLITS splits. Splits wholly
+    past a slot's kv_len do nothing, and the expansion (the second launch)
+    adds each row's live splits."""
+    row_tile = WSUM_ROW_TILES[0] if rows <= WSUM_ROW_TILES[0] \
+        else WSUM_ROW_TILES[1]
+    units = batch * -(-rows // row_tile) * -(-dl // WSUM_COLS)
+    stages = -(-tokens // WSUM_STAGE)
+    want = max(1, min(stages, sms // units, MAX_SPLITS))
+    per = -(-stages // want)
+    return WsumPlan(row_tile, per * WSUM_STAGE, -(-stages // per))
 
 
 def _gather_rows(pages: torch.Tensor, page_table: torch.Tensor,
@@ -163,9 +204,11 @@ def latent_block_scores(q: torch.Tensor, pages: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"latent_block_scores: tensors on {dev} — the kernel"
                          " takes CUDA tensors and the plain version CPU ones")
-    if q.dtype != torch.float32 or q.dim() != 3 or not q.is_contiguous():
+    if q.dtype != torch.float32 or q.dim() != 3 or not q.is_contiguous() \
+            or q.data_ptr() % 16:
         raise ValueError("latent_block_scores: q must be contiguous fp32 "
-                         f"[B, rows, d], got {q.dtype} {tuple(q.shape)}")
+                         f"[B, rows, d] on a 16-byte boundary, got {q.dtype} "
+                         f"{tuple(q.shape)}")
     b, rows, d = q.shape
     kind = _check_pages("latent_block_scores", pages, scales, page_table,
                         kv_lens, b, dev)
@@ -195,8 +238,8 @@ def latent_block_wsum(p: torch.Tensor, pages: torch.Tensor,
     probabilities; the shard's latent pages [NB, bs, dl] (scales as for
     ``latent_block_scores``); w_v [dl, nq, dv] bf16, any strides with unit
     stride along dv. Returns [B, rows, dv] fp32 partials, row r of head r
-    mod nq. CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    mod nq. CPU tensors run the plain version; CUDA tensors launch the two
+    kernels (``wsum_split_plan``) or raise."""
     if p.device.type == "cpu":
         return latent_block_wsum_plain(p, pages, page_table, kv_lens, w_v,
                                        scales)
@@ -204,9 +247,11 @@ def latent_block_wsum(p: torch.Tensor, pages: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"latent_block_wsum: tensors on {dev} — the kernel "
                          "takes CUDA tensors and the plain version CPU ones")
-    if p.dtype != torch.float32 or p.dim() != 3 or not p.is_contiguous():
+    if p.dtype != torch.float32 or p.dim() != 3 or not p.is_contiguous() \
+            or p.data_ptr() % 16:
         raise ValueError("latent_block_wsum: p must be contiguous fp32 [B, "
-                         f"rows, MB*bs], got {p.dtype} {tuple(p.shape)}")
+                         "rows, MB*bs] on a 16-byte boundary, got "
+                         f"{p.dtype} {tuple(p.shape)}")
     b, rows, t = p.shape
     kind = _check_pages("latent_block_wsum", pages, scales, page_table,
                         kv_lens, b, dev)
@@ -223,13 +268,22 @@ def latent_block_wsum(p: torch.Tensor, pages: torch.Tensor,
     if rows % nq:
         raise ValueError(f"latent_block_wsum: {rows} rows are not whole "
                          f"query positions of {nq} heads")
+    if dv % 8 or w_v.data_ptr() % 16 or (w_v.stride(0) * 2) % 16 \
+            or (w_v.stride(1) * 2) % 16:
+        raise ValueError(f"latent_block_wsum: w_v rows of {dv} values (a "
+                         "multiple of 8) on 16-byte boundaries, got strides "
+                         f"{w_v.stride()}")
+    plan = wsum_split_plan(b, rows, t, dl, kbuild.sm_count(dev))
+    ws = kbuild.split_workspace("latent_wsum", dev,
+                                plan.splits * b * rows * dl).data_ptr()
     out = torch.empty((b, rows, dv), dtype=torch.float32, device=dev)
     fn = kbuild.load(SOURCE, "latent_wsum_launch", _WSUM_ARGTYPES)
     rc = fn(p.data_ptr(), pages.data_ptr(),
             scales.data_ptr() if kind else None, page_table.data_ptr(),
-            kv_lens.data_ptr(), w_v.data_ptr(), out.data_ptr(), b, rows, nq,
-            dl, dv, bs, mb, pages.stride(0), pages.stride(1), w_v.stride(0),
-            w_v.stride(1), kind, _stream(dev))
+            kv_lens.data_ptr(), w_v.data_ptr(), out.data_ptr(), ws, b,
+            rows, nq, dl, dv, bs, mb, pages.stride(0), pages.stride(1),
+            w_v.stride(0), w_v.stride(1), kind, plan.row_tile,
+            plan.split_tokens, plan.splits, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"latent_block_wsum kernel launch failed: CUDA "
                            f"error {rc}")

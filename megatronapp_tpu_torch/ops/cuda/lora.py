@@ -61,7 +61,6 @@ _ARGTYPES = {
     "lora_expand_launch": [_P] * 6 + [_I] * 5 + [_P],
 }
 _counters: Dict[torch.device, torch.Tensor] = {}
-_split_ws: Dict[torch.device, torch.Tensor] = {}
 
 
 def shrink_k_per_split(rank: int, din: int) -> int:
@@ -185,11 +184,7 @@ def _workspace(units: int, floats: int, device: torch.device):
     if ctr is None or ctr.numel() < units:
         ctr = torch.zeros(max(units, 1024), dtype=torch.int32, device=device)
         _counters[device] = ctr
-    ws = _split_ws.get(device)
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
-                         device=device)
-        _split_ws[device] = ws
+    ws = kbuild.split_workspace("lora_shrink", device, floats)
     return ws.data_ptr(), ctr.data_ptr()
 
 

@@ -47,6 +47,23 @@ run (chip_smoke.py) does not make. From the repository root:
         (4096 and fc2's 14336), rank 8, 8 rows on chip_smoke.py's mixed
         adapters and a 32-row chunk of one, rotating through 32 layers of
         banks (L2-cold); each count's t against the default's.
+    python3 -m megatronapp_tpu_torch.tools.flash_probe latent-splits
+        the tensor-parallel latent kernels (rows 8 and 9) at chip_smoke.py's
+        tp_times shapes (one rank's 256 latent columns; decode B 8 and a
+        B 1, S_q 32 chunk at kv 1024; bf16, int8 and fp8 pools; page
+        tables rotated beyond the L2 cache). Row 9 with its split plan
+        forced to each of a few token-split counts (and row tiles at the
+        chunk), each with the splits added by the second launch and by a
+        thread-block cluster of a unit's splits in distributed shared
+        memory (cluster: patched into a copy of the source, as
+        _LATENT_CLUSTER says); row 8 built with other
+        block tiles and ring depths (copies of the source under build/,
+        kScoreTiles and kScoreRing fixed to each); both kernels also with
+        ablations that stub one piece each (page reads, the products, the
+        stores, the second launch's gather, its programmatic dependent
+        launch; their outputs are not the function's). Each variant timed in turns (and again in reverse), its
+        output against the first variant's; the default plan's device time
+        by kernel (torch.profiler).
     python3 -m megatronapp_tpu_torch.tools.flash_probe fused-ab --parent DIR
         the four fused kernels of the checkout in DIR and of this one,
         each tree's own wrappers, split plan and kernels (chip_smoke.py's
@@ -493,8 +510,7 @@ def fused_variants():
                         outs[(what, key, k)] = fn()
                         times[(what, key, k)].append(cs.device_ms(fn))
                 torch.cuda.synchronize()
-                sms = torch.cuda.get_device_properties(dev) \
-                    .multi_processor_count
+                sms = kbuild.sm_count(dev)
                 for k in calls:
                     first = outs[("variant", "_".join(own), k)]
                     first = first if isinstance(first, tuple) else (first,)
@@ -703,6 +719,270 @@ def lora_splits():
         torch.cuda.empty_cache()
 
 
+def _kernels_us(fn, keys, calls: int = 20) -> dict:
+    """Device µs a call of fn() spends in each kernel whose name holds one
+    of `keys` (torch.profiler over `calls` calls queued behind a sleep)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    us = dict.fromkeys(keys, 0.0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(200_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in keys:
+            if k in e.name:
+                us[k] += e.time_range.elapsed_us() / calls
+    return us
+
+
+# Row 9's cluster combine, patched into a copy of csrc/latent_tp.cu: the
+# splits of a (slot, row tile, column block) are one thread-block cluster
+# (at most 16); each block keeps its partial in shared memory, block k adds
+# a k-th of the unit's tile over the live splits in split order
+# (distributed shared memory) into split 0's workspace slot, and the
+# expansion reads that slot alone. The same bits as the second launch's
+# combine; slower (PERF.md §6), so the source does not keep it.
+_LATENT_CLUSTER = [
+    ("#include <type_traits>",
+     "#include <cooperative_groups.h>\n#include <type_traits>"),
+    # Blocks past the valid blocks still meet the cluster's barriers.
+    ("  if (s0 >= s1) return;\n", ""),
+    ("  // The fp32 partial of this split.\n", """\
+  {
+    namespace cg = cooperative_groups;
+    constexpr int kLdU = kWsumCols + 4;
+    cg::cluster_group cluster = cg::this_cluster();
+    tc::cp_async_wait<0>();
+    __syncthreads();   // the ring is free
+    float* part = reinterpret_cast<float*>(smem_raw);   // [TM][kLdU]
+    if (wcols > 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int nt = 0; nt < kWarpCols / 8; ++nt)
+          if (nt * 8 < wcols)
+            *reinterpret_cast<float2*>(part + (wm * 16 + g + 8 * i) * kLdU + wc + nt * 8 + 2 * t4) =
+                make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+    }
+    cluster.sync();
+    const int live = live_splits(tv, p), c4 = ncols / 4, elems = TM * c4;
+    const int per = (elems + p.splits - 1) / p.splits, e1 = min(elems, (split + 1) * per);
+    float* u = p.ws + ((size_t)b * p.rows + r0) * p.dl + c0;
+    for (int e = split * per + tid; e < e1 && live > 0; e += kThr) {
+      const int r = e / c4, col = (e % c4) * 4;
+      if (r0 + r >= p.rows) continue;
+      float* src = part + r * kLdU + col;
+      float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, 0));
+      for (int k = 1; k < live; ++k) {
+        const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, k));
+        v.x += x.x;
+        v.y += x.y;
+        v.z += x.z;
+        v.w += x.w;
+      }
+      *reinterpret_cast<float4*>(u + (size_t)r * p.dl + col) = v;
+    }
+    cluster.sync();   // no block leaves while its partial is read
+    return;
+  }
+"""),
+    ("      live = live_splits(tv, p);", "      live = min(tv, 1);"),
+    ("  kernel<<<dim3(p.splits, (unsigned)y, p.batch), TM * 8, smem, st>>>(p);"
+     "\n  return (int)cudaGetLastError();", """\
+  if (p.splits > 16 || (size_t)TM * (kWsumCols + 4) * sizeof(float) > smem)
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             p.splits > 8);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, (unsigned)y, p.batch);
+  cfg.blockDim = dim3(TM * 8);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, p);""")]
+
+
+def latent_splits():
+    import torch
+
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(710)
+    sms = kbuild.sm_count(dev)
+    with open(lt.SOURCE) as f:
+        text = f.read()
+    tiles_rule = "kScoreTiles[2] = {{32, 64, 4}, {64, 128, 2}};"
+    kc_rule = "constexpr int kScoreKC = 128;"
+    ring_rule = "constexpr int kScoreRing = 2;"
+    # Row 8's variants, label: (decode tile, chunk tile: rows, tokens, warp
+    # groups; columns of d a stage, ring stages); the first is the source.
+    shapes = {"d32x64x4_c64x128x2": ("{32, 64, 4}", "{64, 128, 2}", 128, 2),
+              "d32x64x1_c64x128x1": ("{32, 64, 1}", "{64, 128, 1}", 128, 2),
+              "d32x32x4_c32x128x2": ("{32, 32, 4}", "{32, 128, 2}", 128, 2),
+              "d32x64x4_c64x128x2_kc64_ring4": ("{32, 64, 4}", "{64, 128, 2}",
+                                                64, 4)}
+    source = next(iter(shapes))
+    texts = {k: text.replace(tiles_rule, f"kScoreTiles[2] = {{{a}, {b}}};")
+             .replace(kc_rule, f"constexpr int kScoreKC = {kc};")
+             .replace(ring_rule, f"constexpr int kScoreRing = {ring};")
+             for k, (a, b, kc, ring) in shapes.items()}
+    # Ablations of the source, each stubbing one piece (their outputs are
+    # not the function's): row 8's "scores_*", row 9's "wsum_*".
+    ablations = {
+        "scores_no_page_reads": [
+            ("const bool live = off >= 0 && col < p.d;",
+             "const bool live = false;")],
+        "scores_no_mma": [
+            ("    for (int kk = kg; kk < ksteps; kk += KS) {",
+             "    for (int kk = kg; kk < 0; kk += KS) {")],
+        "scores_no_store": [
+            ("      if (r >= p.rows) continue;\n      float* o = out",
+             "      if (r >= 0) continue;\n      float* o = out")],
+        "wsum_no_latent_reads": [
+            ("const bool live = t < s1 && pc * EPP < ncols;",
+             "const bool live = false;")],
+        "wsum_no_split_mma": [("      if (tb + kk * 16 >= s1) break;",
+                               "      break;")],
+        "wsum_no_gather": [("      live[e] = i < total ? live_s[r] : 0;",
+                            "      live[e] = 0;")],
+        "wsum_no_expand_mma": [
+            ("  for (int kk = warp; kk < p.dl / 16; kk += kExpWarps) {",
+             "  for (int kk = warp; kk < 0; kk += kExpWarps) {")],
+        "wsum_no_pdl": [
+            ("  return (int)tc::launch_pdl(latent_wsum_expand_kernel, grid, "
+             "dim3(kExpThreads), smem, st, p);",
+             "  latent_wsum_expand_kernel<<<grid, kExpThreads, smem, st>>>(p);"
+             "\n  return (int)cudaGetLastError();")]}
+    patches = {**ablations, "wsum_cluster": _LATENT_CLUSTER}
+    for rule in (tiles_rule, kc_rule, ring_rule,
+                 *(r for v in patches.values() for r, _ in v)):
+        if text.count(rule) != 1:
+            raise RuntimeError(f"`{rule}` not found once in latent_tp.cu")
+    for k, rules in patches.items():
+        texts[k] = text
+        for rule, repl in rules:
+            texts[k] = texts[k].replace(rule, repl)
+    libs = _build_sources("latent_tp.cu", texts)
+    plan = lt.wsum_split_plan
+    floor = torch.zeros(1, device=dev)
+    print(json.dumps({"launch_floor_ms (a one-element add_)":
+                      cs.device_ms(lambda: floor.add_(1))}), flush=True)
+
+    def forced(row_tile, splits, tokens):
+        stages = -(-tokens // lt.WSUM_STAGE)
+        per = -(-stages // splits)
+        return lt.WsumPlan(row_tile, per * lt.WSUM_STAGE, -(-stages // per))
+
+    def turns(variants, run):
+        """{label: [ms, ms]} over the variants in order, then reversed;
+        {label: max |out - first variant's out|}."""
+        outs, times = {}, {k: [] for k in variants}
+        labels = list(variants)
+        for k in labels + labels[::-1]:
+            outs[k], t = run(k)
+            times[k].append(t)
+        torch.cuda.synchronize()
+        first = outs[labels[0]]
+        return times, {k: float((v - first).abs().max())
+                       for k, v in outs.items()}
+    try:
+        for kind in ("bf16", "int8", "fp8"):
+            for mode, (batch, s_q) in (("decode", (8, None)),
+                                       ("chunk", (1, 32))):
+                case = cs.make_latent_case(
+                    gen, dev, batch=batch, kv_lens=[1024] * batch, s_q=s_q,
+                    q_lens=None if s_q is None else [s_q] * batch,
+                    kind=kind, pool_bytes=cs.TIMED_POOL_BYTES)
+                q, qp, shard, w_v = cs._tp_shard_inputs(case)
+                p = cs._tp_probs(case, q, shard)
+                b, rows, d = q.shape
+                tables, lens = case["tables"], case["kv_lens"]
+                ls = case.get("lat_scales")
+                it = {"i": 0}
+
+                def nxt():
+                    it["i"] = (it["i"] + 1) % tables.shape[0]
+                    return tables[it["i"]]
+                tokens = tables.shape[-1] * 16
+                base = plan(b, rows, tokens, d, sms)
+                # {label: (plan, source copy)}, the default plan first.
+                variants = {}
+                for n in sorted({base.splits, 4, 8, 16}):
+                    for tile in ((base.row_tile,) if mode == "decode"
+                                 else lt.WSUM_ROW_TILES):
+                        for key, combine in ((source, "second"),
+                                             ("wsum_cluster", "cluster")):
+                            v = forced(tile, n, tokens)
+                            label = (f"rows{v.row_tile}_splits{v.splits}_"
+                                     f"{combine}")
+                            variants.setdefault(label, (v, key))
+                default = f"rows{base.row_tile}_splits{base.splits}_second"
+                variants = {default: variants.pop(default), **variants}
+
+                variants.update({k: (base, k) for k in ablations
+                                 if k.startswith("wsum_")})
+
+                def run_wsum(label):
+                    v, key = variants[label]
+                    kbuild._libs[lt.SOURCE] = libs[key]
+                    lt.wsum_split_plan = lambda *a, v=v: v
+                    it["i"] = -1
+                    out = lt.latent_block_wsum(p, shard, nxt(), lens, w_v,
+                                               ls)
+                    call = lambda: lt.latent_block_wsum(  # noqa: E731
+                        p, shard, nxt(), lens, w_v, ls)
+                    return out, cs.device_ms(call)
+                times, diff = turns(variants, run_wsum)
+                lt.wsum_split_plan = plan
+                kbuild._libs[lt.SOURCE] = libs[source]
+                split_us = _kernels_us(
+                    lambda: lt.latent_block_wsum(p, shard, nxt(), lens, w_v,
+                                                 ls),
+                    ("latent_wsum_split_kernel", "latent_wsum_expand_kernel"))
+                print(json.dumps({
+                    "kernel": "wsum", "shape": mode, "pool": kind,
+                    "plan": base._asdict(), "ms": times,
+                    "default_plan_kernel_us": split_us,
+                    "max_abs_diff_vs_first": diff}), flush=True)
+
+                def run_scores(label):
+                    kbuild._libs[lt.SOURCE] = libs[label]
+                    it["i"] = -1
+                    out = lt.latent_block_scores(q, shard, nxt(), lens, ls)
+                    call = lambda: lt.latent_block_scores(  # noqa: E731
+                        q, shard, nxt(), lens, ls)
+                    return out, cs.device_ms(call)
+                times, diff = turns(
+                    [*shapes, *(k for k in ablations
+                                if k.startswith("scores_"))], run_scores)
+                kbuild._libs.pop(lt.SOURCE, None)
+                print(json.dumps({
+                    "kernel": "scores", "shape": mode, "pool": kind,
+                    "ms": times, "max_abs_diff_vs_first": diff}),
+                    flush=True)
+                del case, p
+                torch.cuda.empty_cache()
+    finally:
+        lt.wsum_split_plan = plan
+        kbuild._libs.pop(lt.SOURCE, None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -712,6 +992,7 @@ def main(argv=None) -> int:
     sub.add_parser("prologue-variants")
     sub.add_parser("fused-variants")
     sub.add_parser("lora-splits")
+    sub.add_parser("latent-splits")
     p_flips = sub.add_parser("quant-flips")
     p_flips.add_argument("--parent", required=True,
                          help="a checkout whose quantized kernel runs first")
@@ -740,6 +1021,7 @@ def main(argv=None) -> int:
      "quant-flips": lambda: quant_flips(args.parent),
      "fused-ab": lambda: fused_ab(args.parent, args.rounds),
      "lora-splits": lora_splits,
+     "latent-splits": latent_splits,
      "ab": lambda: ab(args.parent, args.skip_train, args.bf16_only,
                       args.rounds)}[args.cmd]()
     return 0

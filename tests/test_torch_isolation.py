@@ -714,34 +714,47 @@ def test_serve_tp_parses_and_refuses_lora(capsys):
     assert serve.free_init_method().startswith("tcp://localhost:")
 
 
-def _latent_tp_inputs(kind):
+# (batch, blocks a table, lengths, query rows): a short table, and decode
+# rows on a 1024-position table that the weighted sum splits over 16
+# blocks a slot, with lengths one token into a split, on a split's edge
+# and at kv 1 beside full slots.
+LATENT_TP_SHAPES = {
+    "small": (3, 8, [5, 40, 128], 64),
+    "multi_split": (8, 64, [1, 65, 64, 1000, 1024, 129, 640, 17], 32),
+}
+
+
+def _latent_tp_inputs(kind, shape):
     from megatronapp_tpu_torch.ops.paged_attention import quantize_kv_rows
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(3)
-    b, bs, mb, nb = 3, 16, 8, 30
+    b, mb, lens, rows = LATENT_TP_SHAPES[shape]
+    bs, nb = 16, b * mb + 6
     table = torch.randperm(nb, generator=gen)[:b * mb].reshape(b, mb).to(
         torch.int32).to(dev)
-    lens = torch.tensor([5, 40, 128], dtype=torch.int32, device=dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     whole = torch.randn(nb, bs, 512, generator=gen).to(dev)
     if kind == "bf16":
         pages, scales = whole.to(torch.bfloat16), None
     else:
         dt = torch.int8 if kind == "int8" else torch.float8_e4m3fn
         pages, scales = quantize_kv_rows(whole, dt)
-    return dev, gen, table, lens, pages[..., 256:], scales
+    return dev, gen, table, lens, pages[..., 256:], scales, rows
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(LATENT_TP_SHAPES))
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
-def test_latent_block_scores_kernel_matches_plain_version(kind):
+def test_latent_block_scores_kernel_matches_plain_version(kind, shape):
     """Row 8 on a column shard (a strided view) of a whole pool: the
     kernel launches and matches its plain version (products exact on both
     sides; fp32 sums in other orders)."""
     from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    dev, gen, table, lens, pages, scales = _latent_tp_inputs(kind)
-    q = torch.randn(3, 64, 256, generator=gen).to(dev)
+    dev, gen, table, lens, pages, scales, rows = _latent_tp_inputs(kind,
+                                                                   shape)
+    q = torch.randn(table.shape[0], rows, 256, generator=gen).to(dev)
     before = lt.launches[f"scores{'' if kind == 'bf16' else '_' + kind}"]
     got = lt.latent_block_scores(q, pages, table, lens, scales)
     torch.cuda.synchronize()
@@ -752,15 +765,19 @@ def test_latent_block_scores_kernel_matches_plain_version(kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(LATENT_TP_SHAPES))
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
-def test_latent_block_wsum_kernel_matches_plain_version(kind):
+def test_latent_block_wsum_kernel_matches_plain_version(kind, shape):
     """Row 9 on the same shard through a strided w_v view: the kernel
-    launches and matches its plain version."""
+    launches (two kernels, one count) and matches its plain version."""
     from megatronapp_tpu_torch.ops.cuda import latent_tp as lt
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    dev, gen, table, lens, pages, scales = _latent_tp_inputs(kind)
-    p = torch.softmax(torch.randn(3, 64, 8 * 16, generator=gen), -1).to(dev)
+    dev, gen, table, lens, pages, scales, rows = _latent_tp_inputs(kind,
+                                                                   shape)
+    b, mb = table.shape
+    p = torch.softmax(torch.randn(b, rows, mb * 16, generator=gen),
+                      -1).to(dev)
     kv_up = (torch.randn(512, 32 * 256, generator=gen) / 16).to(
         torch.bfloat16).to(dev)
     w_v = kv_up.reshape(512, 32, 256)[256:, :, 128:]
