@@ -294,8 +294,9 @@ LORA_ROUTE = LORA_ADAPTERS + [None, LORA_ADAPTERS[0], None]
 # random llama3-8b).
 LORA_REF_SCALE = 0.05
 LORA_SERVE_SCALE = 0.2
-# Multi-latent attention (slice 6): the latent paged-attention kernel (row
-# 7) and the fused MLA prologue (row 11, two launches).
+# Multi-latent attention (slice 6): the latent paged-attention kernels (row
+# 7: a split kernel and a combine-and-expand kernel, two launches a call)
+# and the fused MLA prologue (row 11, two launches).
 MLA_LATENT_SOURCE = "megatronapp_tpu_torch/csrc/paged_latent.cu"
 MLA_LATENT_REPLACES = (f"{_KG}:557 (paged_attention_latent, def :456; body "
                        "emit_latent_kernel :338)")
@@ -303,10 +304,11 @@ MLA_PROLOGUE_SOURCE = "megatronapp_tpu_torch/csrc/fused_mla.cu"
 MLA_PROLOGUE_REPLACES = f"{_KG}:1495 (_fused_mla_qkv, def :1393)"
 MLA_LAYERS = 32        # serve_mla's depth: never cut
 MLA_SCALE = 1.0 / (128 + 64) ** 0.5
-# The latent kernel vs its plain version on the same inputs: both take the
-# same q (scaled in fp32 and, on bf16 pools, rounded to bf16) and the same
-# fp32 pool values (bf16 widened, or float(page) x row scale), take the
-# softmax and sum P x latent in fp32 in other orders (~1e-6 of an output),
+# The latent kernels vs their plain version on the same inputs: both take
+# the same q (scaled in fp32 and, on bf16 pools, rounded to bf16) and the
+# same fp32 pool values (bf16 widened, or float(page) x row scale), take
+# the softmax and sum P x latent in fp32 in other orders (the kernel's P in
+# two bf16 terms: 2^-17 of an element; ~1e-6 of an output),
 # expand through the same bf16 w_v in fp32 and round the output to bf16
 # (at most 2^-8 of the element). Each output element is held to MLA_TOL of
 # max(|element|, its (row, head) RMS): between QUANT_REL_TOL's single
@@ -2382,9 +2384,9 @@ def _latent_kw(case):
 
 
 def _compare_latent(case, name, kind):
-    """The latent kernel twice (one launch a call, the same bits) against
-    its plain version on the same inputs; returns (max abs error, max
-    error over max(|element|, (row, head) RMS))."""
+    """The latent kernels twice (two launches a call, counted once; the
+    same bits) against their plain version on the same inputs; returns
+    (max abs error, max error over max(|element|, (row, head) RMS))."""
     from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
     ql = case.get("q_lens")
     key = ("decode" if ql is None else "ragged") + (
@@ -2463,30 +2465,66 @@ def _compare_prologue(p, cfg, rows, gen, dev, name):
 
 
 def phase_mla_kernels(state):
-    """Row 7 (the latent kernel) against its plain version on the same
+    """Row 7 (the latent kernels) against its plain version on the same
     pools at MLA's full widths (klat 512, dpe 64, nq 32, dv 128, block 16):
     decode at B 8 with kv up to 1024 and the engine's ragged launch (B 1,
-    S_q 32), on bf16, int8 and fp8 pools; then row 11 (the fused MLA
-    prologue) on one full-width llama3-8b MLA layer at 8 and 32 rows, with
-    q_proj and with q_lora_rank 1536 (DeepSeek-V2's)."""
+    S_q 32), and on the engine's 2048-position tables at the split plan's
+    edges (kv one position past a split, a split's end, the table's end,
+    kv 1 beside full slots; a chunk past and on split edges), on bf16,
+    int8 and fp8 pools, and two kernels a call by the profiler's count;
+    then row 11 (the fused MLA prologue) on one full-width llama3-8b MLA
+    layer at 8 and 32 rows, with q_proj and with q_lora_rank 1536
+    (DeepSeek-V2's)."""
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
     from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
     from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(606)
     before = dict(pl.launches), dict(fm.launches)
     lens = [1, 15, 16, 17, 300, 1000, 1024, 640]
+    sms = kbuild.sm_count(dev)
+    st = pl.latent_split_plan(8, 32, 2048, 512, sms).split_tokens
+    stc = pl.latent_split_plan(2, 1024, 2048, 512, sms).split_tokens
     shapes = {"decode_b8": dict(batch=8, kv_lens=lens),
               "ragged_b1": dict(batch=1, kv_lens=[1000], s_q=32,
                                 q_lens=[24]),
               "ragged_b1_full": dict(batch=1, kv_lens=[1024], s_q=32,
                                      q_lens=[32]),
               "ragged_b3_tail": dict(batch=3, kv_lens=[5, 40, 700], s_q=32,
-                                     q_lens=[5, 32, 1])}
+                                     q_lens=[5, 32, 1]),
+              "decode_b8_table2048_split_edges": dict(
+                  batch=8, mb=128, kv_lens=[st + 1, st, 2 * st, 2 * st - 1,
+                                            3 * st + 1, 4 * st, 2048, 16]),
+              "decode_b8_table2048_kv1_beside_full": dict(
+                  batch=8, mb=128, kv_lens=[1, 2048, 1, 1, 1024, 1, 2048,
+                                            1]),
+              "ragged_b2_table2048_split_edges": dict(
+                  batch=2, mb=128, kv_lens=[stc + 1, 2 * stc], s_q=32,
+                  q_lens=[32, 7])}
     latent = {}
     for name, kw in shapes.items():
         for kind in ("bf16", "int8", "fp8"):
             latent[f"{name}_{kind}"] = _compare_latent(
                 make_latent_case(gen, dev, kind=kind, **kw), name, kind)
+            torch.cuda.empty_cache()
+    # Two kernels a call by the profiler's count, on a burst of decode and
+    # chunk calls alone (bf16 pools).
+    kernels_per_call = {}
+    for mode, kw in (("decode", shapes["decode_b8"]),
+                     ("ragged", shapes["ragged_b1"])):
+        case = make_latent_case(gen, dev, **kw)
+        args = (case["q_lat"], case["q_pe"], case["lat"], case["pe"],
+                case["table"], case["kv_lens"], case["w_v"])
+        prof = _device_profile(
+            lambda: [pl.paged_attention_latent(*args, **_latent_kw(case))
+                     for _ in range(16)], 16,
+            calls={"paged_latent": lambda: sum(pl.launches.values())})
+        n = prof["kernels_by_family"]["paged_latent"]
+        check(prof["paged_latent_calls"] == 16 and n == 32,
+              f"mla_kernels: {n} latent kernels for "
+              f"{prof['paged_latent_calls']} {mode} calls (two a call)")
+        kernels_per_call[mode] = n / 16
+        del case
     torch.cuda.empty_cache()
     pgen = torch.Generator(dev).manual_seed(607)
     prologue = {}
@@ -2508,6 +2546,7 @@ def phase_mla_kernels(state):
     state["mla_prologue_err"] = max(v[0] for v in prologue.values())
     emit({"phase": "mla_kernels", "latent_tol": MLA_TOL,
           "prologue_tol": FUSED_TOL,
+          "latent_kernels_per_call": kernels_per_call,
           "errors": "(max abs, max over max(|plain element|, row RMS))",
           "latent": latent, "prologue": prologue})
 
@@ -2809,6 +2848,10 @@ def _sdpa_latent_call(case, nxt):
 
 
 def _time_latent(case):
+    """Row 7 and its SDPA yardstick timed in turns (kernel, library,
+    library, kernel), queued behind a sleep (device_ms); the plain version
+    before and after; the bound; the split plan."""
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
     from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
     tables = case["tables"]
     it = {"i": 0}
@@ -2828,18 +2871,18 @@ def _time_latent(case):
         pl.paged_attention_latent_plain(*args(), **_latent_kw(case))
 
     lib = _sdpa_latent_call(case, nxt)
-    p1 = cuda_time_ms(plain, iters=10)
-    k1 = cuda_time_ms(kernel)
-    k2 = cuda_time_ms(kernel)
-    p2 = cuda_time_ms(plain, iters=10)
-    lib_ms = cuda_time_ms(lib)
+    p1 = device_ms(plain, calls=PLAIN_CALLS)
+    k1, l1 = device_ms(kernel), device_ms(lib)
+    l2, k2 = device_ms(lib), device_ms(kernel)
+    p2 = device_ms(plain, calls=PLAIN_CALLS)
     nbytes, flops = _latent_bytes_flops(case)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     ql = case.get("q_lens")
     return {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
             "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
-            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+            "library_ms": (l1 + l2) / 2, "library_ms_runs": [l1, l2],
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
             "shape": {"batch": case["q_lat"].shape[0],
@@ -2847,7 +2890,11 @@ def _time_latent(case):
                       "s_q": 1 if ql is None else case["q_lat"].shape[1],
                       "nq": 32, "klat": 512, "dpe": 64, "dv": 128,
                       "block_size": 16},
-            "page_tables_rotated": tables.shape[0]}
+            "page_tables_rotated": tables.shape[0], "kernels_per_call": 2,
+            "split_plan": pl.latent_split_plan(
+                case["q_lat"].shape[0], case["q_lat"][0].numel() // 512,
+                tables.shape[-1] * 16, 512,
+                kbuild.sm_count(tables.device))._asdict()}
 
 
 def _mla_latent_times(state):
@@ -2869,7 +2916,9 @@ def _mla_latent_times(state):
             del case
             torch.cuda.empty_cache()
     state["mla_latent_times"] = out
-    return {"note": "library_ms: scaled_dot_product_attention of [q_lat | "
+    return {"note": "kernel and library timed in turns, queued behind a "
+                    "sleep (device_ms); library_ms: "
+                    "scaled_dot_product_attention of [q_lat | "
                     "q_pe] against [latent | k_pe] gathered (dequantized) "
                     "to bf16 in advance, latent as values, then the w_v "
                     "einsum; bounds in latent space", **out}
@@ -3769,6 +3818,15 @@ def phase_profile(state):
         for name, fused in (("mla_unfused", False), ("mla_fused", True)):
             out[name] = _profile_engine(m_params, m_cfg, dev, fused)
             torch.cuda.empty_cache()
+            # Two kernels a call (mla_kernels checks the count exactly on a
+            # burst of calls alone); in these windows of ~70 k kernels the
+            # profiler may drop a few records, so here at least 1.95.
+            for window in out[name].values():
+                calls = window["paged_latent_calls"]
+                check(calls > 0 and 1.95 * calls <= window[
+                    "kernels_by_family"]["paged_latent"] <= 2 * calls,
+                      f"profile {name}: {window['kernels_by_family']} "
+                      f"kernels for {calls} latent calls (two a call)")
         fm.launches.update(before_m[0])
         pl.launches.update(before_m[1])
     fd.launches.update(before[0])

@@ -64,6 +64,33 @@ run (chip_smoke.py) does not make. From the repository root:
         launch; their outputs are not the function's). Each variant timed in turns (and again in reverse), its
         output against the first variant's; the default plan's device time
         by kernel (torch.profiler).
+    python3 -m megatronapp_tpu_torch.tools.flash_probe paged-latent-splits
+        the MLA latent kernel (row 7: split kernel + combine-and-expand)
+        at chip_smoke.py's times shapes (decode B 8 and a B 1, S_q 32
+        chunk at kv 1024; bf16, int8 and fp8 pools; page tables rotated
+        beyond the L2 cache), on 1024- and 2048-position tables: its split
+        plan forced to 4, 8 and 16 splits (and 32- or 64-row tiles at the
+        chunk); copies of the source under build/ with P in the other
+        counts of 1-3 bf16 terms (kPTerms), and (kTiles) three 32-token
+        ring stages at 32 rows (decode) or two at 64 rows (the chunk); on
+        1024-position tables, ablations
+        that stub one piece each (page reads, the score products, the
+        P.latent products, the partials' stores, the combine's gather, its
+        products, its programmatic dependent launch, the whole combine;
+        their outputs are not the function's). Each variant timed in turns
+        (and again in reverse), its error against the plain version
+        (chip_smoke.py's rule: max |out - plain| over max(|plain element|,
+        row RMS)); each kernel's device time (torch.profiler, with and
+        without the dependent launch) and the launch floor.
+    python3 -m megatronapp_tpu_torch.tools.flash_probe paged-latent-timeline
+        row 7 with a timeline patched into a copy of the source (thread 0
+        of every block records %globaltimer at entry and exit and clock64
+        at each phase: the split kernel's prologue, kv_len, the first
+        stage's loads landing, its scores, softmax and P.latent, the
+        partials' stores; the combine's w_v staging, its wait, weights,
+        gather, expansion and stores), at the times shapes on bf16 and
+        int8 pools: per phase the median and largest cycles over blocks,
+        and when the blocks of each kernel started and ended.
     python3 -m megatronapp_tpu_torch.tools.flash_probe fused-ab --parent DIR
         the four fused kernels of the checkout in DIR and of this one,
         each tree's own wrappers, split plan and kernels (chip_smoke.py's
@@ -983,6 +1010,315 @@ def latent_splits():
         kbuild._libs.pop(lt.SOURCE, None)
 
 
+_LATENT_TILES = ("constexpr Tile kTiles[3] = {{32, 64, 8, 64, 2}, {32, 32, 8, 80, 3}, "
+                 "{64, 32, 16, 64, 3}};")
+_LATENT_ABLATIONS = {
+    "no_page_reads": [("      const bool live = tb + r < s1;\n      const long long row",
+                       "      const bool live = false;\n      const long long row")],
+    "no_score_mma": [("      int kk = kg;\n", "      int kk = all_steps;\n")],
+    "no_pv_mma": [("    if (wcols > 0) {\n#pragma unroll\n      for (int kk = 0;",
+                   "    if (wcols < 0) {\n#pragma unroll\n      for (int kk = 0;")],
+    "no_partial_store": [("  if (wcols > 0) {\n    float* wa",
+                          "  if (wcols < 0) {\n    float* wa")],
+    "no_gather": [("      if (k < live) x[k] = __ldcg(",
+                   "      if (k < 0) x[k] = __ldcg(")],
+    "no_expand_mma": [("  for (int kk = 0; kk < nc / 16; ++kk) {\n    uint32_t a[kUTerms][4], bw[4];",
+                       "  for (int kk = 0; kk < 0; ++kk) {\n    uint32_t a[kUTerms][4], bw[4];")],
+    "no_pdl": [("  return (int)tc::launch_pdl(kernel, grid, dim3(kCombThreads), smem, st, p);",
+                "  kernel<<<grid, kCombThreads, smem, st>>>(p);\n"
+                "  return (int)cudaGetLastError();")],
+    "no_combine": [("  if (err != 0) return err;\n  const long long z",
+                    "  if (err != 0 || p.klat > 0) return err;\n"
+                    "  const long long z")]}
+
+
+def paged_latent_splits():
+    import torch
+
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(711)
+    sms = kbuild.sm_count(dev)
+    with open(pl.SOURCE) as f:
+        text = f.read()
+    terms_rule = f"constexpr int kPTerms = {pl.P_TERMS};"
+    for rule in (terms_rule, _LATENT_TILES,
+                 *(r for v in _LATENT_ABLATIONS.values() for r, _ in v)):
+        if text.count(rule) != 1:
+            raise RuntimeError(f"`{rule}` not found once in paged_latent.cu")
+    texts = {"source": text,
+             "stage32": text.replace(_LATENT_TILES, _LATENT_TILES.replace(
+                 "{32, 64, 8, 64, 2}", "{32, 32, 8, 64, 3}")),
+             "ring2": text.replace(_LATENT_TILES, _LATENT_TILES.replace(
+                 "{64, 32, 16, 64, 3}", "{64, 32, 16, 64, 2}"))}
+    for n in (1, 2, 3):
+        if n != pl.P_TERMS:
+            texts[f"pterms{n}"] = text.replace(
+                terms_rule, f"constexpr int kPTerms = {n};")
+    for k, rules in _LATENT_ABLATIONS.items():
+        texts[k] = text
+        for rule, repl in rules:
+            texts[k] = texts[k].replace(rule, repl)
+    libs = _build_sources("paged_latent.cu", texts)
+    plan = pl.latent_split_plan
+    floor = torch.zeros(1, device=dev)
+    print(json.dumps({"launch_floor_ms (a one-element add_)":
+                      cs.device_ms(lambda: floor.add_(1))}), flush=True)
+
+    def forced(row_tile, splits, tokens):
+        stage = pl.STAGE_TOKENS[row_tile]
+        stages = -(-tokens // stage)
+        per = -(-stages // splits)
+        return pl.LatentPlan(row_tile, per * stage, -(-stages // per))
+    try:
+        for table in (1024, 2048):
+            for kind in ("bf16", "int8", "fp8"):
+                for mode, (batch, s_q) in (("decode", (8, None)),
+                                           ("chunk", (1, 32))):
+                    case = cs.make_latent_case(
+                        gen, dev, batch=batch, kv_lens=[1024] * batch,
+                        s_q=s_q, q_lens=None if s_q is None else [s_q] * batch,
+                        kind=kind, mb=table // 16,
+                        pool_bytes=cs.TIMED_POOL_BYTES)
+                    tables, kw = case["tables"], cs._latent_kw(case)
+                    it = {"i": 0}
+
+                    def nxt():
+                        it["i"] = (it["i"] + 1) % tables.shape[0]
+                        return tables[it["i"]]
+
+                    def args():
+                        return (case["q_lat"], case["q_pe"], case["lat"],
+                                case["pe"], nxt(), case["kv_lens"],
+                                case["w_v"])
+                    rows = (s_q or 1) * 32
+                    base = plan(batch, rows, table, 512, sms)
+                    variants = {f"rows{base.row_tile}_splits{base.splits}":
+                                (base, "source")}
+                    for tile in ((32,) if mode == "decode" else (32, 64)):
+                        for n in (4, 8, 16):
+                            v = forced(tile, n, table)
+                            variants.setdefault(
+                                f"rows{v.row_tile}_splits{v.splits}",
+                                (v, "source"))
+                    for n in (1, 2, 3):
+                        if n != pl.P_TERMS:
+                            variants[f"pterms{n}"] = (base, f"pterms{n}")
+                    if base.row_tile == 32:
+                        variants["stage32_ring3"] = (base, "stage32")
+                    else:
+                        variants["ring2"] = (base, "ring2")
+                    if table == 1024:
+                        variants.update({k: (base, k)
+                                         for k in _LATENT_ABLATIONS})
+                    it["i"] = -1
+                    ref = pl.paged_attention_latent_plain(*args(), **kw)
+
+                    def run(label):
+                        v, key = variants[label]
+                        kbuild._libs[pl.SOURCE] = libs[key]
+                        pl.latent_split_plan = lambda *a, v=v: v
+                        it["i"] = -1
+                        out = pl.paged_attention_latent(*args(), **kw)
+                        ms = cs.device_ms(
+                            lambda: pl.paged_attention_latent(*args(), **kw))
+                        return out, ms
+                    labels = list(variants)
+                    times = {k: [] for k in labels}
+                    errs = {}
+                    for k in labels + labels[::-1]:
+                        out, t = run(k)
+                        times[k].append(t)
+                        if k not in errs:
+                            got, want = out.float(), ref.float()
+                            rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+                            errs[k] = float(((got - want).abs()
+                                             / torch.maximum(want.abs(), rms))
+                                            .max())
+                    pl.latent_split_plan = plan
+                    names = ("paged_latent_split_kernel",
+                             "paged_latent_combine_kernel")
+                    us = {}
+                    for key in ("source", "no_pdl"):
+                        kbuild._libs[pl.SOURCE] = libs[key]
+                        us[key] = _kernels_us(
+                            lambda: pl.paged_attention_latent(*args(), **kw),
+                            names)
+                    kbuild._libs.pop(pl.SOURCE, None)
+                    print(json.dumps({
+                        "shape": mode, "pool": kind, "table_tokens": table,
+                        "plan": base._asdict(),
+                        "plans": {k: v[0]._asdict()
+                                  for k, v in variants.items()},
+                        "ms": times, "rel_err_vs_plain": errs,
+                        "kernel_us_by_profiler": us}), flush=True)
+                    del case, ref
+                    torch.cuda.empty_cache()
+    finally:
+        pl.latent_split_plan = plan
+        kbuild._libs.pop(pl.SOURCE, None)
+
+
+# Row 7's timeline marks, patched into a copy of csrc/paged_latent.cu:
+_LATENT_MARKS_HEAD = """
+__device__ unsigned long long g_marks[2][2048][10];
+__device__ __forceinline__ void mark(int k, int i) {
+  if (threadIdx.x == 0) {
+    const unsigned bid = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    if (bid >= 2048) return;
+    unsigned long long t;
+    if (i == 0 || i == 9)
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    else
+      t = clock64();
+    g_marks[k][bid][i] = t;
+  }
+}
+extern "C" int paged_latent_marks(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_marks, sizeof(g_marks));
+}
+extern "C" int paged_latent_marks_clear() {
+  static unsigned long long zeros[2][2048][10];
+  return (int)cudaMemcpyToSymbol(g_marks, zeros, sizeof(zeros));
+}
+"""
+_LATENT_MARKS = [   # (rule, its replacement)
+    ('#include "tensor_core.cuh"\n',
+     '#include "tensor_core.cuh"\n' + _LATENT_MARKS_HEAD),
+    ("  // kv_len and the page rows of the first RING stages, read together;\n",
+     "  mark(0, 0);\n  mark(0, 1);\n"
+     "  // kv_len and the page rows of the first RING stages, read together;\n"),
+    ("  tc::pdl_trigger();   // the combine may start staging w_v\n",
+     "  tc::pdl_trigger();   // the combine may start staging w_v\n  mark(0, 2);\n"),
+    ("  for (int r = tid; r < TM; r += kThr) {\n    m_s[r] = kNegInf;",
+     "  mark(0, 3);\n  for (int r = tid; r < TM; r += kThr) {\n    m_s[r] = kNegInf;"),
+    ("    __syncthreads();   // stage j has landed; every warp is done with stage j - 1\n",
+     "    __syncthreads();   // stage j has landed; every warp is done with stage j - 1\n"
+     "    if (j == 0) mark(0, 4);\n"),
+    ("    // Masks and the online softmax, LPR lanes a row (warps past the rows\n",
+     "    if (j == 0) mark(0, 5);\n"
+     "    // Masks and the online softmax, LPR lanes a row (warps past the rows\n"),
+    ("    // acc = acc x corr + P . latent (P's terms smallest first).\n",
+     "    if (j == 0) mark(0, 6);\n"
+     "    // acc = acc x corr + P . latent (P's terms smallest first).\n"),
+    ("  // This split's unnormalised acc and (m, l) a row.\n",
+     "  mark(0, 7);\n  // This split's unnormalised acc and (m, l) a row.\n"),
+    ("make_float2(m_s[r], l_s[r]);\n}\n",
+     "make_float2(m_s[r], l_s[r]);\n  __syncthreads();\n  mark(0, 8);\n"
+     "  mark(0, 9);\n}\n"),
+    ("  // w_v[c0 : c0 + nc, h, d0 : d0 + 128], zeros past dv (an input: no wait\n",
+     "  mark(1, 0);\n  mark(1, 1);\n"
+     "  // w_v[c0 : c0 + nc, h, d0 : d0 + 128], zeros past dv (an input: no wait\n"),
+    ("  tc::pdl_wait();   // the split kernel's partials are complete and visible\n",
+     "  mark(1, 2);\n"
+     "  tc::pdl_wait();   // the split kernel's partials are complete and visible\n"
+     "  mark(1, 3);\n"),
+    ("  // u: each row's live splits weighed and added in split order, / max(l,\n",
+     "  mark(1, 4);\n"
+     "  // u: each row's live splits weighed and added in split order, / max(l,\n"),
+    ("  // This quarter's partial tile = u[:, c0 : c0 + nc] . w_v rows, warp w\n",
+     "  mark(1, 5);\n"
+     "  // This quarter's partial tile = u[:, c0 : c0 + nc] . w_v rows, warp w\n"),
+    ("  __threadfence();   // the partial is visible before the count says so\n",
+     "  mark(1, 6);\n"
+     "  __threadfence();   // the partial is visible before the count says so\n"),
+    ("  if (!last_s) return;\n",
+     "  mark(1, 7);\n  if (!last_s) {\n    mark(1, 9);\n    return;\n  }\n"),
+    ("__float2bfloat16(vv[j]);\n  }\n}\n",
+     "__float2bfloat16(vv[j]);\n  }\n  __syncthreads();\n  mark(1, 9);\n}\n")]
+_SPLIT_PHASES = ("q_issue_kv_len", "first_loads_issued", "landed",
+                 "scores", "softmax", "pv_and_later_stages", "stores")
+_COMBINE_PHASES = ("stage_w_v", "wait", "gather_loads_and_weights",
+                   "weigh_and_terms", "expand", "partial_store_and_count")
+
+
+def paged_latent_timeline():
+    import numpy as np
+    import torch
+
+    from megatronapp_tpu_torch.ops.cuda import build as kbuild
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    cs = _smoke()
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi_line()}), flush=True)
+    with open(pl.SOURCE) as f:
+        text = f.read()
+    for rule, repl in _LATENT_MARKS:
+        if text.count(rule) != 1:
+            raise RuntimeError(f"`{rule}` not found once in paged_latent.cu")
+        text = text.replace(rule, repl)
+    lib = _build_sources("paged_latent.cu", {"timeline": text})["timeline"]
+    kbuild._libs[pl.SOURCE] = lib
+    read = lib.paged_latent_marks
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(712)
+    try:
+        for kind in ("bf16", "int8"):
+            for mode, (batch, s_q) in (("decode", (8, None)),
+                                       ("chunk", (1, 32))):
+                case = cs.make_latent_case(
+                    gen, dev, batch=batch, kv_lens=[1024] * batch, s_q=s_q,
+                    q_lens=None if s_q is None else [s_q] * batch,
+                    kind=kind, pool_bytes=cs.TIMED_POOL_BYTES)
+                kw = cs._latent_kw(case)
+                tables = case["tables"]
+
+                def call(i):
+                    pl.paged_attention_latent(
+                        case["q_lat"], case["q_pe"], case["lat"], case["pe"],
+                        tables[i % tables.shape[0]], case["kv_lens"],
+                        case["w_v"], **kw)
+                for i in range(5):
+                    call(i)
+                torch.cuda.synchronize()
+                lib.paged_latent_marks_clear()
+                torch.cuda._sleep(50_000_000)
+                call(5)
+                torch.cuda.synchronize()
+                marks = np.zeros((2, 2048, 10), dtype=np.uint64)
+                if read(marks.ctypes.data) != 0:
+                    raise RuntimeError("reading the marks failed")
+                marks = marks.astype(np.int64)
+                out = {"shape": mode, "pool": kind}
+                t0 = marks[0][marks[0][:, 0] > 0][:, 0].min()
+                for k, names in ((0, _SPLIT_PHASES), (1, _COMBINE_PHASES)):
+                    m = marks[k][marks[k][:, 0] > 0]
+                    full = m[m[:, len(names) + 1] > 0]
+                    ns = (m[:, 9] - m[:, 0]).astype(float)
+                    cyc = (m[:, len(names) + 1] - m[:, 1]).astype(float)
+                    ok = (m[:, 9] > 0) & (m[:, len(names) + 1] > 0)
+                    ghz = float(np.median(cyc[ok] / ns[ok])) if ok.any() \
+                        else None
+                    ph = {}
+                    for i, name in enumerate(names):
+                        sel = m[m[:, i + 2] > 0]
+                        d = (sel[:, i + 2] - sel[:, i + 1]).astype(float)
+                        if len(d):
+                            ph[name] = {"median_cycles": float(np.median(d)),
+                                        "max_cycles": float(d.max()),
+                                        "blocks": int(len(d))}
+                    out["split" if k == 0 else "combine"] = {
+                        "blocks": int(len(m)),
+                        "blocks_to_the_end": int(len(full)),
+                        "sm_ghz": ghz,
+                        "start_us": [float((m[:, 0].min() - t0) / 1e3),
+                                     float((m[:, 0].max() - t0) / 1e3)],
+                        "end_us": [float((m[ok, 9].min() - t0) / 1e3),
+                                   float((m[ok, 9].max() - t0) / 1e3)]
+                        if ok.any() else None,
+                        "block_us_median": float(np.median(ns[ok])) / 1e3
+                        if ok.any() else None,
+                        "phases": ph}
+                print(json.dumps(out), flush=True)
+                del case
+                torch.cuda.empty_cache()
+    finally:
+        kbuild._libs.pop(pl.SOURCE, None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -993,6 +1329,8 @@ def main(argv=None) -> int:
     sub.add_parser("fused-variants")
     sub.add_parser("lora-splits")
     sub.add_parser("latent-splits")
+    sub.add_parser("paged-latent-splits")
+    sub.add_parser("paged-latent-timeline")
     p_flips = sub.add_parser("quant-flips")
     p_flips.add_argument("--parent", required=True,
                          help="a checkout whose quantized kernel runs first")
@@ -1022,6 +1360,8 @@ def main(argv=None) -> int:
      "fused-ab": lambda: fused_ab(args.parent, args.rounds),
      "lora-splits": lora_splits,
      "latent-splits": latent_splits,
+     "paged-latent-splits": paged_latent_splits,
+     "paged-latent-timeline": paged_latent_timeline,
      "ab": lambda: ab(args.parent, args.skip_train, args.bf16_only,
                       args.rounds)}[args.cmd]()
     return 0

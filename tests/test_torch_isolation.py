@@ -593,12 +593,13 @@ def _latent_case(dev, kind, ragged, g, b=3, nq=8, klat=512, dpe=64, dv=128,
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
 def test_latent_kernel_matches_plain_version(kind):
-    """The MLA latent kernel (csrc/paged_latent.cu; one launch a call,
-    counted by mode and pool dtype), decode and ragged, against its plain
-    version on the same inputs: both take the same rounded q and fp32 pool
-    values and sum in fp32 in other orders, then round the output to bf16,
-    so each element is held to 0.01 of max(|element|, its (row, head) RMS)
-    (chip_smoke.py MLA_TOL argues the bound); a rerun repeats every bit."""
+    """The MLA latent kernels (csrc/paged_latent.cu; a split and a combine
+    launch a call, counted once by mode and pool dtype), decode and ragged,
+    against their plain version on the same inputs: both take the same
+    rounded q and fp32 pool values and sum in fp32 in other orders, then
+    round the output to bf16, so each element is held to 0.01 of
+    max(|element|, its (row, head) RMS) (chip_smoke.py MLA_TOL argues the
+    bound); a rerun repeats every bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from megatronapp_tpu_torch.ops.cuda import paged_latent as cuda_pl
