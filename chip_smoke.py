@@ -12,8 +12,13 @@ Phases, each printing one JSON line:
             plain PyTorch version on the card, decode and ragged modes, at
             llama3-8b attention shapes (block sizes 16, 64 and 8; short
             slots in a 2048-position table, so more splits than pages; a
-            B 1 chunk at kv 2047 across several splits) and one gpt2-125m
-            (MHA, D=64) shape; each rerun repeats every bit.
+            B 1 chunk at kv 2047 across several splits; the speculative
+            verify step, B 8 of S_q 5 with q_lens 1..5 and kv on and one
+            past block edges and at 2047 of 2048, also on int8 and fp8
+            pools in kv_quant_kernels, at S_q 4 and 5 for the latent kernel
+            in mla_kernels, and at 40 rows for the fused kernels, bf16 and
+            int8, with LoRA behind its shrink) and one gpt2-125m (MHA,
+            D=64) shape; each rerun repeats every bit.
 3. reference: a tiny llama-shaped model's chunked-prefill logits on the
             card (bf16, kernel) against the same weights on the CPU
             (fp32, plain versions).
@@ -60,6 +65,12 @@ Phases, each printing one JSON line:
    mla_reference: a tiny MLA llama-shaped model's chunked prefill and
             decode step on the card (bf16, kernels), unfused and fused, on
             a bf16 and an int8 pool, against the CPU (fp32, plain).
+   spec_reference: the tiny llama-shaped model and its MLA twin with the
+            n-gram proposer, bf16 and int8 pools, unfused and fused: the
+            speculative verify step's logits on the card (bf16, kernels)
+            against the CPU (fp32, plain versions), and the card's greedy
+            speculative streams against its plain ones (each first
+            divergence at a near-tie of the plain logits).
    tp_kernels: the two latent tensor-parallel kernels (rows 8 and 9:
             block scores and weighted sum) against their plain versions on
             one rank's 256 latent columns (and row 8 on the pe pool) at
@@ -114,6 +125,19 @@ Phases, each printing one JSON line:
             adapters giving the no-adapter streams, adapters changing
             streams, fused against unfused logits, reruns, and the prefix
             hits under adapter-salted keys beside serve's unsalted ones.
+   serve_spec: speculative decoding (serve.py --spec-method ngram|draft
+            --spec-k 4) on the served llama3-8b, 8 greedy requests (six of
+            serve's and two that hold their own continuation): plain, n-gram
+            unfused and fused at --layers, a seed-1 2-layer draft model;
+            at 4 layers a self-draft (each rejection at a logit near-tie;
+            >= 0.9 accepted with those counted as accepted, the plain
+            acceptance beside 0.9), n-gram on int8
+            (fused) and fp8 pools, fused with LoRA and on resident int8
+            weights, a spec-verify drill; the MLA llama3-8b at 4 layers
+            (unfused k 4, fused k 3, int8 and fp8 latent pools). Each
+            verify round launches the ragged kernel once a layer; pools
+            audit clean with every block back; rounds, acceptance, tokens
+            per model step, first divergences and decode intervals.
    serve_mla: llama3_8b(multi_latent_attention=True) at full width and
             depth (32 layers, seeded bf16 weights): the 8 requests through
             the unfused engine on a bf16 latent pool, the fused engine on
@@ -244,6 +268,14 @@ QUANT_REPLACES = (f"{REPLACES} (int8/fp8 pools: k_scales/v_scales; body "
 # output, at most 2^-8 = 0.0039 of the element, so each output element is
 # held to QUANT_REL_TOL of max(|element|, its (row, head) RMS over D), far
 # inside REL_TOL.
+# The speculative verify step's shape at spec_k 4 (serve_spec): B 8 slots
+# of S_q 5, q_lens mixed over 1..5 (q_len 1 beside full slots), kv on and
+# one past block edges and at 2047 in a 2048-position table.
+VERIFY_CASE = dict(batch=8, hq=32, hkv=8, d=128, bs=16, s_q=5,
+                   q_lens=[1, 5, 1, 5, 2, 3, 4, 5],
+                   kv_lens=[16, 17, 32, 33, 1024, 1025, 2047, 5],
+                   capacity=2048)
+VERIFY_ROWS = 40       # the fused kernels' rows at the verify step, B 8 x 5
 QUANT_REL_TOL = 5e-3
 # The tighter check of the same comparison: the kernel's bf16 output
 # against bf16(the fp32 plain output), element by element. A body that is
@@ -286,6 +318,8 @@ LORA_RANKS = (8, 16)
 # A decode batch of 8: NULL rows (1, 6), two rows sharing an adapter (0 and
 # 7 on slot 1, 2 and 5 on slot 2) and 4 distinct adapters.
 LORA_DECODE_IDS = [1, 0, 2, 3, 4, 2, 0, 1]
+# The verify step's 40 rows: each decode slot's adapter on its 5 rows.
+LORA_VERIFY_IDS = [i for i in LORA_DECODE_IDS for _ in range(5)]
 LORA_ADAPTERS = [f"tenant-{i}" for i in range(5)]
 LORA_ROUTE = LORA_ADAPTERS + [None, LORA_ADAPTERS[0], None]
 # B ~ N(0, scale^2) (LoraAdapter.random's default 0.05 for lora_reference,
@@ -605,6 +639,11 @@ def phase_kernels(state):
     results["ragged_llama_b1_kv2047"] = _compare(make_case(
         gen, dev, batch=1, hq=32, hkv=8, d=128, bs=16, kv_lens=[2047],
         s_q=32, q_lens=[32]), "ragged llama3-8b B=1 kv 2047")
+    # The speculative verify step: B 8, S_q 5 (k 4), q_lens mixed over
+    # 1..5 (slots at q_len 1 beside full ones), kv on and one past block
+    # edges and at 2047 of a 2048-position table: many slots, few queries.
+    results["ragged_llama_verify_b8"] = _compare(make_case(
+        gen, dev, **VERIFY_CASE), "ragged llama3-8b verify B=8 S_q 5")
     # These comparison launches are not main-path launches.
     pa.launches.update(before)
     state["max_abs_err"] = {
@@ -735,6 +774,7 @@ def quant_cases() -> dict:
             **llama),
         "ragged_llama_b1_kv2047": dict(batch=1, kv_lens=[2047], s_q=32,
                                        q_lens=[32], **llama),
+        "ragged_llama_verify_b8": VERIFY_CASE,
     }
 
 
@@ -978,7 +1018,7 @@ def phase_fused_kernels(state):
                    num_query_groups=2, ffn_hidden_size=2048,
                    qk_layernorm=True, params_dtype=torch.float32)
     cases = {}
-    for cname, cfg, rows in (("llama3_8b", llama, (8, 32)),
+    for cname, cfg, rows in (("llama3_8b", llama, (8, 32, VERIFY_ROWS)),
                              ("gpt2_125m", gpt2, (8, 32)),
                              ("qk_layernorm_fp32_weights", qk, (5, 40))):
         p = _fused_layer(cfg, gen, dev)
@@ -1015,7 +1055,7 @@ def phase_fused_int8_kernels(state):
                    num_query_groups=2, ffn_hidden_size=2048,
                    qk_layernorm=True, params_dtype=torch.float32)
     cases = {}
-    for cname, cfg, rows in (("llama3_8b", llama, (8, 32)),
+    for cname, cfg, rows in (("llama3_8b", llama, (8, 32, VERIFY_ROWS)),
                              ("gpt2_125m", gpt2, (8, 32)),
                              ("qk_layernorm_fp32_vectors", qk, (5, 40))):
         p = quantize_for_serving(_fused_layer(cfg, gen, dev))[0]
@@ -1706,7 +1746,8 @@ def phase_lora_kernels(state):
         banks = {t: _lora_banks(gen, dev, din, dout, rank)
                  for t, (din, dout) in dims.items()}
         for label, ids in (("rows8_mixed", LORA_DECODE_IDS),
-                           ("rows32_one_adapter", [3] * 32)):
+                           ("rows32_one_adapter", [3] * 32),
+                           ("rows40_verify", LORA_VERIFY_IDS)):
             segs = tlo.LoraRows(np.asarray(ids), dev)
             null = torch.tensor(ids, device=dev) == 0
             for target, (din, dout) in dims.items():
@@ -1768,7 +1809,8 @@ def phase_lora_kernels(state):
                                ("int8", quantize_for_serving(p)[0], "_int8")):
         banks = {t: _lora_banks(gen, dev, din, dout, 8)
                  for t, (din, dout) in dims.items()}
-        for rows, ids in ((8, LORA_DECODE_IDS), (32, [3] * 32)):
+        for rows, ids in ((8, LORA_DECODE_IDS), (32, [3] * 32),
+                          (VERIFY_ROWS, LORA_VERIFY_IDS)):
             lora = {"row_adapter": tlo.LoraRows(np.asarray(ids), dev),
                     "banks": banks}
             epi[f"{wname}_rows{rows}"] = _fused_case(
@@ -2500,7 +2542,18 @@ def phase_mla_kernels(state):
                                             1]),
               "ragged_b2_table2048_split_edges": dict(
                   batch=2, mb=128, kv_lens=[stc + 1, 2 * stc], s_q=32,
-                  q_lens=[32, 7])}
+                  q_lens=[32, 7]),
+              # The speculative verify step: B 8 slots of S_q 4 (the fused
+              # MLA engine's k 3) and 5 (k 4: 160 query rows a slot, two
+              # whole 64-row tiles and a half one), q_lens mixed with
+              # q_len 1 beside full slots, kv on and one past block edges
+              # and at 2047 of a 2048-position table.
+              "ragged_b8_verify_sq4": dict(
+                  batch=8, mb=128, s_q=4, q_lens=[1, 4, 1, 4, 2, 3, 4, 4],
+                  kv_lens=[16, 17, 32, 33, 1024, 1025, 2047, 4]),
+              "ragged_b8_verify_sq5": dict(
+                  batch=8, mb=128, s_q=5, q_lens=[1, 5, 1, 5, 2, 3, 4, 5],
+                  kv_lens=[16, 17, 32, 33, 1024, 1025, 2047, 5])}
     latent = {}
     for name, kw in shapes.items():
         for kind in ("bf16", "int8", "fp8"):
@@ -2623,6 +2676,617 @@ def phase_mla_reference(state):
         / out[f"{kind}_unfused"].abs().max()) for kind in ("bf16", "int8")}
     emit({"phase": "mla_reference", "runs": runs,
           "fused_vs_unfused_max_rel": fused_vs_unfused})
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding (slice 8)
+# ---------------------------------------------------------------------------
+
+# The served bound of a logit near-tie: where the card's greedy
+# speculative stream leaves its plain stream, the plain logits' top two
+# must lie within this (serve_fused's fused-vs-unfused logit bound).
+SPEC_TIE_BOUND = 0.1
+SPEC_K = 4
+SPEC_MLA_FUSED_K = 3        # B 8 x 4 = 32 rows: the MLA prologue's limit
+SPEC_SHALLOW_LAYERS = 4     # serve_spec's int8/fp8, LoRA, self-draft, MLA
+SPEC_RUN_LEN = 480          # the repeated token of _spec_prompts' two
+
+
+def _spec_prompts(params, cfg, dev):
+    """serve_spec's 8 prompts for one model: the serve phase's first six
+    (17-700 tokens) and two that hold their own continuation, so that
+    the n-gram proposer has continuations from the first round. A
+    48-token pattern repeated four times gives it none here: a
+    model of random weights follows no pattern, and the seeded
+    llama3-8b's 32 new tokens repeat no earlier token, so lookup finds
+    nothing. What it does follow is itself: a prompt of one token t
+    repeated 480 times gives every position the same hidden state (every
+    value attended is v(t)), and its greedy continuation C (32 tokens)
+    stays mostly determined by that long context. Each prompt is C then
+    t x 480: at its end the model continues about as C runs, and n-gram
+    lookup retrieves C — a document that holds its own answer."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    prompts, _ = _serve_prompts(cfg)
+    rng = np.random.default_rng(48)
+    bases = [np.full(SPEC_RUN_LEN, int(t), np.int32)
+             for t in rng.integers(0, cfg.vocab_size - 1, 2)]
+    eng = DynamicInferenceEngine(params, cfg, max_batch=2,
+                                 max_seq_len=SPEC_RUN_LEN + 64, device=dev)
+    ids = [eng.add_request(b, 32, SamplingParams(greedy=True))
+           for b in bases]
+    res = eng.run_to_completion()
+    del eng
+    return prompts[:6] + [np.concatenate([res[r][SPEC_RUN_LEN:], b])
+                          .astype(np.int32) for r, b in zip(ids, bases)]
+
+
+def _first_divergence(streams, plain):
+    """Per request, the first generated index where `streams` leaves
+    `plain` (None where they agree)."""
+    import numpy as np
+    out = []
+    for a, b in zip(streams, plain):
+        diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+        out.append(int(diff[0]) if len(diff) else None)
+    return out
+
+
+def _layer_view(params, n):
+    """The first n layers of a model's params, sharing every tensor (a
+    cut-depth model without a copy)."""
+    from torch import nn
+
+    from megatronapp_tpu_torch.utils.params import ParamTree
+    top = dict(params.named_parameters(recurse=False))
+    return ParamTree({k: v.data for k, v in top.items()},
+                     embedding=params["embedding"],
+                     layers=nn.ModuleList(list(params["layers"])[:n]))
+
+
+def _spec_counters():
+    from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
+    from megatronapp_tpu_torch.ops.cuda import fused_mla as fm
+    from megatronapp_tpu_torch.ops.cuda import lora as cl
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    from megatronapp_tpu_torch.ops.cuda import paged_latent as pl
+    return {"paged": pa.launches, "latent": pl.launches,
+            "fused": fd.launches, "fused_lora": fd.lora_launches,
+            "prologue": fm.launches, "lora": cl.launches}
+
+
+def _spec_launch_checks(name, cfg, engine, got, steps, chunks, rounds,
+                        kind, fused, lora, int8_weights):
+    """Every layer of every plain decode step, prefill chunk and verify
+    round launched its kernels once, and nothing else ran: the ragged
+    paged kernel (row 1; row 7 for MLA) once a layer in each chunk and
+    each verify round, the decode kernel in each plain step; fused, each
+    fused kernel once a layer in each of them (MLA: the prologue's two
+    kernels, out-projection and MLP); with adapters, the LoRA shrinks and
+    the fused kernels' epilogues (or the expands) likewise."""
+    layers = cfg.num_layers
+    sfx = "" if kind == "bf16" else f"_{kind}"
+    units = layers * (steps + chunks + rounds)
+    want = {"paged": {}, "latent": {}, "fused": {}, "fused_lora": {},
+            "prologue": {}, "lora": {}}
+    attn = "latent" if cfg.multi_latent_attention else "paged"
+    want[attn] = {f"decode{sfx}": layers * steps,
+                  f"ragged{sfx}": layers * (chunks + rounds)}
+    if fused:     # resident int8 weights count under "<kernel>_int8"
+        if cfg.multi_latent_attention:
+            want["prologue"] = {"mla_down": units, "mla_up": units}
+            want["fused"] = dict.fromkeys(
+                ("out_proj", "mlp_fc1", "mlp_fc2"), units)
+        else:
+            want["fused_lora" if lora else "fused"] = dict.fromkeys(
+                (k + ("_int8" if int8_weights else "")
+                 for k in FUSED_KERNELS), units)
+    if lora:
+        want["lora"] = lora_launches_per_layer(fused, units)
+    for fam, counts in got.items():
+        check(counts == only(counts, want[fam]),
+              f"{name}: {fam} launches {counts}, expected {want[fam]} "
+              f"({layers} layers x ({steps} plain steps + {chunks} chunks "
+              f"+ {rounds} verify rounds))")
+    check(engine.megakernel is fused, f"{name}: megakernel is "
+          f"{engine.megakernel}")
+
+
+def _rejection_gaps():
+    """A context that records, for every rejected greedy draft, the
+    target's logit gap between its argmax and the draft token at the
+    rejected position (wrapping the verifier the engine calls)."""
+    import contextlib
+
+    from megatronapp_tpu_torch.inference import speculative as sp
+
+    @contextlib.contextmanager
+    def recording():
+        gaps, verify = [], sp._verify_and_sample
+
+        def wrapped(logits, drafts, q_lens, q_probs, rows, *, point_mass):
+            a, out = verify(logits, drafts, q_lens, q_probs, rows,
+                            point_mass=point_mass)
+            for b in range(len(a)):
+                if not rows["sampled"][b] and a[b] < q_lens[b] - 1:
+                    row = logits[b, int(a[b])].float()
+                    gaps.append(float(row.max()
+                                      - row[int(drafts[b, int(a[b])])]))
+            return a, out
+        sp._verify_and_sample = wrapped
+        try:
+            yield gaps
+        finally:
+            sp._verify_and_sample = verify
+    return recording()
+
+
+def _spec_run(name, params, cfg, dev, prompts, *, method=None, k=SPEC_K,
+              fused=False, kind="bf16", draft=None, cache=None, routes=None,
+              max_new=32, drill=False, gaps=None):
+    """One engine over `prompts` (32 greedy new tokens each): driven as a
+    server drives it (the driver; warm-up first), or, for a `drill` pair,
+    stepped directly (a clean run, then one whose spec-verify site fires
+    once, which must give the same streams and the same drafts proposed
+    and accepted). `gaps`, a _rejection_gaps list, is emptied after the
+    warm-up, so it holds the measured requests' rejections. Checks the
+    kernels' launches a layer (``_spec_launch_checks``), the pool's audit
+    with every block back, and returns the run's figures and streams (new
+    tokens)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.quantization import is_resident_leaf
+    from megatronapp_tpu_torch.inference.server import DynamicBatchingDriver
+    from megatronapp_tpu_torch.utils import chaos
+    greedy = SamplingParams(greedy=True)
+    kw = dict(max_batch=8, max_seq_len=2048, block_size=16,
+              prefill_chunk=32, device=dev, fused_decode=fused,
+              kv_cache_dtype=kind, adapter_cache=cache)
+    if method is not None:
+        kw.update(spec_method=method, spec_k=k)
+        if method == "draft":
+            kw.update(draft_params=draft[0], draft_cfg=draft[1])
+    engine = DynamicInferenceEngine(params, cfg, **kw)
+    check(engine.spec_method == method, f"{name}: spec_method "
+          f"{engine.spec_method}")
+    counters = _spec_counters()
+    out = {"method": method, "k": k if method else None,
+           "layers": cfg.num_layers, "kv_cache_dtype": kind,
+           "megakernel": engine.megakernel}
+    if drill:
+        streams, stats = [], []
+        faults = 0
+        for fault in (False, True):
+            spec0 = dict(engine.spec_stats)
+            ids = [engine.add_request(p, max_new, greedy,
+                                      adapter_id=None if routes is None
+                                      else routes[i])
+                   for i, p in enumerate(prompts)]
+            if fault:
+                chaos.arm("spec-verify", times=1, after=2)
+            try:
+                while engine.has_work:
+                    try:
+                        engine.step()
+                    except chaos.ChaosFault:
+                        faults += 1
+                        engine.pool.audit()
+            finally:
+                chaos.disarm()
+            streams.append([engine.requests.pop(r).tokens[len(p):]
+                            for r, p in zip(ids, prompts)])
+            stats.append({s: engine.spec_stats[s] - spec0[s]
+                          for s in ("rounds", "proposed", "accepted")})
+        check(faults == 1, f"{name}: the spec-verify fault fired {faults} "
+              "times")
+        same = all(np.array_equal(a, b) for a, b in zip(*streams))
+        check(same, f"{name}: the spec-verify drill changed the streams")
+        check(stats[0] == stats[1], f"{name}: the spec-verify drill changed "
+              f"the drafts: {stats[0]} clean, {stats[1]} with the fault")
+        engine.pool.audit()
+        check(engine.pool.blocks_in_use() == 0,
+              f"{name}: {engine.pool.blocks_in_use()} blocks still in use")
+        out.update(drill_faults=faults, drill_streams_equal=same,
+                   drill_spec=stats)
+        del engine
+        torch.cuda.empty_cache()
+        return out, streams[0]
+    driver = DynamicBatchingDriver(engine)
+    try:
+        rid, done = driver.submit(prompts[0][:20], 4, greedy,
+                                  adapter_id=None if routes is None
+                                  else routes[0])
+        check(done.wait(timeout=600), f"{name}: warm-up did not finish")
+        driver.result_tokens(rid)
+        spec0 = dict(engine.spec_stats)
+        if gaps is not None:
+            gaps.clear()
+        steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+        draft0 = getattr(engine.proposer, "steps", 0)
+        for c in counters.values():
+            c.update(dict.fromkeys(c, 0))
+        torch.cuda.synchronize()
+        streams, times, t0, t1 = _serve_once(driver, prompts, max_new,
+                                             greedy, adapters=routes)
+        got = {f: dict(c) for f, c in counters.items()}
+    finally:
+        driver.close()
+    spec = {s: engine.spec_stats[s] - spec0[s] for s in spec0}
+    steps = engine.decode_steps - steps0
+    chunks = engine.prefill_chunks - chunks0
+    for p, s in zip(prompts, streams):
+        check(s is not None and len(s) == len(p) + max_new
+              and np.array_equal(s[:len(p)], p)
+              and bool(((s[len(p):] >= 0)
+                        & (s[len(p):] < cfg.vocab_size)).all()),
+              f"{name}: a stream of the wrong length or vocabulary")
+    _spec_launch_checks(
+        name, cfg, engine, got, steps, chunks, spec["rounds"], kind, fused,
+        cache is not None,
+        is_resident_leaf(params["layers"][0]["attention"].get("q_kernel")))
+    engine.pool.audit()
+    check(engine.pool.blocks_in_use() == 0,
+          f"{name}: {engine.pool.blocks_in_use()} blocks still in use")
+    if cache is not None:
+        cache.audit()
+    if method is not None:
+        check(spec["rounds"] > 0 and spec["proposed"] > 0,
+              f"{name}: no verify round proposed anything: {spec}")
+    iv = [(t[-1] - t[1]) * 1e3 / (len(t) - 2) for t in times]
+    out.update(
+        rounds=spec["rounds"], plain_steps=steps, prefill_chunks=chunks,
+        proposed=spec["proposed"], accepted=spec["accepted"],
+        acceptance=(spec["accepted"] / spec["proposed"]
+                    if spec["proposed"] else None),
+        tokens_per_model_step=(spec["emitted_tokens"] / spec["model_steps"]
+                               if spec["model_steps"] else None),
+        model_steps=spec["model_steps"],
+        draft_model_steps=getattr(engine.proposer, "steps", 0) - draft0,
+        launches={f: {n: c for n, c in v.items() if c}
+                  for f, v in got.items() if any(v.values())},
+        verify_launches_per_round_per_layer=(
+            (got["latent" if cfg.multi_latent_attention else "paged"]
+             [f"ragged{'' if kind == 'bf16' else '_' + kind}"]
+             - cfg.num_layers * chunks) / (spec["rounds"] * cfg.num_layers)
+            if spec["rounds"] else None),
+        decode_interval_ms_median=float(np.median(iv)),
+        ttft_ms_median=float(np.median([(t[1] - t[0]) * 1e3
+                                        for t in times])),
+        wall_s=t1 - t0)
+    del engine, driver
+    torch.cuda.empty_cache()
+    return out, [s[len(p):] for p, s in zip(prompts, streams)]
+
+
+def _spec_reference_models(dev):
+    """phase_reference's tiny llama-shaped model and phase_mla_reference's
+    tiny MLA twin: (name, cfg_ref, cfg_dev, params on the CPU in fp32,
+    params on the card in bf16)."""
+    import copy
+
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05)
+    mla_small = dict(small, num_query_groups=4, kv_lora_rank=128,
+                     qk_head_dim=64, qk_pos_emb_head_dim=64, v_head_dim=64)
+    out = []
+    for name, cfg_ref, cfg_dev in (
+            ("llama", llama3_8b(compute_dtype=torch.float32, **small),
+             llama3_8b(params_dtype=torch.bfloat16, **small)),
+            ("mla", mla_cfg(compute_dtype=torch.float32,
+                            params_dtype=torch.float32, **mla_small),
+             mla_cfg(**mla_small))):
+        p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(7),
+                                "cpu")
+        p_dev = copy.deepcopy(p_ref).to(device=dev, dtype=torch.bfloat16)
+        out.append((name, cfg_ref, cfg_dev, p_ref, p_dev))
+    return out
+
+
+def phase_spec_reference(state):
+    """phase_reference's tiny llama-shaped model and its MLA twin with the
+    n-gram proposer, on a bf16 and an int8 pool, unfused and fused: the
+    verify step's logits on the card (bf16, kernels) against the CPU
+    (fp32, plain versions) on the same admitted prompts and the same
+    verify batch (B 4, S_q 5, q_lens mixed), within the reference phase's
+    5 % of the logit range; then the card's greedy speculative streams
+    against its plain greedy streams, each first divergence reported and
+    held to a near-tie of the plain logits (top two within
+    SPEC_TIE_BOUND)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    counters = _spec_counters()
+    before = {f: dict(c) for f, c in counters.items()}
+    rng = np.random.default_rng(55)
+    prompts = [np.tile(rng.integers(0, 511, 8), 4).astype(np.int32),
+               rng.integers(0, 511, 40).astype(np.int32),
+               np.tile(rng.integers(0, 511, 5), 6).astype(np.int32),
+               rng.integers(0, 511, 17).astype(np.int32)]
+    b, s = 4, SPEC_K + 1
+    v_tokens = rng.integers(0, 511, (b, s)).astype(np.int32)
+    q_lens = np.asarray([1, 5, 3, 5], np.int32)
+    greedy = SamplingParams(greedy=True)
+    runs = {}
+
+    def engine(p, cfg, d, kind, fused, method=None):
+        return DynamicInferenceEngine(
+            p, cfg, max_batch=b, max_seq_len=128, block_size=16,
+            prefill_chunk=32, device=d, kv_cache_dtype=kind,
+            fused_decode=fused, spec_method=method, spec_k=SPEC_K)
+
+    for mname, cfg_ref, cfg_dev, p_ref, p_dev in _spec_reference_models(dev):
+        for kind in ("bf16", "int8"):
+            for fused in (False, True):
+                name = f"{mname}_{kind}_{'fused' if fused else 'unfused'}"
+                logits = {}
+                for side, p, cfg, d in (("ref", p_ref, cfg_ref, "cpu"),
+                                        ("dev", p_dev, cfg_dev, dev)):
+                    eng = engine(p, cfg, d, kind, fused, "ngram")
+                    check(eng.megakernel is fused,
+                          f"spec_reference {name}: megakernel")
+                    for pr in prompts:
+                        eng.add_request(pr, 16, greedy)
+                    eng._admit()
+                    for slot in range(b):
+                        n = int(eng.lengths[slot])
+                        check(eng.pool.extend_capacity(slot, n, s) == s,
+                              f"spec_reference {name}: no verify blocks")
+                    logits[side] = eng._verify_step(
+                        v_tokens, q_lens, np.ones(b, bool)).float().cpu()
+                    del eng
+                real = (np.arange(s)[None, :] < q_lens[:, None])
+                ref, got = logits["ref"][real], logits["dev"][real]
+                check(bool(torch.isfinite(got).all()),
+                      f"spec_reference {name}: non-finite verify logits")
+                rel = float((got - ref).abs().max() / ref.abs().max())
+                agree = float((got.argmax(-1) == ref.argmax(-1))
+                              .float().mean())
+                check(rel < 0.05, f"spec_reference {name}: verify-step "
+                      f"logit error {rel} of the range >= 0.05")
+                # The card's speculative greedy streams against its plain
+                # greedy streams.
+                streams = {}
+                for method in (None, "ngram"):
+                    eng = engine(p_dev, cfg_dev, dev, kind, fused, method)
+                    ids = [eng.add_request(pr, 16, greedy) for pr in prompts]
+                    res = eng.run_to_completion()
+                    eng.pool.audit()
+                    check(eng.pool.blocks_in_use() == 0,
+                          f"spec_reference {name}: blocks left in use")
+                    streams[method] = [res[r][len(pr):]
+                                       for r, pr in zip(ids, prompts)]
+                    if method:
+                        spec = dict(eng.spec_stats)
+                    del eng
+                div = _first_divergence(streams["ngram"], streams[None])
+                gaps = []
+                for i, j in enumerate(div):
+                    if j is None:
+                        continue
+                    seq = np.concatenate([prompts[i], streams[None][i][:j]])
+                    last = _chunked_prefill(p_dev, cfg_dev, seq.tolist(), dev,
+                                            fused, kv_cache_dtype=kind)[-1]
+                    top2 = last.topk(2).values
+                    gap = float(top2[0] - top2[1])
+                    gaps.append(gap)
+                    check(gap <= SPEC_TIE_BOUND,
+                          f"spec_reference {name}: request {i} leaves the "
+                          f"plain stream at token {j}, where the plain "
+                          f"logits' top two are {gap} apart (> "
+                          f"{SPEC_TIE_BOUND})")
+                check(spec["rounds"] > 0 and spec["proposed"] > 0,
+                      f"spec_reference {name}: nothing was proposed")
+                runs[name] = {"verify_max_rel_err": rel,
+                              "verify_argmax_agreement": agree,
+                              "first_divergence": div,
+                              "top2_gap_at_divergence": gaps,
+                              "rounds": spec["rounds"],
+                              "proposed": spec["proposed"],
+                              "accepted": spec["accepted"]}
+    for f, c in counters.items():
+        c.update(before[f])
+    seconds = time.perf_counter() - t_phase
+    state["spec_reference_s"] = seconds
+    emit({"phase": "spec_reference", "spec_k": SPEC_K,
+          "tie_bound": SPEC_TIE_BOUND, "runs": runs, "seconds": seconds})
+
+
+def phase_serve_spec(state, layers: int):
+    """Speculative decoding on the served model (serve.py --spec-method
+    ngram|draft --spec-k 4, with and without --megakernel-decode): serve's
+    seed-0 llama3-8b at full width behind the driver, on the serve phase's
+    engine settings (max_batch 8, max_seq_len 2048, block 16, chunk 32),
+    8 greedy requests (_spec_prompts, built for each model: six of
+    serve's and two that hold their own continuation), 32 new tokens
+    each:
+    (a) plain, then n-gram unfused and fused, all `layers` layers;
+    (b) the draft model: llama3_8b(num_layers=2) with seed-1 weights at
+        full depth, unfused; and a self-draft at 4 layers (the draft's
+        params are the target's own), every rejection at a near-tie of
+        the target's logits, at least 0.9 of the drafts accepted with
+        those rejections counted as accepted, the plain acceptance beside
+        0.9;
+    (c) 4 layers: n-gram on int8 (fused) and fp8 pools, fused with
+        serve_lora's adapters (cut to the served depth) on LORA_ROUTE, and
+        fused on serve_quant's resident int8 weights;
+    (d) the MLA llama3-8b (seed 0) at 4 layers with n-gram: unfused at k 4,
+        fused at k 3 (B 8 x 4 = 32 rows, the prologue's limit), on int8
+        (fused) and fp8 latent pools at k 3; fused at k 4 (40 rows) falls
+        back to the unfused step, as the predicate says.
+    Every run: its launches a layer, the pool's audit with every block
+    back; a spec-verify drill on the 4-layer n-gram engine (the same
+    streams and drafts as without the fault). Each run's
+    rounds, drafts proposed and accepted, tokens per model step, the first
+    divergence from the plain streams of its model and depth (reported
+    only), and the median decode interval beside plain's (host clock)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch import serve
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.inference.lora import (
+        AdapterCache, AdapterRegistry,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    t_phase = time.perf_counter()
+    params, cfg, dev = state["model"]
+    check(cfg.num_layers == layers, "serve_spec: the served depth")
+    # serve.py's flags, as a user passes them.
+    args = serve.parse_args(["--preset", "llama3-8b", "--engine", "dynamic",
+                             "--paged-kv-cache", "--spec-method", "ngram",
+                             "--spec-k", str(SPEC_K)])
+    check((args.spec_method, args.spec_k) == ("ngram", SPEC_K),
+          "serve_spec: serve.py's flags")
+    runs, plain, prompts = {}, {}, {}
+
+    def run(key, p, c, method=None, **kw):
+        model = (c.num_layers, c.multi_latent_attention)
+        if model not in prompts:
+            prompts[model] = _spec_prompts(p, c, dev)
+        out, streams = _spec_run(f"serve_spec {key}", p, c, dev,
+                                 prompts[model], method=method, **kw)
+        ref = plain.get(model)
+        if method is None and ref is None:
+            plain[model] = streams
+            ref = streams
+        if "drill_faults" not in out:
+            out["first_divergence_from_plain"] = _first_divergence(streams,
+                                                                   ref)
+        runs[key] = out
+        return out
+
+    # (a) the served depth.
+    run("plain", params, cfg)
+    run("ngram", params, cfg, args.spec_method, k=args.spec_k)
+    run("ngram_fused", params, cfg, "ngram", fused=True)
+    # (b) the draft model, full depth; a self-draft at 4 layers.
+    dcfg = llama3_8b(num_layers=2, params_dtype=torch.bfloat16)
+    dparams = init_gpt_params(dcfg, torch.Generator(dev).manual_seed(1), dev)
+    run("draft", params, cfg, "draft", draft=(dparams, dcfg))
+    del dparams
+    shallow = _layer_view(params, SPEC_SHALLOW_LAYERS)
+    scfg = llama3_8b(num_layers=SPEC_SHALLOW_LAYERS,
+                     params_dtype=torch.bfloat16)
+    run("plain_4_layers", shallow, scfg)
+    # The self-draft: the draft's dense plain-PyTorch steps against the
+    # target's kernels on the same weights. Their bf16 logits differ by
+    # an ulp or two, and a random model's top two logits lie that close
+    # (or tie) at ~1 position in 20 (128256 tokens), so the drafts are
+    # rejected there, and the drafts after a rejection in its round are
+    # lost with it; a fault of the draft machinery (positions, catch-up,
+    # stale KV) would reject drafts at clear margins. So every rejection
+    # must lie at a near-tie (SPEC_TIE_BOUND), and the acceptance that
+    # counts each near-tie rejection as an acceptance (the drafts after
+    # it stay lost) must reach 0.9; the plain acceptance is reported
+    # beside 0.9.
+    with _rejection_gaps() as gaps:
+        self_draft = run("self_draft_4_layers", shallow, scfg, "draft",
+                         draft=(shallow, scfg), gaps=gaps)
+    near = sum(g <= SPEC_TIE_BOUND for g in gaps)
+    net = ((self_draft["accepted"] + near) / self_draft["proposed"]
+           if self_draft["proposed"] else 0.0)
+    self_draft.update(rejections=len(gaps), near_tie_rejections=near,
+                      rejection_logit_gaps=sorted(gaps),
+                      acceptance_near_ties_accepted=net,
+                      acceptance_at_least_0_9=self_draft["acceptance"] >= 0.9)
+    check(self_draft["proposed"] > 0 and near == len(gaps),
+          f"serve_spec: the self-draft's drafts were rejected where the "
+          f"target's argmax led them by {max(gaps, default=0.0)} (> "
+          f"{SPEC_TIE_BOUND}): rejection logit gaps {sorted(gaps)}")
+    check(net >= 0.9, f"serve_spec: the self-draft accepted {net} of its "
+          "drafts with each near-tie rejection counted as accepted (< 0.9)")
+    # (c) 4 layers: quantized pools, LoRA, and the spec-verify drill.
+    run("ngram_int8_fused_4_layers", shallow, scfg, "ngram", kind="int8",
+        fused=True)
+    run("ngram_fp8_4_layers", shallow, scfg, "ngram", kind="fp8")
+    reg = AdapterRegistry()
+    for aid in state["lora_registry"].ids():
+        ad = state["lora_registry"].get(aid)
+        reg.register(type(ad)(aid, ad.rank, {
+            t: v[:SPEC_SHALLOW_LAYERS] for t, v in ad.a.items()}, {
+            t: v[:SPEC_SHALLOW_LAYERS] for t, v in ad.b.items()}))
+    cache = AdapterCache(scfg, reg, max_resident=4, rank=LORA_RANK,
+                         device=dev)
+    run("ngram_lora_fused_4_layers", shallow, scfg, "ngram", fused=True,
+        cache=cache, routes=LORA_ROUTE)
+    del cache
+    run("ngram_drill_4_layers", shallow, scfg, "ngram", drill=True)
+    if "qmodel" in state:     # serve_quant's resident int8 weights
+        run("ngram_int8_weights_fused_4_layers",
+            _layer_view(state["qmodel"][0], SPEC_SHALLOW_LAYERS), scfg,
+            "ngram", fused=True)
+    # (d) MLA at 4 layers.
+    mcfg = mla_cfg(num_layers=SPEC_SHALLOW_LAYERS)
+    mparams = init_gpt_params(mcfg, torch.Generator(dev).manual_seed(0), dev)
+    run("mla_plain_4_layers", mparams, mcfg)
+    run("mla_ngram_4_layers", mparams, mcfg, "ngram")
+    run("mla_ngram_fused_k3_4_layers", mparams, mcfg, "ngram",
+        k=SPEC_MLA_FUSED_K, fused=True)
+    run("mla_ngram_int8_fused_k3_4_layers", mparams, mcfg, "ngram",
+        k=SPEC_MLA_FUSED_K, kind="int8", fused=True)
+    run("mla_ngram_fp8_k3_4_layers", mparams, mcfg, "ngram",
+        k=SPEC_MLA_FUSED_K, kind="fp8")
+    over = DynamicInferenceEngine(mparams, mcfg, max_batch=8,
+                                  max_seq_len=2048, device=dev,
+                                  spec_method="ngram", spec_k=SPEC_K,
+                                  fused_decode=True)
+    fallback = {"mq_rows": over.mq_rows, "megakernel": over.megakernel}
+    check(over.mq_rows == 8 * (SPEC_K + 1) and not over.megakernel,
+          f"serve_spec: the fused MLA engine at k {SPEC_K} kept "
+          f"megakernel={over.megakernel} at {over.mq_rows} rows")
+    del over, mparams, shallow
+    torch.cuda.empty_cache()
+    # The verify rows' launches on the speculative path (kernel_table).
+    state["spec_launches"] = {
+        "verify": runs["ngram"]["rounds"] * layers,
+        "verify_int8": runs["ngram_int8_fused_4_layers"]["rounds"]
+        * SPEC_SHALLOW_LAYERS,
+        "verify_fp8": runs["ngram_fp8_4_layers"]["rounds"]
+        * SPEC_SHALLOW_LAYERS,
+        "latent_verify_sq5": runs["mla_ngram_4_layers"]["rounds"]
+        * SPEC_SHALLOW_LAYERS,
+        "latent_verify": runs["mla_ngram_fused_k3_4_layers"]["rounds"]
+        * SPEC_SHALLOW_LAYERS,
+        "latent_verify_int8": runs["mla_ngram_int8_fused_k3_4_layers"][
+            "rounds"] * SPEC_SHALLOW_LAYERS,
+        "latent_verify_fp8": runs["mla_ngram_fp8_k3_4_layers"]["rounds"]
+        * SPEC_SHALLOW_LAYERS,
+        "fused_verify": runs["ngram_fused"]["rounds"] * layers,
+        "fused_int8_verify": runs.get(
+            "ngram_int8_weights_fused_4_layers", {}).get("rounds", 0)
+        * SPEC_SHALLOW_LAYERS}
+    seconds = time.perf_counter() - t_phase
+    state["serve_spec_s"] = seconds
+    emit({"phase": "serve_spec", "model": "llama3-8b", "layers": layers,
+          "spec_k": SPEC_K, "mla_fused_k": SPEC_MLA_FUSED_K,
+          "requests": 8,
+          "prompt_lens": [len(p) for p in prompts[(layers, False)]],
+          "max_new_tokens": 32, "runs": runs,
+          "mla_fused_k4_fallback": fallback,
+          "note": "decode_interval_ms_median: host clock, median over the "
+                  "requests of (last token - first token) / (tokens - 1); "
+                  "first_divergence_from_plain: the first generated index "
+                  "where a run leaves the plain run of its model and depth "
+                  "(reported only; bf16 kernels)",
+          "seconds": seconds})
 
 
 def _serve_mla_run(params, cfg, dev, kind, fused):
@@ -2899,14 +3563,15 @@ def _time_latent(case):
 
 def _mla_latent_times(state):
     """Row 7 at the shapes serve_mla launches it: decode with B 8 at kv
-    1024 and the ragged chunk B 1, S_q 32 at kv 1024, on bf16, int8 and
-    fp8 pools, page tables rotated beyond the L2 cache."""
+    1024 and the ragged chunk B 1, S_q 32 at kv 1024, and serve_spec's
+    fused MLA verify step (B 8, S_q 4 at kv 1024), on bf16, int8 and fp8
+    pools, page tables rotated beyond the L2 cache."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(707)
     out = {}
     for kind in ("bf16", "int8", "fp8"):
         for mode, (batch, s_q) in (("decode", (8, None)),
-                                   ("ragged", (1, 32))):
+                                   ("ragged", (1, 32)), ("verify", (8, 4))):
             case = make_latent_case(
                 gen, dev, batch=batch, kv_lens=[1024] * batch, s_q=s_q,
                 q_lens=None if s_q is None else [s_q] * batch, kind=kind,
@@ -3629,7 +4294,7 @@ def phase_tp_times(state):
     out = {}
     for kind in ("bf16", "int8", "fp8"):
         for mode, (batch, s_q) in (("decode", (8, None)),
-                                   ("ragged", (1, 32))):
+                                   ("ragged", (1, 32)), ("verify", (8, 4))):
             case = make_latent_case(
                 gen, dev, batch=batch, kv_lens=[1024] * batch, s_q=s_q,
                 q_lens=None if s_q is None else [s_q] * batch, kind=kind,
@@ -3924,7 +4589,8 @@ def phase_times(state):
     """Each mode at the shape the engine launches it: decode with B =
     max_batch = 8 at kv 1024, ragged with B = 1 (the engine prefills one
     request per chunk) and S_q = 32, at kv 1024 and across the prompt
-    range; ragged at B = 8 as a second, labelled row."""
+    range, and the speculative verify step (B 8, S_q 5 at kv 1024); ragged
+    at B = 8, S_q 32 as a second, labelled row."""
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(99)
@@ -3941,13 +4607,15 @@ def phase_times(state):
                          pool_bytes=TIMED_POOL_BYTES)
 
     rows = {"decode": _time_case(case(8, 1024), hq, hkv, d, bs),
-            "ragged": _time_case(case(1, 1024, 32), hq, hkv, d, bs)}
+            "ragged": _time_case(case(1, 1024, 32), hq, hkv, d, bs),
+            # The speculative verify step at spec_k 4: B 8 of S_q 5.
+            "verify": _time_case(case(8, 1024, 5), hq, hkv, d, bs)}
     # Quantized pools hold half the bytes: twice the tables keep their K/V
     # beyond the L2 cache.
     quant = {}
     for kind in QUANT_KINDS:
         for mode, (batch, s_q) in (("decode", (8, None)),
-                                   ("ragged", (1, 32))):
+                                   ("ragged", (1, 32)), ("verify", (8, 5))):
             c = make_case(gen, dev, batch=batch, hq=hq, hkv=hkv, d=d, bs=bs,
                           kv_lens=[1024] * batch, s_q=s_q,
                           q_lens=None if s_q is None else [s_q] * batch,
@@ -4021,8 +4689,9 @@ def _fused_bytes_flops(cfg, kernel, rows, int8=False, lora_ids=None):
 
 
 def _fused_times(state, model="model", lora=False):
-    """Each fused kernel at the decode (8 rows) and prefill-chunk (32
-    rows) shapes of llama3-8b, rotating through the served model's 32
+    """Each fused kernel at the decode (8 rows), prefill-chunk (32 rows)
+    and speculative verify (40 rows: B 8 x 5) shapes of llama3-8b,
+    rotating through the served model's 32
     layers so that every launch finds its weights cold (each layer's
     weights of one kernel are 33.6-234.9 MB in bf16, half that in int8;
     L2 is 50 MB). Beside the kernel: its plain version (the unfused
@@ -4066,8 +4735,11 @@ def _fused_times(state, model="model", lora=False):
                 "mlp_fc2": p["mlp"]["fc2_kernel"]}[kernel]
 
     out = {}
-    for rows in (8, 32):
-        ids = (LORA_DECODE_IDS if rows == 8 else [3] * rows) if lora else None
+    for rows in (8, 32, VERIFY_ROWS):
+        ids = None
+        if lora:
+            ids = {8: LORA_DECODE_IDS, 32: [3] * 32,
+                   VERIFY_ROWS: LORA_VERIFY_IDS}[rows]
         segs = LoraRows(np.asarray(ids), dev) if lora else None
 
         def lo():
@@ -4724,6 +5396,22 @@ def kernel_table(state):
                 "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
                 "library_ms": t.get("library_ms")})
+    # The speculative verify step's shapes (serve_spec's launches).
+    spec = state.get("spec_launches", {})
+    for kind in ("", "_int8", "_fp8"):
+        t = (state.get("times", {}).get("verify", {}) if not kind else
+             state.get("quant_times", {}).get(f"verify{kind}", {}))
+        out.append({
+            "name": f"paged_attention_verify{kind} (B 8, S_q 5)",
+            "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": QUANT_REPLACES if kind else REPLACES,
+            "launches": spec.get(f"verify{kind}"),
+            "max_abs_err": (state.get("quant_err", {}).get(f"ragged{kind}")
+                            if kind else state.get("max_abs_err", {}).get(
+                                "ragged")),
+            "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms")})
     for variant, times, launches, errs in (
             ("", "fused_times", "fused_launches", "fused_err"),
             ("_int8", "fused_int8_times", "fused_int8_launches",
@@ -4736,6 +5424,21 @@ def kernel_table(state):
                 "replaces": FUSED_REPLACES[kernel] + (
                     " (resident int8 weights)" if variant else ""),
                 "launches": state.get(launches, {}).get(kernel),
+                "max_abs_err": state.get(errs, {}).get(kernel),
+                "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+                "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+                "library_ms": t.get("library_ms")})
+    for variant, times, errs in (("", "fused_times", "fused_err"),
+                                 ("_int8", "fused_int8_times",
+                                  "fused_int8_err")):
+        for kernel in FUSED_KERNELS:
+            t = state.get(times, {}).get(VERIFY_ROWS, {}).get(kernel, {})
+            out.append({
+                "name": f"fused_{kernel}{variant}_verify ({VERIFY_ROWS} "
+                        "rows)", "route": "cuda", "source": FUSED_SOURCE,
+                "replaces": FUSED_REPLACES[kernel] + (
+                    " (resident int8 weights)" if variant else ""),
+                "launches": spec.get(f"fused{variant}_verify"),
                 "max_abs_err": state.get(errs, {}).get(kernel),
                 "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
@@ -4786,6 +5489,20 @@ def kernel_table(state):
                 "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
                 "library_ms": t.get("library_ms")})
+    for kind in ("", "_int8", "_fp8"):
+        t = state.get("mla_latent_times", {}).get(f"verify{kind}", {})
+        out.append({
+            "name": f"paged_attention_latent_verify{kind} (B 8, S_q 4)",
+            "route": "cuda", "source": MLA_LATENT_SOURCE,
+            "replaces": MLA_LATENT_REPLACES + (
+                f" ({kind[1:]} pools: lat_scales/pe_scales)" if kind
+                else ""),
+            "launches": spec.get(f"latent_verify{kind}"),
+            "max_abs_err": state.get("mla_latent_err", {}).get(
+                f"ragged{kind}"),
+            "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms")})
     for kernel in ("scores", "wsum"):
         for kind in ("", "_int8", "_fp8"):
             for mode in ("decode", "ragged"):
@@ -4866,6 +5583,7 @@ def main(argv=None) -> int:
         phase_lora_reference(state)
         phase_mla_kernels(state)
         phase_mla_reference(state)
+        phase_spec_reference(state)
         phase_tp_kernels(state)
         phase_train_kernels(state)
         phase_train_reference(state)
@@ -4875,6 +5593,7 @@ def main(argv=None) -> int:
         phase_serve_fused(state)
         phase_serve_quant(state)
         phase_serve_lora(state)
+        phase_serve_spec(state, args.layers)
         phase_serve_mla(state)
         phase_profile(state)
         phase_times(state)

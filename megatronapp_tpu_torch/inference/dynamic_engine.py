@@ -53,9 +53,18 @@ hits, copy-on-write copies and preemption stay identical across ranks
 and no clock is read off rank 0. Followers run ``follow()``; the lead
 ends it with ``release_followers()``.
 
-Not ported yet (each raises at construction): the dense slot cache,
-speculative decoding, the host spill tier, and LoRA or a rolling reload
-under tp; per-tenant accounting (``tenant=``) raises at submit.
+``spec_method`` ("ngram" or "draft"; "mtp" warns and decodes plainly, as
+JAX does for a model without MTP heads) turns on speculative decoding
+(inference/speculative.py): every round proposes up to ``spec_k`` drafts
+a slot, verifies them all in one ragged multi-query step at [B, K+1]
+(the paged kernels, unfused or fused), accepts by exact rejection
+sampling — greedy streams are the plain greedy streams — and rewinds the
+rejected drafts' blocks. A round where nothing is proposed takes the
+plain one-token step.
+
+Not ported yet (each raises at construction): the dense slot cache, the
+host spill tier, and LoRA, speculation or a rolling reload under tp;
+per-tenant accounting (``tenant=``) raises at submit.
 """
 
 from __future__ import annotations
@@ -97,6 +106,7 @@ from megatronapp_tpu_torch.ops.paged_attention import (
 from megatronapp_tpu_torch.parallel import collectives
 from megatronapp_tpu_torch.trace.request_trace import get_request_tracer
 from megatronapp_tpu_torch.transformer.block import layer_forward
+from megatronapp_tpu_torch.utils import chaos
 from megatronapp_tpu_torch.utils import metrics as telemetry
 from megatronapp_tpu_torch.utils.device import host_to, resolve_device
 
@@ -164,6 +174,9 @@ class Request:
     # the time the request last entered the queue (queue-wait telemetry).
     admit_t: float = 0.0
     queued_t: float = 0.0
+    # Speculative-decoding stats (spec_method engines):
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def tokens(self) -> np.ndarray:
@@ -173,6 +186,9 @@ class Request:
 
 TP_UNPORTED = ("LoRA serving under tensor parallelism is not ported yet "
                "(ROADMAP.md Queue 1): serve adapters on one card")
+SPEC_TP_UNPORTED = ("speculative decoding under tensor parallelism is not "
+                    "ported yet (ROADMAP.md Queue 1 item 1): speculate on "
+                    "one card")
 
 
 def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
@@ -262,11 +278,45 @@ def _paged_multiquery_step(params, tokens, pages, page_table, starts,
     return gpt_head(params, h, cfg), h, pages
 
 
-def _row_seed(seed: int, rid: int, step: int) -> int:
+@torch.no_grad()
+def _decode_step(params, tokens, cache, lengths, cfg: TransformerConfig,
+                 rope_tables=None):
+    """One-token decode for every slot against a dense per-slot cache
+    (JAX dynamic_engine.py:162; the speculative draft model's step).
+
+    tokens [B, 1]; cache (k, v) [L, B, S_max, Hkv, D], written IN PLACE;
+    lengths [B] (tokens already in each row's cache: the row appends
+    there). Row b attends cache positions <= lengths[b] through an
+    explicit per-row mask; JAX's `active` is not an operand (JAX's step
+    ignores it too: inactive rows write past their valid length, which
+    the next append overwrites). rope_tables: ``gpt_rope_tables`` over
+    [0, S_max) (built here when None). Returns (last_logits [B, V] fp32,
+    cache)."""
+    max_len = cache[0].shape[2]
+    if rope_tables is None:
+        rope_tables = gpt_rope_tables(cfg, max_len, device=tokens.device)
+    h = gpt_embed(params, tokens, cfg, position_ids=lengths[:, None])
+    cos, sin = _rope_rows(lengths.clamp(max=max_len - 1), rope_tables)
+    if cos is not None:
+        cos, sin = cos[:, None], sin[:, None]            # [B, 1, half]
+    attend = (torch.arange(max_len, device=tokens.device)[None, :]
+              <= lengths[:, None])
+    mask = attend[:, None, None, :]                      # [B, 1, 1, S_max]
+    ck, cv = cache
+    for lid, layer_p in enumerate(params["layers"]):
+        (h, _), _ = layer_forward(layer_p, h, cfg, cos, sin, mask,
+                                  kv_cache=(ck[lid], cv[lid]),
+                                  cache_positions=lengths)
+    return gpt_head(params, h, cfg)[:, -1], cache
+
+
+def _row_seed(seed: int, rid: int, step: int, *streams: int) -> int:
     """A 63-bit generator seed from (seed, request id, step): splitmix64
-    over the triple, so neighbouring triples share no stream."""
+    over the triple, so neighbouring triples share no stream. `streams`
+    extends the tuple with a stream tag (the speculative verifier's and
+    the draft model's own draws, inference/speculative.py)."""
     z = 0
-    for v in (seed, rid, step):
+    for v in (seed, rid, step) + streams:
         z = (z ^ (v & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
         z &= 0xFFFFFFFFFFFFFFFF
         z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
@@ -309,16 +359,24 @@ def _sample_rows(logits, rows: Dict[str, np.ndarray]) -> torch.Tensor:
         host_to(rows["temps"][sampled_rows], dev),
         host_to(rows["top_ks"][sampled_rows], dev),
         host_to(rows["top_ps"][sampled_rows], dev))
-    noise = torch.empty_like(x)
-    for j, i in enumerate(sampled_rows):
-        g = torch.Generator(device=dev)
-        g.manual_seed(_row_seed(int(rows["seeds"][i]), int(rows["rids"][i]),
-                                int(rows["steps"][i])))
-        noise[j].uniform_(generator=g)
-    gumbel = -torch.log(-torch.log(noise.clamp(min=1e-20)))
     out = greedy.clone()
-    out[idx] = (x + gumbel).argmax(dim=-1)
+    out[idx] = (x + _gumbel_rows(x.shape, [
+        _row_seed(int(rows["seeds"][i]), int(rows["rids"][i]),
+                  int(rows["steps"][i])) for i in sampled_rows],
+        dev)).argmax(dim=-1)
     return out
+
+
+def _gumbel_rows(shape, seeds, device) -> torch.Tensor:
+    """Gumbel noise [N, ..., V] fp32 whose row j (all of shape[1:]) is
+    drawn from its own generator seeded with seeds[j]: a row's noise is
+    the same bits whatever else is drawn beside it."""
+    noise = torch.empty(shape, dtype=torch.float32, device=device)
+    for j, seed in enumerate(seeds):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
+        noise[j].uniform_(generator=g)
+    return -torch.log(-torch.log(noise.clamp(min=1e-20)))
 
 
 class DynamicInferenceEngine:
@@ -337,9 +395,15 @@ class DynamicInferenceEngine:
     kv_cache_dtype: the pool's storage ("bf16": the compute dtype; "int8"
     or "fp8": quantized pages with fp32 scale pools).
 
-    fused_decode: run the decode and chunked-prefill steps' layers as the
-    fused kernels. Eligibility is decided once here, as the JAX engine
-    decides it (rows planned at max(max_batch, prefill_chunk)): when
+    spec_method, spec_k, draft_params, draft_cfg: speculative decoding
+    (module docstring); "draft" takes the draft model's params and config
+    (its vocab must be the target's). ``spec_stats`` counts rounds,
+    proposed and accepted drafts, emitted tokens and model steps.
+
+    fused_decode: run the decode, chunked-prefill and verify steps' layers
+    as the fused kernels. Eligibility is decided once here, as the JAX
+    engine decides it (rows planned at ``mq_rows``: max(max_batch,
+    prefill_chunk, max_batch·(spec_k+1) when speculating)): when
     ``megakernel_ineligible_reason`` names a failed predicate, a warning
     names it and the engine keeps the unfused step. ``megakernel`` says
     which step runs.
@@ -364,12 +428,17 @@ class DynamicInferenceEngine:
                  enable_prefix_caching: bool = True,
                  prefill_chunk: int = 32, kv_cache_dtype: str = "bf16",
                  device=None, spec_method: Optional[str] = None,
+                 spec_k: int = 4, draft_params=None, draft_cfg=None,
                  fused_decode: bool = False, adapter_cache=None,
                  spill_host_mb: float = 0.0, ctx=None):
+        speculate = spec_method not in (None, "none")
+        if speculate and not paged:
+            raise ValueError(
+                "speculative decoding runs over the paged-KV engine "
+                "(multi-token append + rollback need the block pool) "
+                "— pass paged=True")
         unported = {
             "paged=False (the dense slot cache)": not paged,
-            "spec_method (speculative decoding)":
-                spec_method not in (None, "none"),
             "spill_host_mb (the host-RAM spill tier)": bool(spill_host_mb),
         }
         asked = [name for name, on in unported.items() if on]
@@ -380,6 +449,8 @@ class DynamicInferenceEngine:
         validate_kv_cache_dtype(kv_cache_dtype, paged=paged)
         if ctx is not None and adapter_cache is not None:
             raise NotImplementedError(TP_UNPORTED)
+        if ctx is not None and speculate:
+            raise NotImplementedError(SPEC_TP_UNPORTED)
         self.device = resolve_device(
             ctx.device if device is None and ctx is not None else device)
         if ctx is not None and ctx.device != self.device:
@@ -420,14 +491,39 @@ class DynamicInferenceEngine:
         self.adapters = adapter_cache
         self.row_adapter = np.zeros((max_batch,), np.int32)
         self.lora_pinned_waits = 0     # admissions that waited on pins
+        self.lengths = np.zeros((max_batch,), np.int32)
+        self.last_tokens = np.zeros((max_batch, 1), np.int32)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        # Speculative decoding (inference/speculative.py): the proposer,
+        # or None — plain decode, also when the requested proposer is
+        # unavailable (it warns).
+        self.spec_method: Optional[str] = None
+        self.spec_k = int(spec_k)
+        self.proposer = None
+        self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0,
+                           "emitted_tokens": 0, "model_steps": 0}
+        if speculate:
+            from megatronapp_tpu_torch.inference.speculative import (
+                make_proposer,
+            )
+            self.proposer = make_proposer(spec_method, self,
+                                          draft_params=draft_params,
+                                          draft_cfg=draft_cfg)
+            if self.proposer is not None:
+                self.spec_method = spec_method
+        # The widest flattened row count a multi-query step sees: decode
+        # [B, 1], chunked prefill [1, prefill_chunk], speculative verify
+        # [B, K+1] (JAX dynamic_engine.py:666-671).
+        self.mq_rows = max(max_batch, self.prefill_chunk,
+                           max_batch * (self.spec_k + 1)
+                           if self.spec_method else 0)
         if adapter_cache is not None:
             self._check_adapter_cache(adapter_cache)
         self.megakernel = False
         if fused_decode:
             reason = megakernel_ineligible_reason(
                 cfg, batch=max_batch, params=self.params,
-                mq_rows=max(max_batch, self.prefill_chunk),
-                tp_paged=self.tp_paged,
+                mq_rows=self.mq_rows, tp_paged=self.tp_paged,
                 lora_rank=(adapter_cache.rank if adapter_cache is not None
                            else None))
             if reason is None:
@@ -449,9 +545,6 @@ class DynamicInferenceEngine:
                                            device=self.device)
         self._rt = get_request_tracer()
         self._last_round_t: Optional[float] = None
-        self.lengths = np.zeros((max_batch,), np.int32)
-        self.last_tokens = np.zeros((max_batch, 1), np.int32)
-        self.slots: List[Optional[Request]] = [None] * max_batch
         self.waiting: deque = deque()
         self.requests: Dict[int, Request] = {}
         self._aborted: List[Request] = []   # aborted mid-admission
@@ -474,7 +567,7 @@ class DynamicInferenceEngine:
                              f"the model {self.cfg.num_layers}")
         if self.device.type != "cuda":
             return
-        rows = max(self.max_batch, self.prefill_chunk)
+        rows = self.mq_rows
         for target, (din, dout) in lora_target_dims(self.cfg).items():
             reason = lora_kernel_ineligible_reason(
                 din, dout, cache.rank, rows, cache.dtype,
@@ -697,6 +790,8 @@ class DynamicInferenceEngine:
         if self.adapters is not None:
             self.adapters.release(int(self.row_adapter[slot]))
             self.row_adapter[slot] = 0
+        if self.proposer is not None:
+            self.proposer.on_release(slot)
 
     @property
     def has_work(self) -> bool:
@@ -803,6 +898,8 @@ class DynamicInferenceEngine:
         logits_last = mask_padded_vocab(logits_last, self.cfg)
         tok = self._sample(logits_last[None], req)
         self._record_token(req, int(tok[0]))
+        if self.proposer is not None:
+            self.proposer.on_admit(req.slot, req)
 
     @torch.no_grad()
     def _paged_prefill_chunked(self, req: Request, tokens, p_len: int,
@@ -869,13 +966,18 @@ class DynamicInferenceEngine:
         seeding as the batched decode sampler."""
         return _sample_rows(logits, self._rows_for({0: req}, 1)).cpu().numpy()
 
+    def _sampling_rows(self) -> Dict[str, np.ndarray]:
+        """Every slot's sampling row (unfinished requests; the others keep
+        neutral greedy defaults): the one source for the plain sampler,
+        the speculative verifier and the draft proposer."""
+        reqs = {i: r for i, r in enumerate(self.slots)
+                if r is not None and not r.finished}
+        return self._rows_for(reqs, self.max_batch)
+
     def _sample_all(self, logits) -> np.ndarray:
         """Batched sampling for every slot: the step's one host
         synchronisation is reading these tokens back."""
-        reqs = {i: r for i, r in enumerate(self.slots)
-                if r is not None and not r.finished}
-        return _sample_rows(logits, self._rows_for(
-            reqs, self.max_batch)).cpu().numpy()
+        return _sample_rows(logits, self._sampling_rows()).cpu().numpy()
 
     def _record_token(self, req: Request, tok: int):
         req.generated.append(tok)
@@ -1028,7 +1130,10 @@ class DynamicInferenceEngine:
             if self._last_round_t is not None:
                 iv_ms = (t_round - self._last_round_t) * 1e3
                 telemetry.observe("decode_interval_ms", iv_ms)
-            self._plain_round(active, events)
+            if self.spec_method:
+                self._spec_round(active, events)
+            else:
+                self._plain_round(active, events)
             self._last_round_t = time.monotonic()
         else:
             self._last_round_t = None
@@ -1063,6 +1168,8 @@ class DynamicInferenceEngine:
             logits = mask_padded_vocab(logits, self.cfg)
             toks = self._sample_all(logits)
             self.decode_steps += 1
+            self.spec_stats["model_steps"] += 1
+            self.spec_stats["emitted_tokens"] += len(active)
             telemetry.inc("serving_tokens_emitted", len(active))
             for req in active:
                 tok = int(toks[req.slot])
@@ -1070,6 +1177,138 @@ class DynamicInferenceEngine:
                 events["tokens"].append((req.request_id, tok))
         finally:
             self._rt.end("decode-step", None)
+
+    def _spec_round(self, active: List[Request], events: Dict):
+        """One speculate-and-verify round (JAX dynamic_engine.py:1712):
+        propose up to spec_k drafts a slot, verify them all in ONE ragged
+        multi-query step, accept by exact rejection sampling, and rewind
+        the rejected drafts' KV (PagedKVCache.rewind)."""
+        # Opportunistic capacity for the speculative tail: the append
+        # position's block is already guaranteed by
+        # _ensure_decode_capacity; under pressure speculation SHRINKS
+        # instead of preempting.
+        k_caps = np.zeros((self.max_batch,), np.int32)
+        for req in active:
+            slot = req.slot
+            length = int(self.lengths[slot])
+            want = min(self.spec_k,
+                       req.max_new_tokens - len(req.generated) - 1,
+                       self.max_seq_len - 1 - length)
+            if want > 0:
+                k_caps[slot] = self.pool.extend_capacity(slot, length + 1,
+                                                         want)
+        self._rt.begin("spec-round", None, batch=len(active))
+        try:
+            self._spec_round_inner(active, events, k_caps)
+        except Exception:
+            # Leave the pool consistent on any mid-round failure (the
+            # "spec-verify" drill): every surviving slot rewinds to its
+            # last verified length (+1: this step's guaranteed append
+            # block); written-but-unaccepted draft KV is stale rows that
+            # the retried round overwrites, and the over-granted tail
+            # blocks go back to the pool. The proposer forgets the round's
+            # drafts (a draft model's cache length too).
+            for req in active:
+                if req.slot >= 0:
+                    self.pool.rewind(req.slot,
+                                     int(self.lengths[req.slot]) + 1)
+                    self.proposer.on_abort(req.slot)
+            raise
+        finally:
+            self._rt.end("spec-round", None)
+
+    @torch.no_grad()
+    def _spec_round_inner(self, active: List[Request], events: Dict,
+                          k_caps: np.ndarray):
+        from megatronapp_tpu_torch.inference.speculative import (
+            _verify_and_sample,
+        )
+        b, k = self.max_batch, self.spec_k
+        drafts, counts, q_probs = self.proposer.propose(k_caps)
+        if not counts.any():
+            # Nothing proposed anywhere: the (K+1)-wide verify would cost
+            # more than the one-token step and emit the same one token a
+            # row, so take the plain step (the same streams). Drop the
+            # over-granted blocks first, keeping this step's append block.
+            for req in active:
+                self.pool.rewind(req.slot, int(self.lengths[req.slot]) + 1)
+            self._plain_round(active, events)
+            return
+        q_lens = np.ones((b,), np.int32)
+        tokens = np.zeros((b, k + 1), np.int32)
+        active_np = np.zeros((b,), bool)
+        for req in active:
+            slot = req.slot
+            active_np[slot] = True
+            tokens[slot, 0] = self.last_tokens[slot, 0]
+            n = int(counts[slot])
+            tokens[slot, 1:1 + n] = drafts[slot, :n]
+            q_lens[slot] = 1 + n
+        rows = self._sampling_rows()
+        logits = self._verify_step(tokens, q_lens, active_np)
+        # Chaos site "spec-verify": the worst point — the step wrote every
+        # draft's KV and nothing is accepted yet — so the drill proves
+        # _spec_round's rollback keeps the pool auditable and the stream
+        # exact.
+        chaos.fire("spec-verify")
+        accepts, out_toks = _verify_and_sample(
+            logits, drafts, q_lens, q_probs, rows,
+            point_mass=self.proposer.point_mass)
+        self.spec_stats["rounds"] += 1
+        self.spec_stats["model_steps"] += 1
+        for req in active:
+            slot = req.slot
+            n = int(counts[slot])
+            a = min(int(accepts[slot]), n)
+            emitted = [int(t) for t in drafts[slot, :a]]
+            emitted.append(int(out_toks[slot]))
+            len_before = int(self.lengths[slot])
+            m = 0
+            for tok in emitted:
+                self._record_token(req, tok)
+                events["tokens"].append((req.request_id, tok))
+                m += 1
+                if req.finished:
+                    break   # eod or budget: drop the rest of the window
+            # Valid KV = [last token, accepted drafts]: rewind the
+            # written-but-rejected tail (and over-granted blocks).
+            self.lengths[slot] = len_before + m
+            self.pool.rewind(slot, len_before + m)
+            req.spec_proposed += n
+            req.spec_accepted += a
+            self.spec_stats["proposed"] += n
+            self.spec_stats["accepted"] += a
+            self.spec_stats["emitted_tokens"] += m
+            # Accepted drafts a verify round a request row: /metrics
+            # percentiles show the acceptance distribution.
+            telemetry.observe("spec_accepted_per_round", a,
+                              lo=0.5, hi=64, growth=1.5)
+            telemetry.inc("spec_proposed_tokens", n)
+            telemetry.inc("spec_accepted_tokens", a)
+            telemetry.inc("serving_tokens_emitted", m)
+            self.proposer.on_verified(slot, a)
+
+    @torch.no_grad()
+    def _verify_step(self, tokens: np.ndarray, q_lens: np.ndarray,
+                     active: np.ndarray) -> torch.Tensor:
+        """The verify step: one ragged multi-query step at [B, K+1] over
+        every slot (row b's q_lens[b] tokens append at lengths[b]; the
+        pool must already cover them), in place. Returns the logits [B,
+        K+1, V] fp32, padded vocab masked, on the engine's device."""
+        s = tokens.shape[1]
+        table_np = self.pool.page_table[:self.max_batch]
+        index = paged_write_index(
+            torch.from_numpy(table_np), torch.from_numpy(self.lengths),
+            torch.from_numpy(q_lens), torch.from_numpy(active),
+            self.pool.block_size, s)
+        logits, _, _ = _paged_multiquery_step(
+            self.params, self._to_dev(tokens), self.pool.pages,
+            self._to_dev(table_np), self._to_dev(self.lengths),
+            self._to_dev(q_lens), self.cfg, self.max_seq_len,
+            tuple(self._to_dev(t) for t in index), self.rope_tables,
+            fused=self.megakernel, scales=self.pool.scales,
+            lora=self._lora_args(repeat=s), ctx=self._step_ctx)
+        return mask_padded_vocab(logits, self.cfg)
 
     def run_to_completion(self,
                           token_callback: Optional[Callable] = None
@@ -1150,4 +1389,18 @@ class DynamicInferenceEngine:
             **({"lora": {**self.adapters.stats_snapshot(),
                          "pinned_waits": self.lora_pinned_waits}}
                if self.adapters is not None else {}),
+            **({"speculative": self._spec_snapshot()}
+               if self.spec_method else {}),
         }
+
+    def _spec_snapshot(self) -> Dict:
+        """The speculative section of /stats (JAX's keys): method, k,
+        acceptance rate, tokens per model step and the raw counts."""
+        ss = dict(self.spec_stats)
+        return {"method": self.spec_method, "k": self.spec_k,
+                "acceptance_rate": (round(ss["accepted"] / ss["proposed"], 4)
+                                    if ss["proposed"] else 0.0),
+                "tokens_per_step": (
+                    round(ss["emitted_tokens"] / ss["model_steps"], 4)
+                    if ss["model_steps"] else 0.0),
+                **ss}

@@ -22,9 +22,11 @@ logits, so its final block is copy-on-write: the shared block's rows are
 copied into a private block and only the diverging row is recomputed.
 
 All bookkeeping is host-side (numpy/python); the page data is touched
-only by the engine's in-place scatters and the CoW block copy here. Slot
-export/import, the host spill tier and the fleet prefix store come with
-later slices.
+only by the engine's in-place scatters and the CoW block copy here. A speculative
+round grows a slot by several positions at once (``extend_capacity``,
+never preempting) and gives back the blocks of rejected drafts
+(``rewind``). Slot export/import, the host spill tier and the fleet
+prefix store come with later slices.
 """
 
 from __future__ import annotations
@@ -374,6 +376,43 @@ class PagedKVCache:
         self.page_table[slot, idx] = blk
         self._note_usage()
         return True
+
+    def extend_capacity(self, slot: int, position: int, span: int) -> int:
+        """Best-effort growth for a multi-token (speculative) append:
+        allocate blocks so `slot` covers positions [position, position +
+        span), WITHOUT preempting anyone. Returns the span actually
+        covered (>= 0); the caller shrinks its speculation to fit.
+        Partially granted blocks stay owned: a later rewind() or release()
+        returns them."""
+        granted = 0
+        for p in range(position, position + span):
+            if p >= self.max_seq_len:
+                break
+            if not self.ensure_capacity(slot, p):
+                break
+            granted += 1
+        return granted
+
+    def rewind(self, slot: int, valid_len: int):
+        """Roll a slot back to `valid_len` written positions: release the
+        tail blocks past ceil(valid_len / block_size) (rejected
+        speculation, and over-granted extend_capacity blocks). Only
+        privately owned tail blocks may go; a refcounted or hashed block
+        here would mean speculation wrote into a shared prefix block,
+        which copy-on-write rules out, so that asserts rather than
+        corrupting the prefix cache. A block is never split: rows past
+        valid_len inside the kept tail block are overwritten by the next
+        append."""
+        keep = cdiv(max(valid_len, 1), self.block_size)
+        owned = self._slot_blocks[slot]
+        while len(owned) > keep:
+            blk = owned.pop()
+            assert self._refcount[blk] == 1 and blk not in self._hash_of, (
+                f"rewind would drop shared/hashed block {blk} "
+                f"(rc={int(self._refcount[blk])}) — speculative tail "
+                "blocks must be private")
+            self.page_table[slot, len(owned)] = 0
+            self._release_block(blk)
 
     def flush_prefix_cache(self):
         """Invalidate every cached prefix (params reload: blocks hold KV

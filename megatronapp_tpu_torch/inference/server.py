@@ -12,6 +12,10 @@ REST:  PUT /api  {"prompts": [...], "tokens_to_generate": N,
                   "random_seed": i, "timeout_s": f}
        → {"text": [...], "segments": [...]}
        GET /stats, /healthz, /metrics, /trace
+       (/stats has a "speculative" section on a speculative engine —
+       acceptance rate, tokens per model step and the raw counts — and
+       /metrics its counters: spec_proposed_tokens, spec_accepted_tokens,
+       serving_tokens_emitted and the spec_accepted_per_round histogram)
 WS:    /ws — client sends the same JSON; server streams
        {"type": "token", "step": i, "token": id, "text": str} per token
        then {"type": "done", "text": full}.

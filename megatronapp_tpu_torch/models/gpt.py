@@ -43,16 +43,18 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
-              position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, S] at position_ids [B, S] (or [B, 1]; default 0..S-1)
-    → embeddings [B, S, H] in the compute dtype."""
+              position_ids: Optional[torch.Tensor] = None,
+              position_offset: int = 0) -> torch.Tensor:
+    """tokens [B, S] at position_ids [B, S] (or [B, 1]; default 0..S-1),
+    shifted by position_offset (a dense cache's append position) →
+    embeddings [B, S, H] in the compute dtype."""
     emb = p["embedding"]
     h = emb["word"][tokens.long()]
     if "pos" in emb:
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
                                         device=tokens.device)[None, :]
-        h = h + emb["pos"][position_ids.long()]
+        h = h + emb["pos"][position_ids.long() + position_offset]
     return h.to(cfg.compute_dtype)
 
 

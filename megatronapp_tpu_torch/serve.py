@@ -17,7 +17,10 @@ device (inference/quantization.py). ``--lora-dir DIR`` serves batched
 multi-tenant LoRA adapters (``<adapter_id>.npz`` files written by
 ``inference/lora.py:LoraAdapter.save``) from a device cache of
 ``--max-resident-adapters`` slots of rank ``--lora-rank``; a request names
-its adapter with ``"adapter_id"``. ``--serve-tp N`` serves
+its adapter with ``"adapter_id"``. ``--spec-method ngram|draft`` with
+``--spec-k K`` serves speculative decoding (``--draft-model PRESET``: the
+draft, its weights made from --seed + 1; ``mtp`` warns and decodes
+plainly: the port loads no MTP heads). ``--serve-tp N`` serves
 tensor-parallel over N ranks, one process each, joined by a gloo group
 (parallel/mesh.py): this process is rank 0 and runs the driver and the
 server, and it spawns ranks 1..N-1 as followers that step in lockstep with
@@ -48,10 +51,8 @@ UNPORTED_FLAGS = {
                                 "tiles)",
     "--scan-unroll": "the JAX layer scan (the port runs its layers as a "
                      "Python loop)",
-    "--spec-method": "speculative decoding",
-    "--spec-k": "speculative decoding",
-    "--draft-model": "speculative decoding",
-    "--draft-load-dir": "speculative decoding",
+    "--draft-load-dir": "checkpoint loading (the draft's weights are made "
+                        "from a seed)",
     "--serve-disagg": "disaggregated serving",
     "--disagg-prefill-slots": "disaggregated serving",
     "--decode-slo-ms": "disaggregated serving",
@@ -157,6 +158,24 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--max-resident-adapters", type=int, default=8,
                    help="adapter slots resident on the device at once "
                         "(LRU-evicted when unpinned)")
+    g.add_argument("--spec-method", default="none",
+                   choices=["none", "draft", "mtp", "ngram"],
+                   help="speculative decoding over the paged engine "
+                        "(inference/speculative.py; needs --engine "
+                        "dynamic --paged-kv-cache): draft = small draft "
+                        "model (--draft-model), mtp = self-draft through "
+                        "the model's MTP heads, ngram = model-free "
+                        "prompt lookup. Greedy output is bit-identical "
+                        "to plain decode; sampling preserves the target "
+                        "distribution exactly")
+    g.add_argument("--spec-k", type=int, default=4,
+                   help="max draft tokens verified per round (the "
+                        "verify step runs K+1 ragged queries through "
+                        "the multi-query paged-attention kernel)")
+    g.add_argument("--draft-model", default=None, choices=sorted(PRESETS),
+                   help="models/presets.py preset for --spec-method "
+                        "draft (must share the target vocab/tokenizer); "
+                        "its weights are made from --seed + 1")
     g.add_argument("--serving-metrics", action="store_true",
                    help="enable the telemetry registry (GET /metrics)")
     g.add_argument("--request-trace", action="store_true",
@@ -218,6 +237,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  "--paged-kv-cache")
     if args.serve_tp < 1:
         ap.error(f"--serve-tp must be >= 1 (got {args.serve_tp})")
+    if args.spec_method == "draft" and args.draft_model is None:
+        ap.error("--spec-method draft needs --draft-model (a "
+                 "models/presets.py preset)")
+    if args.serve_tp > 1 and args.spec_method != "none":
+        ap.error("--spec-method with --serve-tp > 1: speculative decoding "
+                 "under tensor parallelism is not ported yet (ROADMAP.md "
+                 "Queue 1 item 1)")
     if args.serve_tp > 1 and args.lora_dir:
         ap.error("--lora-dir with --serve-tp > 1: LoRA serving under "
                  "tensor parallelism is not ported yet (ROADMAP.md Queue 1)")
@@ -300,6 +326,15 @@ def build_engine(args: argparse.Namespace, ctx=None):
     cfg = dataclasses.replace(cfg, **over)
     gen = torch.Generator(device).manual_seed(args.seed)
     params = init_gpt_params(cfg, gen, device)
+    draft_params = draft_cfg = None
+    if args.spec_method == "draft":
+        # The JAX server inits the draft preset from its own key; here
+        # from --seed + 1, in the target's params dtype.
+        draft_cfg = dataclasses.replace(PRESETS[args.draft_model](),
+                                        params_dtype=over["params_dtype"])
+        draft_params = init_gpt_params(
+            draft_cfg, torch.Generator(device).manual_seed(args.seed + 1),
+            device)
     if args.quantized_weights:
         from megatronapp_tpu_torch.inference.quantization import (
             quantize_for_serving,
@@ -316,6 +351,8 @@ def build_engine(args: argparse.Namespace, ctx=None):
         prefill_chunk=args.prefill_chunk,
         kv_cache_dtype=args.kv_cache_dtype, device=device,
         fused_decode=args.megakernel_decode,
+        spec_method=args.spec_method, spec_k=args.spec_k,
+        draft_params=draft_params, draft_cfg=draft_cfg,
         adapter_cache=build_adapter_cache(args, cfg, device), ctx=ctx)
 
 
@@ -374,7 +411,9 @@ def main(argv: Optional[List[str]] = None):
           f"{resident_nbytes(engine.params) / 2**20:.1f} MiB on device"
           f"{' (resident int8)' if args.quantized_weights else ''}, "
           f"megakernel={engine.megakernel}, "
-          f"lora={'on' if engine.adapters is not None else 'off'})")
+          f"lora={'on' if engine.adapters is not None else 'off'}, "
+          f"spec={engine.spec_method or 'none'}"
+          f"{f' k={engine.spec_k}' if engine.spec_method else ''})")
     server = TextGenerationServer(engine, args.host, args.port)
     try:
         server.run()

@@ -12,7 +12,8 @@ Timeline layout: ``pid`` is the engine's row (``DECODE_PID``); ``tid``
 is the request id + 1 for per-request spans (each request gets its own
 timeline row; B/E pairing keys on (pid, tid, name), so concurrent
 requests never mis-pair), and 0 for step-granularity spans
-(decode-step).
+(decode-step, and spec-round: one speculate-and-verify round of a
+speculative engine).
 
 Pairing is guaranteed by construction: ``end()`` is a no-op unless that
 span is open (no orphan E), and ``finish()`` closes every span a

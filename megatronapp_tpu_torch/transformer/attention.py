@@ -15,12 +15,14 @@ The three kernels may be resident int8 leaves (inference/quantization.py):
 ``resolve_param`` dequantizes them at matmul entry, as the JAX layer does.
 
 Ported branches: the two paged serving branches (the multi-token ragged
-append of chunked prefill and the one-token decode append), single-device
-or head-sharded over a tensor-parallel group (``ctx``), and the
-single-device training branch (no cache: dense attention or the flash
-kernels, by the ``attention_impl`` rule). The static-cache and the
-context-parallel and tensor-parallel training branches raise until their
-slices.
+append of chunked prefill and speculative verification, and the
+one-token decode append), single-device or head-sharded over a
+tensor-parallel group (``ctx``); the two dense-cache branches a draft
+model decodes through (the per-row append under an explicit mask and the
+static append at ``cache_index``: plain PyTorch, as JAX leaves them to
+XLA); and the single-device training branch (no cache: dense attention or
+the flash kernels, by the ``attention_impl`` rule). The context-parallel
+and tensor-parallel training branches raise until their slices.
 """
 
 from __future__ import annotations
@@ -114,6 +116,55 @@ def _self_attention(q, k, v, cfg: TransformerConfig, attention_mask,
         softmax_in_fp32=cfg.attention_softmax_in_fp32)
 
 
+def _dense_cache_attention(p, q, k, v, cfg: TransformerConfig,
+                           attention_mask, kv_cache, cache_index,
+                           cache_positions):
+    """The dense-cache branches (JAX transformer/attention.py:413-433):
+    kv_cache (k, v) [B, S_max, Hkv, D] is written IN PLACE (the JAX step
+    donates it). cache_positions [B]: one token a row, appended at the
+    row's own position; causality comes from the caller's per-row
+    attention_mask [B, 1, 1, S_max] (required), and rows whose position
+    lies past the cache are dropped, as JAX's scatter drops them.
+    Otherwise the static append of all S tokens at cache_index, attended
+    causally from that offset. Attention runs dense over the whole cache
+    (XLA's path on the JAX side: no kernel)."""
+    ck, cv = kv_cache
+    b, s = q.shape[:2]
+    mask_type, q_offset = cfg.attn_mask_type, 0
+    if cache_positions is not None:
+        if attention_mask is None:
+            raise ValueError(
+                "per-row decode (cache_positions) requires an explicit "
+                "per-row attention_mask; see inference/dynamic_engine.py's "
+                "attend mask")
+        pos = cache_positions.long()
+        keep = pos < ck.shape[1]
+        rows = torch.arange(b, device=q.device)[keep]
+        ck[rows, pos[keep]] = k[keep, 0].to(ck.dtype)
+        cv[rows, pos[keep]] = v[keep, 0].to(cv.dtype)
+        mask_type = AttnMaskType.bidirectional
+    else:
+        ci = int(cache_index)
+        ck[:, ci:ci + s] = k.to(ck.dtype)
+        cv[:, ci:ci + s] = v.to(cv.dtype)
+        q_offset = ci
+    attn = dot_product_attention(
+        q, ck, cv, mask_type=mask_type, attention_mask=attention_mask,
+        softmax_in_fp32=cfg.attention_softmax_in_fp32, q_offset=q_offset)
+    return _out_projection(p, attn.reshape(b, s, -1), cfg), (ck, cv)
+
+
+def _out_projection(p, attn, cfg: TransformerConfig, lora=None):
+    """attn [B, S, nq·D] @ out_kernel, the out delta between the product
+    and the bias (JAX attention.py:581-585), + out_bias."""
+    dt = cfg.compute_dtype
+    out = attn @ resolve_param(p["out_kernel"], dt)
+    out = apply_lora_delta(out, attn, lora, "out_kernel")
+    if "out_bias" in p:
+        out = out + p["out_bias"].to(dt)
+    return out
+
+
 def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                       rope_cos: Optional[torch.Tensor] = None,
                       rope_sin: Optional[torch.Tensor] = None,
@@ -129,6 +180,9 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     (True = keep) and segment_ids [B, S] (packed sequences) restrict
     attention; the attention_impl rule picks the flash kernels or dense
     attention (see ``_self_attention``).
+
+    Dense cache (no page_table): kv_cache is the layer's (k, v) [B,
+    S_max, Hkv, D], see ``_dense_cache_attention``.
 
     Serving: kv_cache is the layer's paged pool pair [NB, bs, Hkv, D],
     written IN PLACE (the JAX step donates it); page_table [B, MB] int32 and
@@ -159,17 +213,22 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             "not ported yet (the parallel-training slice, ROADMAP.md Queue "
             "1): ctx is taken only by the paged serving branches, where it "
             "shards the kv heads over the tp ranks")
-    if serving and (page_table is None or write_index is None
-                    or attention_mask is not None or cache_index is not None
-                    or segment_ids is not None):
+    paged = serving and page_table is not None
+    if paged and (write_index is None or attention_mask is not None
+                  or cache_index is not None or segment_ids is not None):
+        raise ValueError(
+            "the paged branches take a write index and mask themselves: "
+            "no attention_mask, cache_index or segment_ids")
+    if serving and not paged and (ctx is not None or lora is not None
+                                  or kv_scales is not None
+                                  or segment_ids is not None):
         raise NotImplementedError(
-            "the static-cache branch of attention_forward is not ported "
-            "yet: the port serves through the paged-KV branches")
+            "the dense-cache branches serve a draft model on one device: "
+            "tensor parallelism, LoRA, quantized caches and packed "
+            "segments ride the paged branches only")
     if not serving and (cache_index is not None or page_table is not None
                         or cache_positions is not None):
-        raise NotImplementedError(
-            "cache arguments without kv_cache: the static-cache branch is "
-            "not ported yet")
+        raise ValueError("cache arguments without kv_cache")
     b, s, _ = x.shape
     d = cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
@@ -195,11 +254,11 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             raise ValueError("lora deltas ride the paged serving branches "
                              "only")
         attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids)
-        out = attn.reshape(b, s, nq * d) @ resolve_param(p["out_kernel"], dt)
-        if "out_bias" in p:
-            out = out + p["out_bias"].to(dt)
-        return out, None
+        return _out_projection(p, attn.reshape(b, s, nq * d), cfg), None
 
+    if not paged:
+        return _dense_cache_attention(p, q, k, v, cfg, attention_mask,
+                                      kv_cache, cache_index, cache_positions)
     ck, cv = kv_cache
     if ctx is not None:
         # Tensor-parallel serving (JAX kernel_gen._tp_place): this rank's
@@ -228,9 +287,5 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     else:
         attn = paged_attention_decode(q[:, 0], ck, cv, page_table,
                                       cache_positions + 1, **sc)[:, None]
-    attn = attn.reshape(b, s, nq * d)
-    out = attn @ resolve_param(p["out_kernel"], dt)
-    out = apply_lora_delta(out, attn, lora, "out_kernel")
-    if "out_bias" in p:
-        out = out + p["out_bias"].to(dt)
+    out = _out_projection(p, attn.reshape(b, s, nq * d), cfg, lora)
     return out, (ck, cv) + tuple(kv_scales or ())

@@ -34,6 +34,13 @@ Sites:
                     resident evicted, books unchanged, audit() clean) and
                     the engine's admission rollback (pool blocks released,
                     request requeued at the head, the retry succeeds).
+- ``spec-verify``   a speculative round dies after its verify step wrote
+                    every draft's KV and before anything is accepted
+                    (inference/dynamic_engine.py _spec_round_inner) —
+                    exercises the round's rollback: every slot rewinds to
+                    its last verified length, audit() passes and the
+                    retried round gives the stream a run without the
+                    fault gives.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ import dataclasses
 import threading
 from typing import Dict, Optional
 
-SITES = ("stepper-step", "paged-evict", "paged-cow", "lora-load")
+SITES = ("stepper-step", "paged-evict", "paged-cow", "lora-load",
+         "spec-verify")
 
 
 class ChaosFault(RuntimeError):

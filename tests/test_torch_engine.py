@@ -293,8 +293,8 @@ def test_deadline_and_abort():
 
 def test_unported_engine_options_raise():
     _, tc, _, tp = _weights("llama", 2)
-    for kw in (dict(paged=False), dict(spec_method="ngram"),
-               dict(spill_host_mb=8)):
+    # Speculative decoding is ported (tests/test_torch_speculative.py).
+    for kw in (dict(paged=False), dict(spill_host_mb=8)):
         with pytest.raises(NotImplementedError, match="not ported"):
             tde.DynamicInferenceEngine(tp, tc, device="cpu", **kw)
     # Batched LoRA is ported (tests/test_torch_lora_engine.py); per-tenant

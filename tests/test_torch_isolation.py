@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.ops.cuda.latent_tp",
             "megatronapp_tpu_torch.training.train",
             "megatronapp_tpu_torch.pretrain_gpt",
-            "megatronapp_tpu_torch.ops.cuda.flash_attention"} <= set(mods)
+            "megatronapp_tpu_torch.ops.cuda.flash_attention",
+            "megatronapp_tpu_torch.inference.speculative"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -147,8 +148,8 @@ def test_pretrain_gpt_entry_point_raises_without_a_card(monkeypatch):
     (["--engine", "static"], "not ported"),
     (["--engine", "dynamic"], "--paged-kv-cache"),
     (["--engine", "dynamic", "--lora-dir", "x"], "LoRA"),
-    (["--engine", "dynamic", "--paged-kv-cache", "--spec-method", "ngram"],
-     "speculative"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--draft-load-dir", "x"],
+     "checkpoint loading"),
     (["--engine", "dynamic", "--paged-kv-cache", "--megakernel-vmem-budget",
       "1000"], "VMEM budget"),
     (["--engine", "dynamic", "--paged-kv-cache", "--load-dir", "x"],

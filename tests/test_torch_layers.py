@@ -272,17 +272,22 @@ def test_paged_layer_matches(arch, ragged):
 
 
 def test_unported_branches_raise():
-    """The branches still to port: the static cache, context- and
+    """The branches still to port: MLA's dense cache, context- and
     tensor-parallel attention and MoE; fused decode without the paged
     pools it is built around. (The dense training branch is ported:
     tests/test_torch_training.py; fused decode:
-    tests/test_torch_fused_decode.py.)"""
+    tests/test_torch_fused_decode.py; the GQA dense-cache branches a draft
+    model runs: tests/test_torch_speculative.py.)"""
     _, tc = cfg_pair(**LLAMA_SMALL)
     p = tree(random_layer(tc, 7))
     x = torch.zeros(1, 4, 64)
     cache = (torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="static-cache"):
-        t_layer(p, x, tc, kv_cache=cache, cache_index=0)
+    _, mla = cfg_pair(**{**LLAMA_SMALL, "multi_latent_attention": True,
+                         "kv_lora_rank": 32, "qk_head_dim": 16,
+                         "qk_pos_emb_head_dim": 8, "v_head_dim": 16})
+    with pytest.raises(NotImplementedError, match="dense slot cache"):
+        t_layer(tree(random_layer(mla, 7)), x, mla, kv_cache=cache,
+                cache_index=0)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         t_layer(p, x, tc, ctx=object())
     with pytest.raises(ValueError, match="paged decode/multiquery"):
