@@ -96,14 +96,46 @@ Phases, each printing one JSON line:
             launch counts, step time, tokens/s, MFU, peak memory, remat
             "full" against "selective", and two profiled steps' device
             time by kernel family.
+   trace_train: MegaScan on that path: pretrain_gpt from train's trained
+            weights (no second model), 6 iterations with trace_interval
+            3 and continuous_trace_iterations 1, log_interval 1, run
+            untraced twice and traced once: every traced iteration's
+            spans (iteration, train-step, forward / loss / backward a
+            micro-batch, allreduce, optimizer; CUDA events) present,
+            closed and nested, the phases covering >= 0.9 of the
+            train-step span, that span within 5 % of the iteration's
+            host-synchronized wall, the flash launches of every run,
+            the traced losses as close to untraced ones as two untraced
+            runs are; the per-phase ms of a traced iteration and the
+            median step with tracing on and off; the port's aggregate_dir
+            and analyze over the file.
+   scope_train: MegaScope's TrainingScopeSession.run_step at llama3-8b
+            width, 2 layers, S 2048 (flash: no attention_probs), every
+            flag on layer 0 and a disturbance on layer 1: the wire
+            format (update_type, layer_id, site, result; pca; step_done)
+            and finite losses.
    train_gpt2: pretrain_gpt on gpt2-125m (full depth, D 64) with
             --attention-impl pallas --flash-head-fold, S 1024, 3 steps:
             the flash kernels at D 64 on a train path; two profiled
             steps' device time by kernel family.
+   scope_reference: the tiny llama-shaped model of phase 3 through the
+            static engine with every capture site on, on the card (bf16)
+            and the CPU (fp32, plain): greedy streams (a divergence only
+            at a near-tie), each payload within SCOPE_REF_TOL of its RMS;
+            on the card capture on against off and a scale-0
+            disturbance of every site against none, bit for bit.
 7. serve:   llama3-8b at full width (random bf16 weights from a seed) behind
             the continuous-batching driver: 8 concurrent greedy requests,
             checked for length, vocabulary, launch counts, a prefix-cache
             hit and a rerun that repeats the streams.
+   serve_static: the same weights behind the static engine (serve.py
+            --engine static) through the server's in-process visualized
+            generation (what /ws runs): 3 prompts, 32 new tokens, every
+            site on for two layers, pixels 16: streams with capture equal
+            those without, (7 sites x 2 layers + result) x 32 forward
+            calls payloads, 20 candidates a token, a 'system' disturbance
+            moving the stream and scale 0 not; decode interval with and
+            without capture.
    serve_fused: the same weights and requests through an engine built with
             fused_decode=True (--megakernel-decode): the same checks, each
             fused kernel launched once per layer per decode step and
@@ -5161,6 +5193,9 @@ def phase_train(state, layers: int):
     fa.launches.update({k: 0 for k in fa.launches})
     state["train_launches"] = launches
     params_n = sum(p.numel() for p in res.state.params.parameters())
+    # trace_train starts from these weights (no second model is built).
+    state["train_model"] = (res.state.params, cfg)
+    res.state.opt_state = None
     del res, batch, step_fn, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -5188,6 +5223,468 @@ def phase_train(state, layers: int):
           and remat["full"]["launches"] == {"fwd": 2 * one, "bwd_dq": one,
                                             "bwd_dkv": one},
           f"train: remat launches {remat} (full recomputes the forward)")
+
+
+# trace_train: phases that must cover a traced train-step, and the share.
+TRACE_PHASES = ("forward", "loss", "backward", "allreduce", "optimizer")
+TRACE_COVER = 0.9
+TRACE_WALL_TOL = 0.05
+
+
+def _union_us(spans):
+    """Length of the union of [ts, ts + dur) intervals."""
+    total, end = 0.0, -math.inf
+    for ts, dur in sorted(spans):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total
+
+
+def _trace_checks(recs, num_micro, iters):
+    """Every traced iteration's records: each span of the step present
+    (forward, loss, backward once a microbatch), every B closed by its E
+    in order, each phase inside its train-step. Returns {iteration:
+    {"train_step_us", "cover", phase: [ms, ...]}}."""
+    out = {}
+    for it in iters:
+        mine = [r for r in recs if r["iteration"] == it]
+        opened, spans = {}, []
+        for r in mine:
+            if r["ph"] == "B":
+                check(r["name"] not in opened,
+                      f"trace_train: {r['name']} opened twice at {it}")
+                opened[r["name"]] = r["ts"]
+            elif r["ph"] == "E":
+                check(r["name"] in opened,
+                      f"trace_train: {r['name']} E without B at {it}")
+                spans.append((r["name"], opened.pop(r["name"]), r["ts"]))
+        check(not opened, f"trace_train: unclosed spans {opened} at {it}")
+        names = [n for n, _, _ in spans]
+        want = {"iteration": 1, "train-step": 1, "allreduce": 1,
+                "optimizer": 1, "forward": num_micro, "loss": num_micro,
+                "backward": num_micro}
+        check({n: names.count(n) for n in want} == want
+              and len(names) == sum(want.values()),
+              f"trace_train: iteration {it} spans {names}")
+        (_, s0, s1), = [s for s in spans if s[0] == "train-step"]
+        phases = [(b, e - b) for n, b, e in spans if n in TRACE_PHASES]
+        for n, b, e in spans:
+            if n in TRACE_PHASES:
+                check(s0 <= b <= e <= s1,
+                      f"trace_train: {n} [{b}, {e}] outside train-step "
+                      f"[{s0}, {s1}] at {it}")
+        entry = {"train_step_us": s1 - s0,
+                 "cover": _union_us(phases) / (s1 - s0)}
+        for n, b, e in spans:
+            entry.setdefault(n, []).append((e - b) / 1e3)
+        out[it] = entry
+    return out
+
+
+def phase_trace_train(state):
+    """MegaScan on the train path: pretrain_gpt from train's trained
+    llama3-8b weights (no second model), 6 iterations, trace_interval 3,
+    continuous_trace_iterations 1 (iterations 0 and 3 traced), log_interval
+    1 (each step's host-synchronized wall time), run untraced twice and
+    traced once, each from the same weights and a fresh optimizer."""
+    import gc
+    import shutil
+    import statistics
+
+    from megatronapp_tpu_torch.config.training_config import (
+        OptimizerConfig, TrainingConfig,
+    )
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.trace.aggregate import aggregate_dir
+    from megatronapp_tpu_torch.trace.analytics import analyze
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    dev = torch.device("cuda", 0)
+    params, cfg = state.pop("train_model")
+    start = {k: v.detach().clone() for k, v in params.state_dict().items()}
+    seq, micro, gbs, iters = 4096, 1, 2, 6
+    num_micro = gbs // micro
+    trace_dir = os.path.join(REPO, "build", "trace_smoke")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    runs = {}
+    for name in ("untraced", "untraced_again", "traced"):
+        with torch.no_grad():
+            params.load_state_dict(start)
+        train_cfg = TrainingConfig(
+            micro_batch_size=micro, global_batch_size=gbs, seq_length=seq,
+            train_iters=iters, log_interval=1, seed=1234,
+            trace=name == "traced", trace_dir=trace_dir, trace_interval=3,
+            continuous_trace_iterations=1)
+        fa.launches.update({k: 0 for k in fa.launches})
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = pretrain_gpt(cfg, train_cfg, OptimizerConfig(), device=dev,
+                           params=params, log_fn=lambda s: None)
+        runs[name] = {"losses": [m["loss"] for m in res.log],
+                      "step_ms": [m["step_time_ms"] for m in res.log],
+                      "launches": dict(fa.launches)}
+        del res
+    fa.launches.update({k: 0 for k in fa.launches})
+    del start, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fname = ("benchmark-data-1-pipeline-1-tensor-1-process-0.json")
+    with open(os.path.join(trace_dir, fname)) as f:
+        recs = json.load(f)
+    iters_traced = sorted({r["iteration"] for r in recs})
+    spans = _trace_checks(recs, num_micro, iters_traced)
+    trace = aggregate_dir(trace_dir)
+    report = analyze(trace_dir)
+    traced, u1, u2 = (runs[k]["losses"] for k in ("traced", "untraced",
+                                                  "untraced_again"))
+    spread = max(abs(a - b) for a, b in zip(u1, u2))
+    diff = max(abs(a - b) for a, b in zip(traced, u1))
+    wall = {it: runs["traced"]["step_ms"][it] for it in iters_traced}
+    step_span = {it: spans[it]["train_step_us"] / 1e3 for it in iters_traced}
+    last = iters_traced[-1]
+    per_phase = {n: spans[last][n] for n in ("train-step",)
+                 + TRACE_PHASES}
+    on = statistics.median(
+        ms for i, ms in enumerate(runs["traced"]["step_ms"]) if i)
+    off = statistics.median(
+        ms for i, ms in enumerate(runs["untraced"]["step_ms"]) if i)
+    on_traced = statistics.median(
+        runs["traced"]["step_ms"][i] for i in iters_traced if i)
+    want = cfg.num_layers * num_micro * iters
+    emit({"phase": "trace_train", "model": "llama3-8b",
+          "layers": cfg.num_layers, "seq_length": seq,
+          "global_batch_size": gbs, "micro_batch_size": micro,
+          "iterations": iters, "trace_interval": 3,
+          "continuous_trace_iterations": 1,
+          "traced_iterations": iters_traced, "records": len(recs),
+          "per_phase_ms_traced_iteration": {"iteration": last,
+                                            **per_phase},
+          "phase_cover": {it: spans[it]["cover"] for it in iters_traced},
+          "train_step_span_ms": step_span,
+          "host_synced_wall_ms": wall,
+          "median_step_ms_tracing_on": on,
+          "median_step_ms_tracing_off": off,
+          "median_traced_step_ms": on_traced,
+          "losses": runs, "untraced_loss_spread": spread,
+          "traced_vs_untraced_loss_diff": diff,
+          "x_events": len([e for e in trace["traceEvents"]
+                           if e.get("ph") == "X"]),
+          "analytics_phases": report["phases"],
+          "analytics_iteration_time": report["iteration_time"]})
+    check(iters_traced == [0, 3],
+          f"trace_train: traced iterations {iters_traced} != [0, 3]")
+    for it in iters_traced:
+        check(spans[it]["cover"] >= TRACE_COVER,
+              f"trace_train: phases cover {spans[it]['cover']:.3f} of "
+              f"train-step at {it} (< {TRACE_COVER})")
+        check(abs(step_span[it] - wall[it]) <= TRACE_WALL_TOL * wall[it],
+              f"trace_train: train-step span {step_span[it]:.3f} ms vs "
+              f"host-synchronized wall {wall[it]:.3f} ms at {it}")
+    check(all(math.isfinite(x) for x in traced),
+          f"trace_train: non-finite loss in {traced}")
+    # Tracing adds only events and a synchronization: the traced losses
+    # agree with the untraced run as closely as two untraced runs do.
+    check(diff <= spread,
+          f"trace_train: traced losses {traced} differ from untraced {u1} "
+          f"by {diff} (two untraced runs: {spread})")
+    for name, r in runs.items():
+        check(r["launches"] == {"fwd": want, "bwd_dq": want,
+                                "bwd_dkv": want},
+              f"trace_train: {name} flash launches {r['launches']} != "
+              f"{want} each (layers x micro x iterations)")
+
+
+def _scope_prompts(vocab, lengths, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab - 1, n).astype(np.int32) for n in lengths]
+
+
+# MegaScope: every FlagType a layer has, and the sites it turns on.
+SCOPE_VIZ_FLAGS = ("QKV_mat_mul", "RawAttentionScore", "ContextLayer",
+                   "MLP1", "MLP2", "Result")
+SCOPE_LAYER_SITES = 7      # qkv_q, qkv_k, qkv_v, attention_probs,
+#                            context, mlp1, mlp2 (+ result once a forward)
+# Card (bf16) vs CPU (fp32) captures of scope_reference, each compressed
+# payload held to this share of its own (CPU) RMS: bf16 weights and
+# activations through two layers of width 512 move a value by well under
+# a percent of its scale (the logits of phase_reference stay within 5 % of
+# their range), and a 16-pixel mean averages that further.
+SCOPE_REF_TOL = 0.1
+
+
+def _capture_run(engine, prompt, n, sampling, viz=None, disturbance=None,
+                 seed=0):
+    """One generation through the static engine with `viz` flags and a
+    disturbance config; returns (stream, per-step masked logits, the
+    capture payloads as (site, layer, array))."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.scope.disturbance import get_disturbance
+    from megatronapp_tpu_torch.scope.tensor_tracer import get_tensor_tracer
+    caps, logits = [], []
+    tt = get_tensor_tracer()
+    try:
+        if viz:
+            tt.set_flags_from_config(viz)
+            tt.activate(lambda s, l, a: caps.append((s, l, np.asarray(a))),
+                        pixels=16)
+        if disturbance is not None:
+            get_disturbance().configure(disturbance, seed=seed)
+        out = engine.generate(prompt[None], n, sampling,
+                              token_callback=lambda s, t, lg: logits.append(
+                                  lg))
+    finally:
+        tt.deactivate()
+        tt.clear_records()
+        get_disturbance().clear()
+    return out[0], logits, caps
+
+
+def phase_scope_reference(state):
+    """MegaScope on a tiny llama-shaped model (phase_reference's): the
+    static engine's greedy stream and every capture payload on the card
+    (bf16) against the same weights on the CPU (fp32, plain), each payload
+    within SCOPE_REF_TOL of its RMS over the forward calls both sides ran
+    on the same tokens (to the first divergence, which must sit at a
+    near-tie of the CPU's logits); on the card, capture on against off
+    and a scale-0 disturbance of every site against none, bit for bit."""
+    import copy
+
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.engine import (
+        SamplingParams, StaticInferenceEngine,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05)
+    cfg_ref = llama3_8b(compute_dtype=torch.float32, **small)
+    cfg_dev = llama3_8b(params_dtype=torch.bfloat16, **small)
+    p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(7), "cpu")
+    p_dev = copy.deepcopy(p_ref).to(device="cuda", dtype=torch.bfloat16)
+    prompt = _scope_prompts(512, [24], 11)[0]
+    n, greedy = 8, SamplingParams(greedy=True)
+    viz = {f: [0, 1] for f in SCOPE_VIZ_FLAGS}
+    eng = {"ref": StaticInferenceEngine(p_ref, cfg_ref, max_seq_len=40,
+                                        device="cpu"),
+           "dev": StaticInferenceEngine(p_dev, cfg_dev, max_seq_len=40,
+                                        device="cuda")}
+    runs = {k: _capture_run(e, prompt, n, greedy, viz)
+            for k, e in eng.items()}
+    (s_ref, lg_ref, c_ref), (s_dev, lg_dev, c_dev) = runs["ref"], runs["dev"]
+    new_ref, new_dev = s_ref[len(prompt):], s_dev[len(prompt):]
+    diverge = next((i for i in range(n) if new_ref[i] != new_dev[i]), n)
+    gap = None
+    if diverge < n:
+        lg = lg_ref[diverge][0]
+        gap = float((lg[new_ref[diverge]] - lg[new_dev[diverge]])
+                    / (lg.max() - lg.min()))
+    per_call = SCOPE_LAYER_SITES * 2 + 1
+    check(len(c_ref) == len(c_dev) == per_call * n,
+          f"scope_reference: {len(c_ref)} / {len(c_dev)} payloads != "
+          f"{per_call} x {n}")
+    calls = min(diverge + 1, n)
+    worst = {}
+    for (s1, l1, a1), (s2, l2, a2) in zip(c_ref[:per_call * calls],
+                                          c_dev[:per_call * calls]):
+        check((s1, l1, a1.shape) == (s2, l2, a2.shape),
+              f"scope_reference: payload {(s1, l1, a1.shape)} vs "
+              f"{(s2, l2, a2.shape)}")
+        rms = float(np.sqrt(np.mean(a1.astype(np.float64) ** 2)))
+        err = float(np.abs(a2 - a1).max()) / max(rms, 1e-30)
+        worst[s1] = max(worst.get(s1, 0.0), err)
+    # Card only: capture off, and every site disturbed at scale 0.
+    s_off, lg_off, c_off = _capture_run(eng["dev"], prompt, n, greedy)
+    zero = {s: {"kind": "noise1", "scale": 0.0}
+            for s in ("weight", "calculation", "system")}
+    s_zero, lg_zero, _ = _capture_run(eng["dev"], prompt, n, greedy,
+                                      disturbance=zero)
+    same_off = (np.array_equal(s_off, s_dev) and not c_off and all(
+        np.array_equal(a, b) for a, b in zip(lg_off, lg_dev)))
+    same_zero = np.array_equal(s_zero, s_off) and all(
+        np.array_equal(a, b) for a, b in zip(lg_zero, lg_off))
+    emit({"phase": "scope_reference", "prompt_len": len(prompt),
+          "new_tokens": n, "payloads": len(c_dev),
+          "payloads_per_forward": per_call, "compared_forward_calls": calls,
+          "first_divergence": diverge if diverge < n else None,
+          "divergence_gap_of_range": gap,
+          "worst_err_over_rms_by_site": worst,
+          "tolerance_of_rms": SCOPE_REF_TOL,
+          "capture_on_off_bitwise": same_off,
+          "zero_disturbance_bitwise": same_zero})
+    check(diverge >= 1, "scope_reference: the card's first token differs "
+          "from the CPU's")
+    check(gap is None or abs(gap) < 0.05,
+          f"scope_reference: first divergence at token {diverge} is not a "
+          f"near-tie ({gap} of the logit range)")
+    for site, err in worst.items():
+        check(err <= SCOPE_REF_TOL,
+              f"scope_reference: {site} payload {err:.4f} of its RMS off "
+              f"the CPU's (> {SCOPE_REF_TOL})")
+    check(same_off, "scope_reference: capture changed the card's stream "
+          "or logits")
+    check(same_zero, "scope_reference: a scale-0 disturbance changed the "
+          "card's stream or logits")
+    del eng, p_dev
+
+
+def phase_serve_static(state, layers: int):
+    """The static engine behind the server (serve.py --engine static) on
+    serve's llama3-8b weights (full width, `layers` deep), through the
+    server's in-process visualized generation (TextGenerationServer.
+    generate_streaming, what /ws runs): 3 prompts, 32 new tokens each,
+    plain and with every site on for layers 0 and 1 (pixels 16); then a
+    'system' disturbance and the same at scale 0."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
+    from megatronapp_tpu_torch.inference.engine import StaticInferenceEngine
+    from megatronapp_tpu_torch.inference.server import TextGenerationServer
+    params, cfg, dev = state["model"]
+    max_new = 32
+    prompts = _scope_prompts(cfg.vocab_size, [17, 64, 130], 5)
+    engine = StaticInferenceEngine(
+        params, cfg, tokenizer=NullTokenizer(cfg.vocab_size),
+        max_seq_len=max(len(p) for p in prompts) + max_new, device=dev)
+    srv = TextGenerationServer(engine)
+    viz = {f: [0, 1] for f in SCOPE_VIZ_FLAGS}
+
+    def run(prompt, **extra):
+        frames, stamps = [], []
+
+        def emit_frame(p):
+            frames.append(p)
+            if p.get("type") == "token":
+                stamps.append(time.perf_counter())
+
+        req = {"prompt": " ".join(map(str, prompt)),
+               "tokens_to_generate": max_new, "greedy": True, **extra}
+        text = srv.generate_streaming(req, emit_frame)[0]
+        toks = [f["token"] for f in frames if f.get("type") == "token"]
+        caps = [f for f in frames if "update_type" in f]
+        iv = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+        return text, toks, caps, frames, iv
+
+    run(prompts[0][:8], visualization=viz)           # warm-up
+    rows = []
+    for p in prompts:
+        t_plain, toks_plain, caps_plain, _, iv_plain = run(p)
+        t_viz, toks_viz, caps, frames, iv_viz = run(
+            p, visualization=viz, compressor={"pixels": 16})
+        cands = [f for f in frames if f.get("type") == "token"]
+        rows.append({"prompt_len": len(p), "stream_equal":
+                     toks_viz == toks_plain and t_viz == t_plain,
+                     "payloads": len(caps), "plain_payloads":
+                     len(caps_plain),
+                     "candidates_each": sorted({len(f["candidates"])
+                                                for f in cands}),
+                     "pixels": sorted({np.asarray(c["result"]).shape[-1]
+                                       for c in caps}),
+                     "decode_ms_plain": iv_plain,
+                     "decode_ms_capture": iv_viz,
+                     "tokens": toks_plain})
+    sysd = {"system": {"kind": "noise1", "scale": 0.5}}
+    _, toks_noise, _, _, _ = run(prompts[0], disturbance=sysd,
+                                 random_seed=1, visualization={"Result": [0]})
+    _, toks_zero, _, _, _ = run(prompts[0], disturbance={
+        "system": {"kind": "noise1", "scale": 0.0}}, random_seed=1,
+        visualization={"Result": [0]})
+    want = (SCOPE_LAYER_SITES * 2 + 1) * max_new
+    emit({"phase": "serve_static", "model": "llama3-8b", "layers": layers,
+          "full_width": True, "params_dtype": "bf16",
+          "max_seq_len": engine.max_seq_len, "max_new_tokens": max_new,
+          "visualization": viz, "requests": [
+              {k: v for k, v in r.items() if k != "tokens"} for r in rows],
+          "expected_payloads": want,
+          "system_disturbance_changed_stream": toks_noise != rows[0][
+              "tokens"],
+          "zero_disturbance_same_stream": toks_zero == rows[0]["tokens"]})
+    for r in rows:
+        check(r["stream_equal"], "serve_static: the stream with capture "
+              f"differs from the stream without (prompt {r['prompt_len']})")
+        check(len(r["tokens"]) == max_new and all(
+            0 <= t < cfg.vocab_size for t in r["tokens"]),
+            f"serve_static: stream {r['tokens']}")
+        check(r["payloads"] == want and r["plain_payloads"] == 0,
+              f"serve_static: {r['payloads']} payloads != {want} "
+              f"(({SCOPE_LAYER_SITES} sites x 2 layers + result) x "
+              f"{max_new} forward calls)")
+        check(r["candidates_each"] == [20] and r["pixels"] == [16],
+              f"serve_static: candidates {r['candidates_each']}, pixels "
+              f"{r['pixels']}")
+    check(toks_noise != rows[0]["tokens"],
+          "serve_static: a 'system' disturbance left the stream unchanged")
+    check(toks_zero == rows[0]["tokens"],
+          "serve_static: a scale-0 disturbance changed the stream")
+    del srv, engine
+
+
+def phase_scope_train(state):
+    """TrainingScopeSession.run_step at llama3-8b width, 2 layers, S 2048
+    (the flash kernels run: attention_probs is never formed there), every
+    flag on layer 0 and a 'calculation' disturbance on layer 1, then a
+    plain step: JAX's wire format (update_type, layer_id, site, result,
+    then step_done) and finite losses."""
+    import gc
+
+    import numpy as np
+
+    from megatronapp_tpu_torch.config.training_config import (
+        OptimizerConfig, TrainingConfig,
+    )
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.scope.client import validate_payloads
+    from megatronapp_tpu_torch.scope.hooks import _SITE_TO_FLAG
+    from megatronapp_tpu_torch.scope.ws_server import TrainingScopeSession
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama3_8b(num_layers=2)
+    session = TrainingScopeSession(
+        cfg, TrainingConfig(micro_batch_size=1, global_batch_size=1,
+                            seq_length=2048, train_iters=10),
+        OptimizerConfig(), device="cuda")
+    viz = {f: [0] for f in SCOPE_VIZ_FLAGS}
+    fa.launches.update({k: 0 for k in fa.launches})
+    t0 = time.perf_counter()
+    frames = session.run_step(
+        viz, {"calculation": {"kind": "noise2", "scale": 0.05,
+                              "layers": [1]}}, {"pixels": 16})
+    step_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    plain = session.run_step()
+    fa.launches.update({k: 0 for k in fa.launches})
+    caps = [f for f in frames if "update_type" in f]
+    emit({"phase": "scope_train", "model": "llama3-8b", "layers": 2,
+          "seq_length": 2048, "visualization": viz,
+          "frames": [{k: (np.asarray(v).shape if k == "result" else v)
+                      for k, v in f.items() if k != "points"}
+                     for f in frames],
+          "step_s_with_capture": step_s, "flash_launches": launches,
+          "plain_step": plain})
+    validate_payloads(frames, {f: l for f, l in viz.items()
+                               if f != "RawAttentionScore"})
+    check([(c["site"], c["layer_id"]) for c in caps] == [
+        ("qkv_q", 0), ("qkv_k", 0), ("qkv_v", 0), ("context", 0),
+        ("mlp1", 0), ("mlp2", 0), ("result", -1)],
+        f"scope_train: captures {[(c['site'], c['layer_id']) for c in caps]}")
+    for c in caps:
+        check(c["update_type"] == int(_SITE_TO_FLAG[c["site"]])
+              and np.asarray(c["result"]).shape[-1] == 16
+              and bool(np.isfinite(np.asarray(c["result"])).all()),
+              f"scope_train: payload {c['site']} {c['update_type']}")
+    check(frames[-1]["type"] == "step_done" and frames[-2]["type"] == "pca"
+          and math.isfinite(frames[-1]["loss"])
+          and plain == [plain[-1]] and math.isfinite(plain[-1]["loss"]),
+          f"scope_train: summaries {frames[-1]} / {plain}")
+    check(launches == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2},
+          f"scope_train: flash launches {launches} != 2 each")
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_train_gpt2(state):
@@ -5588,8 +6085,12 @@ def main(argv=None) -> int:
         phase_train_kernels(state)
         phase_train_reference(state)
         phase_train(state, args.train_layers)
+        phase_trace_train(state)
+        phase_scope_train(state)
         phase_train_gpt2(state)
+        phase_scope_reference(state)
         phase_serve(state, args.layers)
+        phase_serve_static(state, args.layers)
         phase_serve_fused(state)
         phase_serve_quant(state)
         phase_serve_lora(state)

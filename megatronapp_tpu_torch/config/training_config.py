@@ -3,8 +3,8 @@ config/training_config.py, same field names and defaults).
 
 Fields that select machinery the port does not have yet raise when they
 are set away from their defaults, naming the flag: checkpoints, fault
-tolerance, tracing, evaluation, batch-size rampup, metrics sinks and the
-rerun state machine (whose default, "validate_results", is therefore
+tolerance, evaluation, batch-size rampup, metrics sinks and the rerun
+state machine (whose default, "validate_results", is therefore
 "disabled" here), and optimizer state dtypes other than fp32.
 """
 
@@ -14,6 +14,8 @@ import dataclasses
 from typing import Optional
 
 _FP32 = ("fp32", "float32")
+# --trace-granularity's choices (the JAX parser's).
+_GRANULARITIES = ("full", "schedule", "collective")
 
 
 @dataclasses.dataclass
@@ -84,7 +86,6 @@ UNPORTED_TRAINING_FIELDS = {
     "run_workload_inspector_server": "--run-workload-inspector-server",
     "metrics_jsonl": "--metrics-jsonl (metrics sinks)",
     "tensorboard_dir": "--tensorboard-dir (metrics sinks)",
-    "trace": "--trace (MegaScan tracing)",
 }
 
 
@@ -129,6 +130,9 @@ class TrainingConfig:
     trace_granularity: str = "full"
 
     def __post_init__(self):
+        if self.trace_granularity not in _GRANULARITIES:
+            raise ValueError(f"trace_granularity {self.trace_granularity!r}"
+                             f": takes {_GRANULARITIES}")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for name, flag in UNPORTED_TRAINING_FIELDS.items():
             if getattr(self, name) != defaults[name]:

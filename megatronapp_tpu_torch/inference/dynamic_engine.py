@@ -82,7 +82,7 @@ import torch
 
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.inference.engine import (
-    SamplingParams, mask_padded_vocab,
+    SamplingParams, _warp_logits, mask_padded_vocab,
 )
 from megatronapp_tpu_torch.inference.lora import (
     TENANT_UNPORTED, AdapterSlotsPinned, lora_target_dims,
@@ -216,7 +216,7 @@ def _run_layers(params, h, cfg: TransformerConfig, cos, sin, pages,
             fused_decode=fused,
             kv_scales=None if scales is None else (scales[0][lid],
                                                    scales[1][lid]),
-            lora=ll, ctx=ctx)
+            lora=ll, ctx=ctx, layer_id=lid)
     return h
 
 
@@ -306,7 +306,7 @@ def _decode_step(params, tokens, cache, lengths, cfg: TransformerConfig,
     for lid, layer_p in enumerate(params["layers"]):
         (h, _), _ = layer_forward(layer_p, h, cfg, cos, sin, mask,
                                   kv_cache=(ck[lid], cv[lid]),
-                                  cache_positions=lengths)
+                                  cache_positions=lengths, layer_id=lid)
     return gpt_head(params, h, cfg)[:, -1], cache
 
 
@@ -323,24 +323,6 @@ def _row_seed(seed: int, rid: int, step: int, *streams: int) -> int:
         z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
         z ^= z >> 31
     return z >> 1
-
-
-def _warp_logits(logits, temps, top_ks, top_ps):
-    """Per-row temperature → top-k → top-p filtering ([N, V] → [N, V],
-    filtered entries at -1e30), the JAX engine's _warp_logits."""
-    v = logits.shape[-1]
-    x = logits / temps[:, None].clamp(min=1e-6)
-    sorted_desc = x.sort(dim=-1, descending=True).values
-    k_idx = (top_ks - 1).clamp(0, v - 1).long()
-    kth = sorted_desc.gather(-1, k_idx[:, None])
-    x = torch.where((top_ks[:, None] > 0) & (x < kth),
-                    torch.full_like(x, -1e30), x)
-    sorted2 = x.sort(dim=-1, descending=True).values
-    cum = torch.softmax(sorted2, dim=-1).cumsum(dim=-1)
-    cutoff_idx = (cum < top_ps[:, None]).sum(dim=-1).clamp(max=v - 1)
-    cutoff = sorted2.gather(-1, cutoff_idx[:, None])
-    return torch.where((top_ps[:, None] > 0.0) & (x < cutoff),
-                       torch.full_like(x, -1e30), x)
 
 
 def _sample_rows(logits, rows: Dict[str, np.ndarray]) -> torch.Tensor:

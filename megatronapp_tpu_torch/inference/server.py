@@ -1,11 +1,16 @@
-"""Text-generation server: REST /api + WebSocket per-token streaming, over
-the continuous-batching engine (the JAX package's inference/server.py for
-``--engine dynamic``).
+"""Text-generation server: REST /api + WebSocket per-token streaming
+(the JAX package's inference/server.py), over the continuous-batching
+engine (``--engine dynamic``) or the static engine (``--engine static``).
 
-Every connection submits into one shared DynamicInferenceEngine and a
-single stepper thread (DynamicBatchingDriver) drives engine.step(), so
-concurrent requests decode in the same batch. aiohttp is imported inside
-the handlers: the engine and DynamicBatchingDriver run without it.
+Dynamic: every connection submits into one shared DynamicInferenceEngine
+and a single stepper thread (DynamicBatchingDriver) drives engine.step(),
+so concurrent requests decode in the same batch. Static: one generation
+at a time under a lock, and the WebSocket path serves MegaScope
+visualization requests (``generate_streaming``: capture frames,
+top-20 candidates per token, disturbances); the dynamic engine answers
+those with JAX's error message. aiohttp is imported inside the handlers:
+the engines, DynamicBatchingDriver and ``generate_streaming`` run without
+it.
 
 REST:  PUT /api  {"prompts": [...], "tokens_to_generate": N,
                   "temperature": f, "top_k": i, "top_p": f, "greedy": b,
@@ -18,10 +23,14 @@ REST:  PUT /api  {"prompts": [...], "tokens_to_generate": N,
        serving_tokens_emitted and the spec_accepted_per_round histogram)
 WS:    /ws — client sends the same JSON; server streams
        {"type": "token", "step": i, "token": id, "text": str} per token
-       then {"type": "done", "text": full}.
+       then {"type": "done", "text": full}. On the static engine a
+       request may add "visualization" ({FlagType name: [layer ids]}),
+       "compressor" ({"pixels", "method"}) and "disturbance" ({site:
+       {"kind", "scale", "layers"}}, seeded by "random_seed"): capture
+       frames {"update_type", "site", "layer_id", "result"} stream as the
+       forward runs and each token frame carries "candidates".
 
-The static and mamba engines, MegaScope visualization requests, fleets
-and per-tenant adapters are later slices.
+The mamba engine, fleets and per-tenant accounting are later slices.
 """
 
 from __future__ import annotations
@@ -36,7 +45,9 @@ from typing import Optional
 from megatronapp_tpu_torch.inference.dynamic_engine import (
     DeadlineExceeded, DynamicInferenceEngine,
 )
-from megatronapp_tpu_torch.inference.engine import SamplingParams
+from megatronapp_tpu_torch.inference.engine import (
+    SamplingParams, StaticInferenceEngine,
+)
 from megatronapp_tpu_torch.trace.request_trace import get_request_tracer
 from megatronapp_tpu_torch.utils import chaos
 from megatronapp_tpu_torch.utils import metrics as telemetry
@@ -279,19 +290,86 @@ def _timeout_of(req: dict) -> Optional[float]:
 
 
 class TextGenerationServer:
-    """REST + WebSocket front end over one DynamicInferenceEngine."""
+    """REST + WebSocket front end over one DynamicInferenceEngine or one
+    StaticInferenceEngine."""
 
-    def __init__(self, engine: DynamicInferenceEngine, host="0.0.0.0",
-                 port=5000):
-        if not isinstance(engine, DynamicInferenceEngine):
+    def __init__(self, engine, host="0.0.0.0", port=5000):
+        if not isinstance(engine, (DynamicInferenceEngine,
+                                   StaticInferenceEngine)):
             raise NotImplementedError(
-                f"{type(engine).__name__}: the port serves the dynamic "
-                "engine only; the static and mamba engines are a later "
-                "slice")
+                f"{type(engine).__name__}: the port serves the dynamic and "
+                "static engines; the mamba engine is a later slice")
         self.engine = engine
         self.host = host
         self.port = port
-        self._driver = DynamicBatchingDriver(engine)
+        # One generation at a time on the static engine: the engine, the
+        # capture hooks and the disturbance state are shared.
+        self._gen_lock = threading.Lock()
+        self._driver = (DynamicBatchingDriver(engine)
+                        if isinstance(engine, DynamicInferenceEngine)
+                        else None)
+
+    def generate_streaming(self, req: dict, emit,
+                           cancel: Optional[threading.Event] = None):
+        """One WebSocket request's generation on the static engine, in
+        process (JAX server.py:500-600): the first prompt, its token
+        frames {"type": "token", "step", "token", "text"} passed to
+        emit(payload) as they are sampled, and, when req has
+        "visualization", the capture frames of every forward and each
+        token's top-20 "candidates" (TensorTracer.report_result). A
+        "disturbance" config (seeded by "random_seed") applies for this
+        generation only. Hooks and disturbances are set in this thread and
+        cleared after, whatever happens. cancel: set → _ClientGone at the
+        next token. Returns the generated texts."""
+        from megatronapp_tpu_torch.scope.disturbance import get_disturbance
+        from megatronapp_tpu_torch.scope.hooks import capture_payload
+        from megatronapp_tpu_torch.scope.tensor_tracer import (
+            get_tensor_tracer,
+        )
+        prompts = req.get("prompts") or [req.get("prompt", "")]
+        n = int(req.get("tokens_to_generate", 64))
+        sampling = _sampling_from_request(req)
+        viz = req.get("visualization")
+        tok = self.engine.tokenizer
+        tt = get_tensor_tracer()
+
+        def cb(step, tokens, logits):
+            if cancel is not None and cancel.is_set():
+                raise _ClientGone()
+            payload = {"type": "token", "step": int(step),
+                       "token": int(tokens[0]),
+                       "text": (tok.detokenize([int(tokens[0])]) if tok
+                                else "")}
+            if viz and logits is not None:
+                payload["candidates"] = tt.report_result(
+                    logits[0], int(tokens[0]), tok)["candidates"]
+            emit(payload)
+
+        with self._gen_lock:
+            if not viz:
+                return self.engine.generate_text(
+                    prompts[:1], n, sampling, token_callback=cb)
+            comp = req.get("compressor") or {}
+
+            def report(site, layer_id, arr):
+                emit(capture_payload(site, layer_id, arr))
+
+            # Config application sits inside the try: a malformed client
+            # config must not leave hooks or noise active.
+            try:
+                tt.set_flags_from_config(viz)
+                tt.activate(report, pixels=int(comp.get("pixels", 16)),
+                            method=comp.get("method", "mean"))
+                if req.get("disturbance") is not None:
+                    get_disturbance().configure(
+                        req["disturbance"],
+                        seed=int(req.get("random_seed", 0)))
+                return self.engine.generate_text(
+                    prompts[:1], n, sampling, token_callback=cb)
+            finally:
+                tt.deactivate()
+                tt.clear_records()
+                get_disturbance().clear()
 
     # ------------------------------------------------------------------
     def _submit_and_wait(self, prompts, n, sampling,
@@ -353,11 +431,18 @@ class TextGenerationServer:
             timeout_s = _timeout_of(req)
             adapter_id, tenant = req.get("adapter_id"), req.get("tenant")
             loop = asyncio.get_running_loop()
-            texts = await loop.run_in_executor(
-                None, lambda: self._submit_and_wait(prompts, n, sampling,
-                                                    timeout_s=timeout_s,
-                                                    adapter_id=adapter_id,
-                                                    tenant=tenant))
+
+            def run_api():
+                if self._driver is None:
+                    with self._gen_lock:
+                        return self.engine.generate_text(prompts, n,
+                                                         sampling)
+                return self._submit_and_wait(prompts, n, sampling,
+                                             timeout_s=timeout_s,
+                                             adapter_id=adapter_id,
+                                             tenant=tenant)
+
+            texts = await loop.run_in_executor(None, run_api)
             return web.json_response({
                 "text": [p + t for p, t in zip(prompts, texts)],
                 "segments": texts,
@@ -394,11 +479,12 @@ class TextGenerationServer:
             prompts = req.get("prompts") or [req.get("prompt", "")]
             n = int(req.get("tokens_to_generate", 64))
             sampling = _sampling_from_request(req)
-            if req.get("visualization"):
+            if req.get("visualization") and self._driver is not None:
                 await ws.send_json({
                     "type": "error",
-                    "message": "visualization needs the static engine "
-                               "and MegaScope, which are not ported yet"})
+                    "message": "visualization requires --engine static "
+                               "(the continuous-batching backend shares "
+                               "one step loop across connections)"})
                 continue
             queue: asyncio.Queue = asyncio.Queue()
             cancel = threading.Event()
@@ -415,6 +501,10 @@ class TextGenerationServer:
                 loop.call_soon_threadsafe(queue.put_nowait, payload)
 
             def run_generation():
+                if self._driver is None:
+                    return self.generate_streaming(
+                        req, lambda p: loop.call_soon_threadsafe(
+                            queue.put_nowait, p), cancel)
                 return self._submit_and_wait(
                     prompts[:1], n, sampling, cancel=cancel,
                     token_cb=driver_cb, timeout_s=_timeout_of(req),
@@ -477,10 +567,14 @@ class TextGenerationServer:
     # ------------------------------------------------------------------
     def close(self):
         """Stop the driver's stepper thread (at shutdown)."""
-        self._driver.close()
+        if self._driver is not None:
+            self._driver.close()
 
     def stats_snapshot(self) -> dict:
-        """Serving stats for GET /stats."""
+        """Serving stats for GET /stats (the static engine has only its
+        name to report)."""
+        if self._driver is None:
+            return {"engine": "static"}
         out = self.engine.stats_snapshot()
         out["driver_max_active"] = self._driver.max_active
         return out
@@ -493,6 +587,8 @@ class TextGenerationServer:
         """GET /healthz payload: stepper liveness, restart accounting and
         pool pressure. status: 'ok', 'degraded' (stepper failing steps
         but self-healing) or 'unhealthy' (stepper thread dead)."""
+        if self._driver is None:
+            return {"status": "ok", "engine": "static"}
         eng = self.engine
         st = self._driver.stats()
         out = {"status": "ok", "engine": "dynamic", "stepper": st,
@@ -517,7 +613,10 @@ class TextGenerationServer:
             else 200)
 
     def _export_live_gauges(self):
-        """Point-in-time gauges refreshed at scrape time."""
+        """Point-in-time gauges refreshed at scrape time (the dynamic
+        engine's; the static engine has none)."""
+        if self._driver is None:
+            return
         eng = self.engine
         telemetry.set_gauge("serving_active_slots", sum(
             1 for r in eng.slots if r is not None))

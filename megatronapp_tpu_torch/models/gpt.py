@@ -13,6 +13,7 @@ from typing import Optional
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatronapp_tpu_torch.ops.normalization import apply_norm
+from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.block import (
     block_forward, init_block_params,
 )
@@ -101,7 +102,8 @@ def gpt_head(p, h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
                    p.get("final_ln_bias"), cfg.layernorm_epsilon)
     out_kernel = p["output"] if "output" in p else p["embedding"]["word"].T
     dt = cfg.compute_dtype
-    return (h.to(dt) @ out_kernel.to(dt)).float()
+    logits = scope_capture("result", h.to(dt) @ out_kernel.to(dt))
+    return logits.float()
 
 
 def packed_position_ids(segment_ids: torch.Tensor) -> torch.Tensor:

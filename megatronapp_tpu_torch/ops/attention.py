@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from megatronapp_tpu_torch.config.transformer_config import AttnMaskType
+from megatronapp_tpu_torch.scope.hooks import scope_capture
 
 
 def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -27,10 +28,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           attention_mask: Optional[torch.Tensor] = None,
                           softmax_scale: Optional[float] = None,
                           softmax_in_fp32: bool = True,
-                          q_offset: int = 0) -> torch.Tensor:
+                          q_offset: int = 0, layer_id=None) -> torch.Tensor:
     """q [B,Sq,H,D], k/v [B,Skv,Hkv,D] → context [B,Sq,H,D] in v's dtype.
     attention_mask [B,1,Sq,Skv] bool, True = keep. q_offset: absolute
-    position of q[0] relative to k[0]."""
+    position of q[0] relative to k[0]. layer_id: MegaScope's attribution
+    of the 'attention_probs' capture ([B,H,Sq,Skv] fp32 probabilities),
+    taken only when given, as the JAX function gates it (the transformer
+    layer threads it; other callers do not)."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if softmax_scale is None:
@@ -51,5 +55,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # softmax_in_fp32 only re-casts fp32 scores), so the flag changes
     # nothing.
     del softmax_in_fp32
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if layer_id is not None:
+        probs = scope_capture("attention_probs", probs, layer_id)
+    probs = probs.to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -178,6 +178,11 @@ def fused_layer_multiquery(p, x, cfg: TransformerConfig, rope_cos,
     return (x2.reshape(b, s, h), (ck, cv) + tuple(kv_scales or ())), None
 
 
+# The capture sites the fused body skips (kernel_gen.py:2134-2135).
+_CAPTURE_SITES = ("qkv_q", "qkv_k", "qkv_v", "context", "mlp1", "mlp2",
+                  "between_layers")
+
+
 def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
                                  params=None, mq_rows: Optional[int] = None,
                                  paged: bool = True, tp_paged: bool = False,
@@ -188,7 +193,7 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
     the first failed predicate by name (kernel_gen.
     megakernel_ineligible_reason). The semantic predicates are the JAX
     package's: paged backend, not MoE, not heterogeneous, no tp mesh, no
-    LoRA on MLA. The TPU's VMEM size predicates are replaced by the CUDA
+    MegaScope capture or disturbance active, no LoRA on MLA. The TPU's VMEM size predicates are replaced by the CUDA
     kernels' own limits (``kernel_limits``: compute, residual and weight
     dtypes — bf16, fp32 or resident int8, q_kernel and kv_kernel of one
     kind —, head_dim, alignment of H, ffn and the projections; for MLA the
@@ -213,6 +218,15 @@ def megakernel_ineligible_reason(cfg: TransformerConfig, *, batch: int,
         return ("tp head-sharded serving mesh: fused prologue/epilogue "
                 "kernels are single-device (the tp engine keeps the "
                 "unfused body)")
+    from megatronapp_tpu_torch.scope import hooks
+    from megatronapp_tpu_torch.scope.disturbance import get_disturbance
+    if any(hooks.is_enabled(s) for s in _CAPTURE_SITES):
+        return ("MegaScope capture hooks active (fused kernels do not "
+                "trace capture sites)")
+    dist = get_disturbance()
+    if any(dist.active(s) for s in ("weight", "calculation", "system")):
+        return ("MegaScope disturbance sites active (fused kernels do "
+                "not trace perturbations)")
     if lora_rank and cfg.multi_latent_attention:
         return ("LoRA serving targets the GQA projection kernels — "
                 "the MLA megakernel has no q_kernel/kv_kernel to "

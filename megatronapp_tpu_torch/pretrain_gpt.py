@@ -13,7 +13,13 @@ Flags keep the names of the JAX package's config/arguments.py; this
 entry honours the subset below, plus --preset and --device. It trains on
 mock data from --seed with random weights from --seed, on the card unless
 --device cpu. Any other flag of the JAX parser (parallelism, checkpoints,
-data paths, tracing, ...) exits with a message naming it.
+data paths, ...) exits with a message naming it.
+
+MegaScan: --trace writes the traced iterations' phase spans (timed by
+CUDA events on the card) to --trace-dir; merge and analyse them with
+
+    python -m megatronapp_tpu_torch.trace.aggregate -b trace [-d]
+    python -m megatronapp_tpu_torch.trace.analytics --trace-dir trace
 """
 
 from __future__ import annotations
@@ -100,6 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--adam-eps", type=float, default=1e-8)
     g.add_argument("--clip-grad", type=float, default=1.0)
     g.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
+    g = ap.add_argument_group("megascan")
+    g.add_argument("--trace", action="store_true")
+    g.add_argument("--trace-interval", type=int, default=5)
+    g.add_argument("--continuous-trace-iterations", type=int, default=2)
+    g.add_argument("--trace-dir", default="trace")
+    g.add_argument("--trace-granularity", default="full",
+                   choices=["full", "schedule", "collective"])
     return ap
 
 
@@ -156,7 +169,10 @@ def configs_from_args(args: argparse.Namespace):
         micro_batch_size=args.micro_batch_size,
         global_batch_size=args.global_batch_size,
         seq_length=args.seq_length, train_iters=args.train_iters,
-        seed=args.seed, log_interval=args.log_interval)
+        seed=args.seed, log_interval=args.log_interval, trace=args.trace,
+        trace_interval=args.trace_interval,
+        continuous_trace_iterations=args.continuous_trace_iterations,
+        trace_dir=args.trace_dir, trace_granularity=args.trace_granularity)
     optimizer = OptimizerConfig(
         optimizer=args.optimizer, lr=args.lr, min_lr=args.min_lr,
         lr_decay_style=args.lr_decay_style,

@@ -1,9 +1,16 @@
 """Launch the text-generation server on the port (the JAX package's
-tools/run_text_generation_server.py for the paged dynamic engine).
+tools/run_text_generation_server.py for the paged dynamic engine and the
+static engine).
 
     python -m megatronapp_tpu_torch.serve --preset llama3-8b \
         --engine dynamic --paged-kv-cache --max-batch 8 \
         --max-seq-len 2048 --kv-block-size 16 --prefill-chunk 32 --port 5000
+    python -m megatronapp_tpu_torch.serve --preset llama3-8b \
+        --max-seq-len 512 --port 5000       # --engine static, the default
+
+The static engine (the default, as in JAX) generates one request at a time
+over a dense cache of --max-seq-len positions and serves MegaScope's
+visualization requests on /ws (inference/server.py).
 
 The serving flags keep the names of the JAX package's
 config/arguments.py:add_serving_args. The port serves random weights made
@@ -88,9 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
     from megatronapp_tpu_torch.models.presets import PRESETS
     ap = argparse.ArgumentParser(
         prog="python -m megatronapp_tpu_torch.serve",
-        description="continuous-batching text-generation server on the "
-                    "GPU (paged KV cache, hand-written paged-attention "
-                    "kernel)")
+        description="text-generation server on the GPU: the static "
+                    "engine (MegaScope visualization) or continuous "
+                    "batching over a paged KV cache (hand-written "
+                    "paged-attention kernel)")
     ap.add_argument("--preset", default="gpt2-125m", choices=sorted(PRESETS))
     ap.add_argument("--tokenizer-type", default="NullTokenizer")
     ap.add_argument("--port", type=int, default=5000)
@@ -110,14 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
     g = ap.add_argument_group("serving")
     g.add_argument("--engine", choices=["static", "dynamic", "mamba"],
                    default="static",
-                   help="dynamic = continuous batching; static and mamba "
-                        "are not ported yet")
+                   help="static = one generation at a time over a dense "
+                        "cache (MegaScope visualization); dynamic = "
+                        "continuous batching; mamba is not ported yet")
     g.add_argument("--max-batch", type=int, default=4,
                    help="concurrent decode slots")
     g.add_argument("--paged-kv-cache", action="store_true",
                    help="block-pool paged KV cache + ragged paged "
-                        "attention (required: the dense cache is not "
-                        "ported)")
+                        "attention (required by --engine dynamic: its "
+                        "dense slot cache is not ported)")
     g.add_argument("--kv-block-size", type=int, default=16,
                    help="tokens per KV block")
     g.add_argument("--num-kv-blocks", type=int, default=None,
@@ -228,10 +237,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             args, PRESETS[args.preset]().multi_latent_attention)
     except SystemExit as e:
         ap.error(str(e))
-    if args.engine != "dynamic":
-        ap.error(f"--engine {args.engine} is not ported yet: the port "
-                 "serves --engine dynamic --paged-kv-cache")
-    if not args.paged_kv_cache:
+    if args.engine == "mamba":
+        ap.error("--engine mamba is not ported yet: the port serves "
+                 "--engine static and --engine dynamic --paged-kv-cache")
+    if args.engine == "static":
+        # The JAX parser's messages where it has one (validate_serving_args).
+        if args.megakernel_decode:
+            ap.error("--megakernel-decode requires --engine dynamic (the "
+                     "fused step is the dynamic engine's decode body)")
+        for flag, on in (("--paged-kv-cache", args.paged_kv_cache),
+                         ("--kv-cache-dtype", args.kv_cache_dtype != "bf16"),
+                         ("--spec-method", args.spec_method != "none"),
+                         ("--serve-tp", args.serve_tp != 1)):
+            if on:
+                ap.error(f"{flag} requires --engine dynamic (the static "
+                         "engine decodes over one dense cache on one "
+                         "device)")
+    elif not args.paged_kv_cache:
         ap.error("--engine dynamic without --paged-kv-cache is the dense "
                  "slot cache, which is not ported yet: pass "
                  "--paged-kv-cache")
@@ -306,10 +328,11 @@ def spawn_followers(args: argparse.Namespace, init_method: str):
 
 
 def build_engine(args: argparse.Namespace, ctx=None):
-    """The engine the server drives, with random weights from args.seed
-    made on the device (quantized there with --quantized-weights, as the
-    JAX server's startup PTQ does: tools/run_text_generation_server.py:
-    123-135). ctx: this rank's MeshContext under --serve-tp."""
+    """The engine the server drives (--engine static or dynamic), with
+    random weights from args.seed made on the device (quantized there
+    with --quantized-weights, as the JAX server's startup PTQ does:
+    tools/run_text_generation_server.py:123-135). ctx: this rank's
+    MeshContext under --serve-tp."""
     from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
     from megatronapp_tpu_torch.inference.dynamic_engine import (
         DynamicInferenceEngine,
@@ -343,6 +366,13 @@ def build_engine(args: argparse.Namespace, ctx=None):
         worst = max(report.values()) if report else 0.0
         print(f"PTQ-quantized {len(report)} kernels at startup (max |w err| "
               f"{worst:.4g}); int8 kept resident")
+    if args.engine == "static":
+        from megatronapp_tpu_torch.inference.engine import (
+            StaticInferenceEngine,
+        )
+        return StaticInferenceEngine(
+            params, cfg, tokenizer=NullTokenizer(cfg.vocab_size),
+            max_seq_len=args.max_seq_len, device=device)
     return DynamicInferenceEngine(
         params, cfg, tokenizer=NullTokenizer(cfg.vocab_size),
         max_batch=args.max_batch, max_seq_len=args.max_seq_len,
@@ -398,6 +428,20 @@ def main(argv: Optional[List[str]] = None):
                  else [])
     ctx = join_tp(args, 0, init_method)
     engine = build_engine(args, ctx)
+    if args.engine == "static":
+        print(f"serving {args.preset} ({engine.cfg.num_layers} layers, "
+              f"random weights seed {args.seed}) with the static engine on "
+              f"{engine.device} at {args.host}:{args.port} (PUT /api, WS "
+              f"/ws with MegaScope visualization; dense cache of "
+              f"{engine.max_seq_len} positions, params "
+              f"{resident_nbytes(engine.params) / 2**20:.1f} MiB on device"
+              f"{' (resident int8)' if args.quantized_weights else ''})")
+        server = TextGenerationServer(engine, args.host, args.port)
+        try:
+            server.run()
+        finally:
+            server.close()
+        return
     tp = "" if ctx is None else (
         f", backend={ctx.backend}, ranks on "
         f"{[str(rank_device(args, r)) for r in range(args.serve_tp)]}, "

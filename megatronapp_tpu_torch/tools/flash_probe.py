@@ -108,6 +108,12 @@ run (chip_smoke.py) does not make. From the repository root:
         two train phases, --bf16-only the int8, LoRA and MLA engines
         (llama3-8b unfused and fused on bf16 weights only), --rounds N
         runs that order N times.
+    python3 -m megatronapp_tpu_torch.tools.flash_probe static-ab --parent DIR
+        chip_smoke.py's serve_static phase (the static engine on llama3-8b
+        at 32 layers: each prompt's decode interval without and with
+        MegaScope capture on layers 0 and 1) of the checkout in DIR and of
+        this one in turns (parent, change, change, parent), one process a
+        run; --rounds N runs that order N times.
 
 Kernel times are device time per call with the calls queued behind a
 sleep (chip_smoke.device_ms): at the D 64 shape a call is shorter than
@@ -636,6 +642,29 @@ def fused_ab(parent: str, rounds: int = 1):
                         "kernel_ms_runs": v["kernel_ms_runs"],
                         "library_ms": v["library_ms"],
                         "bound_ms": v["bound_ms"]}), flush=True)
+
+
+def static_ab(parent: str, rounds: int = 1):
+    code = ("import sys; sys.path.insert(0, '.'); import torch, "
+            "chip_smoke as c\n"
+            "from megatronapp_tpu_torch.models.gpt import init_gpt_params\n"
+            "from megatronapp_tpu_torch.models.presets import llama3_8b\n"
+            "dev = torch.device('cuda', 0)\n"
+            "cfg = llama3_8b(num_layers=32, params_dtype=torch.bfloat16)\n"
+            "p = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), "
+            "dev)\n"
+            "c.phase_serve_static({'model': (p, cfg, dev)}, 32)\n")
+    print(json.dumps({"nvidia_smi": _smoke().nvidia_smi_line()}), flush=True)
+    for which, rec in _turns(parent, code, rounds):
+        if rec.get("phase") != "serve_static":
+            continue
+        for r in rec["requests"]:
+            print(json.dumps({
+                "tree": which, "prompt_len": r["prompt_len"],
+                "decode_ms_plain": r["decode_ms_plain"],
+                "decode_ms_capture": r["decode_ms_capture"],
+                "payloads": r["payloads"],
+                "stream_equal": r["stream_equal"]}), flush=True)
 
 
 def ab(parent: str, skip_train: bool = False, bf16_only: bool = False,
@@ -1339,6 +1368,11 @@ def main(argv=None) -> int:
                        help="a checkout whose fused kernels run first")
     p_fab.add_argument("--rounds", type=int, default=1,
                        help="times to run parent, change, change, parent")
+    p_sab = sub.add_parser("static-ab")
+    p_sab.add_argument("--parent", required=True,
+                       help="a checkout whose serve_static phase runs first")
+    p_sab.add_argument("--rounds", type=int, default=1,
+                       help="times to run parent, change, change, parent")
     p_ab = sub.add_parser("ab")
     p_ab.add_argument("--parent", required=True,
                       help="a checkout whose chip_smoke.py runs first")
@@ -1358,6 +1392,7 @@ def main(argv=None) -> int:
      "fused-variants": fused_variants,
      "quant-flips": lambda: quant_flips(args.parent),
      "fused-ab": lambda: fused_ab(args.parent, args.rounds),
+     "static-ab": lambda: static_ab(args.parent, args.rounds),
      "lora-splits": lora_splits,
      "latent-splits": latent_splits,
      "paged-latent-splits": paged_latent_splits,

@@ -6,9 +6,19 @@ across from the JAX package by ``models/convert.py``) and made trainable;
 mock batches come from the seed when no iterator is given; each global
 batch is reshaped to [num_micro, micro_batch, S] and run through the
 train step; losses are kept at every log_interval, with step time,
-tokens/s and TFLOP/s. Checkpoints, evaluation, fault tolerance, tracing,
-the rerun machine and batch-size rampup raise in ``TrainingConfig``; FBD
-and pipelines are not options here (the entry point refuses their flags).
+tokens/s and TFLOP/s. Checkpoints, evaluation, fault tolerance, the rerun
+machine and batch-size rampup raise in ``TrainingConfig``; FBD and
+pipelines are not options here (the entry point refuses their flags).
+
+MegaScan (train_cfg.trace): the tracer (trace/tracer.py) is configured on
+the trainer's device; iteration it is traced when it % trace_interval <
+continuous_trace_iterations, with an 'iteration' window around the
+batch and the step and a 'train-step' scope around the step (the step's
+own phase spans nest inside); each traced iteration's records are
+resolved at its end (one synchronization) and appended to
+``<trace_dir>/benchmark-data-1-pipeline-1-tensor-1-process-0.json``, the
+JAX trainer's file name on one device. Untraced iterations record
+nothing. trace/aggregate.py merges the files into a Chrome trace.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from megatronapp_tpu_torch.config.training_config import (
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.data.mock import mock_batches
 from megatronapp_tpu_torch.models.gpt import gpt_loss, init_gpt_params
+from megatronapp_tpu_torch.trace.tracer import get_tracer
 from megatronapp_tpu_torch.training.optimizer import Optimizer
 from megatronapp_tpu_torch.training.train_step import (
     TrainState, make_train_step, named_trainable, to_device_batch,
@@ -35,6 +46,15 @@ from megatronapp_tpu_torch.utils.flops import flops_per_token
 
 # Batch fields the GPT loss reads (position_ids are implied by the model).
 _FIELDS = ("tokens", "labels", "loss_mask", "segment_ids")
+
+
+@dataclasses.dataclass(frozen=True)
+class _OneDevice:
+    """The single-device layout, naming the trace file as the JAX
+    trainer's mesh context does (dp 1, pp 1, tp 1)."""
+    dp: int = 1
+    pp: int = 1
+    tp: int = 1
 
 
 @dataclasses.dataclass
@@ -110,35 +130,55 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     rows = _RowBuffer(batch_iter)
     result = TrainResult(state, [], 0.0, 0.0)
     gbs = train_cfg.global_batch_size
+    tracer = get_tracer()
+    if train_cfg.trace:
+        tracer.configure(
+            enabled=True, trace_dir=train_cfg.trace_dir,
+            interval=train_cfg.trace_interval,
+            continuous_iterations=train_cfg.continuous_trace_iterations,
+            granularity=train_cfg.trace_granularity, layout=_OneDevice(),
+            device=device)
     window_tokens, window_start, window_iter = 0, time.perf_counter(), 0
-    for it in range(train_cfg.train_iters):
-        batch = reshape_global_batch(rows.take(gbs), num_micro)
-        batch = to_device_batch({k: v for k, v in batch.items()
-                                 if k in _FIELDS}, device)
-        metrics = step_fn(state, batch)
-        result.consumed_samples += gbs
-        window_tokens += gbs * train_cfg.seq_length
-        if (it + 1) % train_cfg.log_interval and it + 1 != \
-                train_cfg.train_iters:
-            continue
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        dt = now - window_start
-        result.tokens_per_sec = window_tokens / dt
-        result.step_time_ms = dt / (it + 1 - window_iter) * 1e3
-        tflops = result.tokens_per_sec * flops_tok / 1e12
-        result.losses.append(metrics["loss"])
-        result.log.append({"iteration": it + 1, **metrics,
-                           "step_time_ms": result.step_time_ms,
-                           "tokens_per_sec": result.tokens_per_sec,
-                           "tflops": tflops})
-        log_fn(f"iter {it + 1:6d}/{train_cfg.train_iters} | "
-               f"loss {metrics['loss']:.4f} | grad_norm "
-               f"{metrics['grad_norm']:.3f} | lr {metrics['lr']:.2e} | "
-               f"skipped {metrics['skipped']} | "
-               f"{result.step_time_ms:.1f} ms/step | "
-               f"{result.tokens_per_sec:,.0f} tok/s | "
-               f"{tflops:.1f} TFLOP/s/dev")
-        window_tokens, window_start, window_iter = 0, now, it + 1
+    # The tracer is process-wide: whatever ends the loop, a traced run
+    # leaves it disabled, so a later run in the process records nothing.
+    try:
+        for it in range(train_cfg.train_iters):
+            tracer.iteration_begin(it)
+            batch = reshape_global_batch(rows.take(gbs), num_micro)
+            batch = to_device_batch({k: v for k, v in batch.items()
+                                     if k in _FIELDS}, device)
+            with tracer.scope("train-step"):
+                metrics = step_fn(state, batch)
+            if tracer.active:
+                tracer.iteration_end(it)
+                tracer.save()
+            result.consumed_samples += gbs
+            window_tokens += gbs * train_cfg.seq_length
+            if (it + 1) % train_cfg.log_interval and it + 1 != \
+                    train_cfg.train_iters:
+                continue
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            dt = now - window_start
+            result.tokens_per_sec = window_tokens / dt
+            result.step_time_ms = dt / (it + 1 - window_iter) * 1e3
+            tflops = result.tokens_per_sec * flops_tok / 1e12
+            result.losses.append(metrics["loss"])
+            result.log.append({"iteration": it + 1, **metrics,
+                               "step_time_ms": result.step_time_ms,
+                               "tokens_per_sec": result.tokens_per_sec,
+                               "tflops": tflops})
+            log_fn(f"iter {it + 1:6d}/{train_cfg.train_iters} | "
+                   f"loss {metrics['loss']:.4f} | grad_norm "
+                   f"{metrics['grad_norm']:.3f} | lr {metrics['lr']:.2e} | "
+                   f"skipped {metrics['skipped']} | "
+                   f"{result.step_time_ms:.1f} ms/step | "
+                   f"{result.tokens_per_sec:,.0f} tok/s | "
+                   f"{tflops:.1f} TFLOP/s/dev")
+            window_tokens, window_start, window_iter = 0, now, it + 1
+    finally:
+        if train_cfg.trace:
+            tracer.finalize()
+            tracer.configure(enabled=False)
     return result

@@ -23,6 +23,13 @@ static append at ``cache_index``: plain PyTorch, as JAX leaves them to
 XLA); and the single-device training branch (no cache: dense attention or
 the flash kernels, by the ``attention_impl`` rule). The context-parallel
 and tensor-parallel training branches raise until their slices.
+
+MegaScope's sites sit where the JAX layer puts them: the 'weight'
+disturbance on the three projection kernels, the qkv_q/qkv_k/qkv_v
+captures after the QKV split (before QK-norm and rope), 'context' on the
+attention output of every branch, and 'attention_probs' inside dense
+attention (``dot_product_attention``), so only where attention runs
+dense: the flash and paged kernels never form the probabilities.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from megatronapp_tpu_torch.ops.paged_attention import (
     paged_attention_multiquery, paged_attention_multiquery_tp, scale_kwargs,
     write_kv,
 )
+from megatronapp_tpu_torch.scope.disturbance import get_disturbance
+from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
 
@@ -88,8 +97,15 @@ def attention_impl(cfg: TransformerConfig, b: int, nq: int, s: int,
     return impl
 
 
+def weight_of(w, layer_id, dt) -> torch.Tensor:
+    """A projection kernel at matmul entry: dequantized (resident int8),
+    through MegaScope's 'weight' disturbance, cast to the compute dtype."""
+    return get_disturbance().apply("weight", resolve_param(w),
+                                   layer_id).to(dt)
+
+
 def _self_attention(q, k, v, cfg: TransformerConfig, attention_mask,
-                    segment_ids):
+                    segment_ids, layer_id=None):
     """The training branch's attention (JAX transformer/attention.py:
     470-566, single device). Flash (the kernels on the card, their plain
     versions on the CPU) needs no explicit mask and a causal or
@@ -113,12 +129,12 @@ def _self_attention(q, k, v, cfg: TransformerConfig, attention_mask,
     return dot_product_attention(
         q, k, v, mask_type=cfg.attn_mask_type,
         attention_mask=attention_mask,
-        softmax_in_fp32=cfg.attention_softmax_in_fp32)
+        softmax_in_fp32=cfg.attention_softmax_in_fp32, layer_id=layer_id)
 
 
 def _dense_cache_attention(p, q, k, v, cfg: TransformerConfig,
                            attention_mask, kv_cache, cache_index,
-                           cache_positions):
+                           cache_positions, layer_id=None):
     """The dense-cache branches (JAX transformer/attention.py:413-433):
     kv_cache (k, v) [B, S_max, Hkv, D] is written IN PLACE (the JAX step
     donates it). cache_positions [B]: one token a row, appended at the
@@ -150,15 +166,20 @@ def _dense_cache_attention(p, q, k, v, cfg: TransformerConfig,
         q_offset = ci
     attn = dot_product_attention(
         q, ck, cv, mask_type=mask_type, attention_mask=attention_mask,
-        softmax_in_fp32=cfg.attention_softmax_in_fp32, q_offset=q_offset)
-    return _out_projection(p, attn.reshape(b, s, -1), cfg), (ck, cv)
+        softmax_in_fp32=cfg.attention_softmax_in_fp32, q_offset=q_offset,
+        layer_id=layer_id)
+    return _out_projection(p, attn, cfg, layer_id=layer_id), (ck, cv)
 
 
-def _out_projection(p, attn, cfg: TransformerConfig, lora=None):
-    """attn [B, S, nq·D] @ out_kernel, the out delta between the product
-    and the bias (JAX attention.py:581-585), + out_bias."""
+def _out_projection(p, attn, cfg: TransformerConfig, lora=None,
+                    layer_id=None):
+    """attn [B, S, nq, D] → its 'context' capture, then [B, S, nq·D] @
+    out_kernel, the out delta between the product and the bias (JAX
+    attention.py:567-585), + out_bias."""
     dt = cfg.compute_dtype
-    out = attn @ resolve_param(p["out_kernel"], dt)
+    b, s = attn.shape[:2]
+    attn = scope_capture("context", attn, layer_id).reshape(b, s, -1)
+    out = attn @ weight_of(p["out_kernel"], layer_id, dt)
     out = apply_lora_delta(out, attn, lora, "out_kernel")
     if "out_bias" in p:
         out = out + p["out_bias"].to(dt)
@@ -173,7 +194,7 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                       page_table=None, chunk_counts=None,
                       write_index: Optional[WriteIndex] = None,
                       segment_ids: Optional[torch.Tensor] = None, ctx=None,
-                      kv_scales=None, lora=None):
+                      kv_scales=None, lora=None, layer_id=None):
     """x: [B, S, H] → (out [B, S, H], new_cache).
 
     Training (no kv_cache): new_cache is None. attention_mask [B,1,S,S]
@@ -205,7 +226,8 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     ctx.shard(Hkv) in its pools: the projections run whole on every rank
     (replicated params), the rank writes and attends its own heads, and
     the heads are gathered before the replicated out-projection (JAX
-    attention.py:66-77, :363-367, :403-407)."""
+    attention.py:66-77, :363-367, :403-407). layer_id: the layer's index,
+    MegaScope's attribution of its captures and disturbances."""
     serving = kv_cache is not None
     if ctx is not None and not serving:
         raise NotImplementedError(
@@ -234,14 +256,17 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
     dt = cfg.compute_dtype
     x = x.to(dt)
-    q = x @ resolve_param(p["q_kernel"], dt)
-    kv = x @ resolve_param(p["kv_kernel"], dt)
+    q = x @ weight_of(p["q_kernel"], layer_id, dt)
+    kv = x @ weight_of(p["kv_kernel"], layer_id, dt)
     q, kv = apply_lora_deltas((q, kv), x, lora, ("q_kernel", "kv_kernel"))
     if "q_bias" in p:
         q = q + p["q_bias"].to(dt)
         kv = kv + p["kv_bias"].to(dt)
     q = q.reshape(b, s, nq, d)
     k, v = kv.reshape(b, s, 2 * nkv, d).split(nkv, dim=2)
+    q = scope_capture("qkv_q", q, layer_id)
+    k = scope_capture("qkv_k", k, layer_id)
+    v = scope_capture("qkv_v", v, layer_id)
     if cfg.qk_layernorm:
         q = rms_norm(q, p["q_ln_scale"], cfg.layernorm_epsilon)
         k = rms_norm(k, p["k_ln_scale"], cfg.layernorm_epsilon)
@@ -253,12 +278,14 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         if lora is not None:
             raise ValueError("lora deltas ride the paged serving branches "
                              "only")
-        attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids)
-        return _out_projection(p, attn.reshape(b, s, nq * d), cfg), None
+        attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids,
+                               layer_id)
+        return _out_projection(p, attn, cfg, layer_id=layer_id), None
 
     if not paged:
         return _dense_cache_attention(p, q, k, v, cfg, attention_mask,
-                                      kv_cache, cache_index, cache_positions)
+                                      kv_cache, cache_index, cache_positions,
+                                      layer_id)
     ck, cv = kv_cache
     if ctx is not None:
         # Tensor-parallel serving (JAX kernel_gen._tp_place): this rank's
@@ -287,5 +314,5 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     else:
         attn = paged_attention_decode(q[:, 0], ck, cv, page_table,
                                       cache_positions + 1, **sc)[:, None]
-    out = _out_projection(p, attn.reshape(b, s, nq * d), cfg, lora)
+    out = _out_projection(p, attn.reshape(b, s, nq, d), cfg, lora, layer_id)
     return out, (ck, cv) + tuple(kv_scales or ())

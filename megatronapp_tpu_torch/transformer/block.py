@@ -23,6 +23,8 @@ from megatronapp_tpu_torch.ops.fused_decode import (
     fused_layer_decode, fused_layer_multiquery,
 )
 from megatronapp_tpu_torch.ops.normalization import apply_norm
+from megatronapp_tpu_torch.scope.disturbance import get_disturbance
+from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.attention import (
     attention_forward, init_attention_params,
 )
@@ -69,7 +71,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   cache_positions=None, page_table=None,
                   chunk_counts=None, write_index=None,
                   fused_decode: bool = False, segment_ids=None, ctx=None,
-                  kv_scales=None, lora=None):
+                  kv_scales=None, lora=None, layer_id=None):
     """One transformer layer. x: [B,S,H] → ((out, new_cache), aux_losses);
     the paged, mask and segment arguments are attention_forward's
     (no kv_cache: the training branch, new_cache None). kv_scales: the
@@ -92,7 +94,13 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
 
     ctx: a tensor-parallel MeshContext on the paged serving branches
     (attention_forward's head shards, mla_forward's latent columns);
-    training with a ctx raises until the parallel-training slice."""
+    training with a ctx raises until the parallel-training slice.
+
+    layer_id: the layer's index, MegaScope's attribution: the sublayers'
+    captures and disturbances, then the 'system' disturbance and the
+    'between_layers' capture on the layer's output (JAX block.py:196-200).
+    The fused body has none of these sites: callers refuse it while any
+    is active (megakernel_ineligible_reason)."""
     if fused_decode:
         if ctx is not None:
             raise ValueError(
@@ -140,7 +148,8 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,
             kv_cache=kv_cache, cache_positions=cache_positions,
             page_table=page_table, chunk_counts=chunk_counts,
-            write_index=write_index, kv_scales=kv_scales, ctx=ctx)
+            write_index=write_index, kv_scales=kv_scales, ctx=ctx,
+            layer_id=layer_id)
     else:
         attn_out, new_cache = attention_forward(
             p["attention"], h, cfg, rope_cos, rope_sin, attention_mask,
@@ -148,13 +157,15 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             cache_positions=cache_positions, page_table=page_table,
             chunk_counts=chunk_counts, write_index=write_index,
             segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales,
-            lora=lora)
+            lora=lora, layer_id=layer_id)
     x = residual + attn_out.to(residual.dtype)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
                    cfg.layernorm_epsilon)
-    x = residual + mlp_forward(p["mlp"], h, cfg, lora=lora).to(
-        residual.dtype)
+    x = residual + mlp_forward(p["mlp"], h, cfg, lora=lora,
+                               layer_id=layer_id).to(residual.dtype)
+    x = get_disturbance().apply("system", x, layer_id)
+    x = scope_capture("between_layers", x, layer_id)
     return (x, new_cache), None
 
 
@@ -181,12 +192,13 @@ def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
     """Run every layer for training. Returns (x, moe_aux_sum); dense
     layers add no aux loss, so the sum is a zero scalar."""
 
-    def run_layer(layer_p, h):
+    def run_layer(layer_p, h, lid):
         (h2, _), _ = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
-                                   attention_mask, segment_ids=segment_ids)
+                                   attention_mask, segment_ids=segment_ids,
+                                   layer_id=lid)
         return h2
 
     run_layer = _remat_wrap(run_layer, cfg.remat_policy)
-    for layer_p in layers:
-        x = run_layer(layer_p, x)
+    for lid, layer_p in enumerate(layers):
+        x = run_layer(layer_p, x, lid)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

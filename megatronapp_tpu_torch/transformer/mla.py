@@ -29,9 +29,15 @@ Tensor-parallel serving (``ctx``) shards the latent pool on its columns
 and attends through the two-phase tp body (ops/paged_attention.py
 ``paged_attention_latent_tp``).
 
+MegaScope's sites are the JAX layer's: the 'weight' disturbance on
+q_proj, kv_down and out_kernel, the qkv_q/qkv_k/qkv_v captures of the
+dense branch (q and k with their rope heads), qkv_q (the scaled q_nope
+beside the roped q_pe) and 'context' on the paged branches.
+
 Not ported: the dense slot cache (``cache_positions`` without a page
-table), context-parallel MLA, and MegaScope's reconstituted k/v
-captures.
+table), context-parallel MLA, and the paged branches' reconstituted k/v
+captures (the JAX layer gathers the whole history through the page table
+and expands it through kv_up when qkv_k or qkv_v is on).
 """
 
 from __future__ import annotations
@@ -43,13 +49,15 @@ import torch
 from megatronapp_tpu_torch.config.transformer_config import (
     PositionEmbeddingKind, TransformerConfig,
 )
-from megatronapp_tpu_torch.inference.quantization import resolve_param
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.attention import dot_product_attention
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_latent, paged_attention_latent_tp, write_kv,
 )
+from megatronapp_tpu_torch.scope import hooks
+from megatronapp_tpu_torch.scope.hooks import scope_capture
+from megatronapp_tpu_torch.transformer.attention import weight_of
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
 
@@ -142,7 +150,7 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                 attention_mask: Optional[torch.Tensor] = None,
                 kv_cache=None, cache_positions=None, page_table=None,
                 chunk_counts=None, write_index: Optional[WriteIndex] = None,
-                kv_scales=None, ctx=None):
+                kv_scales=None, ctx=None, layer_id=None):
     """x [B, S, H] (the normed residual) → (out [B, S, H], new_cache).
 
     No kv_cache: the dense branch (JAX mla.py:328-406): k_nope/v expand
@@ -164,20 +172,21 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     only, writes those columns of each new row (quantized over the whole
     row first), passes its rows of w_v (a strided view of kv_up, no copy)
     and attends through the two-phase tp body; the output is the same on
-    every rank, so the out-projection runs replicated."""
+    every rank, so the out-projection runs replicated. layer_id:
+    MegaScope's attribution of the layer's captures and disturbances."""
     b, s, _ = x.shape
     nq = cfg.num_attention_heads
     dqk, dpe, dv = cfg.qk_head_dim, cfg.qk_pos_emb_head_dim, cfg.v_head_dim
     klat, dt, eps = cfg.kv_lora_rank, cfg.compute_dtype, cfg.layernorm_epsilon
     x = x.to(dt)
     if "q_proj" in p:
-        q = x @ p["q_proj"].to(dt)
+        q = x @ weight_of(p["q_proj"], layer_id, dt)
     else:
         q = rms_norm(x @ p["q_down"].to(dt), p["q_ln_scale"], eps)
         q = q @ p["q_up"].to(dt)
     q = q.reshape(b, s, nq, dqk + dpe)
     q_nope, q_pe = q[..., :dqk], q[..., dqk:]
-    kv = x @ p["kv_down"].to(dt)
+    kv = x @ weight_of(p["kv_down"], layer_id, dt)
     latent = rms_norm(kv[..., :klat], p["kv_ln_scale"], eps)
     k_pe = kv[..., klat:]
     if rope_cos is not None:
@@ -200,13 +209,17 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
             b, s, nq, dpe)], dim=-1)
+        q_full = scope_capture("qkv_q", q_full, layer_id)
+        k_full = scope_capture("qkv_k", k_full, layer_id)
+        v = scope_capture("qkv_v", v, layer_id)
         scale = float(1.0 / torch.sqrt(torch.tensor(float(dqk + dpe))))
         attn = dot_product_attention(q_full, k_full, v,
                                      mask_type=cfg.attn_mask_type,
                                      attention_mask=attention_mask,
                                      softmax_scale=scale)
-        out = attn.reshape(b, s, nq * dv) @ resolve_param(p["out_kernel"],
-                                                          dt)
+        attn = scope_capture("context", attn, layer_id)
+        out = attn.reshape(b, s, nq * dv) @ weight_of(p["out_kernel"],
+                                                      layer_id, dt)
         return out, None
 
     if page_table is None or write_index is None:
@@ -219,6 +232,8 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     # k factor, which the unscaled cached latent cannot carry), through
     # kv_up's k_nope columns (JAX mla.py:244-263).
     q_nope = q_nope * m if m != 1.0 else q_nope
+    if hooks.is_enabled("qkv_q", layer_id):
+        scope_capture("qkv_q", torch.cat([q_nope, q_pe], dim=-1), layer_id)
     rows = q_nope.reshape(b * s, nq, dqk)
     if m != 1.0:
         rows = rows * m
@@ -231,6 +246,8 @@ def mla_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         counts = torch.full((b,), s, dtype=torch.int32, device=x.device)
     attn = latent_attention(q_abs, q_pe, kv_cache, kv_scales, page_table,
                             cache_positions, counts, w_v, cfg, ctx)
-    out = attn.reshape(b, s, nq * dv) @ resolve_param(p["out_kernel"], dt)
+    attn = scope_capture("context", attn, layer_id)
+    out = attn.reshape(b, s, nq * dv) @ weight_of(p["out_kernel"], layer_id,
+                                                  dt)
     return out, tuple(kv_cache) + tuple(kv_scales or ())
 

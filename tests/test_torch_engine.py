@@ -593,7 +593,10 @@ def test_server_ws_streams_tokens():
             await ws.send_json({"prompt": "1 2", "tokens_to_generate": 2,
                                 "visualization": {"qkv": [0]}})
             msg = await ws.receive_json(timeout=60)
-            assert msg["type"] == "error" and "not ported" in msg["message"]
+            assert msg["type"] == "error" and msg["message"] == (
+                "visualization requires --engine static (the "
+                "continuous-batching backend shares one step loop across "
+                "connections)")
             await ws.close()
         finally:
             await client.close()

@@ -2,7 +2,9 @@
 
 - importing every module of megatronapp_tpu_torch (and chip_smoke.py)
   pulls in neither jax nor megatronapp_tpu;
-- entry points default to the card and raise where there is none;
+- entry points default to the card and raise where there is none (the
+  MegaScan / MegaScope ones too: the static engine, traced pretrain_gpt,
+  the training scope session);
 - a tensor that is not on the CPU never reaches a kernel's plain version;
 - the weight converter refuses leaves it does not place;
 - on a card (tests marked cuda; no jax needed there), the paged, flash
@@ -50,7 +52,18 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.training.train",
             "megatronapp_tpu_torch.pretrain_gpt",
             "megatronapp_tpu_torch.ops.cuda.flash_attention",
-            "megatronapp_tpu_torch.inference.speculative"} <= set(mods)
+            "megatronapp_tpu_torch.inference.speculative",
+            "megatronapp_tpu_torch.trace.tracer",
+            "megatronapp_tpu_torch.trace.aggregate",
+            "megatronapp_tpu_torch.trace.dependency",
+            "megatronapp_tpu_torch.trace.detect",
+            "megatronapp_tpu_torch.trace.analytics",
+            "megatronapp_tpu_torch.scope.hooks",
+            "megatronapp_tpu_torch.scope.disturbance",
+            "megatronapp_tpu_torch.scope.tensor_tracer",
+            "megatronapp_tpu_torch.scope.ws_server",
+            "megatronapp_tpu_torch.scope.client",
+            "megatronapp_tpu_torch.tools.run_scope_server"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -145,7 +158,7 @@ def test_pretrain_gpt_entry_point_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--engine", "static"], "not ported"),
+    (["--engine", "mamba"], "not ported"),
     (["--engine", "dynamic"], "--paged-kv-cache"),
     (["--engine", "dynamic", "--lora-dir", "x"], "LoRA"),
     (["--engine", "dynamic", "--paged-kv-cache", "--draft-load-dir", "x"],
@@ -160,6 +173,49 @@ def test_serve_flags_outside_the_slice_exit(argv, msg, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+def test_serve_engine_static_parses():
+    """--engine static is ported (and the default, as in JAX): it parses
+    without --paged-kv-cache."""
+    from megatronapp_tpu_torch import serve
+    assert serve.parse_args(["--engine", "static"]).engine == "static"
+    assert serve.parse_args([]).engine == "static"
+
+
+def test_megascan_and_megascope_entry_points_raise_without_a_card(
+        monkeypatch, tmp_path):
+    """The static engine, traced pretrain_gpt, the training scope session
+    and the static server's engine default to the card and raise without
+    one; device="cpu" builds them."""
+    from megatronapp_tpu_torch import pretrain_gpt, serve
+    from megatronapp_tpu_torch.config.training_config import (
+        OptimizerConfig, TrainingConfig,
+    )
+    from megatronapp_tpu_torch.inference.engine import StaticInferenceEngine
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.scope.ws_server import TrainingScopeSession
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama3_8b(num_layers=1, hidden_size=64, num_attention_heads=4,
+                    num_query_groups=2, ffn_hidden_size=128,
+                    vocab_size=128)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StaticInferenceEngine(params, cfg, max_seq_len=32)
+    assert StaticInferenceEngine(params, cfg, max_seq_len=32,
+                                 device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainingScopeSession(cfg, TrainingConfig(), OptimizerConfig())
+    argv = ["--num-layers", "1", "--hidden-size", "64",
+            "--num-attention-heads", "4", "--vocab-size", "128",
+            "--seq-length", "16", "--train-iters", "1", "--trace",
+            "--trace-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_gpt.main(argv)
+    args = serve.parse_args(["--preset", "gpt2-125m", "--num-layers", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_engine(args)
 
 
 def test_serve_megakernel_decode_parses():

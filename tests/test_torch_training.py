@@ -340,11 +340,33 @@ def test_golden_gpt_tiny_dense():
 
 @pytest.mark.parametrize("field,value,flag", [
     ("save_dir", "x", "--save"), ("eval_interval", 5, "--eval-interval"),
-    ("trace", True, "--trace"), ("rerun_mode", "validate_results",
-                                 "--rerun-mode")])
+    ("rerun_mode", "validate_results", "--rerun-mode")])
 def test_unported_training_fields_raise(field, value, flag):
     with pytest.raises(ValueError, match=flag):
         TrainingConfig(**{field: value})
+
+
+def test_trace_training_fields_are_ported(tmp_path):
+    """trace=True (MegaScan) runs: the traced iteration's file holds the
+    iteration window, the train-step scope and the step's phase spans, and
+    a granularity outside the JAX parser's choices raises."""
+    d = str(tmp_path / "trace")
+    train = TrainingConfig(micro_batch_size=2, global_batch_size=4,
+                           seq_length=16, train_iters=2, log_interval=1,
+                           trace=True, trace_dir=d, trace_interval=2,
+                           continuous_trace_iterations=1)
+    cfg = TransformerConfig(compute_dtype=torch.float32, **GOLDEN_MODEL)
+    ttrain.pretrain_gpt(cfg, train, OptimizerConfig(), device="cpu",
+                        log_fn=lambda s: None)
+    with open(os.path.join(
+            d, "benchmark-data-1-pipeline-1-tensor-1-process-0.json")) as f:
+        recs = json.load(f)
+    assert {r["iteration"] for r in recs} == {0}
+    assert [r["name"] for r in recs if r["ph"] == "B"] == [
+        "iteration", "train-step", "forward", "loss", "backward", "forward",
+        "loss", "backward", "allreduce", "optimizer"]
+    with pytest.raises(ValueError, match="trace_granularity"):
+        TrainingConfig(trace_granularity="ops")
 
 
 def test_unported_optimizer_fields_raise():
