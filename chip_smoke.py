@@ -118,6 +118,28 @@ Phases, each printing one JSON line:
             --attention-impl pallas --flash-head-fold, S 1024, 3 steps:
             the flash kernels at D 64 on a train path; two profiled
             steps' device time by kernel family.
+   data_train: pretrain_gpt.py's flags (--data-path --save --load
+            --use-checkpoint-args) on gpt2-125m at full width and depth, S
+            1024, --attention-impl pallas --flash-head-fold, over a seeded
+            corpus of ~3.2M uint16 tokens written by the port's
+            IndexedDatasetWriter (the native index builders built with
+            g++): a rampup 4 → 8 → 12, evaluation every 4 steps; 8 steps
+            straight, then 4 with a save and 4 more after a restore, the
+            resumed losses bit for bit the straight ones; save, wait and
+            restore seconds and checkpoint bytes; flash launches exact.
+   serve_load: serve.py --load-dir on that checkpoint: greedy streams
+            equal an engine's built from the trained params in memory.
+   train_mtp: pretrain_gpt.py on llama3-8b at full width, 4 layers and one
+            MTP depth, S 4096, 4 steps on an int32 corpus, one evaluation:
+            finite loss and mtp_loss, flash launches (5 layers a
+            micro-batch), step ms beside train's, peak memory.
+   mtp_reference: a tiny llama-shaped model with one MTP depth: loss,
+            mtp_loss and logits on the card against the CPU, and the MTP
+            proposer's greedy streams (unfused, fused) against plain
+            decode, each divergence at a near-tie; then echo weights (the
+            MTP head predicts what the model does): drafts accepted
+            beside the CPU's counts, and after every step the
+            proposer's hidden is the accepted row's.
    scope_reference: the tiny llama-shaped model of phase 3 through the
             static engine with every capture site on, on the card (bf16)
             and the CPU (fp32, plain): greedy streams (a divergence only
@@ -170,6 +192,11 @@ Phases, each printing one JSON line:
             verify round launches the ragged kernel once a layer; pools
             audit clean with every block back; rounds, acceptance, tokens
             per model step, first divergences and decode intervals.
+   serve_mtp: serve's weights cut to 4 layers with one seeded MTP depth
+            (serve.py --spec-method mtp --mtp-num-layers 1): plain, MTP
+            unfused and fused; launches a layer, clean pools, divergences
+            from plain at near-ties, drafts proposed and accepted, decode
+            interval beside plain's.
    serve_mla: llama3_8b(multi_latent_attention=True) at full width and
             depth (32 layers, seeded bf16 weights): the 8 requests through
             the unfused engine on a bf16 latent pool, the fused engine on
@@ -3080,7 +3107,7 @@ def phase_spec_reference(state):
                         check(eng.pool.extend_capacity(slot, n, s) == s,
                               f"spec_reference {name}: no verify blocks")
                     logits[side] = eng._verify_step(
-                        v_tokens, q_lens, np.ones(b, bool)).float().cpu()
+                        v_tokens, q_lens, np.ones(b, bool))[0].float().cpu()
                     del eng
                 real = (np.arange(s)[None, :] < q_lens[:, None])
                 ref, got = logits["ref"][real], logits["dev"][real]
@@ -3319,6 +3346,75 @@ def phase_serve_spec(state, layers: int):
                   "where a run leaves the plain run of its model and depth "
                   "(reported only; bf16 kernels)",
           "seconds": seconds})
+
+
+def phase_serve_mtp(state):
+    """Self-drafting through MTP heads on the served model (serve.py
+    --spec-method mtp --spec-k 4 --mtp-num-layers 1): serve's seed-0
+    llama3-8b cut to 4 layers with one seeded MTP depth (k capped at 1 by
+    the depth), the serve phase's 8 requests, 32 greedy new tokens, plain
+    then MTP unfused and fused (40-row verify step). Every run's launches
+    a layer and clean pool (``_spec_run``); each first divergence from
+    the plain streams at a near-tie of the plain logits; proposed and
+    accepted drafts, decode interval beside plain's."""
+    import numpy as np
+
+    from megatronapp_tpu_torch import serve
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.transformer.mtp import init_mtp_params
+    from megatronapp_tpu_torch.utils.params import ParamTree
+    t_phase = time.perf_counter()
+    params, _, dev = state["model"]
+    args = serve.parse_args(["--preset", "llama3-8b", "--engine", "dynamic",
+                             "--paged-kv-cache", "--spec-method", "mtp",
+                             "--mtp-num-layers", "1", "--num-layers",
+                             str(SPEC_SHALLOW_LAYERS)])
+    cfg = llama3_8b(num_layers=SPEC_SHALLOW_LAYERS,
+                    params_dtype=torch.bfloat16,
+                    mtp_num_layers=args.mtp_num_layers)
+    view = _layer_view(params, SPEC_SHALLOW_LAYERS)
+    p = ParamTree({k: v.data for k, v in view.named_parameters(
+        recurse=False)}, embedding=view["embedding"], layers=view["layers"],
+        mtp=init_mtp_params(cfg, torch.Generator(dev).manual_seed(3), dev))
+    prompts, _ = _serve_prompts(cfg)
+    runs = {}
+    plain = None
+    for key, method, fused in (("plain", None, False),
+                               ("mtp", args.spec_method, False),
+                               ("mtp_fused", args.spec_method, True)):
+        out, streams = _spec_run(f"serve_mtp {key}", p, cfg, dev, prompts,
+                                 method=method, k=args.spec_k, fused=fused)
+        if plain is None:
+            plain = streams
+        div = _first_divergence(streams, plain)
+        gaps = []
+        for i, j in enumerate(div):
+            if j is None:
+                continue
+            seq = np.concatenate([prompts[i], plain[i][:j]])
+            last = _chunked_prefill(p, cfg, seq.tolist(), dev, fused)[-1]
+            top2 = last.topk(2).values
+            gaps.append(float(top2[0] - top2[1]))
+            check(gaps[-1] <= SPEC_TIE_BOUND,
+                  f"serve_mtp {key}: request {i} leaves plain decode at "
+                  f"token {j}, where the plain logits' top two are "
+                  f"{gaps[-1]} apart (> {SPEC_TIE_BOUND})")
+        out.update(first_divergence_from_plain=div,
+                   top2_gap_at_divergence=gaps)
+        runs[key] = out
+    check(runs["mtp"]["proposed"] <= runs["mtp"]["rounds"] * 8,
+          f"serve_mtp: more than one draft a slot a round: {runs['mtp']}")
+    state["serve_mtp_launches"] = {
+        "verify": runs["mtp"]["rounds"] * SPEC_SHALLOW_LAYERS}
+    del p, view
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_mtp", "model": "llama3-8b",
+          "layers": SPEC_SHALLOW_LAYERS, "mtp_num_layers": 1,
+          "spec_k_requested": args.spec_k, "spec_k_effective": 1,
+          "requests": len(prompts), "max_new_tokens": 32, "runs": runs,
+          "note": "decode_interval_ms_median: host clock, median over the "
+                  "requests; random MTP heads: acceptance near 0",
+          "seconds": time.perf_counter() - t_phase})
 
 
 def _serve_mla_run(params, cfg, dev, kind, fused):
@@ -5192,6 +5288,7 @@ def phase_train(state, layers: int):
                            TRAIN_FAMILIES, _train_family, top_kernels=15)
     fa.launches.update({k: 0 for k in fa.launches})
     state["train_launches"] = launches
+    state["train_mean_step_ms"] = mean_ms
     params_n = sum(p.numel() for p in res.state.params.parameters())
     # trace_train starts from these weights (no second model is built).
     state["train_model"] = (res.state.params, cfg)
@@ -5760,6 +5857,580 @@ def phase_train_gpt2(state):
           f"got {launches}")
 
 
+# data_train: gpt2-125m through pretrain_gpt.py's flags on a seeded corpus
+# (--attention-impl pallas --flash-head-fold, as train_gpt2 runs it: at S
+# 1024 the default auto would take no flash kernel), with a rampup 4 → 8
+# → 12 over 24 samples and an evaluation every 4 steps.
+DATA_TRAIN_FLAGS = [
+    "--preset", "gpt2-125m", "--attention-impl", "pallas",
+    "--flash-head-fold", "--seq-length", "1024", "--micro-batch-size", "4",
+    "--global-batch-size", "12", "--rampup-batch-size", "4", "4", "24",
+    "--train-iters", "8", "--log-interval", "1", "--eval-interval", "4",
+    "--eval-iters", "2", "--seed", "1234"]
+DATA_TRAIN_DOCS = 4000          # x ~800 tokens: ~3.2M uint16 tokens
+
+
+def _write_corpus(prefix, vocab, docs, mean_len, seed):
+    """A seeded corpus of `docs` documents of random tokens below `vocab`
+    (lengths uniform in [mean/2, 3 mean/2)) through the port's writer, in
+    the smallest dtype holding the ids; returns (tokens, dtype name)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.data.indexed_dataset import (
+        IndexedDatasetWriter, best_dtype,
+    )
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(mean_len // 2, mean_len * 3 // 2, docs)
+    dtype = best_dtype(vocab)
+    toks = rng.integers(0, vocab, int(lens.sum())).astype(dtype)
+    with IndexedDatasetWriter(prefix, dtype) as w:
+        off = 0
+        for n in lens:
+            w.add_document(toks[off:off + n])
+            off += n
+    return int(lens.sum()), np.dtype(dtype).name
+
+
+def _entry_run(flags, dev):
+    """pretrain_gpt.py's main path on `flags` (parse, configs, resolved
+    args beside --save, the --data-path factory), the flash launches
+    counted from 0; returns (result, log lines, launches, model cfg,
+    training cfg)."""
+    from megatronapp_tpu_torch import pretrain_gpt as entry
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    args = entry.parse_args(flags)
+    model, training, opt = entry.configs_from_args(args)
+    if args.save:
+        entry.save_resolved_args(args, args.save)
+    factory = entry.make_batch_iter_factory(args, training, model)
+    lines = []
+    fa.launches.update({k: 0 for k in fa.launches})
+    res = pretrain_gpt(model, training, opt, device=dev,
+                       batch_iter_factory=factory, log_fn=lines.append)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    fa.launches.update({k: 0 for k in fa.launches})
+    return res, lines, launches, model, training
+
+
+def _micro_counts(training, steps):
+    """Micro-batches of each of `steps` steps under the rampup."""
+    from megatronapp_tpu_torch.training.num_microbatches_calculator import (
+        build_calculator,
+    )
+    calc = build_calculator(training.global_batch_size,
+                            training.micro_batch_size, 1,
+                            training.rampup_batch_size)
+    consumed, out = 0, []
+    for _ in range(steps):
+        gbs, micro = calc.get(consumed)
+        consumed += gbs
+        out.append((gbs, micro))
+    return out
+
+
+def phase_data_train(state):
+    """Pretraining on an indexed corpus with checkpoints (pretrain_gpt.py
+    --data-path --save --load --use-checkpoint-args): gpt2-125m at full
+    width and depth, S 1024, flash at D 64 with head_fold, a rampup
+    through 4 and 8 to the global batch of 12, evaluation every 4 steps.
+    8 steps straight; then 4 steps with a save (--exit-interval 4), and a
+    restore from that checkpoint with 4 more steps: the resumed losses
+    must equal the straight ones bit for bit."""
+    import gc
+    import shutil
+    import tempfile
+
+    from megatronapp_tpu_torch.data import helpers
+    from megatronapp_tpu_torch.models.presets import gpt2_125m
+    from megatronapp_tpu_torch.training.checkpointing import (
+        CheckpointManager,
+    )
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="data_train_", dir=build)
+    prefix, ckdir = os.path.join(work, "corpus"), os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    ntok, dtype = _write_corpus(prefix, gpt2_125m().true_vocab_size,
+                                DATA_TRAIN_DOCS, 800, 77)
+    corpus_s = time.perf_counter() - t0
+    native = helpers.native_available()
+    check(native, "data_train: the native index builders did not build "
+          "(g++ from data/native/helpers.cpp)")
+    base = DATA_TRAIN_FLAGS + ["--data-path", prefix]
+    straight, s_lines, s_launch, cfg, training = _entry_run(base, dev)
+    first, f_lines, f_launch, _, _ = _entry_run(
+        base + ["--save", ckdir, "--save-interval", "4",
+                "--exit-interval", "4"], dev)
+    ck_bytes = CheckpointManager(ckdir).nbytes(4)
+    resumed, r_lines, r_launch, _, _ = _entry_run(
+        base + ["--load", ckdir, "--save", ckdir, "--save-interval", "4",
+                "--use-checkpoint-args"], dev)
+    a = [m["loss"] for m in straight.log]
+    b = [m["loss"] for m in first.log] + [m["loss"] for m in resumed.log]
+    differ = [i + 1 for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    steps = _micro_counts(training, 8)
+    layers = cfg.num_layers
+    evals = 2 * training.eval_iters * training.num_microbatches(1)
+    want_bwd = layers * sum(m for _, m in steps)
+    want = {"fwd": want_bwd + layers * evals, "bwd_dq": want_bwd,
+            "bwd_dkv": want_bwd}
+    halves = {k: f_launch[k] + r_launch[k] for k in f_launch}
+    emit({"phase": "data_train", "model": "gpt2-125m", "layers": layers,
+          "seq_length": training.seq_length, "flags": base[:-2],
+          "corpus_tokens": ntok, "corpus_dtype": dtype,
+          "corpus_write_s": corpus_s, "native_helpers": native,
+          "batch_sizes": [g for g, _ in steps],
+          "losses_straight": a, "losses_resumed": b,
+          "first_differing_step": differ[0] if differ else None,
+          "eval_losses": {"straight": straight.eval_losses,
+                          "first": first.eval_losses,
+                          "resumed": resumed.eval_losses},
+          "consumed": {"straight": straight.consumed_samples,
+                       "first": first.consumed_samples,
+                       "resumed": resumed.consumed_samples},
+          "save_s": first.checkpoint_s["save"],
+          "wait_s": first.checkpoint_s["wait"],
+          "restore_s": resumed.checkpoint_s["restore"],
+          "resumed_save_s": resumed.checkpoint_s["save"],
+          "resumed_wait_s": resumed.checkpoint_s["wait"],
+          "checkpoint_bytes": ck_bytes, "launches": s_launch,
+          "launches_first_plus_resumed": halves,
+          "step_ms": [m["step_time_ms"] for m in straight.log[1:]],
+          "log_resumed": r_lines[:2],
+          "seconds": time.perf_counter() - t_phase})
+    check(not differ, f"data_train: the resumed losses differ from the "
+          f"straight run's from step {differ[0] if differ else None}: "
+          f"{b} vs {a}")
+    check(len(a) == 8 and all(math.isfinite(x) for x in a),
+          f"data_train: losses {a}")
+    check([g for g, _ in steps][:5] == [4, 4, 4, 8, 8]
+          and steps[-1][0] == 12, f"data_train: rampup {steps}")
+    check(straight.consumed_samples == resumed.consumed_samples
+          == sum(g for g, _ in steps) and first.consumed_samples == sum(
+              g for g, _ in steps[:4]),
+          "data_train: consumed samples "
+          f"{straight.consumed_samples} / {first.consumed_samples} / "
+          f"{resumed.consumed_samples}")
+    check(any("resumed from checkpoint at step 4" in ln for ln in r_lines),
+          f"data_train: no resume line in {r_lines[:3]}")
+    check(len(straight.eval_losses) == 2 and all(
+        math.isfinite(x) for _, x in straight.eval_losses),
+        f"data_train: eval losses {straight.eval_losses}")
+    check(s_launch == want and halves == want,
+          f"data_train: flash launches {s_launch} (straight) and "
+          f"{halves} (4 + resume + 4), expected {want}")
+    state["data_train"] = {"work": work, "ckdir": ckdir, "cfg": cfg,
+                           "params": resumed.state.params,
+                           "launches": s_launch}
+    del straight, first, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    state["data_train_s"] = time.perf_counter() - t_phase
+    state["data_train_cleanup"] = lambda: shutil.rmtree(work, True)
+
+
+def phase_serve_load(state):
+    """serve.py --load-dir on data_train's checkpoint (the newest step, 8):
+    the dynamic engine's greedy streams equal those of an engine built
+    from the trained params in memory (cast to bf16 as serve.py casts
+    them), and the paged kernel ran once a layer a step and chunk."""
+    import contextlib
+    import copy
+    import io
+
+    import numpy as np
+
+    from megatronapp_tpu_torch import serve
+    from megatronapp_tpu_torch.data.tokenizers import NullTokenizer
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    t_phase = time.perf_counter()
+    dt = state.pop("data_train")
+    dev = torch.device("cuda", 0)
+    args = serve.parse_args(["--preset", "gpt2-125m", "--engine", "dynamic",
+                             "--paged-kv-cache", "--load-dir", dt["ckdir"],
+                             "--max-batch", "4", "--max-seq-len", "1024"])
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        loaded = serve.build_engine(args)
+    load_s = time.perf_counter() - t0
+    mem = copy.deepcopy(dt["params"]).to(torch.bfloat16)
+    mem.requires_grad_(False)
+    ref = DynamicInferenceEngine(
+        mem, loaded.cfg, tokenizer=NullTokenizer(loaded.cfg.vocab_size),
+        max_batch=args.max_batch, max_seq_len=args.max_seq_len,
+        block_size=args.kv_block_size, prefill_chunk=args.prefill_chunk,
+        device=dev)
+    rng = np.random.default_rng(91)
+    prompts = [rng.integers(0, 50257, n).astype(np.int32)
+               for n in (17, 100, 300, 520)]
+    greedy = SamplingParams(greedy=True)
+    streams = {}
+    for name, eng in (("loaded", loaded), ("in_memory", ref)):
+        steps0, chunks0 = eng.decode_steps, eng.prefill_chunks
+        pa.launches.update({k: 0 for k in pa.launches})
+        ids = [eng.add_request(p, 24, greedy) for p in prompts]
+        res = eng.run_to_completion()
+        torch.cuda.synchronize()
+        streams[name] = [res[r][len(p):].tolist()
+                         for r, p in zip(ids, prompts)]
+        if name == "loaded":
+            launches = dict(pa.launches)
+            steps = eng.decode_steps - steps0
+            chunks = eng.prefill_chunks - chunks0
+    pa.launches.update({k: 0 for k in pa.launches})
+    layers = loaded.cfg.num_layers
+    same = streams["loaded"] == streams["in_memory"]
+    emit({"phase": "serve_load", "model": "gpt2-125m", "layers": layers,
+          "load_dir_step_line": out.getvalue().strip(),
+          "build_engine_s": load_s, "prompt_lens": [len(p) for p in prompts],
+          "max_new_tokens": 24, "streams_equal": same,
+          "launches": launches, "decode_steps": steps,
+          "prefill_chunks": chunks,
+          "seconds": time.perf_counter() - t_phase})
+    check("loaded checkpoint step 8" in out.getvalue(),
+          f"serve_load: serve.py printed {out.getvalue()!r}")
+    check(same, f"serve_load: the --load-dir engine's streams "
+          f"{streams['loaded']} differ from the in-memory engine's "
+          f"{streams['in_memory']}")
+    check(launches.get("decode") == steps * layers and launches.get(
+        "ragged") == chunks * layers and steps > 0,
+          f"serve_load: paged launches {launches} for {steps} steps and "
+          f"{chunks} chunks of {layers} layers")
+    del loaded, ref, mem, dt
+    state.pop("data_train_cleanup")()
+    torch.cuda.empty_cache()
+
+
+def _mtp_echo(params):
+    """The CPU tests' echo weights (tests/test_torch_mtp.py), in place:
+    the layers' residual outputs zeroed, so the model predicts from the
+    current token alone and the pre-head hidden at each position is that
+    token's embedding; the depth's projection passes the next token's
+    normed embedding through a zeroed layer, so the MTP head predicts
+    what the model does and its drafts are accepted."""
+    with torch.no_grad():
+        dp = params["mtp"][0]
+        for layer in list(params["layers"]) + [dp["layer"]]:
+            layer["attention"]["out_kernel"].zero_()
+            layer["mlp"]["fc2_kernel"].zero_()
+        h = dp["proj"].shape[1]
+        dp["proj"].copy_(torch.cat([torch.zeros(h, h), torch.eye(h)]))
+        dp["enorm_scale"].fill_(1.0)
+
+
+# Least share of echo drafts accepted on the card (the CPU tests hold the
+# fp32 port to 0.9; bf16 may flip a near-tie).
+MTP_ECHO_ACCEPT = 0.8
+# Largest |_h_last - embedding| of the token at the last verified position
+# under echo weights (the two are equal: bf16 residual adds of zeros).
+MTP_HIDDEN_TOL = 1e-3
+
+
+def _mtp_echo_run(params, cfg, dev, prompts, fused, new_tokens=16):
+    """Greedy MTP streams of one echo-weight engine, stepped as a server
+    steps it. After every step, each slot whose hidden is valid holds
+    _h_last against the embedding of the token at its last verified
+    position (the second-last token of its stream: the last is pending),
+    and against the tokens either side, which a hidden taken from the
+    wrong row or left stale would give. Returns (streams, spec_stats,
+    hidden check)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    emb = params["embedding"]["word"].detach().float()
+    eng = DynamicInferenceEngine(
+        params, cfg, max_batch=len(prompts), max_seq_len=128, block_size=16,
+        prefill_chunk=32, device=dev, fused_decode=fused, spec_method="mtp",
+        spec_k=SPEC_K)
+    check(eng.megakernel is fused and eng.spec_method == "mtp",
+          f"mtp_reference echo: engine fused={fused}")
+    ids = [eng.add_request(pr, new_tokens, SamplingParams(greedy=True))
+           for pr in prompts]
+    hc = {"checks": 0, "after_accept": 0, "err_max": 0.0,
+          "neighbour_err_min": None}
+    while eng.has_work:
+        before = {r.request_id: r.spec_accepted for r in eng.slots
+                  if r is not None}
+        eng.step()
+        for r in eng.slots:
+            if r is None or r.finished or not eng._h_valid[r.slot]:
+                continue
+            toks = r.tokens
+            h = eng._h_last[r.slot].float()
+            err = float((h - emb[int(toks[-2])]).abs().max())
+            hc["checks"] += 1
+            hc["after_accept"] += int(
+                r.spec_accepted > before.get(r.request_id, 0))
+            hc["err_max"] = max(hc["err_max"], err)
+            for j in (-1, -3):
+                if len(toks) >= -j and toks[j] != toks[-2]:
+                    other = float((h - emb[int(toks[j])]).abs().max())
+                    if hc["neighbour_err_min"] is None or \
+                            other < hc["neighbour_err_min"]:
+                        hc["neighbour_err_min"] = other
+    eng.pool.audit()
+    check(eng.pool.blocks_in_use() == 0 and not eng._h_valid.any(),
+          "mtp_reference echo: blocks or hidden left after the run")
+    streams = [eng.requests[r].tokens[len(pr):].tolist()
+               for r, pr in zip(ids, prompts)]
+    return streams, dict(eng.spec_stats), hc
+
+
+def phase_mtp_reference(state):
+    """A tiny llama-shaped model with one MTP depth (2 layers, hidden 512,
+    flash forced at S 256): gpt_loss (loss, mtp_loss) and the logits on
+    the card (bf16 compute, kernels) against the CPU (fp32, plain
+    versions) from the same fp32 weights, within loss 1 %, logits 5 % of
+    the range; then, on the card in bf16, the MTP proposer's greedy
+    streams (unfused and fused) against plain decode: each first
+    divergence at a near-tie of the plain logits. Then the echo weights
+    (``_mtp_echo``, whose MTP head predicts what the model does), unfused
+    and fused on the card and unfused and fused on the CPU: the card's
+    streams leave its plain decode only at a near-tie, its drafts are accepted (at least
+    MTP_ECHO_ACCEPT of those proposed; the CPU's counts beside them) and
+    its _h_last is the accepted row's hidden after every step."""
+    import copy
+
+    import numpy as np
+
+    from megatronapp_tpu_torch.data.mock import mock_batches
+    from megatronapp_tpu_torch.inference.dynamic_engine import (
+        DynamicInferenceEngine,
+    )
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.models.gpt import (
+        gpt_forward, gpt_loss, init_gpt_params,
+    )
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05, attention_impl="pallas",
+                 mtp_num_layers=1)
+    cfg_ref = llama3_8b(compute_dtype=torch.float32, **small)
+    cfg_dev = llama3_8b(**small)
+    p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(23),
+                            "cpu")
+    p_dev = copy.deepcopy(p_ref).to("cuda")
+    batch = next(mock_batches(256, 512, 2, seed=5))
+    out = {}
+    fa.launches.update({k: 0 for k in fa.launches})
+    for side, p, cfg, d in (("cpu", p_ref, cfg_ref, "cpu"),
+                            ("card", p_dev, cfg_dev, dev)):
+        t = {k: torch.as_tensor(batch[k]).to(d)
+             for k in ("tokens", "labels", "loss_mask")}
+        with torch.no_grad():
+            loss, m = gpt_loss(p, t["tokens"], t["labels"], t["loss_mask"],
+                               cfg)
+            logits, _ = gpt_forward(p, t["tokens"], cfg)
+        out[side] = {"loss": float(loss), "mtp_loss": float(m["mtp_loss"]),
+                     "logits": logits.float().cpu()}
+    launches = dict(fa.launches)
+    fa.launches.update({k: 0 for k in fa.launches})
+    rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in ("loss", "mtp_loss")}
+    ref = out["cpu"]["logits"]
+    logit_rel = float((out["card"]["logits"] - ref).abs().max()
+                      / (ref.max() - ref.min()))
+    check(rel["loss"] < 0.01 and rel["mtp_loss"] < 0.01,
+          f"mtp_reference: card vs CPU loss errors {rel}")
+    check(logit_rel < 0.05, f"mtp_reference: logits {logit_rel} of the "
+          "range (>= 0.05)")
+    # gpt_loss: 2 layers + 1 depth; gpt_forward: 2 layers.
+    check(launches == {"fwd": 5, "bwd_dq": 0, "bwd_dkv": 0},
+          f"mtp_reference: flash launches {launches}")
+    def tie_gaps(streams, plain, params, fused, what):
+        """Each first divergence of `streams` from `plain`, held to a
+        near-tie of the plain logits there: (divergences, top-2 gaps)."""
+        div, gaps = _first_divergence(streams, plain), []
+        for i, j in enumerate(div):
+            if j is None:
+                continue
+            seq = np.concatenate([prompts[i], plain[i][:j]])
+            last = _chunked_prefill(params, cfg_s, seq.tolist(), dev,
+                                    fused)[-1]
+            top2 = last.topk(2).values
+            gaps.append(float(top2[0] - top2[1]))
+            check(gaps[-1] <= SPEC_TIE_BOUND,
+                  f"{what}: request {i} leaves plain decode at token {j}, "
+                  f"where the plain logits' top two are {gaps[-1]} apart "
+                  f"(> {SPEC_TIE_BOUND})")
+        return div, gaps
+
+    # Streams on the card, bf16 weights.
+    cfg_s = llama3_8b(params_dtype=torch.bfloat16,
+                      **dict(small, attention_impl="auto"))
+    p_s = copy.deepcopy(p_ref).to(device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(56)
+    prompts = [rng.integers(0, 511, n).astype(np.int32)
+               for n in (40, 17, 33, 64)]
+    greedy = SamplingParams(greedy=True)
+    runs = {}
+    for fused in (False, True):
+        streams = {}
+        for method in (None, "mtp"):
+            eng = DynamicInferenceEngine(
+                p_s, cfg_s, max_batch=4, max_seq_len=128, block_size=16,
+                prefill_chunk=32, device=dev, fused_decode=fused,
+                spec_method=method, spec_k=SPEC_K)
+            check(eng.megakernel is fused and eng.spec_method == method,
+                  f"mtp_reference: engine {fused} {method}")
+            ids = [eng.add_request(pr, 16, greedy) for pr in prompts]
+            res = eng.run_to_completion()
+            eng.pool.audit()
+            check(eng.pool.blocks_in_use() == 0,
+                  "mtp_reference: blocks left in use")
+            streams[method] = [res[r][len(pr):]
+                               for r, pr in zip(ids, prompts)]
+            if method:
+                spec = dict(eng.spec_stats)
+            del eng
+        div, gaps = tie_gaps(streams["mtp"], streams[None], p_s, fused,
+                             "mtp_reference")
+        check(spec["rounds"] > 0 and spec["proposed"] > 0,
+              f"mtp_reference: nothing was proposed: {spec}")
+        runs["fused" if fused else "unfused"] = {
+            "first_divergence": div, "top2_gap_at_divergence": gaps,
+            **{k: spec[k] for k in ("rounds", "proposed", "accepted")}}
+    # Echo weights: the drafts are accepted, and the hidden the proposer
+    # drafts from is the accepted row's.
+    cfg_cpu = llama3_8b(compute_dtype=torch.float32,
+                        **dict(small, attention_impl="auto"))
+    p_echo_cpu = copy.deepcopy(p_ref)
+    _mtp_echo(p_echo_cpu)
+    p_echo = copy.deepcopy(p_echo_cpu).to(device=dev, dtype=torch.bfloat16)
+    echo = {}
+    for fused in (False, True):
+        key = "fused" if fused else "unfused"
+        streams, spec, hc = _mtp_echo_run(p_echo, cfg_s, dev, prompts, fused)
+        _, cpu_spec, _ = _mtp_echo_run(p_echo_cpu, cfg_cpu, "cpu", prompts,
+                                       fused)
+        plain_eng = DynamicInferenceEngine(
+            p_echo, cfg_s, max_batch=4, max_seq_len=128, block_size=16,
+            prefill_chunk=32, device=dev, fused_decode=fused)
+        ids = [plain_eng.add_request(pr, 16, greedy) for pr in prompts]
+        res = plain_eng.run_to_completion()
+        plain = [res[r][len(pr):] for r, pr in zip(ids, prompts)]
+        del plain_eng
+        div, gaps = tie_gaps(streams, plain, p_echo, fused,
+                             f"mtp_reference echo {key}")
+        check(spec["accepted"] > 0 and spec["accepted"]
+              >= MTP_ECHO_ACCEPT * spec["proposed"],
+              f"mtp_reference echo {key}: {spec['accepted']} of "
+              f"{spec['proposed']} drafts accepted (< {MTP_ECHO_ACCEPT}; "
+              f"the CPU: {cpu_spec})")
+        check(hc["after_accept"] > 0 and hc["err_max"] <= MTP_HIDDEN_TOL,
+              f"mtp_reference echo {key}: _h_last is not the accepted "
+              f"row's hidden: {hc}")
+        check(hc["neighbour_err_min"] is not None
+              and hc["neighbour_err_min"] > MTP_HIDDEN_TOL,
+              f"mtp_reference echo {key}: the hidden check cannot tell "
+              f"the rows apart: {hc}")
+        echo[key] = {"card": {k: spec[k] for k in ("rounds", "proposed",
+                                                   "accepted")},
+                     "cpu": {k: cpu_spec[k] for k in ("rounds", "proposed",
+                                                      "accepted")},
+                     "hidden": hc, "first_divergence": div,
+                     "top2_gap_at_divergence": gaps}
+    del p_echo, p_echo_cpu
+    emit({"phase": "mtp_reference", "mtp_num_layers": 1,
+          "card": {k: out["card"][k] for k in ("loss", "mtp_loss")},
+          "cpu": {k: out["cpu"][k] for k in ("loss", "mtp_loss")},
+          "rel_err": rel, "logits_rel_range": logit_rel,
+          "launches": launches, "streams": runs, "echo": echo,
+          "tolerances": {"loss": 0.01, "logits": 0.05,
+                         "tie": SPEC_TIE_BOUND,
+                         "echo_accept": MTP_ECHO_ACCEPT,
+                         "hidden": MTP_HIDDEN_TOL},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def phase_train_mtp(state):
+    """pretrain_gpt.py on llama3-8b at full width, 4 layers and one MTP
+    depth (--mtp-num-layers 1), S 4096, micro-batch 1, global batch 2, 4
+    steps on an int32 corpus (--data-path), one evaluation (at step 4,
+    one batch: mock data from seed + 1, as JAX evaluates without an eval
+    stream): finite loss and mtp_loss, the flash launches (5 layers a
+    micro-batch forward and backward, 5 a forward of the evaluation), the
+    step time beside train's, the peak memory."""
+    import gc
+    import shutil
+    import tempfile
+
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = tempfile.mkdtemp(prefix="train_mtp_",
+                            dir=os.path.join(REPO, "build"))
+    prefix = os.path.join(work, "corpus")
+    ntok, dtype = _write_corpus(prefix, llama3_8b().vocab_size, 64, 4000,
+                                78)
+    flags = ["--preset", "llama3-8b", "--num-layers", "4",
+             "--mtp-num-layers", "1", "--seq-length", "4096",
+             "--micro-batch-size", "1", "--global-batch-size", "2",
+             "--train-iters", "4", "--log-interval", "1",
+             "--eval-interval", "4", "--eval-iters", "1",
+             "--data-path", prefix]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, lines, launches, cfg, training = _entry_run(flags, dev)
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(work, True)
+    losses = [m["loss"] for m in res.log]
+    lm = [m["lm_loss"] for m in res.log]
+    mtp = [m["mtp_loss"] for m in res.log]
+    step_ms = [m["step_time_ms"] for m in res.log[1:]]
+    mean_ms = sum(step_ms) / len(step_ms)
+    depth = cfg.num_layers + cfg.mtp_num_layers
+    steps = training.train_iters * training.num_microbatches(1)
+    evals = training.eval_iters * training.num_microbatches(1)
+    want = {"fwd": depth * (steps + evals), "bwd_dq": depth * steps,
+            "bwd_dkv": depth * steps}
+    expected0 = math.log(cfg.vocab_size) + (
+        cfg.init_method_std ** 2 * cfg.hidden_size / 2)
+    params_n = sum(p.numel() for p in res.state.params.parameters())
+    state["train_mtp_launches"] = launches
+    emit({"phase": "train_mtp", "model": "llama3-8b",
+          "layers": cfg.num_layers, "mtp_num_layers": cfg.mtp_num_layers,
+          "params": params_n, "seq_length": training.seq_length,
+          "micro_batch_size": 1, "global_batch_size": 2,
+          "steps": training.train_iters, "corpus_tokens": ntok,
+          "corpus_dtype": dtype, "losses": losses, "lm_loss": lm,
+          "mtp_loss": mtp, "eval_losses": res.eval_losses,
+          "expected_first_loss": expected0, "launches": launches,
+          "step_ms": step_ms, "mean_step_ms_after_first": mean_ms,
+          "train_mean_step_ms": state.get("train_mean_step_ms"),
+          "peak_mem_bytes": peak, "log": lines,
+          "seconds": time.perf_counter() - t_phase})
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses + mtp),
+          f"train_mtp: non-finite loss {losses} / mtp_loss {mtp}")
+    check(abs(lm[0] - expected0) < 0.5 and abs(mtp[0] - expected0) < 1.0,
+          f"train_mtp: first lm_loss {lm[0]} / mtp_loss {mtp[0]} against "
+          f"{expected0}")
+    check(len(losses) == 4 and len(lines) >= 4,
+          f"train_mtp: {len(losses)} logged steps")
+    check(launches == want, f"train_mtp: flash launches {launches}, "
+          f"expected {want} ((layers + depth) x micro-batches)")
+
+
 def _attn_bytes_flops(q, k, causal, kernel):
     """Bytes each input read once and each output written once, and the
     multiply-add operations this run's (causal) pairs need."""
@@ -6088,6 +6759,10 @@ def main(argv=None) -> int:
         phase_trace_train(state)
         phase_scope_train(state)
         phase_train_gpt2(state)
+        phase_data_train(state)
+        phase_serve_load(state)
+        phase_train_mtp(state)
+        phase_mtp_reference(state)
         phase_scope_reference(state)
         phase_serve(state, args.layers)
         phase_serve_static(state, args.layers)
@@ -6095,6 +6770,7 @@ def main(argv=None) -> int:
         phase_serve_quant(state)
         phase_serve_lora(state)
         phase_serve_spec(state, args.layers)
+        phase_serve_mtp(state)
         phase_serve_mla(state)
         phase_profile(state)
         phase_times(state)

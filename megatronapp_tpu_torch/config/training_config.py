@@ -2,10 +2,13 @@
 config/training_config.py, same field names and defaults).
 
 Fields that select machinery the port does not have yet raise when they
-are set away from their defaults, naming the flag: checkpoints, fault
-tolerance, evaluation, batch-size rampup, metrics sinks and the rerun
-state machine (whose default, "validate_results", is therefore
-"disabled" here), and optimizer state dtypes other than fp32.
+are set away from their defaults, naming the flag: the rerun state
+machine (whose default, "validate_results", is therefore "disabled"
+here), heartbeats and their timeouts, the simulated fault, the straggler
+detector, the workload inspector and sharded init, and optimizer state
+dtypes other than fp32. Checkpoints (durable and non-persistent),
+evaluation, exit_interval, the signal handler, batch-size rampup and the
+JSONL / TensorBoard metrics sinks are ported.
 """
 
 from __future__ import annotations
@@ -63,29 +66,15 @@ class OptimizerConfig:
 # TrainingConfig fields of machinery the port lacks → the flag that sets
 # them. A field set away from its default raises, naming the flag.
 UNPORTED_TRAINING_FIELDS = {
-    "eval_interval": "--eval-interval (evaluation)",
-    "save_interval": "--save-interval (checkpoints)",
-    "save_dir": "--save (checkpoints)",
-    "load_dir": "--load (checkpoints)",
-    "exit_interval": "--exit-interval",
-    "rampup_batch_size": "--rampup-batch-size (batch-size rampup)",
     "sharded_init": "--sharded-init",
     "rerun_mode": "--rerun-mode (the rerun state machine)",
     "error_injection_rate": "--error-injection-rate (the rerun state "
                             "machine)",
-    "exit_signal_handler": "--exit-signal-handler (fault tolerance)",
-    "exit_signal_handler_sigint": "--exit-signal-handler (fault "
-                                  "tolerance)",
     "heartbeat_dir": "--heartbeat-dir (fault tolerance)",
     "ft_timeouts": "--ft-timeouts (fault tolerance)",
     "simulated_fault": "--simulated-fault (fault tolerance)",
-    "non_persistent_save_interval": "--non-persistent-save-interval "
-                                    "(checkpoints)",
-    "non_persistent_ckpt_dir": "--non-persistent-ckpt-dir (checkpoints)",
     "log_straggler": "--log-straggler",
     "run_workload_inspector_server": "--run-workload-inspector-server",
-    "metrics_jsonl": "--metrics-jsonl (metrics sinks)",
-    "tensorboard_dir": "--tensorboard-dir (metrics sinks)",
 }
 
 
@@ -138,6 +127,17 @@ class TrainingConfig:
             if getattr(self, name) != defaults[name]:
                 raise ValueError(f"{flag} is not ported to "
                                  "megatronapp_tpu_torch yet (see ROADMAP.md)")
+
+    def resolved_non_persistent_dir(self) -> Optional[str]:
+        """Where the local checkpoints live: the explicit dir, else
+        <save_dir>/non_persistent when local saves are enabled, else
+        None (the JAX TrainingConfig's policy)."""
+        if self.non_persistent_ckpt_dir:
+            return self.non_persistent_ckpt_dir
+        if self.non_persistent_save_interval and self.save_dir:
+            import os
+            return os.path.join(self.save_dir, "non_persistent")
+        return None
 
     def num_microbatches(self, data_parallel: int) -> int:
         denom = self.micro_batch_size * data_parallel

@@ -53,14 +53,18 @@ hits, copy-on-write copies and preemption stay identical across ranks
 and no clock is read off rank 0. Followers run ``follow()``; the lead
 ends it with ``release_followers()``.
 
-``spec_method`` ("ngram" or "draft"; "mtp" warns and decodes plainly, as
-JAX does for a model without MTP heads) turns on speculative decoding
-(inference/speculative.py): every round proposes up to ``spec_k`` drafts
-a slot, verifies them all in one ragged multi-query step at [B, K+1]
-(the paged kernels, unfused or fused), accepts by exact rejection
-sampling — greedy streams are the plain greedy streams — and rewinds the
-rejected drafts' blocks. A round where nothing is proposed takes the
-plain one-token step.
+``spec_method`` ("ngram", "draft" or "mtp"; "mtp" on params without MTP
+heads warns and decodes plainly, as JAX does) turns on speculative
+decoding (inference/speculative.py): every round proposes up to
+``spec_k`` drafts a slot, verifies them all in one ragged multi-query
+step at [B, K+1] (the paged kernels, unfused or fused), accepts by exact
+rejection sampling — greedy streams are the plain greedy streams — and
+rewinds the rejected drafts' blocks. A round where nothing is proposed
+takes the plain one-token step. For the MTP proposer the engine keeps
+each slot's pre-head hidden at its last verified position (``_h_last``,
+valid where ``_h_valid``; JAX dynamic_engine.py:598-601): set from the
+prompt's last chunk and from each verify step's accepted row, cleared
+with the slot.
 
 Not ported yet (each raises at construction): the dense slot cache, the
 host spill tier, and LoRA, speculation or a rolling reload under tp;
@@ -484,6 +488,9 @@ class DynamicInferenceEngine:
         self.proposer = None
         self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0,
                            "emitted_tokens": 0, "model_steps": 0}
+        self._h_last = torch.zeros((max_batch, cfg.hidden_size),
+                                   dtype=torch.float32, device=self.device)
+        self._h_valid = np.zeros((max_batch,), bool)
         if speculate:
             from megatronapp_tpu_torch.inference.speculative import (
                 make_proposer,
@@ -769,6 +776,7 @@ class DynamicInferenceEngine:
         semantics differ per path)."""
         self.slots[slot] = None
         self.lengths[slot] = 0
+        self._h_valid[slot] = False
         if self.adapters is not None:
             self.adapters.release(int(self.row_adapter[slot]))
             self.row_adapter[slot] = 0
@@ -889,7 +897,7 @@ class DynamicInferenceEngine:
         """Prefill the uncached prompt tail in fixed-size chunks against
         the page table: each chunk is one multi-query step at shape
         [1, prefill_chunk]. Returns the last prompt position's logits
-        [V]."""
+        [V] and records its pre-head hidden for the MTP proposer."""
         slot = req.slot
         pool = self.pool
         c = self.prefill_chunk
@@ -897,7 +905,7 @@ class DynamicInferenceEngine:
         table = self._to_dev(table_np)
         lora = self._lora_args(self.row_adapter[slot:slot + 1], repeat=c)
         pos, count = plan.cached_tokens, 0
-        logits = None
+        logits = hid = None
         while pos < p_len:
             count = min(c, p_len - pos)
             chunk = np.zeros((1, c), np.int32)
@@ -908,7 +916,7 @@ class DynamicInferenceEngine:
                 torch.from_numpy(table_np), torch.from_numpy(starts),
                 torch.from_numpy(counts), torch.ones(1, dtype=torch.bool),
                 pool.block_size, c)
-            logits, _, _ = _paged_multiquery_step(
+            logits, hid, _ = _paged_multiquery_step(
                 self.params, self._to_dev(chunk), pool.pages, table,
                 self._to_dev(starts), self._to_dev(counts), self.cfg,
                 self.max_seq_len, tuple(self._to_dev(t) for t in index),
@@ -919,6 +927,9 @@ class DynamicInferenceEngine:
         # Register the prompt's full blocks so concurrent same-prefix
         # requests hit them immediately.
         pool.register_prefix(slot, np.asarray(tokens), p_len)
+        if self.proposer is not None and self.proposer.needs_hidden:
+            self._h_last[slot] = hid[0, count - 1].float()
+            self._h_valid[slot] = True
         return logits[0, count - 1]
 
     # ---- sampling ---------------------------------------------------------
@@ -1227,7 +1238,7 @@ class DynamicInferenceEngine:
             tokens[slot, 1:1 + n] = drafts[slot, :n]
             q_lens[slot] = 1 + n
         rows = self._sampling_rows()
-        logits = self._verify_step(tokens, q_lens, active_np)
+        logits, hidden = self._verify_step(tokens, q_lens, active_np)
         # Chaos site "spec-verify": the worst point — the step wrote every
         # draft's KV and nothing is accepted yet — so the drill proves
         # _spec_round's rollback keeps the pool auditable and the stream
@@ -1236,6 +1247,13 @@ class DynamicInferenceEngine:
         accepts, out_toks = _verify_and_sample(
             logits, drafts, q_lens, q_probs, rows,
             point_mass=self.proposer.point_mass)
+        if self.proposer.needs_hidden:
+            # Each active slot's hidden at its accepted row: the position
+            # whose next token this round emitted last.
+            idx = self._to_dev(np.flatnonzero(active_np))
+            acc = self._to_dev(accepts.astype(np.int64))
+            self._h_last[idx] = hidden[idx, acc[idx]].float()
+            self._h_valid[active_np] = True
         self.spec_stats["rounds"] += 1
         self.spec_stats["model_steps"] += 1
         for req in active:
@@ -1272,25 +1290,26 @@ class DynamicInferenceEngine:
 
     @torch.no_grad()
     def _verify_step(self, tokens: np.ndarray, q_lens: np.ndarray,
-                     active: np.ndarray) -> torch.Tensor:
+                     active: np.ndarray):
         """The verify step: one ragged multi-query step at [B, K+1] over
         every slot (row b's q_lens[b] tokens append at lengths[b]; the
         pool must already cover them), in place. Returns the logits [B,
-        K+1, V] fp32, padded vocab masked, on the engine's device."""
+        K+1, V] fp32, padded vocab masked, and the pre-head hidden [B,
+        K+1, H] (unfused or fused), on the engine's device."""
         s = tokens.shape[1]
         table_np = self.pool.page_table[:self.max_batch]
         index = paged_write_index(
             torch.from_numpy(table_np), torch.from_numpy(self.lengths),
             torch.from_numpy(q_lens), torch.from_numpy(active),
             self.pool.block_size, s)
-        logits, _, _ = _paged_multiquery_step(
+        logits, hidden, _ = _paged_multiquery_step(
             self.params, self._to_dev(tokens), self.pool.pages,
             self._to_dev(table_np), self._to_dev(self.lengths),
             self._to_dev(q_lens), self.cfg, self.max_seq_len,
             tuple(self._to_dev(t) for t in index), self.rope_tables,
             fused=self.megakernel, scales=self.pool.scales,
             lora=self._lora_args(repeat=s), ctx=self._step_ctx)
-        return mask_padded_vocab(logits, self.cfg)
+        return mask_padded_vocab(logits, self.cfg), hidden
 
     def run_to_completion(self,
                           token_callback: Optional[Callable] = None

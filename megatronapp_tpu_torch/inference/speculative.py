@@ -11,10 +11,12 @@ verifier for ``DynamicInferenceEngine(spec_method=...)``.
   tokens the target accepted since its last run, then drafts K tokens;
   sampled requests draft from the draft's warped distribution and hand
   the verifier the proposal probabilities q.
-- "mtp" (self-drafting through the model's MTP heads) needs the heads,
-  which the port does not load yet: ``make_proposer`` warns, counts
-  ``spec_proposer_fallbacks`` and the engine decodes plainly, as JAX does
-  for a model without heads.
+- ``MTPProposer`` ("mtp"): self-drafting through the model's own MTP
+  depth modules (transformer/mtp.py) from the engine's pre-head hidden at
+  each slot's last verified position; greedy, so a point mass, and at
+  most as many drafts as there are depths. On params without heads
+  ``make_proposer`` warns, counts ``spec_proposer_fallbacks`` and the
+  engine decodes plainly, as JAX does.
 
 Verification: every draft (plus the mandatory next token) runs through
 the engine's one ragged multi-query step (the paged kernel at [B, K+1]),
@@ -50,7 +52,11 @@ from megatronapp_tpu_torch.inference.dynamic_engine import (
 from megatronapp_tpu_torch.inference.engine import (
     _forward_with_cache, init_kv_cache, mask_padded_vocab,
 )
-from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
+from megatronapp_tpu_torch.models.gpt import (
+    gpt_embed, gpt_head, gpt_rope_tables,
+)
+from megatronapp_tpu_torch.transformer.block import layer_forward
+from megatronapp_tpu_torch.transformer.mtp import mtp_combine
 from megatronapp_tpu_torch.utils.device import host_to
 
 # Stream tags appended to (seed, request id, step): the acceptance
@@ -170,10 +176,14 @@ class Proposer:
 
     point_mass: the proposal is deterministic given the context (n-gram
     lookup); the verifier then treats q as a point mass, which keeps
-    rejection sampling exact without materialising q."""
+    rejection sampling exact without materialising q.
+
+    needs_hidden: the proposer reads the engine's per-slot pre-head hidden
+    (engine._h_last, kept by the prefill and the verify rounds)."""
 
     name = "base"
     point_mass = True
+    needs_hidden = False
 
     def __init__(self, engine):
         self.engine = engine
@@ -416,24 +426,95 @@ class DraftModelProposer(Proposer):
         return drafts, counts, q_probs
 
 
-MTP_UNPORTED = ("spec_method='mtp' requested but the model has no MTP "
-                "depth modules (cfg.mtp_num_layers == 0 or params lack "
-                "'mtp') — falling back to plain decode")
+@torch.no_grad()
+def _mtp_draft(params, h: torch.Tensor, toks: torch.Tensor,
+               positions: torch.Tensor, cfg, k: int) -> torch.Tensor:
+    """The greedy MTP self-draft chain (JAX speculative.py:258): depth d
+    combines the previous depth's hidden with the previous token's
+    embedding and scores with the SHARED head. The depth layer runs
+    position-local (S 1): one-token self-attention is rope-invariant and
+    gives v, so it acts as a learned head — proposal quality only; the
+    verifier keeps the stream exact. h [B, H]: the pre-head hidden at the
+    last verified position; toks [B]: the pending token at `positions`.
+    Returns drafts [B, k] on the device."""
+    drafts = []
+    h_cur, tok, pos = h.to(cfg.compute_dtype), toks, positions
+    for d in range(k):
+        dp = params["mtp"][d]
+        e = gpt_embed(params, tok[:, None], cfg,
+                      position_ids=pos[:, None])[:, 0]
+        x = mtp_combine(dp, h_cur, e, cfg)
+        (h2, _), _ = layer_forward(dp["layer"], x[:, None], cfg, None, None,
+                                   None)
+        h_cur = h2[:, 0]
+        logits = mask_padded_vocab(
+            gpt_head(params, h_cur[:, None], cfg)[:, 0], cfg)
+        tok = logits.argmax(dim=-1)
+        drafts.append(tok)
+        pos = pos + 1
+    return torch.stack(drafts, dim=1)
+
+
+class MTPProposer(Proposer):
+    """Self-drafting through the model's own MTP depth modules (JAX
+    speculative.py:290): up to min(spec_k, depths) drafts a slot whose
+    hidden is valid, one batched chain a round."""
+
+    name = "mtp"
+    point_mass = True
+    needs_hidden = True
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.depth = len(engine.params.get("mtp") or [])
+        self._k = min(engine.spec_k, self.depth)
+
+    @staticmethod
+    def available(engine) -> bool:
+        return bool(engine.params.get("mtp"))
+
+    def propose(self, k_caps):
+        eng = self.engine
+        b, k = eng.max_batch, eng.spec_k
+        drafts = np.zeros((b, k), np.int32)
+        counts = np.zeros((b,), np.int32)
+        caps = np.minimum(np.asarray(k_caps), self._k)
+        rows = [r for r in eng.slots
+                if r is not None and not r.finished
+                and caps[r.slot] > 0 and eng._h_valid[r.slot]]
+        if not rows or self._k == 0:
+            return drafts, counts, None
+        out = _mtp_draft(
+            eng.params, eng._h_last,
+            host_to(eng.last_tokens[:, 0].astype(np.int64), eng.device),
+            host_to(eng.lengths.astype(np.int64), eng.device), eng.cfg,
+            self._k).cpu().numpy()
+        for r in rows:
+            n = int(caps[r.slot])
+            drafts[r.slot, :n] = out[r.slot, :n]
+            counts[r.slot] = n
+        return drafts, counts, None
+
+
+MTP_UNAVAILABLE = ("spec_method='mtp' requested but the model has no MTP "
+                   "depth modules (cfg.mtp_num_layers == 0 or params lack "
+                   "'mtp') — falling back to plain decode")
 
 
 def make_proposer(method: str, engine, draft_params=None,
                   draft_cfg=None) -> Optional[Proposer]:
     """Build the requested proposer, or None (with a warning) when it is
     unavailable — the engine then decodes plainly (JAX
-    speculative.py:509). The port loads no MTP heads (ROADMAP.md Queue 1
-    item 3), so "mtp" always falls back."""
+    speculative.py:509)."""
     from megatronapp_tpu_torch.utils import metrics as telemetry
     if method == "ngram":
         return NGramProposer(engine)
     if method == "mtp":
-        warnings.warn(MTP_UNPORTED, stacklevel=2)
-        telemetry.inc("spec_proposer_fallbacks")
-        return None
+        if not MTPProposer.available(engine):
+            warnings.warn(MTP_UNAVAILABLE, stacklevel=2)
+            telemetry.inc("spec_proposer_fallbacks")
+            return None
+        return MTPProposer(engine)
     if method == "draft":
         if draft_params is None or draft_cfg is None:
             warnings.warn(

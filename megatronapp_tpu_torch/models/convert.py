@@ -4,8 +4,10 @@
 caller does ``jax.tree.map(np.asarray, params)``; the port itself never
 imports JAX) and returns the port's ``ParamTree``. The stacked ``block``
 leaves [L, ...] are unstacked into ``layers.i``; every other leaf keeps
-its name and its [in, out] layout, so nothing is transposed. A leaf the
-converter does not know raises.
+its name and its [in, out] layout, so nothing is transposed. The MTP
+depth modules (``mtp``: a list of {hnorm_scale, enorm_scale, proj,
+layer}, each layer unstacked) become ``mtp.d``. A leaf the converter does
+not know raises.
 
 ``adapter_from_jax`` carries a JAX package LoRA adapter
 (megatronapp_tpu/inference/lora.py LoraAdapter) across as the port's
@@ -79,7 +81,7 @@ def _layer_leaf(v, i: int, cfg: TransformerConfig, device):
 def params_from_jax(tree: Mapping, cfg: TransformerConfig,
                     device="cpu") -> ParamTree:
     for name, val in tree.items():
-        if name not in _TOP | {"embedding", "block"} or \
+        if name not in _TOP | {"embedding", "block", "mtp"} or \
                 (name in _TOP and isinstance(val, Mapping)):
             raise KeyError(f"params_from_jax: unknown leaf {name}")
     top = {k: _tensor(v, cfg, device) for k, v in tree.items()
@@ -116,8 +118,41 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
                           for k, v in block.items() if k in _LAYER},
                          **children)
 
-    return ParamTree(top, embedding=ParamTree(emb),
-                     layers=nn.ModuleList(layer(i) for i in range(num)))
+    children = {"embedding": ParamTree(emb),
+                "layers": nn.ModuleList(layer(i) for i in range(num))}
+    if tree.get("mtp"):
+        children["mtp"] = nn.ModuleList(
+            _mtp_depth(d, subs, cfg, device, f"mtp.{k}.")
+            for k, d in enumerate(tree["mtp"]))
+    return ParamTree(top, **children)
+
+
+_MTP = {"hnorm_scale", "enorm_scale", "proj", "layer"}
+
+
+def _mtp_depth(depth: Mapping, subs, cfg: TransformerConfig, device,
+               where: str) -> ParamTree:
+    """One MTP depth module: its three leaves and its (unstacked)
+    layer."""
+    for name, val in depth.items():
+        if name not in _MTP or (name == "layer") != isinstance(val,
+                                                               Mapping):
+            raise KeyError(f"params_from_jax: unknown leaf {where}{name}")
+    layer = depth["layer"]
+    for name, val in layer.items():
+        if (name not in _LAYER and name not in subs) or \
+                (name in subs) != isinstance(val, Mapping):
+            raise KeyError(f"params_from_jax: unknown leaf {where}layer."
+                           f"{name}")
+    children = {n: ParamTree({k: _tensor(v, cfg, device) for k, v in
+                              _leaves(layer[n], allowed,
+                                      f"{where}layer.{n}.").items()})
+                for n, allowed in subs.items()}
+    return ParamTree(
+        {k: _tensor(depth[k], cfg, device)
+         for k in ("hnorm_scale", "enorm_scale", "proj")},
+        layer=ParamTree({k: _tensor(v, cfg, device) for k, v in
+                         layer.items() if k in _LAYER}, **children))
 
 
 def adapter_from_jax(jax_adapter):

@@ -1,5 +1,6 @@
 """GPT model (the JAX package's models/gpt.py): init, the embedding, the
-rope tables, the head, and the training forward and loss."""
+rope tables, the head, and the training forward and loss (with the MTP
+heads' auxiliary loss, transformer/mtp.py)."""
 
 from __future__ import annotations
 
@@ -25,9 +26,8 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
     """Random weights made directly on `device` from `generator` (the
     generator must live on the same device). Leaves as in the JAX
     package: embedding.word [V, H] (+ embedding.pos), layers.i.*,
-    final_ln_scale (+ final_ln_bias), output [H, V] when untied."""
-    if cfg.mtp_num_layers:
-        raise NotImplementedError("MTP heads are not ported yet")
+    final_ln_scale (+ final_ln_bias), output [H, V] when untied, and
+    mtp.d.* (the MTP depth modules) when cfg.mtp_num_layers."""
     std, dt = cfg.init_method_std, cfg.params_dtype
     h, v = cfg.hidden_size, cfg.vocab_size
     emb = {"word": normal((v, h), std, dt, generator, device)}
@@ -39,8 +39,12 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
         top["final_ln_bias"] = torch.zeros(h, dtype=dt, device=device)
     if cfg.untie_embeddings_and_output_weights:
         top["output"] = normal((h, v), std, dt, generator, device)
-    return ParamTree(top, embedding=ParamTree(emb),
-                     layers=init_block_params(cfg, generator, device))
+    children = {"embedding": ParamTree(emb),
+                "layers": init_block_params(cfg, generator, device)}
+    if cfg.mtp_num_layers:
+        from megatronapp_tpu_torch.transformer.mtp import init_mtp_params
+        children["mtp"] = init_mtp_params(cfg, generator, device)
+    return ParamTree(top, **children)
 
 
 def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -119,20 +123,21 @@ def packed_position_ids(segment_ids: torch.Tensor) -> torch.Tensor:
 
 def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
                 attention_mask: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None, ctx=None):
+                segment_ids: Optional[torch.Tensor] = None, ctx=None,
+                return_hidden: bool = False):
     """tokens [B, S] → (logits [B, S, V] fp32, moe_aux_loss). segment_ids
     [B, S]: packed sequences — positions restart per segment (for the
     learned embedding and the rope tables) and attention stays within a
-    segment. The zigzag context-parallel layout comes with the
-    parallel-training slice."""
+    segment. return_hidden: also the main stack's output [B, S, H] (before
+    the final norm) and the rope tables (cos, sin), for the MTP heads. The
+    zigzag context-parallel layout comes with the parallel-training
+    slice."""
     if ctx is not None:
         raise NotImplementedError(
             "context-parallel (zigzag) and tensor-parallel training "
             "forwards are not ported yet (the parallel-training slice, "
             "ROADMAP.md Queue 1): a serving ctx rides the engine's paged "
             "steps (inference/dynamic_engine.py), not gpt_forward")
-    if cfg.mtp_num_layers:
-        raise NotImplementedError("MTP heads are not ported yet")
     positions = None
     if segment_ids is not None:
         positions = packed_position_ids(segment_ids)
@@ -141,14 +146,36 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
                                positions=positions)
     h, aux = block_forward(p["layers"], h, cfg, cos, sin, attention_mask,
                            segment_ids=segment_ids)
-    return gpt_head(p, h, cfg), aux
+    logits = gpt_head(p, h, cfg)
+    if return_hidden:
+        return logits, aux, h, (cos, sin)
+    return logits, aux
 
 
 def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
              loss_mask: Optional[torch.Tensor], cfg: TransformerConfig,
              segment_ids: Optional[torch.Tensor] = None, ctx=None):
-    """Training loss (CE + MoE aux) → (loss, {"lm_loss", "moe_aux_loss"})."""
-    logits, aux = gpt_forward(p, tokens, cfg, segment_ids=segment_ids,
-                              ctx=ctx)
+    """Training loss (CE + MoE aux, + the scaled MTP loss when
+    cfg.mtp_num_layers) → (loss, {"lm_loss", "moe_aux_loss"[,
+    "mtp_loss"]}); mtp_loss is the unscaled mean over depths (JAX
+    gpt.py:239-275)."""
+    if not cfg.mtp_num_layers:
+        logits, aux = gpt_forward(p, tokens, cfg, segment_ids=segment_ids,
+                                  ctx=ctx)
+        loss, _ = cross_entropy_loss(logits, targets, loss_mask)
+        return loss + aux, {"lm_loss": loss, "moe_aux_loss": aux}
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "multi token prediction + sequence packing is not "
+            "supported (reference multi_token_prediction.py assert)")
+    from megatronapp_tpu_torch.transformer.mtp import mtp_loss
+    logits, aux, hid, (cos, sin) = gpt_forward(p, tokens, cfg, ctx=ctx,
+                                               return_hidden=True)
+    scaled, mean, layer_aux = mtp_loss(
+        p["mtp"], hid, lambda t: gpt_embed(p, t, cfg),
+        lambda hh: gpt_head(p, hh, cfg), tokens, targets, loss_mask, cfg,
+        cos, sin)
+    aux = aux + layer_aux
     loss, _ = cross_entropy_loss(logits, targets, loss_mask)
-    return loss + aux, {"lm_loss": loss, "moe_aux_loss": aux}
+    return loss + aux + scaled, {"lm_loss": loss, "moe_aux_loss": aux,
+                                 "mtp_loss": mean}

@@ -9,11 +9,24 @@ pretrain_gpt.py for the single-device path).
         --vocab-size 128 --max-position-embeddings 64 --seq-length 32 \
         --micro-batch-size 2 --global-batch-size 4 --train-iters 10
 
-Flags keep the names of the JAX package's config/arguments.py; this
-entry honours the subset below, plus --preset and --device. It trains on
-mock data from --seed with random weights from --seed, on the card unless
---device cpu. Any other flag of the JAX parser (parallelism, checkpoints,
-data paths, ...) exits with a message naming it.
+    python -m megatronapp_tpu_torch.pretrain_gpt --preset gpt2-125m \
+        --attention-impl pallas --flash-head-fold --seq-length 1024 \
+        --data-path corpus/text_document --save ckpt --save-interval 100 \
+        --eval-interval 100 --eval-iters 10 --metrics-jsonl m.jsonl \
+        --micro-batch-size 4 --global-batch-size 8 --train-iters 1000
+    python -m megatronapp_tpu_torch.serve --preset gpt2-125m \
+        --engine dynamic --paged-kv-cache --load-dir ckpt
+
+Flags keep the names, defaults and messages of the JAX package's
+config/arguments.py; this entry honours the subset below, plus --preset
+and --device. It trains with random weights from --seed on the card
+unless --device cpu, on the .bin/.idx corpus of --data-path (a
+GPTDataset, data/gpt_dataset.py) or on mock data from --seed. --save
+writes checkpoints (training/checkpointing.py) and resolved_args.json;
+--load (or --save again) resumes; --use-checkpoint-args takes the
+architecture flags stored with --load. Any other flag of the JAX parser
+(parallelism, the rerun machine, heartbeats, ...) exits with a message
+naming it.
 
 MegaScan: --trace writes the traced iterations' phase spans (timed by
 CUDA events on the card) to --trace-dir; merge and analyse them with
@@ -26,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 from typing import List, Optional
 
 import torch
@@ -77,13 +92,23 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--untie-embeddings-and-output-weights",
                    action="store_true")
     g.add_argument("--init-method-std", type=float, default=0.02)
+    g = ap.add_argument_group("mtp")
+    g.add_argument("--mtp-num-layers", type=int, default=None)
+    g.add_argument("--mtp-loss-scaling-factor", type=float, default=0.1)
     g = ap.add_argument_group("training")
     g.add_argument("--micro-batch-size", type=int, default=1)
     g.add_argument("--global-batch-size", type=int, default=8)
+    g.add_argument("--rampup-batch-size", nargs=3, type=int, default=None,
+                   metavar=("START", "INCR", "SAMPLES"),
+                   help="linear global-batch rampup (reference "
+                        "--rampup-batch-size)")
     g.add_argument("--seq-length", type=int, default=1024)
     g.add_argument("--train-iters", type=int, default=100)
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--log-interval", type=int, default=10)
+    g.add_argument("--eval-interval", type=int, default=None)
+    g.add_argument("--eval-iters", type=int, default=10)
+    g.add_argument("--exit-interval", type=int, default=None)
     g.add_argument("--recompute-granularity", default="selective",
                    choices=["none", "selective", "selective_attn", "full"])
     g.add_argument("--attention-impl", default="auto",
@@ -106,6 +131,41 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--adam-eps", type=float, default=1e-8)
     g.add_argument("--clip-grad", type=float, default=1.0)
     g.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
+    g = ap.add_argument_group("checkpointing")
+    g.add_argument("--save", default=None, metavar="DIR")
+    g.add_argument("--load", default=None, metavar="DIR")
+    g.add_argument("--save-interval", type=int, default=None)
+    g.add_argument("--use-checkpoint-args", action="store_true",
+                   help="apply args.json stored with the --load checkpoint "
+                        "as defaults (explicit flags still override; "
+                        "reference --use-checkpoint-args)")
+    g = ap.add_argument_group("data")
+    g.add_argument("--data-path", default=None,
+                   help=".bin/.idx prefix; omit for the mock dataset")
+    g = ap.add_argument_group("logging")
+    g.add_argument("--tensorboard-dir", default=None)
+    g.add_argument("--metrics-jsonl", default=None,
+                   help="append per-log-step scalars to this JSONL file")
+    g = ap.add_argument_group("fault-tolerance")
+    g.add_argument("--exit-signal-handler", action="store_true",
+                   help="SIGTERM finishes the in-flight step, force-"
+                        "saves an emergency checkpoint (durable + local "
+                        "when configured) with resumable side state, "
+                        "and exits cleanly; the exit decision is agreed "
+                        "across processes")
+    g.add_argument("--exit-signal-handler-sigint", action="store_true",
+                   help="additionally catch SIGINT (^C) — implies "
+                        "--exit-signal-handler")
+    g.add_argument("--non-persistent-save-interval", type=int,
+                   default=None, metavar="N",
+                   help="fast latest-only local checkpoint every N "
+                        "steps (LocalCheckpointManager .npz, atomic "
+                        "rename) — cheap enough for small N; restore "
+                        "prefers the freshest of (local, durable)")
+    g.add_argument("--non-persistent-ckpt-dir", default=None,
+                   metavar="DIR",
+                   help="directory for the local checkpoints (default: "
+                        "<--save>/non_persistent)")
     g = ap.add_argument_group("megascan")
     g.add_argument("--trace", action="store_true")
     g.add_argument("--trace-interval", type=int, default=5)
@@ -116,8 +176,55 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+_ARGS_FILE = "resolved_args.json"
+
+# Args --use-checkpoint-args must NOT resurrect from a stored run: the JAX
+# parser's set, and --device (where this invocation runs: a run rehearsed
+# with --device cpu resumes on the card unless asked otherwise).
+_RUN_CONTROL_ARGS = frozenset({
+    "save", "load", "save_interval", "train_iters", "exit_interval",
+    "use_checkpoint_args", "config_yaml", "data_path", "metrics_jsonl",
+    "tensorboard_dir", "trace", "trace_dir", "log_interval",
+    "eval_interval", "eval_iters", "device",
+})
+
+
+def save_resolved_args(args, save_dir: str):
+    """The resolved flag namespace as resolved_args.json beside the
+    checkpoints (the JAX package's file and keys)."""
+    os.makedirs(save_dir, exist_ok=True)
+    payload = {k: v for k, v in vars(args).items()
+               if isinstance(v, (int, float, str, bool, list, tuple,
+                                 type(None)))}
+    with open(os.path.join(save_dir, _ARGS_FILE), "w") as f:
+        json.dump(payload, f, indent=1)
+
+
+def load_saved_args(load_dir: str) -> Optional[dict]:
+    path = os.path.join(load_dir, _ARGS_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """Parse with --use-checkpoint-args' stored values as defaults
+    (parser defaults < stored values < explicit flags)."""
     ap = build_parser()
+    pre, _ = ap.parse_known_args(argv)
+    if pre.use_checkpoint_args:
+        if not pre.load:
+            raise ValueError("--use-checkpoint-args requires --load")
+        stored = load_saved_args(pre.load) or {}
+        # Architecture / hyperparameter args only: run control stays
+        # with this invocation.
+        defaults = {k: v for k, v in stored.items()
+                    if k not in _RUN_CONTROL_ARGS}
+        unknown = sorted(set(defaults) - {a.dest for a in ap._actions})
+        if unknown:
+            raise ValueError(f"unknown config keys: {unknown}")
+        ap.set_defaults(**defaults)
     args, rest = ap.parse_known_args(argv)
     if rest:
         flags = [a.split("=")[0] for a in rest if a.startswith("-")]
@@ -125,6 +232,27 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  "megatronapp_tpu_torch yet (the single-device trainer "
                  "honours the flags in --help; see ROADMAP.md)")
     return args
+
+
+def _ft_fields(args: argparse.Namespace) -> dict:
+    """The checkpoint / signal TrainingConfig fields, rejecting what the
+    loop cannot resolve at parse time (JAX arguments.py:1005-1020)."""
+    npsi = args.non_persistent_save_interval
+    if npsi is not None and npsi <= 0:
+        raise ValueError(
+            f"--non-persistent-save-interval must be a positive step "
+            f"count, got {npsi}")
+    if npsi and not (args.non_persistent_ckpt_dir or args.save):
+        raise ValueError(
+            "--non-persistent-save-interval needs a directory: pass "
+            "--non-persistent-ckpt-dir or --save (the default is "
+            "<--save>/non_persistent)")
+    return dict(
+        exit_signal_handler=(args.exit_signal_handler
+                             or args.exit_signal_handler_sigint),
+        exit_signal_handler_sigint=args.exit_signal_handler_sigint,
+        non_persistent_save_interval=npsi,
+        non_persistent_ckpt_dir=args.non_persistent_ckpt_dir)
 
 
 def configs_from_args(args: argparse.Namespace):
@@ -135,6 +263,9 @@ def configs_from_args(args: argparse.Namespace):
         defaults = build_parser().parse_args([])
         over = {f: getattr(args, f) for f in _PRESET_OVERRIDES
                 if getattr(args, f) != getattr(defaults, f)}
+        if args.mtp_num_layers is not None:
+            over.update(mtp_num_layers=args.mtp_num_layers,
+                        mtp_loss_scaling_factor=args.mtp_loss_scaling_factor)
         model = dataclasses.replace(PRESETS[args.preset](), **over)
     else:
         activation = ActivationKind.gelu
@@ -159,7 +290,9 @@ def configs_from_args(args: argparse.Namespace):
             add_qkv_bias=args.add_qkv_bias, qk_layernorm=args.qk_layernorm,
             untie_embeddings_and_output_weights=(
                 args.untie_embeddings_and_output_weights),
-            init_method_std=args.init_method_std)
+            init_method_std=args.init_method_std,
+            mtp_num_layers=args.mtp_num_layers,
+            mtp_loss_scaling_factor=args.mtp_loss_scaling_factor)
     model = dataclasses.replace(
         model, remat_policy=args.recompute_granularity,
         attention_impl=args.attention_impl,
@@ -169,7 +302,15 @@ def configs_from_args(args: argparse.Namespace):
         micro_batch_size=args.micro_batch_size,
         global_batch_size=args.global_batch_size,
         seq_length=args.seq_length, train_iters=args.train_iters,
-        seed=args.seed, log_interval=args.log_interval, trace=args.trace,
+        seed=args.seed, log_interval=args.log_interval,
+        rampup_batch_size=(tuple(args.rampup_batch_size)
+                           if args.rampup_batch_size else None),
+        eval_interval=args.eval_interval, eval_iters=args.eval_iters,
+        exit_interval=args.exit_interval, save_dir=args.save,
+        load_dir=args.load, save_interval=args.save_interval,
+        metrics_jsonl=args.metrics_jsonl,
+        tensorboard_dir=args.tensorboard_dir, **_ft_fields(args),
+        trace=args.trace,
         trace_interval=args.trace_interval,
         continuous_trace_iterations=args.continuous_trace_iterations,
         trace_dir=args.trace_dir, trace_granularity=args.trace_granularity)
@@ -183,13 +324,42 @@ def configs_from_args(args: argparse.Namespace):
     return model, training, optimizer
 
 
+def make_batch_iter_factory(args: argparse.Namespace,
+                            training: TrainingConfig,
+                            model: TransformerConfig):
+    """The batch-stream factory of --data-path (.bin/.idx): called with the
+    resume sample offset, so a restart skips the consumed samples; None
+    without --data-path (pretrain_gpt then streams mock batches)."""
+    if not args.data_path:
+        return None
+    from megatronapp_tpu_torch.data.gpt_dataset import (
+        GPTDataset, gpt_batches,
+    )
+    from megatronapp_tpu_torch.data.indexed_dataset import IndexedDataset
+    indexed = IndexedDataset(args.data_path)
+    num_samples = training.train_iters * training.global_batch_size
+    ds = GPTDataset(indexed, training.seq_length, num_samples,
+                    seed=training.seed)
+
+    def factory(start_sample_idx: int = 0):
+        return gpt_batches(ds, training.global_batch_size,
+                           start_idx=start_sample_idx)
+
+    return factory
+
+
 def main(argv: Optional[List[str]] = None):
     from megatronapp_tpu_torch.training.train import pretrain_gpt
     args = parse_args(argv)
     model, training, optimizer = configs_from_args(args)
-    result = pretrain_gpt(model, training, optimizer, device=args.device)
-    print(f"done: final loss {result.losses[-1]:.4f}, "
-          f"{result.tokens_per_sec:,.0f} tok/s")
+    if args.save:
+        save_resolved_args(args, args.save)
+    factory = make_batch_iter_factory(args, training, model)
+    result = pretrain_gpt(model, training, optimizer, device=args.device,
+                          batch_iter_factory=factory)
+    if result.losses:
+        print(f"done: final loss {result.losses[-1]:.4f}, "
+              f"{result.tokens_per_sec:,.0f} tok/s")
     return result
 
 

@@ -14,9 +14,14 @@ visualization requests on /ws (inference/server.py).
 
 The serving flags keep the names of the JAX package's
 config/arguments.py:add_serving_args. The port serves random weights made
-on the device from --seed with the NullTokenizer: checkpoint loading,
-tokenizer files and every flag outside the ported slices exit with a
-message naming what is not ported yet. ``--megakernel-decode`` runs the
+on the device from --seed with the NullTokenizer, or with ``--load-dir``
+the params of the newest intact step of a checkpoint directory the port's
+trainer wrote (pretrain_gpt.py --save; training/train_state.py
+restore_params, cast to --params-dtype): the preset and --num-layers
+must give that run's model, and its MTP depth modules are read from the
+checkpoint; a directory that holds no step is refused. Int8 checkpoints, tokenizer
+files and every flag outside the ported slices exit with a message naming
+what is not ported yet. ``--megakernel-decode`` runs the
 fused decode step (ops/fused_decode.py); ``--kv-cache-dtype int8|fp8``
 stores the KV pool quantized and ``--quantized-weights`` quantizes the
 five matmul kernels of every layer to resident int8 at startup, on the
@@ -24,14 +29,16 @@ device (inference/quantization.py). ``--lora-dir DIR`` serves batched
 multi-tenant LoRA adapters (``<adapter_id>.npz`` files written by
 ``inference/lora.py:LoraAdapter.save``) from a device cache of
 ``--max-resident-adapters`` slots of rank ``--lora-rank``; a request names
-its adapter with ``"adapter_id"``. ``--spec-method ngram|draft`` with
+its adapter with ``"adapter_id"``. ``--spec-method ngram|draft|mtp`` with
 ``--spec-k K`` serves speculative decoding (``--draft-model PRESET``: the
-draft, its weights made from --seed + 1; ``mtp`` warns and decodes
-plainly: the port loads no MTP heads). ``--serve-tp N`` serves
-tensor-parallel over N ranks, one process each, joined by a gloo group
-(parallel/mesh.py): this process is rank 0 and runs the driver and the
-server, and it spawns ranks 1..N-1 as followers that step in lockstep with
-it (inference/dynamic_engine.py). Rank r computes on cuda:(r mod the card
+draft, its weights made from --seed + 1 or restored from
+``--draft-load-dir``; ``mtp`` self-drafts through the model's MTP heads:
+the checkpoint's, or ``--mtp-num-layers`` random ones; without heads it
+warns and decodes plainly).
+``--serve-tp N`` serves tensor-parallel over N ranks, one process each,
+joined by a gloo group (parallel/mesh.py): this process is rank 0 and
+runs the driver and the server, and it spawns ranks 1..N-1 as followers
+that step in lockstep with it (inference/dynamic_engine.py). Rank r computes on cuda:(r mod the card
 count), so on a machine with one card every rank shares it. The server
 needs ``aiohttp``.
 """
@@ -48,7 +55,6 @@ import torch
 
 # Flags of the JAX server that select machinery this slice does not port.
 UNPORTED_FLAGS = {
-    "--load-dir": "checkpoint loading",
     "--load-quantized": "int8 checkpoints (no int8 artifact of "
                         "tools/checkpoint/quantize.py is in the repository; "
                         "--quantized-weights quantizes at startup)",
@@ -58,8 +64,6 @@ UNPORTED_FLAGS = {
                                 "tiles)",
     "--scan-unroll": "the JAX layer scan (the port runs its layers as a "
                      "Python loop)",
-    "--draft-load-dir": "checkpoint loading (the draft's weights are made "
-                        "from a seed)",
     "--serve-disagg": "disaggregated serving",
     "--disagg-prefill-slots": "disaggregated serving",
     "--decode-slo-ms": "disaggregated serving",
@@ -115,6 +119,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "way)")
     ap.add_argument("--num-layers", type=int, default=None,
                     help="cut the preset's depth (widths are kept)")
+    ap.add_argument("--mtp-num-layers", type=int, default=None,
+                    help="MTP depth modules of the random-weight model "
+                         "(--spec-method mtp); with --load-dir the "
+                         "checkpoint's are served")
+    ap.add_argument("--load-dir", default=None,
+                    help="serve the params of this checkpoint directory's "
+                         "newest step (the port's pretrain_gpt --save)")
     g = ap.add_argument_group("serving")
     g.add_argument("--engine", choices=["static", "dynamic", "mamba"],
                    default="static",
@@ -184,7 +195,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--draft-model", default=None, choices=sorted(PRESETS),
                    help="models/presets.py preset for --spec-method "
                         "draft (must share the target vocab/tokenizer); "
-                        "its weights are made from --seed + 1")
+                        "its weights are made from --seed + 1 unless "
+                        "--draft-load-dir")
+    g.add_argument("--draft-load-dir", default=None,
+                   help="checkpoint directory of the draft model's params")
     g.add_argument("--serving-metrics", action="store_true",
                    help="enable the telemetry registry (GET /metrics)")
     g.add_argument("--request-trace", action="store_true",
@@ -259,6 +273,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  "--paged-kv-cache")
     if args.serve_tp < 1:
         ap.error(f"--serve-tp must be >= 1 (got {args.serve_tp})")
+    if args.load_dir and args.mtp_num_layers is not None:
+        ap.error("--mtp-num-layers with --load-dir: the MTP depth modules "
+                 "are read from the checkpoint")
     if args.spec_method == "draft" and args.draft_model is None:
         ap.error("--spec-method draft needs --draft-model (a "
                  "models/presets.py preset)")
@@ -329,7 +346,8 @@ def spawn_followers(args: argparse.Namespace, init_method: str):
 
 def build_engine(args: argparse.Namespace, ctx=None):
     """The engine the server drives (--engine static or dynamic), with
-    random weights from args.seed made on the device (quantized there
+    random weights from args.seed made on the device, or --load-dir's
+    checkpoint restored into them (quantized there
     with --quantized-weights, as the JAX server's startup PTQ does:
     tools/run_text_generation_server.py:123-135). ctx: this rank's
     MeshContext under --serve-tp."""
@@ -339,6 +357,7 @@ def build_engine(args: argparse.Namespace, ctx=None):
     )
     from megatronapp_tpu_torch.models.gpt import init_gpt_params
     from megatronapp_tpu_torch.models.presets import PRESETS
+    from megatronapp_tpu_torch.training.train_state import restore_params
     from megatronapp_tpu_torch.utils.device import resolve_device
     device = ctx.device if ctx is not None else resolve_device(args.device)
     cfg = PRESETS[args.preset]()
@@ -346,18 +365,37 @@ def build_engine(args: argparse.Namespace, ctx=None):
                              else torch.float32)}
     if args.num_layers is not None:
         over["num_layers"] = args.num_layers
+    if args.mtp_num_layers is not None:
+        over["mtp_num_layers"] = args.mtp_num_layers
+    if args.load_dir:
+        over["mtp_num_layers"] = _checkpoint_mtp_depths(args.load_dir,
+                                                       "--load-dir")
     cfg = dataclasses.replace(cfg, **over)
     gen = torch.Generator(device).manual_seed(args.seed)
     params = init_gpt_params(cfg, gen, device)
+    if args.load_dir:
+        step = restore_params(args.load_dir, params)
+        print(f"loaded checkpoint step {step}")
     draft_params = draft_cfg = None
     if args.spec_method == "draft":
         # The JAX server inits the draft preset from its own key; here
         # from --seed + 1, in the target's params dtype.
+        draft_over = {"params_dtype": over["params_dtype"]}
+        if args.draft_load_dir:
+            draft_over["mtp_num_layers"] = _checkpoint_mtp_depths(
+                args.draft_load_dir, "--draft-load-dir")
         draft_cfg = dataclasses.replace(PRESETS[args.draft_model](),
-                                        params_dtype=over["params_dtype"])
+                                        **draft_over)
         draft_params = init_gpt_params(
             draft_cfg, torch.Generator(device).manual_seed(args.seed + 1),
             device)
+        if args.draft_load_dir:
+            step = restore_params(args.draft_load_dir, draft_params)
+            print(f"loaded draft checkpoint step {step}")
+        else:
+            print("WARNING: draft model is randomly initialized "
+                  "(--draft-load-dir not given) — acceptance will be "
+                  "poor; outputs stay exact either way")
     if args.quantized_weights:
         from megatronapp_tpu_torch.inference.quantization import (
             quantize_for_serving,
@@ -384,6 +422,18 @@ def build_engine(args: argparse.Namespace, ctx=None):
         spec_method=args.spec_method, spec_k=args.spec_k,
         draft_params=draft_params, draft_cfg=draft_cfg,
         adapter_cache=build_adapter_cache(args, cfg, device), ctx=ctx)
+
+
+def _checkpoint_mtp_depths(directory: str, flag: str):
+    """The MTP depth count of a checkpoint directory (None for none);
+    exits when it holds no step: a mistyped path must not serve random
+    weights under the checkpoint's name."""
+    from megatronapp_tpu_torch.training.train_state import mtp_depths
+    depths = mtp_depths(directory)
+    if depths is None:
+        raise SystemExit(f"{flag} {directory}: no checkpoint step to load "
+                         "(the port's pretrain_gpt --save writes them)")
+    return depths or None
 
 
 def build_adapter_cache(args: argparse.Namespace, cfg, device):
@@ -428,9 +478,11 @@ def main(argv: Optional[List[str]] = None):
                  else [])
     ctx = join_tp(args, 0, init_method)
     engine = build_engine(args, ctx)
+    weights = (f"weights of {args.load_dir}" if args.load_dir
+               else f"random weights seed {args.seed}")
     if args.engine == "static":
         print(f"serving {args.preset} ({engine.cfg.num_layers} layers, "
-              f"random weights seed {args.seed}) with the static engine on "
+              f"{weights}) with the static engine on "
               f"{engine.device} at {args.host}:{args.port} (PUT /api, WS "
               f"/ws with MegaScope visualization; dense cache of "
               f"{engine.max_seq_len} positions, params "
@@ -447,8 +499,8 @@ def main(argv: Optional[List[str]] = None):
         f"{[str(rank_device(args, r)) for r in range(args.serve_tp)]}, "
         f"tp_paged={engine.tp_paged}, pool "
         f"{engine.pool.bytes_total / 2**20:.1f} MiB a rank")
-    print(f"serving {args.preset} ({engine.cfg.num_layers} layers, random "
-          f"weights seed {args.seed}) with continuous batching on "
+    print(f"serving {args.preset} ({engine.cfg.num_layers} layers, "
+          f"{weights}) with continuous batching on "
           f"{engine.device} at {args.host}:{args.port} (paged, block "
           f"{args.kv_block_size}, max_batch {args.max_batch}, "
           f"kv={args.kv_cache_dtype}, tp={args.serve_tp}{tp}, params "

@@ -2,13 +2,33 @@
 training/train.py:pretrain_gpt and its loop, single-device part).
 
 Params are made on the device from the seed (or given, e.g. carried
-across from the JAX package by ``models/convert.py``) and made trainable;
-mock batches come from the seed when no iterator is given; each global
-batch is reshaped to [num_micro, micro_batch, S] and run through the
-train step; losses are kept at every log_interval, with step time,
-tokens/s and TFLOP/s. Checkpoints, evaluation, fault tolerance, the rerun
-machine and batch-size rampup raise in ``TrainingConfig``; FBD and
-pipelines are not options here (the entry point refuses their flags).
+across from the JAX package by ``models/convert.py``) and made trainable.
+The batch stream is the caller's iterator, else
+``batch_iter_factory(consumed)`` (an indexed corpus, pretrain_gpt.py
+--data-path), else mock batches from the seed, started at the consumed
+sample count. Each step takes the rampup schedule's global batch
+(training/num_microbatches_calculator.py) through ``_RowBuffer``,
+reshaped to [num_micro, micro_batch, S], and runs the train step; losses
+are kept at every log_interval, with step time, tokens/s and TFLOP/s,
+and go to the metrics sinks (--metrics-jsonl, --tensorboard-dir).
+
+As JAX's loop does on one device (train.py:350-453, :1027-1088):
+
+- restore: the fresher of the local (non-persistent) and the durable
+  checkpoint, a tie to the local one; the consumed-sample count from the
+  side state, else the rampup schedule replayed over the restored steps;
+- evaluation every eval_interval steps over eval_iters batches of the
+  caller's eval stream, else of mock batches from seed + 1 (also when
+  training reads a corpus, as JAX does);
+- durable saves every save_interval steps and at the end, non-persistent
+  saves every non_persistent_save_interval steps, and with
+  --exit-signal-handler an emergency save of both on SIGTERM, after which
+  the loop ends (``TrainResult.interrupted``); exit_interval ends the
+  loop after a multiple of it.
+
+The rerun machine, heartbeats, the straggler detector and the inspector
+raise in ``TrainingConfig``; FBD and pipelines are not options here (the
+entry point refuses their flags).
 
 MegaScan (train_cfg.trace): the tracer (trace/tracer.py) is configured on
 the trainer's device; iteration it is traced when it % trace_interval <
@@ -23,7 +43,9 @@ nothing. trace/aggregate.py merges the files into a Chrome trace.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -37,9 +59,20 @@ from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.data.mock import mock_batches
 from megatronapp_tpu_torch.models.gpt import gpt_loss, init_gpt_params
 from megatronapp_tpu_torch.trace.tracer import get_tracer
+from megatronapp_tpu_torch.training.checkpointing import (
+    CheckpointManager, LocalCheckpointManager, read_side_state,
+    write_side_state,
+)
+from megatronapp_tpu_torch.training.metrics import MetricsLogger
+from megatronapp_tpu_torch.training.num_microbatches_calculator import (
+    build_calculator,
+)
 from megatronapp_tpu_torch.training.optimizer import Optimizer
+from megatronapp_tpu_torch.training.train_state import (
+    TrainState, load_state_dict, state_dict,
+)
 from megatronapp_tpu_torch.training.train_step import (
-    TrainState, make_train_step, named_trainable, to_device_batch,
+    make_eval_step, make_train_step, named_trainable, to_device_batch,
 )
 from megatronapp_tpu_torch.utils.device import resolve_device
 from megatronapp_tpu_torch.utils.flops import flops_per_token
@@ -63,10 +96,81 @@ class TrainResult:
     losses: list                   # loss at every logged step
     tokens_per_sec: float          # of the last log window
     step_time_ms: float            # of the last log window
-    consumed_samples: int = 0
+    consumed_samples: int = 0      # the stream position, resume included
     # One entry per logged step: the step's metrics plus the window's
     # step_time_ms, tokens_per_sec and tflops.
     log: List[dict] = dataclasses.field(default_factory=list)
+    # A signal's emergency save ended the run (--exit-signal-handler).
+    interrupted: bool = False
+    # (iteration, mean loss) of every evaluation.
+    eval_losses: List[tuple] = dataclasses.field(default_factory=list)
+    # Checkpoint seconds (host clock): "restore" (read and copy in),
+    # "save" (each durable save call: the host copy and the write's
+    # start), "wait" (the end's wait for the last write).
+    checkpoint_s: Dict[str, object] = dataclasses.field(
+        default_factory=lambda: {"restore": None, "save": [], "wait": None})
+
+
+@contextlib.contextmanager
+def _signal_exit_context(train_cfg: TrainingConfig, log_fn):
+    """The graceful-exit handler for the loop (--exit-signal-handler).
+    Python installs signal handlers on the main thread only: elsewhere
+    the loop runs without one, with a log line."""
+    if not train_cfg.exit_signal_handler:
+        yield None
+        return
+    if threading.current_thread() is not threading.main_thread():
+        log_fn("signals: --exit-signal-handler requires the main "
+               "thread; running without a signal handler")
+        yield None
+        return
+    from megatronapp_tpu_torch.training.signals import DistSignalHandler
+    with DistSignalHandler.for_config(
+            sigint=train_cfg.exit_signal_handler_sigint) as handler:
+        yield handler
+
+
+class _CheckpointScribe:
+    """The loop's checkpoint moments in one place: interval durable,
+    interval local, emergency and final, each with the side state (the
+    exact stream position, _RowBuffer carry-over included)."""
+
+    def __init__(self, ckpt, local_ckpt, train_cfg: TrainingConfig,
+                 layout, log_fn):
+        self.ckpt = ckpt
+        self.local_ckpt = local_ckpt
+        self.cfg = train_cfg
+        self.layout = layout
+        self.log_fn = log_fn
+
+    def save_durable(self, step: int, state: TrainState, consumed: int,
+                     force: bool = False,
+                     skip_if_current: bool = False) -> None:
+        """Durable save + side state. skip_if_current: a step already
+        saved is left alone (an emergency save on a save-interval
+        step); the side state is rewritten either way."""
+        if self.ckpt is None:
+            return
+        if not (skip_if_current and self.ckpt.latest_step == step):
+            self.ckpt.save(step, state_dict(state), force=force,
+                           layout=self.layout)
+        write_side_state(self.cfg.save_dir, step,
+                         {"consumed": int(consumed)})
+
+    def save_local(self, step: int, state: TrainState, consumed: int,
+                   what: str = "local checkpoint") -> None:
+        """Best-effort local save, the side state inside: a failure warns
+        and the run goes on."""
+        if self.local_ckpt is None:
+            return
+        try:
+            self.local_ckpt.save(step, state_dict(state),
+                                 extra={"step": int(step),
+                                        "consumed": int(consumed)})
+        except Exception as e:  # noqa: BLE001 — best-effort path
+            self.log_fn(f"{what} save failed at step {step} "
+                        f"({type(e).__name__}: {e}); continuing — "
+                        "local checkpoints are best-effort")
 
 
 class _RowBuffer:
@@ -108,28 +212,122 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                  opt_cfg: OptimizerConfig, device=None,
                  batch_iter: Optional[Iterator[Dict[str, np.ndarray]]] = None,
                  log_fn: Callable[[str], None] = print,
-                 params: Optional[torch.nn.Module] = None) -> TrainResult:
+                 params: Optional[torch.nn.Module] = None,
+                 batch_iter_factory: Optional[Callable] = None,
+                 eval_batch_iter: Optional[
+                     Iterator[Dict[str, np.ndarray]]] = None
+                 ) -> TrainResult:
     """End-to-end GPT pretraining loop on one device (the card unless
     device="cpu"). params: initial weights on `device` (default: made
-    from train_cfg.seed); trained in place."""
+    from train_cfg.seed); trained in place, then overwritten by a
+    restored checkpoint. batch_iter_factory(consumed) -> batch stream,
+    used when batch_iter is None (resume-aware)."""
     device = resolve_device(device)
     num_micro = train_cfg.num_microbatches(1)
+    batch_calc = build_calculator(train_cfg.global_batch_size,
+                                  train_cfg.micro_batch_size, 1,
+                                  train_cfg.rampup_batch_size)
     optimizer = Optimizer(opt_cfg, train_cfg.train_iters)
     if params is None:
         gen = torch.Generator(device).manual_seed(train_cfg.seed)
         params = init_gpt_params(model_cfg, gen, device)
     params.requires_grad_(True)
     state = TrainState(params, optimizer.init(named_trainable(params)))
+
+    # Checkpoints: restore from load_dir (or save_dir when resuming the
+    # same run), save only to save_dir.
+    layout = {"pp": 1, "vpp": 1, "num_layers": model_cfg.num_layers}
+    ckpt = (CheckpointManager(train_cfg.save_dir,
+                              save_interval=train_cfg.save_interval)
+            if train_cfg.save_dir else None)
+    local_ckpt = None
+    if (train_cfg.non_persistent_save_interval
+            or train_cfg.non_persistent_ckpt_dir):
+        np_dir = train_cfg.resolved_non_persistent_dir()
+        if np_dir is None:
+            log_fn("local checkpoints disabled: pass "
+                   "--non-persistent-ckpt-dir or --save")
+        else:
+            local_ckpt = LocalCheckpointManager(np_dir)
+    restore_dir = train_cfg.load_dir or train_cfg.save_dir
+    loader = None
+    if restore_dir:
+        loader = (CheckpointManager(train_cfg.load_dir)
+                  if train_cfg.load_dir
+                  and train_cfg.load_dir != train_cfg.save_dir else ckpt)
+    # The fresher of (local, durable) wins, a tie to the local copy; a
+    # corrupt or stale local file falls to the durable path, and a
+    # corrupt durable step walks back to the previous one.
+    t_restore = time.perf_counter()
+    template = state_dict(state)
+    restored = side_state = None
+    local_step = local_ckpt.latest_step if local_ckpt is not None else None
+    durable_step = loader.latest_step if loader is not None else None
+    if local_step is not None and (durable_step is None
+                                   or local_step >= durable_step):
+        out = local_ckpt.restore(template)
+        if out is not None:
+            restored, side_state = out
+            log_fn(f"restoring from local checkpoint (step {local_step})")
+    if restored is None and loader is not None:
+        restored = loader.restore(template)
+        if restored is not None:
+            side_state = read_side_state(restore_dir,
+                                         int(restored["step"]))
+    start_step, restore_s = 0, None
+    if restored is not None:
+        load_state_dict(state, restored)
+        del restored
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t_restore
+        start_step = state.step
+        log_fn(f"resumed from checkpoint at step {start_step}")
+    if loader is not None and loader is not ckpt:
+        loader.close()
+    if side_state is not None and \
+            int(side_state.get("step", -1)) != start_step:
+        side_state = None    # a sidecar of another step: stale
+    # The side state's stream position when present; else replay the
+    # rampup schedule (consumed samples accumulate the actual sizes).
+    if side_state is not None and "consumed" in side_state:
+        consumed = int(side_state["consumed"])
+    else:
+        consumed = 0
+        for _ in range(start_step):
+            consumed += batch_calc.get(consumed)[0]
     if batch_iter is None:
-        batch_iter = mock_batches(train_cfg.seq_length, model_cfg.vocab_size,
-                                  train_cfg.global_batch_size,
-                                  seed=train_cfg.seed)
-    step_fn = make_train_step(gpt_microbatch_loss(model_cfg), optimizer,
+        if batch_iter_factory is not None:
+            batch_iter = batch_iter_factory(consumed)
+        else:
+            batch_iter = mock_batches(
+                train_cfg.seq_length, model_cfg.vocab_size,
+                train_cfg.global_batch_size, seed=train_cfg.seed,
+                start_idx=consumed)
+
+    loss_fn = gpt_microbatch_loss(model_cfg)
+    step_fn = make_train_step(loss_fn, optimizer,
                               check_nan=train_cfg.check_for_nan_in_loss)
+    eval_step_fn = None
+    if train_cfg.eval_interval:
+        # The caller's eval stream, else a distinct mock stream (seed +
+        # 1) — also when training reads a corpus (JAX train.py:486).
+        eval_step_fn = make_eval_step(loss_fn)
+        if eval_batch_iter is None:
+            eval_batch_iter = mock_batches(
+                train_cfg.seq_length, model_cfg.vocab_size,
+                train_cfg.global_batch_size, seed=train_cfg.seed + 1)
+    metrics_logger = MetricsLogger()
+    if train_cfg.metrics_jsonl:
+        metrics_logger.add_jsonl(train_cfg.metrics_jsonl)
+    if train_cfg.tensorboard_dir:
+        metrics_logger.add_tensorboard(train_cfg.tensorboard_dir,
+                                       warn=log_fn)
+    scribe = _CheckpointScribe(ckpt, local_ckpt, train_cfg, layout, log_fn)
     flops_tok = flops_per_token(model_cfg, train_cfg.seq_length)
     rows = _RowBuffer(batch_iter)
     result = TrainResult(state, [], 0.0, 0.0)
-    gbs = train_cfg.global_batch_size
+    result.checkpoint_s["restore"] = restore_s
     tracer = get_tracer()
     if train_cfg.trace:
         tracer.configure(
@@ -138,47 +336,123 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
             continuous_iterations=train_cfg.continuous_trace_iterations,
             granularity=train_cfg.trace_granularity, layout=_OneDevice(),
             device=device)
-    window_tokens, window_start, window_iter = 0, time.perf_counter(), 0
+    window_tokens, window_start = 0, time.perf_counter()
+    window_iter = start_step
     # The tracer is process-wide: whatever ends the loop, a traced run
     # leaves it disabled, so a later run in the process records nothing.
     try:
-        for it in range(train_cfg.train_iters):
-            tracer.iteration_begin(it)
-            batch = reshape_global_batch(rows.take(gbs), num_micro)
-            batch = to_device_batch({k: v for k, v in batch.items()
-                                     if k in _FIELDS}, device)
-            with tracer.scope("train-step"):
-                metrics = step_fn(state, batch)
-            if tracer.active:
-                tracer.iteration_end(it)
-                tracer.save()
-            result.consumed_samples += gbs
-            window_tokens += gbs * train_cfg.seq_length
-            if (it + 1) % train_cfg.log_interval and it + 1 != \
-                    train_cfg.train_iters:
-                continue
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            now = time.perf_counter()
-            dt = now - window_start
-            result.tokens_per_sec = window_tokens / dt
-            result.step_time_ms = dt / (it + 1 - window_iter) * 1e3
-            tflops = result.tokens_per_sec * flops_tok / 1e12
-            result.losses.append(metrics["loss"])
-            result.log.append({"iteration": it + 1, **metrics,
-                               "step_time_ms": result.step_time_ms,
-                               "tokens_per_sec": result.tokens_per_sec,
-                               "tflops": tflops})
-            log_fn(f"iter {it + 1:6d}/{train_cfg.train_iters} | "
-                   f"loss {metrics['loss']:.4f} | grad_norm "
-                   f"{metrics['grad_norm']:.3f} | lr {metrics['lr']:.2e} | "
-                   f"skipped {metrics['skipped']} | "
-                   f"{result.step_time_ms:.1f} ms/step | "
-                   f"{result.tokens_per_sec:,.0f} tok/s | "
-                   f"{tflops:.1f} TFLOP/s/dev")
-            window_tokens, window_start, window_iter = 0, now, it + 1
+        with _signal_exit_context(train_cfg, log_fn) as sig:
+            for it in range(start_step, train_cfg.train_iters):
+                tracer.iteration_begin(it)
+                # Rampup: exactly cur_gbs rows from the stream; leftovers
+                # carry over, so no sample is dropped.
+                cur_gbs, cur_micro = batch_calc.get(consumed)
+                batch = reshape_global_batch(rows.take(cur_gbs), cur_micro)
+                consumed += cur_gbs
+                batch = to_device_batch({k: v for k, v in batch.items()
+                                         if k in _FIELDS}, device)
+                with tracer.scope("train-step"):
+                    metrics = step_fn(state, batch)
+                if tracer.active:
+                    tracer.iteration_end(it)
+                    tracer.save()
+                window_tokens += cur_gbs * train_cfg.seq_length
+                if (it + 1) % train_cfg.log_interval == 0 or \
+                        it + 1 == train_cfg.train_iters:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    now = time.perf_counter()
+                    dt = now - window_start
+                    result.tokens_per_sec = window_tokens / dt
+                    result.step_time_ms = dt / (it + 1 - window_iter) * 1e3
+                    tflops = result.tokens_per_sec * flops_tok / 1e12
+                    result.losses.append(metrics["loss"])
+                    result.log.append({
+                        "iteration": it + 1, **metrics,
+                        "step_time_ms": result.step_time_ms,
+                        "tokens_per_sec": result.tokens_per_sec,
+                        "tflops": tflops})
+                    log_fn(f"iter {it + 1:6d}/{train_cfg.train_iters} | "
+                           f"loss {metrics['loss']:.4f} | grad_norm "
+                           f"{metrics['grad_norm']:.3f} | lr "
+                           f"{metrics['lr']:.2e} | skipped "
+                           f"{metrics['skipped']} | "
+                           f"{result.step_time_ms:.1f} ms/step | "
+                           f"{result.tokens_per_sec:,.0f} tok/s | "
+                           f"{tflops:.1f} TFLOP/s/dev")
+                    metrics_logger.log(it + 1, {
+                        **metrics, "tokens_per_sec": result.tokens_per_sec,
+                        "step_time_ms": result.step_time_ms,
+                        "tflops_per_device": tflops})
+                    window_tokens, window_start = 0, now
+                    window_iter = it + 1
+
+                if eval_step_fn is not None and \
+                        (it + 1) % train_cfg.eval_interval == 0:
+                    t_eval = time.perf_counter()
+                    totals = []
+                    for _ in range(train_cfg.eval_iters):
+                        eb = reshape_global_batch(next(eval_batch_iter),
+                                                  num_micro)
+                        totals.append(eval_step_fn(state, to_device_batch(
+                            {k: v for k, v in eb.items() if k in _FIELDS},
+                            device)))
+                    eval_loss = float(torch.stack(totals).mean())
+                    result.eval_losses.append((it + 1, eval_loss))
+                    # Eval time stays out of the next train window.
+                    window_start += time.perf_counter() - t_eval
+                    log_fn(f"eval @ iter {it + 1}: loss {eval_loss:.4f} "
+                           f"over {train_cfg.eval_iters} batches")
+
+                if ckpt is not None and train_cfg.save_interval and \
+                        (it + 1) % train_cfg.save_interval == 0:
+                    t_save = time.perf_counter()
+                    scribe.save_durable(it + 1, state, consumed)
+                    save_dt = time.perf_counter() - t_save
+                    result.checkpoint_s["save"].append(save_dt)
+                    window_start += save_dt
+
+                if local_ckpt is not None and \
+                        train_cfg.non_persistent_save_interval and \
+                        (it + 1) % train_cfg.non_persistent_save_interval \
+                        == 0:
+                    scribe.save_local(it + 1, state, consumed)
+
+                # Graceful signal exit: the step above finished; force-save
+                # the durable and local checkpoints with the side state and
+                # end the run.
+                if sig is not None and sig.should_exit():
+                    log_fn(f"signal: exit requested — emergency checkpoint "
+                           f"at iteration {it + 1}")
+                    t_save = time.perf_counter()
+                    scribe.save_durable(it + 1, state, consumed, force=True,
+                                        skip_if_current=True)
+                    scribe.save_local(it + 1, state, consumed,
+                                      what="local emergency")
+                    if ckpt is not None:
+                        ckpt.wait()       # durable before exit
+                    log_fn(f"signal: emergency save done in "
+                           f"{time.perf_counter() - t_save:.2f}s; exiting "
+                           "cleanly")
+                    result.interrupted = True
+                    break
+
+                if train_cfg.exit_interval and \
+                        (it + 1) % train_cfg.exit_interval == 0:
+                    break
+        if ckpt is not None:
+            if train_cfg.save_interval and ckpt.latest_step != state.step:
+                t_save = time.perf_counter()
+                scribe.save_durable(state.step, state, consumed, force=True)
+                result.checkpoint_s["save"].append(
+                    time.perf_counter() - t_save)
+            t_wait = time.perf_counter()
+            ckpt.wait()
+            result.checkpoint_s["wait"] = time.perf_counter() - t_wait
     finally:
         if train_cfg.trace:
             tracer.finalize()
             tracer.configure(enabled=False)
+        metrics_logger.close()
+    result.consumed_samples = consumed
     return result

@@ -1,6 +1,7 @@
 """The train step: microbatch gradient accumulation, then the optimizer
 update (the JAX package's training/train_step.py:make_train_step without
-the pipeline, fp8 and manual ZeRO-1 branches).
+the pipeline, fp8 and manual ZeRO-1 branches), and the forward-only eval
+step (make_eval_step).
 
 Per-microbatch gradients accumulate in fp32 in the params' ``.grad``
 (the params are fp32), then scale by 1/num_micro; the loss and metrics
@@ -21,7 +22,6 @@ record nothing outside a traced iteration.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Callable, Dict
 
@@ -29,14 +29,8 @@ import torch
 
 from megatronapp_tpu_torch.trace.tracer import get_tracer
 from megatronapp_tpu_torch.training.optimizer import Optimizer, global_norm
+from megatronapp_tpu_torch.training.train_state import TrainState
 from megatronapp_tpu_torch.utils.device import host_to
-
-
-@dataclasses.dataclass
-class TrainState:
-    params: torch.nn.Module
-    opt_state: dict
-    step: int = 0
 
 
 def named_trainable(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -109,6 +103,28 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         return out
 
     return step
+
+
+def make_eval_step(loss_fn: Callable):
+    """Forward-only loss (JAX train_step.py:297): the mean of the
+    microbatch losses under torch.no_grad(), on the device (a 0-d fp32
+    tensor; the caller reads it back).
+
+    Returns eval_step(state, batch), batch as for the train step."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        num_micro = next(iter(batch.values())).shape[0]
+        total = torch.zeros((), dtype=torch.float32,
+                            device=next(iter(batch.values())).device)
+        for i in range(num_micro):
+            loss, _ = loss_fn(state.params, {k: v[i]
+                                             for k, v in batch.items()})
+            total = total + loss.float()
+        return total / num_micro
+
+    return eval_step
 
 
 def to_device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Chaos fault-injection registry (the JAX package's utils/chaos.py, for
 the sites this package has).
 
-A small registry of NAMED fault-injection sites on the serving path.
+A small registry of NAMED fault-injection sites on the serving and
+checkpoint paths.
 Production code calls ``fire(site)`` at the injection point; tests
 ``arm()`` a site to make it raise a bounded number of times.
 
@@ -41,6 +42,12 @@ Sites:
                     its last verified length, audit() passes and the
                     retried round gives the stream a run without the
                     fault gives.
+- ``checkpoint-save``        a durable checkpoint write attempt fails
+                             (training/checkpointing.py CheckpointManager) —
+                             exercises the bounded retry with backoff.
+- ``local-checkpoint-save``  a non-persistent local save fails
+                             (LocalCheckpointManager.save) — the train loop
+                             warns and goes on (local saves are best-effort).
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import threading
 from typing import Dict, Optional
 
 SITES = ("stepper-step", "paged-evict", "paged-cow", "lora-load",
-         "spec-verify")
+         "spec-verify", "checkpoint-save", "local-checkpoint-save")
 
 
 class ChaosFault(RuntimeError):

@@ -1,7 +1,9 @@
 """The port stands apart from the JAX package and from the CPU.
 
 - importing every module of megatronapp_tpu_torch (and chip_smoke.py)
-  pulls in neither jax nor megatronapp_tpu;
+  pulls in neither jax nor megatronapp_tpu, and neither that, nor the
+  native data helpers, a corpus, a GPTDataset and a checkpointed
+  pretrain_gpt open or dlopen any file under megatronapp_tpu/;
 - entry points default to the card and raise where there is none (the
   MegaScan / MegaScope ones too: the static engine, traced pretrain_gpt,
   the training scope session);
@@ -63,7 +65,16 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.scope.tensor_tracer",
             "megatronapp_tpu_torch.scope.ws_server",
             "megatronapp_tpu_torch.scope.client",
-            "megatronapp_tpu_torch.tools.run_scope_server"} <= set(mods)
+            "megatronapp_tpu_torch.tools.run_scope_server",
+            "megatronapp_tpu_torch.data.indexed_dataset",
+            "megatronapp_tpu_torch.data.helpers",
+            "megatronapp_tpu_torch.data.blended",
+            "megatronapp_tpu_torch.training.checkpointing",
+            "megatronapp_tpu_torch.training.train_state",
+            "megatronapp_tpu_torch.training.num_microbatches_calculator",
+            "megatronapp_tpu_torch.training.metrics",
+            "megatronapp_tpu_torch.training.signals",
+            "megatronapp_tpu_torch.transformer.mtp"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -78,6 +89,62 @@ def test_importing_the_port_loads_no_jax():
                          text=True, timeout=120, cwd=REPO, env=env)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_the_port_opens_no_file_of_the_jax_package(tmp_path):
+    """Importing every module, building and running the native data
+    helpers, writing and reading a corpus and a GPTDataset, a checkpoint
+    round trip and a two-step pretrain_gpt on it: no file under
+    megatronapp_tpu/ is opened or dlopened (the JAX tree holds a built
+    libdata_helpers.so the port must never load)."""
+    code = (
+        "import importlib, os, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"jax_dir = os.path.join({REPO!r}, 'megatronapp_tpu') + os.sep\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen', 'os.listdir') and args:\n"
+        "        path = args[0]\n"
+        "        if isinstance(path, (str, bytes, os.PathLike)):\n"
+        "            path = os.path.abspath(os.fsdecode(path))\n"
+        "            if path.startswith(jax_dir):\n"
+        "                seen.append((event, path))\n"
+        "sys.addaudithook(hook)\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np, torch\n"
+        "from megatronapp_tpu_torch.data import helpers\n"
+        "from megatronapp_tpu_torch.data.gpt_dataset import GPTDataset\n"
+        "from megatronapp_tpu_torch.data.indexed_dataset import (\n"
+        "    IndexedDataset, IndexedDatasetWriter)\n"
+        "assert helpers.native_available()\n"
+        f"prefix = {str(tmp_path / 'c')!r}\n"
+        "with IndexedDatasetWriter(prefix, np.uint16) as w:\n"
+        "    for i in range(20):\n"
+        "        w.add_document(np.arange(5 + i) % 100)\n"
+        "ds = GPTDataset(IndexedDataset(prefix), 8, 30, seed=1)\n"
+        "from megatronapp_tpu_torch.config.training_config import (\n"
+        "    OptimizerConfig, TrainingConfig)\n"
+        "from megatronapp_tpu_torch.config.transformer_config import (\n"
+        "    TransformerConfig)\n"
+        "from megatronapp_tpu_torch.data.gpt_dataset import gpt_batches\n"
+        "from megatronapp_tpu_torch.training.train import pretrain_gpt\n"
+        "cfg = TransformerConfig(num_layers=1, hidden_size=32,\n"
+        "    num_attention_heads=2, vocab_size=128,\n"
+        "    max_position_embeddings=16, compute_dtype=torch.float32)\n"
+        f"tc = TrainingConfig(micro_batch_size=2, global_batch_size=2,\n"
+        f"    seq_length=8, train_iters=2, save_dir={str(tmp_path / 'k')!r},\n"
+        "    save_interval=1)\n"
+        "for _ in range(2):\n"
+        "    pretrain_gpt(cfg, tc, OptimizerConfig(), device='cpu',\n"
+        "        batch_iter_factory=lambda c: gpt_batches(ds, 2, c),\n"
+        "        log_fn=lambda s: None)\n"
+        "print('SEEN', seen)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "SEEN []" in out.stdout, out.stdout[-3000:]
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -161,12 +228,12 @@ def test_pretrain_gpt_entry_point_raises_without_a_card(monkeypatch):
     (["--engine", "mamba"], "not ported"),
     (["--engine", "dynamic"], "--paged-kv-cache"),
     (["--engine", "dynamic", "--lora-dir", "x"], "LoRA"),
-    (["--engine", "dynamic", "--paged-kv-cache", "--draft-load-dir", "x"],
-     "checkpoint loading"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--serve-disagg"],
+     "disaggregated serving"),
     (["--engine", "dynamic", "--paged-kv-cache", "--megakernel-vmem-budget",
       "1000"], "VMEM budget"),
-    (["--engine", "dynamic", "--paged-kv-cache", "--load-dir", "x"],
-     "checkpoint"),
+    (["--engine", "dynamic", "--paged-kv-cache", "--load-quantized", "x"],
+     "int8 checkpoints"),
 ])
 def test_serve_flags_outside_the_slice_exit(argv, msg, capsys):
     from megatronapp_tpu_torch import serve

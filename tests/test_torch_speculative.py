@@ -498,7 +498,7 @@ def test_serve_spec_flags_parse_with_jax_choices_and_defaults():
     (["--spec-method", "tree"], "invalid choice"),
     (["--spec-method", "draft"], "--spec-method draft needs --draft-model"),
     (["--spec-method", "draft", "--draft-model", "gpt2-125m",
-      "--draft-load-dir", "/x"], "checkpoint loading"),
+      "--load-quantized", "/x"], "int8 checkpoints"),
     (["--spec-method", "ngram", "--serve-tp", "2"], "Queue 1 item 1"),
 ])
 def test_serve_spec_flags_refused(argv, message, capsys):

@@ -339,7 +339,8 @@ def test_golden_gpt_tiny_dense():
 
 
 @pytest.mark.parametrize("field,value,flag", [
-    ("save_dir", "x", "--save"), ("eval_interval", 5, "--eval-interval"),
+    ("heartbeat_dir", "x", "--heartbeat-dir"),
+    ("log_straggler", True, "--log-straggler"),
     ("rerun_mode", "validate_results", "--rerun-mode")])
 def test_unported_training_fields_raise(field, value, flag):
     with pytest.raises(ValueError, match=flag):
@@ -376,8 +377,8 @@ def test_unported_optimizer_fields_raise():
 
 @pytest.mark.parametrize("argv,msg", [
     (["--tensor-model-parallel-size", "2"], "--tensor-model-parallel-size"),
-    (["--save", "/tmp/ckpt"], "--save"),
-    (["--data-path", "x"], "--data-path"),
+    (["--heartbeat-dir", "/tmp/hb"], "--heartbeat-dir"),
+    (["--rerun-mode", "disabled"], "--rerun-mode"),
 ])
 def test_entry_point_refuses_other_flags(argv, msg, capsys):
     from megatronapp_tpu_torch import pretrain_gpt
