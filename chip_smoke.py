@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase, all 32 llama3-8b layers
     python3 chip_smoke.py --layers 4 # the same with the served depth cut
+    python3 chip_smoke.py --phases train_tp  # the device phase and these
 
 Phases, each printing one JSON line:
 
@@ -87,6 +88,9 @@ Phases, each printing one JSON line:
             bidirectional), a ragged S, packed segments and head_fold;
             each forward and backward rerun on the same inputs repeats
             every bit.
+   train_tp_kernels: the same three kernels at one tp rank's shape of
+            train_tp (llama3-8b over tp 2: 16 q / 4 kv heads, B 1, S
+            4096, D 128, causal), with the same gates and reruns.
 5. train_reference: one train step (2 microbatches) of a 2-layer
             llama-shaped model on the card (bf16, kernels) against the
             CPU (fp32, plain versions) from the same weights.
@@ -218,6 +222,18 @@ Phases, each printing one JSON line:
             streams and last-position logits against the single-card
             engines, per-rank pool bytes, TTFT and interval (two ranks
             time-sharing one card: not tensor-parallel speed).
+   train_tp: data- and tensor-parallel pretraining: pretrain_gpt on 4
+            spawned ranks (dp 2 x tp 2, ZeRO-1) sharing cuda:0 over
+            gloo, llama3-8b at full width, 2 layers, S 4096, global batch
+            4, 3 steps, seeded mock data, after the same run on one rank
+            on the card (freed before the spawn): per-step loss and grad
+            norm within 1e-3 of one rank's, every rank's metrics equal,
+            each rank's flash launches (2 layers x 2 micro-batches x 3
+            steps) and collectives by kind and axis exactly the
+            reckoning's, peak memory and step wall (not parallel speed),
+            which gloo collectives take CUDA tensors, and one traced
+            iteration's collective events merged across ranks through
+            the dependency pass and detect's stage 2.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
@@ -5322,6 +5338,395 @@ def phase_train(state, layers: int):
           f"train: remat launches {remat} (full recomputes the forward)")
 
 
+# train_tp: llama3-8b at full width, TP_LAYERS deep, on TP_WORLD ranks
+# (dp 2 x tp 2) sharing cuda:0 over gloo, against one rank on the card.
+TP_LAYERS, TP_WORLD, TP_DEGREE = 2, 4, 2
+TP_SEQ, TP_GBS, TP_STEPS = 4096, 4, 3
+# The one-rank gates (PERF.md section 2): per-step loss and grad norm
+# relative to one rank's on the same weights and batches. The first chip
+# run met them with 3.0e-5 and 9.1e-5 (the bf16 partial products summed
+# in fp32 over tp, fp32 grads summed over dp in another order): tightened
+# from the card-vs-CPU gates of 1 % and 5 %.
+TP_LOSS_TOL, TP_NORM_TOL = 1e-3, 1e-3
+TRAIN_TP_TIMEOUT_S = 600    # train_tp's wait for a rank's report
+GLOO_PROBE = ("all_reduce", "all_reduce_max", "all_gather",
+              "all_gather_into_tensor", "reduce_scatter_tensor",
+              "broadcast")
+
+
+def phase_train_tp_kernels(state):
+    """The flash kernels at one tp rank's attention shape of train_tp:
+    llama3-8b's 32 q / 8 kv heads over tp 2, so 16 q / 4 kv heads a rank,
+    B 1, S 4096, D 128, causal; train_kernels' gates and bitwise reruns."""
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    before = dict(fa.launches)
+    q, k, v, g, seg = _flash_inputs(torch.Generator().manual_seed(4322),
+                                    dev, 1, TP_SEQ, 32 // TP_DEGREE,
+                                    8 // TP_DEGREE, 128)
+    res = _flash_case("tp_rank_llama3_8b_s4096", q, k, v, g, seg, True)
+    fa.launches.update(before)
+    emit({"phase": "train_tp_kernels", "shape": {
+        "b": 1, "s": TP_SEQ, "hq": 32 // TP_DEGREE, "hkv": 8 // TP_DEGREE,
+        "d": 128, "causal": True}, "tolerances": {
+        "fp32_out_over_row_rms": FLASH_OUT_TOL, "fp32_lse_abs": FLASH_LSE_TOL,
+        "fp32_grad_normwise_per_head": FLASH_GRAD_TOL,
+        "same_inputs_over_max_row_head_rms": FLASH_SAME_TOL},
+        "errors": "(max abs, max over scale, max normwise per head)", **res})
+
+
+def _gloo_cuda_probe(rank, world, dev):
+    """Which gloo collectives take CUDA tensors on this torch (each on a
+    probe group of its own, so a refusal leaves the grid's groups
+    whole)."""
+    import datetime
+
+    import torch.distributed as dist
+    out = {}
+    for kind in GLOO_PROBE:
+        pg = dist.new_group(list(range(world)),
+                            timeout=datetime.timedelta(seconds=60))
+        x = torch.full((world * 4,), float(rank + 1), device=dev)
+        want = float(sum(range(1, world + 1)))
+        try:
+            if kind == "all_reduce":
+                dist.all_reduce(x, group=pg)
+                ok = bool((x == want).all())
+            elif kind == "all_reduce_max":
+                dist.all_reduce(x, op=dist.ReduceOp.MAX, group=pg)
+                ok = bool((x == world).all())
+            elif kind == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x, group=pg)
+                ok = all(bool((p == i + 1).all())
+                         for i, p in enumerate(parts))
+            elif kind == "all_gather_into_tensor":
+                y = torch.empty(world * x.numel(), device=dev)
+                dist.all_gather_into_tensor(y, x, group=pg)
+                ok = bool((y.view(world, -1)[:, 0].cpu()
+                           == torch.arange(1., world + 1)).all())
+            elif kind == "reduce_scatter_tensor":
+                y = torch.empty(4, device=dev)
+                dist.reduce_scatter_tensor(y, x, group=pg)
+                ok = bool((y == want).all())
+            else:
+                dist.broadcast(x, src=0, group=pg)
+                ok = bool((x == 1.0).all())
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            out[kind] = "ok" if ok else "wrong result"
+        except Exception as e:  # noqa: BLE001 — the probe's answer
+            out[kind] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def _train_tp_rank(rank, init_method, plan, out_q):
+    """One rank of train_tp (a spawned process on cuda:0)."""
+    try:
+        rep = _train_tp_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _train_tp_one_rank(rank, init_method, plan, out_q):
+    """train_tp's yardstick: the same run on one rank, in a spawned
+    process on cuda:0, so that the parent keeps none of its memory."""
+    try:
+        from megatronapp_tpu_torch.training.train import pretrain_gpt
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg, train_cfg, opt_cfg = _train_tp_configs()
+        t0 = time.perf_counter()
+        res = pretrain_gpt(cfg, train_cfg, opt_cfg, device="cuda",
+                           log_fn=lambda s: None)
+        torch.cuda.synchronize()
+        rep = {"losses": [m["loss"] for m in res.log],
+               "grad_norms": [m["grad_norm"] for m in res.log],
+               "step_ms": [m["step_time_ms"] for m in res.log],
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "wall_s": time.perf_counter() - t0}
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _spawn_train_tp(target, world, init_method, plan):
+    """{rank: report} of `world` spawned processes running `target`;
+    every process is joined (or killed) before it returns. The ranks'
+    caching allocators use expandable segments: four of them share the
+    card, and segments pinned by one live block would add up."""
+    import multiprocessing
+    mp = multiprocessing.get_context("spawn")
+    q = mp.Queue()
+    procs = [mp.Process(target=target, args=(r, init_method, plan, q))
+             for r in range(world)]
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for pr in procs:
+            pr.start()
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    reps = {}
+    try:
+        for _ in procs:
+            rank, rep = q.get(timeout=TRAIN_TP_TIMEOUT_S)
+            reps[rank] = rep
+    except Exception as e:  # noqa: BLE001 — a rank died or hung
+        raise SmokeFailure(f"train_tp: a rank did not report ({e!r}); "
+                           f"reports from {sorted(reps)}") from e
+    finally:
+        for pr in procs:
+            pr.join(timeout=120)
+            if pr.is_alive():
+                pr.kill()
+                pr.join(timeout=30)
+    return reps
+
+
+def _train_tp_configs(trace_dir=None):
+    from megatronapp_tpu_torch.config.training_config import (
+        OptimizerConfig, TrainingConfig,
+    )
+    from megatronapp_tpu_torch.models.presets import llama3_8b
+    trace = {} if trace_dir is None else dict(
+        trace=True, trace_dir=trace_dir, trace_interval=TP_STEPS + 1,
+        continuous_trace_iterations=1)
+    return (llama3_8b(num_layers=TP_LAYERS),
+            TrainingConfig(micro_batch_size=1, global_batch_size=TP_GBS,
+                           seq_length=TP_SEQ, train_iters=TP_STEPS,
+                           log_interval=1, seed=1234, **trace),
+            OptimizerConfig())
+
+
+def _train_tp_rank_run(rank, init_method, plan):
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    cuda = dev.type == "cuda"
+    ctx = build_mesh(ParallelConfig(tensor_parallel=TP_DEGREE), rank=rank,
+                     init_method=init_method, device=dev,
+                     world_size=TP_WORLD, timeout_s=TP_TIMEOUT_S)
+    out = {"dp": ctx.dp, "tp": ctx.tp, "dp_rank": ctx.dp_rank,
+           "tp_rank": ctx.tp_rank,
+           "gloo_cuda": _gloo_cuda_probe(rank, TP_WORLD, dev)}
+    cfg, train_cfg, opt_cfg = _train_tp_configs(plan["trace_dir"])
+    lines = []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    # The main path: counts zeroed just before, read just after.
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    res = pretrain_gpt(cfg, train_cfg, opt_cfg, ctx=ctx,
+                       log_fn=lines.append)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update(
+        launches=dict(fa.launches),
+        traffic={k: dict(v) for k, v in collectives.traffic.items()},
+        losses=[m["loss"] for m in res.log],
+        grad_norms=[m["grad_norm"] for m in res.log],
+        step_ms=[m["step_time_ms"] for m in res.log],
+        wall_s=wall, peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                                     if cuda else None),
+        local_params=sum(p.numel()
+                         for p in res.state.params.parameters()),
+        padded=res.state.opt_state["mu"].numel() * ctx.dp,
+        log=lines)
+    del res
+    ctx.close()
+    return out
+
+
+def _tp_expected_traffic(rep, cfg):
+    """Each rank's collectives for TP_STEPS steps (PERF.md's reckoning):
+    a microbatch's forward runs 1 (embedding) + 2 L (attention and MLP
+    outputs) + 3 (the vocab-parallel CE) all-reduces over tp and one
+    over dp (the mask count); its backward 2 L + 1 (the head's input)
+    over tp; a step then one reduce-scatter and one all-gather over dp
+    (ZeRO-1) and one all-gather over the world (norm partials and loss
+    shares). Activation all-reduces move S x H fp32."""
+    micro = TP_GBS // rep["dp"]
+    big = TP_SEQ * cfg.hidden_size * 4
+    row = TP_SEQ * 4
+    per_micro_tp = 2 * (1 + 2 * TP_LAYERS) + 3
+    n_metrics = 2 + 1 + 2      # norm partials, loss, lm_loss, moe_aux
+    return {
+        "all_reduce/tp": {"calls": TP_STEPS * micro * per_micro_tp,
+                          "bytes": TP_STEPS * micro * (
+                              2 * (1 + 2 * TP_LAYERS) * big + 3 * row)},
+        "all_reduce/dp": {"calls": TP_STEPS * micro,
+                          "bytes": TP_STEPS * micro * 4},
+        "reduce_scatter/dp": {"calls": TP_STEPS,
+                              "bytes": TP_STEPS * rep["padded"] * 4
+                              // rep["dp"]},
+        "all_gather/dp": {"calls": TP_STEPS,
+                          "bytes": TP_STEPS * rep["padded"] * 4},
+        "all_gather/world": {"calls": TP_STEPS,
+                             "bytes": TP_STEPS * TP_WORLD * n_metrics * 4},
+    }
+
+
+def phase_train_tp(state):
+    """Data- and tensor-parallel pretraining (pretrain_gpt on a dp 2 x
+    tp 2 grid, ZeRO-1) of llama3-8b at full width, TP_LAYERS deep, S
+    4096, global batch 4 of micro-batches of 1, 3 steps, seeded mock
+    data: first the same run on one rank on the card, in a spawned
+    process of its own, then 4 spawned ranks sharing cuda:0 over gloo. Per-step loss
+    and grad norm against one rank's, each rank's flash launches (layers
+    x its micro-batches x steps) and collectives against the reckoning,
+    its peak memory and step wall (4 ranks on one card over gloo: not
+    parallel speed), which gloo collectives took CUDA tensors, and one
+    traced iteration merged across ranks through the dependency pass
+    and detect's stage 2."""
+    import gc
+    import shutil
+    import tempfile
+
+    from megatronapp_tpu_torch.trace.aggregate import aggregate_dir
+    from megatronapp_tpu_torch.trace.dependency import build_dependencies
+    from megatronapp_tpu_torch.trace.detect import detect_stage2
+
+    for key in list(state):
+        if key in ("model", "qmodel", "mla_model", "lora_cache",
+                   "lora_registry", "train_model"):
+            state.pop(key)
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, _, _ = _train_tp_configs()
+    one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None, None)[0]
+    check("error" not in one_rank, f"train_tp: the one-rank run failed: "
+          f"{one_rank.get('error')}")
+    free, _ = torch.cuda.mem_get_info()
+    parent = {"allocated": torch.cuda.memory_allocated(),
+              "reserved": torch.cuda.memory_reserved(), "card_free": free}
+    check(parent["allocated"] < 4 << 30, f"train_tp: the parent still "
+          f"holds {parent} bytes on the card before spawning the ranks")
+    tmp = tempfile.mkdtemp(prefix="train_tp_")
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    reps = _spawn_train_tp(_train_tp_rank, TP_WORLD,
+                           f"file://{os.path.join(tmp, 'store')}",
+                           {"trace_dir": trace_dir, "device": "cuda:0"})
+    spawn_wall = time.perf_counter() - t0
+    for rank, rep in reps.items():
+        check("error" not in rep, f"train_tp: rank {rank} failed (the "
+              f"parent's bytes on the card at the spawn: {parent}): "
+              f"{rep.get('error')}")
+    trace = aggregate_dir(trace_dir)
+    events = [e for e in trace["traceEvents"] if e["ph"] != "M"]
+    coll = [e for e in events if e["name"] in (
+        "all-reduce", "all-gather", "reduce-scatter")]
+    related = build_dependencies(events)
+    stage2 = {r: detect_stage2(events, related, r) for r in range(TP_WORLD)}
+    # Where rank 0's traced iteration went: its phase spans (ms) and its
+    # collectives' device time by kind and axis.
+    phases, comm = {}, {}
+    for e in events:
+        if e["ph"] == "X" and e["pid"] == 0:
+            phases[e["name"]] = phases.get(e["name"], 0.0) + e["dur"] / 1e3
+        elif e in coll and e["args"]["process"] == 0:
+            key = f"{e['name']}/{e['args']['axes']}"
+            comm[key] = comm.get(key, 0.0) + e["dur"] / 1e3
+    shutil.rmtree(tmp, ignore_errors=True)
+    r0 = reps[0]
+    rel = [{"loss": abs(a - b) / abs(b), "grad_norm": abs(c - d) / abs(d)}
+           for a, b, c, d in zip(r0["losses"], one_rank["losses"],
+                                 r0["grad_norms"], one_rank["grad_norms"])]
+    want_launch = TP_LAYERS * (TP_GBS // r0["dp"]) * TP_STEPS
+    ranks = {r: {k: rep[k] for k in (
+        "dp_rank", "tp_rank", "launches", "traffic", "peak_mem_bytes",
+        "step_ms", "wall_s", "local_params", "gloo_cuda")}
+        for r, rep in sorted(reps.items())}
+    groups = {tuple(e["args"]["group"]) for e in coll}
+    emit({"phase": "train_tp", "model": "llama3-8b", "layers": TP_LAYERS,
+          "full_width": True, "seq_length": TP_SEQ, "micro_batch_size": 1,
+          "global_batch_size": TP_GBS, "steps": TP_STEPS,
+          "grid": {"world": TP_WORLD, "dp": r0["dp"], "tp": r0["tp"],
+                   "zero1": True, "backend": "gloo", "device": "cuda:0"},
+          "note": "4 ranks on one card over gloo: not parallel speed",
+          "one_rank": one_rank, "losses": r0["losses"],
+          "grad_norms": r0["grad_norms"], "rel_err": rel,
+          "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_NORM_TOL},
+          "expected_launches_each": want_launch,
+          "expected_traffic": _tp_expected_traffic(r0, cfg),
+          "ranks": ranks, "spawn_wall_s": spawn_wall,
+          "parent_bytes_at_spawn": parent,
+          "trace": {"collective_events": len(coll),
+                    "groups": sorted(groups),
+                    "related_sets": len({frozenset(v)
+                                         for v in related.values()}),
+                    "stage2": stage2,
+                    "fields": sorted(coll[0]["args"]) if coll else [],
+                    "rank0_phase_ms": phases, "rank0_collective_ms": comm},
+          "log_rank0": r0["log"]})
+    for r, rep in reps.items():
+        check(rep["losses"] == r0["losses"]
+              and rep["grad_norms"] == r0["grad_norms"],
+              f"train_tp: rank {r}'s metrics differ from rank 0's")
+        check(rep["launches"] == dict.fromkeys(
+            ("fwd", "bwd_dq", "bwd_dkv"), want_launch),
+            f"train_tp: rank {r} launched {rep['launches']}; expected "
+            f"{want_launch} of each flash kernel (layers x micro x steps)")
+        want = _tp_expected_traffic(rep, cfg)
+        check(rep["traffic"] == want, f"train_tp: rank {r}'s collectives "
+              f"{rep['traffic']} are not the reckoning's {want}")
+    check(all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+          f"train_tp: non-finite metrics {r0['losses']} "
+          f"{r0['grad_norms']}")
+    for e in rel:
+        check(e["loss"] < TP_LOSS_TOL and e["grad_norm"] < TP_NORM_TOL,
+              f"train_tp: 4 ranks against one: relative errors {e}")
+    check(coll and all(
+        {"id", "group", "bytes", "axes", "bandwidth_gbps", "process",
+         "device", "iteration"} <= set(e["args"]) for e in coll),
+        "train_tp: the traced iteration has no collective events with the "
+        "contract's fields")
+    check(groups <= {(0, 1), (2, 3), (0, 2), (1, 3), (0, 1, 2, 3)},
+          f"train_tp: collective groups {groups} are not the grid's")
+    bad = _related_set_faults(events, coll, related)
+    check(not bad, f"train_tp: the dependency pass on the merged trace: "
+          f"{bad[:4]}")
+    check(all(isinstance(stage2.get(r), bool) for r in range(TP_WORLD)),
+          f"train_tp: detect's stage 2 gave {stage2}, not a verdict for "
+          f"each of the {TP_WORLD} ranks")
+
+
+def _related_set_faults(events, coll, related):
+    """What the dependency pass got wrong on a merged trace of a grid:
+    a collective event in no related set, or a set whose events do not
+    come one from each rank of their group."""
+    by_id = {e["args"]["id"]: e for e in events if "id" in e.get("args", {})}
+    faults = [f"{e['name']} id {e['args']['id']} of rank "
+              f"{e['args']['process']} matched nothing"
+              for e in coll if len(related.get(e["args"]["id"], ())) < 2]
+    for ids in {frozenset(v) for v in related.values()}:
+        evs = [by_id[i] for i in ids]
+        owners = sorted(e["args"]["process"] for e in evs)
+        if owners != sorted(evs[0]["args"]["group"]):
+            faults.append(f"{evs[0]['name']} set {sorted(ids)} from ranks "
+                          f"{owners}, group {evs[0]['args']['group']}")
+    return faults
+
+
 # trace_train: phases that must cover a traced train-step, and the share.
 TRACE_PHASES = ("forward", "loss", "backward", "allreduce", "optimizer")
 TRACE_COVER = 0.9
@@ -6722,6 +7127,9 @@ def main(argv=None) -> int:
                     help="llama3-8b depth for the train phase (full width; "
                          "full depth does not fit one card's 80 GB with "
                          "fp32 params, grads and Adam state)")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase names to run after the "
+                         "device phase (default: every phase)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6738,44 +7146,52 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state = {}
+    phases = [
+        ("device", lambda: phase_device(state)),
+        ("kernels", lambda: phase_kernels(state)),
+        ("reference", lambda: phase_reference(state)),
+        ("fused_kernels", lambda: phase_fused_kernels(state)),
+        ("fused_reference", lambda: phase_fused_reference(state)),
+        ("kv_quant_kernels", lambda: phase_kv_quant_kernels(state)),
+        ("fused_int8_kernels", lambda: phase_fused_int8_kernels(state)),
+        ("quant_reference", lambda: phase_quant_reference(state)),
+        ("lora_kernels", lambda: phase_lora_kernels(state)),
+        ("lora_reference", lambda: phase_lora_reference(state)),
+        ("mla_kernels", lambda: phase_mla_kernels(state)),
+        ("mla_reference", lambda: phase_mla_reference(state)),
+        ("spec_reference", lambda: phase_spec_reference(state)),
+        ("tp_kernels", lambda: phase_tp_kernels(state)),
+        ("train_kernels", lambda: phase_train_kernels(state)),
+        ("train_tp_kernels", lambda: phase_train_tp_kernels(state)),
+        ("train_reference", lambda: phase_train_reference(state)),
+        ("train", lambda: phase_train(state, args.train_layers)),
+        ("trace_train", lambda: phase_trace_train(state)),
+        ("scope_train", lambda: phase_scope_train(state)),
+        ("train_gpt2", lambda: phase_train_gpt2(state)),
+        ("data_train", lambda: phase_data_train(state)),
+        ("serve_load", lambda: phase_serve_load(state)),
+        ("train_mtp", lambda: phase_train_mtp(state)),
+        ("mtp_reference", lambda: phase_mtp_reference(state)),
+        ("scope_reference", lambda: phase_scope_reference(state)),
+        ("serve", lambda: phase_serve(state, args.layers)),
+        ("serve_static", lambda: phase_serve_static(state, args.layers)),
+        ("serve_fused", lambda: phase_serve_fused(state)),
+        ("serve_quant", lambda: phase_serve_quant(state)),
+        ("serve_lora", lambda: phase_serve_lora(state)),
+        ("serve_spec", lambda: phase_serve_spec(state, args.layers)),
+        ("serve_mtp", lambda: phase_serve_mtp(state)),
+        ("serve_mla", lambda: phase_serve_mla(state)),
+        ("profile", lambda: phase_profile(state)),
+        ("times", lambda: phase_times(state)),
+        ("tp_times", lambda: phase_tp_times(state)),
+        ("serve_tp", lambda: phase_serve_tp(state, args.layers)),
+        ("train_tp", lambda: phase_train_tp(state)),
+    ]
+    wanted = None if args.phases is None else set(args.phases.split(","))
     try:
-        phase_device(state)
-        phase_kernels(state)
-        phase_reference(state)
-        phase_fused_kernels(state)
-        phase_fused_reference(state)
-        phase_kv_quant_kernels(state)
-        phase_fused_int8_kernels(state)
-        phase_quant_reference(state)
-        phase_lora_kernels(state)
-        phase_lora_reference(state)
-        phase_mla_kernels(state)
-        phase_mla_reference(state)
-        phase_spec_reference(state)
-        phase_tp_kernels(state)
-        phase_train_kernels(state)
-        phase_train_reference(state)
-        phase_train(state, args.train_layers)
-        phase_trace_train(state)
-        phase_scope_train(state)
-        phase_train_gpt2(state)
-        phase_data_train(state)
-        phase_serve_load(state)
-        phase_train_mtp(state)
-        phase_mtp_reference(state)
-        phase_scope_reference(state)
-        phase_serve(state, args.layers)
-        phase_serve_static(state, args.layers)
-        phase_serve_fused(state)
-        phase_serve_quant(state)
-        phase_serve_lora(state)
-        phase_serve_spec(state, args.layers)
-        phase_serve_mtp(state)
-        phase_serve_mla(state)
-        phase_profile(state)
-        phase_times(state)
-        phase_tp_times(state)
-        phase_serve_tp(state, args.layers)
+        for name, run in phases:
+            if name == "device" or wanted is None or name in wanted:
+                run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

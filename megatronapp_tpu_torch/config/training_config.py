@@ -5,8 +5,10 @@ Fields that select machinery the port does not have yet raise when they
 are set away from their defaults, naming the flag: the rerun state
 machine (whose default, "validate_results", is therefore "disabled"
 here), heartbeats and their timeouts, the simulated fault, the straggler
-detector, the workload inspector and sharded init, and optimizer state
-dtypes other than fp32. Checkpoints (durable and non-persistent),
+detector, the workload inspector and sharded init, a master-params dtype
+other than fp32 and the manual ZeRO-1 update modes of --dist-opt-comm.
+The Adam moments may be stored in bf16 (exp_avg_dtype /
+exp_avg_sq_dtype). Checkpoints (durable and non-persistent),
 evaluation, exit_interval, the signal handler, batch-size rampup and the
 JSONL / TensorBoard metrics sinks are ported.
 """
@@ -17,6 +19,8 @@ import dataclasses
 from typing import Optional
 
 _FP32 = ("fp32", "float32")
+# The optimizer-state dtype names (training/optimizer.py STATE_DTYPES).
+_STATE_DTYPES = _FP32 + ("bf16", "bfloat16")
 # --trace-granularity's choices (the JAX parser's).
 _GRANULARITIES = ("full", "schedule", "collective")
 
@@ -49,15 +53,20 @@ class OptimizerConfig:
         for flag, val in (("--main-params-dtype", self.main_params_dtype),
                           ("--exp-avg-dtype", self.exp_avg_dtype),
                           ("--exp-avg-sq-dtype", self.exp_avg_sq_dtype)):
-            if str(val).lower() not in _FP32:
-                raise ValueError(f"{flag} {val}: only fp32 optimizer state "
-                                 "is ported (the ZeRO-1 low-precision "
-                                 "moments come with the parallel-training "
-                                 "slice)")
+            if str(val).lower() not in _STATE_DTYPES:
+                raise ValueError(f"{flag} expects one of "
+                                 f"{sorted(set(_STATE_DTYPES))}, got "
+                                 f"{val!r}")
+        if str(self.main_params_dtype).lower() not in _FP32:
+            raise ValueError(f"--main-params-dtype {self.main_params_dtype}"
+                             ": only fp32 params are ported (bf16 params "
+                             "with an fp32 master copy: ROADMAP.md Queue 1 "
+                             "item 3)")
         if self.dist_opt_comm != "gspmd":
             raise ValueError(f"--dist-opt-comm {self.dist_opt_comm}: the "
-                             "manual ZeRO-1 update is not ported (the "
-                             "parallel-training slice)")
+                             "manual ZeRO-1 update over parallel/overlap.py's "
+                             "ring is not ported (ROADMAP.md Queue 1 item 4, "
+                             "TP overlap)")
         if not self.grad_reduce_in_fp32:
             raise ValueError("--no-accumulate-allreduce-grads-in-fp32: "
                              "gradients accumulate in fp32 only")

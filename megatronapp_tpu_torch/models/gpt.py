@@ -1,6 +1,13 @@
 """GPT model (the JAX package's models/gpt.py): init, the embedding, the
 rope tables, the head, and the training forward and loss (with the MTP
-heads' auxiliary loss, transformer/mtp.py)."""
+heads' auxiliary loss, transformer/mtp.py).
+
+Under a rank grid (``ctx``, training) the params are this tp rank's
+shards (parallel/sharding.py): the word embedding is vocab-parallel (a
+masked local lookup, then a sum over tp), the output layer is
+column-parallel over the vocabulary, tied or untied, and the logits stay
+vocab-parallel into the cross entropy (ops/cross_entropy.py); the learned
+position embedding and the norms are replicated."""
 
 from __future__ import annotations
 
@@ -14,47 +21,70 @@ from typing import Optional
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatronapp_tpu_torch.ops.normalization import apply_norm
+from megatronapp_tpu_torch.parallel.collectives import (
+    copy_to_tp, reduce_from_tp,
+)
+from megatronapp_tpu_torch.parallel.sharding import shard_tree
 from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.block import (
-    block_forward, init_block_params,
+    block_forward, init_layer_params,
 )
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
 
 def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
-                    device) -> ParamTree:
+                    device, ctx=None) -> ParamTree:
     """Random weights made directly on `device` from `generator` (the
     generator must live on the same device). Leaves as in the JAX
     package: embedding.word [V, H] (+ embedding.pos), layers.i.*,
     final_ln_scale (+ final_ln_bias), output [H, V] when untied, and
-    mtp.d.* (the MTP depth modules) when cfg.mtp_num_layers."""
+    mtp.d.* (the MTP depth modules) when cfg.mtp_num_layers.
+
+    ctx: a training grid; each piece (the embedding, the output layer,
+    each layer) is drawn whole, in the one-device order, cut to this tp
+    rank's shards and dropped before the next piece is drawn. So any
+    dp × tp starts from the weights of one device, and the peak is one
+    piece."""
     std, dt = cfg.init_method_std, cfg.params_dtype
     h, v = cfg.hidden_size, cfg.vocab_size
     emb = {"word": normal((v, h), std, dt, generator, device)}
     if cfg.position_embedding == PositionEmbeddingKind.learned_absolute:
         emb["pos"] = normal((cfg.max_position_embeddings, h), std, dt,
                             generator, device)
+    emb = shard_tree(ParamTree(emb), ctx)
     top = {"final_ln_scale": torch.ones(h, dtype=dt, device=device)}
     if cfg.normalization == NormKind.layernorm:
         top["final_ln_bias"] = torch.zeros(h, dtype=dt, device=device)
     if cfg.untie_embeddings_and_output_weights:
         top["output"] = normal((h, v), std, dt, generator, device)
-    children = {"embedding": ParamTree(emb),
-                "layers": init_block_params(cfg, generator, device)}
+    top = dict(shard_tree(ParamTree(top), ctx).named_parameters())
+    layers = torch.nn.ModuleList(
+        shard_tree(init_layer_params(cfg, generator, device), ctx)
+        for _ in range(cfg.num_layers))
+    children = {"embedding": emb, "layers": layers}
     if cfg.mtp_num_layers:
         from megatronapp_tpu_torch.transformer.mtp import init_mtp_params
-        children["mtp"] = init_mtp_params(cfg, generator, device)
-    return ParamTree(top, **children)
+        children["mtp"] = shard_tree(
+            init_mtp_params(cfg, generator, device), ctx)
+    return ParamTree({k: t.detach() for k, t in top.items()}, **children)
 
 
 def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
               position_ids: Optional[torch.Tensor] = None,
-              position_offset: int = 0) -> torch.Tensor:
+              position_offset: int = 0, ctx=None) -> torch.Tensor:
     """tokens [B, S] at position_ids [B, S] (or [B, 1]; default 0..S-1),
     shifted by position_offset (a dense cache's append position) →
-    embeddings [B, S, H] in the compute dtype."""
+    embeddings [B, S, H] in the compute dtype. ctx (training under tp):
+    the vocab-parallel lookup (module docstring)."""
     emb = p["embedding"]
-    h = emb["word"][tokens.long()]
+    if ctx is not None and ctx.tp > 1:
+        word = emb["word"]
+        local = tokens.long() - ctx.tp_rank * word.shape[0]
+        mine = (local >= 0) & (local < word.shape[0])
+        h = word[torch.where(mine, local, 0)] * mine[..., None]
+        h = reduce_from_tp(h, ctx)
+    else:
+        h = emb["word"][tokens.long()]
     if "pos" in emb:
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
@@ -100,10 +130,13 @@ def gpt_rope_tables(cfg: TransformerConfig, seq_len: int, device=None,
     return cos, sin
 
 
-def gpt_head(p, h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """Final norm + vocab projection. h [..., S, H] → logits fp32."""
+def gpt_head(p, h: torch.Tensor, cfg: TransformerConfig,
+             ctx=None) -> torch.Tensor:
+    """Final norm + vocab projection. h [..., S, H] → logits fp32 (ctx
+    under tp: this rank's vocabulary columns)."""
     h = apply_norm(cfg.normalization, h, p["final_ln_scale"],
                    p.get("final_ln_bias"), cfg.layernorm_epsilon)
+    h = copy_to_tp(h, ctx)
     out_kernel = p["output"] if "output" in p else p["embedding"]["word"].T
     dt = cfg.compute_dtype
     logits = scope_capture("result", h.to(dt) @ out_kernel.to(dt))
@@ -129,24 +162,20 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
     [B, S]: packed sequences — positions restart per segment (for the
     learned embedding and the rope tables) and attention stays within a
     segment. return_hidden: also the main stack's output [B, S, H] (before
-    the final norm) and the rope tables (cos, sin), for the MTP heads. The
-    zigzag context-parallel layout comes with the parallel-training
-    slice."""
-    if ctx is not None:
-        raise NotImplementedError(
-            "context-parallel (zigzag) and tensor-parallel training "
-            "forwards are not ported yet (the parallel-training slice, "
-            "ROADMAP.md Queue 1): a serving ctx rides the engine's paged "
-            "steps (inference/dynamic_engine.py), not gpt_forward")
+    the final norm) and the rope tables (cos, sin), for the MTP heads.
+    ctx: the training grid (dp × tp; a serving ctx rides the engine's
+    paged steps, inference/dynamic_engine.py): the logits are then this
+    tp rank's vocabulary columns. The zigzag context-parallel layout is
+    not ported (ROADMAP.md Queue 1 item 4)."""
     positions = None
     if segment_ids is not None:
         positions = packed_position_ids(segment_ids)
-    h = gpt_embed(p, tokens, cfg, position_ids=positions)
+    h = gpt_embed(p, tokens, cfg, position_ids=positions, ctx=ctx)
     cos, sin = gpt_rope_tables(cfg, tokens.shape[1], tokens.device,
                                positions=positions)
     h, aux = block_forward(p["layers"], h, cfg, cos, sin, attention_mask,
-                           segment_ids=segment_ids)
-    logits = gpt_head(p, h, cfg)
+                           segment_ids=segment_ids, ctx=ctx)
+    logits = gpt_head(p, h, cfg, ctx)
     if return_hidden:
         return logits, aux, h, (cos, sin)
     return logits, aux
@@ -158,24 +187,31 @@ def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
     """Training loss (CE + MoE aux, + the scaled MTP loss when
     cfg.mtp_num_layers) → (loss, {"lm_loss", "moe_aux_loss"[,
     "mtp_loss"]}); mtp_loss is the unscaled mean over depths (JAX
-    gpt.py:239-275)."""
+    gpt.py:239-275). ctx: the training grid; the loss is then this dp
+    rank's share of the microbatch's token mean (ops/cross_entropy.py),
+    from vocab-parallel logits under tp."""
     if not cfg.mtp_num_layers:
         logits, aux = gpt_forward(p, tokens, cfg, segment_ids=segment_ids,
                                   ctx=ctx)
-        loss, _ = cross_entropy_loss(logits, targets, loss_mask)
+        loss, _ = cross_entropy_loss(logits, targets, loss_mask, ctx=ctx)
         return loss + aux, {"lm_loss": loss, "moe_aux_loss": aux}
     if segment_ids is not None:
         raise NotImplementedError(
             "multi token prediction + sequence packing is not "
             "supported (reference multi_token_prediction.py assert)")
+    if ctx is not None and ctx.tp > 1:
+        raise NotImplementedError(
+            "MTP depths under tensor parallelism are not ported yet "
+            "(ROADMAP.md Queue 1 item 4, MTP under tp); under dp alone they "
+            "run")
     from megatronapp_tpu_torch.transformer.mtp import mtp_loss
     logits, aux, hid, (cos, sin) = gpt_forward(p, tokens, cfg, ctx=ctx,
                                                return_hidden=True)
     scaled, mean, layer_aux = mtp_loss(
         p["mtp"], hid, lambda t: gpt_embed(p, t, cfg),
         lambda hh: gpt_head(p, hh, cfg), tokens, targets, loss_mask, cfg,
-        cos, sin)
+        cos, sin, ctx=ctx)
     aux = aux + layer_aux
-    loss, _ = cross_entropy_loss(logits, targets, loss_mask)
+    loss, _ = cross_entropy_loss(logits, targets, loss_mask, ctx=ctx)
     return loss + aux + scaled, {"lm_loss": loss, "moe_aux_loss": aux,
                                  "mtp_loss": mean}

@@ -1,18 +1,27 @@
-"""The tensor-parallel group: the port's counterpart of the JAX package's
+"""The rank grid: the port's counterpart of the JAX package's
 ``MeshContext`` / ``build_mesh`` (parallel/mesh.py).
 
-JAX runs one controller over a device mesh; the port runs one process per
-tp rank, joined by a ``torch.distributed`` process group. The group's
-backend is gloo: it carries CUDA tensors (staged through host memory by
-gloo itself) and CPU tensors alike, and unlike NCCL it takes several ranks
-on one card. Each rank names its own device; ``device=None`` means the
-card, and a host without one raises before the group is joined.
+JAX runs one controller over a device mesh with the axes pp, dp, ep, cp,
+tp (tp innermost); the port runs one process a rank, joined by
+``torch.distributed`` process groups, and takes the dp × tp part of that
+order: rank = dp_index · tp + tp_index. ``build_mesh`` joins the world
+group and builds one tp group per dp index and one dp group per tp index.
+The tp-only grid of tensor-parallel serving (``--serve-tp``) is the case
+dp = 1, whose tp group is the world.
+
+The backend is gloo: it carries CUDA tensors (staged through host memory
+by gloo itself) and CPU tensors alike, and unlike NCCL it takes several
+ranks on one card. So a grid on one card checks kernels, shards
+and collectives, never parallel speed. Each rank names its own device;
+``device=None`` means the card, and a host without one raises before a
+group is joined.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
@@ -20,15 +29,16 @@ import torch.distributed as dist
 from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
 from megatronapp_tpu_torch.utils.device import resolve_device
 
-# Every collective of the group fails after this long instead of hanging
+# Every collective of the groups fails after this long instead of hanging
 # (a rank that diverged from the others, or died).
 DEFAULT_TIMEOUT_S = 300.0
 
 
 @dataclasses.dataclass
 class MeshContext:
-    """One rank's view of the tp group: the process group, the tp degree,
-    this rank, and the device this rank computes on."""
+    """One rank's view of the grid: its tp group (``group``), the degrees,
+    its global rank, the device it computes on, and for training its dp
+    group and the world group (None where the axis has one rank)."""
 
     group: dist.ProcessGroup
     parallel: ParallelConfig
@@ -36,54 +46,119 @@ class MeshContext:
     device: torch.device
     backend: str
     timeout_s: float = DEFAULT_TIMEOUT_S
+    dp_group: Optional[dist.ProcessGroup] = None
+    world_group: Optional[dist.ProcessGroup] = None
 
     @property
     def tp(self) -> int:
         return self.parallel.tensor_parallel
 
     @property
+    def dp(self) -> int:
+        return self.parallel.data_parallel or 1
+
+    @property
+    def pp(self) -> int:
+        return 1
+
+    @property
+    def world(self) -> int:
+        return self.tp * self.dp
+
+    @property
     def num_devices(self) -> int:
-        return self.tp
+        return self.world
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_group(self):
+        return self.group
+
+    @property
+    def tp_ranks(self) -> List[int]:
+        """The global ranks of this rank's tp group, in tp order."""
+        base = self.dp_rank * self.tp
+        return list(range(base, base + self.tp))
+
+    @property
+    def dp_ranks(self) -> List[int]:
+        """The global ranks of this rank's dp group, in dp order."""
+        return list(range(self.tp_rank, self.world, self.tp))
 
     @property
     def is_lead(self) -> bool:
         """Rank 0 decides every host-side choice of a serving step and
-        broadcasts it (inference/dynamic_engine.py)."""
+        broadcasts it (inference/dynamic_engine.py), and alone logs,
+        writes metrics and checkpoints in training."""
         return self.rank == 0
 
     def shard(self, n: int) -> slice:
-        """This rank's contiguous share of n (heads or latent columns)."""
+        """This rank's contiguous tp share of n (heads, columns, rows)."""
         if n % self.tp:
             raise ValueError(f"{n} does not split over tp {self.tp}")
         k = n // self.tp
-        return slice(self.rank * k, (self.rank + 1) * k)
+        return slice(self.tp_rank * k, (self.tp_rank + 1) * k)
 
     def close(self):
-        """Leave the group (the process can then exit cleanly)."""
+        """Leave the groups (the process can then exit cleanly)."""
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
 def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
                device=None, backend: str = "gloo",
-               timeout_s: float = DEFAULT_TIMEOUT_S) -> MeshContext:
-    """Join the tp group of `parallel.tensor_parallel` ranks as `rank`.
-    init_method: where the ranks meet, ``tcp://localhost:<port>`` or
-    ``file://<path>`` (the tests use a FileStore path). device: this
-    rank's device (None: the card; raises without one)."""
+               timeout_s: float = DEFAULT_TIMEOUT_S,
+               world_size: Optional[int] = None) -> MeshContext:
+    """Join the grid as `rank` of `world_size` ranks (default: the tp
+    degree, the serving grid); dp = world_size / tp
+    (``infer_data_parallel``). init_method: where the ranks meet,
+    ``tcp://localhost:<port>``, ``env://`` (the launcher's MASTER_ADDR
+    and MASTER_PORT) or ``file://<path>`` (the tests use a FileStore
+    path). device: this rank's device (None: the card; raises without
+    one)."""
     dev = resolve_device(device)
     tp = parallel.tensor_parallel
-    if not 0 <= rank < tp:
-        raise ValueError(f"rank {rank} outside tp {tp}")
+    world = tp if world_size is None else world_size
+    dp = parallel.infer_data_parallel(world)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
     if backend != "gloo":
         raise NotImplementedError(
-            f"backend {backend!r}: the port's tp group runs over gloo (NCCL "
+            f"backend {backend!r}: the port's groups run over gloo (NCCL "
             "with one rank per card waits for a multi-card machine, "
-            "ROADMAP.md)")
+            "ROADMAP.md Queue 1 item 4)")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=tp,
-                            timeout=datetime.timedelta(seconds=timeout_s))
-    return MeshContext(group=dist.group.WORLD, parallel=parallel, rank=rank,
-                       device=dev, backend=backend, timeout_s=timeout_s)
+                            world_size=world, timeout=timeout)
+    world_group = dist.group.WORLD
+    tp_group = dp_group = None
+    # Every rank makes every subgroup, in one order (new_group is
+    # collective over the world).
+    for d in range(dp):
+        ranks = list(range(d * tp, (d + 1) * tp))
+        g = world_group if tp == world else (
+            dist.new_group(ranks, timeout=timeout) if tp > 1 else None)
+        if rank in ranks:
+            tp_group = g
+    for t in range(tp):
+        ranks = list(range(t, world, tp))
+        g = world_group if dp == world else (
+            dist.new_group(ranks, timeout=timeout) if dp > 1 else None)
+        if rank in ranks:
+            dp_group = g
+    if world == 1:
+        world_group = None
+    par = dataclasses.replace(parallel, data_parallel=dp)
+    return MeshContext(group=tp_group if tp > 1 else world_group,
+                       parallel=par, rank=rank, device=dev, backend=backend,
+                       timeout_s=timeout_s, dp_group=dp_group,
+                       world_group=world_group)

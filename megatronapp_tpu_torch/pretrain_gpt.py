@@ -1,5 +1,5 @@
-"""GPT pretraining entry point on one device (the JAX package's
-pretrain_gpt.py for the single-device path).
+"""GPT pretraining entry point, on one device or on a dp × tp rank grid
+(the JAX package's pretrain_gpt.py without pipelines).
 
     python -m megatronapp_tpu_torch.pretrain_gpt --preset llama3-8b \
         --num-layers 4 --seq-length 4096 --micro-batch-size 1 \
@@ -28,6 +28,21 @@ architecture flags stored with --load. Any other flag of the JAX parser
 (parallelism, the rerun machine, heartbeats, ...) exits with a message
 naming it.
 
+A rank grid is launched with PyTorch's launcher, one process a rank:
+
+    torchrun --nproc-per-node 4 -m megatronapp_tpu_torch.pretrain_gpt \
+        --preset llama3-8b --num-layers 2 --seq-length 4096 \
+        --micro-batch-size 1 --global-batch-size 4 \
+        --tensor-model-parallel-size 2 --use-distributed-optimizer \
+        --train-iters 3
+
+The rank count comes from the launcher's RANK, WORLD_SIZE, LOCAL_RANK and
+MASTER_ADDR / MASTER_PORT; dp = world / tp; rank r computes on cuda:
+(LOCAL_RANK % device count), or on the CPU with --device cpu. Without the
+launcher's environment the world is one rank. The ranks join over gloo,
+so several ranks may share one card: that checks kernels, shards and
+collectives, never parallel speed.
+
 MegaScan: --trace writes the traced iterations' phase spans (timed by
 CUDA events on the card) to --trace-dir; merge and analyse them with
 
@@ -45,6 +60,9 @@ from typing import List, Optional
 
 import torch
 
+from megatronapp_tpu_torch.config.parallel_config import (
+    UNPORTED_PARALLEL_FIELDS, ParallelConfig,
+)
 from megatronapp_tpu_torch.config.training_config import (
     OptimizerConfig, TrainingConfig,
 )
@@ -63,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     from megatronapp_tpu_torch.models.presets import PRESETS
     ap = argparse.ArgumentParser(
         prog="python -m megatronapp_tpu_torch.pretrain_gpt",
-        description="single-device GPT pretraining on the GPU "
+        description="GPT pretraining on the GPU, one device or a dp x tp "
+                    "rank grid "
                     "(hand-written flash-attention kernels)")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS))
     ap.add_argument("--device", default=None,
@@ -118,6 +137,25 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--bf16", action="store_true", default=True)
     g.add_argument("--fp32", action="store_true",
                    help="disable bf16 compute")
+    g = ap.add_argument_group("distributed")
+    g.add_argument("--tensor-model-parallel-size", type=int, default=1)
+    g.add_argument("--sequence-parallel", action="store_true",
+                   help="accepted; changes no number (as in JAX, no layer "
+                        "reads it)")
+    g.add_argument("--use-distributed-optimizer", action="store_true",
+                   default=True,
+                   help="ZeRO-1 (default on): Adam m/v sharded over dp, "
+                        "grads reduce-scattered, params all-gathered")
+    g.add_argument("--no-use-distributed-optimizer", action="store_false",
+                   dest="use_distributed_optimizer",
+                   help="replicate optimizer state on every dp rank")
+    g.add_argument("--exp-avg-dtype", default="fp32",
+                   help="storage dtype of Adam's first moment: fp32 | bf16 "
+                        "(update math fp32; requires "
+                        "--use-distributed-optimizer)")
+    g.add_argument("--exp-avg-sq-dtype", default="fp32",
+                   help="storage dtype of Adam's second moment: fp32 | "
+                        "bf16 (requires --use-distributed-optimizer)")
     g = ap.add_argument_group("optimizer")
     g.add_argument("--lr", type=float, default=3e-4)
     g.add_argument("--min-lr", type=float, default=3e-5)
@@ -178,6 +216,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 _ARGS_FILE = "resolved_args.json"
 
+# The JAX parser's flags of axes the port lacks → the ROADMAP.md item
+# that ports them: ParallelConfig's unported fields' flags, and TP
+# overlap's two.
+UNPORTED_FLAGS = {
+    **dict(UNPORTED_PARALLEL_FIELDS.values()),
+    "--tp-comm-overlap": "Queue 1 item 4 (TP overlap)",
+    "--dist-opt-comm": "Queue 1 item 4 (TP overlap)",
+}
+
 # Args --use-checkpoint-args must NOT resurrect from a stored run: the JAX
 # parser's set, and --device (where this invocation runs: a run rehearsed
 # with --device cpu resumes on the card unless asked otherwise).
@@ -189,13 +236,16 @@ _RUN_CONTROL_ARGS = frozenset({
 })
 
 
-def save_resolved_args(args, save_dir: str):
+def save_resolved_args(args, save_dir: str, layout: Optional[dict] = None):
     """The resolved flag namespace as resolved_args.json beside the
-    checkpoints (the JAX package's file and keys)."""
+    checkpoints (the JAX package's file and keys), with the grid it ran
+    on under "layout" (world, dp, tp, ZeRO-1)."""
     os.makedirs(save_dir, exist_ok=True)
     payload = {k: v for k, v in vars(args).items()
                if isinstance(v, (int, float, str, bool, list, tuple,
                                  type(None)))}
+    if layout is not None:
+        payload["layout"] = dict(layout)
     with open(os.path.join(save_dir, _ARGS_FILE), "w") as f:
         json.dump(payload, f, indent=1)
 
@@ -221,6 +271,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         # with this invocation.
         defaults = {k: v for k, v in stored.items()
                     if k not in _RUN_CONTROL_ARGS}
+        defaults.pop("layout", None)
         unknown = sorted(set(defaults) - {a.dest for a in ap._actions})
         if unknown:
             raise ValueError(f"unknown config keys: {unknown}")
@@ -228,9 +279,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args, rest = ap.parse_known_args(argv)
     if rest:
         flags = [a.split("=")[0] for a in rest if a.startswith("-")]
+        for f in flags:
+            if f in UNPORTED_FLAGS:
+                ap.error(f"{f}: not ported to megatronapp_tpu_torch yet "
+                         f"(ROADMAP.md {UNPORTED_FLAGS[f]})")
         ap.error(f"{', '.join(flags or rest)}: not ported to "
-                 "megatronapp_tpu_torch yet (the single-device trainer "
-                 "honours the flags in --help; see ROADMAP.md)")
+                 "megatronapp_tpu_torch yet (the trainer honours the flags "
+                 "in --help; see ROADMAP.md)")
+    if args.tensor_model_parallel_size < 1:
+        ap.error(f"--tensor-model-parallel-size must be >= 1, got "
+                 f"{args.tensor_model_parallel_size}")
+    low = [f for f, v in (("--exp-avg-dtype", args.exp_avg_dtype),
+                          ("--exp-avg-sq-dtype", args.exp_avg_sq_dtype))
+           if str(v).lower() not in ("fp32", "float32")]
+    if low and not args.use_distributed_optimizer:
+        ap.error(f"{'/'.join(low)} bf16 require --use-distributed-optimizer:"
+                 " low-precision moments are only supported on the ZeRO-1 "
+                 "state layout (the replicated chain stores fp32)")
     return args
 
 
@@ -320,8 +385,78 @@ def configs_from_args(args: argparse.Namespace):
         lr_warmup_iters=args.lr_warmup_iters,
         lr_decay_iters=args.lr_decay_iters, weight_decay=args.weight_decay,
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
-        adam_eps=args.adam_eps, clip_grad=args.clip_grad)
+        adam_eps=args.adam_eps, clip_grad=args.clip_grad,
+        exp_avg_dtype=args.exp_avg_dtype,
+        exp_avg_sq_dtype=args.exp_avg_sq_dtype)
     return model, training, optimizer
+
+
+def parallel_from_args(args: argparse.Namespace) -> ParallelConfig:
+    return ParallelConfig(
+        tensor_parallel=args.tensor_model_parallel_size,
+        sequence_parallel=args.sequence_parallel,
+        distributed_optimizer=args.use_distributed_optimizer)
+
+
+def launch_env(env=None) -> Optional[dict]:
+    """The launcher's rank, world size, local rank and meeting point
+    (torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT);
+    None without them (the world is then one rank)."""
+    env = os.environ if env is None else env
+    if "WORLD_SIZE" not in env or "RANK" not in env:
+        return None
+    return {"rank": int(env["RANK"]), "world_size": int(env["WORLD_SIZE"]),
+            "local_rank": int(env.get("LOCAL_RANK", env["RANK"])),
+            "init_method": (f"tcp://{env.get('MASTER_ADDR', 'localhost')}:"
+                            f"{env['MASTER_PORT']}"
+                            if "MASTER_PORT" in env else "env://")}
+
+
+def rank_device(device: Optional[str], local_rank: int):
+    """Rank `local_rank`'s device: cuda:(local_rank % device count), or
+    the CPU when device is "cpu" (raises without a card otherwise)."""
+    if device is not None and str(device).startswith("cpu"):
+        return torch.device("cpu")
+    from megatronapp_tpu_torch.utils.device import resolve_device
+    resolve_device(None)
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def build_grid(args: argparse.Namespace, rank: int, world_size: int,
+               init_method: str, local_rank: Optional[int] = None):
+    """This rank's MeshContext of the --tensor-model-parallel-size grid
+    over world_size ranks; None for one rank at tp 1 (the one-device
+    trainer)."""
+    parallel = parallel_from_args(args)
+    if world_size == 1 and parallel.tensor_parallel == 1:
+        return None
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    dev = rank_device(args.device, rank if local_rank is None
+                      else local_rank)
+    return build_mesh(parallel, rank=rank, init_method=init_method,
+                      device=dev, world_size=world_size)
+
+
+def train(args: argparse.Namespace, ctx=None):
+    """Train as the entry point does, as one rank of `ctx` (None: one
+    device); returns the TrainResult. Every rank of a grid calls it."""
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    model, training, optimizer = configs_from_args(args)
+    lead = ctx is None or ctx.is_lead
+    if args.save and lead:
+        layout = {"world": 1 if ctx is None else ctx.world,
+                  "dp": 1 if ctx is None else ctx.dp,
+                  "tp": 1 if ctx is None else ctx.tp,
+                  "zero1": bool(ctx is not None and ctx.dp > 1
+                                and args.use_distributed_optimizer)}
+        save_resolved_args(args, args.save, layout)
+    factory = make_batch_iter_factory(args, training, model)
+    result = pretrain_gpt(model, training, optimizer, device=args.device,
+                          batch_iter_factory=factory, ctx=ctx)
+    if result.losses and lead:
+        print(f"done: final loss {result.losses[-1]:.4f}, "
+              f"{result.tokens_per_sec:,.0f} tok/s")
+    return result
 
 
 def make_batch_iter_factory(args: argparse.Namespace,
@@ -349,18 +484,18 @@ def make_batch_iter_factory(args: argparse.Namespace,
 
 
 def main(argv: Optional[List[str]] = None):
-    from megatronapp_tpu_torch.training.train import pretrain_gpt
     args = parse_args(argv)
-    model, training, optimizer = configs_from_args(args)
-    if args.save:
-        save_resolved_args(args, args.save)
-    factory = make_batch_iter_factory(args, training, model)
-    result = pretrain_gpt(model, training, optimizer, device=args.device,
-                          batch_iter_factory=factory)
-    if result.losses:
-        print(f"done: final loss {result.losses[-1]:.4f}, "
-              f"{result.tokens_per_sec:,.0f} tok/s")
-    return result
+    env = launch_env()
+    world = 1 if env is None else env["world_size"]
+    ctx = build_grid(args, 0 if env is None else env["rank"], world,
+                     "tcp://localhost:0" if env is None
+                     else env["init_method"],
+                     None if env is None else env["local_rank"])
+    try:
+        return train(args, ctx)
+    finally:
+        if ctx is not None:
+            ctx.close()
 
 
 if __name__ == "__main__":

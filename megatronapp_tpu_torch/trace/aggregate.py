@@ -75,9 +75,9 @@ def aggregate_benchmark_data(per_process: Dict[int, List[dict]]
             rr = dict(r)
             rr["ts"] = r["ts"] + offsets[it]
             # Records carry their own pid (host records: the process
-            # index; profiler-derived collectives: process*1000+device,
-            # tracer.add_collective_records); fall back to the file's
-            # process id for legacy traces.
+            # index; collective events: 1000 * (rank + 1), the rank's
+            # device row); fall back to the file's process id for legacy
+            # traces.
             rr["pid"] = r.get("pid", pid)
             out.append(rr)
     out.sort(key=lambda r: (r["ts"], r["pid"]))
@@ -123,52 +123,9 @@ def transform_to_complete_events(records: List[dict]) -> List[dict]:
                 "args": {**r.get("args", {}),
                          "iteration": r.get("iteration", -1), "id": eid},
             })
-    out.sort(key=lambda r: (r["ts"], r["pid"]))
-    return out
-
-
-def transform_to_complete_events(records: List[dict]) -> List[dict]:
-    """B/E pairs → X (complete) events; i stays instant (reference
-    transform, aggregate.py:273)."""
-    out = []
-    # Keyed by (pid, tid, name): spans of different phases interleave
-    # (e.g. 'backward' opens while 'forward' of the next microbatch is
-    # pending), so pairing must match names, not just nesting order.
-    open_stacks: Dict[tuple, List[dict]] = defaultdict(list)
-    color_map: Dict[str, str] = {}
-    eid = 0
-    for r in records:
-        key = (r["pid"], r.get("tid", 0), r["name"])
-        if r["ph"] == "B":
-            open_stacks[key].append(r)
-        elif r["ph"] == "E":
-            if not open_stacks[key]:
-                continue
-            b = open_stacks[key].pop()
-            name = b["name"]
-            if name not in color_map:
-                color_map[name] = _COLORS[len(color_map) % len(_COLORS)]
-            eid += 1
-            out.append({
-                "name": name, "ph": "X", "ts": b["ts"],
-                "dur": max(r["ts"] - b["ts"], 0.001),
-                "pid": b["pid"], "tid": b.get("tid", 0),
-                "cname": color_map[name],
-                "args": {**b.get("args", {}),
-                         "iteration": b.get("iteration", -1),
-                         "id": eid},
-            })
-        elif r["ph"] == "i":
-            eid += 1
-            out.append({
-                "name": r["name"], "ph": "i", "ts": r["ts"],
-                "pid": r["pid"], "tid": r.get("tid", 0), "s": "t",
-                "args": {**r.get("args", {}),
-                         "iteration": r.get("iteration", -1), "id": eid},
-            })
         elif r["ph"] == "X":
-            # Pre-formed complete events (profiler-derived collectives,
-            # trace/profiler_collectives.py) pass through. Ids are ALWAYS
+            # Pre-formed complete events (the collective events of
+            # trace/tracer.py) pass through. Ids are ALWAYS
             # reassigned here: producer ids restart per capture window
             # and per process, so keeping them would collide with span
             # ids and with each other, corrupting every id-keyed lookup

@@ -22,11 +22,17 @@ that package's ``io_callback`` markers and custom-VJP span mirrors:
   i % interval < continuous_iterations.
 - Per-process files ``benchmark-data-*.json`` are appended by a saver
   thread; trace/aggregate.py merges them into one Chrome trace.
-- The granularity filter is the JAX tracer's. Every event a one-device
-  train step records is a schedule event, so 'schedule' and 'collective'
-  keep all of them; the filter drops events once collective spans are
-  recorded (their producers, the JAX tracer's ``set_attr`` and
-  ``phase_event``, come with them).
+- The granularity filter is the JAX tracer's: 'schedule' keeps the
+  phase spans, 'collective' adds the collective events, 'full' keeps
+  everything.
+- Collective events (``collective``, called by parallel/collectives.py
+  around each collective of a rank grid): one pre-formed X record per
+  call, on the rank's device timeline (pid 1000 · (rank + 1), as JAX's
+  trace/profiler_collectives.py ``collective_events`` places device
+  rows), with that function's args: id, group (global ranks), bytes,
+  axes ("tp" or "dp"), bandwidth_gbps, process, device, iteration.
+- A rank of a grid (``configure(rank=)``) writes its own file under
+  JAX's per-rank name; trace/aggregate.py merges the ranks.
 """
 
 from __future__ import annotations
@@ -81,14 +87,18 @@ class Tracer:
         self._lock = threading.Lock()
         self._save_lock = threading.Lock()
         self._saver_threads: List[threading.Thread] = []
+        self._next_id = 0
 
     # -- configuration ----------------------------------------------------
     def configure(self, enabled: bool = True, trace_dir: str = "trace",
                   interval: int = 5, continuous_iterations: int = 2,
-                  granularity: str = "full", layout=None, device=None):
+                  granularity: str = "full", layout=None, device=None,
+                  rank: int = 0):
         """layout: an object with dp, pp and tp (a mesh context) naming
         the per-process file as the JAX tracer does; device: the device
-        whose clock times the spans (CUDA events on a CUDA device)."""
+        whose clock times the spans (CUDA events on a CUDA device); rank:
+        this process's rank in its grid (its records' pid and its file's
+        process index)."""
         self.enabled = enabled
         self.trace_dir = trace_dir
         self.interval = max(interval, 1)
@@ -96,8 +106,10 @@ class Tracer:
         self.granularity = granularity
         self.layout = layout
         self.device = torch.device("cpu" if device is None else device)
+        self.process_index = rank
         self.active = False
         self._pending = []
+        self._next_id = 0
         if enabled:
             os.makedirs(trace_dir, exist_ok=True)
 
@@ -132,12 +144,21 @@ class Tracer:
         if self.device.type == "cuda":
             self._pending[-1]["ts"].synchronize()
             base = self._base
-            for rec in self._pending:
-                rec["ts"] = base.elapsed_time(rec["ts"]) * 1e3
+
+            def us(stamp):
+                return base.elapsed_time(stamp) * 1e3
         else:
             base = self._base
-            for rec in self._pending:
-                rec["ts"] = (rec["ts"] - base) / 1e3
+
+            def us(stamp):
+                return (stamp - base) / 1e3
+        for rec in self._pending:
+            rec["ts"] = us(rec["ts"])
+            if rec["ph"] == "X":
+                rec["dur"] = max(us(rec.pop("end")) - rec["ts"], 0.0)
+                gbps = (rec["args"]["bytes"] * 8e-3 / rec["dur"]
+                        if rec["dur"] > 0 else 0.0)
+                rec["args"]["bandwidth_gbps"] = round(gbps, 3)
         with self._lock:
             self._records.extend(self._pending)
         self._pending = []
@@ -167,6 +188,28 @@ class Tracer:
     def instant(self, name: str, **attrs):
         if self._on(name):
             self._emit(name, "i", self._stamp(), attrs)
+
+    @contextlib.contextmanager
+    def collective(self, name: str, *, group, bytes: int, axes: str):
+        """One X event for the collective run inside the block (see the
+        module docstring); nothing outside a traced iteration."""
+        if not self._on(name):
+            yield self
+            return
+        start = self._stamp()
+        try:
+            yield self
+        finally:
+            rank = self.process_index
+            self._pending.append({
+                "name": name, "ph": "X", "ts": start, "end": self._stamp(),
+                "pid": 1000 * (rank + 1), "tid": 0,
+                "iteration": self._iteration,
+                "args": {"id": self._next_id, "group": list(group),
+                         "bytes": int(bytes), "axes": axes,
+                         "process": rank, "device": rank,
+                         "iteration": self._iteration}})
+            self._next_id += 1
 
     # -- record handling -----------------------------------------------------
     def _emit(self, name: str, ph: str, stamp, args: Dict[str, Any]):

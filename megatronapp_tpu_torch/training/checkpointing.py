@@ -7,12 +7,16 @@ the run directory,
     <dir>/<step>/state.npz   an uncompressed .npz keyed by leaf path
                              (training/train_state.py: step, params/<name>,
                              opt_state/count, opt_state/<mu|nu>/<name>)
-    <dir>/<step>/meta.json   the step, the format version and each leaf's
-                             shape and dtype
+    <dir>/<step>/meta.json   the step, the format version, each leaf's
+                             shape and dtype, and the grid the step was
+                             written under ("written_under": dp, tp and
+                             ZeRO-1; absent on one device)
     <dir>/layout.json        the run's layout, written once
     <dir>/side_state_<step>.json  the loop's host bookkeeping
 
-bf16 leaves are stored as their uint16 bits, the dtype named in meta.json
+Every leaf is whole: a rank grid gathers its shards before rank 0 saves
+(training/distributed_optimizer.py), so a step resumes on any grid. bf16
+leaves are stored as their uint16 bits, the dtype named in meta.json
 (numpy has no bfloat16). A step is written into a temporary directory and
 renamed into place, so a step directory that exists is whole unless it
 was damaged later; a damaged one fails its read (the zip's CRC, a missing
@@ -168,10 +172,12 @@ class CheckpointManager:
             return json.load(f)
 
     def save(self, step: int, flat: Dict[str, object], force: bool = False,
-             layout: Optional[dict] = None) -> bool:
+             layout: Optional[dict] = None,
+             written_under: Optional[dict] = None) -> bool:
         """Save the flat state at `step` (skipped, returning False, off
         save_interval unless forced). The host copy is complete when this
-        returns; the write may still run (``wait``)."""
+        returns; the write may still run (``wait``). written_under: the
+        grid of the run, recorded in meta.json."""
         if not force and step % self.save_interval:
             return False
         self._prepare()
@@ -192,7 +198,7 @@ class CheckpointManager:
 
         def run():
             try:
-                self._write_with_retry(step, host)
+                self._write_with_retry(step, host, written_under)
             except BaseException as e:  # noqa: BLE001 — raised by wait()
                 self._error = e
 
@@ -202,7 +208,8 @@ class CheckpointManager:
         self._thread.start()
         return True
 
-    def _write_with_retry(self, step: int, host: HostState) -> None:
+    def _write_with_retry(self, step: int, host: HostState,
+                          written_under: Optional[dict] = None) -> None:
         """Bounded retry with backoff: a transient failure must not end a
         long run when the next attempt would succeed; a persistent one
         still raises after the last attempt."""
@@ -210,7 +217,7 @@ class CheckpointManager:
         for attempt in range(SAVE_RETRIES + 1):
             try:
                 chaos.fire("checkpoint-save")
-                self._write(step, host)
+                self._write(step, host, written_under)
                 return
             except Exception as e:  # noqa: BLE001 — retried, then raised
                 last_err = e
@@ -224,7 +231,8 @@ class CheckpointManager:
             time.sleep(delay)
         raise last_err
 
-    def _write(self, step: int, host: HostState) -> None:
+    def _write(self, step: int, host: HostState,
+               written_under: Optional[dict] = None) -> None:
         arrays, dtypes = host
         tmp = os.path.join(
             self.directory,
@@ -237,6 +245,8 @@ class CheckpointManager:
                     "leaves": {k: {"shape": list(a.shape),
                                    "dtype": dtypes[k]}
                                for k, a in arrays.items()}}
+            if written_under is not None:
+                meta["written_under"] = dict(written_under)
             with open(os.path.join(tmp, META_FILE), "w") as f:
                 json.dump(meta, f)
             final = self._step_dir(step)

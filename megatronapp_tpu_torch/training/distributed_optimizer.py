@@ -1,0 +1,284 @@
+"""The optimizer of a rank grid, with ZeRO-1: the port's counterpart of
+the JAX package's training/distributed_optimizer.py
+``DistributedOptimizer``.
+
+JAX keeps the same arithmetic as its replicated chain and lets the state
+layout carry the sharding: Adam's m and v are dp-sharded, grads reach the
+update dp-reduced and the updated params return by all-gather. The port
+does the same explicitly, on flat fp32 buffers (``FlatLayout``):
+
+- every trainable param of this rank (its tp shards,
+  parallel/sharding.py) lives in one flat buffer, and its ``.grad`` in
+  another: autograd accumulates the microbatches' gradients in place
+  there;
+- ``reduce_grads`` scales them by 1/num_micro, sums the grads of the
+  replicated leaves that only see their heads' share over tp
+  (``TP_PARTIAL_GRAD_LEAVES``), then sums over dp: a reduce-scatter under
+  ZeRO-1, which leaves this rank its 1/dp chunk, an all-reduce without;
+- ``norm_partials`` gives this rank's chunk's sums of squares, split
+  into the tp-sharded leaves (summed over every rank) and the rest
+  (counted once, from tp rank 0): the train step all-gathers them over
+  the world and sums them in rank order, so the model-wide norm has the
+  same bits with and without ZeRO-1;
+- ``step`` clips and applies ``Optimizer.update_leaf`` (the chain of
+  training/optimizer.py, leaf for leaf) to each leaf's slice of the
+  chunk, with m and v held for the chunk only; the updated chunk returns
+  to every dp rank by all-gather. Without ZeRO-1 every rank updates the
+  whole buffer with whole moments.
+
+exp_avg_dtype / exp_avg_sq_dtype bf16 store the moments in bf16 with the
+update math in fp32 (JAX ``resolve_state_dtype``). Params stay fp32 (a
+master copy for bf16 params is ROADMAP.md Queue 1 item 3).
+
+``full_state_dict`` / ``load_full_state_dict`` carry the state to and
+from the layout-independent form of the checkpoints: every leaf whole
+(params gathered over tp, moments over dp and tp) under the one-device
+leaf paths of training/train_state.py, so a checkpoint written on one
+grid resumes on another.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from megatronapp_tpu_torch.config.training_config import OptimizerConfig
+from megatronapp_tpu_torch.parallel import collectives
+from megatronapp_tpu_torch.parallel.sharding import (
+    TP_PARTIAL_GRAD_LEAVES, gather_leaf, leaf_name, segment_counts,
+    shard_leaf, tp_dim,
+)
+from megatronapp_tpu_torch.training.optimizer import Optimizer, decays
+
+
+class FlatLayout:
+    """Where each trainable param of this rank lives in the flat buffers:
+    the tp-sharded leaves first, then the tp-partial ones, then the
+    replicated ones (each group in name order), padded to a multiple of
+    dp. ``params``/``grads``: the flat buffers; each param's data is a
+    view of ``params``."""
+
+    def __init__(self, named_params: Dict[str, torch.Tensor], ctx):
+        def group(n):
+            if ctx.tp > 1 and tp_dim(n) is not None:
+                return 0
+            return 1 if leaf_name(n) in TP_PARTIAL_GRAD_LEAVES else 2
+
+        order = [n for _, _, n in sorted(
+            (group(n), i, n) for i, n in enumerate(named_params))]
+        self.slots: List[Tuple[str, int, int]] = []
+        off = 0
+        for n in order:
+            self.slots.append((n, off, off + named_params[n].numel()))
+            off += named_params[n].numel()
+        self.offsets = {n: (a, b) for n, a, b in self.slots}
+        self.numel = off
+        self.padded = -(-off // ctx.dp) * ctx.dp
+        ends = [sum(b - a for n, a, b in self.slots if group(n) <= g)
+                for g in (0, 1)]
+        # [0, sharded_end): tp-sharded; partial: summed over tp in
+        # reduce_grads; [sharded_end, numel): counted once in the norm.
+        self.sharded_end = ends[0]
+        self.partial = (ends[0], ends[1])
+        first = next(iter(named_params.values()))
+        self.params = torch.zeros(self.padded, dtype=torch.float32,
+                                  device=first.device)
+        self.grads = torch.zeros_like(self.params)
+        with torch.no_grad():
+            for n, a, b in self.slots:
+                p = named_params[n]
+                self.params[a:b].copy_(p.reshape(-1))
+                p.data = self.params[a:b].view(p.shape)
+        self.named = named_params
+        chunk = self.padded // ctx.dp
+        self.chunk = (ctx.dp_rank * chunk, (ctx.dp_rank + 1) * chunk)
+
+    def view(self, flat: torch.Tensor, name: str) -> torch.Tensor:
+        """Leaf `name`'s view of a whole flat buffer."""
+        a, b = self.offsets[name]
+        return flat[a:b].view(self.named[name].shape)
+
+
+class DistributedOptimizer(Optimizer):
+    """The chain of training/optimizer.py over a grid's flat buffers.
+    ZeRO-1 (the ctx's distributed_optimizer, at dp > 1): m and v for this
+    rank's dp chunk only. State: {"count": int, "mu": tensor, "nu":
+    tensor} (flat: the chunk's, or the whole buffer's)."""
+
+    def __init__(self, cfg: OptimizerConfig, train_iters: int, ctx):
+        super().__init__(cfg, train_iters)
+        self.ctx = ctx
+        self.zero1 = ctx.parallel.distributed_optimizer and ctx.dp > 1
+        self.layout: Optional[FlatLayout] = None
+        self._g: Optional[torch.Tensor] = None
+
+    # -- buffers -------------------------------------------------------------
+    def init(self, named_params: Dict[str, torch.Tensor]) -> dict:
+        bad = [n for n, p in named_params.items()
+               if p.dtype != torch.float32]
+        if bad:
+            raise ValueError(f"DistributedOptimizer: params {bad[:3]} are "
+                             "not fp32; bf16 params with an fp32 master "
+                             "copy are not ported (ROADMAP.md Queue 1 "
+                             "item 3)")
+        self.layout = lay = FlatLayout(named_params, self.ctx)
+        lo, hi = self.span
+        state = {"count": 0,
+                 "mu": torch.zeros(hi - lo, dtype=self.mu_dtype,
+                                   device=lay.params.device)}
+        if self.cfg.optimizer == "adam":
+            state["nu"] = torch.zeros(hi - lo, dtype=self.nu_dtype,
+                                      device=lay.params.device)
+        return state
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """The flat range this rank updates and keeps moments for."""
+        return self.layout.chunk if self.zero1 else (0, self.layout.padded)
+
+    def zero_grad(self) -> None:
+        """Point every param's .grad at its zeroed slice of the grad
+        buffer (autograd then accumulates in place)."""
+        lay = self.layout
+        lay.grads.zero_()
+        for n, a, b in lay.slots:
+            p = lay.named[n]
+            p.grad = lay.grads[a:b].view(p.shape)
+
+    def release_grads(self) -> None:
+        for p in self.layout.named.values():
+            p.grad = None
+        self._g = None
+
+    # -- the step's reductions ---------------------------------------------
+    def reduce_grads(self, inv: float) -> None:
+        """Scale by 1/num_micro, sum the tp-partial leaves over tp, then
+        sum over dp (reduce-scatter under ZeRO-1)."""
+        lay, ctx = self.layout, self.ctx
+        for n, a, b in lay.slots:
+            # Autograd accumulates into the preset views; a grad it
+            # placed elsewhere is copied in.
+            got = lay.named[n].grad
+            if got is not None and got.data_ptr() != \
+                    lay.grads[a:b].data_ptr():
+                lay.grads[a:b].copy_(got.reshape(-1))
+        g = lay.grads.mul_(inv)
+        a, b = lay.partial
+        if ctx.tp > 1 and b > a:
+            collectives.all_reduce(g[a:b], ctx, "tp")
+        if self.zero1:
+            self._g = collectives.reduce_scatter(g, ctx, "dp")
+        else:
+            self._g = collectives.all_reduce(g, ctx, "dp")
+
+    def norm_partials(self) -> torch.Tensor:
+        """[sum of squares over this rank's dp chunk's tp-sharded
+        elements, over its other elements] (fp32, on the device)."""
+        lay = self.layout
+        lo, hi = lay.chunk
+        chunk = self._g if self.zero1 else self._g[lo:hi]
+        cut = min(max(lay.sharded_end - lo, 0), hi - lo)
+        return torch.stack([chunk[:cut].square().sum(),
+                            chunk[cut:].square().sum()])
+
+    @torch.no_grad()
+    def step(self, state: dict, grad_norm: Tuple[float, torch.Tensor]
+             ) -> None:
+        """The update of this rank's span (see the module docstring);
+        ZeRO-1 then all-gathers the updated params over dp."""
+        cfg, lay = self.cfg, self.layout
+        norm_host, norm_dev = grad_norm
+        lo, hi = self.span
+        g = self._g if self.zero1 else self._g[lo:hi]
+        if cfg.clip_grad and not norm_host < cfg.clip_grad:
+            g.div_(norm_dev).mul_(cfg.clip_grad)
+        count = state["count"]
+        lr, bc1, bc2 = self.scalars(count)
+        p = lay.params[lo:hi]
+        mu, nu = state["mu"], state.get("nu")
+        for n, a, b in lay.slots:
+            s, e = max(a, lo) - lo, min(b, hi) - lo
+            if s >= e:
+                continue
+            self.update_leaf(decays(n, lay.named[n]), p[s:e], g[s:e],
+                             mu[s:e], None if nu is None else nu[s:e], lr,
+                             bc1, bc2)
+        if self.zero1:
+            collectives.all_gather_into(lay.params, p.clone(), self.ctx,
+                                        "dp")
+        state["count"] = count + 1
+
+    # -- the layout-independent state ----------------------------------------
+    def _full_moment(self, flat: torch.Tensor) -> torch.Tensor:
+        """A moment over the whole flat buffer (gathered over dp under
+        ZeRO-1)."""
+        if not self.zero1:
+            return flat
+        full = torch.empty(self.layout.padded, dtype=flat.dtype,
+                           device=flat.device)
+        return collectives.all_gather_into(full, flat, self.ctx, "dp")
+
+    def full_state_dict(self, state) -> Optional[Dict[str, object]]:
+        """The train state with every leaf whole, as CPU tensors, under the
+        one-device leaf paths, on rank 0 (None on the others). Collective:
+        every rank calls it."""
+        lay, lead = self.layout, self.ctx.is_lead
+        out: Dict[str, object] = {"step": int(state.step)}
+        segs = segment_counts(lay.named)
+        for n, p in lay.named.items():
+            full = gather_leaf(p.detach(), n, segs[n], self.ctx)
+            if lead:
+                out[f"params/{n}"] = full.to("cpu", copy=True)
+        for key, flat in state.opt_state.items():
+            if not isinstance(flat, torch.Tensor):
+                out[f"opt_state/{key}"] = int(flat)
+                continue
+            whole = self._full_moment(flat)
+            for n in lay.named:
+                full = gather_leaf(lay.view(whole, n).contiguous(), n,
+                                   segs[n], self.ctx)
+                if lead:
+                    out[f"opt_state/{key}/{n}"] = full.to("cpu", copy=True)
+            del whole
+        return out if lead else None
+
+    @torch.no_grad()
+    def load_full_state_dict(self, state, flat: Dict[str, object]) -> None:
+        """Copy a layout-independent state (every leaf whole) into this
+        rank's shards in place. Raises when the leaf paths or a shard's
+        shape differ from the state's."""
+        lay, ctx = self.layout, self.ctx
+        want = {"step"} | {f"params/{n}" for n in lay.named}
+        for key, v in state.opt_state.items():
+            want |= ({f"opt_state/{key}/{n}" for n in lay.named}
+                     if isinstance(v, torch.Tensor) else {f"opt_state/{key}"})
+        if set(flat) != want:
+            raise ValueError(
+                f"train state structure differs: missing "
+                f"{sorted(want - set(flat))[:4]}, unexpected "
+                f"{sorted(set(flat) - want)[:4]}")
+        segs = segment_counts(lay.named)
+
+        def local(key, name):
+            t = shard_leaf(flat[key], tp_dim(name) if ctx.tp > 1 else None,
+                           segs[name], ctx.tp, ctx.tp_rank)
+            shape = lay.named[name].shape
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{key}: checkpoint shard "
+                                 f"{tuple(t.shape)}, state {tuple(shape)}")
+            return t
+
+        for n in lay.named:
+            lay.named[n].copy_(local(f"params/{n}", n))
+        lo, hi = self.span
+        for key, v in state.opt_state.items():
+            if not isinstance(v, torch.Tensor):
+                state.opt_state[key] = int(flat[f"opt_state/{key}"])
+                continue
+            whole = torch.zeros(lay.padded, dtype=v.dtype, device=v.device)
+            for n in lay.named:
+                lay.view(whole, n).copy_(local(f"opt_state/{key}/{n}", n))
+            v.copy_(whole[lo:hi])
+        state.step = int(flat["step"])
+

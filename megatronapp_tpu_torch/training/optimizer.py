@@ -16,7 +16,12 @@ fp32 as jnp does; the updates are in place on fp32 leaves.
 
 At dp = 1 the JAX trainer builds the ZeRO-1 wrapper
 (training/distributed_optimizer.py), whose arithmetic is this same chain
-leaf for leaf; its sharded layout comes with the parallel-training slice.
+leaf for leaf, so this class takes its moment dtypes: exp_avg_dtype /
+exp_avg_sq_dtype bf16 store the moments in bf16 with the update math in
+fp32 (the moment's decay term rounds in bf16 first, as JAX's weakly typed
+``b1 * mu`` does). The port's ZeRO-1 (training/distributed_optimizer.py)
+runs this class's leaf update on its dp shard of the grid's flat
+buffers, with the model-wide norm of a sharded layout.
 """
 
 from __future__ import annotations
@@ -31,6 +36,20 @@ from megatronapp_tpu_torch.config.training_config import OptimizerConfig
 
 _NO_DECAY_SUFFIXES = ("_bias", "_scale")
 _NO_DECAY_NAMES = frozenset({"A_log", "D"})
+
+STATE_DTYPES = {"fp32": torch.float32, "float32": torch.float32,
+                "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+def resolve_state_dtype(name: str) -> torch.dtype:
+    """'fp32'/'float32'/'bf16'/'bfloat16' → torch dtype (JAX
+    distributed_optimizer.py resolve_state_dtype)."""
+    try:
+        return STATE_DTYPES[str(name).lower()]
+    except KeyError:
+        raise ValueError(
+            f"unknown optimizer-state dtype {name!r}; expected one of "
+            f"{sorted(set(STATE_DTYPES))}") from None
 
 
 def lr_schedule(cfg: OptimizerConfig, train_iters: int):
@@ -69,7 +88,10 @@ def decays(name: str, param: torch.Tensor) -> bool:
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, fp32, on the device."""
+    """sqrt of the sum of squares of every leaf, fp32, on the device (one
+    device; a grid's model-wide norm, its sharded leaves' squares summed
+    over tp and its replicated leaves counted once, is
+    training/distributed_optimizer.py's)."""
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
@@ -82,15 +104,56 @@ class Optimizer:
     def __init__(self, cfg: OptimizerConfig, train_iters: int):
         self.cfg = cfg
         self.sched = lr_schedule(cfg, train_iters)
+        self.mu_dtype = resolve_state_dtype(cfg.exp_avg_dtype)
+        self.nu_dtype = resolve_state_dtype(cfg.exp_avg_sq_dtype)
 
     def init(self, named_params: Dict[str, torch.Tensor]) -> dict:
         state = {"count": 0,
-                 "mu": {n: torch.zeros_like(p) for n, p in
-                        named_params.items()}}
+                 "mu": {n: torch.zeros_like(p, dtype=self.mu_dtype)
+                        for n, p in named_params.items()}}
         if self.cfg.optimizer == "adam":
-            state["nu"] = {n: torch.zeros_like(p)
+            state["nu"] = {n: torch.zeros_like(p, dtype=self.nu_dtype)
                            for n, p in named_params.items()}
         return state
+
+    def scalars(self, count: int) -> Tuple[float, float, float]:
+        """(lr, bias correction 1, bias correction 2) of the update at
+        `count` (fp32, as jnp computes them)."""
+        f, cfg = np.float32, self.cfg
+        bc1 = float(f(1) - f(cfg.adam_beta1) ** f(count + 1))
+        bc2 = float(f(1) - f(cfg.adam_beta2) ** f(count + 1))
+        return float(self.sched(count)), bc1, bc2
+
+    def update_leaf(self, decay: bool, p, g, mu, nu, lr: float, bc1: float,
+                    bc2: float) -> None:
+        """One leaf's (or one slice's) update in place: p, its moment(s)
+        and g (consumed)."""
+        cfg = self.cfg
+        if cfg.optimizer != "adam":
+            if mu.dtype == torch.float32:
+                mu.mul_(cfg.sgd_momentum).add_(g)
+                p.add_(mu, alpha=-lr)
+            else:
+                t = (mu * cfg.sgd_momentum).float().add_(g)
+                mu.copy_(t)
+                p.add_(t, alpha=-lr)
+            return
+        b1, b2 = cfg.adam_beta1, cfg.adam_beta2
+        if mu.dtype == torch.float32:
+            m = mu.mul_(b1).add_(g, alpha=1 - b1)
+        else:
+            m = (mu * b1).float().add_(g, alpha=1 - b1)
+            mu.copy_(m)
+        if nu.dtype == torch.float32:
+            v = nu.mul_(b2).add_(g.square_(), alpha=1 - b2)
+        else:
+            v = (nu * b2).float().add_(g.square_(), alpha=1 - b2)
+            nu.copy_(v)
+        u = torch.div(m, bc1)
+        u.div_(torch.div(v, bc2).sqrt_().add_(cfg.adam_eps))
+        if cfg.weight_decay and decay:
+            u.add_(p, alpha=cfg.weight_decay)
+        p.add_(u.mul_(-lr))
 
     @torch.no_grad()
     def update(self, named_params: Dict[str, torch.Tensor],
@@ -99,29 +162,15 @@ class Optimizer:
         """Apply one update in place (params, state and the grads, which
         it consumes). grad_norm: (host value, device fp32 scalar) of the
         grads' global norm."""
-        cfg, f = self.cfg, np.float32
+        cfg = self.cfg
         norm_host, norm_dev = grad_norm
         count = state["count"]
-        lr = float(self.sched(count))
         if cfg.clip_grad and not norm_host < cfg.clip_grad:
             for g in grads.values():
                 g.div_(norm_dev).mul_(cfg.clip_grad)
-        if cfg.optimizer == "adam":
-            b1, b2 = cfg.adam_beta1, cfg.adam_beta2
-            bc1 = float(f(1) - f(b1) ** f(count + 1))
-            bc2 = float(f(1) - f(b2) ** f(count + 1))
-            for name, p in named_params.items():
-                g, mu, nu = grads[name], state["mu"][name], state["nu"][name]
-                mu.mul_(b1).add_(g, alpha=1 - b1)
-                nu.mul_(b2).add_(g.square_(), alpha=1 - b2)
-                u = torch.div(mu, bc1)
-                u.div_(torch.div(nu, bc2).sqrt_().add_(cfg.adam_eps))
-                if cfg.weight_decay and decays(name, p):
-                    u.add_(p, alpha=cfg.weight_decay)
-                p.add_(u.mul_(-lr))
-        else:
-            for name, p in named_params.items():
-                trace = state["mu"][name]
-                trace.mul_(cfg.sgd_momentum).add_(grads[name])
-                p.add_(trace, alpha=-lr)
+        lr, bc1, bc2 = self.scalars(count)
+        nu = state.get("nu", {})
+        for name, p in named_params.items():
+            self.update_leaf(decays(name, p), p, grads[name],
+                             state["mu"][name], nu.get(name), lr, bc1, bc2)
         state["count"] = count + 1

@@ -1,15 +1,14 @@
-"""Signal-based graceful exit (the JAX package's training/signals.py, for
-one process).
+"""Signal-based graceful exit (the JAX package's training/signals.py).
 
 ``--exit-signal-handler`` installs a SIGTERM (optionally SIGINT) handler
 that sets a flag; the train loop checks it after each step, finishes the
 step, force-saves an emergency checkpoint and exits cleanly.
 
 ``any_process_flag`` is the go/no-go primitive behind every collective
-decision (graceful exit, checkpoint save retry, restore walk-back). The
-port's trainer runs on one device in one process, so the agreed flag is
-the local one; the all-gather of the multi-process JAX trainer comes with
-the parallel-training slice.
+decision (graceful exit, checkpoint save retry, restore walk-back): on a
+rank grid (``ctx``) a max all-reduce of the flags over the world group,
+so a SIGTERM that reaches one rank stops every rank after the same step;
+on one process, the local flag.
 """
 
 from __future__ import annotations
@@ -19,26 +18,35 @@ import threading
 from typing import Iterable
 
 
-def any_process_flag(local: bool) -> bool:
-    """True when any process's flag is set: on one process, `local`."""
-    return bool(local)
+def any_process_flag(local: bool, ctx=None) -> bool:
+    """True when any rank's flag is set (ctx: the grid; None: this
+    process alone)."""
+    if ctx is None or ctx.world == 1:
+        return bool(local)
+    import torch
+    from megatronapp_tpu_torch.parallel.collectives import all_reduce
+    flag = torch.tensor([int(bool(local))], dtype=torch.int32)
+    return bool(all_reduce(flag, ctx, "world", op="max").item())
 
 
 class DistSignalHandler:
-    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,)):
+    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,), ctx=None):
         self._signals = tuple(signals)
+        self.ctx = ctx
         self._received = threading.Event()
         self._prev = {}
 
     @classmethod
-    def for_config(cls, sigint: bool = False) -> "DistSignalHandler":
+    def for_config(cls, sigint: bool = False,
+                   ctx=None) -> "DistSignalHandler":
         """Handler for the train loop: SIGTERM always (the preemption
         notice), SIGINT too with --exit-signal-handler-sigint (an
-        interactive ^C drains through the same emergency save)."""
+        interactive ^C drains through the same emergency save). ctx: the
+        rank grid whose ranks agree on the exit."""
         sigs = [signal.SIGTERM]
         if sigint:
             sigs.append(signal.SIGINT)
-        return cls(sigs)
+        return cls(sigs, ctx)
 
     def __enter__(self):
         for sig in self._signals:
@@ -55,4 +63,4 @@ class DistSignalHandler:
 
     def should_exit(self) -> bool:
         """The agreed exit decision (any_process_flag of the flag)."""
-        return any_process_flag(self._received.is_set())
+        return any_process_flag(self._received.is_set(), self.ctx)

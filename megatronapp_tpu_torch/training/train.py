@@ -1,5 +1,5 @@
-"""GPT pretraining on one device (the JAX package's
-training/train.py:pretrain_gpt and its loop, single-device part).
+"""GPT pretraining on one device or on a dp × tp rank grid (the JAX
+package's training/train.py:pretrain_gpt and its loop, without pipelines).
 
 Params are made on the device from the seed (or given, e.g. carried
 across from the JAX package by ``models/convert.py``) and made trainable.
@@ -29,6 +29,22 @@ As JAX's loop does on one device (train.py:350-453, :1027-1088):
 The rerun machine, heartbeats, the straggler detector and the inspector
 raise in ``TrainingConfig``; FBD and pipelines are not options here (the
 entry point refuses their flags).
+
+On a rank grid (``ctx``, parallel/mesh.py; every rank calls this function
+with its own ctx): each rank builds the same global batch (the same seed
+or corpus; JAX's globalize_batch assumes the same) and takes its dp rows,
+contiguous blocks of each microbatch (JAX's ``P(None, (dp, ep))``); the
+microbatch count is gbs / (mb · dp), rampup stages included; the params
+are the tp shards of the one-device init (models/gpt.py); the optimizer
+is training/distributed_optimizer.py's (ZeRO-1 unless
+``distributed_optimizer`` is off). Checkpoints hold every leaf whole
+(gathered over dp and tp, written once by rank 0's thread) under the
+one-device leaf paths, so a run resumes on another grid; meta.json
+records the grid a step was written under. Rank 0 alone logs and writes
+metrics; the signal handler's flag is agreed over the world
+(training/signals.py), so one rank's SIGTERM stops every rank at the same
+step with one emergency save. Local (non-persistent) checkpoints stay on
+one device (ROADMAP.md Queue 1 item 4).
 
 MegaScan (train_cfg.trace): the tracer (trace/tracer.py) is configured on
 the trainer's device; iteration it is traced when it % trace_interval <
@@ -63,6 +79,9 @@ from megatronapp_tpu_torch.training.checkpointing import (
     CheckpointManager, LocalCheckpointManager, read_side_state,
     write_side_state,
 )
+from megatronapp_tpu_torch.training.distributed_optimizer import (
+    DistributedOptimizer,
+)
 from megatronapp_tpu_torch.training.metrics import MetricsLogger
 from megatronapp_tpu_torch.training.num_microbatches_calculator import (
     build_calculator,
@@ -79,6 +98,10 @@ from megatronapp_tpu_torch.utils.flops import flops_per_token
 
 # Batch fields the GPT loss reads (position_ids are implied by the model).
 _FIELDS = ("tokens", "labels", "loss_mask", "segment_ids")
+
+
+def _quiet(_msg: str) -> None:
+    """The log of ranks other than 0."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +135,7 @@ class TrainResult:
 
 
 @contextlib.contextmanager
-def _signal_exit_context(train_cfg: TrainingConfig, log_fn):
+def _signal_exit_context(train_cfg: TrainingConfig, log_fn, ctx=None):
     """The graceful-exit handler for the loop (--exit-signal-handler).
     Python installs signal handlers on the main thread only: elsewhere
     the loop runs without one, with a log line."""
@@ -126,22 +149,35 @@ def _signal_exit_context(train_cfg: TrainingConfig, log_fn):
         return
     from megatronapp_tpu_torch.training.signals import DistSignalHandler
     with DistSignalHandler.for_config(
-            sigint=train_cfg.exit_signal_handler_sigint) as handler:
+            sigint=train_cfg.exit_signal_handler_sigint, ctx=ctx) as handler:
         yield handler
 
 
 class _CheckpointScribe:
     """The loop's checkpoint moments in one place: interval durable,
     interval local, emergency and final, each with the side state (the
-    exact stream position, _RowBuffer carry-over included)."""
+    exact stream position, _RowBuffer carry-over included). On a grid
+    (dopt, the DistributedOptimizer) every rank gathers the whole state
+    and rank 0 writes it; ``saved_step`` is the same on every rank."""
 
     def __init__(self, ckpt, local_ckpt, train_cfg: TrainingConfig,
-                 layout, log_fn):
+                 layout, log_fn, dopt=None):
         self.ckpt = ckpt
         self.local_ckpt = local_ckpt
         self.cfg = train_cfg
         self.layout = layout
         self.log_fn = log_fn
+        self.dopt = dopt
+        self.lead = dopt is None or dopt.ctx.is_lead
+        self.saved_step = ckpt.latest_step if ckpt is not None else None
+        self.written_under = (None if dopt is None else {
+            "dp": dopt.ctx.dp, "tp": dopt.ctx.tp, "zero1": dopt.zero1})
+
+    def full_state(self, state: TrainState):
+        """The state with whole leaves (None on ranks other than 0)."""
+        if self.dopt is None:
+            return state_dict(state)
+        return self.dopt.full_state_dict(state)
 
     def save_durable(self, step: int, state: TrainState, consumed: int,
                      force: bool = False,
@@ -151,11 +187,15 @@ class _CheckpointScribe:
         step); the side state is rewritten either way."""
         if self.ckpt is None:
             return
-        if not (skip_if_current and self.ckpt.latest_step == step):
-            self.ckpt.save(step, state_dict(state), force=force,
-                           layout=self.layout)
-        write_side_state(self.cfg.save_dir, step,
-                         {"consumed": int(consumed)})
+        if not (skip_if_current and self.saved_step == step):
+            flat = self.full_state(state)
+            if self.lead:
+                self.ckpt.save(step, flat, force=force, layout=self.layout,
+                               written_under=self.written_under)
+            self.saved_step = step
+        if self.lead:
+            write_side_state(self.cfg.save_dir, step,
+                             {"consumed": int(consumed)})
 
     def save_local(self, step: int, state: TrainState, consumed: int,
                    what: str = "local checkpoint") -> None:
@@ -200,11 +240,21 @@ def reshape_global_batch(batch: Dict[str, np.ndarray], num_micro: int
             for k, v in batch.items()}
 
 
-def gpt_microbatch_loss(cfg: TransformerConfig):
+def dp_rows(batch: Dict[str, np.ndarray], ctx) -> Dict[str, np.ndarray]:
+    """This dp rank's rows of [num_micro, mb·dp, ...] microbatches: its
+    contiguous block of each (JAX batch_shardings' P(None, (dp, ep)))."""
+    if ctx is None or ctx.dp == 1:
+        return batch
+    mb = next(iter(batch.values())).shape[1] // ctx.dp
+    r = ctx.dp_rank
+    return {k: v[:, r * mb:(r + 1) * mb] for k, v in batch.items()}
+
+
+def gpt_microbatch_loss(cfg: TransformerConfig, ctx=None):
     def loss_fn(params, micro):
         return gpt_loss(params, micro["tokens"], micro["labels"],
                         micro["loss_mask"], cfg,
-                        segment_ids=micro.get("segment_ids"))
+                        segment_ids=micro.get("segment_ids"), ctx=ctx)
     return loss_fn
 
 
@@ -215,22 +265,30 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                  params: Optional[torch.nn.Module] = None,
                  batch_iter_factory: Optional[Callable] = None,
                  eval_batch_iter: Optional[
-                     Iterator[Dict[str, np.ndarray]]] = None
-                 ) -> TrainResult:
+                     Iterator[Dict[str, np.ndarray]]] = None,
+                 ctx=None) -> TrainResult:
     """End-to-end GPT pretraining loop on one device (the card unless
-    device="cpu"). params: initial weights on `device` (default: made
-    from train_cfg.seed); trained in place, then overwritten by a
-    restored checkpoint. batch_iter_factory(consumed) -> batch stream,
-    used when batch_iter is None (resume-aware)."""
-    device = resolve_device(device)
-    num_micro = train_cfg.num_microbatches(1)
+    device="cpu") or as one rank of the grid `ctx` (on ctx.device; see
+    the module docstring). params: initial weights on `device` (default:
+    made from train_cfg.seed; on a grid, this rank's shards); trained in
+    place, then overwritten by a restored checkpoint.
+    batch_iter_factory(consumed) -> batch stream of global batches, used
+    when batch_iter is None (resume-aware)."""
+    device = ctx.device if ctx is not None else resolve_device(device)
+    dp = 1 if ctx is None else ctx.dp
+    lead = ctx is None or ctx.is_lead
+    if not lead:
+        log_fn = _quiet
+    num_micro = train_cfg.num_microbatches(dp)
     batch_calc = build_calculator(train_cfg.global_batch_size,
-                                  train_cfg.micro_batch_size, 1,
+                                  train_cfg.micro_batch_size, dp,
                                   train_cfg.rampup_batch_size)
-    optimizer = Optimizer(opt_cfg, train_cfg.train_iters)
+    optimizer = (Optimizer(opt_cfg, train_cfg.train_iters) if ctx is None
+                 else DistributedOptimizer(opt_cfg, train_cfg.train_iters,
+                                           ctx))
     if params is None:
         gen = torch.Generator(device).manual_seed(train_cfg.seed)
-        params = init_gpt_params(model_cfg, gen, device)
+        params = init_gpt_params(model_cfg, gen, device, ctx)
     params.requires_grad_(True)
     state = TrainState(params, optimizer.init(named_trainable(params)))
 
@@ -248,6 +306,11 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
             log_fn("local checkpoints disabled: pass "
                    "--non-persistent-ckpt-dir or --save")
         else:
+            if ctx is not None and ctx.world > 1:
+                raise NotImplementedError(
+                    "local (non-persistent) checkpoints on a rank grid are "
+                    "not ported yet (ROADMAP.md Queue 1 item 4): durable "
+                    "checkpoints (--save) are")
             local_ckpt = LocalCheckpointManager(np_dir)
     restore_dir = train_cfg.load_dir or train_cfg.save_dir
     loader = None
@@ -259,7 +322,7 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     # corrupt or stale local file falls to the durable path, and a
     # corrupt durable step walks back to the previous one.
     t_restore = time.perf_counter()
-    template = state_dict(state)
+    template = state_dict(state) if ctx is None else None
     restored = side_state = None
     local_step = local_ckpt.latest_step if local_ckpt is not None else None
     durable_step = loader.latest_step if loader is not None else None
@@ -276,7 +339,10 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                                          int(restored["step"]))
     start_step, restore_s = 0, None
     if restored is not None:
-        load_state_dict(state, restored)
+        if ctx is None:
+            load_state_dict(state, restored)
+        else:
+            optimizer.load_full_state_dict(state, restored)
         del restored
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -305,25 +371,27 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                 train_cfg.global_batch_size, seed=train_cfg.seed,
                 start_idx=consumed)
 
-    loss_fn = gpt_microbatch_loss(model_cfg)
+    loss_fn = gpt_microbatch_loss(model_cfg, ctx)
     step_fn = make_train_step(loss_fn, optimizer,
-                              check_nan=train_cfg.check_for_nan_in_loss)
+                              check_nan=train_cfg.check_for_nan_in_loss,
+                              ctx=ctx)
     eval_step_fn = None
     if train_cfg.eval_interval:
         # The caller's eval stream, else a distinct mock stream (seed +
         # 1) — also when training reads a corpus (JAX train.py:486).
-        eval_step_fn = make_eval_step(loss_fn)
+        eval_step_fn = make_eval_step(loss_fn, ctx)
         if eval_batch_iter is None:
             eval_batch_iter = mock_batches(
                 train_cfg.seq_length, model_cfg.vocab_size,
                 train_cfg.global_batch_size, seed=train_cfg.seed + 1)
     metrics_logger = MetricsLogger()
-    if train_cfg.metrics_jsonl:
+    if train_cfg.metrics_jsonl and lead:
         metrics_logger.add_jsonl(train_cfg.metrics_jsonl)
-    if train_cfg.tensorboard_dir:
+    if train_cfg.tensorboard_dir and lead:
         metrics_logger.add_tensorboard(train_cfg.tensorboard_dir,
                                        warn=log_fn)
-    scribe = _CheckpointScribe(ckpt, local_ckpt, train_cfg, layout, log_fn)
+    scribe = _CheckpointScribe(ckpt, local_ckpt, train_cfg, layout, log_fn,
+                               dopt=None if ctx is None else optimizer)
     flops_tok = flops_per_token(model_cfg, train_cfg.seq_length)
     rows = _RowBuffer(batch_iter)
     result = TrainResult(state, [], 0.0, 0.0)
@@ -334,20 +402,22 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
             enabled=True, trace_dir=train_cfg.trace_dir,
             interval=train_cfg.trace_interval,
             continuous_iterations=train_cfg.continuous_trace_iterations,
-            granularity=train_cfg.trace_granularity, layout=_OneDevice(),
-            device=device)
+            granularity=train_cfg.trace_granularity,
+            layout=_OneDevice() if ctx is None else ctx, device=device,
+            rank=0 if ctx is None else ctx.rank)
     window_tokens, window_start = 0, time.perf_counter()
     window_iter = start_step
     # The tracer is process-wide: whatever ends the loop, a traced run
     # leaves it disabled, so a later run in the process records nothing.
     try:
-        with _signal_exit_context(train_cfg, log_fn) as sig:
+        with _signal_exit_context(train_cfg, log_fn, ctx) as sig:
             for it in range(start_step, train_cfg.train_iters):
                 tracer.iteration_begin(it)
                 # Rampup: exactly cur_gbs rows from the stream; leftovers
                 # carry over, so no sample is dropped.
                 cur_gbs, cur_micro = batch_calc.get(consumed)
-                batch = reshape_global_batch(rows.take(cur_gbs), cur_micro)
+                batch = dp_rows(reshape_global_batch(rows.take(cur_gbs),
+                                                     cur_micro), ctx)
                 consumed += cur_gbs
                 batch = to_device_batch({k: v for k, v in batch.items()
                                          if k in _FIELDS}, device)
@@ -392,8 +462,8 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                     t_eval = time.perf_counter()
                     totals = []
                     for _ in range(train_cfg.eval_iters):
-                        eb = reshape_global_batch(next(eval_batch_iter),
-                                                  num_micro)
+                        eb = dp_rows(reshape_global_batch(
+                            next(eval_batch_iter), num_micro), ctx)
                         totals.append(eval_step_fn(state, to_device_batch(
                             {k: v for k, v in eb.items() if k in _FIELDS},
                             device)))
@@ -441,7 +511,7 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                         (it + 1) % train_cfg.exit_interval == 0:
                     break
         if ckpt is not None:
-            if train_cfg.save_interval and ckpt.latest_step != state.step:
+            if train_cfg.save_interval and scribe.saved_step != state.step:
                 t_save = time.perf_counter()
                 scribe.save_durable(state.step, state, consumed, force=True)
                 result.checkpoint_s["save"].append(

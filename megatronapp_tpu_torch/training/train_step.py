@@ -18,6 +18,17 @@ of this eager loop, each stamped in stream order: per microbatch
 1/num_micro, their global norm and the host read of loss and norm; on one
 device there is no reduction to run) and 'optimizer' (the update). They
 record nothing outside a traced iteration.
+
+Under a rank grid (``ctx``; the optimizer a
+training/distributed_optimizer.py ``DistributedOptimizer``) each rank runs
+its dp rows of each microbatch through its tp shards; the microbatch
+losses are this rank's shares of the token mean over every dp rank's rows
+(ops/cross_entropy.py). The 'allreduce' span then does the grid's work:
+the gradient reduction (tp for the tp-partial leaves, then dp: a
+reduce-scatter under ZeRO-1, an all-reduce without), the model-wide norm
+and the metrics (each rank's norm partials and loss shares all-gathered
+over the world and summed in rank order, so every rank reads the same
+bits), and the host read. Loss and metrics are then means over dp.
 """
 
 from __future__ import annotations
@@ -37,15 +48,41 @@ def named_trainable(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {n: p for n, p in params.named_parameters() if p.requires_grad}
 
 
+def _accumulate(loss_fn: Callable, state: TrainState,
+                batch: Dict[str, torch.Tensor], tracer):
+    """Each microbatch's forward, loss and backward (the grads accumulate
+    in the params' .grad): (num_micro, the loss sum, the metric sums)."""
+    num_micro = next(iter(batch.values())).shape[0]
+    loss_sum = None
+    aux_sum: Dict[str, torch.Tensor] = {}
+    for i in range(num_micro):
+        micro = {k: v[i] for k, v in batch.items()}
+        with tracer.scope("forward"):
+            loss, metrics = loss_fn(state.params, micro)
+        with tracer.scope("loss"):
+            ld = loss.detach()
+            loss_sum = ld if loss_sum is None else loss_sum + ld
+            for k, v in metrics.items():
+                v = v.detach().float()
+                aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
+        with tracer.scope("backward"):
+            loss.backward()
+        del loss
+    return num_micro, loss_sum, aux_sum
+
+
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    check_nan: bool = True):
+                    check_nan: bool = True, ctx=None):
     """loss_fn(params, micro) -> (loss, metrics dict of scalar tensors).
 
     Returns step(state, batch) -> metrics (host floats); batch holds
-    [num_micro, micro_batch, ...] tensors on the params' device. The
-    state is updated in place."""
+    [num_micro, micro_batch, ...] tensors on the params' device (under a
+    ctx: this dp rank's rows). The state is updated in place. ctx: the
+    rank grid (see the module docstring)."""
 
     tracer = get_tracer()
+    if ctx is not None:
+        return _grid_step(loss_fn, optimizer, check_nan, ctx, tracer)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, float]:
@@ -60,22 +97,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                              "are not ported")
         for p in params.values():
             p.grad = None
-        num_micro = next(iter(batch.values())).shape[0]
-        loss_sum = None
-        aux_sum: Dict[str, torch.Tensor] = {}
-        for i in range(num_micro):
-            micro = {k: v[i] for k, v in batch.items()}
-            with tracer.scope("forward"):
-                loss, metrics = loss_fn(state.params, micro)
-            with tracer.scope("loss"):
-                ld = loss.detach()
-                loss_sum = ld if loss_sum is None else loss_sum + ld
-                for k, v in metrics.items():
-                    v = v.detach().float()
-                    aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
-            with tracer.scope("backward"):
-                loss.backward()
-            del loss
+        num_micro, loss_sum, aux_sum = _accumulate(loss_fn, state, batch,
+                                                   tracer)
         inv = 1.0 / num_micro
         with tracer.scope("allreduce"):
             grads = {}
@@ -105,10 +128,52 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     return step
 
 
-def make_eval_step(loss_fn: Callable):
+def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
+               tracer):
+    """The train step of a rank grid (module docstring)."""
+    from megatronapp_tpu_torch.parallel.collectives import all_gather_cat
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, float]:
+        optimizer.zero_grad()
+        num_micro, loss_sum, aux_sum = _accumulate(loss_fn, state, batch,
+                                                   tracer)
+        inv = 1.0 / num_micro
+        names = list(aux_sum)
+        with tracer.scope("allreduce"):
+            optimizer.reduce_grads(inv)
+            mine = torch.cat([optimizer.norm_partials(), torch.stack(
+                [loss_sum * inv] + [aux_sum[k] * inv for k in names])])
+            every = all_gather_cat(mine[None], ctx, "world", 0)
+            # Sharded leaves' squares count on every rank; the rest, and
+            # the dp ranks' loss shares, once per tp group.
+            once = torch.tensor([r % ctx.tp == 0 for r in range(ctx.world)],
+                                dtype=every.dtype, device=every.device)
+            norm = (every[:, 0] + every[:, 1] * once).sum().sqrt()
+            sums = (every[:, 2:] * once[:, None]).sum(dim=0)
+            host = torch.cat([sums[:1], norm[None], sums[1:]]).tolist()
+        loss_h, norm_h = host[0], host[1]
+        finite = math.isfinite(loss_h) and math.isfinite(norm_h)
+        skipped = check_nan and not finite
+        with tracer.scope("optimizer"):
+            if not skipped:
+                optimizer.step(state.opt_state, (norm_h, norm))
+        optimizer.release_grads()
+        out = {"loss": loss_h, "grad_norm": norm_h,
+               "lr": float(optimizer.sched(state.step)),
+               "skipped": int(skipped)}
+        out.update(zip(names, host[2:]))
+        state.step += 1
+        return out
+
+    return step
+
+
+def make_eval_step(loss_fn: Callable, ctx=None):
     """Forward-only loss (JAX train_step.py:297): the mean of the
     microbatch losses under torch.no_grad(), on the device (a 0-d fp32
-    tensor; the caller reads it back).
+    tensor; the caller reads it back). ctx: the rank grid; the dp ranks'
+    shares are summed over dp (one all-reduce).
 
     Returns eval_step(state, batch), batch as for the train step."""
 
@@ -122,7 +187,13 @@ def make_eval_step(loss_fn: Callable):
             loss, _ = loss_fn(state.params, {k: v[i]
                                              for k, v in batch.items()})
             total = total + loss.float()
-        return total / num_micro
+        total = total / num_micro
+        if ctx is not None:
+            from megatronapp_tpu_torch.parallel.collectives import (
+                all_reduce,
+            )
+            total = all_reduce(total, ctx, "dp")
+        return total
 
     return eval_step
 

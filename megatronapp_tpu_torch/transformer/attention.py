@@ -20,9 +20,14 @@ one-token decode append), single-device or head-sharded over a
 tensor-parallel group (``ctx``); the two dense-cache branches a draft
 model decodes through (the per-row append under an explicit mask and the
 static append at ``cache_index``: plain PyTorch, as JAX leaves them to
-XLA); and the single-device training branch (no cache: dense attention or
-the flash kernels, by the ``attention_impl`` rule). The context-parallel
-and tensor-parallel training branches raise until their slices.
+XLA); and the training branch (no cache: dense attention or the flash
+kernels, by the ``attention_impl`` rule), on one device or under a rank
+grid (``ctx``) with Megatron's tensor parallelism: the params are this tp
+rank's shards (parallel/sharding.py), QKV is column-parallel over the
+rank's q heads and their kv groups, attention runs on those local heads
+(the flash kernels see the local head counts), and the out-projection is
+row-parallel, its bias added once after the reduce. The context-parallel
+training branch raises until its slice.
 
 MegaScope's sites sit where the JAX layer puts them: the 'weight'
 disturbance on the three projection kernels, the qkv_q/qkv_k/qkv_v
@@ -47,6 +52,9 @@ from megatronapp_tpu_torch.ops.attention import dot_product_attention
 from megatronapp_tpu_torch.ops.flash_attention import flash_attention
 from megatronapp_tpu_torch.ops.lora import apply_lora_delta, apply_lora_deltas
 from megatronapp_tpu_torch.ops.normalization import rms_norm
+from megatronapp_tpu_torch.parallel.collectives import (
+    copy_to_tp, reduce_from_tp,
+)
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_decode_tp,
     paged_attention_multiquery, paged_attention_multiquery_tp, scale_kwargs,
@@ -172,15 +180,18 @@ def _dense_cache_attention(p, q, k, v, cfg: TransformerConfig,
 
 
 def _out_projection(p, attn, cfg: TransformerConfig, lora=None,
-                    layer_id=None):
+                    layer_id=None, ctx=None):
     """attn [B, S, nq, D] → its 'context' capture, then [B, S, nq·D] @
     out_kernel, the out delta between the product and the bias (JAX
-    attention.py:567-585), + out_bias."""
+    attention.py:567-585), + out_bias. ctx (training under tp): attn holds
+    this rank's heads and out_kernel their rows; the partial products are
+    summed over tp before the bias."""
     dt = cfg.compute_dtype
     b, s = attn.shape[:2]
     attn = scope_capture("context", attn, layer_id).reshape(b, s, -1)
     out = attn @ weight_of(p["out_kernel"], layer_id, dt)
     out = apply_lora_delta(out, attn, lora, "out_kernel")
+    out = reduce_from_tp(out, ctx)
     if "out_bias" in p:
         out = out + p["out_bias"].to(dt)
     return out
@@ -229,12 +240,7 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     attention.py:66-77, :363-367, :403-407). layer_id: the layer's index,
     MegaScope's attribution of its captures and disturbances."""
     serving = kv_cache is not None
-    if ctx is not None and not serving:
-        raise NotImplementedError(
-            "context-parallel and tensor-parallel training attention are "
-            "not ported yet (the parallel-training slice, ROADMAP.md Queue "
-            "1): ctx is taken only by the paged serving branches, where it "
-            "shards the kv heads over the tp ranks")
+    tp_train = not serving and ctx is not None and ctx.tp > 1
     paged = serving and page_table is not None
     if paged and (write_index is None or attention_mask is not None
                   or cache_index is not None or segment_ids is not None):
@@ -256,6 +262,14 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     nq, nkv = cfg.num_attention_heads, cfg.num_query_groups
     dt = cfg.compute_dtype
     x = x.to(dt)
+    if tp_train:
+        if nq % ctx.tp or nkv % ctx.tp:
+            raise ValueError(
+                f"tensor-parallel attention needs the q heads ({nq}) and kv "
+                f"heads ({nkv}) to split over tp {ctx.tp} (JAX falls back "
+                "to dense replicated attention there; the port does not)")
+        nq, nkv = nq // ctx.tp, nkv // ctx.tp
+        x = copy_to_tp(x, ctx)
     q = x @ weight_of(p["q_kernel"], layer_id, dt)
     kv = x @ weight_of(p["kv_kernel"], layer_id, dt)
     q, kv = apply_lora_deltas((q, kv), x, lora, ("q_kernel", "kv_kernel"))
@@ -280,7 +294,8 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                              "only")
         attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids,
                                layer_id)
-        return _out_projection(p, attn, cfg, layer_id=layer_id), None
+        return _out_projection(p, attn, cfg, layer_id=layer_id,
+                               ctx=ctx if tp_train else None), None
 
     if not paged:
         return _dense_cache_attention(p, q, k, v, cfg, attention_mask,

@@ -36,7 +36,8 @@ from megatronapp_tpu_torch.utils.params import ParamTree
 def _check_dense(cfg: TransformerConfig):
     if cfg.is_moe:
         raise NotImplementedError(
-            "MoE layers are not ported yet (the parallel-training slice)")
+            "MoE layers are not ported yet (ROADMAP.md Queue 1 item 4, MoE "
+            "and EP)")
 
 
 def init_layer_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -93,8 +94,10 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     pools. It takes no lora.
 
     ctx: a tensor-parallel MeshContext on the paged serving branches
-    (attention_forward's head shards, mla_forward's latent columns);
-    training with a ctx raises until the parallel-training slice.
+    (attention_forward's head shards, mla_forward's latent columns), or
+    the training grid, whose tp rank holds its shards of the layer
+    (attention_forward's and mlp_forward's tensor parallelism; MLA under
+    a training ctx raises).
 
     layer_id: the layer's index, MegaScope's attribution: the sublayers'
     captures and disturbances, then the 'system' disturbance and the
@@ -135,8 +138,9 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         if (ctx is not None and kv_cache is None) or cache_index is not None:
             raise NotImplementedError(
                 "context-parallel and tensor-parallel MLA training and MLA's "
-                "dense slot cache are not ported yet (ROADMAP.md Queue 1): "
-                "ctx is taken only by the paged serving branch")
+                "dense slot cache are not ported yet (ROADMAP.md Queue 1 "
+                "item 4, MLA under tp): ctx is taken only by the paged "
+                "serving branch")
         if segment_ids is not None:
             # Packed segments densify into the keep-mask (JAX block.py:
             # 143-149).
@@ -162,8 +166,9 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
                    cfg.layernorm_epsilon)
-    x = residual + mlp_forward(p["mlp"], h, cfg, lora=lora,
-                               layer_id=layer_id).to(residual.dtype)
+    x = residual + mlp_forward(
+        p["mlp"], h, cfg, lora=lora, layer_id=layer_id,
+        ctx=ctx if kv_cache is None else None).to(residual.dtype)
     x = get_disturbance().apply("system", x, layer_id)
     x = scope_capture("between_layers", x, layer_id)
     return (x, new_cache), None
@@ -188,14 +193,15 @@ def _remat_wrap(fn, policy: str):
 
 def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
                   rope_cos=None, rope_sin=None, attention_mask=None,
-                  segment_ids=None):
-    """Run every layer for training. Returns (x, moe_aux_sum); dense
-    layers add no aux loss, so the sum is a zero scalar."""
+                  segment_ids=None, ctx=None):
+    """Run every layer for training (ctx: the rank grid, see
+    layer_forward). Returns (x, moe_aux_sum); dense layers add no aux
+    loss, so the sum is a zero scalar."""
 
     def run_layer(layer_p, h, lid):
         (h2, _), _ = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
                                    attention_mask, segment_ids=segment_ids,
-                                   layer_id=lid)
+                                   ctx=ctx, layer_id=lid)
         return h2
 
     run_layer = _remat_wrap(run_layer, cfg.remat_policy)

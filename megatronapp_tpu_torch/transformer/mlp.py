@@ -11,6 +11,11 @@ The two kernels may be resident int8 leaves (inference/quantization.py):
 MegaScope's sites are the JAX MLP's: the 'weight' disturbance on both
 kernels, the 'mlp1' capture and the 'calculation' disturbance on fc1's
 output (before the activation), the 'mlp2' capture on the output.
+
+Under a rank grid (``ctx``, training) the leaves are this tp rank's
+shards (parallel/sharding.py): fc1 is column-parallel, its gate and value
+halves split separately, so the rank's [gate | value] columns pair up;
+fc2 is row-parallel, its partial products summed over tp before fc2_bias.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import torch
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.ops.activations import apply_activation, is_gated
 from megatronapp_tpu_torch.ops.lora import apply_lora_delta
+from megatronapp_tpu_torch.parallel.collectives import (
+    copy_to_tp, reduce_from_tp,
+)
 from megatronapp_tpu_torch.scope.disturbance import get_disturbance
 from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.attention import weight_of
@@ -40,14 +48,15 @@ def init_mlp_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig, lora=None,
-                layer_id=None):
+                layer_id=None, ctx=None):
     """x [..., H] → [..., H]: fc1 → activation (gate = first half of fc1
     for gated kinds) → fc2. lora: one layer's batched adapter deltas
     (ops/lora.py): fc1's from the normed input and fc2's from the
     activated y, each between its matmul and its bias (JAX mlp.py:
-    109-136). layer_id: MegaScope's attribution."""
+    109-136). layer_id: MegaScope's attribution. ctx: the training grid
+    (see the module docstring)."""
     dt = cfg.compute_dtype
-    x = x.to(dt)
+    x = copy_to_tp(x.to(dt), ctx)
     y = x @ weight_of(p["fc1_kernel"], layer_id, dt)
     y = apply_lora_delta(y, x, lora, "fc1_kernel")
     if "fc1_bias" in p:
@@ -61,6 +70,7 @@ def mlp_forward(p, x: torch.Tensor, cfg: TransformerConfig, lora=None,
         y = apply_activation(cfg.activation, y)
     out = y @ weight_of(p["fc2_kernel"], layer_id, dt)
     out = apply_lora_delta(out, y, lora, "fc2_kernel")
+    out = reduce_from_tp(out, ctx)
     if "fc2_bias" in p:
         out = out + p["fc2_bias"].to(dt)
     return scope_capture("mlp2", out, layer_id)

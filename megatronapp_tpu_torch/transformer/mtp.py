@@ -58,7 +58,7 @@ def mtp_combine(dp, h: torch.Tensor, emb: torch.Tensor,
 def mtp_loss(mtp_params, h: torch.Tensor, embed_fn, head_fn,
              tokens: torch.Tensor, labels: torch.Tensor,
              loss_mask: Optional[torch.Tensor], cfg: TransformerConfig,
-             rope_cos=None, rope_sin=None
+             rope_cos=None, rope_sin=None, ctx=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The auxiliary MTP loss. h [B, S, H]: the main stack's output (before
     the final norm and head); embed_fn(tokens) → [B, S, H]; head_fn(h) →
@@ -67,7 +67,9 @@ def mtp_loss(mtp_params, h: torch.Tensor, embed_fn, head_fn,
 
     Returns (scaled_total, per_depth_mean, layer_aux): add scaled_total
     and layer_aux (the depth layers' own router losses; zero for dense
-    layers) to the LM loss, and log per_depth_mean."""
+    layers) to the LM loss, and log per_depth_mean. ctx: a dp-only
+    training grid (each depth's token mean then spans every dp rank's
+    rows, ops/cross_entropy.py)."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if len(mtp_params) == 0:
         return zero, zero, zero
@@ -88,7 +90,7 @@ def mtp_loss(mtp_params, h: torch.Tensor, embed_fn, head_fn,
         # Positions whose target rolled past the end count nothing.
         valid = (pos < s - k).to(torch.float32)[None, :]
         mask_k = torch.roll(loss_mask.float(), -k, dims=1) * valid
-        loss_k, _ = cross_entropy_loss(logits, labels_k, mask_k)
+        loss_k, _ = cross_entropy_loss(logits, labels_k, mask_k, ctx=ctx)
         total = total + loss_k
     mean = total / len(mtp_params)
     return cfg.mtp_loss_scaling_factor * mean, mean, zero

@@ -17,7 +17,10 @@
   the two latent tensor-parallel kernels (block scores and weighted sum)
   included;
 - the tensor-parallel group (build_mesh) and the tp engine default to the
-  card and raise without one.
+  card and raise without one;
+- the training grid (a dp × tp build_mesh, pretrain_gpt.py's build_grid
+  under a launcher's environment) takes the card too and raises without
+  one before a group is joined.
 """
 
 import ast
@@ -74,7 +77,10 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.training.num_microbatches_calculator",
             "megatronapp_tpu_torch.training.metrics",
             "megatronapp_tpu_torch.training.signals",
-            "megatronapp_tpu_torch.transformer.mtp"} <= set(mods)
+            "megatronapp_tpu_torch.transformer.mtp",
+            "megatronapp_tpu_torch.parallel.sharding",
+            "megatronapp_tpu_torch.training.distributed_optimizer",
+            "megatronapp_tpu_torch.ops.cross_entropy"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -824,6 +830,26 @@ def test_tp_group_and_engine_default_to_the_card(monkeypatch):
                              "--serve-tp", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.rank_device(args, 1)
+
+
+def test_training_grid_defaults_to_the_card(monkeypatch):
+    """A dp × tp grid with no device, and pretrain_gpt.py's ranks under
+    a launcher's environment (RANK, WORLD_SIZE, ...), resolve the card
+    before joining a group: without one each raises."""
+    from megatronapp_tpu_torch import pretrain_gpt
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mesh(ParallelConfig(tensor_parallel=2), rank=0, world_size=4,
+                   init_method="file:///nonexistent/never-joined")
+    for k, v in {"RANK": "1", "WORLD_SIZE": "4", "LOCAL_RANK": "1",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_gpt.main(["--tensor-model-parallel-size", "2",
+                           "--num-layers", "1", "--hidden-size", "64",
+                           "--num-attention-heads", "4"])
 
 
 def test_serve_tp_parses_and_refuses_lora(capsys):

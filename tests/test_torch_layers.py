@@ -18,10 +18,12 @@ from megatronapp_tpu.ops import rotary as jrot
 from megatronapp_tpu.transformer.block import layer_forward as j_layer
 from megatronapp_tpu.transformer.mlp import mlp_forward as j_mlp
 from megatronapp_tpu_torch.config import transformer_config as tcfg
+from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
 from megatronapp_tpu_torch.ops import activations as tact
 from megatronapp_tpu_torch.ops import normalization as tnorm
 from megatronapp_tpu_torch.ops.paged_attention import paged_write_index
 from megatronapp_tpu_torch.ops import rotary as trot
+from megatronapp_tpu_torch.parallel.mesh import MeshContext
 from megatronapp_tpu_torch.transformer.block import layer_forward as t_layer
 from megatronapp_tpu_torch.transformer.mlp import mlp_forward as t_mlp
 from megatronapp_tpu_torch.utils.params import ParamTree
@@ -272,10 +274,11 @@ def test_paged_layer_matches(arch, ragged):
 
 
 def test_unported_branches_raise():
-    """The branches still to port: MLA's dense cache, context- and
-    tensor-parallel attention and MoE; fused decode without the paged
-    pools it is built around. (The dense training branch is ported:
-    tests/test_torch_training.py; fused decode:
+    """The branches still to port: MLA's dense cache, MLA under a
+    training grid, and MoE; fused decode without the paged pools it is
+    built around. (The dense training branch is ported, on one device:
+    tests/test_torch_training.py, and under tp and dp:
+    tests/test_torch_parallel_train.py; fused decode:
     tests/test_torch_fused_decode.py; the GQA dense-cache branches a draft
     model runs: tests/test_torch_speculative.py.)"""
     _, tc = cfg_pair(**LLAMA_SMALL)
@@ -288,8 +291,11 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="dense slot cache"):
         t_layer(tree(random_layer(mla, 7)), x, mla, kv_cache=cache,
                 cache_index=0)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        t_layer(p, x, tc, ctx=object())
+    tp_ctx = MeshContext(group=None,
+                         parallel=ParallelConfig(tensor_parallel=2), rank=0,
+                         device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(NotImplementedError, match="tensor-parallel MLA"):
+        t_layer(tree(random_layer(mla, 7)), x, mla, ctx=tp_ctx)
     with pytest.raises(ValueError, match="paged decode/multiquery"):
         t_layer(p, x, tc, fused_decode=True)
     moe = dataclasses.replace(tc, num_moe_experts=4)

@@ -1,0 +1,231 @@
+"""The port's tensor-parallel shards and the refusals of the training
+grid, on the CPU in this process (no ranks: nothing here runs a
+collective).
+
+- The rule table is JAX's (megatronapp_tpu/parallel/sharding.py
+  DEFAULT_RULES and each leaf's logical axes): every JAX leaf's
+  tp-split dimension is the port's.
+- shard_leaf then unshard_leaf (gather_tree's arithmetic; gather_tree
+  itself runs on spawned ranks in tests/test_torch_parallel_ckpt.py)
+  reproduces JAX's leaves bitwise, for the fused kv_kernel, the gated
+  fc1 and its bias among all; a rank's kv shard is its K heads then its
+  V heads, and its gated fc1 shard its gate then its value columns.
+- shard_tree of a JAX tree equals params_from_jax(..., ctx=).
+- Every refused axis, field and flag raises or exits with a message
+  naming its ROADMAP.md item; the heads that do not split over tp,
+  MTP and MLA under tp, local checkpoints on a grid are refused.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+from test_torch_layers import cfg_pair
+
+from megatronapp_tpu.models import gpt as jgpt
+from megatronapp_tpu.parallel import sharding as jsharding
+from megatronapp_tpu_torch import pretrain_gpt as entry
+from megatronapp_tpu_torch.config.parallel_config import (
+    UNPORTED_PARALLEL_FIELDS, ParallelConfig,
+)
+from megatronapp_tpu_torch.config.training_config import (
+    OptimizerConfig, TrainingConfig,
+)
+from megatronapp_tpu_torch.models.convert import params_from_jax
+from megatronapp_tpu_torch.parallel import sharding
+from megatronapp_tpu_torch.parallel.mesh import MeshContext
+
+GATED = dict(num_layers=1, hidden_size=64, num_attention_heads=8,
+             num_query_groups=4, ffn_hidden_size=96, vocab_size=128,
+             max_position_embeddings=64, normalization="rmsnorm",
+             activation="swiglu", position_embedding="rope",
+             add_qkv_bias=True, qk_layernorm=True,
+             untie_embeddings_and_output_weights=True)
+
+
+def fake_ctx(tp, rank, dp=1):
+    """A grid rank's view without groups (shards only; no collective)."""
+    return MeshContext(group=None,
+                       parallel=ParallelConfig(tensor_parallel=tp,
+                                               data_parallel=dp),
+                       rank=rank, device=torch.device("cpu"),
+                       backend="gloo")
+
+
+def _jax_tree():
+    jc, tc = cfg_pair(**GATED)
+    jp, ax = jgpt.init_gpt_params(jax.random.PRNGKey(0), jc)
+    return tc, jax.tree.map(np.asarray, jp), ax
+
+
+def test_rule_table_and_leaf_axes_are_jaxs():
+    assert sharding.DEFAULT_RULES == tuple(
+        (n, a if not isinstance(a, tuple) else tuple(a))
+        for n, a in jsharding.DEFAULT_RULES)
+    _, jp, ax = _jax_tree()
+    flat = jax.tree_util.tree_flatten_with_path(
+        ax, is_leaf=jsharding.is_logical_axes)[0]
+    for path, axes in flat:
+        name = str(getattr(path[-1], "key", path[-1]))
+        stacked = str(getattr(path[0], "key", path[0])) == "block"
+        own = axes[1:] if stacked else axes
+        assert sharding.LOGICAL_AXES[name] == own, name
+        spec = tuple(jsharding.logical_to_spec(own))
+        assert sharding.logical_to_spec(own) == spec, name
+        want = spec.index("tp") if "tp" in spec else None
+        assert sharding.tp_dim(name) == want, name
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_shards_gather_back_to_jaxs_leaves_bitwise(tp):
+    tc, jp, _ = _jax_tree()
+    full = dict(params_from_jax(jp, tc).named_parameters())
+    locals_ = [dict(sharding.shard_tree(params_from_jax(jp, tc),
+                                        fake_ctx(tp, r)).named_parameters())
+               for r in range(tp)]
+    segs = {"layers.0.attention.kv_kernel": 2,
+            "layers.0.attention.kv_bias": 2,
+            "layers.0.mlp.fc1_kernel": 2, "layers.0.mlp.fc1_bias": 2}
+    for n, t in full.items():
+        dim = sharding.tp_dim(n)
+        back = sharding.unshard_leaf([loc[n] for loc in locals_], dim,
+                                     segs.get(n, 1))
+        assert torch.equal(back, t), n
+        if dim is not None:
+            assert locals_[0][n].shape[dim] * tp == t.shape[dim], n
+    d, nkv, f = tc.head_dim, tc.num_query_groups, tc.ffn_hidden_size
+    kv = full["layers.0.attention.kv_kernel"]
+    fc1 = full["layers.0.mlp.fc1_bias"]
+    k_l, f_l = nkv * d // tp, f // tp
+    for r, loc in enumerate(locals_):
+        mine = loc["layers.0.attention.kv_kernel"]
+        assert torch.equal(mine[:, :k_l], kv[:, r * k_l:(r + 1) * k_l])
+        assert torch.equal(mine[:, k_l:],
+                           kv[:, nkv * d + r * k_l:nkv * d + (r + 1) * k_l])
+        mine = loc["layers.0.mlp.fc1_bias"]
+        assert torch.equal(mine[:f_l], fc1[r * f_l:(r + 1) * f_l])
+        assert torch.equal(mine[f_l:], fc1[f + r * f_l:f + (r + 1) * f_l])
+
+
+def test_shard_tree_of_a_jax_tree_is_params_from_jax_with_ctx():
+    tc, jp, _ = _jax_tree()
+    for r in range(2):
+        ctx = fake_ctx(2, r)
+        a = dict(sharding.shard_tree(params_from_jax(jp, tc),
+                                     ctx).named_parameters())
+        b = dict(params_from_jax(jp, tc, ctx=ctx).named_parameters())
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[n], b[n]) for n in a)
+
+
+def test_mesh_context_axes():
+    """rank = dp_index · tp + tp_index (tp innermost, JAX's axis order)."""
+    got = [(c.dp_rank, c.tp_rank, c.tp_ranks, c.dp_ranks)
+           for c in (fake_ctx(2, r, dp=2) for r in range(4))]
+    assert got == [(0, 0, [0, 1], [0, 2]), (0, 1, [0, 1], [1, 3]),
+                   (1, 0, [2, 3], [0, 2]), (1, 1, [2, 3], [1, 3])]
+    assert fake_ctx(2, 3, dp=2).shard(8) == slice(4, 8)
+
+
+@pytest.mark.parametrize("field", sorted(UNPORTED_PARALLEL_FIELDS))
+def test_unported_parallel_fields_raise(field):
+    value = {"pp_schedule": "zero-bubble", "fsdp": True,
+             "forward_backward_disaggregating": True,
+             "use_dpp": True}.get(field, 2)
+    flag, item = UNPORTED_PARALLEL_FIELDS[field]
+    with pytest.raises(ValueError, match=f"ROADMAP.md {item}".replace(
+            "(", r"\(").replace(")", r"\)")):
+        ParallelConfig(**{field: value})
+
+
+def test_parallel_config_follows_jax():
+    from megatronapp_tpu.config.parallel_config import ParallelConfig as J
+    assert not ParallelConfig(sequence_parallel=True).sequence_parallel
+    assert ParallelConfig(tensor_parallel=2,
+                          sequence_parallel=True).sequence_parallel
+    assert ParallelConfig().distributed_optimizer == J().distributed_optimizer
+    for ranks, tp in ((4, 2), (8, 4), (2, 2)):
+        assert ParallelConfig(tensor_parallel=tp).infer_data_parallel(
+            ranks) == J(tensor_parallel=tp).infer_data_parallel(ranks)
+    with pytest.raises(ValueError, match="not divisible"):
+        ParallelConfig(tensor_parallel=2).infer_data_parallel(3)
+    with pytest.raises(ValueError, match="inconsistent"):
+        ParallelConfig(data_parallel=4).infer_data_parallel(2)
+
+
+@pytest.mark.parametrize("flag", sorted(entry.UNPORTED_FLAGS))
+def test_entry_point_refuses_unported_axes(flag, capsys):
+    argv = [flag] if flag in ("--tp-comm-overlap",
+                              "--forward-backward-disaggregating",
+                              "--use-dpp", "--use-custom-fsdp") \
+        else [flag, "2"]
+    with pytest.raises(SystemExit):
+        entry.parse_args(argv)
+    err = capsys.readouterr().err
+    assert flag in err and f"ROADMAP.md {entry.UNPORTED_FLAGS[flag]}" in err
+
+
+def test_entry_point_parses_the_grid_flags(capsys):
+    args = entry.parse_args(["--tensor-model-parallel-size", "2",
+                             "--sequence-parallel", "--exp-avg-dtype",
+                             "bf16", "--exp-avg-sq-dtype", "bf16"])
+    par = entry.parallel_from_args(args)
+    assert (par.tensor_parallel, par.sequence_parallel,
+            par.distributed_optimizer) == (2, True, True)
+    _, _, opt = entry.configs_from_args(args)
+    assert (opt.exp_avg_dtype, opt.exp_avg_sq_dtype) == ("bf16", "bf16")
+    args = entry.parse_args(["--no-use-distributed-optimizer"])
+    assert not entry.parallel_from_args(args).distributed_optimizer
+    with pytest.raises(SystemExit):
+        entry.parse_args(["--no-use-distributed-optimizer",
+                          "--exp-avg-dtype", "bf16"])
+    assert "require --use-distributed-optimizer" in capsys.readouterr().err
+    assert entry.launch_env({}) is None
+    assert entry.launch_env({"RANK": "3", "WORLD_SIZE": "4",
+                             "LOCAL_RANK": "1", "MASTER_ADDR": "h",
+                             "MASTER_PORT": "29500"}) == {
+        "rank": 3, "world_size": 4, "local_rank": 1,
+        "init_method": "tcp://h:29500"}
+    assert entry.rank_device("cpu", 3) == torch.device("cpu")
+    assert entry.build_grid(entry.parse_args([]), 0, 1, "unused") is None
+
+
+def test_optimizer_refusals_name_their_items():
+    with pytest.raises(ValueError, match="Queue 1 item 3"):
+        OptimizerConfig(main_params_dtype="bf16")
+    with pytest.raises(ValueError, match="TP overlap"):
+        OptimizerConfig(dist_opt_comm="ring")
+
+
+def test_grid_refusals():
+    from megatronapp_tpu_torch.models.gpt import gpt_loss, init_gpt_params
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    from megatronapp_tpu_torch.transformer.attention import (
+        attention_forward,
+    )
+    _, tc = cfg_pair(**dict(GATED, num_attention_heads=6,
+                            num_query_groups=3))
+    ctx = fake_ctx(2, 0)
+    p = init_gpt_params(tc, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="split over tp 2"):
+        attention_forward(p["layers"][0]["attention"],
+                          torch.zeros(1, 4, 64), tc, ctx=ctx)
+    _, tc = cfg_pair(**dict(GATED, mtp_num_layers=1))
+    p = init_gpt_params(tc, torch.Generator().manual_seed(0), "cpu", ctx)
+    toks = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="MTP under tp"):
+        gpt_loss(p, toks, toks, None, tc, ctx=ctx)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        pretrain_gpt(dataclasses.replace(tc, mtp_num_layers=None),
+                     TrainingConfig(global_batch_size=2, seq_length=8,
+                                    train_iters=1,
+                                    non_persistent_save_interval=1,
+                                    non_persistent_ckpt_dir="/nonexistent"),
+                     OptimizerConfig(), ctx=ctx, log_fn=lambda s: None)
+    with pytest.raises(NotImplementedError, match="gloo"):
+        build_mesh(ParallelConfig(tensor_parallel=2), rank=0,
+                   init_method="file:///nonexistent", device="cpu",
+                   backend="nccl")

@@ -371,12 +371,17 @@ def test_trace_training_fields_are_ported(tmp_path):
 
 
 def test_unported_optimizer_fields_raise():
+    """bf16 params with an fp32 master copy are not ported; bf16 Adam
+    moments are (tests/test_torch_parallel_train.py)."""
+    with pytest.raises(ValueError, match="--main-params-dtype"):
+        OptimizerConfig(main_params_dtype="bf16")
     with pytest.raises(ValueError, match="--exp-avg-dtype"):
-        OptimizerConfig(exp_avg_dtype="bf16")
+        OptimizerConfig(exp_avg_dtype="fp8")
+    assert OptimizerConfig(exp_avg_dtype="bf16").exp_avg_dtype == "bf16"
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--tensor-model-parallel-size", "2"], "--tensor-model-parallel-size"),
+    (["--tensor-model-parallel-size", "0"], "--tensor-model-parallel-size"),
     (["--heartbeat-dir", "/tmp/hb"], "--heartbeat-dir"),
     (["--rerun-mode", "disabled"], "--rerun-mode"),
 ])

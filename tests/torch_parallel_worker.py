@@ -1,0 +1,244 @@
+"""One rank of the port's dp × tp training grid, for
+tests/test_torch_parallel_*.py (spawned; it imports torch and the port
+only, so a rank starts without JAX).
+
+``spawn_ranks`` starts ``world`` processes once; ``run_rank`` then runs
+each case whose grid has this rank: it joins the case's gloo group
+through a FileStore of its own (a case of 2 ranks leaves ranks 2 and 3
+idle), runs the case's kind and reports, and leaves the group.
+"""
+
+import os
+import signal
+
+import numpy as np
+import torch
+
+
+def _grid(case, rank, store):
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    par = ParallelConfig(tensor_parallel=case["tp"],
+                         distributed_optimizer=case.get("zero1", True))
+    return build_mesh(par, rank=rank, world_size=case["world"],
+                      init_method=f"file://{store}.{case['name']}",
+                      device="cpu", timeout_s=60)
+
+
+def _np(t):
+    return t.detach().float().numpy().copy()
+
+
+def _grads(case, ctx):
+    """One accumulation of the case's microbatches through this rank's
+    shards (ZeRO-1 off: every rank keeps the whole dp sum): the dp-summed
+    grads gathered whole, this rank's own grads of
+    the tp-replicated leaves, its loss shares and its rows' logits
+    gathered over tp."""
+    from megatronapp_tpu_torch.config.training_config import OptimizerConfig
+    from megatronapp_tpu_torch.models.convert import params_from_jax
+    from megatronapp_tpu_torch.models.gpt import gpt_forward, gpt_loss
+    from megatronapp_tpu_torch.parallel.collectives import gather_from_tp
+    from megatronapp_tpu_torch.parallel.sharding import (
+        gather_leaf, segment_counts, tp_dim,
+    )
+    from megatronapp_tpu_torch.training.distributed_optimizer import (
+        DistributedOptimizer,
+    )
+    from megatronapp_tpu_torch.training.train import dp_rows
+    cfg = case["cfg"]
+    params = params_from_jax(case["params"], cfg, ctx=ctx)
+    params.requires_grad_(True)
+    opt = DistributedOptimizer(OptimizerConfig(), 10, ctx)
+    named = dict(params.named_parameters())
+    opt.init(named)
+    opt.zero_grad()
+    batch = dp_rows(case["batch"], ctx)
+    num_micro = batch["tokens"].shape[0]
+    losses = []
+    for i in range(num_micro):
+        micro = {k: torch.from_numpy(v[i]) for k, v in batch.items()}
+        loss, _ = gpt_loss(params, micro["tokens"], micro["labels"],
+                           micro["loss_mask"], cfg, ctx=ctx)
+        loss.backward()
+        losses.append(float(loss))
+    own = {n: _np(p.grad) for n, p in named.items()
+           if ctx.tp == 1 or tp_dim(n) is None}
+    opt.reduce_grads(1.0 / num_micro)
+    segs = segment_counts(named)
+    full = {n: _np(gather_leaf(p.grad, n, segs[n], ctx))
+            for n, p in named.items()}
+    with torch.no_grad():
+        logits, _ = gpt_forward(params, torch.from_numpy(
+            batch["tokens"][0]), cfg, ctx=ctx)
+        logits = _np(gather_from_tp(logits, ctx))
+    return {"grads": full, "own": own, "losses": losses, "logits": logits}
+
+
+def _ce(case, ctx):
+    """The cross entropy of this rank's dp rows and vocabulary columns of
+    the case's logits, for each z-loss coefficient: its loss share, its
+    rows' per-token loss and d loss / d logits gathered over tp."""
+    from megatronapp_tpu_torch.ops.cross_entropy import cross_entropy_loss
+    from megatronapp_tpu_torch.parallel.collectives import all_gather_cat
+    logits, targets, mask = case["logits"], case["targets"], case["mask"]
+    rows = logits.shape[0] // ctx.dp
+    cols = logits.shape[-1] // ctx.tp
+    r = slice(ctx.dp_rank * rows, (ctx.dp_rank + 1) * rows)
+    c = slice(ctx.tp_rank * cols, (ctx.tp_rank + 1) * cols)
+    out = {}
+    for z in case["z_losses"]:
+        x = torch.from_numpy(logits[r, :, c].copy()).requires_grad_()
+        loss, tok = cross_entropy_loss(x, torch.from_numpy(targets[r]),
+                                       torch.from_numpy(mask[r]), z,
+                                       ctx=ctx)
+        loss.backward()
+        out[z] = {"loss": float(loss), "per_token": _np(tok),
+                  "grad": _np(all_gather_cat(x.grad, ctx, "tp", -1))}
+    return out
+
+
+def _train(case, ctx):
+    """pretrain_gpt on the case's grid from the case's params (or the
+    seeded init) on mock data: per-step metrics, and the params and
+    moments this rank holds."""
+    from megatronapp_tpu_torch.models.convert import params_from_jax
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    cfg = case["cfg"]
+    params = (None if case.get("params") is None
+              else params_from_jax(case["params"], cfg, ctx=ctx))
+    res = pretrain_gpt(cfg, case["train"], case["opt"], device="cpu",
+                       params=params, ctx=ctx, log_fn=lambda s: None,
+                       batch_iter=case.get("batch_iter"))
+    out = {"losses": [m["loss"] for m in res.log],
+           "grad_norms": [m["grad_norm"] for m in res.log],
+           "mtp_losses": [m.get("mtp_loss") for m in res.log],
+           "interrupted": res.interrupted, "step": res.state.step,
+           "eval_losses": res.eval_losses}
+    if case.get("flat"):
+        out["params"] = _np(torch.cat([p.reshape(-1) for p in
+                                       res.state.params.parameters()]))
+        out["mu"] = _np(res.state.opt_state["mu"])
+        out["nu"] = _np(res.state.opt_state["nu"])
+    return out
+
+
+def _roundtrip(case, ctx):
+    """shard_tree then gather_tree of the case's full tree, bitwise."""
+    from megatronapp_tpu_torch.models.convert import params_from_jax
+    from megatronapp_tpu_torch.parallel.sharding import (
+        gather_tree, shard_tree,
+    )
+    full = params_from_jax(case["params"], case["cfg"])
+    local = shard_tree(full, ctx)
+    back = dict(gather_tree(local, ctx).named_parameters())
+    return {"same": {n: bool(torch.equal(back[n], p))
+                     for n, p in full.named_parameters()},
+            "local_shapes": {n: tuple(p.shape)
+                             for n, p in local.named_parameters()}}
+
+
+class _SignalAt:
+    """A global-batch stream that sends this process SIGTERM when batch
+    `at` is taken (one rank's preemption notice)."""
+
+    def __init__(self, inner, at):
+        self.inner, self.at, self.n = inner, at, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.n += 1
+        if self.n == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return next(self.inner)
+
+
+def _signal(case, ctx, rank):
+    from megatronapp_tpu_torch.data.mock import mock_batches
+    tc = case["train"]
+    stream = mock_batches(tc.seq_length, case["cfg"].vocab_size,
+                          tc.global_batch_size, seed=tc.seed)
+    if rank == case["signal_rank"]:
+        stream = _SignalAt(stream, case["signal_at"])
+    return _train(dict(case, batch_iter=stream), ctx)
+
+
+def _trace(case, ctx):
+    from megatronapp_tpu_torch.parallel import collectives
+    collectives.reset_counts()
+    out = _train(case, ctx)
+    out["traffic"] = {k: dict(v) for k, v in collectives.traffic.items()}
+    return out
+
+
+KINDS = {"grads": _grads, "train": _train, "roundtrip": _roundtrip,
+         "trace": _trace, "ce": _ce}
+
+
+def run_rank(rank, store, cases, out_q):
+    torch.set_num_threads(1)
+    report = {}
+    try:
+        for case in cases:
+            if rank >= case["world"]:
+                continue
+            ctx = _grid(case, rank, store)
+            try:
+                if case["kind"] == "signal":
+                    report[case["name"]] = _signal(case, ctx, rank)
+                else:
+                    report[case["name"]] = KINDS[case["kind"]](case, ctx)
+            finally:
+                ctx.close()
+    except Exception as e:  # noqa: BLE001 — reported to the test
+        import traceback
+        report = {"error": f"{e!r}\n{traceback.format_exc()}"}
+    out_q.put((rank, report))
+
+
+def start_ranks(world, store, cases):
+    """Start ``run_rank`` on `world` spawned processes (the caller may
+    work meanwhile); ``collect`` waits for their reports."""
+    import multiprocessing
+    mp = multiprocessing.get_context("spawn")
+    q = mp.Queue()
+    procs = [mp.Process(target=run_rank, args=(r, store, cases, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, q
+
+
+def collect(started, timeout=300):
+    """[report of rank r] of started ranks. Raises with a rank's
+    traceback if one failed."""
+    procs, q = started
+    world = len(procs)
+    out = {}
+    try:
+        for _ in range(world):
+            rank, rep = q.get(timeout=timeout)
+            out[rank] = rep
+    finally:
+        for p in procs:
+            p.join(timeout=timeout)
+            if p.is_alive():
+                p.kill()
+    for rank, rep in out.items():
+        if "error" in rep:
+            raise RuntimeError(f"rank {rank} failed: {rep['error']}")
+    return [out[r] for r in range(world)]
+
+
+def spawn_ranks(world, store, cases, timeout=300):
+    """start_ranks, then collect."""
+    return collect(start_ranks(world, store, cases), timeout)
+
+
+def np_tree(tree):
+    """A JAX param tree as nested dicts of numpy arrays (picklable)."""
+    if isinstance(tree, dict):
+        return {k: np_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
