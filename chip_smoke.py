@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, all 32 llama3-8b layers
-    python3 chip_smoke.py --layers 4 # the same with the served depth cut
+    python3 chip_smoke.py            # every phase, dense llama3-8b
+                                     # served at 16 of 32 layers
+    python3 chip_smoke.py --layers 32 # the dense served depth whole
     python3 chip_smoke.py --phases train_tp  # the device phase and these
 
 Phases, each printing one JSON line:
@@ -150,7 +151,8 @@ Phases, each printing one JSON line:
             at a near-tie), each payload within SCOPE_REF_TOL of its RMS;
             on the card capture on against off and a scale-0
             disturbance of every site against none, bit for bit.
-7. serve:   llama3-8b at full width (random bf16 weights from a seed) behind
+7. serve:   llama3-8b at full width, --layers deep (default 16; random
+            bf16 weights from a seed) behind
             the continuous-batching driver: 8 concurrent greedy requests,
             checked for length, vocabulary, launch counts, a prefix-cache
             hit and a rerun that repeats the streams.
@@ -225,15 +227,28 @@ Phases, each printing one JSON line:
    train_tp: data- and tensor-parallel pretraining: pretrain_gpt on 4
             spawned ranks (dp 2 x tp 2, ZeRO-1) sharing cuda:0 over
             gloo, llama3-8b at full width, 2 layers, S 4096, global batch
-            4, 3 steps, seeded mock data, after the same run on one rank
+            4, 2 steps, seeded mock data, after the same run on one rank
             on the card (freed before the spawn): per-step loss and grad
             norm within 1e-3 of one rank's, every rank's metrics equal,
-            each rank's flash launches (2 layers x 2 micro-batches x 3
+            each rank's flash launches (2 layers x 2 micro-batches x 2
             steps) and collectives by kind and axis exactly the
             reckoning's, peak memory and step wall (not parallel speed),
             which gloo collectives take CUDA tensors, and one traced
             iteration's collective events merged across ranks through
             the dependency pass and detect's stage 2.
+   train_pp: pipeline-parallel pretraining: pretrain_gpt on llama3-8b at
+            full width, 4 layers, S 4096, global batch 4 of micro-batches
+            of 1 (M 4), 3 steps, seeded mock data, in three runs: one rank
+            in a spawned process of its own (the yardstick), pp 2 x vpp 2
+            (1F1B interleaved) on 2 spawned ranks and pp 2 x tp 2
+            zero-bubble on 4, the ranks sharing cuda:0 over gloo (never
+            pipeline speed). Per-step loss and grad norm within 1e-3 of
+            one rank's, every rank's metrics equal, each rank's flash
+            launches (zero-bubble: the B and W recomputes included) and
+            stage hops and their bytes exactly the tables' reckoning, peak
+            memory and step wall, and each run's traced iteration 0 merged
+            across ranks: stage_step_gaps samples for both stages, taken
+            by the Planner.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
@@ -255,7 +270,8 @@ Phases, each printing one JSON line:
             and the kernels a call launches; the whole two-shard body
             against the single-device latent kernel.
 
-Then the kernel table as one JSON line, the card's name and power limit,
+Then each phase's seconds, the kernel table as one JSON line, the card's
+name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line. The script needs the repository beside it and a
 CUDA device: it never falls back to the CPU.
@@ -2279,8 +2295,8 @@ def _lora_bound(kind, ids, din, dout, rank, targets=1):
 def _lora_times(state):
     """The shrink and expand kernels at the five llama3-8b targets, 8
     decode rows (LORA_DECODE_IDS) and a 32-row chunk of one adapter, rank
-    8, rotating through serve_lora's 32 layers of banks (their factors
-    span the bank bytes, beyond L2). Per target: the shrink, the expand
+    8, rotating through serve_lora's layers of banks (their factors span
+    the bank bytes, ~6 MB a layer: beyond L2 at 16 layers). Per target: the shrink, the expand
     (of a fixed t) and the delta (the two, as lora_delta launches them),
     each beside its plain version, its bound and, as a yardstick the port
     never calls, torch.bmm on factors gathered per row in advance (the
@@ -2427,8 +2443,8 @@ def _lora_times(state):
         cache.release(cache.slot_of(aid))
     cl.launches.update(before)
     state["lora_times"] = out
-    return {"note": "device ms per call (device_ms), 32 layers of banks "
-                    "rotated; library_ms: torch.bmm on per-row factors "
+    return {"note": "device ms per call (device_ms), serve_lora's layers "
+                    "of banks rotated; library_ms: torch.bmm on per-row factors "
                     "gathered in advance (the gather untimed; the delta: "
                     "two bmm; no single PyTorch call computes the segmented "
                     "delta); layer_sum: one layer's launches as the unfused "
@@ -4106,7 +4122,7 @@ def phase_serve_tp(state, layers: int):
     and serve_mla (the same seed on the same card) and checks them by an
     all-reduced checksum against the parent's, then the lead drives the
     serve phases' 8 requests through the driver while the follower steps
-    in lockstep: llama3_8b(multi_latent_attention=True) at all 32 layers
+    in lockstep: llama3_8b(multi_latent_attention=True) at MLA_LAYERS
     on bf16, int8 and fp8 latent pools (rows 8 and 9), and the dense
     llama3-8b at --layers on a bf16 pool (row 1 on 4 of the 8 kv heads a
     rank). Two ranks time-share one card and gloo stages every collective
@@ -5341,7 +5357,8 @@ def phase_train(state, layers: int):
 # train_tp: llama3-8b at full width, TP_LAYERS deep, on TP_WORLD ranks
 # (dp 2 x tp 2) sharing cuda:0 over gloo, against one rank on the card.
 TP_LAYERS, TP_WORLD, TP_DEGREE = 2, 4, 2
-TP_SEQ, TP_GBS, TP_STEPS = 4096, 4, 3
+# 2 steps (3 until the pipeline phase joined: the script's time limit).
+TP_SEQ, TP_GBS, TP_STEPS = 4096, 4, 2
 # The one-rank gates (PERF.md section 2): per-step loss and grad norm
 # relative to one rank's on the same weights and batches. The first chip
 # run met them with 3.0e-5 and 9.1e-5 (the bf16 partial products summed
@@ -5431,13 +5448,17 @@ def _train_tp_rank(rank, init_method, plan, out_q):
 
 
 def _train_tp_one_rank(rank, init_method, plan, out_q):
-    """train_tp's yardstick: the same run on one rank, in a spawned
-    process on cuda:0, so that the parent keeps none of its memory."""
+    """train_tp's (and train_pp's) yardstick: the same run on one rank, in
+    a spawned process on cuda:0, so that the parent keeps none of its
+    memory. plan: {"layers": depth, "steps": n} (default TP_LAYERS,
+    TP_STEPS)."""
     try:
         from megatronapp_tpu_torch.training.train import pretrain_gpt
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        cfg, train_cfg, opt_cfg = _train_tp_configs()
+        cfg, train_cfg, opt_cfg = _train_tp_configs(
+            layers=(plan or {}).get("layers", TP_LAYERS),
+            steps=(plan or {}).get("steps", TP_STEPS))
         t0 = time.perf_counter()
         res = pretrain_gpt(cfg, train_cfg, opt_cfg, device="cuda",
                            log_fn=lambda s: None)
@@ -5490,17 +5511,20 @@ def _spawn_train_tp(target, world, init_method, plan):
     return reps
 
 
-def _train_tp_configs(trace_dir=None):
+def _train_tp_configs(trace_dir=None, layers=TP_LAYERS, steps=TP_STEPS):
+    """train_tp's and train_pp's run: llama3-8b at full width, `layers`
+    deep, S 4096, global batch 4 of 1, `steps` steps (iteration 0 traced
+    into trace_dir when given)."""
     from megatronapp_tpu_torch.config.training_config import (
         OptimizerConfig, TrainingConfig,
     )
     from megatronapp_tpu_torch.models.presets import llama3_8b
     trace = {} if trace_dir is None else dict(
-        trace=True, trace_dir=trace_dir, trace_interval=TP_STEPS + 1,
+        trace=True, trace_dir=trace_dir, trace_interval=steps + 1,
         continuous_trace_iterations=1)
-    return (llama3_8b(num_layers=TP_LAYERS),
+    return (llama3_8b(num_layers=layers),
             TrainingConfig(micro_batch_size=1, global_batch_size=TP_GBS,
-                           seq_length=TP_SEQ, train_iters=TP_STEPS,
+                           seq_length=TP_SEQ, train_iters=steps,
                            log_interval=1, seed=1234, **trace),
             OptimizerConfig())
 
@@ -5586,7 +5610,7 @@ def _tp_expected_traffic(rep, cfg):
 def phase_train_tp(state):
     """Data- and tensor-parallel pretraining (pretrain_gpt on a dp 2 x
     tp 2 grid, ZeRO-1) of llama3-8b at full width, TP_LAYERS deep, S
-    4096, global batch 4 of micro-batches of 1, 3 steps, seeded mock
+    4096, global batch 4 of micro-batches of 1, TP_STEPS steps, seeded mock
     data: first the same run on one rank on the card, in a spawned
     process of its own, then 4 spawned ranks sharing cuda:0 over gloo. Per-step loss
     and grad norm against one rank's, each rank's flash launches (layers
@@ -5709,6 +5733,214 @@ def phase_train_tp(state):
           f"train_tp: detect's stage 2 gave {stage2}, not a verdict for "
           f"each of the {TP_WORLD} ranks")
 
+
+# ---- train_pp ----------------------------------------------------------------
+
+PP_LAYERS, PP_STEPS = 4, 3
+# Each run: its rank count and ParallelConfig fields.
+PP_RUNS = {
+    "pp2_vpp2": (2, dict(pipeline_parallel=2, virtual_pipeline_parallel=2)),
+    "pp2_tp2_zb": (4, dict(pipeline_parallel=2, tensor_parallel=2,
+                           pp_schedule="zero-bubble")),
+}
+# Against one rank (PERF.md's reasoning, written before the first run):
+# each stage runs one rank's kernels on the same bf16 residual stream
+# (the hop moves its bits through host memory unchanged), so what differs
+# is the head's token mean over all M in one step against the mean of M
+# microbatch means (equal at all-ones masks up to fp32 rounding), the
+# power-of-two 1/M scale taken before the bf16 backward instead of after
+# it, the fp32 order in which the microbatches' grads add up, and under
+# tp 2 the tp all-reduces' bf16 partial sums (train_tp met 3.0e-5 /
+# 9.1e-5 against one rank).
+PP_LOSS_TOL, PP_NORM_TOL = 1e-3, 1e-3
+
+
+def _train_pp_rank(rank, init_method, plan, out_q):
+    """One rank of a train_pp run (a spawned process on cuda:0)."""
+    try:
+        rep = _train_pp_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _train_pp_rank_run(rank, init_method, plan):
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan["device"])
+    world, par = PP_RUNS[plan["run"]]
+    ctx = build_mesh(ParallelConfig(**par), rank=rank,
+                     init_method=init_method, device=dev, world_size=world,
+                     timeout_s=TP_TIMEOUT_S)
+    out = {"stage": ctx.pp_rank, "dp_rank": ctx.dp_rank,
+           "tp_rank": ctx.tp_rank, "vpp": ctx.vpp}
+    cfg, train_cfg, opt_cfg = _train_tp_configs(plan["trace_dir"],
+                                                layers=PP_LAYERS,
+                                                steps=PP_STEPS)
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    # The main path: counts zeroed just before, read just after.
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    res = pretrain_gpt(cfg, train_cfg, opt_cfg, ctx=ctx,
+                       log_fn=lines.append)
+    torch.cuda.synchronize()
+    out.update(
+        wall_s=time.perf_counter() - t0, launches=dict(fa.launches),
+        traffic={k: dict(v) for k, v in collectives.traffic.items()},
+        losses=[m["loss"] for m in res.log],
+        grad_norms=[m["grad_norm"] for m in res.log],
+        step_ms=[m["step_time_ms"] for m in res.log],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        local_params=sum(p.numel() for p in res.state.params.parameters()),
+        layers=sorted({int(n.split(".")[1]) for n, _ in
+                       res.state.params.named_parameters()
+                       if n.startswith("layers.")}),
+        log=lines)
+    del res
+    ctx.close()
+    return out
+
+
+def _pp_expected(rep, par):
+    """A rank's flash launches and hops for PP_STEPS steps, reckoned from
+    the schedule: a stage holds L / pp layers, each micro-batch passes all
+    of them once (F); the 1F1B backward runs each once more (dq and dk/dv;
+    the "selective" policy recomputes nothing), zero-bubble's B and W each
+    recompute the forward and run the backward. Hops a step: the forward
+    sends every F output but the last stage's last chunk (M vpp - M on the
+    last stage, M vpp elsewhere), the backward every input cotangent but
+    stage 0's chunk 0; a stage receives what its neighbours send. Each hop
+    is one micro-batch's bf16 [1, S, H] stream."""
+    pp = par["pipeline_parallel"]
+    vpp = par.get("virtual_pipeline_parallel", 1)
+    zb = par.get("pp_schedule") == "zero-bubble"
+    micro = TP_GBS
+    work = PP_LAYERS // pp * micro * PP_STEPS
+    launches = ({"fwd": 3 * work, "bwd_dq": 2 * work, "bwd_dkv": 2 * work}
+                if zb else dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"), work))
+    s = rep["stage"]
+    hidden = _train_tp_configs(layers=PP_LAYERS)[0].hidden_size
+    hops = PP_STEPS * (2 * micro * vpp - micro * ((s == 0)
+                                                  + (s == pp - 1)))
+    hop_bytes = TP_SEQ * hidden * 2
+    return launches, {k: {"calls": hops, "bytes": hops * hop_bytes}
+                      for k in ("send/pp", "recv/pp")}
+
+
+def phase_train_pp(state):
+    """Pipeline-parallel pretraining (see the module docstring): the
+    one-rank yardstick, then each PP_RUNS grid on ranks sharing cuda:0."""
+    import gc
+    import shutil
+    import tempfile
+
+    from megatronapp_tpu_torch.parallel.schedule import Planner
+    from megatronapp_tpu_torch.trace.aggregate import (
+        collect_benchmark_files, read_benchmark_file,
+    )
+    from megatronapp_tpu_torch.trace.detect import stage_step_gaps
+
+    for key in list(state):
+        if key in ("model", "qmodel", "mla_model", "lora_cache",
+                   "lora_registry", "train_model"):
+            state.pop(key)
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None,
+                               {"layers": PP_LAYERS, "steps": PP_STEPS})[0]
+    check("error" not in one_rank, f"train_pp: the one-rank run failed: "
+          f"{one_rank.get('error')}")
+    runs = {}
+    for name, (world, par) in PP_RUNS.items():
+        tmp = tempfile.mkdtemp(prefix="train_pp_")
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        reps = _spawn_train_tp(
+            _train_pp_rank, world, f"file://{os.path.join(tmp, 'store')}",
+            {"run": name, "trace_dir": trace_dir, "device": "cuda:0"})
+        spawn_wall = time.perf_counter() - t0
+        for rank, rep in reps.items():
+            check("error" not in rep, f"train_pp {name}: rank {rank} "
+                  f"failed: {rep.get('error')}")
+        files = collect_benchmark_files(trace_dir)
+        events = [e for f in files for e in read_benchmark_file(f)
+                  if e.get("name") == "pp-overlap-permute"]
+        shutil.rmtree(tmp, ignore_errors=True)
+        gaps = stage_step_gaps(events)
+        ingested = Planner(par["pipeline_parallel"],
+                           vpp=par.get("virtual_pipeline_parallel", 1)
+                           ).ingest_trace_events(events)
+        r0 = reps[0]
+        rel = [{"loss": abs(a - b) / abs(b),
+                "grad_norm": abs(c - d) / abs(d)}
+               for a, b, c, d in zip(r0["losses"], one_rank["losses"],
+                                     r0["grad_norms"],
+                                     one_rank["grad_norms"])]
+        expected = {r: _pp_expected(rep, par)
+                    for r, rep in reps.items()}
+        runs[name] = {
+            "world": world, "parallel": par, "rel_err": rel,
+            "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+            "spawn_wall_s": spawn_wall,
+            "trace": {"files": len(files), "hop_spans": len(events),
+                      "ops": sorted({e["args"]["op"] for e in events}),
+                      "gap_samples": {s: len(g) for s, g in gaps.items()},
+                      "median_gap_ms": {
+                          s: sorted(g)[len(g) // 2] * 1e3
+                          for s, g in gaps.items() if g},
+                      "planner_ingested": ingested},
+            "ranks": {r: {k: rep.get(k) for k in (
+                "stage", "dp_rank", "tp_rank", "layers", "launches",
+                "traffic", "peak_mem_bytes", "step_ms", "wall_s",
+                "local_params")} for r, rep in sorted(
+                    reps.items())},
+            "expected": {r: {"launches": e[0], "hops": e[1]}
+                         for r, e in expected.items()},
+            "log_rank0": r0["log"]}
+        for r, rep in reps.items():
+            check(rep["losses"] == r0["losses"]
+                  and rep["grad_norms"] == r0["grad_norms"],
+                  f"train_pp {name}: rank {r}'s metrics differ from rank "
+                  "0's")
+            launches, hops = expected[r]
+            check(rep["launches"] == launches, f"train_pp {name}: rank {r} "
+                  f"launched {rep['launches']}; the reckoning is {launches}")
+            got = {k: rep["traffic"].get(k) for k in hops}
+            check(got == hops, f"train_pp {name}: rank {r}'s hops {got} "
+                  f"are not the reckoning's {hops}")
+        check(all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+              f"train_pp {name}: non-finite metrics")
+        for e in rel:
+            check(e["loss"] < PP_LOSS_TOL and e["grad_norm"] < PP_NORM_TOL,
+                  f"train_pp {name}: against one rank: relative errors {e}")
+        check(len(files) == world and set(gaps) == {0, 1}
+              and all(gaps.values()) and ingested == sum(
+                  len(g) for g in gaps.values()),
+              f"train_pp {name}: the merged trace's hop gaps "
+              f"{runs[name]['trace']} do not give the planner samples for "
+              "both stages")
+        del reps
+    emit({"phase": "train_pp", "model": "llama3-8b", "layers": PP_LAYERS,
+          "full_width": True, "seq_length": TP_SEQ, "micro_batch_size": 1,
+          "global_batch_size": TP_GBS, "steps": PP_STEPS,
+          "note": "ranks share cuda:0 over gloo: never pipeline speed",
+          "tolerances": {"loss": PP_LOSS_TOL, "grad_norm": PP_NORM_TOL},
+          "one_rank": one_rank, "runs": runs,
+          "phase_s": time.perf_counter() - t_phase})
 
 def _related_set_faults(events, coll, related):
     """What the dependency pass got wrong on a merged trace of a grid:
@@ -7120,9 +7352,10 @@ def kernel_table(state):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=32,
+    ap.add_argument("--layers", type=int, default=16,
                     help="llama3-8b depth for the serve and profile phases "
-                         "(widths are never cut)")
+                         "(widths are never cut; 16 of 32 keeps the whole "
+                         "script inside its time limit on a slow host)")
     ap.add_argument("--train-layers", type=int, default=4,
                     help="llama3-8b depth for the train phase (full width; "
                          "full depth does not fit one card's 80 GB with "
@@ -7186,15 +7419,22 @@ def main(argv=None) -> int:
         ("tp_times", lambda: phase_tp_times(state)),
         ("serve_tp", lambda: phase_serve_tp(state, args.layers)),
         ("train_tp", lambda: phase_train_tp(state)),
+        ("train_pp", lambda: phase_train_pp(state)),
     ]
     wanted = None if args.phases is None else set(args.phases.split(","))
+    seconds = {}
     try:
         for name, run in phases:
             if name == "device" or wanted is None or name in wanted:
+                t0 = time.perf_counter()
                 run()
+                seconds[name] = round(time.perf_counter() - t0, 1)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # Where the script's time limit goes, phase by phase (host clock).
+    emit({"phase_seconds": seconds, "total_s": round(sum(seconds.values()),
+                                                     1)})
     emit(kernel_table(state))
     print(state.get("smi") or nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,11 +2,13 @@
 ``config/parallel_config.py`` fields, names and ``__post_init__`` checks.
 
 Ported axes: tensor parallelism (paged serving under ``--serve-tp``, and
-training) and data parallelism with the ZeRO-1 distributed optimizer
-(training). The port runs one process a rank, so ``infer_data_parallel``
-divides a process count where JAX divides a device count. The other axes
-raise when they are set away from their defaults, each naming the
-ROADMAP.md item that ports it.
+training), data parallelism with the ZeRO-1 distributed optimizer and
+pipeline parallelism (training: 1F1B, interleaved VPP, zero-bubble, the
+'dfc' / 'bfc' chunk orders and the trace-driven planner). The port runs
+one process a rank, so ``infer_data_parallel`` divides a process count
+where JAX divides a device count. The other axes raise when they are set
+away from their defaults, each naming the ROADMAP.md item that ports
+it.
 """
 
 from __future__ import annotations
@@ -16,10 +18,6 @@ from typing import Optional
 
 # Fields of axes the port lacks → (their flag, the ROADMAP.md item).
 UNPORTED_PARALLEL_FIELDS = {
-    "pipeline_parallel": ("--pipeline-model-parallel-size",
-                          "Queue 1 item 4 (PP and VPP)"),
-    "virtual_pipeline_parallel": ("--num-layers-per-virtual-pipeline-stage",
-                                  "Queue 1 item 4 (PP and VPP)"),
     "context_parallel": ("--context-parallel-size",
                          "Queue 1 item 4 (CP)"),
     "expert_parallel": ("--expert-model-parallel-size",
@@ -28,8 +26,10 @@ UNPORTED_PARALLEL_FIELDS = {
     "forward_backward_disaggregating": (
         "--forward-backward-disaggregating", "Queue 1 item 5 (MegaFBD)"),
     "use_dpp": ("--use-dpp", "Queue 1 item 5 (MegaDPP)"),
-    "pp_schedule": ("--pp-schedule", "Queue 1 item 4 (PP and VPP)"),
 }
+
+# The pipeline schedule programs (parallel/schedule.py SCHEDULES).
+PP_SCHEDULES = ("1f1b", "vpp", "zero-bubble")
 
 
 @dataclasses.dataclass
@@ -44,7 +44,18 @@ class ParallelConfig:
 
     data_parallel: None infers it from the rank count
     (``infer_data_parallel``); distributed_optimizer: ZeRO-1, on by
-    default as in JAX."""
+    default as in JAX.
+
+    Pipelines: virtual_pipeline_parallel model chunks a stage;
+    pipeline_order_policy 'dfc' (depth-first chunks: the interleaved
+    schedule) or 'bfc' (breadth-first: vpp sequential single-chunk
+    passes); pp_schedule '1f1b' (interleaved when vpp > 1), 'vpp' (the
+    same program, requiring vpp > 1) or 'zero-bubble' (the backward
+    split into dgrad and wgrad instructions); pp_plan_from_trace lets
+    parallel/schedule.py's Planner re-plan the schedule from the traced
+    ring-hop spans. JAX's num_microbatches field, which nothing there
+    reads, is left out: the trainer takes the count from the batch sizes
+    (TrainingConfig)."""
 
     tensor_parallel: int = 1
     pipeline_parallel: int = 1
@@ -56,8 +67,10 @@ class ParallelConfig:
     distributed_optimizer: bool = True
     fsdp: bool = False
     forward_backward_disaggregating: bool = False
+    pipeline_order_policy: str = "dfc"
     use_dpp: bool = False
     pp_schedule: str = "1f1b"
+    pp_plan_from_trace: bool = False
 
     def __post_init__(self):
         for name in ("tensor_parallel", "pipeline_parallel",
@@ -71,6 +84,19 @@ class ParallelConfig:
                              f"{self.data_parallel}")
         if self.sequence_parallel and self.tensor_parallel == 1:
             self.sequence_parallel = False
+        if self.pipeline_order_policy not in ("dfc", "bfc"):
+            raise ValueError(
+                f"pipeline_order_policy must be 'dfc' or 'bfc', got "
+                f"{self.pipeline_order_policy!r}")
+        if self.pp_schedule not in PP_SCHEDULES:
+            raise ValueError(
+                f"pp_schedule must be one of {PP_SCHEDULES}, "
+                f"got {self.pp_schedule!r}")
+        if self.pp_schedule == "vpp" and self.virtual_pipeline_parallel <= 1:
+            raise ValueError(
+                "pp_schedule 'vpp' requires virtual_pipeline_parallel > 1 "
+                "(--num-layers-per-virtual-pipeline-stage); plain 1F1B "
+                "is pp_schedule '1f1b'")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for name, (flag, item) in UNPORTED_PARALLEL_FIELDS.items():
             if getattr(self, name) != defaults[name]:

@@ -80,9 +80,10 @@ def _layer_leaf(v, i: int, cfg: TransformerConfig, device):
 
 def params_from_jax(tree: Mapping, cfg: TransformerConfig,
                     device="cpu", ctx=None) -> ParamTree:
-    """The port's ParamTree of the JAX tree; ctx (a training grid): this
-    tp rank's shards of it (parallel/sharding.py shard_tree)."""
-    if ctx is not None and ctx.tp > 1:
+    """The port's ParamTree of the JAX tree (the one-device layout: its
+    block stacked [L, ...]); ctx (a training grid): this rank's stage's
+    pieces and their tp shards (parallel/sharding.py shard_tree)."""
+    if ctx is not None and (ctx.tp > 1 or ctx.pp > 1):
         from megatronapp_tpu_torch.parallel.sharding import shard_tree
         return shard_tree(params_from_jax(tree, cfg, device), ctx)
     for name, val in tree.items():

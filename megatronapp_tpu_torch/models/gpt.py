@@ -1,6 +1,7 @@
 """GPT model (the JAX package's models/gpt.py): init, the embedding, the
-rope tables, the head, and the training forward and loss (with the MTP
-heads' auxiliary loss, transformer/mtp.py).
+rope tables, the head, the training forward and loss (with the MTP
+heads' auxiliary loss, transformer/mtp.py), and the pipelined loss of a
+pp grid's stage (``gpt_pipeline_loss``).
 
 Under a rank grid (``ctx``, training) the params are this tp rank's
 shards (parallel/sharding.py): the word embedding is vocab-parallel (a
@@ -24,7 +25,9 @@ from megatronapp_tpu_torch.ops.normalization import apply_norm
 from megatronapp_tpu_torch.parallel.collectives import (
     copy_to_tp, reduce_from_tp,
 )
-from megatronapp_tpu_torch.parallel.sharding import shard_tree
+from megatronapp_tpu_torch.parallel.sharding import (
+    MTP_UNDER_PP, shard_tree, stage_layer_ids,
+)
 from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.block import (
     block_forward, init_layer_params,
@@ -41,27 +44,51 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
     mtp.d.* (the MTP depth modules) when cfg.mtp_num_layers.
 
     ctx: a training grid; each piece (the embedding, the output layer,
-    each layer) is drawn whole, in the one-device order, cut to this tp
+    each layer) is drawn whole, in the one-device order, kept only when
+    this rank's pipeline stage holds it (parallel/sharding.py: the
+    embedding on stage 0 and, tied, a copy of the word embedding on the
+    last stage; the final norm and output layer on the last stage;
+    layers.<global id> by the interleaved placement), cut to this tp
     rank's shards and dropped before the next piece is drawn. So any
-    dp × tp starts from the weights of one device, and the peak is one
-    piece."""
+    pp × dp × tp starts from the weights of one device, and the peak is
+    one piece."""
     std, dt = cfg.init_method_std, cfg.params_dtype
     h, v = cfg.hidden_size, cfg.vocab_size
+    pp = 1 if ctx is None else ctx.pp
+    tied = not cfg.untie_embeddings_and_output_weights
+    if pp > 1 and cfg.mtp_num_layers:
+        raise NotImplementedError(MTP_UNDER_PP)
     emb = {"word": normal((v, h), std, dt, generator, device)}
     if cfg.position_embedding == PositionEmbeddingKind.learned_absolute:
         emb["pos"] = normal((cfg.max_position_embeddings, h), std, dt,
                             generator, device)
-    emb = shard_tree(ParamTree(emb), ctx)
+    if pp > 1 and not ctx.is_first_stage:
+        emb = {"word": emb["word"]} if tied and ctx.is_last_stage else {}
+    emb = shard_tree(ParamTree(emb), ctx) if emb else None
     top = {"final_ln_scale": torch.ones(h, dtype=dt, device=device)}
     if cfg.normalization == NormKind.layernorm:
         top["final_ln_bias"] = torch.zeros(h, dtype=dt, device=device)
     if cfg.untie_embeddings_and_output_weights:
         top["output"] = normal((h, v), std, dt, generator, device)
+    if pp > 1 and not ctx.is_last_stage:
+        top = {}
     top = dict(shard_tree(ParamTree(top), ctx).named_parameters())
-    layers = torch.nn.ModuleList(
-        shard_tree(init_layer_params(cfg, generator, device), ctx)
-        for _ in range(cfg.num_layers))
-    children = {"embedding": emb, "layers": layers}
+    if pp > 1:
+        mine = set(stage_layer_ids(cfg.num_layers, pp, ctx.vpp,
+                                   ctx.pp_rank))
+        kept = {}
+        for i in range(cfg.num_layers):
+            layer = init_layer_params(cfg, generator, device)
+            if i in mine:
+                kept[str(i)] = shard_tree(layer, ctx)
+            del layer
+        layers = ParamTree(**kept)
+    else:
+        layers = torch.nn.ModuleList(
+            shard_tree(init_layer_params(cfg, generator, device), ctx)
+            for _ in range(cfg.num_layers))
+    children = ({"layers": layers} if emb is None
+                else {"embedding": emb, "layers": layers})
     if cfg.mtp_num_layers:
         from megatronapp_tpu_torch.transformer.mtp import init_mtp_params
         children["mtp"] = shard_tree(
@@ -215,3 +242,109 @@ def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
     loss, _ = cross_entropy_loss(logits, targets, loss_mask, ctx=ctx)
     return loss + aux + scaled, {"lm_loss": loss, "moe_aux_loss": aux,
                                  "mtp_loss": mean}
+
+
+def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
+                      schedule: str = "1f1b", order_policy: str = "dfc",
+                      grad: bool = True):
+    """The pipelined training loss (JAX models/gpt.py gpt_pipeline_loss)
+    of this rank's stage over microbatched inputs batch[k] [M, mb, S]
+    (tokens, labels, optional loss_mask and segment_ids), run by
+    parallel/pipeline.py ``run_pipeline``; grad: the backward too (the
+    params' .grad accumulate). Returns (loss, metrics) on every rank:
+    the loss on the last stage's ranks, zeros elsewhere.
+
+    Stage 0 embeds all M microbatches (vocab-parallel under tp) and
+    injects microbatch m at its chunk 0; every stage runs its chunks'
+    layers under their global ids (transformer/block.py layer_ids); the
+    last stage applies the final norm, the head and the cross entropy.
+    The loss is JAX's token mean over all M microbatches and every dp
+    rank's rows (each dp rank its share): the last stage divides each
+    microbatch's masked sum by the mask count of the whole step, so
+    uneven masks weigh tokens, not microbatches. Packed sequences
+    (segment_ids) ride as JAX's aux inputs: every stage computes its own
+    microbatch's positions, rope tables and segment masks."""
+    from megatronapp_tpu_torch.parallel.pipeline import (
+        StageProgram, run_pipeline,
+    )
+    tokens = batch["tokens"]
+    segs = batch.get("segment_ids")
+    m_count, mb, s = tokens.shape
+    if segs is not None and schedule == "zero-bubble":
+        raise NotImplementedError(
+            "--pp-schedule zero-bubble does not compose with packed "
+            "sequences (per-microbatch aux inputs) yet — run the "
+            "1f1b schedule there")
+    if cfg.mtp_num_layers:
+        raise NotImplementedError(MTP_UNDER_PP)
+    dev, dt = tokens.device, cfg.compute_dtype
+    positions = None if segs is None else packed_position_ids(
+        segs.reshape(m_count * mb, s)).reshape(m_count, mb, s)
+    if positions is None:
+        tables = [gpt_rope_tables(cfg, s, dev)] * m_count
+    else:
+        tables = [gpt_rope_tables(cfg, s, dev, positions=positions[m])
+                  for m in range(m_count)]
+    ids = stage_layer_ids(cfg.num_layers, ctx.pp, ctx.vpp, ctx.pp_rank)
+    lc = len(ids) // ctx.vpp
+    layers = [p["layers"][str(i)] for i in ids]
+
+    def chunk_fn(c, m, x):
+        cut = slice(c * lc, (c + 1) * lc)
+        cos, sin = tables[m]
+        y, _ = block_forward(layers[cut], x, cfg, cos, sin,
+                             segment_ids=None if segs is None else segs[m],
+                             ctx=ctx, layer_ids=ids[cut])
+        return y
+
+    h = None
+    if ctx.is_first_stage:
+        with torch.set_grad_enabled(grad):
+            h = gpt_embed(p, tokens.reshape(m_count * mb, s), cfg,
+                          position_ids=None if positions is None
+                          else positions.reshape(m_count * mb, s),
+                          ctx=ctx).reshape(m_count, mb, s, -1)
+
+    def embed_backward(d_inputs):
+        h.backward(torch.stack([d_inputs[m] for m in range(m_count)]))
+
+    def head(outs, want_grad):
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(tokens.shape, device=dev) if mask is None
+                else mask.float())
+        count = mask.sum()
+        if ctx.dp > 1:
+            from megatronapp_tpu_torch.parallel.collectives import (
+                all_reduce,
+            )
+            count = all_reduce(count.clone(), ctx, "dp")
+        count = count.clamp(min=1.0)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        d_outs = {}
+        for m in range(m_count):
+            o = outs[m].detach().requires_grad_(want_grad)
+            with torch.set_grad_enabled(want_grad):
+                logits = gpt_head(p, o, cfg, ctx)
+                loss_m, _ = cross_entropy_loss(
+                    logits, batch["labels"][m], mask[m], ctx=ctx,
+                    count=count)
+            if want_grad:
+                loss_m.backward()
+                d_outs[m] = o.grad
+            total = total + loss_m.detach()
+            del logits, loss_m
+        return total, d_outs
+
+    prog = StageProgram(
+        chunk_fn=chunk_fn,
+        inject=None if h is None else (lambda m: h[m].detach()),
+        inject_backward=None if h is None else embed_backward,
+        like=torch.empty((mb, s, cfg.hidden_size), dtype=dt, device=dev),
+        head=head)
+    loss = run_pipeline(ctx, prog, m_count, schedule=schedule,
+                        order_policy=order_policy, grad=grad,
+                        packed=segs is not None)
+    if loss is None:
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return loss + aux, {"lm_loss": loss, "moe_aux_loss": aux}

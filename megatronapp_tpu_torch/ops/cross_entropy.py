@@ -72,14 +72,21 @@ class _VocabParallelCrossEntropy(torch.autograd.Function):
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        loss_mask: Optional[torch.Tensor] = None,
-                       z_loss_coeff: float = 0.0, ctx=None):
+                       z_loss_coeff: float = 0.0, ctx=None,
+                       count: Optional[torch.Tensor] = None):
     """Token-mean CE. logits [B,S,V] (upcast to fp32; under a ctx with tp
     > 1 this rank's V/tp vocabulary columns), targets [B,S] int,
     loss_mask [B,S] (1 = count). Returns (loss, per_token_loss); under a
     ctx with dp > 1 the loss is this rank's share of the microbatch's
-    mean (see the module docstring)."""
+    mean (see the module docstring). count: the mean's denominator, when
+    the caller has it (the pipeline's mask count over every microbatch
+    and dp rank): the loss is then sum(per_token · mask) / count."""
     per_token = _VocabParallelCrossEntropy.apply(
         logits.float(), targets.long(), float(z_loss_coeff), ctx)
+    if count is not None:
+        mask = (torch.ones_like(per_token) if loss_mask is None
+                else loss_mask.float())
+        return (per_token * mask).sum() / count, per_token
     dp = 1 if ctx is None else ctx.dp
     if loss_mask is None:
         if dp == 1:

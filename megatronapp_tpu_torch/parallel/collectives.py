@@ -21,11 +21,30 @@ Functions, and the dp reductions of flat fp32 buffers):
 - ``gather_from_tp``: all-gather along the last dimension, the backward
   keeps this rank's slice;
 - ``all_reduce``, ``reduce_scatter``, ``all_gather_into`` and
-  ``all_gather_cat`` over one axis ("tp", "dp" or "world").
+  ``all_gather_cat`` over one axis ("tp", "dp", "pp", "embed" or
+  "world").
+
+Pipelines: ``stage_hop``, a slot's hand-off on the stage ring
+(parallel/pipeline.py): this rank's send to one neighbour stage and its
+receive from the other, both posted (the receive first) and waited under
+the grid's timeout. The caller derives from the schedule's tables which
+slots carry a hop on either side, so every send meets its receive and no
+slot ships masked data. Gloo's send of a CUDA tensor fails (its TCP pair
+writes the device pointer: "writev ... Bad address"; PERF.md §6 has
+the probe), so a hop stages through host memory: the sender
+copies its tensor to the host, the receiver copies what arrived to its
+device; on the CPU the copies are the tensors themselves. A hop inside
+a traced iteration records one MegaScan span pair 'pp-overlap-permute'
+(B before the hop, E after it) with JAX's args: op ("pp-schedule" on
+the forward, "pp-zb-bwd" on the zero-bubble backward, "pp-1f1b-bwd" on
+the 1F1B backward, a timeline of its own), rank (the stage) and step
+(the slot); trace/detect.py ``stage_step_gaps`` mines the gaps between
+them.
 
 ``calls`` counts each kind a call; ``traffic`` counts calls and result
 bytes (JAX's HLO accounting: an all-gather's gathered output, a
-reduce-scatter's shard) per "<kind>/<axis>". A group of one rank runs
+reduce-scatter's shard; a hop's sent and received tensors) per
+"<kind>/<axis>". A group of one rank runs
 nothing and counts nothing. Every collective runs under the
 group's timeout (``build_mesh(timeout_s=)``): a rank that diverges fails
 instead of hanging. Each call inside a traced iteration records one
@@ -40,13 +59,14 @@ them through host memory itself.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Tuple
+import datetime
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 calls: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
-                         "reduce_scatter": 0}
+                         "reduce_scatter": 0, "send": 0, "recv": 0}
 traffic: Dict[str, Dict[str, int]] = {}
 
 _EVENT = {"all_reduce": "all-reduce", "all_gather": "all-gather",
@@ -65,9 +85,14 @@ def _axis(ctx, axis: str) -> Tuple[Any, List[int]]:
         return ctx.group, ctx.tp_ranks
     if axis == "dp":
         return ctx.dp_group, ctx.dp_ranks
+    if axis == "pp":
+        return ctx.pp_group, ctx.pp_ranks
+    if axis == "embed":
+        return ctx.embed_group, ctx.embed_ranks
     if axis == "world":
         return ctx.world_group, list(range(ctx.world))
-    raise ValueError(f"axis {axis!r}: takes 'tp', 'dp' or 'world'")
+    raise ValueError(f"axis {axis!r}: takes 'tp', 'dp', 'pp', 'embed' or "
+                     "'world'")
 
 
 def _count(kind: str, axis: str, nbytes: int) -> None:
@@ -150,6 +175,51 @@ def all_gather_cat(x: torch.Tensor, ctx, axis: str, dim: int
     if raw is not x:
         parts = [p.view(x.dtype) for p in parts]
     return torch.cat(parts, dim=dim)
+
+
+PP_HOP_EVENT = "pp-overlap-permute"
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """t's bytes on the host (a bf16 tensor travels as its raw bytes)."""
+    t = t.detach().contiguous()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.view(torch.uint8)
+    return t.to("cpu")
+
+
+def stage_hop(ctx, send: Optional[torch.Tensor], send_to: Optional[int],
+              recv_like: Optional[torch.Tensor], recv_from: Optional[int],
+              *, op: str, step: int, tag: int = 0
+              ) -> Optional[torch.Tensor]:
+    """One slot's hand-off on the stage ring: `send` to global rank
+    `send_to` and a tensor shaped like `recv_like` from `recv_from` (each
+    None when this slot carries no hop on that side). Returns what was
+    received, on recv_like's device (None without a receive). op and
+    step: the MegaScan span's args (module docstring); tag: one per
+    direction of the ring."""
+    if send is None and recv_like is None:
+        return None
+    from megatronapp_tpu_torch.trace.tracer import get_tracer
+    timeout = datetime.timedelta(seconds=ctx.timeout_s)
+    with get_tracer().scope(PP_HOP_EVENT, op=op, rank=ctx.pp_rank,
+                            step=int(step)):
+        works, buf = [], None
+        if recv_like is not None:
+            buf = _raw(torch.empty_like(recv_like, device="cpu"))
+            works.append(dist.irecv(buf, src=recv_from, tag=tag))
+            _count("recv", "pp", _nbytes(buf))
+        if send is not None:
+            raw = _raw(send)
+            works.append(dist.isend(raw, dst=send_to, tag=tag))
+            _count("send", "pp", _nbytes(raw))
+        for w in works:
+            w.wait(timeout=timeout)
+        if buf is None:
+            return None
+        if recv_like.dtype in (torch.bfloat16, torch.float16):
+            buf = buf.view(recv_like.dtype)
+        return buf.view(recv_like.shape).to(recv_like.device)
 
 
 def psum(x: torch.Tensor, ctx) -> torch.Tensor:

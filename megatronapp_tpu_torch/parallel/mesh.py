@@ -3,11 +3,16 @@
 
 JAX runs one controller over a device mesh with the axes pp, dp, ep, cp,
 tp (tp innermost); the port runs one process a rank, joined by
-``torch.distributed`` process groups, and takes the dp × tp part of that
-order: rank = dp_index · tp + tp_index. ``build_mesh`` joins the world
-group and builds one tp group per dp index and one dp group per tp index.
-The tp-only grid of tensor-parallel serving (``--serve-tp``) is the case
-dp = 1, whose tp group is the world.
+``torch.distributed`` process groups, and takes the pp × dp × tp part of
+that order: rank = (pp_index · dp + dp_index) · tp + tp_index.
+``build_mesh`` joins the world group and builds one tp group per (pp,
+dp) index, one dp group per (pp, tp), one pp group (the stage ring) per
+(dp, tp) and, at pp > 1, one embedding group of the first and last
+stages per (dp, tp): a tied embedding's two copies sum their grads there
+(JAX keeps the embedding replicated over pp). The tp-only grid of
+tensor-parallel serving (``--serve-tp``) is the case pp = dp = 1, whose
+tp group is the world; a dp × tp grid (pp 1) gets the groups it had
+before pipelines.
 
 The backend is gloo: it carries CUDA tensors (staged through host memory
 by gloo itself) and CPU tensors alike, and unlike NCCL it takes several
@@ -37,8 +42,9 @@ DEFAULT_TIMEOUT_S = 300.0
 @dataclasses.dataclass
 class MeshContext:
     """One rank's view of the grid: its tp group (``group``), the degrees,
-    its global rank, the device it computes on, and for training its dp
-    group and the world group (None where the axis has one rank)."""
+    its global rank, the device it computes on, and for training its dp,
+    pp and embedding groups and the world group (None where the axis has
+    one rank)."""
 
     group: dist.ProcessGroup
     parallel: ParallelConfig
@@ -48,6 +54,8 @@ class MeshContext:
     timeout_s: float = DEFAULT_TIMEOUT_S
     dp_group: Optional[dist.ProcessGroup] = None
     world_group: Optional[dist.ProcessGroup] = None
+    pp_group: Optional[dist.ProcessGroup] = None
+    embed_group: Optional[dist.ProcessGroup] = None
 
     @property
     def tp(self) -> int:
@@ -59,11 +67,15 @@ class MeshContext:
 
     @property
     def pp(self) -> int:
-        return 1
+        return self.parallel.pipeline_parallel
+
+    @property
+    def vpp(self) -> int:
+        return self.parallel.virtual_pipeline_parallel
 
     @property
     def world(self) -> int:
-        return self.tp * self.dp
+        return self.tp * self.dp * self.pp
 
     @property
     def num_devices(self) -> int:
@@ -75,7 +87,20 @@ class MeshContext:
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.tp
+        return self.rank // self.tp % self.dp
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's pipeline stage."""
+        return self.rank // (self.tp * self.dp)
+
+    @property
+    def is_first_stage(self) -> bool:
+        return self.pp_rank == 0
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.pp_rank == self.pp - 1
 
     @property
     def tp_group(self):
@@ -84,13 +109,36 @@ class MeshContext:
     @property
     def tp_ranks(self) -> List[int]:
         """The global ranks of this rank's tp group, in tp order."""
-        base = self.dp_rank * self.tp
+        base = (self.pp_rank * self.dp + self.dp_rank) * self.tp
         return list(range(base, base + self.tp))
 
     @property
     def dp_ranks(self) -> List[int]:
         """The global ranks of this rank's dp group, in dp order."""
-        return list(range(self.tp_rank, self.world, self.tp))
+        base = self.pp_rank * self.dp * self.tp + self.tp_rank
+        return list(range(base, base + self.dp * self.tp, self.tp))
+
+    @property
+    def pp_ranks(self) -> List[int]:
+        """The global ranks of this rank's stage ring, in stage order."""
+        return list(range(self.dp_rank * self.tp + self.tp_rank, self.world,
+                          self.dp * self.tp))
+
+    @property
+    def embed_ranks(self) -> List[int]:
+        """The first and the last stage's ranks of this (dp, tp) index."""
+        ring = self.pp_ranks
+        return [ring[0], ring[-1]]
+
+    @property
+    def next_rank(self) -> int:
+        """The global rank of the next stage (the last stage's is stage
+        0: the chunk hand-off of the interleaved schedule)."""
+        return self.pp_ranks[(self.pp_rank + 1) % self.pp]
+
+    @property
+    def prev_rank(self) -> int:
+        return self.pp_ranks[(self.pp_rank - 1) % self.pp]
 
     @property
     def is_lead(self) -> bool:
@@ -116,16 +164,16 @@ def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
                device=None, backend: str = "gloo",
                timeout_s: float = DEFAULT_TIMEOUT_S,
                world_size: Optional[int] = None) -> MeshContext:
-    """Join the grid as `rank` of `world_size` ranks (default: the tp
-    degree, the serving grid); dp = world_size / tp
+    """Join the grid as `rank` of `world_size` ranks (default: tp · pp,
+    the serving grid at pp 1); dp = world_size / (tp · pp)
     (``infer_data_parallel``). init_method: where the ranks meet,
     ``tcp://localhost:<port>``, ``env://`` (the launcher's MASTER_ADDR
     and MASTER_PORT) or ``file://<path>`` (the tests use a FileStore
     path). device: this rank's device (None: the card; raises without
     one)."""
     dev = resolve_device(device)
-    tp = parallel.tensor_parallel
-    world = tp if world_size is None else world_size
+    tp, pp = parallel.tensor_parallel, parallel.pipeline_parallel
+    world = tp * pp if world_size is None else world_size
     dp = parallel.infer_data_parallel(world)
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
@@ -140,25 +188,36 @@ def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world, timeout=timeout)
     world_group = dist.group.WORLD
-    tp_group = dp_group = None
-    # Every rank makes every subgroup, in one order (new_group is
-    # collective over the world).
-    for d in range(dp):
-        ranks = list(range(d * tp, (d + 1) * tp))
-        g = world_group if tp == world else (
-            dist.new_group(ranks, timeout=timeout) if tp > 1 else None)
-        if rank in ranks:
-            tp_group = g
-    for t in range(tp):
-        ranks = list(range(t, world, tp))
-        g = world_group if dp == world else (
-            dist.new_group(ranks, timeout=timeout) if dp > 1 else None)
-        if rank in ranks:
-            dp_group = g
+    mine = {}
+
+    def groups(axis, all_ranks):
+        """One group per rank list (the world when it is the world, None
+        for one rank); every rank makes every subgroup, in one order
+        (new_group is collective over the world)."""
+        for ranks in all_ranks:
+            g = world_group if len(ranks) == world else (
+                dist.new_group(ranks, timeout=timeout) if len(ranks) > 1
+                else None)
+            if rank in ranks:
+                mine[axis] = g
+
+    def at(p, d, t):
+        return (p * dp + d) * tp + t
+
+    groups("tp", [[at(p, d, t) for t in range(tp)]
+                  for p in range(pp) for d in range(dp)])
+    groups("dp", [[at(p, d, t) for d in range(dp)]
+                  for p in range(pp) for t in range(tp)])
+    if pp > 1:
+        rings = [[at(p, d, t) for p in range(pp)]
+                 for d in range(dp) for t in range(tp)]
+        groups("pp", rings)
+        groups("embed", [[r[0], r[-1]] for r in rings])
     if world == 1:
         world_group = None
     par = dataclasses.replace(parallel, data_parallel=dp)
-    return MeshContext(group=tp_group if tp > 1 else world_group,
+    return MeshContext(group=mine["tp"] if tp > 1 else world_group,
                        parallel=par, rank=rank, device=dev, backend=backend,
-                       timeout_s=timeout_s, dp_group=dp_group,
-                       world_group=world_group)
+                       timeout_s=timeout_s, dp_group=mine["dp"],
+                       world_group=world_group, pp_group=mine.get("pp"),
+                       embed_group=mine.get("embed"))

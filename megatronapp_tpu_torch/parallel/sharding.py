@@ -20,15 +20,27 @@ the concatenation of its share of each segment; ``gather_tree`` puts the
 segments back in JAX's order bit for bit. q heads split contiguously, so
 rank r's q heads keep their kv group (q head i → kv head i·nkv/nq).
 
-``shard_tree(full, ctx)`` returns this rank's shards of a param tree;
-``gather_tree(local, ctx)`` is its exact inverse (an all-gather over tp).
-Convert (models/convert.py), init (models/gpt.py) and the checkpoints
-(training/distributed_optimizer.py) use them.
+Pipeline placement (JAX parallel/pipeline.py
+``reshape_params_for_pipeline``): chunk c of stage s holds the global
+layers [(c·pp + s)·Lc, (c·pp + s + 1)·Lc), Lc = L / (pp·vpp)
+(``stage_layer_ids``). Stage 0 holds the embedding, the last stage the
+final norm and the output layer; with tied embeddings the last stage
+also holds a copy of the word embedding (JAX keeps the embedding
+replicated over pp; training/distributed_optimizer.py sums the two
+copies' grads). A stage's layers sit under ``layers.<global id>`` (a
+ParamTree keyed by the ids), so every leaf keeps its one-device path.
+
+``shard_tree(full, ctx)`` returns this rank's shards of a param tree
+(its stage's pieces, then their tp shards); ``gather_tree(local, ctx)``
+is its exact inverse (an all-gather over tp, then every stage's leaves
+broadcast over the world). Convert (models/convert.py), init
+(models/gpt.py) and the checkpoints (training/distributed_optimizer.py)
+use them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -191,19 +203,119 @@ def _map_tree(tree: nn.Module, fn) -> nn.Module:
     return walk(tree, "")
 
 
+MTP_UNDER_PP = ("MTP depths under pipeline parallelism are not ported yet "
+                "(ROADMAP.md Queue 1 item 4, MTP under grids): the MTP "
+                "head needs stage 0's embedding on the last stage")
+
+
+def stage_layer_ids(num_layers: int, pp: int, vpp: int, stage: int
+                    ) -> List[int]:
+    """The global layer ids stage `stage` holds, chunk by chunk (chunk c:
+    [(c·pp + stage)·Lc, ...), Lc = num_layers / (pp·vpp))."""
+    if num_layers % (pp * vpp):
+        raise ValueError(f"num_layers={num_layers} does not split into "
+                         f"pp*vpp={pp * vpp} equal chunks")
+    lc = num_layers // (pp * vpp)
+    return [(c * pp + stage) * lc + i for c in range(vpp) for i in range(lc)]
+
+
+def stage_tree(full: nn.Module, ctx) -> nn.Module:
+    """This rank's stage's pieces of a whole param tree (the leaves stay
+    the same tensors); the tree itself at pp 1."""
+    if ctx is None or ctx.pp == 1:
+        return full
+    if "mtp" in full:
+        raise NotImplementedError(MTP_UNDER_PP)
+    leaves = dict(full._parameters)
+    tied = "output" not in leaves
+    top = {k: v.detach() for k, v in leaves.items()} \
+        if ctx.is_last_stage else {}
+    children = {}
+    if ctx.is_first_stage:
+        children["embedding"] = full["embedding"]
+    elif tied and ctx.is_last_stage:
+        children["embedding"] = ParamTree(
+            {"word": full["embedding"]["word"].detach()})
+    layers = full["layers"]
+    ids = stage_layer_ids(len(layers), ctx.pp, ctx.vpp, ctx.pp_rank)
+    children["layers"] = ParamTree(**{str(i): layers[i] for i in ids})
+    return ParamTree(top, **children)
+
+
 def shard_tree(full: nn.Module, ctx) -> nn.Module:
-    """This rank's tp shards of a full param tree, or of a piece of one
-    (new frozen leaves; the full tree is not touched)."""
-    if ctx is None or ctx.tp == 1:
+    """This rank's shards of a full param tree, or of a piece of one (new
+    frozen leaves; the full tree is not touched): its stage's pieces of a
+    whole tree (``stage_tree``), then their tp shards."""
+    if ctx is None:
+        return full
+    if "layers" in full and "embedding" in full:
+        full = stage_tree(full, ctx)
+    if ctx.tp == 1:
         return full
     return _map_tree(full, lambda path, t, segs: shard_leaf(
         t, tp_dim(path), segs, ctx.tp, ctx.tp_rank))
 
 
+def gather_stages(named: Dict[str, torch.Tensor], ctx
+                  ) -> Dict[str, torch.Tensor]:
+    """Every stage's whole leaves on every rank (host tensors): each leaf
+    is broadcast over the world from the lowest rank that offers it.
+    `named`: this rank's whole leaves (gathered over tp and dp; a rank
+    of dp or tp index > 0 offers none). Collective over the world."""
+    import torch.distributed as dist
+    mine = [(n, tuple(t.shape), str(t.dtype)) for n, t in named.items()]
+    every: List[Any] = [None] * ctx.world
+    dist.all_gather_object(every, mine, group=ctx.world_group)
+    owner: Dict[str, Tuple[int, tuple, str]] = {}
+    for r, leaves in enumerate(every):
+        for n, shape, dt in leaves:
+            owner.setdefault(n, (r, shape, dt))
+    out = {}
+    for n, (r, shape, dt) in owner.items():
+        dtype = getattr(torch, dt.split(".")[-1])
+        t = (named[n].detach().to("cpu", copy=True) if r == ctx.rank
+             else torch.empty(shape, dtype=dtype))
+        raw = t.view(torch.uint8) if dtype == torch.bfloat16 else t
+        dist.broadcast(raw, src=r, group=ctx.world_group)
+        out[n] = t
+    return out
+
+
+def tree_from_named(named: Dict[str, torch.Tensor]) -> nn.Module:
+    """A ParamTree from {leaf path: tensor} (``layers.<i>`` and
+    ``mtp.<d>`` become ModuleLists in index order)."""
+    leaves, kids = {}, {}
+    for n, t in named.items():
+        head, dot, rest = n.partition(".")
+        if dot:
+            kids.setdefault(head, {})[rest] = t
+        else:
+            leaves[head] = t
+    children = {}
+    for k, sub in kids.items():
+        tree = tree_from_named(sub)
+        if all(c.isdigit() for c in tree._modules) and not \
+                tree._parameters:
+            tree = nn.ModuleList(tree._modules[c] for c in sorted(
+                tree._modules, key=int))
+        children[k] = tree
+    return ParamTree(leaves, **children)
+
+
 def gather_tree(local: nn.Module, ctx) -> nn.Module:
-    """The full param tree from every tp rank's shards (an all-gather a
-    sharded leaf): the exact inverse of shard_tree."""
-    if ctx is None or ctx.tp == 1:
+    """The full param tree from every rank's shards (an all-gather over
+    tp a sharded leaf, then at pp > 1 every stage's leaves over the
+    world): the exact inverse of shard_tree."""
+    if ctx is None or (ctx.tp == 1 and ctx.pp == 1):
         return local
-    return _map_tree(local, lambda path, t, segs: gather_leaf(
-        t, path, segs, ctx).clone())
+    if ctx.tp > 1:
+        local = _map_tree(local, lambda path, t, segs: gather_leaf(
+            t, path, segs, ctx).clone())
+    if ctx.pp == 1:
+        return local
+    named = dict(local.named_parameters())
+    if ctx.dp_rank or ctx.tp_rank:
+        named = {}
+    device = next(local.parameters()).device
+    return tree_from_named({n: t.to(device) for n, t in
+                            gather_stages(named, ctx).items()})

@@ -1,5 +1,5 @@
-"""GPT pretraining entry point, on one device or on a dp × tp rank grid
-(the JAX package's pretrain_gpt.py without pipelines).
+"""GPT pretraining entry point, on one device or on a pp × dp × tp rank
+grid (the JAX package's pretrain_gpt.py).
 
     python -m megatronapp_tpu_torch.pretrain_gpt --preset llama3-8b \
         --num-layers 4 --seq-length 4096 --micro-batch-size 1 \
@@ -36,8 +36,17 @@ A rank grid is launched with PyTorch's launcher, one process a rank:
         --tensor-model-parallel-size 2 --use-distributed-optimizer \
         --train-iters 3
 
-The rank count comes from the launcher's RANK, WORLD_SIZE, LOCAL_RANK and
-MASTER_ADDR / MASTER_PORT; dp = world / tp; rank r computes on cuda:
+    torchrun --nproc-per-node 2 -m megatronapp_tpu_torch.pretrain_gpt \
+        --preset llama3-8b --num-layers 4 --seq-length 4096 \
+        --micro-batch-size 1 --global-batch-size 4 \
+        --pipeline-model-parallel-size 2 \
+        --num-layers-per-virtual-pipeline-stage 1 --train-iters 3
+
+(--pp-schedule 1f1b | vpp | zero-bubble picks the schedule program,
+--pp-plan-from-trace lets the planner re-plan it from the traced
+ring-hop spans.) The rank count comes from the launcher's RANK,
+WORLD_SIZE, LOCAL_RANK and MASTER_ADDR / MASTER_PORT; dp = world / (tp ·
+pp); rank r computes on cuda:
 (LOCAL_RANK % device count), or on the CPU with --device cpu. Without the
 launcher's environment the world is one rank. The ranks join over gloo,
 so several ranks may share one card: that checks kernels, shards and
@@ -61,7 +70,7 @@ from typing import List, Optional
 import torch
 
 from megatronapp_tpu_torch.config.parallel_config import (
-    UNPORTED_PARALLEL_FIELDS, ParallelConfig,
+    PP_SCHEDULES, UNPORTED_PARALLEL_FIELDS, ParallelConfig,
 )
 from megatronapp_tpu_torch.config.training_config import (
     OptimizerConfig, TrainingConfig,
@@ -81,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
     from megatronapp_tpu_torch.models.presets import PRESETS
     ap = argparse.ArgumentParser(
         prog="python -m megatronapp_tpu_torch.pretrain_gpt",
-        description="GPT pretraining on the GPU, one device or a dp x tp "
-                    "rank grid "
+        description="GPT pretraining on the GPU, one device or a pp x dp "
+                    "x tp rank grid "
                     "(hand-written flash-attention kernels)")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS))
     ap.add_argument("--device", default=None,
@@ -139,6 +148,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable bf16 compute")
     g = ap.add_argument_group("distributed")
     g.add_argument("--tensor-model-parallel-size", type=int, default=1)
+    g.add_argument("--pipeline-model-parallel-size", type=int, default=1)
+    g.add_argument("--num-layers-per-virtual-pipeline-stage", type=int,
+                   default=None)
+    g.add_argument("--pp-schedule", default="1f1b",
+                   choices=list(PP_SCHEDULES),
+                   help="pipeline schedule program (parallel/schedule.py): "
+                        "1f1b (interleaved automatically when vpp > 1), "
+                        "vpp (alias requiring "
+                        "--num-layers-per-virtual-pipeline-stage), or "
+                        "zero-bubble (backward split into B=dgrad / "
+                        "W=wgrad; W deferred into bubble slots, the "
+                        "weight update fenced on all W done)")
+    g.add_argument("--pp-plan-from-trace", action="store_true",
+                   help="let the trace-driven planner "
+                        "(parallel/schedule.Planner) retune the schedule "
+                        "from per-stage step-time EWMAs (MegaScan ring-hop "
+                        "spans + whole-step times); re-plans log loudly "
+                        "and rebuild the train step")
     g.add_argument("--sequence-parallel", action="store_true",
                    help="accepted; changes no number (as in JAX, no layer "
                         "reads it)")
@@ -286,9 +313,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ap.error(f"{', '.join(flags or rest)}: not ported to "
                  "megatronapp_tpu_torch yet (the trainer honours the flags "
                  "in --help; see ROADMAP.md)")
-    if args.tensor_model_parallel_size < 1:
-        ap.error(f"--tensor-model-parallel-size must be >= 1, got "
-                 f"{args.tensor_model_parallel_size}")
+    for flag in ("tensor_model_parallel_size",
+                 "pipeline_model_parallel_size"):
+        if getattr(args, flag) < 1:
+            ap.error(f"--{flag.replace('_', '-')} must be >= 1, got "
+                     f"{getattr(args, flag)}")
     low = [f for f, v in (("--exp-avg-dtype", args.exp_avg_dtype),
                           ("--exp-avg-sq-dtype", args.exp_avg_sq_dtype))
            if str(v).lower() not in ("fp32", "float32")]
@@ -392,10 +421,26 @@ def configs_from_args(args: argparse.Namespace):
 
 
 def parallel_from_args(args: argparse.Namespace) -> ParallelConfig:
+    """The grid's ParallelConfig, with JAX's parse-time rules
+    (config/arguments.py:1135-1157): vpp = (layers / pp) /
+    --num-layers-per-virtual-pipeline-stage, which must divide the
+    layers a stage holds; the schedule's own checks in ParallelConfig."""
+    pp = args.pipeline_model_parallel_size
+    vpp = 1
+    if args.num_layers_per_virtual_pipeline_stage:
+        per_stage = configs_from_args(args)[0].num_layers // pp
+        if per_stage % args.num_layers_per_virtual_pipeline_stage != 0:
+            raise ValueError(
+                "--num-layers-per-virtual-pipeline-stage must divide "
+                "layers-per-stage")
+        vpp = per_stage // args.num_layers_per_virtual_pipeline_stage
     return ParallelConfig(
         tensor_parallel=args.tensor_model_parallel_size,
+        pipeline_parallel=pp, virtual_pipeline_parallel=vpp,
         sequence_parallel=args.sequence_parallel,
-        distributed_optimizer=args.use_distributed_optimizer)
+        distributed_optimizer=args.use_distributed_optimizer,
+        pp_schedule=args.pp_schedule,
+        pp_plan_from_trace=args.pp_plan_from_trace)
 
 
 def launch_env(env=None) -> Optional[dict]:
@@ -424,11 +469,12 @@ def rank_device(device: Optional[str], local_rank: int):
 
 def build_grid(args: argparse.Namespace, rank: int, world_size: int,
                init_method: str, local_rank: Optional[int] = None):
-    """This rank's MeshContext of the --tensor-model-parallel-size grid
-    over world_size ranks; None for one rank at tp 1 (the one-device
-    trainer)."""
+    """This rank's MeshContext of the --tensor-model-parallel-size x
+    --pipeline-model-parallel-size grid over world_size ranks; None for
+    one rank at tp 1 and pp 1 (the one-device trainer)."""
     parallel = parallel_from_args(args)
-    if world_size == 1 and parallel.tensor_parallel == 1:
+    if world_size == 1 and parallel.tensor_parallel == 1 and \
+            parallel.pipeline_parallel == 1:
         return None
     from megatronapp_tpu_torch.parallel.mesh import build_mesh
     dev = rank_device(args.device, rank if local_rank is None
@@ -449,6 +495,8 @@ def train(args: argparse.Namespace, ctx=None):
                   "tp": 1 if ctx is None else ctx.tp,
                   "zero1": bool(ctx is not None and ctx.dp > 1
                                 and args.use_distributed_optimizer)}
+        if ctx is not None and ctx.pp > 1:
+            layout.update(pp=ctx.pp, vpp=ctx.vpp)
         save_resolved_args(args, args.save, layout)
     factory = make_batch_iter_factory(args, training, model)
     result = pretrain_gpt(model, training, optimizer, device=args.device,

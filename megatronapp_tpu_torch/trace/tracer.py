@@ -217,6 +217,12 @@ class Tracer:
             "name": name, "ph": ph, "ts": stamp, "pid": self.process_index,
             "tid": 0, "iteration": self._iteration, "args": dict(args)})
 
+    def peek(self) -> List[Dict[str, Any]]:
+        """The resolved records not yet saved, left in place (the
+        pipeline planner mines a traced iteration before save())."""
+        with self._lock:
+            return list(self._records)
+
     def drain(self) -> List[Dict[str, Any]]:
         with self._lock:
             recs, self._records = self._records, []

@@ -15,11 +15,17 @@ does the same explicitly, on flat fp32 buffers (``FlatLayout``):
   replicated leaves that only see their heads' share over tp
   (``TP_PARTIAL_GRAD_LEAVES``), then sums over dp: a reduce-scatter under
   ZeRO-1, which leaves this rank its 1/dp chunk, an all-reduce without;
+- under pp, ZeRO-1 runs within each stage's dp group (every stage has
+  buffers of its own); a tied word embedding's two copies (stage 0's and
+  the last stage's) have their grads summed over the embedding group
+  before the dp reduction, so both apply the same update and stay
+  bitwise equal;
 - ``norm_partials`` gives this rank's chunk's sums of squares, split
   into the tp-sharded leaves (summed over every rank) and the rest
-  (counted once, from tp rank 0): the train step all-gathers them over
-  the world and sums them in rank order, so the model-wide norm has the
-  same bits with and without ZeRO-1;
+  (counted once, from tp rank 0), the last stage's copy of a tied
+  embedding left out: the train step all-gathers them over the world
+  (every stage) and sums them in rank order, so the model-wide norm has
+  the same bits with and without ZeRO-1;
 - ``step`` clips and applies ``Optimizer.update_leaf`` (the chain of
   training/optimizer.py, leaf for leaf) to each leaf's slice of the
   chunk, with m and v held for the chunk only; the updated chunk returns
@@ -32,9 +38,10 @@ master copy for bf16 params is ROADMAP.md Queue 1 item 3).
 
 ``full_state_dict`` / ``load_full_state_dict`` carry the state to and
 from the layout-independent form of the checkpoints: every leaf whole
-(params gathered over tp, moments over dp and tp) under the one-device
-leaf paths of training/train_state.py, so a checkpoint written on one
-grid resumes on another.
+(params gathered over tp, moments over dp and tp, and under pp every
+stage's leaves brought together, parallel/sharding.py gather_stages)
+under the one-device leaf paths of training/train_state.py, so a
+checkpoint written on one grid resumes on another.
 """
 
 from __future__ import annotations
@@ -55,12 +62,16 @@ from megatronapp_tpu_torch.training.optimizer import Optimizer, decays
 class FlatLayout:
     """Where each trainable param of this rank lives in the flat buffers:
     the tp-sharded leaves first, then the tp-partial ones, then the
-    replicated ones (each group in name order), padded to a multiple of
-    dp. ``params``/``grads``: the flat buffers; each param's data is a
-    view of ``params``."""
+    replicated ones, then `copies` (leaves another stage also holds and
+    counts in the norm: a tied embedding's last-stage copy), each group
+    in name order, padded to a multiple of dp. ``params``/``grads``: the
+    flat buffers; each param's data is a view of ``params``."""
 
-    def __init__(self, named_params: Dict[str, torch.Tensor], ctx):
+    def __init__(self, named_params: Dict[str, torch.Tensor], ctx,
+                 copies=frozenset()):
         def group(n):
+            if n in copies:
+                return 3
             if ctx.tp > 1 and tp_dim(n) is not None:
                 return 0
             return 1 if leaf_name(n) in TP_PARTIAL_GRAD_LEAVES else 2
@@ -76,11 +87,13 @@ class FlatLayout:
         self.numel = off
         self.padded = -(-off // ctx.dp) * ctx.dp
         ends = [sum(b - a for n, a, b in self.slots if group(n) <= g)
-                for g in (0, 1)]
+                for g in (0, 1, 2)]
         # [0, sharded_end): tp-sharded; partial: summed over tp in
-        # reduce_grads; [sharded_end, numel): counted once in the norm.
+        # reduce_grads; [sharded_end, counted_end): counted once in the
+        # norm; [counted_end, numel): copies, not counted.
         self.sharded_end = ends[0]
         self.partial = (ends[0], ends[1])
+        self.counted_end = ends[2]
         first = next(iter(named_params.values()))
         self.params = torch.zeros(self.padded, dtype=torch.float32,
                                   device=first.device)
@@ -104,12 +117,16 @@ class DistributedOptimizer(Optimizer):
     """The chain of training/optimizer.py over a grid's flat buffers.
     ZeRO-1 (the ctx's distributed_optimizer, at dp > 1): m and v for this
     rank's dp chunk only. State: {"count": int, "mu": tensor, "nu":
-    tensor} (flat: the chunk's, or the whole buffer's)."""
+    tensor} (flat: the chunk's, or the whole buffer's). tied_embedding:
+    the output layer is the word embedding (under pp its two stages'
+    copies sum their grads)."""
 
-    def __init__(self, cfg: OptimizerConfig, train_iters: int, ctx):
+    def __init__(self, cfg: OptimizerConfig, train_iters: int, ctx,
+                 tied_embedding: bool = False):
         super().__init__(cfg, train_iters)
         self.ctx = ctx
         self.zero1 = ctx.parallel.distributed_optimizer and ctx.dp > 1
+        self.tied_pp = tied_embedding and ctx.pp > 1
         self.layout: Optional[FlatLayout] = None
         self._g: Optional[torch.Tensor] = None
 
@@ -122,7 +139,9 @@ class DistributedOptimizer(Optimizer):
                              "not fp32; bf16 params with an fp32 master "
                              "copy are not ported (ROADMAP.md Queue 1 "
                              "item 3)")
-        self.layout = lay = FlatLayout(named_params, self.ctx)
+        copies = frozenset({"embedding.word"} if self.tied_pp and not
+                           self.ctx.is_first_stage else ())
+        self.layout = lay = FlatLayout(named_params, self.ctx, copies)
         lo, hi = self.span
         state = {"count": 0,
                  "mu": torch.zeros(hi - lo, dtype=self.mu_dtype,
@@ -153,8 +172,9 @@ class DistributedOptimizer(Optimizer):
 
     # -- the step's reductions ---------------------------------------------
     def reduce_grads(self, inv: float) -> None:
-        """Scale by 1/num_micro, sum the tp-partial leaves over tp, then
-        sum over dp (reduce-scatter under ZeRO-1)."""
+        """Scale by 1/num_micro, sum the tp-partial leaves over tp and a
+        tied embedding's two copies over the embedding group, then sum
+        over dp (reduce-scatter under ZeRO-1)."""
         lay, ctx = self.layout, self.ctx
         for n, a, b in lay.slots:
             # Autograd accumulates into the preset views; a grad it
@@ -167,6 +187,9 @@ class DistributedOptimizer(Optimizer):
         a, b = lay.partial
         if ctx.tp > 1 and b > a:
             collectives.all_reduce(g[a:b], ctx, "tp")
+        if self.tied_pp and "embedding.word" in lay.offsets:
+            a, b = lay.offsets["embedding.word"]
+            collectives.all_reduce(g[a:b], ctx, "embed")
         if self.zero1:
             self._g = collectives.reduce_scatter(g, ctx, "dp")
         else:
@@ -174,13 +197,15 @@ class DistributedOptimizer(Optimizer):
 
     def norm_partials(self) -> torch.Tensor:
         """[sum of squares over this rank's dp chunk's tp-sharded
-        elements, over its other elements] (fp32, on the device)."""
+        elements, over its other counted elements] (fp32, on the
+        device)."""
         lay = self.layout
         lo, hi = lay.chunk
         chunk = self._g if self.zero1 else self._g[lo:hi]
         cut = min(max(lay.sharded_end - lo, 0), hi - lo)
+        end = min(max(lay.counted_end - lo, 0), hi - lo)
         return torch.stack([chunk[:cut].square().sum(),
-                            chunk[cut:].square().sum()])
+                            chunk[cut:end].square().sum()])
 
     @torch.no_grad()
     def step(self, state: dict, grad_norm: Tuple[float, torch.Tensor]
@@ -223,13 +248,18 @@ class DistributedOptimizer(Optimizer):
         """The train state with every leaf whole, as CPU tensors, under the
         one-device leaf paths, on rank 0 (None on the others). Collective:
         every rank calls it."""
-        lay, lead = self.layout, self.ctx.is_lead
+        lay, ctx = self.layout, self.ctx
+        # Who keeps the whole leaves: rank 0, or under pp each stage's
+        # rank of dp and tp index 0 (their stages then meet on rank 0).
+        keep = ctx.is_lead if ctx.pp == 1 else not (ctx.dp_rank
+                                                    or ctx.tp_rank)
         out: Dict[str, object] = {"step": int(state.step)}
+        tensors: Dict[str, torch.Tensor] = {}
         segs = segment_counts(lay.named)
         for n, p in lay.named.items():
-            full = gather_leaf(p.detach(), n, segs[n], self.ctx)
-            if lead:
-                out[f"params/{n}"] = full.to("cpu", copy=True)
+            full = gather_leaf(p.detach(), n, segs[n], ctx)
+            if keep:
+                tensors[f"params/{n}"] = full.to("cpu", copy=True)
         for key, flat in state.opt_state.items():
             if not isinstance(flat, torch.Tensor):
                 out[f"opt_state/{key}"] = int(flat)
@@ -237,27 +267,46 @@ class DistributedOptimizer(Optimizer):
             whole = self._full_moment(flat)
             for n in lay.named:
                 full = gather_leaf(lay.view(whole, n).contiguous(), n,
-                                   segs[n], self.ctx)
-                if lead:
-                    out[f"opt_state/{key}/{n}"] = full.to("cpu", copy=True)
+                                   segs[n], ctx)
+                if keep:
+                    tensors[f"opt_state/{key}/{n}"] = full.to("cpu",
+                                                             copy=True)
             del whole
-        return out if lead else None
+        if ctx.pp > 1:
+            from megatronapp_tpu_torch.parallel.sharding import (
+                gather_stages,
+            )
+            tensors = gather_stages(tensors, ctx)
+        if not ctx.is_lead:
+            return None
+        out.update(tensors)
+        return out
 
     @torch.no_grad()
     def load_full_state_dict(self, state, flat: Dict[str, object]) -> None:
         """Copy a layout-independent state (every leaf whole) into this
-        rank's shards in place. Raises when the leaf paths or a shard's
-        shape differ from the state's."""
+        rank's shards in place (under pp: of its stage's leaves). Raises
+        when the leaf paths differ from the whole model's (under pp every
+        stage's, so every rank raises alike) or a shard's shape from the
+        state's. Collective under pp: every rank calls it."""
         lay, ctx = self.layout, self.ctx
         want = {"step"} | {f"params/{n}" for n in lay.named}
         for key, v in state.opt_state.items():
             want |= ({f"opt_state/{key}/{n}" for n in lay.named}
                      if isinstance(v, torch.Tensor) else {f"opt_state/{key}"})
-        if set(flat) != want:
+        if ctx.pp > 1:
+            # The whole model's leaves: every stage's, gathered.
+            import torch.distributed as dist
+            every: List[object] = [None] * ctx.world
+            dist.all_gather_object(every, sorted(want),
+                                   group=ctx.world_group)
+            want = set().union(*every)
+        extra = set(flat) - want
+        if want - set(flat) or extra:
             raise ValueError(
                 f"train state structure differs: missing "
                 f"{sorted(want - set(flat))[:4]}, unexpected "
-                f"{sorted(set(flat) - want)[:4]}")
+                f"{sorted(extra)[:4]}")
         segs = segment_counts(lay.named)
 
         def local(key, name):

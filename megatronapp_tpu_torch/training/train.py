@@ -1,5 +1,5 @@
-"""GPT pretraining on one device or on a dp × tp rank grid (the JAX
-package's training/train.py:pretrain_gpt and its loop, without pipelines).
+"""GPT pretraining on one device or on a pp × dp × tp rank grid (the JAX
+package's training/train.py:pretrain_gpt and its loop).
 
 Params are made on the device from the seed (or given, e.g. carried
 across from the JAX package by ``models/convert.py``) and made trainable.
@@ -27,8 +27,8 @@ As JAX's loop does on one device (train.py:350-453, :1027-1088):
   loop after a multiple of it.
 
 The rerun machine, heartbeats, the straggler detector and the inspector
-raise in ``TrainingConfig``; FBD and pipelines are not options here (the
-entry point refuses their flags).
+raise in ``TrainingConfig``; FBD and DPP are not options here (the entry
+point refuses their flags).
 
 On a rank grid (``ctx``, parallel/mesh.py; every rank calls this function
 with its own ctx): each rank builds the same global batch (the same seed
@@ -40,7 +40,23 @@ is training/distributed_optimizer.py's (ZeRO-1 unless
 ``distributed_optimizer`` is off). Checkpoints hold every leaf whole
 (gathered over dp and tp, written once by rank 0's thread) under the
 one-device leaf paths, so a run resumes on another grid; meta.json
-records the grid a step was written under. Rank 0 alone logs and writes
+records the grid a step was written under.
+
+Pipelines (ctx.pp > 1, JAX train.py's pp wiring): each rank holds its
+stage's pieces (models/gpt.py init_gpt_params), the step runs
+models/gpt.py ``gpt_pipeline_loss`` over the whole [M, mb, S] batch
+(make_train_step's pipeline mode) under parallel_cfg's pp_schedule and
+pipeline_order_policy, evaluation runs the pipeline's forward, and the
+last stage's loss reaches rank 0's log through the step's metrics
+gather. Every rampup stage's microbatch count must divide by pp under
+the interleaved 'dfc' order at vpp > 1 (``_validate_schedule_stages``).
+``pp_plan_from_trace``: parallel/schedule.py's Planner on rank 0, fed by
+every rank's traced ring-hop spans (gathered after a traced iteration)
+and the whole-step times; at a log step it may re-plan, rank 0
+broadcasts the choice, and every rank swaps the schedule program before
+the next step with a loud log (JAX train.py:548-710). A packed batch
+(segment_ids) freezes planning and reverts zero-bubble to 1f1b before
+its step, as JAX does. Rank 0 alone logs and writes
 metrics; the signal handler's flag is agreed over the world
 (training/signals.py), so one rank's SIGTERM stops every rank at the same
 step with one emergency save. Local (non-persistent) checkpoints stay on
@@ -73,7 +89,9 @@ from megatronapp_tpu_torch.config.training_config import (
 )
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.data.mock import mock_batches
-from megatronapp_tpu_torch.models.gpt import gpt_loss, init_gpt_params
+from megatronapp_tpu_torch.models.gpt import (
+    gpt_loss, gpt_pipeline_loss, init_gpt_params,
+)
 from megatronapp_tpu_torch.trace.tracer import get_tracer
 from megatronapp_tpu_torch.training.checkpointing import (
     CheckpointManager, LocalCheckpointManager, read_side_state,
@@ -171,7 +189,9 @@ class _CheckpointScribe:
         self.lead = dopt is None or dopt.ctx.is_lead
         self.saved_step = ckpt.latest_step if ckpt is not None else None
         self.written_under = (None if dopt is None else {
-            "dp": dopt.ctx.dp, "tp": dopt.ctx.tp, "zero1": dopt.zero1})
+            "dp": dopt.ctx.dp, "tp": dopt.ctx.tp, "zero1": dopt.zero1,
+            **({"pp": dopt.ctx.pp, "vpp": dopt.ctx.vpp}
+               if dopt.ctx.pp > 1 else {})})
 
     def full_state(self, state: TrainState):
         """The state with whole leaves (None on ranks other than 0)."""
@@ -258,6 +278,97 @@ def gpt_microbatch_loss(cfg: TransformerConfig, ctx=None):
     return loss_fn
 
 
+def gpt_pipeline_loss_fn(cfg: TransformerConfig, ctx, schedule: str,
+                         order_policy: str):
+    """The pipelined loss bound to one schedule program (a re-plan
+    rebuilds through this)."""
+    def loss_fn(params, batch, grad=True):
+        return gpt_pipeline_loss(params, batch, cfg, ctx,
+                                 schedule=schedule,
+                                 order_policy=order_policy, grad=grad)
+    return loss_fn
+
+
+def _validate_schedule_stages(batch_calc, pp: int, vpp: int,
+                              order_policy: str) -> None:
+    """Fail at startup (not hours into a ramp) when any batch-size stage
+    gives a microbatch count the interleaved pipeline cannot schedule
+    (M % pp == 0 for vpp > 1 'dfc'; JAX train.py:165-178)."""
+    if pp > 1 and vpp > 1 and order_policy == "dfc":
+        for gbs_i, m_i in batch_calc.stages():
+            if m_i % pp:
+                raise ValueError(
+                    f"batch size {gbs_i} in the schedule gives {m_i} "
+                    f"microbatches, not divisible by pipeline_parallel="
+                    f"{pp} as the interleaved (dfc) pipeline requires; "
+                    "adjust the rampup schedule or use order_policy "
+                    "'bfc'")
+
+
+class _PipelinePlanning:
+    """--pp-plan-from-trace on a grid (module docstring): rank 0's
+    Planner, seeded with the running schedule; every rank calls each
+    method (the spans' gather and the choice's broadcast are collective
+    over the world)."""
+
+    def __init__(self, model_cfg, ctx, schedule: str, num_micro: int,
+                 log_fn):
+        import dataclasses as dc
+
+        from megatronapp_tpu_torch.parallel.schedule import Planner
+        self.ctx, self.log_fn = ctx, log_fn
+        self.frozen = False
+        self.planner = Planner(ctx.pp, vpp=ctx.vpp, model_cfg=model_cfg)
+        plan0 = self.planner.plan(num_micro)
+        # Seeded with the running schedule, so re-plans measure against
+        # it; under vpp > 1 the candidate is named 'vpp'.
+        seed = "vpp" if (ctx.vpp > 1 and schedule == "1f1b") else schedule
+        self.planner.current = dc.replace(
+            plan0, schedule=seed,
+            bubble_fraction=plan0.candidates.get(seed,
+                                                 plan0.bubble_fraction))
+        log_fn(f"pp-planner: active (schedule {schedule!r}, modeled "
+               f"bubble {self.planner.current.bubble_fraction:.4f}, "
+               "candidates "
+               f"{ {k: round(v, 4) for k, v in plan0.candidates.items()} }"
+               f", stage costs "
+               f"{[round(c, 3) for c in plan0.stage_costs]})")
+
+    def ingest(self, records) -> None:
+        """Every rank's records of a traced iteration, merged on rank 0
+        into the planner (MegaScan → planner)."""
+        import torch.distributed as dist
+        every = [None] * self.ctx.world
+        dist.all_gather_object(every, list(records),
+                               group=self.ctx.world_group)
+        if self.ctx.is_lead:
+            self.planner.ingest_trace_events(
+                [e for recs in every for e in recs])
+
+    def decide(self, step_seconds: float, num_micro: int):
+        """At a log step: rank 0 observes, exports and maybe re-plans;
+        every rank gets the new schedule (None: keep)."""
+        import torch.distributed as dist
+        choice = [None]
+        if self.ctx.is_lead:
+            self.planner.observe_step(step_seconds)
+            self.planner.export_metrics()
+            if not self.frozen:
+                new = self.planner.maybe_replan(num_micro)
+                choice[0] = None if new is None else new.schedule
+        dist.broadcast_object_list(choice, src=0,
+                                   group=self.ctx.world_group)
+        return choice[0]
+
+    def revert_to_1f1b(self) -> None:
+        import dataclasses as dc
+        cur = self.planner.current
+        if cur is not None:
+            self.planner.current = dc.replace(
+                cur, schedule="1f1b", bubble_fraction=cur.candidates.get(
+                    "1f1b", cur.bubble_fraction))
+
+
 def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                  opt_cfg: OptimizerConfig, device=None,
                  batch_iter: Optional[Iterator[Dict[str, np.ndarray]]] = None,
@@ -279,13 +390,19 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     lead = ctx is None or ctx.is_lead
     if not lead:
         log_fn = _quiet
+    pp = 1 if ctx is None else ctx.pp
     num_micro = train_cfg.num_microbatches(dp)
     batch_calc = build_calculator(train_cfg.global_batch_size,
                                   train_cfg.micro_batch_size, dp,
                                   train_cfg.rampup_batch_size)
+    if pp > 1:
+        _validate_schedule_stages(batch_calc, pp, ctx.vpp,
+                                  ctx.parallel.pipeline_order_policy)
     optimizer = (Optimizer(opt_cfg, train_cfg.train_iters) if ctx is None
-                 else DistributedOptimizer(opt_cfg, train_cfg.train_iters,
-                                           ctx))
+                 else DistributedOptimizer(
+                     opt_cfg, train_cfg.train_iters, ctx,
+                     tied_embedding=not
+                     model_cfg.untie_embeddings_and_output_weights))
     if params is None:
         gen = torch.Generator(device).manual_seed(train_cfg.seed)
         params = init_gpt_params(model_cfg, gen, device, ctx)
@@ -371,15 +488,40 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                 train_cfg.global_batch_size, seed=train_cfg.seed,
                 start_idx=consumed)
 
-    loss_fn = gpt_microbatch_loss(model_cfg, ctx)
-    step_fn = make_train_step(loss_fn, optimizer,
-                              check_nan=train_cfg.check_for_nan_in_loss,
-                              ctx=ctx)
+    pp_schedule = None if ctx is None else ctx.parallel.pp_schedule
+
+    def build_steps(schedule):
+        """(loss_fn, step_fn) for one schedule program."""
+        fn = (gpt_pipeline_loss_fn(model_cfg, ctx, schedule,
+                                   ctx.parallel.pipeline_order_policy)
+              if pp > 1 else gpt_microbatch_loss(model_cfg, ctx))
+        return fn, make_train_step(
+            fn, optimizer, check_nan=train_cfg.check_for_nan_in_loss,
+            ctx=ctx, pipeline=pp > 1)
+
+    loss_fn, step_fn = build_steps(pp_schedule)
+    if pp > 1 and pp_schedule != "1f1b":
+        log_fn(f"pipeline schedule: {pp_schedule} (instruction program "
+               "executor, parallel/pipeline.py)")
+    planning = None
+    if pp > 1 and ctx.parallel.pp_plan_from_trace:
+        planning = _PipelinePlanning(model_cfg, ctx, pp_schedule,
+                                     num_micro, log_fn)
+
+    def apply_schedule(new_schedule):
+        nonlocal loss_fn, step_fn, eval_step_fn, pp_schedule
+        log_fn(f"pp-planner: APPLYING schedule {new_schedule!r} (was "
+               f"{pp_schedule!r}) — rebuilding the train step")
+        pp_schedule = new_schedule
+        loss_fn, step_fn = build_steps(new_schedule)
+        if eval_step_fn is not None:
+            eval_step_fn = make_eval_step(loss_fn, ctx, pipeline=True)
+
     eval_step_fn = None
     if train_cfg.eval_interval:
         # The caller's eval stream, else a distinct mock stream (seed +
         # 1) — also when training reads a corpus (JAX train.py:486).
-        eval_step_fn = make_eval_step(loss_fn, ctx)
+        eval_step_fn = make_eval_step(loss_fn, ctx, pipeline=pp > 1)
         if eval_batch_iter is None:
             eval_batch_iter = mock_batches(
                 train_cfg.seq_length, model_cfg.vocab_size,
@@ -421,10 +563,29 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                 consumed += cur_gbs
                 batch = to_device_batch({k: v for k, v in batch.items()
                                          if k in _FIELDS}, device)
+                if pp > 1 and "segment_ids" in batch:
+                    # Zero-bubble takes no packed batch: the first one
+                    # freezes planning, and zero-bubble reverts to 1f1b
+                    # before the step (grads are schedule-invariant).
+                    if planning is not None and not planning.frozen:
+                        planning.frozen = True
+                        log_fn("pp-planner: packed batch in the stream — "
+                               "planning frozen (zero-bubble does not "
+                               "compose with packed sequences)")
+                    if pp_schedule == "zero-bubble":
+                        log_fn("zero-bubble does not compose with packed "
+                               "sequences (segment_ids in batch) — "
+                               "reverting to 1f1b (grads are schedule-"
+                               "invariant; perf-only change)")
+                        apply_schedule("1f1b")
+                        if planning is not None:
+                            planning.revert_to_1f1b()
                 with tracer.scope("train-step"):
                     metrics = step_fn(state, batch)
                 if tracer.active:
                     tracer.iteration_end(it)
+                    if planning is not None:
+                        planning.ingest(tracer.peek())
                     tracer.save()
                 window_tokens += cur_gbs * train_cfg.seq_length
                 if (it + 1) % train_cfg.log_interval == 0 or \
@@ -456,6 +617,11 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                         "tflops_per_device": tflops})
                     window_tokens, window_start = 0, now
                     window_iter = it + 1
+                    if planning is not None:
+                        new = planning.decide(result.step_time_ms / 1e3,
+                                              cur_micro)
+                        if new is not None:
+                            apply_schedule(new)
 
                 if eval_step_fn is not None and \
                         (it + 1) % train_cfg.eval_interval == 0:

@@ -23,7 +23,11 @@ Under a rank grid (``ctx``; the optimizer a
 training/distributed_optimizer.py ``DistributedOptimizer``) each rank runs
 its dp rows of each microbatch through its tp shards; the microbatch
 losses are this rank's shares of the token mean over every dp rank's rows
-(ops/cross_entropy.py). The 'allreduce' span then does the grid's work:
+(ops/cross_entropy.py). Under pp (``pipeline``, JAX train_step.py:161)
+the loss function takes the whole batch and runs the pipeline's forward
+and backward (its own 'forward', 'loss' and 'backward' spans): the loss
+is the last stage's share of the token mean over all microbatches, the
+other stages report zeros. The 'allreduce' span then does the grid's work:
 the gradient reduction (tp for the tp-partial leaves, then dp: a
 reduce-scatter under ZeRO-1, an all-reduce without), the model-wide norm
 and the metrics (each rank's norm partials and loss shares all-gathered
@@ -71,18 +75,34 @@ def _accumulate(loss_fn: Callable, state: TrainState,
     return num_micro, loss_sum, aux_sum
 
 
+def _pipelined(loss_fn: Callable, state: TrainState,
+               batch: Dict[str, torch.Tensor], tracer):
+    """The pipeline's forward and backward over the whole batch (the
+    loss function runs both, with its own phase spans): (1, the loss,
+    the metrics)."""
+    loss, metrics = loss_fn(state.params, batch)
+    return 1, loss.detach(), {k: v.detach().float()
+                              for k, v in metrics.items()}
+
+
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    check_nan: bool = True, ctx=None):
+                    check_nan: bool = True, ctx=None,
+                    pipeline: bool = False):
     """loss_fn(params, micro) -> (loss, metrics dict of scalar tensors).
 
     Returns step(state, batch) -> metrics (host floats); batch holds
     [num_micro, micro_batch, ...] tensors on the params' device (under a
     ctx: this dp rank's rows). The state is updated in place. ctx: the
-    rank grid (see the module docstring)."""
+    rank grid (see the module docstring). pipeline (a grid with pp > 1,
+    JAX make_train_step's pipeline mode): loss_fn(params, batch) takes
+    the whole [num_micro, ...] batch, runs the pipeline's forward and
+    backward itself (models/gpt.py gpt_pipeline_loss) and returns the
+    step's token-mean loss share, so the grads take no 1/num_micro."""
 
     tracer = get_tracer()
     if ctx is not None:
-        return _grid_step(loss_fn, optimizer, check_nan, ctx, tracer)
+        return _grid_step(loss_fn, optimizer, check_nan, ctx, tracer,
+                          _pipelined if pipeline else _accumulate)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, float]:
@@ -129,15 +149,15 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
 
 def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
-               tracer):
-    """The train step of a rank grid (module docstring)."""
+               tracer, run: Callable):
+    """The train step of a rank grid (module docstring); run: how the
+    batch's forward and backward go (_accumulate, or _pipelined)."""
     from megatronapp_tpu_torch.parallel.collectives import all_gather_cat
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, float]:
         optimizer.zero_grad()
-        num_micro, loss_sum, aux_sum = _accumulate(loss_fn, state, batch,
-                                                   tracer)
+        num_micro, loss_sum, aux_sum = run(loss_fn, state, batch, tracer)
         inv = 1.0 / num_micro
         names = list(aux_sum)
         with tracer.scope("allreduce"):
@@ -145,8 +165,9 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
             mine = torch.cat([optimizer.norm_partials(), torch.stack(
                 [loss_sum * inv] + [aux_sum[k] * inv for k in names])])
             every = all_gather_cat(mine[None], ctx, "world", 0)
-            # Sharded leaves' squares count on every rank; the rest, and
-            # the dp ranks' loss shares, once per tp group.
+            # Sharded leaves' squares count on every rank; the rest once
+            # per tp group; the dp ranks' loss shares once per tp group
+            # of the last stage (the other stages report zeros).
             once = torch.tensor([r % ctx.tp == 0 for r in range(ctx.world)],
                                 dtype=every.dtype, device=every.device)
             norm = (every[:, 0] + every[:, 1] * once).sum().sqrt()
@@ -169,17 +190,27 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
     return step
 
 
-def make_eval_step(loss_fn: Callable, ctx=None):
+def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False):
     """Forward-only loss (JAX train_step.py:297): the mean of the
     microbatch losses under torch.no_grad(), on the device (a 0-d fp32
     tensor; the caller reads it back). ctx: the rank grid; the dp ranks'
-    shares are summed over dp (one all-reduce).
+    shares are summed over dp (one all-reduce). pipeline: loss_fn(params,
+    batch, grad=False) runs the pipeline's forward over the whole batch;
+    the last stage's dp shares (from tp rank 0) are summed over the
+    world, so every rank reads the loss.
 
     Returns eval_step(state, batch), batch as for the train step."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]
                   ) -> torch.Tensor:
+        if pipeline:
+            from megatronapp_tpu_torch.parallel.collectives import (
+                all_reduce,
+            )
+            loss, _ = loss_fn(state.params, batch, grad=False)
+            keep = ctx.tp_rank == 0 and ctx.is_last_stage
+            return all_reduce(loss.float() * float(keep), ctx, "world")
         num_micro = next(iter(batch.values())).shape[0]
         total = torch.zeros((), dtype=torch.float32,
                             device=next(iter(batch.values())).device)

@@ -193,10 +193,12 @@ def _remat_wrap(fn, policy: str):
 
 def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
                   rope_cos=None, rope_sin=None, attention_mask=None,
-                  segment_ids=None, ctx=None):
-    """Run every layer for training (ctx: the rank grid, see
-    layer_forward). Returns (x, moe_aux_sum); dense layers add no aux
-    loss, so the sum is a zero scalar."""
+                  segment_ids=None, ctx=None, layer_ids=None):
+    """Run the layers for training (ctx: the rank grid, see
+    layer_forward). layer_ids: each layer's global index (a pipeline
+    stage's chunk, JAX's layer_offset), so MegaScope's sites see the ids
+    one device gives them; default 0, 1, ... Returns (x, moe_aux_sum);
+    dense layers add no aux loss, so the sum is a zero scalar."""
 
     def run_layer(layer_p, h, lid):
         (h2, _), _ = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
@@ -205,6 +207,8 @@ def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
         return h2
 
     run_layer = _remat_wrap(run_layer, cfg.remat_policy)
-    for lid, layer_p in enumerate(layers):
+    if layer_ids is None:
+        layer_ids = range(len(layers))
+    for lid, layer_p in zip(layer_ids, layers):
         x = run_layer(layer_p, x, lid)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

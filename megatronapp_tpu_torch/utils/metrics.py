@@ -33,8 +33,18 @@ from typing import Dict, List, Optional
 __all__ = [
     "Histogram", "MetricsRegistry", "enable", "disable", "enabled",
     "registry", "inc", "set_gauge", "observe", "render_prometheus",
-    "snapshot", "counter_value",
+    "snapshot", "counter_value", "labeled",
 ]
+
+
+def labeled(name: str, **labels) -> str:
+    """A metric name with Prometheus labels: ``labeled("pp_stage_x",
+    stage=0)`` → ``pp_stage_x{stage="0"}``; the renderer keeps the label
+    block and sanitizes the base name only."""
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return f"{name}{{{inner}}}"
 
 
 class Histogram:
@@ -135,7 +145,10 @@ class MetricsRegistry:
     # -- export ------------------------------------------------------------
     @staticmethod
     def _sanitize(name: str) -> str:
-        return re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+        """The name with its base sanitized; a ``labeled()`` block (the
+        first '{' onward) kept as it is."""
+        base, brace, rest = name.partition("{")
+        return re.sub(r"[^a-zA-Z0-9_:]", "_", base) + brace + rest
 
     @staticmethod
     def _fmt(v: float) -> str:
@@ -154,9 +167,13 @@ class MetricsRegistry:
             gauges = dict(self.gauges)
             hists = dict(self.histograms)
         for kind, values in (("counter", counters), ("gauge", gauges)):
+            typed = set()
             for name in sorted(values):
                 n = self._sanitize(name)
-                lines.append(f"# TYPE {n} {kind}")
+                base = n.partition("{")[0]
+                if base not in typed:
+                    typed.add(base)
+                    lines.append(f"# TYPE {base} {kind}")
                 lines.append(f"{n} {self._fmt(values[name])}")
         for name in sorted(hists):
             h = hists[name]

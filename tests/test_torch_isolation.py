@@ -79,6 +79,8 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.training.signals",
             "megatronapp_tpu_torch.transformer.mtp",
             "megatronapp_tpu_torch.parallel.sharding",
+            "megatronapp_tpu_torch.parallel.schedule",
+            "megatronapp_tpu_torch.parallel.pipeline",
             "megatronapp_tpu_torch.training.distributed_optimizer",
             "megatronapp_tpu_torch.ops.cross_entropy"} <= set(mods)
     code = (
@@ -849,6 +851,29 @@ def test_training_grid_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pretrain_gpt.main(["--tensor-model-parallel-size", "2",
                            "--num-layers", "1", "--hidden-size", "64",
+                           "--num-attention-heads", "4"])
+
+
+def test_pipeline_grid_defaults_to_the_card(monkeypatch):
+    """A pp × dp × tp grid with no device, and pretrain_gpt.py's pipeline
+    ranks under a launcher's environment, resolve the card before
+    joining a group: without one each raises."""
+    from megatronapp_tpu_torch import pretrain_gpt
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mesh(ParallelConfig(pipeline_parallel=2, tensor_parallel=2,
+                                  virtual_pipeline_parallel=2,
+                                  pp_schedule="zero-bubble"), rank=0,
+                   world_size=4, init_method="file:///nonexistent/never")
+    for k, v in {"RANK": "1", "WORLD_SIZE": "2", "LOCAL_RANK": "1",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_gpt.main(["--pipeline-model-parallel-size", "2",
+                           "--num-layers-per-virtual-pipeline-stage", "1",
+                           "--num-layers", "4", "--hidden-size", "64",
                            "--num-attention-heads", "4"])
 
 

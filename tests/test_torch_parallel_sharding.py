@@ -12,7 +12,9 @@ collective).
   V heads, and its gated fc1 shard its gate then its value columns.
 - shard_tree of a JAX tree equals params_from_jax(..., ctx=).
 - Every refused axis, field and flag raises or exits with a message
-  naming its ROADMAP.md item; the heads that do not split over tp,
+  naming its ROADMAP.md item; the pipeline fields and flags, refused
+  until pipelines were ported, now pass and refuse only what JAX's
+  config and parser refuse; the heads that do not split over tp,
   MTP and MLA under tp, local checkpoints on a grid are refused.
 """
 
@@ -129,10 +131,23 @@ def test_mesh_context_axes():
     assert fake_ctx(2, 3, dp=2).shard(8) == slice(4, 8)
 
 
-@pytest.mark.parametrize("field", sorted(UNPORTED_PARALLEL_FIELDS))
+# The pipeline fields, refused until pipelines were ported: each is now
+# accepted, and raises only on what JAX's ParallelConfig refuses.
+PP_FIELDS = {"pipeline_parallel": (2, 0, "must be >= 1"),
+             "virtual_pipeline_parallel": (2, 0, "must be >= 1"),
+             "pp_schedule": ("zero-bubble", "gpipe", "must be one of")}
+
+
+@pytest.mark.parametrize("field", sorted(UNPORTED_PARALLEL_FIELDS)
+                         + sorted(PP_FIELDS))
 def test_unported_parallel_fields_raise(field):
-    value = {"pp_schedule": "zero-bubble", "fsdp": True,
-             "forward_backward_disaggregating": True,
+    if field in PP_FIELDS:
+        good, bad, msg = PP_FIELDS[field]
+        assert getattr(ParallelConfig(**{field: good}), field) == good
+        with pytest.raises(ValueError, match=msg):
+            ParallelConfig(**{field: bad})
+        return
+    value = {"fsdp": True, "forward_backward_disaggregating": True,
              "use_dpp": True}.get(field, 2)
     flag, item = UNPORTED_PARALLEL_FIELDS[field]
     with pytest.raises(ValueError, match=f"ROADMAP.md {item}".replace(
@@ -155,8 +170,37 @@ def test_parallel_config_follows_jax():
         ParallelConfig(data_parallel=4).infer_data_parallel(2)
 
 
-@pytest.mark.parametrize("flag", sorted(entry.UNPORTED_FLAGS))
+# The pipeline flags, refused until pipelines were ported: each now
+# parses, and exits only on what JAX's parser refuses.
+PP_FLAGS = {
+    "--pipeline-model-parallel-size": (["2"], ["0"], "must be >= 1"),
+    "--num-layers-per-virtual-pipeline-stage": (
+        ["3", "--pipeline-model-parallel-size", "2"],
+        ["4", "--pipeline-model-parallel-size", "2"],
+        "must divide layers-per-stage"),
+    "--pp-schedule": (["zero-bubble"], ["gpipe"], "invalid choice"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(entry.UNPORTED_FLAGS)
+                         + sorted(PP_FLAGS))
 def test_entry_point_refuses_unported_axes(flag, capsys):
+    if flag in PP_FLAGS:
+        good, bad, msg = PP_FLAGS[flag]
+        base = ["--num-layers", "12"]
+        args = entry.parse_args(base + [flag] + good)
+        par = entry.parallel_from_args(args)
+        assert (par.pipeline_parallel, par.virtual_pipeline_parallel,
+                par.pp_schedule) == {
+            "--pipeline-model-parallel-size": (2, 1, "1f1b"),
+            "--num-layers-per-virtual-pipeline-stage": (2, 2, "1f1b"),
+            "--pp-schedule": (1, 1, "zero-bubble")}[flag]
+        with pytest.raises((SystemExit, ValueError), match=None) as e:
+            entry.parallel_from_args(entry.parse_args(base + [flag] + bad))
+        got = str(e.value) if e.type is ValueError \
+            else capsys.readouterr().err
+        assert msg in got
+        return
     argv = [flag] if flag in ("--tp-comm-overlap",
                               "--forward-backward-disaggregating",
                               "--use-dpp", "--use-custom-fsdp") \

@@ -1,6 +1,10 @@
-"""One rank of the port's dp × tp training grid, for
-tests/test_torch_parallel_*.py (spawned; it imports torch and the port
-only, so a rank starts without JAX).
+"""One rank of the port's pp × dp × tp training grid, for
+tests/test_torch_parallel_*.py, tests/test_torch_pipeline.py and
+tests/test_torch_pp_schedule.py (spawned; it imports torch and the port
+only, so a rank starts without JAX). A case's "par" holds its pipeline
+fields of ParallelConfig (pipeline_parallel, virtual_pipeline_parallel,
+pp_schedule, pipeline_order_policy, pp_plan_from_trace). A case with
+"expect_error" reports the exception it raised as {"raised": repr}.
 
 ``spawn_ranks`` starts ``world`` processes once; ``run_rank`` then runs
 each case whose grid has this rank: it joins the case's gloo group
@@ -19,7 +23,8 @@ def _grid(case, rank, store):
     from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
     from megatronapp_tpu_torch.parallel.mesh import build_mesh
     par = ParallelConfig(tensor_parallel=case["tp"],
-                         distributed_optimizer=case.get("zero1", True))
+                         distributed_optimizer=case.get("zero1", True),
+                         **case.get("par", {}))
     return build_mesh(par, rank=rank, world_size=case["world"],
                       init_method=f"file://{store}.{case['name']}",
                       device="cpu", timeout_s=60)
@@ -107,14 +112,23 @@ def _train(case, ctx):
     cfg = case["cfg"]
     params = (None if case.get("params") is None
               else params_from_jax(case["params"], cfg, ctx=ctx))
+    lines = [] if case.get("keep_log") else None
     res = pretrain_gpt(cfg, case["train"], case["opt"], device="cpu",
-                       params=params, ctx=ctx, log_fn=lambda s: None,
+                       params=params, ctx=ctx,
+                       log_fn=(lambda s: None) if lines is None
+                       else lines.append,
                        batch_iter=case.get("batch_iter"))
     out = {"losses": [m["loss"] for m in res.log],
            "grad_norms": [m["grad_norm"] for m in res.log],
            "mtp_losses": [m.get("mtp_loss") for m in res.log],
            "interrupted": res.interrupted, "step": res.state.step,
            "eval_losses": res.eval_losses}
+    named = dict(res.state.params.named_parameters())
+    if "embedding.word" in named:
+        # A tied model's copy of the word embedding on this stage.
+        out["word"] = _np(named["embedding.word"])
+    if lines is not None:
+        out["log"] = lines
     if case.get("flat"):
         out["params"] = _np(torch.cat([p.reshape(-1) for p in
                                        res.state.params.parameters()]))
@@ -165,6 +179,25 @@ def _signal(case, ctx, rank):
     return _train(dict(case, batch_iter=stream), ctx)
 
 
+def packed_stream(tc, vocab, packed_from):
+    """The mock stream of TrainingConfig tc whose batches from
+    `packed_from` on carry segment_ids (two segments a row)."""
+    from megatronapp_tpu_torch.data.mock import mock_batches
+    seg = np.repeat(np.arange(2, dtype=np.int32), tc.seq_length // 2)[None]
+    for i, b in enumerate(mock_batches(tc.seq_length, vocab,
+                                       tc.global_batch_size, seed=tc.seed)):
+        if i >= packed_from:
+            b = dict(b, segment_ids=np.tile(seg, (len(b["tokens"]), 1)))
+        yield b
+
+
+def _packed(case, ctx):
+    """_train on packed_stream, counting this rank's collectives."""
+    stream = packed_stream(case["train"], case["cfg"].vocab_size,
+                           case["packed_from"])
+    return _trace(dict(case, batch_iter=stream), ctx)
+
+
 def _trace(case, ctx):
     from megatronapp_tpu_torch.parallel import collectives
     collectives.reset_counts()
@@ -173,8 +206,55 @@ def _trace(case, ctx):
     return out
 
 
+def _whole_grads(named, ctx):
+    """Every leaf's reduced grad gathered whole (over tp, then every
+    stage), by its one-device path, as numpy."""
+    from megatronapp_tpu_torch.parallel.sharding import (
+        gather_leaf, gather_stages, segment_counts,
+    )
+    segs = segment_counts(named)
+    whole = {n: gather_leaf(p.grad, n, segs[n], ctx)
+             for n, p in named.items()}
+    if ctx.pp > 1:
+        whole = gather_stages({} if ctx.dp_rank or ctx.tp_rank else whole,
+                              ctx)
+    return {n: _np(t) for n, t in whole.items()}
+
+
+def _pp_grads(case, ctx):
+    """One accumulation of the case's [M, mb, S] batch through
+    gpt_pipeline_loss on this rank's stage (ZeRO-1 off): the loss (the
+    last stage's dp share, zeros elsewhere), and every leaf's dp-summed
+    grad gathered whole."""
+    from megatronapp_tpu_torch.config.training_config import OptimizerConfig
+    from megatronapp_tpu_torch.models.convert import params_from_jax
+    from megatronapp_tpu_torch.models.gpt import gpt_pipeline_loss
+    from megatronapp_tpu_torch.training.distributed_optimizer import (
+        DistributedOptimizer,
+    )
+    from megatronapp_tpu_torch.training.train import dp_rows
+    cfg = case["cfg"]
+    params = params_from_jax(case["params"], cfg, ctx=ctx)
+    params.requires_grad_(True)
+    opt = DistributedOptimizer(
+        OptimizerConfig(), 10, ctx,
+        tied_embedding=not cfg.untie_embeddings_and_output_weights)
+    named = dict(params.named_parameters())
+    opt.init(named)
+    opt.zero_grad()
+    batch = {k: torch.from_numpy(v.copy())
+             for k, v in dp_rows(case["batch"], ctx).items()}
+    loss, _ = gpt_pipeline_loss(params, batch, cfg, ctx,
+                                schedule=ctx.parallel.pp_schedule,
+                                order_policy=ctx.parallel
+                                .pipeline_order_policy)
+    opt.reduce_grads(1.0)
+    return {"loss": float(loss), "grads": _whole_grads(named, ctx),
+            "names": sorted(named)}
+
+
 KINDS = {"grads": _grads, "train": _train, "roundtrip": _roundtrip,
-         "trace": _trace, "ce": _ce}
+         "trace": _trace, "ce": _ce, "pp_grads": _pp_grads}
 
 
 def run_rank(rank, store, cases, out_q):
@@ -188,8 +268,14 @@ def run_rank(rank, store, cases, out_q):
             try:
                 if case["kind"] == "signal":
                     report[case["name"]] = _signal(case, ctx, rank)
+                elif case["kind"] == "packed":
+                    report[case["name"]] = _packed(case, ctx)
                 else:
                     report[case["name"]] = KINDS[case["kind"]](case, ctx)
+            except Exception as e:  # noqa: BLE001 — a case meant to raise
+                if not case.get("expect_error"):
+                    raise
+                report[case["name"]] = {"raised": repr(e)}
             finally:
                 ctx.close()
     except Exception as e:  # noqa: BLE001 — reported to the test
