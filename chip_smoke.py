@@ -249,6 +249,27 @@ Phases, each printing one JSON line:
             memory and step wall, and each run's traced iteration 0 merged
             across ranks: stage_step_gaps samples for both stages, taken
             by the Planner.
+   train_fbd: MegaFBD pretraining: pretrain_gpt on 4 spawned ranks
+            sharing cuda:0 over gloo, split by split_fbd_meshes into a
+            forward and a backward half of pp 2 each, llama3-8b at full
+            width, 4 layers, S 4096, global batch 4 of 1, 2 steps, against
+            train_pp's one-rank yardstick (or its own when train_pp did
+            not run): loss and grad norm within 1e-3 of one rank's,
+            fwd_loss within 1e-3 of loss, every rank's metrics equal, each
+            rank's flash launches (forward ranks the forward only,
+            backward ranks forward, dq and dk/dv), twin hops and param
+            stream by count and bytes exactly the reckoning's, peak memory
+            a rank and the param stream's seconds.
+   train_dpp: MegaDPP pretraining in one spawned process: pretrain_gpt
+            with use_dpp on llama3-8b at full width, 4 layers, pp 2 x vpp
+            2 stages on cuda:0 (each its own stream), M 4 micro-batches of
+            1 at S 2048, 3 steps, the runtime dynamic and then static,
+            against one rank's run at S 2048: loss and grad norm within
+            1e-3, every stage shipping every (chunk, mb) in both sweeps,
+            flash launches exactly, transfer orders, compute waits, pool
+            stalls and peak memory; then one value-and-grad each way with
+            stage 1's chunk 0 slowed: the dynamic sender ships (0, 2)
+            before (1, 0), and before the static one does.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
@@ -5450,15 +5471,16 @@ def _train_tp_rank(rank, init_method, plan, out_q):
 def _train_tp_one_rank(rank, init_method, plan, out_q):
     """train_tp's (and train_pp's) yardstick: the same run on one rank, in
     a spawned process on cuda:0, so that the parent keeps none of its
-    memory. plan: {"layers": depth, "steps": n} (default TP_LAYERS,
-    TP_STEPS)."""
+    memory. plan: {"layers": depth, "steps": n, "seq": S} (default
+    TP_LAYERS, TP_STEPS, TP_SEQ)."""
     try:
         from megatronapp_tpu_torch.training.train import pretrain_gpt
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg, train_cfg, opt_cfg = _train_tp_configs(
             layers=(plan or {}).get("layers", TP_LAYERS),
-            steps=(plan or {}).get("steps", TP_STEPS))
+            steps=(plan or {}).get("steps", TP_STEPS),
+            seq=(plan or {}).get("seq", TP_SEQ))
         t0 = time.perf_counter()
         res = pretrain_gpt(cfg, train_cfg, opt_cfg, device="cuda",
                            log_fn=lambda s: None)
@@ -5511,10 +5533,11 @@ def _spawn_train_tp(target, world, init_method, plan):
     return reps
 
 
-def _train_tp_configs(trace_dir=None, layers=TP_LAYERS, steps=TP_STEPS):
-    """train_tp's and train_pp's run: llama3-8b at full width, `layers`
-    deep, S 4096, global batch 4 of 1, `steps` steps (iteration 0 traced
-    into trace_dir when given)."""
+def _train_tp_configs(trace_dir=None, layers=TP_LAYERS, steps=TP_STEPS,
+                      seq=TP_SEQ):
+    """train_tp's, train_pp's, train_fbd's and train_dpp's run: llama3-8b
+    at full width, `layers` deep, S `seq` (4096), global batch 4 of 1,
+    `steps` steps (iteration 0 traced into trace_dir when given)."""
     from megatronapp_tpu_torch.config.training_config import (
         OptimizerConfig, TrainingConfig,
     )
@@ -5524,7 +5547,7 @@ def _train_tp_configs(trace_dir=None, layers=TP_LAYERS, steps=TP_STEPS):
         continuous_trace_iterations=1)
     return (llama3_8b(num_layers=layers),
             TrainingConfig(micro_batch_size=1, global_batch_size=TP_GBS,
-                           seq_length=TP_SEQ, train_iters=steps,
+                           seq_length=seq, train_iters=steps,
                            log_interval=1, seed=1234, **trace),
             OptimizerConfig())
 
@@ -5864,6 +5887,8 @@ def phase_train_pp(state):
                                {"layers": PP_LAYERS, "steps": PP_STEPS})[0]
     check("error" not in one_rank, f"train_pp: the one-rank run failed: "
           f"{one_rank.get('error')}")
+    # train_fbd's yardstick too (its first FBD_STEPS steps: the same run).
+    state["pp_one_rank"] = one_rank
     runs = {}
     for name, (world, par) in PP_RUNS.items():
         tmp = tempfile.mkdtemp(prefix="train_pp_")
@@ -5941,6 +5966,381 @@ def phase_train_pp(state):
           "tolerances": {"loss": PP_LOSS_TOL, "grad_norm": PP_NORM_TOL},
           "one_rank": one_rank, "runs": runs,
           "phase_s": time.perf_counter() - t_phase})
+
+
+# ---- train_fbd ---------------------------------------------------------------
+
+FBD_STEPS = 2
+FBD_WORLD = 4
+FBD_PAR = dict(pipeline_parallel=2, forward_backward_disaggregating=True)
+# Against one rank, as train_pp's gates (PERF.md's reasoning, written
+# before the first run): the backward half runs the pp 2 pipeline's
+# numbers on the inputs its forward twins ship bit for bit, recomputing
+# each stage forward with the same kernels, so what differs from one rank
+# is what differs under train_pp; the forward half's loss is the same
+# forward's.
+FBD_LOSS_TOL, FBD_NORM_TOL, FBD_FWD_TOL = 1e-3, 1e-3, 1e-3
+
+
+def _train_fbd_rank(rank, init_method, plan, out_q):
+    """One rank of train_fbd (a spawned process on cuda:0)."""
+    try:
+        rep = _train_fbd_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _train_fbd_rank_run(rank, init_method, plan):
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.fbd import split_fbd_meshes
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = split_fbd_meshes(ParallelConfig(**FBD_PAR), rank=rank,
+                           world_size=FBD_WORLD, init_method=init_method,
+                           device=torch.device(plan["device"]),
+                           timeout_s=TP_TIMEOUT_S)
+    out = {"role": ctx.fbd_role, "stage": ctx.pp_rank, "twin": ctx.twin_rank,
+           "dp": ctx.dp}
+    cfg, train_cfg, opt_cfg = _train_tp_configs(layers=PP_LAYERS,
+                                                steps=FBD_STEPS)
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    # The main path: counts zeroed just before, read just after.
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    res = pretrain_gpt(cfg, train_cfg, opt_cfg, ctx=ctx,
+                       log_fn=lines.append)
+    torch.cuda.synchronize()
+    out.update(
+        wall_s=time.perf_counter() - t0, launches=dict(fa.launches),
+        traffic={k: dict(v) for k, v in collectives.traffic.items()},
+        losses=[m["loss"] for m in res.log],
+        fwd_losses=[m["fwd_loss"] for m in res.log],
+        grad_norms=[m["grad_norm"] for m in res.log],
+        shipped_bytes=[m["shipped_bytes"] for m in res.log],
+        step_ms=[m["step_time_ms"] for m in res.log],
+        stream_s=[m["stream_s"] for m in res.log],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        local_params=sum(p.numel() for p in res.state.params.parameters()),
+        log=lines)
+    del res
+    ctx.close()
+    return out
+
+
+def _fbd_expected(rep, hidden):
+    """A rank's flash launches and twin traffic for FBD_STEPS steps:
+    each (micro-batch, stage) forward runs once on both halves (the
+    backward rank's recompute; "selective" recomputes nothing else), the
+    backward ranks alone run dq and dk/dv; a forward stage-1 rank ships
+    its M stage inputs a step (stage 0 none: its twin embeds the rows),
+    its twin takes them, each backward rank streams its flat fp32 params
+    (dp 1 a half: no padding) once a step."""
+    micro = TP_GBS
+    fwd = rep["role"] == "forward"
+    work = PP_LAYERS // 2 * micro * FBD_STEPS
+    launches = {"fwd": work, "bwd_dq": 0 if fwd else work,
+                "bwd_dkv": 0 if fwd else work}
+    hops = FBD_STEPS * micro if rep["stage"] == 1 else 0
+    traffic = {"send/fbd": None, "recv/fbd": None}
+    if hops:
+        traffic["send/fbd" if fwd else "recv/fbd"] = {
+            "calls": hops, "bytes": hops * TP_SEQ * hidden * 2}
+    traffic["recv/fbd-params" if fwd else "send/fbd-params"] = {
+        "calls": FBD_STEPS, "bytes": FBD_STEPS * rep["local_params"] * 4}
+    return launches, traffic
+
+
+def phase_train_fbd(state):
+    """MegaFBD pretraining (see the module docstring): 4 spawned ranks on
+    cuda:0, pp 2 with forward_backward_disaggregating, against one rank
+    (train_pp's yardstick when it ran, else its own)."""
+    import gc
+    import tempfile
+
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    one_rank = state.get("pp_one_rank")
+    if one_rank is None:
+        one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None,
+                                   {"layers": PP_LAYERS,
+                                    "steps": FBD_STEPS})[0]
+        check("error" not in one_rank, f"train_fbd: the one-rank run "
+              f"failed: {one_rank.get('error')}")
+    ref_losses = one_rank["losses"][:FBD_STEPS]
+    ref_norms = one_rank["grad_norms"][:FBD_STEPS]
+    tmp = tempfile.mkdtemp(prefix="train_fbd_")
+    t0 = time.perf_counter()
+    reps = _spawn_train_tp(_train_fbd_rank, FBD_WORLD,
+                           f"file://{os.path.join(tmp, 'store')}",
+                           {"device": "cuda:0"})
+    spawn_wall = time.perf_counter() - t0
+    for rank, rep in reps.items():
+        check("error" not in rep, f"train_fbd: rank {rank} failed: "
+              f"{rep.get('error')}")
+    hidden = _train_tp_configs(layers=PP_LAYERS)[0].hidden_size
+    r0 = reps[2]                       # the backward half's lead
+    rel = [{"loss": abs(a - b) / abs(b), "grad_norm": abs(c - d) / abs(d),
+            "fwd_loss": abs(f - a) / abs(a)}
+           for a, b, c, d, f in zip(r0["losses"], ref_losses,
+                                    r0["grad_norms"], ref_norms,
+                                    r0["fwd_losses"])]
+    expected = {r: _fbd_expected(rep, hidden) for r, rep in reps.items()}
+    emit({"phase": "train_fbd", "model": "llama3-8b", "layers": PP_LAYERS,
+          "full_width": True, "seq_length": TP_SEQ, "micro_batch_size": 1,
+          "global_batch_size": TP_GBS, "steps": FBD_STEPS,
+          "grid": {"world": FBD_WORLD, "halves": "pp 2 x dp 1 each",
+                   "backend": "gloo", "device": "cuda:0"},
+          "note": "4 ranks share cuda:0 over gloo: never parallel speed",
+          "tolerances": {"loss": FBD_LOSS_TOL, "grad_norm": FBD_NORM_TOL,
+                         "fwd_loss": FBD_FWD_TOL},
+          "one_rank": {"losses": ref_losses, "grad_norms": ref_norms},
+          "losses": r0["losses"], "fwd_losses": r0["fwd_losses"],
+          "grad_norms": r0["grad_norms"],
+          "shipped_bytes": r0["shipped_bytes"], "rel_err": rel,
+          "ranks": {r: {k: rep[k] for k in (
+              "role", "stage", "twin", "launches", "traffic",
+              "peak_mem_bytes", "step_ms", "stream_s", "wall_s",
+              "local_params")} for r, rep in sorted(reps.items())},
+          "expected": {r: {"launches": e[0], "traffic": e[1]}
+                       for r, e in expected.items()},
+          "spawn_wall_s": spawn_wall, "log_lead": r0["log"],
+          "phase_s": time.perf_counter() - t_phase})
+    for r, rep in reps.items():
+        check(rep["losses"] == r0["losses"]
+              and rep["fwd_losses"] == r0["fwd_losses"]
+              and rep["grad_norms"] == r0["grad_norms"],
+              f"train_fbd: rank {r}'s metrics differ from rank 2's")
+        launches, traffic = expected[r]
+        check(rep["launches"] == launches, f"train_fbd: rank {r} launched "
+              f"{rep['launches']}; the reckoning is {launches}")
+        got = {k: rep["traffic"].get(k) for k in traffic}
+        check(got == traffic, f"train_fbd: rank {r}'s twin traffic {got} "
+              f"is not the reckoning's {traffic}")
+    check(len(r0["losses"]) == FBD_STEPS and all(
+        math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]
+        + r0["fwd_losses"]), f"train_fbd: metrics {r0['losses']} "
+          f"{r0['grad_norms']} {r0['fwd_losses']}")
+    for e in rel:
+        check(e["loss"] < FBD_LOSS_TOL and e["grad_norm"] < FBD_NORM_TOL
+              and e["fwd_loss"] < FBD_FWD_TOL,
+              f"train_fbd: against one rank: relative errors {e}")
+
+
+# ---- train_dpp ---------------------------------------------------------------
+
+DPP_SEQ, DPP_STEPS, DPP_JITTER_S = 2048, 3, 0.2
+DPP_PAR = dict(pipeline_parallel=2, virtual_pipeline_parallel=2,
+               use_dpp=True)
+# Against one rank (PERF.md, written before the first run): the stages
+# run one rank's kernels on the same bf16 residual stream (a hop copies
+# bits), so what differs is the head's token mean over all M against the
+# mean of M micro-batch means, and the fp32 order of the micro-batches'
+# grad sums: train_pp's differences.
+DPP_LOSS_TOL, DPP_NORM_TOL = 1e-3, 1e-3
+
+
+def _train_dpp_proc(rank, init_method, plan, out_q):
+    """train_dpp's one process on cuda:0."""
+    try:
+        rep = _train_dpp_run()
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _runner_view(ru) -> dict:
+    return {phase: {k: m[k] for k in ("transfer_order", "compute_wait_s",
+                                      "pool_stall_s", "sender_stall_s",
+                                      "wall_s")}
+            for phase, m in (("forward", ru.fwd_metrics),
+                             ("backward", ru.bwd_metrics))}
+
+
+def _train_dpp_run():
+    """The trainer under use_dpp, dynamic then static (the runtime's
+    dynamic flag set on make_dpp_train_step), each DPP_STEPS steps with
+    its runners kept; then one value-and-grad each way with stage 1's
+    chunk 0 slowed by DPP_JITTER_S an item."""
+    import functools
+    import gc
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.data.mock import mock_batches
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.runtime import dpp, dpp_train
+    from megatronapp_tpu_torch.training.train import (
+        pretrain_gpt, reshape_global_batch,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, train_cfg, opt_cfg = _train_tp_configs(
+        layers=PP_LAYERS, steps=DPP_STEPS, seq=DPP_SEQ)
+    runners = []
+    run_train = dpp.DppPipelineRunner.run_train
+
+    def keep(self, *a, **k):
+        got = run_train(self, *a, **k)
+        runners.append(self)
+        return got
+
+    dpp.DppPipelineRunner.run_train = keep
+    make_step = dpp_train.make_dpp_train_step
+    out = {"runs": {}}
+    try:
+        for name, dynamic in (("dynamic", True), ("static", False)):
+            dpp_train.make_dpp_train_step = functools.partial(
+                make_step, dynamic=dynamic)
+            runners.clear()
+            torch.cuda.reset_peak_memory_stats()
+            # The main path: counts zeroed just before, read just after.
+            fa.launches.update(dict.fromkeys(fa.launches, 0))
+            lines = []
+            t0 = time.perf_counter()
+            res = pretrain_gpt(cfg, train_cfg, opt_cfg, device="cuda",
+                               log_fn=lines.append,
+                               parallel=ParallelConfig(**DPP_PAR))
+            torch.cuda.synchronize()
+            out["runs"][name] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": dict(fa.launches),
+                "losses": [m["loss"] for m in res.log],
+                "grad_norms": [m["grad_norm"] for m in res.log],
+                "step_ms": [m["step_time_ms"] for m in res.log],
+                "fwd_compute_wait_s": [m["dpp_fwd_compute_wait_s"]
+                                       for m in res.log],
+                "bwd_compute_wait_s": [m["dpp_bwd_compute_wait_s"]
+                                       for m in res.log],
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "streams": [str(s) for s in runners[-1].streams],
+                "runners": [_runner_view(ru) for ru in runners],
+                "log": lines}
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dpp.DppPipelineRunner.run_train = run_train
+        dpp_train.make_dpp_train_step = make_step
+    dev = torch.device("cuda", 0)
+    params = init_gpt_params(cfg, torch.Generator(dev).manual_seed(1234),
+                             dev).requires_grad_(True)
+    b = reshape_global_batch(next(mock_batches(
+        DPP_SEQ, cfg.vocab_size, TP_GBS, seed=1234)), TP_GBS)
+    batch = {k: torch.from_numpy(b[k]).to(dev)
+             for k in ("tokens", "labels", "loss_mask")}
+    grid = dpp_train.stage_devices(2, 1)
+    slow = {}
+    for name, dynamic in (("dynamic", True), ("static", False)):
+        vg = dpp_train.make_dpp_gpt_value_and_grad(
+            cfg, grid, vpp=2, dynamic=dynamic,
+            jitter={(1, 0): DPP_JITTER_S})
+        loss, grads, _, rs = vg(params, batch)
+        del grads
+        ru = rs[0]
+        slow[name] = {"loss": float(loss), **_runner_view(ru),
+                      "ship_time_s_0_2": ru.fwd_metrics["ship_time_s"][0][
+                          (0, 2)]}
+    out["slow"] = slow
+    return out
+
+
+def phase_train_dpp(state):
+    """MegaDPP pretraining (see the module docstring): one rank's run at S
+    DPP_SEQ (the yardstick, a spawned process), then the DPP process."""
+    import gc
+
+    from megatronapp_tpu_torch.runtime.dpp import static_order
+
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None,
+                               {"layers": PP_LAYERS, "steps": DPP_STEPS,
+                                "seq": DPP_SEQ})[0]
+    check("error" not in one_rank, f"train_dpp: the one-rank run failed: "
+          f"{one_rank.get('error')}")
+    rep = _spawn_train_tp(_train_dpp_proc, 1, None, None)[0]
+    check("error" not in rep, f"train_dpp: the DPP process failed: "
+          f"{rep.get('error')}")
+    m = TP_GBS
+    items = sorted((c, i) for c in range(2) for i in range(m))
+    work = PP_LAYERS * m * DPP_STEPS
+    want_launch = dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"), work)
+    rel = {name: [{"loss": abs(a - b) / abs(b),
+                   "grad_norm": abs(c - d) / abs(d)}
+                  for a, b, c, d in zip(run["losses"], one_rank["losses"],
+                                        run["grad_norms"],
+                                        one_rank["grad_norms"])]
+           for name, run in rep["runs"].items()}
+    slow = rep["slow"]
+    plan = static_order(2, 2, m, "dfc")
+    d0 = slow["dynamic"]["forward"]["transfer_order"][0]
+    emit({"phase": "train_dpp", "model": "llama3-8b", "layers": PP_LAYERS,
+          "full_width": True, "seq_length": DPP_SEQ, "micro_batch_size": 1,
+          "global_batch_size": TP_GBS, "steps": DPP_STEPS,
+          "grid": {"pp": 2, "vpp": 2, "dp": 1, "policy": "dfc",
+                   "device": "cuda:0", "streams": "one a stage"},
+          "note": "one process; four stage streams on one card",
+          "tolerances": {"loss": DPP_LOSS_TOL, "grad_norm": DPP_NORM_TOL},
+          "one_rank": one_rank, "rel_err": rel,
+          "expected_launches": want_launch,
+          "runs": {name: {k: v for k, v in run.items() if k != "runners"}
+                   for name, run in rep["runs"].items()},
+          "last_step_runner": {name: run["runners"][-1]
+                               for name, run in rep["runs"].items()},
+          "slow_stage": {"jitter_s": DPP_JITTER_S, "stage_chunk": [1, 0],
+                         **slow},
+          "phase_s": time.perf_counter() - t_phase})
+    for name, run in rep["runs"].items():
+        check(len(run["runners"]) == DPP_STEPS, f"train_dpp {name}: "
+              f"{len(run['runners'])} runners for {DPP_STEPS} steps")
+        for ru in run["runners"]:
+            for phase in ("forward", "backward"):
+                check(all(sorted(map(tuple, o)) == items for o in
+                          ru[phase]["transfer_order"]),
+                      f"train_dpp {name}: a stage did not ship every "
+                      f"(chunk, mb) in the {phase} sweep: "
+                      f"{ru[phase]['transfer_order']}")
+        check(run["launches"] == want_launch, f"train_dpp {name}: launched "
+              f"{run['launches']}; the reckoning is {want_launch}")
+        check(all(math.isfinite(x) for x in run["losses"]
+                  + run["grad_norms"]), f"train_dpp {name}: non-finite "
+              "metrics")
+        for e in rel[name]:
+            check(e["loss"] < DPP_LOSS_TOL
+                  and e["grad_norm"] < DPP_NORM_TOL,
+                  f"train_dpp {name}: against one rank: relative errors "
+                  f"{e}")
+    check([tuple(x) for x in slow["static"]["forward"]["transfer_order"][0]]
+          == plan, "train_dpp: the static sender left its plan")
+    d0 = [tuple(x) for x in d0]
+    check(d0.index((0, 2)) < d0.index((1, 0)),
+          f"train_dpp: with stage (1, 0) slowed the dynamic sender shipped "
+          f"{d0}, not (0, 2) before (1, 0)")
+    check(slow["dynamic"]["ship_time_s_0_2"]
+          < slow["static"]["ship_time_s_0_2"],
+          f"train_dpp: the dynamic sender shipped (0, 2) at "
+          f"{slow['dynamic']['ship_time_s_0_2']} s, not before the static "
+          f"one ({slow['static']['ship_time_s_0_2']} s)")
+    check(slow["dynamic"]["loss"] == slow["static"]["loss"],
+          f"train_dpp: the slowed runs' losses differ: {slow}")
+
 
 def _related_set_faults(events, coll, related):
     """What the dependency pass got wrong on a merged trace of a grid:
@@ -7420,6 +7820,8 @@ def main(argv=None) -> int:
         ("serve_tp", lambda: phase_serve_tp(state, args.layers)),
         ("train_tp", lambda: phase_train_tp(state)),
         ("train_pp", lambda: phase_train_pp(state)),
+        ("train_fbd", lambda: phase_train_fbd(state)),
+        ("train_dpp", lambda: phase_train_dpp(state)),
     ]
     wanted = None if args.phases is None else set(args.phases.split(","))
     seconds = {}

@@ -2,13 +2,19 @@
 ``config/parallel_config.py`` fields, names and ``__post_init__`` checks.
 
 Ported axes: tensor parallelism (paged serving under ``--serve-tp``, and
-training), data parallelism with the ZeRO-1 distributed optimizer and
+training), data parallelism with the ZeRO-1 distributed optimizer,
 pipeline parallelism (training: 1F1B, interleaved VPP, zero-bubble, the
-'dfc' / 'bfc' chunk orders and the trace-driven planner). The port runs
-one process a rank, so ``infer_data_parallel`` divides a process count
-where JAX divides a device count. The other axes raise when they are set
-away from their defaults, each naming the ROADMAP.md item that ports
-it.
+'dfc' / 'bfc' chunk orders and the trace-driven planner), MegaFBD
+(``forward_backward_disaggregating``: parallel/fbd.py) and MegaDPP
+(``use_dpp``: runtime/dpp.py). The port runs one process a rank, so
+``infer_data_parallel`` divides a process count where JAX divides a
+device count. The other axes raise when they are set away from their
+defaults, each naming the ROADMAP.md item that ports it.
+
+JAX's compose checks (config/arguments.py:1163-1180, training/train.py
+:240-249) hold here for every caller: FBD and DPP run their own
+schedules, so a ``pp_schedule`` other than '1f1b' or the trace-driven
+planner beside either raises with JAX's words.
 """
 
 from __future__ import annotations
@@ -23,9 +29,6 @@ UNPORTED_PARALLEL_FIELDS = {
     "expert_parallel": ("--expert-model-parallel-size",
                         "Queue 1 item 4 (MoE and EP)"),
     "fsdp": ("--use-custom-fsdp", "Queue 1 item 4 (FSDP)"),
-    "forward_backward_disaggregating": (
-        "--forward-backward-disaggregating", "Queue 1 item 5 (MegaFBD)"),
-    "use_dpp": ("--use-dpp", "Queue 1 item 5 (MegaDPP)"),
 }
 
 # The pipeline schedule programs (parallel/schedule.py SCHEDULES).
@@ -55,7 +58,14 @@ class ParallelConfig:
     parallel/schedule.py's Planner re-plan the schedule from the traced
     ring-hop spans. JAX's num_microbatches field, which nothing there
     reads, is left out: the trainer takes the count from the batch sizes
-    (TrainingConfig)."""
+    (TrainingConfig).
+
+    forward_backward_disaggregating: the world splits into a forward and
+    a backward half, dp halved on each (parallel/fbd.py). use_dpp: at pp
+    > 1 and tp 1 the step runs in one process through the readiness-
+    ordered runtime over a [pp][dp] stage grid (runtime/dpp_train.py),
+    dp taken from data_parallel (default 1); elsewhere the trainer logs
+    that it runs the static 'bfc' order."""
 
     tensor_parallel: int = 1
     pipeline_parallel: int = 1
@@ -97,6 +107,21 @@ class ParallelConfig:
                 "pp_schedule 'vpp' requires virtual_pipeline_parallel > 1 "
                 "(--num-layers-per-virtual-pipeline-stage); plain 1F1B "
                 "is pp_schedule '1f1b'")
+        if self.use_dpp and self.pp_schedule != "1f1b":
+            raise ValueError(
+                f"--pp-schedule {self.pp_schedule} does not compose with "
+                "--use-dpp (the host-driven MegaDPP runtime schedules "
+                "dynamically); drop one of the flags")
+        if self.use_dpp and self.pp_plan_from_trace:
+            raise ValueError(
+                "--pp-plan-from-trace does not compose with --use-dpp (the "
+                "host runtime already schedules dynamically); drop one")
+        if self.forward_backward_disaggregating and (
+                self.pp_schedule != "1f1b" or self.pp_plan_from_trace):
+            raise ValueError(
+                "--pp-schedule/--pp-plan-from-trace do not compose with "
+                "--forward-backward-disaggregating (the FBD executor runs "
+                "its own schedule); drop one")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for name, (flag, item) in UNPORTED_PARALLEL_FIELDS.items():
             if getattr(self, name) != defaults[name]:

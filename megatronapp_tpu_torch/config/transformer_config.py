@@ -4,7 +4,11 @@ Counterpart of the JAX package's ``config/transformer_config.py``: the
 same field names and enums, with ``params_dtype``/``compute_dtype`` as
 torch dtypes. Fields that select JAX/TPU machinery (remat, scan unroll,
 flash block sizes, cp/tp overlap, fp8) are kept so a config reads the
-same on both sides; the serving slice does not consult them.
+same on both sides; the serving slice does not consult them. Two of
+them would change what a run is and have no port: ``fp8=True`` (JAX's
+delayed-scaling fp8 training) and ``tp_comm_overlap=True`` (JAX's TP
+overlap rings, whose flag the entry point refuses) raise, naming their
+ROADMAP.md item, instead of training silently in bf16 without them.
 """
 
 from __future__ import annotations
@@ -129,6 +133,16 @@ class TransformerConfig:
     heterogeneous_layers_config_json: Optional[str] = None
 
     def __post_init__(self):
+        if self.fp8:
+            raise NotImplementedError(
+                "fp8=True (--fp8) is not ported to megatronapp_tpu_torch "
+                "yet (ROADMAP.md Queue 1 item 4 (fp8 training)); without "
+                "it the run would train in bf16")
+        if self.tp_comm_overlap:
+            raise NotImplementedError(
+                "tp_comm_overlap=True (--tp-comm-overlap) is not ported "
+                "to megatronapp_tpu_torch yet (ROADMAP.md Queue 1 item 4 "
+                "(TP overlap))")
         if self.heterogeneous_layers_config_json:
             raise NotImplementedError(
                 "heterogeneous per-layer configs are not ported yet (the "

@@ -246,7 +246,7 @@ def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
 
 def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
                       schedule: str = "1f1b", order_policy: str = "dfc",
-                      grad: bool = True):
+                      grad: bool = True, fbd=None):
     """The pipelined training loss (JAX models/gpt.py gpt_pipeline_loss)
     of this rank's stage over microbatched inputs batch[k] [M, mb, S]
     (tokens, labels, optional loss_mask and segment_ids), run by
@@ -263,7 +263,10 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
     microbatch's masked sum by the mask count of the whole step, so
     uneven masks weigh tokens, not microbatches. Packed sequences
     (segment_ids) ride as JAX's aux inputs: every stage computes its own
-    microbatch's positions, rope tables and segment masks."""
+    microbatch's positions, rope tables and segment masks. fbd: a MegaFBD
+    rank's parallel/pipeline.py ``TwinLink`` (its forward ranks pass
+    grad=False); a backward rank's head runs a microbatch at a time inside
+    the backward program, against the same whole-step mask count."""
     from megatronapp_tpu_torch.parallel.pipeline import (
         StageProgram, run_pipeline,
     )
@@ -308,31 +311,43 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
     def embed_backward(d_inputs):
         h.backward(torch.stack([d_inputs[m] for m in range(m_count)]))
 
-    def head(outs, want_grad):
+    counts = []
+
+    def step_count():
+        """The mask count of the whole step, over every dp rank (one
+        all-reduce, at the head's first microbatch)."""
+        if not counts:
+            mask = batch.get("loss_mask")
+            count = (torch.tensor(float(tokens.numel()), device=dev)
+                     if mask is None else mask.float().sum())
+            if ctx.dp > 1:
+                from megatronapp_tpu_torch.parallel.collectives import (
+                    all_reduce,
+                )
+                count = all_reduce(count.clone(), ctx, "dp")
+            counts.append(count.clamp(min=1.0))
+        return counts[0]
+
+    def head_one(m, o):
         mask = batch.get("loss_mask")
-        mask = (torch.ones(tokens.shape, device=dev) if mask is None
-                else mask.float())
-        count = mask.sum()
-        if ctx.dp > 1:
-            from megatronapp_tpu_torch.parallel.collectives import (
-                all_reduce,
-            )
-            count = all_reduce(count.clone(), ctx, "dp")
-        count = count.clamp(min=1.0)
+        logits = gpt_head(p, o, cfg, ctx)
+        loss_m, _ = cross_entropy_loss(
+            logits, batch["labels"][m], None if mask is None else mask[m],
+            ctx=ctx, count=step_count())
+        return loss_m
+
+    def head(outs, want_grad):
         total = torch.zeros((), dtype=torch.float32, device=dev)
         d_outs = {}
         for m in range(m_count):
             o = outs[m].detach().requires_grad_(want_grad)
             with torch.set_grad_enabled(want_grad):
-                logits = gpt_head(p, o, cfg, ctx)
-                loss_m, _ = cross_entropy_loss(
-                    logits, batch["labels"][m], mask[m], ctx=ctx,
-                    count=count)
+                loss_m = head_one(m, o)
             if want_grad:
                 loss_m.backward()
                 d_outs[m] = o.grad
             total = total + loss_m.detach()
-            del logits, loss_m
+            del loss_m
         return total, d_outs
 
     prog = StageProgram(
@@ -340,10 +355,10 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
         inject=None if h is None else (lambda m: h[m].detach()),
         inject_backward=None if h is None else embed_backward,
         like=torch.empty((mb, s, cfg.hidden_size), dtype=dt, device=dev),
-        head=head)
+        head=head, head_one=head_one)
     loss = run_pipeline(ctx, prog, m_count, schedule=schedule,
                         order_policy=order_policy, grad=grad,
-                        packed=segs is not None)
+                        packed=segs is not None, fbd=fbd)
     if loss is None:
         loss = torch.zeros((), dtype=torch.float32, device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -44,8 +45,10 @@ from megatronapp_tpu_torch.ops.cuda import build as kbuild
 NEG_INF = -1e30
 
 # Launches of each kernel. Incremented only where the wrappers launch
-# them (never by the plain versions).
+# them (never by the plain versions), under a lock: MegaDPP's stage
+# threads launch concurrently (runtime/dpp.py).
 launches: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+_launches_lock = threading.Lock()
 
 SOURCE = kbuild.source("flash_attention.cu")
 HEAD_DIMS = (64, 128)
@@ -224,7 +227,8 @@ def flash_forward(q, k, v, causal: bool = True,
             float(_scale(softmax_scale, d)), stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
-    launches["fwd"] += 1
+    with _launches_lock:
+        launches["fwd"] += 1
     return out, lse
 
 
@@ -256,7 +260,8 @@ def _bwd_launch(kernel: str, q, k, v, g, lse, delta, outs, causal,
     if rc != 0:
         raise RuntimeError(f"flash_{kernel} kernel launch failed: CUDA "
                            f"error {rc}")
-    launches[kernel] += 1
+    with _launches_lock:
+        launches[kernel] += 1
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool = True,

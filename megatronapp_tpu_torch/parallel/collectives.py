@@ -41,6 +41,13 @@ the 1F1B backward, a timeline of its own), rank (the stage) and step
 (the slot); trace/detect.py ``stage_step_gaps`` mines the gaps between
 them.
 
+MegaFBD (parallel/fbd.py): ``twin_hop``, one tensor between a rank and
+its twin in the other half of the world: a forward rank's stage input
+(kind "fbd") or a backward rank's updated flat params (kind
+"fbd-params"), host-staged as the stage hop is, under a gloo tag of its
+own a kind (the stage hops take 0 and 1), so it never matches a stage
+hop between the same two processes.
+
 ``calls`` counts each kind a call; ``traffic`` counts calls and result
 bytes (JAX's HLO accounting: an all-gather's gathered output, a
 reduce-scatter's shard; a hop's sent and received tensors) per
@@ -90,9 +97,11 @@ def _axis(ctx, axis: str) -> Tuple[Any, List[int]]:
     if axis == "embed":
         return ctx.embed_group, ctx.embed_ranks
     if axis == "world":
-        return ctx.world_group, list(range(ctx.world))
-    raise ValueError(f"axis {axis!r}: takes 'tp', 'dp', 'pp', 'embed' or "
-                     "'world'")
+        return ctx.world_group, ctx.world_ranks
+    if axis == "fbd":
+        return dist.group.WORLD, list(range(dist.get_world_size()))
+    raise ValueError(f"axis {axis!r}: takes 'tp', 'dp', 'pp', 'embed', "
+                     "'world' or 'fbd'")
 
 
 def _count(kind: str, axis: str, nbytes: int) -> None:
@@ -220,6 +229,35 @@ def stage_hop(ctx, send: Optional[torch.Tensor], send_to: Optional[int],
         if recv_like.dtype in (torch.bfloat16, torch.float16):
             buf = buf.view(recv_like.dtype)
         return buf.view(recv_like.shape).to(recv_like.device)
+
+
+# The twin hops' gloo tags (stage_hop's callers take 0 and 1).
+TWIN_TAGS = {"fbd": 2, "fbd-params": 3}
+
+
+def twin_hop(ctx, send: Optional[torch.Tensor] = None,
+             recv_into: Optional[torch.Tensor] = None, *,
+             kind: str = "fbd") -> Optional[torch.Tensor]:
+    """Send `send` to this rank's twin (ctx.twin_rank), or receive from
+    it into `recv_into` (a tensor of the sent shape and dtype, on any
+    device), which is returned; exactly one of the two is given. Counted
+    as "send/<kind>" or "recv/<kind>" with the bytes moved."""
+    if (send is None) == (recv_into is None):
+        raise ValueError("twin_hop: give send or recv_into, not both")
+    timeout = datetime.timedelta(seconds=ctx.timeout_s)
+    tag = TWIN_TAGS[kind]
+    if send is not None:
+        raw = _raw(send)
+        _count("send", kind, _nbytes(raw))
+        dist.isend(raw, dst=ctx.twin_rank, tag=tag).wait(timeout=timeout)
+        return None
+    buf = _raw(torch.empty(recv_into.shape, dtype=recv_into.dtype))
+    _count("recv", kind, _nbytes(buf))
+    dist.irecv(buf, src=ctx.twin_rank, tag=tag).wait(timeout=timeout)
+    if recv_into.dtype in (torch.bfloat16, torch.float16):
+        buf = buf.view(recv_into.dtype)
+    recv_into.copy_(buf.view(recv_into.shape))
+    return recv_into
 
 
 def psum(x: torch.Tensor, ctx) -> torch.Tensor:

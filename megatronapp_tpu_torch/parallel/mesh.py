@@ -20,6 +20,13 @@ ranks on one card. So a grid on one card checks kernels, shards
 and collectives, never parallel speed. Each rank names its own device;
 ``device=None`` means the card, and a host without one raises before a
 group is joined.
+
+A grid may be one of two halves of a larger world (MegaFBD,
+parallel/fbd.py ``split_fbd_meshes``): its ranks are then the global
+ranks [rank_base, rank_base + world), ``grid_rank`` is a rank's index
+among them, every rank list and the "world" group are the half's, and
+``fbd_role`` ("forward" or "backward") and ``twin_rank`` (the rank of
+the same (pp, dp, tp) index in the other half) are set.
 """
 
 from __future__ import annotations
@@ -56,6 +63,10 @@ class MeshContext:
     world_group: Optional[dist.ProcessGroup] = None
     pp_group: Optional[dist.ProcessGroup] = None
     embed_group: Optional[dist.ProcessGroup] = None
+    # A half of a MegaFBD world (module docstring); 0 / None otherwise.
+    rank_base: int = 0
+    fbd_role: Optional[str] = None
+    twin_rank: Optional[int] = None
 
     @property
     def tp(self) -> int:
@@ -82,17 +93,28 @@ class MeshContext:
         return self.world
 
     @property
+    def grid_rank(self) -> int:
+        """This rank's index in its grid (its global rank but in a
+        MegaFBD half)."""
+        return self.rank - self.rank_base
+
+    @property
+    def world_ranks(self) -> List[int]:
+        """The global ranks of this rank's grid, in grid order."""
+        return list(range(self.rank_base, self.rank_base + self.world))
+
+    @property
     def tp_rank(self) -> int:
-        return self.rank % self.tp
+        return self.grid_rank % self.tp
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.tp % self.dp
+        return self.grid_rank // self.tp % self.dp
 
     @property
     def pp_rank(self) -> int:
         """This rank's pipeline stage."""
-        return self.rank // (self.tp * self.dp)
+        return self.grid_rank // (self.tp * self.dp)
 
     @property
     def is_first_stage(self) -> bool:
@@ -109,19 +131,22 @@ class MeshContext:
     @property
     def tp_ranks(self) -> List[int]:
         """The global ranks of this rank's tp group, in tp order."""
-        base = (self.pp_rank * self.dp + self.dp_rank) * self.tp
+        base = self.rank_base + (self.pp_rank * self.dp
+                                 + self.dp_rank) * self.tp
         return list(range(base, base + self.tp))
 
     @property
     def dp_ranks(self) -> List[int]:
         """The global ranks of this rank's dp group, in dp order."""
-        base = self.pp_rank * self.dp * self.tp + self.tp_rank
+        base = self.rank_base + self.pp_rank * self.dp * self.tp \
+            + self.tp_rank
         return list(range(base, base + self.dp * self.tp, self.tp))
 
     @property
     def pp_ranks(self) -> List[int]:
         """The global ranks of this rank's stage ring, in stage order."""
-        return list(range(self.dp_rank * self.tp + self.tp_rank, self.world,
+        return list(range(self.rank_base + self.dp_rank * self.tp
+                          + self.tp_rank, self.rank_base + self.world,
                           self.dp * self.tp))
 
     @property
@@ -142,10 +167,11 @@ class MeshContext:
 
     @property
     def is_lead(self) -> bool:
-        """Rank 0 decides every host-side choice of a serving step and
-        broadcasts it (inference/dynamic_engine.py), and alone logs,
-        writes metrics and checkpoints in training."""
-        return self.rank == 0
+        """Rank 0 (of its grid) decides every host-side choice of a
+        serving step and broadcasts it (inference/dynamic_engine.py), and
+        alone logs, writes metrics and checkpoints in training (under
+        MegaFBD, the backward half's lead: training/train.py)."""
+        return self.grid_rank == 0
 
     def shard(self, n: int) -> slice:
         """This rank's contiguous tp share of n (heads, columns, rows)."""
@@ -160,6 +186,61 @@ class MeshContext:
             dist.destroy_process_group()
 
 
+def _join(world: int, rank: int, init_method: str, device, backend: str,
+          timeout_s: float):
+    """Check the backend, set this rank's card and join the world group
+    (the resolved device)."""
+    dev = resolve_device(device)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    if backend != "gloo":
+        raise NotImplementedError(
+            f"backend {backend!r}: the port's groups run over gloo (NCCL "
+            "with one rank per card waits for a multi-card machine, "
+            "ROADMAP.md Queue 1 item 4)")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return dev
+
+
+def _grid_groups(rank: int, base: int, pp: int, dp: int, tp: int,
+                 timeout_s: float) -> dict:
+    """The process groups of the pp × dp × tp grid of global ranks [base,
+    base + pp·dp·tp): {axis: group} of this rank's groups ({} when the
+    rank is not in the grid). Every rank of the world must call it for
+    every grid, in one order (new_group is collective over the world).
+    A group of one rank is None; a group of the whole world is WORLD."""
+    timeout = datetime.timedelta(seconds=timeout_s)
+    total = dist.get_world_size()
+    mine = {}
+
+    def groups(axis, all_ranks):
+        for ranks in all_ranks:
+            g = dist.group.WORLD if len(ranks) == total else (
+                dist.new_group(ranks, timeout=timeout) if len(ranks) > 1
+                else None)
+            if rank in ranks:
+                mine[axis] = g
+
+    def at(p, d, t):
+        return base + (p * dp + d) * tp + t
+
+    groups("tp", [[at(p, d, t) for t in range(tp)]
+                  for p in range(pp) for d in range(dp)])
+    groups("dp", [[at(p, d, t) for d in range(dp)]
+                  for p in range(pp) for t in range(tp)])
+    if pp > 1:
+        rings = [[at(p, d, t) for p in range(pp)]
+                 for d in range(dp) for t in range(tp)]
+        groups("pp", rings)
+        groups("embed", [[r[0], r[-1]] for r in rings])
+    groups("world", [list(range(base, base + pp * dp * tp))])
+    return mine
+
+
 def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
                device=None, backend: str = "gloo",
                timeout_s: float = DEFAULT_TIMEOUT_S,
@@ -171,53 +252,14 @@ def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
     and MASTER_PORT) or ``file://<path>`` (the tests use a FileStore
     path). device: this rank's device (None: the card; raises without
     one)."""
-    dev = resolve_device(device)
     tp, pp = parallel.tensor_parallel, parallel.pipeline_parallel
     world = tp * pp if world_size is None else world_size
     dp = parallel.infer_data_parallel(world)
-    if not 0 <= rank < world:
-        raise ValueError(f"rank {rank} outside a world of {world}")
-    if backend != "gloo":
-        raise NotImplementedError(
-            f"backend {backend!r}: the port's groups run over gloo (NCCL "
-            "with one rank per card waits for a multi-card machine, "
-            "ROADMAP.md Queue 1 item 4)")
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    timeout = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world, timeout=timeout)
-    world_group = dist.group.WORLD
-    mine = {}
-
-    def groups(axis, all_ranks):
-        """One group per rank list (the world when it is the world, None
-        for one rank); every rank makes every subgroup, in one order
-        (new_group is collective over the world)."""
-        for ranks in all_ranks:
-            g = world_group if len(ranks) == world else (
-                dist.new_group(ranks, timeout=timeout) if len(ranks) > 1
-                else None)
-            if rank in ranks:
-                mine[axis] = g
-
-    def at(p, d, t):
-        return (p * dp + d) * tp + t
-
-    groups("tp", [[at(p, d, t) for t in range(tp)]
-                  for p in range(pp) for d in range(dp)])
-    groups("dp", [[at(p, d, t) for d in range(dp)]
-                  for p in range(pp) for t in range(tp)])
-    if pp > 1:
-        rings = [[at(p, d, t) for p in range(pp)]
-                 for d in range(dp) for t in range(tp)]
-        groups("pp", rings)
-        groups("embed", [[r[0], r[-1]] for r in rings])
-    if world == 1:
-        world_group = None
+    dev = _join(world, rank, init_method, device, backend, timeout_s)
+    mine = _grid_groups(rank, 0, pp, dp, tp, timeout_s)
     par = dataclasses.replace(parallel, data_parallel=dp)
-    return MeshContext(group=mine["tp"] if tp > 1 else world_group,
+    return MeshContext(group=mine["tp"] if tp > 1 else mine["world"],
                        parallel=par, rank=rank, device=dev, backend=backend,
                        timeout_s=timeout_s, dp_group=mine["dp"],
-                       world_group=world_group, pp_group=mine.get("pp"),
+                       world_group=mine["world"], pp_group=mine.get("pp"),
                        embed_group=mine.get("embed"))

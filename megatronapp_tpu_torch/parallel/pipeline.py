@@ -35,6 +35,16 @@ before any table does):
   to stage 0 as pass c + 1's inputs (and their cotangents back) — JAX's
   ``spmd_pipeline`` loop at vpp > 1 with order_policy 'bfc'.
 
+MegaFBD (parallel/fbd.py) hooks in through ``TwinLink``: a forward
+rank's pass runs without grad and ships every stage input it consumes to
+its twin (stage 0's chunk-0 inputs excepted: the twin embeds the same
+rows itself); a backward rank's pass runs no forward program and no
+forward hop, takes each of those inputs from its twin instead, and its
+backward program (the 1F1B one, in reverse slot order) recomputes each
+F from its input with grad just before the F's backward, the last
+stage's last chunk together with the head and loss (``head_one``), so
+it holds one F's graph at a time. Without a TwinLink nothing changes.
+
 JAX's checks carry over: a known schedule, 'vpp' only at vpp > 1,
 M % pp == 0 for the interleaved 'dfc' program, and no per-microbatch
 aux inputs (packed sequences) under zero-bubble. Every hop is
@@ -51,7 +61,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from megatronapp_tpu_torch.parallel import schedule as schedlib
-from megatronapp_tpu_torch.parallel.collectives import stage_hop
+from megatronapp_tpu_torch.parallel.collectives import stage_hop, twin_hop
 
 # MegaScan span ops of the hops (trace/detect.py stage_step_gaps keys a
 # timeline by op): the forward's and the zero-bubble backward's are
@@ -94,12 +104,31 @@ class StageProgram:
     inputs' cotangents; like is a tensor of a hop's shape, dtype and
     device; on the last stage head(outs, grad) turns the collected
     outputs {m: y} into (loss, {m: d loss / d y}) (cotangents only when
-    grad)."""
+    grad), and head_one(m, y) is microbatch m's share of that loss, with
+    its graph (MegaFBD's backward ranks)."""
     chunk_fn: Callable[[int, int, torch.Tensor], torch.Tensor]
     inject: Optional[Callable[[int], torch.Tensor]]
     inject_backward: Optional[Callable[[Dict[int, torch.Tensor]], None]]
     like: torch.Tensor
     head: Callable
+    head_one: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None
+
+
+@dataclasses.dataclass
+class TwinLink:
+    """A MegaFBD rank's link to its twin (module docstring): role
+    "forward" ships stage inputs, role "backward" takes them, in the
+    forward table's order on both sides (parallel/collectives.py
+    ``twin_hop``)."""
+    ctx: object
+    role: str
+
+    def ship(self, x: torch.Tensor) -> None:
+        twin_hop(self.ctx, send=x, kind="fbd")
+
+    def take(self, like: torch.Tensor) -> torch.Tensor:
+        return twin_hop(self.ctx, recv_into=torch.empty_like(like),
+                        kind="fbd")
 
 
 class _Pass:
@@ -108,10 +137,16 @@ class _Pass:
     chunk-0 inputs {m: x}; outs: the last stage's last-chunk outputs."""
 
     def __init__(self, ctx, prog: StageProgram, num_micro: int, vpp: int,
-                 chunk: Optional[int], zero_bubble: bool):
+                 chunk: Optional[int], zero_bubble: bool,
+                 fbd: Optional[TwinLink] = None):
         self.ctx, self.prog, self.M, self.vpp = ctx, prog, num_micro, vpp
         self.chunk = chunk
         self.zb = zero_bubble
+        self.fbd = fbd
+        # Its last stage's last chunk feeds the head (not the next pass).
+        self.final = chunk is None or chunk == ctx.vpp - 1
+        # MegaFBD backward: the head's per-microbatch losses {m: loss}.
+        self.losses: Dict[int, torch.Tensor] = {}
         self.fwd = schedlib.forward_tables(ctx.pp, num_micro, vpp)
         self.bwd = (schedlib.zb_backward_tables(ctx.pp, num_micro, vpp)
                     if zero_bubble else None)
@@ -123,6 +158,11 @@ class _Pass:
 
     def _global_chunk(self, c: int) -> int:
         return c if self.chunk is None else self.chunk
+
+    def _own_input(self, s: int, c: int) -> bool:
+        """F(·, c) on stage s takes an injected input, not a hop's (stage
+        0's chunk 0 of the whole model)."""
+        return s == 0 and self._global_chunk(c) == 0
 
     def _sends_forward(self, t: int, s: int) -> bool:
         """Stage s's F at slot t hands its output on (to the next stage,
@@ -141,6 +181,10 @@ class _Pass:
     def forward(self, inputs: Dict[int, torch.Tensor], grad: bool) -> None:
         ctx, pp, s = self.ctx, self.ctx.pp, self.ctx.pp_rank
         active, mbt, ckt = self.fwd
+        if self.fbd is not None and self.fbd.role == "backward":
+            self._take_from_twin(inputs)
+            return
+        ship = self.fbd is not None and self.fbd.role == "forward"
         state = None
         keep_graph = grad and not self.zb
         for t in range(active.shape[0]):
@@ -148,6 +192,8 @@ class _Pass:
             if active[t, s]:
                 m, c = int(mbt[t, s]), int(ckt[t, s])
                 x = inputs[m] if (s == 0 and c == 0) else state
+                if ship and not self._own_input(s, c):
+                    self.fbd.ship(x)
                 if keep_graph:
                     x = x.detach().requires_grad_()
                     y = self.prog.chunk_fn(self._global_chunk(c), m, x)
@@ -166,6 +212,19 @@ class _Pass:
                 self._sends_forward(t, sp) else None, ctx.prev_rank,
                 op=OP_FORWARD, step=t, tag=_TAG_FORWARD)
 
+    def _take_from_twin(self, inputs: Dict[int, torch.Tensor]) -> None:
+        """MegaFBD backward: every F's input, from the twin (in the
+        forward table's order, as the twin ships them) or injected; no
+        compute and no hop."""
+        s = self.ctx.pp_rank
+        active, mbt, ckt = self.fwd
+        for t in range(active.shape[0]):
+            if active[t, s]:
+                m, c = int(mbt[t, s]), int(ckt[t, s])
+                x = (inputs[m] if self._own_input(s, c)
+                     else self.fbd.take(self.prog.like))
+                self.saved[(m, c)] = (x,)
+
     # -- backward ----------------------------------------------------------
     def backward(self, d_outs: Dict[int, torch.Tensor]) -> None:
         """d_outs: the last stage's output cotangents {m: dy}; fills
@@ -183,10 +242,14 @@ class _Pass:
             dx = None
             if active[t, s]:
                 m, c = int(mbt[t, s]), int(ckt[t, s])
-                dy = (d_outs[m] if (s == pp - 1 and c == self.vpp - 1)
+                dy = (d_outs.get(m) if (s == pp - 1 and c == self.vpp - 1)
                       else state)
-                x, y = self.saved.pop((m, c))
-                torch.autograd.backward(y, dy)
+                if self.fbd is not None:
+                    x, y = self._recompute(m, c, dy)
+                else:
+                    x, y = self.saved.pop((m, c))
+                    torch.autograd.backward(y, dy)
+                del y
                 dx = x.grad
                 if s == 0 and c == 0:
                     self.d_inputs[m] = dx
@@ -197,6 +260,22 @@ class _Pass:
                 self.prog.like if self._sends_backward(
                     t, sn, bool(active[t, sn])) else None, ctx.next_rank,
                 op=OP_1F1B_BACKWARD, step=t, tag=_TAG_BACKWARD)
+
+    def _recompute(self, m: int, c: int, dy) -> tuple:
+        """MegaFBD backward: F(m, c) again from its input with grad, and
+        its backward (from the head's loss on the last stage's last
+        chunk of the final pass, else from dy). Returns (input, output)."""
+        (x,) = self.saved.pop((m, c))
+        x = x.detach().requires_grad_()
+        with torch.enable_grad():
+            y = self.prog.chunk_fn(self._global_chunk(c), m, x)
+            if self.ctx.is_last_stage and c == self.vpp - 1 and self.final:
+                loss_m = self.prog.head_one(m, y)
+                self.losses[m] = loss_m.detach()
+                loss_m.backward()
+            else:
+                torch.autograd.backward(y, dy)
+        return x, y
 
     def _backward_zb(self, d_outs) -> None:
         ctx, pp, s = self.ctx, self.ctx.pp, self.ctx.pp_rank
@@ -256,27 +335,35 @@ def _hand_over(ctx, tensors: Dict[int, torch.Tensor], num_micro: int,
 
 def run_pipeline(ctx, prog: StageProgram, num_micro: int, *,
                  schedule: str = "1f1b", order_policy: str = "dfc",
-                 grad: bool = True, packed: bool = False
+                 grad: bool = True, packed: bool = False,
+                 fbd: Optional[TwinLink] = None
                  ) -> Optional[torch.Tensor]:
     """Run the stage's program: the forward, the head on the last stage,
     then (grad) the backward, ending with stage 0's inject_backward.
     Returns the head's loss on the last stage, None elsewhere. MegaScan
     spans: 'forward' (the forward program), 'loss' (the head),
-    'backward' (the backward program)."""
+    'backward' (the backward program). fbd: this rank's MegaFBD link
+    (module docstring); its forward role runs without grad, its backward
+    role with it, under the 1F1B program only."""
     from megatronapp_tpu_torch.trace.tracer import get_tracer
     tracer = get_tracer()
     vpp, pp = ctx.vpp, ctx.pp
     check_schedule(pp, num_micro, vpp, schedule, order_policy, packed)
     zb = schedule == "zero-bubble"
+    taking = fbd is not None and fbd.role == "backward"
+    if fbd is not None and (zb or grad != taking):
+        raise ValueError("MegaFBD runs the 1F1B program: its forward "
+                         "ranks without grad, its backward ranks with it")
     if vpp > 1 and order_policy == "bfc":
-        passes = [_Pass(ctx, prog, num_micro, 1, c, zb) for c in range(vpp)]
+        passes = [_Pass(ctx, prog, num_micro, 1, c, zb, fbd)
+                  for c in range(vpp)]
     else:
-        passes = [_Pass(ctx, prog, num_micro, vpp, None, zb)]
+        passes = [_Pass(ctx, prog, num_micro, vpp, None, zb, fbd)]
     with tracer.scope("forward"):
         inputs = ({m: prog.inject(m) for m in range(num_micro)}
                   if ctx.is_first_stage else {})
         for i, ps in enumerate(passes):
-            if i:
+            if i and not taking:
                 inputs = _hand_over(ctx, passes[i - 1].outs, num_micro,
                                     prog.like, True, OP_FORWARD,
                                     _TAG_FORWARD)
@@ -284,7 +371,7 @@ def run_pipeline(ctx, prog: StageProgram, num_micro: int, *,
     loss = None
     d_outs: Dict[int, torch.Tensor] = {}
     with tracer.scope("loss"):
-        if ctx.is_last_stage:
+        if ctx.is_last_stage and not taking:
             loss, d_outs = prog.head(passes[-1].outs, grad)
     if not grad:
         return loss
@@ -297,4 +384,9 @@ def run_pipeline(ctx, prog: StageProgram, num_micro: int, *,
             passes[i].backward(d_outs)
         if ctx.is_first_stage:
             prog.inject_backward(passes[0].d_inputs)
+    if taking and ctx.is_last_stage:
+        losses = passes[-1].losses
+        loss = losses[0]
+        for m in range(1, num_micro):
+            loss = loss + losses[m]
     return loss

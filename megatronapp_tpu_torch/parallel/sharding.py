@@ -273,10 +273,10 @@ def gather_stages(named: Dict[str, torch.Tensor], ctx
     out = {}
     for n, (r, shape, dt) in owner.items():
         dtype = getattr(torch, dt.split(".")[-1])
-        t = (named[n].detach().to("cpu", copy=True) if r == ctx.rank
-             else torch.empty(shape, dtype=dtype))
+        t = (named[n].detach().to("cpu", copy=True)
+             if r == ctx.grid_rank else torch.empty(shape, dtype=dtype))
         raw = t.view(torch.uint8) if dtype == torch.bfloat16 else t
-        dist.broadcast(raw, src=r, group=ctx.world_group)
+        dist.broadcast(raw, src=ctx.rank_base + r, group=ctx.world_group)
         out[n] = t
     return out
 

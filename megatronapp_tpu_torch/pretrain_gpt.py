@@ -44,7 +44,28 @@ A rank grid is launched with PyTorch's launcher, one process a rank:
 
 (--pp-schedule 1f1b | vpp | zero-bubble picks the schedule program,
 --pp-plan-from-trace lets the planner re-plan it from the traced
-ring-hop spans.) The rank count comes from the launcher's RANK,
+ring-hop spans.)
+
+MegaFBD splits the launcher's world into a forward and a backward half,
+dp halved on each (parallel/fbd.py), so world = 2 · pp · (dp/2) · tp:
+
+    torchrun --nproc-per-node 4 -m megatronapp_tpu_torch.pretrain_gpt \
+        --preset llama3-8b --num-layers 4 --seq-length 4096 \
+        --micro-batch-size 1 --global-batch-size 4 \
+        --pipeline-model-parallel-size 2 \
+        --forward-backward-disaggregating --train-iters 2
+
+MegaDPP runs in one process over a [pp][dp] grid of stages, each on its
+own CUDA stream (runtime/dpp_train.py), with the 'bfc' order:
+
+    python -m megatronapp_tpu_torch.pretrain_gpt --preset llama3-8b \
+        --num-layers 4 --seq-length 2048 --micro-batch-size 1 \
+        --global-batch-size 4 --pipeline-model-parallel-size 2 \
+        --num-layers-per-virtual-pipeline-stage 1 --use-dpp \
+        --train-iters 3
+
+(--data-parallel-size sets its dp, default 1; at tp > 1 under torchrun
+--use-dpp logs that it runs the static 'bfc' order.) The rank count comes from the launcher's RANK,
 WORLD_SIZE, LOCAL_RANK and MASTER_ADDR / MASTER_PORT; dp = world / (tp ·
 pp); rank r computes on cuda:
 (LOCAL_RANK % device count), or on the CPU with --device cpu. Without the
@@ -166,6 +187,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "from per-stage step-time EWMAs (MegaScan ring-hop "
                         "spans + whole-step times); re-plans log loudly "
                         "and rebuild the train step")
+    g.add_argument("--data-parallel-size", type=int, default=None,
+                   help="dp of --use-dpp's one-process stage grid (default "
+                        "1); under torchrun it must equal world / (tp x pp)")
+    g.add_argument("--forward-backward-disaggregating", action="store_true",
+                   help="MegaFBD: the world splits into forward and "
+                        "backward halves, dp halved on each "
+                        "(parallel/fbd.py)")
+    g.add_argument("--use-dpp", action="store_true",
+                   help="breadth-first-chunk pipeline order (MegaDPP); at "
+                        "tp 1 the readiness-ordered runtime in one process "
+                        "(runtime/dpp_train.py)")
     g.add_argument("--sequence-parallel", action="store_true",
                    help="accepted; changes no number (as in JAX, no layer "
                         "reads it)")
@@ -325,6 +357,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ap.error(f"{'/'.join(low)} bf16 require --use-distributed-optimizer:"
                  " low-precision moments are only supported on the ZeRO-1 "
                  "state layout (the replicated chain stores fp32)")
+    if low and args.forward_backward_disaggregating:
+        raise ValueError(
+            "--exp-avg-dtype/--exp-avg-sq-dtype bf16 are not supported "
+            "with --forward-backward-disaggregating: the FBD path runs "
+            "the replicated optax chain (ZeRO-1 wiring is a ROADMAP "
+            "follow-up)")
     return args
 
 
@@ -437,8 +475,13 @@ def parallel_from_args(args: argparse.Namespace) -> ParallelConfig:
     return ParallelConfig(
         tensor_parallel=args.tensor_model_parallel_size,
         pipeline_parallel=pp, virtual_pipeline_parallel=vpp,
+        data_parallel=args.data_parallel_size,
         sequence_parallel=args.sequence_parallel,
         distributed_optimizer=args.use_distributed_optimizer,
+        forward_backward_disaggregating=(
+            args.forward_backward_disaggregating),
+        pipeline_order_policy="bfc" if args.use_dpp else "dfc",
+        use_dpp=args.use_dpp,
         pp_schedule=args.pp_schedule,
         pp_plan_from_trace=args.pp_plan_from_trace)
 
@@ -470,15 +513,29 @@ def rank_device(device: Optional[str], local_rank: int):
 def build_grid(args: argparse.Namespace, rank: int, world_size: int,
                init_method: str, local_rank: Optional[int] = None):
     """This rank's MeshContext of the --tensor-model-parallel-size x
-    --pipeline-model-parallel-size grid over world_size ranks; None for
-    one rank at tp 1 and pp 1 (the one-device trainer)."""
+    --pipeline-model-parallel-size grid over world_size ranks (with
+    --forward-backward-disaggregating, of its half of the world); None
+    for one rank at tp 1 and pp 1 (the one-device trainer) and for
+    --use-dpp at tp 1 (its runtime places the stages in this process)."""
+    from megatronapp_tpu_torch.training.train import DPP_ONE_PROCESS
     parallel = parallel_from_args(args)
+    dpp = parallel.use_dpp and parallel.pipeline_parallel > 1 and \
+        parallel.tensor_parallel == 1
+    if dpp and world_size > 1:
+        raise ValueError(DPP_ONE_PROCESS)
+    if dpp:
+        return None
+    parallel.infer_data_parallel(world_size)
     if world_size == 1 and parallel.tensor_parallel == 1 and \
             parallel.pipeline_parallel == 1:
         return None
-    from megatronapp_tpu_torch.parallel.mesh import build_mesh
     dev = rank_device(args.device, rank if local_rank is None
                       else local_rank)
+    if parallel.forward_backward_disaggregating:
+        from megatronapp_tpu_torch.parallel.fbd import split_fbd_meshes
+        return split_fbd_meshes(parallel, rank=rank, init_method=init_method,
+                                device=dev, world_size=world_size)
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
     return build_mesh(parallel, rank=rank, init_method=init_method,
                       device=dev, world_size=world_size)
 
@@ -488,7 +545,9 @@ def train(args: argparse.Namespace, ctx=None):
     device); returns the TrainResult. Every rank of a grid calls it."""
     from megatronapp_tpu_torch.training.train import pretrain_gpt
     model, training, optimizer = configs_from_args(args)
-    lead = ctx is None or ctx.is_lead
+    parallel = parallel_from_args(args)
+    # Under MegaFBD the backward half's lead writes and prints.
+    lead = ctx is None or (ctx.is_lead and ctx.fbd_role != "forward")
     if args.save and lead:
         layout = {"world": 1 if ctx is None else ctx.world,
                   "dp": 1 if ctx is None else ctx.dp,
@@ -497,10 +556,18 @@ def train(args: argparse.Namespace, ctx=None):
                                 and args.use_distributed_optimizer)}
         if ctx is not None and ctx.pp > 1:
             layout.update(pp=ctx.pp, vpp=ctx.vpp)
+        if ctx is not None and ctx.fbd_role is not None:
+            layout.update(world=2 * ctx.world, fbd=True)
+        if ctx is None and parallel.use_dpp and \
+                parallel.pipeline_parallel > 1:
+            layout.update(dpp={"pp": parallel.pipeline_parallel,
+                               "vpp": parallel.virtual_pipeline_parallel,
+                               "dp": parallel.data_parallel or 1})
         save_resolved_args(args, args.save, layout)
     factory = make_batch_iter_factory(args, training, model)
     result = pretrain_gpt(model, training, optimizer, device=args.device,
-                          batch_iter_factory=factory, ctx=ctx)
+                          batch_iter_factory=factory, ctx=ctx,
+                          parallel=parallel if ctx is None else None)
     if result.losses and lead:
         print(f"done: final loss {result.losses[-1]:.4f}, "
               f"{result.tokens_per_sec:,.0f} tok/s")

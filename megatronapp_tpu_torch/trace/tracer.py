@@ -33,6 +33,13 @@ that package's ``io_callback`` markers and custom-VJP span mirrors:
   axes ("tp" or "dp"), bandwidth_gbps, process, device, iteration.
 - A rank of a grid (``configure(rank=)``) writes its own file under
   JAX's per-rank name; trace/aggregate.py merges the ranks.
+- Host-timed records (``add_collective_records``, JAX's): pre-formed X
+  events on pids of their own, placed in the open iteration by a
+  host-clock anchor, ``now_in_iteration_us()`` (µs since
+  ``iteration_begin`` on ``perf_counter``). Their producer is the MegaDPP
+  step (runtime/dpp_train.py), whose runner times its per-stage compute
+  and transfer spans on the host. The anchor's clock is the host's, the
+  phase spans' the device's: both start at the iteration's begin.
 """
 
 from __future__ import annotations
@@ -80,6 +87,7 @@ class Tracer:
         self.active = False
         self._iteration = -1
         self._base = None
+        self._iter_t0_ns = time.perf_counter_ns()
         # Pending records of the open iteration: "ts" holds a CUDA event
         # or a perf_counter_ns stamp until iteration_end resolves it.
         self._pending: List[Dict[str, Any]] = []
@@ -132,6 +140,7 @@ class Tracer:
             return
         self._iteration = iteration
         self._pending = []
+        self._iter_t0_ns = time.perf_counter_ns()
         self._base = self._stamp()
         self._emit("iteration", "B", self._base, {"iteration": iteration})
 
@@ -216,6 +225,38 @@ class Tracer:
         self._pending.append({
             "name": name, "ph": ph, "ts": stamp, "pid": self.process_index,
             "tid": 0, "iteration": self._iteration, "args": dict(args)})
+
+    def now_in_iteration_us(self) -> float:
+        """Current offset inside the open iteration window (µs, host
+        clock)."""
+        return (time.perf_counter_ns() - self._iter_t0_ns) / 1e3
+
+    def add_collective_records(self, events: List[Dict[str, Any]],
+                               offset_us: Optional[float] = None):
+        """Merge pre-formed X events (pids of their own) into this
+        iteration's records. offset_us anchors them inside the iteration
+        window: the value of now_in_iteration_us() taken BEFORE the work
+        they time, so they land where it ran rather than after whatever
+        delay came between (JAX's contract)."""
+        if not (self.enabled and self.active and events):
+            return
+        base = min(e["ts"] for e in events)
+        if offset_us is None:
+            offset_us = self.now_in_iteration_us()
+        recs = []
+        for e in events:
+            recs.append({
+                "name": e["name"], "ph": "X",
+                "ts": e["ts"] - base + offset_us,
+                "dur": e.get("dur", 0.0),
+                "pid": e["pid"],
+                "tid": e.get("tid", 0),
+                "iteration": self._iteration,
+                "args": dict(e.get("args", {}),
+                             iteration=self._iteration),
+            })
+        with self._lock:
+            self._records.extend(recs)
 
     def peek(self) -> List[Dict[str, Any]]:
         """The resolved records not yet saved, left in place (the

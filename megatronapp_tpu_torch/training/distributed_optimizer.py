@@ -65,10 +65,11 @@ class FlatLayout:
     replicated ones, then `copies` (leaves another stage also holds and
     counts in the norm: a tied embedding's last-stage copy), each group
     in name order, padded to a multiple of dp. ``params``/``grads``: the
-    flat buffers; each param's data is a view of ``params``."""
+    flat buffers; each param's data is a view of ``params`` (grads=False:
+    no grad buffer, for a MegaFBD forward rank, which takes no grads)."""
 
     def __init__(self, named_params: Dict[str, torch.Tensor], ctx,
-                 copies=frozenset()):
+                 copies=frozenset(), grads: bool = True):
         def group(n):
             if n in copies:
                 return 3
@@ -97,7 +98,7 @@ class FlatLayout:
         first = next(iter(named_params.values()))
         self.params = torch.zeros(self.padded, dtype=torch.float32,
                                   device=first.device)
-        self.grads = torch.zeros_like(self.params)
+        self.grads = torch.zeros_like(self.params) if grads else None
         with torch.no_grad():
             for n, a, b in self.slots:
                 p = named_params[n]
@@ -111,6 +112,13 @@ class FlatLayout:
         """Leaf `name`'s view of a whole flat buffer."""
         a, b = self.offsets[name]
         return flat[a:b].view(self.named[name].shape)
+
+
+def layout_copies(ctx, tied_embedding: bool) -> frozenset:
+    """The leaves of this rank's FlatLayout that another stage also holds
+    (a tied word embedding's last-stage copy under pp)."""
+    return frozenset({"embedding.word"} if tied_embedding and ctx.pp > 1
+                     and not ctx.is_first_stage else ())
 
 
 class DistributedOptimizer(Optimizer):
@@ -139,9 +147,8 @@ class DistributedOptimizer(Optimizer):
                              "not fp32; bf16 params with an fp32 master "
                              "copy are not ported (ROADMAP.md Queue 1 "
                              "item 3)")
-        copies = frozenset({"embedding.word"} if self.tied_pp and not
-                           self.ctx.is_first_stage else ())
-        self.layout = lay = FlatLayout(named_params, self.ctx, copies)
+        self.layout = lay = FlatLayout(
+            named_params, self.ctx, layout_copies(self.ctx, self.tied_pp))
         lo, hi = self.span
         state = {"count": 0,
                  "mu": torch.zeros(hi - lo, dtype=self.mu_dtype,

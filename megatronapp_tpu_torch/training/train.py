@@ -27,8 +27,21 @@ As JAX's loop does on one device (train.py:350-453, :1027-1088):
   loop after a multiple of it.
 
 The rerun machine, heartbeats, the straggler detector and the inspector
-raise in ``TrainingConfig``; FBD and DPP are not options here (the entry
-point refuses their flags).
+raise in ``TrainingConfig``.
+
+MegaDPP (``parallel`` with use_dpp at pp > 1, one process, no ctx; JAX
+train.py:490-545): the one-device trainer above, whose step and
+evaluation run through runtime/dpp_train.py over the [pp][dp] stage grid
+of ``stage_devices`` (dp: parallel.data_parallel, default 1; each
+microbatch holds mb · dp rows), so checkpoints and resumes are the
+one-device ones. On a rank grid with use_dpp at pp > 1 and tp > 1 (or
+MTP) the trainer logs JAX's "falling back to static bfc" line and runs
+the pipeline executor under the configured order (the entry point sets
+'bfc'); at tp 1 on a grid it raises: the DPP runtime is one process.
+
+MegaFBD (a ctx of parallel/fbd.py ``split_fbd_meshes``, every rank of
+the world calling with its half's ctx): ``_pretrain_gpt_fbd`` (JAX
+train.py:1123-1290).
 
 On a rank grid (``ctx``, parallel/mesh.py; every rank calls this function
 with its own ctx): each rank builds the same global batch (the same seed
@@ -369,6 +382,13 @@ class _PipelinePlanning:
                     "1f1b", cur.bubble_fraction))
 
 
+# The DPP runtime places every stage itself, in one process.
+DPP_ONE_PROCESS = ("--use-dpp at tp 1 runs in one process over a [pp][dp] "
+                   "stage grid (runtime/dpp_train.py); launch it without "
+                   "torchrun, with --pipeline-model-parallel-size and "
+                   "--data-parallel-size")
+
+
 def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                  opt_cfg: OptimizerConfig, device=None,
                  batch_iter: Optional[Iterator[Dict[str, np.ndarray]]] = None,
@@ -377,16 +397,41 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                  batch_iter_factory: Optional[Callable] = None,
                  eval_batch_iter: Optional[
                      Iterator[Dict[str, np.ndarray]]] = None,
-                 ctx=None) -> TrainResult:
+                 ctx=None, parallel=None) -> TrainResult:
     """End-to-end GPT pretraining loop on one device (the card unless
     device="cpu") or as one rank of the grid `ctx` (on ctx.device; see
     the module docstring). params: initial weights on `device` (default:
     made from train_cfg.seed; on a grid, this rank's shards); trained in
     place, then overwritten by a restored checkpoint.
     batch_iter_factory(consumed) -> batch stream of global batches, used
-    when batch_iter is None (resume-aware)."""
+    when batch_iter is None (resume-aware). parallel: without a ctx, a
+    ParallelConfig with use_dpp at pp > 1 (MegaDPP in this process);
+    with a ctx, ctx.parallel rules."""
+    if ctx is not None and ctx.fbd_role is not None:
+        return _pretrain_gpt_fbd(model_cfg, train_cfg, opt_cfg, ctx,
+                                 params=params, batch_iter=batch_iter,
+                                 log_fn=log_fn,
+                                 batch_iter_factory=batch_iter_factory)
     device = ctx.device if ctx is not None else resolve_device(device)
+    dpp = None
+    if ctx is None and parallel is not None and (
+            parallel.pipeline_parallel > 1 or parallel.tensor_parallel > 1):
+        if not parallel.use_dpp or parallel.tensor_parallel > 1:
+            raise ValueError(
+                "pipeline_parallel / tensor_parallel > 1 in one process: "
+                "only --use-dpp at tp 1 runs there; a pp x dp x tp grid "
+                "is launched with torchrun (ctx)")
+        dpp = parallel
+    if ctx is not None and ctx.parallel.use_dpp and ctx.pp > 1:
+        if ctx.tp == 1 and not model_cfg.mtp_num_layers:
+            raise ValueError(DPP_ONE_PROCESS)
+        if ctx.is_lead:
+            log_fn("dpp: layout has tp/cp/ep > 1 (or MTP) — host "
+                   "runner needs one stage per device per replica; "
+                   "falling back to static bfc SPMD ordering")
     dp = 1 if ctx is None else ctx.dp
+    if dpp is not None:
+        dp = dpp.data_parallel or 1
     lead = ctx is None or ctx.is_lead
     if not lead:
         log_fn = _quiet
@@ -499,7 +544,23 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
             fn, optimizer, check_nan=train_cfg.check_for_nan_in_loss,
             ctx=ctx, pipeline=pp > 1)
 
-    loss_fn, step_fn = build_steps(pp_schedule)
+    if dpp is not None:
+        from megatronapp_tpu_torch.runtime.dpp_train import (
+            make_dpp_eval_step, make_dpp_train_step, stage_devices,
+        )
+        grid = stage_devices(dpp.pipeline_parallel, dp, device)
+        dpp_kw = dict(vpp=dpp.virtual_pipeline_parallel,
+                      policy=dpp.pipeline_order_policy)
+        loss_fn = None
+        step_fn = make_dpp_train_step(
+            optimizer, opt_cfg, model_cfg, grid, train_cfg.train_iters,
+            check_nan=train_cfg.check_for_nan_in_loss, **dpp_kw)
+        log_fn(f"dpp: dynamic runtime active (pp="
+               f"{dpp.pipeline_parallel}, dp={dp}, vpp="
+               f"{dpp.virtual_pipeline_parallel}, "
+               f"policy={dpp.pipeline_order_policy})")
+    else:
+        loss_fn, step_fn = build_steps(pp_schedule)
     if pp > 1 and pp_schedule != "1f1b":
         log_fn(f"pipeline schedule: {pp_schedule} (instruction program "
                "executor, parallel/pipeline.py)")
@@ -521,7 +582,9 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     if train_cfg.eval_interval:
         # The caller's eval stream, else a distinct mock stream (seed +
         # 1) — also when training reads a corpus (JAX train.py:486).
-        eval_step_fn = make_eval_step(loss_fn, ctx, pipeline=pp > 1)
+        eval_step_fn = (make_eval_step(loss_fn, ctx, pipeline=pp > 1)
+                        if dpp is None else
+                        make_dpp_eval_step(model_cfg, grid, **dpp_kw))
         if eval_batch_iter is None:
             eval_batch_iter = mock_batches(
                 train_cfg.seq_length, model_cfg.vocab_size,
@@ -685,6 +748,189 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
             t_wait = time.perf_counter()
             ckpt.wait()
             result.checkpoint_s["wait"] = time.perf_counter() - t_wait
+    finally:
+        if train_cfg.trace:
+            tracer.finalize()
+            tracer.configure(enabled=False)
+        metrics_logger.close()
+    result.consumed_samples = consumed
+    return result
+
+
+def _pretrain_gpt_fbd(model_cfg: TransformerConfig,
+                      train_cfg: TrainingConfig, opt_cfg: OptimizerConfig,
+                      ctx, *, params=None, batch_iter=None,
+                      log_fn: Callable[[str], None] = print,
+                      batch_iter_factory: Optional[Callable] = None
+                      ) -> TrainResult:
+    """The MegaFBD training path (JAX train.py:1123-1290 _pretrain_gpt_fbd),
+    one rank of the world with its half's ctx (parallel/fbd.py).
+
+    Both halves take the same global batches (rampup through the
+    microbatch calculator over the halved dp, with JAX's stage check)
+    and their dp rows of them; parallel/fbd.py ``FBDExecutor`` runs the
+    step. The backward half holds the train state (ZeRO-1 over its dp):
+    checkpoints are its state, written by its lead as the grid trainer
+    writes them; a resume restores it, fast-forwards the stream by the
+    rampup schedule replayed over the restored steps (JAX's bookkeeping),
+    and streams the restored params to the forward half. The backward
+    half's lead alone logs JAX's lines and writes the JSONL /
+    TensorBoard rows loss, fwd_loss and grad_norm; every rank's
+    TrainResult.log holds the same metrics. MegaScan: each traced
+    iteration's 'train-step' scope on every rank. The path runs no
+    evaluation and no local checkpoint, as JAX's; the signal handler and
+    local checkpoints are not wired (JAX's warning)."""
+    from megatronapp_tpu_torch.parallel.fbd import FBDExecutor
+    backward = ctx.fbd_role == "backward"
+    lead = backward and ctx.is_lead
+    if not lead:
+        log_fn = _quiet
+    low = [v for v in (opt_cfg.exp_avg_dtype, opt_cfg.exp_avg_sq_dtype)
+           if str(v).lower() not in ("fp32", "float32")]
+    if low:
+        raise ValueError(
+            "--exp-avg-dtype/--exp-avg-sq-dtype bf16 are not supported "
+            "with --forward-backward-disaggregating: the FBD path runs "
+            "the replicated optax chain (ZeRO-1 wiring is a ROADMAP "
+            "follow-up)")
+    if train_cfg.exit_signal_handler or \
+            train_cfg.non_persistent_save_interval:
+        log_fn("WARNING: fault-tolerance flags (--exit-signal-"
+               "handler/--heartbeat-dir/--ft-timeouts/--non-"
+               "persistent-save-interval/--simulated-fault) are "
+               "NOT wired into the forward_backward_disaggregating "
+               "path yet — running without them")
+    shape = {"pp": ctx.pp, "dp": ctx.dp, "tp": ctx.tp}
+    log_fn(f"FBD: forward mesh {shape} | backward mesh {shape}")
+    batch_calc = build_calculator(train_cfg.global_batch_size,
+                                  train_cfg.micro_batch_size, ctx.dp,
+                                  train_cfg.rampup_batch_size)
+    if ctx.pp > 1:
+        _validate_schedule_stages(batch_calc, ctx.pp, ctx.vpp,
+                                  ctx.parallel.pipeline_order_policy)
+    device = ctx.device
+    if params is None:
+        gen = torch.Generator(device).manual_seed(train_cfg.seed)
+        params = init_gpt_params(model_cfg, gen, device, ctx)
+    params.requires_grad_(True)
+    optimizer = None
+    if backward:
+        optimizer = DistributedOptimizer(
+            opt_cfg, train_cfg.train_iters, ctx,
+            tied_embedding=not model_cfg.untie_embeddings_and_output_weights)
+        state = TrainState(params, optimizer.init(named_trainable(params)))
+    else:
+        state = TrainState(params, {})
+    executor = FBDExecutor(model_cfg, ctx, state, optimizer,
+                           check_nan=train_cfg.check_for_nan_in_loss)
+
+    # Checkpoints of the backward half's state.
+    layout = {"pp": 1, "vpp": 1, "num_layers": model_cfg.num_layers}
+    ckpt = (CheckpointManager(train_cfg.save_dir,
+                              save_interval=train_cfg.save_interval)
+            if train_cfg.save_dir and backward else None)
+    start_step = 0
+    restore_dir = train_cfg.load_dir or train_cfg.save_dir
+    if restore_dir and backward:
+        loader = (CheckpointManager(train_cfg.load_dir)
+                  if train_cfg.load_dir
+                  and train_cfg.load_dir != train_cfg.save_dir else ckpt)
+        restored = loader.restore(None)
+        if restored is not None:
+            optimizer.load_full_state_dict(state, restored)
+            del restored
+            start_step = state.step
+        if loader is not ckpt:
+            loader.close()
+    # The forward half learns the restored step from the backward lead.
+    start_step = int(executor.agree([start_step])[0])
+    if start_step:
+        state.step = start_step
+        executor.stream_params()
+        log_fn(f"resumed from checkpoint at step {start_step}")
+    consumed = 0
+    for _ in range(start_step):
+        consumed += batch_calc.get(consumed)[0]
+    if batch_iter is None:
+        if batch_iter_factory is not None:
+            batch_iter = batch_iter_factory(consumed)
+        else:
+            batch_iter = mock_batches(
+                train_cfg.seq_length, model_cfg.vocab_size,
+                train_cfg.global_batch_size, seed=train_cfg.seed,
+                start_idx=consumed)
+
+    metrics_logger = MetricsLogger()
+    if train_cfg.metrics_jsonl and lead:
+        metrics_logger.add_jsonl(train_cfg.metrics_jsonl)
+    if train_cfg.tensorboard_dir and lead:
+        metrics_logger.add_tensorboard(train_cfg.tensorboard_dir,
+                                       warn=log_fn)
+    scribe = _CheckpointScribe(ckpt, None, train_cfg, layout, log_fn,
+                               dopt=optimizer) if backward else None
+    tracer = get_tracer()
+    if train_cfg.trace:
+        tracer.configure(
+            enabled=True, trace_dir=train_cfg.trace_dir,
+            interval=train_cfg.trace_interval,
+            continuous_iterations=train_cfg.continuous_trace_iterations,
+            granularity=train_cfg.trace_granularity, layout=ctx,
+            device=device, rank=ctx.rank)
+    result = TrainResult(state, [], 0.0, 0.0)
+    rows = _RowBuffer(batch_iter)
+    window_tokens, window_start = 0, time.perf_counter()
+    window_iter = start_step
+    try:
+        for it in range(start_step, train_cfg.train_iters):
+            tracer.iteration_begin(it)
+            cur_gbs, cur_micro = batch_calc.get(consumed)
+            batch = dp_rows(reshape_global_batch(rows.take(cur_gbs),
+                                                 cur_micro), ctx)
+            consumed += cur_gbs
+            batch = to_device_batch({k: v for k, v in batch.items()
+                                     if k in _FIELDS}, device)
+            with tracer.scope("train-step"):
+                metrics = executor.step(batch)
+            if tracer.active:
+                tracer.iteration_end(it)
+                tracer.save()
+            window_tokens += cur_gbs * train_cfg.seq_length
+            if (it + 1) % train_cfg.log_interval == 0 or \
+                    it + 1 == train_cfg.train_iters:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                now = time.perf_counter()
+                dt = now - window_start
+                result.tokens_per_sec = window_tokens / dt
+                result.step_time_ms = dt / (it + 1 - window_iter) * 1e3
+                result.losses.append(metrics["loss"])
+                result.log.append({
+                    "iteration": it + 1, **metrics,
+                    "step_time_ms": result.step_time_ms,
+                    "tokens_per_sec": result.tokens_per_sec,
+                    "stream_s": executor.stream_s[-1]})
+                log_fn(f"iter {it + 1:6d}/{train_cfg.train_iters} | "
+                       f"loss {metrics['loss']:.4f} | fwd-mesh loss "
+                       f"{metrics['fwd_loss']:.4f} | grad_norm "
+                       f"{metrics['grad_norm']:.3f}")
+                metrics_logger.log(it + 1, {
+                    "loss": metrics["loss"],
+                    "fwd_loss": metrics["fwd_loss"],
+                    "grad_norm": metrics["grad_norm"]})
+                window_tokens, window_start = 0, now
+                window_iter = it + 1
+            if scribe is not None and ckpt is not None and \
+                    train_cfg.save_interval and \
+                    (it + 1) % train_cfg.save_interval == 0:
+                scribe.save_durable(it + 1, state, consumed)
+            if train_cfg.exit_interval and \
+                    (it + 1) % train_cfg.exit_interval == 0:
+                break
+        if ckpt is not None:
+            if train_cfg.save_interval and scribe.saved_step != state.step:
+                scribe.save_durable(state.step, state, consumed, force=True)
+            ckpt.wait()
+            ckpt.close()
     finally:
         if train_cfg.trace:
             tracer.finalize()

@@ -280,7 +280,11 @@ def test_resolved_args_with_jax_keys(tmp_path):
     stored = jargs.load_saved_args(str(tmp_path))
     assert stored == entry.load_saved_args(str(tmp_path))
     jax_keys = {a.dest for a in jargs.build_parser("x")._actions}
-    assert set(stored) - {"device", "preset"} <= jax_keys
+    # The port's own flags: --device, --preset, and --data-parallel-size
+    # (the dp of --use-dpp's one-process stage grid; JAX infers dp from
+    # its mesh's devices).
+    assert set(stored) - {"device", "preset", "data_parallel_size"} <= \
+        jax_keys
     assert stored["num_layers"] == 3 and stored["rampup_batch_size"] == [
         2, 2, 8]
     # JAX's run-control set and the port's --device.

@@ -81,6 +81,9 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.parallel.sharding",
             "megatronapp_tpu_torch.parallel.schedule",
             "megatronapp_tpu_torch.parallel.pipeline",
+            "megatronapp_tpu_torch.parallel.fbd",
+            "megatronapp_tpu_torch.runtime.dpp",
+            "megatronapp_tpu_torch.runtime.dpp_train",
             "megatronapp_tpu_torch.training.distributed_optimizer",
             "megatronapp_tpu_torch.ops.cross_entropy"} <= set(mods)
     code = (

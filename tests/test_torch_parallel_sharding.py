@@ -12,9 +12,9 @@ collective).
   V heads, and its gated fc1 shard its gate then its value columns.
 - shard_tree of a JAX tree equals params_from_jax(..., ctx=).
 - Every refused axis, field and flag raises or exits with a message
-  naming its ROADMAP.md item; the pipeline fields and flags, refused
-  until pipelines were ported, now pass and refuse only what JAX's
-  config and parser refuse; the heads that do not split over tp,
+  naming its ROADMAP.md item; the pipeline, MegaFBD and MegaDPP fields
+  and flags, refused until they were ported, now pass and refuse only
+  what JAX's config and parser refuse; the heads that do not split over tp,
   MTP and MLA under tp, local checkpoints on a grid are refused.
 """
 
@@ -138,21 +138,53 @@ PP_FIELDS = {"pipeline_parallel": (2, 0, "must be >= 1"),
              "pp_schedule": ("zero-bubble", "gpipe", "must be one of")}
 
 
+# MegaFBD's and MegaDPP's fields, refused until they were ported: each
+# now passes, and raises only beside what JAX refuses with it.
+FBD_DPP_FIELDS = {
+    "forward_backward_disaggregating": (
+        dict(pipeline_parallel=2), dict(pp_schedule="zero-bubble"),
+        "do not compose with --forward-backward-disaggregating"),
+    "use_dpp": (dict(pipeline_parallel=2), dict(pp_plan_from_trace=True),
+                "does not compose with --use-dpp"),
+}
+
+
 @pytest.mark.parametrize("field", sorted(UNPORTED_PARALLEL_FIELDS)
-                         + sorted(PP_FIELDS))
+                         + sorted(PP_FIELDS) + sorted(FBD_DPP_FIELDS))
 def test_unported_parallel_fields_raise(field):
+    if field in FBD_DPP_FIELDS:
+        good, bad, msg = FBD_DPP_FIELDS[field]
+        assert getattr(ParallelConfig(**{field: True}, **good), field)
+        with pytest.raises(ValueError, match=msg):
+            ParallelConfig(**{field: True}, **good, **bad)
+        return
     if field in PP_FIELDS:
         good, bad, msg = PP_FIELDS[field]
         assert getattr(ParallelConfig(**{field: good}), field) == good
         with pytest.raises(ValueError, match=msg):
             ParallelConfig(**{field: bad})
         return
-    value = {"fsdp": True, "forward_backward_disaggregating": True,
-             "use_dpp": True}.get(field, 2)
+    value = {"fsdp": True}.get(field, 2)
     flag, item = UNPORTED_PARALLEL_FIELDS[field]
     with pytest.raises(ValueError, match=f"ROADMAP.md {item}".replace(
             "(", r"\(").replace(")", r"\)")):
         ParallelConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,item", [
+    ("fp8", "Queue 1 item 4 (fp8 training)"),
+    ("tp_comm_overlap", "Queue 1 item 4 (TP overlap)")])
+def test_unported_transformer_fields_raise(field, item):
+    """fp8 and the TP overlap rings have no port: the config refuses
+    them instead of training without them (JAX pretrain_gpt refuses an
+    fp8 run it cannot honour)."""
+    from megatronapp_tpu_torch.config.transformer_config import (
+        TransformerConfig,
+    )
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"
+                       .replace("(", r"\(").replace(")", r"\)")):
+        TransformerConfig(**{field: True})
+    assert not getattr(TransformerConfig(), field)
 
 
 def test_parallel_config_follows_jax():
@@ -182,9 +214,31 @@ PP_FLAGS = {
 }
 
 
+# MegaFBD's and MegaDPP's flags, refused until they were ported: each now
+# parses, and refuses what JAX's parser refuses beside it.
+FBD_DPP_FLAGS = {
+    "--forward-backward-disaggregating": (
+        ["--exp-avg-dtype", "bf16"],
+        "not supported with --forward-backward-disaggregating"),
+    "--use-dpp": (["--pp-schedule", "zero-bubble"],
+                  "does not compose with --use-dpp"),
+}
+
+
 @pytest.mark.parametrize("flag", sorted(entry.UNPORTED_FLAGS)
-                         + sorted(PP_FLAGS))
+                         + sorted(PP_FLAGS) + sorted(FBD_DPP_FLAGS))
 def test_entry_point_refuses_unported_axes(flag, capsys):
+    if flag in FBD_DPP_FLAGS:
+        bad, msg = FBD_DPP_FLAGS[flag]
+        base = ["--num-layers", "12", "--pipeline-model-parallel-size", "2"]
+        par = entry.parallel_from_args(entry.parse_args(base + [flag]))
+        assert (par.forward_backward_disaggregating, par.use_dpp,
+                par.pipeline_order_policy) == (
+            (True, False, "dfc") if flag != "--use-dpp"
+            else (False, True, "bfc"))
+        with pytest.raises(ValueError, match=msg):
+            entry.parallel_from_args(entry.parse_args(base + [flag] + bad))
+        return
     if flag in PP_FLAGS:
         good, bad, msg = PP_FLAGS[flag]
         base = ["--num-layers", "12"]
@@ -201,9 +255,7 @@ def test_entry_point_refuses_unported_axes(flag, capsys):
             else capsys.readouterr().err
         assert msg in got
         return
-    argv = [flag] if flag in ("--tp-comm-overlap",
-                              "--forward-backward-disaggregating",
-                              "--use-dpp", "--use-custom-fsdp") \
+    argv = [flag] if flag in ("--tp-comm-overlap", "--use-custom-fsdp") \
         else [flag, "2"]
     with pytest.raises(SystemExit):
         entry.parse_args(argv)

@@ -1,10 +1,12 @@
 """One rank of the port's pp × dp × tp training grid, for
-tests/test_torch_parallel_*.py, tests/test_torch_pipeline.py and
-tests/test_torch_pp_schedule.py (spawned; it imports torch and the port
-only, so a rank starts without JAX). A case's "par" holds its pipeline
-fields of ParallelConfig (pipeline_parallel, virtual_pipeline_parallel,
-pp_schedule, pipeline_order_policy, pp_plan_from_trace). A case with
-"expect_error" reports the exception it raised as {"raised": repr}.
+tests/test_torch_parallel_*.py, tests/test_torch_pipeline.py,
+tests/test_torch_pp_schedule.py and tests/test_torch_fbd.py (spawned; it
+imports torch and the port only, so a rank starts without JAX). A case's
+"par" holds its pipeline fields of ParallelConfig (pipeline_parallel,
+virtual_pipeline_parallel, pp_schedule, pipeline_order_policy,
+pp_plan_from_trace, forward_backward_disaggregating: a MegaFBD world,
+parallel/fbd.py split_fbd_meshes). A case with "expect_error" reports
+the exception it raised as {"raised": repr}.
 
 ``spawn_ranks`` starts ``world`` processes once; ``run_rank`` then runs
 each case whose grid has this rank: it joins the case's gloo group
@@ -25,6 +27,12 @@ def _grid(case, rank, store):
     par = ParallelConfig(tensor_parallel=case["tp"],
                          distributed_optimizer=case.get("zero1", True),
                          **case.get("par", {}))
+    if par.forward_backward_disaggregating:
+        from megatronapp_tpu_torch.parallel.fbd import split_fbd_meshes
+        return split_fbd_meshes(par, rank=rank, world_size=case["world"],
+                                init_method=f"file://{store}."
+                                f"{case['name']}", device="cpu",
+                                timeout_s=60)
     return build_mesh(par, rank=rank, world_size=case["world"],
                       init_method=f"file://{store}.{case['name']}",
                       device="cpu", timeout_s=60)
@@ -121,6 +129,11 @@ def _train(case, ctx):
     out = {"losses": [m["loss"] for m in res.log],
            "grad_norms": [m["grad_norm"] for m in res.log],
            "mtp_losses": [m.get("mtp_loss") for m in res.log],
+           "fwd_losses": [m.get("fwd_loss") for m in res.log],
+           "shipped": [m.get("shipped_bytes") for m in res.log],
+           "consumed": res.consumed_samples,
+           "local_params": sum(p.numel() for p in
+                               res.state.params.parameters()),
            "interrupted": res.interrupted, "step": res.state.step,
            "eval_losses": res.eval_losses}
     named = dict(res.state.params.named_parameters())
@@ -253,8 +266,37 @@ def _pp_grads(case, ctx):
             "names": sorted(named)}
 
 
+def _split(case, ctx):
+    """This rank's place in a MegaFBD world."""
+    return {"role": ctx.fbd_role, "twin": ctx.twin_rank, "dp": ctx.dp,
+            "tp": ctx.tp, "pp": ctx.pp, "grid_rank": ctx.grid_rank,
+            "world_ranks": ctx.world_ranks, "tp_ranks": ctx.tp_ranks,
+            "dp_ranks": ctx.dp_ranks}
+
+
+def _fbd(case, ctx):
+    """_trace, with every block_forward call this rank made recorded as
+    (grad enabled, output requires grad): a MegaFBD rank's forwards."""
+    import megatronapp_tpu_torch.models.gpt as gpt
+    orig, calls = gpt.block_forward, []
+
+    def probe(*a, **k):
+        out = orig(*a, **k)
+        calls.append((torch.is_grad_enabled(), out[0].requires_grad))
+        return out
+
+    gpt.block_forward = probe
+    try:
+        out = _trace(case, ctx)
+    finally:
+        gpt.block_forward = orig
+    out.update(forwards=calls, role=ctx.fbd_role, stage=ctx.pp_rank)
+    return out
+
+
 KINDS = {"grads": _grads, "train": _train, "roundtrip": _roundtrip,
-         "trace": _trace, "ce": _ce, "pp_grads": _pp_grads}
+         "trace": _trace, "ce": _ce, "pp_grads": _pp_grads,
+         "split": _split, "fbd": _fbd}
 
 
 def run_rank(rank, store, cases, out_q):
