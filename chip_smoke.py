@@ -204,8 +204,9 @@ Phases, each printing one JSON line:
             from plain at near-ties, drafts proposed and accepted, decode
             interval beside plain's.
    serve_mla: llama3_8b(multi_latent_attention=True) at full width and
-            depth (32 layers, seeded bf16 weights): the 8 requests through
-            the unfused engine on a bf16 latent pool, the fused engine on
+            MLA_LAYERS (16 of 32) deep (seeded bf16 weights): the 8
+            requests through the unfused engine on a bf16 latent pool, the
+            fused engine on
             bf16 and int8 pools and the unfused engine on an fp8 pool:
             lengths, vocabulary, the latent kernel once a layer a step and
             chunk, the prologue's two kernels in every fused step, a prefix
@@ -216,7 +217,7 @@ Phases, each printing one JSON line:
             the parent freed its serving tensors. Each seeds the weights of
             serve / serve_mla (checked by an all-reduced checksum against
             the parent's) and serves the 8 requests, rank 0 through the
-            driver and rank 1 in lockstep: the MLA llama3-8b at 32 layers on
+            driver and rank 1 in lockstep: the MLA llama3-8b at 16 layers on
             bf16, int8 and fp8 latent pools (rows 8 x2 and 9 x1 a layer a
             step and chunk, row 7 never; two all-reduces a layer), and the
             dense llama3-8b at --layers on a bf16 pool (row 1 on 4 of 8 kv
@@ -238,7 +239,7 @@ Phases, each printing one JSON line:
             the dependency pass and detect's stage 2.
    train_pp: pipeline-parallel pretraining: pretrain_gpt on llama3-8b at
             full width, 4 layers, S 4096, global batch 4 of micro-batches
-            of 1 (M 4), 3 steps, seeded mock data, in three runs: one rank
+            of 1 (M 4), 2 steps, seeded mock data, in three runs: one rank
             in a spawned process of its own (the yardstick), pp 2 x vpp 2
             (1F1B interleaved) on 2 spawned ranks and pp 2 x tp 2
             zero-bubble on 4, the ranks sharing cuda:0 over gloo (never
@@ -270,6 +271,24 @@ Phases, each printing one JSON line:
             stalls and peak memory; then one value-and-grad each way with
             stage 1's chunk 0 slowed: the dynamic sender ships (0, 2)
             before (1, 0), and before the static one does.
+   cp_attention: context-parallel attention (ops/context_parallel.py,
+            plain PyTorch: JAX's CP path runs no Pallas kernel) at
+            llama3-8b's attention (32 q / 8 kv heads, D 128, bf16,
+            causal, B 1, S 8192): the contiguous ring with and without its
+            save-little backward, the zigzag ring, Ulysses (a2a) and
+            allgather at cp 2, a2a+p2p (a2a 2 x ring 2) at cp 4, on 4
+            spawned ranks sharing cuda:0 over gloo (ranks 2-3 sit out cp
+            2): each mode's whole output and input
+            grads against the flash kernels on one rank (0.06 of the row
+            RMS, 0.02 normwise per head), its wall and peak memory a rank,
+            its ring hops by count, and no flash launch on a cp rank.
+   train_cp: context-parallel pretraining: pretrain_gpt on 4 spawned
+            ranks (cp 2 x tp 2, the zigzag ring) sharing cuda:0 over gloo,
+            llama3-8b at full width, 2 layers, S 8192, global batch 1, 2
+            steps, after the same run on one rank (the flash kernels):
+            loss and grad norm within 1e-3 of one rank's, every rank's
+            metrics equal, no flash launch on a cp rank, the ring's hops
+            and the cp all-reduces by count, peak memory a rank.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
@@ -448,7 +467,10 @@ MLA_LATENT_REPLACES = (f"{_KG}:557 (paged_attention_latent, def :456; body "
                        "emit_latent_kernel :338)")
 MLA_PROLOGUE_SOURCE = "megatronapp_tpu_torch/csrc/fused_mla.cu"
 MLA_PROLOGUE_REPLACES = f"{_KG}:1495 (_fused_mla_qkv, def :1393)"
-MLA_LAYERS = 32        # serve_mla's depth: never cut
+# serve_mla's, serve_tp's and profile's MLA depth: 16 of 32 since the
+# script met its time limit on a slow host with the context-parallel
+# phases (widths are never cut).
+MLA_LAYERS = 16
 MLA_SCALE = 1.0 / (128 + 64) ** 0.5
 # The latent kernels vs their plain version on the same inputs: both take
 # the same q (scaled in fp32 and, on bf16 pools, rounded to bf16) and the
@@ -3549,8 +3571,8 @@ def _serve_mla_run(params, cfg, dev, kind, fused):
 
 
 def phase_serve_mla(state):
-    """llama3_8b(multi_latent_attention=True) at full width and full depth
-    (32 layers; DeepSeek-V2's latent widths on llama3-8b's body), seeded
+    """llama3_8b(multi_latent_attention=True) at full width, MLA_LAYERS
+    deep (DeepSeek-V2's latent widths on llama3-8b's body), seeded
     bf16 weights, behind the continuous-batching driver: the serve phases'
     8 greedy requests through the unfused engine on a bf16 latent pool,
     the fused engine on bf16 and int8 pools, and the unfused engine on an
@@ -3772,7 +3794,7 @@ def _mla_latent_times(state):
 
 def _mla_prologue_times(state):
     """Row 11 at 8 (decode) and 32 (chunk) rows, rotating through
-    serve_mla's 32 layers so that every launch finds its ~59 MB of weights
+    serve_mla's layers so that every launch finds its ~59 MB of weights
     cold; beside it the plain version, the bound and, as the yardstick the
     port never calls, the GEMM alone (x @ [q_proj | kv_down], the
     weights concatenated in advance for 4 layers)."""
@@ -4637,7 +4659,7 @@ def phase_profile(state):
     windows through the fused engine on the resident-int8 weights of
     serve_quant and int8 pools, and through the unfused and fused LoRA
     engines of serve_lora (the 8 requests on four adapters), and through
-    the unfused and fused MLA engines of serve_mla (32 layers)."""
+    the unfused and fused MLA engines of serve_mla (MLA_LAYERS)."""
     from megatronapp_tpu_torch.ops.cuda import fused_decode as fd
     from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
     params, cfg, dev = state["model"]
@@ -5471,21 +5493,25 @@ def _train_tp_rank(rank, init_method, plan, out_q):
 def _train_tp_one_rank(rank, init_method, plan, out_q):
     """train_tp's (and train_pp's) yardstick: the same run on one rank, in
     a spawned process on cuda:0, so that the parent keeps none of its
-    memory. plan: {"layers": depth, "steps": n, "seq": S} (default
-    TP_LAYERS, TP_STEPS, TP_SEQ)."""
+    memory. plan: {"layers": depth, "steps": n, "seq": S, "gbs": global
+    batch} (default TP_LAYERS, TP_STEPS, TP_SEQ, TP_GBS)."""
     try:
+        from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
         from megatronapp_tpu_torch.training.train import pretrain_gpt
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg, train_cfg, opt_cfg = _train_tp_configs(
             layers=(plan or {}).get("layers", TP_LAYERS),
             steps=(plan or {}).get("steps", TP_STEPS),
-            seq=(plan or {}).get("seq", TP_SEQ))
+            seq=(plan or {}).get("seq", TP_SEQ),
+            gbs=(plan or {}).get("gbs", TP_GBS))
+        fa.launches.update(dict.fromkeys(fa.launches, 0))
         t0 = time.perf_counter()
         res = pretrain_gpt(cfg, train_cfg, opt_cfg, device="cuda",
                            log_fn=lambda s: None)
         torch.cuda.synchronize()
-        rep = {"losses": [m["loss"] for m in res.log],
+        rep = {"launches": dict(fa.launches),
+               "losses": [m["loss"] for m in res.log],
                "grad_norms": [m["grad_norm"] for m in res.log],
                "step_ms": [m["step_time_ms"] for m in res.log],
                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -5534,10 +5560,11 @@ def _spawn_train_tp(target, world, init_method, plan):
 
 
 def _train_tp_configs(trace_dir=None, layers=TP_LAYERS, steps=TP_STEPS,
-                      seq=TP_SEQ):
-    """train_tp's, train_pp's, train_fbd's and train_dpp's run: llama3-8b
-    at full width, `layers` deep, S `seq` (4096), global batch 4 of 1,
-    `steps` steps (iteration 0 traced into trace_dir when given)."""
+                      seq=TP_SEQ, gbs=TP_GBS):
+    """train_tp's, train_pp's, train_fbd's, train_dpp's and train_cp's
+    run: llama3-8b at full width, `layers` deep, S `seq` (4096), global
+    batch `gbs` (4) of 1, `steps` steps (iteration 0 traced into trace_dir
+    when given)."""
     from megatronapp_tpu_torch.config.training_config import (
         OptimizerConfig, TrainingConfig,
     )
@@ -5546,7 +5573,7 @@ def _train_tp_configs(trace_dir=None, layers=TP_LAYERS, steps=TP_STEPS,
         trace=True, trace_dir=trace_dir, trace_interval=steps + 1,
         continuous_trace_iterations=1)
     return (llama3_8b(num_layers=layers),
-            TrainingConfig(micro_batch_size=1, global_batch_size=TP_GBS,
+            TrainingConfig(micro_batch_size=1, global_batch_size=gbs,
                            seq_length=seq, train_iters=steps,
                            log_interval=1, seed=1234, **trace),
             OptimizerConfig())
@@ -5759,7 +5786,7 @@ def phase_train_tp(state):
 
 # ---- train_pp ----------------------------------------------------------------
 
-PP_LAYERS, PP_STEPS = 4, 3
+PP_LAYERS, PP_STEPS = 4, 2
 # Each run: its rank count and ParallelConfig fields.
 PP_RUNS = {
     "pp2_vpp2": (2, dict(pipeline_parallel=2, virtual_pipeline_parallel=2)),
@@ -6340,6 +6367,401 @@ def phase_train_dpp(state):
           f"one ({slow['static']['ship_time_s_0_2']} s)")
     check(slow["dynamic"]["loss"] == slow["static"]["loss"],
           f"train_dpp: the slowed runs' losses differ: {slow}")
+
+
+# ---- cp_attention / train_cp ---------------------------------------------------
+
+CP_SEQ, CP_HQ, CP_HKV, CP_D = 8192, 32, 8, 128   # llama3-8b's attention
+CP_A2A = 2                  # a2a+p2p at cp 4: a2a 2 x ring 2
+# name: (cp, cp_comm_type, overlap, zigzag order)
+CP_MODES = {
+    "p2p": (2, "p2p", True, False),
+    "p2p_plain": (2, "p2p", False, False),
+    "zigzag": (2, "p2p_zigzag", True, True),
+    "a2a": (2, "a2a", True, False),
+    "allgather": (2, "allgather", True, False),
+    "a2a+p2p": (4, "a2a+p2p", True, False),
+}
+# Against the flash kernels on one rank: the CP modes and the kernels are
+# two bf16-input approximations of one fp32 function (the modes' scores
+# and softmax in fp32, P rounded to bf16 before P·V; the kernels round q
+# times the scale, P, p and ds to bf16), so their distance is bounded by
+# the kernels' own gates against fp32 (train_kernels): the output within
+# 0.06 of its row RMS, each gradient within 0.02 normwise per head.
+CP_OUT_TOL, CP_GRAD_TOL = FLASH_OUT_TOL, FLASH_GRAD_TOL
+CP_TIMEOUT_S = 600
+# train_cp: llama3-8b at full width, CP_TRAIN_LAYERS deep, S CP_SEQ,
+# global batch 1, cp 2 x tp 2 (zigzag p2p), CP_TRAIN_STEPS steps.
+CP_TRAIN_LAYERS, CP_TRAIN_STEPS, CP_TRAIN_GBS = 2, 2, 1
+CP_TRAIN_PAR = dict(context_parallel=2, tensor_parallel=2)
+CP_TRAIN_WORLD = 4
+
+
+def _cp_inputs(path):
+    """cp_attention's seeded bf16 inputs q [1, S, 32, 128], k/v [1, S, 8,
+    128] and the output cotangent, saved to `path` (CPU tensors)."""
+    gen = torch.Generator().manual_seed(5150)
+
+    def rnd(h):
+        return torch.randn(1, CP_SEQ, h, CP_D, generator=gen).to(
+            torch.bfloat16)
+
+    torch.save({"q": rnd(CP_HQ), "k": rnd(CP_HKV), "v": rnd(CP_HKV),
+                "do": rnd(CP_HQ)}, path)
+
+
+def _cp_attention_rank(rank, init_method, plan, out_q):
+    """One rank of cp_attention (a spawned process on cuda:0)."""
+    try:
+        rep = _cp_attention_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _cp_attention_rank_run(rank, init_method, plan):
+    """Each grid of plan["grids"] ([cp, modes, a2a] in turn; a rank
+    outside a grid's cp ranks sits it out) joined over gloo, then each of
+    its modes on this rank:
+    ops/context_parallel.py context_attention on the whole inputs
+    (causal; zigzag runs permute them into zigzag order and the output
+    back), then the backward of sum(out · dout), twice (the first warms
+    up); the second run's wall and peak memory, the collectives it
+    counted, the flash launches (none: the CP path runs no kernel) and,
+    on rank 0, the errors of the whole output and input grads against
+    the flash kernels' on one rank (plan["ref"]). plan["device"]: the
+    ranks' device (cuda:0; "cpu" rehearses the phase's ranks)."""
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(plan.get("device", "cuda:0"))
+    inputs = {k: v.to(dev) for k, v in torch.load(plan["inputs"]).items()}
+    ref = ({k: v.to(dev) for k, v in torch.load(plan["ref"]).items()}
+           if rank == 0 else None)
+    out = {"modes": {}}
+    for cp, modes, a2a in plan["grids"]:
+        if rank >= cp:
+            continue
+        ctx = build_mesh(ParallelConfig(context_parallel=cp), rank=rank,
+                         init_method=f"{init_method}.cp{cp}", device=dev,
+                         world_size=cp, timeout_s=CP_TIMEOUT_S,
+                         cp_a2a_size=a2a)
+        _cp_modes(ctx, modes, inputs, ref, a2a, out["modes"])
+        ctx.close()
+    return out
+
+
+def _cp_modes(ctx, modes, inputs, ref, a2a, out):
+    """cp_attention's runs of `modes` on this rank of ctx (see
+    _cp_attention_rank_run), into out[mode]."""
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.ops.context_parallel import (
+        context_attention, zigzag_indices, zigzag_inverse_indices,
+    )
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.parallel import collectives
+    dev = ctx.device
+    cuda = dev.type == "cuda"
+    seq = inputs["q"].shape[1]
+    for name in modes:
+        _, mode, overlap, zz = CP_MODES[name]
+        for attempt in range(2):
+            q, k, v = (inputs[n].detach().clone().requires_grad_()
+                       for n in ("q", "k", "v"))
+            args = (q, k, v)
+            if zz:
+                idx = torch.from_numpy(zigzag_indices(
+                    seq, ctx.cp)).long().to(dev)
+                args = tuple(x[:, idx] for x in args)
+            if cuda:
+                torch.cuda.synchronize()
+            dist.barrier()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            fa.launches.update(dict.fromkeys(fa.launches, 0))
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            o = context_attention(*args, ctx, mode, causal=True,
+                                  a2a_size=a2a or 2, overlap_ring=overlap)
+            if zz:
+                o = o[:, torch.from_numpy(zigzag_inverse_indices(
+                    seq, ctx.cp)).long().to(dev)]
+            o.backward(inputs["do"])
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rec = {"wall_s": wall,
+               "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                                  if cuda else None),
+               "flash_launches": dict(fa.launches),
+               "traffic": {n: dict(t) for n, t in
+                           collectives.traffic.items()},
+               "finite": bool(all(torch.isfinite(t).all() for t in
+                                  (o, q.grad, k.grad, v.grad)))}
+        if ref is not None:
+            rec["errors"] = {"out": _errs(o.detach(), ref["out"], False)}
+            for n, t in (("dq", q.grad), ("dk", k.grad), ("dv", v.grad)):
+                rec["errors"][n] = _errs(t, ref[n], True)
+        out[name] = rec
+        del o, q, k, v, args
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def phase_cp_attention(state):
+    """Context-parallel attention (ops/context_parallel.py) at llama3-8b's
+    attention (32 q / 8 kv heads, D 128, bf16, causal, B 1, S 8192): the
+    contiguous ring with and without its save-little backward, the zigzag
+    ring, Ulysses and allgather at cp 2 (ranks 0-1), and a2a+p2p (a2a 2 x
+    ring 2) at cp 4, on one spawn of 4 ranks sharing cuda:0 over gloo.
+    Each mode's whole output and
+    input grads against the flash kernels' forward and backward on one
+    rank (CP_OUT_TOL, CP_GRAD_TOL), its wall (forward and backward, the
+    second of two runs) and peak memory a rank, its collectives, and no
+    flash launch in any rank (the CP path runs no kernel)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from megatronapp_tpu_torch.ops import flash_attention as ofa
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+
+    for key in list(state):
+        if key in ("model", "qmodel", "mla_model", "lora_cache",
+                   "lora_registry", "train_model"):
+            state.pop(key)
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="cp_attention_")
+    plan = {"inputs": os.path.join(tmp, "inputs.pt"),
+            "ref": os.path.join(tmp, "ref.pt")}
+    _cp_inputs(plan["inputs"])
+    dev = torch.device("cuda", 0)
+    inputs = {k: v.to(dev) for k, v in torch.load(plan["inputs"]).items()}
+    saved = dict(fa.launches)
+    q, k, v = (inputs[n].detach().clone().requires_grad_()
+               for n in ("q", "k", "v"))
+    for _ in range(2):          # the second run's wall and launches
+        for t in (q, k, v):
+            t.grad = None
+        torch.cuda.synchronize()
+        before = dict(fa.launches)
+        t0 = time.perf_counter()
+        out = ofa.flash_attention(q, k, v, causal=True)
+        out.backward(inputs["do"])
+        torch.cuda.synchronize()
+        flash_wall = time.perf_counter() - t0
+    flash_launches = {n: fa.launches[n] - before[n] for n in fa.launches}
+    fa.launches.update(saved)
+    torch.save({"out": out.detach().cpu(), "dq": q.grad.cpu(),
+                "dk": k.grad.cpu(), "dv": v.grad.cpu()}, plan["ref"])
+    del out, q, k, v, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # One spawn: every grid in turn, ranks past a grid's cp sitting it out.
+    cps = sorted({m[0] for m in CP_MODES.values()})
+    plan["grids"] = [[cp, [n for n, m in CP_MODES.items() if m[0] == cp],
+                      CP_A2A if cp > CP_A2A else None] for cp in cps]
+    t0 = time.perf_counter()
+    got = _spawn_train_tp(_cp_attention_rank, max(cps),
+                          f"file://{os.path.join(tmp, 'store')}", plan)
+    spawn_s = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    for rank, rep in got.items():
+        check("error" not in rep, f"cp_attention: rank {rank} failed: "
+              f"{rep.get('error')}")
+    reps = {cp: {r: rep for r, rep in got.items() if r < cp} for cp in cps}
+    modes = {}
+    for name, (cp, mode, overlap, zz) in CP_MODES.items():
+        r0 = reps[cp][0]["modes"][name]
+        modes[name] = {
+            "cp": cp, "cp_comm_type": mode, "overlap": overlap,
+            "zigzag": zz, "errors": r0["errors"],
+            "wall_s": [reps[cp][r]["modes"][name]["wall_s"]
+                       for r in sorted(reps[cp])],
+            "peak_mem_bytes": [reps[cp][r]["modes"][name]["peak_mem_bytes"]
+                               for r in sorted(reps[cp])],
+            "traffic_rank0": r0["traffic"]}
+    emit({"phase": "cp_attention", "shape": {
+        "b": 1, "s": CP_SEQ, "hq": CP_HQ, "hkv": CP_HKV, "d": CP_D,
+        "dtype": "bf16", "causal": True},
+        "note": "ranks share cuda:0 over gloo: not parallel speed",
+        "flash_one_rank": {"wall_s": flash_wall,
+                           "launches": flash_launches},
+        "tolerances": {"out_over_row_rms": CP_OUT_TOL,
+                       "grad_normwise_per_head": CP_GRAD_TOL},
+        "errors": "(max abs, max over scale, max normwise per head)",
+        "spawn_s": spawn_s, "modes": modes})
+    check(flash_launches == dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"), 1),
+          f"cp_attention: the one-rank yardstick launched {flash_launches}")
+    for name, (cp, mode, overlap, _) in CP_MODES.items():
+        for rank, rep in reps[cp].items():
+            rec = rep["modes"][name]
+            check(rec["finite"], f"cp_attention {name}: rank {rank}'s "
+                  "output or grads are not finite")
+            check(not any(rec["flash_launches"].values()),
+                  f"cp_attention {name}: rank {rank} launched a flash "
+                  f"kernel {rec['flash_launches']}")
+        err = modes[name]["errors"]
+        check(err["out"][1] <= CP_OUT_TOL,
+              f"cp_attention {name}: output {err['out']} against the flash "
+              f"kernels exceeds {CP_OUT_TOL} of the row RMS")
+        for n in ("dq", "dk", "dv"):
+            check(err[n][2] <= CP_GRAD_TOL,
+                  f"cp_attention {name}: {n} {err[n]} against the flash "
+                  f"kernels exceeds {CP_GRAD_TOL} normwise")
+        tr = modes[name]["traffic_rank0"]
+        ring = cp // CP_A2A if mode == "a2a+p2p" else cp
+        hops = (2 * (ring - 1) + ring if overlap else 2 * (ring - 1)) \
+            if mode in ("p2p", "p2p_zigzag", "a2a+p2p") and ring > 1 else 0
+        check(tr.get("send/cp", {}).get("calls", 0) == hops,
+              f"cp_attention {name}: {tr.get('send/cp')} ring hops, "
+              f"expected {hops}")
+
+
+def _train_cp_rank(rank, init_method, plan, out_q):
+    """One rank of train_cp (a spawned process on cuda:0)."""
+    try:
+        rep = _train_cp_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _train_cp_rank_run(rank, init_method, plan):
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.ops.context_parallel import zigzag_active
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ctx = build_mesh(ParallelConfig(**CP_TRAIN_PAR), rank=rank,
+                     init_method=init_method, device=dev,
+                     world_size=CP_TRAIN_WORLD, timeout_s=CP_TIMEOUT_S)
+    cfg, train_cfg, opt_cfg = _train_tp_configs(
+        layers=CP_TRAIN_LAYERS, steps=CP_TRAIN_STEPS, seq=CP_SEQ,
+        gbs=CP_TRAIN_GBS)
+    out = {"dp": ctx.dp, "cp": ctx.cp, "tp": ctx.tp, "cp_rank": ctx.cp_rank,
+           "tp_rank": ctx.tp_rank, "zigzag": zigzag_active(cfg, ctx)}
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    # The main path: counts zeroed just before, read just after.
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    res = pretrain_gpt(cfg, train_cfg, opt_cfg, ctx=ctx,
+                       log_fn=lines.append)
+    torch.cuda.synchronize()
+    out.update(
+        launches=dict(fa.launches),
+        traffic={k: dict(v) for k, v in collectives.traffic.items()},
+        losses=[m["loss"] for m in res.log],
+        grad_norms=[m["grad_norm"] for m in res.log],
+        step_ms=[m["step_time_ms"] for m in res.log],
+        wall_s=time.perf_counter() - t0,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), log=lines)
+    del res
+    ctx.close()
+    return out
+
+
+def phase_train_cp(state):
+    """Context-parallel pretraining (pretrain_gpt on a cp 2 x tp 2 grid,
+    zigzag p2p) of llama3-8b at full width, CP_TRAIN_LAYERS deep, S 8192,
+    global batch 1, CP_TRAIN_STEPS steps, seeded mock data: first the same
+    run on one rank in a spawned process of its own (the flash kernels),
+    then 4 spawned ranks sharing cuda:0 over gloo (the ring, plain
+    PyTorch). Per-step loss and grad norm within 1e-3 of one rank's,
+    every rank's metrics equal, no flash launch on a cp rank and the
+    one-rank run's exactly, the ring's hops and the cp all-reduces by
+    count, peak memory a rank and the step wall (not parallel speed)."""
+    import gc
+    import shutil
+    import tempfile
+
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = {"layers": CP_TRAIN_LAYERS, "steps": CP_TRAIN_STEPS,
+            "seq": CP_SEQ, "gbs": CP_TRAIN_GBS}
+    one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None, plan)[0]
+    check("error" not in one_rank, f"train_cp: the one-rank run failed: "
+          f"{one_rank.get('error')}")
+    tmp = tempfile.mkdtemp(prefix="train_cp_")
+    t0 = time.perf_counter()
+    reps = _spawn_train_tp(_train_cp_rank, CP_TRAIN_WORLD,
+                           f"file://{os.path.join(tmp, 'store')}", None)
+    spawn_wall = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    for rank, rep in reps.items():
+        check("error" not in rep, f"train_cp: rank {rank} failed: "
+              f"{rep.get('error')}")
+    r0 = reps[0]
+    rel = [{"loss": abs(a - b) / abs(b), "grad_norm": abs(c - d) / abs(d)}
+           for a, b, c, d in zip(r0["losses"], one_rank["losses"],
+                                 r0["grad_norms"], one_rank["grad_norms"])]
+    micro = CP_TRAIN_GBS // r0["dp"]
+    work = CP_TRAIN_LAYERS * micro * CP_TRAIN_STEPS
+    # A layer a micro-batch: one K/V hop forward; one K/V hop and two
+    # accumulator hops backward. A step: the mask count a micro-batch
+    # and the grads once, all-reduced over cp.
+    want_hops = 4 * work
+    want_cp_reduce = CP_TRAIN_STEPS * (micro + 1)
+    emit({"phase": "train_cp", "model": "llama3-8b",
+          "layers": CP_TRAIN_LAYERS, "full_width": True,
+          "seq_length": CP_SEQ, "micro_batch_size": 1,
+          "global_batch_size": CP_TRAIN_GBS, "steps": CP_TRAIN_STEPS,
+          "grid": {"world": CP_TRAIN_WORLD, "dp": r0["dp"], "cp": r0["cp"],
+                   "tp": r0["tp"], "cp_comm_type": "p2p",
+                   "zigzag": r0["zigzag"], "backend": "gloo",
+                   "device": "cuda:0"},
+          "note": "4 ranks on one card over gloo: not parallel speed",
+          "one_rank": one_rank, "losses": r0["losses"],
+          "grad_norms": r0["grad_norms"], "rel_err": rel,
+          "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_NORM_TOL},
+          "expected": {"flash_one_rank": work, "send/cp": want_hops,
+                       "all_reduce/cp": want_cp_reduce},
+          "ranks": {r: {k: rep[k] for k in (
+              "cp_rank", "tp_rank", "launches", "traffic", "peak_mem_bytes",
+              "step_ms", "wall_s")} for r, rep in sorted(reps.items())},
+          "spawn_wall_s": spawn_wall, "log_rank0": r0["log"]})
+    check(r0["zigzag"], "train_cp: the zigzag ring is not active")
+    check(one_rank["launches"] == dict.fromkeys(
+        ("fwd", "bwd_dq", "bwd_dkv"), work),
+        f"train_cp: the one-rank run launched {one_rank['launches']}; "
+        f"expected {work} of each flash kernel")
+    for r, rep in reps.items():
+        check(rep["losses"] == r0["losses"]
+              and rep["grad_norms"] == r0["grad_norms"],
+              f"train_cp: rank {r}'s metrics differ from rank 0's")
+        check(not any(rep["launches"].values()),
+              f"train_cp: rank {r} launched {rep['launches']}; the CP "
+              "path runs no flash kernel")
+        tr = rep["traffic"]
+        check(tr.get("send/cp", {}).get("calls") == want_hops
+              and tr.get("recv/cp", {}).get("calls") == want_hops,
+              f"train_cp: rank {r}'s ring hops {tr.get('send/cp')} / "
+              f"{tr.get('recv/cp')}, expected {want_hops}")
+        check(tr.get("all_reduce/cp", {}).get("calls") == want_cp_reduce,
+              f"train_cp: rank {r}'s cp all-reduces "
+              f"{tr.get('all_reduce/cp')}, expected {want_cp_reduce}")
+    check(all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+          f"train_cp: non-finite metrics {r0['losses']} {r0['grad_norms']}")
+    for e in rel:
+        check(e["loss"] < TP_LOSS_TOL and e["grad_norm"] < TP_NORM_TOL,
+              f"train_cp: 4 ranks against one: relative errors {e}")
 
 
 def _related_set_faults(events, coll, related):
@@ -7822,6 +8244,8 @@ def main(argv=None) -> int:
         ("train_pp", lambda: phase_train_pp(state)),
         ("train_fbd", lambda: phase_train_fbd(state)),
         ("train_dpp", lambda: phase_train_dpp(state)),
+        ("cp_attention", lambda: phase_cp_attention(state)),
+        ("train_cp", lambda: phase_train_cp(state)),
     ]
     wanted = None if args.phases is None else set(args.phases.split(","))
     seconds = {}

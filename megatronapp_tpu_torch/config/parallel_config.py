@@ -4,7 +4,8 @@
 Ported axes: tensor parallelism (paged serving under ``--serve-tp``, and
 training), data parallelism with the ZeRO-1 distributed optimizer,
 pipeline parallelism (training: 1F1B, interleaved VPP, zero-bubble, the
-'dfc' / 'bfc' chunk orders and the trace-driven planner), MegaFBD
+'dfc' / 'bfc' chunk orders and the trace-driven planner), context
+parallelism (training: ops/context_parallel.py's five modes), MegaFBD
 (``forward_backward_disaggregating``: parallel/fbd.py) and MegaDPP
 (``use_dpp``: runtime/dpp.py). The port runs one process a rank, so
 ``infer_data_parallel`` divides a process count where JAX divides a
@@ -14,7 +15,9 @@ defaults, each naming the ROADMAP.md item that ports it.
 JAX's compose checks (config/arguments.py:1163-1180, training/train.py
 :240-249) hold here for every caller: FBD and DPP run their own
 schedules, so a ``pp_schedule`` other than '1f1b' or the trace-driven
-planner beside either raises with JAX's words.
+planner beside either raises with JAX's words. ``check_context_parallel``
+holds JAX's parse-time checks of a context-parallel run
+(config/arguments.py:1191-1204) with JAX's words.
 """
 
 from __future__ import annotations
@@ -24,8 +27,6 @@ from typing import Optional
 
 # Fields of axes the port lacks → (their flag, the ROADMAP.md item).
 UNPORTED_PARALLEL_FIELDS = {
-    "context_parallel": ("--context-parallel-size",
-                         "Queue 1 item 4 (CP)"),
     "expert_parallel": ("--expert-model-parallel-size",
                         "Queue 1 item 4 (MoE and EP)"),
     "fsdp": ("--use-custom-fsdp", "Queue 1 item 4 (FSDP)"),
@@ -143,3 +144,27 @@ class ParallelConfig:
                 f"explicit data_parallel={self.data_parallel} inconsistent "
                 f"with num_devices={num_ranks} (inferred {dp})")
         return dp
+
+
+def check_context_parallel(seq_length: int, context_parallel: int,
+                           cp_comm_type: str = "p2p",
+                           hierarchical_sizes: Optional[tuple] = None
+                           ) -> None:
+    """JAX's checks of a context-parallel run (config/arguments.py:
+    1191-1204), with its words: seq_length divisible by cp, and
+    hierarchical (a2a, ring) sizes that multiply to cp under cp_comm_type
+    'a2a+p2p'."""
+    if seq_length % (context_parallel or 1) != 0:
+        raise ValueError("--seq-length must be divisible by "
+                         "--context-parallel-size")
+    if hierarchical_sizes:
+        a2a_sz, ring_sz = hierarchical_sizes
+        if a2a_sz * ring_sz != context_parallel:
+            raise ValueError(
+                f"--hierarchical-context-parallel-sizes {a2a_sz} {ring_sz} "
+                f"must multiply to --context-parallel-size "
+                f"({context_parallel})")
+        if cp_comm_type != "a2a+p2p":
+            raise ValueError(
+                "--hierarchical-context-parallel-sizes requires "
+                "--cp-comm-type a2a+p2p")

@@ -114,6 +114,10 @@ class TransformerConfig:
 
     # JAX-side machinery knobs, kept for field parity.
     remat_policy: str = "selective"
+    # Context parallelism (ops/context_parallel.py): the mode ('p2p' ring,
+    # 'a2a' Ulysses, 'allgather', 'a2a+p2p' hierarchical), the inner
+    # all-to-all size of 'a2a+p2p', the zigzag layout of the causal ring
+    # and the contiguous ring's save-little backward.
     cp_comm_type: str = "p2p"
     hierarchical_cp_a2a_size: int = 2
     cp_zigzag: bool = True
@@ -164,6 +168,14 @@ class TransformerConfig:
         if self.num_moe_experts is not None \
                 and self.moe_ffn_hidden_size is None:
             self.moe_ffn_hidden_size = self.ffn_hidden_size
+        from megatronapp_tpu_torch.ops.context_parallel import (
+            CP_COMM_TYPES,
+        )
+        if self.cp_comm_type not in CP_COMM_TYPES:
+            raise ValueError(
+                f"cp_comm_type must be one of {sorted(CP_COMM_TYPES)} "
+                f"('p2p' = ring, 'a2a' = Ulysses), got "
+                f"{self.cp_comm_type!r}")
 
     @property
     def is_moe(self) -> bool:

@@ -8,7 +8,15 @@ shards (parallel/sharding.py): the word embedding is vocab-parallel (a
 masked local lookup, then a sum over tp), the output layer is
 column-parallel over the vocabulary, tied or untied, and the logits stay
 vocab-parallel into the cross entropy (ops/cross_entropy.py); the learned
-position embedding and the norms are replicated."""
+position embedding and the norms are replicated.
+
+Under context parallelism (ctx.cp > 1) the callers pass whole sequences
+and each rank takes its share (parallel/sharding.py ``cp_share``), in
+zigzag order when ``zigzag_active`` allows it (JAX gpt.py:181-280,
+:318-360): tokens, targets, loss mask and segment ids alike, with the
+rope tables and learned positions at the share's global positions; the
+logits are the share's, and the cross entropy's token mean runs over
+dp × cp. MLA and MTP under cp raise."""
 
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from megatronapp_tpu_torch.parallel.collectives import (
     copy_to_tp, reduce_from_tp,
 )
 from megatronapp_tpu_torch.parallel.sharding import (
-    MTP_UNDER_PP, shard_tree, stage_layer_ids,
+    MTP_MLA_UNDER_CP, MTP_UNDER_PP, cp_share, shard_tree, stage_layer_ids,
 )
 from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.block import (
@@ -181,6 +189,21 @@ def packed_position_ids(segment_ids: torch.Tensor) -> torch.Tensor:
     return (idx - seg_start).to(torch.int32)
 
 
+def _cp_index(cfg: TransformerConfig, ctx, seq_len: int, segment_ids,
+              attention_mask, device):
+    """(this cp rank's share of the sequence, zigzag) under cp > 1, else
+    (None, False): the zigzag layout when zigzag_active and no packed
+    segments or explicit mask (JAX gpt.py:206-209)."""
+    if ctx is None or ctx.cp == 1:
+        return None, False
+    from megatronapp_tpu_torch.ops.context_parallel import zigzag_active
+    if cfg.multi_latent_attention or cfg.mtp_num_layers:
+        raise NotImplementedError(MTP_MLA_UNDER_CP)
+    zz = (zigzag_active(cfg, ctx) and segment_ids is None
+          and attention_mask is None)
+    return cp_share(seq_len, ctx, zz, device), zz
+
+
 def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
                 attention_mask: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None, ctx=None,
@@ -192,16 +215,27 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
     the final norm) and the rope tables (cos, sin), for the MTP heads.
     ctx: the training grid (dp × tp; a serving ctx rides the engine's
     paged steps, inference/dynamic_engine.py): the logits are then this
-    tp rank's vocabulary columns. The zigzag context-parallel layout is
-    not ported (ROADMAP.md Queue 1 item 4)."""
+    tp rank's vocabulary columns. Under cp > 1 tokens (and segment_ids)
+    are whole sequences and the logits, hidden states and tables are this
+    cp rank's share (module docstring)."""
     positions = None
     if segment_ids is not None:
         positions = packed_position_ids(segment_ids)
+    idx, zz = _cp_index(cfg, ctx, tokens.shape[1], segment_ids,
+                        attention_mask, tokens.device)
+    rope_pos = positions
+    if idx is not None:
+        tokens = tokens[:, idx]
+        if segment_ids is not None:
+            segment_ids = segment_ids[:, idx]
+            positions = rope_pos = positions[:, idx]
+        else:
+            positions, rope_pos = idx[None, :], idx
     h = gpt_embed(p, tokens, cfg, position_ids=positions, ctx=ctx)
     cos, sin = gpt_rope_tables(cfg, tokens.shape[1], tokens.device,
-                               positions=positions)
+                               positions=rope_pos)
     h, aux = block_forward(p["layers"], h, cfg, cos, sin, attention_mask,
-                           segment_ids=segment_ids, ctx=ctx)
+                           segment_ids=segment_ids, ctx=ctx, zigzag=zz)
     logits = gpt_head(p, h, cfg, ctx)
     if return_hidden:
         return logits, aux, h, (cos, sin)
@@ -214,18 +248,26 @@ def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
     """Training loss (CE + MoE aux, + the scaled MTP loss when
     cfg.mtp_num_layers) → (loss, {"lm_loss", "moe_aux_loss"[,
     "mtp_loss"]}); mtp_loss is the unscaled mean over depths (JAX
-    gpt.py:239-275). ctx: the training grid; the loss is then this dp
-    rank's share of the microbatch's token mean (ops/cross_entropy.py),
-    from vocab-parallel logits under tp."""
+    gpt.py:239-275). ctx: the training grid; the loss is then this dp (×
+    cp) rank's share of the microbatch's token mean (ops/cross_entropy.py),
+    from vocab-parallel logits under tp; under cp the targets and mask
+    take the share the logits hold."""
     if not cfg.mtp_num_layers:
         logits, aux = gpt_forward(p, tokens, cfg, segment_ids=segment_ids,
                                   ctx=ctx)
+        idx, _ = _cp_index(cfg, ctx, tokens.shape[1], segment_ids, None,
+                           tokens.device)
+        if idx is not None:
+            targets = targets[:, idx]
+            loss_mask = None if loss_mask is None else loss_mask[:, idx]
         loss, _ = cross_entropy_loss(logits, targets, loss_mask, ctx=ctx)
         return loss + aux, {"lm_loss": loss, "moe_aux_loss": aux}
     if segment_ids is not None:
         raise NotImplementedError(
             "multi token prediction + sequence packing is not "
             "supported (reference multi_token_prediction.py assert)")
+    if ctx is not None and ctx.cp > 1:
+        raise NotImplementedError(MTP_MLA_UNDER_CP)
     if ctx is not None and ctx.tp > 1:
         raise NotImplementedError(
             "MTP depths under tensor parallelism are not ported yet "
@@ -266,7 +308,10 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
     microbatch's positions, rope tables and segment masks. fbd: a MegaFBD
     rank's parallel/pipeline.py ``TwinLink`` (its forward ranks pass
     grad=False); a backward rank's head runs a microbatch at a time inside
-    the backward program, against the same whole-step mask count."""
+    the backward program, against the same whole-step mask count. Under
+    cp > 1 every stage takes its cp share of each microbatch (JAX
+    gpt.py:318-360, :402-416): stage hops carry [mb, S/cp, H], the rope
+    tables are the share's, and the mask count runs over dp × cp."""
     from megatronapp_tpu_torch.parallel.pipeline import (
         StageProgram, run_pipeline,
     )
@@ -283,8 +328,14 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
     dev, dt = tokens.device, cfg.compute_dtype
     positions = None if segs is None else packed_position_ids(
         segs.reshape(m_count * mb, s)).reshape(m_count, mb, s)
+    idx, zz = _cp_index(cfg, ctx, s, segs, None, dev)
+    if idx is not None:
+        batch = {k: v[:, :, idx] for k, v in batch.items()}
+        tokens, segs = batch["tokens"], batch.get("segment_ids")
+        positions = None if positions is None else positions[:, :, idx]
+        s = idx.numel()
     if positions is None:
-        tables = [gpt_rope_tables(cfg, s, dev)] * m_count
+        tables = [gpt_rope_tables(cfg, s, dev, positions=idx)] * m_count
     else:
         tables = [gpt_rope_tables(cfg, s, dev, positions=positions[m])
                   for m in range(m_count)]
@@ -297,15 +348,18 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
         cos, sin = tables[m]
         y, _ = block_forward(layers[cut], x, cfg, cos, sin,
                              segment_ids=None if segs is None else segs[m],
-                             ctx=ctx, layer_ids=ids[cut])
+                             ctx=ctx, layer_ids=ids[cut], zigzag=zz)
         return y
 
     h = None
     if ctx.is_first_stage:
         with torch.set_grad_enabled(grad):
+            pos_ids = (None if positions is None
+                       else positions.reshape(m_count * mb, s))
+            if pos_ids is None and idx is not None:
+                pos_ids = idx[None, :]
             h = gpt_embed(p, tokens.reshape(m_count * mb, s), cfg,
-                          position_ids=None if positions is None
-                          else positions.reshape(m_count * mb, s),
+                          position_ids=pos_ids,
                           ctx=ctx).reshape(m_count, mb, s, -1)
 
     def embed_backward(d_inputs):
@@ -314,17 +368,18 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
     counts = []
 
     def step_count():
-        """The mask count of the whole step, over every dp rank (one
-        all-reduce, at the head's first microbatch)."""
+        """The mask count of the whole step, over every dp and cp rank
+        (an all-reduce an axis, at the head's first microbatch)."""
         if not counts:
             mask = batch.get("loss_mask")
             count = (torch.tensor(float(tokens.numel()), device=dev)
                      if mask is None else mask.float().sum())
-            if ctx.dp > 1:
-                from megatronapp_tpu_torch.parallel.collectives import (
-                    all_reduce,
-                )
-                count = all_reduce(count.clone(), ctx, "dp")
+            from megatronapp_tpu_torch.parallel.collectives import (
+                all_reduce,
+            )
+            count = count.clone()
+            for axis in ("dp", "cp"):
+                count = all_reduce(count, ctx, axis)
             counts.append(count.clamp(min=1.0))
         return counts[0]
 

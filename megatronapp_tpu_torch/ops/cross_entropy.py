@@ -14,10 +14,13 @@ all-reduces over tp), with the z-loss on the global log-sum-exp; its
 backward needs no collective. Under a rank grid (``ctx``) the logits are
 this rank's vocabulary columns (tp rank r holds [r·V/tp, (r+1)·V/tp));
 on one device, or at tp 1, they are the whole vocabulary and the same
-Function runs with the all-reduces skipped. The token mean is the JAX step's mean over the whole microbatch: each dp rank
-divides its masked sum by the mask count over every dp rank's rows (one
-all-reduce over dp), so the dp sum of the ranks' losses, and of their
-gradients, is the global mean's.
+Function runs with the all-reduces skipped. The token mean is the JAX
+step's mean over the whole microbatch: each dp rank divides its masked
+sum by the mask count over every dp rank's rows (one all-reduce over dp),
+so the dp sum of the ranks' losses, and of their gradients, is the global
+mean's. Under context parallelism each cp rank holds a share of every
+row's tokens, and the count is all-reduced over cp too: the dp × cp sum
+of the ranks' losses is JAX's loss.
 """
 
 from __future__ import annotations
@@ -77,25 +80,28 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     """Token-mean CE. logits [B,S,V] (upcast to fp32; under a ctx with tp
     > 1 this rank's V/tp vocabulary columns), targets [B,S] int,
     loss_mask [B,S] (1 = count). Returns (loss, per_token_loss); under a
-    ctx with dp > 1 the loss is this rank's share of the microbatch's
-    mean (see the module docstring). count: the mean's denominator, when
-    the caller has it (the pipeline's mask count over every microbatch
-    and dp rank): the loss is then sum(per_token · mask) / count."""
+    ctx with dp or cp > 1 the loss is this rank's share of the
+    microbatch's mean (see the module docstring). count: the mean's
+    denominator, when the caller has it (the pipeline's mask count over
+    every microbatch, dp and cp rank): the loss is then sum(per_token ·
+    mask) / count."""
     per_token = _VocabParallelCrossEntropy.apply(
         logits.float(), targets.long(), float(z_loss_coeff), ctx)
     if count is not None:
         mask = (torch.ones_like(per_token) if loss_mask is None
                 else loss_mask.float())
         return (per_token * mask).sum() / count, per_token
-    dp = 1 if ctx is None else ctx.dp
+    shares = 1 if ctx is None else ctx.dp * ctx.cp
     if loss_mask is None:
-        if dp == 1:
+        if shares == 1:
             return per_token.mean(), per_token
-        return per_token.sum() / (per_token.numel() * dp), per_token
+        return per_token.sum() / (per_token.numel() * shares), per_token
     loss_mask = loss_mask.float()
     count = loss_mask.sum()
-    if dp > 1:
+    if shares > 1:
         from megatronapp_tpu_torch.parallel.collectives import all_reduce
-        count = all_reduce(count.clone(), ctx, "dp")
+        count = count.clone()
+        for axis in ("dp", "cp"):
+            count = all_reduce(count, ctx, axis)
     loss = (per_token * loss_mask).sum() / count.clamp(min=1.0)
     return loss, per_token

@@ -48,6 +48,23 @@ its twin in the other half of the world: a forward rank's stage input
 own a kind (the stage hops take 0 and 1), so it never matches a stage
 hop between the same two processes.
 
+Context parallelism (ops/context_parallel.py), each counted under axis
+"cp" (or "cp_a2a", the inner all-to-all group of 'a2a+p2p'):
+
+- ``ring_hop``: a ring step's exchange, this rank's tensors to one
+  neighbour and the same shapes from the other, packed into one byte
+  buffer each way. It is issued (``RingHop``) before the compute it
+  rides under and waited after it. Like the stage hop it stages through
+  host memory (gloo's CUDA send aborts), under gloo tags of its own
+  (``CP_TAGS``: the K/V blocks and the backward's dK/dV accumulators),
+  counted as "send/cp" and "recv/cp";
+- ``all_to_all``: a tensor split along dim 0 over the group's ranks
+  (Ulysses' head scatter and its inverse). A CUDA tensor stages through
+  host memory: this module does not rely on gloo's all-to-all taking
+  device pointers;
+- ``all_gather_cat`` over "cp" (the allgather mode's K/V, the segment
+  ids) and ``reduce_scatter`` over "cp" (its backward).
+
 ``calls`` counts each kind a call; ``traffic`` counts calls and result
 bytes (JAX's HLO accounting: an all-gather's gathered output, a
 reduce-scatter's shard; a hop's sent and received tensors) per
@@ -73,11 +90,13 @@ import torch
 import torch.distributed as dist
 
 calls: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
-                         "reduce_scatter": 0, "send": 0, "recv": 0}
+                         "reduce_scatter": 0, "send": 0, "recv": 0,
+                         "all_to_all": 0}
 traffic: Dict[str, Dict[str, int]] = {}
 
 _EVENT = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-          "reduce_scatter": "reduce-scatter"}
+          "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+          "ring_hop": "collective-permute"}
 
 
 def reset_counts() -> None:
@@ -94,14 +113,18 @@ def _axis(ctx, axis: str) -> Tuple[Any, List[int]]:
         return ctx.dp_group, ctx.dp_ranks
     if axis == "pp":
         return ctx.pp_group, ctx.pp_ranks
+    if axis == "cp":
+        return ctx.cp_group, ctx.cp_ranks
+    if axis == "cp_a2a":
+        return ctx.cp_a2a_group, ctx.cp_a2a_ranks
     if axis == "embed":
         return ctx.embed_group, ctx.embed_ranks
     if axis == "world":
         return ctx.world_group, ctx.world_ranks
     if axis == "fbd":
         return dist.group.WORLD, list(range(dist.get_world_size()))
-    raise ValueError(f"axis {axis!r}: takes 'tp', 'dp', 'pp', 'embed', "
-                     "'world' or 'fbd'")
+    raise ValueError(f"axis {axis!r}: takes 'tp', 'dp', 'pp', 'cp', "
+                     "'cp_a2a', 'embed', 'world' or 'fbd'")
 
 
 def _count(kind: str, axis: str, nbytes: int) -> None:
@@ -258,6 +281,76 @@ def twin_hop(ctx, send: Optional[torch.Tensor] = None,
         buf = buf.view(recv_into.dtype)
     recv_into.copy_(buf.view(recv_into.shape))
     return recv_into
+
+
+def all_to_all(x: torch.Tensor, ctx, axis: str = "cp") -> torch.Tensor:
+    """x [n, ...] (n: the axis' ranks): chunk j goes to the axis' rank j;
+    returns [n, ...] whose chunk i came from rank i. A CUDA tensor stages
+    through host memory; a bf16 one travels as its raw bytes."""
+    group, ranks = _axis(ctx, axis)
+    if len(ranks) == 1:
+        return x
+    if x.shape[0] != len(ranks):
+        raise ValueError(f"all_to_all over {axis}: dim 0 is {x.shape[0]}, "
+                         f"the group has {len(ranks)} ranks")
+    raw = _raw(x)
+    out = torch.empty_like(raw)
+    _count("all_to_all", axis, _nbytes(out))
+    with _traced("all_to_all", axis, _nbytes(out), ranks):
+        dist.all_to_all_single(out, raw, group=group)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        out = out.view(x.dtype)
+    return out.view(x.shape).to(x.device)
+
+
+# The cp ring's gloo tags: the K/V blocks (and their segment ids) and the
+# backward's dK/dV accumulators (the stage hops take 0 and 1, the twin
+# hops 2 and 3).
+CP_TAGS = {"kv": 4, "dkv": 5}
+
+
+class RingHop:
+    """One ring step's exchange in flight (``ring_hop``): ``wait()``
+    returns the received tensors, shaped and typed like the sent ones,
+    on their device."""
+
+    def __init__(self, ctx, tensors: List[torch.Tensor], dst: int,
+                 src: int, ranks: List[int], tag: int):
+        self.ctx = ctx
+        self.like = [(t.shape, t.dtype, t.device) for t in tensors]
+        parts = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 for t in tensors]
+        self.sizes = [p.numel() for p in parts]
+        send = torch.cat(parts).to("cpu")
+        self.buf = torch.empty_like(send)
+        n = _nbytes(send)
+        _count("send", "cp", n)
+        _count("recv", "cp", n)
+        self._event = contextlib.ExitStack()
+        self._event.enter_context(_traced("ring_hop", "cp", n, ranks))
+        self.works = [dist.irecv(self.buf, src=src, tag=tag),
+                      dist.isend(send, dst=dst, tag=tag)]
+
+    def wait(self) -> List[torch.Tensor]:
+        timeout = datetime.timedelta(seconds=self.ctx.timeout_s)
+        for w in self.works:
+            w.wait(timeout=timeout)
+        self._event.close()
+        dev = self.like[0][2]
+        buf = self.buf.to(dev)
+        out, a = [], 0
+        for (shape, dtype, _), n in zip(self.like, self.sizes):
+            out.append(buf[a:a + n].clone().view(dtype).view(shape))
+            a += n
+        return out
+
+
+def ring_hop(ctx, tensors: List[torch.Tensor], dst: int, src: int,
+             ranks: List[int], tag: str = "kv") -> RingHop:
+    """Issue a ring step's exchange: `tensors` to global rank dst, the
+    same shapes from src (``ranks``: the ring, for the MegaScan event).
+    Every rank of the ring issues it in the same step."""
+    return RingHop(ctx, tensors, dst, src, ranks, CP_TAGS[tag])
 
 
 def psum(x: torch.Tensor, ctx) -> torch.Tensor:

@@ -2,12 +2,14 @@
 (the JAX package's parallel/fbd.py: ``split_fbd_meshes``,
 ``FBDExecutor``).
 
-The world of 2 · pp · (dp/2) · tp ranks splits as JAX splits its devices
-(the reference's rank accounting, parallel_state.py:444-453): ranks [0,
-W/2) form the forward half and [W/2, W) the backward half, each its own
-pp × (dp/2) × tp grid (parallel/mesh.py, with its own tp, dp, pp,
-embedding and world groups), and a rank's twin holds the same (pp, dp,
-tp) index in the other half. An odd dp raises JAX's message.
+The world of 2 · pp · (dp/2) · cp · tp ranks splits as JAX splits its
+devices (the reference's rank accounting, parallel_state.py:444-453):
+ranks [0, W/2) form the forward half and [W/2, W) the backward half, each
+its own pp × (dp/2) × cp × tp grid (parallel/mesh.py, with its own tp,
+dp, cp, pp, embedding and world groups), and a rank's twin holds the same
+(pp, dp, cp, tp) index in the other half: both hold the same share of
+the sequence, so a shipped stage input is [mb, S/cp, H]. An odd dp
+raises JAX's message.
 
 Each step, one role a rank:
 
@@ -61,7 +63,7 @@ import torch
 from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
 from megatronapp_tpu_torch.parallel import collectives
 from megatronapp_tpu_torch.parallel.mesh import (
-    DEFAULT_TIMEOUT_S, MeshContext, _grid_groups, _join,
+    DEFAULT_TIMEOUT_S, MeshContext, _grid_groups, _join, cp_a2a_of,
 )
 from megatronapp_tpu_torch.parallel.pipeline import TwinLink
 
@@ -73,11 +75,13 @@ _BWD_KEYS = ("loss", "grad_norm", "lr", "skipped", "lm_loss",
 def split_fbd_meshes(parallel: ParallelConfig, *, rank: int,
                      world_size: int, init_method: str, device=None,
                      backend: str = "gloo",
-                     timeout_s: float = DEFAULT_TIMEOUT_S) -> MeshContext:
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     cp_a2a_size=None) -> MeshContext:
     """Join the world as `rank` of `world_size` and return this rank's
-    half (module docstring): its MeshContext of a pp × (dp/2) × tp grid
-    with ``fbd_role`` and ``twin_rank`` set. Every rank makes every group
-    of both halves. Raises before joining when dp is odd."""
+    half (module docstring): its MeshContext of a pp × (dp/2) × cp × tp
+    grid with ``fbd_role`` and ``twin_rank`` set. Every rank makes every
+    group of both halves. Raises before joining when dp is odd.
+    cp_a2a_size: as parallel/mesh.py build_mesh's."""
     dp = parallel.infer_data_parallel(world_size)
     if dp % 2 != 0:
         raise ValueError(
@@ -87,10 +91,11 @@ def split_fbd_meshes(parallel: ParallelConfig, *, rank: int,
                                forward_backward_disaggregating=False)
     n = world_size // 2
     tp, pp = half.tensor_parallel, half.pipeline_parallel
+    cp, a2a = half.context_parallel, cp_a2a_of(half, cp_a2a_size)
     dev = _join(world_size, rank, init_method, device, backend, timeout_s)
     mine = {}
     for base in (0, n):
-        got = _grid_groups(rank, base, pp, dp // 2, tp, timeout_s)
+        got = _grid_groups(rank, base, pp, dp // 2, tp, timeout_s, cp, a2a)
         if got:
             mine = got
     base = 0 if rank < n else n
@@ -99,7 +104,8 @@ def split_fbd_meshes(parallel: ParallelConfig, *, rank: int,
         rank=rank, device=dev, backend=backend, timeout_s=timeout_s,
         dp_group=mine["dp"], world_group=mine["world"],
         pp_group=mine.get("pp"), embed_group=mine.get("embed"),
-        rank_base=base, fbd_role="forward" if rank < n else "backward",
+        cp_group=mine.get("cp"), cp_a2a_group=mine.get("cp_a2a"),
+        cp_a2a_size=a2a, rank_base=base, fbd_role="forward" if rank < n else "backward",
         twin_rank=rank + n if rank < n else rank - n)
 
 

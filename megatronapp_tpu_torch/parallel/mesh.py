@@ -3,16 +3,22 @@
 
 JAX runs one controller over a device mesh with the axes pp, dp, ep, cp,
 tp (tp innermost); the port runs one process a rank, joined by
-``torch.distributed`` process groups, and takes the pp × dp × tp part of
-that order: rank = (pp_index · dp + dp_index) · tp + tp_index.
-``build_mesh`` joins the world group and builds one tp group per (pp,
-dp) index, one dp group per (pp, tp), one pp group (the stage ring) per
-(dp, tp) and, at pp > 1, one embedding group of the first and last
-stages per (dp, tp): a tied embedding's two copies sum their grads there
-(JAX keeps the embedding replicated over pp). The tp-only grid of
-tensor-parallel serving (``--serve-tp``) is the case pp = dp = 1, whose
-tp group is the world; a dp × tp grid (pp 1) gets the groups it had
-before pipelines.
+``torch.distributed`` process groups, and takes the pp × dp × cp × tp
+part of that order: rank = ((pp_index · dp + dp_index) · cp + cp_index)
+· tp + tp_index. ``build_mesh`` joins the world group and builds one tp
+group per (pp, dp, cp) index, one dp group per (pp, cp, tp), one cp group
+per (pp, dp, tp), one pp group (the stage ring) per (dp, cp, tp) and, at
+pp > 1, one embedding group of the first and last stages per (dp, cp,
+tp): a tied embedding's two copies sum their grads there (JAX keeps the
+embedding replicated over pp). At cp > 1 with ``cp_a2a_size`` (the inner
+all-to-all size of cp_comm_type 'a2a+p2p', 1 < a2a < cp) it also builds
+the inner all-to-all groups, a2a consecutive cp ranks each; the ring
+across them (the ranks of one inner index, ``cp_outer_ranks``) and the
+cp ring itself (``cp_next_rank``, ``cp_prev_rank``) move blocks point to
+point over the world group, so they need no group of their own. The
+tp-only grid of tensor-parallel serving (``--serve-tp``) is the case pp
+= dp = cp = 1, whose tp group is the world; at cp 1 every grid keeps the
+rank numbering and the groups it had before context parallelism.
 
 The backend is gloo: it carries CUDA tensors (staged through host memory
 by gloo itself) and CPU tensors alike, and unlike NCCL it takes several
@@ -63,6 +69,11 @@ class MeshContext:
     world_group: Optional[dist.ProcessGroup] = None
     pp_group: Optional[dist.ProcessGroup] = None
     embed_group: Optional[dist.ProcessGroup] = None
+    cp_group: Optional[dist.ProcessGroup] = None
+    # 'a2a+p2p': this rank's inner all-to-all group and its size (None /
+    # 1 without one).
+    cp_a2a_group: Optional[dist.ProcessGroup] = None
+    cp_a2a_size: int = 1
     # A half of a MegaFBD world (module docstring); 0 / None otherwise.
     rank_base: int = 0
     fbd_role: Optional[str] = None
@@ -85,8 +96,12 @@ class MeshContext:
         return self.parallel.virtual_pipeline_parallel
 
     @property
+    def cp(self) -> int:
+        return self.parallel.context_parallel
+
+    @property
     def world(self) -> int:
-        return self.tp * self.dp * self.pp
+        return self.tp * self.cp * self.dp * self.pp
 
     @property
     def num_devices(self) -> int:
@@ -108,13 +123,22 @@ class MeshContext:
         return self.grid_rank % self.tp
 
     @property
+    def cp_rank(self) -> int:
+        return self.grid_rank // self.tp % self.cp
+
+    @property
     def dp_rank(self) -> int:
-        return self.grid_rank // self.tp % self.dp
+        return self.grid_rank // (self.tp * self.cp) % self.dp
 
     @property
     def pp_rank(self) -> int:
         """This rank's pipeline stage."""
-        return self.grid_rank // (self.tp * self.dp)
+        return self.grid_rank // (self.tp * self.cp * self.dp)
+
+    def _at(self, p: int, d: int, c: int, t: int) -> int:
+        """The global rank of grid index (pp, dp, cp, tp)."""
+        return self.rank_base + ((p * self.dp + d) * self.cp + c) \
+            * self.tp + t
 
     @property
     def is_first_stage(self) -> bool:
@@ -131,27 +155,57 @@ class MeshContext:
     @property
     def tp_ranks(self) -> List[int]:
         """The global ranks of this rank's tp group, in tp order."""
-        base = self.rank_base + (self.pp_rank * self.dp
-                                 + self.dp_rank) * self.tp
-        return list(range(base, base + self.tp))
+        return [self._at(self.pp_rank, self.dp_rank, self.cp_rank, t)
+                for t in range(self.tp)]
 
     @property
     def dp_ranks(self) -> List[int]:
         """The global ranks of this rank's dp group, in dp order."""
-        base = self.rank_base + self.pp_rank * self.dp * self.tp \
-            + self.tp_rank
-        return list(range(base, base + self.dp * self.tp, self.tp))
+        return [self._at(self.pp_rank, d, self.cp_rank, self.tp_rank)
+                for d in range(self.dp)]
+
+    @property
+    def cp_ranks(self) -> List[int]:
+        """The global ranks of this rank's cp group, in cp order (rank c
+        holds the sequence's c-th share)."""
+        return [self._at(self.pp_rank, self.dp_rank, c, self.tp_rank)
+                for c in range(self.cp)]
+
+    @property
+    def cp_a2a_ranks(self) -> List[int]:
+        """The global ranks of this rank's inner all-to-all group
+        ('a2a+p2p'): the cp_a2a_size consecutive cp ranks holding it."""
+        a = self.cp_a2a_size
+        g = self.cp_rank // a
+        return self.cp_ranks[g * a:(g + 1) * a]
+
+    @property
+    def cp_outer_ranks(self) -> List[int]:
+        """'a2a+p2p''s ring across the inner groups, in ring order: the
+        rank of this rank's inner index in each inner group."""
+        a = self.cp_a2a_size
+        return self.cp_ranks[self.cp_rank % a::a]
+
+    @property
+    def cp_next_rank(self) -> int:
+        """The next rank on the cp ring (a ring hop's destination)."""
+        return self.cp_ranks[(self.cp_rank + 1) % self.cp]
+
+    @property
+    def cp_prev_rank(self) -> int:
+        """The previous rank on the cp ring (a ring hop's source)."""
+        return self.cp_ranks[(self.cp_rank - 1) % self.cp]
 
     @property
     def pp_ranks(self) -> List[int]:
         """The global ranks of this rank's stage ring, in stage order."""
-        return list(range(self.rank_base + self.dp_rank * self.tp
-                          + self.tp_rank, self.rank_base + self.world,
-                          self.dp * self.tp))
+        return [self._at(p, self.dp_rank, self.cp_rank, self.tp_rank)
+                for p in range(self.pp)]
 
     @property
     def embed_ranks(self) -> List[int]:
-        """The first and the last stage's ranks of this (dp, tp) index."""
+        """The first and the last stage's ranks of this (dp, cp, tp)
+        index."""
         ring = self.pp_ranks
         return [ring[0], ring[-1]]
 
@@ -207,12 +261,14 @@ def _join(world: int, rank: int, init_method: str, device, backend: str,
 
 
 def _grid_groups(rank: int, base: int, pp: int, dp: int, tp: int,
-                 timeout_s: float) -> dict:
-    """The process groups of the pp × dp × tp grid of global ranks [base,
-    base + pp·dp·tp): {axis: group} of this rank's groups ({} when the
-    rank is not in the grid). Every rank of the world must call it for
-    every grid, in one order (new_group is collective over the world).
-    A group of one rank is None; a group of the whole world is WORLD."""
+                 timeout_s: float, cp: int = 1, cp_a2a: int = 1) -> dict:
+    """The process groups of the pp × dp × cp × tp grid of global ranks
+    [base, base + pp·dp·cp·tp): {axis: group} of this rank's groups ({}
+    when the rank is not in the grid); cp_a2a > 1 adds the inner
+    all-to-all groups ("cp_a2a") of 'a2a+p2p'. Every rank of the world
+    must call it for every grid, in one order (new_group is collective
+    over the world). A group of one rank is None; a group of the whole
+    world is WORLD."""
     timeout = datetime.timedelta(seconds=timeout_s)
     total = dist.get_world_size()
     mine = {}
@@ -225,41 +281,68 @@ def _grid_groups(rank: int, base: int, pp: int, dp: int, tp: int,
             if rank in ranks:
                 mine[axis] = g
 
-    def at(p, d, t):
-        return base + (p * dp + d) * tp + t
+    def at(p, d, c, t):
+        return base + ((p * dp + d) * cp + c) * tp + t
 
-    groups("tp", [[at(p, d, t) for t in range(tp)]
-                  for p in range(pp) for d in range(dp)])
-    groups("dp", [[at(p, d, t) for d in range(dp)]
-                  for p in range(pp) for t in range(tp)])
+    groups("tp", [[at(p, d, c, t) for t in range(tp)]
+                  for p in range(pp) for d in range(dp) for c in range(cp)])
+    groups("dp", [[at(p, d, c, t) for d in range(dp)]
+                  for p in range(pp) for c in range(cp) for t in range(tp)])
+    if cp > 1:
+        cps = [[at(p, d, c, t) for c in range(cp)]
+               for p in range(pp) for d in range(dp) for t in range(tp)]
+        groups("cp", cps)
+        if 1 < cp_a2a < cp:
+            groups("cp_a2a", [ranks[g:g + cp_a2a] for ranks in cps
+                              for g in range(0, cp, cp_a2a)])
     if pp > 1:
-        rings = [[at(p, d, t) for p in range(pp)]
-                 for d in range(dp) for t in range(tp)]
+        rings = [[at(p, d, c, t) for p in range(pp)]
+                 for d in range(dp) for c in range(cp) for t in range(tp)]
         groups("pp", rings)
         groups("embed", [[r[0], r[-1]] for r in rings])
-    groups("world", [list(range(base, base + pp * dp * tp))])
+    groups("world", [list(range(base, base + pp * dp * cp * tp))])
     return mine
+
+
+def cp_a2a_of(parallel: ParallelConfig, cp_a2a_size: Optional[int]
+              ) -> int:
+    """The inner all-to-all size a grid builds groups for: cp_a2a_size
+    (the 'a2a+p2p' runs' hierarchical_cp_a2a_size) when it splits cp, else
+    1."""
+    cp = parallel.context_parallel
+    if not cp_a2a_size or cp_a2a_size <= 1 or cp_a2a_size >= cp:
+        return 1
+    if cp % cp_a2a_size:
+        raise ValueError(f"hierarchical cp: a2a size {cp_a2a_size} does "
+                         f"not divide context_parallel={cp}")
+    return cp_a2a_size
 
 
 def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
                device=None, backend: str = "gloo",
                timeout_s: float = DEFAULT_TIMEOUT_S,
-               world_size: Optional[int] = None) -> MeshContext:
-    """Join the grid as `rank` of `world_size` ranks (default: tp · pp,
-    the serving grid at pp 1); dp = world_size / (tp · pp)
-    (``infer_data_parallel``). init_method: where the ranks meet,
+               world_size: Optional[int] = None,
+               cp_a2a_size: Optional[int] = None) -> MeshContext:
+    """Join the grid as `rank` of `world_size` ranks (default: tp · pp ·
+    cp, the serving grid at pp = cp = 1); dp = world_size / (tp · pp ·
+    cp) (``infer_data_parallel``). init_method: where the ranks meet,
     ``tcp://localhost:<port>``, ``env://`` (the launcher's MASTER_ADDR
     and MASTER_PORT) or ``file://<path>`` (the tests use a FileStore
     path). device: this rank's device (None: the card; raises without
-    one)."""
+    one). cp_a2a_size: the inner all-to-all size of cp_comm_type
+    'a2a+p2p' (``cp_a2a_of``)."""
     tp, pp = parallel.tensor_parallel, parallel.pipeline_parallel
-    world = tp * pp if world_size is None else world_size
+    cp = parallel.context_parallel
+    world = tp * pp * cp if world_size is None else world_size
     dp = parallel.infer_data_parallel(world)
+    a2a = cp_a2a_of(parallel, cp_a2a_size)
     dev = _join(world, rank, init_method, device, backend, timeout_s)
-    mine = _grid_groups(rank, 0, pp, dp, tp, timeout_s)
+    mine = _grid_groups(rank, 0, pp, dp, tp, timeout_s, cp, a2a)
     par = dataclasses.replace(parallel, data_parallel=dp)
     return MeshContext(group=mine["tp"] if tp > 1 else mine["world"],
                        parallel=par, rank=rank, device=dev, backend=backend,
                        timeout_s=timeout_s, dp_group=mine["dp"],
                        world_group=mine["world"], pp_group=mine.get("pp"),
-                       embed_group=mine.get("embed"))
+                       embed_group=mine.get("embed"),
+                       cp_group=mine.get("cp"),
+                       cp_a2a_group=mine.get("cp_a2a"), cp_a2a_size=a2a)

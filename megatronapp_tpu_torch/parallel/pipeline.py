@@ -45,6 +45,12 @@ F from its input with grad just before the F's backward, the last
 stage's last chunk together with the head and loss (``head_one``), so
 it holds one F's graph at a time. Without a TwinLink nothing changes.
 
+Under context parallelism every rank of a stage holds its cp share of
+each microbatch, so a hop carries [mb, S/cp, H]; the ring attention's
+collectives run inside F and in zero-bubble's B and W recomputes, and the
+cp ranks of a stage execute the same tables, so they meet in the same
+order.
+
 JAX's checks carry over: a known schedule, 'vpp' only at vpp > 1,
 M % pp == 0 for the interleaved 'dfc' program, and no per-microbatch
 aux inputs (packed sequences) under zero-bubble. Every hop is

@@ -30,6 +30,12 @@ replicated over pp; training/distributed_optimizer.py sums the two
 copies' grads). A stage's layers sit under ``layers.<global id>`` (a
 ParamTree keyed by the ids), so every leaf keeps its one-device path.
 
+Context parallelism (the rule ("seq", "cp")): the params are replicated
+over cp, and each cp rank takes its share of every sequence
+(``cp_share``): its contiguous S/cp block, of the zigzag-permuted
+sequence when the zigzag ring runs (ops/context_parallel.py
+``seq_indices``); the positions of its tokens are those indices.
+
 ``shard_tree(full, ctx)`` returns this rank's shards of a param tree
 (its stage's pieces, then their tp shards); ``gather_tree(local, ctx)``
 is its exact inverse (an all-gather over tp, then every stage's leaves
@@ -203,6 +209,20 @@ def _map_tree(tree: nn.Module, fn) -> nn.Module:
     return walk(tree, "")
 
 
+def cp_share(seq_len: int, ctx, zigzag: bool, device) -> torch.Tensor:
+    """The global positions of this cp rank's share of a sequence of
+    seq_len, in its local order (a long tensor on `device`): what it
+    takes of tokens, targets, masks and segment ids along the sequence,
+    and its tokens' positions (rope, the learned embedding)."""
+    from megatronapp_tpu_torch.ops.context_parallel import seq_indices
+    return torch.from_numpy(seq_indices(seq_len, ctx.cp, ctx.cp_rank,
+                                        zigzag)).to(device)
+
+
+MTP_MLA_UNDER_CP = ("MTP depths and MLA under context parallelism are not "
+                    "ported yet (ROADMAP.md Queue 1 item 4 (MTP and MLA "
+                    "under grids))")
+
 MTP_UNDER_PP = ("MTP depths under pipeline parallelism are not ported yet "
                 "(ROADMAP.md Queue 1 item 4, MTP under grids): the MTP "
                 "head needs stage 0's embedding on the last stage")
@@ -261,7 +281,7 @@ def gather_stages(named: Dict[str, torch.Tensor], ctx
     """Every stage's whole leaves on every rank (host tensors): each leaf
     is broadcast over the world from the lowest rank that offers it.
     `named`: this rank's whole leaves (gathered over tp and dp; a rank
-    of dp or tp index > 0 offers none). Collective over the world."""
+    of dp, cp or tp index > 0 offers none). Collective over the world."""
     import torch.distributed as dist
     mine = [(n, tuple(t.shape), str(t.dtype)) for n, t in named.items()]
     every: List[Any] = [None] * ctx.world
@@ -314,7 +334,7 @@ def gather_tree(local: nn.Module, ctx) -> nn.Module:
     if ctx.pp == 1:
         return local
     named = dict(local.named_parameters())
-    if ctx.dp_rank or ctx.tp_rank:
+    if ctx.dp_rank or ctx.cp_rank or ctx.tp_rank:
         named = {}
     device = next(local.parameters()).device
     return tree_from_named({n: t.to(device) for n, t in

@@ -1,5 +1,5 @@
-"""GPT pretraining entry point, on one device or on a pp × dp × tp rank
-grid (the JAX package's pretrain_gpt.py).
+"""GPT pretraining entry point, on one device or on a pp × dp × cp × tp
+rank grid (the JAX package's pretrain_gpt.py).
 
     python -m megatronapp_tpu_torch.pretrain_gpt --preset llama3-8b \
         --num-layers 4 --seq-length 4096 --micro-batch-size 1 \
@@ -46,6 +46,17 @@ A rank grid is launched with PyTorch's launcher, one process a rank:
 --pp-plan-from-trace lets the planner re-plan it from the traced
 ring-hop spans.)
 
+Context parallelism splits every sequence over --context-parallel-size
+ranks (ops/context_parallel.py); --cp-comm-type p2p (the ring, in zigzag
+order for causal attention), a2a (Ulysses), allgather or a2a+p2p (with
+--hierarchical-context-parallel-sizes A2A RING):
+
+    torchrun --nproc-per-node 4 -m megatronapp_tpu_torch.pretrain_gpt \
+        --preset llama3-8b --num-layers 2 --seq-length 8192 \
+        --micro-batch-size 1 --global-batch-size 1 \
+        --context-parallel-size 2 --tensor-model-parallel-size 2 \
+        --train-iters 2
+
 MegaFBD splits the launcher's world into a forward and a backward half,
 dp halved on each (parallel/fbd.py), so world = 2 · pp · (dp/2) · tp:
 
@@ -67,7 +78,7 @@ own CUDA stream (runtime/dpp_train.py), with the 'bfc' order:
 (--data-parallel-size sets its dp, default 1; at tp > 1 under torchrun
 --use-dpp logs that it runs the static 'bfc' order.) The rank count comes from the launcher's RANK,
 WORLD_SIZE, LOCAL_RANK and MASTER_ADDR / MASTER_PORT; dp = world / (tp ·
-pp); rank r computes on cuda:
+pp · cp); rank r computes on cuda:
 (LOCAL_RANK % device count), or on the CPU with --device cpu. Without the
 launcher's environment the world is one rank. The ranks join over gloo,
 so several ranks may share one card: that checks kernels, shards and
@@ -92,6 +103,7 @@ import torch
 
 from megatronapp_tpu_torch.config.parallel_config import (
     PP_SCHEDULES, UNPORTED_PARALLEL_FIELDS, ParallelConfig,
+    check_context_parallel,
 )
 from megatronapp_tpu_torch.config.training_config import (
     OptimizerConfig, TrainingConfig,
@@ -170,6 +182,19 @@ def build_parser() -> argparse.ArgumentParser:
     g = ap.add_argument_group("distributed")
     g.add_argument("--tensor-model-parallel-size", type=int, default=1)
     g.add_argument("--pipeline-model-parallel-size", type=int, default=1)
+    g.add_argument("--context-parallel-size", type=int, default=1)
+    g.add_argument("--hierarchical-context-parallel-sizes", nargs=2,
+                   type=int, default=None, metavar=("A2A", "RING"),
+                   help="inner a2a x outer ring sizes for "
+                        "cp-comm-type a2a+p2p (reference flag)")
+    g.add_argument("--no-cp-comm-overlap", action="store_false",
+                   dest="cp_comm_overlap",
+                   help="disable the latency-hiding ring-attention path "
+                        "(pre-issued KV hops + fused custom_vjp reverse "
+                        "ring, ops/context_parallel.py); falls back to "
+                        "the plain unrolled ring")
+    g.add_argument("--cp-comm-type", default="p2p",
+                   choices=["p2p", "a2a", "allgather", "a2a+p2p"])
     g.add_argument("--num-layers-per-virtual-pipeline-stage", type=int,
                    default=None)
     g.add_argument("--pp-schedule", default="1f1b",
@@ -189,7 +214,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "and rebuild the train step")
     g.add_argument("--data-parallel-size", type=int, default=None,
                    help="dp of --use-dpp's one-process stage grid (default "
-                        "1); under torchrun it must equal world / (tp x pp)")
+                        "1); under torchrun it must equal world / (tp x pp x cp)")
     g.add_argument("--forward-backward-disaggregating", action="store_true",
                    help="MegaFBD: the world splits into forward and "
                         "backward halves, dp halved on each "
@@ -298,7 +323,7 @@ _RUN_CONTROL_ARGS = frozenset({
 def save_resolved_args(args, save_dir: str, layout: Optional[dict] = None):
     """The resolved flag namespace as resolved_args.json beside the
     checkpoints (the JAX package's file and keys), with the grid it ran
-    on under "layout" (world, dp, tp, ZeRO-1)."""
+    on under "layout" (world, dp, tp, cp, ZeRO-1)."""
     os.makedirs(save_dir, exist_ok=True)
     payload = {k: v for k, v in vars(args).items()
                if isinstance(v, (int, float, str, bool, list, tuple,
@@ -346,10 +371,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  "megatronapp_tpu_torch yet (the trainer honours the flags "
                  "in --help; see ROADMAP.md)")
     for flag in ("tensor_model_parallel_size",
-                 "pipeline_model_parallel_size"):
+                 "pipeline_model_parallel_size", "context_parallel_size"):
         if getattr(args, flag) < 1:
             ap.error(f"--{flag.replace('_', '-')} must be >= 1, got "
                      f"{getattr(args, flag)}")
+    check_context_parallel(args.seq_length, args.context_parallel_size,
+                           args.cp_comm_type,
+                           args.hierarchical_context_parallel_sizes)
     low = [f for f, v in (("--exp-avg-dtype", args.exp_avg_dtype),
                           ("--exp-avg-sq-dtype", args.exp_avg_sq_dtype))
            if str(v).lower() not in ("fp32", "float32")]
@@ -427,6 +455,9 @@ def configs_from_args(args: argparse.Namespace):
             mtp_loss_scaling_factor=args.mtp_loss_scaling_factor)
     model = dataclasses.replace(
         model, remat_policy=args.recompute_granularity,
+        cp_comm_type=args.cp_comm_type,
+        hierarchical_cp_a2a_size=cp_a2a_size(args),
+        cp_comm_overlap=args.cp_comm_overlap,
         attention_impl=args.attention_impl,
         flash_min_seq=args.flash_min_seq,
         flash_head_fold=args.flash_head_fold, compute_dtype=compute)
@@ -458,6 +489,13 @@ def configs_from_args(args: argparse.Namespace):
     return model, training, optimizer
 
 
+def cp_a2a_size(args: argparse.Namespace) -> int:
+    """The inner all-to-all size of --cp-comm-type a2a+p2p: the first of
+    --hierarchical-context-parallel-sizes, else 2 (JAX's default)."""
+    sizes = args.hierarchical_context_parallel_sizes
+    return sizes[0] if sizes else 2
+
+
 def parallel_from_args(args: argparse.Namespace) -> ParallelConfig:
     """The grid's ParallelConfig, with JAX's parse-time rules
     (config/arguments.py:1135-1157): vpp = (layers / pp) /
@@ -475,6 +513,7 @@ def parallel_from_args(args: argparse.Namespace) -> ParallelConfig:
     return ParallelConfig(
         tensor_parallel=args.tensor_model_parallel_size,
         pipeline_parallel=pp, virtual_pipeline_parallel=vpp,
+        context_parallel=args.context_parallel_size,
         data_parallel=args.data_parallel_size,
         sequence_parallel=args.sequence_parallel,
         distributed_optimizer=args.use_distributed_optimizer,
@@ -513,31 +552,35 @@ def rank_device(device: Optional[str], local_rank: int):
 def build_grid(args: argparse.Namespace, rank: int, world_size: int,
                init_method: str, local_rank: Optional[int] = None):
     """This rank's MeshContext of the --tensor-model-parallel-size x
-    --pipeline-model-parallel-size grid over world_size ranks (with
-    --forward-backward-disaggregating, of its half of the world); None
-    for one rank at tp 1 and pp 1 (the one-device trainer) and for
-    --use-dpp at tp 1 (its runtime places the stages in this process)."""
+    --context-parallel-size x --pipeline-model-parallel-size grid over
+    world_size ranks (with --forward-backward-disaggregating, of its half
+    of the world); None for one rank at tp, cp and pp 1 (the one-device
+    trainer) and for --use-dpp at tp = cp = 1 (its runtime places the
+    stages in this process)."""
     from megatronapp_tpu_torch.training.train import DPP_ONE_PROCESS
     parallel = parallel_from_args(args)
     dpp = parallel.use_dpp and parallel.pipeline_parallel > 1 and \
-        parallel.tensor_parallel == 1
+        parallel.tensor_parallel == 1 and parallel.context_parallel == 1
     if dpp and world_size > 1:
         raise ValueError(DPP_ONE_PROCESS)
     if dpp:
         return None
     parallel.infer_data_parallel(world_size)
     if world_size == 1 and parallel.tensor_parallel == 1 and \
-            parallel.pipeline_parallel == 1:
+            parallel.pipeline_parallel == 1 and \
+            parallel.context_parallel == 1:
         return None
     dev = rank_device(args.device, rank if local_rank is None
                       else local_rank)
+    a2a = cp_a2a_size(args) if args.cp_comm_type == "a2a+p2p" else None
     if parallel.forward_backward_disaggregating:
         from megatronapp_tpu_torch.parallel.fbd import split_fbd_meshes
         return split_fbd_meshes(parallel, rank=rank, init_method=init_method,
-                                device=dev, world_size=world_size)
+                                device=dev, world_size=world_size,
+                                cp_a2a_size=a2a)
     from megatronapp_tpu_torch.parallel.mesh import build_mesh
     return build_mesh(parallel, rank=rank, init_method=init_method,
-                      device=dev, world_size=world_size)
+                      device=dev, world_size=world_size, cp_a2a_size=a2a)
 
 
 def train(args: argparse.Namespace, ctx=None):
@@ -552,6 +595,7 @@ def train(args: argparse.Namespace, ctx=None):
         layout = {"world": 1 if ctx is None else ctx.world,
                   "dp": 1 if ctx is None else ctx.dp,
                   "tp": 1 if ctx is None else ctx.tp,
+                  "cp": 1 if ctx is None else ctx.cp,
                   "zero1": bool(ctx is not None and ctx.dp > 1
                                 and args.use_distributed_optimizer)}
         if ctx is not None and ctx.pp > 1:

@@ -33,6 +33,10 @@ that package's ``io_callback`` markers and custom-VJP span mirrors:
   axes ("tp" or "dp"), bandwidth_gbps, process, device, iteration.
 - A rank of a grid (``configure(rank=)``) writes its own file under
   JAX's per-rank name; trace/aggregate.py merges the ranks.
+- Span ends placed apart (``phase_event``): the cp ring's
+  'cp-overlap-permute' (a hop, issued before a round's compute and
+  waited after it) and 'cp-overlap-compute' (the round) with JAX's args
+  op, rank (the ring index) and step (ops/context_parallel.py).
 - Host-timed records (``add_collective_records``, JAX's): pre-formed X
   events on pids of their own, placed in the open iteration by a
   host-clock anchor, ``now_in_iteration_us()`` (µs since
@@ -193,6 +197,15 @@ class Tracer:
             yield self
         finally:
             self._emit(name, "E", self._stamp(), attrs)
+
+    def phase_event(self, name: str, ph: str, **attrs):
+        """One end ("B" or "E") of a span whose ends the caller places
+        apart (JAX's phase_event): the cp ring's hop spans open before
+        the compute they ride under and close after it
+        (ops/context_parallel.py). Stamped in stream order; nothing
+        outside a traced iteration."""
+        if self._on(name):
+            self._emit(name, ph, self._stamp(), attrs)
 
     def instant(self, name: str, **attrs):
         if self._on(name):

@@ -15,6 +15,12 @@ does the same explicitly, on flat fp32 buffers (``FlatLayout``):
   replicated leaves that only see their heads' share over tp
   (``TP_PARTIAL_GRAD_LEAVES``), then sums over dp: a reduce-scatter under
   ZeRO-1, which leaves this rank its 1/dp chunk, an all-reduce without;
+- under cp the ranks of a cp group hold the same params, each with the
+  grads of its share of the sequence: the grads are summed over cp
+  (an all-reduce) before the dp reduction, and ZeRO-1 stays sharded over
+  dp alone (JAX distributed_optimizer.py:134); the norm's replicated
+  squares then count once per (cp, tp) group and its sharded ones once
+  per cp group;
 - under pp, ZeRO-1 runs within each stage's dp group (every stage has
   buffers of its own); a tied word embedding's two copies (stage 0's and
   the last stage's) have their grads summed over the embedding group
@@ -180,8 +186,8 @@ class DistributedOptimizer(Optimizer):
     # -- the step's reductions ---------------------------------------------
     def reduce_grads(self, inv: float) -> None:
         """Scale by 1/num_micro, sum the tp-partial leaves over tp and a
-        tied embedding's two copies over the embedding group, then sum
-        over dp (reduce-scatter under ZeRO-1)."""
+        tied embedding's two copies over the embedding group, sum over cp,
+        then over dp (reduce-scatter under ZeRO-1)."""
         lay, ctx = self.layout, self.ctx
         for n, a, b in lay.slots:
             # Autograd accumulates into the preset views; a grad it
@@ -197,6 +203,7 @@ class DistributedOptimizer(Optimizer):
         if self.tied_pp and "embedding.word" in lay.offsets:
             a, b = lay.offsets["embedding.word"]
             collectives.all_reduce(g[a:b], ctx, "embed")
+        collectives.all_reduce(g, ctx, "cp")
         if self.zero1:
             self._g = collectives.reduce_scatter(g, ctx, "dp")
         else:
@@ -257,9 +264,9 @@ class DistributedOptimizer(Optimizer):
         every rank calls it."""
         lay, ctx = self.layout, self.ctx
         # Who keeps the whole leaves: rank 0, or under pp each stage's
-        # rank of dp and tp index 0 (their stages then meet on rank 0).
-        keep = ctx.is_lead if ctx.pp == 1 else not (ctx.dp_rank
-                                                    or ctx.tp_rank)
+        # rank of dp, cp and tp index 0 (their stages then meet on rank 0).
+        keep = ctx.is_lead if ctx.pp == 1 else not (
+            ctx.dp_rank or ctx.cp_rank or ctx.tp_rank)
         out: Dict[str, object] = {"step": int(state.step)}
         tensors: Dict[str, torch.Tensor] = {}
         segs = segment_counts(lay.named)

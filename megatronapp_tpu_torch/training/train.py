@@ -1,4 +1,4 @@
-"""GPT pretraining on one device or on a pp × dp × tp rank grid (the JAX
+"""GPT pretraining on one device or on a pp × dp × cp × tp rank grid (the JAX
 package's training/train.py:pretrain_gpt and its loop).
 
 Params are made on the device from the seed (or given, e.g. carried
@@ -34,10 +34,11 @@ train.py:490-545): the one-device trainer above, whose step and
 evaluation run through runtime/dpp_train.py over the [pp][dp] stage grid
 of ``stage_devices`` (dp: parallel.data_parallel, default 1; each
 microbatch holds mb · dp rows), so checkpoints and resumes are the
-one-device ones. On a rank grid with use_dpp at pp > 1 and tp > 1 (or
-MTP) the trainer logs JAX's "falling back to static bfc" line and runs
-the pipeline executor under the configured order (the entry point sets
-'bfc'); at tp 1 on a grid it raises: the DPP runtime is one process.
+one-device ones. On a rank grid with use_dpp at pp > 1 and tp or cp > 1
+(or MTP) the trainer logs JAX's "falling back to static bfc" line and
+runs the pipeline executor under the configured order (the entry point
+sets 'bfc'); at tp = cp = 1 on a grid it raises: the DPP runtime is one
+process.
 
 MegaFBD (a ctx of parallel/fbd.py ``split_fbd_meshes``, every rank of
 the world calling with its half's ctx): ``_pretrain_gpt_fbd`` (JAX
@@ -46,14 +47,17 @@ train.py:1123-1290).
 On a rank grid (``ctx``, parallel/mesh.py; every rank calls this function
 with its own ctx): each rank builds the same global batch (the same seed
 or corpus; JAX's globalize_batch assumes the same) and takes its dp rows,
-contiguous blocks of each microbatch (JAX's ``P(None, (dp, ep))``); the
+contiguous blocks of each microbatch (JAX's ``P(None, (dp, ep))``), whose
+whole sequences the model cuts to the rank's cp share (models/gpt.py); the
 microbatch count is gbs / (mb · dp), rampup stages included; the params
 are the tp shards of the one-device init (models/gpt.py); the optimizer
 is training/distributed_optimizer.py's (ZeRO-1 unless
 ``distributed_optimizer`` is off). Checkpoints hold every leaf whole
 (gathered over dp and tp, written once by rank 0's thread) under the
-one-device leaf paths, so a run resumes on another grid; meta.json
-records the grid a step was written under.
+one-device leaf paths, so a run resumes on another grid (cp included:
+the params are replicated over it); meta.json records the grid a step was
+written under. A sequence length cp does not divide raises JAX's words
+(config/parallel_config.py ``check_context_parallel``).
 
 Pipelines (ctx.pp > 1, JAX train.py's pp wiring): each rank holds its
 stage's pieces (models/gpt.py init_gpt_params), the step runs
@@ -97,6 +101,9 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from megatronapp_tpu_torch.config.parallel_config import (
+    check_context_parallel,
+)
 from megatronapp_tpu_torch.config.training_config import (
     OptimizerConfig, TrainingConfig,
 )
@@ -204,7 +211,8 @@ class _CheckpointScribe:
         self.written_under = (None if dopt is None else {
             "dp": dopt.ctx.dp, "tp": dopt.ctx.tp, "zero1": dopt.zero1,
             **({"pp": dopt.ctx.pp, "vpp": dopt.ctx.vpp}
-               if dopt.ctx.pp > 1 else {})})
+               if dopt.ctx.pp > 1 else {}),
+            **({"cp": dopt.ctx.cp} if dopt.ctx.cp > 1 else {})})
 
     def full_state(self, state: TrainState):
         """The state with whole leaves (None on ranks other than 0)."""
@@ -331,7 +339,18 @@ class _PipelinePlanning:
         from megatronapp_tpu_torch.parallel.schedule import Planner
         self.ctx, self.log_fn = ctx, log_fn
         self.frozen = False
-        self.planner = Planner(ctx.pp, vpp=ctx.vpp, model_cfg=model_cfg)
+        # JAX train.py:562-582: a stage body that carries cp collectives
+        # keeps zero-bubble out of the planner's candidates.
+        zb_realizable = ctx.cp == 1
+        self.planner = Planner(ctx.pp, vpp=ctx.vpp, model_cfg=model_cfg,
+                               allow_zero_bubble=zb_realizable)
+        if not zb_realizable:
+            log_fn("pp-planner: zero-bubble candidate DISABLED on this "
+                   "mesh — the stage body carries collectives "
+                   "(tp-sharded rings / cp ring / moe ep), so the "
+                   "executor runs zero-bubble as masked dual-vjp "
+                   "compute that costs more than the bubble saves; "
+                   "planning stays among the remaining schedules")
         plan0 = self.planner.plan(num_micro)
         # Seeded with the running schedule, so re-plans measure against
         # it; under vpp > 1 the candidate is named 'vpp'.
@@ -407,6 +426,8 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     when batch_iter is None (resume-aware). parallel: without a ctx, a
     ParallelConfig with use_dpp at pp > 1 (MegaDPP in this process);
     with a ctx, ctx.parallel rules."""
+    if ctx is not None:
+        check_context_parallel(train_cfg.seq_length, ctx.cp)
     if ctx is not None and ctx.fbd_role is not None:
         return _pretrain_gpt_fbd(model_cfg, train_cfg, opt_cfg, ctx,
                                  params=params, batch_iter=batch_iter,
@@ -423,7 +444,7 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                 "is launched with torchrun (ctx)")
         dpp = parallel
     if ctx is not None and ctx.parallel.use_dpp and ctx.pp > 1:
-        if ctx.tp == 1 and not model_cfg.mtp_num_layers:
+        if ctx.tp == ctx.cp == 1 and not model_cfg.mtp_num_layers:
             raise ValueError(DPP_ONE_PROCESS)
         if ctx.is_lead:
             log_fn("dpp: layout has tp/cp/ep > 1 (or MTP) — host "
@@ -800,7 +821,8 @@ def _pretrain_gpt_fbd(model_cfg: TransformerConfig,
                "persistent-save-interval/--simulated-fault) are "
                "NOT wired into the forward_backward_disaggregating "
                "path yet — running without them")
-    shape = {"pp": ctx.pp, "dp": ctx.dp, "tp": ctx.tp}
+    shape = {"pp": ctx.pp, "dp": ctx.dp, "tp": ctx.tp,
+             **({"cp": ctx.cp} if ctx.cp > 1 else {})}
     log_fn(f"FBD: forward mesh {shape} | backward mesh {shape}")
     batch_calc = build_calculator(train_cfg.global_batch_size,
                                   train_cfg.micro_batch_size, ctx.dp,

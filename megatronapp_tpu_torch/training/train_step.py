@@ -28,11 +28,13 @@ the loss function takes the whole batch and runs the pipeline's forward
 and backward (its own 'forward', 'loss' and 'backward' spans): the loss
 is the last stage's share of the token mean over all microbatches, the
 other stages report zeros. The 'allreduce' span then does the grid's work:
-the gradient reduction (tp for the tp-partial leaves, then dp: a
+the gradient reduction (tp for the tp-partial leaves, then cp, then dp: a
 reduce-scatter under ZeRO-1, an all-reduce without), the model-wide norm
 and the metrics (each rank's norm partials and loss shares all-gathered
 over the world and summed in rank order, so every rank reads the same
-bits), and the host read. Loss and metrics are then means over dp.
+bits), and the host read. Loss and metrics are then means over dp: the
+loss shares of a cp group's ranks (each its share of the sequence) add
+up to their rows' loss.
 """
 
 from __future__ import annotations
@@ -165,13 +167,21 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
             mine = torch.cat([optimizer.norm_partials(), torch.stack(
                 [loss_sum * inv] + [aux_sum[k] * inv for k in names])])
             every = all_gather_cat(mine[None], ctx, "world", 0)
-            # Sharded leaves' squares count on every rank; the rest once
-            # per tp group; the dp ranks' loss shares once per tp group
-            # of the last stage (the other stages report zeros).
-            once = torch.tensor([r % ctx.tp == 0 for r in range(ctx.world)],
-                                dtype=every.dtype, device=every.device)
-            norm = (every[:, 0] + every[:, 1] * once).sum().sqrt()
-            sums = (every[:, 2:] * once[:, None]).sum(dim=0)
+            # A cp group's ranks hold the same (cp-summed) grads: sharded
+            # leaves' squares count once per cp group, the rest once per
+            # (cp, tp) group; the dp and cp ranks' loss shares once per tp
+            # group of the last stage (the other stages report zeros).
+            tp_lead = [r % ctx.tp == 0 for r in range(ctx.world)]
+            cp_lead = [r // ctx.tp % ctx.cp == 0 for r in range(ctx.world)]
+
+            def weights(flags):
+                return torch.tensor(flags, dtype=every.dtype,
+                                    device=every.device)
+
+            sharded = weights(cp_lead)
+            once = weights([a and b for a, b in zip(tp_lead, cp_lead)])
+            norm = (every[:, 0] * sharded + every[:, 1] * once).sum().sqrt()
+            sums = (every[:, 2:] * weights(tp_lead)[:, None]).sum(dim=0)
             host = torch.cat([sums[:1], norm[None], sums[1:]]).tolist()
         loss_h, norm_h = host[0], host[1]
         finite = math.isfinite(loss_h) and math.isfinite(norm_h)
@@ -193,8 +203,8 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
 def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False):
     """Forward-only loss (JAX train_step.py:297): the mean of the
     microbatch losses under torch.no_grad(), on the device (a 0-d fp32
-    tensor; the caller reads it back). ctx: the rank grid; the dp ranks'
-    shares are summed over dp (one all-reduce). pipeline: loss_fn(params,
+    tensor; the caller reads it back). ctx: the rank grid; the dp and cp
+    ranks' shares are summed over dp and cp. pipeline: loss_fn(params,
     batch, grad=False) runs the pipeline's forward over the whole batch;
     the last stage's dp shares (from tp rank 0) are summed over the
     world, so every rank reads the loss.
@@ -223,7 +233,8 @@ def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False):
             from megatronapp_tpu_torch.parallel.collectives import (
                 all_reduce,
             )
-            total = all_reduce(total, ctx, "dp")
+            for axis in ("dp", "cp"):
+                total = all_reduce(total, ctx, axis)
         return total
 
     return eval_step

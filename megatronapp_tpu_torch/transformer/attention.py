@@ -26,8 +26,12 @@ grid (``ctx``) with Megatron's tensor parallelism: the params are this tp
 rank's shards (parallel/sharding.py), QKV is column-parallel over the
 rank's q heads and their kv groups, attention runs on those local heads
 (the flash kernels see the local head counts), and the out-projection is
-row-parallel, its bias added once after the reduce. The context-parallel
-training branch raises until its slice.
+row-parallel, its bias added once after the reduce. Under context
+parallelism (ctx.cp > 1, JAX attention.py:447-466) each rank holds its
+share of the sequence and attention runs ops/context_parallel.py's mode
+(cfg.cp_comm_type; the zigzag ring when the caller laid the sequence out
+in zigzag order) ahead of the flash / dense choice, on the rank's tp
+heads.
 
 MegaScope's sites sit where the JAX layer puts them: the 'weight'
 disturbance on the three projection kernels, the qkv_q/qkv_k/qkv_v
@@ -140,6 +144,27 @@ def _self_attention(q, k, v, cfg: TransformerConfig, attention_mask,
         softmax_in_fp32=cfg.attention_softmax_in_fp32, layer_id=layer_id)
 
 
+def _context_attention(q, k, v, cfg: TransformerConfig, attention_mask,
+                       segment_ids, ctx, zigzag: bool):
+    """The context-parallel branch (JAX attention.py:447-466): this cp
+    rank's shares through ops/context_parallel.py's mode."""
+    from megatronapp_tpu_torch.ops.context_parallel import (
+        cp_attention, zigzag_active,
+    )
+    if attention_mask is not None:
+        raise NotImplementedError(
+            "explicit attention_mask is not supported under context "
+            "parallelism yet (only causal/bidirectional); run with "
+            "context_parallel=1 or drop the mask")
+    comm = ("p2p_zigzag" if zigzag and zigzag_active(cfg, ctx)
+            else cfg.cp_comm_type)
+    return cp_attention(
+        q, k, v, ctx, comm,
+        causal=cfg.attn_mask_type == AttnMaskType.causal,
+        segment_ids=segment_ids, a2a_size=cfg.hierarchical_cp_a2a_size,
+        overlap=cfg.cp_comm_overlap)
+
+
 def _dense_cache_attention(p, q, k, v, cfg: TransformerConfig,
                            attention_mask, kv_cache, cache_index,
                            cache_positions, layer_id=None):
@@ -205,7 +230,8 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                       page_table=None, chunk_counts=None,
                       write_index: Optional[WriteIndex] = None,
                       segment_ids: Optional[torch.Tensor] = None, ctx=None,
-                      kv_scales=None, lora=None, layer_id=None):
+                      kv_scales=None, lora=None, layer_id=None,
+                      zigzag: bool = False):
     """x: [B, S, H] → (out [B, S, H], new_cache).
 
     Training (no kv_cache): new_cache is None. attention_mask [B,1,S,S]
@@ -238,7 +264,9 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     (replicated params), the rank writes and attends its own heads, and
     the heads are gathered before the replicated out-projection (JAX
     attention.py:66-77, :363-367, :403-407). layer_id: the layer's index,
-    MegaScope's attribution of its captures and disturbances."""
+    MegaScope's attribution of its captures and disturbances. zigzag:
+    the training caller laid this cp rank's share out in zigzag order
+    (models/gpt.py), so 'p2p' runs the zigzag ring."""
     serving = kv_cache is not None
     tp_train = not serving and ctx is not None and ctx.tp > 1
     paged = serving and page_table is not None
@@ -292,8 +320,12 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         if lora is not None:
             raise ValueError("lora deltas ride the paged serving branches "
                              "only")
-        attn = _self_attention(q, k, v, cfg, attention_mask, segment_ids,
-                               layer_id)
+        if ctx is not None and ctx.cp > 1:
+            attn = _context_attention(q, k, v, cfg, attention_mask,
+                                      segment_ids, ctx, zigzag)
+        else:
+            attn = _self_attention(q, k, v, cfg, attention_mask,
+                                   segment_ids, layer_id)
         return _out_projection(p, attn, cfg, layer_id=layer_id,
                                ctx=ctx if tp_train else None), None
 

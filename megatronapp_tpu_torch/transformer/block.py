@@ -72,7 +72,8 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   cache_positions=None, page_table=None,
                   chunk_counts=None, write_index=None,
                   fused_decode: bool = False, segment_ids=None, ctx=None,
-                  kv_scales=None, lora=None, layer_id=None):
+                  kv_scales=None, lora=None, layer_id=None,
+                  zigzag: bool = False):
     """One transformer layer. x: [B,S,H] → ((out, new_cache), aux_losses);
     the paged, mask and segment arguments are attention_forward's
     (no kv_cache: the training branch, new_cache None). kv_scales: the
@@ -102,6 +103,8 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     layer_id: the layer's index, MegaScope's attribution: the sublayers'
     captures and disturbances, then the 'system' disturbance and the
     'between_layers' capture on the layer's output (JAX block.py:196-200).
+    zigzag: the training sequence share is in zigzag order (attention's
+    flag, JAX block.py:72).
     The fused body has none of these sites: callers refuse it while any
     is active (megakernel_ineligible_reason)."""
     if fused_decode:
@@ -161,7 +164,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             cache_positions=cache_positions, page_table=page_table,
             chunk_counts=chunk_counts, write_index=write_index,
             segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales,
-            lora=lora, layer_id=layer_id)
+            lora=lora, layer_id=layer_id, zigzag=zigzag)
     x = residual + attn_out.to(residual.dtype)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
@@ -193,17 +196,19 @@ def _remat_wrap(fn, policy: str):
 
 def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
                   rope_cos=None, rope_sin=None, attention_mask=None,
-                  segment_ids=None, ctx=None, layer_ids=None):
+                  segment_ids=None, ctx=None, layer_ids=None,
+                  zigzag: bool = False):
     """Run the layers for training (ctx: the rank grid, see
     layer_forward). layer_ids: each layer's global index (a pipeline
     stage's chunk, JAX's layer_offset), so MegaScope's sites see the ids
-    one device gives them; default 0, 1, ... Returns (x, moe_aux_sum);
+    one device gives them; default 0, 1, ... zigzag: x is this cp rank's
+    share in zigzag order (JAX block.py:167). Returns (x, moe_aux_sum);
     dense layers add no aux loss, so the sum is a zero scalar."""
 
     def run_layer(layer_p, h, lid):
         (h2, _), _ = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
                                    attention_mask, segment_ids=segment_ids,
-                                   ctx=ctx, layer_id=lid)
+                                   ctx=ctx, layer_id=lid, zigzag=zigzag)
         return h2
 
     run_layer = _remat_wrap(run_layer, cfg.remat_policy)

@@ -85,7 +85,8 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.runtime.dpp",
             "megatronapp_tpu_torch.runtime.dpp_train",
             "megatronapp_tpu_torch.training.distributed_optimizer",
-            "megatronapp_tpu_torch.ops.cross_entropy"} <= set(mods)
+            "megatronapp_tpu_torch.ops.cross_entropy",
+            "megatronapp_tpu_torch.ops.context_parallel"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -878,6 +879,30 @@ def test_pipeline_grid_defaults_to_the_card(monkeypatch):
                            "--num-layers-per-virtual-pipeline-stage", "1",
                            "--num-layers", "4", "--hidden-size", "64",
                            "--num-attention-heads", "4"])
+
+
+def test_context_parallel_grid_defaults_to_the_card(monkeypatch):
+    """A pp × dp × cp × tp grid (hierarchical inner groups included) with
+    no device, and pretrain_gpt.py's cp ranks under a launcher's
+    environment, resolve the card before joining a group: without one
+    each raises."""
+    from megatronapp_tpu_torch import pretrain_gpt
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mesh(ParallelConfig(context_parallel=4, tensor_parallel=2),
+                   rank=0, world_size=8, cp_a2a_size=2,
+                   init_method="file:///nonexistent/never")
+    for k, v in {"RANK": "1", "WORLD_SIZE": "4", "LOCAL_RANK": "1",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_gpt.main(["--context-parallel-size", "2",
+                           "--tensor-model-parallel-size", "2",
+                           "--num-layers", "1", "--hidden-size", "64",
+                           "--num-attention-heads", "4",
+                           "--seq-length", "64"])
 
 
 def test_serve_tp_parses_and_refuses_lora(capsys):

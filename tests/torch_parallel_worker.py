@@ -1,12 +1,15 @@
-"""One rank of the port's pp × dp × tp training grid, for
+"""One rank of the port's pp × dp × cp × tp training grid, for
 tests/test_torch_parallel_*.py, tests/test_torch_pipeline.py,
-tests/test_torch_pp_schedule.py and tests/test_torch_fbd.py (spawned; it
-imports torch and the port only, so a rank starts without JAX). A case's
-"par" holds its pipeline fields of ParallelConfig (pipeline_parallel,
-virtual_pipeline_parallel, pp_schedule, pipeline_order_policy,
-pp_plan_from_trace, forward_backward_disaggregating: a MegaFBD world,
-parallel/fbd.py split_fbd_meshes). A case with "expect_error" reports
-the exception it raised as {"raised": repr}.
+tests/test_torch_pp_schedule.py, tests/test_torch_fbd.py,
+tests/test_torch_context_parallel.py and tests/test_torch_cp_train.py
+(spawned; it imports torch and the port only, so a rank starts without
+JAX). A case's "par" holds its fields of ParallelConfig beside tp
+(pipeline_parallel, virtual_pipeline_parallel, pp_schedule,
+pipeline_order_policy, pp_plan_from_trace, context_parallel,
+forward_backward_disaggregating: a MegaFBD world, parallel/fbd.py
+split_fbd_meshes), and "cp_a2a" the inner all-to-all size of an
+'a2a+p2p' grid. A case with "expect_error" reports the exception it
+raised as {"raised": repr}.
 
 ``spawn_ranks`` starts ``world`` processes once; ``run_rank`` then runs
 each case whose grid has this rank: it joins the case's gloo group
@@ -32,10 +35,12 @@ def _grid(case, rank, store):
         return split_fbd_meshes(par, rank=rank, world_size=case["world"],
                                 init_method=f"file://{store}."
                                 f"{case['name']}", device="cpu",
-                                timeout_s=60)
+                                timeout_s=60,
+                                cp_a2a_size=case.get("cp_a2a"))
     return build_mesh(par, rank=rank, world_size=case["world"],
                       init_method=f"file://{store}.{case['name']}",
-                      device="cpu", timeout_s=60)
+                      device="cpu", timeout_s=60,
+                      cp_a2a_size=case.get("cp_a2a"))
 
 
 def _np(t):
@@ -271,7 +276,11 @@ def _split(case, ctx):
     return {"role": ctx.fbd_role, "twin": ctx.twin_rank, "dp": ctx.dp,
             "tp": ctx.tp, "pp": ctx.pp, "grid_rank": ctx.grid_rank,
             "world_ranks": ctx.world_ranks, "tp_ranks": ctx.tp_ranks,
-            "dp_ranks": ctx.dp_ranks}
+            "dp_ranks": ctx.dp_ranks, "cp": ctx.cp, "cp_rank": ctx.cp_rank,
+            "tp_rank": ctx.tp_rank, "cp_ranks": ctx.cp_ranks,
+            "cp_next": ctx.cp_next_rank, "cp_prev": ctx.cp_prev_rank,
+            "cp_a2a_ranks": ctx.cp_a2a_ranks,
+            "cp_outer_ranks": ctx.cp_outer_ranks}
 
 
 def _fbd(case, ctx):
@@ -294,9 +303,66 @@ def _fbd(case, ctx):
     return out
 
 
+def _cp_attn(case, ctx):
+    """ops/context_parallel.py context_attention on the case's whole
+    inputs for each of its runs {key: (mode, causal, overlap, a2a_size,
+    zigzag, segments)}: the whole output and the whole input grads of
+    sum(out · dout) (a 'p2p_zigzag' run permutes the inputs into zigzag
+    order and the output back), with the collectives it counted."""
+    from megatronapp_tpu_torch.ops.context_parallel import (
+        context_attention, zigzag_indices, zigzag_inverse_indices,
+    )
+    from megatronapp_tpu_torch.parallel import collectives
+    out = {}
+    for key, (mode, causal, overlap, a2a, zz, segs) in case["runs"].items():
+        q, k, v, do = (torch.from_numpy(case[n][key].copy())
+                       for n in ("q", "k", "v", "do"))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        seg = None if not segs else torch.from_numpy(case["seg"][key])
+        s = q.shape[1]
+        args = (q, k, v)
+        if zz:
+            idx = torch.from_numpy(zigzag_indices(s, ctx.cp)).long()
+            args = tuple(x[:, idx] for x in args)
+        collectives.reset_counts()
+        o = context_attention(*args, ctx, mode, causal=causal,
+                              segment_ids=seg, a2a_size=a2a,
+                              overlap_ring=overlap)
+        if zz:
+            o = o[:, torch.from_numpy(zigzag_inverse_indices(
+                s, ctx.cp)).long()]
+        (o * do).sum().backward()
+        out[key] = {"out": _np(o), "dq": _np(q.grad), "dk": _np(k.grad),
+                    "dv": _np(v.grad),
+                    "traffic": {n: dict(t) for n, t in
+                                collectives.traffic.items()}}
+    return out
+
+
+def _refuse(case, ctx):
+    """A refusal under cp (expect_error): 'mla' and 'mtp' through
+    gpt_loss, 'mask' through the layer with an explicit mask."""
+    from megatronapp_tpu_torch.models.gpt import gpt_loss, init_gpt_params
+    cfg = case["cfg"]
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                             ctx)
+    tokens = torch.zeros((1, 16), dtype=torch.long)
+    if case["what"] == "mask":
+        from megatronapp_tpu_torch.transformer.attention import (
+            attention_forward,
+        )
+        x = torch.zeros((1, 8, cfg.hidden_size))
+        mask = torch.ones((1, 1, 8, 8), dtype=torch.bool)
+        attention_forward(params["layers"][0]["attention"], x, cfg,
+                          attention_mask=mask, ctx=ctx)
+    gpt_loss(params, tokens, tokens, None, cfg, ctx=ctx)
+    return {"raised": None}
+
+
 KINDS = {"grads": _grads, "train": _train, "roundtrip": _roundtrip,
          "trace": _trace, "ce": _ce, "pp_grads": _pp_grads,
-         "split": _split, "fbd": _fbd}
+         "split": _split, "fbd": _fbd, "cp_attn": _cp_attn,
+         "refuse": _refuse}
 
 
 def run_rank(rank, store, cases, out_q):
