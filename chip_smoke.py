@@ -204,7 +204,7 @@ Phases, each printing one JSON line:
             from plain at near-ties, drafts proposed and accepted, decode
             interval beside plain's.
    serve_mla: llama3_8b(multi_latent_attention=True) at full width and
-            MLA_LAYERS (16 of 32) deep (seeded bf16 weights): the 8
+            MLA_LAYERS (8 of 32) deep (seeded bf16 weights): the 8
             requests through the unfused engine on a bf16 latent pool, the
             fused engine on
             bf16 and int8 pools and the unfused engine on an fp8 pool:
@@ -217,7 +217,7 @@ Phases, each printing one JSON line:
             the parent freed its serving tensors. Each seeds the weights of
             serve / serve_mla (checked by an all-reduced checksum against
             the parent's) and serves the 8 requests, rank 0 through the
-            driver and rank 1 in lockstep: the MLA llama3-8b at 16 layers on
+            driver and rank 1 in lockstep: the MLA llama3-8b at 8 layers on
             bf16, int8 and fp8 latent pools (rows 8 x2 and 9 x1 a layer a
             step and chunk, row 7 never; two all-reduces a layer), and the
             dense llama3-8b at --layers on a bf16 pool (row 1 on 4 of 8 kv
@@ -289,6 +289,32 @@ Phases, each printing one JSON line:
             loss and grad norm within 1e-3 of one rank's, every rank's
             metrics equal, no flash launch on a cp rank, the ring's hops
             and the cp all-reduces by count, peak memory a rank.
+   serve_moe: mixtral-8x7b at full width (8 experts top-2, expert ffn
+            14336, vocab 32000), 8 of 32 layers deep (seed-0 bf16
+            weights), serve.py --preset mixtral-8x7b --engine dynamic
+            --paged-kv-cache behind the driver: the serve phase's 8
+            greedy requests of 32 new tokens, then the same weights
+            quantized at startup (--quantized-weights: int8 expert
+            stacks). Lengths, vocabulary, one paged launch a layer a step
+            and chunk, a prefix hit, reruns repeating the streams, every
+            expert's token copies, decode interval and peak memory; the
+            fused step refused with JAX's reason (the engine keeps the
+            unfused step); layer 0 against its fp32 per-token oracle at
+            full width, and a tiny mixtral-shaped model's logits on the
+            card against the CPU's (the MoE layer is plain PyTorch: JAX's
+            MoE path runs no Pallas kernel).
+   train_moe: pretrain_gpt.py --preset mixtral-8x7b at full width, 2
+            layers, S 4096, global batch 1, 3 steps, dropless, in a
+            spawned process: finite loss, aux loss and grad norm, the
+            first loss near ln V + std^2 H / 2, the flash launches
+            exactly, step ms and peak memory.
+   train_ep: expert-parallel pretraining: pretrain_gpt on 4 spawned ranks
+            (ep 2 x tp 2, the chunked all-to-all) sharing cuda:0 over
+            gloo, mixtral-8x7b at full width, 1 layer, S 4096, global
+            batch 2, 2 steps, after the same run on one rank: loss and
+            grad norm within 1e-3 of one rank's, every rank's metrics
+            equal, the flash launches, the ep hops by count and bytes,
+            the traced 'moe-a2a-*' spans, peak memory a rank.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
@@ -469,8 +495,8 @@ MLA_PROLOGUE_SOURCE = "megatronapp_tpu_torch/csrc/fused_mla.cu"
 MLA_PROLOGUE_REPLACES = f"{_KG}:1495 (_fused_mla_qkv, def :1393)"
 # serve_mla's, serve_tp's and profile's MLA depth: 16 of 32 since the
 # script met its time limit on a slow host with the context-parallel
-# phases (widths are never cut).
-MLA_LAYERS = 16
+# phases, 8 since the MoE phases (widths are never cut).
+MLA_LAYERS = 8
 MLA_SCALE = 1.0 / (128 + 64) ** 0.5
 # The latent kernels vs their plain version on the same inputs: both take
 # the same q (scaled in fp32 and, on bf16 pools, rounded to bf16) and the
@@ -5494,17 +5520,20 @@ def _train_tp_one_rank(rank, init_method, plan, out_q):
     """train_tp's (and train_pp's) yardstick: the same run on one rank, in
     a spawned process on cuda:0, so that the parent keeps none of its
     memory. plan: {"layers": depth, "steps": n, "seq": S, "gbs": global
-    batch} (default TP_LAYERS, TP_STEPS, TP_SEQ, TP_GBS)."""
+    batch, "model": preset, "micro": micro-batch} (default TP_LAYERS,
+    TP_STEPS, TP_SEQ, TP_GBS, llama3-8b, 1)."""
     try:
         from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
         from megatronapp_tpu_torch.training.train import pretrain_gpt
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        plan = plan or {}
         cfg, train_cfg, opt_cfg = _train_tp_configs(
-            layers=(plan or {}).get("layers", TP_LAYERS),
-            steps=(plan or {}).get("steps", TP_STEPS),
-            seq=(plan or {}).get("seq", TP_SEQ),
-            gbs=(plan or {}).get("gbs", TP_GBS))
+            layers=plan.get("layers", TP_LAYERS),
+            steps=plan.get("steps", TP_STEPS),
+            seq=plan.get("seq", TP_SEQ), gbs=plan.get("gbs", TP_GBS),
+            model=plan.get("model", "llama3-8b"),
+            micro=plan.get("micro", 1))
         fa.launches.update(dict.fromkeys(fa.launches, 0))
         t0 = time.perf_counter()
         res = pretrain_gpt(cfg, train_cfg, opt_cfg, device="cuda",
@@ -5513,6 +5542,7 @@ def _train_tp_one_rank(rank, init_method, plan, out_q):
         rep = {"launches": dict(fa.launches),
                "losses": [m["loss"] for m in res.log],
                "grad_norms": [m["grad_norm"] for m in res.log],
+               "moe_aux_losses": [m.get("moe_aux_loss") for m in res.log],
                "step_ms": [m["step_time_ms"] for m in res.log],
                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                "wall_s": time.perf_counter() - t0}
@@ -5560,20 +5590,21 @@ def _spawn_train_tp(target, world, init_method, plan):
 
 
 def _train_tp_configs(trace_dir=None, layers=TP_LAYERS, steps=TP_STEPS,
-                      seq=TP_SEQ, gbs=TP_GBS):
-    """train_tp's, train_pp's, train_fbd's, train_dpp's and train_cp's
-    run: llama3-8b at full width, `layers` deep, S `seq` (4096), global
-    batch `gbs` (4) of 1, `steps` steps (iteration 0 traced into trace_dir
-    when given)."""
+                      seq=TP_SEQ, gbs=TP_GBS, model="llama3-8b", micro=1):
+    """train_tp's, train_pp's, train_fbd's, train_dpp's, train_cp's and
+    train_ep's run: `model` (llama3-8b, or mixtral-8x7b) at full width,
+    `layers` deep, S `seq` (4096), global batch `gbs` (4) of micro-batches
+    of `micro`, `steps` steps (iteration 0 traced into trace_dir when
+    given)."""
     from megatronapp_tpu_torch.config.training_config import (
         OptimizerConfig, TrainingConfig,
     )
-    from megatronapp_tpu_torch.models.presets import llama3_8b
+    from megatronapp_tpu_torch.models.presets import PRESETS
     trace = {} if trace_dir is None else dict(
         trace=True, trace_dir=trace_dir, trace_interval=steps + 1,
         continuous_trace_iterations=1)
-    return (llama3_8b(num_layers=layers),
-            TrainingConfig(micro_batch_size=1, global_batch_size=gbs,
+    return (PRESETS[model](num_layers=layers),
+            TrainingConfig(micro_batch_size=micro, global_batch_size=gbs,
                            seq_length=seq, train_iters=steps,
                            log_interval=1, seed=1234, **trace),
             OptimizerConfig())
@@ -6762,6 +6793,517 @@ def phase_train_cp(state):
     for e in rel:
         check(e["loss"] < TP_LOSS_TOL and e["grad_norm"] < TP_NORM_TOL,
               f"train_cp: 4 ranks against one: relative errors {e}")
+
+
+# ---- MoE and expert parallelism (slice 15) ---------------------------------
+# mixtral-8x7b at full width: a layer holds 1.45e9 params (2.9 GB in bf16),
+# so serving runs MOE_SERVE_LAYERS of 32 and training 2 (train_moe) or 1
+# (train_ep) layers.
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_SEQ = 2, 3, 4096
+MOE_REF_TOL = 0.05          # the tiny MoE model: a token's logit error
+MOE_REF_TOKENS = 0.9        # share of tokens within it (router near-ties)
+MOE_LAYER_TOL = 0.03        # bf16 layer vs its fp32 per-token oracle
+MOE_FUSED_REASON = "MoE layers: expert dispatch is not fused yet"
+EP_LAYERS, EP_STEPS, EP_GBS, EP_WORLD = 1, 2, 2, 4
+EP_PAR = dict(expert_parallel=2, tensor_parallel=2)
+
+
+def _moe_oracle(p, x, cfg):
+    """The MoE layer in fp32, a token copy at a time grouped by expert
+    (the routing of the port's fp32 router on the same x): the reference
+    of the layer's dispatch and combine."""
+    from megatronapp_tpu_torch.ops.activations import apply_activation
+    from megatronapp_tpu_torch.transformer import moe
+    xf = x.reshape(-1, x.shape[-1])
+    idx, probs, _ = moe._router(p, xf, cfg)
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_moe_experts):
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        if not tok.numel():
+            continue
+        y = xf[tok].float() @ p["fc1_kernel"][e].float()
+        gate, val = y.chunk(2, dim=-1)
+        y = apply_activation(cfg.activation, val, gate) \
+            @ p["fc2_kernel"][e].float()
+        out.index_add_(0, tok, y * probs[tok, slot][:, None])
+    return out.reshape(x.shape)
+
+
+def _moe_tiny_reference(dev):
+    """A tiny mixtral-shaped model (head_dim 128, GQA group 2, 8 experts
+    top-2): the card's bf16 chunked-prefill logits against the CPU's fp32
+    plain path on the same weights. Returns (per-token relative logit
+    errors, argmax agreement)."""
+    import copy
+
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import mixtral_8x7b
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    before = dict(pa.launches)
+    small = dict(num_layers=2, hidden_size=512, num_attention_heads=4,
+                 num_query_groups=2, ffn_hidden_size=1024,
+                 moe_ffn_hidden_size=1024, vocab_size=512,
+                 init_method_std=0.05)
+    cfg_ref = mixtral_8x7b(compute_dtype=torch.float32, **small)
+    cfg_dev = mixtral_8x7b(params_dtype=torch.bfloat16, **small)
+    p_ref = init_gpt_params(cfg_ref, torch.Generator().manual_seed(7),
+                            "cpu")
+    p_dev = copy.deepcopy(p_ref).to(dev)
+    for name, t in p_dev.named_parameters():
+        if not name.endswith("router_kernel"):
+            t.data = t.data.to(torch.bfloat16)
+    tokens = torch.randint(0, 512, (96,),
+                           generator=torch.Generator().manual_seed(8))
+    ref = _chunked_prefill(p_ref, cfg_ref, tokens.tolist(), "cpu", False)
+    got = _chunked_prefill(p_dev, cfg_dev, tokens.tolist(), dev, False)
+    pa.launches.update(before)
+    rel = ((got - ref).abs().amax(-1) / ref.abs().amax(-1)).tolist()
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    return rel, agree, bool(torch.isfinite(got).all())
+
+
+def _moe_serve_run(driver, engine, prompts, max_new, greedy, counts):
+    """The 8 requests through `driver` (the experts' token counts and the
+    paged launches zeroed just before, read just after), then a rerun:
+    (streams, report)."""
+    import numpy as np
+
+    from megatronapp_tpu_torch.ops.cuda import paged_attention as pa
+    steps0, chunks0 = engine.decode_steps, engine.prefill_chunks
+    hits0 = engine.pool.stats["prefix_hit_tokens"]
+    for k in pa.launches:
+        pa.launches[k] = 0
+    counts.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streams, times, t0, t1 = _serve_once(driver, prompts, max_new, greedy)
+    launches = dict(pa.launches)
+    experts = counts.tolist()
+    steps = engine.decode_steps - steps0
+    chunks = engine.prefill_chunks - chunks0
+    rerun, _, _, _ = _serve_once(driver, prompts, max_new, greedy)
+    iv = [(t[-1] - t[1]) * 1e3 / (len(t) - 2) for t in times]
+    return streams, {
+        "launches": launches, "decode_steps": steps, "prefill_chunks": chunks,
+        "expert_token_copies": experts,
+        "prefix_hit_tokens": int(engine.pool.stats["prefix_hit_tokens"]
+                                 - hits0),
+        "ttft_ms": [round((t[1] - t[0]) * 1e3, 3) for t in times],
+        "decode_ms_per_step_by_request": [round(x, 3) for x in iv],
+        "decode_ms_median": float(np.median(iv)),
+        "tokens_per_s": max_new * len(prompts) / (t1 - t0),
+        "wall_s": t1 - t0,
+        "rerun_identical": all(np.array_equal(a, b)
+                               for a, b in zip(streams, rerun)),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_serve_moe(state):
+    """mixtral-8x7b at full width (h 4096, 32 q / 8 kv heads, 8 experts
+    top-2, expert ffn 14336, vocab 32000), MOE_SERVE_LAYERS of 32 layers
+    deep, seed-0 bf16 weights, behind the continuous-batching driver
+    (serve.py --preset mixtral-8x7b --engine dynamic --paged-kv-cache):
+    serve's traffic (batch 8, max_seq_len 2048, block 16, chunk 32, 8
+    greedy requests of 32 new tokens), then the same weights quantized at
+    startup (--quantized-weights: int8 expert stacks). Checks: lengths,
+    vocabulary, one paged launch a layer a step and chunk, a prefix hit,
+    reruns repeating the streams, the fused step's refusal (JAX's reason;
+    the engine keeps the unfused step), layer 0 against its fp32
+    per-token oracle at full width, and a tiny mixtral-shaped model's bf16
+    logits on the card against the CPU's fp32."""
+    import gc
+
+    import numpy as np
+
+    from megatronapp_tpu_torch.inference.engine import SamplingParams
+    from megatronapp_tpu_torch.inference.quantization import (
+        quantize_for_serving, resident_nbytes,
+    )
+    from megatronapp_tpu_torch.models.gpt import init_gpt_params
+    from megatronapp_tpu_torch.models.presets import mixtral_8x7b
+    from megatronapp_tpu_torch.ops.fused_decode import (
+        megakernel_ineligible_reason,
+    )
+    from megatronapp_tpu_torch.transformer import moe
+
+    for key in ("model", "qmodel", "mla_model", "lora_cache",
+                "lora_registry", "train_model"):
+        state.pop(key, None)
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    dev = torch.device("cuda", 0)
+    layers = MOE_SERVE_LAYERS
+    cfg = mixtral_8x7b(num_layers=layers, params_dtype=torch.bfloat16)
+    rel, agree, finite = _moe_tiny_reference(dev)
+    t0 = time.perf_counter()
+    params = init_gpt_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = resident_nbytes(params)
+
+    # Layer 0 at full width against its fp32 per-token oracle.
+    p0 = params["layers"][0]["moe"]
+    x = torch.randn(1, 64, cfg.hidden_size,
+                    generator=torch.Generator(dev).manual_seed(3),
+                    device=dev).to(torch.bfloat16)
+    out, _ = moe.moe_forward(p0, x, cfg)
+    again, _ = moe.moe_forward(p0, x, cfg)
+    ref = _moe_oracle(p0, x, cfg)
+    layer_err = float((out.float() - ref).abs().max()
+                      / ref.pow(2).mean().sqrt())
+    layer_same = bool(torch.equal(out, again))
+    del out, again, ref, x
+
+    # The experts' token copies, counted where the router runs.
+    counts = torch.zeros(cfg.num_moe_experts, dtype=torch.int64, device=dev)
+    router = moe._router
+
+    def counting_router(p, x_flat, c, stats_mean=None):
+        idx, probs, aux = router(p, x_flat, c, stats_mean)
+        counts.add_(torch.bincount(idx.reshape(-1),
+                                   minlength=c.num_moe_experts))
+        return idx, probs, aux
+
+    greedy = SamplingParams(greedy=True)
+    max_new = 32
+    prompts, warm = _serve_prompts(cfg)
+    reports = {}
+    streams = {}
+    moe._router = counting_router
+    try:
+        fused_reason = megakernel_ineligible_reason(cfg, batch=8,
+                                                    params=params)
+        refused = _engine(params, cfg, dev, fused=True)
+        fused_kept_unfused = refused.megakernel is False
+        del refused
+        for kind in ("bf16", "int8"):
+            t1 = time.perf_counter()
+            if kind == "int8":
+                params, report = quantize_for_serving(params)
+                torch.cuda.synchronize()
+                quant_s = time.perf_counter() - t1
+            engine = _engine(params, cfg, dev)
+            driver = _driver(engine)
+            rid, done = driver.submit(warm, 4, greedy)
+            check(done.wait(timeout=600), "serve_moe: warm-up did not finish")
+            driver.result_tokens(rid)
+            streams[kind], reports[kind] = _moe_serve_run(
+                driver, engine, prompts, max_new, greedy, counts)
+            reports[kind]["param_bytes"] = resident_nbytes(params)
+            reports[kind]["pool_bytes"] = engine.pool.bytes_total
+            if kind == "int8":
+                reports[kind]["ptq_s"] = quant_s
+                reports[kind]["ptq_kernels"] = len(report)
+                fc1 = params["layers"][0]["moe"]["fc1_kernel"]
+                reports[kind]["expert_stack_resident_int8"] = (
+                    isinstance(fc1, torch.nn.Module)
+                    and fc1["qint8"].dtype == torch.int8)
+            driver.close()
+            _DRIVERS.remove(driver)
+            del engine, driver
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        moe._router = router
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    agree_q = float(np.mean([np.mean(a[len(p):] == b[len(p):])
+                             for p, a, b in zip(prompts, streams["bf16"],
+                                                streams["int8"])]))
+    good = sum(r < MOE_REF_TOL for r in rel) / len(rel)
+    emit({"phase": "serve_moe", "model": "mixtral-8x7b", "layers": layers,
+          "full_width": True, "params_dtype": "bf16", "init_s": init_s,
+          "param_bytes_bf16": param_bytes, "parent_bytes_before":
+          parent_bytes, "requests": len(prompts),
+          "prompt_lens": [len(p) for p in prompts],
+          "max_new_tokens": max_new, "runs": reports,
+          "int8_vs_bf16_token_agreement": agree_q,
+          "fused_reason": fused_reason,
+          "fused_request_kept_unfused": fused_kept_unfused,
+          "layer0_vs_fp32_oracle": {"max_err_over_rms": layer_err,
+                                    "rerun_bitwise": layer_same,
+                                    "tol": MOE_LAYER_TOL},
+          "tiny_reference": {"token_rel_err_max": max(rel),
+                             "tokens_within_tol": good,
+                             "argmax_agreement": agree, "tol": MOE_REF_TOL}})
+    check(finite, "serve_moe: non-finite logits in the tiny reference")
+    check(good >= MOE_REF_TOKENS and agree >= 0.9,
+          f"serve_moe: tiny reference {good} of tokens within "
+          f"{MOE_REF_TOL}, argmax agreement {agree}")
+    check(layer_err < MOE_LAYER_TOL and layer_same,
+          f"serve_moe: layer 0 against its fp32 oracle {layer_err} "
+          f"(bitwise rerun {layer_same})")
+    check(fused_reason == MOE_FUSED_REASON and fused_kept_unfused,
+          f"serve_moe: the fused step's refusal {fused_reason!r}")
+    for kind, rep in reports.items():
+        for p, st in zip(prompts, streams[kind]):
+            check(st is not None and len(st) == len(p) + max_new
+                  and np.array_equal(st[:len(p)], p),
+                  f"serve_moe {kind}: a stream's length or prompt")
+            new = st[len(p):]
+            check(bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+                  f"serve_moe {kind}: out-of-vocab token")
+        la = rep["launches"]
+        check(la["decode"] == rep["decode_steps"] * layers
+              and la["ragged"] == rep["prefill_chunks"] * layers
+              and la["decode"] > 0 and la["ragged"] > 0,
+              f"serve_moe {kind}: paged launches {la} for "
+              f"{rep['decode_steps']} steps and {rep['prefill_chunks']} "
+              "chunks")
+        check(rep["prefix_hit_tokens"] > 0,
+              f"serve_moe {kind}: no prefix-cache hit")
+        check(rep["rerun_identical"], f"serve_moe {kind}: the rerun gave "
+              "other streams")
+        check(sum(rep["expert_token_copies"]) > 0
+              and all(c > 0 for c in rep["expert_token_copies"]),
+              f"serve_moe {kind}: expert token copies "
+              f"{rep['expert_token_copies']}")
+    check(reports["int8"]["expert_stack_resident_int8"],
+          "serve_moe: the expert stacks are not resident int8")
+    state["serve_moe_launches"] = {k: r["launches"]
+                                   for k, r in reports.items()}
+
+
+def _train_moe_proc(rank, init_method, plan, out_q):
+    """train_moe's run (a spawned process on cuda:0): pretrain_gpt.py's
+    main path on plan["flags"]."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, lines, launches, model, training = _entry_run(
+            plan["flags"], "cuda")
+        rep = {"launches": launches, "log": lines,
+               "losses": [m["loss"] for m in res.log],
+               "lm_losses": [m["lm_loss"] for m in res.log],
+               "moe_aux_losses": [m["moe_aux_loss"] for m in res.log],
+               "grad_norms": [m["grad_norm"] for m in res.log],
+               "step_ms": [m["step_time_ms"] for m in res.log],
+               "params": sum(p.numel() for p in
+                             res.state.params.parameters()),
+               "num_experts": model.num_moe_experts,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "wall_s": time.perf_counter() - t0}
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def phase_train_moe(state):
+    """MoE pretraining through the entry point (pretrain_gpt.py --preset
+    mixtral-8x7b) at full width, MOE_TRAIN_LAYERS deep, S 4096, global
+    batch 1, MOE_TRAIN_STEPS steps, dropless, fp32 params, grads and Adam,
+    bf16 compute, in a spawned process: finite loss, aux loss and grad
+    norm, the first loss near ln V + std² H / 2, the flash launches
+    exactly, step ms and peak memory."""
+    import gc
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    flags = ["--preset", "mixtral-8x7b", "--num-layers",
+             str(MOE_TRAIN_LAYERS), "--seq-length", str(MOE_SEQ),
+             "--micro-batch-size", "1", "--global-batch-size", "1",
+             "--train-iters", str(MOE_TRAIN_STEPS), "--log-interval", "1"]
+    rep = _spawn_train_tp(_train_moe_proc, 1, None, {"flags": flags})[0]
+    check("error" not in rep, f"train_moe: the run failed: "
+          f"{rep.get('error')}")
+    from megatronapp_tpu_torch.models.presets import mixtral_8x7b
+    cfg = mixtral_8x7b()
+    expected0 = math.log(cfg.vocab_size) + (
+        cfg.init_method_std ** 2 * cfg.hidden_size / 2)
+    want = MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS
+    emit({"phase": "train_moe", "model": "mixtral-8x7b",
+          "layers": MOE_TRAIN_LAYERS, "full_width": True,
+          "seq_length": MOE_SEQ, "global_batch_size": 1,
+          "steps": MOE_TRAIN_STEPS, "dispatch": "dropless",
+          "flags": flags, "expected_first_loss": expected0,
+          "expected_flash": want, **rep})
+    vals = rep["losses"] + rep["moe_aux_losses"] + rep["grad_norms"]
+    check(all(math.isfinite(x) for x in vals),
+          f"train_moe: non-finite metrics {vals}")
+    check(all(a > 0 for a in rep["moe_aux_losses"]),
+          f"train_moe: aux losses {rep['moe_aux_losses']}")
+    check(abs(rep["lm_losses"][0] - expected0) < 0.5,
+          f"train_moe: first lm loss {rep['lm_losses'][0]} not within 0.5 "
+          f"of {expected0}")
+    check(rep["launches"] == dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"),
+                                           want),
+          f"train_moe: flash launches {rep['launches']}, expected {want} "
+          "of each (layers x steps)")
+    state["train_moe_launches"] = rep["launches"]
+
+
+def _train_ep_rank(rank, init_method, plan, out_q):
+    """One rank of train_ep (a spawned process on cuda:0)."""
+    try:
+        rep = _train_ep_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _train_ep_rank_run(rank, init_method, plan):
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ctx = build_mesh(ParallelConfig(**EP_PAR), rank=rank,
+                     init_method=init_method, device=dev,
+                     world_size=EP_WORLD, timeout_s=CP_TIMEOUT_S)
+    cfg, train_cfg, opt_cfg = _train_tp_configs(
+        trace_dir=plan["trace_dir"], layers=EP_LAYERS, steps=EP_STEPS,
+        seq=MOE_SEQ, gbs=EP_GBS, model="mixtral-8x7b")
+    out = {"dp": ctx.dp, "ep": ctx.ep, "tp": ctx.tp, "ep_rank": ctx.ep_rank,
+           "tp_rank": ctx.tp_rank}
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    # The main path: counts zeroed just before, read just after.
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    res = pretrain_gpt(cfg, train_cfg, opt_cfg, ctx=ctx,
+                       log_fn=lines.append)
+    torch.cuda.synchronize()
+    out.update(
+        launches=dict(fa.launches),
+        traffic={k: dict(v) for k, v in collectives.traffic.items()},
+        losses=[m["loss"] for m in res.log],
+        grad_norms=[m["grad_norm"] for m in res.log],
+        moe_aux_losses=[m["moe_aux_loss"] for m in res.log],
+        step_ms=[m["step_time_ms"] for m in res.log],
+        wall_s=time.perf_counter() - t0,
+        local_params=sum(p.numel() for p in res.state.params.parameters()),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), log=lines)
+    del res
+    ctx.close()
+    return out
+
+
+def phase_train_ep(state):
+    """Expert-parallel pretraining (pretrain_gpt on an ep 2 x tp 2 grid,
+    the chunked all-to-all) of mixtral-8x7b at full width, EP_LAYERS deep,
+    S 4096, global batch EP_GBS (one row a batch rank), EP_STEPS steps,
+    seeded mock data: first the same run on one rank (its micro-batch the
+    grid's global one, 2 rows) in a spawned process of its own, then 4
+    spawned ranks sharing cuda:0 over gloo. Per-step loss and grad norm
+    within 1e-3 of one rank's, every rank's metrics equal, the flash
+    launches, the ep hops by count and bytes, no bulk all-to-all, the
+    traced iteration's 'moe-a2a-*' spans, peak memory a rank and the step
+    wall (not parallel speed)."""
+    import gc
+    import glob
+    import shutil
+    import tempfile
+
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = {"layers": EP_LAYERS, "steps": EP_STEPS, "seq": MOE_SEQ,
+            "gbs": EP_GBS, "micro": EP_GBS, "model": "mixtral-8x7b"}
+    one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None, plan)[0]
+    check("error" not in one_rank, f"train_ep: the one-rank run failed: "
+          f"{one_rank.get('error')}")
+    tmp = tempfile.mkdtemp(prefix="train_ep_")
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    reps = _spawn_train_tp(_train_ep_rank, EP_WORLD,
+                           f"file://{os.path.join(tmp, 'store')}",
+                           {"trace_dir": trace_dir})
+    spawn_wall = time.perf_counter() - t0
+    spans = {}
+    files = sorted(glob.glob(os.path.join(trace_dir, "benchmark-data-*")))
+    for path in files:
+        with open(path) as f:
+            for r in json.load(f):
+                if r["name"].startswith("moe-a2a-") or \
+                        r["name"] == "collective-permute":
+                    key = f"{r['name']}/{r['ph']}"
+                    spans[key] = spans.get(key, 0) + 1
+    shutil.rmtree(tmp, ignore_errors=True)
+    for rank, rep in reps.items():
+        check("error" not in rep, f"train_ep: rank {rank} failed: "
+              f"{rep.get('error')}")
+    r0 = reps[0]
+    rel = [{"loss": abs(a - b) / abs(b), "grad_norm": abs(c - d) / abs(d)}
+           for a, b, c, d in zip(r0["losses"], one_rank["losses"],
+                                 r0["grad_norms"], one_rank["grad_norms"])]
+    from megatronapp_tpu_torch.models.presets import mixtral_8x7b
+    cfg = mixtral_8x7b()
+    micro = EP_GBS // (r0["dp"] * r0["ep"])
+    work = EP_LAYERS * micro * EP_STEPS
+    # A MoE layer a micro-batch at ep 2: one hop out and one back in the
+    # forward, their two inverse hops in the backward; a hop carries one
+    # rank's [e/ep, cap, h] bf16 chunk, cap = the rank's tokens (dropless).
+    hops = 4 * work
+    chunk = (cfg.num_moe_experts // r0["ep"]) * MOE_SEQ * cfg.hidden_size * 2
+    emit({"phase": "train_ep", "model": "mixtral-8x7b",
+          "layers": EP_LAYERS, "full_width": True, "seq_length": MOE_SEQ,
+          "global_batch_size": EP_GBS, "steps": EP_STEPS,
+          "grid": {"world": EP_WORLD, "dp": r0["dp"], "ep": r0["ep"],
+                   "tp": r0["tp"], "dispatch": "chunked all-to-all",
+                   "backend": "gloo", "device": "cuda:0"},
+          "note": "4 ranks on one card over gloo: not parallel speed",
+          "one_rank": one_rank, "losses": r0["losses"],
+          "grad_norms": r0["grad_norms"],
+          "moe_aux_losses": r0["moe_aux_losses"], "rel_err": rel,
+          "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_NORM_TOL},
+          "expected": {"flash": work, "send/ep": hops,
+                       "send_bytes/ep": hops * chunk},
+          "trace_files": len(files), "trace_spans": spans,
+          "ranks": {r: {k: rep[k] for k in (
+              "ep_rank", "tp_rank", "launches", "traffic", "local_params",
+              "peak_mem_bytes", "step_ms", "wall_s")}
+              for r, rep in sorted(reps.items())},
+          "spawn_wall_s": spawn_wall, "log_rank0": r0["log"]})
+    check(one_rank["launches"] == dict.fromkeys(
+        ("fwd", "bwd_dq", "bwd_dkv"), work),
+        f"train_ep: the one-rank run launched {one_rank['launches']}; "
+        f"expected {work} of each flash kernel")
+    for r, rep in reps.items():
+        check(rep["losses"] == r0["losses"]
+              and rep["grad_norms"] == r0["grad_norms"],
+              f"train_ep: rank {r}'s metrics differ from rank 0's")
+        check(rep["launches"] == dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"),
+                                               work),
+              f"train_ep: rank {r} launched {rep['launches']}; expected "
+              f"{work} of each flash kernel")
+        tr = rep["traffic"]
+        check(tr.get("send/ep") == {"calls": hops, "bytes": hops * chunk}
+              and tr.get("recv/ep") == {"calls": hops,
+                                        "bytes": hops * chunk},
+              f"train_ep: rank {r}'s ep hops {tr.get('send/ep')} / "
+              f"{tr.get('recv/ep')}, expected {hops} of {chunk} bytes")
+        check("all_to_all/ep" not in tr,
+              f"train_ep: rank {r} ran the bulk all-to-all")
+    check(len(files) == EP_WORLD and spans.get("moe-a2a-permute/B", 0) > 0
+          and spans.get("moe-a2a-compute/B", 0) > 0
+          and spans.get("moe-a2a-permute/B") == spans.get(
+              "moe-a2a-permute/E"),
+          f"train_ep: traced spans {spans} in {len(files)} files")
+    check(all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]
+              + r0["moe_aux_losses"]),
+          f"train_ep: non-finite metrics {r0['losses']} {r0['grad_norms']}")
+    for e in rel:
+        check(e["loss"] < TP_LOSS_TOL and e["grad_norm"] < TP_NORM_TOL,
+              f"train_ep: 4 ranks against one: relative errors {e}")
+    state["train_ep_launches"] = r0["launches"]
 
 
 def _related_set_faults(events, coll, related):
@@ -8246,6 +8788,9 @@ def main(argv=None) -> int:
         ("train_dpp", lambda: phase_train_dpp(state)),
         ("cp_attention", lambda: phase_cp_attention(state)),
         ("train_cp", lambda: phase_train_cp(state)),
+        ("serve_moe", lambda: phase_serve_moe(state)),
+        ("train_moe", lambda: phase_train_moe(state)),
+        ("train_ep", lambda: phase_train_ep(state)),
     ]
     wanted = None if args.phases is None else set(args.phases.split(","))
     seconds = {}

@@ -7,7 +7,9 @@ pipeline parallelism (training: 1F1B, interleaved VPP, zero-bubble, the
 'dfc' / 'bfc' chunk orders and the trace-driven planner), context
 parallelism (training: ops/context_parallel.py's five modes), MegaFBD
 (``forward_backward_disaggregating``: parallel/fbd.py) and MegaDPP
-(``use_dpp``: runtime/dpp.py). The port runs one process a rank, so
+(``use_dpp``: runtime/dpp.py) and expert parallelism (training:
+transformer/moe.py's all-to-all dispatch on a dp × ep × tp grid, pp 1,
+cp 1, without FBD or DPP). The port runs one process a rank, so
 ``infer_data_parallel`` divides a process count where JAX divides a
 device count. The other axes raise when they are set away from their
 defaults, each naming the ROADMAP.md item that ports it.
@@ -27,10 +29,20 @@ from typing import Optional
 
 # Fields of axes the port lacks → (their flag, the ROADMAP.md item).
 UNPORTED_PARALLEL_FIELDS = {
-    "expert_parallel": ("--expert-model-parallel-size",
-                        "Queue 1 item 4 (MoE and EP)"),
     "fsdp": ("--use-custom-fsdp", "Queue 1 item 4 (FSDP)"),
 }
+
+# What MoE and expert parallelism do not compose with yet, and the
+# ROADMAP.md item that ports it.
+MOE_UNPORTED_ITEM = ("Queue 1 item 4 (MoE under pp, cp, FBD, DPP, MTP and "
+                     "serve-tp)")
+
+
+def moe_unported(what: str) -> str:
+    """The refusal of `what` (MoE or expert parallelism under a layout or
+    a feature the port does not compose it with yet)."""
+    return (f"{what} is not ported to megatronapp_tpu_torch yet "
+            f"(ROADMAP.md {MOE_UNPORTED_ITEM})")
 
 # The pipeline schedule programs (parallel/schedule.py SCHEDULES).
 PP_SCHEDULES = ("1f1b", "vpp", "zero-bubble")
@@ -123,6 +135,17 @@ class ParallelConfig:
                 "--pp-schedule/--pp-plan-from-trace do not compose with "
                 "--forward-backward-disaggregating (the FBD executor runs "
                 "its own schedule); drop one")
+        if self.expert_parallel > 1:
+            under = [name for name, on in (
+                ("pipeline_parallel > 1", self.pipeline_parallel > 1),
+                ("context_parallel > 1", self.context_parallel > 1),
+                ("forward_backward_disaggregating",
+                 self.forward_backward_disaggregating),
+                ("use_dpp", self.use_dpp)) if on]
+            if under:
+                raise NotImplementedError(moe_unported(
+                    f"expert_parallel={self.expert_parallel} with "
+                    f"{', '.join(under)}"))
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for name, (flag, item) in UNPORTED_PARALLEL_FIELDS.items():
             if getattr(self, name) != defaults[name]:

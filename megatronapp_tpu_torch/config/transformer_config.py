@@ -89,8 +89,10 @@ class TransformerConfig:
     attention_softmax_in_fp32: bool = True
     apply_query_key_layer_scaling: bool = False
 
-    # MoE / MTP: later slices (the serving slice raises on them). MLA
-    # (multi_latent_attention) serves on the paged engine.
+    # MoE (transformer/moe.py): the experts, the top-k router and its
+    # losses, the capacity factor (None: dropless), the MoE layer pattern
+    # (layer i is MoE iff i % moe_layer_freq == 0) and the shared expert.
+    # MTP heads (transformer/mtp.py); MLA (multi_latent_attention).
     num_moe_experts: Optional[int] = None
     moe_router_topk: int = 2
     moe_ffn_hidden_size: Optional[int] = None
@@ -168,6 +170,18 @@ class TransformerConfig:
         if self.num_moe_experts is not None \
                 and self.moe_ffn_hidden_size is None:
             self.moe_ffn_hidden_size = self.ffn_hidden_size
+        # JAX's MoE checks, with its words (transformer/block.py:256-258,
+        # transformer/moe.py:429-433).
+        if self.is_moe and self.moe_layer_freq > 1 \
+                and self.num_layers % self.moe_layer_freq != 0:
+            raise ValueError(f"num_layers={self.num_layers} not divisible "
+                             f"by moe_layer_freq={self.moe_layer_freq}")
+        if self.moe_capacity_factor is not None \
+                and self.moe_capacity_factor <= 0:
+            raise ValueError(
+                f"moe_capacity_factor must be > 0 (got "
+                f"{self.moe_capacity_factor}); omit it (None) for dropless "
+                "dispatch")
         from megatronapp_tpu_torch.ops.context_parallel import (
             CP_COMM_TYPES,
         )
@@ -180,6 +194,12 @@ class TransformerConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_moe_experts is not None
+
+    def is_moe_layer(self, layer_id: int) -> bool:
+        """Whether layer `layer_id` is a MoE layer: every layer of a MoE
+        config at moe_layer_freq 1, else layer i iff i % moe_layer_freq
+        == 0 (JAX transformer/block.py:235-271)."""
+        return self.is_moe and layer_id % self.moe_layer_freq == 0
 
     @property
     def head_dim(self) -> int:

@@ -84,6 +84,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from megatronapp_tpu_torch.config.parallel_config import moe_unported
 from megatronapp_tpu_torch.config.transformer_config import TransformerConfig
 from megatronapp_tpu_torch.inference.engine import (
     SamplingParams, _warp_logits, mask_padded_vocab,
@@ -433,6 +434,9 @@ class DynamicInferenceEngine:
                 f"not ported yet: {', '.join(asked)} — the port serves the "
                 "paged engine only (see ROADMAP.md)")
         validate_kv_cache_dtype(kv_cache_dtype, paged=paged)
+        if ctx is not None and cfg.is_moe:
+            raise NotImplementedError(moe_unported(
+                "MoE under tensor-parallel serving (--serve-tp)"))
         if ctx is not None and adapter_cache is not None:
             raise NotImplementedError(TP_UNPORTED)
         if ctx is not None and speculate:

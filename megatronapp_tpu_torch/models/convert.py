@@ -4,7 +4,12 @@
 caller does ``jax.tree.map(np.asarray, params)``; the port itself never
 imports JAX) and returns the port's ``ParamTree``. The stacked ``block``
 leaves [L, ...] are unstacked into ``layers.i``; every other leaf keeps
-its name and its [in, out] layout, so nothing is transposed. The MTP
+its name and its [in, out] layout, so nothing is transposed. A MoE
+layer's ``moe`` leaves (transformer/moe.py) come across the same way,
+from JAX's uniform stack ([L, e, ...] expert stacks) or from its
+``moe_layer_freq`` > 1 groups ({"moe": [G, ...], "dense": [G, freq − 1,
+...]}: layer g·freq is group g's MoE layer, layer g·freq + 1 + j its
+dense layer j); the router stays fp32, as JAX keeps it. The MTP
 depth modules (``mtp``: a list of {hnorm_scale, enorm_scale, proj,
 layer}, each layer unstacked) become ``mtp.d``. A leaf the converter does
 not know raises.
@@ -46,6 +51,8 @@ _ATTENTION = {"q_kernel", "kv_kernel", "out_kernel", "q_bias", "kv_bias",
 _MLA = {"q_proj", "q_down", "q_ln_scale", "q_up", "kv_down", "kv_ln_scale",
         "kv_up", "out_kernel"}
 _MLP = {"fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias"}
+_MOE = {"router_kernel", "fc1_kernel", "fc2_kernel", "shared_fc1",
+        "shared_fc2"}
 
 
 def _tensor(a, cfg: TransformerConfig, device) -> torch.Tensor:
@@ -65,9 +72,10 @@ def _leaves(sub: Mapping, allowed: set, where: str) -> Dict[str, object]:
     return dict(sub)
 
 
-def _layer_leaf(v, i: int, cfg: TransformerConfig, device):
-    """Layer i of a stacked leaf: a tensor in params_dtype, or a resident
-    leaf whose int8 and fp32 slices keep their dtypes."""
+def _layer_leaf(v, i, cfg: TransformerConfig, device, name: str = ""):
+    """Layer i (an index, or a tuple of them into a grouped stack) of a
+    stacked leaf: a tensor in params_dtype (the router in fp32), or a
+    resident leaf whose int8 and fp32 slices keep their dtypes."""
     if isinstance(v, Mapping):
         return ParamTree({"qint8": torch.tensor(
                               np.asarray(v["qint8"])[i], dtype=torch.int8,
@@ -75,15 +83,19 @@ def _layer_leaf(v, i: int, cfg: TransformerConfig, device):
                           "qscale": torch.tensor(
                               np.asarray(v["qscale"])[i],
                               dtype=torch.float32, device=device)})
+    if name == "router_kernel":
+        return torch.tensor(np.asarray(np.asarray(v)[i], np.float32),
+                            device=device)
     return _tensor(np.asarray(v)[i], cfg, device)
 
 
 def params_from_jax(tree: Mapping, cfg: TransformerConfig,
                     device="cpu", ctx=None) -> ParamTree:
     """The port's ParamTree of the JAX tree (the one-device layout: its
-    block stacked [L, ...]); ctx (a training grid): this rank's stage's
-    pieces and their tp shards (parallel/sharding.py shard_tree)."""
-    if ctx is not None and (ctx.tp > 1 or ctx.pp > 1):
+    block stacked [L, ...], or grouped under moe_layer_freq > 1); ctx (a
+    training grid): this rank's stage's pieces, their tp shards and its ep
+    rank's experts (parallel/sharding.py shard_tree)."""
+    if ctx is not None and (ctx.tp > 1 or ctx.pp > 1 or ctx.ep > 1):
         from megatronapp_tpu_torch.parallel.sharding import shard_tree
         return shard_tree(params_from_jax(tree, cfg, device), ctx)
     for name, val in tree.items():
@@ -96,34 +108,49 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
            for k, v in _leaves(tree["embedding"], _EMBEDDING,
                                "embedding.").items()}
     block = tree["block"]
-    subs = {"attention": _MLA if cfg.multi_latent_attention else _ATTENTION,
-            "mlp": _MLP}
-    for name, val in block.items():
-        if name not in _LAYER and name not in subs:
-            raise KeyError(f"params_from_jax: unknown leaf block.{name}")
-        if (name in subs) != isinstance(val, Mapping):
-            raise KeyError(f"params_from_jax: unknown leaf block.{name}")
-    for name, allowed in subs.items():
-        _leaves(block[name], allowed, f"block.{name}.")
-    num = np.asarray(block["ln1_scale"]).shape[0]
+    attn = _MLA if cfg.multi_latent_attention else _ATTENTION
+    grouped = cfg.is_moe and cfg.moe_layer_freq > 1
+    if grouped:
+        if set(block) != {"moe", "dense"}:
+            raise KeyError("params_from_jax: a moe_layer_freq > 1 block "
+                           f"holds 'moe' and 'dense', got {sorted(block)}")
+        _check_block(block["moe"], {"attention": attn, "moe": _MOE},
+                     "moe.")
+        _check_block(block["dense"], {"attention": attn, "mlp": _MLP},
+                     "dense.")
+        num = np.asarray(block["moe"]["ln1_scale"]).shape[0] \
+            * cfg.moe_layer_freq
+    else:
+        _check_block(block, {"attention": attn,
+                             "moe" if cfg.is_moe else "mlp":
+                             _MOE if cfg.is_moe else _MLP}, "")
+        num = np.asarray(block["ln1_scale"]).shape[0]
     if num != cfg.num_layers:
         raise ValueError(f"params_from_jax: block has {num} layers, cfg "
                          f"{cfg.num_layers}")
 
     def layer(i: int) -> ParamTree:
+        sub, at = block, i
+        if grouped:
+            g, j = divmod(i, cfg.moe_layer_freq)
+            sub, at = ((block["moe"], g) if j == 0
+                       else (block["dense"], (g, j - 1)))
         children = {}
-        for n in subs:
-            leaves = {k: _layer_leaf(v, i, cfg, device)
-                      for k, v in block[n].items()}
+        for n in ("attention", "mlp", "moe"):
+            if n not in sub:
+                continue
+            leaves = {k: _layer_leaf(v, at, cfg, device, k)
+                      for k, v in sub[n].items()}
             children[n] = ParamTree(
                 {k: v for k, v in leaves.items()
                  if not isinstance(v, nn.Module)},
                 **{k: v for k, v in leaves.items()
                    if isinstance(v, nn.Module)})
-        return ParamTree({k: _tensor(np.asarray(v)[i], cfg, device)
-                          for k, v in block.items() if k in _LAYER},
+        return ParamTree({k: _tensor(np.asarray(v)[at], cfg, device)
+                          for k, v in sub.items() if k in _LAYER},
                          **children)
 
+    subs = {"attention": attn, "mlp": _MLP}
     children = {"embedding": ParamTree(emb),
                 "layers": nn.ModuleList(layer(i) for i in range(num))}
     if tree.get("mtp"):
@@ -134,6 +161,23 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
 
 
 _MTP = {"hnorm_scale", "enorm_scale", "proj", "layer"}
+
+
+def _check_block(block: Mapping, subs: Dict[str, set], where: str) -> None:
+    """Raise on a leaf of a stacked layer tree that the converter does
+    not know (subs: its sub-trees and their leaves)."""
+    for name, val in block.items():
+        if name not in _LAYER and name not in subs:
+            raise KeyError(f"params_from_jax: unknown leaf block.{where}"
+                           f"{name}")
+        if (name in subs) != isinstance(val, Mapping):
+            raise KeyError(f"params_from_jax: unknown leaf block.{where}"
+                           f"{name}")
+    for name, allowed in subs.items():
+        if name not in block:
+            raise KeyError(f"params_from_jax: block.{where}{name} is "
+                           "missing")
+        _leaves(block[name], allowed, f"block.{where}{name}.")
 
 
 def _mtp_depth(depth: Mapping, subs, cfg: TransformerConfig, device,

@@ -16,7 +16,13 @@ zigzag order when ``zigzag_active`` allows it (JAX gpt.py:181-280,
 :318-360): tokens, targets, loss mask and segment ids alike, with the
 rope tables and learned positions at the share's global positions; the
 logits are the share's, and the cross entropy's token mean runs over
-dp × cp. MLA and MTP under cp raise."""
+dp × cp. MLA and MTP under cp raise.
+
+A MoE config's layers hold ``moe`` leaves (transformer/moe.py); the aux
+loss the layers return joins the loss, and under a grid it is each
+rank's share, as the cross entropy's token mean is. MoE with MTP depths,
+and MoE under pp or cp, raise (config/parallel_config.py
+``moe_unported``)."""
 
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from megatronapp_tpu_torch.config.transformer_config import (
 )
 from typing import Optional
 
+from megatronapp_tpu_torch.config.parallel_config import moe_unported
 from megatronapp_tpu_torch.ops import rotary
 from megatronapp_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatronapp_tpu_torch.ops.normalization import apply_norm
@@ -40,6 +47,7 @@ from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.block import (
     block_forward, init_layer_params,
 )
+from megatronapp_tpu_torch.transformer.moe import check_expert_parallel
 from megatronapp_tpu_torch.utils.params import ParamTree, normal
 
 
@@ -66,6 +74,7 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
     tied = not cfg.untie_embeddings_and_output_weights
     if pp > 1 and cfg.mtp_num_layers:
         raise NotImplementedError(MTP_UNDER_PP)
+    check_moe(cfg, ctx)
     emb = {"word": normal((v, h), std, dt, generator, device)}
     if cfg.position_embedding == PositionEmbeddingKind.learned_absolute:
         emb["pos"] = normal((cfg.max_position_embeddings, h), std, dt,
@@ -86,15 +95,15 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
                                    ctx.pp_rank))
         kept = {}
         for i in range(cfg.num_layers):
-            layer = init_layer_params(cfg, generator, device)
+            layer = init_layer_params(cfg, generator, device, i)
             if i in mine:
                 kept[str(i)] = shard_tree(layer, ctx)
             del layer
         layers = ParamTree(**kept)
     else:
         layers = torch.nn.ModuleList(
-            shard_tree(init_layer_params(cfg, generator, device), ctx)
-            for _ in range(cfg.num_layers))
+            shard_tree(init_layer_params(cfg, generator, device, i), ctx)
+            for i in range(cfg.num_layers))
     children = ({"layers": layers} if emb is None
                 else {"embedding": emb, "layers": layers})
     if cfg.mtp_num_layers:
@@ -102,6 +111,17 @@ def init_gpt_params(cfg: TransformerConfig, generator: torch.Generator,
         children["mtp"] = shard_tree(
             init_mtp_params(cfg, generator, device), ctx)
     return ParamTree({k: t.detach() for k, t in top.items()}, **children)
+
+
+def check_moe(cfg: TransformerConfig, ctx=None) -> None:
+    """Raise where a MoE config does not run yet: with MTP depths, and on
+    a grid the MoE layer does not take (transformer/moe.py
+    ``check_expert_parallel``)."""
+    if not cfg.is_moe:
+        return
+    if cfg.mtp_num_layers:
+        raise NotImplementedError(moe_unported("MoE with MTP depths"))
+    check_expert_parallel(cfg, ctx)
 
 
 def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -266,6 +286,7 @@ def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
         raise NotImplementedError(
             "multi token prediction + sequence packing is not "
             "supported (reference multi_token_prediction.py assert)")
+    check_moe(cfg, ctx)
     if ctx is not None and ctx.cp > 1:
         raise NotImplementedError(MTP_MLA_UNDER_CP)
     if ctx is not None and ctx.tp > 1:
@@ -325,6 +346,9 @@ def gpt_pipeline_loss(p, batch, cfg: TransformerConfig, ctx, *,
             "1f1b schedule there")
     if cfg.mtp_num_layers:
         raise NotImplementedError(MTP_UNDER_PP)
+    if cfg.is_moe:
+        raise NotImplementedError(moe_unported(
+            "MoE under pipeline parallelism"))
     dev, dt = tokens.device, cfg.compute_dtype
     positions = None if segs is None else packed_position_ids(
         segs.reshape(m_count * mb, s)).reshape(m_count, mb, s)

@@ -1,5 +1,5 @@
-"""Named model-family presets: the dense, non-MLA ones the serving slice
-runs (the JAX package's models/presets.py, same widths)."""
+"""Named model-family presets (the JAX package's models/presets.py, same
+widths): the dense GPT and llama ones and mixtral-8x7b, the MoE one."""
 
 from __future__ import annotations
 
@@ -43,9 +43,24 @@ def llama3_8b(**kw) -> TransformerConfig:
     return TransformerConfig(**d)
 
 
+def mixtral_8x7b(**kw) -> TransformerConfig:
+    """examples/mixtral parity: 8 experts, top-2, GQA-8."""
+    d = dict(num_layers=32, hidden_size=4096, num_attention_heads=32,
+             num_query_groups=8, ffn_hidden_size=14336, vocab_size=32000,
+             max_position_embeddings=32768, rotary_base=1e6,
+             activation=ActivationKind.swiglu,
+             normalization=NormKind.rmsnorm, add_bias_linear=False,
+             untie_embeddings_and_output_weights=True,
+             num_moe_experts=8, moe_router_topk=2,
+             moe_ffn_hidden_size=14336, moe_aux_loss_coeff=0.02)
+    d.update(kw)
+    return TransformerConfig(**d)
+
+
 PRESETS = {
     "gpt2-125m": gpt2_125m,
     "gpt3-2.7b": gpt3_2p7b,
     "gpt-16l-2048h": gpt_16l_2048h,
     "llama3-8b": llama3_8b,
+    "mixtral-8x7b": mixtral_8x7b,
 }

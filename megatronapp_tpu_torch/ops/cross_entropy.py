@@ -16,9 +16,10 @@ this rank's vocabulary columns (tp rank r holds [r·V/tp, (r+1)·V/tp));
 on one device, or at tp 1, they are the whole vocabulary and the same
 Function runs with the all-reduces skipped. The token mean is the JAX
 step's mean over the whole microbatch: each dp rank divides its masked
-sum by the mask count over every dp rank's rows (one all-reduce over dp),
-so the dp sum of the ranks' losses, and of their gradients, is the global
-mean's. Under context parallelism each cp rank holds a share of every
+sum by the mask count over every dp rank's rows (one all-reduce over dp,
+or over the dp × ep "batch" group, whose ranks split the rows under
+expert parallelism), so the dp sum of the ranks' losses, and of their
+gradients, is the global mean's. Under context parallelism each cp rank holds a share of every
 row's tokens, and the count is all-reduced over cp too: the dp × cp sum
 of the ranks' losses is JAX's loss.
 """
@@ -91,7 +92,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
         mask = (torch.ones_like(per_token) if loss_mask is None
                 else loss_mask.float())
         return (per_token * mask).sum() / count, per_token
-    shares = 1 if ctx is None else ctx.dp * ctx.cp
+    shares = 1 if ctx is None else ctx.batch * ctx.cp
     if loss_mask is None:
         if shares == 1:
             return per_token.mean(), per_token
@@ -101,7 +102,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     if shares > 1:
         from megatronapp_tpu_torch.parallel.collectives import all_reduce
         count = count.clone()
-        for axis in ("dp", "cp"):
+        for axis in ("batch", "cp"):
             count = all_reduce(count, ctx, axis)
     loss = (per_token * loss_mask).sum() / count.clamp(min=1.0)
     return loss, per_token

@@ -65,6 +65,24 @@ Context parallelism (ops/context_parallel.py), each counted under axis
 - ``all_gather_cat`` over "cp" (the allgather mode's K/V, the segment
   ids) and ``reduce_scatter`` over "cp" (its backward).
 
+Expert parallelism (transformer/moe.py's all-to-all dispatch), counted
+under axis "ep", each an autograd Function whose backward is JAX's
+transpose:
+
+- ``ep_all_to_all``: the bulk exchange of the [ep, ...] send buffers
+  (``all_to_all`` over the ep group; its backward is the same exchange of
+  the grads);
+- ``EpHop``: one hop of the chunked exchange, to the ep rank `shift`
+  ahead and from the one `shift` behind, issued before the compute it
+  rides under and taken (``result``) after it; staged through host
+  memory like the cp ring's hops (``RingHop``, gloo tags ``EP_TAGS``: the
+  outbound and the return hops), counted as "send/ep" and "recv/ep". Its
+  backward is the inverse permutation hop of the grads.
+
+The "batch" axis is the dp × ep group, the ranks that split the tokens:
+the router statistics' mean, the token mean of the cross entropy and the
+grads of the leaves that are not experts reduce over it.
+
 ``calls`` counts each kind a call; ``traffic`` counts calls and result
 bytes (JAX's HLO accounting: an all-gather's gathered output, a
 reduce-scatter's shard; a hop's sent and received tensors) per
@@ -105,6 +123,12 @@ def reset_counts() -> None:
     traffic.clear()
 
 
+def _axis_name(ctx, axis: str) -> str:
+    """The axis a collective runs and is counted on: "batch" is "dp" at
+    ep 1 (the same group)."""
+    return "dp" if axis == "batch" and ctx.ep == 1 else axis
+
+
 def _axis(ctx, axis: str) -> Tuple[Any, List[int]]:
     """(process group, its global ranks) of `axis` for this rank."""
     if axis == "tp":
@@ -117,6 +141,10 @@ def _axis(ctx, axis: str) -> Tuple[Any, List[int]]:
         return ctx.cp_group, ctx.cp_ranks
     if axis == "cp_a2a":
         return ctx.cp_a2a_group, ctx.cp_a2a_ranks
+    if axis == "ep":
+        return ctx.ep_group, ctx.ep_ranks
+    if axis == "batch":
+        return ctx.batch_group, ctx.batch_ranks
     if axis == "embed":
         return ctx.embed_group, ctx.embed_ranks
     if axis == "world":
@@ -124,7 +152,7 @@ def _axis(ctx, axis: str) -> Tuple[Any, List[int]]:
     if axis == "fbd":
         return dist.group.WORLD, list(range(dist.get_world_size()))
     raise ValueError(f"axis {axis!r}: takes 'tp', 'dp', 'pp', 'cp', "
-                     "'cp_a2a', 'embed', 'world' or 'fbd'")
+                     "'cp_a2a', 'ep', 'batch', 'embed', 'world' or 'fbd'")
 
 
 def _count(kind: str, axis: str, nbytes: int) -> None:
@@ -150,6 +178,7 @@ def all_reduce(x: torch.Tensor, ctx, axis: str, op: str = "sum"
                ) -> torch.Tensor:
     """x reduced over `axis` in place ("sum" or "max"); every rank gets
     the same bits."""
+    axis = _axis_name(ctx, axis)
     group, ranks = _axis(ctx, axis)
     if len(ranks) == 1:
         return x
@@ -165,6 +194,7 @@ def reduce_scatter(flat: torch.Tensor, ctx, axis: str = "dp"
     """This rank's chunk of the sum over `axis` of the 1-D `flat` (its
     length a multiple of the axis size): chunk i goes to the axis' rank
     i."""
+    axis = _axis_name(ctx, axis)
     group, ranks = _axis(ctx, axis)
     n = len(ranks)
     if n == 1:
@@ -181,6 +211,7 @@ def all_gather_into(out: torch.Tensor, shard: torch.Tensor, ctx,
                     axis: str = "dp") -> torch.Tensor:
     """Every rank's 1-D `shard` written into `out` in the axis' rank
     order (out holds axis-size shards)."""
+    axis = _axis_name(ctx, axis)
     group, ranks = _axis(ctx, axis)
     if len(ranks) == 1:
         out.copy_(shard)
@@ -195,6 +226,7 @@ def all_gather_cat(x: torch.Tensor, ctx, axis: str, dim: int
                    ) -> torch.Tensor:
     """Every rank's x concatenated along `dim` in the axis' rank order; a
     bf16 tensor travels as its raw bytes."""
+    axis = _axis_name(ctx, axis)
     group, ranks = _axis(ctx, axis)
     if len(ranks) == 1:
         return x
@@ -287,6 +319,7 @@ def all_to_all(x: torch.Tensor, ctx, axis: str = "cp") -> torch.Tensor:
     """x [n, ...] (n: the axis' ranks): chunk j goes to the axis' rank j;
     returns [n, ...] whose chunk i came from rank i. A CUDA tensor stages
     through host memory; a bf16 one travels as its raw bytes."""
+    axis = _axis_name(ctx, axis)
     group, ranks = _axis(ctx, axis)
     if len(ranks) == 1:
         return x
@@ -310,12 +343,12 @@ CP_TAGS = {"kv": 4, "dkv": 5}
 
 
 class RingHop:
-    """One ring step's exchange in flight (``ring_hop``): ``wait()``
-    returns the received tensors, shaped and typed like the sent ones,
-    on their device."""
+    """One ring step's exchange in flight (``ring_hop``, ``EpHop``):
+    ``wait()`` returns the received tensors, shaped and typed like the
+    sent ones, on their device. Counted under `axis`."""
 
     def __init__(self, ctx, tensors: List[torch.Tensor], dst: int,
-                 src: int, ranks: List[int], tag: int):
+                 src: int, ranks: List[int], tag: int, axis: str = "cp"):
         self.ctx = ctx
         self.like = [(t.shape, t.dtype, t.device) for t in tensors]
         parts = [t.detach().contiguous().reshape(-1).view(torch.uint8)
@@ -324,10 +357,10 @@ class RingHop:
         send = torch.cat(parts).to("cpu")
         self.buf = torch.empty_like(send)
         n = _nbytes(send)
-        _count("send", "cp", n)
-        _count("recv", "cp", n)
+        _count("send", axis, n)
+        _count("recv", axis, n)
         self._event = contextlib.ExitStack()
-        self._event.enter_context(_traced("ring_hop", "cp", n, ranks))
+        self._event.enter_context(_traced("ring_hop", axis, n, ranks))
         self.works = [dist.irecv(self.buf, src=src, tag=tag),
                       dist.isend(send, dst=dst, tag=tag)]
 
@@ -351,6 +384,76 @@ def ring_hop(ctx, tensors: List[torch.Tensor], dst: int, src: int,
     same shapes from src (``ranks``: the ring, for the MegaScan event).
     Every rank of the ring issues it in the same step."""
     return RingHop(ctx, tensors, dst, src, ranks, CP_TAGS[tag])
+
+
+# The ep hops' gloo tags: the outbound hops and the return hops (either
+# may be in flight beside the other; each hop's backward reuses its tag
+# once the forward's hops are done).
+EP_TAGS = {"out": 6, "ret": 7}
+
+
+def _ep_ring_hop(ctx, x: torch.Tensor, shift: int, kind: str) -> RingHop:
+    ranks, me = ctx.ep_ranks, ctx.ep_rank
+    n = len(ranks)
+    return RingHop(ctx, [x], ranks[(me + shift) % n], ranks[(me - shift) % n],
+                   ranks, EP_TAGS[kind], axis="ep")
+
+
+class _EpHopFn(torch.autograd.Function):
+    """The received side of an issued ep hop, linked to the sent tensor:
+    its backward sends the grad back where the tensor came from and
+    receives the sent tensor's grad from where it went."""
+
+    @staticmethod
+    def forward(fctx, x, hop):
+        fctx.mesh, fctx.shift, fctx.kind = hop.ctx, hop.shift, hop.kind
+        return hop.wait()
+
+    @staticmethod
+    def backward(fctx, g):
+        back = _ep_ring_hop(fctx.mesh, g.contiguous(), -fctx.shift,
+                            fctx.kind).wait()[0]
+        return back, None
+
+
+class EpHop:
+    """One hop of the ep group, issued when made: x to the ep rank `shift`
+    ahead, a tensor of x's shape from the one `shift` behind (kind "out"
+    or "ret": the gloo tag; on_wait: called when it arrives). Every ep
+    rank issues it in the same step. ``result()`` waits for it and returns
+    what arrived, differentiable with respect to what was sent."""
+
+    def __init__(self, ctx, x: torch.Tensor, shift: int, kind: str,
+                 on_wait=None):
+        self.ctx, self.x, self.shift, self.kind = ctx, x, shift, kind
+        self.on_wait = on_wait
+        self._hop = _ep_ring_hop(ctx, x, shift, kind)
+
+    def wait(self) -> torch.Tensor:
+        out = self._hop.wait()[0]
+        if self.on_wait is not None:
+            self.on_wait()
+        return out
+
+    def result(self) -> torch.Tensor:
+        return _EpHopFn.apply(self.x, self)
+
+
+class _EpAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.mesh = ctx
+        return all_to_all(x, ctx, "ep")
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_to_all(g.contiguous(), fctx.mesh, "ep"), None
+
+
+def ep_all_to_all(x: torch.Tensor, ctx) -> torch.Tensor:
+    """x [ep, ...]: chunk j to ep rank j; returns chunk i from ep rank i
+    (differentiable: the backward exchanges the grads the same way)."""
+    return _EpAllToAll.apply(x.contiguous(), ctx)
 
 
 def psum(x: torch.Tensor, ctx) -> torch.Tensor:

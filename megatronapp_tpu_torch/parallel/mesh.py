@@ -3,22 +3,28 @@
 
 JAX runs one controller over a device mesh with the axes pp, dp, ep, cp,
 tp (tp innermost); the port runs one process a rank, joined by
-``torch.distributed`` process groups, and takes the pp × dp × cp × tp
-part of that order: rank = ((pp_index · dp + dp_index) · cp + cp_index)
-· tp + tp_index. ``build_mesh`` joins the world group and builds one tp
-group per (pp, dp, cp) index, one dp group per (pp, cp, tp), one cp group
-per (pp, dp, tp), one pp group (the stage ring) per (dp, cp, tp) and, at
-pp > 1, one embedding group of the first and last stages per (dp, cp,
-tp): a tied embedding's two copies sum their grads there (JAX keeps the
-embedding replicated over pp). At cp > 1 with ``cp_a2a_size`` (the inner
-all-to-all size of cp_comm_type 'a2a+p2p', 1 < a2a < cp) it also builds
-the inner all-to-all groups, a2a consecutive cp ranks each; the ring
-across them (the ranks of one inner index, ``cp_outer_ranks``) and the
-cp ring itself (``cp_next_rank``, ``cp_prev_rank``) move blocks point to
-point over the world group, so they need no group of their own. The
-tp-only grid of tensor-parallel serving (``--serve-tp``) is the case pp
-= dp = cp = 1, whose tp group is the world; at cp 1 every grid keeps the
-rank numbering and the groups it had before context parallelism.
+``torch.distributed`` process groups, in the same order: rank =
+(((pp_index · dp + dp_index) · ep + ep_index) · cp + cp_index) · tp +
+tp_index (JAX parallel/mesh.py:153-158). ``build_mesh`` joins the world
+group and builds one tp group per (pp, dp, ep, cp) index, one dp group
+per (pp, ep, cp, tp), one cp group per (pp, dp, ep, tp), one pp group
+(the stage ring) per (dp, ep, cp, tp) and, at pp > 1, one embedding
+group of the first and last stages per (dp, ep, cp, tp): a tied
+embedding's two copies sum their grads there (JAX keeps the embedding
+replicated over pp). At ep > 1 it also builds one ep group per (pp, dp,
+cp, tp) (the experts' all-to-all dispatch, transformer/moe.py) and one
+"batch" group per (pp, cp, tp): the dp × ep ranks that split the batch
+(JAX's ("batch", (dp, ep)) rule), over which the leaves that are not
+experts reduce their grads; at ep 1 the batch group is the dp group. At
+cp > 1 with ``cp_a2a_size`` (the inner all-to-all size of cp_comm_type
+'a2a+p2p', 1 < a2a < cp) it also builds the inner all-to-all groups,
+a2a consecutive cp ranks each; the ring across them (the ranks of one
+inner index, ``cp_outer_ranks``) and the cp ring itself
+(``cp_next_rank``, ``cp_prev_rank``) move blocks point to point over the
+world group, so they need no group of their own. The tp-only grid of
+tensor-parallel serving (``--serve-tp``) is the case pp = dp = ep = cp =
+1, whose tp group is the world; at ep 1 and cp 1 every grid keeps the
+rank numbering and the groups it had before those axes.
 
 The backend is gloo: it carries CUDA tensors (staged through host memory
 by gloo itself) and CPU tensors alike, and unlike NCCL it takes several
@@ -74,6 +80,9 @@ class MeshContext:
     # 1 without one).
     cp_a2a_group: Optional[dist.ProcessGroup] = None
     cp_a2a_size: int = 1
+    # ep > 1: this rank's ep group and its dp × ep batch group.
+    ep_group: Optional[dist.ProcessGroup] = None
+    ep_batch_group: Optional[dist.ProcessGroup] = None
     # A half of a MegaFBD world (module docstring); 0 / None otherwise.
     rank_base: int = 0
     fbd_role: Optional[str] = None
@@ -100,8 +109,17 @@ class MeshContext:
         return self.parallel.context_parallel
 
     @property
+    def ep(self) -> int:
+        return self.parallel.expert_parallel
+
+    @property
+    def batch(self) -> int:
+        """The ranks that split the batch (dp × ep)."""
+        return self.dp * self.ep
+
+    @property
     def world(self) -> int:
-        return self.tp * self.cp * self.dp * self.pp
+        return self.tp * self.cp * self.ep * self.dp * self.pp
 
     @property
     def num_devices(self) -> int:
@@ -127,18 +145,31 @@ class MeshContext:
         return self.grid_rank // self.tp % self.cp
 
     @property
+    def ep_rank(self) -> int:
+        return self.grid_rank // (self.tp * self.cp) % self.ep
+
+    @property
     def dp_rank(self) -> int:
-        return self.grid_rank // (self.tp * self.cp) % self.dp
+        return self.grid_rank // (self.tp * self.cp * self.ep) % self.dp
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's block of the batch: dp_rank · ep + ep_rank (JAX's
+        P((dp, ep)))."""
+        return self.dp_rank * self.ep + self.ep_rank
 
     @property
     def pp_rank(self) -> int:
         """This rank's pipeline stage."""
-        return self.grid_rank // (self.tp * self.cp * self.dp)
+        return self.grid_rank // (self.tp * self.cp * self.ep * self.dp)
 
-    def _at(self, p: int, d: int, c: int, t: int) -> int:
-        """The global rank of grid index (pp, dp, cp, tp)."""
-        return self.rank_base + ((p * self.dp + d) * self.cp + c) \
-            * self.tp + t
+    def _at(self, p: int, d: int, c: int, t: int, x: Optional[int] = None
+            ) -> int:
+        """The global rank of grid index (pp, dp, ep, cp, tp); ep index x
+        defaults to this rank's."""
+        x = self.ep_rank if x is None else x
+        return self.rank_base + (((p * self.dp + d) * self.ep + x)
+                                 * self.cp + c) * self.tp + t
 
     @property
     def is_first_stage(self) -> bool:
@@ -163,6 +194,24 @@ class MeshContext:
         """The global ranks of this rank's dp group, in dp order."""
         return [self._at(self.pp_rank, d, self.cp_rank, self.tp_rank)
                 for d in range(self.dp)]
+
+    @property
+    def ep_ranks(self) -> List[int]:
+        """The global ranks of this rank's ep group, in ep order (rank x
+        holds experts [x·e/ep, (x+1)·e/ep))."""
+        return [self._at(self.pp_rank, self.dp_rank, self.cp_rank,
+                         self.tp_rank, x) for x in range(self.ep)]
+
+    @property
+    def batch_ranks(self) -> List[int]:
+        """The global ranks of this rank's dp × ep batch group, in batch
+        order (dp major)."""
+        return [self._at(self.pp_rank, d, self.cp_rank, self.tp_rank, x)
+                for d in range(self.dp) for x in range(self.ep)]
+
+    @property
+    def batch_group(self):
+        return self.ep_batch_group if self.ep > 1 else self.dp_group
 
     @property
     def cp_ranks(self) -> List[int]:
@@ -261,14 +310,15 @@ def _join(world: int, rank: int, init_method: str, device, backend: str,
 
 
 def _grid_groups(rank: int, base: int, pp: int, dp: int, tp: int,
-                 timeout_s: float, cp: int = 1, cp_a2a: int = 1) -> dict:
-    """The process groups of the pp × dp × cp × tp grid of global ranks
-    [base, base + pp·dp·cp·tp): {axis: group} of this rank's groups ({}
-    when the rank is not in the grid); cp_a2a > 1 adds the inner
-    all-to-all groups ("cp_a2a") of 'a2a+p2p'. Every rank of the world
-    must call it for every grid, in one order (new_group is collective
-    over the world). A group of one rank is None; a group of the whole
-    world is WORLD."""
+                 timeout_s: float, cp: int = 1, cp_a2a: int = 1,
+                 ep: int = 1) -> dict:
+    """The process groups of the pp × dp × ep × cp × tp grid of global
+    ranks [base, base + pp·dp·ep·cp·tp): {axis: group} of this rank's
+    groups ({} when the rank is not in the grid); cp_a2a > 1 adds the
+    inner all-to-all groups ("cp_a2a") of 'a2a+p2p', ep > 1 the ep and
+    the dp × ep "batch" groups. Every rank of the world must call it for
+    every grid, in one order (new_group is collective over the world). A
+    group of one rank is None; a group of the whole world is WORLD."""
     timeout = datetime.timedelta(seconds=timeout_s)
     total = dist.get_world_size()
     mine = {}
@@ -281,26 +331,38 @@ def _grid_groups(rank: int, base: int, pp: int, dp: int, tp: int,
             if rank in ranks:
                 mine[axis] = g
 
-    def at(p, d, c, t):
-        return base + ((p * dp + d) * cp + c) * tp + t
+    def at(p, d, c, t, x=0):
+        return base + (((p * dp + d) * ep + x) * cp + c) * tp + t
 
-    groups("tp", [[at(p, d, c, t) for t in range(tp)]
-                  for p in range(pp) for d in range(dp) for c in range(cp)])
-    groups("dp", [[at(p, d, c, t) for d in range(dp)]
-                  for p in range(pp) for c in range(cp) for t in range(tp)])
+    xs = range(ep)
+    groups("tp", [[at(p, d, c, t, x) for t in range(tp)]
+                  for p in range(pp) for d in range(dp) for x in xs
+                  for c in range(cp)])
+    groups("dp", [[at(p, d, c, t, x) for d in range(dp)]
+                  for p in range(pp) for x in xs for c in range(cp)
+                  for t in range(tp)])
     if cp > 1:
-        cps = [[at(p, d, c, t) for c in range(cp)]
-               for p in range(pp) for d in range(dp) for t in range(tp)]
+        cps = [[at(p, d, c, t, x) for c in range(cp)]
+               for p in range(pp) for d in range(dp) for x in xs
+               for t in range(tp)]
         groups("cp", cps)
         if 1 < cp_a2a < cp:
             groups("cp_a2a", [ranks[g:g + cp_a2a] for ranks in cps
                               for g in range(0, cp, cp_a2a)])
+    if ep > 1:
+        groups("ep", [[at(p, d, c, t, x) for x in xs]
+                      for p in range(pp) for d in range(dp)
+                      for c in range(cp) for t in range(tp)])
+        groups("batch", [[at(p, d, c, t, x) for d in range(dp) for x in xs]
+                         for p in range(pp) for c in range(cp)
+                         for t in range(tp)])
     if pp > 1:
-        rings = [[at(p, d, c, t) for p in range(pp)]
-                 for d in range(dp) for c in range(cp) for t in range(tp)]
+        rings = [[at(p, d, c, t, x) for p in range(pp)]
+                 for d in range(dp) for x in xs for c in range(cp)
+                 for t in range(tp)]
         groups("pp", rings)
         groups("embed", [[r[0], r[-1]] for r in rings])
-    groups("world", [list(range(base, base + pp * dp * cp * tp))])
+    groups("world", [list(range(base, base + pp * dp * ep * cp * tp))])
     return mine
 
 
@@ -324,20 +386,20 @@ def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
                world_size: Optional[int] = None,
                cp_a2a_size: Optional[int] = None) -> MeshContext:
     """Join the grid as `rank` of `world_size` ranks (default: tp · pp ·
-    cp, the serving grid at pp = cp = 1); dp = world_size / (tp · pp ·
-    cp) (``infer_data_parallel``). init_method: where the ranks meet,
+    ep · cp, the serving grid at pp = ep = cp = 1); dp = world_size / (tp
+    · pp · ep · cp) (``infer_data_parallel``). init_method: where the ranks meet,
     ``tcp://localhost:<port>``, ``env://`` (the launcher's MASTER_ADDR
     and MASTER_PORT) or ``file://<path>`` (the tests use a FileStore
     path). device: this rank's device (None: the card; raises without
     one). cp_a2a_size: the inner all-to-all size of cp_comm_type
     'a2a+p2p' (``cp_a2a_of``)."""
     tp, pp = parallel.tensor_parallel, parallel.pipeline_parallel
-    cp = parallel.context_parallel
-    world = tp * pp * cp if world_size is None else world_size
+    cp, ep = parallel.context_parallel, parallel.expert_parallel
+    world = tp * pp * ep * cp if world_size is None else world_size
     dp = parallel.infer_data_parallel(world)
     a2a = cp_a2a_of(parallel, cp_a2a_size)
     dev = _join(world, rank, init_method, device, backend, timeout_s)
-    mine = _grid_groups(rank, 0, pp, dp, tp, timeout_s, cp, a2a)
+    mine = _grid_groups(rank, 0, pp, dp, tp, timeout_s, cp, a2a, ep)
     par = dataclasses.replace(parallel, data_parallel=dp)
     return MeshContext(group=mine["tp"] if tp > 1 else mine["world"],
                        parallel=par, rank=rank, device=dev, backend=backend,
@@ -345,4 +407,6 @@ def build_mesh(parallel: ParallelConfig, *, rank: int, init_method: str,
                        world_group=mine["world"], pp_group=mine.get("pp"),
                        embed_group=mine.get("embed"),
                        cp_group=mine.get("cp"),
-                       cp_a2a_group=mine.get("cp_a2a"), cp_a2a_size=a2a)
+                       cp_a2a_group=mine.get("cp_a2a"), cp_a2a_size=a2a,
+                       ep_group=mine.get("ep"),
+                       ep_batch_group=mine.get("batch"))

@@ -30,6 +30,17 @@ replicated over pp; training/distributed_optimizer.py sums the two
 copies' grads). A stage's layers sit under ``layers.<global id>`` (a
 ParamTree keyed by the ids), so every leaf keeps its one-device path.
 
+Mixture of Experts (transformer/moe.py): the MoE leaves' logical axes
+are JAX's (``MOE_LOGICAL_AXES``: the router ("embed", None), the expert
+stacks ("experts", "embed", "mlp") / ("experts", "mlp", "embed"), the
+shared expert's ("embed", "mlp") / ("mlp", "embed")). The expert stacks
+split over ep along the experts dimension by the rule ("experts", "ep")
+(``ep_dim``): ep rank x holds experts [x·e/ep, (x+1)·e/ep). Their mlp
+dimension splits over tp as the dense MLP's does (fc1's [gate | value]
+segment by segment; transformer/moe.py runs them as expert tensor
+parallelism), the router stays replicated; the batch splits over dp × ep
+(the rule ("batch", ("dp", "ep"))).
+
 Context parallelism (the rule ("seq", "cp")): the params are replicated
 over cp, and each cp rank takes its share of every sequence
 (``cp_share``): its contiguous S/cp block, of the zigzag-permuted
@@ -102,6 +113,15 @@ LOGICAL_AXES: Dict[str, Tuple[Optional[str], ...]] = {
     "proj": (None, "embed"),
 }
 
+# The MoE layer's leaves (JAX transformer/moe.py:46-58), under "moe".
+MOE_LOGICAL_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "router_kernel": ("embed", None),
+    "fc1_kernel": ("experts", "embed", "mlp"),
+    "fc2_kernel": ("experts", "mlp", "embed"),
+    "shared_fc1": ("embed", "mlp"),
+    "shared_fc2": ("mlp", "embed"),
+}
+
 # Replicated leaves applied inside the tp-sharded region (to each rank's
 # own heads): each tp rank holds only its heads' share of their gradient,
 # so their grads are summed over tp before the norm and the update.
@@ -129,15 +149,35 @@ def leaf_name(path: str) -> str:
     return path.rsplit(".", 1)[-1]
 
 
+def is_moe_leaf(path: str) -> bool:
+    """A leaf of a MoE layer (its parent module is "moe")."""
+    parts = path.rsplit(".", 2)
+    return len(parts) > 1 and parts[-2] == "moe"
+
+
+def logical_axes(path: str) -> Tuple[Optional[str], ...]:
+    """Leaf `path`'s logical axes (JAX's); a leaf the tables do not know
+    raises."""
+    name = leaf_name(path)
+    table = MOE_LOGICAL_AXES if is_moe_leaf(path) else LOGICAL_AXES
+    if name not in table:
+        raise KeyError(f"sharding: no logical axes for leaf {path!r} (MLA "
+                       "and quantized leaves train on one rank only)")
+    return table[name]
+
+
 def tp_dim(path: str) -> Optional[int]:
     """The dimension of leaf `path` split over tp, None when replicated;
-    a leaf the table does not know raises."""
-    name = leaf_name(path)
-    if name not in LOGICAL_AXES:
-        raise KeyError(f"sharding: no logical axes for leaf {path!r} (MLA, "
-                       "MoE and quantized leaves train on one rank only)")
-    spec = logical_to_spec(LOGICAL_AXES[name])
+    a leaf the tables do not know raises."""
+    spec = logical_to_spec(logical_axes(path))
     return spec.index("tp") if "tp" in spec else None
+
+
+def ep_dim(path: str) -> Optional[int]:
+    """The dimension of leaf `path` split over ep (the experts axis of an
+    expert stack), None for every other leaf."""
+    spec = logical_to_spec(logical_axes(path))
+    return spec.index("ep") if "ep" in spec else None
 
 
 def segment_counts(named: Dict[str, torch.Tensor]) -> Dict[str, int]:
@@ -149,7 +189,9 @@ def segment_counts(named: Dict[str, torch.Tensor]) -> Dict[str, int]:
         if leaf in ("kv_kernel", "kv_bias"):
             out[n] = 2
         elif leaf in ("fc1_kernel", "fc1_bias"):
-            out[n] = t.shape[-1] // named[base + "fc2_kernel"].shape[0]
+            out[n] = t.shape[-1] // named[base + "fc2_kernel"].shape[-2]
+        elif leaf == "shared_fc1":
+            out[n] = t.shape[-1] // named[base + "shared_fc2"].shape[-2]
         else:
             out[n] = 1
     return out
@@ -180,14 +222,33 @@ def unshard_leaf(shards, dim: Optional[int], segments: int) -> torch.Tensor:
                      dim=dim)
 
 
+def ep_shard(t: torch.Tensor, path: str, ctx) -> torch.Tensor:
+    """This ep rank's experts of the whole leaf t (t itself when the leaf
+    does not split over ep)."""
+    dim = ep_dim(path) if ctx is not None and ctx.ep > 1 else None
+    if dim is None:
+        return t
+    n = t.shape[dim]
+    if n % ctx.ep:
+        raise ValueError(f"{path}: {n} experts do not split over ep "
+                         f"{ctx.ep}")
+    k = n // ctx.ep
+    return t.narrow(dim, ctx.ep_rank * k, k).contiguous()
+
+
 def gather_leaf(t: torch.Tensor, path: str, segments: int, ctx
                 ) -> torch.Tensor:
     """The full leaf from every tp rank's shard t (an all-gather when the
-    leaf is split over tp; collective: every tp rank calls it)."""
+    leaf is split over tp), and every ep rank's experts (an all-gather
+    over ep for an expert stack); collective: every rank of those groups
+    calls it."""
+    from megatronapp_tpu_torch.parallel.collectives import all_gather_cat
+    dim = ep_dim(path) if ctx.ep > 1 else None
+    if dim is not None:
+        t = all_gather_cat(t, ctx, "ep", dim)
     dim = tp_dim(path) if ctx.tp > 1 else None
     if dim is None:
         return t
-    from megatronapp_tpu_torch.parallel.collectives import all_gather_cat
     full = all_gather_cat(t, ctx, "tp", dim)
     return unshard_leaf(list(full.chunk(ctx.tp, dim=dim)), dim, segments)
 
@@ -265,15 +326,16 @@ def stage_tree(full: nn.Module, ctx) -> nn.Module:
 def shard_tree(full: nn.Module, ctx) -> nn.Module:
     """This rank's shards of a full param tree, or of a piece of one (new
     frozen leaves; the full tree is not touched): its stage's pieces of a
-    whole tree (``stage_tree``), then their tp shards."""
+    whole tree (``stage_tree``), then their tp shards and the ep rank's
+    experts."""
     if ctx is None:
         return full
     if "layers" in full and "embedding" in full:
         full = stage_tree(full, ctx)
-    if ctx.tp == 1:
+    if ctx.tp == 1 and ctx.ep == 1:
         return full
-    return _map_tree(full, lambda path, t, segs: shard_leaf(
-        t, tp_dim(path), segs, ctx.tp, ctx.tp_rank))
+    return _map_tree(full, lambda path, t, segs: ep_shard(shard_leaf(
+        t, tp_dim(path), segs, ctx.tp, ctx.tp_rank), path, ctx))
 
 
 def gather_stages(named: Dict[str, torch.Tensor], ctx
@@ -324,17 +386,17 @@ def tree_from_named(named: Dict[str, torch.Tensor]) -> nn.Module:
 
 def gather_tree(local: nn.Module, ctx) -> nn.Module:
     """The full param tree from every rank's shards (an all-gather over
-    tp a sharded leaf, then at pp > 1 every stage's leaves over the
-    world): the exact inverse of shard_tree."""
-    if ctx is None or (ctx.tp == 1 and ctx.pp == 1):
+    tp a sharded leaf and over ep an expert stack, then at pp > 1 every
+    stage's leaves over the world): the exact inverse of shard_tree."""
+    if ctx is None or (ctx.tp == 1 and ctx.pp == 1 and ctx.ep == 1):
         return local
-    if ctx.tp > 1:
+    if ctx.tp > 1 or ctx.ep > 1:
         local = _map_tree(local, lambda path, t, segs: gather_leaf(
             t, path, segs, ctx).clone())
     if ctx.pp == 1:
         return local
     named = dict(local.named_parameters())
-    if ctx.dp_rank or ctx.cp_rank or ctx.tp_rank:
+    if ctx.dp_rank or ctx.cp_rank or ctx.tp_rank or ctx.ep_rank:
         named = {}
     device = next(local.parameters()).device
     return tree_from_named({n: t.to(device) for n, t in

@@ -57,6 +57,17 @@ order for causal attention), a2a (Ulysses), allgather or a2a+p2p (with
         --context-parallel-size 2 --tensor-model-parallel-size 2 \
         --train-iters 2
 
+A MoE model (--num-experts, or --preset mixtral-8x7b) trains on one
+device or on a dp × ep × tp grid: --expert-model-parallel-size splits the
+experts over ep ranks and the batch over dp × ep (transformer/moe.py's
+all-to-all dispatch; --no-moe-comm-overlap for the bulk exchange):
+
+    torchrun --nproc-per-node 4 -m megatronapp_tpu_torch.pretrain_gpt \
+        --preset mixtral-8x7b --num-layers 1 --seq-length 4096 \
+        --micro-batch-size 1 --global-batch-size 2 \
+        --expert-model-parallel-size 2 --tensor-model-parallel-size 2 \
+        --train-iters 2
+
 MegaFBD splits the launcher's world into a forward and a backward half,
 dp halved on each (parallel/fbd.py), so world = 2 · pp · (dp/2) · tp:
 
@@ -78,7 +89,7 @@ own CUDA stream (runtime/dpp_train.py), with the 'bfc' order:
 (--data-parallel-size sets its dp, default 1; at tp > 1 under torchrun
 --use-dpp logs that it runs the static 'bfc' order.) The rank count comes from the launcher's RANK,
 WORLD_SIZE, LOCAL_RANK and MASTER_ADDR / MASTER_PORT; dp = world / (tp ·
-pp · cp); rank r computes on cuda:
+pp · ep · cp); rank r computes on cuda:
 (LOCAL_RANK % device count), or on the CPU with --device cpu. Without the
 launcher's environment the world is one rank. The ranks join over gloo,
 so several ranks may share one card: that checks kernels, shards and
@@ -117,6 +128,19 @@ from megatronapp_tpu_torch.config.transformer_config import (
 _PRESET_OVERRIDES = ("num_layers", "hidden_size", "num_attention_heads",
                      "num_query_groups", "ffn_hidden_size", "vocab_size",
                      "max_position_embeddings", "init_method_std")
+# The MoE flags → their TransformerConfig fields. Without --preset they
+# build the config, as JAX's parser does; with one, a flag given
+# overrides the preset's field (JAX's parser leaves the preset's fields,
+# and the flag would be accepted and ignored).
+_MOE_FIELDS = {"num_experts": "num_moe_experts",
+               "moe_router_topk": "moe_router_topk",
+               "moe_ffn_hidden_size": "moe_ffn_hidden_size",
+               "moe_aux_loss_coeff": "moe_aux_loss_coeff",
+               "moe_z_loss_coeff": "moe_z_loss_coeff",
+               "moe_expert_capacity_factor": "moe_capacity_factor",
+               "moe_layer_freq": "moe_layer_freq",
+               "moe_shared_expert_intermediate_size":
+                   "moe_shared_expert_intermediate_size"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,6 +177,16 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--untie-embeddings-and-output-weights",
                    action="store_true")
     g.add_argument("--init-method-std", type=float, default=0.02)
+    g = ap.add_argument_group("moe")
+    g.add_argument("--num-experts", type=int, default=None)
+    g.add_argument("--moe-router-topk", type=int, default=2)
+    g.add_argument("--moe-ffn-hidden-size", type=int, default=None)
+    g.add_argument("--moe-aux-loss-coeff", type=float, default=0.0)
+    g.add_argument("--moe-z-loss-coeff", type=float, default=0.0)
+    g.add_argument("--moe-expert-capacity-factor", type=float, default=None)
+    g.add_argument("--moe-layer-freq", type=int, default=1)
+    g.add_argument("--moe-shared-expert-intermediate-size", type=int,
+                   default=None)
     g = ap.add_argument_group("mtp")
     g.add_argument("--mtp-num-layers", type=int, default=None)
     g.add_argument("--mtp-loss-scaling-factor", type=float, default=0.1)
@@ -183,6 +217,12 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--tensor-model-parallel-size", type=int, default=1)
     g.add_argument("--pipeline-model-parallel-size", type=int, default=1)
     g.add_argument("--context-parallel-size", type=int, default=1)
+    g.add_argument("--expert-model-parallel-size", type=int, default=1)
+    g.add_argument("--no-moe-comm-overlap", action="store_false",
+                   dest="moe_comm_overlap",
+                   help="disable the chunked latency-hiding MoE "
+                        "all-to-all (transformer/moe.py); falls back to "
+                        "the bulk two-collective dispatch")
     g.add_argument("--hierarchical-context-parallel-sizes", nargs=2,
                    type=int, default=None, metavar=("A2A", "RING"),
                    help="inner a2a x outer ring sizes for "
@@ -371,7 +411,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  "megatronapp_tpu_torch yet (the trainer honours the flags "
                  "in --help; see ROADMAP.md)")
     for flag in ("tensor_model_parallel_size",
-                 "pipeline_model_parallel_size", "context_parallel_size"):
+                 "pipeline_model_parallel_size", "context_parallel_size",
+                 "expert_model_parallel_size"):
         if getattr(args, flag) < 1:
             ap.error(f"--{flag.replace('_', '-')} must be >= 1, got "
                      f"{getattr(args, flag)}")
@@ -423,6 +464,9 @@ def configs_from_args(args: argparse.Namespace):
         defaults = build_parser().parse_args([])
         over = {f: getattr(args, f) for f in _PRESET_OVERRIDES
                 if getattr(args, f) != getattr(defaults, f)}
+        over.update({field: getattr(args, flag)
+                     for flag, field in _MOE_FIELDS.items()
+                     if getattr(args, flag) != getattr(defaults, flag)})
         if args.mtp_num_layers is not None:
             over.update(mtp_num_layers=args.mtp_num_layers,
                         mtp_loss_scaling_factor=args.mtp_loss_scaling_factor)
@@ -452,12 +496,15 @@ def configs_from_args(args: argparse.Namespace):
                 args.untie_embeddings_and_output_weights),
             init_method_std=args.init_method_std,
             mtp_num_layers=args.mtp_num_layers,
-            mtp_loss_scaling_factor=args.mtp_loss_scaling_factor)
+            mtp_loss_scaling_factor=args.mtp_loss_scaling_factor,
+            **{field: getattr(args, flag)
+               for flag, field in _MOE_FIELDS.items()})
     model = dataclasses.replace(
         model, remat_policy=args.recompute_granularity,
         cp_comm_type=args.cp_comm_type,
         hierarchical_cp_a2a_size=cp_a2a_size(args),
         cp_comm_overlap=args.cp_comm_overlap,
+        moe_comm_overlap=args.moe_comm_overlap,
         attention_impl=args.attention_impl,
         flash_min_seq=args.flash_min_seq,
         flash_head_fold=args.flash_head_fold, compute_dtype=compute)
@@ -514,6 +561,7 @@ def parallel_from_args(args: argparse.Namespace) -> ParallelConfig:
         tensor_parallel=args.tensor_model_parallel_size,
         pipeline_parallel=pp, virtual_pipeline_parallel=vpp,
         context_parallel=args.context_parallel_size,
+        expert_parallel=args.expert_model_parallel_size,
         data_parallel=args.data_parallel_size,
         sequence_parallel=args.sequence_parallel,
         distributed_optimizer=args.use_distributed_optimizer,
@@ -552,7 +600,8 @@ def rank_device(device: Optional[str], local_rank: int):
 def build_grid(args: argparse.Namespace, rank: int, world_size: int,
                init_method: str, local_rank: Optional[int] = None):
     """This rank's MeshContext of the --tensor-model-parallel-size x
-    --context-parallel-size x --pipeline-model-parallel-size grid over
+    --context-parallel-size x --expert-model-parallel-size x
+    --pipeline-model-parallel-size grid over
     world_size ranks (with --forward-backward-disaggregating, of its half
     of the world); None for one rank at tp, cp and pp 1 (the one-device
     trainer) and for --use-dpp at tp = cp = 1 (its runtime places the
@@ -568,7 +617,8 @@ def build_grid(args: argparse.Namespace, rank: int, world_size: int,
     parallel.infer_data_parallel(world_size)
     if world_size == 1 and parallel.tensor_parallel == 1 and \
             parallel.pipeline_parallel == 1 and \
-            parallel.context_parallel == 1:
+            parallel.context_parallel == 1 and \
+            parallel.expert_parallel == 1:
         return None
     dev = rank_device(args.device, rank if local_rank is None
                       else local_rank)
@@ -596,7 +646,8 @@ def train(args: argparse.Namespace, ctx=None):
                   "dp": 1 if ctx is None else ctx.dp,
                   "tp": 1 if ctx is None else ctx.tp,
                   "cp": 1 if ctx is None else ctx.cp,
-                  "zero1": bool(ctx is not None and ctx.dp > 1
+                  "ep": 1 if ctx is None else ctx.ep,
+                  "zero1": bool(ctx is not None and ctx.batch > 1
                                 and args.use_distributed_optimizer)}
         if ctx is not None and ctx.pp > 1:
             layout.update(pp=ctx.pp, vpp=ctx.vpp)

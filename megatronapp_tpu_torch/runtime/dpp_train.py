@@ -29,9 +29,10 @@ on the first stage and the head on the last, a microbatch at a time
 against the replica's mask count. Combine weights ride the cotangent
 seeds (``ce_seed = w_r / W``, w_r the replica's mask-token count;
 ``aux_seed = 1 / dp``), so replica grads plain-sum and a fully masked
-shard contributes nothing but its aux term. The aux term is 0 until MoE
-is ported (ROADMAP.md Queue 1 item 4), but its seed is kept. MTP and
-packed segments raise JAX's messages.
+shard contributes nothing but its aux term. MoE layers under the DPP
+runtime are not ported yet (ROADMAP.md Queue 1 item 4, MoE under pp, cp,
+FBD, DPP, MTP and serve-tp) and raise, so the aux term is 0 here; its
+seed is kept. MTP and packed segments raise JAX's messages.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from megatronapp_tpu_torch.config.parallel_config import moe_unported
 
 from megatronapp_tpu_torch.runtime.dpp import DppPipelineRunner
 
@@ -229,6 +232,8 @@ def make_dpp_gpt_value_and_grad(cfg, devices, vpp: int = 1,
 
     if getattr(cfg, "mtp_num_layers", 0):
         raise NotImplementedError(_MTP)
+    if cfg.is_moe:
+        raise NotImplementedError(moe_unported("MoE under MegaDPP (--use-dpp)"))
     grid = _device_grid(devices)
     pp, dp = len(grid), len(grid[0])
     streams = _Streams(grid)
@@ -424,6 +429,8 @@ def make_dpp_eval_step(cfg, devices, vpp: int = 1, policy: str = "dfc",
 
     if getattr(cfg, "mtp_num_layers", 0):
         raise NotImplementedError(_MTP)
+    if cfg.is_moe:
+        raise NotImplementedError(moe_unported("MoE under MegaDPP (--use-dpp)"))
     grid = _device_grid(devices)
     pp, dp = len(grid), len(grid[0])
     streams = _Streams(grid)

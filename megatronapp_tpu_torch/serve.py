@@ -35,6 +35,10 @@ draft, its weights made from --seed + 1 or restored from
 ``--draft-load-dir``; ``mtp`` self-drafts through the model's MTP heads:
 the checkpoint's, or ``--mtp-num-layers`` random ones; without heads it
 warns and decodes plainly).
+A MoE preset (``mixtral-8x7b``) serves on the paged engine (unfused:
+``--megakernel-decode`` warns and keeps the unfused step, as JAX's does)
+and on the static engine, with bf16 or ``--quantized-weights`` expert
+stacks; under ``--serve-tp`` it exits (not ported yet).
 ``--serve-tp N`` serves tensor-parallel over N ranks, one process each,
 joined by a gloo group (parallel/mesh.py): this process is rank 0 and
 runs the driver and the server, and it spawns ranks 1..N-1 as followers
@@ -283,6 +287,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ap.error("--spec-method with --serve-tp > 1: speculative decoding "
                  "under tensor parallelism is not ported yet (ROADMAP.md "
                  "Queue 1 item 1)")
+    if args.serve_tp > 1 and PRESETS[args.preset]().is_moe:
+        from megatronapp_tpu_torch.config.parallel_config import (
+            moe_unported,
+        )
+        ap.error(moe_unported(f"--serve-tp {args.serve_tp} with the MoE "
+                              f"preset {args.preset}"))
     if args.serve_tp > 1 and args.lora_dir:
         ap.error("--lora-dir with --serve-tp > 1: LoRA serving under "
                  "tensor parallelism is not ported yet (ROADMAP.md Queue 1)")

@@ -26,6 +26,13 @@ does the same explicitly, on flat fp32 buffers (``FlatLayout``):
   the last stage's) have their grads summed over the embedding group
   before the dp reduction, so both apply the same update and stay
   bitwise equal;
+- under expert parallelism (ep > 1) the expert stacks live in a second
+  pair of flat buffers: the leaves that are not experts reduce their
+  grads over the dp × ep "batch" group and ZeRO-1 shards them over it,
+  the expert stacks (each ep rank its own experts, whose grads already
+  hold every token's, brought home by the all-to-all's backward) reduce
+  and shard over dp alone (JAX distributed_optimizer.py:118-140); the
+  norm counts each expert element once over dp and ep;
 - ``norm_partials`` gives this rank's chunk's sums of squares, split
   into the tp-sharded leaves (summed over every rank) and the rest
   (counted once, from tp rank 0), the last stage's copy of a tied
@@ -44,8 +51,9 @@ master copy for bf16 params is ROADMAP.md Queue 1 item 3).
 
 ``full_state_dict`` / ``load_full_state_dict`` carry the state to and
 from the layout-independent form of the checkpoints: every leaf whole
-(params gathered over tp, moments over dp and tp, and under pp every
-stage's leaves brought together, parallel/sharding.py gather_stages)
+(params gathered over tp and ep, moments over dp (or dp × ep), tp and
+ep, and under pp every stage's leaves brought together,
+parallel/sharding.py gather_stages)
 under the one-device leaf paths of training/train_state.py, so a
 checkpoint written on one grid resumes on another.
 """
@@ -59,8 +67,8 @@ import torch
 from megatronapp_tpu_torch.config.training_config import OptimizerConfig
 from megatronapp_tpu_torch.parallel import collectives
 from megatronapp_tpu_torch.parallel.sharding import (
-    TP_PARTIAL_GRAD_LEAVES, gather_leaf, leaf_name, segment_counts,
-    shard_leaf, tp_dim,
+    TP_PARTIAL_GRAD_LEAVES, ep_dim, ep_shard, gather_leaf, leaf_name,
+    segment_counts, shard_leaf, tp_dim,
 )
 from megatronapp_tpu_torch.training.optimizer import Optimizer, decays
 
@@ -70,12 +78,13 @@ class FlatLayout:
     the tp-sharded leaves first, then the tp-partial ones, then the
     replicated ones, then `copies` (leaves another stage also holds and
     counts in the norm: a tied embedding's last-stage copy), each group
-    in name order, padded to a multiple of dp. ``params``/``grads``: the
-    flat buffers; each param's data is a view of ``params`` (grads=False:
-    no grad buffer, for a MegaFBD forward rank, which takes no grads)."""
+    in name order, padded to a multiple of the ZeRO-1 axis' size (dp, or
+    the dp × ep "batch" group: `axis`). ``params``/``grads``: the flat
+    buffers; each param's data is a view of ``params`` (grads=False: no
+    grad buffer, for a MegaFBD forward rank, which takes no grads)."""
 
     def __init__(self, named_params: Dict[str, torch.Tensor], ctx,
-                 copies=frozenset(), grads: bool = True):
+                 copies=frozenset(), grads: bool = True, axis: str = "dp"):
         def group(n):
             if n in copies:
                 return 3
@@ -92,7 +101,11 @@ class FlatLayout:
             off += named_params[n].numel()
         self.offsets = {n: (a, b) for n, a, b in self.slots}
         self.numel = off
-        self.padded = -(-off // ctx.dp) * ctx.dp
+        self.axis = axis
+        shards, rank = ((ctx.dp, ctx.dp_rank) if axis == "dp"
+                        else (ctx.batch, ctx.batch_rank))
+        self.shards = shards
+        self.padded = -(-off // shards) * shards
         ends = [sum(b - a for n, a, b in self.slots if group(n) <= g)
                 for g in (0, 1, 2)]
         # [0, sharded_end): tp-sharded; partial: summed over tp in
@@ -111,8 +124,8 @@ class FlatLayout:
                 self.params[a:b].copy_(p.reshape(-1))
                 p.data = self.params[a:b].view(p.shape)
         self.named = named_params
-        chunk = self.padded // ctx.dp
-        self.chunk = (ctx.dp_rank * chunk, (ctx.dp_rank + 1) * chunk)
+        chunk = self.padded // shards
+        self.chunk = (rank * chunk, (rank + 1) * chunk)
 
     def view(self, flat: torch.Tensor, name: str) -> torch.Tensor:
         """Leaf `name`'s view of a whole flat buffer."""
@@ -127,22 +140,42 @@ def layout_copies(ctx, tied_embedding: bool) -> frozenset:
                      and not ctx.is_first_stage else ())
 
 
+class _Part:
+    """One pair of flat buffers and its moments: the layout, the state
+    keys of its moments, whether ZeRO-1 shards it over its axis, and the
+    step's reduced grads (g)."""
+
+    def __init__(self, layout: FlatLayout, suffix: str, zero1: bool):
+        self.layout, self.suffix, self.zero1 = layout, suffix, zero1
+        self.g: Optional[torch.Tensor] = None
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """The flat range this rank updates and keeps moments for."""
+        return self.layout.chunk if self.zero1 else (0, self.layout.padded)
+
+
+# The state keys of the moments of the expert stacks' buffers (ep > 1).
+EXPERT_SUFFIX = "@experts"
+
+
 class DistributedOptimizer(Optimizer):
     """The chain of training/optimizer.py over a grid's flat buffers.
-    ZeRO-1 (the ctx's distributed_optimizer, at dp > 1): m and v for this
-    rank's dp chunk only. State: {"count": int, "mu": tensor, "nu":
-    tensor} (flat: the chunk's, or the whole buffer's). tied_embedding:
-    the output layer is the word embedding (under pp its two stages'
-    copies sum their grads)."""
+    ZeRO-1 (the ctx's distributed_optimizer, at dp > 1, or dp × ep > 1):
+    m and v for this rank's chunk only. State: {"count": int, "mu":
+    tensor, "nu": tensor} (flat: the chunk's, or the whole buffer's), and
+    at ep > 1 "mu@experts" / "nu@experts" of the expert stacks' buffers.
+    tied_embedding: the output layer is the word embedding (under pp its
+    two stages' copies sum their grads)."""
 
     def __init__(self, cfg: OptimizerConfig, train_iters: int, ctx,
                  tied_embedding: bool = False):
         super().__init__(cfg, train_iters)
         self.ctx = ctx
-        self.zero1 = ctx.parallel.distributed_optimizer and ctx.dp > 1
+        self.zero1 = ctx.parallel.distributed_optimizer and ctx.batch > 1
         self.tied_pp = tied_embedding and ctx.pp > 1
         self.layout: Optional[FlatLayout] = None
-        self._g: Optional[torch.Tensor] = None
+        self.parts: List[_Part] = []
 
     # -- buffers -------------------------------------------------------------
     def init(self, named_params: Dict[str, torch.Tensor]) -> dict:
@@ -153,139 +186,168 @@ class DistributedOptimizer(Optimizer):
                              "not fp32; bf16 params with an fp32 master "
                              "copy are not ported (ROADMAP.md Queue 1 "
                              "item 3)")
-        self.layout = lay = FlatLayout(
-            named_params, self.ctx, layout_copies(self.ctx, self.tied_pp))
-        lo, hi = self.span
-        state = {"count": 0,
-                 "mu": torch.zeros(hi - lo, dtype=self.mu_dtype,
-                                   device=lay.params.device)}
-        if self.cfg.optimizer == "adam":
-            state["nu"] = torch.zeros(hi - lo, dtype=self.nu_dtype,
-                                      device=lay.params.device)
+        ctx = self.ctx
+        experts = ({n: p for n, p in named_params.items()
+                    if ep_dim(n) is not None} if ctx.ep > 1 else {})
+        rest = {n: p for n, p in named_params.items() if n not in experts}
+        self.layout = FlatLayout(rest, ctx, layout_copies(ctx, self.tied_pp),
+                                 axis="batch" if ctx.ep > 1 else "dp")
+        self.parts = [_Part(self.layout, "", self.zero1)]
+        if experts:
+            self.parts.append(_Part(
+                FlatLayout(experts, ctx, axis="dp"), EXPERT_SUFFIX,
+                ctx.parallel.distributed_optimizer and ctx.dp > 1))
+        state = {"count": 0}
+        for part in self.parts:
+            lo, hi = part.span
+            dev = part.layout.params.device
+            state["mu" + part.suffix] = torch.zeros(
+                hi - lo, dtype=self.mu_dtype, device=dev)
+            if self.cfg.optimizer == "adam":
+                state["nu" + part.suffix] = torch.zeros(
+                    hi - lo, dtype=self.nu_dtype, device=dev)
         return state
 
-    @property
-    def span(self) -> Tuple[int, int]:
-        """The flat range this rank updates and keeps moments for."""
-        return self.layout.chunk if self.zero1 else (0, self.layout.padded)
-
     def zero_grad(self) -> None:
-        """Point every param's .grad at its zeroed slice of the grad
+        """Point every param's .grad at its zeroed slice of its grad
         buffer (autograd then accumulates in place)."""
-        lay = self.layout
-        lay.grads.zero_()
-        for n, a, b in lay.slots:
-            p = lay.named[n]
-            p.grad = lay.grads[a:b].view(p.shape)
+        for part in self.parts:
+            lay = part.layout
+            lay.grads.zero_()
+            for n, a, b in lay.slots:
+                p = lay.named[n]
+                p.grad = lay.grads[a:b].view(p.shape)
 
     def release_grads(self) -> None:
-        for p in self.layout.named.values():
-            p.grad = None
-        self._g = None
+        for part in self.parts:
+            for p in part.layout.named.values():
+                p.grad = None
+            part.g = None
 
     # -- the step's reductions ---------------------------------------------
     def reduce_grads(self, inv: float) -> None:
         """Scale by 1/num_micro, sum the tp-partial leaves over tp and a
         tied embedding's two copies over the embedding group, sum over cp,
-        then over dp (reduce-scatter under ZeRO-1)."""
-        lay, ctx = self.layout, self.ctx
-        for n, a, b in lay.slots:
-            # Autograd accumulates into the preset views; a grad it
-            # placed elsewhere is copied in.
-            got = lay.named[n].grad
-            if got is not None and got.data_ptr() != \
-                    lay.grads[a:b].data_ptr():
-                lay.grads[a:b].copy_(got.reshape(-1))
-        g = lay.grads.mul_(inv)
-        a, b = lay.partial
-        if ctx.tp > 1 and b > a:
-            collectives.all_reduce(g[a:b], ctx, "tp")
-        if self.tied_pp and "embedding.word" in lay.offsets:
-            a, b = lay.offsets["embedding.word"]
-            collectives.all_reduce(g[a:b], ctx, "embed")
-        collectives.all_reduce(g, ctx, "cp")
-        if self.zero1:
-            self._g = collectives.reduce_scatter(g, ctx, "dp")
-        else:
-            self._g = collectives.all_reduce(g, ctx, "dp")
+        then over dp (or dp × ep; the expert stacks over dp alone), a
+        reduce-scatter under ZeRO-1."""
+        ctx = self.ctx
+        for part in self.parts:
+            lay = part.layout
+            for n, a, b in lay.slots:
+                # Autograd accumulates into the preset views; a grad it
+                # placed elsewhere is copied in.
+                got = lay.named[n].grad
+                if got is not None and got.data_ptr() != \
+                        lay.grads[a:b].data_ptr():
+                    lay.grads[a:b].copy_(got.reshape(-1))
+            g = lay.grads.mul_(inv)
+            a, b = lay.partial
+            if ctx.tp > 1 and b > a:
+                collectives.all_reduce(g[a:b], ctx, "tp")
+            if self.tied_pp and "embedding.word" in lay.offsets:
+                a, b = lay.offsets["embedding.word"]
+                collectives.all_reduce(g[a:b], ctx, "embed")
+            collectives.all_reduce(g, ctx, "cp")
+            if part.zero1:
+                part.g = collectives.reduce_scatter(g, ctx, lay.axis)
+            else:
+                part.g = collectives.all_reduce(g, ctx, lay.axis)
 
     def norm_partials(self) -> torch.Tensor:
-        """[sum of squares over this rank's dp chunk's tp-sharded
-        elements, over its other counted elements] (fp32, on the
-        device)."""
-        lay = self.layout
-        lo, hi = lay.chunk
-        chunk = self._g if self.zero1 else self._g[lo:hi]
-        cut = min(max(lay.sharded_end - lo, 0), hi - lo)
-        end = min(max(lay.counted_end - lo, 0), hi - lo)
-        return torch.stack([chunk[:cut].square().sum(),
-                            chunk[cut:end].square().sum()])
+        """[sum of squares over this rank's chunks' tp-sharded elements,
+        over their other counted elements] (fp32, on the device)."""
+        out = None
+        for part in self.parts:
+            lay = part.layout
+            lo, hi = lay.chunk
+            chunk = part.g if part.zero1 else part.g[lo:hi]
+            cut = min(max(lay.sharded_end - lo, 0), hi - lo)
+            end = min(max(lay.counted_end - lo, 0), hi - lo)
+            sums = torch.stack([chunk[:cut].square().sum(),
+                                chunk[cut:end].square().sum()])
+            out = sums if out is None else out + sums
+        return out
 
     @torch.no_grad()
     def step(self, state: dict, grad_norm: Tuple[float, torch.Tensor]
              ) -> None:
-        """The update of this rank's span (see the module docstring);
-        ZeRO-1 then all-gathers the updated params over dp."""
-        cfg, lay = self.cfg, self.layout
+        """The update of this rank's spans (see the module docstring);
+        ZeRO-1 then all-gathers the updated params over its axis."""
+        cfg = self.cfg
         norm_host, norm_dev = grad_norm
-        lo, hi = self.span
-        g = self._g if self.zero1 else self._g[lo:hi]
-        if cfg.clip_grad and not norm_host < cfg.clip_grad:
-            g.div_(norm_dev).mul_(cfg.clip_grad)
         count = state["count"]
         lr, bc1, bc2 = self.scalars(count)
-        p = lay.params[lo:hi]
-        mu, nu = state["mu"], state.get("nu")
-        for n, a, b in lay.slots:
-            s, e = max(a, lo) - lo, min(b, hi) - lo
-            if s >= e:
-                continue
-            self.update_leaf(decays(n, lay.named[n]), p[s:e], g[s:e],
-                             mu[s:e], None if nu is None else nu[s:e], lr,
-                             bc1, bc2)
-        if self.zero1:
-            collectives.all_gather_into(lay.params, p.clone(), self.ctx,
-                                        "dp")
+        for part in self.parts:
+            lay = part.layout
+            lo, hi = part.span
+            g = part.g if part.zero1 else part.g[lo:hi]
+            if cfg.clip_grad and not norm_host < cfg.clip_grad:
+                g.div_(norm_dev).mul_(cfg.clip_grad)
+            p = lay.params[lo:hi]
+            mu, nu = state["mu" + part.suffix], state.get("nu" + part.suffix)
+            for n, a, b in lay.slots:
+                s, e = max(a, lo) - lo, min(b, hi) - lo
+                if s >= e:
+                    continue
+                self.update_leaf(decays(n, lay.named[n]), p[s:e], g[s:e],
+                                 mu[s:e], None if nu is None else nu[s:e],
+                                 lr, bc1, bc2)
+            if part.zero1:
+                collectives.all_gather_into(lay.params, p.clone(), self.ctx,
+                                            lay.axis)
         state["count"] = count + 1
 
     # -- the layout-independent state ----------------------------------------
-    def _full_moment(self, flat: torch.Tensor) -> torch.Tensor:
-        """A moment over the whole flat buffer (gathered over dp under
+    def _full_moment(self, part: _Part, flat: torch.Tensor) -> torch.Tensor:
+        """A moment over a whole flat buffer (gathered over its axis under
         ZeRO-1)."""
-        if not self.zero1:
+        if not part.zero1:
             return flat
-        full = torch.empty(self.layout.padded, dtype=flat.dtype,
+        full = torch.empty(part.layout.padded, dtype=flat.dtype,
                            device=flat.device)
-        return collectives.all_gather_into(full, flat, self.ctx, "dp")
+        return collectives.all_gather_into(full, flat, self.ctx,
+                                           part.layout.axis)
+
+    def _moments(self, state) -> List[str]:
+        """The names of the state's moments ("mu", "nu"), without the
+        parts' suffixes."""
+        return [k for k, v in state.opt_state.items()
+                if isinstance(v, torch.Tensor) and EXPERT_SUFFIX not in k]
 
     def full_state_dict(self, state) -> Optional[Dict[str, object]]:
         """The train state with every leaf whole, as CPU tensors, under the
         one-device leaf paths, on rank 0 (None on the others). Collective:
         every rank calls it."""
-        lay, ctx = self.layout, self.ctx
+        ctx = self.ctx
         # Who keeps the whole leaves: rank 0, or under pp each stage's
         # rank of dp, cp and tp index 0 (their stages then meet on rank 0).
         keep = ctx.is_lead if ctx.pp == 1 else not (
             ctx.dp_rank or ctx.cp_rank or ctx.tp_rank)
         out: Dict[str, object] = {"step": int(state.step)}
         tensors: Dict[str, torch.Tensor] = {}
-        segs = segment_counts(lay.named)
-        for n, p in lay.named.items():
-            full = gather_leaf(p.detach(), n, segs[n], ctx)
-            if keep:
-                tensors[f"params/{n}"] = full.to("cpu", copy=True)
-        for key, flat in state.opt_state.items():
-            if not isinstance(flat, torch.Tensor):
-                out[f"opt_state/{key}"] = int(flat)
-                continue
-            whole = self._full_moment(flat)
-            for n in lay.named:
-                full = gather_leaf(lay.view(whole, n).contiguous(), n,
-                                   segs[n], ctx)
+        for part in self.parts:
+            lay = part.layout
+            segs = segment_counts(lay.named)
+            for n, p in lay.named.items():
+                full = gather_leaf(p.detach(), n, segs[n], ctx)
                 if keep:
-                    tensors[f"opt_state/{key}/{n}"] = full.to("cpu",
-                                                             copy=True)
-            del whole
+                    tensors[f"params/{n}"] = full.to("cpu", copy=True)
+        for key, v in state.opt_state.items():
+            if not isinstance(v, torch.Tensor):
+                out[f"opt_state/{key}"] = int(v)
+        for key in self._moments(state):
+            for part in self.parts:
+                lay = part.layout
+                segs = segment_counts(lay.named)
+                whole = self._full_moment(part,
+                                          state.opt_state[key + part.suffix])
+                for n in lay.named:
+                    full = gather_leaf(lay.view(whole, n).contiguous(), n,
+                                       segs[n], ctx)
+                    if keep:
+                        tensors[f"opt_state/{key}/{n}"] = full.to(
+                            "cpu", copy=True)
+                del whole
         if ctx.pp > 1:
             from megatronapp_tpu_torch.parallel.sharding import (
                 gather_stages,
@@ -303,11 +365,15 @@ class DistributedOptimizer(Optimizer):
         when the leaf paths differ from the whole model's (under pp every
         stage's, so every rank raises alike) or a shard's shape from the
         state's. Collective under pp: every rank calls it."""
-        lay, ctx = self.layout, self.ctx
-        want = {"step"} | {f"params/{n}" for n in lay.named}
+        ctx = self.ctx
+        names = [n for part in self.parts for n in part.layout.named]
+        moments = self._moments(state)
+        want = {"step"} | {f"params/{n}" for n in names}
         for key, v in state.opt_state.items():
-            want |= ({f"opt_state/{key}/{n}" for n in lay.named}
-                     if isinstance(v, torch.Tensor) else {f"opt_state/{key}"})
+            if not isinstance(v, torch.Tensor):
+                want.add(f"opt_state/{key}")
+        for key in moments:
+            want |= {f"opt_state/{key}/{n}" for n in names}
         if ctx.pp > 1:
             # The whole model's leaves: every stage's, gathered.
             import torch.distributed as dist
@@ -321,27 +387,34 @@ class DistributedOptimizer(Optimizer):
                 f"train state structure differs: missing "
                 f"{sorted(want - set(flat))[:4]}, unexpected "
                 f"{sorted(extra)[:4]}")
-        segs = segment_counts(lay.named)
+        for part in self.parts:
+            lay = part.layout
+            segs = segment_counts(lay.named)
 
-        def local(key, name):
-            t = shard_leaf(flat[key], tp_dim(name) if ctx.tp > 1 else None,
-                           segs[name], ctx.tp, ctx.tp_rank)
-            shape = lay.named[name].shape
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"{key}: checkpoint shard "
-                                 f"{tuple(t.shape)}, state {tuple(shape)}")
-            return t
+            def local(key, name):
+                t = shard_leaf(flat[key],
+                               tp_dim(name) if ctx.tp > 1 else None,
+                               segs[name], ctx.tp, ctx.tp_rank)
+                t = ep_shard(t, name, ctx)
+                shape = lay.named[name].shape
+                if tuple(t.shape) != tuple(shape):
+                    raise ValueError(f"{key}: checkpoint shard "
+                                     f"{tuple(t.shape)}, state "
+                                     f"{tuple(shape)}")
+                return t
 
-        for n in lay.named:
-            lay.named[n].copy_(local(f"params/{n}", n))
-        lo, hi = self.span
+            for n in lay.named:
+                lay.named[n].copy_(local(f"params/{n}", n))
+            lo, hi = part.span
+            for key in moments:
+                v = state.opt_state[key + part.suffix]
+                whole = torch.zeros(lay.padded, dtype=v.dtype,
+                                    device=v.device)
+                for n in lay.named:
+                    lay.view(whole, n).copy_(local(f"opt_state/{key}/{n}",
+                                                   n))
+                v.copy_(whole[lo:hi])
         for key, v in state.opt_state.items():
             if not isinstance(v, torch.Tensor):
                 state.opt_state[key] = int(flat[f"opt_state/{key}"])
-                continue
-            whole = torch.zeros(lay.padded, dtype=v.dtype, device=v.device)
-            for n in lay.named:
-                lay.view(whole, n).copy_(local(f"opt_state/{key}/{n}", n))
-            v.copy_(whole[lo:hi])
         state.step = int(flat["step"])
-

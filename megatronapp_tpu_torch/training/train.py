@@ -1,4 +1,4 @@
-"""GPT pretraining on one device or on a pp × dp × cp × tp rank grid (the JAX
+"""GPT pretraining on one device or on a pp × dp × ep × cp × tp rank grid (the JAX
 package's training/train.py:pretrain_gpt and its loop).
 
 Params are made on the device from the seed (or given, e.g. carried
@@ -46,11 +46,12 @@ train.py:1123-1290).
 
 On a rank grid (``ctx``, parallel/mesh.py; every rank calls this function
 with its own ctx): each rank builds the same global batch (the same seed
-or corpus; JAX's globalize_batch assumes the same) and takes its dp rows,
-contiguous blocks of each microbatch (JAX's ``P(None, (dp, ep))``), whose
-whole sequences the model cuts to the rank's cp share (models/gpt.py); the
-microbatch count is gbs / (mb · dp), rampup stages included; the params
-are the tp shards of the one-device init (models/gpt.py); the optimizer
+or corpus; JAX's globalize_batch assumes the same) and takes its rows of
+its (dp, ep) index, contiguous blocks of each microbatch (JAX's
+``P(None, (dp, ep))``), whose whole sequences the model cuts to the
+rank's cp share (models/gpt.py); the microbatch count is gbs / (mb · dp ·
+ep), rampup stages included; the params are the tp shards and the ep
+rank's experts of the one-device init (models/gpt.py); the optimizer
 is training/distributed_optimizer.py's (ZeRO-1 unless
 ``distributed_optimizer`` is off). Checkpoints hold every leaf whole
 (gathered over dp and tp, written once by rank 0's thread) under the
@@ -102,7 +103,7 @@ import numpy as np
 import torch
 
 from megatronapp_tpu_torch.config.parallel_config import (
-    check_context_parallel,
+    check_context_parallel, moe_unported,
 )
 from megatronapp_tpu_torch.config.training_config import (
     OptimizerConfig, TrainingConfig,
@@ -212,7 +213,8 @@ class _CheckpointScribe:
             "dp": dopt.ctx.dp, "tp": dopt.ctx.tp, "zero1": dopt.zero1,
             **({"pp": dopt.ctx.pp, "vpp": dopt.ctx.vpp}
                if dopt.ctx.pp > 1 else {}),
-            **({"cp": dopt.ctx.cp} if dopt.ctx.cp > 1 else {})})
+            **({"cp": dopt.ctx.cp} if dopt.ctx.cp > 1 else {}),
+            **({"ep": dopt.ctx.ep} if dopt.ctx.ep > 1 else {})})
 
     def full_state(self, state: TrainState):
         """The state with whole leaves (None on ranks other than 0)."""
@@ -282,13 +284,33 @@ def reshape_global_batch(batch: Dict[str, np.ndarray], num_micro: int
 
 
 def dp_rows(batch: Dict[str, np.ndarray], ctx) -> Dict[str, np.ndarray]:
-    """This dp rank's rows of [num_micro, mb·dp, ...] microbatches: its
-    contiguous block of each (JAX batch_shardings' P(None, (dp, ep)))."""
-    if ctx is None or ctx.dp == 1:
+    """This rank's rows of [num_micro, mb·dp·ep, ...] microbatches: the
+    contiguous block of its (dp, ep) index, dp_rank · ep + ep_rank, of each
+    (JAX batch_shardings' P(None, (dp, ep)))."""
+    if ctx is None or ctx.batch == 1:
         return batch
-    mb = next(iter(batch.values())).shape[1] // ctx.dp
-    r = ctx.dp_rank
+    mb = next(iter(batch.values())).shape[1] // ctx.batch
+    r = ctx.batch_rank
     return {k: v[:, r * mb:(r + 1) * mb] for k, v in batch.items()}
+
+
+def check_moe_training(model_cfg: TransformerConfig, ctx, parallel) -> None:
+    """A MoE model trains on one device or a dp × ep × tp grid; under
+    MegaFBD, MegaDPP, pp or cp it raises, naming its ROADMAP.md item."""
+    if not model_cfg.is_moe:
+        return
+    par = ctx.parallel if ctx is not None else parallel
+    for what, on in (
+            ("MoE under MegaFBD (--forward-backward-disaggregating)",
+             par is not None and par.forward_backward_disaggregating),
+            ("MoE under MegaDPP (--use-dpp)", par is not None
+             and par.use_dpp),
+            ("MoE under pipeline parallelism", par is not None
+             and par.pipeline_parallel > 1),
+            ("MoE under context parallelism", par is not None
+             and par.context_parallel > 1)):
+        if on:
+            raise NotImplementedError(moe_unported(what))
 
 
 def gpt_microbatch_loss(cfg: TransformerConfig, ctx=None):
@@ -428,6 +450,7 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     with a ctx, ctx.parallel rules."""
     if ctx is not None:
         check_context_parallel(train_cfg.seq_length, ctx.cp)
+    check_moe_training(model_cfg, ctx, parallel)
     if ctx is not None and ctx.fbd_role is not None:
         return _pretrain_gpt_fbd(model_cfg, train_cfg, opt_cfg, ctx,
                                  params=params, batch_iter=batch_iter,
@@ -450,7 +473,7 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
             log_fn("dpp: layout has tp/cp/ep > 1 (or MTP) — host "
                    "runner needs one stage per device per replica; "
                    "falling back to static bfc SPMD ordering")
-    dp = 1 if ctx is None else ctx.dp
+    dp = 1 if ctx is None else ctx.batch
     if dpp is not None:
         dp = dpp.data_parallel or 1
     lead = ctx is None or ctx.is_lead

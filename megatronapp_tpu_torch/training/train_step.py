@@ -21,9 +21,10 @@ record nothing outside a traced iteration.
 
 Under a rank grid (``ctx``; the optimizer a
 training/distributed_optimizer.py ``DistributedOptimizer``) each rank runs
-its dp rows of each microbatch through its tp shards; the microbatch
-losses are this rank's shares of the token mean over every dp rank's rows
-(ops/cross_entropy.py). Under pp (``pipeline``, JAX train_step.py:161)
+its dp rows (dp × ep rows under expert parallelism) of each microbatch
+through its tp shards; the microbatch losses are this rank's shares of
+the token mean over every dp rank's rows (ops/cross_entropy.py), and a
+MoE model's aux loss is each rank's share of it (transformer/moe.py). Under pp (``pipeline``, JAX train_step.py:161)
 the loss function takes the whole batch and runs the pipeline's forward
 and backward (its own 'forward', 'loss' and 'backward' spans): the loss
 is the last stage's share of the token mean over all microbatches, the
@@ -169,8 +170,10 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
             every = all_gather_cat(mine[None], ctx, "world", 0)
             # A cp group's ranks hold the same (cp-summed) grads: sharded
             # leaves' squares count once per cp group, the rest once per
-            # (cp, tp) group; the dp and cp ranks' loss shares once per tp
-            # group of the last stage (the other stages report zeros).
+            # (cp, tp) group (dp and ep ranks hold distinct chunks, or
+            # distinct experts); the dp, ep and cp ranks' loss shares once
+            # per tp group of the last stage (the other stages report
+            # zeros).
             tp_lead = [r % ctx.tp == 0 for r in range(ctx.world)]
             cp_lead = [r // ctx.tp % ctx.cp == 0 for r in range(ctx.world)]
 
@@ -203,8 +206,8 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
 def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False):
     """Forward-only loss (JAX train_step.py:297): the mean of the
     microbatch losses under torch.no_grad(), on the device (a 0-d fp32
-    tensor; the caller reads it back). ctx: the rank grid; the dp and cp
-    ranks' shares are summed over dp and cp. pipeline: loss_fn(params,
+    tensor; the caller reads it back). ctx: the rank grid; the dp (dp ×
+    ep) and cp ranks' shares are summed over them. pipeline: loss_fn(params,
     batch, grad=False) runs the pipeline's forward over the whole batch;
     the last stage's dp shares (from tp rank 0) are summed over the
     world, so every rank reads the loss.
@@ -233,7 +236,7 @@ def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False):
             from megatronapp_tpu_torch.parallel.collectives import (
                 all_reduce,
             )
-            for axis in ("dp", "cp"):
+            for axis in ("batch", "cp"):
                 total = all_reduce(total, ctx, axis)
         return total
 

@@ -5,7 +5,14 @@ them with ``lax.scan``; here each layer is one ``ParamTree`` in an
 ``nn.ModuleList`` and callers loop over it. Pre-LN residual structure:
 input norm → attention → +residual → pre-MLP norm → MLP → +residual.
 ``block_forward`` runs the layers for training, each under the remat
-policy (``_remat_wrap``).
+policy (``_remat_wrap``), and sums their MoE aux losses.
+
+A MoE config's layers (transformer/moe.py) hold ``moe`` where a dense
+layer holds ``mlp``: every layer at moe_layer_freq 1, else layer i iff i
+% moe_layer_freq == 0 (JAX's {"moe": [G, ...], "dense": [G, freq−1,
+...]} groups, unstacked into the list). The MoE branch has no MegaScope
+capture of its own (JAX's mlp1 / mlp2 sites are in the dense MLP); the
+layer's 'system' disturbance and 'between_layers' capture stay.
 """
 
 from __future__ import annotations
@@ -30,22 +37,17 @@ from megatronapp_tpu_torch.transformer.attention import (
 )
 from megatronapp_tpu_torch.transformer.mla import init_mla_params, mla_forward
 from megatronapp_tpu_torch.transformer.mlp import init_mlp_params, mlp_forward
+from megatronapp_tpu_torch.transformer.moe import init_moe_params, moe_forward
 from megatronapp_tpu_torch.utils.params import ParamTree
 
 
-def _check_dense(cfg: TransformerConfig):
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md Queue 1 item 4, MoE "
-            "and EP)")
-
-
 def init_layer_params(cfg: TransformerConfig, generator: torch.Generator,
-                      device) -> ParamTree:
-    """One layer's params (the MLA leaves for a multi_latent_attention
-    config, JAX block.py:41-45). Residual-out projections use the scaled
-    init std / sqrt(2 * num_layers)."""
-    _check_dense(cfg)
+                      device, layer_id: int = 0) -> ParamTree:
+    """Layer `layer_id`'s params (the MLA leaves for a
+    multi_latent_attention config, JAX block.py:41-45; the MoE leaves,
+    ``moe``, when cfg.is_moe_layer(layer_id), JAX block.py:61-64).
+    Residual-out projections use the scaled init std / sqrt(2 *
+    num_layers)."""
     out_std = cfg.init_method_std / math.sqrt(2.0 * cfg.num_layers)
     h, dt = cfg.hidden_size, cfg.params_dtype
     leaves = {"ln1_scale": torch.ones(h, dtype=dt, device=device),
@@ -55,15 +57,18 @@ def init_layer_params(cfg: TransformerConfig, generator: torch.Generator,
         leaves["ln2_bias"] = torch.zeros(h, dtype=dt, device=device)
     init_attn = (init_mla_params if cfg.multi_latent_attention
                  else init_attention_params)
-    return ParamTree(
-        leaves, attention=init_attn(cfg, generator, device, out_std),
-        mlp=init_mlp_params(cfg, generator, device, out_std))
+    attention = init_attn(cfg, generator, device, out_std)
+    if cfg.is_moe_layer(layer_id):
+        return ParamTree(leaves, attention=attention, moe=init_moe_params(
+            cfg, generator, device, out_std))
+    return ParamTree(leaves, attention=attention,
+                     mlp=init_mlp_params(cfg, generator, device, out_std))
 
 
 def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
                       device) -> nn.ModuleList:
-    return nn.ModuleList(init_layer_params(cfg, generator, device)
-                         for _ in range(cfg.num_layers))
+    return nn.ModuleList(init_layer_params(cfg, generator, device, i)
+                         for i in range(cfg.num_layers))
 
 
 def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
@@ -74,7 +79,9 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   fused_decode: bool = False, segment_ids=None, ctx=None,
                   kv_scales=None, lora=None, layer_id=None,
                   zigzag: bool = False):
-    """One transformer layer. x: [B,S,H] → ((out, new_cache), aux_losses);
+    """One transformer layer. x: [B,S,H] → ((out, new_cache), aux): aux
+    is the MoE layer's aux loss (this rank's share under a training ctx,
+    transformer/moe.py), None for a dense layer;
     the paged, mask and segment arguments are attention_forward's
     (no kv_cache: the training branch, new_cache None). kv_scales: the
     layer's fp32 scale pools, marking a quantized (int8/fp8) paged pool
@@ -112,7 +119,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             raise ValueError(
                 "fused_decode under a tp ctx: the fused kernels are "
                 "single-device (the tp engine keeps the unfused body)")
-        if page_table is None or kv_cache is None or cfg.is_moe:
+        if page_table is None or kv_cache is None or "moe" in p:
             raise ValueError(
                 "fused_decode covers the dense-MLP paged decode/multiquery "
                 "bodies only — gate callers on "
@@ -128,7 +135,6 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         return fused_layer_decode(p, x, cfg, rope_cos, rope_sin, kv_cache,
                                   cache_positions, page_table, write_index,
                                   kv_scales, lora=lora)
-    _check_dense(cfg)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln1_scale"], p.get("ln1_bias"),
                    cfg.layernorm_epsilon)
@@ -169,12 +175,21 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
                    cfg.layernorm_epsilon)
-    x = residual + mlp_forward(
-        p["mlp"], h, cfg, lora=lora, layer_id=layer_id,
-        ctx=ctx if kv_cache is None else None).to(residual.dtype)
+    aux = None
+    if "moe" in p:
+        if lora is not None:
+            raise ValueError("lora serving targets the dense fc1/fc2 "
+                             "kernels — MoE layers are unsupported")
+        mlp_out, aux = moe_forward(p["moe"], h, cfg, layer_id=layer_id,
+                                   ctx=ctx if kv_cache is None else None)
+    else:
+        mlp_out = mlp_forward(p["mlp"], h, cfg, lora=lora,
+                              layer_id=layer_id,
+                              ctx=ctx if kv_cache is None else None)
+    x = residual + mlp_out.to(residual.dtype)
     x = get_disturbance().apply("system", x, layer_id)
     x = scope_capture("between_layers", x, layer_id)
-    return (x, new_cache), None
+    return (x, new_cache), aux
 
 
 REMAT_POLICIES = ("full", "selective", "selective_attn", "none")
@@ -202,18 +217,21 @@ def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
     layer_forward). layer_ids: each layer's global index (a pipeline
     stage's chunk, JAX's layer_offset), so MegaScope's sites see the ids
     one device gives them; default 0, 1, ... zigzag: x is this cp rank's
-    share in zigzag order (JAX block.py:167). Returns (x, moe_aux_sum);
-    dense layers add no aux loss, so the sum is a zero scalar."""
+    share in zigzag order (JAX block.py:167). Returns (x, moe_aux_sum):
+    the MoE layers' aux losses summed (a zero scalar without them)."""
 
     def run_layer(layer_p, h, lid):
-        (h2, _), _ = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
-                                   attention_mask, segment_ids=segment_ids,
-                                   ctx=ctx, layer_id=lid, zigzag=zigzag)
-        return h2
+        (h2, _), aux = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
+                                     attention_mask, segment_ids=segment_ids,
+                                     ctx=ctx, layer_id=lid, zigzag=zigzag)
+        return h2, aux
 
     run_layer = _remat_wrap(run_layer, cfg.remat_policy)
     if layer_ids is None:
         layer_ids = range(len(layers))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lid, layer_p in zip(layer_ids, layers):
-        x = run_layer(layer_p, x, lid)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = run_layer(layer_p, x, lid)
+        if aux is not None:
+            total = total + aux
+    return x, total

@@ -20,7 +20,8 @@
   card and raise without one;
 - the training grid (a dp × tp build_mesh, pretrain_gpt.py's build_grid
   under a launcher's environment) takes the card too and raises without
-  one before a group is joined.
+  one before a group is joined; an expert-parallel one as well;
+- the converter refuses a MoE leaf it does not place.
 """
 
 import ast
@@ -86,7 +87,8 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.runtime.dpp_train",
             "megatronapp_tpu_torch.training.distributed_optimizer",
             "megatronapp_tpu_torch.ops.cross_entropy",
-            "megatronapp_tpu_torch.ops.context_parallel"} <= set(mods)
+            "megatronapp_tpu_torch.ops.context_parallel",
+            "megatronapp_tpu_torch.transformer.moe"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -903,6 +905,52 @@ def test_context_parallel_grid_defaults_to_the_card(monkeypatch):
                            "--num-layers", "1", "--hidden-size", "64",
                            "--num-attention-heads", "4",
                            "--seq-length", "64"])
+
+
+def test_expert_parallel_grid_defaults_to_the_card(monkeypatch):
+    """A dp × ep × tp grid with no device, and pretrain_gpt.py's ep ranks
+    under a launcher's environment, resolve the card before joining a
+    group: without one each raises."""
+    from megatronapp_tpu_torch import pretrain_gpt
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mesh(ParallelConfig(expert_parallel=2, tensor_parallel=2),
+                   rank=0, world_size=8,
+                   init_method="file:///nonexistent/never")
+    for k, v in {"RANK": "1", "WORLD_SIZE": "2", "LOCAL_RANK": "1",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_gpt.main(["--expert-model-parallel-size", "2",
+                           "--num-experts", "4", "--num-layers", "1",
+                           "--hidden-size", "64",
+                           "--num-attention-heads", "4",
+                           "--seq-length", "64"])
+
+
+@pytest.mark.parametrize("where", ["block", "moe"])
+def test_convert_raises_on_unknown_moe_leaf(where):
+    from megatronapp_tpu_torch.models.presets import mixtral_8x7b
+    cfg = mixtral_8x7b(num_layers=2, hidden_size=64, num_attention_heads=4,
+                       num_query_groups=2, ffn_hidden_size=128,
+                       moe_ffn_hidden_size=128, vocab_size=128,
+                       num_moe_experts=4)
+    t = _jax_tree(cfg)
+    mlp = t["block"].pop("mlp")
+    z = np.zeros
+    t["block"]["moe"] = {
+        "router_kernel": z((2, 64, 4), np.float32),
+        "fc1_kernel": z((2, 4) + mlp["fc1_kernel"].shape[1:], np.float32),
+        "fc2_kernel": z((2, 4) + mlp["fc2_kernel"].shape[1:], np.float32)}
+    got = params_from_jax(t, cfg)              # the known tree converts
+    assert tuple(got["layers"][0]["moe"]["fc1_kernel"].shape) == (4, 64,
+                                                                   256)
+    {"block": t["block"], "moe": t["block"]["moe"]}[where]["mystery"] = \
+        np.zeros((2, 4), np.float32)
+    with pytest.raises(KeyError, match="unknown leaf"):
+        params_from_jax(t, cfg)
 
 
 def test_serve_tp_parses_and_refuses_lora(capsys):

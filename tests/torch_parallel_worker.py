@@ -1,14 +1,14 @@
-"""One rank of the port's pp × dp × cp × tp training grid, for
+"""One rank of the port's pp × dp × ep × cp × tp training grid, for
 tests/test_torch_parallel_*.py, tests/test_torch_pipeline.py,
 tests/test_torch_pp_schedule.py, tests/test_torch_fbd.py,
-tests/test_torch_context_parallel.py and tests/test_torch_cp_train.py
-(spawned; it imports torch and the port only, so a rank starts without
-JAX). A case's "par" holds its fields of ParallelConfig beside tp
-(pipeline_parallel, virtual_pipeline_parallel, pp_schedule,
-pipeline_order_policy, pp_plan_from_trace, context_parallel,
-forward_backward_disaggregating: a MegaFBD world, parallel/fbd.py
-split_fbd_meshes), and "cp_a2a" the inner all-to-all size of an
-'a2a+p2p' grid. A case with "expect_error" reports the exception it
+tests/test_torch_context_parallel.py, tests/test_torch_cp_train.py and
+tests/test_torch_ep_train.py (spawned; it imports torch and the port
+only, so a rank starts without JAX). A case's "par" holds its fields of
+ParallelConfig beside tp (pipeline_parallel, virtual_pipeline_parallel,
+pp_schedule, pipeline_order_policy, pp_plan_from_trace,
+context_parallel, expert_parallel, forward_backward_disaggregating: a
+MegaFBD world, parallel/fbd.py split_fbd_meshes), and "cp_a2a" the inner
+all-to-all size of an 'a2a+p2p' grid. A case with "expect_error" reports the exception it
 raised as {"raised": repr}.
 
 ``spawn_ranks`` starts ``world`` processes once; ``run_rank`` then runs
@@ -280,7 +280,10 @@ def _split(case, ctx):
             "tp_rank": ctx.tp_rank, "cp_ranks": ctx.cp_ranks,
             "cp_next": ctx.cp_next_rank, "cp_prev": ctx.cp_prev_rank,
             "cp_a2a_ranks": ctx.cp_a2a_ranks,
-            "cp_outer_ranks": ctx.cp_outer_ranks}
+            "cp_outer_ranks": ctx.cp_outer_ranks, "ep": ctx.ep,
+            "ep_rank": ctx.ep_rank, "ep_ranks": ctx.ep_ranks,
+            "dp_rank": ctx.dp_rank, "batch_rank": ctx.batch_rank,
+            "batch_ranks": ctx.batch_ranks}
 
 
 def _fbd(case, ctx):
