@@ -315,6 +315,34 @@ Phases, each printing one JSON line:
             grad norm within 1e-3 of one rank's, every rank's metrics
             equal, the flash launches, the ep hops by count and bytes,
             the traced 'moe-a2a-*' spans, peak memory a rank.
+   train_overlap: the fp8 GEMM (torch._scaled_mm on e4m3 operands:
+            JAX's fp8 GEMM is an XLA dot, no Pallas kernel) against its
+            fp32-upcast plain version at a rank's llama3-8b GEMM shapes
+            and operand layouts, the forward's five and the backward's
+            ten wgrads and dgrads (a rank's 2048-row chunk; error over
+            the max within 1e-3, timed beside its fp8 bound); then
+            pretrain_gpt on 4 spawned ranks (dp 2 x tp 2) sharing cuda:0
+            over gloo, train_tp's model and data, twice: run A with
+            tp_comm_overlap (the ring all-gather-matmul and
+            matmul-reduce-scatter) and dist_opt_comm ring, run B the same
+            with fp8. A's loss and grad norm within 1e-3 of train_tp's
+            one-rank run (its own when train_tp did not run), B's losses
+            within 1e-2 of A's, on each rank of B the fp8 ring Functions
+            (a rank's QKV pair and fc2, forward and backward) within 1e-3
+            of themselves on the plain GEMM, every rank's metrics equal,
+            train_tp's flash launches, the tp ring hops, the
+            sequence all-gathers and the dp param-return hops by count and
+            bytes exactly the reckoning's (B's x and dout chunks e4m3,
+            half A's bytes), B's fp8 GEMMs a rank, every slot-0 amax > 0,
+            the saturation counts, and the traced iteration's ring spans
+            with their bytes and tids.
+   train_fsdp: pretrain_gpt with ParallelConfig(fsdp=True) on 4 spawned
+            ranks (dp 2 x tp 2), train_tp's model and data: loss and grad
+            norm within 1e-3 of the one-rank run, each rank's resident
+            params, grads and moments and its dp gathers and
+            reduce-scatters by count and bytes exactly the reckoning's,
+            the flash launches (each layer's forward again in the
+            backward's recompute), peak memory a rank beside train_tp's.
 8. profile: device time by kernel family through the unfused, the fused
             and the quantized fused engine at the slice's shapes: the
             prefill of one 1008-token prompt, then decode steps with 8
@@ -5720,6 +5748,8 @@ def phase_train_tp(state):
     one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None, None)[0]
     check("error" not in one_rank, f"train_tp: the one-rank run failed: "
           f"{one_rank.get('error')}")
+    # train_overlap's and train_fsdp's yardstick too (the same run).
+    state["tp_one_rank"] = one_rank
     free, _ = torch.cuda.mem_get_info()
     parent = {"allocated": torch.cuda.memory_allocated(),
               "reserved": torch.cuda.memory_reserved(), "card_free": free}
@@ -5813,6 +5843,7 @@ def phase_train_tp(state):
     check(all(isinstance(stage2.get(r), bool) for r in range(TP_WORLD)),
           f"train_tp: detect's stage 2 gave {stage2}, not a verdict for "
           f"each of the {TP_WORLD} ranks")
+    state["train_tp_peak_mem_bytes"] = r0["peak_mem_bytes"]
 
 
 # ---- train_pp ----------------------------------------------------------------
@@ -7306,6 +7337,587 @@ def phase_train_ep(state):
     state["train_ep_launches"] = r0["launches"]
 
 
+# ---- TP overlap, fp8 and FSDP (slice 16) -----------------------------------
+
+# torch._scaled_mm (JAX's fp8 GEMM is an XLA dot, not a Pallas kernel) at a
+# rank's llama3-8b shapes at tp 2, a rank's chunk of S 4096 being 2048 rows:
+# (M, K, N, A transposed, B transposed), as parallel/overlap.py's ring bodies
+# call fp8_gemm. The forward's A is a row-major [2048, K] chunk and its B a
+# [K, N] weight shard. The backward's: the QKV and fc1 wgrads multiply the
+# x chunk's transpose by the cotangent chunk ([H, 2048] · [2048, N]), their
+# dgrads the cotangent chunk by the weight's transpose ([2048, N] · [N, H]);
+# the out and fc2 dgrads the cotangent chunk by the weight's transpose
+# ([2048, H] · [H, N]), their wgrads the input chunk's transpose by the
+# cotangent chunk ([N, 2048] · [2048, H]).
+FP8_GEMM_ROWS = 2048
+FP8_GEMM_SHAPES = {
+    "q": (2048, 4096, 2048, False, False),
+    "kv": (2048, 4096, 1024, False, False),
+    "fc1": (2048, 4096, 14336, False, False),
+    "out": (2048, 2048, 4096, False, False),
+    "fc2": (2048, 7168, 4096, False, False),
+    "q wgrad": (4096, 2048, 2048, True, False),
+    "kv wgrad": (4096, 2048, 1024, True, False),
+    "fc1 wgrad": (4096, 2048, 14336, True, False),
+    "q dgrad": (2048, 2048, 4096, False, True),
+    "kv dgrad": (2048, 1024, 4096, False, True),
+    "fc1 dgrad": (2048, 14336, 4096, False, True),
+    "out dgrad": (2048, 4096, 2048, False, True),
+    "fc2 dgrad": (2048, 4096, 7168, False, True),
+    "out wgrad": (2048, 2048, 4096, True, False),
+    "fc2 wgrad": (7168, 2048, 4096, True, False),
+}
+# Both sides multiply the same e4m3 codes with fp32 accumulation in other
+# orders: max |err| over the plain version's max |value|.
+FP8_GEMM_TOL = 1e-3
+FP8_FLOPS_PER_S = 1979e12       # dense fp8 tensor-core peak
+# Run B (fp8) against run A, step by step (JAX's FP8_LOSS_RTOL).
+FP8_RUN_RTOL = 1e-2
+# Run B's grads are not held against A's: its first steps quantize the
+# cotangents with histories still filling down the layers (PERF.md §6).
+# Instead each rank of run B holds the fp8 ring Functions, forward and
+# backward, against themselves with fp8_gemm's plain version in its place
+# (the same e4m3 codes upcast to fp32), at a rank's QKV pair and fc2
+# (_fp8_ring_check), within FP8_GEMM_TOL.
+# fp8 GEMMs a layer a micro-batch at tp 2 (forward: the QKV pair and the
+# three others over 2 chunks = 10; backward: QKV 4 wgrad + 4 dgrad, out,
+# fc1 and fc2 4 each = 20).
+FP8_GEMMS_PER_LAYER = 30
+
+
+def _fp8_gemm_check():
+    """fp8_gemm (torch._scaled_mm on e4m3 operands) against its plain
+    version (the codes upcast to fp32, an fp32 matmul) at FP8_GEMM_SHAPES,
+    the forward's and the backward's operand layouts, each timed in turns
+    with its plain version beside its fp8 bound."""
+    from megatronapp_tpu_torch.training import fp8
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4328)
+    out = {}
+    calls = fp8.gemm_calls["fp8_gemm"]
+    for name, (m, k, n, a_t, b_t) in FP8_GEMM_SHAPES.items():
+        # Stored as the ring bodies hold them; a transposed operand is a
+        # view of the tensor the body transposes.
+        a32 = torch.randn(*((k, m) if a_t else (m, k)), generator=gen,
+                          device=dev)
+        b32 = 0.02 * torch.randn(*((n, k) if b_t else (k, n)),
+                                 generator=gen, device=dev)
+        sa = fp8.FP8_MAX / a32.abs().amax()
+        sb = fp8.FP8_MAX / b32.abs().amax()
+        a, b = fp8.fp8_quantize(a32, sa)[0], fp8.fp8_quantize(b32, sb)[0]
+        a, b = (a.T if a_t else a), (b.T if b_t else b)
+        inv = 1.0 / (sa * sb)
+        del a32, b32
+        got = fp8.fp8_gemm(a, b, inv)
+        ref = (a.float() @ b.float()) * inv
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        ms = cuda_time_ms(lambda: fp8.fp8_gemm(a, b, inv))
+        plain = cuda_time_ms(lambda: (a.float() @ b.float()) * inv)
+        ms2 = cuda_time_ms(lambda: fp8.fp8_gemm(a, b, inv))
+        flops = 2 * m * k * n
+        nbytes = m * k + k * n + m * n * 4
+        t_ops = flops / FP8_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"m": m, "k": k, "n": n, "a_transposed": a_t,
+                     "b_transposed": b_t, "max_err_over_max": err,
+                     "ms": min(ms, ms2), "plain_ms": plain,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+        check(tuple(got.shape) == (m, n) and err <= FP8_GEMM_TOL,
+              f"train_overlap: the fp8 GEMM at {name} ({m} x {k} x {n}, "
+              f"A{'ᵀ' if a_t else ''} B{'ᵀ' if b_t else ''}) is {err} of "
+              f"the plain version's max off it (tolerance {FP8_GEMM_TOL})")
+        del a, b, got, ref
+    # These comparison calls are not the main path's.
+    fp8.gemm_calls["fp8_gemm"] = calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_overlap_rank(rank, init_method, plan, out_q):
+    """One rank of train_overlap or train_fsdp (a spawned process on
+    cuda:0)."""
+    try:
+        rep = _train_overlap_rank_run(rank, init_method, plan)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        import traceback
+        rep = {"error": f"{e!r}\n{traceback.format_exc()[-4000:]}"}
+    out_q.put((rank, rep))
+
+
+def _train_overlap_rank_run(rank, init_method, plan):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from megatronapp_tpu_torch.config.parallel_config import ParallelConfig
+    from megatronapp_tpu_torch.ops.cuda import flash_attention as fa
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.mesh import build_mesh
+    from megatronapp_tpu_torch.training import fp8
+    from megatronapp_tpu_torch.training.train import pretrain_gpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(plan.get("device", "cuda:0"))
+    cuda = dev.type == "cuda"
+    ctx = build_mesh(ParallelConfig(tensor_parallel=TP_DEGREE,
+                                    fsdp=plan["fsdp"]),
+                     rank=rank, init_method=init_method, device=dev,
+                     world_size=TP_WORLD, timeout_s=TP_TIMEOUT_S)
+    cfg, train_cfg, opt_cfg = _train_tp_configs(plan["trace_dir"])
+    cfg = dataclasses.replace(cfg, tp_comm_overlap=plan["overlap"],
+                              fp8=plan["fp8"])
+    opt_cfg = dataclasses.replace(opt_cfg, dist_opt_comm=plan["comm"])
+    lines = []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    # The main path: counts zeroed just before, read just after.
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    fp8.gemm_calls.update(dict.fromkeys(fp8.gemm_calls, 0))
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    res = pretrain_gpt(cfg, train_cfg, opt_cfg, ctx=ctx,
+                       log_fn=lines.append)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    opt = res.state.opt_state
+    out = {"dp": ctx.dp, "tp": ctx.tp, "dp_rank": ctx.dp_rank,
+           "tp_rank": ctx.tp_rank, "launches": dict(fa.launches),
+           "fp8_gemms": fp8.gemm_calls["fp8_gemm"],
+           "traffic": {k: dict(v) for k, v in collectives.traffic.items()},
+           "losses": [m["loss"] for m in res.log],
+           "grad_norms": [m["grad_norm"] for m in res.log],
+           "step_ms": [m["step_time_ms"] for m in res.log], "wall_s": wall,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else None),
+           "local_params": sum(p.numel()
+                               for p in res.state.params.parameters()),
+           "mu": [opt["mu"].numel(), opt["mu"].element_size()],
+           "nu": [opt["nu"].numel(), opt["nu"].element_size()],
+           "log": lines}
+    if res.state.fp8 is not None:
+        out["fp8_slot0"] = {
+            f"{mod}/{site}": leaves["hist"][:, :, 0].tolist()
+            for mod, sites in res.state.fp8["block"].items()
+            for site, leaves in sites.items()}
+        out["fp8_saturated"] = {
+            f"{mod}/{site}": leaves["sat"].tolist()
+            for mod, sites in res.state.fp8["block"].items()
+            for site, leaves in sites.items()}
+    del res
+    if plan["fp8"]:
+        # After the main path's counts were read: not the main path's.
+        out["fp8_ring_err"] = _fp8_ring_check(ctx, dev)
+    ctx.close()
+    return out
+
+
+def _fp8_ring_check(ctx, dev):
+    """The fp8 ring Functions (parallel/overlap.py, fp8_gemm on the card)
+    on this rank: the QKV pair [H, 2048] and [H, 1024] through
+    all_gather_matmul and fc2 [7168, H] through matmul_reduce_scatter, a
+    rank's llama3-8b shards at S 4096, forward and backward (the wgrad and
+    dgrad rings), the histories filled from the inputs' scale. Every
+    output is held against the same Functions with fp8_gemm's plain
+    version in its place (the e4m3 codes upcast to fp32, an fp32 matmul),
+    and each wgrad also against its own reckoning outside the rings: the
+    whole sequence's e4m3 codes of the input and the cotangent (x and the
+    fc2 cotangent are tp-replicated) multiplied in fp32 and descaled.
+    Activations are fp32, so only the GEMM and the rings' bookkeeping can
+    differ: {output: max |err| over the reference's max |value|}."""
+    from megatronapp_tpu_torch.parallel import overlap
+    from megatronapp_tpu_torch.training import fp8
+    h, s = 4096, TP_SEQ
+    # x is tp-replicated: one seed a dp rank; the rest one a rank.
+    gx = torch.Generator(device=dev).manual_seed(7001 + ctx.dp_rank)
+    gr = torch.Generator(device=dev).manual_seed(7101 + ctx.rank)
+
+    def randn(*shape, gen=gr, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    x = randn(1, s, h, gen=gx)
+    wq, wkv = randn(h, 2048, scale=0.02), randn(h, 1024, scale=0.02)
+    cq, ckv = randn(1, s, 2048, scale=1e-5), randn(1, s, 1024, scale=1e-5)
+    y, w2 = randn(1, s, 7168), randn(7168, h, scale=0.02)
+    cout = randn(1, s, h, gen=gx, scale=1e-5)
+
+    hists = {"qkv": [6.0, 0.13, 0.13, 6e-5, 6e-5], "fc2": [6.0, 0.13, 6e-5]}
+
+    def site(name):
+        n = len(hists[name])
+        hist = torch.zeros((1, n, 16), device=dev)
+        hist[0, :, 0] = torch.tensor(hists[name], device=dev)
+        return fp8.Fp8Step({"block": {"m": {"s": {
+            "hist": hist, "sat": torch.zeros((1, n), device=dev)}}}}
+        ).site(0, "m", "s")
+
+    def codes_wgrad(name, a, i, g, j):
+        """The wgrad of the whole sequence from e4m3 codes: a's with the
+        site's scale i, g's with its scale j."""
+        hist = torch.zeros((len(hists[name]), 16), device=dev)
+        hist[:, 0] = torch.tensor(hists[name], device=dev)
+        sc = fp8.fp8_scale_from_hist(hist, 0)
+        aq = fp8.fp8_quantize(a, sc[i])[0].float().reshape(s, -1)
+        gq = fp8.fp8_quantize(g, sc[j])[0].float().reshape(s, -1)
+        return (aq.T @ gq) / (sc[i] * sc[j])
+
+    def run():
+        xs, ws = x.clone().requires_grad_(), [
+            w.clone().requires_grad_() for w in (wq, wkv)]
+        q, kv = overlap.all_gather_matmul(xs, tuple(ws), ctx,
+                                          fp8=site("qkv"))
+        ((q * cq).sum() + (kv * ckv).sum()).backward()
+        ys, w2s = y.clone().requires_grad_(), w2.clone().requires_grad_()
+        out = overlap.matmul_reduce_scatter(ys, w2s, ctx, fp8=site("fc2"))
+        (out * cout).sum().backward()
+        return {"q": q, "kv": kv, "qkv dx": xs.grad, "q dw": ws[0].grad,
+                "kv dw": ws[1].grad, "fc2 out": out, "fc2 dy": ys.grad,
+                "fc2 dw": w2s.grad}
+
+    got = run()
+    card = fp8.fp8_gemm
+    fp8.fp8_gemm = lambda a, b, inv: (a.float() @ b.float()) * inv
+    try:
+        ref = run()
+    finally:
+        fp8.fp8_gemm = card
+    pairs = {k: (got[k], ref[k]) for k in got}
+    pairs.update({
+        "q dw vs codes": (got["q dw"], codes_wgrad("qkv", x, 0, cq, 3)),
+        "kv dw vs codes": (got["kv dw"], codes_wgrad("qkv", x, 0, ckv, 4)),
+        "fc2 dw vs codes": (got["fc2 dw"], codes_wgrad("fc2", y, 0, cout,
+                                                       2))})
+    return {k: float((a.detach() - b.detach()).abs().max()
+                     / b.detach().abs().max()) for k, (a, b) in pairs.items()}
+
+
+def _ring_spans(trace_dir):
+    """The traced iteration's ring spans of every rank file: {(name, op):
+    the set of bytes its permute B records carry}, the tids by name and
+    the record counts."""
+    import glob
+    spans, tids, counts = {}, {}, {}
+    for path in sorted(glob.glob(os.path.join(trace_dir,
+                                              "benchmark-data-*"))):
+        with open(path) as f:
+            for r in json.load(f):
+                name = r["name"]
+                if not (name.startswith("tp-overlap-")
+                        or name == "dp-overlap-permute"):
+                    continue
+                counts[f"{name}/{r['ph']}"] = counts.get(
+                    f"{name}/{r['ph']}", 0) + 1
+                tids.setdefault(name, set()).add(
+                    (r["pid"], r["tid"], r["args"].get("rank")))
+                if r["ph"] == "B" and "bytes" in r["args"]:
+                    spans.setdefault(f"{name}|{r['args']['op']}",
+                                     set()).add(r["args"]["bytes"])
+    return ({k: sorted(v) for k, v in spans.items()},
+            {k: sorted(v) for k, v in tids.items()}, counts)
+
+
+def _overlap_reckoning(cfg, rep, fp8_on: bool):
+    """A rank's tp ring hops and dp param-return hops for TP_STEPS steps
+    (PERF.md's reckoning). A layer a micro-batch: the forward rings x
+    into QKV and fc1 and reduce-scatters the out and fc2 partial sums (4
+    hops); the backward rings dout for out and fc2, x for the QKV and fc1
+    wgrads, and the QKV and fc1 dgrad partial sums (6 hops); tp - 1 = 1
+    hop a ring, each a [1, S/tp, H] chunk, bf16 (16 MiB). Under fp8 the x
+    and dout chunks are e4m3 (8 MiB: QKV and fc1 forward, their wgrad
+    rings and out's and fc2's dout), the partial sums stay bf16. The
+    sequence all-gathers: after the out and fc2 rings and the two dgrads'
+    chunks, 4 a layer a micro-batch, [1, S, H] bf16. ZeRO-1's ring param
+    return: dp - 1 = 1 hop a step of the rank's fp32 chunk."""
+    micro = TP_GBS // rep["dp"]
+    work = TP_LAYERS * micro * TP_STEPS
+    chunk = (TP_SEQ // TP_DEGREE) * cfg.hidden_size * 2
+    tp_bytes = work * ((6 * chunk // 2 + 4 * chunk) if fp8_on
+                       else 10 * chunk)
+    dp_chunk = rep["mu"][0] * 4
+    return {"send/tp": {"calls": 10 * work, "bytes": tp_bytes},
+            "recv/tp": {"calls": 10 * work, "bytes": tp_bytes},
+            "all_gather/tp": {"calls": 4 * work,
+                              "bytes": 4 * work * TP_SEQ * cfg.hidden_size
+                              * 2},
+            "send/dp": {"calls": TP_STEPS, "bytes": TP_STEPS * dp_chunk},
+            "recv/dp": {"calls": TP_STEPS, "bytes": TP_STEPS * dp_chunk}}
+
+
+def _grid_yardstick(state, phase):
+    one_rank = state.get("tp_one_rank")
+    if one_rank is None:
+        one_rank = _spawn_train_tp(_train_tp_one_rank, 1, None, None)[0]
+        check("error" not in one_rank, f"{phase}: the one-rank run failed: "
+              f"{one_rank.get('error')}")
+        state["tp_one_rank"] = one_rank
+    return one_rank
+
+
+def _run_grid(plan, prefix):
+    """(reports by rank, spans of the traced iteration, spawn wall)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    reps = _spawn_train_tp(_train_overlap_rank, TP_WORLD,
+                           f"file://{os.path.join(tmp, 'store')}",
+                           dict(plan, trace_dir=trace_dir))
+    wall = time.perf_counter() - t0
+    for rank, rep in reps.items():
+        check("error" not in rep, f"{prefix.strip('_')}: rank {rank} "
+              f"failed: {rep.get('error')}")
+    spans = _ring_spans(trace_dir)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return reps, spans, wall
+
+
+def _free_card():
+    import gc
+    while _DRIVERS:
+        _DRIVERS.pop().close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_overlap(state):
+    """TP overlap and fp8 pretraining: the fp8 GEMM against its plain
+    version at a rank's shapes, then pretrain_gpt on 4 spawned ranks (dp 2
+    x tp 2, ZeRO-1) sharing cuda:0 over gloo, llama3-8b at full width,
+    TP_LAYERS deep, S 4096, global batch 4 of 1, TP_STEPS steps, seeded
+    mock data, twice: run A with tp_comm_overlap and dist_opt_comm
+    "ring", run B the same with fp8. A against train_tp's one-rank
+    yardstick (or its own); B's losses against A's, and on each of its
+    ranks the fp8 ring Functions against their plain GEMM."""
+    _free_card()
+    gemm = _fp8_gemm_check()
+    one_rank = _grid_yardstick(state, "train_overlap")
+    from megatronapp_tpu_torch.models.presets import PRESETS
+    cfg = PRESETS["llama3-8b"](num_layers=TP_LAYERS)
+    runs = {}
+    for key, fp8_on in (("A", False), ("B", True)):
+        reps, spans, wall = _run_grid(
+            {"fsdp": False, "overlap": True, "fp8": fp8_on, "comm": "ring"},
+            f"train_overlap_{key}_")
+        runs[key] = {"reps": reps, "spans": spans, "wall": wall}
+    a0, b0 = runs["A"]["reps"][0], runs["B"]["reps"][0]
+    micro = TP_GBS // a0["dp"]
+    want_launch = TP_LAYERS * micro * TP_STEPS
+    chunk = (TP_SEQ // TP_DEGREE) * cfg.hidden_size * 2
+    rel = [{"loss": abs(a - b) / abs(b), "grad_norm": abs(c - d) / abs(d)}
+           for a, b, c, d in zip(a0["losses"], one_rank["losses"],
+                                 a0["grad_norms"], one_rank["grad_norms"])]
+    rel_fp8 = [abs(a - b) / abs(b) for a, b in zip(b0["losses"],
+                                                   a0["losses"])]
+    rel_fp8_norm = [abs(a - b) / abs(b) for a, b in zip(b0["grad_norms"],
+                                                        a0["grad_norms"])]
+    emit({"phase": "train_overlap", "model": "llama3-8b",
+          "layers": TP_LAYERS, "full_width": True, "seq_length": TP_SEQ,
+          "micro_batch_size": 1, "global_batch_size": TP_GBS,
+          "steps": TP_STEPS,
+          "grid": {"world": TP_WORLD, "dp": a0["dp"], "tp": a0["tp"],
+                   "zero1": True, "dist_opt_comm": "ring",
+                   "tp_comm_overlap": True, "backend": "gloo",
+                   "device": "cuda:0"},
+          "note": "4 ranks on one card over gloo: not parallel speed",
+          "fp8_gemm": {"route": "torch._scaled_mm (JAX's fp8 GEMM is an XLA "
+                                "dot: no Pallas kernel)",
+                       "tolerance_err_over_max": FP8_GEMM_TOL,
+                       "shapes": gemm},
+          "one_rank": {k: one_rank[k] for k in ("losses", "grad_norms")},
+          "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_NORM_TOL,
+                         "fp8_loss_rel": FP8_RUN_RTOL,
+                         "fp8_ring_err_over_max": FP8_GEMM_TOL},
+          "A": {"losses": a0["losses"], "grad_norms": a0["grad_norms"],
+                "rel_err": rel,
+                "expected_traffic": _overlap_reckoning(cfg, a0, False),
+                "spans": runs["A"]["spans"], "spawn_wall_s": runs["A"]["wall"]},
+          "B": {"losses": b0["losses"], "grad_norms": b0["grad_norms"],
+                "rel_loss_vs_A": rel_fp8,
+                "rel_grad_norm_vs_A": rel_fp8_norm,
+                "ring_check_err_over_max": {
+                    r: rep["fp8_ring_err"]
+                    for r, rep in sorted(runs["B"]["reps"].items())},
+                "expected_traffic": _overlap_reckoning(cfg, b0, True),
+                "fp8_slot0": b0["fp8_slot0"],
+                "fp8_saturated": b0["fp8_saturated"],
+                "spans": runs["B"]["spans"], "spawn_wall_s": runs["B"]["wall"]},
+          "ranks": {key: {r: {k: rep[k] for k in (
+              "dp_rank", "tp_rank", "launches", "fp8_gemms", "traffic",
+              "peak_mem_bytes", "step_ms", "wall_s", "local_params", "mu")}
+              for r, rep in sorted(run["reps"].items())}
+              for key, run in runs.items()},
+          "log_rank0_A": a0["log"], "log_rank0_B": b0["log"]})
+    for key, fp8_on in (("A", False), ("B", True)):
+        reps = runs[key]["reps"]
+        r0 = reps[0]
+        for r, rep in reps.items():
+            check(rep["losses"] == r0["losses"]
+                  and rep["grad_norms"] == r0["grad_norms"],
+                  f"train_overlap {key}: rank {r}'s metrics differ from "
+                  f"rank 0's")
+            check(rep["launches"] == dict.fromkeys(
+                ("fwd", "bwd_dq", "bwd_dkv"), want_launch),
+                f"train_overlap {key}: rank {r} launched {rep['launches']}; "
+                f"expected train_tp's {want_launch} of each flash kernel")
+            want = _overlap_reckoning(cfg, rep, fp8_on)
+            got = {k: rep["traffic"].get(k) for k in want}
+            check(got == want, f"train_overlap {key}: rank {r}'s hops and "
+                  f"gathers {got} are not the reckoning's {want}")
+            check("all_gather/dp" not in rep["traffic"],
+                  f"train_overlap {key}: rank {r} all-gathered the params "
+                  "(dist_opt_comm ring returns them by the ring)")
+            check(rep["fp8_gemms"] == (FP8_GEMMS_PER_LAYER * want_launch
+                                       if fp8_on else 0),
+                  f"train_overlap {key}: rank {r} ran {rep['fp8_gemms']} "
+                  "fp8 GEMMs on the card")
+        check(all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+              f"train_overlap {key}: non-finite metrics")
+        spans, tids, counts = runs[key]["spans"]
+        dp_chunk = r0["mu"][0] * 4
+        fwd_op = "all-gather-matmul" + ("-fp8" if fp8_on else "")
+        rs_bwd = "matmul-reduce-scatter" + ("-fp8" if fp8_on else "") + "-bwd"
+        rs_fwd = "matmul-reduce-scatter" + ("-fp8" if fp8_on else "")
+        x_bytes = chunk // 2 if fp8_on else chunk
+        check(spans.get(f"tp-overlap-permute|{fwd_op}") == [x_bytes]
+              and spans.get(f"tp-overlap-permute|{rs_bwd}") == [x_bytes]
+              and spans.get(f"tp-overlap-permute|{rs_fwd}") == [chunk]
+              and spans.get("dp-overlap-permute|zero1-param-return")
+              == [dp_chunk]
+              and counts.get("tp-overlap-compute/B", 0) > 0
+              and counts.get("tp-overlap-permute/B") == counts.get(
+                  "tp-overlap-permute/E"),
+              f"train_overlap {key}: traced ring spans {spans} {counts}")
+        timelines = tids.get("tp-overlap-permute", [])
+        check(len(timelines) == TP_WORLD and all(
+            tid == rk + 1 and rk == pid % TP_DEGREE
+            for pid, tid, rk in timelines),
+              f"train_overlap {key}: tp span timelines (pid, tid, tp rank) "
+              f"{timelines}")
+    for e in rel:
+        check(e["loss"] < TP_LOSS_TOL and e["grad_norm"] < TP_NORM_TOL,
+              f"train_overlap A: 4 ranks against one: relative errors {e}")
+    check(all(x <= FP8_RUN_RTOL for x in rel_fp8),
+          f"train_overlap B: fp8 losses {b0['losses']} against A's "
+          f"{a0['losses']}: relative {rel_fp8}")
+    for r, rep in sorted(runs["B"]["reps"].items()):
+        check(all(e <= FP8_GEMM_TOL for e in rep["fp8_ring_err"].values()),
+              f"train_overlap B: rank {r}'s fp8 ring Functions against "
+              f"their plain GEMM: {rep['fp8_ring_err']} of the max "
+              f"(tolerance {FP8_GEMM_TOL})")
+    for site, rows in b0["fp8_slot0"].items():
+        check(all(v > 0 for row in rows for v in row),
+              f"train_overlap B: a slot-0 amax of {site} is not > 0: {rows}")
+    state.setdefault("phase_flash_launches", {})["train_overlap"] = \
+        a0["launches"]
+
+
+def _fsdp_reckoning(cfg, dp):
+    """A rank's FSDP gathers and reduce-scatters for TP_STEPS steps and its
+    resident bytes (PERF.md's reckoning). Every llama3-8b leaf has an
+    'embed' axis, so a rank holds half of each tp shard. A micro-batch
+    gathers the word embedding (its lookup), each layer twice (forward,
+    and again for the backward's recompute) and the head (final norm and
+    output layer), and reduce-scatters each group's grads once; fp32."""
+    h, v, tp = cfg.hidden_size, cfg.vocab_size, TP_DEGREE
+    nq, nkv, d = cfg.num_attention_heads, cfg.num_query_groups, cfg.head_dim
+    f = cfg.ffn_hidden_size
+    emb = v // tp * h
+    layer = (h * nq * d + h * 2 * nkv * d + nq * d * h + h * 2 * f
+             + f * h) // tp + 2 * h
+    head = h + h * v // tp
+    micro = TP_GBS // dp
+    n = micro * TP_STEPS
+    whole = (emb + TP_LAYERS * layer + head) * 4
+    return {
+        "all_gather/dp": {"calls": (2 + 2 * TP_LAYERS) * n,
+                          "bytes": n * 4 * (emb + 2 * TP_LAYERS * layer
+                                            + head)},
+        "reduce_scatter/dp": {"calls": (2 + TP_LAYERS) * n,
+                              "bytes": n * whole // dp},
+    }, {"params": whole // dp, "grads": whole // dp,
+        "moments": 2 * whole // dp}, {"params": whole, "grads": whole,
+                                      "moments": 2 * whole // dp}
+
+
+def phase_train_fsdp(state):
+    """FSDP pretraining: pretrain_gpt on 4 spawned ranks (dp 2 x tp 2,
+    ParallelConfig(fsdp=True)) sharing cuda:0 over gloo, train_tp's model
+    and data, against train_tp's one-rank yardstick (or its own): loss and
+    grad norm within 1e-3, every rank's metrics equal, each rank's
+    resident params, grads and moments and its dp gathers and
+    reduce-scatters by count and bytes the reckoning's, the flash
+    launches (each layer's forward again in the backward's recompute),
+    peak memory a rank beside train_tp's."""
+    _free_card()
+    one_rank = _grid_yardstick(state, "train_fsdp")
+    from megatronapp_tpu_torch.models.presets import PRESETS
+    cfg = PRESETS["llama3-8b"](num_layers=TP_LAYERS)
+    reps, _, wall = _run_grid({"fsdp": True, "overlap": False, "fp8": False,
+                               "comm": "gspmd"}, "train_fsdp_")
+    r0 = reps[0]
+    traffic, resident, zero1 = _fsdp_reckoning(cfg, r0["dp"])
+    micro = TP_GBS // r0["dp"]
+    want_launch = TP_LAYERS * micro * TP_STEPS
+    rel = [{"loss": abs(a - b) / abs(b), "grad_norm": abs(c - d) / abs(d)}
+           for a, b, c, d in zip(r0["losses"], one_rank["losses"],
+                                 r0["grad_norms"], one_rank["grad_norms"])]
+
+    def resident_of(rep):
+        padded = rep["mu"][0]
+        return {"params": padded * 4, "grads": padded * 4,
+                "moments": padded * (rep["mu"][1] + rep["nu"][1])}
+
+    emit({"phase": "train_fsdp", "model": "llama3-8b", "layers": TP_LAYERS,
+          "full_width": True, "seq_length": TP_SEQ, "micro_batch_size": 1,
+          "global_batch_size": TP_GBS, "steps": TP_STEPS,
+          "grid": {"world": TP_WORLD, "dp": r0["dp"], "tp": r0["tp"],
+                   "fsdp": True, "zero1": False, "backend": "gloo",
+                   "device": "cuda:0"},
+          "note": "4 ranks on one card over gloo: not parallel speed",
+          "one_rank": {k: one_rank[k] for k in ("losses", "grad_norms",
+                                                "peak_mem_bytes")},
+          "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+          "rel_err": rel,
+          "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_NORM_TOL},
+          "expected_traffic": traffic, "expected_resident_bytes": resident,
+          "zero1_resident_bytes": zero1,
+          "train_tp_peak_mem_bytes": state.get("train_tp_peak_mem_bytes"),
+          "ranks": {r: {k: rep[k] for k in (
+              "dp_rank", "tp_rank", "launches", "traffic", "local_params",
+              "peak_mem_bytes", "step_ms", "wall_s")} | {
+              "resident_bytes": resident_of(rep)}
+              for r, rep in sorted(reps.items())},
+          "spawn_wall_s": wall, "log_rank0": r0["log"]})
+    for r, rep in reps.items():
+        check(rep["losses"] == r0["losses"]
+              and rep["grad_norms"] == r0["grad_norms"],
+              f"train_fsdp: rank {r}'s metrics differ from rank 0's")
+        check(rep["launches"] == {"fwd": 2 * want_launch,
+                                  "bwd_dq": want_launch,
+                                  "bwd_dkv": want_launch},
+              f"train_fsdp: rank {r} launched {rep['launches']}; expected "
+              f"{2 * want_launch} forwards (the recompute) and "
+              f"{want_launch} of each backward kernel")
+        got = {k: rep["traffic"].get(k) for k in traffic}
+        check(got == traffic, f"train_fsdp: rank {r}'s FSDP gathers and "
+              f"reduce-scatters {got} are not the reckoning's {traffic}")
+        check(resident_of(rep) == resident,
+              f"train_fsdp: rank {r} holds {resident_of(rep)} bytes of "
+              f"params, grads and moments; the reckoning says {resident}")
+    check(all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+          "train_fsdp: non-finite metrics")
+    for e in rel:
+        check(e["loss"] < TP_LOSS_TOL and e["grad_norm"] < TP_NORM_TOL,
+              f"train_fsdp: 4 ranks against one: relative errors {e}")
+    state.setdefault("phase_flash_launches", {})["train_fsdp"] = \
+        r0["launches"]
+
+
 def _related_set_faults(events, coll, related):
     """What the dependency pass got wrong on a merged trace of a grid:
     a collective event in no related set, or a set whose events do not
@@ -8707,6 +9319,11 @@ def kernel_table(state):
             "name": f"flash_{kernel}", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[kernel],
             "launches": state.get("train_launches", {}).get(kernel),
+            # The train phase's count above; a rank's in the grid phases
+            # of slice 16.
+            "launches_by_phase": {
+                phase: counts.get(kernel) for phase, counts in
+                state.get("phase_flash_launches", {}).items()},
             "max_abs_err": state.get("flash_err", {}).get(kernel),
             "ms": t.get("kernel_ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
@@ -8791,6 +9408,8 @@ def main(argv=None) -> int:
         ("serve_moe", lambda: phase_serve_moe(state)),
         ("train_moe", lambda: phase_train_moe(state)),
         ("train_ep", lambda: phase_train_ep(state)),
+        ("train_overlap", lambda: phase_train_overlap(state)),
+        ("train_fsdp", lambda: phase_train_fsdp(state)),
     ]
     wanted = None if args.phases is None else set(args.phases.split(","))
     seconds = {}

@@ -7,12 +7,17 @@ pipeline parallelism (training: 1F1B, interleaved VPP, zero-bubble, the
 'dfc' / 'bfc' chunk orders and the trace-driven planner), context
 parallelism (training: ops/context_parallel.py's five modes), MegaFBD
 (``forward_backward_disaggregating``: parallel/fbd.py) and MegaDPP
-(``use_dpp``: runtime/dpp.py) and expert parallelism (training:
+(``use_dpp``: runtime/dpp.py), expert parallelism (training:
 transformer/moe.py's all-to-all dispatch on a dp × ep × tp grid, pp 1,
-cp 1, without FBD or DPP). The port runs one process a rank, so
-``infer_data_parallel`` divides a process count where JAX divides a
-device count. The other axes raise when they are set away from their
-defaults, each naming the ROADMAP.md item that ports it.
+cp 1, without FBD or DPP) and FSDP (``fsdp``: every leaf's 'embed' axis
+split over dp, parallel/sharding.py ``FSDP_RULES``; it composes with tp,
+pp and cp, and raises beside ep > 1, MoE, FBD or DPP naming
+``FSDP_UNPORTED_ITEM``; JAX's CLI has no flag for it, so
+``ParallelConfig(fsdp=True)`` is the way in, as in JAX). The port runs
+one process a rank, so ``infer_data_parallel`` divides a process count
+where JAX divides a device count. An axis the port lacks raises when it
+is set away from its default, naming the ROADMAP.md item that ports it
+(``UNPORTED_PARALLEL_FIELDS``, empty since FSDP was ported).
 
 JAX's compose checks (config/arguments.py:1163-1180, training/train.py
 :240-249) hold here for every caller: FBD and DPP run their own
@@ -28,9 +33,17 @@ import dataclasses
 from typing import Optional
 
 # Fields of axes the port lacks → (their flag, the ROADMAP.md item).
-UNPORTED_PARALLEL_FIELDS = {
-    "fsdp": ("--use-custom-fsdp", "Queue 1 item 4 (FSDP)"),
-}
+UNPORTED_PARALLEL_FIELDS: dict = {}
+
+# What FSDP does not compose with yet, and the ROADMAP.md item that
+# ports it.
+FSDP_UNPORTED_ITEM = "Queue 1 item 4 (FSDP under ep, MoE, FBD and DPP)"
+
+
+def fsdp_unported(what: str) -> str:
+    """The refusal of FSDP beside `what`."""
+    return (f"fsdp=True with {what} is not ported to megatronapp_tpu_torch "
+            f"yet (ROADMAP.md {FSDP_UNPORTED_ITEM})")
 
 # What MoE and expert parallelism do not compose with yet, and the
 # ROADMAP.md item that ports it.
@@ -146,6 +159,15 @@ class ParallelConfig:
                 raise NotImplementedError(moe_unported(
                     f"expert_parallel={self.expert_parallel} with "
                     f"{', '.join(under)}"))
+        if self.fsdp:
+            under = [name for name, on in (
+                (f"expert_parallel={self.expert_parallel}",
+                 self.expert_parallel > 1),
+                ("forward_backward_disaggregating",
+                 self.forward_backward_disaggregating),
+                ("use_dpp", self.use_dpp)) if on]
+            if under:
+                raise NotImplementedError(fsdp_unported(", ".join(under)))
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for name, (flag, item) in UNPORTED_PARALLEL_FIELDS.items():
             if getattr(self, name) != defaults[name]:

@@ -5,10 +5,12 @@ Fields that select machinery the port does not have yet raise when they
 are set away from their defaults, naming the flag: the rerun state
 machine (whose default, "validate_results", is therefore "disabled"
 here), heartbeats and their timeouts, the simulated fault, the straggler
-detector, the workload inspector and sharded init, a master-params dtype
-other than fp32 and the manual ZeRO-1 update modes of --dist-opt-comm.
-The Adam moments may be stored in bf16 (exp_avg_dtype /
-exp_avg_sq_dtype). Checkpoints (durable and non-persistent),
+detector, the workload inspector and sharded init, and a master-params
+dtype other than fp32. The Adam moments may be stored in bf16
+(exp_avg_dtype / exp_avg_sq_dtype); dist_opt_comm picks how ZeRO-1's
+updated params return over dp (training/distributed_optimizer.py:
+"gspmd" and "bulk" an all-gather, "ring" parallel/overlap.py's
+ring_all_gather). Checkpoints (durable and non-persistent),
 evaluation, exit_interval, the signal handler, batch-size rampup and the
 JSONL / TensorBoard metrics sinks are ported.
 """
@@ -21,6 +23,8 @@ from typing import Optional
 _FP32 = ("fp32", "float32")
 # The optimizer-state dtype names (training/optimizer.py STATE_DTYPES).
 _STATE_DTYPES = _FP32 + ("bf16", "bfloat16")
+# --dist-opt-comm's choices (the JAX parser's).
+DIST_OPT_COMMS = ("gspmd", "ring", "bulk")
 # --trace-granularity's choices (the JAX parser's).
 _GRANULARITIES = ("full", "schedule", "collective")
 
@@ -62,11 +66,9 @@ class OptimizerConfig:
                              ": only fp32 params are ported (bf16 params "
                              "with an fp32 master copy: ROADMAP.md Queue 1 "
                              "item 3)")
-        if self.dist_opt_comm != "gspmd":
-            raise ValueError(f"--dist-opt-comm {self.dist_opt_comm}: the "
-                             "manual ZeRO-1 update over parallel/overlap.py's "
-                             "ring is not ported (ROADMAP.md Queue 1 item 4, "
-                             "TP overlap)")
+        if self.dist_opt_comm not in DIST_OPT_COMMS:
+            raise ValueError(f"--dist-opt-comm {self.dist_opt_comm!r}: "
+                             f"takes {DIST_OPT_COMMS}")
         if not self.grad_reduce_in_fp32:
             raise ValueError("--no-accumulate-allreduce-grads-in-fp32: "
                              "gradients accumulate in fp32 only")

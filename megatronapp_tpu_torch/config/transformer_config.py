@@ -4,11 +4,12 @@ Counterpart of the JAX package's ``config/transformer_config.py``: the
 same field names and enums, with ``params_dtype``/``compute_dtype`` as
 torch dtypes. Fields that select JAX/TPU machinery (remat, scan unroll,
 flash block sizes, cp/tp overlap, fp8) are kept so a config reads the
-same on both sides; the serving slice does not consult them. Two of
-them would change what a run is and have no port: ``fp8=True`` (JAX's
-delayed-scaling fp8 training) and ``tp_comm_overlap=True`` (JAX's TP
-overlap rings, whose flag the entry point refuses) raise, naming their
-ROADMAP.md item, instead of training silently in bf16 without them.
+same on both sides. ``tp_comm_overlap`` runs a grid's training
+projections through parallel/overlap.py's rings, and ``fp8`` (with
+``fp8_margin`` and ``fp8_amax_history_len``) their e4m3 twins with
+delayed scaling (training/fp8.py), where ``fp8_ineligible_reason``
+allows it; ``check_tp_comm_overlap`` holds JAX's parse-time
+divisibility checks of the rings.
 """
 
 from __future__ import annotations
@@ -139,16 +140,13 @@ class TransformerConfig:
     heterogeneous_layers_config_json: Optional[str] = None
 
     def __post_init__(self):
-        if self.fp8:
-            raise NotImplementedError(
-                "fp8=True (--fp8) is not ported to megatronapp_tpu_torch "
-                "yet (ROADMAP.md Queue 1 item 4 (fp8 training)); without "
-                "it the run would train in bf16")
-        if self.tp_comm_overlap:
-            raise NotImplementedError(
-                "tp_comm_overlap=True (--tp-comm-overlap) is not ported "
-                "to megatronapp_tpu_torch yet (ROADMAP.md Queue 1 item 4 "
-                "(TP overlap))")
+        # JAX's parse-time check of the fp8 history (config/arguments.py:
+        # 1126-1129); where fp8 may run is training/fp8.py
+        # fp8_ineligible_reason's, checked by the trainer and the CLI.
+        if self.fp8 and self.fp8_amax_history_len < 1:
+            raise ValueError(
+                f"--fp8-amax-history-len must be >= 1, got "
+                f"{self.fp8_amax_history_len}")
         if self.heterogeneous_layers_config_json:
             raise NotImplementedError(
                 "heterogeneous per-layer configs are not ported yet (the "
@@ -240,3 +238,27 @@ class TransformerConfig:
         if self.untie_embeddings_and_output_weights:
             total += v * h
         return total
+
+
+def check_tp_comm_overlap(cfg: TransformerConfig, tp: int) -> None:
+    """JAX's parse-time divisibility checks of --tp-comm-overlap
+    (config/arguments.py:1213-1225), with its words: the ring primitives
+    (parallel/overlap.py) split the projections' hidden and ffn dims
+    evenly over tp. JAX's further checks of its tp-sharded pipeline stage
+    body do not apply: the port's stage body keeps its column/row layers
+    (ROADMAP.md Queue 1 item 4)."""
+    if not cfg.tp_comm_overlap or tp <= 1:
+        return
+
+    def _reject(what, dim):
+        raise ValueError(
+            f"--tp-comm-overlap: {what} ({dim}) is not divisible by "
+            f"--tensor-model-parallel-size ({tp}); pick divisible "
+            "sizes or drop the flag")
+
+    if cfg.hidden_size % tp:
+        _reject("--hidden-size", cfg.hidden_size)
+    if not cfg.is_moe or cfg.moe_layer_freq > 1:
+        if cfg.ffn_hidden_size % tp:
+            _reject("--ffn-hidden-size (fc1/fc2 shard dim)",
+                    cfg.ffn_hidden_size)

@@ -95,7 +95,8 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
     block stacked [L, ...], or grouped under moe_layer_freq > 1); ctx (a
     training grid): this rank's stage's pieces, their tp shards and its ep
     rank's experts (parallel/sharding.py shard_tree)."""
-    if ctx is not None and (ctx.tp > 1 or ctx.pp > 1 or ctx.ep > 1):
+    if ctx is not None and (ctx.tp > 1 or ctx.pp > 1 or ctx.ep > 1
+                            or ctx.parallel.fsdp):
         from megatronapp_tpu_torch.parallel.sharding import shard_tree
         return shard_tree(params_from_jax(tree, cfg, device), ctx)
     for name, val in tree.items():

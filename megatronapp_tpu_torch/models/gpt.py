@@ -41,7 +41,8 @@ from megatronapp_tpu_torch.parallel.collectives import (
     copy_to_tp, reduce_from_tp,
 )
 from megatronapp_tpu_torch.parallel.sharding import (
-    MTP_MLA_UNDER_CP, MTP_UNDER_PP, cp_share, shard_tree, stage_layer_ids,
+    MTP_MLA_UNDER_CP, MTP_UNDER_PP, cp_share, fsdp_gather_named, fsdp_view,
+    shard_tree, stage_layer_ids,
 )
 from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.block import (
@@ -130,8 +131,9 @@ def gpt_embed(p, tokens: torch.Tensor, cfg: TransformerConfig,
     """tokens [B, S] at position_ids [B, S] (or [B, 1]; default 0..S-1),
     shifted by position_offset (a dense cache's append position) →
     embeddings [B, S, H] in the compute dtype. ctx (training under tp):
-    the vocab-parallel lookup (module docstring)."""
-    emb = p["embedding"]
+    the vocab-parallel lookup (module docstring); under FSDP the
+    embedding's leaves are gathered whole for the lookup."""
+    emb = fsdp_view(p["embedding"], ctx)
     if ctx is not None and ctx.tp > 1:
         word = emb["word"]
         local = tokens.long() - ctx.tp_rank * word.shape[0]
@@ -188,11 +190,21 @@ def gpt_rope_tables(cfg: TransformerConfig, seq_len: int, device=None,
 def gpt_head(p, h: torch.Tensor, cfg: TransformerConfig,
              ctx=None) -> torch.Tensor:
     """Final norm + vocab projection. h [..., S, H] → logits fp32 (ctx
-    under tp: this rank's vocabulary columns)."""
-    h = apply_norm(cfg.normalization, h, p["final_ln_scale"],
-                   p.get("final_ln_bias"), cfg.layernorm_epsilon)
+    under tp: this rank's vocabulary columns; under FSDP the norm and the
+    output layer gathered whole)."""
+    leaves = {"final_ln_scale": p["final_ln_scale"]}
+    if "final_ln_bias" in p:
+        leaves["final_ln_bias"] = p["final_ln_bias"]
+    if "output" in p:
+        leaves["output"] = p["output"]
+    else:
+        leaves["word"] = p["embedding"]["word"]
+    leaves = fsdp_gather_named(leaves, ctx)
+    h = apply_norm(cfg.normalization, h, leaves["final_ln_scale"],
+                   leaves.get("final_ln_bias"), cfg.layernorm_epsilon)
     h = copy_to_tp(h, ctx)
-    out_kernel = p["output"] if "output" in p else p["embedding"]["word"].T
+    out_kernel = leaves["output"] if "output" in leaves \
+        else leaves["word"].T
     dt = cfg.compute_dtype
     logits = scope_capture("result", h.to(dt) @ out_kernel.to(dt))
     return logits.float()
@@ -227,7 +239,7 @@ def _cp_index(cfg: TransformerConfig, ctx, seq_len: int, segment_ids,
 def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
                 attention_mask: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None, ctx=None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, fp8=None):
     """tokens [B, S] → (logits [B, S, V] fp32, moe_aux_loss). segment_ids
     [B, S]: packed sequences — positions restart per segment (for the
     learned embedding and the rope tables) and attention stays within a
@@ -237,7 +249,8 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
     paged steps, inference/dynamic_engine.py): the logits are then this
     tp rank's vocabulary columns. Under cp > 1 tokens (and segment_ids)
     are whole sequences and the logits, hidden states and tables are this
-    cp rank's share (module docstring)."""
+    cp rank's share (module docstring). fp8: the step's fp8 state
+    (training/fp8.py Fp8Step) for the layers' rings."""
     positions = None
     if segment_ids is not None:
         positions = packed_position_ids(segment_ids)
@@ -255,7 +268,8 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
     cos, sin = gpt_rope_tables(cfg, tokens.shape[1], tokens.device,
                                positions=rope_pos)
     h, aux = block_forward(p["layers"], h, cfg, cos, sin, attention_mask,
-                           segment_ids=segment_ids, ctx=ctx, zigzag=zz)
+                           segment_ids=segment_ids, ctx=ctx, zigzag=zz,
+                           fp8=fp8)
     logits = gpt_head(p, h, cfg, ctx)
     if return_hidden:
         return logits, aux, h, (cos, sin)
@@ -264,17 +278,19 @@ def gpt_forward(p, tokens: torch.Tensor, cfg: TransformerConfig,
 
 def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
              loss_mask: Optional[torch.Tensor], cfg: TransformerConfig,
-             segment_ids: Optional[torch.Tensor] = None, ctx=None):
+             segment_ids: Optional[torch.Tensor] = None, ctx=None,
+             fp8=None):
     """Training loss (CE + MoE aux, + the scaled MTP loss when
     cfg.mtp_num_layers) → (loss, {"lm_loss", "moe_aux_loss"[,
     "mtp_loss"]}); mtp_loss is the unscaled mean over depths (JAX
     gpt.py:239-275). ctx: the training grid; the loss is then this dp (×
     cp) rank's share of the microbatch's token mean (ops/cross_entropy.py),
     from vocab-parallel logits under tp; under cp the targets and mask
-    take the share the logits hold."""
+    take the share the logits hold. fp8: the step's fp8 state
+    (training/fp8.py Fp8Step; MTP depths refuse fp8)."""
     if not cfg.mtp_num_layers:
         logits, aux = gpt_forward(p, tokens, cfg, segment_ids=segment_ids,
-                                  ctx=ctx)
+                                  ctx=ctx, fp8=fp8)
         idx, _ = _cp_index(cfg, ctx, tokens.shape[1], segment_ids, None,
                            tokens.device)
         if idx is not None:
@@ -297,10 +313,13 @@ def gpt_loss(p, tokens: torch.Tensor, targets: torch.Tensor,
     from megatronapp_tpu_torch.transformer.mtp import mtp_loss
     logits, aux, hid, (cos, sin) = gpt_forward(p, tokens, cfg, ctx=ctx,
                                                return_hidden=True)
+    # ctx here is a dp-only grid (or None): the embedding and the head
+    # take it for FSDP's gathers alone.
     scaled, mean, layer_aux = mtp_loss(
-        p["mtp"], hid, lambda t: gpt_embed(p, t, cfg),
-        lambda hh: gpt_head(p, hh, cfg), tokens, targets, loss_mask, cfg,
-        cos, sin, ctx=ctx)
+        fsdp_view(p["mtp"], ctx), hid,
+        lambda t: gpt_embed(p, t, cfg, ctx=ctx),
+        lambda hh: gpt_head(p, hh, cfg, ctx), tokens, targets, loss_mask,
+        cfg, cos, sin, ctx=ctx)
     aux = aux + layer_aux
     loss, _ = cross_entropy_loss(logits, targets, loss_mask, ctx=ctx)
     return loss + aux + scaled, {"lm_loss": loss, "moe_aux_loss": aux,

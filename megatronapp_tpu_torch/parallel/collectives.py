@@ -79,6 +79,22 @@ transpose:
   outbound and the return hops), counted as "send/ep" and "recv/ep". Its
   backward is the inverse permutation hop of the grads.
 
+TP overlap (parallel/overlap.py's rings), counted under axis "tp", and
+the ZeRO-1 ring param return under "dp" (or "batch"):
+
+- ``axis_ring_hop``: one step of a ring over an axis' group, rank r
+  sending to r − 1 and receiving from r + 1 (JAX's ``_ring_perm``),
+  issued before the GEMM it rides under and waited after it, staged
+  through host memory like the cp ring's hops (a bf16 or e4m3 payload
+  travels as its bytes), under gloo tags of its own (``RING_TAGS``).
+
+FSDP (parallel/sharding.py ``FSDP_RULES``), counted under axis "dp":
+
+- ``fsdp_gather``: a group of leaves' shards gathered whole over the
+  stage's dp group along each leaf's 'embed' dimension, in one
+  all-gather (an autograd Function); its backward reduce-scatters
+  (sums) the whole leaves' grads back to the shards in one call.
+
 The "batch" axis is the dp × ep group, the ranks that split the tokens:
 the router statistics' mean, the token mean of the cross entropy and the
 grads of the leaves that are not experts reduce over it.
@@ -386,6 +402,23 @@ def ring_hop(ctx, tensors: List[torch.Tensor], dst: int, src: int,
     return RingHop(ctx, tensors, dst, src, ranks, CP_TAGS[tag])
 
 
+# The TP overlap rings' and the ZeRO-1 ring's gloo tags (each ring's
+# hops are waited one at a time, so one tag a ring suffices).
+RING_TAGS = {"tp": 8, "dp": 9, "batch": 9}
+
+
+def axis_ring_hop(ctx, tensors: List[torch.Tensor], axis: str) -> RingHop:
+    """Issue one ring step over `axis`: `tensors` to the axis' rank r − 1,
+    the same shapes from rank r + 1 (every rank of the axis issues it in
+    the same step). Counted as "send/<axis>" and "recv/<axis>"."""
+    axis = _axis_name(ctx, axis)
+    _, ranks = _axis(ctx, axis)
+    n = len(ranks)
+    me = ranks.index(ctx.rank)
+    return RingHop(ctx, tensors, ranks[(me - 1) % n], ranks[(me + 1) % n],
+                   ranks, RING_TAGS[axis], axis=axis)
+
+
 # The ep hops' gloo tags: the outbound hops and the return hops (either
 # may be in flight beside the other; each hop's backward reuses its tag
 # once the forward's hops are done).
@@ -535,3 +568,49 @@ def gather_from_tp(x: torch.Tensor, ctx) -> torch.Tensor:
     if ctx is None or ctx.tp == 1:
         return x
     return _GatherFromTP.apply(x, ctx)
+
+
+# ---- FSDP -------------------------------------------------------------------
+
+class _FsdpGather(torch.autograd.Function):
+    """Whole leaves from this rank's shards (one all-gather over dp of the
+    shards flattened together); the backward reduce-scatters the whole
+    leaves' grads (fp32 sums) back to the shards in one call."""
+
+    @staticmethod
+    def forward(fctx, ctx, dims, *shards):
+        fctx.mesh, fctx.dims = ctx, dims
+        fctx.shapes = [s.shape for s in shards]
+        dp = ctx.dp
+        flat = torch.cat([s.reshape(-1) for s in shards])
+        every = all_gather_into(
+            torch.empty(dp * flat.numel(), dtype=flat.dtype,
+                        device=flat.device), flat, ctx, "dp").view(dp, -1)
+        sizes = [s.numel() for s in shards]
+        per_rank = [list(every[r].split(sizes)) for r in range(dp)]
+        return tuple(torch.cat([per_rank[r][j].view(fctx.shapes[j])
+                                for r in range(dp)], dim=d)
+                     for j, d in enumerate(dims))
+
+    @staticmethod
+    def backward(fctx, *grads):
+        ctx, dp = fctx.mesh, fctx.mesh.dp
+        parts = []
+        for r in range(dp):
+            for g, shape, d in zip(grads, fctx.shapes, fctx.dims):
+                k = shape[d]
+                parts.append(g.narrow(d, r * k, k).float().reshape(-1))
+        mine = reduce_scatter(torch.cat(parts), ctx, "dp")
+        out = [m.view(shape) for m, shape in zip(
+            mine.split([s.numel() for s in fctx.shapes]), fctx.shapes)]
+        return (None, None, *out)
+
+
+def fsdp_gather(shards: List[torch.Tensor], dims: List[int], ctx
+                ) -> List[torch.Tensor]:
+    """The whole leaves of fp32 `shards` (leaf j split over the dp ranks
+    along dims[j], rank order), differentiable: the grads return to the
+    shards summed over dp (module docstring)."""
+    if not shards:
+        return []
+    return list(_FsdpGather.apply(ctx, tuple(dims), *shards))

@@ -47,6 +47,15 @@ over cp, and each cp rank takes its share of every sequence
 sequence when the zigzag ring runs (ops/context_parallel.py
 ``seq_indices``); the positions of its tokens are those indices.
 
+FSDP (``ctx.parallel.fsdp``, JAX's ``FSDP_RULES``: the rule ("embed",
+("dp",)), a second use of dp within one leaf replicated): on top of its
+tp shard, each leaf with an 'embed' axis keeps its 1/dp slice along that
+axis (``fsdp_dim``; dp rank d holds the d-th contiguous slice), and the
+leaves without one stay whole. The layers gather what they use
+(``fsdp_view``, one all-gather over the stage's dp group a subtree:
+parallel/collectives.py ``fsdp_gather``) and their grads return to the
+shards by a reduce-scatter.
+
 ``shard_tree(full, ctx)`` returns this rank's shards of a param tree
 (its stage's pieces, then their tp shards); ``gather_tree(local, ctx)``
 is its exact inverse (an all-gather over tp, then every stage's leaves
@@ -82,6 +91,11 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
     ("seq", "cp"),
     ("pos", None),
 )
+
+# FSDP's table (JAX FSDP_RULES): the residual 'embed' axis over dp too.
+FSDP_RULES: Tuple[Tuple[str, Any], ...] = tuple(
+    (name, ("dp",) if name == "embed" else axis)
+    for name, axis in DEFAULT_RULES)
 
 # Each leaf's logical axes, as the JAX init functions give them (without
 # the stacked layer axis): models/gpt.py, transformer/attention.py,
@@ -180,6 +194,74 @@ def ep_dim(path: str) -> Optional[int]:
     return spec.index("ep") if "ep" in spec else None
 
 
+def fsdp_on(ctx) -> bool:
+    """Whether ctx's grid shards the params' 'embed' axes over dp (FSDP
+    at dp > 1)."""
+    return ctx is not None and ctx.parallel.fsdp and ctx.dp > 1
+
+
+def fsdp_dim(path: str) -> Optional[int]:
+    """The dimension of leaf `path` split over dp under FSDP (its first
+    'embed' axis, JAX's FSDP_RULES), None for a leaf without one."""
+    spec = logical_to_spec(logical_axes(path), FSDP_RULES)
+    return spec.index(("dp",)) if ("dp",) in spec else None
+
+
+def fsdp_shard(t: torch.Tensor, path: str, ctx) -> torch.Tensor:
+    """This dp rank's FSDP slice of (the tp shard) t; t itself when FSDP
+    is off or the leaf has no 'embed' axis."""
+    dim = fsdp_dim(path) if fsdp_on(ctx) else None
+    if dim is None:
+        return t
+    n = t.shape[dim]
+    if n % ctx.dp:
+        raise ValueError(f"{path}: its 'embed' dimension ({n}) does not "
+                         f"split over dp {ctx.dp} (FSDP)")
+    k = n // ctx.dp
+    return t.narrow(dim, ctx.dp_rank * k, k).contiguous()
+
+
+def fsdp_gather_named(named: Dict[str, torch.Tensor], ctx
+                      ) -> Dict[str, torch.Tensor]:
+    """{leaf path: tensor} with every FSDP-sharded leaf gathered whole
+    (one all-gather for them all, differentiable); `named` itself when
+    FSDP is off."""
+    if not fsdp_on(ctx):
+        return named
+    from megatronapp_tpu_torch.parallel.collectives import fsdp_gather
+    keys = [n for n in named if fsdp_dim(n) is not None]
+    whole = fsdp_gather([named[n] for n in keys],
+                        [fsdp_dim(n) for n in keys], ctx)
+    return {**named, **dict(zip(keys, whole))}
+
+
+def fsdp_view(tree, ctx):
+    """A read-only view of a param subtree (a ParamTree or a ModuleList)
+    for the layer functions: nested dicts and lists with every
+    FSDP-sharded leaf gathered whole (``fsdp_gather_named``); the tree
+    itself when FSDP is off."""
+    if not fsdp_on(ctx):
+        return tree
+    named = dict(tree.named_parameters())
+    whole = fsdp_gather_named(named, ctx)
+    out: Dict[str, Any] = {}
+    for n, t in whole.items():
+        node, parts = out, n.split(".")
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = t
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        kids = {k: listify(v) for k, v in node.items()}
+        if kids and all(k.isdigit() for k in kids):
+            return [kids[k] for k in sorted(kids, key=int)]
+        return kids
+
+    return listify(out)
+
+
 def segment_counts(named: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """Each leaf's fused segments, by its path in `named`: 2 for kv (K |
     V), 2 for a gated fc1 (its width twice its fc2's rows), else 1."""
@@ -243,6 +325,9 @@ def gather_leaf(t: torch.Tensor, path: str, segments: int, ctx
     over ep for an expert stack); collective: every rank of those groups
     calls it."""
     from megatronapp_tpu_torch.parallel.collectives import all_gather_cat
+    dim = fsdp_dim(path) if fsdp_on(ctx) else None
+    if dim is not None:
+        t = all_gather_cat(t, ctx, "dp", dim)
     dim = ep_dim(path) if ctx.ep > 1 else None
     if dim is not None:
         t = all_gather_cat(t, ctx, "ep", dim)
@@ -332,10 +417,11 @@ def shard_tree(full: nn.Module, ctx) -> nn.Module:
         return full
     if "layers" in full and "embedding" in full:
         full = stage_tree(full, ctx)
-    if ctx.tp == 1 and ctx.ep == 1:
+    if ctx.tp == 1 and ctx.ep == 1 and not fsdp_on(ctx):
         return full
-    return _map_tree(full, lambda path, t, segs: ep_shard(shard_leaf(
-        t, tp_dim(path), segs, ctx.tp, ctx.tp_rank), path, ctx))
+    return _map_tree(full, lambda path, t, segs: fsdp_shard(ep_shard(
+        shard_leaf(t, tp_dim(path), segs, ctx.tp, ctx.tp_rank), path, ctx),
+        path, ctx))
 
 
 def gather_stages(named: Dict[str, torch.Tensor], ctx
@@ -388,9 +474,10 @@ def gather_tree(local: nn.Module, ctx) -> nn.Module:
     """The full param tree from every rank's shards (an all-gather over
     tp a sharded leaf and over ep an expert stack, then at pp > 1 every
     stage's leaves over the world): the exact inverse of shard_tree."""
-    if ctx is None or (ctx.tp == 1 and ctx.pp == 1 and ctx.ep == 1):
+    if ctx is None or (ctx.tp == 1 and ctx.pp == 1 and ctx.ep == 1
+                       and not fsdp_on(ctx)):
         return local
-    if ctx.tp > 1 or ctx.ep > 1:
+    if ctx.tp > 1 or ctx.ep > 1 or fsdp_on(ctx):
         local = _map_tree(local, lambda path, t, segs: gather_leaf(
             t, path, segs, ctx).clone())
     if ctx.pp == 1:

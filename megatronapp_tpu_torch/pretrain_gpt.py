@@ -46,6 +46,21 @@ A rank grid is launched with PyTorch's launcher, one process a rank:
 --pp-plan-from-trace lets the planner re-plan it from the traced
 ring-hop spans.)
 
+--tp-comm-overlap runs the tp projections through the ring all-gather /
+reduce-scatter matmuls of parallel/overlap.py, --fp8 their e4m3 twins
+with delayed scaling (training/fp8.py; --fp8-margin,
+--fp8-amax-history-len), and --dist-opt-comm ring | bulk returns
+ZeRO-1's updated params by the ring (or one all-gather):
+
+    torchrun --nproc-per-node 4 -m megatronapp_tpu_torch.pretrain_gpt \
+        --preset llama3-8b --num-layers 2 --seq-length 4096 \
+        --micro-batch-size 1 --global-batch-size 4 \
+        --tensor-model-parallel-size 2 --tp-comm-overlap --fp8 \
+        --dist-opt-comm ring --train-iters 2
+
+FSDP has no flag, as in JAX: training/train.py pretrain_gpt with a ctx
+of build_mesh(ParallelConfig(fsdp=True, ...)).
+
 Context parallelism splits every sequence over --context-parallel-size
 ranks (ops/context_parallel.py); --cp-comm-type p2p (the ring, in zigzag
 order for causal attention), a2a (Ulysses), allgather or a2a+p2p (with
@@ -280,6 +295,33 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--exp-avg-sq-dtype", default="fp32",
                    help="storage dtype of Adam's second moment: fp32 | "
                         "bf16 (requires --use-distributed-optimizer)")
+    g.add_argument("--tp-comm-overlap", action="store_true",
+                   help="overlap tensor-parallel collectives with the "
+                        "dependent GEMMs via manual ring all-gather / "
+                        "reduce-scatter matmuls (parallel/overlap.py)")
+    g.add_argument("--dist-opt-comm", default="gspmd",
+                   choices=["gspmd", "ring", "bulk"],
+                   help="how ZeRO-1's updated params return over dp: "
+                        "gspmd = the all-gather into the flat buffer; "
+                        "ring = the ring all-gather of parallel/overlap.py "
+                        "(host-staged hops); bulk = the same all-gather as "
+                        "gspmd (JAX's tiled gather)")
+    g.add_argument("--fp8", action="store_true",
+                   help="fp8 (e4m3) GEMMs with delayed-scaling amax "
+                        "history inside the tp-overlap ring matmuls "
+                        "(fwd + bwd; parallel/overlap.py). Requires "
+                        "--tp-comm-overlap with tp > 1 on a pp==1, "
+                        "cp==1, dense non-MLA/non-MoE layout; the amax/"
+                        "scale state rides the train state, so "
+                        "checkpoints resume bitwise")
+    g.add_argument("--fp8-margin", type=int, default=0,
+                   help="delayed-scaling margin: scale = FP8_MAX / "
+                        "(amax * 2**margin) — headroom against "
+                        "inter-step amax growth (TE --fp8-margin)")
+    g.add_argument("--fp8-amax-history-len", type=int, default=16,
+                   help="amax history window per (layer, site, tensor); "
+                        "the scale follows the max over the window "
+                        "(TE --fp8-amax-history-len)")
     g = ap.add_argument_group("optimizer")
     g.add_argument("--lr", type=float, default=3e-4)
     g.add_argument("--min-lr", type=float, default=3e-5)
@@ -343,10 +385,15 @@ _ARGS_FILE = "resolved_args.json"
 # The JAX parser's flags of axes the port lacks → the ROADMAP.md item
 # that ports them: ParallelConfig's unported fields' flags, and TP
 # overlap's two.
-UNPORTED_FLAGS = {
-    **dict(UNPORTED_PARALLEL_FIELDS.values()),
-    "--tp-comm-overlap": "Queue 1 item 4 (TP overlap)",
-    "--dist-opt-comm": "Queue 1 item 4 (TP overlap)",
+UNPORTED_FLAGS = dict(UNPORTED_PARALLEL_FIELDS.values())
+
+# Flags the JAX parser does not have either, and what to use instead.
+NOT_JAX_FLAGS = {
+    "--use-custom-fsdp": ("FSDP is reached through "
+                          "ParallelConfig(fsdp=True), as in JAX, whose CLI "
+                          "has no FSDP flag (training/train.py "
+                          "pretrain_gpt(..., ctx=build_mesh("
+                          "ParallelConfig(fsdp=True, ...))))"),
 }
 
 # Args --use-checkpoint-args must NOT resurrect from a stored run: the JAX
@@ -404,6 +451,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if rest:
         flags = [a.split("=")[0] for a in rest if a.startswith("-")]
         for f in flags:
+            if f in NOT_JAX_FLAGS:
+                ap.error(f"{f}: not a flag of megatronapp_tpu_torch; "
+                         f"{NOT_JAX_FLAGS[f]}")
             if f in UNPORTED_FLAGS:
                 ap.error(f"{f}: not ported to megatronapp_tpu_torch yet "
                          f"(ROADMAP.md {UNPORTED_FLAGS[f]})")
@@ -507,7 +557,21 @@ def configs_from_args(args: argparse.Namespace):
         moe_comm_overlap=args.moe_comm_overlap,
         attention_impl=args.attention_impl,
         flash_min_seq=args.flash_min_seq,
-        flash_head_fold=args.flash_head_fold, compute_dtype=compute)
+        flash_head_fold=args.flash_head_fold, compute_dtype=compute,
+        tp_comm_overlap=args.tp_comm_overlap)
+    if args.fp8:
+        model = dataclasses.replace(
+            model, fp8=True, fp8_margin=args.fp8_margin,
+            fp8_amax_history_len=args.fp8_amax_history_len)
+    # JAX's parse-time checks of --fp8 and --tp-comm-overlap
+    # (config/arguments.py:1183-1225), the trainer's on the flags' grid.
+    from megatronapp_tpu_torch.training.train import check_grid_features
+    check_grid_features(model, None, ParallelConfig(
+        tensor_parallel=args.tensor_model_parallel_size,
+        pipeline_parallel=args.pipeline_model_parallel_size,
+        context_parallel=args.context_parallel_size,
+        forward_backward_disaggregating=args.forward_backward_disaggregating,
+        use_dpp=args.use_dpp))
     training = TrainingConfig(
         micro_batch_size=args.micro_batch_size,
         global_batch_size=args.global_batch_size,
@@ -532,7 +596,8 @@ def configs_from_args(args: argparse.Namespace):
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
         adam_eps=args.adam_eps, clip_grad=args.clip_grad,
         exp_avg_dtype=args.exp_avg_dtype,
-        exp_avg_sq_dtype=args.exp_avg_sq_dtype)
+        exp_avg_sq_dtype=args.exp_avg_sq_dtype,
+        dist_opt_comm=args.dist_opt_comm)
     return model, training, optimizer
 
 

@@ -36,7 +36,12 @@ that package's ``io_callback`` markers and custom-VJP span mirrors:
 - Span ends placed apart (``phase_event``): the cp ring's
   'cp-overlap-permute' (a hop, issued before a round's compute and
   waited after it) and 'cp-overlap-compute' (the round) with JAX's args
-  op, rank (the ring index) and step (ops/context_parallel.py).
+  op, rank (the ring index) and step (ops/context_parallel.py); the TP
+  overlap rings' 'tp-overlap-permute' / 'tp-overlap-compute' and the
+  ZeRO-1 ring's 'dp-overlap-permute' (parallel/overlap.py) on a timeline
+  of their own a ring rank (``tid`` = rank + 1, JAX's), a hop's span
+  carrying its bytes: an arg ``data`` becomes the record's ``bytes``
+  (JAX's ``_emit``).
 - Host-timed records (``add_collective_records``, JAX's): pre-formed X
   events on pids of their own, placed in the open iteration by a
   host-clock anchor, ``now_in_iteration_us()`` (µs since
@@ -198,14 +203,15 @@ class Tracer:
         finally:
             self._emit(name, "E", self._stamp(), attrs)
 
-    def phase_event(self, name: str, ph: str, **attrs):
+    def phase_event(self, name: str, ph: str, tid: int = 0, **attrs):
         """One end ("B" or "E") of a span whose ends the caller places
-        apart (JAX's phase_event): the cp ring's hop spans open before
-        the compute they ride under and close after it
-        (ops/context_parallel.py). Stamped in stream order; nothing
-        outside a traced iteration."""
+        apart (JAX's phase_event): the ring spans open before the compute
+        they ride under and close after it (ops/context_parallel.py,
+        parallel/overlap.py). tid: the timeline (0 the host scopes'; the
+        TP and ZeRO-1 rings' ring rank + 1). Stamped in stream order;
+        nothing outside a traced iteration."""
         if self._on(name):
-            self._emit(name, ph, self._stamp(), attrs)
+            self._emit(name, ph, self._stamp(), attrs, tid=tid)
 
     def instant(self, name: str, **attrs):
         if self._on(name):
@@ -234,10 +240,14 @@ class Tracer:
             self._next_id += 1
 
     # -- record handling -----------------------------------------------------
-    def _emit(self, name: str, ph: str, stamp, args: Dict[str, Any]):
-        self._pending.append({
-            "name": name, "ph": ph, "ts": stamp, "pid": self.process_index,
-            "tid": 0, "iteration": self._iteration, "args": dict(args)})
+    def _emit(self, name: str, ph: str, stamp, args: Dict[str, Any],
+              tid: int = 0):
+        rec = {"name": name, "ph": ph, "ts": stamp,
+               "pid": self.process_index, "tid": tid,
+               "iteration": self._iteration, "args": dict(args)}
+        if "data" in args:
+            rec["args"]["bytes"] = int(args["data"])
+        self._pending.append(rec)
 
     def now_in_iteration_us(self) -> float:
         """Current offset inside the open iteration window (µs, host

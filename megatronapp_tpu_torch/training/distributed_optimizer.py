@@ -45,6 +45,25 @@ does the same explicitly, on flat fp32 buffers (``FlatLayout``):
   to every dp rank by all-gather. Without ZeRO-1 every rank updates the
   whole buffer with whole moments.
 
+- ``dist_opt_comm`` (JAX's --dist-opt-comm) picks how ZeRO-1's updated
+  chunk returns to every rank of its axis: "gspmd" and "bulk" (JAX's
+  tiled gather; both the one all-gather into the flat buffer) or "ring"
+  (parallel/overlap.py ``ring_all_gather``: axis − 1 hops
+  through host memory with 'dp-overlap-permute' spans). The three move
+  the same bits;
+- FSDP (``ctx.parallel.fsdp``, parallel/sharding.py): the flat buffers
+  hold this rank's shards (each 'embed'-axis leaf's 1/dp slice), m and v
+  are theirs, and ZeRO-1 is off (FSDP already splits over dp; JAX
+  train.py:318-323). The sharded leaves skip the dp reduction: their
+  grads arrive summed over dp by the gather's reduce-scatter
+  (parallel/collectives.py ``fsdp_gather``); the leaves without an
+  'embed' axis are all-reduced over dp as before. The layout puts the
+  sharded leaves first, so the whole ones are one range;
+  ``norm_partials`` counts a sharded element on every dp rank and a
+  whole one in this rank's dp chunk only, so their sum over the world
+  counts each once. The checkpoints gather and scatter the shards over
+  dp, so they stay layout-independent;
+
 exp_avg_dtype / exp_avg_sq_dtype bf16 store the moments in bf16 with the
 update math in fp32 (JAX ``resolve_state_dtype``). Params stay fp32 (a
 master copy for bf16 params is ROADMAP.md Queue 1 item 3).
@@ -55,7 +74,8 @@ from the layout-independent form of the checkpoints: every leaf whole
 ep, and under pp every stage's leaves brought together,
 parallel/sharding.py gather_stages)
 under the one-device leaf paths of training/train_state.py, so a
-checkpoint written on one grid resumes on another.
+checkpoint written on one grid resumes on another; an fp8 state
+(replicated on every rank) rides along under its ``fp8/...`` paths.
 """
 
 from __future__ import annotations
@@ -67,8 +87,8 @@ import torch
 from megatronapp_tpu_torch.config.training_config import OptimizerConfig
 from megatronapp_tpu_torch.parallel import collectives
 from megatronapp_tpu_torch.parallel.sharding import (
-    TP_PARTIAL_GRAD_LEAVES, ep_dim, ep_shard, gather_leaf, leaf_name,
-    segment_counts, shard_leaf, tp_dim,
+    TP_PARTIAL_GRAD_LEAVES, ep_dim, ep_shard, fsdp_dim, fsdp_on, fsdp_shard,
+    gather_leaf, leaf_name, segment_counts, shard_leaf, tp_dim,
 )
 from megatronapp_tpu_torch.training.optimizer import Optimizer, decays
 
@@ -79,9 +99,12 @@ class FlatLayout:
     replicated ones, then `copies` (leaves another stage also holds and
     counts in the norm: a tied embedding's last-stage copy), each group
     in name order, padded to a multiple of the ZeRO-1 axis' size (dp, or
-    the dp × ep "batch" group: `axis`). ``params``/``grads``: the flat
-    buffers; each param's data is a view of ``params`` (grads=False: no
-    grad buffer, for a MegaFBD forward rank, which takes no grads)."""
+    the dp × ep "batch" group: `axis`). Under FSDP the leaves split over
+    dp come first (each in those groups), then the whole ones
+    (``fsdp_end``: where they start; ``runs``: the (start, end, group,
+    split over dp) ranges). ``params``/``grads``: the flat buffers; each
+    param's data is a view of ``params`` (grads=False: no grad buffer,
+    for a MegaFBD forward rank, which takes no grads)."""
 
     def __init__(self, named_params: Dict[str, torch.Tensor], ctx,
                  copies=frozenset(), grads: bool = True, axis: str = "dp"):
@@ -92,8 +115,12 @@ class FlatLayout:
                 return 0
             return 1 if leaf_name(n) in TP_PARTIAL_GRAD_LEAVES else 2
 
-        order = [n for _, _, n in sorted(
-            (group(n), i, n) for i, n in enumerate(named_params))]
+        split = {n for n in named_params
+                 if fsdp_on(ctx) and fsdp_dim(n) is not None}
+        self.fsdp = bool(split)
+        order = [n for _, _, _, n in sorted(
+            (0 if n in split else 1, group(n), i, n)
+            for i, n in enumerate(named_params))]
         self.slots: List[Tuple[str, int, int]] = []
         off = 0
         for n in order:
@@ -110,10 +137,22 @@ class FlatLayout:
                 for g in (0, 1, 2)]
         # [0, sharded_end): tp-sharded; partial: summed over tp in
         # reduce_grads; [sharded_end, counted_end): counted once in the
-        # norm; [counted_end, numel): copies, not counted.
+        # norm; [counted_end, numel): copies, not counted (without
+        # FSDP; under it the same groups are the runs' ranges).
         self.sharded_end = ends[0]
         self.partial = (ends[0], ends[1])
         self.counted_end = ends[2]
+        self.runs: List[Tuple[int, int, int, bool]] = []
+        for n, a, b in self.slots:
+            key = (group(n), n in split)
+            if self.runs and self.runs[-1][2:] == key:
+                self.runs[-1] = (self.runs[-1][0], b) + key
+            else:
+                self.runs.append((a, b) + key)
+        self.fsdp_end = sum(b - a for n, a, b in self.slots if n in split)
+        if self.fsdp:
+            partial = [(a, b) for a, b, g, _ in self.runs if g == 1]
+            self.partial = partial[0] if partial else (0, 0)
         first = next(iter(named_params.values()))
         self.params = torch.zeros(self.padded, dtype=torch.float32,
                                   device=first.device)
@@ -172,7 +211,10 @@ class DistributedOptimizer(Optimizer):
                  tied_embedding: bool = False):
         super().__init__(cfg, train_iters)
         self.ctx = ctx
-        self.zero1 = ctx.parallel.distributed_optimizer and ctx.batch > 1
+        # FSDP already splits over dp: ZeRO-1 is off under it (JAX
+        # train.py:318-323).
+        self.zero1 = (ctx.parallel.distributed_optimizer and ctx.batch > 1
+                      and not ctx.parallel.fsdp)
         self.tied_pp = tied_embedding and ctx.pp > 1
         self.layout: Optional[FlatLayout] = None
         self.parts: List[_Part] = []
@@ -250,6 +292,13 @@ class DistributedOptimizer(Optimizer):
             collectives.all_reduce(g, ctx, "cp")
             if part.zero1:
                 part.g = collectives.reduce_scatter(g, ctx, lay.axis)
+            elif lay.fsdp:
+                # The shards' grads arrived summed over dp (the FSDP
+                # gather's reduce-scatter); the whole leaves' are summed
+                # here.
+                if lay.fsdp_end < lay.padded:
+                    collectives.all_reduce(g[lay.fsdp_end:], ctx, lay.axis)
+                part.g = g
             else:
                 part.g = collectives.all_reduce(g, ctx, lay.axis)
 
@@ -260,6 +309,10 @@ class DistributedOptimizer(Optimizer):
         for part in self.parts:
             lay = part.layout
             lo, hi = lay.chunk
+            if lay.fsdp:
+                sums = self._fsdp_norm_partials(part.g, lay)
+                out = sums if out is None else out + sums
+                continue
             chunk = part.g if part.zero1 else part.g[lo:hi]
             cut = min(max(lay.sharded_end - lo, 0), hi - lo)
             end = min(max(lay.counted_end - lo, 0), hi - lo)
@@ -267,6 +320,39 @@ class DistributedOptimizer(Optimizer):
                                 chunk[cut:end].square().sum()])
             out = sums if out is None else out + sums
         return out
+
+    @staticmethod
+    def _fsdp_norm_partials(g: torch.Tensor, lay: FlatLayout
+                            ) -> torch.Tensor:
+        """norm_partials of an FSDP layout's whole grads g: a range split
+        over dp counted whole, a whole one in this rank's dp chunk."""
+        lo, hi = lay.chunk
+        sums = [g.new_zeros(()), g.new_zeros(())]
+        for a, b, group, split in lay.runs:
+            if group == 3:
+                continue
+            if not split:
+                a, b = max(a, lo), min(b, hi)
+                if a >= b:
+                    continue
+            cat = 0 if group == 0 else 1
+            sums[cat] = sums[cat] + g[a:b].square().sum()
+        return torch.stack(sums)
+
+    def _return_params(self, lay: FlatLayout, p: torch.Tensor) -> None:
+        """ZeRO-1's updated chunk p back to every rank of the layout's
+        axis, into the flat params, by dist_opt_comm (module
+        docstring)."""
+        comm = self.cfg.dist_opt_comm
+        if comm == "ring":
+            from megatronapp_tpu_torch.parallel.overlap import (
+                ring_all_gather,
+            )
+            ring_all_gather(p.clone(), self.ctx, lay.axis,
+                            op_name="zero1-param-return", out=lay.params)
+        else:
+            collectives.all_gather_into(lay.params, p.clone(), self.ctx,
+                                        lay.axis)
 
     @torch.no_grad()
     def step(self, state: dict, grad_norm: Tuple[float, torch.Tensor]
@@ -293,8 +379,7 @@ class DistributedOptimizer(Optimizer):
                                  mu[s:e], None if nu is None else nu[s:e],
                                  lr, bc1, bc2)
             if part.zero1:
-                collectives.all_gather_into(lay.params, p.clone(), self.ctx,
-                                            lay.axis)
+                self._return_params(lay, p)
         state["count"] = count + 1
 
     # -- the layout-independent state ----------------------------------------
@@ -356,6 +441,10 @@ class DistributedOptimizer(Optimizer):
         if not ctx.is_lead:
             return None
         out.update(tensors)
+        if state.fp8 is not None:
+            from megatronapp_tpu_torch.training.fp8 import flat_fp8
+            out.update({k: t.to("cpu", copy=True)
+                        for k, t in flat_fp8(state.fp8).items()})
         return out
 
     @torch.no_grad()
@@ -374,6 +463,11 @@ class DistributedOptimizer(Optimizer):
                 want.add(f"opt_state/{key}")
         for key in moments:
             want |= {f"opt_state/{key}/{n}" for n in names}
+        fp8_leaves = {}
+        if state.fp8 is not None:
+            from megatronapp_tpu_torch.training.fp8 import flat_fp8
+            fp8_leaves = flat_fp8(state.fp8)
+            want |= set(fp8_leaves)
         if ctx.pp > 1:
             # The whole model's leaves: every stage's, gathered.
             import torch.distributed as dist
@@ -395,7 +489,7 @@ class DistributedOptimizer(Optimizer):
                 t = shard_leaf(flat[key],
                                tp_dim(name) if ctx.tp > 1 else None,
                                segs[name], ctx.tp, ctx.tp_rank)
-                t = ep_shard(t, name, ctx)
+                t = fsdp_shard(ep_shard(t, name, ctx), name, ctx)
                 shape = lay.named[name].shape
                 if tuple(t.shape) != tuple(shape):
                     raise ValueError(f"{key}: checkpoint shard "
@@ -417,4 +511,6 @@ class DistributedOptimizer(Optimizer):
         for key, v in state.opt_state.items():
             if not isinstance(v, torch.Tensor):
                 state.opt_state[key] = int(flat[f"opt_state/{key}"])
+        for key, t in fp8_leaves.items():
+            t.copy_(flat[key])
         state.step = int(flat["step"])

@@ -80,6 +80,16 @@ metrics; the signal handler's flag is agreed over the world
 step with one emergency save. Local (non-persistent) checkpoints stay on
 one device (ROADMAP.md Queue 1 item 4).
 
+TP overlap, fp8 and FSDP (``check_grid_features``, before any branch as
+JAX checks them): a model with ``tp_comm_overlap`` runs its layers'
+projections through parallel/overlap.py's rings on a grid, and with
+``fp8`` their e4m3 twins; the fp8 state (training/fp8.py
+``init_fp8_state``) rides the train state, so checkpoints carry it and
+a resume restores it bitwise, and its /metrics gauges are exported at
+each log step. ``ParallelConfig(fsdp=True)`` shards the params' 'embed'
+axes over dp (parallel/sharding.py), with ZeRO-1 off
+(training/distributed_optimizer.py).
+
 MegaScan (train_cfg.trace): the tracer (trace/tracer.py) is configured on
 the trainer's device; iteration it is traced when it % trace_interval <
 continuous_trace_iterations, with an 'iteration' window around the
@@ -214,6 +224,7 @@ class _CheckpointScribe:
             **({"pp": dopt.ctx.pp, "vpp": dopt.ctx.vpp}
                if dopt.ctx.pp > 1 else {}),
             **({"cp": dopt.ctx.cp} if dopt.ctx.cp > 1 else {}),
+            **({"fsdp": True} if dopt.ctx.parallel.fsdp else {}),
             **({"ep": dopt.ctx.ep} if dopt.ctx.ep > 1 else {})})
 
     def full_state(self, state: TrainState):
@@ -314,11 +325,37 @@ def check_moe_training(model_cfg: TransformerConfig, ctx, parallel) -> None:
 
 
 def gpt_microbatch_loss(cfg: TransformerConfig, ctx=None):
-    def loss_fn(params, micro):
+    def loss_fn(params, micro, fp8=None):
         return gpt_loss(params, micro["tokens"], micro["labels"],
                         micro["loss_mask"], cfg,
-                        segment_ids=micro.get("segment_ids"), ctx=ctx)
+                        segment_ids=micro.get("segment_ids"), ctx=ctx,
+                        fp8=fp8)
     return loss_fn
+
+
+def check_grid_features(model_cfg: TransformerConfig, ctx, parallel
+                        ) -> None:
+    """fp8, the TP overlap rings and FSDP where they may run, checked
+    before any other branch (JAX train.py:227-238: a silent no-op fp8 run
+    is impossible on every path): fp8_ineligible_reason and the rings'
+    divisibility in JAX's words, FSDP beside MoE layers naming its
+    ROADMAP.md item."""
+    from megatronapp_tpu_torch.config.parallel_config import (
+        ParallelConfig, fsdp_unported,
+    )
+    from megatronapp_tpu_torch.config.transformer_config import (
+        check_tp_comm_overlap,
+    )
+    par = ctx.parallel if ctx is not None else (parallel
+                                                 or ParallelConfig())
+    if model_cfg.fp8:
+        from megatronapp_tpu_torch.training.fp8 import fp8_ineligible_reason
+        reason = fp8_ineligible_reason(model_cfg, par)
+        if reason is not None:
+            raise ValueError(reason)
+    check_tp_comm_overlap(model_cfg, par.tensor_parallel)
+    if par.fsdp and model_cfg.is_moe:
+        raise NotImplementedError(fsdp_unported("MoE layers"))
 
 
 def gpt_pipeline_loss_fn(cfg: TransformerConfig, ctx, schedule: str,
@@ -448,6 +485,7 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     when batch_iter is None (resume-aware). parallel: without a ctx, a
     ParallelConfig with use_dpp at pp > 1 (MegaDPP in this process);
     with a ctx, ctx.parallel rules."""
+    check_grid_features(model_cfg, ctx, parallel)
     if ctx is not None:
         check_context_parallel(train_cfg.seq_length, ctx.cp)
     check_moe_training(model_cfg, ctx, parallel)
@@ -497,6 +535,11 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
         params = init_gpt_params(model_cfg, gen, device, ctx)
     params.requires_grad_(True)
     state = TrainState(params, optimizer.init(named_trainable(params)))
+    if model_cfg.fp8:
+        # The amax histories ride the train state (checkpointed, resumed
+        # bitwise).
+        from megatronapp_tpu_torch.training.fp8 import init_fp8_state
+        state.fp8 = init_fp8_state(model_cfg, device)
 
     # Checkpoints: restore from load_dir (or save_dir when resuming the
     # same run), save only to save_dir.
@@ -586,7 +629,7 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
               if pp > 1 else gpt_microbatch_loss(model_cfg, ctx))
         return fn, make_train_step(
             fn, optimizer, check_nan=train_cfg.check_for_nan_in_loss,
-            ctx=ctx, pipeline=pp > 1)
+            ctx=ctx, pipeline=pp > 1, fp8_margin=model_cfg.fp8_margin)
 
     if dpp is not None:
         from megatronapp_tpu_torch.runtime.dpp_train import (
@@ -626,7 +669,8 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
     if train_cfg.eval_interval:
         # The caller's eval stream, else a distinct mock stream (seed +
         # 1) — also when training reads a corpus (JAX train.py:486).
-        eval_step_fn = (make_eval_step(loss_fn, ctx, pipeline=pp > 1)
+        eval_step_fn = (make_eval_step(loss_fn, ctx, pipeline=pp > 1,
+                                       fp8_margin=model_cfg.fp8_margin)
                         if dpp is None else
                         make_dpp_eval_step(model_cfg, grid, **dpp_kw))
         if eval_batch_iter is None:
@@ -722,6 +766,11 @@ def pretrain_gpt(model_cfg: TransformerConfig, train_cfg: TrainingConfig,
                         **metrics, "tokens_per_sec": result.tokens_per_sec,
                         "step_time_ms": result.step_time_ms,
                         "tflops_per_device": tflops})
+                    if state.fp8 is not None:
+                        from megatronapp_tpu_torch.training.fp8 import (
+                            export_fp8_metrics,
+                        )
+                        export_fp8_metrics(state.fp8, model_cfg)
                     window_tokens, window_start = 0, now
                     window_iter = it + 1
                     if planning is not None:

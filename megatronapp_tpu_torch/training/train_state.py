@@ -10,6 +10,8 @@ paths, the keys of the port's checkpoints (training/checkpointing.py):
     params/<name>           every parameter, by its state_dict name
     opt_state/count         the optimizer's applied-update count (int)
     opt_state/<mu|nu>/<name>  the moments of each trainable parameter
+    fp8/block/<mod>/<site>/<hist|sat>  the fp8 state (training/fp8.py),
+                            when the run trains in fp8
 
 ``load_state_dict`` copies such a dict back in place, so the tensors the
 optimizer and the params' module hold stay the same objects. The server
@@ -34,6 +36,8 @@ class TrainState:
     params: torch.nn.Module
     opt_state: dict
     step: int = 0
+    # The fp8 delayed-scaling state (training/fp8.py init_fp8_state).
+    fp8: Optional[dict] = None
 
 
 def state_dict(state: TrainState) -> Dict[str, Leaf]:
@@ -47,6 +51,9 @@ def state_dict(state: TrainState) -> Dict[str, Leaf]:
                 flat[f"opt_state/{key}/{name}"] = t.detach()
         else:
             flat[f"opt_state/{key}"] = int(val)
+    if state.fp8 is not None:
+        from megatronapp_tpu_torch.training.fp8 import flat_fp8
+        flat.update({k: t.detach() for k, t in flat_fp8(state.fp8).items()})
     return flat
 
 

@@ -1,7 +1,6 @@
 """The train step: microbatch gradient accumulation, then the optimizer
-update (the JAX package's training/train_step.py:make_train_step without
-the pipeline, fp8 and manual ZeRO-1 branches), and the forward-only eval
-step (make_eval_step).
+update (the JAX package's training/train_step.py:make_train_step), and
+the forward-only eval step (make_eval_step).
 
 Per-microbatch gradients accumulate in fp32 in the params' ``.grad``
 (the params are fp32), then scale by 1/num_micro; the loss and metrics
@@ -36,6 +35,15 @@ over the world and summed in rank order, so every rank reads the same
 bits), and the host read. Loss and metrics are then means over dp: the
 loss shares of a cp group's ranks (each its share of the sequence) add
 up to their rows' loss.
+
+fp8 (a TrainState with ``fp8``, training/fp8.py): each microbatch's loss
+function gets the step's ``Fp8Step``; the ring Functions' backwards
+leave their observations there, combined over the microbatches by
+``fp8_accumulate``'s rules. A finite step installs ``fp8_carry_sat(old,
+observed)`` into the state's tensors in place; a skipped one keeps the
+old state. The fp8 state never meets the 1/num_micro scaling, the norm or
+the optimizer (JAX train_step.py:96-104). ZeRO-1's param return follows
+the optimizer's dist_opt_comm (training/distributed_optimizer.py).
 """
 
 from __future__ import annotations
@@ -55,17 +63,38 @@ def named_trainable(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {n: p for n, p in params.named_parameters() if p.requires_grad}
 
 
+def _fp8_kw(state: TrainState, margin: int) -> dict:
+    """The loss function's fp8 keyword: a new Fp8Step for the step when
+    the state carries fp8."""
+    if state.fp8 is None:
+        return {}
+    from megatronapp_tpu_torch.training.fp8 import Fp8Step
+    return {"fp8": Fp8Step(state.fp8, margin)}
+
+
+@torch.no_grad()
+def _install_fp8(state: TrainState, fp8_step) -> None:
+    """fp8_carry_sat(old, observed) copied into the state's tensors."""
+    if fp8_step is None or fp8_step.observed is None:
+        return
+    from megatronapp_tpu_torch.training.fp8 import fp8_carry_sat, flat_fp8
+    new = flat_fp8(fp8_carry_sat(state.fp8, fp8_step.observed))
+    for key, old in flat_fp8(state.fp8).items():
+        old.copy_(new[key])
+
+
 def _accumulate(loss_fn: Callable, state: TrainState,
-                batch: Dict[str, torch.Tensor], tracer):
+                batch: Dict[str, torch.Tensor], tracer, fp8_kw=None):
     """Each microbatch's forward, loss and backward (the grads accumulate
-    in the params' .grad): (num_micro, the loss sum, the metric sums)."""
+    in the params' .grad): (num_micro, the loss sum, the metric sums).
+    fp8_kw: the loss function's fp8 keyword (``_fp8_kw``)."""
     num_micro = next(iter(batch.values())).shape[0]
     loss_sum = None
     aux_sum: Dict[str, torch.Tensor] = {}
     for i in range(num_micro):
         micro = {k: v[i] for k, v in batch.items()}
         with tracer.scope("forward"):
-            loss, metrics = loss_fn(state.params, micro)
+            loss, metrics = loss_fn(state.params, micro, **(fp8_kw or {}))
         with tracer.scope("loss"):
             ld = loss.detach()
             loss_sum = ld if loss_sum is None else loss_sum + ld
@@ -79,7 +108,7 @@ def _accumulate(loss_fn: Callable, state: TrainState,
 
 
 def _pipelined(loss_fn: Callable, state: TrainState,
-               batch: Dict[str, torch.Tensor], tracer):
+               batch: Dict[str, torch.Tensor], tracer, fp8_kw=None):
     """The pipeline's forward and backward over the whole batch (the
     loss function runs both, with its own phase spans): (1, the loss,
     the metrics)."""
@@ -90,7 +119,7 @@ def _pipelined(loss_fn: Callable, state: TrainState,
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     check_nan: bool = True, ctx=None,
-                    pipeline: bool = False):
+                    pipeline: bool = False, fp8_margin: int = 0):
     """loss_fn(params, micro) -> (loss, metrics dict of scalar tensors).
 
     Returns step(state, batch) -> metrics (host floats); batch holds
@@ -100,12 +129,15 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     JAX make_train_step's pipeline mode): loss_fn(params, batch) takes
     the whole [num_micro, ...] batch, runs the pipeline's forward and
     backward itself (models/gpt.py gpt_pipeline_loss) and returns the
-    step's token-mean loss share, so the grads take no 1/num_micro."""
+    step's token-mean loss share, so the grads take no 1/num_micro.
+    fp8_margin: the delayed scaling's margin (a state with fp8, module
+    docstring)."""
 
     tracer = get_tracer()
     if ctx is not None:
         return _grid_step(loss_fn, optimizer, check_nan, ctx, tracer,
-                          _pipelined if pipeline else _accumulate)
+                          _pipelined if pipeline else _accumulate,
+                          fp8_margin)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, float]:
@@ -120,8 +152,9 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                              "are not ported")
         for p in params.values():
             p.grad = None
+        fp8_kw = _fp8_kw(state, fp8_margin)
         num_micro, loss_sum, aux_sum = _accumulate(loss_fn, state, batch,
-                                                   tracer)
+                                                   tracer, fp8_kw)
         inv = 1.0 / num_micro
         with tracer.scope("allreduce"):
             grads = {}
@@ -140,6 +173,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
             if not skipped:
                 optimizer.update(params, grads, state.opt_state,
                                  (norm_h, norm))
+                _install_fp8(state, fp8_kw.get("fp8"))
         del grads
         out = {"loss": loss_h, "grad_norm": norm_h,
                "lr": float(optimizer.sched(state.step)),
@@ -152,7 +186,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
 
 def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
-               tracer, run: Callable):
+               tracer, run: Callable, fp8_margin: int = 0):
     """The train step of a rank grid (module docstring); run: how the
     batch's forward and backward go (_accumulate, or _pipelined)."""
     from megatronapp_tpu_torch.parallel.collectives import all_gather_cat
@@ -160,7 +194,9 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, float]:
         optimizer.zero_grad()
-        num_micro, loss_sum, aux_sum = run(loss_fn, state, batch, tracer)
+        fp8_kw = _fp8_kw(state, fp8_margin)
+        num_micro, loss_sum, aux_sum = run(loss_fn, state, batch, tracer,
+                                           fp8_kw)
         inv = 1.0 / num_micro
         names = list(aux_sum)
         with tracer.scope("allreduce"):
@@ -192,6 +228,7 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
         with tracer.scope("optimizer"):
             if not skipped:
                 optimizer.step(state.opt_state, (norm_h, norm))
+                _install_fp8(state, fp8_kw.get("fp8"))
         optimizer.release_grads()
         out = {"loss": loss_h, "grad_norm": norm_h,
                "lr": float(optimizer.sched(state.step)),
@@ -203,14 +240,17 @@ def _grid_step(loss_fn: Callable, optimizer, check_nan: bool, ctx,
     return step
 
 
-def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False):
+def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False,
+                   fp8_margin: int = 0):
     """Forward-only loss (JAX train_step.py:297): the mean of the
     microbatch losses under torch.no_grad(), on the device (a 0-d fp32
     tensor; the caller reads it back). ctx: the rank grid; the dp (dp ×
     ep) and cp ranks' shares are summed over them. pipeline: loss_fn(params,
     batch, grad=False) runs the pipeline's forward over the whole batch;
     the last stage's dp shares (from tp rank 0) are summed over the
-    world, so every rank reads the loss.
+    world, so every rank reads the loss. A state with fp8 evaluates
+    through the same fp8 forward as training (JAX train_step.py:304), its
+    observations dropped.
 
     Returns eval_step(state, batch), batch as for the train step."""
 
@@ -227,9 +267,11 @@ def make_eval_step(loss_fn: Callable, ctx=None, pipeline: bool = False):
         num_micro = next(iter(batch.values())).shape[0]
         total = torch.zeros((), dtype=torch.float32,
                             device=next(iter(batch.values())).device)
+        fp8_kw = _fp8_kw(state, fp8_margin)
         for i in range(num_micro):
             loss, _ = loss_fn(state.params, {k: v[i]
-                                             for k, v in batch.items()})
+                                             for k, v in batch.items()},
+                              **fp8_kw)
             total = total + loss.float()
         total = total / num_micro
         if ctx is not None:

@@ -31,7 +31,14 @@ parallelism (ctx.cp > 1, JAX attention.py:447-466) each rank holds its
 share of the sequence and attention runs ops/context_parallel.py's mode
 (cfg.cp_comm_type; the zigzag ring when the caller laid the sequence out
 in zigzag order) ahead of the flash / dense choice, on the rank's tp
-heads.
+heads. With ``tp_comm_overlap`` (parallel/overlap.py, where
+``tp_overlap_eligible`` allows it) QKV runs as one ring of x into the
+(q_kernel, kv_kernel) shards and the out-projection through
+``matmul_reduce_scatter``, with their fp8 twins when the caller passes
+the step's fp8 state (training/fp8.py ``Fp8Step``: the layer's 'qkv' and
+'out' sites), as JAX attention.py:146-170 and :570-580 do; where the
+predicates fail, the column/row layers above run and the failed one is
+logged. Serving branches and LoRA never take the rings.
 
 MegaScope's sites sit where the JAX layer puts them: the 'weight'
 disturbance on the three projection kernels, the qkv_q/qkv_k/qkv_v
@@ -58,6 +65,9 @@ from megatronapp_tpu_torch.ops.lora import apply_lora_delta, apply_lora_deltas
 from megatronapp_tpu_torch.ops.normalization import rms_norm
 from megatronapp_tpu_torch.parallel.collectives import (
     copy_to_tp, reduce_from_tp,
+)
+from megatronapp_tpu_torch.parallel.overlap import (
+    all_gather_matmul, matmul_reduce_scatter, overlap_or_log,
 )
 from megatronapp_tpu_torch.ops.paged_attention import (
     WriteIndex, paged_attention_decode, paged_attention_decode_tp,
@@ -205,15 +215,24 @@ def _dense_cache_attention(p, q, k, v, cfg: TransformerConfig,
 
 
 def _out_projection(p, attn, cfg: TransformerConfig, lora=None,
-                    layer_id=None, ctx=None):
+                    layer_id=None, ctx=None, overlap: bool = False,
+                    fp8_site=None):
     """attn [B, S, nq, D] → its 'context' capture, then [B, S, nq·D] @
     out_kernel, the out delta between the product and the bias (JAX
     attention.py:567-585), + out_bias. ctx (training under tp): attn holds
     this rank's heads and out_kernel their rows; the partial products are
-    summed over tp before the bias."""
+    summed over tp before the bias (overlap: by matmul_reduce_scatter's
+    ring, fp8_site its e4m3 twin's)."""
     dt = cfg.compute_dtype
     b, s = attn.shape[:2]
     attn = scope_capture("context", attn, layer_id).reshape(b, s, -1)
+    if overlap:
+        out = matmul_reduce_scatter(
+            attn, weight_of(p["out_kernel"], layer_id, dt), ctx,
+            fp8=fp8_site)
+        if "out_bias" in p:
+            out = out + p["out_bias"].to(dt)
+        return out
     out = attn @ weight_of(p["out_kernel"], layer_id, dt)
     out = apply_lora_delta(out, attn, lora, "out_kernel")
     out = reduce_from_tp(out, ctx)
@@ -231,7 +250,7 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                       write_index: Optional[WriteIndex] = None,
                       segment_ids: Optional[torch.Tensor] = None, ctx=None,
                       kv_scales=None, lora=None, layer_id=None,
-                      zigzag: bool = False):
+                      zigzag: bool = False, fp8=None):
     """x: [B, S, H] → (out [B, S, H], new_cache).
 
     Training (no kv_cache): new_cache is None. attention_mask [B,1,S,S]
@@ -266,7 +285,9 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     attention.py:66-77, :363-367, :403-407). layer_id: the layer's index,
     MegaScope's attribution of its captures and disturbances. zigzag:
     the training caller laid this cp rank's share out in zigzag order
-    (models/gpt.py), so 'p2p' runs the zigzag ring."""
+    (models/gpt.py), so 'p2p' runs the zigzag ring. fp8: the step's fp8
+    state (training/fp8.py Fp8Step), for the training branch's rings
+    (module docstring)."""
     serving = kv_cache is not None
     tp_train = not serving and ctx is not None and ctx.tp > 1
     paged = serving and page_table is not None
@@ -296,10 +317,27 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                 f"tensor-parallel attention needs the q heads ({nq}) and kv "
                 f"heads ({nkv}) to split over tp {ctx.tp} (JAX falls back "
                 "to dense replicated attention there; the port does not)")
+    overlap = tp_train and overlap_or_log(cfg, ctx, nq * d, 2 * nkv * d,
+                                          batch=b * ctx.batch)
+    if fp8 is not None and not overlap:
+        raise ValueError(
+            "fp8 state passed but the tp-overlap rings are not "
+            "eligible here (tp_overlap_eligible is False / decode "
+            "path) — check fp8_ineligible_reason at wiring time")
+    if tp_train:
         nq, nkv = nq // ctx.tp, nkv // ctx.tp
-        x = copy_to_tp(x, ctx)
-    q = x @ weight_of(p["q_kernel"], layer_id, dt)
-    kv = x @ weight_of(p["kv_kernel"], layer_id, dt)
+    if overlap:
+        # One ring of x feeds both column-parallel projections.
+        q, kv = all_gather_matmul(
+            x, (weight_of(p["q_kernel"], layer_id, dt),
+                weight_of(p["kv_kernel"], layer_id, dt)), ctx,
+            fp8=None if fp8 is None else fp8.site(layer_id, "attention",
+                                                  "qkv"))
+    else:
+        if tp_train:
+            x = copy_to_tp(x, ctx)
+        q = x @ weight_of(p["q_kernel"], layer_id, dt)
+        kv = x @ weight_of(p["kv_kernel"], layer_id, dt)
     q, kv = apply_lora_deltas((q, kv), x, lora, ("q_kernel", "kv_kernel"))
     if "q_bias" in p:
         q = q + p["q_bias"].to(dt)
@@ -326,8 +364,10 @@ def attention_forward(p, x: torch.Tensor, cfg: TransformerConfig,
         else:
             attn = _self_attention(q, k, v, cfg, attention_mask,
                                    segment_ids, layer_id)
-        return _out_projection(p, attn, cfg, layer_id=layer_id,
-                               ctx=ctx if tp_train else None), None
+        return _out_projection(
+            p, attn, cfg, layer_id=layer_id, ctx=ctx if tp_train else None,
+            overlap=overlap, fp8_site=None if fp8 is None else fp8.site(
+                layer_id, "attention", "out")), None
 
     if not paged:
         return _dense_cache_attention(p, q, k, v, cfg, attention_mask,

@@ -13,6 +13,18 @@ layer holds ``mlp``: every layer at moe_layer_freq 1, else layer i iff i
 ...]} groups, unstacked into the list). The MoE branch has no MegaScope
 capture of its own (JAX's mlp1 / mlp2 sites are in the dense MLP); the
 layer's 'system' disturbance and 'between_layers' capture stay.
+
+FSDP (a grid ctx with ``parallel.fsdp``, parallel/sharding.py): a
+layer's leaves are this rank's 1/dp shards. ``block_forward`` gathers
+them whole at the layer's entry (``fsdp_view``: one all-gather over the
+stage's dp group) and runs the layer on them inside a non-reentrant
+``torch.utils.checkpoint``, which keeps only the layer's input: the
+gathered leaves die with the forward, and the backward recomputes the
+layer, gathering its leaves again, before the gather's own backward
+reduce-scatters their grads to the shards. That is Megatron's
+reshard-after-forward (core/distributed/custom_fsdp), done by recompute
+of the layer; without it a rank would hold every layer's whole leaves
+until its backward and FSDP would save no memory.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from megatronapp_tpu_torch.ops.fused_decode import (
     fused_layer_decode, fused_layer_multiquery,
 )
 from megatronapp_tpu_torch.ops.normalization import apply_norm
+from megatronapp_tpu_torch.parallel.sharding import fsdp_on, fsdp_view
 from megatronapp_tpu_torch.scope.disturbance import get_disturbance
 from megatronapp_tpu_torch.scope.hooks import scope_capture
 from megatronapp_tpu_torch.transformer.attention import (
@@ -78,7 +91,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
                   chunk_counts=None, write_index=None,
                   fused_decode: bool = False, segment_ids=None, ctx=None,
                   kv_scales=None, lora=None, layer_id=None,
-                  zigzag: bool = False):
+                  zigzag: bool = False, fp8=None):
     """One transformer layer. x: [B,S,H] → ((out, new_cache), aux): aux
     is the MoE layer's aux loss (this rank's share under a training ctx,
     transformer/moe.py), None for a dense layer;
@@ -111,7 +124,8 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     captures and disturbances, then the 'system' disturbance and the
     'between_layers' capture on the layer's output (JAX block.py:196-200).
     zigzag: the training sequence share is in zigzag order (attention's
-    flag, JAX block.py:72).
+    flag, JAX block.py:72). fp8: the step's fp8 state (training/fp8.py
+    Fp8Step) for the training branch's rings.
     The fused body has none of these sites: callers refuse it while any
     is active (megakernel_ineligible_reason)."""
     if fused_decode:
@@ -170,7 +184,7 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
             cache_positions=cache_positions, page_table=page_table,
             chunk_counts=chunk_counts, write_index=write_index,
             segment_ids=segment_ids, ctx=ctx, kv_scales=kv_scales,
-            lora=lora, layer_id=layer_id, zigzag=zigzag)
+            lora=lora, layer_id=layer_id, zigzag=zigzag, fp8=fp8)
     x = residual + attn_out.to(residual.dtype)
     residual = x
     h = apply_norm(cfg.normalization, x, p["ln2_scale"], p.get("ln2_bias"),
@@ -185,7 +199,8 @@ def layer_forward(p, x: torch.Tensor, cfg: TransformerConfig,
     else:
         mlp_out = mlp_forward(p["mlp"], h, cfg, lora=lora,
                               layer_id=layer_id,
-                              ctx=ctx if kv_cache is None else None)
+                              ctx=ctx if kv_cache is None else None,
+                              fp8=fp8)
     x = residual + mlp_out.to(residual.dtype)
     x = get_disturbance().apply("system", x, layer_id)
     x = scope_capture("between_layers", x, layer_id)
@@ -212,21 +227,28 @@ def _remat_wrap(fn, policy: str):
 def block_forward(layers, x: torch.Tensor, cfg: TransformerConfig,
                   rope_cos=None, rope_sin=None, attention_mask=None,
                   segment_ids=None, ctx=None, layer_ids=None,
-                  zigzag: bool = False):
+                  zigzag: bool = False, fp8=None):
     """Run the layers for training (ctx: the rank grid, see
-    layer_forward). layer_ids: each layer's global index (a pipeline
-    stage's chunk, JAX's layer_offset), so MegaScope's sites see the ids
-    one device gives them; default 0, 1, ... zigzag: x is this cp rank's
-    share in zigzag order (JAX block.py:167). Returns (x, moe_aux_sum):
-    the MoE layers' aux losses summed (a zero scalar without them)."""
+    layer_forward; under FSDP each layer gathers its leaves and is
+    recomputed in the backward, module docstring). layer_ids: each
+    layer's global index (a pipeline stage's chunk, JAX's layer_offset),
+    so MegaScope's sites see the ids one device gives them; default 0,
+    1, ... zigzag: x is this cp rank's share in zigzag order (JAX
+    block.py:167). fp8: the step's fp8 state (training/fp8.py Fp8Step).
+    Returns (x, moe_aux_sum): the MoE layers' aux losses summed (a zero
+    scalar without them)."""
+    fsdp = fsdp_on(ctx)
 
     def run_layer(layer_p, h, lid):
+        if fsdp:
+            layer_p = fsdp_view(layer_p, ctx)
         (h2, _), aux = layer_forward(layer_p, h, cfg, rope_cos, rope_sin,
                                      attention_mask, segment_ids=segment_ids,
-                                     ctx=ctx, layer_id=lid, zigzag=zigzag)
+                                     ctx=ctx, layer_id=lid, zigzag=zigzag,
+                                     fp8=fp8)
         return h2, aux
 
-    run_layer = _remat_wrap(run_layer, cfg.remat_policy)
+    run_layer = _remat_wrap(run_layer, "full" if fsdp else cfg.remat_policy)
     if layer_ids is None:
         layer_ids = range(len(layers))
     total = torch.zeros((), dtype=torch.float32, device=x.device)

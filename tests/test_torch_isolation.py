@@ -88,7 +88,9 @@ def test_importing_the_port_loads_no_jax():
             "megatronapp_tpu_torch.training.distributed_optimizer",
             "megatronapp_tpu_torch.ops.cross_entropy",
             "megatronapp_tpu_torch.ops.context_parallel",
-            "megatronapp_tpu_torch.transformer.moe"} <= set(mods)
+            "megatronapp_tpu_torch.transformer.moe",
+            "megatronapp_tpu_torch.parallel.overlap",
+            "megatronapp_tpu_torch.training.fp8"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

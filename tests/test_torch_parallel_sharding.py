@@ -149,9 +149,26 @@ FBD_DPP_FIELDS = {
 }
 
 
+# FSDP, refused until it was ported: it now composes with tp, pp and cp
+# and raises beside ep, naming its own item (tests/test_torch_fsdp.py
+# holds MoE, FBD and DPP).
+FSDP_FIELDS = {"fsdp": (dict(tensor_parallel=2, pipeline_parallel=2,
+                             context_parallel=2),
+                        dict(expert_parallel=2),
+                        "Queue 1 item 4 (FSDP under ep, MoE, FBD and DPP)")}
+
+
 @pytest.mark.parametrize("field", sorted(UNPORTED_PARALLEL_FIELDS)
-                         + sorted(PP_FIELDS) + sorted(FBD_DPP_FIELDS))
+                         + sorted(PP_FIELDS) + sorted(FBD_DPP_FIELDS)
+                         + sorted(FSDP_FIELDS))
 def test_unported_parallel_fields_raise(field):
+    if field in FSDP_FIELDS:
+        good, bad, item = FSDP_FIELDS[field]
+        assert ParallelConfig(**{field: True}, **good).fsdp
+        with pytest.raises(NotImplementedError, match=item.replace(
+                "(", r"\(").replace(")", r"\)")):
+            ParallelConfig(**{field: True}, **bad)
+        return
     if field in FBD_DPP_FIELDS:
         good, bad, msg = FBD_DPP_FIELDS[field]
         assert getattr(ParallelConfig(**{field: True}, **good), field)
@@ -172,19 +189,26 @@ def test_unported_parallel_fields_raise(field):
 
 
 @pytest.mark.parametrize("field,item", [
-    ("fp8", "Queue 1 item 4 (fp8 training)"),
-    ("tp_comm_overlap", "Queue 1 item 4 (TP overlap)")])
+    ("fp8", "--fp8-amax-history-len must be >= 1, got 0"),
+    ("tp_comm_overlap", "--hidden-size (64) is not divisible by "
+                        "--tensor-model-parallel-size (3)")])
 def test_unported_transformer_fields_raise(field, item):
-    """fp8 and the TP overlap rings have no port: the config refuses
-    them instead of training without them (JAX pretrain_gpt refuses an
-    fp8 run it cannot honour)."""
+    """fp8 and the TP overlap rings, refused until they were ported: the
+    config now takes them, off by default, and raises only what JAX's
+    parser raises beside them (its history length; the rings'
+    divisibility, config/transformer_config.py check_tp_comm_overlap)."""
     from megatronapp_tpu_torch.config.transformer_config import (
-        TransformerConfig,
+        TransformerConfig, check_tp_comm_overlap,
     )
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"
-                       .replace("(", r"\(").replace(")", r"\)")):
-        TransformerConfig(**{field: True})
-    assert not getattr(TransformerConfig(), field)
+    cfg = TransformerConfig(hidden_size=64, num_attention_heads=4,
+                            **{field: True})
+    assert getattr(cfg, field) and not getattr(TransformerConfig(), field)
+    with pytest.raises(ValueError, match=item.replace("(", r"\(")
+                       .replace(")", r"\)")):
+        if field == "fp8":
+            TransformerConfig(fp8=True, fp8_amax_history_len=0)
+        check_tp_comm_overlap(cfg, 3)
+    check_tp_comm_overlap(cfg, 2)
 
 
 def test_parallel_config_follows_jax():
@@ -225,8 +249,19 @@ FBD_DPP_FLAGS = {
 }
 
 
+# The TP overlap flags, refused until the rings were ported: each now
+# parses into its field, and exits on what JAX's parser refuses.
+OVERLAP_FLAGS = {
+    "--tp-comm-overlap": (["--tp-comm-overlap"], "tp_comm_overlap", True),
+    "--dist-opt-comm": (["--dist-opt-comm", "ring"], "dist_opt_comm",
+                        "ring"),
+}
+
+
 @pytest.mark.parametrize("flag", sorted(entry.UNPORTED_FLAGS)
-                         + sorted(PP_FLAGS) + sorted(FBD_DPP_FLAGS))
+                         + sorted(PP_FLAGS) + sorted(FBD_DPP_FLAGS)
+                         + sorted(OVERLAP_FLAGS)
+                         + sorted(entry.NOT_JAX_FLAGS))
 def test_entry_point_refuses_unported_axes(flag, capsys):
     if flag in FBD_DPP_FLAGS:
         bad, msg = FBD_DPP_FLAGS[flag]
@@ -255,12 +290,22 @@ def test_entry_point_refuses_unported_axes(flag, capsys):
             else capsys.readouterr().err
         assert msg in got
         return
-    argv = [flag] if flag in ("--tp-comm-overlap", "--use-custom-fsdp") \
-        else [flag, "2"]
+    if flag in OVERLAP_FLAGS:
+        argv, field, value = OVERLAP_FLAGS[flag]
+        base = ["--tensor-model-parallel-size", "2"]
+        model, _, opt = entry.configs_from_args(entry.parse_args(base +
+                                                                 argv))
+        assert getattr(model if field == "tp_comm_overlap" else opt,
+                       field) == value
+        with pytest.raises(SystemExit):
+            entry.parse_args(base + [flag, "allgather"] if value == "ring"
+                             else base + [flag, "x"])
+        return
     with pytest.raises(SystemExit):
-        entry.parse_args(argv)
+        entry.parse_args([flag])
     err = capsys.readouterr().err
-    assert flag in err and f"ROADMAP.md {entry.UNPORTED_FLAGS[flag]}" in err
+    assert flag in err and entry.NOT_JAX_FLAGS[flag] in err
+    assert "ParallelConfig(fsdp=True)" in err
 
 
 def test_entry_point_parses_the_grid_flags(capsys):
@@ -289,10 +334,15 @@ def test_entry_point_parses_the_grid_flags(capsys):
 
 
 def test_optimizer_refusals_name_their_items():
+    """bf16 params still refuse (Queue 1 item 3); dist_opt_comm, refused
+    until the ring ZeRO-1 return was ported, takes JAX's three modes and
+    refuses any other."""
     with pytest.raises(ValueError, match="Queue 1 item 3"):
         OptimizerConfig(main_params_dtype="bf16")
-    with pytest.raises(ValueError, match="TP overlap"):
-        OptimizerConfig(dist_opt_comm="ring")
+    for comm in ("gspmd", "ring", "bulk"):
+        assert OptimizerConfig(dist_opt_comm=comm).dist_opt_comm == comm
+    with pytest.raises(ValueError, match="takes"):
+        OptimizerConfig(dist_opt_comm="allgather")
 
 
 def test_grid_refusals():

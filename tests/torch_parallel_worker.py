@@ -17,6 +17,7 @@ through a FileStore of its own (a case of 2 ranks leaves ranks 2 and 3
 idle), runs the case's kind and reports, and leaves the group.
 """
 
+import contextlib
 import os
 import signal
 
@@ -141,6 +142,9 @@ def _train(case, ctx):
                                res.state.params.parameters()),
            "interrupted": res.interrupted, "step": res.state.step,
            "eval_losses": res.eval_losses}
+    if res.state.fp8 is not None:
+        from megatronapp_tpu_torch.training.fp8 import flat_fp8
+        out["fp8"] = {k: _np(t) for k, t in flat_fp8(res.state.fp8).items()}
     named = dict(res.state.params.named_parameters())
     if "embedding.word" in named:
         # A tied model's copy of the word embedding on this stage.
@@ -362,10 +366,225 @@ def _refuse(case, ctx):
     return {"raised": None}
 
 
+def _rows(a, ctx):
+    """This rank's dp rows (dim 0) of a whole numpy array, as a tensor."""
+    n = a.shape[0] // ctx.dp
+    return torch.from_numpy(a[ctx.dp_rank * n:(ctx.dp_rank + 1) * n].copy())
+
+
+def _cols(t, ctx):
+    n = t.shape[-1] // ctx.tp
+    return t[..., ctx.tp_rank * n:(ctx.tp_rank + 1) * n]
+
+
+_BULK = {}
+
+
+def _bulk_forms():
+    """JAX's bulk forward forms (_bulk_ag_mm: one all-gather of x, then
+    the GEMMs; _bulk_mm_rs: the whole partial product, then an unfused
+    reduce-scatter ring) as subclasses of the ring Functions, keeping
+    their fused ring backward: the reference the ring forms are held
+    against."""
+    if _BULK:
+        return _BULK
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel import overlap as ov
+
+    class BulkAgMm(ov._AgMm):
+        @staticmethod
+        def forward(fctx, ctx, xl, *ws):
+            fctx.mesh = ctx
+            fctx.save_for_backward(xl, *ws)
+            x_full = collectives.all_gather_cat(xl, ctx, "tp", 1)
+            return tuple(x_full @ w for w in ws)
+
+    class BulkMmRs(ov._MmRs):
+        @staticmethod
+        def forward(fctx, ctx, yl, wl):
+            fctx.mesh = ctx
+            fctx.save_for_backward(yl, wl)
+            tp, me = ctx.tp, ctx.tp_rank
+            full = yl @ wl
+            sc = full.shape[1] // tp
+
+            def chunk(c):
+                return full[:, c * sc:(c + 1) * sc]
+
+            acc = chunk((me + 1) % tp)
+            for step in range(1, tp):
+                moving = collectives.axis_ring_hop(
+                    ctx, [acc.contiguous()], "tp").wait()[0]
+                acc = moving + chunk((me + 1 + step) % tp)
+            return acc
+
+    _BULK.update(_AgMm=BulkAgMm, _MmRs=BulkMmRs)
+    return _BULK
+
+
+@contextlib.contextmanager
+def _forms(bulk: bool):
+    """The public ring functions with the bulk forward forms in place of
+    the ring ones while `bulk`."""
+    from megatronapp_tpu_torch.parallel import overlap as ov
+    if not bulk:
+        yield
+        return
+    saved = {k: getattr(ov, k) for k in _bulk_forms()}
+    for k, v in _bulk_forms().items():
+        setattr(ov, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(ov, k, v)
+
+
+def _ring_run(run, ctx, fp8_site=None):
+    """One parallel/overlap.py primitive run of a case (see
+    tests/test_torch_overlap.py): this rank's output, input grads and
+    weight-shard grads. The Functions leave a rank its own batch rows'
+    wgrads (the trainer's flat-buffer reduction sums them over dp), so
+    they are summed over the batch group here, as JAX's rings sum them."""
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.parallel.overlap import (
+        all_gather_matmul, matmul_reduce_scatter, tp_columns, tp_rows,
+    )
+
+    def dw(w):
+        return _np(collectives.all_reduce(w.grad, ctx, "batch"))
+
+    kind = run["kind"]
+    with _forms(not run.get("overlap", True)):
+        if kind in ("ag", "ag2"):
+            x = _rows(run["x"], ctx).requires_grad_()
+            ws = [tp_columns(torch.from_numpy(w), ctx).requires_grad_()
+                  for w in run["ws"]]
+            ys = all_gather_matmul(x, tuple(ws), ctx, fp8=fp8_site)
+            loss = sum((y * _cols(_rows(c, ctx), ctx)).sum()
+                       for y, c in zip(ys, run["coefs"]))
+            loss.backward()
+            return {"ys": [_np(y) for y in ys], "dx": _np(x.grad),
+                    "dws": [dw(w) for w in ws]}
+        if kind == "rs":
+            y = _cols(_rows(run["y"], ctx), ctx).contiguous() \
+                .requires_grad_()
+            w = tp_rows(torch.from_numpy(run["w"]), ctx).requires_grad_()
+            out = matmul_reduce_scatter(y, w, ctx, fp8=fp8_site)
+            (out * _rows(run["coef"], ctx)).sum().backward()
+            return {"out": _np(out), "dy": _np(y.grad), "dw": dw(w)}
+        # "chain": sum(mm_rs(ag_mm(x, w), w2) ** 2)
+        x = _rows(run["x"], ctx).requires_grad_()
+        w = tp_columns(torch.from_numpy(run["w"]), ctx).requires_grad_()
+        w2 = tp_rows(torch.from_numpy(run["w2"]), ctx).requires_grad_()
+        out = matmul_reduce_scatter(all_gather_matmul(x, w, ctx), w2, ctx)
+        (out ** 2).sum().backward()
+        return {"out": _np(out), "dx": _np(x.grad), "dw": dw(w),
+                "dw2": dw(w2)}
+
+
+def _overlap(case, ctx):
+    """Each run of the case through the ring primitives, with the
+    collectives it counted."""
+    from megatronapp_tpu_torch.parallel import collectives
+    out = {}
+    for key, run in case["runs"].items():
+        collectives.reset_counts()
+        out[key] = _ring_run(run, ctx)
+        out[key]["traffic"] = {k: dict(v) for k, v in
+                               collectives.traffic.items()}
+    return out
+
+
+def _fp8_rings(case, ctx):
+    """The fp8 ring Functions on each run with a fresh Fp8Step over the
+    case's history: outputs, grads, and the step's observations."""
+    from megatronapp_tpu_torch.parallel import collectives
+    from megatronapp_tpu_torch.training.fp8 import Fp8Step
+    out = {}
+    for key, run in case["runs"].items():
+        n = run["hist"].shape[0]
+        state = {"block": {"m": {"s": {
+            "hist": torch.from_numpy(run["hist"][None].copy()),
+            "sat": torch.zeros((1, n))}}}}
+        step = Fp8Step(state, run.get("margin", 0))
+        collectives.reset_counts()
+        rep = _ring_run(run, ctx, fp8_site=step.site(0, "m", "s"))
+        obs = step.observed["block"]["m"]["s"]
+        rep.update(hist=_np(obs["hist"][0]), sat=_np(obs["sat"][0]),
+                   traffic={k: dict(v) for k, v in
+                            collectives.traffic.items()})
+        out[key] = rep
+    return out
+
+
+def _spans(case, ctx):
+    """The chain run of the case inside one traced iteration (the tracer
+    on this rank's CPU clock): its span records; then the same run
+    untraced, whose records must be none."""
+    import tempfile
+
+    from megatronapp_tpu_torch.trace.tracer import get_tracer
+    tracer = get_tracer()
+    tracer.configure(enabled=True, trace_dir=tempfile.mkdtemp(),
+                     interval=1, continuous_iterations=1, rank=ctx.rank)
+    try:
+        tracer.iteration_begin(0)
+        _ring_run(case["run"], ctx)
+        tracer.iteration_end(0)
+        recs = tracer.drain()
+    finally:
+        tracer.configure(enabled=False)
+    _ring_run(case["run"], ctx)
+    return {"records": [{k: r[k] for k in ("name", "ph", "tid", "args")}
+                        for r in recs if "overlap" in r["name"]],
+            "after": len(tracer.drain())}
+
+
+def _layers_overlap(case, ctx):
+    """mlp_forward / attention_forward with tp_comm_overlap off and on,
+    on this rank's shards of the case's whole params: the max abs
+    difference of the outputs and of every param shard's and the input's
+    grads of sum(out²), and the largest magnitudes."""
+    import dataclasses
+
+    from megatronapp_tpu_torch.models.gpt import gpt_rope_tables
+    from megatronapp_tpu_torch.parallel.sharding import shard_tree
+    from megatronapp_tpu_torch.transformer.attention import (
+        attention_forward,
+    )
+    from megatronapp_tpu_torch.transformer.mlp import mlp_forward
+    from megatronapp_tpu_torch.utils.params import ParamTree
+    cfg0 = case["cfg"]
+
+    def tree(leaves):
+        return ParamTree({k: torch.from_numpy(np.asarray(v, np.float32))
+                          for k, v in leaves.items()})
+
+    res = []
+    for on in (False, True):
+        cfg = dataclasses.replace(cfg0, tp_comm_overlap=on)
+        p = shard_tree(tree(case["params"]), ctx)
+        p.requires_grad_(True)
+        x = _rows(case["x"], ctx).requires_grad_()
+        if case["layer"] == "mlp":
+            out = mlp_forward(p, x, cfg, ctx=ctx)
+        else:
+            cos, sin = gpt_rope_tables(cfg, x.shape[1])
+            out, _ = attention_forward(p, x, cfg, cos, sin, ctx=ctx)
+        (out ** 2).sum().backward()
+        res.append({"out": out.detach(), "dx": x.grad,
+                    **{n: q.grad for n, q in p.named_parameters()}})
+    a, b = res
+    return {"diff": {k: float((a[k] - b[k]).abs().max()) for k in a},
+            "scale": {k: float(a[k].abs().max()) for k in a}}
+
+
 KINDS = {"grads": _grads, "train": _train, "roundtrip": _roundtrip,
          "trace": _trace, "ce": _ce, "pp_grads": _pp_grads,
          "split": _split, "fbd": _fbd, "cp_attn": _cp_attn,
-         "refuse": _refuse}
+         "refuse": _refuse, "overlap": _overlap, "fp8_rings": _fp8_rings,
+         "spans": _spans, "layers_overlap": _layers_overlap}
 
 
 def run_rank(rank, store, cases, out_q):
